@@ -1,0 +1,33 @@
+"""griduniverse_tpu_torch — the PyTorch/CUDA port of griduniverse_tpu.
+
+The same gridworld engine on natively batched torch tensors, with the hot
+loops as hand-written CUDA kernels for Hopper (`csrc/`, bound by
+`kernels/`). The JAX package `griduniverse_tpu` is the reference; module
+paths and public names mirror it.
+
+Subpackages:
+  core      — semantics tables, containers, batched step/reset, model table
+  levels    — text-level I/O, builders, maze generation (K3)
+  ops       — generic rollouts and the bit-packed engine (K1, K2)
+  kernels   — build, binding and launch counts of the CUDA kernels
+  utils     — conversion of the reference's objects into the port's
+  tools     — command-line tools for the card (profile_rollout)
+"""
+
+from .core.model import ModelTable, build_model_table
+from .core.semantics import (
+    DEFAULT_CONFIG,
+    EMPTY,
+    GOAL,
+    LAVA,
+    NUM_ACTIONS,
+    NUM_TILE_TYPES,
+    WALL,
+    Semantics,
+    SemanticsConfig,
+    make_semantics,
+)
+from .core.step import observe, reset, step, step_autoreset, step_autoreset_truncated
+from .core.types import EnvState, Level, StepResult, make_level
+
+__version__ = "0.1.0"

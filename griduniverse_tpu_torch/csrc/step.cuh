@@ -1,0 +1,94 @@
+// step.cuh — the device step of the bit-packed engine, shared by the
+// rollout kernels K1 and K2 (rollout.cu).
+//
+// Replaces: griduniverse_tpu/ops/bitplane.py `move_bits` (160) with its
+// callees `tile_code` (140) and `_per_code` (154). The JAX version looks a
+// tile code up with a select tree over the packed words, because the TPU
+// has no cross-lane gather. On Hopper a lookup is one indexed load, so the
+// step reads `(w[idx >> 4] >> ((idx & 15) * 2)) & 3` directly.
+//
+// Bound on the card: the step is a short chain of dependent integer ops
+// and two lookups (the packed word, then the per-code tables), so a thread
+// is latency bound. The tables sit in shared memory and the packed level
+// in shared memory (shared level) or in L1/L2 (per-env levels, 4 bytes per
+// 16 tiles), so the step touches no device memory in steady state.
+
+#pragma once
+
+#include <cstdint>
+
+namespace gu {
+
+constexpr int kNumCodes = 4;
+constexpr int kMaxActions = 8;
+constexpr int kMaxWords = 1024;  // MAX_PACKED_STATES / 16
+
+// Semantics tables, loaded once per block into shared memory.
+struct Tables {
+  float reward[kNumCodes];
+  int drow[kMaxActions];
+  int dcol[kMaxActions];
+  int passable;  // bit c set: tile code c can be entered
+  int terminal;  // bit c set: entering tile code c ends the episode
+  int num_actions;
+};
+
+// Thread 0 fills `s`; the caller runs __syncthreads() afterwards.
+__device__ inline void load_tables(Tables& s, const uint8_t* passable,
+                                   const uint8_t* terminal, const float* reward,
+                                   const int* deltas, int num_actions) {
+  if (threadIdx.x != 0) return;
+  int p = 0, t = 0;
+  for (int c = 0; c < kNumCodes; ++c) {
+    p |= (passable[c] != 0) << c;
+    t |= (terminal[c] != 0) << c;
+    s.reward[c] = reward[c];
+  }
+  s.passable = p;
+  s.terminal = t;
+  for (int a = 0; a < num_actions; ++a) {
+    s.drow[a] = deltas[2 * a];
+    s.dcol[a] = deltas[2 * a + 1];
+  }
+  s.num_actions = num_actions;
+}
+
+__device__ __forceinline__ int tile_code(const uint32_t* words, int idx) {
+  return static_cast<int>((words[idx >> 4] >> ((idx & 15) * 2)) & 3u);
+}
+
+// Out-of-range actions follow XLA's gather: negative counts from the end,
+// then clip to [0, n).
+__device__ __forceinline__ int clamp_action(int a, int n) {
+  if (a < 0) a += n;
+  return a < 0 ? 0 : (a >= n ? n - 1 : a);
+}
+
+struct Move {
+  int idx;
+  int code;
+  float reward;
+  bool done;
+};
+
+// (idx, code at idx, action) -> (new idx, new code, reward, terminal),
+// bit-exactly the JAX `move_bits`.
+__device__ __forceinline__ Move move_bits(const Tables& s, const uint32_t* words,
+                                          int h, int w, int idx, int code, int a) {
+  const int row = idx / w;
+  const int col = idx - row * w;
+  const int nrow = row + s.drow[a];
+  const int ncol = col + s.dcol[a];
+  const bool in_bounds = nrow >= 0 && nrow < h && ncol >= 0 && ncol < w;
+  const int cand = min(max(nrow, 0), h - 1) * w + min(max(ncol, 0), w - 1);
+  const int cand_code = tile_code(words, cand);
+  const bool blocked = !in_bounds || !((s.passable >> cand_code) & 1);
+  Move m;
+  m.idx = blocked ? idx : cand;
+  m.code = blocked ? code : cand_code;
+  m.reward = s.reward[m.code];
+  m.done = (s.terminal >> m.code) & 1;
+  return m;
+}
+
+}  // namespace gu

@@ -1,0 +1,43 @@
+"""Hand-written CUDA kernels for Hopper, their build and their launch counts.
+
+K1 `random_scan_bits` and K2 `rollout_actions_bits` live in
+`csrc/rollout.cu` (with the device step in `csrc/step.cuh`), K3
+`aldous_broder_mazes` in `csrc/maze.cu`. `build.load()` compiles them with
+`nvcc` for `sm_90a` at first use.
+
+Dispatch rule, applied by the public functions in `ops/` and `levels/`:
+tensors on the CPU take the plain PyTorch version beside each kernel;
+CUDA tensors launch the kernel, or raise. There is no fallback.
+
+`LAUNCHES[name]` counts the launches of each kernel: a wrapper adds one
+right after the launch it made succeeded, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES: dict[str, int] = {
+    "random_scan_bits": 0,
+    "rollout_actions_bits": 0,
+    "aldous_broder_mazes": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_cuda(*items) -> bool:
+    """True if every tensor (or device) lies on a CUDA device, False if
+    every one lies on the CPU; raises for a mix or any other device."""
+    kinds = {
+        (x.device if isinstance(x, torch.Tensor) else torch.device(x)).type
+        for x in items
+    }
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"tensors must all be on the CPU or all on CUDA; got {sorted(kinds)}")

@@ -1,0 +1,55 @@
+"""Wrapper of K3 (`csrc/maze.cu`): check, allocate, launch.
+
+The plain PyTorch version is `levels.maze.aldous_broder_mazes_reference`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import LAUNCHES
+from .build import check_int, check_tensor, launch
+
+MAX_CELLS = 256
+
+
+def aldous_broder_mazes_cuda(
+    cells: tuple[int, int],
+    batch_size: int,
+    max_iters: int,
+    *,
+    directions: torch.Tensor | None = None,
+    seed: int = 0,
+    device=None,
+) -> torch.Tensor:
+    """Launch K3 on `device` (or on the device of `directions`). Injected
+    mode walks maze b by `directions[t, b]` (int8, at least `max_iters`
+    rows); seeded mode draws from per-maze xorshift32 streams keyed by
+    `seed`. Returns (B, 2ch+1, 2cw+1) int32 grids."""
+    ch, cw = (int(c) for c in cells)
+    if ch < 1 or cw < 1 or ch * cw > MAX_CELLS:
+        raise ValueError(f"cells {cells}: the kernel takes 1..{MAX_CELLS} cells")
+    batch_size = check_int("batch_size", batch_size, low=1)
+    max_iters = check_int("max_iters", max_iters)
+    device = torch.device(device) if directions is None else directions.device
+    if device.type != "cuda":
+        raise ValueError(f"aldous_broder_mazes_cuda takes a CUDA device, got {device}")
+    dirs_ptr = None
+    if directions is not None:
+        rows = int(directions.shape[0]) if directions.dim() == 2 else 0
+        if rows < max_iters:
+            raise ValueError(f"directions has {rows} rows, fewer than max_iters={max_iters}")
+        dirs_ptr = check_tensor(
+            "directions", directions, torch.int8, (rows, batch_size), device
+        )
+    seed = int(seed) & 0xFFFFFFFF
+    seed = seed - (1 << 32) if seed >= (1 << 31) else seed  # C int, same bits
+    grids = torch.empty(
+        (batch_size, 2 * ch + 1, 2 * cw + 1), dtype=torch.int32, device=device
+    )
+    launch(
+        "gu_aldous_broder_mazes", device,
+        ch, cw, batch_size, max_iters, dirs_ptr, seed, grids.data_ptr(),
+    )
+    LAUNCHES["aldous_broder_mazes"] += 1
+    return grids

@@ -1,0 +1,122 @@
+"""Wrappers of K1 and K2 (`csrc/rollout.cu`): check, allocate, launch.
+
+The plain PyTorch versions are `ops.bitplane.random_scan_bits_reference`
+and `ops.bitplane.rollout_actions_bits_reference`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import LAUNCHES
+from .build import check_int, check_tensor, launch
+
+MAX_ACTIONS = 8
+MAX_WORDS = 1024
+
+
+def _tables(passable, terminal, reward, deltas, device):
+    a = int(deltas.shape[0])
+    if not 1 <= a <= MAX_ACTIONS:
+        raise ValueError(f"the kernels take 1..{MAX_ACTIONS} actions, got {a}")
+    return [
+        check_tensor("passable", passable, torch.bool, (4,), device),
+        check_tensor("terminal", terminal, torch.bool, (4,), device),
+        check_tensor("reward", reward, torch.float32, (4,), device),
+        check_tensor("deltas", deltas, torch.int32, (a, 2), device),
+        a,
+    ]
+
+
+def _level(code_words, start_idx, start_code, height, width, batch, device):
+    """Check a packed level against `batch` envs; return its C arguments."""
+    check_int("batch", batch, low=1)
+    n_words = -(-(height * width) // 16)
+    if n_words > MAX_WORDS:
+        raise ValueError(f"{height}x{width} level exceeds {MAX_WORDS} packed words")
+    per_env = code_words.dim() == 2
+    lead = (batch,) if per_env else ()
+    return [
+        check_tensor("code_words", code_words, torch.int32, lead + (n_words,), device),
+        n_words,
+        int(per_env),
+        check_tensor("start_idx", start_idx, torch.int32, lead, device),
+        check_tensor("start_code", start_code, torch.int32, lead, device),
+        height,
+        width,
+    ]
+
+
+def _max_steps(max_episode_steps) -> int:
+    """None (no time limit) is -1 for the kernel."""
+    if max_episode_steps is None:
+        return -1
+    return check_int("max_episode_steps", max_episode_steps)
+
+
+def random_scan_bits_cuda(
+    passable, terminal, reward, deltas,
+    code_words, start_idx, start_code, height, width,
+    agent_idx, agent_code, t, rs,
+    num_steps: int, max_episode_steps: int | None,
+):
+    """Launch K1. Returns the final (agent_idx, agent_code, t, done) and
+    the per-env (n_eps int32, ret_sum float32, len_sum int32)."""
+    device = code_words.device
+    if device.type != "cuda":
+        raise ValueError(f"random_scan_bits_cuda takes CUDA tensors, got {device}")
+    b = int(agent_idx.shape[0]) if agent_idx.dim() == 1 else 0
+    args = _tables(passable, terminal, reward, deltas, device)
+    args += _level(code_words, start_idx, start_code, height, width, b, device)
+    args += [b, check_int("num_steps", num_steps), _max_steps(max_episode_steps)]
+    args += [
+        check_tensor("agent_idx", agent_idx, torch.int32, (b,), device),
+        check_tensor("agent_code", agent_code, torch.int32, (b,), device),
+        check_tensor("t", t, torch.int32, (b,), device),
+        check_tensor("rs", rs, torch.int32, (b,), device),
+    ]
+    outs = [torch.empty(b, dtype=torch.int32, device=device) for _ in range(3)]
+    outs.append(torch.empty(b, dtype=torch.bool, device=device))
+    n_eps = torch.empty(b, dtype=torch.int32, device=device)
+    ret_sum = torch.empty(b, dtype=torch.float32, device=device)
+    len_sum = torch.empty(b, dtype=torch.int32, device=device)
+    outs += [n_eps, ret_sum, len_sum]
+    launch("gu_random_scan_bits", device, *args, *[o.data_ptr() for o in outs])
+    LAUNCHES["random_scan_bits"] += 1
+    return tuple(outs)
+
+
+def rollout_actions_bits_cuda(
+    passable, terminal, reward, deltas,
+    code_words, start_idx, start_code, height, width,
+    agent_idx, agent_code, t, done,
+    actions, auto_reset: bool, max_episode_steps: int | None,
+):
+    """Launch K2. Returns the final (agent_idx, agent_code, t, done) and the
+    (T, B) trajectories (obs int32, reward float32, done bool)."""
+    device = actions.device
+    if device.type != "cuda":
+        raise ValueError(f"rollout_actions_bits_cuda takes CUDA tensors, got {device}")
+    if actions.dim() != 2:
+        raise ValueError(f"actions must be (T, B), got shape {tuple(actions.shape)}")
+    if max_episode_steps is not None and not auto_reset:
+        raise ValueError("max_episode_steps requires auto_reset=True")
+    n_steps, b = int(actions.shape[0]), int(actions.shape[1])
+    args = _tables(passable, terminal, reward, deltas, device)
+    args += _level(code_words, start_idx, start_code, height, width, b, device)
+    args += [b, check_int("num_steps", n_steps), int(bool(auto_reset)), _max_steps(max_episode_steps)]
+    args += [
+        check_tensor("actions", actions, torch.int32, (n_steps, b), device),
+        check_tensor("agent_idx", agent_idx, torch.int32, (b,), device),
+        check_tensor("agent_code", agent_code, torch.int32, (b,), device),
+        check_tensor("t", t, torch.int32, (b,), device),
+        check_tensor("done", done, torch.bool, (b,), device),
+    ]
+    outs = [torch.empty(b, dtype=torch.int32, device=device) for _ in range(3)]
+    outs.append(torch.empty(b, dtype=torch.bool, device=device))
+    outs.append(torch.empty((n_steps, b), dtype=torch.int32, device=device))
+    outs.append(torch.empty((n_steps, b), dtype=torch.float32, device=device))
+    outs.append(torch.empty((n_steps, b), dtype=torch.bool, device=device))
+    launch("gu_rollout_actions_bits", device, *args, *[o.data_ptr() for o in outs])
+    LAUNCHES["rollout_actions_bits"] += 1
+    return tuple(outs)
