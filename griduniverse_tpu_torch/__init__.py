@@ -9,9 +9,11 @@ Subpackages:
   core      — semantics tables, containers, batched step/reset, model table
   levels    — text-level I/O, builders, maze generation (K3)
   ops       — generic rollouts and the bit-packed engine (K1, K2)
+  algos     — tabular solvers: DP over one or N mazes (K4), shared-Q TD
+              (K5), per-maze TD (K6), the generic TD learners (K10)
   kernels   — build, binding and launch counts of the CUDA kernels
   utils     — conversion of the reference's objects into the port's
-  tools     — command-line tools for the card (profile_rollout)
+  tools     — command-line tools for the card (profile_rollout, profile_solvers)
 """
 
 from .core.model import ModelTable, build_model_table

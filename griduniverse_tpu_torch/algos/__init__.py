@@ -1,0 +1,51 @@
+"""On-device tabular solvers — counterpart of `griduniverse_tpu/algos`.
+
+The reference's Monte-Carlo and TD(λ) modules (`mc`, `td_lambda`) are not
+ported yet (ROADMAP.md queue 1).
+"""
+
+from .dp import (
+    action_values,
+    greedy_policy_improvement,
+    policy_evaluation,
+    policy_iteration,
+    value_iteration,
+)
+from .dp_batched import (
+    action_values_batched,
+    build_model_tables,
+    policy_evaluation_batched,
+    policy_iteration_batched,
+    policy_iteration_batched_grid,
+    value_iteration_batched,
+    value_iteration_batched_grid,
+)
+from .td import (
+    DoubleTDResult,
+    TDResult,
+    apply_td_updates,
+    double_q_learning,
+    epsilon_greedy,
+    expected_sarsa,
+    q_learning,
+    sarsa,
+    td_error_expected_sarsa,
+    td_error_qlearning,
+    td_error_sarsa,
+)
+from .td_batched import BatchedTDResult, BatchedTDState, q_learning_batched
+from .td_fast import (
+    FastTDResult,
+    FastTDTrainState,
+    compile_fast_td_run,
+    compile_q_learning_fast,
+    fast_td_init,
+    fast_td_result,
+)
+from .utils import (
+    greedy_policy_from_q,
+    greedy_policy_from_v,
+    policy_arrows,
+    run_greedy_episode,
+    value_grid,
+)

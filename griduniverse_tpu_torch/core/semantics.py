@@ -15,6 +15,8 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
+from ..utils.platform import resolve_device
+
 # Tile codes (int32 on device). START is a parser-level marker only: the
 # parser records the start position and stores EMPTY in the grid.
 EMPTY: int = 0
@@ -115,8 +117,10 @@ class Semantics:
 def make_semantics(
     config: SemanticsConfig | None = None, *, device=None
 ) -> Semantics:
-    """Build the semantics tables from a host config on `device`."""
+    """Build the semantics tables from a host config on `device` (default:
+    the card)."""
     config = config or SemanticsConfig()
+    device = resolve_device(device)
     passable, terminal, reward, deltas = config.numpy_tables()
     return Semantics(
         passable=torch.as_tensor(passable, device=device),

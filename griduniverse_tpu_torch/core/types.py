@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.platform import resolve_device
+
 
 @dataclasses.dataclass
 class Level:
@@ -53,7 +55,9 @@ class Level:
 
 def make_level(grid, start_idx, *, device=None) -> Level:
     """Validate a host grid (H, W) or a batch of grids (B, H, W) and upload
-    it to `device`. `start_idx` is an int, or one int per grid."""
+    it to `device` (default: the card). `start_idx` is an int, or one int
+    per grid."""
+    device = resolve_device(device)
     grid = np.asarray(grid, dtype=np.int32)
     if grid.ndim not in (2, 3):
         raise ValueError(

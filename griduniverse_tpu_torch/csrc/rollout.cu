@@ -62,37 +62,19 @@ __global__ void random_scan_bits_kernel(
 
   int idx = idx_in[b], code = code_in[b], t = t_in[b];
   uint32_t rs = rs_in[b];
-  float run_ret = 0.0f, ret_sum = 0.0f;
-  int n_eps = 0, len_sum = 0;
+  gu::Episode ep{0.0f, 0.0f, 0, 0};
   for (int step = 0; step < num_steps; ++step) {
-    rs ^= rs << 13;
-    rs ^= rs >> 17;
-    rs ^= rs << 5;
+    rs = gu::xorshift32(rs);
     const int a = static_cast<int>((rs >> 9) % na);  // top bits are the strongest
-    const gu::Move m = gu::move_bits(tab, lw, h, w, idx, code, a);
-    const bool done = m.done || (max_episode_steps >= 0 && t + 1 >= max_episode_steps);
-    run_ret += m.reward;
-    if (done) {
-      n_eps += 1;
-      ret_sum += run_ret;
-      len_sum += t + 1;
-      run_ret = 0.0f;
-      idx = s_idx;
-      code = s_code;
-      t = 0;
-    } else {
-      idx = m.idx;
-      code = m.code;
-      t += 1;
-    }
+    gu::step_autoreset(tab, lw, h, w, s_idx, s_code, max_episode_steps, a, idx, code, t, ep);
   }
   idx_out[b] = idx;
   code_out[b] = code;
   t_out[b] = t;
   done_out[b] = 0;
-  n_eps_out[b] = n_eps;
-  ret_sum_out[b] = ret_sum;
-  len_sum_out[b] = len_sum;
+  n_eps_out[b] = ep.n_eps;
+  ret_sum_out[b] = ep.ret_sum;
+  len_sum_out[b] = ep.len_sum;
 }
 
 __global__ void rollout_actions_bits_kernel(
@@ -124,25 +106,18 @@ __global__ void rollout_actions_bits_kernel(
 
   int idx = idx_in[b], code = code_in[b], t = t_in[b];
   bool was_done = auto_reset ? false : (done_in[b] != 0);
+  gu::Episode unused{0.0f, 0.0f, 0, 0};
   for (int step = 0; step < num_steps; ++step) {
     const size_t o = static_cast<size_t>(step) * batch + b;
     const int a = gu::clamp_action(actions[o], num_actions);
-    const gu::Move m = gu::move_bits(tab, lw, h, w, idx, code, a);
     if (auto_reset) {
-      const bool done = m.done || (max_episode_steps >= 0 && t + 1 >= max_episode_steps);
-      obs_traj[o] = m.idx;
-      reward_traj[o] = m.reward;
-      done_traj[o] = done;
-      if (done) {
-        idx = s_idx;
-        code = s_code;
-        t = 0;
-      } else {
-        idx = m.idx;
-        code = m.code;
-        t += 1;
-      }
+      const gu::Transition tr = gu::step_autoreset(
+          tab, lw, h, w, s_idx, s_code, max_episode_steps, a, idx, code, t, unused);
+      obs_traj[o] = tr.obs;
+      reward_traj[o] = tr.reward;
+      done_traj[o] = tr.done;
     } else {
+      const gu::Move m = gu::move_bits(tab, lw, h, w, idx, code, a);
       if (was_done) {  // frozen after termination
         reward_traj[o] = 0.0f;
       } else {

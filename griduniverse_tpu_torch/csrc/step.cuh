@@ -1,5 +1,6 @@
 // step.cuh — the device step of the bit-packed engine, shared by the
-// rollout kernels K1 and K2 (rollout.cu).
+// rollout kernels K1 and K2 (rollout.cu) and the TD kernels K5
+// (td_fast.cu) and K6 (td_batched.cu).
 //
 // Replaces: griduniverse_tpu/ops/bitplane.py `move_bits` (160) with its
 // callees `tile_code` (140) and `_per_code` (154). The JAX version looks a
@@ -89,6 +90,80 @@ __device__ __forceinline__ Move move_bits(const Tables& s, const uint32_t* words
   m.reward = s.reward[m.code];
   m.done = (s.terminal >> m.code) & 1;
   return m;
+}
+
+// What one auto-reset step hands back beside the new env state: the
+// transition's own (obs, reward, done), as `step_bits(auto_reset=True)`.
+struct Transition {
+  int obs;
+  float reward;
+  bool done;
+};
+
+// Per-env episode accumulators, folded in the reference's order of float
+// adds: run_ret += r; on done, n_eps += 1, ret_sum += run_ret, len_sum +=
+// the episode's length, and run_ret starts again at 0.
+struct Episode {
+  float run_ret;
+  float ret_sum;
+  int n_eps;
+  int len_sum;
+};
+
+// One auto-reset step with the optional time limit (`max_episode_steps`
+// < 0: none). Updates (idx, code, t) in place, reset to the level start
+// when the episode ended, else advanced, and folds the step into `ep`.
+// Everything that happens when an episode ends sits in one branch; a
+// caller that reads none of `ep` pays nothing for it.
+__device__ __forceinline__ Transition step_autoreset(
+    const Tables& s, const uint32_t* words, int h, int w, int start_idx,
+    int start_code, int max_episode_steps, int a, int& idx, int& code, int& t,
+    Episode& ep) {
+  const Move m = move_bits(s, words, h, w, idx, code, a);
+  const bool done = m.done || (max_episode_steps >= 0 && t + 1 >= max_episode_steps);
+  ep.run_ret += m.reward;
+  if (done) {
+    ep.n_eps += 1;
+    ep.ret_sum += ep.run_ret;
+    ep.len_sum += t + 1;
+    ep.run_ret = 0.0f;
+    idx = start_idx;
+    code = start_code;
+    t = 0;
+  } else {
+    idx = m.idx;
+    code = m.code;
+    t += 1;
+  }
+  return Transition{m.idx, m.reward, done};
+}
+
+// One xorshift32 round; the new state is also the random word.
+__device__ __forceinline__ uint32_t xorshift32(uint32_t x) {
+  x ^= x << 13;
+  x ^= x >> 17;
+  x ^= x << 5;
+  return x;
+}
+
+// ε-greedy from one random word, as `_epsilon_greedy_bits`: the low 16
+// bits are the explore coin against `eps16` = int(ε·65536), the top 16
+// bits pick the explore action by multiply-shift.
+__device__ __forceinline__ bool explore_coin(uint32_t bits, uint32_t eps16) {
+  return (bits & 0xFFFFu) < eps16;
+}
+__device__ __forceinline__ int explore_action(uint32_t bits, int num_actions) {
+  return static_cast<int>(((bits >> 16) * static_cast<uint32_t>(num_actions)) >> 16);
+}
+
+// First index of the maximum of `row[0..n)` (ties to the lowest index).
+template <typename T>
+__device__ __forceinline__ int first_argmax(const T* row, int n) {
+  int best = 0;
+  for (int a = 1; a < n; ++a) {
+    if (row[a] > row[best]) best = a;
+  }
+  return best;
 }
 
 }  // namespace gu

@@ -2,10 +2,14 @@
 
 K1 `random_scan_bits` and K2 `rollout_actions_bits` live in
 `csrc/rollout.cu` (with the device step in `csrc/step.cuh`), K3
-`aldous_broder_mazes` in `csrc/maze.cu`. `build.load()` compiles them with
-`nvcc` for `sm_90a` at first use.
+`aldous_broder_mazes` in `csrc/maze.cu`, K4 `dp_grid` (grid-form VI/PI) in
+`csrc/dp_grid.cu`, K5 `td_scan_fast` (shared-Q TD) in `csrc/td_fast.cu`, K6
+`td_batched` (per-maze TD) in `csrc/td_batched.cu` and K10 `segment_mean`
+in `csrc/segment_mean.cu`. `build.load()` compiles them with `nvcc` for
+`sm_90a` at first use.
 
-Dispatch rule, applied by the public functions in `ops/` and `levels/`:
+Dispatch rule, applied by the public functions in `ops/`, `levels/` and
+`algos/`:
 tensors on the CPU take the plain PyTorch version beside each kernel;
 CUDA tensors launch the kernel, or raise. There is no fallback.
 
@@ -21,6 +25,10 @@ LAUNCHES: dict[str, int] = {
     "random_scan_bits": 0,
     "rollout_actions_bits": 0,
     "aldous_broder_mazes": 0,
+    "dp_grid": 0,
+    "td_scan_fast": 0,
+    "td_batched": 0,
+    "segment_mean": 0,
 }
 
 

@@ -1,10 +1,12 @@
 """Build and bind the hand-written CUDA kernels of `csrc/`.
 
 The sources have a plain C interface, so they are compiled by `nvcc` alone
-into one shared library and bound with `ctypes`; nothing includes PyTorch's
-headers. The library is built at first use, for `sm_90a`, into `_build/`
-beside this file, under a name keyed by a hash of the sources and flags,
-so a changed source is rebuilt and an unchanged one is loaded as is.
+and bound with `ctypes`; nothing includes PyTorch's headers. At first use
+every source is compiled to an object file, one `nvcc` process each, all
+started together, and the objects are linked into one shared library for
+`sm_90a` in `_build/` beside this file, under a name keyed by a hash of the
+sources and flags, so a changed source is rebuilt and an unchanged one is
+loaded as is.
 """
 
 from __future__ import annotations
@@ -21,17 +23,24 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("rollout.cu", "maze.cu")
+SOURCES = (
+    "rollout.cu", "maze.cu", "dp_grid.cu", "td_fast.cu", "td_batched.cu", "segment_mean.cu",
+)
 HEADERS = ("step.cuh",)
-# No --use_fast_math: the rollout accumulators must stay bit-exact.
+# No --use_fast_math, and -fmad=false: every kernel is held bit for bit
+# against a plain PyTorch version that rounds a multiply and an add
+# separately, so `a + b*c` must not contract into one fused multiply-add.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_SEM = [_P, _P, _P, _P, _I]            # passable, terminal, reward, deltas, A
+_LEVEL = [_P, _I, _I, _P, _P, _I, _I]  # words, n_words, per_env, starts, h, w
 # argtypes of every C entry point, in the order of its parameters
 _SIGNATURES = {
     "gu_random_scan_bits": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I,
@@ -41,6 +50,13 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P],
     "gu_aldous_broder_mazes": [_I, _I, _I, _I, _P, _I, _P, _P],
+    "gu_grid_sweeps": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _P, _P],
+    "gu_grid_greedy": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P],
+    "gu_td_scan_fast": _SEM + _LEVEL + [_I, _I, _I, _I, _F, _F, _F, _F, _I]
+                       + [_P] * 12 + [_P],
+    "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I]
+                     + [_P] * 4 + [_P] * 9 + [_P],
+    "gu_segment_mean": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P],
 }
 _ERROR_STRING = "gu_error_string"  # const char* (int): cudaGetErrorString
 
@@ -76,21 +92,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgu_kernels_{_source_hash()}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Start every command at once, wait for all, raise on the first that
+    failed; return their output in the order given."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, proc, output in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
+    return "".join(outputs)
+
+
 def _compile(out: Path) -> str:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stem = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{stem}.{Path(s).stem}.o" for s in SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp)]
-    cmd += [str(CSRC_DIR / s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    try:
+        log = _run_all([
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(CSRC_DIR / s), "-o", str(o)]
+            for s, o in zip(SOURCES, objects)
+        ])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objects)]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objects, tmp):
+            f.unlink(missing_ok=True)
+    return log
 
 
 def load() -> ctypes.CDLL:

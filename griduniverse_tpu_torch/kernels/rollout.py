@@ -15,7 +15,7 @@ MAX_ACTIONS = 8
 MAX_WORDS = 1024
 
 
-def _tables(passable, terminal, reward, deltas, device):
+def semantics_args(passable, terminal, reward, deltas, device):
     a = int(deltas.shape[0])
     if not 1 <= a <= MAX_ACTIONS:
         raise ValueError(f"the kernels take 1..{MAX_ACTIONS} actions, got {a}")
@@ -28,7 +28,7 @@ def _tables(passable, terminal, reward, deltas, device):
     ]
 
 
-def _level(code_words, start_idx, start_code, height, width, batch, device):
+def level_args(code_words, start_idx, start_code, height, width, batch, device):
     """Check a packed level against `batch` envs; return its C arguments."""
     check_int("batch", batch, low=1)
     n_words = -(-(height * width) // 16)
@@ -47,7 +47,7 @@ def _level(code_words, start_idx, start_code, height, width, batch, device):
     ]
 
 
-def _max_steps(max_episode_steps) -> int:
+def max_steps_arg(max_episode_steps) -> int:
     """None (no time limit) is -1 for the kernel."""
     if max_episode_steps is None:
         return -1
@@ -66,9 +66,9 @@ def random_scan_bits_cuda(
     if device.type != "cuda":
         raise ValueError(f"random_scan_bits_cuda takes CUDA tensors, got {device}")
     b = int(agent_idx.shape[0]) if agent_idx.dim() == 1 else 0
-    args = _tables(passable, terminal, reward, deltas, device)
-    args += _level(code_words, start_idx, start_code, height, width, b, device)
-    args += [b, check_int("num_steps", num_steps), _max_steps(max_episode_steps)]
+    args = semantics_args(passable, terminal, reward, deltas, device)
+    args += level_args(code_words, start_idx, start_code, height, width, b, device)
+    args += [b, check_int("num_steps", num_steps), max_steps_arg(max_episode_steps)]
     args += [
         check_tensor("agent_idx", agent_idx, torch.int32, (b,), device),
         check_tensor("agent_code", agent_code, torch.int32, (b,), device),
@@ -102,9 +102,9 @@ def rollout_actions_bits_cuda(
     if max_episode_steps is not None and not auto_reset:
         raise ValueError("max_episode_steps requires auto_reset=True")
     n_steps, b = int(actions.shape[0]), int(actions.shape[1])
-    args = _tables(passable, terminal, reward, deltas, device)
-    args += _level(code_words, start_idx, start_code, height, width, b, device)
-    args += [b, check_int("num_steps", n_steps), int(bool(auto_reset)), _max_steps(max_episode_steps)]
+    args = semantics_args(passable, terminal, reward, deltas, device)
+    args += level_args(code_words, start_idx, start_code, height, width, b, device)
+    args += [b, check_int("num_steps", n_steps), int(bool(auto_reset)), max_steps_arg(max_episode_steps)]
     args += [
         check_tensor("actions", actions, torch.int32, (n_steps, b), device),
         check_tensor("agent_idx", agent_idx, torch.int32, (b,), device),

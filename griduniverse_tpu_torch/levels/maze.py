@@ -31,6 +31,7 @@ from ..core import semantics as S
 from ..core.types import Level, make_level
 from ..kernels.maze import aldous_broder_mazes_cuda
 from ..ops.bitplane import _U32, _mul32, _xorshift_step
+from ..utils.platform import resolve_device
 
 
 def _maze_shape(cells: tuple[int, int]) -> tuple[int, int]:
@@ -154,7 +155,7 @@ def _binary_tree_mazes(
     (B, ch, cw) bool, or drawn from `generator`."""
     ch, cw = cells
     if coin is None:
-        coin = torch.rand((batch_size, ch, cw), generator=generator, device=device) < 0.5
+        coin = torch.rand((batch_size, ch, cw), generator=generator, device=resolve_device(device)) < 0.5
     dev = coin.device
     can_north = (torch.arange(ch, device=dev) > 0)[:, None]
     can_west = (torch.arange(cw, device=dev) > 0)[None, :]
@@ -183,10 +184,10 @@ def _sidewinder_mazes(
         raise ValueError(f"sidewinder: cw={cw} > 64 (column tie-break bits)")
     shape = (batch_size, ch, cw)
     if close is None:
-        close = torch.rand(shape, generator=generator, device=device) < 0.5
+        close = torch.rand(shape, generator=generator, device=resolve_device(device)) < 0.5
     if rand is None:
         rand = torch.randint(
-            0, 1 << 32, shape, generator=generator, dtype=torch.int64, device=device
+            0, 1 << 32, shape, generator=generator, dtype=torch.int64, device=close.device
         )
     dev = close.device
     close = close.clone()
@@ -230,7 +231,7 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
 def maze_stream_init(seed: int, batch_size: int, *, device=None) -> torch.Tensor:
     """Seeded-mode walk streams: fmix32(b·0x9E3779B9 + seed) | 1 per maze,
     as int64 values in [0, 2^32) (what K3 computes in-kernel)."""
-    lanes = torch.arange(batch_size, dtype=torch.int64, device=device)
+    lanes = torch.arange(batch_size, dtype=torch.int64, device=resolve_device(device))
     return _fmix32((_mul32(lanes, 0x9E3779B9) + (int(seed) & _U32)) & _U32) | 1
 
 
@@ -242,11 +243,14 @@ def aldous_broder_mazes_reference(
     directions: torch.Tensor | None = None,
     seed: int = 0,
     device=None,
-) -> torch.Tensor:
+    count_steps: bool = False,
+):
     """Plain PyTorch version of K3: all walks in lockstep until every maze
     is covered or `max_iters` steps. Directions 0=N 1=E 2=S 3=W come from
     `directions[t, b]`, or from per-maze xorshift32 streams (top two bits)
-    seeded by `maze_stream_init(seed)`."""
+    seeded by `maze_stream_init(seed)`. With `count_steps` it returns
+    (grids, (B,) steps each walk took until its maze was covered), the
+    work K3 does on these inputs."""
     ch, cw = cells
     s = ch * cw
     if max_iters is None:
@@ -261,6 +265,7 @@ def aldous_broder_mazes_reference(
             )
         x = None
     else:
+        device = resolve_device(device)
         x = maze_stream_init(seed, b, device=device)
     rows = torch.arange(b, device=device)
     # first-entry edge per cell (from the entered cell): -1 unvisited, 4 root
@@ -268,9 +273,12 @@ def aldous_broder_mazes_reference(
     par[:, 0] = 4
     n_visited = torch.ones(b, dtype=torch.int64, device=device)
     p = torch.zeros(b, dtype=torch.int64, device=device)
+    steps = torch.zeros(b, dtype=torch.int64, device=device)
     for t in range(max_iters):
         if t % 32 == 0 and bool((n_visited >= s).all()):
             break  # after cover no walk enters a new cell
+        if count_steps:
+            steps = steps + (n_visited < s)
         if directions is not None:
             d = directions[t].to(torch.int64)
         else:
@@ -293,7 +301,8 @@ def aldous_broder_mazes_reference(
     par = par.reshape(b, ch, cw)
     north_open = (par[:, 1:, :] == 0) | (par[:, :-1, :] == 2)
     west_open = (par[:, :, 1:] == 3) | (par[:, :, :-1] == 1)
-    return _carve(north_open, west_open, cells)
+    grids = _carve(north_open, west_open, cells)
+    return (grids, steps) if count_steps else grids
 
 
 def _aldous_broder_mazes(
@@ -312,9 +321,7 @@ def _aldous_broder_mazes(
     ch, cw = cells
     if max_iters is None:
         max_iters = _ab_default_max_iters(ch * cw)
-    dev = torch.device(device if device is not None else "cpu")
-    if directions is not None:
-        dev = directions.device
+    dev = resolve_device(device) if directions is None else directions.device
     if not kernels.on_cuda(dev):
         return aldous_broder_mazes_reference(
             cells, batch_size, max_iters, directions=directions, seed=seed, device=dev
@@ -332,7 +339,8 @@ def generate_mazes_device(
     *,
     device=None,
 ):
-    """B independent perfect mazes on `device`, from an integer seed.
+    """B independent perfect mazes on `device` (default: the card), from an
+    integer seed.
 
     algorithm — "binary_tree" (fully parallel, classic texture bias),
                 "sidewinder" (nearly bias-free), "aldous_broder" (exactly
@@ -342,7 +350,7 @@ def generate_mazes_device(
     at the top-left cell (1, 1)).
     """
     h, w = _maze_shape(cells)
-    dev = torch.device(device if device is not None else "cpu")
+    dev = resolve_device(device)
     if algorithm in ("binary_tree", "sidewinder"):
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         fn = _binary_tree_mazes if algorithm == "binary_tree" else _sidewinder_mazes

@@ -32,6 +32,7 @@ from ..core.semantics import Semantics
 from ..core.step import clamp_actions
 from ..core.types import Level
 from ..kernels.rollout import random_scan_bits_cuda, rollout_actions_bits_cuda
+from ..utils.platform import resolve_device
 
 # 4 tile codes → 2 bits each → 16 codes per 32-bit word.
 CODE_BITS = 2
@@ -285,11 +286,13 @@ def _mul32(a: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def xorshift_init(seed, batch_shape, offset: int = 0, *, device=None) -> torch.Tensor:
-    """Per-env xorshift32 states from a scalar seed, as int32 bit patterns.
+    """Per-env xorshift32 states from a scalar seed, as int32 bit patterns,
+    on `device` (default: the card).
 
     `offset` shifts the env-id lane numbering, so a shard can pass its
     global env offset and get the streams of an unsharded run.
     """
+    device = resolve_device(device)
     n = 1
     for d in batch_shape:
         n *= int(d)

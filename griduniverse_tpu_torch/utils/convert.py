@@ -1,9 +1,10 @@
 """Carry objects of the JAX package across into the port.
 
 Each function reads the fields of a reference object (a `Semantics`,
-`Level`, `BitLevel`, `FastState` or `EnvState` of `griduniverse_tpu`, or
-anything with the same attributes) as NumPy arrays and builds the port's
-counterpart on `device`. Nothing here imports JAX: the reference's arrays
+`Level`, `BitLevel`, `FastState`, `EnvState`, `ModelTable` or one of the
+solvers' train states of `griduniverse_tpu`, or anything with the same
+attributes) as NumPy arrays and builds the port's
+counterpart on `device` (default: the card). Nothing here imports JAX: the reference's arrays
 are converted with `numpy.asarray`.
 """
 
@@ -12,13 +13,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..algos.td import TDTrainState
+from ..algos.td_batched import BatchedTDState
+from ..algos.td_fast import FastTDTrainState
+from ..core.model import ModelTable
 from ..core.semantics import Semantics
 from ..core.types import EnvState, Level
-from ..ops.bitplane import BitLevel, FastState
+from ..ops.bitplane import BitLevel, FastState, xorshift_init
+from .platform import resolve_device
 
 
 def _t(x, dtype: np.dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(x, dtype=dtype), device=device)
+    return torch.as_tensor(np.array(x, dtype=dtype), device=resolve_device(device))
 
 
 def to_semantics(sem, *, device=None) -> Semantics:
@@ -44,7 +50,7 @@ def to_bit_level(bl, *, device=None) -> BitLevel:
     viewed as `int32` with the same bits."""
     words = np.array(bl.code_words, dtype=np.uint32)  # a writable copy
     return BitLevel(
-        code_words=torch.as_tensor(words.view(np.int32), device=device),
+        code_words=torch.as_tensor(words.view(np.int32), device=resolve_device(device)),
         start_idx=_t(bl.start_idx, np.int32, device),
         start_code=_t(bl.start_code, np.int32, device),
         height=int(bl.height),
@@ -73,4 +79,83 @@ def to_env_state(state, *, device=None) -> EnvState:
         agent_idx=_batched(state.agent_idx, np.int32, device),
         t=_batched(state.t, np.int32, device),
         done=_batched(state.done, np.bool_, device),
+    )
+
+
+def to_model_table(model, *, device=None) -> ModelTable:
+    """Reference `ModelTable`, (S, A) or batched (N, S, A) → port `ModelTable`."""
+    return ModelTable(
+        next_state=_t(model.next_state, np.int32, device),
+        reward=_t(model.reward, np.float32, device),
+        done=_t(model.done, np.bool_, device),
+        terminal=_t(model.terminal, np.bool_, device),
+    )
+
+
+def _lanes(rs, device) -> torch.Tensor:
+    """`uint32` xorshift lanes → `int32` with the same bits."""
+    lanes = np.array(rs, dtype=np.uint32)
+    return torch.as_tensor(lanes.view(np.int32), device=resolve_device(device))
+
+
+def to_fast_td_state(ts, *, device=None) -> FastTDTrainState:
+    """Reference `FastTDTrainState` → the port's: Q, env state, xorshift
+    lanes and accumulators."""
+    return FastTDTrainState(
+        q=_t(ts.q, np.float32, device),
+        env_state=to_fast_state(ts.env_state, device=device),
+        rs=_lanes(ts.rs, device),
+        step=int(ts.step),
+        run_ret=_batched(ts.run_ret, np.float32, device),
+        n_eps_env=_batched(ts.n_eps_env, np.int32, device),
+        ret_sum_env=_batched(ts.ret_sum_env, np.float32, device),
+    )
+
+
+def _fresh_lanes(rs, seed, n, device) -> torch.Tensor:
+    if rs is not None:
+        return _lanes(rs, device)
+    return xorshift_init(seed, (n,), device=device)
+
+
+def to_batched_td_state(st, *, rs=None, seed: int = 0, device=None) -> BatchedTDState:
+    """Reference `BatchedTDState` → the port's. The reference keys its
+    draws by step and has no lanes: pass `rs`, or lanes are seeded from
+    `seed`. Its pooled `episodes` and `ret_sum` go to maze 0's
+    accumulators, so the pooled statistics carry on."""
+    q = np.asarray(st.q)
+    n = q.shape[0]
+    q_t = torch.as_tensor(np.array(q, dtype=np.float32), device=resolve_device(device))
+    if q.dtype != np.float32:  # bfloat16 tables stay bfloat16
+        q_t = q_t.to(torch.bfloat16)
+    n_eps_env = np.zeros(n, np.int32)
+    ret_sum_env = np.zeros(n, np.float32)
+    n_eps_env[0], ret_sum_env[0] = int(st.episodes), float(st.ret_sum)
+    return BatchedTDState(
+        q=q_t,
+        env_state=to_fast_state(st.env_state, device=device),
+        a=_batched(st.a, np.int32, device),
+        rs=_fresh_lanes(rs, seed, n, device),
+        run_ret=_batched(st.run_ret, np.float32, device),
+        n_eps_env=_t(n_eps_env, np.int32, device),
+        ret_sum_env=_t(ret_sum_env, np.float32, device),
+        episodes=_t(st.episodes, np.int64, device),
+        ret_sum=_t(st.ret_sum, np.float32, device),
+        t=int(st.t),
+    )
+
+
+def to_td_state(ts, *, rs=None, seed: int = 0, device=None) -> TDTrainState:
+    """Reference `TDTrainState` → the port's. The PRNG key is dropped: pass
+    `rs`, or lanes are seeded from `seed`."""
+    action = _batched(ts.action, np.int32, device)
+    return TDTrainState(
+        q=_t(ts.q, np.float32, device),
+        env_state=to_env_state(ts.env_state, device=device),
+        action=action,
+        rs=_fresh_lanes(rs, seed, action.shape[0], device),
+        step=int(ts.step),
+        run_ret=_batched(ts.run_ret, np.float32, device),
+        episodes=_t(ts.episodes, np.int64, device),
+        ret_sum=_t(ts.ret_sum, np.float32, device),
     )

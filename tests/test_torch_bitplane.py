@@ -30,9 +30,10 @@ from griduniverse_tpu_torch.ops import bitplane as tbp
 from griduniverse_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 JSEM = J.make_semantics()
-TSEM = T.make_semantics()
+TSEM = T.make_semantics(device=CPU)
 
 
 def tt(x) -> torch.Tensor:
@@ -57,14 +58,14 @@ def random_grid(rng, h, w):
 
 def level_pair(name, rng):
     if name == "empty8":
-        return jb.empty_level(8, 8, goal=True), tb.empty_level(8, 8, goal=True)
+        return jb.empty_level(8, 8, goal=True), tb.empty_level(8, 8, goal=True, device=CPU)
     if name == "walls16":
-        return jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16()
+        return jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU)
     if name == "lava":
-        return jb.lava_level(), tb.lava_level()
+        return jb.lava_level(), tb.lava_level(device=CPU)
     h, w = {"random5x7": (5, 7), "random11x3": (11, 3)}[name]
     g = random_grid(rng, h, w)
-    return J.make_level(g, 0), T.make_level(g, 0)
+    return J.make_level(g, 0), T.make_level(g, 0, device=CPU)
 
 
 LEVELS = ["empty8", "walls16", "lava", "random5x7", "random11x3"]
@@ -73,7 +74,7 @@ LEVELS = ["empty8", "walls16", "lava", "random5x7", "random11x3"]
 def maze_pair(seed, b, cells=(4, 4)):
     grids, start = j_mazes(jax.random.PRNGKey(seed), cells, b, algorithm="binary_tree")
     jl = JLevel(grid=grids, start_idx=jnp.full((b,), start, jnp.int32))
-    return jl, convert.to_level(jl)
+    return jl, convert.to_level(jl, device=CPU)
 
 
 @pytest.mark.parametrize("name", LEVELS)
@@ -85,7 +86,7 @@ def test_pack_level_words_and_tile_code(name, rng):
     assert_bits_equal(jbl.start_code, tbl.start_code)
     idx = torch.arange(tl.num_states, dtype=torch.int32)
     np.testing.assert_array_equal(tbp.tile_code(tbl, idx).numpy(), tl.grid.reshape(-1).numpy())
-    conv = convert.to_bit_level(jbl)
+    conv = convert.to_bit_level(jbl, device=CPU)
     assert torch.equal(conv.code_words, tbl.code_words)
     assert (conv.height, conv.width) == (tbl.height, tbl.width)
 
@@ -103,7 +104,7 @@ def test_pack_level_batched_and_tile_code():
 
 @pytest.mark.parametrize("auto_reset,max_ep", [(False, None), (True, None), (True, 4)])
 def test_step_bits_matches_jax(auto_reset, max_ep, rng):
-    jl, tl = jb.lava_level(), tb.lava_level()
+    jl, tl = jb.lava_level(), tb.lava_level(device=CPU)
     jbl, tbl = jbp.pack_level(jl), tbp.pack_level(tl)
     b = 64
     grid = np.asarray(jl.grid).reshape(-1)
@@ -115,13 +116,13 @@ def test_step_bits_matches_jax(auto_reset, max_ep, rng):
     )
     actions = rng.integers(0, 4, size=b).astype(np.int32)
     jnew, jout = jbp.step_bits(JSEM, jbl, st, jnp.asarray(actions), auto_reset, max_ep)
-    tnew, tout = tbp.step_bits(TSEM, tbl, convert.to_fast_state(st), tt(actions), auto_reset, max_ep)
+    tnew, tout = tbp.step_bits(TSEM, tbl, convert.to_fast_state(st, device=CPU), tt(actions), auto_reset, max_ep)
     for f in ("agent_idx", "agent_code", "t", "done"):
         assert_bits_equal(getattr(jnew, f), getattr(tnew, f))
     for a, b_ in zip(jout, tout):
         assert_bits_equal(a, b_)
     with pytest.raises(ValueError):
-        tbp.step_bits(TSEM, tbl, convert.to_fast_state(st), tt(actions), False, 5)
+        tbp.step_bits(TSEM, tbl, convert.to_fast_state(st, device=CPU), tt(actions), False, 5)
 
 
 def _rollout_both(jbl, tbl, actions, b, auto_reset, max_ep):
@@ -146,7 +147,7 @@ def test_single_env_rollout_matches_jax(name, auto_reset, rng):
 
 @pytest.mark.parametrize("max_episode_steps", [None, 13])
 def test_batched_rollout_with_truncation_matches_jax(max_episode_steps, rng):
-    jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16()
+    jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU)
     actions = rng.integers(0, 4, size=(300, 64)).astype(np.int32)
     _rollout_both(jbp.pack_level(jl), tbp.pack_level(tl), actions, 64, True, max_episode_steps)
 
@@ -159,7 +160,7 @@ def test_per_env_maze_rollout_matches_jax(auto_reset, rng):
 
 
 def test_rollout_matches_oracle(rng):
-    level = tb.lava_level()
+    level = tb.lava_level(device=CPU)
     bl = tbp.pack_level(level)
     actions = rng.integers(0, 4, size=400).astype(np.int32)
     env = OracleGridEnv(level.grid.numpy(), int(level.start_idx), auto_reset=True)
@@ -173,7 +174,7 @@ def test_rollout_matches_oracle(rng):
 def test_xorshift_matches_jax():
     for seed, offset in ((123, 0), (2**32 - 5, 70_000), (7, 2**31 + 3)):
         js = jbp.xorshift_init(jnp.uint32(seed), (4, 64), offset=offset)
-        ts = tbp.xorshift_init(seed, (4, 64), offset=offset)
+        ts = tbp.xorshift_init(seed, (4, 64), offset=offset, device=CPU)
         assert ts.dtype == torch.int32 and ts.shape == (4, 64)
         assert_bits_equal(np.asarray(js), ts)
         for _ in range(20):
@@ -188,7 +189,7 @@ def test_random_scan_bits_reference_matches_jax(level, rng):
     """K1's plain version equals the reference's xorshift scan per env."""
     b, steps, max_ep = 256, 500, 100
     if level == "walls16":
-        jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16()
+        jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU)
     else:
         jl, tl = maze_pair(9, b)
     jbl, tbl = jbp.pack_level(jl), tbp.pack_level(tl)
@@ -198,7 +199,7 @@ def test_random_scan_bits_reference_matches_jax(level, rng):
         lambda s, r: jbp.random_scan_bits(JSEM, jbl, s, r, None, steps, max_ep, "xorshift")
     )(jst, jrs)
     tst = tbp.reset_bits(tbl, None if tbl.batched else b)
-    got = tbp.random_scan_bits_reference(TSEM, tbl, tst, tbp.xorshift_init(7, (b,)), steps, max_ep)
+    got = tbp.random_scan_bits_reference(TSEM, tbl, tst, tbp.xorshift_init(7, (b,), device=CPU), steps, max_ep)
     for f in ("agent_idx", "agent_code", "t", "done"):
         assert_bits_equal(getattr(ref[0], f), getattr(got[0], f))
     for a, b_ in zip(ref[1:], got[1:]):
@@ -207,10 +208,10 @@ def test_random_scan_bits_reference_matches_jax(level, rng):
 
 
 def test_cpu_tensors_take_plain_versions_and_launch_nothing():
-    bl = tbp.pack_level(tb.walls_and_goal_16x16())
+    bl = tbp.pack_level(tb.walls_and_goal_16x16(device=CPU))
     before = dict(kernels.LAUNCHES)
     st = tbp.reset_bits(bl, 32)
-    rs = tbp.xorshift_init(3, (32,))
+    rs = tbp.xorshift_init(3, (32,), device=CPU)
     got = tbp.random_scan_bits(TSEM, bl, st, rs, None, 50, 20, unroll=8)
     ref = tbp.random_scan_bits_reference(TSEM, bl, st, rs, 50, 20)
     for a, b_ in zip(got[1:], ref[1:]):
@@ -222,13 +223,13 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_mixed_devices():
-    bl = tbp.pack_level(tb.walls_and_goal_16x16())
+    bl = tbp.pack_level(tb.walls_and_goal_16x16(device=CPU))
     st = tbp.reset_bits(bl, 4)
     with pytest.raises(ValueError, match="CUDA"):
         random_scan_bits_cuda(
             TSEM.passable, TSEM.terminal, TSEM.reward, TSEM.deltas,
             bl.code_words, bl.start_idx, bl.start_code, bl.height, bl.width,
-            st.agent_idx, st.agent_code, st.t, tbp.xorshift_init(0, (4,)), 10, None,
+            st.agent_idx, st.agent_code, st.t, tbp.xorshift_init(0, (4,), device=CPU), 10, None,
         )
     with pytest.raises(ValueError):
         kernels.on_cuda(torch.zeros(1), torch.device("meta"))
@@ -240,7 +241,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_mixed_devices():
 
 @pytest.mark.parametrize("max_ep", [None, 100])
 def test_rollout_random_bits_stats_match_jax(max_ep):
-    jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16()
+    jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU)
     jbl, tbl = jbp.pack_level(jl), tbp.pack_level(tl)
     _, ref = jbp.rollout_random_bits(JSEM, jbl, jnp.uint32(7), 256, 500, max_episode_steps=max_ep)
     _, got = tbp.rollout_random_bits(TSEM, tbl, 7, 256, 500, max_episode_steps=max_ep)
@@ -250,7 +251,7 @@ def test_rollout_random_bits_stats_match_jax(max_ep):
 
 
 def test_compile_rollout_random_ignores_unroll_and_refuses_threefry():
-    bl = tbp.pack_level(tb.walls_and_goal_16x16())
+    bl = tbp.pack_level(tb.walls_and_goal_16x16(device=CPU))
     results = [tbp.compile_rollout_random(TSEM, bl, 64, 333, 100, unroll=u)(5) for u in (1, 16)]
     for (s0, st0), (s1, st1) in zip(results, results[1:]):
         assert torch.equal(s0.agent_idx, s1.agent_idx)
@@ -264,4 +265,4 @@ def test_compile_rollout_random_ignores_unroll_and_refuses_threefry():
 
 def test_pack_level_rejects_huge_grids():
     with pytest.raises(ValueError):
-        tbp.pack_level(T.make_level(np.zeros((200, 200), np.int32), 0))
+        tbp.pack_level(T.make_level(np.zeros((200, 200), np.int32), 0, device=CPU))

@@ -37,11 +37,12 @@ from griduniverse_tpu_torch.ops import rollout as tro
 from griduniverse_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 GOLDEN_DIR = Path(__file__).parent / "golden"
 TORCH_GOLDEN = GOLDEN_DIR / "torch" / "cfg4_mazes_grids.npz"
 JSEM = J.make_semantics()
-TSEM = T.make_semantics()
+TSEM = T.make_semantics(device=CPU)
 KEY = jax.random.PRNGKey(0)
 
 
@@ -66,10 +67,10 @@ def _levels(rng):
     """(name, JAX level, port level), shared levels."""
     g = random_grid(rng, 5, 7)
     return [
-        ("empty8", jb.empty_level(8, 8, goal=True), tb.empty_level(8, 8, goal=True)),
-        ("walls16", jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16()),
-        ("lava", jb.lava_level(), tb.lava_level()),
-        ("random5x7", j_make_level(g, 0), T.make_level(g, 0)),
+        ("empty8", jb.empty_level(8, 8, goal=True), tb.empty_level(8, 8, goal=True, device=CPU)),
+        ("walls16", jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU)),
+        ("lava", jb.lava_level(), tb.lava_level(device=CPU)),
+        ("random5x7", j_make_level(g, 0), T.make_level(g, 0, device=CPU)),
     ]
 
 
@@ -101,17 +102,17 @@ def test_semantics_tables_match_numpy_tables():
         assert_bits_equal(ref, got)
     assert T.SemanticsConfig() == T.SemanticsConfig(**vars(cfg))
     assert (T.EMPTY, T.WALL, T.LAVA, T.GOAL, T.NUM_ACTIONS) == (J.EMPTY, J.WALL, J.LAVA, J.GOAL, J.NUM_ACTIONS)
-    conv = convert.to_semantics(JSEM)
+    conv = convert.to_semantics(JSEM, device=CPU)
     for f in ("passable", "terminal", "reward", "deltas"):
         assert_bits_equal(getattr(JSEM, f), getattr(conv, f))
 
 
 def test_make_level_validates():
     with pytest.raises(ValueError):
-        T.make_level(np.zeros((3,), np.int32), 0)
+        T.make_level(np.zeros((3,), np.int32), 0, device=CPU)
     with pytest.raises(ValueError):
-        T.make_level(np.zeros((3, 3), np.int32), 9)
-    lv = T.make_level(np.zeros((2, 3, 3), np.int32), 4)
+        T.make_level(np.zeros((3, 3), np.int32), 9, device=CPU)
+    lv = T.make_level(np.zeros((2, 3, 3), np.int32), 4, device=CPU)
     assert lv.batched and lv.start_idx.tolist() == [4, 4]
 
 
@@ -142,7 +143,7 @@ def test_step_matches_jax_per_env_levels(auto_reset, max_ep, rng):
     grids = np.stack([random_grid(rng, 6, 5) for _ in range(b)])
     starts = np.zeros((b,), np.int32)
     jl = JLevel(grid=jnp.asarray(grids), start_idx=jnp.asarray(starts))
-    tl = T.make_level(grids, starts)
+    tl = T.make_level(grids, starts, device=CPU)
     actions = rng.integers(0, 4, size=(t, b)).astype(np.int32)
     _, ref = jax.jit(jro.rollout_actions, static_argnames=("auto_reset", "max_episode_steps"))(
         JSEM, jl, jro.reset_batch(jl, KEY, b), jnp.asarray(actions),
@@ -158,7 +159,7 @@ def test_step_matches_jax_per_env_levels(auto_reset, max_ep, rng):
 @pytest.mark.parametrize("fn", ["step", "step_autoreset", "step_autoreset_truncated"])
 def test_single_step_functions_match_jax(fn, rng):
     """One call of each step function, from mid-episode states."""
-    jl, tl = jb.lava_level(), tb.lava_level()
+    jl, tl = jb.lava_level(), tb.lava_level(device=CPU)
     b = 64
     idx = rng.choice(np.flatnonzero(np.asarray(jl.grid).reshape(-1) != J.WALL), size=b).astype(np.int32)
     t = rng.integers(0, 8, size=b).astype(np.int32)
@@ -171,7 +172,7 @@ def test_single_step_functions_match_jax(fn, rng):
     )
     jfn = jax.vmap(lambda s, a: getattr(jstep, fn)(JSEM, jl, s, a, *extra))
     jnew, jout = jfn(jst, jnp.asarray(actions))
-    tst = convert.to_env_state(jst)
+    tst = convert.to_env_state(jst, device=CPU)
     tnew, tout = getattr(tstep, fn)(TSEM, tl, tst, torch.as_tensor(actions), *extra)
     for f in ("agent_idx", "t", "done"):
         assert_bits_equal(getattr(jnew, f), getattr(tnew, f))
@@ -182,7 +183,7 @@ def test_single_step_functions_match_jax(fn, rng):
 def test_oracle_2k_steps(rng):
     """The port's generic step matches the NumPy oracle over 2k steps."""
     for auto_reset, max_ep in ((False, None), (True, None), (True, 40)):
-        level = tb.lava_level()
+        level = tb.lava_level(device=CPU)
         actions = rng.integers(0, 4, size=2000).astype(np.int32)
         env = OracleGridEnv(
             level.grid.numpy(), int(level.start_idx), auto_reset=auto_reset, max_episode_steps=max_ep
@@ -201,13 +202,13 @@ def test_goldens(name):
     """Both port engines reproduce the committed golden trajectories (the
     bit-packed one through its plain version on the CPU)."""
     levels = {
-        "cfg1_empty8": (tb.empty_level(8, 8, goal=True), 2),
-        "cfg2_walls16": (tb.walls_and_goal_16x16(), 3),
-        "cfg3_lava": (tb.lava_level(), 3),
+        "cfg1_empty8": (tb.empty_level(8, 8, goal=True, device=CPU), 2),
+        "cfg2_walls16": (tb.walls_and_goal_16x16(device=CPU), 3),
+        "cfg3_lava": (tb.lava_level(device=CPU), 3),
     }
     if name == "cfg4_mazes":
         g4 = np.load(TORCH_GOLDEN)
-        levels[name] = (T.make_level(g4["grids"], g4["start_idx"]), 4)
+        levels[name] = (T.make_level(g4["grids"], g4["start_idx"], device=CPU), 4)
     level, b = levels[name]
     g = np.load(GOLDEN_DIR / f"{name}.npz")
     actions = torch.as_tensor(g["actions"])
@@ -232,7 +233,7 @@ def test_torch_golden_grids_match_jax():
 
 def test_action_clamping_matches_xla(rng):
     """Out-of-range actions behave as XLA's clamped gather makes them."""
-    jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16()
+    jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU)
     b, t = 12, 100
     actions = rng.integers(-7, 11, size=(t, b)).astype(np.int32)
     _, ref = jax.jit(jro.rollout_actions)(JSEM, jl, jro.reset_batch(jl, KEY, b), jnp.asarray(actions))
@@ -252,7 +253,7 @@ def test_build_model_table_matches_jax(rng):
 
 def test_episode_stats_matches_jax_with_injected_draws():
     """The generic episode_stats with JAX's action draws injected."""
-    level_j, level_t = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16()
+    level_j, level_t = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU)
     b, n = 64, 300
     key = jax.random.PRNGKey(4)
     keys = jax.random.split(key, n)
@@ -270,3 +271,33 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     write_torch_goldens()
     print(f"wrote {TORCH_GOLDEN}")
+
+
+def _cuda_or_raises(make):
+    """`make()` with no `device` asks for CUDA: it returns CUDA tensors, or
+    raises where there is no card. It never returns a CPU tensor."""
+    try:
+        out = make()
+    except (RuntimeError, AssertionError) as err:  # torch's own "no CUDA" errors
+        assert any(word in str(err).lower() for word in ("cuda", "nvidia"))
+        return
+    assert out.device.type == "cuda"
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: T.make_semantics().deltas,
+        lambda: T.make_level(np.zeros((3, 3), np.int32), 0).grid,
+        lambda: tb.walls_and_goal_16x16().grid,
+        lambda: tbp.xorshift_init(1, (4,)),
+        lambda: convert.to_semantics(JSEM).reward,
+    ],
+    ids=["make_semantics", "make_level", "walls16", "xorshift_init", "to_semantics"],
+)
+def test_constructor_without_device_asks_for_cuda(make):
+    from griduniverse_tpu_torch.utils.platform import resolve_device
+
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == CPU and resolve_device(CPU) == CPU
+    _cuda_or_raises(make)

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2 and K3 against their plain PyTorch versions.
+"""The CUDA kernels K1–K6 and K10 against their plain PyTorch versions.
 
 These tests need a CUDA card and the CUDA toolkit (`nvcc`); without a card
 they skip. This file imports no JAX, so it also runs on a machine without
@@ -14,6 +14,7 @@ import torch
 
 import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch import kernels
+from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast
 from griduniverse_tpu_torch.levels import builders
 from griduniverse_tpu_torch.levels import maze as M
 from griduniverse_tpu_torch.ops import bitplane as bp
@@ -98,3 +99,133 @@ def test_wrappers_raise_on_bad_input(dev):
         bp.rollout_actions_bits(sem, bl, st, torch.zeros((5, 8), dtype=torch.int32), True)
     with pytest.raises(ValueError):
         M._aldous_broder_mazes((17, 16), 4, 10, device=dev)
+
+
+def _maze_levels(dev, cells, n, seed=5):
+    grids, start = M.generate_mazes_device(seed, cells, n, "aldous_broder", device=dev)
+    return T.Level(grid=grids, start_idx=start.expand(n).contiguous())
+
+
+@pytest.mark.parametrize("cells,n", [((4, 4), 256), ((8, 8), 64), ((1, 1), 3)])
+def test_grid_vi_and_pi_kernel_match_plain(dev, cells, n):
+    sem = T.make_semantics(device=dev)
+    levels = _maze_levels(dev, cells, n)
+    before = kernels.LAUNCHES["dp_grid"]
+    v, pol, iters = dp_batched.value_iteration_batched_grid(sem, levels)
+    assert kernels.LAUNCHES["dp_grid"] > before
+    v_ref, pol_ref, iters_ref = dp_batched.value_iteration_batched_grid_reference(sem, levels)
+    assert iters == iters_ref
+    _assert_same((v, pol), (v_ref, pol_ref))
+    # a cap that falls inside a launch, and one on a launch boundary
+    for cap in (5, dp_batched.SWEEPS_PER_LAUNCH):
+        got = dp_batched.value_iteration_batched_grid(sem, levels, max_iters=cap)
+        ref = dp_batched.value_iteration_batched_grid_reference(sem, levels, max_iters=cap)
+        assert got[2] == ref[2]
+        _assert_same(got[:2], ref[:2])
+    got = dp_batched.policy_iteration_batched_grid(sem, levels, gamma=0.95)
+    ref = dp_batched.policy_iteration_batched_grid_reference(sem, levels, gamma=0.95)
+    assert got[2] == ref[2]
+    _assert_same(got[:2], ref[:2])
+
+
+def _fast_fields(ts):
+    st = ts.env_state
+    return (ts.q, st.agent_idx, st.agent_code, st.t, ts.rs, ts.run_ret, ts.n_eps_env, ts.ret_sum_env)
+
+
+@pytest.mark.parametrize("algo", td_fast.ALGOS)
+def test_td_scan_fast_kernel_matches_plain(dev, algo):
+    sem = T.make_semantics(device=dev)
+    for bl in _levels(dev).values():
+        ts = td_fast.fast_td_init(sem, bl, 3, None if bl.batched else 1024)
+        kw = dict(alpha=0.2, gamma=0.99, epsilon=0.2, algo=algo, max_episode_steps=64)
+        before = kernels.LAUNCHES["td_scan_fast"]
+        got = td_fast.td_scan_fast(sem, bl, ts, 300, **kw)
+        assert kernels.LAUNCHES["td_scan_fast"] == before + 1
+        ref = td_fast.td_scan_fast_reference(sem, bl, ts, 300, **kw)
+        _assert_same(_fast_fields(got), _fast_fields(ref))
+        # chunked equals unbroken, and a second run repeats the bits
+        half = td_fast.td_scan_fast(sem, bl, td_fast.td_scan_fast(sem, bl, ts, 100, **kw), 200, **kw)
+        _assert_same(_fast_fields(half), _fast_fields(got))
+        _assert_same(_fast_fields(td_fast.td_scan_fast(sem, bl, ts, 300, **kw)), _fast_fields(got))
+
+
+def _batched_fields(res):
+    st = res.state
+    q = st.q.view(torch.int16) if st.q.dtype == torch.bfloat16 else st.q
+    return (q, st.env_state.agent_idx, st.env_state.agent_code, st.env_state.t, st.a, st.rs,
+            st.run_ret, st.n_eps_env, st.ret_sum_env, res.episodes, res.mean_return)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("algo", td_batched.ALGOS)
+def test_td_batched_kernel_matches_plain(dev, algo, dtype):
+    sem = T.make_semantics(device=dev)
+    n, steps = 256, 300
+    levels = _maze_levels(dev, (3, 3), n)
+    kw = dict(alpha=0.2, epsilon=0.2, algo=algo, max_episode_steps=40, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    draws = (
+        torch.rand((steps, n), generator=gen, device=dev) < 0.2,
+        torch.randint(0, 4, (steps, n), generator=gen, device=dev, dtype=torch.int32),
+        torch.rand((n,), generator=gen, device=dev) < 0.2,
+        torch.randint(0, 4, (n,), generator=gen, device=dev, dtype=torch.int32),
+    )
+    for d in (None, draws):
+        before = kernels.LAUNCHES["td_batched"]
+        got = td_batched.q_learning_batched(sem, levels, 7, steps, draws=d, **kw)
+        assert kernels.LAUNCHES["td_batched"] == before + 1
+        ref = td_batched.q_learning_batched_reference(sem, levels, 7, steps, draws=d, **kw)
+        _assert_same(_batched_fields(got), _batched_fields(ref))
+    h1 = td_batched.q_learning_batched(sem, levels, 7, 100, **kw)
+    h2 = td_batched.q_learning_batched(sem, levels, 7, 200, state0=h1.state, **kw)
+    full = td_batched.q_learning_batched(sem, levels, 7, 300, **kw)
+    _assert_same(_batched_fields(h2), _batched_fields(full))
+
+
+@pytest.mark.parametrize("b", [1, 32, 4096])
+def test_segment_mean_kernel_matches_plain(dev, b):
+    gen = torch.Generator(device=dev).manual_seed(b)
+    q = torch.randn((256, 4), generator=gen, device=dev)
+    # heavy collisions: most envs in a handful of cells
+    s = torch.randint(0, 6, (b,), generator=gen, device=dev, dtype=torch.int32)
+    s[::7] = torch.randint(0, 256, (len(s[::7]),), generator=gen, device=dev, dtype=torch.int32)
+    a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+    delta = torch.randn((b,), generator=gen, device=dev)
+    mask = torch.rand((b,), generator=gen, device=dev) < 0.5
+    before = kernels.LAUNCHES["segment_mean"]
+    got = td.apply_td_updates(q, s, a, delta, 0.1)
+    got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
+    assert kernels.LAUNCHES["segment_mean"] == before + 2
+    _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
+    _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
+    if b == 1:
+        want = q.clone()
+        want[s[0].item(), a[0].item()] += 0.1 * delta[0]
+        _assert_same((got,), (want,))
+
+
+def test_td_run_on_cuda_is_chunk_invariant(dev):
+    sem = T.make_semantics(device=dev)
+    level = builders.lava_level(device=dev)
+    ts = td.td_init(sem, level, 4, 64, 0.2)
+    full = td.td_run(sem, level, ts, 60, 0.2, 0.99, 0.2, "sarsa")
+    half = td.td_run(sem, level, td.td_run(sem, level, ts, 30, 0.2, 0.99, 0.2, "sarsa"), 30, 0.2, 0.99, 0.2, "sarsa")
+    _assert_same((full.q, full.rs, full.ret_sum), (half.q, half.rs, half.ret_sum))
+    assert int(full.episodes) == int(half.episodes)
+
+
+def test_solver_wrappers_raise_on_bad_input(dev):
+    sem = T.make_semantics(device=dev)
+    levels = _maze_levels(dev, (2, 2), 4)
+    with pytest.raises(ValueError):
+        dp_batched.value_iteration_batched_grid(sem, T.Level(levels.grid.long(), levels.start_idx))
+    q = torch.zeros((25, 4), device=dev)
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        td.apply_td_updates(q, idx.long(), idx, torch.zeros(8, device=dev), 0.1)
+    with pytest.raises(ValueError):
+        td.apply_td_updates(q, idx, idx, torch.zeros(8, device="cpu"), 0.1)
+    big = bp.pack_level(T.make_level(torch.zeros((60, 60), dtype=torch.int32).numpy(), 0, device=dev))
+    with pytest.raises(ValueError):
+        td_fast.fast_td_init(sem, big, 0, 8) and td_fast.compile_q_learning_fast(sem, big, 8, 1)(0)

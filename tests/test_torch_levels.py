@@ -25,6 +25,7 @@ from griduniverse_tpu_torch.levels import registry as tr
 from griduniverse_tpu_torch.levels import text as tt
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 def assert_level_equal(jl, tl):
@@ -57,7 +58,7 @@ def test_parse_and_render_match_reference():
     g, s = tt.parse_text_grid(text)
     np.testing.assert_array_equal(g_ref, g)
     assert s_ref == s
-    assert_level_equal(jt.level_from_text(text), tt.level_from_text(text))
+    assert_level_equal(jt.level_from_text(text), tt.level_from_text(text, device=CPU))
     assert jt.render_text(g_ref, agent_idx=7, start_idx=s_ref) == tt.render_text(
         torch.as_tensor(g), agent_idx=7, start_idx=s
     )
@@ -69,22 +70,22 @@ def test_parse_and_render_match_reference():
 )
 def test_builder_grids(name):
     cases = {
-        "empty8": lambda m: m.empty_level(),
-        "empty5x3_goal": lambda m: m.empty_level(5, 3, goal=True),
-        "walls16": lambda m: m.walls_and_goal_16x16(),
-        "lava": lambda m: m.lava_level(),
-        "indices": lambda m: m.make_level_from_indices(
-            (4, 6), start_idx=2, walls=[0, 7, 9], lava=[13], goals=[23]
+        "empty8": lambda m, **kw: m.empty_level(**kw),
+        "empty5x3_goal": lambda m, **kw: m.empty_level(5, 3, goal=True, **kw),
+        "walls16": lambda m, **kw: m.walls_and_goal_16x16(**kw),
+        "lava": lambda m, **kw: m.lava_level(**kw),
+        "indices": lambda m, **kw: m.make_level_from_indices(
+            (4, 6), start_idx=2, walls=[0, 7, 9], lava=[13], goals=[23], **kw
         ),
     }
-    assert_level_equal(cases[name](jb), cases[name](tb))
+    assert_level_equal(cases[name](jb), cases[name](tb, device=CPU))
     assert tb.LAVA_CROSSING_9x9 == jb.LAVA_CROSSING_9x9
     np.testing.assert_array_equal(
         jb.build_grid((3, 3), walls=[1], lava=[4], goals=[8]),
         tb.build_grid((3, 3), walls=[1], lava=[4], goals=[8]),
     )
     with pytest.raises(ValueError):
-        tb.make_level_from_indices((3, 3), start_idx=1, walls=[1])
+        tb.make_level_from_indices((3, 3), start_idx=1, walls=[1], device=CPU)
 
 
 def test_asset_files_are_byte_equal_copies():
@@ -92,9 +93,9 @@ def test_asset_files_are_byte_equal_copies():
     assert tr.builtin_level_names() == names and names
     for name in names:
         assert filecmp.cmp(jr.builtin_level_path(name), tr.builtin_level_path(name), shallow=False)
-        assert_level_equal(jr.builtin_level(name), tr.builtin_level(name))
+        assert_level_equal(jr.builtin_level(name), tr.builtin_level(name, device=CPU))
     with pytest.raises(KeyError):
-        tr.builtin_level("no_such_level")
+        tr.builtin_level("no_such_level", device=CPU)
 
 
 @pytest.mark.parametrize("cells", [(4, 4), (5, 3), (6, 6)])
@@ -107,7 +108,7 @@ def test_host_generators_match_under_same_seed(cells):
         w = tm.generate_maze_wilson(cells, np.random.default_rng(seed))
         np.testing.assert_array_equal(w_ref, w)
         assert tm.check_perfect_maze(g, cells) and tm.check_perfect_maze(w, cells)
-        assert_level_equal(jm.random_maze_level(cells, seed), tm.random_maze_level(cells, seed))
+        assert_level_equal(jm.random_maze_level(cells, seed), tm.random_maze_level(cells, seed, device=CPU))
     broken = g.copy()
     broken[1, 1] = 1
     assert not tm.check_perfect_maze(broken, cells)
@@ -139,19 +140,19 @@ def test_sidewinder_with_injected_coins_and_keys(cells, b):
 
 @pytest.mark.parametrize("algorithm", ["binary_tree", "sidewinder", "aldous_broder"])
 def test_generate_mazes_device_perfect_on_cpu(algorithm):
-    grids, start = tm.generate_mazes_device(3, (4, 5), 32, algorithm)
+    grids, start = tm.generate_mazes_device(3, (4, 5), 32, algorithm, device=CPU)
     assert grids.shape == (32, 9, 11) and grids.dtype == torch.int32
     assert int(start) == 12
     assert bool((grids[:, 7, 9] == 3).all())
     assert all(tm.check_perfect_maze(g, (4, 5)) for g in grids)
-    again, _ = tm.generate_mazes_device(3, (4, 5), 32, algorithm)
+    again, _ = tm.generate_mazes_device(3, (4, 5), 32, algorithm, device=CPU)
     assert torch.equal(grids, again)
 
 
 def test_generate_mazes_device_rejects_unported_and_unknown():
     with pytest.raises(NotImplementedError, match="K11"):
-        tm.generate_mazes_device(0, (4, 4), 2)
+        tm.generate_mazes_device(0, (4, 4), 2, device=CPU)
     with pytest.raises(ValueError):
-        tm.generate_mazes_device(0, (4, 4), 2, algorithm="nope")
+        tm.generate_mazes_device(0, (4, 4), 2, algorithm="nope", device=CPU)
     with pytest.raises(ValueError):
-        tm._sidewinder_mazes((2, 65), 1)
+        tm._sidewinder_mazes((2, 65), 1, device=CPU)

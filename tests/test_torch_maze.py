@@ -20,6 +20,7 @@ from griduniverse_tpu_torch.core import semantics as S
 from griduniverse_tpu_torch.levels import maze as tm
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 def jax_directions(key, batch, steps):
@@ -67,7 +68,7 @@ def _fmix32(h: int) -> int:
 def test_seeded_streams_are_the_kernels_hash():
     """maze_stream_init is the hash K3 computes in-kernel."""
     for seed in (0, 99, 2**32 - 1):
-        got = tm.maze_stream_init(seed, 300).tolist()
+        got = tm.maze_stream_init(seed, 300, device=CPU).tolist()
         want = [_fmix32((b * 0x9E3779B9 + seed) & 0xFFFFFFFF) | 1 for b in range(300)]
         assert got == want
 
@@ -75,7 +76,7 @@ def test_seeded_streams_are_the_kernels_hash():
 @pytest.mark.parametrize("cells", [(4, 4), (3, 5), (6, 6), (1, 4)])
 def test_seeded_mazes_are_perfect(cells):
     b = 128
-    grids, start = tm.generate_mazes_device(17, cells, b, "aldous_broder")
+    grids, start = tm.generate_mazes_device(17, cells, b, "aldous_broder", device=CPU)
     s = cells[0] * cells[1]
     n_open = (grids != S.WALL).sum(dim=(1, 2))
     assert bool((n_open == 2 * s - 1).all())
@@ -90,7 +91,7 @@ def test_exactly_uniform_on_2x2():
     must hit each with probability 1/4 (bound at 5 sigma, as the
     reference's own test)."""
     b = 4096
-    grids, _ = tm.generate_mazes_device(8, (2, 2), b, "aldous_broder")
+    grids, _ = tm.generate_mazes_device(8, (2, 2), b, "aldous_broder", device=CPU)
     g = grids.numpy()
     walls = np.stack([g[:, 2, 1], g[:, 2, 3], g[:, 1, 2], g[:, 3, 2]], axis=1)
     open_mask = walls != S.WALL
@@ -102,7 +103,7 @@ def test_exactly_uniform_on_2x2():
 
 def test_no_forced_corridors():
     b, cells = 256, (5, 5)
-    g, _ = tm.generate_mazes_device(9, cells, b, "aldous_broder")
+    g, _ = tm.generate_mazes_device(9, cells, b, "aldous_broder", device=CPU)
     g = g.numpy()
     cols = np.arange(1, cells[1]) * 2
     assert np.all((g[:, 1, cols] != S.WALL).mean(axis=0) < 0.95)

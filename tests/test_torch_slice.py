@@ -28,6 +28,7 @@ from griduniverse_tpu_torch.levels import maze as tm
 from griduniverse_tpu_torch.ops import bitplane as tbp
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "griduniverse_tpu"}
@@ -35,7 +36,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "griduniverse_tpu"}
 
 def _slice_levels(name):
     if name == "walls16":
-        return jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(), 512
+        return jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU), 512
     b, cells, max_iters = 256, (4, 4), 2000
     key = jax.random.PRNGKey(12)
     grids_j = jm._aldous_broder_mazes(key, cells, b, max_iters=max_iters)
@@ -44,7 +45,7 @@ def _slice_levels(name):
     grids_t = tm._aldous_broder_mazes(cells, b, max_iters, directions=dirs)
     start = 2 * cells[1] + 2
     jl = JLevel(grid=grids_j, start_idx=jnp.full((b,), start, jnp.int32))
-    return jl, T.make_level(grids_t.numpy(), start), b
+    return jl, T.make_level(grids_t.numpy(), start, device=CPU), b
 
 
 @pytest.mark.parametrize("name", ["walls16", "ab_mazes"])
@@ -54,7 +55,7 @@ def test_slice_matches_jax(name):
     steps, max_ep = 400, 100
     jfn = jbp.compile_rollout_random(J.make_semantics(), jbp.pack_level(jl), b, steps, max_ep)
     jstate, jstats = jfn(jnp.uint32(3))
-    tfn = tbp.compile_rollout_random(T.make_semantics(), tbp.pack_level(tl), b, steps, max_ep)
+    tfn = tbp.compile_rollout_random(T.make_semantics(device=CPU), tbp.pack_level(tl), b, steps, max_ep)
     tstate, tstats = tfn(3)
     for f in ("agent_idx", "agent_code", "t", "done"):
         np.testing.assert_array_equal(np.asarray(getattr(jstate, f)), getattr(tstate, f).numpy())
