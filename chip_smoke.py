@@ -78,17 +78,23 @@ def _cuda_ms(fn, reps: int, warm: bool = True):
 
 _STATE_FIELDS = ("agent_idx", "agent_code", "t", "done")
 
-# Thread-instructions per unit of work, read off the CUDA sources (estimates:
-# a runtime integer division counts about 20). They turn a kernel's work into
-# the least time the card could take at one instruction per lane and clock.
-INSTR_K1_STEP = 80      # xorshift, `% A`, the step with its `/ W`, the folds
-INSTR_K2_STEP = 70      # action read, the step, three trajectory writes
-INSTR_K3_STEP = 30      # one walk step of Aldous-Broder
-INSTR_K4_ACTION = 12    # one Q(s, a) of a sweep; plus as many again per cell
-INSTR_K5_STEP = 150     # act, step, target, fixed-point add, folds, state in and out
-INSTR_K5_ENTRY = 40     # rebuilding one Q entry in a block (a float64 divide)
-INSTR_K6_STEP = 200     # step, three row loads, draw, target, update, folds
-INSTR_K10_ENV = 4       # key and α·δ of one env
+# Thread-instructions per unit of work. They turn a kernel's work into the
+# least time the card could take at one instruction per lane and clock. Each
+# is the number of SASS instructions on the path that one unit of work takes
+# through the kernel built for sm_90a with 4 actions, counted in the listings
+# that `python -m griduniverse_tpu_torch.tools.sass_counts DIR` writes (a
+# warp issues both sides of a branch its lanes split on, so both count).
+INSTR_K1_STEP = 85      # the scan loop is 170 instructions for two unrolled steps
+INSTR_K2_STEP = 94      # the replay loop is 188 instructions for two unrolled steps
+INSTR_K3_STEP = 54      # the seeded walk loop
+INSTR_K3_TILE = 17      # one tile of the grid written out (69 for four)
+INSTR_K4_CELL = 129     # one cell's backup of a VI sweep; the block's maximum is not counted
+# K5's per-env path is 308; 76 of them load and store the env state, which
+# only a scan cut into one launch a step needs, so they are not counted
+INSTR_K5_STEP = 232
+INSTR_K5_ENTRY = 10     # one Q entry's update a step (the mean and the add), an estimate
+INSTR_K6_STEP = 324     # the float32 Q-learning path with native draws
+INSTR_K10_ENV = 4       # key and α·δ of one env, an estimate
 HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
 
 
@@ -162,6 +168,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     and power limit) goes beside every time printed."""
     from griduniverse_tpu_torch import algos, kernels
     from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast
+    from griduniverse_tpu_torch.core.step import step_autoreset
     from griduniverse_tpu_torch.kernels.dp_grid import grid_sweeps_cuda
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.levels import maze as M
@@ -310,11 +317,14 @@ def solver_phases(gt, dev, gen, bound, smi):
               f"{n64 * steps / ms * 1e3!r} transitions/s; chunked equals unbroken; "
               f"mean return {float(h1.mean_return)!r} -> {float(mean2)!r} ({smi})")
 
+    late = 50  # the last steps of the run are a chunk of their own, so that phase 9 can redo them
     for b in (32, 4096):
         ts0 = td.td_init(sem, walls16, 11, b)
         ms1, h1 = timed(lambda: td.td_run(sem, walls16, ts0, steps // 2))
-        ms2, h2 = timed(lambda: td.td_run(sem, walls16, h1, steps // 2))
-        outs[f"td_{b}"] = (ts0, h2)
+        ms2, before_late = timed(lambda: td.td_run(sem, walls16, h1, steps // 2 - late))
+        ms3, h2 = timed(lambda: td.td_run(sem, walls16, before_late, late))
+        ms2 += ms3
+        outs[f"td_{b}"] = (ts0, before_late, h2)
         res = algos.q_learning(sem, walls16, 11, num_steps=steps, batch_size=b)
         _same(f"td_run B={b} chunked q", h2.q, res.q)
         _require(int(h2.episodes) > 0 and bool(torch.isfinite(h2.q).all()), f"td_run B={b}: no episodes")
@@ -323,7 +333,7 @@ def solver_phases(gt, dev, gen, bound, smi):
         if b == 4096:
             _require(float(mean2) > float(mean1), f"td_run B={b}: return did not rise")
         print(f"td_run main walls16 B={b} T={steps}: episodes {int(h2.episodes)}, {ms1 + ms2!r} ms, "
-              f"{b * steps / (ms1 + ms2) * 1e3!r} transitions/s; `q_learning` equals the two chunks; "
+              f"{b * steps / (ms1 + ms2) * 1e3!r} transitions/s; `q_learning` equals the three chunks; "
               f"mean return {float(mean1)!r} -> {float(mean2)!r} ({smi})")
 
     torch.cuda.synchronize()
@@ -351,12 +361,13 @@ def solver_phases(gt, dev, gen, bound, smi):
     hold("td_scan_fast", "K5 main", _fast_fields(got), _fast_fields(ref), _FAST_FIELDS)
     _same("K5 main q vs compile_q_learning_fast", got.q, outs["fast"].q)
     n_entries = 256 * 4
-    blocks = n64 // 256
     times["td_scan_fast"] = dict(
         ms=ms5, plain_ms=plain5, shape=f"walls16 B={n64} T={steps}", library_ms=None,
-        # env state in and out (7 words each way) and Q in and out, once
+        # env state in and out (7 words each way) and Q in and out, once; per
+        # step every env's transition and ONE update of each Q entry (that the
+        # kernel rebuilds Q in every block is its design's cost, not the work's)
         **bound(n64 * 14 * 4 + 2 * n_entries * 4,
-                steps * (INSTR_K5_STEP * n64 + INSTR_K5_ENTRY * n_entries * blocks)))
+                steps * (INSTR_K5_STEP * n64 + INSTR_K5_ENTRY * n_entries)))
     print(f"K5 main: the {steps}-step scan at B={n64} bit-exact vs plain; {n64 * steps / ms5 * 1e3!r} transitions/s ({smi})")
 
     for dtype in ("float32", "bfloat16"):
@@ -374,21 +385,34 @@ def solver_phases(gt, dev, gen, bound, smi):
         if dtype == "float32":
             times["td_batched"] = t6
 
-    # K10 at full width: `td_run`'s own output against the plain update rule.
-    # At B=4096 the plain version needs one pass per colliding env (thousands
-    # while all envs share the start state), so it is held for 20 steps there,
-    # and for 500 steps at B=32.
-    for b, n_steps in ((32, 500), (4096, 20)):
-        ts0, _ = outs[f"td_{b}"]
-        got = td.td_run(sem, walls16, ts0, n_steps)
-        saved = td.apply_td_updates
-        td.apply_td_updates = td.apply_td_updates_reference
-        try:
-            ref = td.td_run(sem, walls16, ts0, n_steps)
-        finally:
-            td.apply_td_updates = saved
-        hold("segment_mean", f"K10 main td_run B={b}", _td_fields(got), _td_fields(ref), _TD_FIELDS)
-        print(f"K10 main: td_run B={b}, {n_steps} steps, bit-exact vs the plain update rule")
+    # K10 at full width: the main path's `td_run` redone one step at a time,
+    # every step's new Q held against the plain update rule on that step's own
+    # (q, s, a, δ). The plain rule needs one pass per env of the fullest cell
+    # (thousands while all envs share the start state). So at B=32 all 2,000
+    # steps are held; at B=4096 the first 20, where every env collides, and
+    # the main run's last 50, where the envs are spread over the level.
+    def held_steps(tag, ts, n_steps):
+        for _ in range(n_steps):
+            s, a = ts.env_state.agent_idx, ts.action
+            _, out = step_autoreset(sem, walls16, ts.env_state, a)
+            delta = td.td_error_qlearning(ts.q, s, a, out.reward, out.obs, out.done, 0.99)
+            ref_q = td.apply_td_updates_reference(ts.q, s, a, delta, 0.1)
+            ts = td.td_run(sem, walls16, ts, 1)
+            hold("segment_mean", tag, (ts.q,), (ref_q,), ("q",))
+        return ts
+
+    ts0, _, end = outs["td_32"]
+    redone = held_steps("K10 main td_run B=32", ts0, steps)
+    _same_fields("K10 main td_run B=32 redone", _td_fields(redone), _td_fields(end), _TD_FIELDS)
+    print(f"K10 main: td_run B=32, each of the {steps} steps' Q bit-exact vs the plain update rule; "
+          "the run redone step by step equals the main path's")
+    ts0, before_late, end = outs["td_4096"]
+    held_steps("K10 main td_run B=4096 first steps", ts0, 20)
+    redone = held_steps("K10 main td_run B=4096 last steps", before_late, late)
+    _same_fields("K10 main td_run B=4096 redone", _td_fields(redone), _td_fields(end), _TD_FIELDS)
+    cells = int(torch.unique(end.env_state.agent_idx).numel())
+    print(f"K10 main: td_run B=4096, the first 20 and the last {late} of {steps} steps bit-exact vs the "
+          f"plain update rule (the envs end on {cells} distinct cells); the last steps redone equal the main path's")
 
     # -- phase 10: K4 and K10 times at the main path's shapes ------------------
     k = dp_batched.SWEEPS_PER_LAUNCH
@@ -409,8 +433,8 @@ def solver_phases(gt, dev, gen, bound, smi):
     hold("dp_grid", "K4 timed sweeps", got, ref, ("V", "sweep maxima"))
     times["dp_grid"] = dict(
         ms=ms4, plain_ms=plain4, shape=f"{k} VI sweeps, {n64} mazes 9x9", library_ms=None,
-        # grids and V in, V out; per sweep and cell A action values and as much again
-        **bound(n64 * 81 * 4 * 3, k * n64 * 81 * INSTR_K4_ACTION * (4 + 1)))
+        # grids and V in, V out; per sweep one backup of every cell
+        **bound(n64 * 81 * 4 * 3, k * n64 * 81 * INSTR_K4_CELL))
     for tag, lv, key in (("9x9", lv64, "vi64"), ("33x33", lv33, "vi33")):
         cap = 400 if tag == "33x33" else 10_000
         ms, _ = _cuda_ms(lambda: algos.value_iteration_batched_grid(sem, lv, max_iters=cap), 3)
@@ -665,7 +689,7 @@ def main() -> None:
     # the grids written once; the walk steps these seeds needed to cover their mazes
     times["aldous_broder_mazes"] = dict(
         ms=ms, plain_ms=plain_ms, shape=f"seeded cells=(4, 4) B={b64}", library_ms=None,
-        **bound(b64 * 81 * 4, INSTR_K3_STEP * int(walk_steps.sum())))
+        **bound(b64 * 81 * 4, INSTR_K3_STEP * int(walk_steps.sum()) + INSTR_K3_TILE * b64 * 81))
     print(f"K3 timed: mean walk steps to cover {float(walk_steps.double().mean())!r}")
 
     # -- phases 7-10: the tabular solvers (K4, K5, K6, K10) --------------------

@@ -189,7 +189,8 @@ __global__ void td_fast_apply_kernel(int n_entries, const float* __restrict__ q_
 
 // Scratch, all of `n_entries` = S·A elements a row: q_buf (2 rows, float),
 // acc (3 rows, int64), cnt (3 rows, int32). q_in and q_out may not alias
-// the scratch. `num_steps` >= 1.
+// the scratch. `num_steps` >= 1. `*n_launched` (host memory) receives the
+// number of kernels launched: one per step and the final apply.
 extern "C" int gu_td_scan_fast(
     const void* passable, const void* terminal, const void* reward, const void* deltas,
     int num_actions, const void* words, int n_words, int per_env, const void* start_idx,
@@ -197,8 +198,10 @@ extern "C" int gu_td_scan_fast(
     int expected_sarsa, float alpha, float gamma, float epsilon, float one_minus_epsilon,
     int eps16, const void* q_in, void* q_out, void* idx, void* code, void* t, void* rs,
     void* run_ret, void* n_eps, void* ret_sum, void* q_buf, void* acc, void* cnt,
-    void* stream) {
+    void* n_launched, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* launched = static_cast<int*>(n_launched);
+  *launched = 0;
   const int n_entries = h * w * num_actions;
   const size_t smem = static_cast<size_t>(n_entries) * 16;
   cudaError_t err = cudaFuncSetAttribute(
@@ -254,10 +257,13 @@ extern "C" int gu_td_scan_fast(
         accb + next * n_entries, cntb + next * n_entries);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launched;
   }
   const int last = num_steps - 1;
   td_fast_apply_kernel<<<(n_entries + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       n_entries, qb + (last & 1) * n_entries, accb + (last % 3) * n_entries,
       cntb + (last % 3) * n_entries, static_cast<float*>(q_out));
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return static_cast<int>(err);
 }

@@ -13,8 +13,10 @@ Dispatch rule, applied by the public functions in `ops/`, `levels/` and
 tensors on the CPU take the plain PyTorch version beside each kernel;
 CUDA tensors launch the kernel, or raise. There is no fallback.
 
-`LAUNCHES[name]` counts the launches of each kernel: a wrapper adds one
-right after the launch it made succeeded, and nowhere else.
+`LAUNCHES[name]` counts the kernel launches of each entry: a wrapper adds
+one for each kernel it launched, right after the call that launched them
+succeeded, and nowhere else. K5's wrapper launches one kernel a step and one
+more to apply the last aggregate, so a scan of T steps counts T + 1.
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "gu_grid_sweeps": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _P, _P],
     "gu_grid_greedy": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P],
     "gu_td_scan_fast": _SEM + _LEVEL + [_I, _I, _I, _I, _F, _F, _F, _F, _I]
-                       + [_P] * 12 + [_P],
+                       + [_P] * 13 + [_P],
     "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I]
                      + [_P] * 4 + [_P] * 9 + [_P],
     "gu_segment_mean": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P],

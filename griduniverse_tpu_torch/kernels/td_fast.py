@@ -5,6 +5,8 @@ The plain PyTorch version is `algos.td_fast.td_scan_fast_reference`.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import LAUNCHES
@@ -20,9 +22,10 @@ def td_scan_fast_cuda(
     num_steps: int, alpha: float, gamma: float, epsilon: float,
     expected_sarsa: int, max_episode_steps: int | None,
 ):
-    """Launch K5 for `num_steps` steps. Returns the new (q, agent_idx,
-    agent_code, t, rs, run_ret, n_eps_env, ret_sum_env); the inputs are
-    left as they were."""
+    """Launch K5 for `num_steps` steps (one step kernel each, and one that
+    applies the last aggregate; `LAUNCHES` counts them all). Returns the new
+    (q, agent_idx, agent_code, t, rs, run_ret, n_eps_env, ret_sum_env); the
+    inputs are left as they were."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"td_scan_fast_cuda takes CUDA tensors, got {device}")
@@ -56,13 +59,14 @@ def td_scan_fast_cuda(
     q_buf = torch.empty((2, n_entries), dtype=torch.float32, device=device)
     acc = torch.empty((3, n_entries), dtype=torch.int64, device=device)
     cnt = torch.empty((3, n_entries), dtype=torch.int32, device=device)
+    n_launched = ctypes.c_int(0)
     launch(
         "gu_td_scan_fast", device, *args,
         b, num_steps, max_steps_arg(max_episode_steps), int(expected_sarsa),
         float(alpha), float(gamma), float(epsilon), 1.0 - float(epsilon),
         int(float(epsilon) * 65536.0),
         q_ptr, q_out.data_ptr(), *[x.data_ptr() for x in state],
-        q_buf.data_ptr(), acc.data_ptr(), cnt.data_ptr(),
+        q_buf.data_ptr(), acc.data_ptr(), cnt.data_ptr(), ctypes.addressof(n_launched),
     )
-    LAUNCHES["td_scan_fast"] += 1
+    LAUNCHES["td_scan_fast"] += n_launched.value
     return (q_out, *state)
