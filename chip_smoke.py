@@ -6,14 +6,18 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 
     python3 chip_smoke.py
 
-It builds the seven hand-written kernels (K1, K2, K3, K4, K5, K6, K10) from
-`griduniverse_tpu_torch/csrc/`, holds each against its plain PyTorch version,
-drives the port's main paths at full size and checks what comes out:
+It builds the eleven hand-written kernels (K1–K6, K7a, K7b, K9a, K9b, K10)
+from `griduniverse_tpu_torch/csrc/`, holds each against its plain PyTorch
+version, drives the port's main paths at full size and checks what comes out:
 
   * the env path: level → pack → K1/K2 rollouts; K3 mazes → pack → K1;
   * the solver path: K3 mazes → K4 value/policy iteration; walls16 → K5
     shared-Q learning; mazes → K6 per-maze Q-learning; walls16 → `q_learning`
-    on the generic step with K10.
+    on the generic step with K10;
+  * the training path: `ppo_train` on walls16 (K7a, K7b, K9a) and on 65,536
+    per-env mazes with the conv trunk (K7a, K7b, K9b), `a2c_train` on walls16
+    (K7a's return scan, K7b, K9a), and `greedy_success_rate` (K7b's greedy
+    form), 65,536 envs each.
 
 The main paths' own outputs are held bit for bit against the plain versions
 on the same inputs. Every phase raises on failure. The last two lines are a
@@ -32,6 +36,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -46,7 +51,7 @@ def _require(cond: bool, what: str) -> None:
 
 
 def _max_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    return float((a.detach().double() - b.detach().double()).abs().max()) if a.numel() else 0.0
 
 
 def _same(name: str, a, b) -> float:
@@ -95,6 +100,20 @@ INSTR_K5_STEP = 232
 INSTR_K5_ENTRY = 10     # one Q entry's update a step (the mean and the add), an estimate
 INSTR_K6_STEP = 324     # the float32 Q-learning path with native draws
 INSTR_K10_ENV = 4       # key and α·δ of one env, an estimate
+# The learners' kernels. K7a and K7b are one thread per env, counted as K1 is.
+# K9a and K9b are elementwise passes and sums: their counts are the
+# function's own operations on an element (load, convert, add, compare,
+# select, store), not the index arithmetic of the kernels as written (the
+# listings show 155 instructions a thread in K9a's forward).
+INSTR_K7A_STEP = 35     # the GAE loop is 131 instructions for four unrolled steps, 37 for a single one
+# act_step is 1,065 instructions with no loop over time; less the table
+# staging (124) and the untaken sides of the loops over actions, an env's
+# path is about 600 (good to 30 %)
+INSTR_K7B_ENV = 600
+INSTR_K9A_FWD = 4       # one output element of the embedding gather
+INSTR_K9A_BWD = 6       # one (sample, column): a load, a convert and two adds, over both levels
+INSTR_K9B_FWD = 8       # one output element of the stamp pass
+INSTR_K9B_BWD = 12      # one element of the backward, read by both of its passes
 HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
 
 
@@ -465,6 +484,420 @@ def solver_phases(gt, dev, gen, bound, smi):
     return launches, errs, times
 
 
+def _rel_err(name: str, a, b, tol: float) -> float:
+    """max |a - b| must stay within `tol` times max |b|; returns max |a - b|."""
+    err = _max_err(a.float(), b.float())
+    scale = float(b.float().abs().max())
+    _require(err <= tol * max(scale, 1e-30), f"{name}: max abs err {err} against scale {scale} (tolerance {tol})")
+    return err
+
+
+def _logp_err(name: str, got, ref) -> float:
+    """K7b's log-prob within 2 ulp (of max(|logp|, 1)) of the plain version's."""
+    bad = (got - ref).abs() > 2 * 2.0 ** -23 * ref.abs().clamp(min=1.0)
+    err = _max_err(got, ref)
+    _require(not bool(bad.any()), f"{name}: logp differs from the plain version by more than 2 ulp (max abs err {err})")
+    return err
+
+
+_ACT_FIELDS = ("action", "obs", "reward", "done", "agent_idx", "agent_code", "t", "state done")
+
+
+def _act_fields(out):
+    st, action, _, obs, reward, done = out
+    return (action, obs, reward, done, st.agent_idx, st.agent_code, st.t, st.done)
+
+
+def _train_state_fields(ts):
+    names = sorted(ts.params)
+    fields = [ts.params[k] for k in names] + [ts.opt_state.mu[k] for k in names] + [ts.opt_state.nu[k] for k in names]
+    fields += [ts.opt_state.count, ts.env_state.agent_idx, ts.env_state.agent_code, ts.env_state.t,
+               ts.run_ret, ts.episodes.reshape(1), ts.ret_sum, ts.last_loss]
+    labels = [f"param {k}" for k in names] + [f"mu {k}" for k in names] + [f"nu {k}" for k in names]
+    labels += ["adam count", "agent_idx", "agent_code", "t", "run_ret", "episodes", "ret_sum", "last_loss"]
+    return fields, labels
+
+
+def _same_train_state(tag: str, a, b) -> None:
+    fa, labels = _train_state_fields(a)
+    fb, _ = _train_state_fields(b)
+    _same_fields(tag, fa, fb, labels)
+
+
+def learner_phases(gt, dev, gen, bound, smi):
+    """Phases 11-14: K7a, K7b, K9a and K9b against their plain versions at
+    small shapes, the training main path at full width with its launches
+    counted, its outputs against the plain versions, and the times. Returns
+    (launches, max abs errors, times) by kernel name."""
+    from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.levels import maze as M
+    from griduniverse_tpu_torch.models import a2c, networks, ppo
+    from griduniverse_tpu_torch.ops import bitplane as bp
+
+    errs = {"gae": 0.0, "act_step": 0.0, "embed_rows": 0.0, "agent_stamp": 0.0}
+    times = {}
+
+    def hold(name, tag, got, ref, fields):
+        errs[name] = max(errs[name], _same_fields(tag, got, ref, fields))
+
+    sem = gt.make_semantics()
+    walls16 = builders.walls_and_goal_16x16()
+    num_actions = sem.num_actions
+
+    def mazes(seed, cells, n):
+        grids, start = M.generate_mazes_device(seed, cells, n, "aldous_broder")
+        return gt.Level(grid=grids, start_idx=start.expand(n).contiguous())
+
+    def rollout_arrays(t, b):
+        value = torch.randn((t, b), generator=gen, device=dev)
+        reward = torch.randn((t, b), generator=gen, device=dev)
+        done = torch.rand((t, b), generator=gen, device=dev) < 0.25
+        return a2c.Trajectory(None, None, None, value, reward, done), torch.randn((b,), generator=gen, device=dev)
+
+    # -- phase 11: each learner kernel against its plain version, small shapes --
+    traj, boot = rollout_arrays(12, 4096)
+    hold("gae", "K7a gae", ppo.gae_advantages(traj, boot, 0.99, 0.95),
+         ppo.gae_advantages_reference(traj, boot, 0.99, 0.95), ("adv", "targets"))
+    hold("gae", "K7a n-step returns", (a2c.nstep_returns(traj.reward, traj.done, boot, 0.99),),
+         (a2c.nstep_returns_reference(traj.reward, traj.done, boot, 0.99),), ("returns",))
+    print("K7a T=12 B=4096, a quarter of done set: advantages, targets and n-step returns bit-exact vs plain")
+
+    for lname, bl in (("walls16", bp.pack_level(walls16)), ("mazes4k", bp.pack_level(mazes(11, (4, 4), 4096)))):
+        st = bp.reset_bits(bl, None if bl.batched else 4096)
+        gst, reached = st, torch.zeros(4096, dtype=torch.bool, device=dev)
+        for _ in range(96):
+            logits = 3 * torch.randn((4096, num_actions), generator=gen, device=dev)
+            noise = a2c.draw_gumbel(gen, (4096, num_actions), dev)
+            got = a2c.act_step(sem, bl, st, logits, noise, 64)
+            ref = a2c.act_step_reference(sem, bl, st, logits, noise, 64)
+            _same_fields(f"K7b {lname}", _act_fields(got), _act_fields(ref), _ACT_FIELDS)
+            errs["act_step"] = max(errs["act_step"], _logp_err(f"K7b {lname}", got[2], ref[2]))
+            g_got = a2c.greedy_step(sem, bl, gst, reached, logits)
+            g_ref = a2c.greedy_step_reference(sem, bl, gst, reached, logits)
+            _same_fields(f"K7b greedy {lname}", (*(getattr(g_got[0], f) for f in _STATE_FIELDS), g_got[1]),
+                         (*(getattr(g_ref[0], f) for f in _STATE_FIELDS), g_ref[1]), (*_STATE_FIELDS, "reached"))
+            st, (gst, reached) = got[0], g_got
+        print(f"K7b {lname} B=4096, 96 steps, max_episode_steps=64: action, obs, reward, done and state exact, "
+              f"logp within 2 ulp (max abs err so far {errs['act_step']!r}); the greedy form exact "
+              f"({int(reached.sum())} envs reached their goal)")
+
+    for s in (256, 4225):
+        for e in (16, 64):
+            for cdt in (torch.float32, torch.bfloat16):
+                n = 8192
+                table = torch.randn((s, e), generator=gen, device=dev, requires_grad=True)
+                obs = torch.randint(0, 9, (n,), generator=gen, device=dev, dtype=torch.int32)  # heavy collisions
+                obs[::5] = torch.randint(0, s, (len(obs[::5]),), generator=gen, device=dev, dtype=torch.int32)
+                out = networks.embed_rows(table, obs, cdt)
+                hold("embed_rows", f"K9a forward S={s} E={e} {cdt}", (out,),
+                     (networks.embed_rows_reference(table, obs, cdt),), ("out",))
+                g = torch.randn((n, e), generator=gen, device=dev).to(cdt)
+                (grad,) = torch.autograd.grad(out, table, g)
+                hold("embed_rows", f"K9a backward S={s} E={e} {cdt}", (grad,),
+                     (networks.embed_rows_backward_reference(g, obs, s),), ("dtable",))
+                (auto,) = torch.autograd.grad(networks.embed_rows_reference(table, obs, cdt), table, g)
+                errs["embed_rows"] = max(errs["embed_rows"], _rel_err(f"K9a vs autograd S={s} E={e} {cdt}", grad, auto, 1e-5))
+    print("K9a S=256, 4225; E=16, 64; float32, bfloat16; N=8192: forward bit-exact vs plain, backward bit-exact "
+          "vs the plain fixed-order backward and within 1e-5 of autograd's (max abs err "
+          f"{errs['embed_rows']!r})")
+
+    for nl in (1, 512):
+        for ch in (16, 32):
+            for cdt in (torch.float32, torch.bfloat16):
+                h = w = 9
+                n = nl * 4
+                y_tiles = torch.randn((nl, h, w, ch), generator=gen, device=dev).to(cdt).requires_grad_(True)
+                k = torch.randn((3, 3, ch), generator=gen, device=dev, requires_grad=True)
+                bias = torch.randn((ch,), generator=gen, device=dev, requires_grad=True)
+                obs = torch.randint(0, h * w, (n,), generator=gen, device=dev, dtype=torch.int32)
+                cot = torch.randn((n, h, w, ch), generator=gen, device=dev).to(cdt)
+                out = networks.agent_stamp(y_tiles, k, bias, obs)
+                ref = networks.agent_stamp_reference(y_tiles, k, bias, obs)
+                hold("agent_stamp", f"K9b forward Nl={nl} ch={ch} {cdt}", (out,), (ref,), ("out",))
+                grads = torch.autograd.grad(out, (y_tiles, k, bias), cot)
+                again = torch.autograd.grad(networks.agent_stamp(y_tiles, k, bias, obs), (y_tiles, k, bias), cot)
+                _same_fields(f"K9b backward twice Nl={nl} ch={ch} {cdt}", grads, again, ("dy_tiles", "dk", "dbias"))
+                auto = torch.autograd.grad(ref, (y_tiles, k, bias), cot)
+                # autograd adds in another order, and dy_tiles is rounded to the compute dtype
+                tol = 1e-2 if cdt == torch.bfloat16 else 1e-5
+                for name, a, b in zip(("dy_tiles", "dk", "dbias"), grads, auto):
+                    err = _rel_err(f"K9b {name} Nl={nl} ch={ch} {cdt}", a, b, tol)
+                    if cdt == torch.float32:  # bfloat16 gradients are held to their scale only
+                        errs["agent_stamp"] = max(errs["agent_stamp"], err)
+    print("K9b Nl=1, 512; T=4; ch0=16, 32; float32, bfloat16: forward bit-exact vs plain, the three gradients the "
+          "same bits on two runs and within 1e-5 (bfloat16: 1e-2) of their scale of autograd's through the plain "
+          f"version (float32 max abs err {errs['agent_stamp']!r})")
+
+    # -- phase 12: the training main path at full width, counted ----------------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    n64 = 65_536
+    lv64 = mazes(2026, (4, 4), n64)
+    cfgs = {
+        "ppo walls16": (walls16, models.PPOConfig(max_episode_steps=MAX_EPISODE_STEPS), 3),
+        "ppo mazes64k": (lv64, models.PPOConfig(max_episode_steps=MAX_EPISODE_STEPS, obs="grid",
+                                                conv_channels=(32,), hidden=(64,)), 2),
+        "a2c walls16": (walls16, models.A2CConfig(max_episode_steps=MAX_EPISODE_STEPS), 3),
+    }
+    api = {"ppo": (models.ppo_train, models.ppo_init, models.ppo_run),
+           "a2c": (models.a2c_train, models.a2c_init, models.a2c_run)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    runs = {}
+    for name, (level, cfg, updates) in cfgs.items():
+        train, init, run = api[name.split()[0]]
+        train(sem, level, 1, cfg, 1, n64)  # first call: library handles, allocator
+        torch.cuda.reset_peak_memory_stats()
+        ms, res = timed(lambda: train(sem, level, 5, cfg, updates, n64))
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(bool(torch.isfinite(p).all()) for p in res.params.values())
+        _require(finite and bool(torch.isfinite(res.final_loss)) and bool(torch.isfinite(res.mean_return)),
+                 f"{name}: a non-finite parameter, loss or return")
+        _require(all(p.device.type == "cuda" for p in res.params.values()), f"{name}: parameters are not on the card")
+        steps = updates * cfg.rollout_len * n64
+        print(f"{name} main: B={n64} T={cfg.rollout_len} updates={updates}: {ms!r} ms, {steps / ms * 1e3!r} env steps/s, "
+              f"episodes {int(res.episodes)}, mean_return {float(res.mean_return)!r}, final_loss {float(res.final_loss)!r}, "
+              f"peak memory {peak / 2**30:.3f} GiB ({smi})")
+        # chunk invariance on the card: all but the last update, then the last,
+        # against the unbroken run; and the unbroken run twice
+        before_last = run(sem, level, init(sem, level, 5, cfg, n64), cfg, updates - 1)
+        end = run(sem, level, before_last, cfg, 1)
+        whole = run(sem, level, init(sem, level, 5, cfg, n64), cfg, updates)
+        _same_train_state(f"{name} chunked {updates - 1}+1 vs {updates}", end, whole)
+        _same_fields(f"{name} a second run", [res.params[k] for k in sorted(res.params)],
+                     [whole.params[k] for k in sorted(whole.params)], sorted(res.params))
+        _same(f"{name} a second run: final_loss", res.final_loss, whole.last_loss)
+        print(f"{name} main: {updates - 1}+1 updates from a saved state equal {updates} unbroken bit for bit "
+              "(parameters, Adam moments and count, env state, statistics); two runs give the same bits")
+        runs[name] = (level, cfg, before_last, end)
+
+    level, cfg, _, end = runs["ppo mazes64k"]
+    net = models.make_network(level, num_actions, cfg)
+    ms, rate = timed(lambda: models.greedy_success_rate(sem, net, end.params, level, 60))
+    fresh = models.greedy_success_rate(sem, net, models.init_network_params(net, 0), level, 60)
+    _require(0.0 <= float(rate) <= 1.0, "greedy_success_rate out of range")
+    print(f"greedy_success_rate main: {n64} mazes, 60 steps: {float(rate)!r} after 2 updates "
+          f"({float(fresh)!r} with fresh parameters), {ms!r} ms ({smi})")
+
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in errs}
+    print(f"launches on the training main path: {launches}")
+    _require(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+
+    # -- phase 13: the main path's last updates against the plain versions -------
+    kept = {}
+    for name, (level, cfg, before_last, end) in runs.items():
+        is_ppo = name.startswith("ppo")
+        net = models.make_network(level, num_actions, cfg)
+        tiles = a2c._tiles_for(net, level)
+        bl = bp.pack_level(level)
+        params = before_last.params
+        # the last update's own draws, from (seed, update) as the trainer makes them
+        gen_u = a2c.update_generator(dev, before_last.seed, before_last.update)
+        noise = a2c.draw_gumbel(gen_u, (cfg.rollout_len, n64, num_actions), dev)
+        st, rows = before_last.env_state, []
+        with torch.no_grad(), networks.exact_kernels():
+            for g_t in noise:
+                logits, value = a2c._net_apply(net, params, st.agent_idx, tiles)
+                got = a2c.act_step(sem, bl, st, logits, g_t, cfg.max_episode_steps)
+                ref = a2c.act_step_reference(sem, bl, st, logits, g_t, cfg.max_episode_steps)
+                _same_fields(f"K7b main {name}", _act_fields(got), _act_fields(ref), _ACT_FIELDS)
+                errs["act_step"] = max(errs["act_step"], _logp_err(f"K7b main {name}", got[2], ref[2]))
+                kept[f"act {name}"] = (bl, st, logits, g_t, cfg.max_episode_steps)
+                st = got[0]
+                rows.append((got[3], got[1], got[2], value, got[4], got[5]))
+            _, bootstrap = a2c._net_apply(net, params, st.agent_idx, tiles)
+        # the rollout redone here is the one the main path made
+        _same_fields(f"{name} redone rollout", [getattr(st, f) for f in _STATE_FIELDS[:3]],
+                     [getattr(end.env_state, f) for f in _STATE_FIELDS[:3]], _STATE_FIELDS[:3])
+        traj = a2c.Trajectory(*(torch.stack(field) for field in zip(*rows)))
+        if is_ppo:
+            adv, targets = ppo.gae_advantages(traj, bootstrap, cfg.gamma, cfg.gae_lambda)
+            hold("gae", f"K7a main {name}", (adv, targets),
+                 ppo.gae_advantages_reference(traj, bootstrap, cfg.gamma, cfg.gae_lambda), ("adv", "targets"))
+            adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+            slab = (traj.obs, traj.action, traj.logp, traj.value, adv, targets)
+            mbs, mb_tiles = ppo._minibatches(slab, tiles, ppo.shuffle_draw(gen_u, cfg, n64, dev), cfg, n64)
+            mb, mb_tiles = mbs[0], mb_tiles[0]
+            kept[name] = (traj, bootstrap, mb, mb_tiles, net, params)
+
+            def loss_of(live, mb=mb, mb_tiles=mb_tiles, net=net, cfg=cfg):
+                return ppo.ppo_loss(net, live, mb, mb_tiles, cfg)[0]
+        else:
+            returns = a2c.nstep_returns(traj.reward, traj.done, bootstrap, cfg.gamma)
+            hold("gae", f"K7a main {name}", (returns,),
+                 (a2c.nstep_returns_reference(traj.reward, traj.done, bootstrap, cfg.gamma),), ("returns",))
+            kept[name] = (traj, bootstrap, None, None, net, params)
+
+            def loss_of(live, traj=traj, returns=returns, net=net, tiles=tiles, cfg=cfg):
+                return a2c.a2c_loss(net, live, tiles, traj, returns, cfg)
+        print(f"{name} main, last update: every act_step exact vs plain (logp within 2 ulp), the redone rollout "
+              f"ends in the main path's env state, K7a bit-exact vs plain (episode ends: {int(traj.done.sum())})")
+
+        # one minibatch's forward and backward, kernels against plain versions
+        seen = []
+        real_embed = networks.embed_rows
+
+        def recording(table, obs, dtype):
+            out = real_embed(table, obs, dtype)
+            out.retain_grad()
+            seen.append((obs, out))
+            return out
+
+        def loss_and_grads(**patches):
+            live = a2c.leaves(params)
+            with mock.patch.multiple(networks, **patches), networks.exact_kernels():
+                loss = loss_of(live)
+                loss.backward()
+            return loss.detach(), {k: v.grad for k, v in live.items()}
+
+        loss_k, grads_k = loss_and_grads(embed_rows=recording)
+        loss_p, grads_p = loss_and_grads(embed_rows=networks.embed_rows_reference,
+                                         agent_stamp=networks.agent_stamp_reference)
+        _same(f"{name} minibatch loss, kernels vs plain", loss_k, loss_p)
+        kname = "agent_stamp" if "mazes" in name else "embed_rows"
+        # autograd's plain backward adds in another order (float atomics over
+        # up to a million samples); with the conv trunk the tile gradient is
+        # also rounded to bfloat16 at another sum
+        tol = 2e-2 if kname == "agent_stamp" else 1e-4
+        worst = 0.0
+        for leaf in grads_k:
+            err = _rel_err(f"{name} minibatch gradient {leaf}", grads_k[leaf], grads_p[leaf], tol)
+            worst = max(worst, err / max(float(grads_p[leaf].abs().max()), 1e-30))
+            if leaf in ("embed", "conv_0_kernel", "conv_0_bias"):
+                errs[kname] = max(errs[kname], err)
+        if seen:  # K9a's backward on the main path's own gradient, bit for bit
+            obs, out = seen[0]
+            hold("embed_rows", f"K9a main {name} backward", (grads_k["embed"],),
+                 (networks.embed_rows_backward_reference(out.grad, obs, params["embed"].shape[0]),),
+                 ("dtable",))
+        n_mb = int(seen[0][0].shape[0]) if seen else int(mb[0].numel())
+        print(f"{name} main, one minibatch of {n_mb} samples: loss bit-equal with kernels and with plain versions, "
+              f"every gradient within {tol} of its scale (worst {worst!r})"
+              + ("; K9a's dtable bit-exact vs the plain fixed-order backward" if seen else ""))
+
+    # -- phase 14: times at the main path's shapes ------------------------------
+    traj, bootstrap, mb, _, _, params = kept["ppo walls16"]
+    t_len = traj.value.shape[0]
+    ms, got = _cuda_ms(lambda: ppo.gae_advantages(traj, bootstrap, 0.99, 0.95), 50)
+    plain_ms, ref = _cuda_ms(lambda: ppo.gae_advantages_reference(traj, bootstrap, 0.99, 0.95), 3)
+    hold("gae", "K7a timed", got, ref, ("adv", "targets"))
+    times["gae"] = dict(ms=ms, plain_ms=plain_ms, shape=f"GAE T={t_len} B={n64}", library_ms=None,
+                        # value, reward (4 bytes) and done (1) in, adv and targets out, per (t, env); the bootstrap
+                        **bound(t_len * n64 * 17 + n64 * 4, INSTR_K7A_STEP * t_len * n64))
+    ms_r, _ = _cuda_ms(lambda: a2c.nstep_returns(traj.reward, traj.done, bootstrap, 0.99), 50)
+    print(f"K7a timed: GAE {ms!r} ms, n-step returns {ms_r!r} ms at T={t_len} B={n64} ({smi})")
+
+    for name in ("ppo walls16", "ppo mazes64k"):
+        bl, st, logits, g_t, max_ep = kept[f"act {name}"]
+        ms, got = _cuda_ms(lambda: a2c.act_step(sem, bl, st, logits, g_t, max_ep), 50)
+        plain_ms, ref = _cuda_ms(lambda: a2c.act_step_reference(sem, bl, st, logits, g_t, max_ep), 3)
+        _same_fields(f"K7b timed {name}", _act_fields(got), _act_fields(ref), _ACT_FIELDS)
+        errs["act_step"] = max(errs["act_step"], _logp_err(f"K7b timed {name}", got[2], ref[2]))
+        level_bytes = bl.code_words.shape[-1] * 4 if bl.batched else 0
+        # logits and noise (2·A floats), state in (12 bytes) and out (13), five outputs (17), a per-env level's words
+        t7b = dict(ms=ms, plain_ms=plain_ms, shape=f"{name.split()[1]} B={n64} A={num_actions}", library_ms=None,
+                   **bound(n64 * (8 * num_actions + 42 + level_bytes), INSTR_K7B_ENV * n64))
+        print(f"K7b timed {name}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {t7b['bound_ms']!r} ms by {t7b['bound_by']} ({smi})")
+        if name == "ppo walls16":
+            times["act_step"] = t7b
+
+    # K9a at a PPO minibatch (the record's shape), the rollout's and A2C's N
+    table = params["embed"].detach().clone().requires_grad_(True)
+    s_n, e_n = table.shape
+    cdt = torch.bfloat16
+    a2c_obs = kept["a2c walls16"][0].obs.reshape(-1)
+    for tag, obs in (("minibatch", mb[0].reshape(-1)), ("rollout", traj.obs[-1]), ("a2c", a2c_obs)):
+        n = obs.shape[0]
+        g = torch.randn((n, e_n), generator=gen, device=dev).to(cdt)
+        f_ms, out = _cuda_ms(lambda: networks.embed_rows(table, obs, cdt), 50)
+        b_ms, (grad,) = _cuda_ms(lambda: torch.autograd.grad(networks.embed_rows(table, obs, cdt), table, g), 20)
+        b_ms -= f_ms
+        pf_ms, pout = _cuda_ms(lambda: networks.embed_rows_reference(table, obs, cdt), 50)
+        pb_ms, (pgrad,) = _cuda_ms(
+            lambda: torch.autograd.grad(networks.embed_rows_reference(table, obs, cdt), table, g), 20)
+        pb_ms -= pf_ms
+
+        def library(obs=obs):  # one library call for the same function: timed here, used nowhere in the port
+            return torch.nn.functional.embedding(obs, table.to(cdt))
+
+        lf_ms, lout = _cuda_ms(library, 50)
+        lb_ms, (lgrad,) = _cuda_ms(lambda: torch.autograd.grad(library(), table, g), 20)
+        lb_ms -= lf_ms
+        hold("embed_rows", f"K9a timed {tag} forward", (out, out), (pout, lout), ("vs plain", "vs F.embedding"))
+        errs["embed_rows"] = max(errs["embed_rows"], _rel_err(f"K9a timed {tag} backward vs autograd", grad, pgrad, 1e-4))
+        # the library's backward adds in bfloat16; it is a yardstick of time, held loosely
+        _rel_err(f"K9a timed {tag} backward vs F.embedding", grad, lgrad, 5e-2)
+        fixed_ms, fixed = _cuda_ms(lambda: networks.embed_rows_backward_reference(g, obs, s_n), 1, warm=False)
+        hold("embed_rows", f"K9a timed {tag} backward", (grad,), (fixed,), ("dtable",))
+        fb = bound(n * 4 + s_n * e_n * 4 + n * e_n * 2, INSTR_K9A_FWD * n * e_n)
+        bb = bound(n * 4 + s_n * e_n * 4 + n * e_n * 2, INSTR_K9A_BWD * n * e_n)
+        print(f"K9a timed {tag} N={n} S={s_n} E={e_n} bfloat16: forward {f_ms!r} ms (plain {pf_ms!r}, F.embedding "
+              f"{lf_ms!r}, bound {fb['bound_ms']!r} by {fb['bound_by']}), backward {b_ms!r} ms (autograd of plain "
+              f"{pb_ms!r}, of F.embedding {lb_ms!r}, plain fixed-order {fixed_ms!r}, bound {bb['bound_ms']!r} by "
+              f"{bb['bound_by']}); forward bit-exact, backward bit-exact vs the plain fixed-order backward ({smi})")
+        if tag == "minibatch":
+            both = bound(2 * (n * 4 + s_n * e_n * 4 + n * e_n * 2), (INSTR_K9A_FWD + INSTR_K9A_BWD) * n * e_n)
+            times["embed_rows"] = dict(ms=f_ms + b_ms, plain_ms=pf_ms + pb_ms, library_ms=lf_ms + lb_ms,
+                                       shape=f"forward + backward, N={n} S={s_n} E={e_n} bfloat16", **both)
+
+    # K9b at a PPO minibatch over per-env mazes (the record's shape) and at a rollout step
+    _, _, mb, mb_tiles, net, params = kept["ppo mazes64k"]
+    ch, c_t = net.channels[0], net.num_tile_types
+    k_agent = params["conv_0_kernel"][:, c_t].permute(1, 2, 0).contiguous().requires_grad_(True)
+    bias = params["conv_0_bias"].detach().clone().requires_grad_(True)
+    h, w = net.height, net.width
+    for tag, obs, planes in (("minibatch", mb[0].reshape(-1).contiguous(), mb_tiles),
+                             ("rollout", kept["ppo mazes64k"][0].obs[-1], a2c._tiles_for(net, runs["ppo mazes64k"][0]))):
+        with torch.no_grad(), networks.exact_kernels():
+            y = torch.nn.functional.conv2d(planes.permute(0, 3, 1, 2), params["conv_0_kernel"][:, :c_t].to(cdt), padding=1)
+        y_tiles = y.permute(0, 2, 3, 1).contiguous().requires_grad_(True)
+        n, nl = obs.shape[0], y_tiles.shape[0]
+        cot = torch.randn((n, h, w, ch), generator=gen, device=dev).to(cdt)
+        args = (y_tiles, k_agent, bias)
+        f_ms, out = _cuda_ms(lambda: networks.agent_stamp(*args, obs), 10)
+        b_ms, grads = _cuda_ms(lambda: torch.autograd.grad(networks.agent_stamp(*args, obs), args, cot), 5)
+        b_ms -= f_ms
+        pf_ms, pout = _cuda_ms(lambda: networks.agent_stamp_reference(*args, obs), 3)
+        pb_ms, pgrads = _cuda_ms(lambda: torch.autograd.grad(networks.agent_stamp_reference(*args, obs), args, cot), 2)
+        pb_ms -= pf_ms
+        hold("agent_stamp", f"K9b timed {tag} forward", (out,), (pout,), ("out",))
+        for gname, a, b in zip(("dy_tiles", "dk", "dbias"), grads, pgrads):
+            _rel_err(f"K9b timed {tag} {gname}", a, b, 1e-2)
+        del pout, pgrads
+
+        def library(obs=obs, y=y, n=n):  # the one-hot agent plane through the library's conv, then add and ReLU
+            plane = torch.nn.functional.one_hot(obs.long(), h * w).to(cdt).reshape(n, 1, h, w)
+            y_agent = torch.nn.functional.conv2d(plane, params["conv_0_kernel"][:, c_t:].to(cdt), padding=1)
+            y_sum = y_agent.reshape(n // y.shape[0], *y.shape) + y
+            return torch.relu(y_sum + params["conv_0_bias"].to(cdt)[:, None, None]).reshape(n, ch, h, w)
+
+        with torch.no_grad(), networks.exact_kernels():
+            l_ms, lout = _cuda_ms(library, 5)
+        # the library rounds every add to bfloat16; the kernel rounds once
+        _rel_err(f"K9b timed {tag} vs the library's conv", out.permute(0, 3, 1, 2), lout, 3e-2)
+        del lout
+        elem = n * h * w * ch
+        fb = bound(elem * 2 + nl * h * w * ch * 2 + n * 4, INSTR_K9B_FWD * elem)
+        bb = bound(elem * 4 + nl * h * w * ch * 2 + n * 4, INSTR_K9B_BWD * elem)
+        print(f"K9b timed {tag} N={n} Nl={nl} {h}x{w} ch0={ch} bfloat16: forward {f_ms!r} ms (plain {pf_ms!r}, library "
+              f"conv + add + ReLU {l_ms!r}, bound {fb['bound_ms']!r} by {fb['bound_by']}), backward {b_ms!r} ms "
+              f"(autograd of plain {pb_ms!r}, bound {bb['bound_ms']!r} by {bb['bound_by']}); forward bit-exact vs plain, "
+              f"gradients within 1e-2 of their scale ({smi})")
+        if tag == "minibatch":
+            both = bound(elem * 6 + 2 * nl * h * w * ch * 2 + 2 * n * 4, (INSTR_K9B_FWD + INSTR_K9B_BWD) * elem)
+            times["agent_stamp"] = dict(ms=f_ms + b_ms, plain_ms=pf_ms + pb_ms, library_ms=l_ms,
+                                        shape=f"forward + backward, N={n} Nl={nl} {h}x{w} ch0={ch} bfloat16", **both)
+    return launches, errs, times
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this runs only on a GPU")
@@ -697,10 +1130,16 @@ def main() -> None:
     launches.update(solver_launches)
     errs.update(solver_errs)
     times.update(solver_times)
+
+    # -- phases 11-14: the on-policy neural learners (K7a, K7b, K9a, K9b) --------
+    learner_launches, learner_errs, learner_times = learner_phases(gt, dev, gen, bound, smi)
+    launches.update(learner_launches)
+    errs.update(learner_errs)
+    times.update(learner_times)
     for name, t in times.items():
         print(f"time {name} at {t['shape']}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
               f"bound {t['bound_ms']!r} ms by {t['bound_by']}, library {t['library_ms']!r} ms, "
-              f"outputs bit-exact ({smi})")
+              f"max abs err vs plain {errs[name]!r} ({smi})")
 
     csrc = "griduniverse_tpu_torch/csrc/"
     sources = {
@@ -711,6 +1150,10 @@ def main() -> None:
         "td_scan_fast": (csrc + "td_fast.cu", "griduniverse_tpu/algos/td_fast.py:243"),
         "td_batched": (csrc + "td_batched.cu", "griduniverse_tpu/algos/td_batched.py:78"),
         "segment_mean": (csrc + "segment_mean.cu", "griduniverse_tpu/algos/td.py:78"),
+        "gae": (csrc + "gae.cu", "griduniverse_tpu/models/ppo.py:159"),
+        "act_step": (csrc + "act_step.cu", "griduniverse_tpu/models/ppo.py:199"),
+        "embed_rows": (csrc + "embed_rows.cu", "griduniverse_tpu/models/networks.py:54"),
+        "agent_stamp": (csrc + "agent_stamp.cu", "griduniverse_tpu/models/networks.py:178"),
     }
     _require(set(sources) == set(kernels.LAUNCHES), "the record does not list every kernel")
     record = {"kernels": [

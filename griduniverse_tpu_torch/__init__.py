@@ -11,9 +11,12 @@ Subpackages:
   ops       — generic rollouts and the bit-packed engine (K1, K2)
   algos     — tabular solvers: DP over one or N mazes (K4), shared-Q TD
               (K5), per-maze TD (K6), the generic TD learners (K10)
+  models    — on-policy neural learners on one device: networks (K9a,
+              K9b), optimizer, A2C and PPO (K7a, K7b), greedy evaluation
   kernels   — build, binding and launch counts of the CUDA kernels
   utils     — conversion of the reference's objects into the port's
-  tools     — command-line tools for the card (profile_rollout, profile_solvers)
+  tools     — command-line tools for the card (profile_rollout,
+              profile_solvers, profile_learners, sass_counts)
 """
 
 from .core.model import ModelTable, build_model_table

@@ -5,18 +5,25 @@ K1 `random_scan_bits` and K2 `rollout_actions_bits` live in
 `aldous_broder_mazes` in `csrc/maze.cu`, K4 `dp_grid` (grid-form VI/PI) in
 `csrc/dp_grid.cu`, K5 `td_scan_fast` (shared-Q TD) in `csrc/td_fast.cu`, K6
 `td_batched` (per-maze TD) in `csrc/td_batched.cu` and K10 `segment_mean`
-in `csrc/segment_mean.cu`. `build.load()` compiles them with `nvcc` for
-`sm_90a` at first use.
+in `csrc/segment_mean.cu`. The neural learners' kernels are K7a `gae` (the
+GAE and n-step-return scans) in `csrc/gae.cu`, K7b `act_step` (sample,
+log-prob and env step; and its greedy form) in `csrc/act_step.cu`, K9a
+`embed_rows` (index embedding, with its backward) in `csrc/embed_rows.cu`
+and K9b `agent_stamp` (agent plane of the first conv layer, with its
+backward) in `csrc/agent_stamp.cu`. `build.load()` compiles them with `nvcc`
+for `sm_90a` at first use.
 
-Dispatch rule, applied by the public functions in `ops/`, `levels/` and
-`algos/`:
+Dispatch rule, applied by the public functions in `ops/`, `levels/`,
+`algos/` and `models/`:
 tensors on the CPU take the plain PyTorch version beside each kernel;
 CUDA tensors launch the kernel, or raise. There is no fallback.
 
 `LAUNCHES[name]` counts the kernel launches of each entry: a wrapper adds
 one for each kernel it launched, right after the call that launched them
 succeeded, and nowhere else. K5's wrapper launches one kernel a step and one
-more to apply the last aggregate, so a scan of T steps counts T + 1.
+more to apply the last aggregate, so a scan of T steps counts T + 1; the
+backward of `embed_rows` launches two kernels and that of `agent_stamp`
+three, and each counts under its kernel's name.
 """
 
 from __future__ import annotations
@@ -31,6 +38,10 @@ LAUNCHES: dict[str, int] = {
     "td_scan_fast": 0,
     "td_batched": 0,
     "segment_mean": 0,
+    "gae": 0,
+    "act_step": 0,
+    "embed_rows": 0,
+    "agent_stamp": 0,
 }
 
 

@@ -25,6 +25,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (
     "rollout.cu", "maze.cu", "dp_grid.cu", "td_fast.cu", "td_batched.cu", "segment_mean.cu",
+    "gae.cu", "act_step.cu", "embed_rows.cu", "agent_stamp.cu",
 )
 HEADERS = ("step.cuh",)
 # No --use_fast_math, and -fmad=false: every kernel is held bit for bit
@@ -57,6 +58,17 @@ _SIGNATURES = {
     "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I]
                      + [_P] * 4 + [_P] * 9 + [_P],
     "gu_segment_mean": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P],
+    "gu_gae": [_P] * 6 + [_I, _I, _F, _F, _P],
+    "gu_nstep_returns": [_P] * 4 + [_I, _I, _F, _P],
+    # batch, max_episode_steps; logits, gumbel; state in (3); state out (4);
+    # action, logp, obs, reward, done
+    "gu_act_step": _SEM + _LEVEL + [_I, _I] + [_P] * 14 + [_P],
+    # words, n_words, per_env, h, w, batch; logits; state and reached in (5), out (5)
+    "gu_greedy_step": _SEM + [_P, _I, _I, _I, _I, _I] + [_P] * 11 + [_P],
+    "gu_embed_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gu_embed_rows_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gu_agent_stamp": [_P] * 5 + [_I] * 6 + [_P],
+    "gu_agent_stamp_backward": [_P] * 7 + [_I] * 8 + [_P],
 }
 _ERROR_STRING = "gu_error_string"  # const char* (int): cudaGetErrorString
 

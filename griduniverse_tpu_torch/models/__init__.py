@@ -1,0 +1,32 @@
+"""Neural learners on one device: the on-policy trainers (A2C, PPO), their
+networks, optimizer and evaluation."""
+
+from .a2c import (
+    A2CConfig,
+    A2CResult,
+    A2CTrainState,
+    a2c_init,
+    a2c_result,
+    a2c_run,
+    a2c_train,
+    greedy_actions,
+    init_network_params,
+    make_network,
+)
+from .evaluation import (
+    greedy_reached,
+    greedy_reached_tabular,
+    greedy_success_rate,
+    greedy_success_rate_tabular,
+)
+from .networks import ActorCritic, BatchedConvActorCritic, ConvActorCritic
+from .ppo import (
+    PPOConfig,
+    PPOResult,
+    PPOTrainState,
+    gae_advantages,
+    ppo_init,
+    ppo_result,
+    ppo_run,
+    ppo_train,
+)

@@ -1,9 +1,10 @@
 """Carry objects of the JAX package across into the port.
 
 Each function reads the fields of a reference object (a `Semantics`,
-`Level`, `BitLevel`, `FastState`, `EnvState`, `ModelTable` or one of the
-solvers' train states of `griduniverse_tpu`, or anything with the same
-attributes) as NumPy arrays and builds the port's
+`Level`, `BitLevel`, `FastState`, `EnvState`, `ModelTable`, one of the
+solvers' or trainers' train states, a flax parameter tree or an optax Adam
+state of `griduniverse_tpu`, or anything with the same attributes) as NumPy
+arrays and builds the port's
 counterpart on `device` (default: the card). Nothing here imports JAX: the reference's arrays
 are converted with `numpy.asarray`.
 """
@@ -19,6 +20,9 @@ from ..algos.td_fast import FastTDTrainState
 from ..core.model import ModelTable
 from ..core.semantics import Semantics
 from ..core.types import EnvState, Level
+from ..models.a2c import A2CTrainState
+from ..models.optim import AdamState
+from ..models.ppo import PPOTrainState
 from ..ops.bitplane import BitLevel, FastState, xorshift_init
 from .platform import resolve_device
 
@@ -159,3 +163,74 @@ def to_td_state(ts, *, rs=None, seed: int = 0, device=None) -> TDTrainState:
         episodes=_t(ts.episodes, np.int64, device),
         ret_sum=_t(ts.ret_sum, np.float32, device),
     )
+
+
+def to_network_state(params, net=None, *, device=None) -> dict[str, torch.Tensor]:
+    """A flax parameter tree of one of the actor-critic networks (nested
+    dicts of arrays, with or without the top-level "params") → the port
+    module's `state_dict`: `embed`, `conv_0_kernel` and `conv_0_bias` keep
+    their names, a Dense `kernel` (in, out) becomes `weight` (out, in), a
+    conv kernel HWIO becomes OIHW. With `net`, the tensors go to its device
+    and their names and shapes are checked against it."""
+    if net is not None:
+        device = next(net.parameters()).device
+    tree = params["params"] if "params" in params else params
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            kernel = np.asarray(leaf["kernel"], dtype=np.float32)
+            kernel = kernel.T if kernel.ndim == 2 else kernel.transpose(3, 2, 0, 1)
+            out[f"{name}.weight"] = _t(kernel, np.float32, device)
+            out[f"{name}.bias"] = _t(leaf["bias"], np.float32, device)
+        elif name == "conv_0_kernel":
+            out[name] = _t(np.asarray(leaf, dtype=np.float32).transpose(3, 2, 0, 1), np.float32, device)
+        else:
+            out[name] = _t(leaf, np.float32, device)
+    if net is not None:
+        want = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in out.items()}
+        if want != got:
+            raise ValueError(f"parameter tree does not fit the network: {got} vs {want}")
+        out = {k: out[k] for k in want}
+    return out
+
+
+def to_adam_state(opt_state, net=None, *, device=None) -> AdamState:
+    """optax's state of `chain(clip_by_global_norm, adam(lr))`, that is
+    `(EmptyState, (ScaleByAdamState(count, mu, nu), ...))`, → the port's
+    `AdamState`. A schedule's own count equals Adam's and is dropped."""
+    if net is not None:
+        device = next(net.parameters()).device
+    adam = next(s for s in opt_state[1] if hasattr(s, "mu"))
+    return AdamState(
+        count=_t(adam.count, np.int32, device),
+        mu=to_network_state(adam.mu, net, device=device),
+        nu=to_network_state(adam.nu, net, device=device),
+    )
+
+
+def _train_state_fields(ts, net, seed, device) -> dict:
+    if net is not None:
+        device = next(net.parameters()).device
+    return dict(
+        params=to_network_state(ts.params, net, device=device),
+        opt_state=to_adam_state(ts.opt_state, net, device=device),
+        env_state=to_fast_state(ts.env_state, device=device),
+        seed=int(seed),
+        update=int(ts.update),
+        run_ret=_batched(ts.run_ret, np.float32, device),
+        episodes=_t(ts.episodes, np.int64, device),
+        ret_sum=_t(ts.ret_sum, np.float32, device),
+        last_loss=_t(ts.last_loss, np.float32, device),
+    )
+
+
+def to_ppo_train_state(ts, net=None, *, seed: int = 0, device=None) -> PPOTrainState:
+    """Reference `PPOTrainState` → the port's. The PRNG key is dropped: the
+    port's draws come from `seed` (or are injected into `ppo_run`)."""
+    return PPOTrainState(**_train_state_fields(ts, net, seed, device))
+
+
+def to_a2c_train_state(ts, net=None, *, seed: int = 0, device=None) -> A2CTrainState:
+    """Reference `A2CTrainState` → the port's; see `to_ppo_train_state`."""
+    return A2CTrainState(**_train_state_fields(ts, net, seed, device))

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1–K6 and K10 against their plain PyTorch versions.
+"""The CUDA kernels K1–K7, K9 and K10 against their plain PyTorch versions.
 
 These tests need a CUDA card and the CUDA toolkit (`nvcc`); without a card
 they skip. This file imports no JAX, so it also runs on a machine without
@@ -16,6 +16,7 @@ import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch import kernels
 from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast
 from griduniverse_tpu_torch.levels import builders
+from griduniverse_tpu_torch.models import a2c, networks, ppo
 from griduniverse_tpu_torch.levels import maze as M
 from griduniverse_tpu_torch.ops import bitplane as bp
 
@@ -230,3 +231,128 @@ def test_solver_wrappers_raise_on_bad_input(dev):
     big = bp.pack_level(T.make_level(torch.zeros((60, 60), dtype=torch.int32).numpy(), 0, device=dev))
     with pytest.raises(ValueError):
         td_fast.fast_td_init(sem, big, 0, 8) and td_fast.compile_q_learning_fast(sem, big, 8, 1)(0)
+
+
+# ---------------------------------------------------------------------------
+# The neural learners' kernels: K7a, K7b, K9a, K9b
+# ---------------------------------------------------------------------------
+
+
+def test_gae_and_nstep_kernels_match_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t, b = 12, 4096
+    value = torch.randn((t, b), generator=gen, device=dev)
+    reward = torch.randn((t, b), generator=gen, device=dev)
+    done = torch.rand((t, b), generator=gen, device=dev) < 0.25
+    bootstrap = torch.randn((b,), generator=gen, device=dev)
+    traj = a2c.Trajectory(None, None, None, value, reward, done)
+    before = kernels.LAUNCHES["gae"]
+    got = ppo.gae_advantages(traj, bootstrap, 0.99, 0.95)
+    ret = a2c.nstep_returns(reward, done, bootstrap, 0.99)
+    assert kernels.LAUNCHES["gae"] == before + 2
+    _assert_same(got, ppo.gae_advantages_reference(traj, bootstrap, 0.99, 0.95))
+    _assert_same((ret,), (a2c.nstep_returns_reference(reward, done, bootstrap, 0.99),))
+    with pytest.raises(ValueError):
+        ppo.gae_advantages(a2c.Trajectory(None, None, None, value, reward, done.int()), bootstrap, 0.99, 0.95)
+
+
+def logp_within_2ulp(got, ref):
+    return bool(((got - ref).abs() <= 2 * 2.0 ** -23 * ref.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("max_ep", [None, 64])
+def test_act_step_and_greedy_step_kernels_match_plain(dev, max_ep):
+    sem = T.make_semantics(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for bl in _levels(dev).values():
+        st = bp.reset_bits(bl, None if bl.batched else 1024)
+        ref_st = st
+        gst, reached = st, torch.zeros(1024, dtype=torch.bool, device=dev)
+        ref_gst, ref_reached = gst, reached
+        for _ in range(100):
+            logits = 2 * torch.randn((1024, 4), generator=gen, device=dev)
+            noise = a2c.draw_gumbel(gen, (1024, 4), dev)
+            before = kernels.LAUNCHES["act_step"]
+            st, *got = a2c.act_step(sem, bl, st, logits, noise, max_ep)
+            gst, reached = a2c.greedy_step(sem, bl, gst, reached, logits)
+            assert kernels.LAUNCHES["act_step"] == before + 2
+            ref_st, *ref = a2c.act_step_reference(sem, bl, ref_st, logits, noise, max_ep)
+            ref_gst, ref_reached = a2c.greedy_step_reference(sem, bl, ref_gst, ref_reached, logits)
+            action, logp, obs, reward, done = got
+            _assert_same((action, obs, reward, done), (ref[0], ref[2], ref[3], ref[4]))
+            assert logp_within_2ulp(logp, ref[1])
+            assert torch.equal(reached, ref_reached)
+            for f in ("agent_idx", "agent_code", "t", "done"):
+                assert torch.equal(getattr(st, f), getattr(ref_st, f))
+                assert torch.equal(getattr(gst, f), getattr(ref_gst, f))
+
+
+@pytest.mark.parametrize("s,e", [(256, 16), (4225, 64)])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_embed_rows_kernel_matches_plain(dev, s, e, cdt):
+    gen = torch.Generator(device=dev).manual_seed(s)
+    n = 5000
+    table = torch.randn((s, e), generator=gen, device=dev, requires_grad=True)
+    obs = torch.randint(0, 9, (n,), generator=gen, device=dev, dtype=torch.int32)  # heavy collisions
+    obs[::5] = torch.randint(0, s, (len(obs[::5]),), generator=gen, device=dev, dtype=torch.int32)
+    before = kernels.LAUNCHES["embed_rows"]
+    out = networks.embed_rows(table, obs, cdt)
+    assert kernels.LAUNCHES["embed_rows"] == before + 1
+    assert torch.equal(out, networks.embed_rows_reference(table, obs, cdt))
+    g = torch.randn((n, e), generator=gen, device=dev).to(cdt)
+    (grad,) = torch.autograd.grad(out, table, g)
+    assert kernels.LAUNCHES["embed_rows"] == before + 3
+    _assert_same((grad,), (networks.embed_rows_backward_reference(g, obs, s),))
+    (auto,) = torch.autograd.grad(networks.embed_rows_reference(table, obs, cdt), table, g)
+    torch.testing.assert_close(grad, auto, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("nl,ch", [(1, 16), (512, 32)])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_agent_stamp_kernel_matches_plain(dev, nl, ch, cdt):
+    gen = torch.Generator(device=dev).manual_seed(nl)
+    h, w, t = 9, 9, 4
+    n = nl * t
+    y_tiles = torch.randn((nl, h, w, ch), generator=gen, device=dev).to(cdt).requires_grad_(True)
+    k = torch.randn((3, 3, ch), generator=gen, device=dev, requires_grad=True)
+    bias = torch.randn((ch,), generator=gen, device=dev, requires_grad=True)
+    obs = torch.randint(0, h * w, (n,), generator=gen, device=dev, dtype=torch.int32)
+    cot = torch.randn((n, h, w, ch), generator=gen, device=dev).to(cdt)
+    before = kernels.LAUNCHES["agent_stamp"]
+    out = networks.agent_stamp(y_tiles, k, bias, obs)
+    assert kernels.LAUNCHES["agent_stamp"] == before + 1
+    ref = networks.agent_stamp_reference(y_tiles, k, bias, obs)
+    assert torch.equal(out, ref)
+    grads = torch.autograd.grad(out, (y_tiles, k, bias), cot)
+    assert kernels.LAUNCHES["agent_stamp"] == before + 4
+    again = torch.autograd.grad(networks.agent_stamp(y_tiles, k, bias, obs), (y_tiles, k, bias), cot)
+    for a, b in zip(grads, again):  # the same bits on every run
+        assert torch.equal(a, b)
+    auto = torch.autograd.grad(ref, (y_tiles, k, bias), cot)
+    # autograd sums in another order (and dy_tiles in the compute dtype)
+    tol = dict(rtol=2e-2, atol=2e-1) if cdt == torch.bfloat16 else dict(rtol=1e-4, atol=1e-3)
+    for a, b in zip(grads, auto):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+def test_ppo_and_a2c_on_cuda_are_chunk_invariant(dev):
+    sem = T.make_semantics(device=dev)
+    level = builders.lava_level(device=dev)
+    cfg = ppo.PPOConfig(rollout_len=4, max_episode_steps=16, hidden=(32,), embed_dim=16,
+                        num_epochs=2, num_minibatches=2, target_kl=0.02)
+    ts0 = ppo.ppo_init(sem, level, 3, cfg, 64)
+    full = ppo.ppo_run(sem, level, ts0, cfg, 6)
+    half = ppo.ppo_run(sem, level, ppo.ppo_run(sem, level, ts0, cfg, 3), cfg, 3)
+    for name in full.params:
+        assert torch.equal(full.params[name], half.params[name])
+        assert torch.equal(full.opt_state.nu[name], half.opt_state.nu[name])
+    assert torch.equal(full.env_state.agent_idx, half.env_state.agent_idx)
+    grids, start = M.generate_mazes_device(5, (2, 2), 64, "aldous_broder", device=dev)
+    mazes = T.Level(grid=grids, start_idx=start.expand(64).contiguous())
+    acfg = a2c.A2CConfig(rollout_len=4, max_episode_steps=16, obs="grid", conv_channels=(8, 8), hidden=(16,))
+    ts0 = a2c.a2c_init(sem, mazes, 4, acfg)
+    full = a2c.a2c_run(sem, mazes, ts0, acfg, 4)
+    half = a2c.a2c_run(sem, mazes, a2c.a2c_run(sem, mazes, ts0, acfg, 2), acfg, 2)
+    for name in full.params:
+        assert torch.equal(full.params[name], half.params[name])
+    assert int(full.opt_state.count) == 4 and float(full.last_loss) == float(half.last_loss)
