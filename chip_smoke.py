@@ -873,27 +873,41 @@ def learner_phases(gt, dev, gen, bound, smi):
             _rel_err(f"K9b timed {tag} {gname}", a, b, 1e-2)
         del pout, pgrads
 
-        def library(obs=obs, y=y, n=n):  # the one-hot agent plane through the library's conv, then add and ReLU
-            plane = torch.nn.functional.one_hot(obs.long(), h * w).to(cdt).reshape(n, 1, h, w)
-            y_agent = torch.nn.functional.conv2d(plane, params["conv_0_kernel"][:, c_t:].to(cdt), padding=1)
-            y_sum = y_agent.reshape(n // y.shape[0], *y.shape) + y
-            return torch.relu(y_sum + params["conv_0_bias"].to(cdt)[:, None, None]).reshape(n, ch, h, w)
+        # the library's way to the same function: the one-hot agent plane through
+        # its conv, then add and ReLU, with autograd's backward; timed here, used
+        # nowhere in the port
+        k_lib = params["conv_0_kernel"][:, c_t:].detach().clone().requires_grad_(True)
+        b_lib = params["conv_0_bias"].detach().clone().requires_grad_(True)
+        y_lib = y.detach().clone().requires_grad_(True)
 
-        with torch.no_grad(), networks.exact_kernels():
-            l_ms, lout = _cuda_ms(library, 5)
+        def library(obs=obs, n=n, k_lib=k_lib, b_lib=b_lib, y_lib=y_lib):
+            plane = torch.nn.functional.one_hot(obs.long(), h * w).to(cdt).reshape(n, 1, h, w)
+            y_agent = torch.nn.functional.conv2d(plane, k_lib.to(cdt), padding=1)
+            y_sum = y_agent.reshape(n // y_lib.shape[0], *y_lib.shape) + y_lib
+            return torch.relu(y_sum + b_lib.to(cdt)[:, None, None]).reshape(n, ch, h, w)
+
+        with networks.exact_kernels():
+            with torch.no_grad():
+                l_ms, lout = _cuda_ms(library, 5)
+            lb_ms, lgrads = _cuda_ms(
+                lambda: torch.autograd.grad(library(), (y_lib, k_lib, b_lib), cot.permute(0, 3, 1, 2)), 3)
+        lb_ms -= l_ms
         # the library rounds every add to bfloat16; the kernel rounds once
         _rel_err(f"K9b timed {tag} vs the library's conv", out.permute(0, 3, 1, 2), lout, 3e-2)
-        del lout
+        _rel_err(f"K9b timed {tag} dk vs the library's", grads[1], lgrads[1][:, 0].permute(1, 2, 0), 5e-2)
+        _rel_err(f"K9b timed {tag} dbias vs the library's", grads[2], lgrads[2], 5e-2)
+        del lout, lgrads
         elem = n * h * w * ch
         fb = bound(elem * 2 + nl * h * w * ch * 2 + n * 4, INSTR_K9B_FWD * elem)
         bb = bound(elem * 4 + nl * h * w * ch * 2 + n * 4, INSTR_K9B_BWD * elem)
         print(f"K9b timed {tag} N={n} Nl={nl} {h}x{w} ch0={ch} bfloat16: forward {f_ms!r} ms (plain {pf_ms!r}, library "
               f"conv + add + ReLU {l_ms!r}, bound {fb['bound_ms']!r} by {fb['bound_by']}), backward {b_ms!r} ms "
-              f"(autograd of plain {pb_ms!r}, bound {bb['bound_ms']!r} by {bb['bound_by']}); forward bit-exact vs plain, "
+              f"(autograd of plain {pb_ms!r}, of the library's {lb_ms!r}, bound {bb['bound_ms']!r} by {bb['bound_by']}); "
+              f"forward bit-exact vs plain, "
               f"gradients within 1e-2 of their scale ({smi})")
         if tag == "minibatch":
             both = bound(elem * 6 + 2 * nl * h * w * ch * 2 + 2 * n * 4, (INSTR_K9B_FWD + INSTR_K9B_BWD) * elem)
-            times["agent_stamp"] = dict(ms=f_ms + b_ms, plain_ms=pf_ms + pb_ms, library_ms=l_ms,
+            times["agent_stamp"] = dict(ms=f_ms + b_ms, plain_ms=pf_ms + pb_ms, library_ms=l_ms + lb_ms,
                                         shape=f"forward + backward, N={n} Nl={nl} {h}x{w} ch0={ch} bfloat16", **both)
     return launches, errs, times
 
