@@ -19,8 +19,10 @@ version, drives the port's main paths at full size and checks what comes out:
     (K7a's return scan, K7b, K9a), and `greedy_success_rate` (K7b's greedy
     form), 65,536 envs each.
 
-The main paths' own outputs are held bit for bit against the plain versions
-on the same inputs. Every phase raises on failure. The last two lines are a
+Each main path is driven with the launch counts set to 0 just before it and
+read just after, and every count must be the one the path's shape gives. The
+main paths' own outputs are held bit for bit against the plain versions on
+the same inputs. Every phase raises on failure. The last two lines are a
 JSON record of the kernels (launches on the main paths, error against the
 plain version, kernel / plain / library times and the least time the card
 could take) and `{"ok": true, "device": {...}}`.
@@ -618,20 +620,20 @@ def learner_phases(gt, dev, gen, bound, smi):
                 grads = torch.autograd.grad(out, (y_tiles, k, bias), cot)
                 again = torch.autograd.grad(networks.agent_stamp(y_tiles, k, bias, obs), (y_tiles, k, bias), cot)
                 _same_fields(f"K9b backward twice Nl={nl} ch={ch} {cdt}", grads, again, ("dy_tiles", "dk", "dbias"))
+                fixed = networks.agent_stamp_backward_reference(cot, out.detach(), obs, nl)
+                hold("agent_stamp", f"K9b backward Nl={nl} ch={ch} {cdt}", grads, fixed, ("dy_tiles", "dk", "dbias"))
                 auto = torch.autograd.grad(ref, (y_tiles, k, bias), cot)
-                # autograd adds in another order, and dy_tiles is rounded to the compute dtype
+                # autograd adds in another order, and rounds all three gradients to the compute dtype
                 tol = 1e-2 if cdt == torch.bfloat16 else 1e-5
                 for name, a, b in zip(("dy_tiles", "dk", "dbias"), grads, auto):
                     err = _rel_err(f"K9b {name} Nl={nl} ch={ch} {cdt}", a, b, tol)
                     if cdt == torch.float32:  # bfloat16 gradients are held to their scale only
                         errs["agent_stamp"] = max(errs["agent_stamp"], err)
-    print("K9b Nl=1, 512; T=4; ch0=16, 32; float32, bfloat16: forward bit-exact vs plain, the three gradients the "
-          "same bits on two runs and within 1e-5 (bfloat16: 1e-2) of their scale of autograd's through the plain "
-          f"version (float32 max abs err {errs['agent_stamp']!r})")
+    print("K9b Nl=1, 512; T=4; ch0=16, 32; float32, bfloat16: forward bit-exact vs plain, the three gradients "
+          "bit-exact vs the plain fixed-order backward, the same bits on two runs, and within 1e-5 (bfloat16: 1e-2) "
+          f"of their scale of autograd's through the plain version (float32 max abs err {errs['agent_stamp']!r})")
 
-    # -- phase 12: the training main path at full width, counted ----------------
-    torch.cuda.synchronize()
-    kernels.reset_launches()
+    # -- phase 12: the training main paths at full width, each counted ----------
     n64 = 65_536
     lv64 = mazes(2026, (4, 4), n64)
     cfgs = {
@@ -642,31 +644,47 @@ def learner_phases(gt, dev, gen, bound, smi):
     }
     api = {"ppo": (models.ppo_train, models.ppo_init, models.ppo_run),
            "a2c": (models.a2c_train, models.a2c_init, models.a2c_run)}
+    backward_launches = {"embed_rows": 2, "agent_stamp": 3}  # a forward is one launch
+    path_launches = {}
 
-    def timed(fn):
+    def counted(name, fn, expected):
+        """Drive one main path with the counts set to 0 just before and read
+        just after; every count must be the one the path's shape gives."""
         torch.cuda.synchronize()
+        kernels.reset_launches()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, out
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: kernels.LAUNCHES[k] for k in errs}
+        path_launches[name] = got
+        print(f"launches on the main path {name}: {got}")
+        _require(got == {**dict.fromkeys(errs, 0), **expected}, f"{name}: launches {got}, expected {expected}")
+        return ms, out
 
     runs = {}
     for name, (level, cfg, updates) in cfgs.items():
         train, init, run = api[name.split()[0]]
         train(sem, level, 1, cfg, 1, n64)  # first call: library handles, allocator
         torch.cuda.reset_peak_memory_stats()
-        ms, res = timed(lambda: train(sem, level, 5, cfg, updates, n64))
+        t_len = cfg.rollout_len
+        sgd_steps = cfg.num_epochs * cfg.num_minibatches if name.startswith("ppo") else 1
+        net_kernel = "agent_stamp" if cfg.obs == "grid" else "embed_rows"
+        # an update: T policy forwards and the bootstrap's, then a forward and a backward an SGD step
+        expected = {"gae": updates, "act_step": updates * t_len,
+                    net_kernel: updates * (t_len + 1 + sgd_steps * (1 + backward_launches[net_kernel]))}
+        ms, res = counted(name, lambda: train(sem, level, 5, cfg, updates, n64), expected)
         peak = torch.cuda.max_memory_allocated()
         finite = all(bool(torch.isfinite(p).all()) for p in res.params.values())
         _require(finite and bool(torch.isfinite(res.final_loss)) and bool(torch.isfinite(res.mean_return)),
                  f"{name}: a non-finite parameter, loss or return")
         _require(all(p.device.type == "cuda" for p in res.params.values()), f"{name}: parameters are not on the card")
-        steps = updates * cfg.rollout_len * n64
-        print(f"{name} main: B={n64} T={cfg.rollout_len} updates={updates}: {ms!r} ms, {steps / ms * 1e3!r} env steps/s, "
+        steps = updates * t_len * n64
+        print(f"{name} main: B={n64} T={t_len} updates={updates}: {ms!r} ms, {steps / ms * 1e3!r} env steps/s, "
               f"episodes {int(res.episodes)}, mean_return {float(res.mean_return)!r}, final_loss {float(res.final_loss)!r}, "
               f"peak memory {peak / 2**30:.3f} GiB ({smi})")
-        # chunk invariance on the card: all but the last update, then the last,
-        # against the unbroken run; and the unbroken run twice
+        # chunk invariance on the card (not counted): all but the last update,
+        # then the last, against the unbroken run; and the unbroken run twice
         before_last = run(sem, level, init(sem, level, 5, cfg, n64), cfg, updates - 1)
         end = run(sem, level, before_last, cfg, 1)
         whole = run(sem, level, init(sem, level, 5, cfg, n64), cfg, updates)
@@ -679,76 +697,97 @@ def learner_phases(gt, dev, gen, bound, smi):
         runs[name] = (level, cfg, before_last, end)
 
     level, cfg, _, end = runs["ppo mazes64k"]
+    greedy_steps = 60
     net = models.make_network(level, num_actions, cfg)
-    ms, rate = timed(lambda: models.greedy_success_rate(sem, net, end.params, level, 60))
-    fresh = models.greedy_success_rate(sem, net, models.init_network_params(net, 0), level, 60)
+    ms, rate = counted("greedy_success_rate", lambda: models.greedy_success_rate(sem, net, end.params, level, greedy_steps),
+                       {"act_step": greedy_steps, "agent_stamp": greedy_steps})
+    fresh = models.greedy_success_rate(sem, net, models.init_network_params(net, 0), level, greedy_steps)
     _require(0.0 <= float(rate) <= 1.0, "greedy_success_rate out of range")
-    print(f"greedy_success_rate main: {n64} mazes, 60 steps: {float(rate)!r} after 2 updates "
+    print(f"greedy_success_rate main: {n64} mazes, {greedy_steps} steps: {float(rate)!r} after 2 updates "
           f"({float(fresh)!r} with fresh parameters), {ms!r} ms ({smi})")
 
-    torch.cuda.synchronize()
-    launches = {name: kernels.LAUNCHES[name] for name in errs}
-    print(f"launches on the training main path: {launches}")
+    launches = {k: sum(path[k] for path in path_launches.values()) for k in errs}
+    print(f"launches on the training main paths, summed: {launches}")
     _require(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
 
-    # -- phase 13: the main path's last updates against the plain versions -------
+    # -- phase 13: the main paths' last updates against the plain versions -------
+    def apply(net, params, obs, tiles):
+        return torch.func.functional_call(net, params, (obs,) if tiles is None else (obs, tiles))
+
     kept = {}
     for name, (level, cfg, before_last, end) in runs.items():
         is_ppo = name.startswith("ppo")
-        net = models.make_network(level, num_actions, cfg)
-        tiles = a2c._tiles_for(net, level)
-        bl = bp.pack_level(level)
         params = before_last.params
-        # the last update's own draws, from (seed, update) as the trainer makes them
-        gen_u = a2c.update_generator(dev, before_last.seed, before_last.update)
-        noise = a2c.draw_gumbel(gen_u, (cfg.rollout_len, n64, num_actions), dev)
-        st, rows = before_last.env_state, []
+        # the last update once more, by the trainer's own update function on
+        # the trainer's own draws; it must end where the main path's run ended
+        with networks.exact_kernels():
+            if is_ppo:
+                learner = ppo.ppo_learner(sem, level, cfg, n64)
+                noise, draws = ppo.update_draws(dev, before_last.seed, before_last.update, cfg, n64, num_actions)
+                upd = ppo.ppo_update(sem, learner, cfg, params, before_last.opt_state, before_last.env_state, noise, draws)
+            else:
+                learner = a2c.a2c_learner(sem, level, cfg)
+                noise = a2c.update_noise(dev, before_last.seed, before_last.update, cfg, n64, num_actions)
+                upd = a2c.a2c_update(sem, learner, cfg, params, before_last.opt_state, before_last.env_state, noise)
+        bl, net, tiles, _ = learner
+        stand_in = type(end)(**{**vars(end), "params": upd.params, "opt_state": upd.opt_state,
+                                "env_state": upd.env_state, "last_loss": upd.loss})
+        _same_train_state(f"{name} the last update redone", stand_in, end)
+        traj = upd.traj
+
+        # every act_step of that update: the plain version, chained from the
+        # update's first state on the same logits and noise, against the rows
+        # the trainer recorded; and the kernel once more on each step's inputs
+        st = before_last.env_state
         with torch.no_grad(), networks.exact_kernels():
-            for g_t in noise:
-                logits, value = a2c._net_apply(net, params, st.agent_idx, tiles)
-                got = a2c.act_step(sem, bl, st, logits, g_t, cfg.max_episode_steps)
+            for t, g_t in enumerate(noise):
+                logits, value = apply(net, params, st.agent_idx, tiles)
+                _same(f"{name} step {t} value", value, traj.value[t])
                 ref = a2c.act_step_reference(sem, bl, st, logits, g_t, cfg.max_episode_steps)
-                _same_fields(f"K7b main {name}", _act_fields(got), _act_fields(ref), _ACT_FIELDS)
-                errs["act_step"] = max(errs["act_step"], _logp_err(f"K7b main {name}", got[2], ref[2]))
+                _same_fields(f"K7b main {name} step {t}", (traj.action[t], traj.obs[t], traj.reward[t], traj.done[t]),
+                             (ref[1], ref[3], ref[4], ref[5]), _ACT_FIELDS[:4])
+                errs["act_step"] = max(errs["act_step"], _logp_err(f"K7b main {name} step {t}", traj.logp[t], ref[2]))
+                got = a2c.act_step(sem, bl, st, logits, g_t, cfg.max_episode_steps)
+                _same_fields(f"K7b main {name} step {t} again", _act_fields(got), _act_fields(ref), _ACT_FIELDS)
                 kept[f"act {name}"] = (bl, st, logits, g_t, cfg.max_episode_steps)
-                st = got[0]
-                rows.append((got[3], got[1], got[2], value, got[4], got[5]))
-            _, bootstrap = a2c._net_apply(net, params, st.agent_idx, tiles)
-        # the rollout redone here is the one the main path made
-        _same_fields(f"{name} redone rollout", [getattr(st, f) for f in _STATE_FIELDS[:3]],
-                     [getattr(end.env_state, f) for f in _STATE_FIELDS[:3]], _STATE_FIELDS[:3])
-        traj = a2c.Trajectory(*(torch.stack(field) for field in zip(*rows)))
+                st = ref[0]
+            _, bootstrap = apply(net, params, st.agent_idx, tiles)
+        _same(f"{name} bootstrap", bootstrap, upd.bootstrap)
+        _same_fields(f"K7b main {name}: the plain rollout's last state", [getattr(st, f) for f in _STATE_FIELDS],
+                     [getattr(upd.env_state, f) for f in _STATE_FIELDS], _STATE_FIELDS)
         if is_ppo:
-            adv, targets = ppo.gae_advantages(traj, bootstrap, cfg.gamma, cfg.gae_lambda)
-            hold("gae", f"K7a main {name}", (adv, targets),
-                 ppo.gae_advantages_reference(traj, bootstrap, cfg.gamma, cfg.gae_lambda), ("adv", "targets"))
-            adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
-            slab = (traj.obs, traj.action, traj.logp, traj.value, adv, targets)
-            mbs, mb_tiles = ppo._minibatches(slab, tiles, ppo.shuffle_draw(gen_u, cfg, n64, dev), cfg, n64)
-            mb, mb_tiles = mbs[0], mb_tiles[0]
-            kept[name] = (traj, bootstrap, mb, mb_tiles, net, params)
+            hold("gae", f"K7a main {name}", (upd.adv, upd.targets),
+                 ppo.gae_advantages_reference(traj, upd.bootstrap, cfg.gamma, cfg.gae_lambda), ("adv", "targets"))
+            mb, mb_tiles = upd.first_minibatch
+            kept[name] = (traj, upd.bootstrap, mb, mb_tiles, net, params)
 
             def loss_of(live, mb=mb, mb_tiles=mb_tiles, net=net, cfg=cfg):
                 return ppo.ppo_loss(net, live, mb, mb_tiles, cfg)[0]
         else:
-            returns = a2c.nstep_returns(traj.reward, traj.done, bootstrap, cfg.gamma)
-            hold("gae", f"K7a main {name}", (returns,),
-                 (a2c.nstep_returns_reference(traj.reward, traj.done, bootstrap, cfg.gamma),), ("returns",))
-            kept[name] = (traj, bootstrap, None, None, net, params)
+            hold("gae", f"K7a main {name}", (upd.returns,),
+                 (a2c.nstep_returns_reference(traj.reward, traj.done, upd.bootstrap, cfg.gamma),), ("returns",))
+            kept[name] = (traj, upd.bootstrap, None, None, net, params)
 
-            def loss_of(live, traj=traj, returns=returns, net=net, tiles=tiles, cfg=cfg):
+            def loss_of(live, traj=traj, returns=upd.returns, net=net, tiles=tiles, cfg=cfg):
                 return a2c.a2c_loss(net, live, tiles, traj, returns, cfg)
-        print(f"{name} main, last update: every act_step exact vs plain (logp within 2 ulp), the redone rollout "
-              f"ends in the main path's env state, K7a bit-exact vs plain (episode ends: {int(traj.done.sum())})")
+        print(f"{name} main, last update: redone by the trainer's update function it ends in the main path's state; "
+              f"every act_step exact vs plain (logp within 2 ulp), K7a bit-exact vs plain (episode ends: {int(traj.done.sum())})")
 
-        # one minibatch's forward and backward, kernels against plain versions
-        seen = []
-        real_embed = networks.embed_rows
+        # the update's first minibatch, forward and backward: kernels against plain versions
+        seen_embed, seen_stamp = [], []
+        real_embed, real_stamp = networks.embed_rows, networks.agent_stamp
 
-        def recording(table, obs, dtype):
+        def recording_embed(table, obs, dtype):
             out = real_embed(table, obs, dtype)
             out.retain_grad()
-            seen.append((obs, out))
+            seen_embed.append((obs, out))
+            return out
+
+        def recording_stamp(y_tiles, k_agent, bias, obs):
+            out = real_stamp(y_tiles, k_agent, bias, obs)
+            for x in (y_tiles, k_agent, out):
+                x.retain_grad()
+            seen_stamp.append((y_tiles, k_agent, obs, out))
             return out
 
         def loss_and_grads(**patches):
@@ -758,30 +797,55 @@ def learner_phases(gt, dev, gen, bound, smi):
                 loss.backward()
             return loss.detach(), {k: v.grad for k, v in live.items()}
 
-        loss_k, grads_k = loss_and_grads(embed_rows=recording)
+        loss_k, grads_k = loss_and_grads(embed_rows=recording_embed, agent_stamp=recording_stamp)
         loss_p, grads_p = loss_and_grads(embed_rows=networks.embed_rows_reference,
                                          agent_stamp=networks.agent_stamp_reference)
         _same(f"{name} minibatch loss, kernels vs plain", loss_k, loss_p)
+        if not is_ppo:  # A2C's one minibatch is its whole update
+            _same(f"{name} minibatch loss vs the update's", loss_k, upd.loss)
         kname = "agent_stamp" if "mazes" in name else "embed_rows"
         # autograd's plain backward adds in another order (float atomics over
-        # up to a million samples); with the conv trunk the tile gradient is
-        # also rounded to bfloat16 at another sum
+        # up to a million samples); with the conv trunk it also rounds the
+        # gradients of the stamp's three inputs to bfloat16
         tol = 2e-2 if kname == "agent_stamp" else 1e-4
         worst = 0.0
         for leaf in grads_k:
             err = _rel_err(f"{name} minibatch gradient {leaf}", grads_k[leaf], grads_p[leaf], tol)
             worst = max(worst, err / max(float(grads_p[leaf].abs().max()), 1e-30))
-            if leaf in ("embed", "conv_0_kernel", "conv_0_bias"):
-                errs[kname] = max(errs[kname], err)
-        if seen:  # K9a's backward on the main path's own gradient, bit for bit
-            obs, out = seen[0]
+        # the backward kernel on the main path's own gradient, bit for bit
+        # against the plain version that adds in the kernel's order
+        if kname == "embed_rows":
+            (obs, out), = seen_embed
             hold("embed_rows", f"K9a main {name} backward", (grads_k["embed"],),
-                 (networks.embed_rows_backward_reference(out.grad, obs, params["embed"].shape[0]),),
-                 ("dtable",))
-        n_mb = int(seen[0][0].shape[0]) if seen else int(mb[0].numel())
+                 (networks.embed_rows_backward_reference(out.grad, obs, params["embed"].shape[0]),), ("dtable",))
+        else:
+            (y_tiles, k_agent, obs, out), = seen_stamp
+            fixed = networks.agent_stamp_backward_reference(out.grad, out.detach(), obs, y_tiles.shape[0])
+            hold("agent_stamp", f"K9b main {name} backward", (y_tiles.grad, k_agent.grad, grads_k["conv_0_bias"]),
+                 fixed, ("dy_tiles", "dk", "dbias"))
+            del fixed, y_tiles, k_agent, out
+        n_mb = int(obs.shape[0])
+        del seen_embed, seen_stamp, grads_k, grads_p
         print(f"{name} main, one minibatch of {n_mb} samples: loss bit-equal with kernels and with plain versions, "
-              f"every gradient within {tol} of its scale (worst {worst!r})"
-              + ("; K9a's dtable bit-exact vs the plain fixed-order backward" if seen else ""))
+              f"every gradient within {tol} of its scale of autograd's (worst {worst!r}); the {kname} backward's "
+              "own gradients bit-exact vs the plain fixed-order backward")
+
+    # the greedy path once more: every step of it against the plain version
+    level, cfg, _, end = runs["ppo mazes64k"]
+    bl, net, tiles, _ = ppo.ppo_learner(sem, level, cfg, n64)
+    st = bp.reset_bits(bl, None)
+    reached = torch.zeros(n64, dtype=torch.bool, device=dev)
+    with torch.no_grad(), networks.exact_kernels():
+        for t in range(greedy_steps):
+            logits, _ = apply(net, end.params, st.agent_idx, tiles)
+            got = a2c.greedy_step(sem, bl, st, reached, logits)
+            ref = a2c.greedy_step_reference(sem, bl, st, reached, logits)
+            _same_fields(f"K7b greedy main step {t}", (*(getattr(got[0], f) for f in _STATE_FIELDS), got[1]),
+                         (*(getattr(ref[0], f) for f in _STATE_FIELDS), ref[1]), (*_STATE_FIELDS, "reached"))
+            st, reached = got
+    _same("K7b greedy main: the success rate", reached.float().mean(), rate)
+    print(f"greedy_success_rate main, redone: each of the {greedy_steps} greedy steps on {n64} mazes exact vs plain "
+          f"(state and reached); {int(reached.sum())} envs reached, the rate equals the main path's")
 
     # -- phase 14: times at the main path's shapes ------------------------------
     traj, bootstrap, mb, _, _, params = kept["ppo walls16"]
@@ -872,6 +936,9 @@ def learner_phases(gt, dev, gen, bound, smi):
         for gname, a, b in zip(("dy_tiles", "dk", "dbias"), grads, pgrads):
             _rel_err(f"K9b timed {tag} {gname}", a, b, 1e-2)
         del pout, pgrads
+        fixed_ms, fixed = _cuda_ms(lambda: networks.agent_stamp_backward_reference(cot, out, obs, nl), 1, warm=False)
+        hold("agent_stamp", f"K9b timed {tag} backward", grads, fixed, ("dy_tiles", "dk", "dbias"))
+        del fixed
 
         # the library's way to the same function: the one-hot agent plane through
         # its conv, then add and ReLU, with autograd's backward; timed here, used
@@ -902,9 +969,9 @@ def learner_phases(gt, dev, gen, bound, smi):
         bb = bound(elem * 4 + nl * h * w * ch * 2 + n * 4, INSTR_K9B_BWD * elem)
         print(f"K9b timed {tag} N={n} Nl={nl} {h}x{w} ch0={ch} bfloat16: forward {f_ms!r} ms (plain {pf_ms!r}, library "
               f"conv + add + ReLU {l_ms!r}, bound {fb['bound_ms']!r} by {fb['bound_by']}), backward {b_ms!r} ms "
-              f"(autograd of plain {pb_ms!r}, of the library's {lb_ms!r}, bound {bb['bound_ms']!r} by {bb['bound_by']}); "
-              f"forward bit-exact vs plain, "
-              f"gradients within 1e-2 of their scale ({smi})")
+              f"(autograd of plain {pb_ms!r}, of the library's {lb_ms!r}, plain fixed-order {fixed_ms!r}, bound "
+              f"{bb['bound_ms']!r} by {bb['bound_by']}); forward bit-exact vs plain, backward bit-exact vs the plain "
+              f"fixed-order backward and within 1e-2 of autograd's scale ({smi})")
         if tag == "minibatch":
             both = bound(elem * 6 + 2 * nl * h * w * ch * 2 + 2 * n * 4, (INSTR_K9B_FWD + INSTR_K9B_BWD) * elem)
             times["agent_stamp"] = dict(ms=f_ms + b_ms, plain_ms=pf_ms + pb_ms, library_ms=l_ms + lb_ms,

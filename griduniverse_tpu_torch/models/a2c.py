@@ -27,6 +27,7 @@ CUDA tensors launch the kernels, or raise.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -382,15 +383,64 @@ def a2c_loss(net, params, tiles, traj: Trajectory, returns, cfg: A2CConfig):
     return pg_loss + cfg.vf_coef * vf_loss - cfg.ent_coef * entropy
 
 
+class Learner(NamedTuple):
+    """What every update of a run shares, built once a run."""
+
+    bl: BitLevel                 # the packed level
+    net: torch.nn.Module
+    tiles: torch.Tensor | None   # per-env tile planes of a needs-tiles net
+    rate: Callable               # Adam count → learning rate
+
+
+def a2c_learner(sem: Semantics, level: Level, cfg: A2CConfig) -> Learner:
+    net = make_network(level, sem.num_actions, cfg)
+    return Learner(pack_level(level), net, _tiles_for(net, level), _a2c_rate(cfg))
+
+
+@dataclasses.dataclass
+class A2CUpdate:
+    """What one update gives: the learner's new tensors, and what it made
+    on the way, so that a check can hold the kernels' own inputs and outputs
+    against the plain versions."""
+
+    params: Params
+    opt_state: AdamState
+    env_state: FastState
+    loss: torch.Tensor
+    traj: Trajectory
+    bootstrap: torch.Tensor  # (B,) V of the state after the rollout
+    returns: torch.Tensor    # (T, B) bootstrapped n-step returns
+
+
+def a2c_update(sem: Semantics, learner: Learner, cfg: A2CConfig, params: Params,
+               opt_state: AdamState, env_state: FastState, noise) -> A2CUpdate:
+    """One A2C update from `noise` (T, B, A): the rollout, the n-step
+    returns, one pass over the (T, B) batch and one clipped Adam step.
+    `a2c_run` is a loop over this, inside `exact_kernels()`."""
+    bl, net, tiles, rate = learner
+    env_state, traj, bootstrap = rollout(
+        sem, bl, net, params, tiles, env_state, noise, cfg.max_episode_steps)
+    returns = nstep_returns(traj.reward, traj.done, bootstrap, cfg.gamma)
+    live = leaves(params)
+    loss = a2c_loss(net, live, tiles, traj, returns, cfg)
+    grads = clip_by_global_norm(grads_of(loss, live), cfg.max_grad_norm)
+    params, opt_state = adam_update(params, grads, opt_state, rate)
+    return A2CUpdate(params, opt_state, env_state, loss.detach(), traj, bootstrap, returns)
+
+
+def update_noise(device, seed: int, update: int, cfg, batch: int, num_actions: int):
+    """The (T, B, A) Gumbel noise of update `update`, from a generator seeded
+    from (seed, update) alone."""
+    gen = update_generator(device, seed, update)
+    return draw_gumbel(gen, (cfg.rollout_len, batch, num_actions), device)
+
+
 def a2c_run(sem: Semantics, level: Level, ts: A2CTrainState, cfg: A2CConfig = A2CConfig(),
             num_updates: int = 500, *, gumbel=None) -> A2CTrainState:
     """Advance training by `num_updates`; chunk-invariant, bit for bit.
     `gumbel` (num_updates, T, B, A) replaces the state's own noise."""
     dev = level.device
-    net = make_network(level, sem.num_actions, cfg)
-    tiles = _tiles_for(net, level)
-    bl = pack_level(level)
-    rate = _a2c_rate(cfg)
+    learner = a2c_learner(sem, level, cfg)
     b = ts.run_ret.shape[0]
     params, opt_state, env_state = ts.params, ts.opt_state, ts.env_state
     run_ret, episodes, ret_sum, loss = ts.run_ret, ts.episodes, ts.ret_sum, ts.last_loss
@@ -399,18 +449,11 @@ def a2c_run(sem: Semantics, level: Level, ts: A2CTrainState, cfg: A2CConfig = A2
             if gumbel is not None:
                 noise = gumbel[i]
             else:
-                gen = update_generator(dev, ts.seed, ts.update + i)
-                noise = draw_gumbel(gen, (cfg.rollout_len, b, sem.num_actions), dev)
-            env_state, traj, bootstrap = rollout(
-                sem, bl, net, params, tiles, env_state, noise, cfg.max_episode_steps)
-            returns = nstep_returns(traj.reward, traj.done, bootstrap, cfg.gamma)
-            live = leaves(params)
-            loss = a2c_loss(net, live, tiles, traj, returns, cfg)
-            grads = clip_by_global_norm(grads_of(loss, live), cfg.max_grad_norm)
-            params, opt_state = adam_update(params, grads, opt_state, rate)
-            loss = loss.detach()
+                noise = update_noise(dev, ts.seed, ts.update + i, cfg, b, sem.num_actions)
+            upd = a2c_update(sem, learner, cfg, params, opt_state, env_state, noise)
+            params, opt_state, env_state, loss = upd.params, upd.opt_state, upd.env_state, upd.loss
             run_ret, episodes, ret_sum = fold_episode_stats(
-                run_ret, episodes, ret_sum, traj.reward, traj.done)
+                run_ret, episodes, ret_sum, upd.traj.reward, upd.traj.done)
     return dataclasses.replace(
         ts, params=params, opt_state=opt_state, env_state=env_state,
         update=ts.update + num_updates, run_ret=run_ret, episodes=episodes, ret_sum=ret_sum,

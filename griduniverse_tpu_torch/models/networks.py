@@ -34,7 +34,9 @@ actor-critic families with the same constructor fields and call signatures
 
 Each kernel has its plain PyTorch version here (`embed_rows_reference`,
 `agent_stamp_reference`), which CPU tensors take; CUDA tensors launch the
-kernel, or raise.
+kernel, or raise. The backward kernels' sums run in a fixed order, which
+`embed_rows_backward_reference` and `agent_stamp_backward_reference` repeat
+add by add, so a kernel's gradients can be held bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
+from ..kernels.agent_stamp import CHUNK as STAMP_CHUNK
 from ..kernels.agent_stamp import agent_stamp_backward_cuda, agent_stamp_cuda
 from ..kernels.embed_rows import CHUNK as EMBED_CHUNK
 from ..kernels.embed_rows import embed_rows_backward_cuda, embed_rows_cuda
@@ -165,6 +168,57 @@ def agent_stamp_reference(y_tiles, k_agent, bias, obs):
     return torch.relu(v).to(cdt).reshape(n, h, w, ch)
 
 
+def agent_stamp_backward_reference(grad, out, obs, num_levels: int):
+    """Plain PyTorch version of K9b's backward, in the kernel's own order of
+    float adds. With gm = `grad` where the saved output `out` is positive
+    and 0 elsewhere, all sums float32:
+
+      * dy_tiles[l] adds gm of the samples of level l (n = t·Nl + l) in t
+        order, and is rounded to the compute dtype once;
+      * dbias and the nine entries of dk are summed per chunk of
+        `STAMP_CHUNK` consecutive samples, sample after sample (dbias walks
+        a sample's cells in raster order; dk[i, j] takes the one cell
+        (ay−i+1, ax−j+1) of a sample, where it lies inside the image), and
+        the chunks' sums are then added in chunk order.
+
+    Returns (dy_tiles (Nl, H, W, C) in the compute dtype, dk (3, 3, C) and
+    dbias (C,) float32). It is slow: one small add per term of a chunk."""
+    n, h, w, ch = grad.shape
+    dev = grad.device
+    dy = torch.zeros((num_levels, h, w, ch), dtype=torch.float32, device=dev)
+    g_t, out_t = grad.reshape(-1, num_levels, h, w, ch), out.reshape(-1, num_levels, h, w, ch)
+    for t in range(n // num_levels):
+        dy = dy + torch.where(out_t[t] > 0, g_t[t].float(), 0.0)
+
+    num_chunks = -(-n // STAMP_CHUNK)
+    pad = num_chunks * STAMP_CHUNK - n  # padding samples have grad 0 and add +0.0, which changes no bit
+
+    def chunked(x):
+        flat = x.reshape(n, -1)
+        flat = F.pad(flat, (0, 0, 0, pad)) if pad else flat
+        return flat.reshape(num_chunks, STAMP_CHUNK, *x.shape[1:])
+
+    g_c, out_c = chunked(grad.reshape(n, h * w, ch)), chunked(out.reshape(n, h * w, ch))
+    cell = chunked(obs.long()[:, None])[..., 0]  # (chunks, CHUNK)
+    ay, ax = torch.div(cell, w, rounding_mode="floor"), cell % w
+    rows = torch.arange(num_chunks, device=dev)
+    sums = torch.zeros((10, num_chunks, ch), dtype=torch.float32, device=dev)
+    for s in range(STAMP_CHUNK):
+        gm = torch.where(out_c[:, s] > 0, g_c[:, s].float(), 0.0)  # (chunks, H·W, C)
+        for p in range(h * w):
+            sums[9] = sums[9] + gm[:, p]
+        for i in range(3):
+            for j in range(3):
+                y, x = ay[:, s] - i + 1, ax[:, s] - j + 1
+                inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+                picked = gm[rows, (y.clamp(0, h - 1) * w + x.clamp(0, w - 1))]
+                sums[i * 3 + j] = sums[i * 3 + j] + torch.where(inside[:, None], picked, 0.0)
+    total = torch.zeros((10, ch), dtype=torch.float32, device=dev)
+    for c in range(num_chunks):
+        total = total + sums[:, c]
+    return dy.to(grad.dtype), total[:9].reshape(3, 3, ch), total[9]
+
+
 class _AgentStamp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y_tiles, k_agent, bias, obs):
@@ -278,15 +332,13 @@ class _ConvBase(_ActorCriticBase):
     """The conv trunk both grid-observation families share."""
 
     def _make_trunk(self, height, width, num_actions, num_tile_types, channels, hidden,
-                    compute_dtype, agent_plane, seed, device) -> None:
+                    compute_dtype, seed, device) -> None:
         if not channels:
             raise ValueError(f"{type(self).__name__} needs at least one conv layer")
-        if agent_plane not in ("stamp", "conv"):
-            raise ValueError(f"unknown agent_plane mode: {agent_plane!r}")
         compute_dtype_of(compute_dtype)
         self.height, self.width, self.num_actions = int(height), int(width), int(num_actions)
         self.num_tile_types, self.channels = int(num_tile_types), tuple(channels)
-        self.hidden, self.compute_dtype, self.agent_plane = tuple(hidden), compute_dtype, agent_plane
+        self.hidden, self.compute_dtype = tuple(hidden), compute_dtype
         ch0 = self.channels[0]
         self.conv_0_kernel = nn.Parameter(torch.empty((ch0, self.num_tile_types + 1, 3, 3), device=device))
         self.conv_0_bias = nn.Parameter(torch.empty((ch0,), device=device))
@@ -323,8 +375,9 @@ class BatchedConvActorCritic(_ConvBase):
 
     The parameters have the names and shapes of `ConvActorCritic`'s, so they
     transfer between the two. `agent_plane` is accepted as in the reference
-    ("stamp" or "conv", two lowerings of one function there); in the port
-    both run the same fused pass (K9b) and give the same values.
+    ("stamp" or "conv", two lowerings of one function there), checked and
+    not kept: in the port both run the same fused pass (K9b) and give the
+    same values.
     """
 
     needs_tiles = True
@@ -334,8 +387,10 @@ class BatchedConvActorCritic(_ConvBase):
                  compute_dtype: str = "bfloat16", agent_plane: str = "stamp", *, seed: int = 0,
                  device=None):
         super().__init__()
+        if agent_plane not in ("stamp", "conv"):
+            raise ValueError(f"unknown agent_plane mode: {agent_plane!r}")
         self._make_trunk(height, width, num_actions, num_tile_types, channels, hidden,
-                         compute_dtype, agent_plane, seed, resolve_device(device))
+                         compute_dtype, seed, resolve_device(device))
 
     def forward(self, obs, tiles):
         plane = (self.height, self.width, self.num_tile_types)
@@ -360,7 +415,7 @@ class ConvActorCritic(_ConvBase):
         super().__init__()
         device = resolve_device(device)
         self._make_trunk(height, width, num_actions, num_tile_types, channels, hidden,
-                         compute_dtype, "stamp", seed, device)
+                         compute_dtype, seed, device)
         codes = torch.as_tensor(grid, dtype=torch.int64, device=device).reshape(1, self.height, self.width)
         self.grid = tuple(int(v) for v in codes.reshape(-1).tolist())
         self.register_buffer("tiles", F.one_hot(codes, self.num_tile_types).to(self.cdt), persistent=False)

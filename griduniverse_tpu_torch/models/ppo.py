@@ -30,6 +30,8 @@ from ..core.types import Level
 from ..kernels.gae import gae_cuda
 from ..ops.bitplane import FastState, pack_level
 from .a2c import (
+    Learner,
+    Trajectory,
     _init_fields,
     _net_apply,
     _tiles_for,
@@ -243,6 +245,80 @@ def ppo_init(sem: Semantics, level: Level, seed: int, cfg: PPOConfig = PPOConfig
     return PPOTrainState(**_init_fields(sem, level, seed, cfg, batch_size))
 
 
+def update_draws(device, seed: int, update: int, cfg: PPOConfig, batch: int, num_actions: int,
+                 *, gumbel=None, shuffle=None):
+    """The draws of update `update`, from a generator seeded from (seed,
+    update) alone, in a fixed order: the rollout's (T, B, A) Gumbel noise,
+    then one shuffle draw per epoch. An injected `gumbel` or `shuffle` (one
+    draw per epoch) takes the place of its draws. Returns (noise, draws)."""
+    gen = update_generator(device, seed, update)
+    if gumbel is None:
+        gumbel = draw_gumbel(gen, (cfg.rollout_len, batch, num_actions), device)
+    if shuffle is None:
+        shuffle = [shuffle_draw(gen, cfg, batch, device) for _ in range(cfg.num_epochs)]
+    return gumbel, shuffle
+
+
+@dataclasses.dataclass
+class PPOUpdate:
+    """What one update gives: the learner's new tensors, and what it made
+    on the way, so that a check can hold the kernels' own inputs and outputs
+    against the plain versions."""
+
+    params: Params
+    opt_state: AdamState
+    env_state: FastState
+    loss: torch.Tensor       # last minibatch of the last epoch
+    traj: Trajectory
+    bootstrap: torch.Tensor  # (B,) V of the state after the rollout
+    adv: torch.Tensor        # (T, B) GAE's advantages, before normalisation
+    targets: torch.Tensor    # (T, B) value targets
+    first_minibatch: tuple   # (minibatch, its tile block or None) of the first epoch
+
+
+def ppo_learner(sem: Semantics, level: Level, cfg: PPOConfig, batch: int) -> Learner:
+    """What every update of a run shares; raises on a `cfg` that `batch`
+    envs cannot be cut by."""
+    net = make_network(level, sem.num_actions, cfg)
+    tiles = _tiles_for(net, level)
+    _check(cfg, batch, tiles)
+    return Learner(pack_level(level), net, tiles, _rate(cfg))
+
+
+def ppo_update(sem: Semantics, learner: Learner, cfg: PPOConfig, params: Params,
+               opt_state: AdamState, env_state: FastState, noise, draws) -> PPOUpdate:
+    """One PPO update from `noise` (T, B, A) and one shuffle draw per epoch
+    (`update_draws`): the rollout, GAE, and E epochs × M minibatches of
+    clipped-surrogate SGD. `ppo_run` is a loop over this, inside
+    `exact_kernels()`."""
+    bl, net, tiles, rate = learner
+    b = env_state.agent_idx.shape[0]
+    env_state, traj, bootstrap = rollout(
+        sem, bl, net, params, tiles, env_state, noise, cfg.max_episode_steps)
+    gae_adv, targets = gae_advantages(traj, bootstrap, cfg.gamma, cfg.gae_lambda)
+    adv = gae_adv
+    if cfg.normalize_adv:
+        adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+    slab = (traj.obs, traj.action, traj.logp, traj.value, adv, targets)
+    active = torch.ones((), dtype=torch.bool, device=adv.device)
+    first = None
+    for e in range(cfg.num_epochs):
+        for mb, mb_tiles in zip(*_minibatches(slab, tiles, draws[e], cfg, b)):
+            first = (mb, mb_tiles) if first is None else first
+            live = leaves(params)
+            loss, kl = ppo_loss(net, live, mb, mb_tiles, cfg)
+            grads = clip_by_global_norm(grads_of(loss, live), cfg.max_grad_norm)
+            new_params, new_opt_state = adam_update(params, grads, opt_state, rate)
+            loss = loss.detach()
+            if cfg.target_kl is None:
+                params, opt_state = new_params, new_opt_state
+            else:  # once tripped, the ENTIRE step is frozen
+                params = keep_where(active, new_params, params)
+                opt_state = keep_where(active, new_opt_state, opt_state)
+                active = active & (kl.detach() <= 1.5 * cfg.target_kl)
+    return PPOUpdate(params, opt_state, env_state, loss, traj, bootstrap, gae_adv, targets, first)
+
+
 def ppo_run(sem: Semantics, level: Level, ts: PPOTrainState, cfg: PPOConfig = PPOConfig(),
             num_updates: int = 500, *, gumbel=None, shuffle_draws=None) -> PPOTrainState:
     """Advance training by `num_updates`. Chunk-invariant: two runs of N
@@ -250,47 +326,20 @@ def ppo_run(sem: Semantics, level: Level, ts: PPOTrainState, cfg: PPOConfig = PP
     `shuffle_draws` (num_updates, num_epochs, ...) replace the state's own
     draws."""
     dev = level.device
-    net = make_network(level, sem.num_actions, cfg)
-    tiles = _tiles_for(net, level)
-    bl = pack_level(level)
     b = ts.run_ret.shape[0]
-    _check(cfg, b, tiles)
-    rate = _rate(cfg)
+    learner = ppo_learner(sem, level, cfg, b)
     params, opt_state, env_state = ts.params, ts.opt_state, ts.env_state
     run_ret, episodes, ret_sum, loss = ts.run_ret, ts.episodes, ts.ret_sum, ts.last_loss
     with exact_kernels():
         for i in range(num_updates):
-            gen = update_generator(dev, ts.seed, ts.update + i)
-            if gumbel is not None:
-                noise = gumbel[i]
-            else:
-                noise = draw_gumbel(gen, (cfg.rollout_len, b, sem.num_actions), dev)
-            env_state, traj, bootstrap = rollout(
-                sem, bl, net, params, tiles, env_state, noise, cfg.max_episode_steps)
-            adv, targets = gae_advantages(traj, bootstrap, cfg.gamma, cfg.gae_lambda)
-            if cfg.normalize_adv:
-                adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
-            slab = (traj.obs, traj.action, traj.logp, traj.value, adv, targets)
-            active = torch.ones((), dtype=torch.bool, device=dev)
-            for e in range(cfg.num_epochs):
-                if shuffle_draws is not None:
-                    draw = shuffle_draws[i][e]
-                else:
-                    draw = shuffle_draw(gen, cfg, b, dev)
-                for mb, mb_tiles in zip(*_minibatches(slab, tiles, draw, cfg, b)):
-                    live = leaves(params)
-                    loss, kl = ppo_loss(net, live, mb, mb_tiles, cfg)
-                    grads = clip_by_global_norm(grads_of(loss, live), cfg.max_grad_norm)
-                    new_params, new_opt_state = adam_update(params, grads, opt_state, rate)
-                    loss = loss.detach()
-                    if cfg.target_kl is None:
-                        params, opt_state = new_params, new_opt_state
-                    else:  # once tripped, the ENTIRE step is frozen
-                        params = keep_where(active, new_params, params)
-                        opt_state = keep_where(active, new_opt_state, opt_state)
-                        active = active & (kl.detach() <= 1.5 * cfg.target_kl)
+            noise, draws = update_draws(
+                dev, ts.seed, ts.update + i, cfg, b, sem.num_actions,
+                gumbel=None if gumbel is None else gumbel[i],
+                shuffle=None if shuffle_draws is None else shuffle_draws[i])
+            upd = ppo_update(sem, learner, cfg, params, opt_state, env_state, noise, draws)
+            params, opt_state, env_state, loss = upd.params, upd.opt_state, upd.env_state, upd.loss
             run_ret, episodes, ret_sum = fold_episode_stats(
-                run_ret, episodes, ret_sum, traj.reward, traj.done)
+                run_ret, episodes, ret_sum, upd.traj.reward, upd.traj.done)
     return dataclasses.replace(
         ts, params=params, opt_state=opt_state, env_state=env_state,
         update=ts.update + num_updates, run_ret=run_ret, episodes=episodes, ret_sum=ret_sum,

@@ -328,6 +328,7 @@ def test_agent_stamp_kernel_matches_plain(dev, nl, ch, cdt):
     again = torch.autograd.grad(networks.agent_stamp(y_tiles, k, bias, obs), (y_tiles, k, bias), cot)
     for a, b in zip(grads, again):  # the same bits on every run
         assert torch.equal(a, b)
+    _assert_same(grads, networks.agent_stamp_backward_reference(cot, out.detach(), obs, nl))
     auto = torch.autograd.grad(ref, (y_tiles, k, bias), cot)
     # autograd sums in another order (and dy_tiles in the compute dtype)
     tol = dict(rtol=2e-2, atol=2e-1) if cdt == torch.bfloat16 else dict(rtol=1e-4, atol=1e-3)

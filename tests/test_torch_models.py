@@ -325,6 +325,47 @@ def test_agent_stamp_plain_matches_jax_conv_with_gradients(nl, t, rng):
     np.testing.assert_allclose(got16.float().numpy(), np.asarray(want), atol=5e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("nl,t", [(1, 150), (6, 4), (70, 3)])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_agent_stamp_fixed_order_backward(nl, t, cdt, rng):
+    """The add-by-add version of K9b's backward against a float64 numpy sum
+    over the masked gradient (rtol 1e-5, atol 1e-4; dy_tiles in bfloat16 is
+    rounded once, rtol 1e-2) and against autograd through the plain forward
+    in float32; one chunk, several chunks and a ragged last chunk."""
+    h, w, ch = 5, 6, 8
+    n = nl * t
+    y_tiles = _t(rng.normal(size=(nl, h, w, ch)).astype(np.float32)).to(cdt).requires_grad_(True)
+    k = _t(rng.normal(size=(3, 3, ch)).astype(np.float32)).requires_grad_(True)
+    bias = _t(rng.normal(size=(ch,)).astype(np.float32)).requires_grad_(True)
+    obs = rng.integers(0, h * w, size=n).astype(np.int32)
+    obs[:4] = [0, w - 1, (h - 1) * w, h * w - 1][: min(4, n)]  # the corners
+    cot = _t(rng.normal(size=(n, h, w, ch)).astype(np.float32)).to(cdt)
+    out = tn.agent_stamp(y_tiles, k, bias, _t(obs))
+    dy, dk, dbias = tn.agent_stamp_backward_reference(cot, out.detach(), _t(obs), nl)
+    assert dy.dtype == cdt and dk.dtype == dbias.dtype == torch.float32
+
+    gm = np.where(out.detach().float().numpy() > 0, cot.float().numpy(), 0.0).astype(np.float64)
+    want_dk = np.zeros((3, 3, ch))
+    for s, cell in enumerate(obs):
+        ay, ax = divmod(int(cell), w)
+        for i in range(3):
+            for j in range(3):
+                y, x = ay - i + 1, ax - j + 1
+                if 0 <= y < h and 0 <= x < w:
+                    want_dk[i, j] += gm[s, y, x]
+    np.testing.assert_allclose(dk.numpy(), want_dk, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(dbias.numpy(), gm.sum(axis=(0, 1, 2)), rtol=1e-5, atol=1e-4)
+    dy_tol = dict(rtol=1e-5, atol=1e-4) if cdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(dy.float().numpy(), gm.reshape(t, nl, h, w, ch).sum(axis=0), **dy_tol)
+    if cdt == torch.float32:
+        auto = torch.autograd.grad(out, (y_tiles, k, bias), cot)
+        for name, a, b in zip(("dy_tiles", "dk_agent", "dbias"), (dy, dk, dbias), auto):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-4, err_msg=name)
+    # the fixed order is a function of the inputs alone
+    again = tn.agent_stamp_backward_reference(cot, out.detach(), _t(obs), nl)
+    assert all(torch.equal(a, b) for a, b in zip((dy, dk, dbias), again))
+
+
 # ---------------------------------------------------------------------------
 # Loss gradients against jax.value_and_grad
 # ---------------------------------------------------------------------------
