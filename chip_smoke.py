@@ -6,8 +6,8 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 
     python3 chip_smoke.py
 
-It builds the eleven hand-written kernels (K1–K6, K7a, K7b, K9a, K9b, K10)
-from `griduniverse_tpu_torch/csrc/`, holds each against its plain PyTorch
+It builds the sixteen hand-written kernels (K1–K6, K7a, K7b, K8a, K8b, K9a,
+K9b, K10, K11, P1, P2) from `griduniverse_tpu_torch/csrc/`, holds each against its plain PyTorch
 version, drives the port's main paths at full size and checks what comes out:
 
   * the env path: level → pack → K1/K2 rollouts; K3 mazes → pack → K1;
@@ -17,7 +17,16 @@ version, drives the port's main paths at full size and checks what comes out:
   * the training path: `ppo_train` on walls16 (K7a, K7b, K9a) and on 65,536
     per-env mazes with the conv trunk (K7a, K7b, K9b), `a2c_train` on walls16
     (K7a's return scan, K7b, K9a), and `greedy_success_rate` (K7b's greedy
-    form), 65,536 envs each.
+    form), 65,536 envs each;
+  * the maze and probe path: K11 backtracker mazes through
+    `generate_mazes_device` → pack → K1; the gather probe tool (P1, P2);
+  * the tabular family's last two modules: `mc_prediction` and `mc_control`
+    at their default 25,600 samples a round (K10 at its largest shape), and
+    `sarsa_lambda` / `watkins_q_lambda` twice for equal bits;
+  * the off-policy path: `dqn_train` on walls16 with uniform and with
+    prioritized replay (K8a, K8b, K9a) and on 65,536 per-env backtracker
+    mazes with the conv Q-network (K8b, K9b), 65,536 envs and a ring of
+    131,072 transitions each.
 
 Each main path is driven with the launch counts set to 0 just before it and
 read just after, and every count must be the one the path's shape gives. The
@@ -33,6 +42,7 @@ It imports nothing of JAX: the reference's per-env golden mazes are read from
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -116,6 +126,19 @@ INSTR_K9A_FWD = 4       # one output element of the embedding gather
 INSTR_K9A_BWD = 6       # one (sample, column): a load, a convert and two adds, over both levels
 INSTR_K9B_FWD = 8       # one output element of the stamp pass
 INSTR_K9B_BWD = 12      # one element of the backward, read by both of its passes
+# K8a, K8b, K11 and the probes, from the same listings
+INSTR_K8A_SCORE = 131   # per_score_kernel has no loop: one slot's score, mass and share of the block sum
+# An exact top-n needs each score keyed and compared once. per_select_kernel as written
+# spends 162 a slot (four histogram passes of 20, a counting pass of 20, a writing pass of
+# about 62): that is the design's cost, and it is not part of the bound.
+INSTR_K8A_PICK = 2
+INSTR_K8B_WRITE = 75    # replay_write_kernel, one transition
+INSTR_K8B_GATHER = 49   # replay_gather_kernel, one row
+INSTR_K8B_REFRESH = 119 # prio_refresh_kernel, one row, without its scan of the later rows
+INSTR_K11_ITER = 172    # the backtracker's iteration loop (both sides of its branches)
+INSTR_K11_TILE = 10     # the wall fill: 40 instructions for four unrolled tiles
+INSTR_P1 = 23           # gather_1d_kernel, one element
+INSTR_P2 = 48           # take_along_axis1_kernel, one element
 HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
 
 
@@ -494,12 +517,22 @@ def _rel_err(name: str, a, b, tol: float) -> float:
     return err
 
 
+def _ulp_err(name: str, got, ref, ulps: int) -> float:
+    """`got` within `ulps` float32 ulp (of max(|ref|, 1)) of `ref` wherever
+    `ref` is finite, and infinite exactly where it is; max |got - ref| there."""
+    finite = torch.isfinite(ref)
+    _require(bool((torch.isfinite(got) == finite).all()) and bool((got[~finite] == ref[~finite]).all()),
+             f"{name}: infinite values differ")
+    gap = (got[finite] - ref[finite]).abs()
+    err = float(gap.max()) if gap.numel() else 0.0
+    _require(bool((gap <= ulps * 2.0 ** -23 * ref[finite].abs().clamp(min=1.0)).all()),
+             f"{name}: more than {ulps} ulp from the plain version (max abs err {err})")
+    return err
+
+
 def _logp_err(name: str, got, ref) -> float:
     """K7b's log-prob within 2 ulp (of max(|logp|, 1)) of the plain version's."""
-    bad = (got - ref).abs() > 2 * 2.0 ** -23 * ref.abs().clamp(min=1.0)
-    err = _max_err(got, ref)
-    _require(not bool(bad.any()), f"{name}: logp differs from the plain version by more than 2 ulp (max abs err {err})")
-    return err
+    return _ulp_err(f"{name} logp", got, ref, 2)
 
 
 _ACT_FIELDS = ("action", "obs", "reward", "done", "agent_idx", "agent_code", "t", "state done")
@@ -979,6 +1012,455 @@ def learner_phases(gt, dev, gen, bound, smi):
     return launches, errs, times
 
 
+K8A_SCORE_ULPS = 4      # logf and one more rounding of α·log p + g
+K8A_WEIGHT_RTOL = 2e-5  # expf, powf and the mass summed in another order
+
+
+def maze_probe_phases(gt, dev, bound, smi):
+    """Phases 15-16: K11, P1 and P2 against their plain versions, the maze
+    and probe main path with its launches counted, and the times. Returns
+    (launches, errs, times, the 65,536 backtracker mazes as a Level)."""
+    from griduniverse_tpu_torch import kernels
+    from griduniverse_tpu_torch.core import semantics as S
+    from griduniverse_tpu_torch.levels import maze as M
+    from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.tools import gather_probe
+
+    names = ("backtracker_mazes", "gather_1d", "take_along_axis1")
+    errs = dict.fromkeys(names, 0.0)
+    times = {}
+    sem = gt.make_semantics()
+
+    # -- phase 15: K11 against its plain version at small shapes -------------
+    for cells, b in (((1, 1), 8), ((2, 2), 4096), ((3, 7), 512), ((6, 6), 512)):
+        got, _ = M.generate_mazes_device(99, cells, b, "backtracker")
+        ref = M.backtracker_mazes_reference(cells, b, seed=99, device=dev)
+        errs["backtracker_mazes"] = max(errs["backtracker_mazes"], _same(f"K11 {cells}", got, ref))
+        _require(all(M.check_perfect_maze(g, cells) for g in got[:256].cpu().numpy()), f"K11 {cells}: a maze is not perfect")
+    g2, _ = M.generate_mazes_device(8, (2, 2), 4096, "backtracker")
+    sides = torch.stack([g2[:, 2, 1], g2[:, 2, 3], g2[:, 1, 2], g2[:, 3, 2]], dim=1)
+    open_mask = (sides != S.WALL).cpu().numpy()
+    _require(bool((open_mask.sum(axis=1) == 3).all()), "K11 2x2: not a spanning tree")
+    counts = np.bincount(np.argmin(open_mask, axis=1), minlength=4)
+    _require(counts[1] == 0 and counts[3] == 0 and abs(counts[0] - 2048) < 5 * 32,
+             f"K11 2x2: a depth-first walk gives the two trees that lack an edge at the start cell, each half: {counts}")
+    print(f"K11 cells=(1,1), (2,2), (3,7), (6,6): bit-exact vs plain, all perfect; 2x2 tree counts {counts.tolist()}")
+
+    # -- phase 16: the maze and probe main path, counted ----------------------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    n64, n33 = 65_536, 8_192
+    g64, start64 = M.generate_mazes_device(2026, (4, 4), n64)       # the default algorithm: the backtracker
+    g33, _ = M.generate_mazes_device(2027, (16, 16), n33)
+    for tag, grids, cells in (("9x9", g64, (4, 4)), ("33x33", g33, (16, 16))):
+        s = cells[0] * cells[1]
+        n_open = (grids != S.WALL).sum(dim=(1, 2))
+        _require(bool((n_open == 2 * s - 1).all()), f"K11 {tag}: a maze has the wrong number of open tiles")
+        _require(bool((grids[:, -2, -2] == S.GOAL).all()), f"K11 {tag}: goal missing")
+        n_check = 1024 if tag == "9x9" else 128
+        _require(all(M.check_perfect_maze(g, cells) for g in grids[:n_check].cpu().numpy()), f"K11 {tag}: a maze is not perfect")
+        print(f"K11 main {tag} B={grids.shape[0]}: every maze has {2 * s - 1} open tiles; {n_check} checked perfect")
+    lv64 = gt.Level(grid=g64, start_idx=start64.expand(n64).contiguous())
+    fn = bp.compile_rollout_random(sem, bp.pack_level(lv64), n64, 1_000, max_episode_steps=MAX_EPISODE_STEPS)
+    _, stats = fn(7)
+    _require(int(stats["episodes"]) > 0 and 1.0 <= float(stats["mean_length"]) <= MAX_EPISODE_STEPS,
+             f"K1 over the backtracker mazes: implausible stats {stats}")
+    print(f"K1 over the backtracker mazes B={n64} T=1000: episodes {int(stats['episodes'])}, "
+          f"mean_length {float(stats['mean_length'])!r}")
+    _require(gather_probe.probe_gather_1d() == "OK" and gather_probe.probe_take_along_axis() == "OK",
+             "the gather probe did not report OK")
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in names}
+    print(f"launches on the maze and probe main path: {launches}; K1 {kernels.LAUNCHES['random_scan_bits']}")
+    _require(launches == {"backtracker_mazes": 2, "gather_1d": 3, "take_along_axis1": 2}
+             and kernels.LAUNCHES["random_scan_bits"] == 1, f"maze and probe path: launches {launches}")
+    print("gather probe: 1-D vector gather OK, 2-D take_along_axis OK (zero and seeded indices, and the step lookup)")
+
+    # the main path's grids against the plain version, and the times
+    for tag, grids, cells, seed in (("9x9", g64, (4, 4), 2026), ("33x33", g33, (16, 16), 2027)):
+        b, s = grids.shape[0], cells[0] * cells[1]
+        ms, got = _cuda_ms(lambda: M.generate_mazes_device(seed, cells, b)[0], 5)
+        plain_ms, ref = _cuda_ms(lambda: M.backtracker_mazes_reference(cells, b, seed=seed, device=dev), 1, warm=False)
+        errs["backtracker_mazes"] = max(errs["backtracker_mazes"], _same(f"K11 main {tag}", grids, ref))
+        _same(f"K11 timed {tag}", got, ref)
+        tiles = grids.shape[1] * grids.shape[2]
+        # the grids written once; 2S - 1 iterations a maze, whatever the draws
+        t11 = dict(ms=ms, plain_ms=plain_ms, shape=f"cells={cells} B={b}", library_ms=None,
+                   **bound(b * tiles * 4, b * (INSTR_K11_ITER * (2 * s - 1) + INSTR_K11_TILE * tiles)))
+        print(f"K11 main {tag}: grids bit-exact vs plain; kernel {ms!r} ms ({b / ms * 1e3!r} mazes/s), plain {plain_ms!r} ms, "
+              f"bound {t11['bound_ms']!r} ms by {t11['bound_by']} ({smi})")
+        if tag == "9x9":
+            times["backtracker_mazes"] = t11
+
+    states, envs = gather_probe.STEP_LOOKUP
+    gen = torch.Generator(device=dev).manual_seed(4)
+    codes = torch.randint(0, 4, (states,), generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.randint(0, states, (envs,), generator=gen, device=dev, dtype=torch.int32)
+    ms, got = _cuda_ms(lambda: gather_probe.gather_1d(codes, pos), 50)
+    plain_ms, ref = _cuda_ms(lambda: gather_probe.gather_1d_reference(codes, pos), 50)
+    errs["gather_1d"] = _same("P1 timed", got, ref.to(torch.int32))
+    # the plain version IS the one library call, `table[idx]`
+    times["gather_1d"] = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms, shape=f"table ({states},), {envs} indices",
+                              **bound(states * 4 + envs * 8, INSTR_P1 * envs))
+    table = torch.randint(0, 1000, (8, 256), generator=gen, device=dev, dtype=torch.int32)
+    idx = torch.randint(0, 256, (8, 256), generator=gen, device=dev, dtype=torch.int32)
+    ms, got = _cuda_ms(lambda: gather_probe.take_along_axis1(table, idx), 50)
+    plain_ms, ref = _cuda_ms(lambda: gather_probe.take_along_axis1_reference(table, idx), 50)
+    errs["take_along_axis1"] = _same("P2 timed", got, ref.to(torch.int32))
+    times["take_along_axis1"] = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms, shape="table (8, 256), indices (8, 256)",
+                                     **bound(8 * 256 * 12, INSTR_P2 * 8 * 256))
+    return launches, errs, times, lv64
+
+
+_DQN_SCALARS = ("p_max", "t", "run_ret", "episodes", "ret_sum", "last_loss")
+
+
+def _dqn_state_fields(ts):
+    names = sorted(ts.params)
+    fields, labels = [], []
+    for tag, tree in (("param", ts.params), ("target", ts.target_params), ("mu", ts.opt_state.mu), ("nu", ts.opt_state.nu)):
+        fields += [tree[k] for k in names]
+        labels += [f"{tag} {k}" for k in names]
+    st = ts.env_state
+    fields += [ts.opt_state.count, st.agent_idx, st.agent_code, st.t, *ts.buf, ts.prio]
+    labels += ["adam count", "agent_idx", "agent_code", "env t", *(f"buf.{f}" for f in ts.buf._fields), "prio"]
+    fields += [getattr(ts, f).reshape(-1) for f in _DQN_SCALARS]
+    return fields, labels + list(_DQN_SCALARS)
+
+
+def _same_dqn_state(tag: str, a, b) -> None:
+    fa, labels = _dqn_state_fields(a)
+    fb, _ = _dqn_state_fields(b)
+    _same_fields(tag, fa, fb, labels)
+
+
+def replay_phases(gt, dev, gen, bound, smi, lv64):
+    """Phases 17-20: K8a's and K8b's edge cases against their plain versions
+    at a small shape, the DQN main paths at full width with their launches
+    counted, every K8 launch of their steps 60..119 against the plain
+    version on the step's own inputs, and the times.
+    Returns (launches, max abs errors, times) by kernel name."""
+    from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.models import a2c, dqn, networks
+
+    errs = {"per_sample": 0.0, "replay": 0.0}
+    times = {}
+    sem = gt.make_semantics()
+    walls16 = builders.walls_and_goal_16x16()
+    num_actions = sem.num_actions
+    n64, cap64 = 65_536, 131_072
+
+    def ring(cap):
+        return dqn.ReplayBuffer(
+            torch.randint(0, 256, (cap,), generator=gen, device=dev, dtype=torch.int32),
+            torch.randint(0, 4, (cap,), generator=gen, device=dev, dtype=torch.int32),
+            torch.randn((cap,), generator=gen, device=dev),
+            torch.randint(0, 256, (cap,), generator=gen, device=dev, dtype=torch.int32),
+            torch.rand((cap,), generator=gen, device=dev) < 0.3)
+
+    def held_draw(tag, prio, noise, size, n, alpha=0.6, beta=0.4):
+        """One K8a draw held against the plain version: scores to the ulp
+        bound, the selection bit-exact on the kernel's own scores, weights
+        to the stated tolerance. Returns (idx, w)."""
+        size_t = torch.as_tensor(size, dtype=torch.int64, device=dev)
+        beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+        idx, w, score = dqn._per_sample(prio, noise, size_t, n, alpha, beta_t)
+        ref_score, pa = dqn.per_scores_reference(prio, noise, size_t, alpha)
+        _ulp_err(f"K8a {tag} scores", score, ref_score, K8A_SCORE_ULPS)
+        ref_idx, ref_w = dqn.per_select_reference(score, pa, size_t, beta_t, n)
+        _same(f"K8a {tag} selection", idx, ref_idx)
+        errs["per_sample"] = max(errs["per_sample"], _rel_err(f"K8a {tag} weights", w, ref_w, K8A_WEIGHT_RTOL))
+        return idx, w
+
+    # -- phase 17: K8b and K8a against their plain versions: the edge cases at a
+    # small shape (phase 19 holds every launch of the main paths at full width)
+    for cap, b, n in ((4096, 1024, 256),):
+        got = ring(cap)
+        ref = dqn.ReplayBuffer(*(x.clone() for x in got))
+        prio_g = torch.rand((cap,), generator=gen, device=dev)
+        prio_r = prio_g.clone()
+        p_max = torch.tensor(3.5, device=dev)
+        for at in (0, cap - b):
+            batch, at_t = ring(b), torch.tensor(at, device=dev)
+            dqn.buffer_write(got, at_t, batch, prio_g, p_max)
+            dqn.replay_write_reference(ref, prio_r, at_t, batch, p_max)
+            errs["replay"] = max(errs["replay"], _same_fields(f"K8b write cap={cap} at={at}", (*got, prio_g), (*ref, prio_r),
+                                                              (*got._fields, "prio")))
+        idx = torch.randint(0, cap, (n,), generator=gen, device=dev, dtype=torch.int32)
+        idx[n // 2:] = idx[: n - n // 2]  # equal indices: the highest position wins
+        _same_fields(f"K8b gather cap={cap}", dqn.replay_gather(got, idx), dqn.replay_gather_reference(ref, idx), got._fields)
+        abs_err = torch.rand((n,), generator=gen, device=dev) * 5
+        pm_g = dqn.prio_refresh(prio_g, idx, abs_err, 1e-3, p_max)
+        pm_r = dqn.prio_refresh_reference(prio_r, idx, abs_err, 1e-3, p_max)
+        _same_fields(f"K8b refresh cap={cap}", (prio_g, pm_g.reshape(1)), (prio_r, pm_r.reshape(1)), ("prio", "p_max"))
+        _same(f"K8b refresh cap={cap}: the last of equal indices wins", prio_g[idx[-1].long()].reshape(1),
+              (abs_err[-1] + 1e-3).reshape(1))
+        print(f"K8b cap={cap} B={b} n={n}: write at both ends with the priority fill, gather and refresh with "
+              "equal indices bit-exact vs plain")
+
+        prio = torch.rand((cap,), generator=gen, device=dev) * 4 + 1e-3
+        prio[torch.randint(0, cap, (cap // 16,), generator=gen, device=dev)] = 0.0
+        for size in (cap, cap // 2 + 37, 100):
+            noise = a2c.draw_gumbel(gen, (cap,), dev)
+            idx, w = held_draw(f"cap={cap} size={size}", prio, noise, size, n)
+            _require(bool((idx >= 0).all()) and bool((idx < size).all()), f"K8a cap={cap} size={size}: a slot outside the valid region")
+            if size < n:
+                _require(bool((w[size:] == 1.0).all()), "K8a size < n: a fallback row's weight is not exactly 1")
+        ones, flat = torch.ones(cap, device=dev), torch.zeros(cap, device=dev)
+        idx, _ = held_draw(f"cap={cap} all scores equal", ones, flat, cap, n)
+        _require(idx.tolist() == list(range(n)), "K8a: equal scores did not come out by lowest index")
+        flat[torch.arange(0, cap, cap // 100, device=dev)] = 1.0
+        held_draw(f"cap={cap} two levels of ties", ones, flat, cap, n)
+        print(f"K8a cap={cap} n={n}: size = cap, cap/2 + 37 and 100 < n, and ties: scores within {K8A_SCORE_ULPS} ulp, "
+              f"selection bit-exact on the kernel's own scores, weights within {K8A_WEIGHT_RTOL} (max abs err so far {errs['per_sample']!r})")
+
+    # -- phase 18: the DQN main paths at full width, each counted --------------
+    base = dict(buffer_capacity=cap64, max_episode_steps=MAX_EPISODE_STEPS)
+    cfgs = {
+        "dqn walls16 uniform": (walls16, models.DQNConfig(**base), 300),
+        "dqn walls16 per": (walls16, models.DQNConfig(**base, prioritized=True), 300),
+        "dqn mazes64k grid": (lv64, models.DQNConfig(**base, obs="grid", conv_channels=(32,), hidden=(64,)), 100),
+    }
+    path_launches, runs = {}, {}
+    for name, (level, cfg, steps) in cfgs.items():
+        models.dqn_train(sem, level, 1, cfg, 2, n64)  # first call: library handles, allocator
+        torch.cuda.reset_peak_memory_stats()
+        # a step: the acting forward, three forwards and one backward of the loss
+        net_kernel, per_step = ("agent_stamp", 1 + 3 + 3) if cfg.obs == "grid" else ("embed_rows", 1 + 3 + 2)
+        expected = {net_kernel: steps * per_step, "replay": steps * (3 if cfg.prioritized else 2),
+                    "per_sample": steps * 2 if cfg.prioritized else 0}
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = models.dqn_train(sem, level, 5, cfg, steps, n64)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        path_launches[name] = got
+        print(f"launches on the main path {name}: {got}")
+        _require(got == {k: v for k, v in expected.items() if v}, f"{name}: launches {got}, expected {expected}")
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(bool(torch.isfinite(p).all()) for p in res.params.values())
+        _require(finite and bool(torch.isfinite(res.final_loss)) and bool(torch.isfinite(res.mean_return))
+                 and float(res.final_loss) > 0 and int(res.episodes) > 0, f"{name}: a non-finite parameter, loss or return, or no episode")
+        _require(all(p.device.type == "cuda" for p in res.params.values()), f"{name}: parameters are not on the card")
+        print(f"{name} main: B={n64} capacity={cap64} steps={steps}: {ms!r} ms, {steps * n64 / ms * 1e3!r} env steps/s, "
+              f"episodes {int(res.episodes)}, mean_return {float(res.mean_return)!r}, final_loss {float(res.final_loss)!r}, "
+              f"peak memory {peak / 2**30:.3f} GiB ({smi})")
+        # chunk invariance on the card (not counted): 60 + 60 against 120, and the whole run twice
+        ts0 = models.dqn_init(sem, level, 5, cfg, n64)
+        at60 = models.dqn_run(sem, level, ts0, cfg, 60)
+        at120 = models.dqn_run(sem, level, at60, cfg, 60)
+        _same_dqn_state(f"{name} chunked 60+60 vs 120", at120, models.dqn_run(sem, level, ts0, cfg, 120))
+        whole = models.dqn_run(sem, level, ts0, cfg, steps)
+        _same_fields(f"{name} a second run", [res.params[k] for k in sorted(res.params)],
+                     [whole.params[k] for k in sorted(whole.params)], sorted(res.params))
+        _same(f"{name} a second run: final_loss", res.final_loss.reshape(1), whole.last_loss.reshape(1))
+        _require(int(whole.t) == steps and int(ts0.t) == 0 and not bool(ts0.buf.obs.any()), f"{name}: the state given was written")
+        print(f"{name} main: 60+60 steps from a saved state equal 120 unbroken bit for bit (parameters, target, Adam, "
+              "env state, the whole ring, priorities, statistics); two runs give the same bits")
+        runs[name] = (level, cfg, at60, at120)
+
+    launches = {k: sum(path.get(k, 0) for path in path_launches.values()) for k in errs}
+    print(f"launches on the off-policy main paths, summed: {launches}")
+    _require(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+
+    # -- phase 19: steps 60..119 of each main path against the plain rule ------
+    plain_ring = dict(replay_write_cuda=dqn.replay_write_reference, replay_gather_cuda=dqn.replay_gather_reference,
+                      prio_refresh_cuda=dqn.prio_refresh_reference)
+    kept = {}
+    for name, (level, cfg, at60, at120) in runs.items():
+        learner = dqn.dqn_learner(sem, level, cfg, n64)
+        scalars = dqn.step_scalars(cfg, at60.t, 60, n64)
+
+        def redo(patches):
+            """Steps 60..119 once more, by the trainer's own step function on
+            the trainer's own draws; `hold` sees every step."""
+            params, target, opt_state, env_state = at60.params, at60.target_params, at60.opt_state, at60.env_state
+            buf = dqn.ReplayBuffer(*(x.clone() for x in at60.buf))
+            prio, p_max = at60.prio.clone(), at60.p_max
+            stats = (at60.run_ret, at60.episodes, at60.ret_sum)
+            patched = mock.patch.multiple(dqn, **patches) if patches else contextlib.nullcontext()
+            with networks.exact_kernels(), patched:
+                for i in range(60):
+                    sc = scalars[i]
+                    draws = dqn.step_draws(dev, at60.seed, 60 + i, cfg, n64, num_actions, sc.eps, sc.size)
+                    before = (dqn.ReplayBuffer(*(x.clone() for x in buf)), prio.clone(), p_max)
+                    upd = dqn.dqn_update(sem, learner, cfg, params, target, opt_state, env_state, buf, prio, p_max, sc, draws)
+                    if not patches:
+                        hold_step(f"{name} step {60 + i}", cfg, before, upd, sc, draws, buf, prio)
+                    params, target, opt_state, env_state, p_max = (upd.params, upd.target_params, upd.opt_state,
+                                                                   upd.env_state, upd.p_max)
+                    stats = a2c.fold_episode_stats(*stats, upd.batch.reward[None], upd.batch.done[None])
+            kept[name] = (buf, prio, upd, sc, draws)
+            return type(at120)(**{**vars(at120), "params": params, "target_params": target, "opt_state": opt_state,
+                                  "env_state": env_state, "buf": buf, "prio": prio, "p_max": p_max,
+                                  "run_ret": stats[0], "episodes": stats[1], "ret_sum": stats[2], "last_loss": upd.loss})
+
+        def hold_step(tag, cfg, before, upd, sc, draws, buf, prio):
+            """Every K8 launch of one step against its plain version on the
+            step's own inputs."""
+            ref_buf, ref_prio, ref_p_max = before
+            dqn.replay_write_reference(ref_buf, ref_prio if cfg.prioritized else None, sc.at, upd.batch, ref_p_max)
+            if cfg.prioritized:
+                ref_score, pa = dqn.per_scores_reference(ref_prio, draws[2], sc.size, cfg.per_alpha)
+                _ulp_err(f"K8a main {tag} scores", upd.score, ref_score, K8A_SCORE_ULPS)
+                ref_idx, ref_w = dqn.per_select_reference(upd.score, pa, sc.size, sc.beta, cfg.batch_size_train)
+                _same(f"K8a main {tag} selection", upd.idx, ref_idx)
+                errs["per_sample"] = max(errs["per_sample"], _rel_err(f"K8a main {tag} weights", upd.w, ref_w, K8A_WEIGHT_RTOL))
+            errs["replay"] = max(errs["replay"], _same_fields(f"K8b main {tag} gather", upd.mb,
+                                                              dqn.replay_gather_reference(ref_buf, upd.idx), upd.mb._fields))
+            if cfg.prioritized:
+                ref_p_max = dqn.prio_refresh_reference(ref_prio, upd.idx, upd.abs_err, cfg.per_eps, ref_p_max)
+                _same(f"K8b main {tag} p_max", upd.p_max.reshape(1), ref_p_max.reshape(1))
+            _same_fields(f"K8b main {tag} ring", (*buf, prio), (*ref_buf, ref_prio), (*buf._fields, "prio"))
+
+        _same_dqn_state(f"{name}: steps 60..119 redone with the kernels", redo({}), at120)
+        msg = (f"{name} main, steps 60..119 redone by the trainer's step function end in the main path's state; at every "
+               "step the ring after the write and the refresh, the minibatch and p_max bit-exact vs plain")
+        if cfg.prioritized:
+            msg += (f", K8a's scores within {K8A_SCORE_ULPS} ulp, its selection bit-exact on its own scores, its weights "
+                    f"within {K8A_WEIGHT_RTOL}")
+        else:  # no float of K8 differs from plain here, so the whole run must repeat with the plain ring
+            _same_dqn_state(f"{name}: steps 60..119 redone with the plain ring", redo(plain_ring), at120)
+            msg += "; redone with the plain ring they end in the same state bit for bit"
+        print(msg)
+
+    # -- phase 20: times at the main path's shapes -----------------------------
+    buf, prio, upd, sc, draws = kept["dqn walls16 per"]
+    n = upd.idx.shape[0]
+    noise, alpha = draws[2], 0.6
+    ms, (idx, w, score) = _cuda_ms(lambda: dqn._per_sample(prio, noise, sc.size, n, alpha, sc.beta), 50)
+
+    def plain_draw():
+        ref_score, pa = dqn.per_scores_reference(prio, noise, sc.size, alpha)
+        return dqn.per_select_reference(ref_score, pa, sc.size, sc.beta, n)
+
+    def library():  # `torch.topk` with the same elementwise lines: timed here, used nowhere in the port
+        ref_score, pa = dqn.per_scores_reference(prio, noise, sc.size, alpha)
+        top = torch.topk(ref_score, n).indices
+        picked = pa[top]
+        wl = (sc.size.clamp(min=1).to(torch.float32) * (picked / pa.sum().clamp(min=1e-30))) ** (-sc.beta)
+        return top, wl / wl.max()
+
+    plain_ms, (p_idx, p_w) = _cuda_ms(plain_draw, 10)
+    lib_ms, (l_idx, _) = _cuda_ms(library, 20)
+    common = len(set(idx.tolist()) & set(l_idx.tolist()))
+    _require(common >= n - 2, f"K8a: the library yardstick picks other slots ({common} of {n} in common)")
+    agree = int((idx == p_idx).sum())
+    cap = prio.shape[0]
+    times["per_sample"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, shape=f"capacity {cap}, size {int(sc.size)}, n={n}",
+        # priorities and noise read once, idx and weights written
+        **bound(cap * 8 + n * 8, (INSTR_K8A_SCORE + INSTR_K8A_PICK) * cap))
+    print(f"K8a timed: kernel {ms!r} ms, plain {plain_ms!r} ms, torch.topk with the same lines {lib_ms!r} ms; {agree} of {n} "
+          f"picks equal the plain version's on its own scores, {common} are among torch.topk's ({smi})")
+
+    buf, prio, upd, sc, _ = kept["dqn walls16 per"]
+    p_max = upd.p_max
+    w_ms, _ = _cuda_ms(lambda: dqn.buffer_write(buf, sc.at, upd.batch, prio, p_max), 50)
+    g_ms, _ = _cuda_ms(lambda: dqn.replay_gather(buf, upd.idx), 50)
+    r_ms, _ = _cuda_ms(lambda: dqn.prio_refresh(prio, upd.idx, upd.abs_err, 1e-3, p_max), 50)
+    ref_buf, ref_prio = dqn.ReplayBuffer(*(x.clone() for x in buf)), prio.clone()
+    pw_ms, _ = _cuda_ms(lambda: dqn.replay_write_reference(ref_buf, ref_prio, sc.at, upd.batch, p_max), 10)
+    pg_ms, _ = _cuda_ms(lambda: dqn.replay_gather_reference(ref_buf, upd.idx), 10)
+    pr_ms, _ = _cuda_ms(lambda: dqn.prio_refresh_reference(ref_prio, upd.idx, upd.abs_err, 1e-3, p_max), 10)
+    _same_fields("K8b timed", (*buf, prio), (*ref_buf, ref_prio), (*buf._fields, "prio"))
+    slots = sc.at + torch.arange(n64, device=dev)
+    rows = upd.idx.long()
+
+    def library_ring():  # the library's scatters and gathers for the same three functions; used nowhere in the port
+        for full, part in zip(ref_buf, upd.batch):
+            full.index_copy_(0, slots, part)
+        ref_prio.index_fill_(0, slots, 3.5)
+        out = [torch.index_select(full, 0, rows) for full in ref_buf]
+        fresh = upd.abs_err + 1e-3
+        ref_prio.index_put_((rows,), fresh)
+        return out, torch.maximum(p_max, fresh.max())
+
+    lib_ms, _ = _cuda_ms(library_ring, 20)
+    times["replay"] = dict(
+        ms=w_ms + g_ms + r_ms, plain_ms=pw_ms + pg_ms + pr_ms, library_ms=lib_ms,
+        shape=f"write B={n64} + gather n={n} + refresh n={n}, capacity {cap}",
+        # a transition is 17 bytes read and written, its priority 4; the gather reads an index and moves 17 bytes; the refresh 12
+        **bound(n64 * (2 * 17 + 4) + n * (4 + 2 * 17) + n * 12,
+                INSTR_K8B_WRITE * n64 + (INSTR_K8B_GATHER + INSTR_K8B_REFRESH) * n))
+    print(f"K8b timed: write {w_ms!r} ms, gather {g_ms!r} ms, refresh {r_ms!r} ms; plain {pw_ms!r}, {pg_ms!r}, {pr_ms!r} ms; "
+          f"index_copy_ x5 + index_fill_ + index_select x5 + index_put_ + max {lib_ms!r} ms ({smi})")
+    return launches, errs, times
+
+
+def mc_lambda_phases(gt, dev, bound, smi):
+    """Phase 21: the Monte-Carlo and TD(λ) entry points on the card.
+    `mc_prediction` with its defaults and five rounds of `mc_control` put
+    256 episodes x 100 steps = 25,600 samples through one K10 launch a
+    round, the largest shape any caller gives that kernel; every launch is
+    held bit for bit against the plain version on the run's own samples,
+    and K10 is timed there. `sarsa_lambda` (the dense live-trace mean, no
+    kernel) must give the same bits twice."""
+    from griduniverse_tpu_torch import algos, kernels
+    from griduniverse_tpu_torch.algos import mc, td
+    from griduniverse_tpu_torch.levels import builders
+
+    sem = gt.make_semantics()
+    lava = builders.lava_level()
+    calls = []
+
+    def recorded(q, s, a, delta, alpha, mask):
+        out = td.apply_td_updates_masked(q, s, a, delta, alpha, mask)
+        calls.append(((q, s, a, delta, alpha, mask), out))
+        return out
+
+    rounds = 5
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with mock.patch.object(mc, "apply_td_updates_masked", recorded):
+        pred = algos.mc_prediction(sem, lava, 3)
+        torch.cuda.synchronize()
+        _require(kernels.LAUNCHES["segment_mean"] == 1, f"mc_prediction: {kernels.LAUNCHES['segment_mean']} K10 launches, expected 1")
+        ctl = algos.mc_control(sem, lava, 6, num_rounds=rounds)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"launches of mc_prediction (defaults) and {rounds} rounds of mc_control: {got}")
+    _require(got == {"segment_mean": 1 + rounds}, f"mc: launches {got}, expected one K10 launch a round and no other kernel")
+    samples = calls[0][0][1].shape[0]
+    _require(samples == 25_600 and all(c[0][1].shape[0] == samples for c in calls), f"mc: a round's samples are not 25,600: {samples}")
+    err = 0.0
+    for i, (args, out) in enumerate(calls):
+        err = max(err, _same(f"K10 mc round {i}", out, td.apply_td_updates_reference(*args)))
+    visited = int((pred.counts > 0).sum())
+    _require(bool(torch.isfinite(pred.value).all()) and visited > 1 and float(pred.counts.sum()) > 0
+             and bool(torch.isfinite(ctl.q).all()) and bool((ctl.q != 0).any()) and int(ctl.episodes) == rounds * 256,
+             "mc: a non-finite value, no finished episode, or an untouched Q")
+    args = calls[-1][0]
+    n_masked = int(args[5].sum())
+    ms, _ = _cuda_ms(lambda: td.apply_td_updates_masked(*args), 50)
+    plain_ms, _ = _cuda_ms(lambda: td.apply_td_updates_reference(*args), 3)
+    seg = args[0].numel()
+    t10 = bound(samples * 13 + 2 * seg * 4, INSTR_K10_ENV * samples + 2 * seg)
+    print(f"K10 at mc's shape, {samples} samples ({n_masked} under the first-visit mask), S*A={seg}: all {1 + rounds} launches "
+          f"bit-exact vs plain (max abs err {err!r}); kernel {ms!r} ms, plain {plain_ms!r} ms, bound {t10['bound_ms']!r} ms "
+          f"by {t10['bound_by']}; mc_prediction visited {visited} states ({smi})")
+
+    walls16 = builders.walls_and_goal_16x16()
+    b, steps = 4096, 200
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    first = algos.sarsa_lambda(sem, walls16, 5, num_steps=steps, batch_size=b)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    second = algos.sarsa_lambda(sem, walls16, 5, num_steps=steps, batch_size=b)
+    wat = algos.watkins_q_lambda(sem, walls16, 5, num_steps=steps, batch_size=b)
+    wat2 = algos.watkins_q_lambda(sem, walls16, 5, num_steps=steps, batch_size=b)
+    _same("sarsa_lambda twice: q", first.q, second.q)
+    _same("watkins_q_lambda twice: q", wat.q, wat2.q)
+    _require(int(first.episodes) == int(second.episodes) and bool(torch.isfinite(first.q).all()) and bool((first.q != 0).any())
+             and not any(kernels.LAUNCHES.values()), "sarsa_lambda: runs differ, a non-finite Q, or a kernel launched")
+    print(f"sarsa_lambda and watkins_q_lambda, walls16 B={b} T={steps}, traces ({b}, 256, 4): two runs give the same bits; "
+          f"sarsa_lambda {ms!r} ms a call on the host clock, {b * steps / ms * 1e3!r} transitions/s ({smi})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this runs only on a GPU")
@@ -1217,6 +1699,19 @@ def main() -> None:
     launches.update(learner_launches)
     errs.update(learner_errs)
     times.update(learner_times)
+    # -- phases 15-16: the backtracker (K11) and the gather probes (P1, P2) ---------
+    maze_launches, maze_errs, maze_times, lv64 = maze_probe_phases(gt, dev, bound, smi)
+    launches.update(maze_launches)
+    errs.update(maze_errs)
+    times.update(maze_times)
+
+    # -- phases 17-20: the off-policy learner and its replay (K8a, K8b) -----------
+    replay_launches, replay_errs, replay_times = replay_phases(gt, dev, gen, bound, smi, lv64)
+    launches.update(replay_launches)
+    errs.update(replay_errs)
+    times.update(replay_times)
+    # -- phase 21: mc.py and td_lambda.py on the card (K10 at its largest shape) -----
+    mc_lambda_phases(gt, dev, bound, smi)
     for name, t in times.items():
         print(f"time {name} at {t['shape']}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
               f"bound {t['bound_ms']!r} ms by {t['bound_by']}, library {t['library_ms']!r} ms, "
@@ -1235,6 +1730,11 @@ def main() -> None:
         "act_step": (csrc + "act_step.cu", "griduniverse_tpu/models/ppo.py:199"),
         "embed_rows": (csrc + "embed_rows.cu", "griduniverse_tpu/models/networks.py:54"),
         "agent_stamp": (csrc + "agent_stamp.cu", "griduniverse_tpu/models/networks.py:178"),
+        "per_sample": (csrc + "replay.cu", "griduniverse_tpu/models/dqn.py:207"),
+        "replay": (csrc + "replay.cu", "griduniverse_tpu/models/dqn.py:180"),
+        "backtracker_mazes": (csrc + "backtracker.cu", "griduniverse_tpu/levels/maze.py:142"),
+        "gather_1d": (csrc + "gather_probe.cu", "tools/pallas_probe.py:43"),
+        "take_along_axis1": (csrc + "gather_probe.cu", "tools/pallas_probe.py:61"),
     }
     _require(set(sources) == set(kernels.LAUNCHES), "the record does not list every kernel")
     record = {"kernels": [

@@ -1,8 +1,4 @@
-"""On-device tabular solvers — counterpart of `griduniverse_tpu/algos`.
-
-The reference's Monte-Carlo and TD(λ) modules (`mc`, `td_lambda`) are not
-ported yet (ROADMAP.md queue 1).
-"""
+"""On-device tabular solvers — counterpart of `griduniverse_tpu/algos`."""
 
 from .dp import (
     action_values,
@@ -20,6 +16,7 @@ from .dp_batched import (
     value_iteration_batched,
     value_iteration_batched_grid,
 )
+from .mc import MCControlResult, MCResult, mc_control, mc_prediction
 from .td import (
     DoubleTDResult,
     TDResult,
@@ -41,6 +38,12 @@ from .td_fast import (
     compile_q_learning_fast,
     fast_td_init,
     fast_td_result,
+)
+from .td_lambda import (
+    TDLambdaPredictionResult,
+    sarsa_lambda,
+    td_lambda_prediction,
+    watkins_q_lambda,
 )
 from .utils import (
     greedy_policy_from_q,

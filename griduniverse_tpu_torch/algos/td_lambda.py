@@ -1,0 +1,203 @@
+"""TD(λ): eligibility-trace control (SARSA(λ), Watkins Q(λ)) and TD(λ)
+prediction.
+
+PyTorch counterpart of `griduniverse_tpu/algos/td_lambda.py`.
+
+  * Each env carries its OWN eligibility tensor e_i, shape (B, S, A) for
+    control and (B, S) for prediction: the per-episode trace of the
+    sequential algorithm, batched over envs.
+  * Tiny traces are flushed to exact zero below `trace_cutoff`: it keeps the
+    aggregation's visit counts honest.
+  * The aggregation follows `apply_td_updates`' collision-MEAN convention
+    (`algos.td`): per (s, a), the Q increment is the mean over the envs
+    holding a live (nonzero) trace of their sequential update α·δ_i·e_i[s,a].
+    With B = 1 this is the sequential rule `Q += α·δ·e`. A trace spreads an
+    env over many cells, so this mean is DENSE, one sum over the env axis
+    for every cell, not the one-cell-an-env scatter that kernel K10 serves;
+    it is a plain reduction over dim 0, which adds in a fixed order (no
+    atomics), so a run repeats its bits on the card as K10's users do.
+  * Episode boundaries zero the finished env's whole trace (auto-reset);
+    Watkins Q(λ) also zeroes it when the env's next action is exploratory.
+
+Random numbers, as in `algos.td`: one xorshift32 lane per env, one round per
+ε-greedy draw, seeded by the integer `key`; or injected `draws` = (explore
+(T, B) bool, rand_a (T, B) int32, explore0 (B,), rand_a0 (B,)). The
+prediction samples its action from the policy row by inverse CDF on the
+round's top 24 bits; its `draws` are the (T, B) int32 actions themselves,
+or (T, B, A) Gumbel noise for `argmax(log π(·|s) + g)`, which is what the
+reference's `jax.random.categorical` computes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.step import step_autoreset
+from ..ops.bitplane import to_uint32_values, xorshift_init, xorshift_next
+from ..ops.rollout import reset_batch
+from .dp import first_argmax
+from .td import TDResult, _fold_stats, _next_draw, epsilon_greedy
+
+TRACES = ("accumulating", "replacing")
+
+
+def decay_traces(e, gamma: float, lam: float, cutoff: float):
+    """γλ decay with flush-to-zero below `cutoff`."""
+    e = gamma * lam * e
+    return torch.where(e < cutoff, 0.0, e)
+
+
+def bump_traces(e, s, a, num_states: int, num_actions: int, kind: str):
+    """Add this step's visit to each env's (B, S, A) trace. kind:
+    "accumulating" (e += 1) or "replacing" (e = 1)."""
+    hot = torch.zeros_like(e)
+    hot[torch.arange(e.shape[0], device=e.device), s.long(), a.long()] = 1.0
+    if kind == "accumulating":
+        return e + hot
+    return torch.maximum(e, hot)  # replacing: e[s, a] = 1
+
+
+def _live_mean(table, delta, e, alpha: float):
+    """`table + α · Σ_b δ_b·e_b / max(#{b: e_b ≠ 0}, 1)`, per cell: the sum
+    over the env axis runs in a fixed order."""
+    shape = (-1,) + (1,) * (e.dim() - 1)
+    num = (delta.reshape(shape) * e).sum(dim=0)
+    cnt = (e != 0.0).sum(dim=0).to(torch.float32)
+    return table + alpha * num / cnt.clamp(min=1.0)
+
+
+def apply_trace_updates(q, delta, e, alpha: float):
+    """Q += α · mean-over-live-traces(δ_i·e_i), per (s, a).
+
+    `delta` (B,), `e` (B, S, A). Envs with e_i[s,a] = 0 don't count toward
+    the (s, a) denominator, so a state visited by one env updates at full
+    α·δ·e (sequential parity), and a start state shared by thousands of envs
+    moves by their mean update instead of the sum."""
+    return _live_mean(q, delta, e, alpha)
+
+
+def _td_lambda_control(sem, level, key, algo, num_steps, batch_size, alpha, gamma, epsilon, lam,
+                       trace, trace_cutoff, q0, draws) -> TDResult:
+    if trace not in TRACES:
+        raise ValueError(f"unknown trace kind: {trace!r}")
+    dev = level.device
+    num_states, num_actions = level.num_states, sem.num_actions
+    if q0 is None:
+        q = torch.zeros((num_states, num_actions), dtype=torch.float32, device=dev)
+    else:
+        q = q0.clone()
+    state = reset_batch(level, batch_size)
+    b = state.agent_idx.shape[0]
+    rs = xorshift_init(key, (b,), device=dev)
+    draw, rs = _next_draw(rs, None if draws is None else (draws[2], draws[3]))
+    a = epsilon_greedy(q[state.agent_idx.long()], draw, epsilon)
+    e = torch.zeros((b, num_states, num_actions), dtype=torch.float32, device=dev)
+    run_ret = torch.zeros(b, dtype=torch.float32, device=dev)
+    n_eps = torch.zeros((), dtype=torch.int64, device=dev)
+    ret_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    rows = torch.arange(b, device=dev)
+    for i in range(num_steps):
+        s = state.agent_idx
+        state, out = step_autoreset(sem, level, state, a)
+        s2, r, d = out.obs, out.reward, out.done
+
+        # trace first: decay, then bump this step's (s, a)
+        e = decay_traces(e, gamma, lam, trace_cutoff)
+        e = bump_traces(e, s, a, num_states, num_actions, trace)
+
+        draw, rs = _next_draw(rs, None if draws is None else (draws[0][i], draws[1][i]))
+        a_next = epsilon_greedy(q[state.agent_idx.long()], draw, epsilon)
+        q2 = q[s2.long()]
+        greedy2 = first_argmax(q2)
+        if algo == "sarsa":
+            boot = q2[rows, a_next.long()]
+        else:  # watkins: off-policy max target
+            boot = q2.max(dim=-1).values
+        delta = r + gamma * torch.where(d, 0.0, boot) - q[s.long(), a.long()]
+
+        q = apply_trace_updates(q, delta, e, alpha)
+
+        # cut traces: always at episode end; Watkins also on exploration
+        cut = d | (a_next != greedy2) if algo == "watkins" else d
+        e = torch.where(cut[:, None, None], 0.0, e)
+        run_ret, n_eps, ret_sum = _fold_stats(run_ret, n_eps, ret_sum, r, d)
+        a = a_next
+    return TDResult(q=q, episodes=n_eps, mean_return=ret_sum / n_eps.clamp(min=1))
+
+
+def sarsa_lambda(
+    sem, level, key, num_steps: int = 10_000, batch_size: int = 32,
+    alpha: float = 0.1, gamma: float = 0.99, epsilon: float = 0.1,
+    lam: float = 0.9, trace: str = "accumulating",
+    trace_cutoff: float = 1e-4, q0=None, draws=None,
+) -> TDResult:
+    """On-policy SARSA(λ) with per-env eligibility traces."""
+    return _td_lambda_control(sem, level, key, "sarsa", num_steps, batch_size, alpha, gamma,
+                              epsilon, lam, trace, trace_cutoff, q0, draws)
+
+
+def watkins_q_lambda(
+    sem, level, key, num_steps: int = 10_000, batch_size: int = 32,
+    alpha: float = 0.1, gamma: float = 0.99, epsilon: float = 0.1,
+    lam: float = 0.9, trace: str = "accumulating",
+    trace_cutoff: float = 1e-4, q0=None, draws=None,
+) -> TDResult:
+    """Watkins Q(λ): off-policy max targets; traces cut at exploratory
+    actions (and episode ends)."""
+    return _td_lambda_control(sem, level, key, "watkins", num_steps, batch_size, alpha, gamma,
+                              epsilon, lam, trace, trace_cutoff, q0, draws)
+
+
+@dataclasses.dataclass
+class TDLambdaPredictionResult:
+    v: torch.Tensor          # (S,) state values under the policy
+    episodes: torch.Tensor   # () completed episodes
+
+
+def td_lambda_prediction(
+    sem, level, policy: torch.Tensor, key, num_steps: int = 10_000, batch_size: int = 32,
+    alpha: float = 0.1, gamma: float = 0.99, lam: float = 0.9,
+    trace: str = "accumulating", trace_cutoff: float = 1e-4, draws=None,
+) -> TDLambdaPredictionResult:
+    """TD(λ) policy evaluation: learn V^π for a fixed stochastic policy
+    (S, A) from on-policy experience, per-env (B, S) traces."""
+    if trace not in TRACES:
+        raise ValueError(f"unknown trace kind: {trace!r}")
+    dev = level.device
+    num_states = level.num_states
+    v = torch.zeros((num_states,), dtype=torch.float32, device=dev)
+    state = reset_batch(level, batch_size)
+    b = state.agent_idx.shape[0]
+    rs = xorshift_init(key, (b,), device=dev)
+    e = torch.zeros((b, num_states), dtype=torch.float32, device=dev)
+    n_eps = torch.zeros((), dtype=torch.int64, device=dev)
+    rows = torch.arange(b, device=dev)
+    cdf = policy.to(torch.float32).cumsum(dim=-1)
+    cdf = cdf / cdf[:, -1:].clamp(min=1e-30)
+    logp = torch.log(policy.to(torch.float32).clamp(min=1e-30))
+    for i in range(num_steps):
+        s = state.agent_idx
+        if draws is None:
+            rs, bits = xorshift_next(rs)
+            u = (to_uint32_values(bits) >> 8).to(torch.float32) / float(1 << 24)
+            a = (u[:, None] >= cdf[s.long()]).sum(dim=-1).clamp(max=policy.shape[-1] - 1).to(torch.int32)
+        elif draws[i].dim() == 2:
+            a = torch.argmax(logp[s.long()] + draws[i], dim=-1).to(torch.int32)
+        else:
+            a = draws[i].to(torch.int32)
+        state, out = step_autoreset(sem, level, state, a)
+        s2, r, d = out.obs, out.reward, out.done
+
+        e = decay_traces(e, gamma, lam, trace_cutoff)
+        hot = torch.zeros_like(e)
+        hot[rows, s.long()] = 1.0
+        e = e + hot if trace == "accumulating" else torch.maximum(e, hot)
+
+        delta = r + gamma * torch.where(d, 0.0, v[s2.long()]) - v[s.long()]
+        v = _live_mean(v, delta, e, alpha)
+
+        e = torch.where(d[:, None], 0.0, e)
+        n_eps = n_eps + d.sum()
+    return TDLambdaPredictionResult(v=v, episodes=n_eps)

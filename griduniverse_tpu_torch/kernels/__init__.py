@@ -10,8 +10,12 @@ GAE and n-step-return scans) in `csrc/gae.cu`, K7b `act_step` (sample,
 log-prob and env step; and its greedy form) in `csrc/act_step.cu`, K9a
 `embed_rows` (index embedding, with its backward) in `csrc/embed_rows.cu`
 and K9b `agent_stamp` (agent plane of the first conv layer, with its
-backward) in `csrc/agent_stamp.cu`. `build.load()` compiles them with `nvcc`
-for `sm_90a` at first use.
+backward) in `csrc/agent_stamp.cu`. The off-policy learner's are K8a
+`per_sample` (the prioritized draw: scores, exact top-n, weights) and K8b
+`replay` (the ring's write, gather and priority refresh) in `csrc/replay.cu`.
+K11 `backtracker_mazes` is in `csrc/backtracker.cu`, and the two gather
+probes P1 `gather_1d` and P2 `take_along_axis1` in `csrc/gather_probe.cu`.
+`build.load()` compiles them with `nvcc` for `sm_90a` at first use.
 
 Dispatch rule, applied by the public functions in `ops/`, `levels/`,
 `algos/` and `models/`:
@@ -23,7 +27,9 @@ one for each kernel it launched, right after the call that launched them
 succeeded, and nowhere else. K5's wrapper launches one kernel a step and one
 more to apply the last aggregate, so a scan of T steps counts T + 1; the
 backward of `embed_rows` launches two kernels and that of `agent_stamp`
-three, and each counts under its kernel's name.
+three, and each counts under its kernel's name. A `per_sample` draw is two
+kernels (scores, then selection); the ring's write, gather and refresh are
+one each, all under `replay`.
 """
 
 from __future__ import annotations
@@ -42,6 +48,11 @@ LAUNCHES: dict[str, int] = {
     "act_step": 0,
     "embed_rows": 0,
     "agent_stamp": 0,
+    "per_sample": 0,
+    "replay": 0,
+    "backtracker_mazes": 0,
+    "gather_1d": 0,
+    "take_along_axis1": 0,
 }
 
 

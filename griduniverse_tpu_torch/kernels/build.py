@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (
     "rollout.cu", "maze.cu", "dp_grid.cu", "td_fast.cu", "td_batched.cu", "segment_mean.cu",
     "gae.cu", "act_step.cu", "embed_rows.cu", "agent_stamp.cu",
+    "replay.cu", "backtracker.cu", "gather_probe.cu",
 )
 HEADERS = ("step.cuh",)
 # No --use_fast_math, and -fmad=false: every kernel is held bit for bit
@@ -69,6 +70,15 @@ _SIGNATURES = {
     "gu_embed_rows_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gu_agent_stamp": [_P] * 5 + [_I] * 6 + [_P],
     "gu_agent_stamp_backward": [_P] * 7 + [_I] * 8 + [_P],
+    # prio, noise, size, beta; alpha, cap, n; score, partial, idx, w; launched
+    "gu_per_sample": [_P] * 4 + [_F, _I, _I] + [_P] * 5 + [_P],
+    # ring (5), prio; batch (5); at, p_max; B, cap
+    "gu_replay_write": [_P] * 13 + [_I, _I, _P],
+    "gu_replay_gather": [_P] * 6 + [_I, _I] + [_P] * 5 + [_P],
+    "gu_prio_refresh": [_P] * 3 + [_F, _I, _I, _P, _P, _P],
+    "gu_backtracker_mazes": [_I, _I, _I, _I, _P, _P],
+    "gu_gather_1d": [_P, _I, _P, _I, _P, _P],
+    "gu_take_along_axis1": [_P, _I, _P, _I, _I, _P, _P],
 }
 _ERROR_STRING = "gu_error_string"  # const char* (int): cudaGetErrorString
 

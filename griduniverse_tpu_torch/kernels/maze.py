@@ -1,6 +1,8 @@
-"""Wrapper of K3 (`csrc/maze.cu`): check, allocate, launch.
+"""Wrappers of K3 (`csrc/maze.cu`) and K11 (`csrc/backtracker.cu`): check,
+allocate, launch.
 
-The plain PyTorch version is `levels.maze.aldous_broder_mazes_reference`.
+The plain PyTorch versions are `levels.maze.aldous_broder_mazes_reference`
+and `levels.maze.backtracker_mazes_reference`.
 """
 
 from __future__ import annotations
@@ -52,4 +54,27 @@ def aldous_broder_mazes_cuda(
         ch, cw, batch_size, max_iters, dirs_ptr, seed, grids.data_ptr(),
     )
     LAUNCHES["aldous_broder_mazes"] += 1
+    return grids
+
+
+def backtracker_mazes_cuda(
+    cells: tuple[int, int], batch_size: int, *, seed: int = 0, device=None
+) -> torch.Tensor:
+    """Launch K11 on `device`: one recursive-backtracker maze a thread from
+    the per-maze xorshift32 streams keyed by `seed`. Returns (B, 2ch+1,
+    2cw+1) int32 grids."""
+    ch, cw = (int(c) for c in cells)
+    if ch < 1 or cw < 1 or ch * cw > MAX_CELLS:
+        raise ValueError(f"cells {cells}: the kernel takes 1..{MAX_CELLS} cells")
+    batch_size = check_int("batch_size", batch_size, low=1)
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"backtracker_mazes_cuda takes a CUDA device, got {device}")
+    seed = int(seed) & 0xFFFFFFFF
+    seed = seed - (1 << 32) if seed >= (1 << 31) else seed  # C int, same bits
+    grids = torch.empty(
+        (batch_size, 2 * ch + 1, 2 * cw + 1), dtype=torch.int32, device=device
+    )
+    launch("gu_backtracker_mazes", device, ch, cw, batch_size, seed, grids.data_ptr())
+    LAUNCHES["backtracker_mazes"] += 1
     return grids

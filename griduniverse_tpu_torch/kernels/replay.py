@@ -1,0 +1,127 @@
+"""Wrappers of K8a and K8b (`csrc/replay.cu`): check, allocate, launch.
+
+The plain PyTorch versions are in `models.dqn`: `per_scores_reference` and
+`per_select_reference` (K8a), `replay_write_reference`,
+`replay_gather_reference` and `prio_refresh_reference` (K8b).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import LAUNCHES
+from .build import check_int, check_tensor, launch
+
+# picks of one draw, and rows of one refresh: one thread each in one block
+MAX_PICKS = 1024
+
+_FIELDS = (
+    ("obs", torch.int32), ("action", torch.int32), ("reward", torch.float32),
+    ("next_obs", torch.int32), ("done", torch.bool),
+)
+
+
+def _scalar(name: str, x, dtype: torch.dtype, device) -> int:
+    return check_tensor(name, x, dtype, (), device)
+
+
+def _ring(buf, cap: int, device) -> list[int]:
+    return [check_tensor(f"buf.{f}", getattr(buf, f), dt, (cap,), device) for f, dt in _FIELDS]
+
+
+def per_sample_cuda(prio, noise, size, beta, n: int, alpha: float):
+    """Launch K8a: the n best of `alpha·log max(prio, 1e-30) + noise` over
+    the first `size` slots (equal scores by lowest index, ordered by score
+    descending), a slot with no mass replaced by the fallback hash, and the
+    max-normalised importance weights. `size` (() int64) and `beta` (()
+    float32) are device tensors. Two kernels a draw, both counted. Returns
+    (idx (n,) int32, w (n,) float32, score (cap,) float32)."""
+    device = prio.device
+    if device.type != "cuda":
+        raise ValueError(f"per_sample_cuda takes CUDA tensors, got {device}")
+    cap = check_int("capacity", int(prio.shape[0]) if prio.dim() == 1 else 0, low=1)
+    n = check_int("n", n, low=1)
+    if n > MAX_PICKS or n > cap:
+        raise ValueError(f"n={n}: the kernel draws at most min({MAX_PICKS}, capacity={cap}) slots")
+    score = torch.empty_like(prio)
+    partial = torch.empty(((cap + 255) // 256,), dtype=torch.float32, device=device)
+    idx = torch.empty((n,), dtype=torch.int32, device=device)
+    w = torch.empty((n,), dtype=torch.float32, device=device)
+    launched = ctypes.c_int(0)
+    launch(
+        "gu_per_sample", device,
+        check_tensor("prio", prio, torch.float32, (cap,), device),
+        check_tensor("noise", noise, torch.float32, (cap,), device),
+        _scalar("size", size, torch.int64, device),
+        _scalar("beta", beta, torch.float32, device),
+        float(alpha), cap, n,
+        score.data_ptr(), partial.data_ptr(), idx.data_ptr(), w.data_ptr(),
+        ctypes.addressof(launched),
+    )
+    LAUNCHES["per_sample"] += launched.value
+    return idx, w, score
+
+
+def replay_write_cuda(buf, prio, at, batch, p_max) -> None:
+    """Launch K8b's write: the five fields of `batch` (B transitions) into
+    the ring `buf` at slots `at`.. (`at` a () int64 device tensor), IN PLACE,
+    and `p_max` into those slots of `prio` unless `prio` is None."""
+    device = buf.obs.device
+    if device.type != "cuda":
+        raise ValueError(f"replay_write_cuda takes CUDA tensors, got {device}")
+    cap = check_int("capacity", int(buf.obs.shape[0]), low=1)
+    b = check_int("batch", int(batch.obs.shape[0]) if batch.obs.dim() == 1 else 0, low=1)
+    if b > cap:
+        raise ValueError(f"a write of {b} transitions does not fit a ring of {cap}")
+    src = [check_tensor(f"batch.{f}", getattr(batch, f), dt, (b,), device) for f, dt in _FIELDS]
+    launch(
+        "gu_replay_write", device, *_ring(buf, cap, device),
+        None if prio is None else check_tensor("prio", prio, torch.float32, (cap,), device),
+        *src, _scalar("at", at, torch.int64, device),
+        None if prio is None else _scalar("p_max", p_max, torch.float32, device),
+        b, cap,
+    )
+    LAUNCHES["replay"] += 1
+
+
+def replay_gather_cuda(buf, idx):
+    """Launch K8b's gather: the five fields of the ring at `idx` (n,) int32.
+    Returns the five (n,) tensors."""
+    device = buf.obs.device
+    if device.type != "cuda":
+        raise ValueError(f"replay_gather_cuda takes CUDA tensors, got {device}")
+    cap = check_int("capacity", int(buf.obs.shape[0]), low=1)
+    n = check_int("n", int(idx.shape[0]) if idx.dim() == 1 else 0, low=1)
+    out = [torch.empty((n,), dtype=dt, device=device) for _, dt in _FIELDS]
+    launch(
+        "gu_replay_gather", device, *_ring(buf, cap, device),
+        check_tensor("idx", idx, torch.int32, (n,), device), n, cap,
+        *[x.data_ptr() for x in out],
+    )
+    LAUNCHES["replay"] += 1
+    return tuple(out)
+
+
+def prio_refresh_cuda(prio, idx, abs_err, eps: float, p_max):
+    """Launch K8b's refresh: `prio[idx[i]] = abs_err[i] + eps` IN PLACE, of
+    equal indices the highest i wins. Returns the new () `p_max`, the larger
+    of the old one and the largest refreshed priority."""
+    device = prio.device
+    if device.type != "cuda":
+        raise ValueError(f"prio_refresh_cuda takes CUDA tensors, got {device}")
+    cap = check_int("capacity", int(prio.shape[0]) if prio.dim() == 1 else 0, low=1)
+    n = check_int("n", int(idx.shape[0]) if idx.dim() == 1 else 0, low=1)
+    if n > MAX_PICKS:
+        raise ValueError(f"n={n}: the kernel refreshes at most {MAX_PICKS} rows")
+    out = torch.empty((), dtype=torch.float32, device=device)
+    launch(
+        "gu_prio_refresh", device,
+        check_tensor("prio", prio, torch.float32, (cap,), device),
+        check_tensor("idx", idx, torch.int32, (n,), device),
+        check_tensor("abs_err", abs_err, torch.float32, (n,), device),
+        float(eps), n, cap, _scalar("p_max", p_max, torch.float32, device), out.data_ptr(),
+    )
+    LAUNCHES["replay"] += 1
+    return out

@@ -10,8 +10,8 @@ import torch
 from . import LAUNCHES
 from .build import check_int, check_tensor, launch
 
-# 8 bytes of shared memory per env, within what a block can use
-MAX_BATCH = 16_384
+# 8 bytes of shared memory per env, within the 227 KB a block can use
+MAX_BATCH = 28_672
 
 
 def segment_mean_cuda(q, s, a, delta, alpha: float, mask):

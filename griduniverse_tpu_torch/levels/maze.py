@@ -11,7 +11,10 @@ Counterpart of `griduniverse_tpu/levels/maze.py`.
   * `_aldous_broder_mazes` is kernel K3 (`csrc/maze.cu`) on CUDA and
     `aldous_broder_mazes_reference` on the CPU. It walks either by injected
     directions (the reference's draws) or by per-maze xorshift32 streams.
-  * The device backtracker is not ported yet (ROADMAP.md queue 2, K11).
+  * `_backtracker_mazes`, the reference's default, is kernel K11
+    (`csrc/backtracker.cu`) on CUDA and `backtracker_mazes_reference` on the
+    CPU: the iterative backtracker with an explicit stack, one xorshift32
+    round an iteration.
 
 Maze layout (all paths): `cells = (ch, cw)` maps to a (2ch+1, 2cw+1) grid;
 odd (row, col) are cells, even rows/cols are wall lines with passages
@@ -20,6 +23,7 @@ carved between neighbours. Start is the top-left cell, goal bottom-right.
 
 from __future__ import annotations
 
+import itertools
 import math
 from collections import deque
 
@@ -29,7 +33,7 @@ import torch
 from .. import kernels
 from ..core import semantics as S
 from ..core.types import Level, make_level
-from ..kernels.maze import aldous_broder_mazes_cuda
+from ..kernels.maze import aldous_broder_mazes_cuda, backtracker_mazes_cuda
 from ..ops.bitplane import _U32, _mul32, _xorshift_step
 from ..utils.platform import resolve_device
 
@@ -331,6 +335,76 @@ def _aldous_broder_mazes(
     )
 
 
+# The 24 orders of the four directions (0=N 1=E 2=S 3=W), lexicographic: a
+# backtracker iteration looks at its neighbours in order number
+# ((x >> 16)·24) >> 16 of its stream's word x (K11 holds the same table).
+NEIGHBOUR_ORDERS = tuple(itertools.permutations(range(4)))
+_DELTA_ROW = (-1, 0, 1, 0)
+_DELTA_COL = (0, 1, 0, -1)
+
+
+def backtracker_mazes_reference(
+    cells: tuple[int, int], batch_size: int, *, seed: int = 0, device=None
+) -> torch.Tensor:
+    """Plain PyTorch version of K11: B iterative backtrackers in lockstep,
+    2·cells − 1 iterations each (cells − 1 pushes, cells pops). An iteration
+    takes one round of the maze's xorshift32 stream (`maze_stream_init`),
+    reads the neighbour order off it, carves to the first neighbour in that
+    order that is inside the lattice and not yet visited and pushes it, or
+    pops if there is none."""
+    ch, cw = cells
+    s = ch * cw
+    h, w = _maze_shape(cells)
+    b = int(batch_size)
+    dev = resolve_device(device)
+    orders = torch.tensor(NEIGHBOUR_ORDERS, dtype=torch.int64, device=dev)
+    d_row = torch.tensor(_DELTA_ROW, dtype=torch.int64, device=dev)
+    d_col = torch.tensor(_DELTA_COL, dtype=torch.int64, device=dev)
+    rows = torch.arange(b, device=dev)
+    x = maze_stream_init(seed, b, device=dev)
+    grid = torch.full((b, h * w), S.WALL, dtype=torch.int32, device=dev)
+    grid[:, w + 1] = S.EMPTY
+    visited = torch.zeros((b, s), dtype=torch.bool, device=dev)
+    visited[:, 0] = True
+    stack = torch.zeros((b, s), dtype=torch.int64, device=dev)
+    sp = torch.ones(b, dtype=torch.int64, device=dev)
+    empty = torch.tensor(S.EMPTY, dtype=torch.int32, device=dev)
+    for _ in range(2 * s - 1):
+        x = _xorshift_step(x)
+        order = orders[((x >> 16) * 24) >> 16]              # (B, 4)
+        cur = stack[rows, sp - 1]
+        r, c = cur // cw, cur % cw
+        nr, nc = r[:, None] + d_row[order], c[:, None] + d_col[order]
+        inside = (nr >= 0) & (nr < ch) & (nc >= 0) & (nc < cw)
+        cell = nr.clamp(0, ch - 1) * cw + nc.clamp(0, cw - 1)
+        free = inside & ~visited.gather(1, cell)
+        push = free.any(dim=1)
+        first = free.to(torch.int8).argmax(dim=1, keepdim=True)  # the first free one
+        d = order.gather(1, first)[:, 0]
+        target = cell.gather(1, first)[:, 0]
+        at = (2 * r + 1) * w + 2 * c + 1
+        step = d_row[d] * w + d_col[d]
+        keep = rows[push]
+        grid[keep, (at + step)[push]] = empty
+        grid[keep, (at + 2 * step)[push]] = empty
+        visited[keep, target[push]] = True
+        stack[keep, sp[push]] = target[push]
+        sp = torch.where(push, sp + 1, sp - 1)
+    grid[:, (h - 2) * w + (w - 2)] = S.GOAL
+    return grid.reshape(b, h, w)
+
+
+def _backtracker_mazes(
+    cells: tuple[int, int], batch_size: int, *, seed: int = 0, device=None
+) -> torch.Tensor:
+    """B perfect mazes by the recursive backtracker (K11 on CUDA): long
+    winding corridors with few dead ends, the reference's default texture."""
+    dev = resolve_device(device)
+    if not kernels.on_cuda(dev):
+        return backtracker_mazes_reference(cells, batch_size, seed=seed, device=dev)
+    return backtracker_mazes_cuda(cells, batch_size, seed=seed, device=dev)
+
+
 def generate_mazes_device(
     seed: int,
     cells: tuple[int, int],
@@ -344,7 +418,8 @@ def generate_mazes_device(
 
     algorithm — "binary_tree" (fully parallel, classic texture bias),
                 "sidewinder" (nearly bias-free), "aldous_broder" (exactly
-                uniform; K3 on CUDA) or "backtracker" (not ported yet).
+                uniform; K3 on CUDA) or "backtracker" (the reference's
+                default: long corridors; K11 on CUDA).
 
     Returns (grids (B, H, W) int32, start_idx () int32 — all mazes start
     at the top-left cell (1, 1)).
@@ -358,10 +433,7 @@ def generate_mazes_device(
     elif algorithm == "aldous_broder":
         grids = _aldous_broder_mazes(cells, batch_size, seed=seed, device=dev)
     elif algorithm == "backtracker":
-        raise NotImplementedError(
-            "the device backtracker is not ported yet (ROADMAP.md queue 2, "
-            "K11); use algorithm='aldous_broder'"
-        )
+        grids = _backtracker_mazes(cells, batch_size, seed=seed, device=dev)
     else:
         raise ValueError(f"unknown maze algorithm: {algorithm!r}")
     return grids, torch.tensor(1 * w + 1, dtype=torch.int32, device=dev)

@@ -1,5 +1,6 @@
-"""Neural learners on one device: the on-policy trainers (A2C, PPO), their
-networks, optimizer and evaluation."""
+"""Neural learners on one device: the on-policy trainers (A2C, PPO), the
+off-policy one (DQN with its replay buffer), their networks, optimizer and
+evaluation."""
 
 from .a2c import (
     A2CConfig,
@@ -12,6 +13,26 @@ from .a2c import (
     greedy_actions,
     init_network_params,
     make_network,
+)
+from .dqn import (
+    BatchedConvQNetwork,
+    ConvQNetwork,
+    DQNConfig,
+    DQNResult,
+    DQNTrainState,
+    QNetwork,
+    ReplayBuffer,
+    buffer_init,
+    buffer_sample,
+    buffer_sample_idx,
+    buffer_write,
+    dqn_init,
+    dqn_result,
+    dqn_run,
+    dqn_train,
+    greedy_q_actions,
+    make_q_network,
+    prioritized_sample,
 )
 from .evaluation import (
     greedy_reached,

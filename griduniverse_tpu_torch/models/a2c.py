@@ -83,30 +83,34 @@ class A2CResult:
     final_loss: torch.Tensor
 
 
-def make_network(level: Level, num_actions: int, cfg, *, seed: int = 0):
+def make_network(level: Level, num_actions: int, cfg, *, seed: int = 0,
+                 families=(ActorCritic, ConvActorCritic, BatchedConvActorCritic)):
     """Build the policy network for `cfg.obs` on the level's device.
 
     obs='grid' with a batched (N, H, W) level gives the per-env-level trunk
     (`BatchedConvActorCritic`): the level enters at call time as tile
-    planes, so one agent trains across N distinct mazes."""
+    planes, so one agent trains across N distinct mazes. `families` names
+    the (index, shared-grid, per-env-grid) classes to build, for a caller
+    that subclasses them (`models.dqn.make_q_network`)."""
+    index_net, conv_net, batched_conv_net = families
     obs_mode = getattr(cfg, "obs", "index")
     cdt = getattr(cfg, "compute_dtype", "bfloat16")
     if obs_mode == "grid":
         channels = getattr(cfg, "conv_channels", (32, 32))
         if level.grid.dim() == 3:
-            return BatchedConvActorCritic(
+            return batched_conv_net(
                 height=level.height, width=level.width, num_actions=num_actions,
                 channels=channels, hidden=cfg.hidden, compute_dtype=cdt,
                 agent_plane=getattr(cfg, "agent_plane", "stamp"), seed=seed, device=level.device,
             )
-        return ConvActorCritic(
+        return conv_net(
             height=level.height, width=level.width, grid=level.grid.reshape(-1),
             num_actions=num_actions, channels=channels, hidden=cfg.hidden, compute_dtype=cdt,
             seed=seed, device=level.device,
         )
     if obs_mode != "index":
         raise ValueError(f"unknown obs mode: {obs_mode!r}")
-    return ActorCritic(
+    return index_net(
         num_states=level.num_states, num_actions=num_actions, hidden=cfg.hidden,
         embed_dim=cfg.embed_dim, compute_dtype=cdt, seed=seed, device=level.device,
     )

@@ -3,8 +3,9 @@
 PyTorch counterpart of `griduniverse_tpu/models/evaluation.py`: roll every
 env's greedy policy in lockstep on the bit-packed step in freeze-on-done
 mode and report which envs reached the goal. Works over the three network
-families (tile planes are derived for a needs-tiles net) and over shared or
-batched levels. A network policy's step is K7b's greedy form
+families (tile planes are derived for a needs-tiles net), as policy networks
+or as Q-networks (`models.dqn`: the logits are the Q-values, so the greedy
+action is the same argmax), and over shared or batched levels. A network policy's step is K7b's greedy form
 (`models.a2c.greedy_step`); a tabular policy's action lookup is one
 `torch.gather` (the reference's select tree is the TPU's).
 """

@@ -1,4 +1,4 @@
-"""Rates of the on-policy trainers on one CUDA card, and where their time goes.
+"""Rates of the neural trainers on one CUDA card, and where their time goes.
 
     python -m griduniverse_tpu_torch.tools.profile_learners
 
@@ -11,7 +11,11 @@ prints, one line each:
   a synchronize, and the env steps/s: PPO on walls16 with the defaults (3
   updates a call), PPO over 65,536 per-env 9×9 Aldous–Broder mazes with the
   conv trunk (`obs="grid"`, `conv_channels=(32,)`, `hidden=(64,)`; 2 updates),
-  A2C on walls16 with the defaults (3 updates);
+  A2C on walls16 with the defaults (3 updates); DQN on walls16 with a ring
+  of 131,072 transitions, once with uniform and once with prioritized replay
+  (100 steps a call), and DQN over 65,536 per-env 9×9 backtracker mazes with
+  the conv Q-network (`obs="grid"`, `conv_channels=(32,)`, `hidden=(64,)`; 50
+  steps);
 - one call of each under `torch.profiler`: the device time of each kernel by
   name (the top twelve), the hand-written kernels' share of the busy time, the
   number of device events, and the device's idle share of the call: 1 − busy
@@ -32,7 +36,8 @@ from .profile_solvers import _wall_ms
 MAX_EPISODE_STEPS = 512
 NUM_ENVS = 65_536
 OUR_KERNELS = ("gae_kernel", "nstep_returns", "act_step", "greedy_step", "embed_rows", "agent_stamp",
-               "aldous_broder")
+               "aldous_broder", "backtracker", "per_score", "per_select", "replay_write", "replay_gather",
+               "prio_refresh")
 
 
 def _profile(name: str, fn, wall_ms: float, smi: str, top: int = 12) -> None:
@@ -96,6 +101,20 @@ def main() -> None:
         cases.append((f"{name} B={NUM_ENVS} T={cfg.rollout_len} updates={updates}",
                       updates * cfg.rollout_len * NUM_ENVS,
                       lambda run=run, level=level, ts0=ts0, cfg=cfg, updates=updates: run(sem, level, ts0, cfg, updates)))
+    grids, start = M.generate_mazes_device(2026, (4, 4), NUM_ENVS, "backtracker")
+    backtracker = gt.Level(grid=grids, start_idx=start.expand(NUM_ENVS).contiguous())
+    ring = dict(buffer_capacity=2 * NUM_ENVS, max_episode_steps=MAX_EPISODE_STEPS)
+    dqn_specs = [
+        ("dqn walls16 uniform", walls16, models.DQNConfig(**ring), 100),
+        ("dqn walls16 per", walls16, models.DQNConfig(**ring, prioritized=True), 100),
+        ("dqn mazes64k conv", backtracker,
+         models.DQNConfig(**ring, obs="grid", conv_channels=(32,), hidden=(64,)), 50),
+    ]
+    for name, level, cfg, steps in dqn_specs:
+        # start from a filled ring, past the warm-up gate
+        ts0 = models.dqn_run(sem, level, models.dqn_init(sem, level, 5, cfg, NUM_ENVS), cfg, 4)
+        cases.append((f"{name} B={NUM_ENVS} capacity={cfg.buffer_capacity} steps={steps}", steps * NUM_ENVS,
+                      lambda level=level, ts0=ts0, cfg=cfg, steps=steps: models.dqn_run(sem, level, ts0, cfg, steps)))
     wall_of = {}
     for name, work, fn in cases:
         fn()  # warm-up

@@ -14,7 +14,9 @@ of one pass. With OUT_DIR it also writes each kernel's listing there, one
 file a kernel, each instruction on a line with its index.
 
 These counts stand behind the `INSTR_*` constants from which `chip_smoke.py`
-reckons each kernel's `bound_ms`.
+reckons each kernel's `bound_ms`: the step loops of K1–K7, the passes of
+K8a (`per_score_kernel`; the histogram, compaction and sort loops of
+`per_select_kernel`) and the iteration loop of K11 (`backtracker_kernel`).
 """
 
 from __future__ import annotations

@@ -2,11 +2,11 @@
 
 Each function reads the fields of a reference object (a `Semantics`,
 `Level`, `BitLevel`, `FastState`, `EnvState`, `ModelTable`, one of the
-solvers' or trainers' train states, a flax parameter tree or an optax Adam
-state of `griduniverse_tpu`, or anything with the same attributes) as NumPy
-arrays and builds the port's
-counterpart on `device` (default: the card). Nothing here imports JAX: the reference's arrays
-are converted with `numpy.asarray`.
+solvers' or trainers' (TD, PPO, A2C, DQN) train states, a flax parameter
+tree or an optax Adam state of `griduniverse_tpu`, or anything with the same
+attributes) as NumPy arrays and builds the port's counterpart on `device`
+(default: the card). Nothing here imports JAX: the reference's arrays are
+converted with `numpy.asarray`.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from ..core.model import ModelTable
 from ..core.semantics import Semantics
 from ..core.types import EnvState, Level
 from ..models.a2c import A2CTrainState
+from ..models.dqn import DQNTrainState, ReplayBuffer
 from ..models.optim import AdamState
 from ..models.ppo import PPOTrainState
 from ..ops.bitplane import BitLevel, FastState, xorshift_init
@@ -234,3 +235,28 @@ def to_ppo_train_state(ts, net=None, *, seed: int = 0, device=None) -> PPOTrainS
 def to_a2c_train_state(ts, net=None, *, seed: int = 0, device=None) -> A2CTrainState:
     """Reference `A2CTrainState` → the port's; see `to_ppo_train_state`."""
     return A2CTrainState(**_train_state_fields(ts, net, seed, device))
+
+
+def to_dqn_train_state(ts, net=None, *, seed: int = 0, device=None) -> DQNTrainState:
+    """Reference `DQNTrainState` → the port's: parameters, target, Adam
+    state, env state, the whole replay buffer, priorities, running maximum
+    and counters. The PRNG key is dropped: the port's draws come from `seed`
+    (or are injected into `dqn_run`)."""
+    if net is not None:
+        device = next(net.parameters()).device
+    dtypes = (np.int32, np.int32, np.float32, np.int32, np.bool_)
+    return DQNTrainState(
+        params=to_network_state(ts.params, net, device=device),
+        target_params=to_network_state(ts.target_params, net, device=device),
+        opt_state=to_adam_state(ts.opt_state, net, device=device),
+        env_state=to_fast_state(ts.env_state, device=device),
+        buf=ReplayBuffer(*(_t(x, dt, device) for x, dt in zip(ts.buf, dtypes))),
+        prio=_t(ts.prio, np.float32, device),
+        p_max=_t(ts.p_max, np.float32, device),
+        seed=int(seed),
+        t=_t(ts.t, np.int32, device),
+        run_ret=_batched(ts.run_ret, np.float32, device),
+        episodes=_t(ts.episodes, np.int64, device),
+        ret_sum=_t(ts.ret_sum, np.float32, device),
+        last_loss=_t(ts.last_loss, np.float32, device),
+    )

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1–K7, K9 and K10 against their plain PyTorch versions.
+"""The CUDA kernels K1–K11, P1 and P2 against their plain PyTorch versions.
 
 These tests need a CUDA card and the CUDA toolkit (`nvcc`); without a card
 they skip. This file imports no JAX, so it also runs on a machine without
@@ -16,9 +16,10 @@ import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch import kernels
 from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast
 from griduniverse_tpu_torch.levels import builders
-from griduniverse_tpu_torch.models import a2c, networks, ppo
+from griduniverse_tpu_torch.models import a2c, dqn, networks, ppo
 from griduniverse_tpu_torch.levels import maze as M
 from griduniverse_tpu_torch.ops import bitplane as bp
+from griduniverse_tpu_torch.tools import gather_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -357,3 +358,174 @@ def test_ppo_and_a2c_on_cuda_are_chunk_invariant(dev):
     for name in full.params:
         assert torch.equal(full.params[name], half.params[name])
     assert int(full.opt_state.count) == 4 and float(full.last_loss) == float(half.last_loss)
+
+
+# ---------------------------------------------------------------------------
+# K8a, K8b, K11, P1, P2
+# ---------------------------------------------------------------------------
+
+
+def _ring(dev, gen, cap):
+    return dqn.ReplayBuffer(
+        torch.randint(0, 256, (cap,), generator=gen, device=dev, dtype=torch.int32),
+        torch.randint(0, 4, (cap,), generator=gen, device=dev, dtype=torch.int32),
+        torch.randn((cap,), generator=gen, device=dev),
+        torch.randint(0, 256, (cap,), generator=gen, device=dev, dtype=torch.int32),
+        torch.rand((cap,), generator=gen, device=dev) < 0.3,
+    )
+
+
+@pytest.mark.parametrize("cap,b,n", [(64, 16, 8), (4096, 1024, 256), (131_072, 65_536, 256)])
+def test_replay_ring_kernels_match_plain(dev, cap, b, n):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    got, ref = _ring(dev, gen, cap), None
+    ref = dqn.ReplayBuffer(*(x.clone() for x in got))
+    prio_g = torch.rand((cap,), generator=gen, device=dev)
+    prio_r = prio_g.clone()
+    p_max = torch.tensor(3.5, device=dev)
+    for at in (0, cap - b):
+        batch = _ring(dev, gen, b)
+        at_t = torch.tensor(at, device=dev)
+        before = kernels.LAUNCHES["replay"]
+        assert dqn.buffer_write(got, at_t, batch, prio_g, p_max) is got
+        assert kernels.LAUNCHES["replay"] == before + 1
+        dqn.replay_write_reference(ref, prio_r, at_t, batch, p_max)
+        _assert_same((*got, prio_g), (*ref, prio_r))
+    idx = torch.randint(0, cap, (n,), generator=gen, device=dev, dtype=torch.int32)
+    idx[n // 2:] = idx[: n - n // 2]  # equal indices: the highest position wins
+    _assert_same(dqn.replay_gather(got, idx), dqn.replay_gather_reference(ref, idx))
+    abs_err = torch.rand((n,), generator=gen, device=dev) * 5
+    pm_g = dqn.prio_refresh(prio_g, idx, abs_err, 1e-3, p_max)
+    pm_r = dqn.prio_refresh_reference(prio_r, idx, abs_err, 1e-3, p_max)
+    _assert_same((prio_g, pm_g), (prio_r, pm_r))
+    assert kernels.LAUNCHES["replay"] == before + 3
+    assert torch.equal(prio_g[idx[-1].long()], abs_err[-1] + 1e-3)
+    # a write without priorities (uniform replay) leaves them alone
+    dqn.buffer_write(got, 0, _ring(dev, gen, b))
+    assert torch.equal(prio_g, prio_r)
+
+
+def _held_draw(prio, noise, size, n, alpha, beta):
+    """K8a against its plain version: scores within 4 ulp, the selection
+    bit-exact on the kernel's own scores, weights to rtol 2e-5."""
+    dev = prio.device
+    size_t = torch.as_tensor(size, dtype=torch.int64, device=dev)
+    beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+    before = kernels.LAUNCHES["per_sample"]
+    idx, w, score = dqn._per_sample(prio, noise, size_t, n, alpha, beta_t)
+    assert kernels.LAUNCHES["per_sample"] == before + 2
+    ref_score, pa = dqn.per_scores_reference(prio, noise, size_t, alpha)
+    finite = torch.isfinite(ref_score)
+    assert torch.equal(finite, torch.isfinite(score))
+    gap = (score[finite] - ref_score[finite]).abs()
+    assert bool((gap <= 4 * 2.0 ** -23 * ref_score[finite].abs().clamp(min=1.0)).all())
+    ref_idx, ref_w = dqn.per_select_reference(score, pa, size_t, beta_t, n)
+    assert torch.equal(idx, ref_idx)
+    torch.testing.assert_close(w, ref_w, rtol=2e-5, atol=0)
+    return idx, w
+
+
+@pytest.mark.parametrize("cap,size,n", [(64, 64, 64), (4096, 4096, 256), (4096, 1000, 256),
+                                        (131_072, 131_072, 256), (131_072, 65_536, 256), (100_003, 77_777, 1024)])
+def test_per_sample_kernel_matches_plain(dev, cap, size, n):
+    gen = torch.Generator(device=dev).manual_seed(cap + size)
+    prio = torch.rand((cap,), generator=gen, device=dev) * 4 + 1e-3
+    prio[torch.randint(0, cap, (cap // 16,), generator=gen, device=dev)] = 0.0
+    noise = a2c.draw_gumbel(gen, (cap,), dev)
+    idx, w = _held_draw(prio, noise, size, n, 0.6, 0.4)
+    assert bool((idx >= 0).all()) and bool((idx < size).all())
+    assert float(w.max()) == 1.0 and bool((w > 0).all())
+    again, w2 = _held_draw(prio, noise, size, n, 0.6, 0.4)
+    assert torch.equal(idx, again) and torch.equal(w, w2)
+
+
+def test_per_sample_kernel_ties_and_overflow(dev):
+    # every score equal: the picks are slots 0..n-1, in order
+    prio = torch.ones(4096, device=dev)
+    noise = torch.zeros(4096, device=dev)
+    idx, w = _held_draw(prio, noise, 4096, 256, 0.6, 0.4)
+    assert idx.tolist() == list(range(256)) and bool((w == 1.0).all())
+    # two levels of ties across the warps' ranges
+    noise[torch.arange(0, 4096, 37, device=dev)] = 1.0
+    idx, _ = _held_draw(prio, noise, 4096, 256, 0.6, 0.4)
+    top = list(range(0, 4096, 37))
+    assert idx.tolist()[: len(top)] == top
+    # size < n: the -inf slots come out by lowest index and take the fallback at weight 1
+    gen = torch.Generator(device=dev).manual_seed(2)
+    noise = a2c.draw_gumbel(gen, (4096,), dev)
+    idx, w = _held_draw(prio, noise, 100, 256, 0.6, 0.4)
+    assert bool((idx < 100).all()) and bool((w[100:] == 1.0).all())
+    with pytest.raises(ValueError, match="draws at most"):
+        dqn._per_sample(prio, noise, torch.tensor(10, device=dev), 2048, 0.6, torch.tensor(0.4, device=dev))
+
+
+@pytest.mark.parametrize("cells,b", [((1, 1), 8), ((2, 2), 512), ((4, 4), 4096), ((3, 7), 300), ((16, 16), 256)])
+def test_backtracker_kernel_matches_plain(dev, cells, b):
+    before = kernels.LAUNCHES["backtracker_mazes"]
+    got, start = M.generate_mazes_device(11, cells, b, "backtracker", device=dev)
+    assert kernels.LAUNCHES["backtracker_mazes"] == before + 1
+    ref = M.backtracker_mazes_reference(cells, b, seed=11, device=dev)
+    assert torch.equal(got, ref) and int(start) == 2 * cells[1] + 2
+    assert all(M.check_perfect_maze(g, cells) for g in got[:64].cpu().numpy())
+    other, _ = M.generate_mazes_device(12, cells, b, "backtracker", device=dev)
+    assert cells == (1, 1) or not torch.equal(got, other)
+    with pytest.raises(ValueError, match="cells"):
+        M.generate_mazes_device(0, (20, 20), 4, "backtracker", device=dev)
+
+
+def test_gather_probe_kernels_match_plain(dev):
+    before = dict(kernels.LAUNCHES)
+    assert gather_probe.probe_gather_1d(device=dev) == "OK"
+    assert gather_probe.probe_take_along_axis(device=dev) == "OK"
+    assert kernels.LAUNCHES["gather_1d"] == before["gather_1d"] + 3
+    assert kernels.LAUNCHES["take_along_axis1"] == before["take_along_axis1"] + 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randint(-9, 9, (7, 33), generator=gen, device=dev, dtype=torch.int32)
+    idx = torch.randint(0, 33, (7, 5), generator=gen, device=dev, dtype=torch.int32)
+    assert torch.equal(gather_probe.take_along_axis1(table, idx), gather_probe.take_along_axis1_reference(table, idx))
+    flat = torch.randint(0, 33, (3, 4, 5), generator=gen, device=dev, dtype=torch.int32)
+    assert torch.equal(gather_probe.gather_1d(table[0].contiguous(), flat), gather_probe.gather_1d_reference(table[0], flat))
+    with pytest.raises(ValueError):
+        gather_probe.take_along_axis1(table, idx[:3])
+
+
+@pytest.mark.parametrize("extra", [{}, {"prioritized": True}, {"prioritized": True, "obs": "grid", "conv_channels": (8,)}])
+def test_dqn_on_cuda_is_chunk_invariant(dev, extra):
+    sem = T.make_semantics(device=dev)
+    level = builders.walls_and_goal_16x16(device=dev)
+    cfg = dqn.DQNConfig(buffer_capacity=4096, batch_size_train=128, max_episode_steps=64, hidden=(32,), **extra)
+    ts0 = dqn.dqn_init(sem, level, 3, cfg, 1024)
+    kernels.reset_launches()
+    full = dqn.dqn_run(sem, level, ts0, cfg, 24)
+    per = bool(extra.get("prioritized"))
+    assert kernels.LAUNCHES["replay"] == 24 * (3 if per else 2)
+    assert kernels.LAUNCHES["per_sample"] == (48 if per else 0)
+    resumed = dqn.dqn_run(sem, level, dqn.dqn_run(sem, level, ts0, cfg, 12), cfg, 12)
+    for name in full.params:
+        assert torch.equal(full.params[name], resumed.params[name]), name
+        assert torch.equal(full.target_params[name], resumed.target_params[name]), name
+    _assert_same((*full.buf, full.prio, full.p_max, full.run_ret, full.ret_sum, full.last_loss),
+                 (*resumed.buf, resumed.prio, resumed.p_max, resumed.run_ret, resumed.ret_sum, resumed.last_loss))
+    assert int(full.t) == 24 and int(ts0.t) == 0 and not bool(ts0.buf.obs.any())
+    assert bool(torch.isfinite(full.last_loss)) and float(full.last_loss) > 0
+
+
+def test_mc_and_td_lambda_run_on_cuda(dev):
+    from griduniverse_tpu_torch import algos
+
+    sem = T.make_semantics(device=dev)
+    level = builders.make_level_from_indices((4, 4), start_idx=0, lava=[5], goals=[15], device=dev)
+    cpu_sem = T.make_semantics(device="cpu")
+    cpu_level = builders.make_level_from_indices((4, 4), start_idx=0, lava=[5], goals=[15], device="cpu")
+    before = kernels.LAUNCHES["segment_mean"]
+    res = algos.mc_prediction(sem, level, 3)  # the default 256 episodes of 100 steps: 25,600 samples in K10
+    ref = algos.mc_prediction(cpu_sem, cpu_level, 3)
+    assert kernels.LAUNCHES["segment_mean"] == before + 1
+    assert torch.equal(res.counts.cpu(), ref.counts)
+    assert torch.equal(res.value.cpu().view(torch.int32), ref.value.view(torch.int32))
+    ctl = algos.mc_control(sem, level, 6, num_rounds=5, batch_size=64, max_steps=30)
+    ctl_ref = algos.mc_control(cpu_sem, cpu_level, 6, num_rounds=5, batch_size=64, max_steps=30)
+    assert torch.equal(ctl.q.cpu().view(torch.int32), ctl_ref.q.view(torch.int32))
+    a = algos.sarsa_lambda(sem, level, 5, num_steps=50, batch_size=64)
+    b = algos.sarsa_lambda(sem, level, 5, num_steps=50, batch_size=64)
+    assert torch.equal(a.q, b.q) and int(a.episodes) == int(b.episodes)

@@ -1,0 +1,271 @@
+"""Port parity: the DQN trainer of griduniverse_tpu_torch.models on the CPU
+against the JAX trainer.
+
+Whole steps are compared from the same converted train state with
+`jax.random`'s own draws injected (explore coins, random actions, minibatch
+indices or Gumbel noise), in float32: the env state, the replay buffer, the
+slots whose priority was refreshed and the counters must be equal exactly;
+parameters, target parameters and Adam moments agree to atol 1e-5, the
+priorities to atol 1e-5 (sums run in another order, and XLA fuses a multiply
+and an add where torch rounds twice). Chunked runs must equal unbroken ones
+bit for bit. The learning tests are the reference's own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import griduniverse_tpu as J
+import griduniverse_tpu_torch as T
+from griduniverse_tpu import models as jm
+from griduniverse_tpu.levels import builders as jb
+from griduniverse_tpu.levels import maze as jmz
+from griduniverse_tpu_torch import models as tm
+from griduniverse_tpu_torch.levels import builders as tb
+from griduniverse_tpu_torch.models import dqn as tdqn
+from griduniverse_tpu_torch.utils import convert
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+JSEM = J.make_semantics()
+TSEM = T.make_semantics(device=CPU)
+
+
+def tree_np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def corridor(device=CPU):
+    return tb.make_level_from_indices((2, 6), start_idx=0, goals=[5], device=device)
+
+
+def jax_step_draws(base_key, t, cfg, batch, num_actions=4):
+    """The draws the JAX train body makes at step `t` from `base_key`."""
+    key_eps, key_a, key_mb = jax.random.split(jax.random.fold_in(base_key, t), 3)
+    frac = jnp.clip(jnp.int32(t) / cfg.eps_anneal_steps, 0.0, 1.0)
+    eps = cfg.eps_start + frac * (cfg.eps_end - cfg.eps_start)
+    explore = jax.random.uniform(key_eps, (batch,)) < eps
+    rand_a = jax.random.randint(key_a, (batch,), 0, num_actions, jnp.int32)
+    if cfg.prioritized:
+        sample = jax.random.gumbel(key_mb, (cfg.buffer_capacity,))
+    else:
+        size = min((t + 1) * batch, cfg.buffer_capacity)
+        sample = jax.random.randint(key_mb, (cfg.batch_size_train,), 0, max(size, 1))
+    return _t(explore), _t(rand_a), _t(sample)
+
+
+def assert_tree_close(tparams, jparams, tnet, atol=1e-5):
+    want = convert.to_network_state(tree_np(jparams), tnet)
+    assert set(want) == set(tparams)
+    for name in want:
+        np.testing.assert_allclose(tparams[name].numpy(), want[name].numpy(), atol=atol, rtol=1e-5, err_msg=name)
+
+
+def assert_matches_jax(tts, jts, tnet):
+    for f in ("agent_idx", "agent_code", "t", "done"):
+        np.testing.assert_array_equal(getattr(tts.env_state, f).numpy(), np.asarray(getattr(jts.env_state, f)), f)
+    for name, tf, jf in zip(tdqn.ReplayBuffer._fields, tts.buf, jts.buf):
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf), name)
+    assert int(tts.t) == int(jts.t) and int(tts.episodes) == int(jts.episodes)
+    np.testing.assert_allclose(tts.run_ret.numpy(), np.asarray(jts.run_ret), atol=1e-6)
+    np.testing.assert_allclose(float(tts.ret_sum), float(jts.ret_sum), rtol=1e-6)
+    np.testing.assert_allclose(float(tts.last_loss), float(jts.last_loss), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(tts.prio.numpy(), np.asarray(jts.prio), atol=1e-5)
+    np.testing.assert_allclose(float(tts.p_max), float(jts.p_max), atol=1e-5)
+    assert_tree_close(tts.params, jts.params, tnet)
+    assert_tree_close(tts.target_params, jts.target_params, tnet)
+    back = convert.to_adam_state(tree_np(jts.opt_state), tnet)
+    assert int(tts.opt_state.count) == int(back.count)
+    for name in back.mu:
+        np.testing.assert_allclose(tts.opt_state.mu[name].numpy(), back.mu[name].numpy(), atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(tts.opt_state.nu[name].numpy(), back.nu[name].numpy(), atol=1e-5, err_msg=name)
+
+
+STEP_KW = dict(lr=2e-3, buffer_capacity=128, batch_size_train=16, eps_anneal_steps=20, learn_start=64,
+               hidden=(32,), embed_dim=8, max_episode_steps=12, compute_dtype="float32",
+               target_update_every=3, per_beta_anneal_steps=10, conv_channels=(8,))
+
+
+@pytest.mark.parametrize("prioritized,target_update,obs,double", [
+    (False, "polyak", "index", True),
+    (True, "hard", "index", True),
+    (False, "hard", "grid", False),
+    (True, "polyak", "grid", True),
+])
+def test_dqn_steps_match_jax(prioritized, target_update, obs, double):
+    """Ten single steps, each from the state the last one left: the ring
+    wraps after four, learning starts at the third, a hard update falls on
+    every third."""
+    batch = 32
+    jlevel = jb.make_level_from_indices((2, 6), start_idx=0, goals=[5])
+    tlevel = convert.to_level(jlevel, device=CPU)
+    kw = dict(STEP_KW, prioritized=prioritized, target_update=target_update, obs=obs, double=double)
+    jcfg, tcfg = jm.DQNConfig(**kw), tm.DQNConfig(**kw)
+    jts = jm.dqn_init(JSEM, jlevel, jax.random.PRNGKey(7), jcfg, batch)
+    tnet = tm.make_q_network(tlevel, 4, tcfg)
+    tts = convert.to_dqn_train_state(tree_np(jts), tnet)
+    assert tts.prio.shape == ((128,) if prioritized else (0,))
+    for t in range(10):
+        draws = tuple(d[None] for d in jax_step_draws(jts.key, t, jcfg, batch))
+        before = np.asarray(jts.prio)
+        jts = jm.dqn_run(JSEM, jlevel, jts, jcfg, 1)
+        t_before = tts.prio.clone()
+        tts = tm.dqn_run(TSEM, tlevel, tts, tcfg, 1, draws=draws)
+        assert_matches_jax(tts, jts, tnet)
+        if prioritized:  # the minibatch's slots: those whose priority the step wrote
+            np.testing.assert_array_equal((tts.prio != t_before).numpy(), np.asarray(jts.prio) != before)
+    assert int(tts.episodes) > 0 and float(tts.last_loss) > 0
+
+
+def test_dqn_per_env_mazes_match_jax():
+    """Grid observations over per-env levels: the minibatch's tile planes
+    are recovered from the slots (env = slot mod B)."""
+    n = 16
+    grids, start = jmz.generate_mazes_device(jax.random.PRNGKey(2), (2, 2), n, "binary_tree")
+    jlevels = J.Level(grid=grids, start_idx=jnp.broadcast_to(start, (n,)))
+    tlevels = convert.to_level(jlevels, device=CPU)
+    kw = dict(STEP_KW, buffer_capacity=64, batch_size_train=8, learn_start=16, obs="grid", prioritized=True)
+    jcfg, tcfg = jm.DQNConfig(**kw), tm.DQNConfig(**kw)
+    jts = jm.dqn_init(JSEM, jlevels, jax.random.PRNGKey(1), jcfg, n)
+    tnet = tm.make_q_network(tlevels, 4, tcfg)
+    assert isinstance(tnet, tm.BatchedConvQNetwork) and tnet.needs_tiles
+    tts = convert.to_dqn_train_state(tree_np(jts), tnet)
+    for t in range(6):
+        draws = tuple(d[None] for d in jax_step_draws(jts.key, t, jcfg, n))
+        jts = jm.dqn_run(JSEM, jlevels, jts, jcfg, 1)
+        tts = tm.dqn_run(TSEM, tlevels, tts, tcfg, 1, draws=draws)
+        assert_matches_jax(tts, jts, tnet)
+
+
+def test_step_scalars_match_the_reference_schedules():
+    cfg = tm.DQNConfig(buffer_capacity=128, batch_size_train=48, eps_anneal_steps=7, learn_start=70,
+                       per_beta_anneal_steps=5, target_update_every=4)
+    sc = tdqn.step_scalars(cfg, torch.tensor(2, dtype=torch.int32), 8, 32)
+    t = np.arange(2, 10)
+    np.testing.assert_array_equal(sc.at.numpy(), (t * 32) % 128)
+    np.testing.assert_array_equal(sc.size.numpy(), np.minimum((t + 1) * 32, 128))
+    np.testing.assert_array_equal(sc.valid.numpy(), ((t >= 70 // 32) & (np.minimum((t + 1) * 32, 128) >= 48)))
+    np.testing.assert_array_equal(sc.sync.numpy(), (t + 1) % 4 == 0)
+    eps = np.asarray(1.0 + jnp.clip(jnp.asarray(t, jnp.int32) / 7, 0.0, 1.0) * (0.05 - 1.0))
+    beta = np.asarray(0.4 + (1.0 - 0.4) * jnp.clip(jnp.asarray(t, jnp.int32) / 5, 0.0, 1.0))
+    np.testing.assert_allclose(sc.eps.numpy(), eps, rtol=1e-6)
+    np.testing.assert_allclose(sc.beta.numpy(), beta, rtol=1e-6)
+    one = sc[3]
+    assert one.at.shape == () and int(one.at) == (5 * 32) % 128
+
+
+# ---------------------------------------------------------------------------
+# Chunk invariance, bit for bit
+# ---------------------------------------------------------------------------
+
+
+def assert_states_bitequal(a, b):
+    for name in a.params:
+        assert torch.equal(a.params[name], b.params[name]), name
+        assert torch.equal(a.target_params[name], b.target_params[name]), name
+        assert torch.equal(a.opt_state.mu[name], b.opt_state.mu[name]), name
+        assert torch.equal(a.opt_state.nu[name], b.opt_state.nu[name]), name
+    assert torch.equal(a.opt_state.count, b.opt_state.count)
+    for f in ("agent_idx", "agent_code", "t", "done"):
+        assert torch.equal(getattr(a.env_state, f), getattr(b.env_state, f))
+    for x, y in zip(a.buf, b.buf):
+        assert torch.equal(x, y)
+    for f in ("prio", "p_max", "t", "run_ret", "episodes", "ret_sum", "last_loss"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert a.seed == b.seed
+
+
+CHUNK_KW = dict(buffer_capacity=256, batch_size_train=32, hidden=(32,), embed_dim=16, max_episode_steps=16,
+                eps_anneal_steps=100)
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"prioritized": True},
+    {"prioritized": True, "target_update": "hard", "target_update_every": 7, "double": False},
+    {"lr_schedule": "linear", "lr_decay_steps": 100, "lr_final_frac": 0.1, "compute_dtype": "float32"},
+    {"obs": "grid", "conv_channels": (8,), "prioritized": True},
+])
+def test_dqn_chunking_is_bitexact(extra):
+    """120 steps against 60 + 60, as the reference's checkpoint test."""
+    level = corridor()
+    cfg = tm.DQNConfig(**{**CHUNK_KW, **extra})
+    ts0 = tm.dqn_init(TSEM, level, 3, cfg, batch_size=16)
+    full = tm.dqn_run(TSEM, level, ts0, cfg, num_steps=120)
+    half = tm.dqn_run(TSEM, level, ts0, cfg, num_steps=60)
+    resumed = tm.dqn_run(TSEM, level, half, cfg, num_steps=60)
+    assert_states_bitequal(full, resumed)
+    assert int(full.t) == 120 and int(ts0.t) == 0 and int(full.opt_state.count) == 120
+    assert not ts0.buf.obs.any() and not ts0.prio.any()  # the input state is not written
+    assert_states_bitequal(full, tm.dqn_run(TSEM, level, ts0, cfg, num_steps=120))
+    if "lr_schedule" in extra:  # the schedule is wired: a constant rate ends elsewhere
+        const = tm.dqn_run(TSEM, level, ts0, tm.DQNConfig(**{**CHUNK_KW, "compute_dtype": "float32"}), 120)
+        assert not torch.equal(const.params["embed"], full.params["embed"])
+
+
+# ---------------------------------------------------------------------------
+# Learning, as the reference's own tests
+# ---------------------------------------------------------------------------
+
+LEARN_KW = dict(lr=2e-3, buffer_capacity=1024, batch_size_train=64, eps_anneal_steps=400, learn_start=64,
+                hidden=(64,), embed_dim=32, max_episode_steps=32)
+
+
+def _greedy_q_reaches_goal(level, params, cfg, max_steps=12):
+    net = tm.make_q_network(level, 4, cfg)
+    state = T.reset(level, 1)
+    for _ in range(max_steps):
+        a = tm.greedy_q_actions(net, params, state.agent_idx)
+        state, out = T.step(TSEM, level, state, a)
+        if bool(out.done):
+            return True, float(out.reward)
+    return False, 0.0
+
+
+@pytest.mark.parametrize("extra", [{}, {"prioritized": True, "per_beta_anneal_steps": 600},
+                                   {"target_update": "hard", "target_update_every": 50}])
+def test_dqn_learns_corridor(extra):
+    level = corridor()
+    cfg = tm.DQNConfig(**LEARN_KW, **extra)
+    res = tm.dqn_train(TSEM, level, 0, cfg, num_steps=800, batch_size=64)
+    assert int(res.episodes) > 100
+    assert np.isfinite(float(res.final_loss))
+    done, r = _greedy_q_reaches_goal(level, res.params, cfg)
+    assert done and r == 10.0
+    net = tm.make_q_network(level, 4, cfg)
+    assert float(tm.greedy_success_rate(TSEM, net, res.params, level, max_steps=12)) == 1.0
+
+
+def test_dqn_capacity_divisibility():
+    bad = tm.DQNConfig(**{**LEARN_KW, "buffer_capacity": 1000})  # not divisible by 64
+    with pytest.raises(ValueError, match="multiple"):
+        tm.dqn_train(TSEM, corridor(), 0, bad, num_steps=4, batch_size=64)
+    with pytest.raises(ValueError, match="target_update"):
+        tm.dqn_train(TSEM, corridor(), 0, tm.DQNConfig(**LEARN_KW, target_update="soft"), 4, 64)
+    with pytest.raises(ValueError, match="lr_decay_steps"):
+        tm.dqn_train(TSEM, corridor(), 0, tm.DQNConfig(**LEARN_KW, lr_schedule="linear"), 4, 64)
+
+
+def test_q_network_families():
+    level = corridor()
+    for cfg, cls in ((tm.DQNConfig(), tm.QNetwork), (tm.DQNConfig(obs="grid"), tm.ConvQNetwork)):
+        net = tm.make_q_network(level, 4, cfg)
+        assert isinstance(net, cls)
+        params = tm.init_network_params(net, 0)
+        obs = torch.tensor([0, 3, 5], dtype=torch.int32)
+        q = net.q_values(params, obs)
+        logits, _ = net(obs)
+        assert q.shape == (3, 4)
+        a = tm.greedy_q_actions(net, params, obs)
+        assert a.dtype == torch.int32 and torch.equal(a, q.argmax(-1).int())
+        assert logits.shape == q.shape

@@ -150,8 +150,9 @@ def test_generate_mazes_device_perfect_on_cpu(algorithm):
 
 
 def test_generate_mazes_device_rejects_unported_and_unknown():
-    with pytest.raises(NotImplementedError, match="K11"):
-        tm.generate_mazes_device(0, (4, 4), 2, device=CPU)
+    # the reference's default algorithm, the backtracker, is ported (K11)
+    grids, _ = tm.generate_mazes_device(0, (4, 4), 2, device=CPU)
+    assert all(tm.check_perfect_maze(g, (4, 4)) for g in grids)
     with pytest.raises(ValueError):
         tm.generate_mazes_device(0, (4, 4), 2, algorithm="nope", device=CPU)
     with pytest.raises(ValueError):

@@ -116,3 +116,81 @@ def test_injected_directions_are_checked():
         tm.aldous_broder_mazes_reference((3, 3), 4, 10, directions=torch.zeros((9, 4), dtype=torch.int8))
     with pytest.raises(ValueError):
         tm.aldous_broder_mazes_reference((3, 3), 4, 10, directions=torch.zeros((10, 5), dtype=torch.int8))
+
+
+# ---------------------------------------------------------------------------
+# K11's plain version: the device backtracker
+# ---------------------------------------------------------------------------
+
+
+def _dead_ends(grids: np.ndarray) -> np.ndarray:
+    """Dead ends per maze: cells with exactly one open passage."""
+    open_ = grids != S.WALL
+    cells = open_[:, 1::2, 1::2]
+    exits = (open_[:, 0:-2:2, 1::2].astype(int) + open_[:, 2::2, 1::2] + open_[:, 1::2, 0:-2:2] + open_[:, 1::2, 2::2])
+    return ((exits == 1) & cells).sum(axis=(1, 2))
+
+
+@pytest.mark.parametrize("cells", [(4, 4), (3, 5), (1, 4), (1, 1), (16, 16)])
+def test_backtracker_mazes_are_perfect(cells):
+    b = 16 if cells == (16, 16) else 128
+    grids, start = tm.generate_mazes_device(17, cells, b, device=CPU)  # the default algorithm
+    h, w = 2 * cells[0] + 1, 2 * cells[1] + 1
+    assert grids.shape == (b, h, w) and grids.dtype == torch.int32
+    s = cells[0] * cells[1]
+    assert bool(((grids != S.WALL).sum(dim=(1, 2)) == 2 * s - 1).all())
+    assert int(start) == w + 1 and bool((grids[:, h - 2, w - 2] == S.GOAL).all())
+    assert bool((grids[:, 1, 1] != S.WALL).all())
+    assert all(tm.check_perfect_maze(g, cells) for g in grids)
+    assert len({tuple(r.tolist()) for r in grids.reshape(b, -1)}) > 4 or s <= 4
+    again, _ = tm.generate_mazes_device(17, cells, b, "backtracker", device=CPU)
+    assert torch.equal(grids, again)
+
+
+def test_backtracker_law_on_2x2():
+    """A depth-first walk from the start cell of the 2x2 lattice is one of
+    two paths, so of the four spanning trees only the two that lack an edge
+    AT the start cell occur, each with probability 1/2 (5 sigma)."""
+    b = 4096
+    grids, _ = tm.generate_mazes_device(8, (2, 2), b, "backtracker", device=CPU)
+    g = grids.numpy()
+    walls = np.stack([g[:, 2, 1], g[:, 2, 3], g[:, 1, 2], g[:, 3, 2]], axis=1)  # W-col, E-col, N-row, S-row
+    open_mask = walls != S.WALL
+    assert (open_mask.sum(axis=1) == 3).all()
+    counts = np.bincount(np.argmin(open_mask, axis=1), minlength=4)
+    # the start cell (0, 0) touches the west column's wall (index 0) and the north row's (index 2)
+    assert counts[1] == 0 and counts[3] == 0
+    assert abs(counts[0] - b / 2) < 5 * np.sqrt(b * 0.25), counts
+
+
+def test_backtracker_texture_matches_jax():
+    """Dead ends a maze over 2,048 mazes of 4x4 cells: the mean within 0.12
+    of the JAX backtracker's (about 5 standard errors of the difference of
+    two such means), and well under Aldous-Broder's, whose uniform trees
+    branch more."""
+    b, cells = 2048, (4, 4)
+    jgrids, _ = jm.generate_mazes_device(jax.random.PRNGKey(0), cells, b, "backtracker")
+    want = _dead_ends(np.asarray(jgrids))
+    got = _dead_ends(tm.generate_mazes_device(3, cells, b, "backtracker", device=CPU)[0].numpy())
+    uniform = _dead_ends(tm.generate_mazes_device(3, cells, b, "aldous_broder", device=CPU)[0].numpy())
+    se = np.sqrt(want.var() / b + got.var() / b)
+    assert abs(got.mean() - want.mean()) < max(0.12, 5 * se), (got.mean(), want.mean(), se)
+    assert got.mean() < uniform.mean() - 1.0
+
+
+def test_neighbour_orders_are_the_kernels_table():
+    """K11 holds the 24 orders packed two bits a place, first place lowest."""
+    packed = [sum(d << (2 * k) for k, d in enumerate(p)) for p in tm.NEIGHBOUR_ORDERS]
+    assert packed[:4] == [0xE4, 0xB4, 0xD8, 0x78] and packed[-1] == 0x1B
+    assert sorted(set(tm.NEIGHBOUR_ORDERS)) == list(tm.NEIGHBOUR_ORDERS) and len(packed) == 24
+    import re
+    from pathlib import Path
+
+    src = (Path(tm.__file__).resolve().parent.parent / "csrc" / "backtracker.cu").read_text()
+    table = re.search(r"kOrders\[24\] = \{([^}]*)\}", src).group(1)
+    assert [int(v, 16) for v in re.findall(r"0x[0-9A-Fa-f]{2}", table)] == packed
+
+
+def test_unknown_algorithm_raises():
+    with pytest.raises(ValueError, match="unknown maze algorithm"):
+        tm.generate_mazes_device(0, (2, 2), 4, "prim", device=CPU)
