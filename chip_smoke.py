@@ -6,27 +6,31 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 
     python3 chip_smoke.py
 
-It builds the sixteen hand-written kernels (K1–K6, K7a, K7b, K8a, K8b, K9a,
-K9b, K10, K11, P1, P2) from `griduniverse_tpu_torch/csrc/`, holds each against its plain PyTorch
+It builds the seventeen hand-written kernels (K1–K6, K7a, K7b, K8a, K8b, K9a,
+K9b, K10, K11, K12, P1, P2) from `griduniverse_tpu_torch/csrc/`, holds each against its plain PyTorch
 version, drives the port's main paths at full size and checks what comes out:
 
-  * the env path: level → pack → K1/K2 rollouts; K3 mazes → pack → K1;
+  * the env path: level → pack → K1/K2 rollouts; K3 mazes → pack → K1, and
+    K3 on 32×32-cell mazes from injected directions;
   * the solver path: K3 mazes → K4 value/policy iteration; walls16 → K5
-    shared-Q learning; mazes → K6 per-maze Q-learning; walls16 → `q_learning`
-    on the generic step with K10;
+    shared-Q learning, and K5 on one 65×65 backtracker maze (16,900 Q
+    entries); mazes → K6 per-maze Q-learning; walls16 → `q_learning` on the
+    generic step with K10, at up to 65,536 envs;
   * the training path: `ppo_train` on walls16 (K7a, K7b, K9a) and on 65,536
     per-env mazes with the conv trunk (K7a, K7b, K9b), `a2c_train` on walls16
     (K7a's return scan, K7b, K9a), and `greedy_success_rate` (K7b's greedy
     form), 65,536 envs each;
   * the maze and probe path: K11 backtracker mazes through
-    `generate_mazes_device` → pack → K1; the gather probe tool (P1, P2);
+    `generate_mazes_device` (up to 63×63 cells) → pack → K1; the gather
+    probe tool (P1, P2);
   * the tabular family's last two modules: `mc_prediction` and `mc_control`
-    at their default 25,600 samples a round (K10 at its largest shape), and
-    `sarsa_lambda` / `watkins_q_lambda` twice for equal bits;
+    at 25,600 and 102,400 samples a round (K10), and `sarsa_lambda`,
+    `watkins_q_lambda` and `td_lambda_prediction` through the trace pass
+    (K12) at 65,536 envs, and at 4,096;
   * the off-policy path: `dqn_train` on walls16 with uniform and with
-    prioritized replay (K8a, K8b, K9a) and on 65,536 per-env backtracker
-    mazes with the conv Q-network (K8b, K9b), 65,536 envs and a ring of
-    131,072 transitions each.
+    prioritized replay (K8a, K8b, K9a; the prioritized draw also at 4,096
+    picks) and on 65,536 per-env backtracker mazes with the conv Q-network
+    (K8b, K9b), 65,536 envs and a ring of 131,072 transitions each.
 
 Each main path is driven with the launch counts set to 0 just before it and
 read just after, and every count must be the one the path's shape gives. The
@@ -139,6 +143,7 @@ INSTR_K11_ITER = 172    # the backtracker's iteration loop (both sides of its br
 INSTR_K11_TILE = 10     # the wall fill: 40 instructions for four unrolled tiles
 INSTR_P1 = 23           # gather_1d_kernel, one element
 INSTR_P2 = 48           # take_along_axis1_kernel, one element
+INSTR_K12_ELEM = 12     # one trace element: load, decay, flush, bump test, multiply, add, count, store (an estimate)
 HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
 
 
@@ -220,6 +225,12 @@ def solver_phases(gt, dev, gen, bound, smi):
 
     errs = {"dp_grid": 0.0, "td_scan_fast": 0.0, "td_batched": 0.0, "segment_mean": 0.0}
     times = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"{what}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     def hold(name, tag, got, ref, fields):
         errs[name] = max(errs[name], _same_fields(tag, got, ref, fields))
@@ -297,6 +308,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     print("K10 B=1, 32, 4096, plain and masked: bit-exact vs plain")
 
     # -- phase 8: the solver main path at full width, counted ------------------
+    lap("phase 7")
     torch.cuda.synchronize()
     kernels.reset_launches()
     n64, n33, n_pi, steps = 65_536, 8_192, 4_096, 2_000
@@ -348,6 +360,18 @@ def solver_phases(gt, dev, gen, bound, smi):
     _require(float(mean2) > float(r1.mean_return), f"K5 main: return did not rise ({float(r1.mean_return)} -> {float(mean2)})")
     print(f"K5 main: chunked 1000+1000 equals the unbroken run bit for bit; mean return {float(r1.mean_return)!r} -> {float(mean2)!r}")
 
+    # above the 8,192 Q entries of the staged step kernel: one 65x65 backtracker
+    # maze (32x32 cells, made by K11) shared by 65,536 envs, 16,900 entries
+    g65, start65 = M.generate_mazes_device(2028, (32, 32), 1)
+    bl65 = bp.pack_level(gt.Level(grid=g65[0].contiguous(), start_idx=start65))
+    steps65 = 300
+    ms, outs["fast65"] = timed(lambda: algos.compile_q_learning_fast(sem, bl65, n64, steps65, **kw5)(7))
+    res = outs["fast65"]
+    _require(res.q.numel() == 16_900 and bool(torch.isfinite(res.q).all()) and bool((res.q != 0).any()),
+             "K5 main 65x65: a non-finite or untouched Q")
+    print(f"K5 main 65x65 maze B={n64} T={steps65}: Q of {res.q.numel()} entries, episodes {int(res.episodes)}, "
+          f"{ms!r} ms, {n64 * steps65 / ms * 1e3!r} transitions/s ({smi})")
+
     kw6 = dict(max_episode_steps=MAX_EPISODE_STEPS)
     for dtype in ("float32", "bfloat16"):
         ms, res = timed(lambda: algos.q_learning_batched(sem, lv64, 9, steps, dtype=dtype, **kw6))
@@ -362,23 +386,37 @@ def solver_phases(gt, dev, gen, bound, smi):
               f"mean return {float(h1.mean_return)!r} -> {float(mean2)!r} ({smi})")
 
     late = 50  # the last steps of the run are a chunk of their own, so that phase 9 can redo them
-    for b in (32, 4096):
+    # at 32 envs phase 9 holds every step, so that run is 1,000 steps long
+    td_steps = {32: 1_000, 4096: steps}
+    for b, n_steps in td_steps.items():
         ts0 = td.td_init(sem, walls16, 11, b)
-        ms1, h1 = timed(lambda: td.td_run(sem, walls16, ts0, steps // 2))
-        ms2, before_late = timed(lambda: td.td_run(sem, walls16, h1, steps // 2 - late))
+        ms1, h1 = timed(lambda: td.td_run(sem, walls16, ts0, n_steps // 2))
+        ms2, before_late = timed(lambda: td.td_run(sem, walls16, h1, n_steps // 2 - late))
         ms3, h2 = timed(lambda: td.td_run(sem, walls16, before_late, late))
         ms2 += ms3
         outs[f"td_{b}"] = (ts0, before_late, h2)
-        res = algos.q_learning(sem, walls16, 11, num_steps=steps, batch_size=b)
+        res = algos.q_learning(sem, walls16, 11, num_steps=n_steps, batch_size=b)
         _same(f"td_run B={b} chunked q", h2.q, res.q)
         _require(int(h2.episodes) > 0 and bool(torch.isfinite(h2.q).all()), f"td_run B={b}: no episodes")
         mean1 = h1.ret_sum / h1.episodes.clamp(min=1)
         mean2 = (h2.ret_sum - h1.ret_sum) / (h2.episodes - h1.episodes).clamp(min=1)
         if b == 4096:
             _require(float(mean2) > float(mean1), f"td_run B={b}: return did not rise")
-        print(f"td_run main walls16 B={b} T={steps}: episodes {int(h2.episodes)}, {ms1 + ms2!r} ms, "
-              f"{b * steps / (ms1 + ms2) * 1e3!r} transitions/s; `q_learning` equals the three chunks; "
+        print(f"td_run main walls16 B={b} T={n_steps}: episodes {int(h2.episodes)}, {ms1 + ms2!r} ms, "
+              f"{b * n_steps / (ms1 + ms2) * 1e3!r} transitions/s; `q_learning` equals the three chunks; "
               f"mean return {float(mean1)!r} -> {float(mean2)!r} ({smi})")
+
+    # K10 over several tiles of staged envs: `q_learning` at 65,536 envs
+    b_wide, steps_wide, late_wide = 65_536, 200, 5
+    ts0 = td.td_init(sem, walls16, 11, b_wide)
+    ms1, before_late = timed(lambda: td.td_run(sem, walls16, ts0, steps_wide - late_wide))
+    ms2, end = timed(lambda: td.td_run(sem, walls16, before_late, late_wide))
+    outs["td_wide"] = (ts0, before_late, end)
+    res = algos.q_learning(sem, walls16, 11, num_steps=steps_wide, batch_size=b_wide)
+    _same(f"td_run B={b_wide} chunked q", end.q, res.q)
+    _require(int(end.episodes) > 0 and bool(torch.isfinite(end.q).all()), f"td_run B={b_wide}: no episodes")
+    print(f"td_run main walls16 B={b_wide} T={steps_wide}: episodes {int(end.episodes)}, {ms1 + ms2!r} ms, "
+          f"{b_wide * steps_wide / (ms1 + ms2) * 1e3!r} transitions/s; `q_learning` equals the two chunks ({smi})")
 
     torch.cuda.synchronize()
     launches = {name: kernels.LAUNCHES[name] for name in errs}
@@ -386,6 +424,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     _require(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
 
     # -- phase 9: the main path's outputs against the plain versions, timed ----
+    lap("phase 8")
     plain_ms, ref = timed(lambda: dp_batched.value_iteration_batched_grid_reference(sem, lv64))
     _require(ref[2] == outs["vi64"][2], "K4 main VI 9x9: iters differ from plain")
     hold("dp_grid", "K4 main VI 9x9", outs["vi64"][:2], ref[:2], ("V", "policy"))
@@ -413,6 +452,16 @@ def solver_phases(gt, dev, gen, bound, smi):
         **bound(n64 * 14 * 4 + 2 * n_entries * 4,
                 steps * (INSTR_K5_STEP * n64 + INSTR_K5_ENTRY * n_entries)))
     print(f"K5 main: the {steps}-step scan at B={n64} bit-exact vs plain; {n64 * steps / ms5 * 1e3!r} transitions/s ({smi})")
+    ts = algos.fast_td_init(sem, bl65, 7, n64)
+    ms65, got = _cuda_ms(lambda: td_fast.td_scan_fast(sem, bl65, ts, steps65, algo="q_learning", **kw5), 3)
+    plain65, ref = _cuda_ms(lambda: td_fast.td_scan_fast_reference(sem, bl65, ts, steps65, algo="q_learning", **kw5), 1, warm=False)
+    hold("td_scan_fast", "K5 main 65x65", _fast_fields(got), _fast_fields(ref), _FAST_FIELDS)
+    _same("K5 main 65x65 q vs compile_q_learning_fast", got.q, outs["fast65"].q)
+    n65 = got.q.numel()
+    t5 = bound(n64 * 14 * 4 + 2 * n65 * 4, steps65 * (INSTR_K5_STEP * n64 + INSTR_K5_ENTRY * n65))
+    print(f"time td_scan_fast at one 65x65 maze B={n64} T={steps65}, {n65} Q entries (global-memory form): kernel {ms65!r} ms, "
+          f"plain {plain65!r} ms, bound {t5['bound_ms']!r} ms by {t5['bound_by']}, library None ms; bit-exact vs plain "
+          f"and vs compile_q_learning_fast ({smi})")
 
     for dtype in ("float32", "bfloat16"):
         ms6, got = _cuda_ms(lambda: algos.q_learning_batched(sem, lv64, 9, steps, dtype=dtype, **kw6), 2)
@@ -429,12 +478,14 @@ def solver_phases(gt, dev, gen, bound, smi):
         if dtype == "float32":
             times["td_batched"] = t6
 
+    lap("phase 9, the K4, K5 and K6 holds")
     # K10 at full width: the main path's `td_run` redone one step at a time,
     # every step's new Q held against the plain update rule on that step's own
     # (q, s, a, δ). The plain rule needs one pass per env of the fullest cell
-    # (thousands while all envs share the start state). So at B=32 all 2,000
+    # (thousands while all envs share the start state). So at B=32 all 1,000
     # steps are held; at B=4096 the first 20, where every env collides, and
-    # the main run's last 50, where the envs are spread over the level.
+    # the main run's last 50, where the envs are spread over the level; at
+    # B=65,536 the first 3 and the last 5.
     def held_steps(tag, ts, n_steps):
         for _ in range(n_steps):
             s, a = ts.env_state.agent_idx, ts.action
@@ -446,9 +497,9 @@ def solver_phases(gt, dev, gen, bound, smi):
         return ts
 
     ts0, _, end = outs["td_32"]
-    redone = held_steps("K10 main td_run B=32", ts0, steps)
+    redone = held_steps("K10 main td_run B=32", ts0, td_steps[32])
     _same_fields("K10 main td_run B=32 redone", _td_fields(redone), _td_fields(end), _TD_FIELDS)
-    print(f"K10 main: td_run B=32, each of the {steps} steps' Q bit-exact vs the plain update rule; "
+    print(f"K10 main: td_run B=32, each of the {td_steps[32]} steps' Q bit-exact vs the plain update rule; "
           "the run redone step by step equals the main path's")
     ts0, before_late, end = outs["td_4096"]
     held_steps("K10 main td_run B=4096 first steps", ts0, 20)
@@ -457,8 +508,15 @@ def solver_phases(gt, dev, gen, bound, smi):
     cells = int(torch.unique(end.env_state.agent_idx).numel())
     print(f"K10 main: td_run B=4096, the first 20 and the last {late} of {steps} steps bit-exact vs the "
           f"plain update rule (the envs end on {cells} distinct cells); the last steps redone equal the main path's")
+    ts0, before_late, end = outs["td_wide"]
+    held_steps(f"K10 main td_run B={b_wide} first steps", ts0, 3)
+    redone = held_steps(f"K10 main td_run B={b_wide} last steps", before_late, late_wide)
+    _same_fields(f"K10 main td_run B={b_wide} redone", _td_fields(redone), _td_fields(end), _TD_FIELDS)
+    print(f"K10 main: td_run B={b_wide} (several tiles of staged envs), the first 3 and the last {late_wide} of "
+          f"{steps_wide} steps bit-exact vs the plain update rule; the last steps redone equal the main path's")
 
     # -- phase 10: K4 and K10 times at the main path's shapes ------------------
+    lap("phase 9, the K10 holds")
     k = dp_batched.SWEEPS_PER_LAUNCH
     v0 = torch.zeros((n64, 81), dtype=torch.float32, device=dev)
     grids = lv64.grid.contiguous()
@@ -485,28 +543,40 @@ def solver_phases(gt, dev, gen, bound, smi):
         n = lv.grid.shape[0]
         print(f"K4 solve {tag} N={n}: {ms!r} ms a solve ({outs[key][2]} sweeps), {n / ms * 1e3!r} mazes/s ({smi})")
 
-    b, n_seg = 4096, 256 * 4
-    q = torch.randn((256, 4), generator=gen, device=dev)
-    s = torch.randint(0, 256, (b,), generator=gen, device=dev, dtype=torch.int32)
-    a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
-    delta = torch.randn((b,), generator=gen, device=dev)
-
-    def library():  # the same function by PyTorch's scatter: timed here, used nowhere in the port
-        flat = s.long() * 4 + a.long()
-        upd = torch.zeros(n_seg, device=dev).index_add_(0, flat, 0.1 * delta)
-        cnt = torch.zeros(n_seg, device=dev).index_add_(0, flat, torch.ones_like(delta))
-        return q + (upd / cnt.clamp(min=1.0)).reshape(256, 4)
-
-    ms10, got = _cuda_ms(lambda: td.apply_td_updates(q, s, a, delta, 0.1), 50)
-    plain10, ref = _cuda_ms(lambda: td.apply_td_updates_reference(q, s, a, delta, 0.1), 3)
-    lib10, lib = _cuda_ms(library, 50)
-    hold("segment_mean", "K10 timed", (got,), (ref,), ("q",))
-    _require(bool(torch.allclose(got, lib, rtol=1e-5, atol=1e-6)), "K10: the library yardstick computes another function")
-    times["segment_mean"] = dict(
-        ms=ms10, plain_ms=plain10, shape=f"B={b}, S*A={n_seg}, uniform cells", library_ms=lib10,
-        # s, a, delta in; Q in and out
-        **bound(b * 12 + 2 * n_seg * 4, INSTR_K10_ENV * b + 2 * n_seg))
+    for b in (4096, b_wide):
+        n_seg = 256 * 4
+        q = torch.randn((256, 4), generator=gen, device=dev)
+        s = torch.randint(0, 256, (b,), generator=gen, device=dev, dtype=torch.int32)
+        a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+        delta = torch.randn((b,), generator=gen, device=dev)
+        ms10, got = _cuda_ms(lambda: td.apply_td_updates(q, s, a, delta, 0.1), 50)
+        plain10, ref = _cuda_ms(lambda: td.apply_td_updates_reference(q, s, a, delta, 0.1), 3)
+        lib10, lib = _cuda_ms(lambda: _segment_mean_library(q, s, a, delta, 0.1, None), 50)
+        hold("segment_mean", f"K10 timed B={b}", (got,), (ref,), ("q",))
+        _require(bool(torch.allclose(got, lib, rtol=1e-5, atol=1e-6)), "K10: the library yardstick computes another function")
+        t10 = dict(
+            ms=ms10, plain_ms=plain10, shape=f"B={b}, S*A={n_seg}, uniform cells", library_ms=lib10,
+            # s, a, delta in; Q in and out
+            **bound(b * 12 + 2 * n_seg * 4, INSTR_K10_ENV * b + 2 * n_seg))
+        if b == 4096:
+            times["segment_mean"] = t10
+        else:
+            print(f"time segment_mean at {t10['shape']}: kernel {ms10!r} ms, plain {plain10!r} ms, bound {t10['bound_ms']!r} ms "
+                  f"by {t10['bound_by']}, library {lib10!r} ms; bit-exact vs plain ({smi})")
     return launches, errs, times
+
+
+def _segment_mean_library(q, s, a, delta, alpha, mask):
+    """K10's function by PyTorch's scatter (`index_add_` twice, a divide and
+    an add): timed as a yardstick, used nowhere in the port."""
+    n_seg = q.numel()
+    flat = s.long() * q.shape[1] + a.long()
+    inc, ones = alpha * delta, torch.ones_like(delta)
+    if mask is not None:
+        inc, ones = inc * mask, ones * mask
+    upd = torch.zeros(n_seg, device=q.device).index_add_(0, flat, inc)
+    cnt = torch.zeros(n_seg, device=q.device).index_add_(0, flat, ones)
+    return q + (upd / cnt.clamp(min=1.0)).reshape(q.shape)
 
 
 def _rel_err(name: str, a, b, tol: float) -> float:
@@ -1049,15 +1119,20 @@ def maze_probe_phases(gt, dev, bound, smi):
     # -- phase 16: the maze and probe main path, counted ----------------------
     torch.cuda.synchronize()
     kernels.reset_launches()
-    n64, n33 = 65_536, 8_192
+    n64, n33, n127 = 65_536, 8_192, 1_024
     g64, start64 = M.generate_mazes_device(2026, (4, 4), n64)       # the default algorithm: the backtracker
     g33, _ = M.generate_mazes_device(2027, (16, 16), n33)
-    for tag, grids, cells in (("9x9", g64, (4, 4)), ("33x33", g33, (16, 16))):
+    # above the 256 cells of a maze's local arrays: the scratch-buffer form
+    g65, _ = M.generate_mazes_device(2029, (32, 32), n64)
+    g127, _ = M.generate_mazes_device(2030, (63, 63), n127)
+    shapes = (("9x9", g64, (4, 4), 2026), ("33x33", g33, (16, 16), 2027),
+              ("65x65", g65, (32, 32), 2029), ("127x127", g127, (63, 63), 2030))
+    for tag, grids, cells, _ in shapes:
         s = cells[0] * cells[1]
         n_open = (grids != S.WALL).sum(dim=(1, 2))
         _require(bool((n_open == 2 * s - 1).all()), f"K11 {tag}: a maze has the wrong number of open tiles")
         _require(bool((grids[:, -2, -2] == S.GOAL).all()), f"K11 {tag}: goal missing")
-        n_check = 1024 if tag == "9x9" else 128
+        n_check = {"9x9": 1024, "33x33": 128}.get(tag, 16)
         _require(all(M.check_perfect_maze(g, cells) for g in grids[:n_check].cpu().numpy()), f"K11 {tag}: a maze is not perfect")
         print(f"K11 main {tag} B={grids.shape[0]}: every maze has {2 * s - 1} open tiles; {n_check} checked perfect")
     lv64 = gt.Level(grid=g64, start_idx=start64.expand(n64).contiguous())
@@ -1072,14 +1147,14 @@ def maze_probe_phases(gt, dev, bound, smi):
     torch.cuda.synchronize()
     launches = {name: kernels.LAUNCHES[name] for name in names}
     print(f"launches on the maze and probe main path: {launches}; K1 {kernels.LAUNCHES['random_scan_bits']}")
-    _require(launches == {"backtracker_mazes": 2, "gather_1d": 3, "take_along_axis1": 2}
+    _require(launches == {"backtracker_mazes": 4, "gather_1d": 3, "take_along_axis1": 2}
              and kernels.LAUNCHES["random_scan_bits"] == 1, f"maze and probe path: launches {launches}")
     print("gather probe: 1-D vector gather OK, 2-D take_along_axis OK (zero and seeded indices, and the step lookup)")
 
     # the main path's grids against the plain version, and the times
-    for tag, grids, cells, seed in (("9x9", g64, (4, 4), 2026), ("33x33", g33, (16, 16), 2027)):
+    for tag, grids, cells, seed in shapes:
         b, s = grids.shape[0], cells[0] * cells[1]
-        ms, got = _cuda_ms(lambda: M.generate_mazes_device(seed, cells, b)[0], 5)
+        ms, got = _cuda_ms(lambda: M.generate_mazes_device(seed, cells, b)[0], 5 if s <= 256 else 2)
         plain_ms, ref = _cuda_ms(lambda: M.backtracker_mazes_reference(cells, b, seed=seed, device=dev), 1, warm=False)
         errs["backtracker_mazes"] = max(errs["backtracker_mazes"], _same(f"K11 main {tag}", grids, ref))
         _same(f"K11 timed {tag}", got, ref)
@@ -1091,6 +1166,7 @@ def maze_probe_phases(gt, dev, bound, smi):
               f"bound {t11['bound_ms']!r} ms by {t11['bound_by']} ({smi})")
         if tag == "9x9":
             times["backtracker_mazes"] = t11
+        del got, ref
 
     states, envs = gather_probe.STEP_LOOKUP
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1220,6 +1296,9 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     cfgs = {
         "dqn walls16 uniform": (walls16, models.DQNConfig(**base), 300),
         "dqn walls16 per": (walls16, models.DQNConfig(**base, prioritized=True), 300),
+        # above the 1,024 picks of one block: K8a's picks in dynamic shared
+        # memory, K8b's refresh in two launches over a per-slot scratch
+        "dqn walls16 per n4096": (walls16, models.DQNConfig(**base, prioritized=True, batch_size_train=4096), 60),
         "dqn mazes64k grid": (lv64, models.DQNConfig(**base, obs="grid", conv_channels=(32,), hidden=(64,)), 100),
     }
     path_launches, runs = {}, {}
@@ -1228,7 +1307,9 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         torch.cuda.reset_peak_memory_stats()
         # a step: the acting forward, three forwards and one backward of the loss
         net_kernel, per_step = ("agent_stamp", 1 + 3 + 3) if cfg.obs == "grid" else ("embed_rows", 1 + 3 + 2)
-        expected = {net_kernel: steps * per_step, "replay": steps * (3 if cfg.prioritized else 2),
+        # a step: write and gather, with PER the refresh (two launches above 1,024 rows)
+        refresh = 0 if not cfg.prioritized else (1 if cfg.batch_size_train <= 1024 else 2)
+        expected = {net_kernel: steps * per_step, "replay": steps * (2 + refresh),
                     "per_sample": steps * 2 if cfg.prioritized else 0}
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -1242,8 +1323,11 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         _require(got == {k: v for k, v in expected.items() if v}, f"{name}: launches {got}, expected {expected}")
         peak = torch.cuda.max_memory_allocated()
         finite = all(bool(torch.isfinite(p).all()) for p in res.params.values())
+        # a run of 60 steps need not see an episode of walls16 end (the limit is 512)
+        ended = int(res.episodes) > 0 or steps < 100
         _require(finite and bool(torch.isfinite(res.final_loss)) and bool(torch.isfinite(res.mean_return))
-                 and float(res.final_loss) > 0 and int(res.episodes) > 0, f"{name}: a non-finite parameter, loss or return, or no episode")
+                 and float(res.final_loss) > 0 and ended,
+                 f"{name}: a non-finite parameter, a loss of {float(res.final_loss)}, or {int(res.episodes)} episodes")
         _require(all(p.device.type == "cuda" for p in res.params.values()), f"{name}: parameters are not on the card")
         print(f"{name} main: B={n64} capacity={cap64} steps={steps}: {ms!r} ms, {steps * n64 / ms * 1e3!r} env steps/s, "
               f"episodes {int(res.episodes)}, mean_return {float(res.mean_return)!r}, final_loss {float(res.final_loss)!r}, "
@@ -1388,6 +1472,39 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
                 INSTR_K8B_WRITE * n64 + (INSTR_K8B_GATHER + INSTR_K8B_REFRESH) * n))
     print(f"K8b timed: write {w_ms!r} ms, gather {g_ms!r} ms, refresh {r_ms!r} ms; plain {pw_ms!r}, {pg_ms!r}, {pr_ms!r} ms; "
           f"index_copy_ x5 + index_fill_ + index_select x5 + index_put_ + max {lib_ms!r} ms ({smi})")
+
+    # K8a and K8b's gather and refresh at 4,096 picks, on that main path's last step
+    buf, prio, upd, sc, draws = kept["dqn walls16 per n4096"]
+    n = upd.idx.shape[0]
+    noise = draws[2]
+    ms, (idx, _, _) = _cuda_ms(lambda: dqn._per_sample(prio, noise, sc.size, n, alpha, sc.beta), 20)
+    plain_ms, (p_idx, _) = _cuda_ms(plain_draw, 5)
+    lib_ms, (l_idx, _) = _cuda_ms(library, 10)
+    common = len(set(idx.tolist()) & set(l_idx.tolist()))
+    _require(common >= n - 2, f"K8a n={n}: the library yardstick picks other slots ({common} of {n} in common)")
+    t8a = bound(cap * 8 + n * 8, (INSTR_K8A_SCORE + INSTR_K8A_PICK) * cap)
+    print(f"time per_sample at capacity {cap}, size {int(sc.size)}, n={n}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
+          f"bound {t8a['bound_ms']!r} ms by {t8a['bound_by']}, library (torch.topk with the same lines) {lib_ms!r} ms; "
+          f"{int((idx == p_idx).sum())} of {n} picks equal the plain version's on its own scores ({smi})")
+    rows = upd.idx.long()
+    g_ms, _ = _cuda_ms(lambda: dqn.replay_gather(buf, upd.idx), 50)
+    r_ms, _ = _cuda_ms(lambda: dqn.prio_refresh(prio, upd.idx, upd.abs_err, 1e-3, upd.p_max), 50)
+    ref_buf, ref_prio = dqn.ReplayBuffer(*(x.clone() for x in buf)), prio.clone()
+    pg_ms, _ = _cuda_ms(lambda: dqn.replay_gather_reference(ref_buf, upd.idx), 10)
+    pr_ms, _ = _cuda_ms(lambda: dqn.prio_refresh_reference(ref_prio, upd.idx, upd.abs_err, 1e-3, upd.p_max), 10)
+    _same(f"K8b timed refresh n={n}", prio, ref_prio)
+
+    def library_rows():  # the library's gathers and scatter for the same two functions; used nowhere in the port
+        out = [torch.index_select(full, 0, rows) for full in ref_buf]
+        fresh = upd.abs_err + 1e-3
+        ref_prio.index_put_((rows,), fresh)
+        return out, torch.maximum(upd.p_max, fresh.max())
+
+    lib_ms, _ = _cuda_ms(library_rows, 20)
+    t8b = bound(n * (4 + 2 * 17) + n * 12, (INSTR_K8B_GATHER + INSTR_K8B_REFRESH) * n)
+    print(f"time replay gather + refresh at n={n}, capacity {cap}: kernel {g_ms!r} + {r_ms!r} ms (the refresh two launches), "
+          f"plain {pg_ms!r} + {pr_ms!r} ms, bound {t8b['bound_ms']!r} ms by {t8b['bound_by']}, "
+          f"library (index_select x5 + index_put_ + max) {lib_ms!r} ms ({smi})")
     return launches, errs, times
 
 
@@ -1395,12 +1512,17 @@ def mc_lambda_phases(gt, dev, bound, smi):
     """Phase 21: the Monte-Carlo and TD(λ) entry points on the card.
     `mc_prediction` with its defaults and five rounds of `mc_control` put
     256 episodes x 100 steps = 25,600 samples through one K10 launch a
-    round, the largest shape any caller gives that kernel; every launch is
-    held bit for bit against the plain version on the run's own samples,
-    and K10 is timed there. `sarsa_lambda` (the dense live-trace mean, no
-    kernel) must give the same bits twice."""
+    round, and `mc_prediction` at 1,024 episodes 102,400 (several tiles of
+    staged samples); every launch is held bit for bit against the plain
+    version on the run's own samples, and K10 is timed at both shapes.
+    `sarsa_lambda`, `watkins_q_lambda` (walls16, 65,536 envs x 200 steps, a
+    (65,536, 256, 4) trace) and `td_lambda_prediction` (65,536 envs, a
+    (65,536, 256) trace) go through K12, two launches a step; steps 0-4 and
+    100-104 are redone by the plain version on the step's own inputs and
+    must give the same table and trace bits, and two runs the same bits.
+    Returns (launches, max abs errors, times) of K12."""
     from griduniverse_tpu_torch import algos, kernels
-    from griduniverse_tpu_torch.algos import mc, td
+    from griduniverse_tpu_torch.algos import mc, td, td_lambda
     from griduniverse_tpu_torch.levels import builders
 
     sem = gt.make_semantics()
@@ -1412,7 +1534,7 @@ def mc_lambda_phases(gt, dev, bound, smi):
         calls.append(((q, s, a, delta, alpha, mask), out))
         return out
 
-    rounds = 5
+    rounds, wide = 5, 1024
     torch.cuda.synchronize()
     kernels.reset_launches()
     with mock.patch.object(mc, "apply_td_updates_masked", recorded):
@@ -1420,45 +1542,141 @@ def mc_lambda_phases(gt, dev, bound, smi):
         torch.cuda.synchronize()
         _require(kernels.LAUNCHES["segment_mean"] == 1, f"mc_prediction: {kernels.LAUNCHES['segment_mean']} K10 launches, expected 1")
         ctl = algos.mc_control(sem, lava, 6, num_rounds=rounds)
+        pred_wide = algos.mc_prediction(sem, lava, 4, batch_size=wide)
     torch.cuda.synchronize()
     got = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    print(f"launches of mc_prediction (defaults) and {rounds} rounds of mc_control: {got}")
-    _require(got == {"segment_mean": 1 + rounds}, f"mc: launches {got}, expected one K10 launch a round and no other kernel")
+    print(f"launches of mc_prediction (defaults), {rounds} rounds of mc_control and mc_prediction at {wide} episodes: {got}")
+    _require(got == {"segment_mean": 2 + rounds}, f"mc: launches {got}, expected one K10 launch a round and no other kernel")
     samples = calls[0][0][1].shape[0]
-    _require(samples == 25_600 and all(c[0][1].shape[0] == samples for c in calls), f"mc: a round's samples are not 25,600: {samples}")
+    _require(samples == 25_600 and all(c[0][1].shape[0] == samples for c in calls[:-1]), f"mc: a round's samples are not 25,600: {samples}")
+    _require(calls[-1][0][1].shape[0] == wide * 100, f"mc at {wide} episodes: {calls[-1][0][1].shape[0]} samples")
     err = 0.0
     for i, (args, out) in enumerate(calls):
         err = max(err, _same(f"K10 mc round {i}", out, td.apply_td_updates_reference(*args)))
     visited = int((pred.counts > 0).sum())
     _require(bool(torch.isfinite(pred.value).all()) and visited > 1 and float(pred.counts.sum()) > 0
-             and bool(torch.isfinite(ctl.q).all()) and bool((ctl.q != 0).any()) and int(ctl.episodes) == rounds * 256,
+             and bool(torch.isfinite(ctl.q).all()) and bool((ctl.q != 0).any()) and int(ctl.episodes) == rounds * 256
+             and bool(torch.isfinite(pred_wide.value).all()) and float(pred_wide.counts.sum()) > float(pred.counts.sum()),
              "mc: a non-finite value, no finished episode, or an untouched Q")
-    args = calls[-1][0]
-    n_masked = int(args[5].sum())
-    ms, _ = _cuda_ms(lambda: td.apply_td_updates_masked(*args), 50)
-    plain_ms, _ = _cuda_ms(lambda: td.apply_td_updates_reference(*args), 3)
-    seg = args[0].numel()
-    t10 = bound(samples * 13 + 2 * seg * 4, INSTR_K10_ENV * samples + 2 * seg)
-    print(f"K10 at mc's shape, {samples} samples ({n_masked} under the first-visit mask), S*A={seg}: all {1 + rounds} launches "
-          f"bit-exact vs plain (max abs err {err!r}); kernel {ms!r} ms, plain {plain_ms!r} ms, bound {t10['bound_ms']!r} ms "
-          f"by {t10['bound_by']}; mc_prediction visited {visited} states ({smi})")
+    for tag, args in (("a round of mc_control", calls[-2][0]), (f"mc_prediction at {wide} episodes", calls[-1][0])):
+        n_samples, n_masked, seg = args[1].shape[0], int(args[5].sum()), args[0].numel()
+        ms, _ = _cuda_ms(lambda: td.apply_td_updates_masked(*args), 50)
+        plain_ms, _ = _cuda_ms(lambda: td.apply_td_updates_reference(*args), 3)
+        lib_ms, lib = _cuda_ms(lambda: _segment_mean_library(*args), 50)
+        _require(bool(torch.allclose(lib, td.apply_td_updates_reference(*args), rtol=1e-5, atol=1e-6)),
+                 "K10 at mc's shape: the library yardstick computes another function")
+        t10 = bound(n_samples * 13 + 2 * seg * 4, INSTR_K10_ENV * n_samples + 2 * seg)
+        print(f"time segment_mean at {tag}, {n_samples} samples ({n_masked} under the first-visit mask), "
+              f"S*A={seg}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {t10['bound_ms']!r} ms by {t10['bound_by']}, "
+              f"library (index_add_ twice, divide, add) {lib_ms!r} ms ({smi})")
+    print(f"K10 at mc's shapes: all {2 + rounds} launches bit-exact vs plain (max abs err {err!r}); "
+          f"mc_prediction visited {visited} states ({smi})")
 
+    # -- the trace pass (K12) at full width ------------------------------------
     walls16 = builders.walls_and_goal_16x16()
-    b, steps = 4096, 200
-    kernels.reset_launches()
+    errs = {"trace_pass": 0.0}
+    launches = {"trace_pass": 0}
+    b, steps = 65_536, 200
+    held = set(range(5)) | set(range(100, 105))
+    policy = torch.full((walls16.num_states, sem.num_actions), 1.0 / sem.num_actions, device=dev)
+    runs = {
+        "sarsa_lambda": lambda n: algos.sarsa_lambda(sem, walls16, 5, num_steps=steps, batch_size=n),
+        "watkins_q_lambda": lambda n: algos.watkins_q_lambda(sem, walls16, 5, num_steps=steps, batch_size=n),
+        "td_lambda_prediction": lambda n: algos.td_lambda_prediction(sem, walls16, policy, 5, num_steps=steps, batch_size=n),
+    }
+    real_pass = td_lambda.trace_pass
+    kept = {}
+
+    def holding(name):
+        """`trace_pass` that redoes the held steps with the plain version on
+        copies of the step's own inputs, and keeps one step's inputs."""
+        count = [0]
+
+        def checked(table, e, *args):
+            i = count[0]
+            count[0] += 1
+            if i not in held:
+                return real_pass(table, e, *args)
+            table0, e_in = table.clone(), e.clone()
+            out = real_pass(table, e, *args)
+            e0 = e_in.clone()
+            ref = td_lambda.trace_pass_reference(table0, e0, *args)
+            errs["trace_pass"] = max(errs["trace_pass"], _same_fields(
+                f"K12 {name} step {i}", (out, e), (ref, e0), ("table", "trace")))
+            if i == 100:
+                kept[name] = (table0, e_in, args)
+            return out
+        return checked
+
+    def result(res):
+        return res.v if hasattr(res, "v") else res.q
+
+    for name, run in runs.items():
+        run(1024)  # first call: allocator
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = run(b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        _require(got == {"trace_pass": 2 * steps}, f"{name}: launches {got}, expected {2 * steps} of K12 and no other kernel")
+        launches["trace_pass"] += got["trace_pass"]
+        with mock.patch.object(td_lambda, "trace_pass", holding(name)):
+            second = run(b)
+        _same(f"{name} twice", result(first), result(second))
+        # the uniform policy seldom reaches walls16's goal in 200 steps: only the learners must end episodes
+        ended = int(first.episodes) > 0 or name == "td_lambda_prediction"
+        _require(bool(torch.isfinite(result(first)).all()) and bool((result(first) != 0).any()) and ended
+                 and int(first.episodes) == int(second.episodes),
+                 f"{name}: a non-finite or untouched table, {int(first.episodes)} and {int(second.episodes)} episodes")
+        print(f"{name} walls16 B={b} T={steps}: K12 launched {got['trace_pass']} times; steps {sorted(held)} bit-exact vs "
+              f"plain (table and trace); two runs give the same bits; episodes {int(first.episodes)}; {ms!r} ms a call "
+              f"on the host clock, {b * steps / ms * 1e3!r} transitions/s ({smi})")
+
+    def dense_step(table, e, s, a, delta, cut, gamma, lam, cutoff, alpha, kind):
+        """The step as the port ran it before K12, for comparison: dense
+        passes over the trace and the env sum by torch's own reduction."""
+        x = e if a is not None else e.unsqueeze(-1)
+        x = td_lambda.decay_traces(x, gamma, lam, cutoff)
+        x = td_lambda.bump_traces(x, s, torch.zeros_like(s) if a is None else a, x.shape[1], x.shape[2], kind)
+        x = x.reshape(e.shape)
+        shape = (-1,) + (1,) * (e.dim() - 1)
+        num = (delta.reshape(shape) * x).sum(dim=0)
+        cnt = (x != 0.0).sum(dim=0).to(torch.float32)
+        e.copy_(torch.where(cut.reshape(shape), 0.0, x))
+        return table + alpha * num / cnt.clamp(min=1.0)
+
+    times = {}
+    for name in runs:
+        table, e, args = kept[name]
+        n_cells = table.numel()
+        e_kernel, e_plain, e_dense = e.clone(), e.clone(), e.clone()  # each timed call decays its copy once more
+        ms, _ = _cuda_ms(lambda: real_pass(table, e_kernel, *args), 20)
+        plain_ms, _ = _cuda_ms(lambda: td_lambda.trace_pass_reference(table, e_plain, *args), 3)
+        dense_ms, _ = _cuda_ms(lambda: dense_step(table, e_dense, *args), 5)
+        t12 = dict(ms=ms, plain_ms=plain_ms, library_ms=None, shape=f"{name}, trace ({b}, {n_cells})",
+                   # the trace read and written once; s, a, δ, cut in; the table in and out
+                   **bound(2 * b * n_cells * 4 + b * 13 + 2 * n_cells * 4, INSTR_K12_ELEM * b * n_cells))
+        print(f"time trace_pass at {t12['shape']}: kernel {ms!r} ms a step, plain {plain_ms!r} ms, bound {t12['bound_ms']!r} ms "
+              f"by {t12['bound_by']}, library None ms; the dense passes that ran before K12 {dense_ms!r} ms ({smi})")
+        if name == "sarsa_lambda":
+            times["trace_pass"] = t12
+        del e_kernel, e_plain, e_dense
+    kept.clear()
+
+    # the 4,096-env run of earlier work, now through K12, on the host clock
+    small = 4096
+    runs["sarsa_lambda"](small)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    first = algos.sarsa_lambda(sem, walls16, 5, num_steps=steps, batch_size=b)
+    first = runs["sarsa_lambda"](small)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    second = algos.sarsa_lambda(sem, walls16, 5, num_steps=steps, batch_size=b)
-    wat = algos.watkins_q_lambda(sem, walls16, 5, num_steps=steps, batch_size=b)
-    wat2 = algos.watkins_q_lambda(sem, walls16, 5, num_steps=steps, batch_size=b)
-    _same("sarsa_lambda twice: q", first.q, second.q)
-    _same("watkins_q_lambda twice: q", wat.q, wat2.q)
-    _require(int(first.episodes) == int(second.episodes) and bool(torch.isfinite(first.q).all()) and bool((first.q != 0).any())
-             and not any(kernels.LAUNCHES.values()), "sarsa_lambda: runs differ, a non-finite Q, or a kernel launched")
-    print(f"sarsa_lambda and watkins_q_lambda, walls16 B={b} T={steps}, traces ({b}, 256, 4): two runs give the same bits; "
-          f"sarsa_lambda {ms!r} ms a call on the host clock, {b * steps / ms * 1e3!r} transitions/s ({smi})")
+    _same("sarsa_lambda B=4096 twice", first.q, runs["sarsa_lambda"](small).q)
+    print(f"sarsa_lambda walls16 B={small} T={steps}, trace ({small}, 256, 4): {ms!r} ms a call on the host clock, "
+          f"{small * steps / ms * 1e3!r} transitions/s; two runs give the same bits ({smi})")
+    return launches, errs, times
 
 
 def main() -> None:
@@ -1477,6 +1695,10 @@ def main() -> None:
     from griduniverse_tpu_torch.ops import bitplane as bp
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s after {what}")
 
     # -- phase 1: the card ---------------------------------------------------
     smi = subprocess.run(
@@ -1616,6 +1838,16 @@ def main() -> None:
     _require(bool(np.all(np.abs(counts - b2 / 4) < 5 * sigma)), f"K3 2x2: not uniform {counts}")
     print(f"K3 seeded 2x2 spanning-tree counts {counts.tolist()} (expect {b2 // 4} ± {5 * sigma:.0f})")
 
+    # above the 256 cells of a maze's local arrays: 32x32 cells from injected
+    # directions, a walk capped short of covering every maze (the safety net
+    # carves the rest)
+    cells32, b32, iters32 = (32, 32), 256, 5_000
+    dirs32 = torch.randint(0, 4, (iters32, b32), generator=gen, device=dev, dtype=torch.int8)
+    g32 = M._aldous_broder_mazes(cells32, b32, iters32, directions=dirs32)
+    _require(bool(((g32 != S.WALL).sum(dim=(1, 2)) == 2 * 1024 - 1).all()), "K3 32x32: a maze has the wrong number of open tiles")
+    _require(all(M.check_perfect_maze(g, cells32) for g in g32[:16].cpu().numpy()), "K3 32x32: a maze is not perfect")
+    print(f"K3 injected cells={cells32} B={b32} max_iters={iters32}: every maze has {2 * 1024 - 1} open tiles; 16 checked perfect")
+
     bl_mazes = bp.pack_level(mazes)
     run_rollout("mazes64k", bl_mazes, b64, 2_000)
 
@@ -1650,6 +1882,14 @@ def main() -> None:
         ref = M.aldous_broder_mazes_reference(cells, b, seed=seed, device=dev)
         errs["aldous_broder_mazes"] = max(errs["aldous_broder_mazes"], _same(f"K3 main {cells}", grids, ref))
         print(f"K3 main seeded cells={cells} B={b}: grids bit-exact vs plain")
+    t0 = time.perf_counter()
+    ref, walk32 = M.aldous_broder_mazes_reference(cells32, b32, iters32, directions=dirs32, count_steps=True)
+    torch.cuda.synchronize()
+    plain32_ms = (time.perf_counter() - t0) * 1e3
+    errs["aldous_broder_mazes"] = max(errs["aldous_broder_mazes"], _same(f"K3 main injected {cells32}", g32, ref))
+    covered = int((walk32 < iters32).sum())
+    print(f"K3 main injected cells={cells32} B={b32}: grids bit-exact vs plain ({covered} of {b32} walks covered "
+          f"their maze within {iters32} steps)")
 
     # -- phase 6: kernel and plain-version times, outputs compared ------------
     bound = _make_bound()
@@ -1687,31 +1927,48 @@ def main() -> None:
         ms=ms, plain_ms=plain_ms, shape=f"seeded cells=(4, 4) B={b64}", library_ms=None,
         **bound(b64 * 81 * 4, INSTR_K3_STEP * int(walk_steps.sum()) + INSTR_K3_TILE * b64 * 81))
     print(f"K3 timed: mean walk steps to cover {float(walk_steps.double().mean())!r}")
+    ms, got = _cuda_ms(lambda: M._aldous_broder_mazes(cells32, b32, iters32, directions=dirs32), 5)
+    _same("K3 timed injected (32, 32)", got, g32)
+    t3 = dict(ms=ms, plain_ms=plain32_ms, library_ms=None,
+              # the directions each walk read and the grids written once; the steps the walks took
+              **bound(int(walk32.sum()) + b32 * 65 * 65 * 4,
+                      INSTR_K3_STEP * int(walk32.sum()) + INSTR_K3_TILE * b32 * 65 * 65))
+    print(f"time aldous_broder_mazes at injected cells={cells32} B={b32} max_iters={iters32} (scratch tier): kernel {ms!r} ms, "
+          f"plain {plain32_ms!r} ms, bound {t3['bound_ms']!r} ms by {t3['bound_by']}, library None ms ({smi})")
 
     # -- phases 7-10: the tabular solvers (K4, K5, K6, K10) --------------------
+    elapsed("phases 1-6")
     solver_launches, solver_errs, solver_times = solver_phases(gt, dev, gen, bound, smi)
     launches.update(solver_launches)
     errs.update(solver_errs)
     times.update(solver_times)
 
     # -- phases 11-14: the on-policy neural learners (K7a, K7b, K9a, K9b) --------
+    elapsed("phases 7-10")
     learner_launches, learner_errs, learner_times = learner_phases(gt, dev, gen, bound, smi)
     launches.update(learner_launches)
     errs.update(learner_errs)
     times.update(learner_times)
     # -- phases 15-16: the backtracker (K11) and the gather probes (P1, P2) ---------
+    elapsed("phases 11-14")
     maze_launches, maze_errs, maze_times, lv64 = maze_probe_phases(gt, dev, bound, smi)
     launches.update(maze_launches)
     errs.update(maze_errs)
     times.update(maze_times)
 
     # -- phases 17-20: the off-policy learner and its replay (K8a, K8b) -----------
+    elapsed("phases 15-16")
     replay_launches, replay_errs, replay_times = replay_phases(gt, dev, gen, bound, smi, lv64)
     launches.update(replay_launches)
     errs.update(replay_errs)
     times.update(replay_times)
-    # -- phase 21: mc.py and td_lambda.py on the card (K10 at its largest shape) -----
-    mc_lambda_phases(gt, dev, bound, smi)
+    # -- phase 21: mc.py (K10) and td_lambda.py (K12) on the card -------------------
+    elapsed("phases 17-20")
+    trace_launches, trace_errs, trace_times = mc_lambda_phases(gt, dev, bound, smi)
+    launches.update(trace_launches)
+    errs.update(trace_errs)
+    times.update(trace_times)
+    elapsed("phase 21")
     for name, t in times.items():
         print(f"time {name} at {t['shape']}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
               f"bound {t['bound_ms']!r} ms by {t['bound_by']}, library {t['library_ms']!r} ms, "
@@ -1735,6 +1992,7 @@ def main() -> None:
         "backtracker_mazes": (csrc + "backtracker.cu", "griduniverse_tpu/levels/maze.py:142"),
         "gather_1d": (csrc + "gather_probe.cu", "tools/pallas_probe.py:43"),
         "take_along_axis1": (csrc + "gather_probe.cu", "tools/pallas_probe.py:61"),
+        "trace_pass": (csrc + "trace_pass.cu", "griduniverse_tpu/algos/td_lambda.py:41"),
     }
     _require(set(sources) == set(kernels.LAUNCHES), "the record does not list every kernel")
     record = {"kernels": [

@@ -7,16 +7,22 @@ paths and public names mirror it.
 
 Subpackages:
   core      — semantics tables, containers, batched step/reset, model table
-  levels    — text-level I/O, builders, maze generation (K3)
+  levels    — text-level I/O, builders, maze generation (K3 Aldous–Broder,
+              K11 the recursive backtracker)
   ops       — generic rollouts and the bit-packed engine (K1, K2)
   algos     — tabular solvers: DP over one or N mazes (K4), shared-Q TD
-              (K5), per-maze TD (K6), the generic TD learners (K10)
-  models    — on-policy neural learners on one device: networks (K9a,
-              K9b), optimizer, A2C and PPO (K7a, K7b), greedy evaluation
+              (K5), per-maze TD (K6), the generic TD learners and
+              Monte-Carlo prediction and control (`mc`) over the segment
+              mean (K10), TD(λ) control and prediction (`td_lambda`) over
+              the trace pass (K12)
+  models    — neural learners on one device: networks (K9a, K9b),
+              optimizer, A2C and PPO (K7a, K7b), DQN with its replay ring
+              and prioritized draw (K8a, K8b), greedy evaluation
   kernels   — build, binding and launch counts of the CUDA kernels
   utils     — conversion of the reference's objects into the port's
   tools     — command-line tools for the card (profile_rollout,
-              profile_solvers, profile_learners, sass_counts)
+              profile_solvers, profile_learners, sass_counts, and
+              gather_probe, the gather probes P1, P2)
 """
 
 from .core.model import ModelTable, build_model_table

@@ -41,6 +41,9 @@ from .td_fast import (
 )
 from .td_lambda import (
     TDLambdaPredictionResult,
+    apply_trace_updates,
+    bump_traces,
+    decay_traces,
     sarsa_lambda,
     td_lambda_prediction,
     watkins_q_lambda,

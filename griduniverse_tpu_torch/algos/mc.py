@@ -6,9 +6,8 @@ gives fixed shapes); returns are a reverse pass over time; FIRST-VISIT
 detection is a (T, T) triangular self-comparison per episode (T is at most a
 few hundred); the per-state aggregation is the deterministic segment mean
 of `algos.td` (`apply_td_updates_masked`: kernel K10 on CUDA, its plain
-version on the CPU), so a run repeats its bits on the card. K10 stages every
-sample in shared memory, so on the card a round holds at most
-`kernels.segment_mean.MAX_BATCH` samples (T·B).
+version on the CPU), so a run repeats its bits on the card, at any number
+of samples (T·B) a round.
 
 Random numbers. The native stream is one xorshift32 lane per episode, one
 round a step: the uniform-random policy takes its action from the top 16

@@ -13,11 +13,15 @@ PyTorch counterpart of `griduniverse_tpu/algos/td_lambda.py`.
     holding a live (nonzero) trace of their sequential update α·δ_i·e_i[s,a].
     With B = 1 this is the sequential rule `Q += α·δ·e`. A trace spreads an
     env over many cells, so this mean is DENSE, one sum over the env axis
-    for every cell, not the one-cell-an-env scatter that kernel K10 serves;
-    it is a plain reduction over dim 0, which adds in a fixed order (no
-    atomics), so a run repeats its bits on the card as K10's users do.
+    for every cell. The sum runs in a fixed order: the envs of each chunk of
+    `kernels.trace_pass.CHUNK` in index order, then the chunks in order, so
+    a run repeats its bits on the card.
   * Episode boundaries zero the finished env's whole trace (auto-reset);
     Watkins Q(λ) also zeroes it when the env's next action is exploratory.
+  * A step's decay, flush, bump, mean and cut are one pass over the trace,
+    `trace_pass`: kernel K12 on CUDA, which reads and writes each trace
+    element once, and `trace_pass_reference` on the CPU. The trace is
+    updated in place; it is the loop's own.
 
 Random numbers, as in `algos.td`: one xorshift32 lane per env, one round per
 ε-greedy draw, seeded by the integer `key`; or injected `draws` = (explore
@@ -34,7 +38,9 @@ import dataclasses
 
 import torch
 
+from .. import kernels
 from ..core.step import step_autoreset
+from ..kernels.trace_pass import CHUNK, trace_pass_cuda
 from ..ops.bitplane import to_uint32_values, xorshift_init, xorshift_next
 from ..ops.rollout import reset_batch
 from .dp import first_argmax
@@ -59,12 +65,30 @@ def bump_traces(e, s, a, num_states: int, num_actions: int, kind: str):
     return torch.maximum(e, hot)  # replacing: e[s, a] = 1
 
 
-def _live_mean(table, delta, e, alpha: float):
-    """`table + α · Σ_b δ_b·e_b / max(#{b: e_b ≠ 0}, 1)`, per cell: the sum
-    over the env axis runs in a fixed order."""
-    shape = (-1,) + (1,) * (e.dim() - 1)
-    num = (delta.reshape(shape) * e).sum(dim=0)
+def _live_sums(delta, e):
+    """Per cell of `e` (B, ...): Σ_b δ_b·e_b in K12's order (the envs of each
+    chunk of `CHUNK` in index order from 0.0, then the chunks' sums in
+    order from 0.0) and the count #{b: e_b ≠ 0} as float32."""
+    b = e.shape[0]
+    prod = delta.reshape(-1, 1) * e.reshape(b, -1)
+    n_chunks = -(-b // CHUNK)
+    pad = n_chunks * CHUNK - b  # padding rows add +0.0, which changes no bit
+    if pad:
+        prod = torch.cat([prod, prod.new_zeros((pad, prod.shape[1]))])
+    prod = prod.reshape(n_chunks, CHUNK, -1)
+    part = torch.zeros_like(prod[:, 0])
+    for i in range(min(b, CHUNK)):
+        part = part + prod[:, i]
+    num = torch.zeros_like(part[0])
+    for c in range(n_chunks):
+        num = num + part[c]
     cnt = (e != 0.0).sum(dim=0).to(torch.float32)
+    return num.reshape(e.shape[1:]), cnt
+
+
+def _live_mean(table, delta, e, alpha: float):
+    """`table + α · Σ_b δ_b·e_b / max(#{b: e_b ≠ 0}, 1)`, per cell."""
+    num, cnt = _live_sums(delta, e)
     return table + alpha * num / cnt.clamp(min=1.0)
 
 
@@ -76,6 +100,37 @@ def apply_trace_updates(q, delta, e, alpha: float):
     α·δ·e (sequential parity), and a start state shared by thousands of envs
     moves by their mean update instead of the sum."""
     return _live_mean(q, delta, e, alpha)
+
+
+def trace_pass_reference(table, e, s, a, delta, cut, gamma: float, lam: float, cutoff: float,
+                         alpha: float, kind: str):
+    """Plain PyTorch version of K12, in its order of float adds: one step
+    of the traces `e` (B, S, A) for control (`a` the actions) or (B, S) for
+    prediction (`a` None). Decay and flush (`decay_traces`), bump this
+    step's (s, a) or s (`bump_traces`), the live-trace mean into `table`,
+    then zero the traces of the envs with `cut` set. `e` is updated IN
+    PLACE; returns the new table."""
+    x = e if a is not None else e.unsqueeze(-1)
+    x = decay_traces(x, gamma, lam, cutoff)
+    x = bump_traces(x, s, torch.zeros_like(s) if a is None else a, x.shape[1], x.shape[2], kind)
+    x = x.reshape(e.shape)
+    new_table = _live_mean(table, delta, x, alpha)
+    e.copy_(torch.where(cut.reshape((-1,) + (1,) * (e.dim() - 1)), 0.0, x))
+    return new_table
+
+
+def trace_pass(table, e, s, a, delta, cut, gamma: float, lam: float, cutoff: float,
+               alpha: float, kind: str):
+    """One step of the eligibility traces, `trace_pass_reference`'s
+    function: K12 on CUDA tensors, the plain version on CPU tensors. `e` is
+    updated IN PLACE; returns the new table."""
+    if not kernels.on_cuda(table, e):
+        return trace_pass_reference(table, e, s, a, delta, cut, gamma, lam, cutoff, alpha, kind)
+    return trace_pass_cuda(
+        table, e, s.to(torch.int32), None if a is None else a.to(torch.int32),
+        delta.to(torch.float32), cut.to(torch.bool), gamma * lam, cutoff, alpha,
+        kind == "replacing",
+    )
 
 
 def _td_lambda_control(sem, level, key, algo, num_steps, batch_size, alpha, gamma, epsilon, lam,
@@ -103,10 +158,6 @@ def _td_lambda_control(sem, level, key, algo, num_steps, batch_size, alpha, gamm
         state, out = step_autoreset(sem, level, state, a)
         s2, r, d = out.obs, out.reward, out.done
 
-        # trace first: decay, then bump this step's (s, a)
-        e = decay_traces(e, gamma, lam, trace_cutoff)
-        e = bump_traces(e, s, a, num_states, num_actions, trace)
-
         draw, rs = _next_draw(rs, None if draws is None else (draws[0][i], draws[1][i]))
         a_next = epsilon_greedy(q[state.agent_idx.long()], draw, epsilon)
         q2 = q[s2.long()]
@@ -116,12 +167,11 @@ def _td_lambda_control(sem, level, key, algo, num_steps, batch_size, alpha, gamm
         else:  # watkins: off-policy max target
             boot = q2.max(dim=-1).values
         delta = r + gamma * torch.where(d, 0.0, boot) - q[s.long(), a.long()]
-
-        q = apply_trace_updates(q, delta, e, alpha)
-
         # cut traces: always at episode end; Watkins also on exploration
         cut = d | (a_next != greedy2) if algo == "watkins" else d
-        e = torch.where(cut[:, None, None], 0.0, e)
+
+        # the trace pass: decay, then bump this step's (s, a); the mean; the cut
+        q = trace_pass(q, e, s, a, delta, cut, gamma, lam, trace_cutoff, alpha, trace)
         run_ret, n_eps, ret_sum = _fold_stats(run_ret, n_eps, ret_sum, r, d)
         a = a_next
     return TDResult(q=q, episodes=n_eps, mean_return=ret_sum / n_eps.clamp(min=1))
@@ -173,7 +223,6 @@ def td_lambda_prediction(
     rs = xorshift_init(key, (b,), device=dev)
     e = torch.zeros((b, num_states), dtype=torch.float32, device=dev)
     n_eps = torch.zeros((), dtype=torch.int64, device=dev)
-    rows = torch.arange(b, device=dev)
     cdf = policy.to(torch.float32).cumsum(dim=-1)
     cdf = cdf / cdf[:, -1:].clamp(min=1e-30)
     logp = torch.log(policy.to(torch.float32).clamp(min=1e-30))
@@ -190,14 +239,7 @@ def td_lambda_prediction(
         state, out = step_autoreset(sem, level, state, a)
         s2, r, d = out.obs, out.reward, out.done
 
-        e = decay_traces(e, gamma, lam, trace_cutoff)
-        hot = torch.zeros_like(e)
-        hot[rows, s.long()] = 1.0
-        e = e + hot if trace == "accumulating" else torch.maximum(e, hot)
-
         delta = r + gamma * torch.where(d, 0.0, v[s2.long()]) - v[s.long()]
-        v = _live_mean(v, delta, e, alpha)
-
-        e = torch.where(d[:, None], 0.0, e)
+        v = trace_pass(v, e, s, None, delta, d, gamma, lam, trace_cutoff, alpha, trace)
         n_eps = n_eps + d.sum()
     return TDLambdaPredictionResult(v=v, episodes=n_eps)

@@ -20,18 +20,30 @@
 //      of slots, ranks by ballot); a rank sort of the n picks by (score
 //      descending, index ascending); then the fallback hash for a pick with
 //      no mass and the max-normalised importance weights.
+//    The n picks' keys, ids and sorted ids (12 bytes a pick) sit in dynamic
+//    shared memory up to kMaxSharedPicks = 16,384 picks, and in a scratch
+//    buffer that the wrapper allocates above that; a thread takes picks
+//    tid, tid + 1,024, ... in the sort and the weights.
 // Bound on the card: bytes, and barely: 8 bytes a slot read once (1 MB at
 // 131,072 slots, 0.3 µs at the memory rate) against six passes of one
-// block over scores that sit in L2. The block's passes are the cost; a
-// multi-block select is later work.
+// block over scores that sit in L2. The block's passes are the cost, and
+// the rank sort is n² compares over 1,024 threads; a multi-block select is
+// later work.
 //
 // K8b. One launch writes the five fields of B transitions at `at` and fills
 // the new slots' priority from the device scalar `p_max` (the reference
 // makes six `dynamic_update_slice`s); one launch gathers the five fields at
 // n indices; one launch writes the n refreshed priorities, where of equal
 // indices the highest minibatch position wins (what a sequential scatter
-// gives), and folds their maximum into `p_max`. Bound: bytes, 17 a
-// transition; all three are launches in truth.
+// gives), and folds their maximum into `p_max`. Up to kMaxPicks = 1,024 rows
+// the refresh is one block, each row scanning the later rows for its slot.
+// Above that it is two launches over the rows: the first takes each slot's
+// highest position by an integer atomicMax into a per-slot scratch (-1 where
+// untouched, filled by the wrapper) and copies the old `p_max` out; the
+// second lets only that winner write, and folds each block's maximum into
+// `p_max` by a compare-and-swap loop. A maximum is the same in any order, so
+// both forms give the plain version's bits. Bound: bytes, 17 a transition;
+// all three are launches in truth.
 //
 // `size`, `at`, `beta` and `p_max` are read from device memory, so the
 // trainer's loop never reads a value on the host.
@@ -45,7 +57,9 @@ namespace {
 
 constexpr int kScoreThreads = 256;
 constexpr int kSelectThreads = 1024;
-constexpr int kMaxPicks = 1024;  // n of a draw, and of a refresh
+constexpr int kMaxPicks = 1024;  // rows of a one-block refresh
+constexpr int kMaxSharedPicks = 16384;  // picks whose keys, ids, sorted ids fit shared memory
+constexpr int kRefreshThreads = 256;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // Larger float <=> larger key; −0 and +0 share a key, as they compare equal.
@@ -84,20 +98,26 @@ __global__ void per_score_kernel(const float* __restrict__ prio,
   if (tid == 0) partial[blockIdx.x] = red[0];
 }
 
+extern __shared__ unsigned char pick_smem[];
+
+// kGlobal: the picks' keys, ids and sorted ids in `scratch` (3n words)
+// instead of dynamic shared memory.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kSelectThreads)
 per_select_kernel(const float* __restrict__ score, const float* __restrict__ prio,
                   const float* __restrict__ partial, int n_partial,
                   const int64_t* __restrict__ size_p,
                   const float* __restrict__ beta_p, float alpha, int cap, int n,
-                  int* __restrict__ idx_out, float* __restrict__ w_out) {
+                  int* __restrict__ idx_out, float* __restrict__ w_out,
+                  uint32_t* __restrict__ scratch) {
   __shared__ uint32_t hist[256];
   __shared__ uint32_t sh_prefix, sh_need;
   __shared__ float sh_sum;
   __shared__ int warp_gt[32], warp_eq[32];
-  __shared__ uint32_t keys[kMaxPicks];
-  __shared__ int ids[kMaxPicks];
-  __shared__ int sorted[kMaxPicks];
   __shared__ float red[kSelectThreads];
+  uint32_t* const keys = kGlobal ? scratch : reinterpret_cast<uint32_t*>(pick_smem);
+  int* const ids = reinterpret_cast<int*>(keys + n);
+  int* const sorted = ids + n;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -183,9 +203,9 @@ per_select_kernel(const float* __restrict__ score, const float* __restrict__ pri
   __syncthreads();
 
   // -- rank sort by (score descending, index ascending) ----------------------
-  if (tid < n) {
-    const uint32_t k = keys[tid];
-    const int id = ids[tid];
+  for (int t = tid; t < n; t += kSelectThreads) {
+    const uint32_t k = keys[t];
+    const int id = ids[t];
     int rank = 0;
     for (int j = 0; j < n; ++j) {
       rank += (keys[j] > k) || (keys[j] == k && ids[j] < id);
@@ -198,27 +218,35 @@ per_select_kernel(const float* __restrict__ score, const float* __restrict__ pri
   const int64_t size = *size_p;
   const int64_t size1 = size > 1 ? size : 1;
   const float beta = *beta_p;
-  bool ok = false;
-  float w = 0.0f;
-  int id = 0;
-  if (tid < n) {
-    id = sorted[tid];
+  // pick t's slot, whether it has mass, and its weight before the normalisation
+  auto weigh = [&](int t, int& id, bool& ok) {
+    id = sorted[t];
     const float pa = id < size ? expf(slot_logp(prio[id], alpha)) : 0.0f;
     ok = pa > 0.0f;
     const float p_sel = pa / fmaxf(sh_sum, 1e-30f);
-    w = powf(static_cast<float>(size1) * p_sel, -beta);
+    return powf(static_cast<float>(size1) * p_sel, -beta);
+  };
+  float w_max = 0.0f;
+  for (int t = tid; t < n; t += kSelectThreads) {
+    int id;
+    bool ok;
+    const float w = weigh(t, id, ok);
+    if (ok) w_max = fmaxf(w_max, w);
   }
-  red[tid] = ok ? w : 0.0f;
+  red[tid] = w_max;
   __syncthreads();
   for (int s = kSelectThreads / 2; s > 0; s >>= 1) {
     if (tid < s) red[tid] = fmaxf(red[tid], red[tid + s]);
     __syncthreads();
   }
-  if (tid < n) {
-    const uint32_t h = static_cast<uint32_t>(id) * 2654435761u + static_cast<uint32_t>(tid);
+  for (int t = tid; t < n; t += kSelectThreads) {
+    int id;
+    bool ok;
+    const float w = weigh(t, id, ok);
+    const uint32_t h = static_cast<uint32_t>(id) * 2654435761u + static_cast<uint32_t>(t);
     const int fallback = static_cast<int>(h % static_cast<uint32_t>(size1));
-    idx_out[tid] = ok ? id : fallback;
-    w_out[tid] = ok ? w / fmaxf(red[0], 1e-30f) : 1.0f;
+    idx_out[t] = ok ? id : fallback;
+    w_out[t] = ok ? w / fmaxf(red[0], 1e-30f) : 1.0f;
   }
 }
 
@@ -290,13 +318,64 @@ prio_refresh_kernel(float* __restrict__ prio, const int* __restrict__ idx,
   if (tid == 0) *p_max_out = fmaxf(*p_max_in, red[0]);
 }
 
+// The refresh above kMaxPicks rows, first launch: each slot's highest row
+// into `owner` (all -1 on entry), and the old p_max copied out.
+__global__ void refresh_claim_kernel(const int* __restrict__ idx, int n, int cap,
+                                     int* __restrict__ owner,
+                                     const float* __restrict__ p_max_in,
+                                     float* __restrict__ p_max_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0) *p_max_out = *p_max_in;
+  if (i >= n) return;
+  const int s = idx[i];
+  if (s >= 0 && s < cap) atomicMax(&owner[s], i);
+}
+
+// fmaxf(*addr, v) stored at *addr, whatever other threads store meanwhile.
+__device__ __forceinline__ void atomic_fmax(float* addr, float v) {
+  int* word = reinterpret_cast<int*>(addr);
+  int old = *reinterpret_cast<volatile int*>(word);
+  for (;;) {
+    const int want = __float_as_int(fmaxf(__int_as_float(old), v));
+    if (want == old) return;
+    const int seen = atomicCAS(word, old, want);
+    if (seen == old) return;
+    old = seen;
+  }
+}
+
+// Second launch: the winner of each slot writes, every row's fresh
+// priority goes into p_max.
+__global__ void __launch_bounds__(kRefreshThreads)
+refresh_write_kernel(float* __restrict__ prio, const int* __restrict__ idx,
+                     const float* __restrict__ abs_err, float eps, int n, int cap,
+                     const int* __restrict__ owner, float* __restrict__ p_max_out) {
+  __shared__ float red[kRefreshThreads];
+  const int tid = threadIdx.x;
+  const int i = blockIdx.x * kRefreshThreads + tid;
+  float fresh = -INFINITY;
+  if (i < n) {
+    fresh = abs_err[i] + eps;
+    const int s = idx[i];
+    if (s >= 0 && s < cap && owner[s] == i) prio[s] = fresh;
+  }
+  red[tid] = fresh;
+  __syncthreads();
+  for (int s = kRefreshThreads / 2; s > 0; s >>= 1) {
+    if (tid < s) red[tid] = fmaxf(red[tid], red[tid + s]);
+    __syncthreads();
+  }
+  if (tid == 0) atomic_fmax(p_max_out, red[0]);
+}
+
 }  // namespace
 
 // Both kernels of one draw; `*launched` counts those that were launched.
+// `scratch`: 3n words when n > kMaxSharedPicks, else unused (may be null).
 extern "C" int gu_per_sample(const void* prio, const void* noise, const void* size,
                              const void* beta, float alpha, int cap, int n,
                              void* score, void* partial, void* idx_out, void* w_out,
-                             int* launched, void* stream) {
+                             void* scratch, int* launched, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const int blocks = (cap + kScoreThreads - 1) / kScoreThreads;
   *launched = 0;
@@ -307,11 +386,17 @@ extern "C" int gu_per_sample(const void* prio, const void* noise, const void* si
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   *launched = 1;
-  per_select_kernel<<<1, kSelectThreads, 0, st>>>(
+  const bool in_shared = n <= kMaxSharedPicks;
+  err = static_cast<int>(cudaFuncSetAttribute(per_select_kernel<false>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              kMaxSharedPicks * 12));
+  if (err != 0) return err;
+  auto* select = in_shared ? per_select_kernel<false> : per_select_kernel<true>;
+  select<<<1, kSelectThreads, in_shared ? static_cast<size_t>(n) * 12 : 0, st>>>(
       static_cast<const float*>(score), static_cast<const float*>(prio),
       static_cast<const float*>(partial), blocks, static_cast<const int64_t*>(size),
       static_cast<const float*>(beta), alpha, cap, n, static_cast<int*>(idx_out),
-      static_cast<float*>(w_out));
+      static_cast<float*>(w_out), static_cast<uint32_t*>(scratch));
   err = static_cast<int>(cudaGetLastError());
   if (err == 0) *launched = 2;
   return err;
@@ -351,12 +436,34 @@ extern "C" int gu_replay_gather(const void* obs, const void* action, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// One launch up to kMaxPicks rows, two above (`owner`: cap ints, all -1;
+// unused, may be null, up to kMaxPicks); `*launched` counts them.
 extern "C" int gu_prio_refresh(void* prio, const void* idx, const void* abs_err, float eps,
                                int n, int cap, const void* p_max_in, void* p_max_out,
-                               void* stream) {
-  prio_refresh_kernel<<<1, kMaxPicks, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(prio), static_cast<const int*>(idx),
-      static_cast<const float*>(abs_err), eps, n, cap,
+                               void* owner, int* launched, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  if (n <= kMaxPicks) {
+    prio_refresh_kernel<<<1, kMaxPicks, 0, st>>>(
+        static_cast<float*>(prio), static_cast<const int*>(idx),
+        static_cast<const float*>(abs_err), eps, n, cap,
+        static_cast<const float*>(p_max_in), static_cast<float*>(p_max_out));
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err == 0) *launched = 1;
+    return err;
+  }
+  const int blocks = (n + kRefreshThreads - 1) / kRefreshThreads;
+  refresh_claim_kernel<<<blocks, kRefreshThreads, 0, st>>>(
+      static_cast<const int*>(idx), n, cap, static_cast<int*>(owner),
       static_cast<const float*>(p_max_in), static_cast<float*>(p_max_out));
-  return static_cast<int>(cudaGetLastError());
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  *launched = 1;
+  refresh_write_kernel<<<blocks, kRefreshThreads, 0, st>>>(
+      static_cast<float*>(prio), static_cast<const int*>(idx),
+      static_cast<const float*>(abs_err), eps, n, cap, static_cast<const int*>(owner),
+      static_cast<float*>(p_max_out));
+  err = static_cast<int>(cudaGetLastError());
+  if (err == 0) *launched = 2;
+  return err;
 }

@@ -36,6 +36,17 @@
 // two agree bit for bit, two runs agree, and a chunked run equals the
 // unbroken run. The file is built with -fmad=false, so `r + γ·v − q` and
 // `α·δ` round as the plain version's separate multiply and add.
+//
+// Large tables. The rebuild stages 16 bytes a Q entry in every block, which
+// is done up to kMaxStagedEntries (8,192 entries, 128 KB). Above it a second
+// form of the step kernel keeps Q out of shared memory: a thread rebuilds
+// each Q entry it reads, q_{t-1} + mean(aggregate_{t-1}), straight from the
+// global buffers (the same function of the same integers, so the same bits),
+// the grid's threads share the store of Q_t and the clearing of step t+1's
+// aggregate, and each env adds its fixed-point α·δ and its count straight
+// into the step's global aggregate with integer atomics. Integer addition is
+// associative, so this form gives the plain version's bits too. Hot cells
+// make those atomics contend; the form is right, not tuned.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +57,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxStagedEntries = 8192;  // 16 bytes each in shared memory
 constexpr double kFixedOne = 4294967296.0;  // 2^32
 
 extern __shared__ unsigned char smem_raw[];
@@ -88,8 +100,19 @@ __device__ __forceinline__ float apply_mean(float q, long long sum, int count) {
   return q + static_cast<float>(mean);
 }
 
+// Q_t[i]: q_prev[i], plus the mean of step t-1's aggregate if `apply_prev`.
+__device__ __forceinline__ float rebuilt(int apply_prev, const float* __restrict__ q_prev,
+                                         const long long* __restrict__ acc_prev,
+                                         const int* __restrict__ cnt_prev, int i) {
+  const float q = q_prev[i];
+  return apply_prev ? apply_mean(q, acc_prev[i], cnt_prev[i]) : q;
+}
+
 // One step. q_prev + (acc_prev, cnt_prev) is this step's Q (q_prev alone
 // if `apply_prev` is 0); this step's aggregate goes to (acc_cur, cnt_cur).
+// kStaged: Q and the block's aggregate in shared memory (at most
+// kMaxStagedEntries entries); otherwise both stay in global memory.
+template <bool kStaged>
 __global__ void td_fast_step_kernel(TdFastArgs g, int apply_prev,
                                     const float* __restrict__ q_prev,
                                     const long long* __restrict__ acc_prev,
@@ -110,14 +133,24 @@ __global__ void td_fast_step_kernel(TdFastArgs g, int apply_prev,
   if (!g.per_env) {
     for (int i = threadIdx.x; i < g.n_words; i += blockDim.x) s_words[i] = g.words[i];
   }
-  for (int i = threadIdx.x; i < n_entries; i += blockDim.x) {
-    float q = q_prev[i];
-    if (apply_prev) q = apply_mean(q, acc_prev[i], cnt_prev[i]);
-    s_q[i] = q;
-    s_acc[i] = 0ull;
-    s_cnt[i] = 0;
-    if (blockIdx.x == 0) {
-      q_cur[i] = q;
+  if (kStaged) {
+    for (int i = threadIdx.x; i < n_entries; i += blockDim.x) {
+      const float q = rebuilt(apply_prev, q_prev, acc_prev, cnt_prev, i);
+      s_q[i] = q;
+      s_acc[i] = 0ull;
+      s_cnt[i] = 0;
+      if (blockIdx.x == 0) {
+        q_cur[i] = q;
+        acc_next[i] = 0ll;
+        cnt_next[i] = 0;
+      }
+    }
+  } else {
+    // Q_t is read by the next launch only, and step t+1's aggregate was last
+    // read by step t-1's: no block of this launch reads what these stores write
+    const int stride = gridDim.x * blockDim.x;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_entries; i += stride) {
+      q_cur[i] = rebuilt(apply_prev, q_prev, acc_prev, cnt_prev, i);
       acc_next[i] = 0ll;
       cnt_next[i] = 0;
     }
@@ -134,7 +167,11 @@ __global__ void td_fast_step_kernel(TdFastArgs g, int apply_prev,
     int idx = g.idx[b], code = g.code[b], t = g.t[b];
     const uint32_t bits = gu::xorshift32(g.rs[b]);
 
-    const float* row = s_q + idx * na;
+    float row[gu::kMaxActions];
+    for (int k = 0; k < na; ++k) {
+      row[k] = kStaged ? s_q[idx * na + k]
+                       : rebuilt(apply_prev, q_prev, acc_prev, cnt_prev, idx * na + k);
+    }
     const int a = gu::explore_coin(bits, g.eps16) ? gu::explore_action(bits, na)
                                                   : gu::first_argmax(row, na);
     const int cell = idx * na + a;
@@ -142,7 +179,11 @@ __global__ void td_fast_step_kernel(TdFastArgs g, int apply_prev,
     gu::Episode ep{g.run_ret[b], g.ret_sum[b], g.n_eps[b], 0};
     const gu::Transition tr = gu::step_autoreset(tab, lw, g.h, g.w, s_idx, s_code,
                                                  g.max_episode_steps, a, idx, code, t, ep);
-    const float* row2 = s_q + tr.obs * na;
+    float row2[gu::kMaxActions];
+    for (int k = 0; k < na; ++k) {
+      row2[k] = kStaged ? s_q[tr.obs * na + k]
+                        : rebuilt(apply_prev, q_prev, acc_prev, cnt_prev, tr.obs * na + k);
+    }
     float v = row2[0], total = row2[0];
     for (int k = 1; k < na; ++k) {
       v = fmaxf(v, row2[k]);
@@ -154,8 +195,13 @@ __global__ void td_fast_step_kernel(TdFastArgs g, int apply_prev,
     const float delta = tr.reward + g.gamma * (tr.done ? 0.0f : v) - q_sa;
     const long long inc =
         __double2ll_rn(static_cast<double>(g.alpha * delta) * kFixedOne);
-    atomicAdd(&s_acc[cell], static_cast<unsigned long long>(inc));
-    atomicAdd(&s_cnt[cell], 1);
+    if (kStaged) {
+      atomicAdd(&s_acc[cell], static_cast<unsigned long long>(inc));
+      atomicAdd(&s_cnt[cell], 1);
+    } else {
+      atomicAdd(&acc_cur[cell], static_cast<unsigned long long>(inc));
+      atomicAdd(&cnt_cur[cell], 1);
+    }
 
     g.idx[b] = idx;
     g.code[b] = code;
@@ -165,6 +211,7 @@ __global__ void td_fast_step_kernel(TdFastArgs g, int apply_prev,
     g.n_eps[b] = ep.n_eps;
     g.ret_sum[b] = ep.ret_sum;
   }
+  if (!kStaged) return;
   __syncthreads();
 
   for (int i = threadIdx.x; i < n_entries; i += blockDim.x) {
@@ -203,9 +250,11 @@ extern "C" int gu_td_scan_fast(
   int* launched = static_cast<int*>(n_launched);
   *launched = 0;
   const int n_entries = h * w * num_actions;
-  const size_t smem = static_cast<size_t>(n_entries) * 16;
-  cudaError_t err = cudaFuncSetAttribute(
-      td_fast_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const bool staged = n_entries <= kMaxStagedEntries;
+  const size_t smem = staged ? static_cast<size_t>(n_entries) * 16 : 0;
+  cudaError_t err = cudaFuncSetAttribute(td_fast_step_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMaxStagedEntries * 16);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* qb = static_cast<float*>(q_buf);
   long long* accb = static_cast<long long*>(acc);
@@ -250,7 +299,8 @@ extern "C" int gu_td_scan_fast(
   const int blocks = (batch + kThreads - 1) / kThreads;
   for (int step = 0; step < num_steps; ++step) {
     const int prev = (step + 2) % 3, cur = step % 3, next = (step + 1) % 3;
-    td_fast_step_kernel<<<blocks, kThreads, smem, st>>>(
+    auto* kernel = staged ? td_fast_step_kernel<true> : td_fast_step_kernel<false>;
+    kernel<<<blocks, kThreads, smem, st>>>(
         g, step > 0, qb + ((step + 1) & 1) * n_entries, accb + prev * n_entries,
         cntb + prev * n_entries, qb + (step & 1) * n_entries,
         reinterpret_cast<unsigned long long*>(accb + cur * n_entries), cntb + cur * n_entries,

@@ -15,6 +15,8 @@ backward) in `csrc/agent_stamp.cu`. The off-policy learner's are K8a
 `replay` (the ring's write, gather and priority refresh) in `csrc/replay.cu`.
 K11 `backtracker_mazes` is in `csrc/backtracker.cu`, and the two gather
 probes P1 `gather_1d` and P2 `take_along_axis1` in `csrc/gather_probe.cu`.
+K12 `trace_pass` (one step of the TD(λ) eligibility traces: decay, flush,
+bump, the live-trace mean and the cut) is in `csrc/trace_pass.cu`.
 `build.load()` compiles them with `nvcc` for `sm_90a` at first use.
 
 Dispatch rule, applied by the public functions in `ops/`, `levels/`,
@@ -28,8 +30,10 @@ succeeded, and nowhere else. K5's wrapper launches one kernel a step and one
 more to apply the last aggregate, so a scan of T steps counts T + 1; the
 backward of `embed_rows` launches two kernels and that of `agent_stamp`
 three, and each counts under its kernel's name. A `per_sample` draw is two
-kernels (scores, then selection); the ring's write, gather and refresh are
-one each, all under `replay`.
+kernels (scores, then selection); the ring's write and gather are one each,
+and the refresh one up to 1,024 rows and two above, all under `replay`. A
+trace step is two kernels (the pass over the trace, then the chunks' sums
+and the table).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ LAUNCHES: dict[str, int] = {
     "backtracker_mazes": 0,
     "gather_1d": 0,
     "take_along_axis1": 0,
+    "trace_pass": 0,
 }
 
 

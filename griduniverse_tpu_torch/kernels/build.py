@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (
     "rollout.cu", "maze.cu", "dp_grid.cu", "td_fast.cu", "td_batched.cu", "segment_mean.cu",
     "gae.cu", "act_step.cu", "embed_rows.cu", "agent_stamp.cu",
-    "replay.cu", "backtracker.cu", "gather_probe.cu",
+    "replay.cu", "backtracker.cu", "gather_probe.cu", "trace_pass.cu",
 )
 HEADERS = ("step.cuh",)
 # No --use_fast_math, and -fmad=false: every kernel is held bit for bit
@@ -51,7 +51,7 @@ _SIGNATURES = {
     "gu_rollout_actions_bits": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P],
-    "gu_aldous_broder_mazes": [_I, _I, _I, _I, _P, _I, _P, _P],
+    "gu_aldous_broder_mazes": [_I, _I, _I, _I, _P, _I, _P, _P, _P],
     "gu_grid_sweeps": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _P, _P],
     "gu_grid_greedy": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P],
     "gu_td_scan_fast": _SEM + _LEVEL + [_I, _I, _I, _I, _F, _F, _F, _F, _I]
@@ -70,15 +70,19 @@ _SIGNATURES = {
     "gu_embed_rows_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gu_agent_stamp": [_P] * 5 + [_I] * 6 + [_P],
     "gu_agent_stamp_backward": [_P] * 7 + [_I] * 8 + [_P],
-    # prio, noise, size, beta; alpha, cap, n; score, partial, idx, w; launched
-    "gu_per_sample": [_P] * 4 + [_F, _I, _I] + [_P] * 5 + [_P],
+    # prio, noise, size, beta; alpha, cap, n; score, partial, idx, w, scratch; launched
+    "gu_per_sample": [_P] * 4 + [_F, _I, _I] + [_P] * 6 + [_P],
     # ring (5), prio; batch (5); at, p_max; B, cap
     "gu_replay_write": [_P] * 13 + [_I, _I, _P],
     "gu_replay_gather": [_P] * 6 + [_I, _I] + [_P] * 5 + [_P],
-    "gu_prio_refresh": [_P] * 3 + [_F, _I, _I, _P, _P, _P],
-    "gu_backtracker_mazes": [_I, _I, _I, _I, _P, _P],
+    # prio, idx, abs_err; eps, n, cap; p_max in, out; owner; launched
+    "gu_prio_refresh": [_P] * 3 + [_F, _I, _I, _P, _P, _P, _P, _P],
+    "gu_backtracker_mazes": [_I, _I, _I, _I, _P, _P, _P],
     "gu_gather_1d": [_P, _I, _P, _I, _P, _P],
     "gu_take_along_axis1": [_P, _I, _P, _I, _I, _P, _P],
+    # e, s, a, delta, cut, table in, out; γλ, cutoff, α; replacing, A, B, cells;
+    # partial num, cnt; launched
+    "gu_trace_pass": [_P] * 7 + [_F, _F, _F] + [_I] * 4 + [_P] * 3 + [_P],
 }
 _ERROR_STRING = "gu_error_string"  # const char* (int): cudaGetErrorString
 

@@ -14,8 +14,12 @@ import torch
 from . import LAUNCHES
 from .build import check_int, check_tensor, launch
 
-# picks of one draw, and rows of one refresh: one thread each in one block
-MAX_PICKS = 1024
+# rows of a refresh in one block; a larger refresh is two launches over a
+# per-slot scratch
+MAX_ONE_BLOCK_REFRESH = 1024
+# picks of a draw whose keys and ids fit shared memory; a larger draw keeps
+# them in a scratch buffer
+MAX_SHARED_PICKS = 16_384
 
 _FIELDS = (
     ("obs", torch.int32), ("action", torch.int32), ("reward", torch.float32),
@@ -43,12 +47,15 @@ def per_sample_cuda(prio, noise, size, beta, n: int, alpha: float):
         raise ValueError(f"per_sample_cuda takes CUDA tensors, got {device}")
     cap = check_int("capacity", int(prio.shape[0]) if prio.dim() == 1 else 0, low=1)
     n = check_int("n", n, low=1)
-    if n > MAX_PICKS or n > cap:
-        raise ValueError(f"n={n}: the kernel draws at most min({MAX_PICKS}, capacity={cap}) slots")
+    if n > cap:
+        raise ValueError(f"n={n}: a draw takes at most capacity={cap} slots")
     score = torch.empty_like(prio)
     partial = torch.empty(((cap + 255) // 256,), dtype=torch.float32, device=device)
     idx = torch.empty((n,), dtype=torch.int32, device=device)
     w = torch.empty((n,), dtype=torch.float32, device=device)
+    scratch = None
+    if n > MAX_SHARED_PICKS:  # keys, ids and sorted ids, a word each
+        scratch = torch.empty((3 * n,), dtype=torch.int32, device=device)
     launched = ctypes.c_int(0)
     launch(
         "gu_per_sample", device,
@@ -58,7 +65,7 @@ def per_sample_cuda(prio, noise, size, beta, n: int, alpha: float):
         _scalar("beta", beta, torch.float32, device),
         float(alpha), cap, n,
         score.data_ptr(), partial.data_ptr(), idx.data_ptr(), w.data_ptr(),
-        ctypes.addressof(launched),
+        None if scratch is None else scratch.data_ptr(), ctypes.addressof(launched),
     )
     LAUNCHES["per_sample"] += launched.value
     return idx, w, score
@@ -107,21 +114,25 @@ def replay_gather_cuda(buf, idx):
 def prio_refresh_cuda(prio, idx, abs_err, eps: float, p_max):
     """Launch K8b's refresh: `prio[idx[i]] = abs_err[i] + eps` IN PLACE, of
     equal indices the highest i wins. Returns the new () `p_max`, the larger
-    of the old one and the largest refreshed priority."""
+    of the old one and the largest refreshed priority. One kernel up to
+    `MAX_ONE_BLOCK_REFRESH` rows, two above; `LAUNCHES` counts them."""
     device = prio.device
     if device.type != "cuda":
         raise ValueError(f"prio_refresh_cuda takes CUDA tensors, got {device}")
     cap = check_int("capacity", int(prio.shape[0]) if prio.dim() == 1 else 0, low=1)
     n = check_int("n", int(idx.shape[0]) if idx.dim() == 1 else 0, low=1)
-    if n > MAX_PICKS:
-        raise ValueError(f"n={n}: the kernel refreshes at most {MAX_PICKS} rows")
     out = torch.empty((), dtype=torch.float32, device=device)
+    owner = None
+    if n > MAX_ONE_BLOCK_REFRESH:  # each slot's winning row, -1 where untouched
+        owner = torch.full((cap,), -1, dtype=torch.int32, device=device)
+    launched = ctypes.c_int(0)
     launch(
         "gu_prio_refresh", device,
         check_tensor("prio", prio, torch.float32, (cap,), device),
         check_tensor("idx", idx, torch.int32, (n,), device),
         check_tensor("abs_err", abs_err, torch.float32, (n,), device),
         float(eps), n, cap, _scalar("p_max", p_max, torch.float32, device), out.data_ptr(),
+        None if owner is None else owner.data_ptr(), ctypes.addressof(launched),
     )
-    LAUNCHES["replay"] += 1
+    LAUNCHES["replay"] += launched.value
     return out

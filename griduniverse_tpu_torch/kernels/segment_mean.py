@@ -10,9 +10,6 @@ import torch
 from . import LAUNCHES
 from .build import check_int, check_tensor, launch
 
-# 8 bytes of shared memory per env, within the 227 KB a block can use
-MAX_BATCH = 28_672
-
 
 def segment_mean_cuda(q, s, a, delta, alpha: float, mask):
     """Launch K10: `q + sum / max(count, 1)` per (s, a) over the envs at
@@ -25,8 +22,6 @@ def segment_mean_cuda(q, s, a, delta, alpha: float, mask):
         raise ValueError(f"q must be (S, A), got shape {tuple(q.shape)}")
     num_states, num_actions = (int(d) for d in q.shape)
     b = check_int("batch", int(delta.shape[0]) if delta.dim() == 1 else 0, low=1)
-    if b > MAX_BATCH:
-        raise ValueError(f"batch {b} exceeds the kernel's {MAX_BATCH} envs")
     check_int("S*A", num_states * num_actions, low=1)
     q_out = torch.empty_like(q)
     launch(

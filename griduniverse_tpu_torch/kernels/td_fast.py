@@ -13,9 +13,6 @@ from . import LAUNCHES
 from .build import check_int, check_tensor, launch
 from .rollout import level_args, max_steps_arg, semantics_args
 
-# 16 bytes of shared memory per Q entry, within what a block can use
-MAX_TABLE_ENTRIES = 8192
-
 
 def td_scan_fast_cuda(
     sem, bl, q, env_state, rs, run_ret, n_eps_env, ret_sum_env,
@@ -31,10 +28,6 @@ def td_scan_fast_cuda(
         raise ValueError(f"td_scan_fast_cuda takes CUDA tensors, got {device}")
     b = int(rs.shape[0]) if rs.dim() == 1 else 0
     n_entries = bl.num_states * sem.num_actions
-    if n_entries > MAX_TABLE_ENTRIES:
-        raise ValueError(
-            f"Q has {n_entries} entries; the kernel takes at most {MAX_TABLE_ENTRIES}"
-        )
     num_steps = check_int("num_steps", num_steps)
     args = semantics_args(sem.passable, sem.terminal, sem.reward, sem.deltas, device)
     args += level_args(

@@ -20,6 +20,8 @@ from .rollout import (
     rollout_actions,
     rollout_policy,
     rollout_random,
+    step_autoreset_batch,
+    step_batch,
 )
 
 __all__ = [
@@ -40,4 +42,6 @@ __all__ = [
     "rollout_actions",
     "rollout_policy",
     "rollout_random",
+    "step_autoreset_batch",
+    "step_batch",
 ]

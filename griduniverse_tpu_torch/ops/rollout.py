@@ -18,6 +18,12 @@ from ..core.semantics import Semantics
 from ..core.step import reset, step, step_autoreset, step_autoreset_truncated
 from ..core.types import EnvState, Level, StepResult
 
+# The reference vmaps its single-env step over the batch, (sem, level,
+# state_B, action_B) -> ...; the port's step is batched by construction (and
+# takes a shared or a per-env level), so these are the same functions.
+step_batch = step
+step_autoreset_batch = step_autoreset
+
 
 def _pick_step(auto_reset: bool, max_episode_steps: int | None = None):
     """The step variant for (auto-reset, optional time-limit truncation)."""

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1–K11, P1 and P2 against their plain PyTorch versions.
+"""The CUDA kernels K1–K12, P1 and P2 against their plain PyTorch versions.
 
 These tests need a CUDA card and the CUDA toolkit (`nvcc`); without a card
 they skip. This file imports no JAX, so it also runs on a machine without
@@ -14,7 +14,7 @@ import torch
 
 import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch import kernels
-from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast
+from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast, td_lambda
 from griduniverse_tpu_torch.levels import builders
 from griduniverse_tpu_torch.models import a2c, dqn, networks, ppo
 from griduniverse_tpu_torch.levels import maze as M
@@ -99,8 +99,8 @@ def test_wrappers_raise_on_bad_input(dev):
         bp.random_scan_bits(sem, bl, st, bp.xorshift_init(0, (8,), device=dev).long(), None, 5, None)
     with pytest.raises(ValueError):
         bp.rollout_actions_bits(sem, bl, st, torch.zeros((5, 8), dtype=torch.int32), True)
-    with pytest.raises(ValueError):
-        M._aldous_broder_mazes((17, 16), 4, 10, device=dev)
+    with pytest.raises(ValueError):  # a 129x129 grid is more than the 16,384 packed states
+        M._aldous_broder_mazes((64, 64), 4, 10, device=dev)
 
 
 def _maze_levels(dev, cells, n, seed=5):
@@ -229,9 +229,13 @@ def test_solver_wrappers_raise_on_bad_input(dev):
         td.apply_td_updates(q, idx.long(), idx, torch.zeros(8, device=dev), 0.1)
     with pytest.raises(ValueError):
         td.apply_td_updates(q, idx, idx, torch.zeros(8, device="cpu"), 0.1)
-    big = bp.pack_level(T.make_level(torch.zeros((60, 60), dtype=torch.int32).numpy(), 0, device=dev))
+    with pytest.raises(ValueError):  # more than the 16,384 packed states K5 steps on
+        bp.pack_level(T.make_level(torch.zeros((130, 130), dtype=torch.int32).numpy(), 0, device=dev))
+    walls = _levels(dev)["walls16"]
+    ts = td_fast.fast_td_init(sem, walls, 0, 8)
+    ts.q = ts.q.double()
     with pytest.raises(ValueError):
-        td_fast.fast_td_init(sem, big, 0, 8) and td_fast.compile_q_learning_fast(sem, big, 8, 1)(0)
+        td_fast.td_scan_fast(sem, walls, ts, 1, 0.1, 0.99, 0.1, "q_learning", None)
 
 
 # ---------------------------------------------------------------------------
@@ -455,8 +459,8 @@ def test_per_sample_kernel_ties_and_overflow(dev):
     noise = a2c.draw_gumbel(gen, (4096,), dev)
     idx, w = _held_draw(prio, noise, 100, 256, 0.6, 0.4)
     assert bool((idx < 100).all()) and bool((w[100:] == 1.0).all())
-    with pytest.raises(ValueError, match="draws at most"):
-        dqn._per_sample(prio, noise, torch.tensor(10, device=dev), 2048, 0.6, torch.tensor(0.4, device=dev))
+    with pytest.raises(ValueError, match="capacity"):  # more picks than slots
+        dqn._per_sample(prio, noise, torch.tensor(10, device=dev), 4097, 0.6, torch.tensor(0.4, device=dev))
 
 
 @pytest.mark.parametrize("cells,b", [((1, 1), 8), ((2, 2), 512), ((4, 4), 4096), ((3, 7), 300), ((16, 16), 256)])
@@ -469,8 +473,8 @@ def test_backtracker_kernel_matches_plain(dev, cells, b):
     assert all(M.check_perfect_maze(g, cells) for g in got[:64].cpu().numpy())
     other, _ = M.generate_mazes_device(12, cells, b, "backtracker", device=dev)
     assert cells == (1, 1) or not torch.equal(got, other)
-    with pytest.raises(ValueError, match="cells"):
-        M.generate_mazes_device(0, (20, 20), 4, "backtracker", device=dev)
+    with pytest.raises(ValueError, match="cells"):  # a 129x129 grid is more than 16,384 packed states
+        M.generate_mazes_device(0, (64, 64), 4, "backtracker", device=dev)
 
 
 def test_gather_probe_kernels_match_plain(dev):
@@ -529,3 +533,136 @@ def test_mc_and_td_lambda_run_on_cuda(dev):
     a = algos.sarsa_lambda(sem, level, 5, num_steps=50, batch_size=64)
     b = algos.sarsa_lambda(sem, level, 5, num_steps=50, batch_size=64)
     assert torch.equal(a.q, b.q) and int(a.episodes) == int(b.episodes)
+
+
+# ---------------------------------------------------------------------------
+# Above the kernels' old shape ceilings (K10, K5, K3, K11, K8a, K8b), and K12
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [28_673, 65_536, 102_400])
+def test_segment_mean_kernel_matches_plain_over_several_tiles(dev, b):
+    gen = torch.Generator(device=dev).manual_seed(b)
+    q = torch.randn((81, 4), generator=gen, device=dev)
+    s = torch.randint(0, 6, (b,), generator=gen, device=dev, dtype=torch.int32)
+    s[::7] = torch.randint(0, 81, (len(s[::7]),), generator=gen, device=dev, dtype=torch.int32)
+    a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+    delta = torch.randn((b,), generator=gen, device=dev)
+    mask = torch.rand((b,), generator=gen, device=dev) < 0.5
+    before = kernels.LAUNCHES["segment_mean"]
+    got = td.apply_td_updates(q, s, a, delta, 0.1)
+    got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
+    assert kernels.LAUNCHES["segment_mean"] == before + 2
+    _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
+    _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
+
+
+def _one_maze(dev, cells, seed):
+    grids, start = M.generate_mazes_device(seed, cells, 1, device=dev)
+    return bp.pack_level(T.Level(grid=grids[0].contiguous(), start_idx=start))
+
+
+@pytest.mark.parametrize("algo", td_fast.ALGOS)
+def test_td_scan_fast_kernel_matches_plain_above_shared_memory(dev, algo):
+    """65x65 with 4 actions: 16,900 Q entries, more than the 8,192 the
+    staged step kernel holds, so Q and the aggregate stay in global memory."""
+    sem = T.make_semantics(device=dev)
+    bl = _one_maze(dev, (32, 32), 6)
+    ts = td_fast.fast_td_init(sem, bl, 3, 4096)
+    assert ts.q.numel() == 16_900
+    kw = dict(alpha=0.2, gamma=0.99, epsilon=0.2, algo=algo, max_episode_steps=64)
+    before = kernels.LAUNCHES["td_scan_fast"]
+    got = td_fast.td_scan_fast(sem, bl, ts, 200, **kw)
+    assert kernels.LAUNCHES["td_scan_fast"] == before + 200 + 1
+    _assert_same(_fast_fields(got), _fast_fields(td_fast.td_scan_fast_reference(sem, bl, ts, 200, **kw)))
+    half = td_fast.td_scan_fast(sem, bl, td_fast.td_scan_fast(sem, bl, ts, 80, **kw), 120, **kw)
+    _assert_same(_fast_fields(half), _fast_fields(got))
+
+
+@pytest.mark.parametrize("cells,b", [((17, 16), 64), ((32, 32), 256), ((63, 63), 32)])
+def test_maze_kernels_match_plain_above_local_memory(dev, cells, b):
+    before = dict(kernels.LAUNCHES)
+    got, _ = M.generate_mazes_device(11, cells, b, "backtracker", device=dev)
+    assert kernels.LAUNCHES["backtracker_mazes"] == before["backtracker_mazes"] + 1
+    assert torch.equal(got, M.backtracker_mazes_reference(cells, b, seed=11, device=dev))
+    assert all(M.check_perfect_maze(g, cells) for g in got[:8].cpu().numpy())
+    max_iters = 3000  # short of covering the larger mazes: the safety net carves the rest
+    dirs = torch.randint(0, 4, (max_iters, b), device=dev, dtype=torch.int8)
+    ab = M._aldous_broder_mazes(cells, b, max_iters, directions=dirs)
+    assert torch.equal(ab, M.aldous_broder_mazes_reference(cells, b, max_iters, directions=dirs))
+    seeded = M._aldous_broder_mazes(cells, b, max_iters, seed=3, device=dev)
+    assert torch.equal(seeded, M.aldous_broder_mazes_reference(cells, b, max_iters, seed=3, device=dev))
+    assert kernels.LAUNCHES["aldous_broder_mazes"] == before["aldous_broder_mazes"] + 2
+    assert all(M.check_perfect_maze(g, cells) for g in ab[:8].cpu().numpy())
+
+
+@pytest.mark.parametrize("cap,size,n", [(131_072, 131_072, 4096), (8192, 3000, 4096), (65_536, 50_000, 20_000)])
+def test_per_sample_kernel_matches_plain_above_one_block_of_picks(dev, cap, size, n):
+    """n > 1,024 picks; above 16,384 the picks' keys live in global scratch."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    prio = torch.rand((cap,), generator=gen, device=dev) * 4 + 1e-3
+    prio[torch.randint(0, cap, (cap // 16,), generator=gen, device=dev)] = 0.0
+    noise = a2c.draw_gumbel(gen, (cap,), dev)
+    idx, w = _held_draw(prio, noise, size, n, 0.6, 0.4)
+    assert bool((idx >= 0).all()) and bool((idx < size).all())
+    if size < n:
+        assert bool((w[size:] == 1.0).all())
+    again, w2 = _held_draw(prio, noise, size, n, 0.6, 0.4)
+    assert torch.equal(idx, again) and torch.equal(w, w2)
+
+
+@pytest.mark.parametrize("cap,n", [(131_072, 1025), (131_072, 4096), (8192, 20_000)])
+def test_prio_refresh_kernel_matches_plain_above_one_block(dev, cap, n):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    prio_g = torch.rand((cap,), generator=gen, device=dev)
+    prio_r = prio_g.clone()
+    idx = torch.randint(0, cap, (n,), generator=gen, device=dev, dtype=torch.int32)
+    idx[n // 2:] = idx[: n - n // 2].clone()  # equal indices: the highest position wins
+    abs_err = torch.rand((n,), generator=gen, device=dev) * 5
+    p_max = torch.tensor(3.5, device=dev)
+    before = kernels.LAUNCHES["replay"]
+    pm_g = dqn.prio_refresh(prio_g, idx, abs_err, 1e-3, p_max)
+    assert kernels.LAUNCHES["replay"] == before + 2
+    pm_r = dqn.prio_refresh_reference(prio_r, idx, abs_err, 1e-3, p_max)
+    _assert_same((prio_g, pm_g), (prio_r, pm_r))
+    assert torch.equal(prio_g[idx[-1].long()], abs_err[-1] + 1e-3)
+
+
+@pytest.mark.parametrize("b,s,a", [(1, 16, 4), (300, 16, 4), (4096, 256, 4), (513, 81, None)])
+@pytest.mark.parametrize("kind", ["accumulating", "replacing"])
+def test_trace_pass_kernel_matches_plain(dev, b, s, a, kind):
+    gen = torch.Generator(device=dev).manual_seed(b)
+    shape = (b, s) if a is None else (b, s, a)
+    e = torch.rand(shape, generator=gen, device=dev) * 2 * (torch.rand(shape, generator=gen, device=dev) < 0.3)
+    e.reshape(b, -1)[::5, 1] = 1e-4 / 0.72  # decays to about the cutoff, on both sides of it
+    states = torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32)
+    actions = None if a is None else torch.randint(0, a, (b,), generator=gen, device=dev, dtype=torch.int32)
+    delta = torch.randn((b,), generator=gen, device=dev)
+    cut = torch.rand((b,), generator=gen, device=dev) < 0.2
+    table = torch.randn(shape[1:], generator=gen, device=dev)
+    e_g, e_r = e.clone(), e.clone()
+    args = (states, actions, delta, cut, 0.9, 0.8, 1e-4, 0.3, kind)
+    before = kernels.LAUNCHES["trace_pass"]
+    got = td_lambda.trace_pass(table, e_g, *args)
+    assert kernels.LAUNCHES["trace_pass"] == before + 2
+    _assert_same((got, e_g), (td_lambda.trace_pass_reference(table, e_r, *args), e_r))
+
+
+def test_td_lambda_on_cuda_equals_the_cpu_run(dev):
+    from griduniverse_tpu_torch import algos
+
+    level = builders.make_level_from_indices((4, 4), start_idx=0, lava=[5], goals=[15], device=dev)
+    cpu_level = builders.make_level_from_indices((4, 4), start_idx=0, lava=[5], goals=[15], device="cpu")
+    sem, cpu_sem = T.make_semantics(device=dev), T.make_semantics(device="cpu")
+    kw = dict(num_steps=40, batch_size=300, alpha=0.2, epsilon=0.2)
+    for fn in (algos.sarsa_lambda, algos.watkins_q_lambda):
+        before = kernels.LAUNCHES["trace_pass"]
+        got = fn(sem, level, 5, **kw)
+        assert kernels.LAUNCHES["trace_pass"] == before + 2 * 40
+        want = fn(cpu_sem, cpu_level, 5, **kw)
+        assert torch.equal(got.q.cpu().view(torch.int32), want.q.view(torch.int32))
+        assert int(got.episodes) == int(want.episodes)
+    policy = torch.full((16, 4), 0.25)
+    got = algos.td_lambda_prediction(sem, level, policy.to(dev), 5, num_steps=40, batch_size=300)
+    want = algos.td_lambda_prediction(cpu_sem, cpu_level, policy, 5, num_steps=40, batch_size=300)
+    assert torch.equal(got.v.cpu().view(torch.int32), want.v.view(torch.int32))

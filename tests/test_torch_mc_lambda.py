@@ -269,6 +269,21 @@ def test_td_lambda_control_matches_jax(algo, trace):
     np.testing.assert_allclose(float(got.mean_return), float(want.mean_return), rtol=1e-6)
 
 
+@pytest.mark.parametrize("algo", ["sarsa", "watkins"])
+def test_td_lambda_control_matches_jax_across_chunks(algo):
+    """B=300 spans two chunks of the trace pass's fixed order of adds."""
+    jlevel, tlevel = small_levels()
+    key, b, steps = jax.random.PRNGKey(8), 300, 60
+    jfn = ja.sarsa_lambda if algo == "sarsa" else ja.watkins_q_lambda
+    tfn = ta.sarsa_lambda if algo == "sarsa" else ta.watkins_q_lambda
+    kw = dict(num_steps=steps, batch_size=b, alpha=0.2, gamma=0.99, epsilon=0.2, lam=0.9, trace="accumulating")
+    want = jfn(JSEM, jlevel, key, **kw)
+    got = tfn(TSEM, tlevel, 0, draws=jax_td_draws(key, b, steps, 0.2), **kw)
+    assert int(got.episodes) == int(want.episodes) > 0
+    np.testing.assert_allclose(got.q.numpy(), np.asarray(want.q), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(float(got.mean_return), float(want.mean_return), rtol=1e-6)
+
+
 @pytest.mark.parametrize("fn,trace", [("sarsa_lambda", "accumulating"), ("watkins_q_lambda", "replacing")])
 def test_td_lambda_reaches_optimal_policy(fn, trace):
     _, level = small_levels()

@@ -129,24 +129,23 @@ def test_gather_probe_on_the_cpu():
 
 
 def test_every_kernel_has_a_source_an_entry_point_and_a_count():
-    """Sixteen kernels; on the CPU nothing is launched."""
-    assert len(kernels.LAUNCHES) == 16
-    for name in ("per_sample", "replay", "backtracker_mazes", "gather_1d", "take_along_axis1"):
+    """Seventeen kernels; on the CPU nothing is launched."""
+    assert len(kernels.LAUNCHES) == 17
+    for name in ("per_sample", "replay", "backtracker_mazes", "gather_1d", "take_along_axis1", "trace_pass"):
         assert name in kernels.LAUNCHES
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     sources = "".join((build.CSRC_DIR / s).read_text() for s in build.SOURCES)
     for entry in build._SIGNATURES:
         assert re.search(rf'extern "C" int {entry}\(', sources), entry
-    for s in ("replay.cu", "backtracker.cu", "gather_probe.cu"):
+    for s in ("replay.cu", "backtracker.cu", "gather_probe.cu", "trace_pass.cu"):
         assert s in build.SOURCES and (build.CSRC_DIR / s).is_file()
 
 
 def test_signatures_match_the_c_parameter_lists():
-    """Each new entry point's argtypes has one entry per C parameter."""
-    sources = "".join((build.CSRC_DIR / s).read_text() for s in ("replay.cu", "backtracker.cu", "gather_probe.cu"))
+    """Each entry point's argtypes has one entry per C parameter."""
+    sources = "".join((build.CSRC_DIR / s).read_text() for s in build.SOURCES)
     kinds = {"int": build._I, "float": build._F}
-    for entry in ("gu_per_sample", "gu_replay_write", "gu_replay_gather", "gu_prio_refresh",
-                  "gu_backtracker_mazes", "gu_gather_1d", "gu_take_along_axis1"):
+    for entry in build._SIGNATURES:
         params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', sources).group(1).split(",")
         want = [build._P if "*" in p else kinds[p.split()[0]] for p in params]
         assert build._SIGNATURES[entry] == want, entry
