@@ -6,13 +6,16 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 
     python3 chip_smoke.py
 
-It builds the seventeen hand-written kernels (K1–K6, K7a, K7b, K8a, K8b, K9a,
-K9b, K10, K11, K12, P1, P2) from `griduniverse_tpu_torch/csrc/`, holds each against its plain PyTorch
-version, drives the port's main paths at full size and checks what comes out:
+It builds the nineteen hand-written kernels (K1–K6, K7a, K7b, K7c, K8a, K8b,
+K9a, K9b, K10, K11, K12, K13, P1, P2) from `griduniverse_tpu_torch/csrc/`, holds
+each against its plain PyTorch version, drives the port's main paths at full
+size and checks what comes out:
 
   * the env path: level → pack → K1/K2 rollouts; K3 mazes → pack → K1, and
     K3 on 32×32-cell mazes from injected directions;
-  * the solver path: K3 mazes → K4 value/policy iteration; walls16 → K5
+  * the solver path: K3 mazes → K4 value/policy iteration, and K4's
+    global-memory tier over 64 sidewinder mazes of 161×129 (20,769 states
+    each); walls16 → K5
     shared-Q learning, and K5 on one 65×65 backtracker maze (16,900 Q
     entries); mazes → K6 per-maze Q-learning; walls16 → `q_learning` on the
     generic step with K10, at up to 65,536 envs;
@@ -24,13 +27,17 @@ version, drives the port's main paths at full size and checks what comes out:
     `generate_mazes_device` (up to 63×63 cells) → pack → K1; the gather
     probe tool (P1, P2);
   * the tabular family's last two modules: `mc_prediction` and `mc_control`
-    at 25,600 and 102,400 samples a round (K10), and `sarsa_lambda`,
+    at 25,600 and 102,400 samples a round (K13, K10), and `sarsa_lambda`,
     `watkins_q_lambda` and `td_lambda_prediction` through the trace pass
     (K12) at 65,536 envs, and at 4,096;
   * the off-policy path: `dqn_train` on walls16 with uniform and with
-    prioritized replay (K8a, K8b, K9a; the prioritized draw also at 4,096
-    picks) and on 65,536 per-env backtracker mazes with the conv Q-network
-    (K8b, K9b), 65,536 envs and a ring of 131,072 transitions each.
+    prioritized replay (K7c, K8a, K8b, K9a; the prioritized draw also at
+    4,096 picks) and on 65,536 per-env backtracker mazes with the conv
+    Q-network (K7c, K8b, K9b), 65,536 envs and a ring of 131,072 transitions
+    each;
+  * resume through disk: `dqn_run` (uniform and prioritized, K7c) and
+    `ppo_run` at 65,536 envs saved by an async `CheckpointManager`,
+    restored into a fresh state and run on, against the unbroken runs.
 
 Each main path is driven with the launch counts set to 0 just before it and
 read just after, and every count must be the one the path's shape gives. The
@@ -144,6 +151,13 @@ INSTR_K11_TILE = 10     # the wall fill: 40 instructions for four unrolled tiles
 INSTR_P1 = 23           # gather_1d_kernel, one element
 INSTR_P2 = 48           # take_along_axis1_kernel, one element
 INSTR_K12_ELEM = 12     # one trace element: load, decay, flush, bump test, multiply, add, count, store (an estimate)
+# K7c and K13 (estimates, not SASS counts): an env's act and step is K7b's path
+# without its log-softmax; a sample of K13 is a load, a multiply, an add, a store
+# and its first-visit test against a hash of the ids seen
+INSTR_K7C_ENV = 400
+INSTR_K13_SAMPLE = 12
+# K4 above 16,384 states a maze, at full width: the mazes, and PI's cap
+N_BIG, PI_BIG_ITERS = 64, 10
 HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
 
 
@@ -174,7 +188,7 @@ def _same_fields(tag: str, got, ref, names) -> float:
     for name, a, b in zip(names, got, ref):
         if a.dtype == torch.bfloat16:
             a, b = a.float(), b.float()
-        if a.dtype == torch.int64 and a.dim() == 0:
+        if a.dim() == 0:
             a, b = a.reshape(1), b.reshape(1)
         err = max(err, _same(f"{tag} {name}", a, b))
     return err
@@ -218,7 +232,8 @@ def solver_phases(gt, dev, gen, bound, smi):
     from griduniverse_tpu_torch import algos, kernels
     from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast
     from griduniverse_tpu_torch.core.step import step_autoreset
-    from griduniverse_tpu_torch.kernels.dp_grid import grid_sweeps_cuda
+    from griduniverse_tpu_torch.kernels import dp_grid
+    from griduniverse_tpu_torch.kernels.dp_grid import grid_greedy_cuda, grid_sweeps_cuda
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.levels import maze as M
     from griduniverse_tpu_torch.ops import bitplane as bp
@@ -263,6 +278,50 @@ def solver_phases(gt, dev, gen, bound, smi):
         print(f"K4 cells={cells} N=256: VI {got[2]} sweeps (convergence at sweep {mid} of a launch of "
               f"{dp_batched.SWEEPS_PER_LAUNCH}), PI {pgot[2]} policy iterations: V, policy, iters bit-exact vs plain")
     _require(inside_a_launch, "no K4 shape converged inside a launch")
+
+    # K4's global-memory tier, above 16,384 states a maze: two sidewinder mazes
+    # of 65x64 cells (131x129, 16,899 states), one launch a sweep
+    g17, st17 = M.generate_mazes_device(31, (65, 64), 2, "sidewinder")
+    lv17 = gt.Level(grid=g17, start_idx=st17.expand(2).contiguous())
+    s17 = lv17.num_states
+    _require(s17 > dp_grid.MAX_STATES and not dp_grid.uses_shared_tier(s17), "K4: the small global-tier shape is not above the limit")
+    backup17 = dp_batched._grid_backup(sem, g17, 0.99)
+
+    def plain_sweeps_of(backup, v, policy, k):
+        maxima = []
+        for _ in range(k):
+            q = backup(v)
+            v_new = q.max(dim=-1).values if policy is None else q.gather(2, policy.long()[:, :, None])[:, :, 0]
+            maxima.append((v_new - v).abs().max())
+            v = v_new
+        return v, torch.stack(maxima)
+
+    before = kernels.LAUNCHES["dp_grid"]
+    v17, max17 = grid_sweeps_cuda(sem, g17, torch.zeros((2, s17), device=dev), None, 0.99, 9)
+    _require(kernels.LAUNCHES["dp_grid"] == before + 9, "K4 global tier: not one launch a sweep")
+    hold("dp_grid", "K4 global tier 9 VI sweeps", (v17, max17),
+         plain_sweeps_of(backup17, torch.zeros((2, s17), device=dev), None, 9), ("V", "sweep maxima"))
+    pol17 = torch.randint(0, 4, (2, s17), generator=gen, device=dev, dtype=torch.int32)
+    hold("dp_grid", "K4 global tier 5 evaluation sweeps", grid_sweeps_cuda(sem, g17, v17, pol17, 0.99, 5),
+         plain_sweeps_of(backup17, v17, pol17, 5), ("V", "sweep maxima"))
+    greedy17, changed17 = grid_greedy_cuda(sem, g17, v17, 0.99, pol17)
+    want17 = dp_batched.first_argmax(backup17(v17))
+    hold("dp_grid", "K4 global tier greedy", (greedy17, changed17),
+         (want17, (want17 != pol17).any().to(torch.int32).reshape(1)), ("policy", "changed"))
+    _require(int(changed17) == 1 and int(grid_greedy_cuda(sem, g17, v17, 0.99, want17)[1]) == 0,
+             "K4 global tier: the `changed` flag")
+    got = algos.value_iteration_batched_grid(sem, lv17)
+    ref = dp_batched.value_iteration_batched_grid_reference(sem, lv17)
+    _require(got[2] == ref[2], f"K4 global VI: iters {got[2]} != plain {ref[2]}")
+    hold("dp_grid", "K4 global VI", got[:2], ref[:2], ("V", "policy"))
+    kw_pi = dict(max_eval_iters=300, max_policy_iters=3)
+    pgot = algos.policy_iteration_batched_grid(sem, lv17, **kw_pi)
+    pref = dp_batched.policy_iteration_batched_grid_reference(sem, lv17, **kw_pi)
+    _require(pgot[2] == pref[2], f"K4 global PI: iters {pgot[2]} != plain {pref[2]}")
+    hold("dp_grid", "K4 global PI", pgot[:2], pref[:2], ("V", "policy"))
+    print(f"K4 global tier N=2 131x129 ({s17} states): 9 VI and 5 evaluation sweeps (V and every sweep's maximum), "
+          f"the greedy step and its `changed` flag, VI ({got[2]} sweeps) and PI capped at 3 policy iterations: "
+          "bit-exact vs plain")
 
     kw5 = dict(alpha=0.1, gamma=0.99, epsilon=0.1, max_episode_steps=MAX_EPISODE_STEPS)
     for algo in td_fast.ALGOS:
@@ -324,9 +383,10 @@ def solver_phases(gt, dev, gen, bound, smi):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, out
 
-    def check_policies(tag, lv, policy, n_sample=1024):
+    def check_policies(tag, lv, policy, n_sample=1024, max_steps=None):
         sample = gt.Level(grid=lv.grid[:n_sample], start_idx=lv.start_idx[:n_sample])
-        _, ret, length, done = algos.run_greedy_episode(sem, sample, policy[:n_sample], max_steps=lv.num_states)
+        _, ret, length, done = algos.run_greedy_episode(sem, sample, policy[:n_sample],
+                                                        max_steps=max_steps or lv.num_states)
         _require(bool(done.all()), f"{tag}: a sampled greedy policy does not reach its goal")
         _require(bool((ret == 10.0 - (length - 1)).all()), f"{tag}: a sampled return is not goal minus steps")
 
@@ -343,6 +403,27 @@ def solver_phases(gt, dev, gen, bound, smi):
     _require(2 <= outs["pi"][2] < 100, f"PI: implausible iters {outs['pi'][2]}")
     check_policies("PI 9x9", lv_pi, outs["pi"][1])
     print(f"K4 main PI N={n_pi} 9x9: {outs['pi'][2]} policy iterations, {ms!r} ms, {n_pi / ms * 1e3!r} mazes/s ({smi})")
+    # above 16,384 states a maze, K4's global tier: 64 sidewinder mazes of 80x64
+    # cells (161x129, 20,769 states; sidewinder takes at most 64 cell columns).
+    # VI runs to convergence; PI to a cap of PI_BIG_ITERS policy iterations, as
+    # these mazes need more than the reference's 100 to settle
+    k = dp_batched.SWEEPS_PER_LAUNCH
+    g_big, st_big = M.generate_mazes_device(2029, (80, 64), N_BIG, "sidewinder")
+    lv_big = gt.Level(grid=g_big, start_idx=st_big.expand(N_BIG).contiguous())
+    before = kernels.LAUNCHES["dp_grid"]
+    ms, outs["vi_big"] = timed(lambda: algos.value_iteration_batched_grid(sem, lv_big))
+    it = outs["vi_big"][2]
+    # launches of 16 sweeps until the one where it converged, that many sweeps rerun, and the greedy step
+    expect = k * -(-it // k) + it % k + 1
+    _require(kernels.LAUNCHES["dp_grid"] - before == expect,
+             f"K4 global VI: {kernels.LAUNCHES['dp_grid'] - before} launches, expected {expect}")
+    _require(100 < it < 10_000, f"VI 161x129: implausible iters {it}")
+    check_policies("VI 161x129", lv_big, outs["vi_big"][1], N_BIG, max_steps=it + 1)
+    print(f"K4 main VI N={N_BIG} 161x129 ({lv_big.num_states} states, global tier): {it} sweeps in {expect} launches, "
+          f"{ms!r} ms, {N_BIG / ms * 1e3!r} mazes/s; every greedy policy reaches its goal ({smi})")
+    ms, outs["pi_big"] = timed(lambda: algos.policy_iteration_batched_grid(sem, lv_big, max_policy_iters=PI_BIG_ITERS))
+    _require(outs["pi_big"][2] == PI_BIG_ITERS, f"PI 161x129: {outs['pi_big'][2]} policy iterations")
+    print(f"K4 main PI N={N_BIG} 161x129 (global tier): {PI_BIG_ITERS} policy iterations (the cap), {ms!r} ms ({smi})")
 
     ms, outs["fast"] = timed(lambda: algos.compile_q_learning_fast(sem, bl_walls, n64, steps, **kw5)(7))
     res = outs["fast"]
@@ -437,6 +518,15 @@ def solver_phases(gt, dev, gen, bound, smi):
     _require(ref[2] == outs["pi"][2], "K4 main PI: iters differ from plain")
     hold("dp_grid", "K4 main PI", outs["pi"][:2], ref[:2], ("V", "policy"))
     print("K4 main PI: V, policy and iters bit-exact vs plain")
+    plain_ms, ref = timed(lambda: dp_batched.value_iteration_batched_grid_reference(sem, lv_big))
+    _require(ref[2] == outs["vi_big"][2], "K4 main VI 161x129: iters differ from plain")
+    hold("dp_grid", "K4 main VI 161x129", outs["vi_big"][:2], ref[:2], ("V", "policy"))
+    plain_pi_ms, ref = timed(lambda: dp_batched.policy_iteration_batched_grid_reference(
+        sem, lv_big, max_policy_iters=PI_BIG_ITERS))
+    _require(ref[2] == outs["pi_big"][2], "K4 main PI 161x129: iters differ from plain")
+    hold("dp_grid", "K4 main PI 161x129", outs["pi_big"][:2], ref[:2], ("V", "policy"))
+    print(f"K4 main 161x129 (global tier): VI and PI's V, policy and iters bit-exact vs plain (plain VI {plain_ms!r} ms, "
+          f"PI {plain_pi_ms!r} ms) ({smi})")
 
     ts = algos.fast_td_init(sem, bl_walls, 7, n64)
     ms5, got = _cuda_ms(lambda: td_fast.td_scan_fast(sem, bl_walls, ts, steps, algo="q_learning", **kw5), 3)
@@ -537,6 +627,17 @@ def solver_phases(gt, dev, gen, bound, smi):
         ms=ms4, plain_ms=plain4, shape=f"{k} VI sweeps, {n64} mazes 9x9", library_ms=None,
         # grids and V in, V out; per sweep one backup of every cell
         **bound(n64 * 81 * 4 * 3, k * n64 * 81 * INSTR_K4_CELL))
+    s_big = lv_big.num_states
+    v0_big = torch.zeros((N_BIG, s_big), dtype=torch.float32, device=dev)
+    g_big = lv_big.grid.contiguous()
+    backup_big = dp_batched._grid_backup(sem, g_big, 0.99)
+    ms4g, got = _cuda_ms(lambda: grid_sweeps_cuda(sem, g_big, v0_big, None, 0.99, k), 10)
+    plain4g, ref = _cuda_ms(lambda: plain_sweeps_of(backup_big, v0_big, None, k), 2)
+    hold("dp_grid", "K4 global tier timed sweeps", got, ref, ("V", "sweep maxima"))
+    t4g = bound(N_BIG * s_big * 4 * 3, k * N_BIG * s_big * INSTR_K4_CELL)
+    print(f"time dp_grid global tier at {k} VI sweeps, {N_BIG} mazes 161x129 ({k} launches): kernel {ms4g!r} ms "
+          f"({ms4g / k!r} ms a sweep), plain {plain4g!r} ms, bound {t4g['bound_ms']!r} ms by {t4g['bound_by']}, "
+          f"library None ms; bit-exact vs plain ({smi})")
     for tag, lv, key in (("9x9", lv64, "vi64"), ("33x33", lv33, "vi33")):
         cap = 400 if tag == "33x33" else 10_000
         ms, _ = _cuda_ms(lambda: algos.value_iteration_batched_grid(sem, lv, max_iters=cap), 3)
@@ -1189,6 +1290,74 @@ def maze_probe_phases(gt, dev, bound, smi):
 
 
 _DQN_SCALARS = ("p_max", "t", "run_ret", "episodes", "ret_sum", "last_loss")
+_K7C_FIELDS = ("agent_idx", "agent_code", "t", "state done", "action", "next_obs", "reward", "done", "run_ret",
+               "episodes", "ret_sum")
+
+
+def _fast_state(st):
+    return st.agent_idx, st.agent_code, st.t, st.done
+
+
+def resume_through_disk(gt, dev, smi, runs, walls16):
+    """Phase 22: `dqn_run` at 65,536 envs on walls16 (uniform and PER, a ring
+    of 131,072) saved after 60 steps by an async `CheckpointManager`,
+    restored into a fresh template and run 60 more, against phase 18's 120
+    unbroken steps; the same for `ppo_run` (1 + 1 updates against 2). The
+    checkpoints go under `build/` of the checkout and are removed."""
+    import shutil
+
+    from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = ROOT / "build" / "smoke_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    n64 = 65_536
+
+    def through_disk(tag, state, step, template):
+        """Async save, wait, restore; returns the restored state and prints
+        the size and the times."""
+        with CheckpointManager(root / tag, async_=True) as mgr:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(step, state)
+            t_call = time.perf_counter() - t0
+            mgr.wait()
+            t_write = time.perf_counter() - t0
+            size = sum(f.stat().st_size for f in (root / tag).rglob("*") if f.is_file())
+            t0 = time.perf_counter()
+            got_step, restored = mgr.restore_latest(template)
+            torch.cuda.synchronize()
+            t_read = time.perf_counter() - t0
+        _require(got_step == step, f"{tag}: restored step {got_step}")
+        print(f"checkpoint {tag}: {size} bytes; save {t_call * 1e3!r} ms until it returned (the host snapshot), "
+              f"{t_write * 1e3!r} ms until written; restore {t_read * 1e3!r} ms ({smi})")
+        return restored
+
+    sem = gt.make_semantics()
+    for name in ("dqn walls16 uniform", "dqn walls16 per"):
+        level, cfg, at60, at120 = runs[name]
+        restored = through_disk(name.replace(" ", "_"), at60, 60, models.dqn_init(sem, level, 0, cfg, n64))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        resumed = models.dqn_run(sem, level, restored, cfg, 60)
+        torch.cuda.synchronize()
+        _require(kernels.LAUNCHES["dqn_act"] == 120, f"{name} resumed: {kernels.LAUNCHES['dqn_act']} K7c launches")
+        _same_dqn_state(f"{name} resumed through disk", resumed, at120)
+        _require(resumed.seed == at120.seed and int(resumed.t) == 120, f"{name} resumed: seed or step counter")
+        print(f"{name}: 60 steps, an async save, a restore into a fresh template and 60 more steps equal 120 unbroken "
+              "bit for bit (parameters, target, Adam, env state, the whole ring, priorities, statistics; K7c "
+              "launched 120 times in the resumed run)")
+    cfg = models.PPOConfig(max_episode_steps=MAX_EPISODE_STEPS)
+    ts0 = models.ppo_init(sem, walls16, 5, cfg, n64)
+    two = models.ppo_run(sem, walls16, ts0, cfg, 2)
+    restored = through_disk("ppo_walls16", models.ppo_run(sem, walls16, ts0, cfg, 1), 1,
+                            models.ppo_init(sem, walls16, 0, cfg, n64))
+    resumed = models.ppo_run(sem, walls16, restored, cfg, 1)
+    _same_train_state("ppo walls16 resumed through disk", resumed, two)
+    _require(resumed.seed == two.seed and resumed.update == 2, "ppo resumed: seed or update counter")
+    print("ppo walls16 B=65536: 1 update, an async save, a restore into a fresh template and 1 more update equal "
+          "2 unbroken bit for bit (parameters, Adam moments and count, env state, statistics)")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _dqn_state_fields(ts):
@@ -1215,12 +1384,17 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     at a small shape, the DQN main paths at full width with their launches
     counted, every K8 launch of their steps 60..119 against the plain
     version on the step's own inputs, and the times.
+    K7c is held at small shapes (ties in q, a shared level and per-env
+    mazes, every episode edge) and at every one of those steps, and DQN and
+    PPO resume through disk (phase 22).
     Returns (launches, max abs errors, times) by kernel name."""
     from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.core import semantics as S
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.models import a2c, dqn, networks
+    from griduniverse_tpu_torch.ops import bitplane as bp
 
-    errs = {"per_sample": 0.0, "replay": 0.0}
+    errs = {"per_sample": 0.0, "replay": 0.0, "dqn_act": 0.0}
     times = {}
     sem = gt.make_semantics()
     walls16 = builders.walls_and_goal_16x16()
@@ -1291,6 +1465,35 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         print(f"K8a cap={cap} n={n}: size = cap, cap/2 + 37 and 100 < n, and ties: scores within {K8A_SCORE_ULPS} ulp, "
               f"selection bit-exact on the kernel's own scores, weights within {K8A_WEIGHT_RTOL} (max abs err so far {errs['per_sample']!r})")
 
+    # K7c at a small shape: q with many ties, a shared level and per-env mazes,
+    # a short time limit, so that episodes end at the goal, in lava and by
+    # truncation; every output of every step against the plain version
+    ends = {"goal": 0, "lava": 0, "truncation": 0}
+    b7 = 4096
+    mazes4k = gt.Level(grid=lv64.grid[:b7].contiguous(), start_idx=lv64.start_idx[:b7].contiguous())
+    corridor = builders.make_level_from_indices((2, 6), start_idx=0, goals=[5])  # a goal five steps away
+    for lname, level in (("walls16", walls16), ("lava", builders.lava_level()), ("corridor", corridor),
+                         ("mazes", mazes4k)):
+        bl = bp.pack_level(level)
+        st = bp.reset_bits(bl, None if bl.batched else b7)
+        stats = (torch.zeros(b7, device=dev), torch.zeros((), dtype=torch.int64, device=dev), torch.zeros((), device=dev))
+        for _ in range(48):
+            q = torch.randint(-2, 3, (b7, num_actions), generator=gen, device=dev).float() * 0.5
+            explore = torch.rand(b7, generator=gen, device=dev) < 0.5
+            rand_a = torch.randint(0, num_actions, (b7,), generator=gen, device=dev, dtype=torch.int32)
+            got = dqn.dqn_act_step(sem, bl, st, q, explore, rand_a, *stats, 16)
+            ref = dqn.dqn_act_step_reference(sem, bl, st, q, explore, rand_a, *stats, 16)
+            errs["dqn_act"] = max(errs["dqn_act"], _same_fields(
+                f"K7c {lname}", (*_fast_state(got[0]), *got[1:]), (*_fast_state(ref[0]), *ref[1:]), _K7C_FIELDS))
+            done, code = got[4], bp.tile_code(bl, got[2])
+            ends["goal"] += int((done & (code == S.GOAL)).sum())
+            ends["lava"] += int((done & (code == S.LAVA)).sum())
+            ends["truncation"] += int((done & ~sem.terminal[code.long()]).sum())
+            st, stats = got[0], got[5:]
+    _require(all(v > 0 for v in ends.values()), f"K7c small shapes: an episode edge never happened: {ends}")
+    print(f"K7c B={b7}, walls16, lava, a corridor and per-env mazes, 48 steps each, q with ties: every output bit-exact vs plain; "
+          f"episodes ended {ends}")
+
     # -- phase 18: the DQN main paths at full width, each counted --------------
     base = dict(buffer_capacity=cap64, max_episode_steps=MAX_EPISODE_STEPS)
     cfgs = {
@@ -1310,7 +1513,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         # a step: write and gather, with PER the refresh (two launches above 1,024 rows)
         refresh = 0 if not cfg.prioritized else (1 if cfg.batch_size_train <= 1024 else 2)
         expected = {net_kernel: steps * per_step, "replay": steps * (2 + refresh),
-                    "per_sample": steps * 2 if cfg.prioritized else 0}
+                    "per_sample": steps * 2 if cfg.prioritized else 0, "dqn_act": steps * 2}
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -1352,7 +1555,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
 
     # -- phase 19: steps 60..119 of each main path against the plain rule ------
     plain_ring = dict(replay_write_cuda=dqn.replay_write_reference, replay_gather_cuda=dqn.replay_gather_reference,
-                      prio_refresh_cuda=dqn.prio_refresh_reference)
+                      prio_refresh_cuda=dqn.prio_refresh_reference, dqn_act_step=dqn.dqn_act_step_reference)
     kept = {}
     for name, (level, cfg, at60, at120) in runs.items():
         learner = dqn.dqn_learner(sem, level, cfg, n64)
@@ -1371,20 +1574,32 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
                     sc = scalars[i]
                     draws = dqn.step_draws(dev, at60.seed, 60 + i, cfg, n64, num_actions, sc.eps, sc.size)
                     before = (dqn.ReplayBuffer(*(x.clone() for x in buf)), prio.clone(), p_max)
-                    upd = dqn.dqn_update(sem, learner, cfg, params, target, opt_state, env_state, buf, prio, p_max, sc, draws)
+                    pre = (params, env_state, stats)
+                    upd = dqn.dqn_update(sem, learner, cfg, params, target, opt_state, env_state, buf, prio, p_max, sc,
+                                         draws, stats)
                     if not patches:
-                        hold_step(f"{name} step {60 + i}", cfg, before, upd, sc, draws, buf, prio)
+                        hold_step(f"{name} step {60 + i}", cfg, before, pre, upd, sc, draws, buf, prio)
                     params, target, opt_state, env_state, p_max = (upd.params, upd.target_params, upd.opt_state,
                                                                    upd.env_state, upd.p_max)
-                    stats = a2c.fold_episode_stats(*stats, upd.batch.reward[None], upd.batch.done[None])
+                    stats = upd.stats
             kept[name] = (buf, prio, upd, sc, draws)
             return type(at120)(**{**vars(at120), "params": params, "target_params": target, "opt_state": opt_state,
                                   "env_state": env_state, "buf": buf, "prio": prio, "p_max": p_max,
                                   "run_ret": stats[0], "episodes": stats[1], "ret_sum": stats[2], "last_loss": upd.loss})
 
-        def hold_step(tag, cfg, before, upd, sc, draws, buf, prio):
-            """Every K8 launch of one step against its plain version on the
-            step's own inputs."""
+        def hold_step(tag, cfg, before, pre, upd, sc, draws, buf, prio):
+            """Every K7c and K8 launch of one step against its plain version
+            on the step's own inputs."""
+            params, env_state, stats = pre
+            with torch.no_grad():
+                q, _ = a2c._net_apply(learner.net, params, env_state.agent_idx, learner.tiles)
+            ref = dqn.dqn_act_step_reference(sem, learner.bl, env_state, q, draws[0], draws[1], *stats,
+                                             cfg.max_episode_steps)
+            b_ = upd.batch
+            errs["dqn_act"] = max(errs["dqn_act"], _same_fields(
+                f"K7c main {tag}", (*_fast_state(upd.env_state), b_.action, b_.next_obs, b_.reward, b_.done, *upd.stats),
+                (*_fast_state(ref[0]), *ref[1:]), _K7C_FIELDS))
+            _same(f"K7c main {tag} obs", b_.obs, env_state.agent_idx)
             ref_buf, ref_prio, ref_p_max = before
             dqn.replay_write_reference(ref_buf, ref_prio if cfg.prioritized else None, sc.at, upd.batch, ref_p_max)
             if cfg.prioritized:
@@ -1402,14 +1617,18 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
 
         _same_dqn_state(f"{name}: steps 60..119 redone with the kernels", redo({}), at120)
         msg = (f"{name} main, steps 60..119 redone by the trainer's step function end in the main path's state; at every "
-               "step the ring after the write and the refresh, the minibatch and p_max bit-exact vs plain")
+               "step K7c's outputs (state, transition, statistics), the ring after the write and the refresh, the "
+               "minibatch and p_max bit-exact vs plain")
         if cfg.prioritized:
             msg += (f", K8a's scores within {K8A_SCORE_ULPS} ulp, its selection bit-exact on its own scores, its weights "
                     f"within {K8A_WEIGHT_RTOL}")
-        else:  # no float of K8 differs from plain here, so the whole run must repeat with the plain ring
-            _same_dqn_state(f"{name}: steps 60..119 redone with the plain ring", redo(plain_ring), at120)
-            msg += "; redone with the plain ring they end in the same state bit for bit"
+        else:  # no float of K7c or K8 differs from plain here, so the whole run must repeat with the plain versions
+            _same_dqn_state(f"{name}: steps 60..119 redone with the plain ring and act-step", redo(plain_ring), at120)
+            msg += "; redone with the plain ring and act-step they end in the same state bit for bit"
         print(msg)
+
+    # -- phase 22: resume through disk ------------------------------------------
+    resume_through_disk(gt, dev, smi, runs, walls16)
 
     # -- phase 20: times at the main path's shapes -----------------------------
     buf, prio, upd, sc, draws = kept["dqn walls16 per"]
@@ -1505,7 +1724,64 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     print(f"time replay gather + refresh at n={n}, capacity {cap}: kernel {g_ms!r} + {r_ms!r} ms (the refresh two launches), "
           f"plain {pg_ms!r} + {pr_ms!r} ms, bound {t8b['bound_ms']!r} ms by {t8b['bound_by']}, "
           f"library (index_select x5 + index_put_ + max) {lib_ms!r} ms ({smi})")
+
+    # K7c at the main path's shape: walls16, 65,536 envs, from the state after 120 steps
+    level, cfg, _, at120 = runs["dqn walls16 uniform"]
+    learner = dqn.dqn_learner(sem, level, cfg, n64)
+    with torch.no_grad(), networks.exact_kernels():
+        q, _ = a2c._net_apply(learner.net, at120.params, at120.env_state.agent_idx, learner.tiles)
+    explore = torch.rand(n64, generator=gen, device=dev) < 0.05
+    rand_a = torch.randint(0, num_actions, (n64,), generator=gen, device=dev, dtype=torch.int32)
+    args = (sem, learner.bl, at120.env_state, q, explore, rand_a, at120.run_ret, at120.episodes, at120.ret_sum,
+            cfg.max_episode_steps)
+    ms, got = _cuda_ms(lambda: dqn.dqn_act_step(*args), 50)
+    plain_ms, ref = _cuda_ms(lambda: dqn.dqn_act_step_reference(*args), 10)
+    errs["dqn_act"] = max(errs["dqn_act"], _same_fields(
+        "K7c timed", (*_fast_state(got[0]), *got[1:]), (*_fast_state(ref[0]), *ref[1:]), _K7C_FIELDS))
+    times["dqn_act"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None, shape=f"walls16 B={n64}, A={num_actions} (two kernels)",
+        # per env: q, the two draws (5 bytes), the state (12) and the running return (4) read;
+        # the new state (13), the transition (13) and the running return (4) written
+        **bound(n64 * (4 * num_actions + 5 + 12 + 4 + 13 + 13 + 4), INSTR_K7C_ENV * n64))
+
+    dqn_step_events(dev, smi, sem, level, cfg, at120)
     return launches, errs, times
+
+
+def dqn_step_events(dev, smi, sem, level, cfg, state, steps: int = 20) -> None:
+    """A DQN step's device events, host time and the card's idle share, with
+    K7c and with the act, step and statistics as the port ran them before
+    K7c (argmax, `where`, `step_bits`, then `fold_episode_stats`), from the
+    same state, in turns: K7c, before, before, K7c."""
+    from griduniverse_tpu_torch import models
+    from griduniverse_tpu_torch.models import a2c, dqn
+    from griduniverse_tpu_torch.ops.bitplane import step_bits
+    from griduniverse_tpu_torch.tools.profile_learners import _profile
+    from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+
+    def before_k7c(sem, bl, st, q, explore, rand_a, run_ret, episodes, ret_sum, max_episode_steps=None):
+        actions = torch.where(explore, rand_a.to(torch.int32), torch.argmax(q, dim=-1).to(torch.int32))
+        st, (next_obs, reward, done) = step_bits(sem, bl, st, actions, True, max_episode_steps)
+        run_ret, episodes, ret_sum = a2c.fold_episode_stats(run_ret, episodes, ret_sum, reward[None], done[None])
+        return st, actions, next_obs, reward, done, run_ret, episodes, ret_sum
+
+    def call():
+        return models.dqn_run(sem, level, state, cfg, steps)
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev).sum().item()  # the profiler's own start-up
+    b = state.run_ret.shape[0]
+    for tag, patch in (("with K7c", contextlib.nullcontext()),
+                       ("as before K7c", mock.patch.object(dqn, "dqn_act_step", before_k7c)),
+                       ("as before K7c, again", mock.patch.object(dqn, "dqn_act_step", before_k7c)),
+                       ("with K7c, again", contextlib.nullcontext())):
+        with patch:
+            call()
+            walls = sorted(_wall_ms(call) for _ in range(3))
+            prof = _profile(f"dqn walls16 B={b} {steps} steps {tag}", call, walls[1], smi, top=4)
+        _require(prof is not None, "the profiler recorded no device time for a DQN call")
+        print(f"DQN step {tag}: {walls[1] / steps!r} ms a step on the host clock (median of 3 calls of {steps} steps: "
+              f"{walls!r} ms), {prof[1] / steps!r} device events a step, device idle share {100 * prof[2]:.2f} % ({smi})")
 
 
 def mc_lambda_phases(gt, dev, bound, smi):
@@ -1520,7 +1796,10 @@ def mc_lambda_phases(gt, dev, bound, smi):
     (65,536, 256) trace) go through K12, two launches a step; steps 0-4 and
     100-104 are redone by the plain version on the step's own inputs and
     must give the same table and trace bits, and two runs the same bits.
-    Returns (launches, max abs errors, times) of K12."""
+    K13 (the returns and the first-visit mask, one launch a round) is held
+    at small shapes and on every round's own samples, and the mc calls are
+    timed with it and with its plain versions.
+    Returns (launches, max abs errors, times) of K12 and K13."""
     from griduniverse_tpu_torch import algos, kernels
     from griduniverse_tpu_torch.algos import mc, td, td_lambda
     from griduniverse_tpu_torch.levels import builders
@@ -1534,19 +1813,58 @@ def mc_lambda_phases(gt, dev, bound, smi):
         calls.append(((q, s, a, delta, alpha, mask), out))
         return out
 
+    real_returns = mc.mc_returns
+    returns_calls = []
+
+    def recorded_returns(rewards, gamma, ids=None, valid=None):
+        out = real_returns(rewards, gamma, ids, valid)
+        returns_calls.append(((rewards, gamma, ids, valid), out))
+        return out
+
+    def plain_returns(rewards, gamma, ids=None, valid=None):
+        """K13's plain versions, on the same tensors: what `mc` ran before K13."""
+        return mc.discounted_returns(rewards, gamma), None if ids is None else mc.first_visit_mask(ids, valid)
+
+    # -- K13 against its plain version at small shapes: T = 1 and 100, all
+    # valid, none valid, repeated ids
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs = {"trace_pass": 0.0, "mc_returns": 0.0}
+    for t13, b13, n_ids, kind in ((1, 300, 4, "random"), (100, 256, 81, "random"), (100, 1024, 324, "random"),
+                                  (100, 256, 81, "all valid"), (100, 256, 81, "none valid"), (37, 64, 1, "one id")):
+        lengths = torch.randint(0, t13 + 1, (b13,), generator=gen, device=dev)
+        valid = torch.arange(t13, device=dev)[:, None] < lengths[None]
+        if kind != "random":
+            valid = torch.full_like(valid, kind != "none valid")
+        rewards = torch.where(valid, torch.randn((t13, b13), generator=gen, device=dev), 0.0)
+        ids = torch.randint(0, n_ids, (t13, b13), generator=gen, device=dev, dtype=torch.int32)
+        got = mc.mc_returns(rewards, 0.99, ids, valid)
+        errs["mc_returns"] = max(errs["mc_returns"], _same_fields(
+            f"K13 T={t13} B={b13} {kind}", got, plain_returns(rewards, 0.99, ids, valid), ("returns", "first-visit mask")))
+        _same(f"K13 T={t13} B={b13} {kind}, returns alone", mc.mc_returns(rewards, 0.99)[0], got[0])
+    print("K13 T=1, 37 and 100, B=64 to 1,024, random, all and no steps valid, repeated ids: returns and first-visit "
+          "mask bit-exact vs plain")
+
     rounds, wide = 5, 1024
     torch.cuda.synchronize()
     kernels.reset_launches()
-    with mock.patch.object(mc, "apply_td_updates_masked", recorded):
+    with mock.patch.object(mc, "apply_td_updates_masked", recorded), mock.patch.object(mc, "mc_returns", recorded_returns):
         pred = algos.mc_prediction(sem, lava, 3)
         torch.cuda.synchronize()
-        _require(kernels.LAUNCHES["segment_mean"] == 1, f"mc_prediction: {kernels.LAUNCHES['segment_mean']} K10 launches, expected 1")
+        _require(kernels.LAUNCHES["segment_mean"] == 1 and kernels.LAUNCHES["mc_returns"] == 1,
+                 f"mc_prediction: {kernels.LAUNCHES['segment_mean']} K10 and {kernels.LAUNCHES['mc_returns']} K13 "
+                 "launches, expected 1 each")
         ctl = algos.mc_control(sem, lava, 6, num_rounds=rounds)
         pred_wide = algos.mc_prediction(sem, lava, 4, batch_size=wide)
     torch.cuda.synchronize()
     got = {k: v for k, v in kernels.LAUNCHES.items() if v}
     print(f"launches of mc_prediction (defaults), {rounds} rounds of mc_control and mc_prediction at {wide} episodes: {got}")
-    _require(got == {"segment_mean": 2 + rounds}, f"mc: launches {got}, expected one K10 launch a round and no other kernel")
+    _require(got == {"segment_mean": 2 + rounds, "mc_returns": 2 + rounds},
+             f"mc: launches {got}, expected one K10 and one K13 launch a round and no other kernel")
+    for i, (args, out) in enumerate(returns_calls):
+        errs["mc_returns"] = max(errs["mc_returns"], _same_fields(
+            f"K13 mc round {i}", out, plain_returns(*args), ("returns", "first-visit mask")))
+    print(f"K13 at mc's shapes: all {2 + rounds} launches bit-exact vs plain on the runs' own rewards, ids and valid "
+          f"flags (T=100, B=256 and {wide}; state ids, and state-action ids in mc_control)")
     samples = calls[0][0][1].shape[0]
     _require(samples == 25_600 and all(c[0][1].shape[0] == samples for c in calls[:-1]), f"mc: a round's samples are not 25,600: {samples}")
     _require(calls[-1][0][1].shape[0] == wide * 100, f"mc at {wide} episodes: {calls[-1][0][1].shape[0]} samples")
@@ -1572,10 +1890,49 @@ def mc_lambda_phases(gt, dev, bound, smi):
     print(f"K10 at mc's shapes: all {2 + rounds} launches bit-exact vs plain (max abs err {err!r}); "
           f"mc_prediction visited {visited} states ({smi})")
 
+    # K13's time at a round of mc_control (the record's shape) and at 1,024 episodes
+    times = {}
+    for tag, (args, _) in (("a round of mc_control", returns_calls[-2]), (f"mc_prediction at {wide} episodes", returns_calls[-1])):
+        t13, b13 = args[0].shape
+        ms, _ = _cuda_ms(lambda: mc.mc_returns(*args), 50)
+        plain_ms, _ = _cuda_ms(lambda: plain_returns(*args), 5)
+        # rewards, ids and valid flags read once, returns and mask written once
+        t13b = dict(ms=ms, plain_ms=plain_ms, library_ms=None, shape=f"{tag}, T={t13}, B={b13}",
+                    **bound(t13 * b13 * 14, INSTR_K13_SAMPLE * t13 * b13))
+        print(f"time mc_returns at {t13b['shape']}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {t13b['bound_ms']!r} ms "
+              f"by {t13b['bound_by']}, library None ms ({smi})")
+        if "mc_control" in tag:
+            times["mc_returns"] = t13b
+
+    # the calls on the host clock with K13 and with its plain versions (what ran
+    # before K13), and the card's idle share of an mc_prediction call
+    from griduniverse_tpu_torch.tools.profile_learners import _profile
+    from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+
+    entry_points = {"mc_prediction (256 episodes x 100 steps)": lambda: algos.mc_prediction(sem, lava, 3),
+                    f"mc_prediction ({wide} episodes)": lambda: algos.mc_prediction(sem, lava, 4, batch_size=wide),
+                    "a round of mc_control": lambda: algos.mc_control(sem, lava, 6, num_rounds=1)}
+    for name, call in entry_points.items():
+        walls = {}
+        for tag, patch in (("K13", contextlib.nullcontext()), ("plain", mock.patch.object(mc, "mc_returns", plain_returns)),
+                           ("plain again", mock.patch.object(mc, "mc_returns", plain_returns)),
+                           ("K13 again", contextlib.nullcontext())):
+            with patch:
+                call()
+                walls[tag] = sorted(_wall_ms(call) for _ in range(3))
+        print(f"{name} on the host clock, median of 3 (all 3), K13 then plain then plain then K13: "
+              f"{walls['K13'][1]!r} ({walls['K13']!r}), {walls['plain'][1]!r} ({walls['plain']!r}), "
+              f"{walls['plain again'][1]!r}, {walls['K13 again'][1]!r} ms ({smi})")
+        if name.startswith("mc_prediction (256"):
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+                torch.zeros(1, device=dev).sum().item()  # the profiler's own start-up
+            prof = _profile(f"{name} with K13", call, walls["K13 again"][1], smi, top=6)
+            _require(prof is not None, "the profiler recorded no device time for an mc_prediction call")
+            print(f"{name} with K13: {prof[1]} device events, device idle share {100 * prof[2]:.2f} % ({smi})")
+
     # -- the trace pass (K12) at full width ------------------------------------
     walls16 = builders.walls_and_goal_16x16()
-    errs = {"trace_pass": 0.0}
-    launches = {"trace_pass": 0}
+    launches = {"trace_pass": 0, "mc_returns": got["mc_returns"]}
     b, steps = 65_536, 200
     held = set(range(5)) | set(range(100, 105))
     policy = torch.full((walls16.num_states, sem.num_actions), 1.0 / sem.num_actions, device=dev)
@@ -1647,7 +2004,6 @@ def mc_lambda_phases(gt, dev, bound, smi):
         e.copy_(torch.where(cut.reshape(shape), 0.0, x))
         return table + alpha * num / cnt.clamp(min=1.0)
 
-    times = {}
     for name in runs:
         table, e, args = kept[name]
         n_cells = table.numel()
@@ -1979,7 +2335,7 @@ def main() -> None:
         "random_scan_bits": (csrc + "rollout.cu", "griduniverse_tpu/ops/bitplane.py:334"),
         "rollout_actions_bits": (csrc + "rollout.cu", "griduniverse_tpu/ops/bitplane.py:278"),
         "aldous_broder_mazes": (csrc + "maze.cu", "griduniverse_tpu/levels/maze.py:331"),
-        "dp_grid": (csrc + "dp_grid.cu", "griduniverse_tpu/algos/dp_batched.py:392"),
+        "dp_grid": (csrc + "dp_grid.cu", "griduniverse_tpu/algos/dp_batched.py:390"),
         "td_scan_fast": (csrc + "td_fast.cu", "griduniverse_tpu/algos/td_fast.py:243"),
         "td_batched": (csrc + "td_batched.cu", "griduniverse_tpu/algos/td_batched.py:78"),
         "segment_mean": (csrc + "segment_mean.cu", "griduniverse_tpu/algos/td.py:78"),
@@ -1993,6 +2349,8 @@ def main() -> None:
         "gather_1d": (csrc + "gather_probe.cu", "tools/pallas_probe.py:43"),
         "take_along_axis1": (csrc + "gather_probe.cu", "tools/pallas_probe.py:61"),
         "trace_pass": (csrc + "trace_pass.cu", "griduniverse_tpu/algos/td_lambda.py:41"),
+        "dqn_act": (csrc + "dqn_act.cu", "griduniverse_tpu/models/dqn.py:347"),
+        "mc_returns": (csrc + "mc_returns.cu", "griduniverse_tpu/algos/mc.py:59"),
     }
     _require(set(sources) == set(kernels.LAUNCHES), "the record does not list every kernel")
     record = {"kernels": [

@@ -9,9 +9,11 @@ PyTorch counterpart of `griduniverse_tpu/algos/dp_batched.py`.
     models that are not built from a grid.
   * Grid form (`value_iteration_batched_grid`,
     `policy_iteration_batched_grid`): solves straight from the (N, H, W)
-    tile codes. On CUDA this is kernel K4 (`csrc/dp_grid.cu`): one block
-    per maze, V in shared memory, several Jacobi sweeps per launch. On the
-    CPU it is the plain version beside it (`*_reference`).
+    tile codes. On CUDA this is kernel K4 (`csrc/dp_grid.cu`): up to
+    16,384 cells a maze, one block per maze, V in shared memory, several
+    Jacobi sweeps per launch; above that, one thread per cell from global
+    memory, one launch per sweep. On the CPU it is the plain version beside
+    it (`*_reference`).
 
 All solvers stop on the GLOBAL max |ΔV| over every maze and return V after
 exactly that many sweeps for every maze, as the reference does. K4 records

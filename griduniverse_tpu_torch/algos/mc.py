@@ -2,12 +2,15 @@
 
 PyTorch counterpart of `griduniverse_tpu/algos/mc.py`. B episodes of fixed
 maximum length T are rolled in lockstep on the generic step (freeze-on-done
-gives fixed shapes); returns are a reverse pass over time; FIRST-VISIT
-detection is a (T, T) triangular self-comparison per episode (T is at most a
-few hundred); the per-state aggregation is the deterministic segment mean
-of `algos.td` (`apply_td_updates_masked`: kernel K10 on CUDA, its plain
-version on the CPU), so a run repeats its bits on the card, at any number
-of samples (T·B) a round.
+gives fixed shapes). The returns (a reverse pass over time) and the
+FIRST-VISIT mask (each step's id against the earlier valid steps of its
+episode) are kernel K13 (`csrc/mc_returns.cu`, one launch a round) on CUDA;
+on the CPU the plain versions `discounted_returns` and `first_visit_mask`
+(a (T, T) triangular self-comparison per episode). The per-state
+aggregation is the deterministic segment mean of `algos.td`
+(`apply_td_updates_masked`: kernel K10 on CUDA, its plain version on the
+CPU), so a run repeats its bits on the card, at any number of samples (T·B)
+a round.
 
 Random numbers. The native stream is one xorshift32 lane per episode, one
 round a step: the uniform-random policy takes its action from the top 16
@@ -23,9 +26,11 @@ import dataclasses
 
 import torch
 
+from .. import kernels
 from ..core.semantics import Semantics
 from ..core.step import step
 from ..core.types import Level
+from ..kernels.mc_returns import mc_returns_cuda
 from ..ops.bitplane import to_uint32_values, xorshift_init, xorshift_next
 from ..ops.rollout import reset_batch
 from .td import apply_td_updates_masked, epsilon_greedy
@@ -84,6 +89,20 @@ def first_visit_mask(ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return valid & ~seen_before
 
 
+def mc_returns(rewards: torch.Tensor, gamma: float, ids=None, valid=None):
+    """(returns, first-visit mask) of (T, B) samples: `discounted_returns`
+    of the float32 `rewards`, and with `ids` (T, B) int32 and `valid` (T, B)
+    bool the `first_visit_mask`, else None (K13 on CUDA, equal to the plain
+    versions bit for bit)."""
+    extra = () if ids is None else (ids, valid)
+    if not kernels.on_cuda(rewards, *extra):
+        g = discounted_returns(rewards, gamma)
+        return g, None if ids is None else first_visit_mask(ids, valid)
+    if ids is not None:
+        extra = (ids.to(torch.int32).contiguous(), valid.contiguous())
+    return mc_returns_cuda(rewards.contiguous(), gamma, *extra)
+
+
 def _segment_mean(table, cell, action, increment, alpha, mask):
     """`table + Σ α·increment / max(count, 1)` per (cell, action) over the
     (T, B) samples where `mask` is set, summed in (t, b) order."""
@@ -124,8 +143,8 @@ def mc_prediction(
         sem, level, policy_q, key, batch_size, max_steps, epsilon, draws)
     if not include_unfinished:
         valid = valid & finished[None, :]
-    g = discounted_returns(r, gamma)
-    mask = first_visit_mask(s, valid) if first_visit else valid
+    g, first = mc_returns(r, gamma, s, valid) if first_visit else mc_returns(r, gamma)
+    mask = first if first_visit else valid
     zeros = torch.zeros((num_states, 1), dtype=torch.float32, device=s.device)
     # with a zero table and α = 1 the segment mean IS the mean return
     v = _segment_mean(zeros, s, torch.zeros_like(s), g, 1.0, mask)[:, 0]
@@ -171,9 +190,9 @@ def mc_control(
         b = s.shape[1]
         if not include_unfinished:
             valid = valid & finished[None, :]
-        g = discounted_returns(r, gamma)
         sa = s * sem.num_actions + a
-        mask = first_visit_mask(sa, valid) if first_visit else valid
+        g, first = mc_returns(r, gamma, sa, valid) if first_visit else mc_returns(r, gamma)
+        mask = first if first_visit else valid
         delta = g - q.reshape(-1)[sa.long()]
         q = _segment_mean(q, s, a, delta, alpha, mask)
     return MCControlResult(q=q, episodes=torch.tensor(num_rounds * b, dtype=torch.int64, device=dev))

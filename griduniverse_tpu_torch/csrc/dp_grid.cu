@@ -1,8 +1,8 @@
 // dp_grid.cu — K4: grid-form value iteration and Howard policy iteration
 // over N mazes.
 //
-// Replaces griduniverse_tpu/algos/dp_batched.py `_grid_backup` (392),
-// `_vi_grid_impl` (421) and `_pi_grid_impl` (604). Per sweep and maze,
+// Replaces griduniverse_tpu/algos/dp_batched.py `_grid_backup` (390),
+// `_vi_grid_impl` (422) and `_pi_grid_impl` (605). Per sweep and maze,
 //   Q(s,a) = rew + γ·where(done, 0, where(blocked, V[s], V[cand])),
 // rows of terminal cells are 0, and V_new is max_a Q (VI) or the policy's
 // entry (PI evaluation). The JAX version turns `V[:, cand]` into a constant
@@ -24,6 +24,18 @@
 // order-free for non-negative floats; the host reads the launch's maxima
 // once and decides. The file is built with -fmad=false: `rew + γ·cont` is
 // two roundings, as in the plain version, so V agrees bit for bit.
+//
+// Above 16,384 cells a maze no longer fits one block's shared memory, and
+// a second, global-memory tier takes over: one thread per cell of all N
+// mazes, the packed words and the second V buffer in a scratch the wrapper
+// allocates (N·S·8 bytes beside V itself; 6.7 MB in all for 64 mazes of
+// 161×161, which stays in the 50 MB L2). Nothing orders blocks within a
+// launch, so a sweep is one launch and the launch boundary is the barrier
+// between Jacobi sweeps; the first sweep of a call derives each cell's word
+// and stores it for the rest. A Jacobi sweep is order-free per cell, so V,
+// the sweep maxima and the policy are the same bits as in the shared tier
+// and in the plain version. This tier is bound by bytes: a sweep reads V
+// and the words and writes V, 12 bytes a cell, from and to L2.
 
 #include <cuda_runtime.h>
 
@@ -51,6 +63,34 @@ struct GridArgs {
   const int* policy;  // (N, S) or null
 };
 
+// The packed word of cell `s` of the maze whose tile codes are `codes`
+// (the low two bits of each entry) and whose policy row is `policy` (or
+// null).
+template <typename Code>
+__device__ uint32_t cell_word(const GridArgs& g, const gu::Tables& tab, const Code* codes,
+                              const int* policy, int s) {
+  const int row = s / g.w;
+  const int col = s - row * g.w;
+  const int code = static_cast<int>(codes[s]) & 3;
+  uint32_t word = 0;
+  for (int a = 0; a < tab.num_actions; ++a) {
+    const int nrow = row + tab.drow[a];
+    const int ncol = col + tab.dcol[a];
+    const bool in_bounds = nrow >= 0 && nrow < g.h && ncol >= 0 && ncol < g.w;
+    const int cand = min(max(nrow, 0), g.h - 1) * g.w + min(max(ncol, 0), g.w - 1);
+    const int cand_code = static_cast<int>(codes[cand]) & 3;
+    const bool blocked = !in_bounds || !((tab.passable >> cand_code) & 1);
+    const uint32_t new_code = blocked ? code : cand_code;
+    word |= (static_cast<uint32_t>(blocked) | (new_code << 1)) << (3 * a);
+  }
+  word |= static_cast<uint32_t>((tab.terminal >> code) & 1) << kTermBit;
+  if (policy != nullptr) {
+    const int a = gu::clamp_action(policy[s], tab.num_actions);
+    word |= static_cast<uint32_t>(a) << kPolicyShift;
+  }
+  return word;
+}
+
 // Fills `info[s]` for the block's maze; `codes` is scratch of S bytes.
 __device__ void build_info(const GridArgs& g, const gu::Tables& tab, uint32_t* info,
                            uint8_t* codes) {
@@ -60,27 +100,9 @@ __device__ void build_info(const GridArgs& g, const gu::Tables& tab, uint32_t* i
     codes[s] = static_cast<uint8_t>(g.grids[base + s] & 3);
   }
   __syncthreads();
+  const int* policy = g.policy != nullptr ? g.policy + base : nullptr;
   for (int s = threadIdx.x; s < s_dim; s += blockDim.x) {
-    const int row = s / g.w;
-    const int col = s - row * g.w;
-    const int code = codes[s];
-    uint32_t word = 0;
-    for (int a = 0; a < tab.num_actions; ++a) {
-      const int nrow = row + tab.drow[a];
-      const int ncol = col + tab.dcol[a];
-      const bool in_bounds = nrow >= 0 && nrow < g.h && ncol >= 0 && ncol < g.w;
-      const int cand = min(max(nrow, 0), g.h - 1) * g.w + min(max(ncol, 0), g.w - 1);
-      const int cand_code = codes[cand];
-      const bool blocked = !in_bounds || !((tab.passable >> cand_code) & 1);
-      const uint32_t new_code = blocked ? code : cand_code;
-      word |= (static_cast<uint32_t>(blocked) | (new_code << 1)) << (3 * a);
-    }
-    word |= static_cast<uint32_t>((tab.terminal >> code) & 1) << kTermBit;
-    if (g.policy != nullptr) {
-      const int a = gu::clamp_action(g.policy[base + s], tab.num_actions);
-      word |= static_cast<uint32_t>(a) << kPolicyShift;
-    }
-    info[s] = word;
+    info[s] = cell_word(g, tab, codes, policy, s);
   }
 }
 
@@ -92,6 +114,34 @@ __device__ __forceinline__ float q_value(const gu::Tables& tab, uint32_t word, i
   const int next = (bits & 1u) ? s : s + tab.drow[a] * w + tab.dcol[a];
   const float cont = ((tab.terminal >> new_code) & 1) ? 0.0f : v[next];
   return tab.reward[new_code] + gamma * cont;
+}
+
+// V_new of one cell: the policy's action value (PI evaluation) or the
+// maximum over actions (VI); 0 for a terminal cell.
+__device__ __forceinline__ float cell_backup(const gu::Tables& tab, uint32_t word, int s, int w,
+                                             const float* v, float gamma, bool evaluate) {
+  if ((word >> kTermBit) & 1u) return 0.0f;
+  if (evaluate) return q_value(tab, word, (word >> kPolicyShift) & 7u, s, w, v, gamma);
+  float best = q_value(tab, word, 0, s, w, v, gamma);
+  for (int a = 1; a < tab.num_actions; ++a) best = fmaxf(best, q_value(tab, word, a, s, w, v, gamma));
+  return best;
+}
+
+// The greedy action of one cell under v: the first maximum, 0 if terminal.
+__device__ __forceinline__ int cell_greedy(const gu::Tables& tab, uint32_t word, int s, int w,
+                                           const float* v, float gamma) {
+  int best = 0;
+  if (!((word >> kTermBit) & 1u)) {
+    float best_q = q_value(tab, word, 0, s, w, v, gamma);
+    for (int a = 1; a < tab.num_actions; ++a) {
+      const float q = q_value(tab, word, a, s, w, v, gamma);
+      if (q > best_q) {
+        best_q = q;
+        best = a;
+      }
+    }
+  }
+  return best;
 }
 
 __device__ float block_max(float x, float* red) {
@@ -128,18 +178,7 @@ __global__ void grid_sweeps_kernel(GridArgs g, const float* __restrict__ v_in,
   for (int k = 0; k < num_sweeps; ++k) {
     float local = 0.0f;
     for (int s = threadIdx.x; s < s_dim; s += blockDim.x) {
-      const uint32_t word = info[s];
-      float v = 0.0f;
-      if (!((word >> kTermBit) & 1u)) {
-        if (evaluate) {
-          v = q_value(tab, word, (word >> kPolicyShift) & 7u, s, g.w, v_old, gamma);
-        } else {
-          v = q_value(tab, word, 0, s, g.w, v_old, gamma);
-          for (int a = 1; a < tab.num_actions; ++a) {
-            v = fmaxf(v, q_value(tab, word, a, s, g.w, v_old, gamma));
-          }
-        }
-      }
+      const float v = cell_backup(tab, info[s], s, g.w, v_old, gamma, evaluate);
       v_new[s] = v;
       local = fmaxf(local, fabsf(v - v_old[s]));
     }
@@ -172,20 +211,66 @@ __global__ void grid_greedy_kernel(GridArgs g, const float* __restrict__ v_in, f
 
   bool differs = false;
   for (int s = threadIdx.x; s < s_dim; s += blockDim.x) {
-    const uint32_t word = info[s];
-    int best = 0;
-    if (!((word >> kTermBit) & 1u)) {
-      float best_q = q_value(tab, word, 0, s, g.w, v, gamma);
-      for (int a = 1; a < tab.num_actions; ++a) {
-        const float q = q_value(tab, word, a, s, g.w, v, gamma);
-        if (q > best_q) {
-          best_q = q;
-          best = a;
-        }
-      }
-    }
+    const int best = cell_greedy(tab, info[s], s, g.w, v, gamma);
     policy_out[base + s] = best;
     if (g.policy != nullptr) differs |= best != g.policy[base + s];
+  }
+  if (g.policy != nullptr && __syncthreads_or(differs) && threadIdx.x == 0) {
+    atomicOr(changed, 1);
+  }
+}
+
+// The global-memory tier: one sweep over every cell of the N mazes, one
+// thread a cell. With `build` the thread derives its cell's word and stores
+// it in `info`; later sweeps of the call read it back.
+__global__ void grid_sweep_global_kernel(GridArgs g, int n, const float* __restrict__ v_old,
+                                         float* __restrict__ v_new, uint32_t* __restrict__ info,
+                                         int build, float gamma,
+                                         unsigned int* __restrict__ sweep_max) {
+  __shared__ gu::Tables tab;
+  __shared__ float red[32];
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  __syncthreads();
+  const int s_dim = g.h * g.w;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float local = 0.0f;
+  if (i < n * s_dim) {
+    const int m = i / s_dim;
+    const int s = i - m * s_dim;
+    const size_t base = static_cast<size_t>(m) * s_dim;
+    uint32_t word;
+    if (build) {
+      word = cell_word(g, tab, g.grids + base, g.policy != nullptr ? g.policy + base : nullptr, s);
+      info[i] = word;
+    } else {
+      word = info[i];
+    }
+    const float v = cell_backup(tab, word, s, g.w, v_old + base, gamma, g.policy != nullptr);
+    v_new[i] = v;
+    local = fabsf(v - v_old[i]);
+  }
+  const float mx = block_max(local, red);  // every thread of the block takes part
+  if (threadIdx.x == 0) atomicMax(sweep_max, __float_as_uint(mx));
+}
+
+// The global-memory tier of the improvement step, one thread a cell.
+__global__ void grid_greedy_global_kernel(GridArgs g, int n, const float* __restrict__ v,
+                                          float gamma, int* __restrict__ policy_out,
+                                          int* __restrict__ changed) {
+  __shared__ gu::Tables tab;
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  __syncthreads();
+  const int s_dim = g.h * g.w;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool differs = false;
+  if (i < n * s_dim) {
+    const int m = i / s_dim;
+    const int s = i - m * s_dim;
+    const size_t base = static_cast<size_t>(m) * s_dim;
+    const uint32_t word = cell_word(g, tab, g.grids + base, static_cast<const int*>(nullptr), s);
+    const int best = cell_greedy(tab, word, s, g.w, v + base, gamma);
+    policy_out[i] = best;
+    if (g.policy != nullptr) differs = best != g.policy[i];
   }
   if (g.policy != nullptr && __syncthreads_or(differs) && threadIdx.x == 0) {
     atomicOr(changed, 1);
@@ -254,6 +339,50 @@ extern "C" int gu_grid_greedy(const void* passable, const void* terminal,
   if (err != cudaSuccess) return static_cast<int>(err);
   grid_greedy_kernel<<<n, grid_threads(h * w), bytes, st>>>(
       grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy),
+      static_cast<const float*>(v_in), gamma, static_cast<int*>(policy_out),
+      static_cast<int*>(changed));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The global-memory tier of `gu_grid_sweeps`: `num_sweeps` launches, one a
+// sweep, ping-ponging between `v_tmp` and `v_out` so that the last lands in
+// `v_out`. `info` is scratch of N·S words; `sweep_max` is zeroed here.
+extern "C" int gu_grid_sweeps_global(const void* passable, const void* terminal,
+                                     const void* reward, const void* deltas, int num_actions,
+                                     const void* grids, int n, int h, int w, const void* policy,
+                                     const void* v_in, void* v_out, void* v_tmp, void* info,
+                                     float gamma, int num_sweeps, void* sweep_max,
+                                     void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(sweep_max, 0, sizeof(unsigned int) * num_sweeps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const GridArgs g = grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy);
+  const int blocks = static_cast<int>((static_cast<long long>(n) * h * w + kMaxThreads - 1) / kMaxThreads);
+  const float* src = static_cast<const float*>(v_in);
+  for (int k = 0; k < num_sweeps; ++k) {
+    float* dst = static_cast<float*>((num_sweeps - 1 - k) % 2 == 0 ? v_out : v_tmp);
+    grid_sweep_global_kernel<<<blocks, kMaxThreads, 0, st>>>(
+        g, n, src, dst, static_cast<uint32_t*>(info), k == 0, gamma,
+        static_cast<unsigned int*>(sweep_max) + k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    src = dst;
+  }
+  return 0;
+}
+
+// The global-memory tier of `gu_grid_greedy`; `changed` is zeroed here.
+extern "C" int gu_grid_greedy_global(const void* passable, const void* terminal,
+                                     const void* reward, const void* deltas, int num_actions,
+                                     const void* grids, int n, int h, int w, const void* policy,
+                                     const void* v_in, float gamma, void* policy_out,
+                                     void* changed, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>((static_cast<long long>(n) * h * w + kMaxThreads - 1) / kMaxThreads);
+  grid_greedy_global_kernel<<<blocks, kMaxThreads, 0, st>>>(
+      grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy), n,
       static_cast<const float*>(v_in), gamma, static_cast<int*>(policy_out),
       static_cast<int*>(changed));
   return static_cast<int>(cudaGetLastError());

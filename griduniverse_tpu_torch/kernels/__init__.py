@@ -16,7 +16,10 @@ backward) in `csrc/agent_stamp.cu`. The off-policy learner's are K8a
 K11 `backtracker_mazes` is in `csrc/backtracker.cu`, and the two gather
 probes P1 `gather_1d` and P2 `take_along_axis1` in `csrc/gather_probe.cu`.
 K12 `trace_pass` (one step of the TD(λ) eligibility traces: decay, flush,
-bump, the live-trace mean and the cut) is in `csrc/trace_pass.cu`.
+bump, the live-trace mean and the cut) is in `csrc/trace_pass.cu`. K7c
+`dqn_act` (DQN's ε-greedy act, env step and episode statistics) is in
+`csrc/dqn_act.cu`, and K13 `mc_returns` (Monte-Carlo returns and the
+first-visit mask) in `csrc/mc_returns.cu`.
 `build.load()` compiles them with `nvcc` for `sm_90a` at first use.
 
 Dispatch rule, applied by the public functions in `ops/`, `levels/`,
@@ -33,7 +36,9 @@ three, and each counts under its kernel's name. A `per_sample` draw is two
 kernels (scores, then selection); the ring's write and gather are one each,
 and the refresh one up to 1,024 rows and two above, all under `replay`. A
 trace step is two kernels (the pass over the trace, then the chunks' sums
-and the table).
+and the table), and so is a DQN act-and-step (the pass over the envs, then
+the fold of the statistics). K4 counts one launch a call up to 16,384
+cells a maze and one a sweep above.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ LAUNCHES: dict[str, int] = {
     "gather_1d": 0,
     "take_along_axis1": 0,
     "trace_pass": 0,
+    "dqn_act": 0,
+    "mc_returns": 0,
 }
 
 

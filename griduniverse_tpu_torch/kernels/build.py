@@ -27,6 +27,7 @@ SOURCES = (
     "rollout.cu", "maze.cu", "dp_grid.cu", "td_fast.cu", "td_batched.cu", "segment_mean.cu",
     "gae.cu", "act_step.cu", "embed_rows.cu", "agent_stamp.cu",
     "replay.cu", "backtracker.cu", "gather_probe.cu", "trace_pass.cu",
+    "dqn_act.cu", "mc_returns.cu",
 )
 HEADERS = ("step.cuh",)
 # No --use_fast_math, and -fmad=false: every kernel is held bit for bit
@@ -54,6 +55,9 @@ _SIGNATURES = {
     "gu_aldous_broder_mazes": [_I, _I, _I, _I, _P, _I, _P, _P, _P],
     "gu_grid_sweeps": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _P, _P],
     "gu_grid_greedy": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P],
+    # grids, n, h, w, policy; v in, out, tmp, info; gamma, sweeps; maxima
+    "gu_grid_sweeps_global": _SEM + [_P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _I, _P, _P],
+    "gu_grid_greedy_global": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P],
     "gu_td_scan_fast": _SEM + _LEVEL + [_I, _I, _I, _I, _F, _F, _F, _F, _I]
                        + [_P] * 13 + [_P],
     "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I]
@@ -83,6 +87,12 @@ _SIGNATURES = {
     # e, s, a, delta, cut, table in, out; γλ, cutoff, α; replacing, A, B, cells;
     # partial num, cnt; launched
     "gu_trace_pass": [_P] * 7 + [_F, _F, _F] + [_I] * 4 + [_P] * 3 + [_P],
+    # batch, max_episode_steps; q, explore, rand_a, state in (3), run_ret, episodes,
+    # ret_sum; state out (4), action, next_obs, reward, done, run_ret, episodes,
+    # ret_sum; chunk sums and counts
+    "gu_dqn_act_step": _SEM + _LEVEL + [_I, _I] + [_P] * 9 + [_P] * 11 + [_P] * 2 + [_P],
+    # rewards, ids, valid; T, B; gamma; returns, first-visit mask
+    "gu_mc_returns": [_P] * 3 + [_I, _I, _F, _P, _P, _P],
 }
 _ERROR_STRING = "gu_error_string"  # const char* (int): cudaGetErrorString
 

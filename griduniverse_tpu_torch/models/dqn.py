@@ -31,7 +31,9 @@ indices (n,) or Gumbel noise (capacity,) from a generator seeded from (seed,
 t) alone, so two runs of N steps equal one of 2N bit for bit. `dqn_run` also
 takes the draws as `draws=`, which is how the tests feed it `jax.random`'s.
 
-The kernels' plain PyTorch versions are here (`per_scores_reference`,
+The ε-greedy act, the env step and the episode statistics of a step are
+kernel K7c (`csrc/dqn_act.cu`, two launches). The kernels' plain PyTorch
+versions are here (`dqn_act_step_reference`, `per_scores_reference`,
 `per_select_reference`, `replay_write_reference`, `replay_gather_reference`,
 `prio_refresh_reference`); CPU tensors take them, CUDA tensors launch the
 kernels, or raise.
@@ -49,20 +51,28 @@ from torch.func import functional_call
 from .. import kernels
 from ..core.semantics import Semantics
 from ..core.types import Level
+from ..kernels.dqn_act import CHUNK, dqn_act_step_cuda
 from ..kernels.replay import (
     per_sample_cuda,
     prio_refresh_cuda,
     replay_gather_cuda,
     replay_write_cuda,
 )
-from ..ops.bitplane import _U32, BitLevel, FastState, pack_level, reset_bits, step_bits
+from ..ops.bitplane import (
+    _U32,
+    BitLevel,
+    FastState,
+    _sem_level_args,
+    pack_level,
+    reset_bits,
+    step_bits,
+)
 from ..utils.platform import resolve_device
 from .a2c import (
     _net_apply,
     _net_init,
     _tiles_for,
     draw_gumbel,
-    fold_episode_stats,
     grads_of,
     leaves,
     make_network,
@@ -329,6 +339,65 @@ def prioritized_sample(prio, noise, size, n: int, alpha: float, beta):
 
 
 # ---------------------------------------------------------------------------
+# K7c: the ε-greedy act, the env step and the episode statistics
+# ---------------------------------------------------------------------------
+
+
+def ended_return_sum_reference(ended: torch.Tensor) -> torch.Tensor:
+    """Σ of the (B,) float32 returns of the envs whose episode ended (0
+    elsewhere), in K7c's fixed order: in each chunk of `CHUNK` envs a tree
+    (pairs i and i + half, half = CHUNK/2, ..., 1; envs past B add 0), then
+    the chunks' sums in index order from 0."""
+    b = ended.shape[0]
+    chunks = -(-b // CHUNK)
+    x = F.pad(ended, (0, chunks * CHUNK - b)).reshape(chunks, CHUNK)
+    half = CHUNK // 2
+    while half:
+        x = x[:, :half] + x[:, half:2 * half]
+        half //= 2
+    total = torch.zeros((), dtype=torch.float32, device=ended.device)
+    for c in range(chunks):
+        total = total + x[c, 0]
+    return total
+
+
+def dqn_act_step_reference(sem, bl, state: FastState, q, explore, rand_a, run_ret, episodes,
+                           ret_sum, max_episode_steps=None):
+    """Plain PyTorch version of K7c: `a = explore ? rand_a : argmax(q)`
+    (the first maximum), one auto-reset `step_bits` with the optional time
+    limit, then the reference's statistics: `run_ret += r`, the ended
+    episodes counted, their returns summed (`ended_return_sum_reference`)
+    and cleared. Returns (new state, action int32, next_obs int32, reward,
+    done, run_ret, episodes, ret_sum)."""
+    greedy = torch.argmax(q.float(), dim=-1).to(torch.int32)
+    actions = torch.where(explore, rand_a.to(torch.int32), greedy)
+    new_state, (next_obs, reward, done) = step_bits(sem, bl, state, actions, True, max_episode_steps)
+    run_ret = run_ret + reward
+    episodes = episodes + done.sum()
+    ret_sum = ret_sum + ended_return_sum_reference(torch.where(done, run_ret, 0.0))
+    run_ret = torch.where(done, 0.0, run_ret)
+    return new_state, actions, next_obs, reward, done, run_ret, episodes, ret_sum
+
+
+def dqn_act_step(sem: Semantics, bl: BitLevel, state: FastState, q, explore, rand_a, run_ret,
+                 episodes, ret_sum, max_episode_steps: int | None = None):
+    """One DQN act-and-step for B envs from the Q-values `q` (B, A) (cast to
+    float32 once: the cast keeps order and ties) and the step's draws, with
+    the episode statistics (K7c on CUDA): see `dqn_act_step_reference`; the
+    kernel equals it bit for bit in every output."""
+    q = q.float()
+    if not kernels.on_cuda(q, explore, rand_a, state.agent_idx, run_ret, bl.code_words, sem.deltas):
+        return dqn_act_step_reference(sem, bl, state, q, explore, rand_a, run_ret, episodes, ret_sum,
+                                      max_episode_steps)
+    idx, code, t, sdone, action, next_obs, reward, done, run_ret, episodes, ret_sum = dqn_act_step_cuda(
+        *_sem_level_args(sem, bl), state.agent_idx, state.agent_code, state.t, q.contiguous(),
+        explore.contiguous(), rand_a.to(torch.int32).contiguous(), run_ret.contiguous(),
+        episodes.reshape(()), ret_sum.reshape(()), max_episode_steps,
+    )
+    return FastState(idx, code, t, sdone), action, next_obs, reward, done, run_ret, episodes, ret_sum
+
+
+# ---------------------------------------------------------------------------
 # The trainer
 # ---------------------------------------------------------------------------
 
@@ -504,16 +573,18 @@ class DQNUpdate:
     score: torch.Tensor | None   # (capacity,) the draw's scores (prioritized)
     mb: ReplayBuffer             # the minibatch
     abs_err: torch.Tensor        # (n,) |δ|
+    stats: tuple                 # the new (run_ret (B,), episodes (), ret_sum ())
 
 
 def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Params,
                target_params: Params, opt_state: AdamState, env_state: FastState,
-               buf: ReplayBuffer, prio, p_max, sc: StepScalars, draws) -> DQNUpdate:
-    """One DQN step from its scalars `sc` (`step_scalars(...)[i]`) and its
-    `draws` (`step_draws`): act ε-greedily, step the envs, write the
-    transitions, sample, one clipped Adam step, move the target, refresh the
-    priorities. `buf` and `prio` are written IN PLACE. `dqn_run` is a loop
-    over this, inside `exact_kernels()`."""
+               buf: ReplayBuffer, prio, p_max, sc: StepScalars, draws, stats) -> DQNUpdate:
+    """One DQN step from its scalars `sc` (`step_scalars(...)[i]`), its
+    `draws` (`step_draws`) and the episode statistics `stats` (run_ret,
+    episodes, ret_sum): act ε-greedily, step the envs and fold the
+    statistics (K7c), write the transitions, sample, one clipped Adam step,
+    move the target, refresh the priorities. `buf` and `prio` are written IN
+    PLACE. `dqn_run` is a loop over this, inside `exact_kernels()`."""
     bl, net, tiles, rate, batch_env = learner
     explore, rand_a, sample = draws
     n = cfg.batch_size_train
@@ -521,10 +592,8 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
     obs = env_state.agent_idx
     with torch.no_grad():
         q, _ = _net_apply(net, params, obs, tiles)
-    greedy = torch.argmax(q, dim=-1).to(torch.int32)
-    actions = torch.where(explore, rand_a.to(torch.int32), greedy)
-    env_state, (next_obs, reward, done) = step_bits(sem, bl, env_state, actions, True,
-                                                    cfg.max_episode_steps)
+    env_state, actions, next_obs, reward, done, *stats = dqn_act_step(
+        sem, bl, env_state, q, explore, rand_a, *stats, cfg.max_episode_steps)
 
     # fresh transitions enter at the running max priority, so each is
     # sampled at least once with high probability
@@ -552,7 +621,7 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
     if cfg.prioritized:
         p_max = prio_refresh(prio, idx, abs_err, cfg.per_eps, p_max)
     return DQNUpdate(params, target_params, opt_state, env_state, p_max, loss.detach(), batch,
-                     idx, w, score, mb, abs_err)
+                     idx, w, score, mb, abs_err, tuple(stats))
 
 
 def dqn_run(sem: Semantics, level: Level, ts: DQNTrainState, cfg: DQNConfig = DQNConfig(),
@@ -571,7 +640,7 @@ def dqn_run(sem: Semantics, level: Level, ts: DQNTrainState, cfg: DQNConfig = DQ
     params, target_params, opt_state, env_state = ts.params, ts.target_params, ts.opt_state, ts.env_state
     buf = ReplayBuffer(*(x.clone() for x in ts.buf))
     prio, p_max = ts.prio.clone(), ts.p_max
-    run_ret, episodes, ret_sum, loss = ts.run_ret, ts.episodes, ts.ret_sum, ts.last_loss
+    stats, loss = (ts.run_ret, ts.episodes, ts.ret_sum), ts.last_loss
     with exact_kernels():
         for i in range(num_steps):
             sc = scalars[i]
@@ -580,11 +649,10 @@ def dqn_run(sem: Semantics, level: Level, ts: DQNTrainState, cfg: DQNConfig = DQ
             else:
                 step = tuple(d[i] for d in draws)
             upd = dqn_update(sem, learner, cfg, params, target_params, opt_state, env_state,
-                             buf, prio, p_max, sc, step)
+                             buf, prio, p_max, sc, step, stats)
             params, target_params, opt_state = upd.params, upd.target_params, upd.opt_state
-            env_state, p_max, loss = upd.env_state, upd.p_max, upd.loss
-            run_ret, episodes, ret_sum = fold_episode_stats(
-                run_ret, episodes, ret_sum, upd.batch.reward[None], upd.batch.done[None])
+            env_state, p_max, loss, stats = upd.env_state, upd.p_max, upd.loss, upd.stats
+    run_ret, episodes, ret_sum = stats
     return dataclasses.replace(
         ts, params=params, target_params=target_params, opt_state=opt_state, env_state=env_state,
         buf=buf, prio=prio, p_max=p_max, t=ts.t + num_steps, run_ret=run_ret, episodes=episodes,

@@ -37,10 +37,12 @@ MAX_EPISODE_STEPS = 512
 NUM_ENVS = 65_536
 OUR_KERNELS = ("gae_kernel", "nstep_returns", "act_step", "greedy_step", "embed_rows", "agent_stamp",
                "aldous_broder", "backtracker", "per_score", "per_select", "replay_write", "replay_gather",
-               "prio_refresh")
+               "prio_refresh", "dqn_act_step", "dqn_fold_stats", "segment_mean", "mc_returns", "trace_pass")
 
 
-def _profile(name: str, fn, wall_ms: float, smi: str, top: int = 12) -> None:
+def _profile(name: str, fn, wall_ms: float, smi: str, top: int = 12):
+    """One call of `fn` under the profiler, printed; returns (busy us,
+    device events, idle share), or None if no device time was recorded."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -55,14 +57,16 @@ def _profile(name: str, fn, wall_ms: float, smi: str, top: int = 12) -> None:
     busy = sum(us for us, _ in per_kernel.values())
     if not busy:
         print(f"profile {name}: the profiler recorded no device time")
-        return
+        return None
     wall_us = wall_ms * 1e3
+    events = sum(c for _, c in per_kernel.values())
     ours = sum(us for n, (us, _) in per_kernel.items() if any(k in n for k in OUR_KERNELS))
     print(f"profile {name}: wall {wall_us!r} us without the profiler, device busy {busy!r} us "
           f"(idle share {100 * (1 - busy / wall_us):.2f} %), hand-written kernels {ours!r} us "
-          f"({100 * ours / busy:.2f} % of busy), {sum(c for _, c in per_kernel.values())} device events ({smi})")
+          f"({100 * ours / busy:.2f} % of busy), {events} device events ({smi})")
     for n, (us, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {us:12.1f} us  {count:7d} x  {n[:100]}")
+    return busy, events, 1 - busy / wall_us
 
 
 def main() -> None:

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1–K12, P1 and P2 against their plain PyTorch versions.
+"""The CUDA kernels K1–K13, P1 and P2 against their plain PyTorch versions.
 
 These tests need a CUDA card and the CUDA toolkit (`nvcc`); without a card
 they skip. This file imports no JAX, so it also runs on a machine without
@@ -666,3 +666,122 @@ def test_td_lambda_on_cuda_equals_the_cpu_run(dev):
     got = algos.td_lambda_prediction(sem, level, policy.to(dev), 5, num_steps=40, batch_size=300)
     want = algos.td_lambda_prediction(cpu_sem, cpu_level, policy, 5, num_steps=40, batch_size=300)
     assert torch.equal(got.v.cpu().view(torch.int32), want.v.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K4's global-memory tier, K7c, K13 and a resume through disk
+# ---------------------------------------------------------------------------
+
+
+def test_grid_kernels_match_plain_above_shared_memory(dev):
+    """Two sidewinder mazes of 65x64 cells (16,899 states): one launch a
+    sweep, the sweep maxima, V, the policy and `changed` bit for bit."""
+    from griduniverse_tpu_torch.kernels import dp_grid
+
+    sem = T.make_semantics(device=dev)
+    grids, start = M.generate_mazes_device(11, (65, 64), 2, "sidewinder", device=dev)
+    levels = T.Level(grid=grids, start_idx=start.expand(2).contiguous())
+    s = levels.num_states
+    assert not dp_grid.uses_shared_tier(s)
+    v0 = torch.zeros((2, s), device=dev)
+    before = kernels.LAUNCHES["dp_grid"]
+    v, maxima = dp_grid.grid_sweeps_cuda(sem, grids, v0, None, 0.99, 7)
+    assert kernels.LAUNCHES["dp_grid"] == before + 7
+    backup = dp_batched._grid_backup(sem, grids, 0.99)
+    ref, ref_max = v0, []
+    for _ in range(7):
+        new = backup(ref).max(dim=-1).values
+        ref_max.append((new - ref).abs().max())
+        ref = new
+    _assert_same((v, maxima), (ref, torch.stack(ref_max)))
+    policy = torch.randint(0, 4, (2, s), device=dev, dtype=torch.int32)
+    pv, _ = dp_grid.grid_sweeps_cuda(sem, grids, v, policy, 0.99, 3)
+    pref = v
+    for _ in range(3):
+        pref = backup(pref).gather(2, policy.long()[:, :, None])[:, :, 0]
+    _assert_same((pv,), (pref,))
+    greedy, changed = dp_grid.grid_greedy_cuda(sem, grids, pv, 0.99, policy)
+    want = torch.argmax(backup(pv), dim=-1).to(torch.int32)
+    assert torch.equal(greedy, want) and int(changed) == int(bool((want != policy).any()))
+    _, unchanged = dp_grid.grid_greedy_cuda(sem, grids, pv, 0.99, want)
+    assert int(unchanged) == 0
+    got = dp_batched.value_iteration_batched_grid(sem, levels)
+    ref = dp_batched.value_iteration_batched_grid_reference(sem, levels)
+    assert got[2] == ref[2]
+    _assert_same(got[:2], ref[:2])
+    kw = dict(max_eval_iters=300, max_policy_iters=3)
+    got = dp_batched.policy_iteration_batched_grid(sem, levels, **kw)
+    ref = dp_batched.policy_iteration_batched_grid_reference(sem, levels, **kw)
+    assert got[2] == ref[2]
+    _assert_same(got[:2], ref[:2])
+
+
+@pytest.mark.parametrize("shape", ["walls16", "mazes", "odd_batch"])
+def test_dqn_act_step_kernel_matches_plain(dev, shape):
+    sem = T.make_semantics(device=dev)
+    levels = _levels(dev)
+    bl = levels["mazes"] if shape == "mazes" else levels["walls16"]
+    b = 1024 if shape != "odd_batch" else 777
+    gen = torch.Generator(device=dev).manual_seed(3)
+    st = bp.reset_bits(bl, None if bl.batched else b)
+    stats = (torch.zeros(b, device=dev), torch.zeros((), dtype=torch.int64, device=dev), torch.zeros((), device=dev))
+    ref_st, ref_stats = st, stats
+    for i in range(40):
+        q = torch.randint(-2, 3, (b, 4), generator=gen, device=dev).float() * 0.5  # ties
+        explore = torch.rand(b, generator=gen, device=dev) < 0.3
+        rand_a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+        before = kernels.LAUNCHES["dqn_act"]
+        st, *out, r1, r2, r3 = dqn.dqn_act_step(sem, bl, st, q, explore, rand_a, *stats, 10)
+        assert kernels.LAUNCHES["dqn_act"] == before + 2
+        stats = (r1, r2, r3)
+        ref_st, *ref_out, s1, s2, s3 = dqn.dqn_act_step_reference(sem, bl, ref_st, q, explore, rand_a, *ref_stats, 10)
+        ref_stats = (s1, s2, s3)
+        _assert_same(out, ref_out)
+        _assert_same((*stats[:1], stats[2]), (*ref_stats[:1], ref_stats[2]))
+        assert int(stats[1]) == int(ref_stats[1])
+        for f in ("agent_idx", "agent_code", "t", "done"):
+            assert torch.equal(getattr(st, f), getattr(ref_st, f)), f
+    assert int(stats[1]) > 0
+
+
+@pytest.mark.parametrize("t,b,num_ids", [(1, 5, 4), (7, 300, 3), (100, 256, 81), (100, 1024, 324)])
+def test_mc_returns_kernel_matches_plain(dev, t, b, num_ids):
+    from griduniverse_tpu_torch.algos import mc
+
+    gen = torch.Generator(device=dev).manual_seed(t * b)
+    valid = torch.arange(t, device=dev)[:, None] < torch.randint(0, t + 1, (b,), generator=gen, device=dev)[None]
+    rewards = torch.where(valid, torch.randn((t, b), generator=gen, device=dev), 0.0)
+    ids = torch.randint(0, num_ids, (t, b), generator=gen, device=dev, dtype=torch.int32)
+    before = kernels.LAUNCHES["mc_returns"]
+    g, mask = mc.mc_returns(rewards, 0.99, ids, valid)
+    only, none = mc.mc_returns(rewards, 0.99)
+    assert kernels.LAUNCHES["mc_returns"] == before + 2 and none is None
+    _assert_same((g, mask, only), (mc.discounted_returns(rewards, 0.99), mc.first_visit_mask(ids, valid), g))
+    for edge in (torch.ones_like(valid), torch.zeros_like(valid)):
+        _assert_same(mc.mc_returns(rewards, 0.99, torch.zeros_like(ids), edge)[1:],
+                     (mc.first_visit_mask(torch.zeros_like(ids), edge),))
+
+
+def test_dqn_resume_through_disk_on_cuda(dev, tmp_path):
+    from griduniverse_tpu_torch.utils.checkpoint import CheckpointManager, flatten
+
+    sem = T.make_semantics(device=dev)
+    level = builders.walls_and_goal_16x16(device=dev)
+    cfg = dqn.DQNConfig(buffer_capacity=4096, batch_size_train=128, max_episode_steps=64, hidden=(32,),
+                        prioritized=True)
+    ts0 = dqn.dqn_init(sem, level, 3, cfg, 1024)
+    full = dqn.dqn_run(sem, level, ts0, cfg, 24)
+    with CheckpointManager(tmp_path / "dqn", async_=True) as mgr:
+        mgr.save(12, dqn.dqn_run(sem, level, ts0, cfg, 12))
+        step, restored = mgr.restore_latest(dqn.dqn_init(sem, level, 0, cfg, 1024))
+    assert step == 12 and restored.seed == 3 and restored.buf.obs.device.type == "cuda"
+    before = kernels.LAUNCHES["dqn_act"]
+    resumed = dqn.dqn_run(sem, level, restored, cfg, 12)
+    assert kernels.LAUNCHES["dqn_act"] == before + 24
+    got, want = flatten(resumed), flatten(full)
+    assert list(got) == list(want)
+    for key, x in want.items():
+        if isinstance(x, torch.Tensor):
+            _assert_same((got[key],), (x,))
+        else:
+            assert got[key] == x, key

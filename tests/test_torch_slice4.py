@@ -129,15 +129,16 @@ def test_gather_probe_on_the_cpu():
 
 
 def test_every_kernel_has_a_source_an_entry_point_and_a_count():
-    """Seventeen kernels; on the CPU nothing is launched."""
-    assert len(kernels.LAUNCHES) == 17
-    for name in ("per_sample", "replay", "backtracker_mazes", "gather_1d", "take_along_axis1", "trace_pass"):
+    """Nineteen kernels; on the CPU nothing is launched."""
+    assert len(kernels.LAUNCHES) == 19
+    for name in ("per_sample", "replay", "backtracker_mazes", "gather_1d", "take_along_axis1", "trace_pass",
+                 "dqn_act", "mc_returns"):
         assert name in kernels.LAUNCHES
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     sources = "".join((build.CSRC_DIR / s).read_text() for s in build.SOURCES)
     for entry in build._SIGNATURES:
         assert re.search(rf'extern "C" int {entry}\(', sources), entry
-    for s in ("replay.cu", "backtracker.cu", "gather_probe.cu", "trace_pass.cu"):
+    for s in ("replay.cu", "backtracker.cu", "gather_probe.cu", "trace_pass.cu", "dqn_act.cu", "mc_returns.cu"):
         assert s in build.SOURCES and (build.CSRC_DIR / s).is_file()
 
 

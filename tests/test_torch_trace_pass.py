@@ -150,7 +150,8 @@ def _public(module) -> set[str]:
     return {n for n, v in vars(module).items() if not n.startswith("_") and not inspect.ismodule(v)}
 
 
-@pytest.mark.parametrize("name", ["core", "levels", "ops", "algos", "models", "utils"])
+@pytest.mark.parametrize("name", ["core", "levels", "ops", "algos", "models", "utils", "utils.checkpoint",
+                                  "utils.metrics"])
 def test_subpackage_names_match_reference(name):
     """Every name the reference's subpackage exports, the port's does too;
     only the sharded trainers (which come with `parallel/`) may be missing."""
