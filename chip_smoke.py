@@ -123,6 +123,7 @@ INSTR_K5_STEP = 232
 INSTR_K5_ENTRY = 10     # one Q entry's update a step (the mean and the add), an estimate
 INSTR_K6_STEP = 324     # the float32 Q-learning path with native draws
 INSTR_K10_ENV = 4       # key and α·δ of one env, an estimate
+K10_LAUNCHES = 4        # kernels a K10 call launches: count, scan, scatter, sum
 # The learners' kernels. K7a and K7b are one thread per env, counted as K1 is.
 # K9a and K9b are elementwise passes and sums: their counts are the
 # function's own operations on an element (load, convert, add, compare,
@@ -138,10 +139,10 @@ INSTR_K9A_BWD = 6       # one (sample, column): a load, a convert and two adds, 
 INSTR_K9B_FWD = 8       # one output element of the stamp pass
 INSTR_K9B_BWD = 12      # one element of the backward, read by both of its passes
 # K8a, K8b, K11 and the probes, from the same listings
-INSTR_K8A_SCORE = 131   # per_score_kernel has no loop: one slot's score, mass and share of the block sum
-# An exact top-n needs each score keyed and compared once. per_select_kernel as written
-# spends 162 a slot (four histogram passes of 20, a counting pass of 20, a writing pass of
-# about 62): that is the design's cost, and it is not part of the bound.
+INSTR_K8A_SCORE = 131   # per_score_kernel has no loop: one slot's score, mass and share of the block sum (counted before block 0 zeroed the select's histograms; the other blocks skip that with a compare and a branch)
+# An exact top-n needs each score keyed and compared once. The select as written reads
+# every score six times (four histogram passes, a count, a compaction) and sorts the
+# picks in four more passes: that is the design's cost, and it is not part of the bound.
 INSTR_K8A_PICK = 2
 INSTR_K8B_WRITE = 75    # replay_write_kernel, one transition
 INSTR_K8B_GATHER = 49   # replay_gather_kernel, one row
@@ -487,7 +488,7 @@ def solver_phases(gt, dev, gen, bound, smi):
               f"{b * n_steps / (ms1 + ms2) * 1e3!r} transitions/s; `q_learning` equals the three chunks; "
               f"mean return {float(mean1)!r} -> {float(mean2)!r} ({smi})")
 
-    # K10 over several tiles of staged envs: `q_learning` at 65,536 envs
+    # K10 over 64 chunks of envs: `q_learning` at 65,536 envs
     b_wide, steps_wide, late_wide = 65_536, 200, 5
     ts0 = td.td_init(sem, walls16, 11, b_wide)
     ms1, before_late = timed(lambda: td.td_run(sem, walls16, ts0, steps_wide - late_wide))
@@ -602,7 +603,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     held_steps(f"K10 main td_run B={b_wide} first steps", ts0, 3)
     redone = held_steps(f"K10 main td_run B={b_wide} last steps", before_late, late_wide)
     _same_fields(f"K10 main td_run B={b_wide} redone", _td_fields(redone), _td_fields(end), _TD_FIELDS)
-    print(f"K10 main: td_run B={b_wide} (several tiles of staged envs), the first 3 and the last {late_wide} of "
+    print(f"K10 main: td_run B={b_wide} (64 chunks of envs), the first 3 and the last {late_wide} of "
           f"{steps_wide} steps bit-exact vs the plain update rule; the last steps redone equal the main path's")
 
     # -- phase 10: K4 and K10 times at the main path's shapes ------------------
@@ -644,19 +645,23 @@ def solver_phases(gt, dev, gen, bound, smi):
         n = lv.grid.shape[0]
         print(f"K4 solve {tag} N={n}: {ms!r} ms a solve ({outs[key][2]} sweeps), {n / ms * 1e3!r} mazes/s ({smi})")
 
-    for b in (4096, b_wide):
+    for b, hot in ((4096, False), (b_wide, False), (b_wide, True)):
         n_seg = 256 * 4
         q = torch.randn((256, 4), generator=gen, device=dev)
         s = torch.randint(0, 256, (b,), generator=gen, device=dev, dtype=torch.int32)
         a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+        if hot:  # 90 % of the envs in one cell: one chain of dependent adds
+            in_cell = torch.rand((b,), generator=gen, device=dev) < 0.9
+            s[in_cell], a[in_cell] = 17, 2
         delta = torch.randn((b,), generator=gen, device=dev)
         ms10, got = _cuda_ms(lambda: td.apply_td_updates(q, s, a, delta, 0.1), 50)
-        plain10, ref = _cuda_ms(lambda: td.apply_td_updates_reference(q, s, a, delta, 0.1), 3)
+        plain10, ref = _cuda_ms(lambda: td.apply_td_updates_reference(q, s, a, delta, 0.1), 1 if hot else 3, warm=not hot)
         lib10, lib = _cuda_ms(lambda: _segment_mean_library(q, s, a, delta, 0.1, None), 50)
-        hold("segment_mean", f"K10 timed B={b}", (got,), (ref,), ("q",))
+        hold("segment_mean", f"K10 timed B={b} hot={hot}", (got,), (ref,), ("q",))
         _require(bool(torch.allclose(got, lib, rtol=1e-5, atol=1e-6)), "K10: the library yardstick computes another function")
+        cells = "90 % in one cell" if hot else "uniform cells"
         t10 = dict(
-            ms=ms10, plain_ms=plain10, shape=f"B={b}, S*A={n_seg}, uniform cells", library_ms=lib10,
+            ms=ms10, plain_ms=plain10, shape=f"B={b}, S*A={n_seg}, {cells}", library_ms=lib10,
             # s, a, delta in; Q in and out
             **bound(b * 12 + 2 * n_seg * 4, INSTR_K10_ENV * b + 2 * n_seg))
         if b == 4096:
@@ -1183,6 +1188,9 @@ def learner_phases(gt, dev, gen, bound, smi):
     return launches, errs, times
 
 
+# kernels a K8a draw launches up to 16,384 picks: score, four histogram passes, count,
+# compaction, sort and weights (each main path draws at most 4,096)
+K8A_LAUNCHES = 8
 K8A_SCORE_ULPS = 4      # logf and one more rounding of α·log p + g
 K8A_WEIGHT_RTOL = 2e-5  # expf, powf and the mass summed in another order
 
@@ -1513,7 +1521,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         # a step: write and gather, with PER the refresh (two launches above 1,024 rows)
         refresh = 0 if not cfg.prioritized else (1 if cfg.batch_size_train <= 1024 else 2)
         expected = {net_kernel: steps * per_step, "replay": steps * (2 + refresh),
-                    "per_sample": steps * 2 if cfg.prioritized else 0, "dqn_act": steps * 2}
+                    "per_sample": steps * K8A_LAUNCHES if cfg.prioritized else 0, "dqn_act": steps * 2}
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -1631,37 +1639,52 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     resume_through_disk(gt, dev, smi, runs, walls16)
 
     # -- phase 20: times at the main path's shapes -----------------------------
-    buf, prio, upd, sc, draws = kept["dqn walls16 per"]
-    n = upd.idx.shape[0]
-    noise, alpha = draws[2], 0.6
-    ms, (idx, w, score) = _cuda_ms(lambda: dqn._per_sample(prio, noise, sc.size, n, alpha, sc.beta), 50)
+    alpha, cap = 0.6, cap64
 
-    def plain_draw():
-        ref_score, pa = dqn.per_scores_reference(prio, noise, sc.size, alpha)
-        return dqn.per_select_reference(ref_score, pa, sc.size, sc.beta, n)
+    def k8a_timed(key, n, reps):
+        """K8a at n picks on the last step's ring of the main path `key`, timed
+        beside the plain draw and `torch.topk` with the same lines; the
+        timed draw's selection held bit-exact on its own scores and its
+        weights to the tolerance. Returns the row of the record."""
+        _, prio, _, sc, draws = kept[key]
+        noise = draws[2]
+        ms, (idx, w, score) = _cuda_ms(lambda: dqn._per_sample(prio, noise, sc.size, n, alpha, sc.beta), reps)
 
-    def library():  # `torch.topk` with the same elementwise lines: timed here, used nowhere in the port
-        ref_score, pa = dqn.per_scores_reference(prio, noise, sc.size, alpha)
-        top = torch.topk(ref_score, n).indices
-        picked = pa[top]
-        wl = (sc.size.clamp(min=1).to(torch.float32) * (picked / pa.sum().clamp(min=1e-30))) ** (-sc.beta)
-        return top, wl / wl.max()
+        def plain_draw():
+            ref_score, pa = dqn.per_scores_reference(prio, noise, sc.size, alpha)
+            return dqn.per_select_reference(ref_score, pa, sc.size, sc.beta, n)
 
-    plain_ms, (p_idx, p_w) = _cuda_ms(plain_draw, 10)
-    lib_ms, (l_idx, _) = _cuda_ms(library, 20)
-    common = len(set(idx.tolist()) & set(l_idx.tolist()))
-    _require(common >= n - 2, f"K8a: the library yardstick picks other slots ({common} of {n} in common)")
-    agree = int((idx == p_idx).sum())
-    cap = prio.shape[0]
-    times["per_sample"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, shape=f"capacity {cap}, size {int(sc.size)}, n={n}",
-        # priorities and noise read once, idx and weights written
-        **bound(cap * 8 + n * 8, (INSTR_K8A_SCORE + INSTR_K8A_PICK) * cap))
-    print(f"K8a timed: kernel {ms!r} ms, plain {plain_ms!r} ms, torch.topk with the same lines {lib_ms!r} ms; {agree} of {n} "
-          f"picks equal the plain version's on its own scores, {common} are among torch.topk's ({smi})")
+        def library():  # `torch.topk` with the same elementwise lines: timed here, used nowhere in the port
+            ref_score, pa = dqn.per_scores_reference(prio, noise, sc.size, alpha)
+            top = torch.topk(ref_score, n).indices
+            picked = pa[top]
+            wl = (sc.size.clamp(min=1).to(torch.float32) * (picked / pa.sum().clamp(min=1e-30))) ** (-sc.beta)
+            return top, wl / wl.max()
+
+        plain_ms, (p_idx, _) = _cuda_ms(plain_draw, max(reps // 5, 2))
+        lib_ms, (l_idx, _) = _cuda_ms(library, max(reps // 2, 2))
+        _, pa = dqn.per_scores_reference(prio, noise, sc.size, alpha)
+        own_idx, own_w = dqn.per_select_reference(score, pa, sc.size, sc.beta, n)
+        _same(f"K8a timed n={n} selection", idx, own_idx)
+        errs["per_sample"] = max(errs["per_sample"], _rel_err(f"K8a timed n={n} weights", w, own_w, K8A_WEIGHT_RTOL))
+        common = len(set(idx.tolist()) & set(l_idx.tolist()))
+        _require(common >= n - 2, f"K8a n={n}: the library yardstick picks other slots ({common} of {n} in common)")
+        row = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, shape=f"capacity {cap}, size {int(sc.size)}, n={n}",
+            # priorities and noise read once, idx and weights written
+            **bound(cap * 8 + n * 8, (INSTR_K8A_SCORE + INSTR_K8A_PICK) * cap))
+        print(f"time per_sample at {row['shape']}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {row['bound_ms']!r} ms "
+              f"by {row['bound_by']}, library (torch.topk with the same lines) {lib_ms!r} ms; selection bit-exact on "
+              f"its own scores, {int((idx == p_idx).sum())} of {n} picks equal the plain draw's, {common} among "
+              f"torch.topk's ({smi})")
+        return row
+
+    times["per_sample"] = k8a_timed("dqn walls16 per", 256, 50)
+    k8a_timed("dqn walls16 per n4096", 4096, 20)
+    k8a_timed("dqn walls16 per n4096", 16_384, 10)
 
     buf, prio, upd, sc, _ = kept["dqn walls16 per"]
-    p_max = upd.p_max
+    n, p_max = upd.idx.shape[0], upd.p_max
     w_ms, _ = _cuda_ms(lambda: dqn.buffer_write(buf, sc.at, upd.batch, prio, p_max), 50)
     g_ms, _ = _cuda_ms(lambda: dqn.replay_gather(buf, upd.idx), 50)
     r_ms, _ = _cuda_ms(lambda: dqn.prio_refresh(prio, upd.idx, upd.abs_err, 1e-3, p_max), 50)
@@ -1692,19 +1715,9 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     print(f"K8b timed: write {w_ms!r} ms, gather {g_ms!r} ms, refresh {r_ms!r} ms; plain {pw_ms!r}, {pg_ms!r}, {pr_ms!r} ms; "
           f"index_copy_ x5 + index_fill_ + index_select x5 + index_put_ + max {lib_ms!r} ms ({smi})")
 
-    # K8a and K8b's gather and refresh at 4,096 picks, on that main path's last step
+    # K8b's gather and refresh at 4,096 picks, on that main path's last step
     buf, prio, upd, sc, draws = kept["dqn walls16 per n4096"]
     n = upd.idx.shape[0]
-    noise = draws[2]
-    ms, (idx, _, _) = _cuda_ms(lambda: dqn._per_sample(prio, noise, sc.size, n, alpha, sc.beta), 20)
-    plain_ms, (p_idx, _) = _cuda_ms(plain_draw, 5)
-    lib_ms, (l_idx, _) = _cuda_ms(library, 10)
-    common = len(set(idx.tolist()) & set(l_idx.tolist()))
-    _require(common >= n - 2, f"K8a n={n}: the library yardstick picks other slots ({common} of {n} in common)")
-    t8a = bound(cap * 8 + n * 8, (INSTR_K8A_SCORE + INSTR_K8A_PICK) * cap)
-    print(f"time per_sample at capacity {cap}, size {int(sc.size)}, n={n}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-          f"bound {t8a['bound_ms']!r} ms by {t8a['bound_by']}, library (torch.topk with the same lines) {lib_ms!r} ms; "
-          f"{int((idx == p_idx).sum())} of {n} picks equal the plain version's on its own scores ({smi})")
     rows = upd.idx.long()
     g_ms, _ = _cuda_ms(lambda: dqn.replay_gather(buf, upd.idx), 50)
     r_ms, _ = _cuda_ms(lambda: dqn.prio_refresh(prio, upd.idx, upd.abs_err, 1e-3, upd.p_max), 50)
@@ -1787,10 +1800,10 @@ def dqn_step_events(dev, smi, sem, level, cfg, state, steps: int = 20) -> None:
 def mc_lambda_phases(gt, dev, bound, smi):
     """Phase 21: the Monte-Carlo and TD(λ) entry points on the card.
     `mc_prediction` with its defaults and five rounds of `mc_control` put
-    256 episodes x 100 steps = 25,600 samples through one K10 launch a
-    round, and `mc_prediction` at 1,024 episodes 102,400 (several tiles of
-    staged samples); every launch is held bit for bit against the plain
-    version on the run's own samples, and K10 is timed at both shapes.
+    256 episodes x 100 steps = 25,600 samples through one K10 call (four
+    launches) a round, and `mc_prediction` at 1,024 episodes 102,400; every
+    call is held bit for bit against the plain version on the run's own
+    samples, and K10 is timed at both shapes.
     `sarsa_lambda`, `watkins_q_lambda` (walls16, 65,536 envs x 200 steps, a
     (65,536, 256, 4) trace) and `td_lambda_prediction` (65,536 envs, a
     (65,536, 256) trace) go through K12, two launches a step; steps 0-4 and
@@ -1850,16 +1863,17 @@ def mc_lambda_phases(gt, dev, bound, smi):
     with mock.patch.object(mc, "apply_td_updates_masked", recorded), mock.patch.object(mc, "mc_returns", recorded_returns):
         pred = algos.mc_prediction(sem, lava, 3)
         torch.cuda.synchronize()
-        _require(kernels.LAUNCHES["segment_mean"] == 1 and kernels.LAUNCHES["mc_returns"] == 1,
+        _require(kernels.LAUNCHES["segment_mean"] == K10_LAUNCHES and kernels.LAUNCHES["mc_returns"] == 1,
                  f"mc_prediction: {kernels.LAUNCHES['segment_mean']} K10 and {kernels.LAUNCHES['mc_returns']} K13 "
-                 "launches, expected 1 each")
+                 f"launches, expected {K10_LAUNCHES} (one call) and 1")
         ctl = algos.mc_control(sem, lava, 6, num_rounds=rounds)
         pred_wide = algos.mc_prediction(sem, lava, 4, batch_size=wide)
     torch.cuda.synchronize()
     got = {k: v for k, v in kernels.LAUNCHES.items() if v}
     print(f"launches of mc_prediction (defaults), {rounds} rounds of mc_control and mc_prediction at {wide} episodes: {got}")
-    _require(got == {"segment_mean": 2 + rounds, "mc_returns": 2 + rounds},
-             f"mc: launches {got}, expected one K10 and one K13 launch a round and no other kernel")
+    _require(got == {"segment_mean": K10_LAUNCHES * (2 + rounds), "mc_returns": 2 + rounds},
+             f"mc: launches {got}, expected one K10 call ({K10_LAUNCHES} launches) and one K13 launch a round "
+             "and no other kernel")
     for i, (args, out) in enumerate(returns_calls):
         errs["mc_returns"] = max(errs["mc_returns"], _same_fields(
             f"K13 mc round {i}", out, plain_returns(*args), ("returns", "first-visit mask")))
@@ -1878,16 +1892,17 @@ def mc_lambda_phases(gt, dev, bound, smi):
              "mc: a non-finite value, no finished episode, or an untouched Q")
     for tag, args in (("a round of mc_control", calls[-2][0]), (f"mc_prediction at {wide} episodes", calls[-1][0])):
         n_samples, n_masked, seg = args[1].shape[0], int(args[5].sum()), args[0].numel()
-        ms, _ = _cuda_ms(lambda: td.apply_td_updates_masked(*args), 50)
-        plain_ms, _ = _cuda_ms(lambda: td.apply_td_updates_reference(*args), 3)
+        ms, got10 = _cuda_ms(lambda: td.apply_td_updates_masked(*args), 50)
+        plain_ms, ref10 = _cuda_ms(lambda: td.apply_td_updates_reference(*args), 3)
         lib_ms, lib = _cuda_ms(lambda: _segment_mean_library(*args), 50)
-        _require(bool(torch.allclose(lib, td.apply_td_updates_reference(*args), rtol=1e-5, atol=1e-6)),
+        err = max(err, _same(f"K10 timed at {tag}", got10, ref10))
+        _require(bool(torch.allclose(lib, ref10, rtol=1e-5, atol=1e-6)),
                  "K10 at mc's shape: the library yardstick computes another function")
         t10 = bound(n_samples * 13 + 2 * seg * 4, INSTR_K10_ENV * n_samples + 2 * seg)
         print(f"time segment_mean at {tag}, {n_samples} samples ({n_masked} under the first-visit mask), "
               f"S*A={seg}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {t10['bound_ms']!r} ms by {t10['bound_by']}, "
-              f"library (index_add_ twice, divide, add) {lib_ms!r} ms ({smi})")
-    print(f"K10 at mc's shapes: all {2 + rounds} launches bit-exact vs plain (max abs err {err!r}); "
+              f"library (index_add_ twice, divide, add) {lib_ms!r} ms; bit-exact vs plain ({smi})")
+    print(f"K10 at mc's shapes: all {2 + rounds} calls bit-exact vs plain (max abs err {err!r}); "
           f"mc_prediction visited {visited} states ({smi})")
 
     # K13's time at a round of mc_control (the record's shape) and at 1,024 episodes

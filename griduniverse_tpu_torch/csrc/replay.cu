@@ -8,27 +8,52 @@
 // K8a. The reference scores every slot with α·log p + Gumbel and hands the
 // scores to `lax.approx_max_k`, the TPU's partial-reduction top-k (recall
 // ≥ 0.95). Here the n best are exact, and equal scores go to the lowest
-// index, so a draw is a function of its inputs alone:
+// index, so a draw is a function of its inputs alone. Keys are the
+// order-preserving 32-bit images of the scores (`order_key`); every count
+// is an integer, exact in any order, and the only float sum (the mass) is
+// added in a fixed order.
 //   1. `per_score_kernel`, one thread a slot: the score (−inf beyond `size`),
 //      the mass p^α, and each block's sum of the mass by a fixed tree (no
-//      float atomics), one partial a block.
-//   2. `per_select_kernel`, one block: the partials summed in block order; a
-//      radix select of the n-th largest score on the order-preserving 32-bit
-//      key of the float (four passes of an 8-bit histogram in shared memory,
-//      integer atomics only); a compaction of the slots above that key, then
-//      of the ties at it by lowest index (each warp owns a contiguous range
-//      of slots, ranks by ballot); a rank sort of the n picks by (score
-//      descending, index ascending); then the fallback hash for a pick with
-//      no mass and the max-normalised importance weights.
-//    The n picks' keys, ids and sorted ids (12 bytes a pick) sit in dynamic
-//    shared memory up to kMaxSharedPicks = 16,384 picks, and in a scratch
-//    buffer that the wrapper allocates above that; a thread takes picks
-//    tid, tid + 1,024, ... in the sort and the weights.
+//      float atomics), one partial a block; block 0 zeroes the histograms.
+//   2. `per_hist_kernel`, four launches, one a byte of the key from the
+//      top: each of cap/1,024 blocks takes the launch before's decision
+//      from its histogram (a scan over the 256 digits, from the top),
+//      counts the next byte of its 1,024 slots that match the prefix so far
+//      in a private histogram (equal digits of a warp grouped by
+//      `__match_any_sync`, one shared atomic a group), and adds the nonzero
+//      bins to the global 256-bin histogram with integer atomics. The first
+//      launch's block 0 also adds the partials of the mass in block order
+//      from 0.0f, after loading them coalesced into shared memory.
+//   3. `per_count_kernel`: the last byte's decision gives the key of the
+//      n-th largest score and how many of the slots at it are picked; each
+//      block counts its slots above that key and at it.
+//   4. `per_compact_kernel`: each block adds the counts of the blocks before
+//      it and writes its slots above the key, then its first ties, in index
+//      order: the picks' keys and slots, those above the key first.
+//   5. `per_finish_kernel`, one block of 512 threads: a stable LSD radix
+//      sort of the picks by key, descending (four 8-bit passes; each warp
+//      takes a contiguous range and ranks its items by `__match_any_sync`;
+//      per-warp digit counts give every item its place; a pass whose digit
+//      is the same for all picks moves nothing). Stability keeps equal keys
+//      in the compaction's index order, so the order is (score descending,
+//      index ascending) with no compare of indices. Then the fallback hash
+//      for a pick with no mass and the max-normalised importance weights.
+//      The picks' keys and two permutations sit in shared memory (12 bytes
+//      a pick) up to kMaxSharedPicks = 16,384 picks. Above that the sort is
+//      multi-block passes over the scratch (`pick_sort_count_kernel`,
+//      `pick_sort_scan_kernel`, `pick_sort_scatter_kernel` a byte, chunks
+//      of 4,096 picks), and the finish kernel only weighs.
+// Eight launches a draw up to 16,384 picks, twenty above. Each byte's pass
+// is a launch, not a cooperative grid barrier: a barrier would save some
+// 2 µs a pass, and a launch cannot hang the card if a block is not
+// resident. The first byte's histogram is not fused into the score pass: it
+// must start from zero, and the score pass is the draw's first launch.
 // Bound on the card: bytes, and barely: 8 bytes a slot read once (1 MB at
-// 131,072 slots, 0.3 µs at the memory rate) against six passes of one
-// block over scores that sit in L2. The block's passes are the cost, and
-// the rank sort is n² compares over 1,024 threads; a multi-block select is
-// later work.
+// 131,072 slots, 0.3 µs at the memory rate). The earlier design ran the
+// whole selection in one block: four passes over all the scores, two
+// compaction passes and an n² rank sort (16.8 M compares at 4,096 picks),
+// with one bin's atomics serialised when the valid scores share a top byte.
+// Now each pass is spread over the SMs and the sort is four passes of n.
 //
 // K8b. One launch writes the five fields of B transitions at `at` and fills
 // the new slots' priority from the device scalar `p_max` (the reference
@@ -56,9 +81,18 @@
 namespace {
 
 constexpr int kScoreThreads = 256;
-constexpr int kSelectThreads = 1024;
+constexpr int kSelThreads = 256;  // the histogram, count and compaction blocks
+constexpr int kSelSlice = 1024;   // slots one of those blocks takes
+constexpr int kSortThreads = 512;  // the finish block, and the multi-block sort's
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kSortChunk = 4096;  // picks a block of the multi-block sort takes
+constexpr int kMaxSharedPicks = 16384;  // picks whose keys and permutations fit shared memory
 constexpr int kMaxPicks = 1024;  // rows of a one-block refresh
-constexpr int kMaxSharedPicks = 16384;  // picks whose keys, ids, sorted ids fit shared memory
+// The selection's scratch (32-bit words): four 256-bin histograms, then the
+// state (the mass; after each byte, the prefix and the count still needed),
+// then the blocks' counts above and at the key, then the picks' keys and
+// slots (and above kMaxSharedPicks the sort's permutations and counts).
+constexpr int kStateWords = 16;
 constexpr int kRefreshThreads = 256;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -77,10 +111,12 @@ __global__ void per_score_kernel(const float* __restrict__ prio,
                                  const float* __restrict__ noise,
                                  const int64_t* __restrict__ size_p, float alpha,
                                  int cap, float* __restrict__ score,
-                                 float* __restrict__ partial) {
+                                 float* __restrict__ partial, uint32_t* __restrict__ hist) {
   __shared__ float red[kScoreThreads];
   const int tid = threadIdx.x;
   const int i = blockIdx.x * kScoreThreads + tid;
+  if (blockIdx.x == 0)
+    for (int b = tid; b < 4 * 256; b += kScoreThreads) hist[b] = 0u;
   const int64_t size = *size_p;
   float pa = 0.0f;
   if (i < cap) {
@@ -100,65 +136,188 @@ __global__ void per_score_kernel(const float* __restrict__ prio,
 
 extern __shared__ unsigned char pick_smem[];
 
-// kGlobal: the picks' keys, ids and sorted ids in `scratch` (3n words)
-// instead of dynamic shared memory.
-template <bool kGlobal>
-__global__ void __launch_bounds__(kSelectThreads)
-per_select_kernel(const float* __restrict__ score, const float* __restrict__ prio,
-                  const float* __restrict__ partial, int n_partial,
-                  const int64_t* __restrict__ size_p,
-                  const float* __restrict__ beta_p, float alpha, int cap, int n,
-                  int* __restrict__ idx_out, float* __restrict__ w_out,
-                  uint32_t* __restrict__ scratch) {
-  __shared__ uint32_t hist[256];
-  __shared__ uint32_t sh_prefix, sh_need;
-  __shared__ float sh_sum;
-  __shared__ int warp_gt[32], warp_eq[32];
-  __shared__ float red[kSelectThreads];
-  uint32_t* const keys = kGlobal ? scratch : reinterpret_cast<uint32_t*>(pick_smem);
-  int* const ids = reinterpret_cast<int*>(keys + n);
-  int* const sorted = ids + n;
+static_assert(kSelThreads == 256, "a histogram block takes one digit a thread");
+static_assert(256 * kSortWarps == 8 * kSortThreads, "the one-block sort scans 8 counters a thread");
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+// Larger key <=> smaller digit: an ascending sort on the digit is a
+// descending sort on the key.
+__device__ __forceinline__ int sort_digit(uint32_t key, int shift) {
+  return static_cast<int>((~key >> shift) & 255u);
+}
 
-  if (tid == 0) {  // the mass, block partials added in block order
-    float s = 0.0f;
-    for (int j = 0; j < n_partial; ++j) s += partial[j];
-    sh_sum = s;
+// Exclusive prefix of `v` over the block's threads in thread order, and the
+// block's sum in `*total`. `tmp`: a word a warp, in shared memory.
+template <int kThreadsT>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* total, int* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += x;
   }
+  if (lane == 31) tmp[warp] = incl;
+  __syncthreads();
+  int off = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < kThreadsT / 32; ++w) {
+    const int x = tmp[w];
+    if (w < warp) off += x;
+    sum += x;
+  }
+  __syncthreads();  // `tmp` may be written again
+  *total = sum;
+  return off + incl - v;
+}
 
-  // -- the key of the n-th largest score, one byte a pass from the top ------
+// The byte at `shift` of the need-th largest key among those that match
+// `prefix` above it, from that byte's histogram: thread t takes digit
+// 255 - t, so the scan counts from the top. Updates prefix and need.
+__device__ void decide_byte(const uint32_t* __restrict__ hist, int shift, uint32_t& prefix,
+                            uint32_t& need, int* tmp, uint32_t* sh) {
+  const int d = 255 - static_cast<int>(threadIdx.x);
+  const int c = static_cast<int>(hist[d]);
+  int total;
+  const uint32_t above = static_cast<uint32_t>(block_exclusive_scan<kSelThreads>(c, &total, tmp));
+  if (above < need && above + static_cast<uint32_t>(c) >= need) {
+    sh[0] = prefix | (static_cast<uint32_t>(d) << shift);
+    sh[1] = need - above;
+  }
+  __syncthreads();
+  prefix = sh[0];
+  need = sh[1];
+}
+
+// One byte of the radix select. `pass` p counts byte 3 - p (from the top)
+// of the slots that match the bytes decided so far; it first decides byte
+// 4 - p from the launch before's histogram (block 0 keeps the decision in
+// the state). Pass 0's block 0 also adds the mass.
+__global__ void __launch_bounds__(kSelThreads)
+per_hist_kernel(const float* __restrict__ score, int cap, int n, int pass,
+                uint32_t* __restrict__ sel, const float* __restrict__ partial, int n_partial) {
+  __shared__ uint32_t h[256];
+  __shared__ int tmp[kSelThreads / 32];
+  __shared__ uint32_t sh[2];
+  __shared__ float part[kSelSlice];
+  uint32_t* const state = sel + 4 * 256;
+  const int tid = threadIdx.x, lane = tid & 31;
+  h[tid] = 0u;
   uint32_t prefix = 0u, need = static_cast<uint32_t>(n);
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int b = tid; b < 256; b += kSelectThreads) hist[b] = 0u;
-    __syncthreads();
-    const uint32_t mask = shift == 24 ? 0u : (kFull << (shift + 8));
-    for (int i = tid; i < cap; i += kSelectThreads) {
-      const uint32_t k = order_key(score[i]);
-      if ((k & mask) == prefix) atomicAdd(&hist[(k >> shift) & 255u], 1u);
+  if (pass > 0) {
+    if (pass > 1) {
+      prefix = state[1 + 2 * (pass - 2)];
+      need = state[2 + 2 * (pass - 2)];
     }
-    __syncthreads();
-    if (tid == 0) {
-      uint32_t left = need;
-      int d = 255;
-      for (; d > 0; --d) {
-        const uint32_t c = hist[d];
-        if (c >= left) break;
-        left -= c;
-      }
-      sh_prefix = prefix | (static_cast<uint32_t>(d) << shift);
-      sh_need = left;
+    decide_byte(sel + 256 * (pass - 1), 32 - 8 * pass, prefix, need, tmp, sh);
+    if (blockIdx.x == 0 && tid == 0) {
+      state[1 + 2 * (pass - 1)] = prefix;
+      state[2 + 2 * (pass - 1)] = need;
     }
-    __syncthreads();
-    prefix = sh_prefix;
-    need = sh_need;
   }
-  const uint32_t kth = prefix;  // `need` of the slots at this key are picked
+  __syncthreads();
+  const int shift = 24 - 8 * pass;
+  const uint32_t mask = pass == 0 ? 0u : (kFull << (shift + 8));
+  const int base = blockIdx.x * kSelSlice;
+  for (int i0 = 0; i0 < kSelSlice; i0 += kSelThreads) {
+    const int i = base + i0 + tid;
+    int d = 256;
+    if (i < cap) {
+      const uint32_t k = order_key(score[i]);
+      if ((k & mask) == prefix) d = static_cast<int>((k >> shift) & 255u);
+    }
+    const unsigned peers = __match_any_sync(kFull, d);
+    if (d < 256 && lane == __ffs(peers) - 1) atomicAdd(&h[d], static_cast<uint32_t>(__popc(peers)));
+  }
+  __syncthreads();
+  if (h[tid] != 0u) atomicAdd(&sel[256 * pass + tid], h[tid]);
+  if (pass == 0 && blockIdx.x == 0) {  // the mass: the partials in block order, from 0.0f
+    float s = 0.0f;
+    for (int j0 = 0; j0 < n_partial; j0 += kSelSlice) {
+      const int m = min(kSelSlice, n_partial - j0);
+      for (int j = tid; j < m; j += kSelThreads) part[j] = partial[j0 + j];
+      __syncthreads();
+      if (tid == 0)
+        for (int j = 0; j < m; ++j) s += part[j];
+      __syncthreads();
+    }
+    if (tid == 0) state[0] = __float_as_uint(s);
+  }
+}
 
-  // -- compaction: warp w owns slots [w·seg, (w+1)·seg), a multiple of 32 ---
-  const int seg = ((cap + 31) / 32 + 31) / 32 * 32;
-  const int begin = min(warp * seg, cap), end = min(begin + seg, cap);
+// The last byte's decision (the key of the n-th largest score, and how many
+// slots at it are picked), then each block's count of its slots above that
+// key and at it.
+__global__ void __launch_bounds__(kSelThreads)
+per_count_kernel(const float* __restrict__ score, int cap, uint32_t* __restrict__ sel, int nb) {
+  __shared__ int tmp[kSelThreads / 32];
+  __shared__ uint32_t sh[2];
+  __shared__ int warp_gt[kSelThreads / 32], warp_eq[kSelThreads / 32];
+  uint32_t* const state = sel + 4 * 256;
+  uint32_t prefix = state[5], need = state[6];
+  decide_byte(sel + 3 * 256, 0, prefix, need, tmp, sh);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    state[7] = prefix;
+    state[8] = need;
+  }
+  const uint32_t kth = prefix;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int base = blockIdx.x * kSelSlice;
+  int gt = 0, eq = 0;
+  for (int i0 = 0; i0 < kSelSlice; i0 += kSelThreads) {
+    const int i = base + i0 + threadIdx.x;
+    const uint32_t k = i < cap ? order_key(score[i]) : 0u;
+    gt += __popc(__ballot_sync(kFull, i < cap && k > kth));
+    eq += __popc(__ballot_sync(kFull, i < cap && k == kth));
+  }
+  if (lane == 0) {
+    warp_gt[warp] = gt;
+    warp_eq[warp] = eq;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int g = 0, e = 0;
+    for (int w = 0; w < kSelThreads / 32; ++w) {
+      g += warp_gt[w];
+      e += warp_eq[w];
+    }
+    int* const counts = reinterpret_cast<int*>(state + kStateWords);
+    counts[blockIdx.x] = g;
+    counts[nb + blockIdx.x] = e;
+  }
+}
+
+// The picks in index order: each block's slots above the key at the blocks'
+// running count of them, then its slots at the key while fewer than `need`
+// came before, after all those above. Warp w of a block owns 128
+// consecutive slots, ranked by ballot.
+__global__ void __launch_bounds__(kSelThreads)
+per_compact_kernel(const float* __restrict__ score, int cap, const uint32_t* __restrict__ sel,
+                   int nb, uint32_t* __restrict__ keys, int* __restrict__ ids) {
+  __shared__ int tmp[kSelThreads / 32];
+  __shared__ int warp_gt[kSelThreads / 32], warp_eq[kSelThreads / 32];
+  const uint32_t* const state = sel + 4 * 256;
+  const uint32_t kth = state[7];
+  const int need = static_cast<int>(state[8]);
+  const int* const block_gt = reinterpret_cast<const int*>(state + kStateWords);
+  const int* const block_eq = block_gt + nb;
+  const int block = static_cast<int>(blockIdx.x);
+  int before_gt = 0, before_eq = 0, all_gt = 0;
+  for (int j = threadIdx.x; j < nb; j += kSelThreads) {
+    const int g = block_gt[j];
+    all_gt += g;
+    if (j < block) {
+      before_gt += g;
+      before_eq += block_eq[j];
+    }
+  }
+  int off_gt, off_eq, total_gt;
+  block_exclusive_scan<kSelThreads>(before_gt, &off_gt, tmp);
+  block_exclusive_scan<kSelThreads>(before_eq, &off_eq, tmp);
+  block_exclusive_scan<kSelThreads>(all_gt, &total_gt, tmp);
+
+  constexpr int kSeg = kSelSlice / (kSelThreads / 32);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int begin = min(block * kSelSlice + warp * kSeg, cap), end = min(begin + kSeg, cap);
   int count_gt = 0, count_eq = 0;
   for (int base = begin; base < end; base += 32) {
     const int i = base + lane;
@@ -171,13 +330,9 @@ per_select_kernel(const float* __restrict__ score, const float* __restrict__ pri
     warp_eq[warp] = count_eq;
   }
   __syncthreads();
-  int off_gt = 0, off_eq = 0, total_gt = 0;
-  for (int j = 0; j < 32; ++j) {
-    if (j < warp) {
-      off_gt += warp_gt[j];
-      off_eq += warp_eq[j];
-    }
-    total_gt += warp_gt[j];
+  for (int j = 0; j < warp; ++j) {
+    off_gt += warp_gt[j];
+    off_eq += warp_eq[j];
   }
   const unsigned below = (1u << lane) - 1u;
   for (int base = begin; base < end; base += 32) {
@@ -192,7 +347,7 @@ per_select_kernel(const float* __restrict__ score, const float* __restrict__ pri
     }
     if (eq) {
       const int rank = off_eq + __popc(m_eq & below);
-      if (rank < static_cast<int>(need)) {
+      if (rank < need) {
         keys[total_gt + rank] = k;
         ids[total_gt + rank] = i;
       }
@@ -200,53 +355,218 @@ per_select_kernel(const float* __restrict__ score, const float* __restrict__ pri
     off_gt += __popc(m_gt);
     off_eq += __popc(m_eq);
   }
-  __syncthreads();
+}
 
-  // -- rank sort by (score descending, index ascending) ----------------------
-  for (int t = tid; t < n; t += kSelectThreads) {
-    const uint32_t k = keys[t];
-    const int id = ids[t];
-    int rank = 0;
-    for (int j = 0; j < n; ++j) {
-      rank += (keys[j] > k) || (keys[j] == k && ids[j] < id);
-    }
-    sorted[rank] = id;
+// Warp w's contiguous share of the items [begin, end), a multiple of 32 long.
+__device__ __forceinline__ void warp_range(int begin, int end, int& wb, int& we) {
+  const int warp = threadIdx.x >> 5;
+  const int len = end - begin;
+  const int per = ((len + kSortWarps - 1) / kSortWarps + 31) / 32 * 32;
+  wb = begin + min(warp * per, len);
+  we = begin + min((warp + 1) * per, len);
+}
+
+// hist[d · kSortWarps + w] = how many of warp w's items have digit d. An
+// item j is the position src[j] (j itself where src is null).
+__device__ void warp_digit_counts(const uint32_t* keys, const int* src, int begin, int end,
+                                  int shift, int* hist) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < 256 * kSortWarps; i += kSortThreads) hist[i] = 0;
+  __syncthreads();
+  int wb, we;
+  warp_range(begin, end, wb, we);
+  for (int j0 = wb; j0 < we; j0 += 32) {
+    const int j = j0 + lane;
+    const int d = j < we ? sort_digit(keys[src != nullptr ? src[j] : j], shift) : 256;
+    const unsigned peers = __match_any_sync(kFull, d);
+    if (d < 256 && lane == __ffs(peers) - 1) hist[d * kSortWarps + warp] += __popc(peers);
   }
   __syncthreads();
+}
 
-  // -- fallback for a pick with no mass, and the importance weights ----------
+// hist[d · kSortWarps + w] holds the first place of warp w's items of digit
+// d; each warp writes its items there in order, a group of equal digits at
+// a time.
+__device__ void warp_digit_scatter(const uint32_t* keys, const int* src, int* dst, int begin,
+                                   int end, int shift, int* hist) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int wb, we;
+  warp_range(begin, end, wb, we);
+  for (int j0 = wb; j0 < we; j0 += 32) {
+    const int j = j0 + lane;
+    const int p = j < we ? (src != nullptr ? src[j] : j) : 0;
+    const int d = j < we ? sort_digit(keys[p], shift) : 256;
+    const unsigned peers = __match_any_sync(kFull, d);
+    if (d < 256) dst[hist[d * kSortWarps + warp] + __popc(peers & below)] = p;
+    __syncwarp();
+    if (d < 256 && lane == __ffs(peers) - 1) hist[d * kSortWarps + warp] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
+// One stable pass of the one-block sort: the n positions of src into dst by
+// the byte at `shift` of their keys. Returns false, moving nothing, when
+// every key has the same byte there.
+__device__ bool block_sort_pass(const uint32_t* keys, const int* src, int* dst, int n, int shift,
+                                int* hist, int* tmp) {
+  warp_digit_counts(keys, src, 0, n, shift, hist);
+  int* const mine = hist + threadIdx.x * 8;  // digit threadIdx.x / 2, eight warps of it
+  int v[8];
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v[i] = mine[i];
+    sum += v[i];
+  }
+  if (__syncthreads_or(sum + __shfl_xor_sync(kFull, sum, 1) == n)) return false;
+  int total;
+  int run = block_exclusive_scan<kSortThreads>(sum, &total, tmp);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mine[i] = run;
+    run += v[i];
+  }
+  __syncthreads();
+  warp_digit_scatter(keys, src, dst, 0, n, shift, hist);
+  return true;
+}
+
+// The multi-block sort, one byte: each chunk's digit counts, digit-major
+// (counts[d · n_chunks + c]) ...
+__global__ void __launch_bounds__(kSortThreads)
+pick_sort_count_kernel(const uint32_t* __restrict__ keys, const int* __restrict__ src, int n,
+                       int shift, int n_chunks, int* __restrict__ counts) {
+  __shared__ int h[256];
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 256) h[threadIdx.x] = 0;
+  __syncthreads();
+  const int begin = blockIdx.x * kSortChunk, end = min(begin + kSortChunk, n);
+  for (int j0 = begin; j0 < end; j0 += kSortThreads) {
+    const int j = j0 + threadIdx.x;
+    const int d = j < end ? sort_digit(keys[src != nullptr ? src[j] : j], shift) : 256;
+    const unsigned peers = __match_any_sync(kFull, d);
+    if (d < 256 && lane == __ffs(peers) - 1) atomicAdd(&h[d], __popc(peers));
+  }
+  __syncthreads();
+  if (threadIdx.x < 256) counts[threadIdx.x * n_chunks + blockIdx.x] = h[threadIdx.x];
+}
+
+// ... their exclusive scan in that order, one block ...
+__global__ void __launch_bounds__(kSortThreads)
+pick_sort_scan_kernel(int* __restrict__ data, int len) {
+  __shared__ int tmp[kSortWarps];
+  int carry = 0;
+  for (int t0 = 0; t0 < len; t0 += kSortThreads * 8) {
+    const int base = t0 + threadIdx.x * 8;
+    int v[8];
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      v[i] = base + i < len ? data[base + i] : 0;
+      sum += v[i];
+    }
+    int total;
+    int run = carry + block_exclusive_scan<kSortThreads>(sum, &total, tmp);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (base + i < len) data[base + i] = run;
+      run += v[i];
+    }
+    carry += total;
+  }
+}
+
+// ... and each chunk's stable scatter from its digits' first places.
+__global__ void __launch_bounds__(kSortThreads)
+pick_sort_scatter_kernel(const uint32_t* __restrict__ keys, const int* src, int* dst, int n,
+                         int shift, int n_chunks, const int* __restrict__ offsets) {
+  __shared__ int hist[256 * kSortWarps];
+  const int begin = blockIdx.x * kSortChunk, end = min(begin + kSortChunk, n);
+  warp_digit_counts(keys, src, begin, end, shift, hist);
+  if (threadIdx.x < 256) {
+    int run = offsets[threadIdx.x * n_chunks + blockIdx.x];
+    for (int w = 0; w < kSortWarps; ++w) {
+      const int c = hist[threadIdx.x * kSortWarps + w];
+      hist[threadIdx.x * kSortWarps + w] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+  warp_digit_scatter(keys, src, dst, begin, end, shift, hist);
+}
+
+// One block: the sort of the picks (kSort: in shared memory; else `g_perm`
+// holds their sorted positions), then the fallback hash for a pick with no
+// mass and the max-normalised importance weights.
+template <bool kSort>
+__global__ void __launch_bounds__(kSortThreads)
+per_finish_kernel(const float* __restrict__ prio, const int64_t* __restrict__ size_p,
+                  const float* __restrict__ beta_p, float alpha, int n,
+                  const uint32_t* __restrict__ sel, const uint32_t* __restrict__ g_keys,
+                  const int* __restrict__ g_ids, const int* __restrict__ g_perm,
+                  int* __restrict__ idx_out, float* __restrict__ w_out) {
+  __shared__ int tmp[kSortWarps];
+  __shared__ float red[kSortWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* perm = g_perm;
+  if (kSort) {
+    uint32_t* const keys = reinterpret_cast<uint32_t*>(pick_smem);
+    int* src = reinterpret_cast<int*>(keys + n);
+    int* dst = src + n;
+    int* const hist = dst + n;
+    for (int t = tid; t < n; t += kSortThreads) {
+      keys[t] = g_keys[t];
+      src[t] = t;
+    }
+    __syncthreads();
+    for (int shift = 0; shift < 32; shift += 8) {
+      if (block_sort_pass(keys, src, dst, n, shift, hist, tmp)) {
+        int* const moved = dst;
+        dst = src;
+        src = moved;
+      }
+    }
+    perm = src;
+  }
+
   const int64_t size = *size_p;
   const int64_t size1 = size > 1 ? size : 1;
   const float beta = *beta_p;
+  const float mass = __uint_as_float(sel[4 * 256]);
   // pick t's slot, whether it has mass, and its weight before the normalisation
   auto weigh = [&](int t, int& id, bool& ok) {
-    id = sorted[t];
+    id = g_ids[perm[t]];
     const float pa = id < size ? expf(slot_logp(prio[id], alpha)) : 0.0f;
     ok = pa > 0.0f;
-    const float p_sel = pa / fmaxf(sh_sum, 1e-30f);
+    const float p_sel = pa / fmaxf(mass, 1e-30f);
     return powf(static_cast<float>(size1) * p_sel, -beta);
   };
   float w_max = 0.0f;
-  for (int t = tid; t < n; t += kSelectThreads) {
+#pragma unroll 4
+  for (int t = tid; t < n; t += kSortThreads) {
     int id;
     bool ok;
     const float w = weigh(t, id, ok);
     if (ok) w_max = fmaxf(w_max, w);
   }
-  red[tid] = w_max;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) w_max = fmaxf(w_max, __shfl_xor_sync(kFull, w_max, o));
+  if (lane == 0) red[warp] = w_max;
   __syncthreads();
-  for (int s = kSelectThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] = fmaxf(red[tid], red[tid + s]);
-    __syncthreads();
-  }
-  for (int t = tid; t < n; t += kSelectThreads) {
+  float top = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w) top = fmaxf(top, red[w]);
+#pragma unroll 4
+  for (int t = tid; t < n; t += kSortThreads) {
     int id;
     bool ok;
     const float w = weigh(t, id, ok);
     const uint32_t h = static_cast<uint32_t>(id) * 2654435761u + static_cast<uint32_t>(t);
     const int fallback = static_cast<int>(h % static_cast<uint32_t>(size1));
     idx_out[t] = ok ? id : fallback;
-    w_out[t] = ok ? w / fmaxf(red[0], 1e-30f) : 1.0f;
+    w_out[t] = ok ? w / fmaxf(top, 1e-30f) : 1.0f;
   }
 }
 
@@ -370,35 +690,79 @@ refresh_write_kernel(float* __restrict__ prio, const int* __restrict__ idx,
 
 }  // namespace
 
-// Both kernels of one draw; `*launched` counts those that were launched.
-// `scratch`: 3n words when n > kMaxSharedPicks, else unused (may be null).
+// The kernels of one draw; `*launched` counts those launched: eight up to
+// kMaxSharedPicks picks, twenty above. `scratch` (32-bit words): 4·256 +
+// kStateWords + 2·ceil(cap / kSelSlice) + 2n, and above kMaxSharedPicks
+// picks 2n + 256·ceil(n / kSortChunk) more.
 extern "C" int gu_per_sample(const void* prio, const void* noise, const void* size,
                              const void* beta, float alpha, int cap, int n,
                              void* score, void* partial, void* idx_out, void* w_out,
                              void* scratch, int* launched, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const int blocks = (cap + kScoreThreads - 1) / kScoreThreads;
   *launched = 0;
-  per_score_kernel<<<blocks, kScoreThreads, 0, st>>>(
-      static_cast<const float*>(prio), static_cast<const float*>(noise),
-      static_cast<const int64_t*>(size), alpha, cap, static_cast<float*>(score),
-      static_cast<float*>(partial));
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  *launched = 1;
-  const bool in_shared = n <= kMaxSharedPicks;
-  err = static_cast<int>(cudaFuncSetAttribute(per_select_kernel<false>,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              kMaxSharedPicks * 12));
-  if (err != 0) return err;
-  auto* select = in_shared ? per_select_kernel<false> : per_select_kernel<true>;
-  select<<<1, kSelectThreads, in_shared ? static_cast<size_t>(n) * 12 : 0, st>>>(
-      static_cast<const float*>(score), static_cast<const float*>(prio),
-      static_cast<const float*>(partial), blocks, static_cast<const int64_t*>(size),
-      static_cast<const float*>(beta), alpha, cap, n, static_cast<int*>(idx_out),
-      static_cast<float*>(w_out), static_cast<uint32_t*>(scratch));
-  err = static_cast<int>(cudaGetLastError());
-  if (err == 0) *launched = 2;
+  const int score_blocks = (cap + kScoreThreads - 1) / kScoreThreads;
+  const int sel_blocks = (cap + kSelSlice - 1) / kSelSlice;
+  auto* const sel = static_cast<uint32_t*>(scratch);
+  uint32_t* const keys = sel + 4 * 256 + kStateWords + 2 * sel_blocks;
+  int* const ids = reinterpret_cast<int*>(keys + n);
+  int* const perm_a = ids + n;
+  int* const perm_b = perm_a + n;
+  int* const counts = perm_b + n;
+  const auto* const sc = static_cast<const float*>(score);
+  const auto* const pr = static_cast<const float*>(prio);
+  const auto* const sz = static_cast<const int64_t*>(size);
+  const auto* const be = static_cast<const float*>(beta);
+  auto* const idx = static_cast<int*>(idx_out);
+  auto* const w = static_cast<float*>(w_out);
+  int err = 0;
+  auto launched_ok = [&]() {
+    err = static_cast<int>(cudaGetLastError());
+    if (err == 0) ++*launched;
+    return err == 0;
+  };
+  per_score_kernel<<<score_blocks, kScoreThreads, 0, st>>>(
+      pr, static_cast<const float*>(noise), sz, alpha, cap, static_cast<float*>(score),
+      static_cast<float*>(partial), sel);
+  if (!launched_ok()) return err;
+  for (int pass = 0; pass < 4; ++pass) {
+    per_hist_kernel<<<sel_blocks, kSelThreads, 0, st>>>(sc, cap, n, pass, sel,
+                                                        static_cast<const float*>(partial),
+                                                        score_blocks);
+    if (!launched_ok()) return err;
+  }
+  per_count_kernel<<<sel_blocks, kSelThreads, 0, st>>>(sc, cap, sel, sel_blocks);
+  if (!launched_ok()) return err;
+  per_compact_kernel<<<sel_blocks, kSelThreads, 0, st>>>(sc, cap, sel, sel_blocks, keys, ids);
+  if (!launched_ok()) return err;
+  if (n <= kMaxSharedPicks) {
+    constexpr size_t kHistBytes = 256 * kSortWarps * sizeof(int);
+    err = static_cast<int>(cudaFuncSetAttribute(per_finish_kernel<true>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                kMaxSharedPicks * 12 + kHistBytes));
+    if (err != 0) return err;
+    per_finish_kernel<true><<<1, kSortThreads, static_cast<size_t>(n) * 12 + kHistBytes, st>>>(
+        pr, sz, be, alpha, n, sel, keys, ids, nullptr, idx, w);
+    launched_ok();
+    return err;
+  }
+  const int n_chunks = (n + kSortChunk - 1) / kSortChunk;
+  const int* src = nullptr;  // the compaction's order
+  int* dst = perm_a;
+  for (int shift = 0; shift < 32; shift += 8) {
+    pick_sort_count_kernel<<<n_chunks, kSortThreads, 0, st>>>(keys, src, n, shift, n_chunks,
+                                                              counts);
+    if (!launched_ok()) return err;
+    pick_sort_scan_kernel<<<1, kSortThreads, 0, st>>>(counts, 256 * n_chunks);
+    if (!launched_ok()) return err;
+    pick_sort_scatter_kernel<<<n_chunks, kSortThreads, 0, st>>>(keys, src, dst, n, shift,
+                                                                n_chunks, counts);
+    if (!launched_ok()) return err;
+    src = dst;
+    dst = dst == perm_a ? perm_b : perm_a;
+  }
+  per_finish_kernel<false><<<1, kSortThreads, 0, st>>>(pr, sz, be, alpha, n, sel, keys, ids, src,
+                                                       idx, w);
+  launched_ok();
   return err;
 }
 

@@ -32,8 +32,11 @@ one for each kernel it launched, right after the call that launched them
 succeeded, and nowhere else. K5's wrapper launches one kernel a step and one
 more to apply the last aggregate, so a scan of T steps counts T + 1; the
 backward of `embed_rows` launches two kernels and that of `agent_stamp`
-three, and each counts under its kernel's name. A `per_sample` draw is two
-kernels (scores, then selection); the ring's write and gather are one each,
+three, and each counts under its kernel's name. A `per_sample` draw is
+eight kernels up to 16,384 picks (scores, four histogram passes, count,
+compaction, sort and weights) and twenty above (the sort in twelve
+multi-block passes), and a `segment_mean` call four (count, scan,
+scatter, sum); the ring's write and gather are one each,
 and the refresh one up to 1,024 rows and two above, all under `replay`. A
 trace step is two kernels (the pass over the trace, then the chunks' sums
 and the table), and so is a DQN act-and-step (the pass over the envs, then

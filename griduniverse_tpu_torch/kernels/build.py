@@ -62,7 +62,9 @@ _SIGNATURES = {
                        + [_P] * 13 + [_P],
     "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I]
                      + [_P] * 4 + [_P] * 9 + [_P],
-    "gu_segment_mean": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P],
+    # q in, out, s, a, delta, mask; alpha; batch, A, S·A, chunk; counts, vals,
+    # look-back words; launched
+    "gu_segment_mean": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 4 + [_P],
     "gu_gae": [_P] * 6 + [_I, _I, _F, _F, _P],
     "gu_nstep_returns": [_P] * 4 + [_I, _I, _F, _P],
     # batch, max_episode_steps; logits, gumbel; state in (3); state out (4);

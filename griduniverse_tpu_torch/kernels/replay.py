@@ -17,9 +17,11 @@ from .build import check_int, check_tensor, launch
 # rows of a refresh in one block; a larger refresh is two launches over a
 # per-slot scratch
 MAX_ONE_BLOCK_REFRESH = 1024
-# picks of a draw whose keys and ids fit shared memory; a larger draw keeps
-# them in a scratch buffer
+# picks of a draw that one block sorts in shared memory; a larger draw is
+# sorted by multi-block passes over the scratch
 MAX_SHARED_PICKS = 16_384
+SEL_SLICE = 1024    # slots a block of K8a's select passes takes
+SORT_CHUNK = 4096   # picks a block of K8a's multi-block sort takes
 
 _FIELDS = (
     ("obs", torch.int32), ("action", torch.int32), ("reward", torch.float32),
@@ -35,12 +37,23 @@ def _ring(buf, cap: int, device) -> list[int]:
     return [check_tensor(f"buf.{f}", getattr(buf, f), dt, (cap,), device) for f, dt in _FIELDS]
 
 
+def per_sample_scratch_words(cap: int, n: int) -> int:
+    """32-bit words of K8a's scratch: the four select histograms and the
+    state, the select blocks' counts, the picks' keys and slots, and above
+    `MAX_SHARED_PICKS` the multi-block sort's permutations and counts."""
+    words = 4 * 256 + 16 + 2 * -(-cap // SEL_SLICE) + 2 * n
+    if n > MAX_SHARED_PICKS:
+        words += 2 * n + 256 * -(-n // SORT_CHUNK)
+    return words
+
+
 def per_sample_cuda(prio, noise, size, beta, n: int, alpha: float):
     """Launch K8a: the n best of `alpha·log max(prio, 1e-30) + noise` over
     the first `size` slots (equal scores by lowest index, ordered by score
     descending), a slot with no mass replaced by the fallback hash, and the
     max-normalised importance weights. `size` (() int64) and `beta` (()
-    float32) are device tensors. Two kernels a draw, both counted. Returns
+    float32) are device tensors. Eight kernels a draw up to
+    `MAX_SHARED_PICKS` picks, twenty above, all counted. Returns
     (idx (n,) int32, w (n,) float32, score (cap,) float32)."""
     device = prio.device
     if device.type != "cuda":
@@ -53,9 +66,8 @@ def per_sample_cuda(prio, noise, size, beta, n: int, alpha: float):
     partial = torch.empty(((cap + 255) // 256,), dtype=torch.float32, device=device)
     idx = torch.empty((n,), dtype=torch.int32, device=device)
     w = torch.empty((n,), dtype=torch.float32, device=device)
-    scratch = None
-    if n > MAX_SHARED_PICKS:  # keys, ids and sorted ids, a word each
-        scratch = torch.empty((3 * n,), dtype=torch.int32, device=device)
+    scratch = torch.empty((check_int("scratch", per_sample_scratch_words(cap, n)),),
+                          dtype=torch.int32, device=device)
     launched = ctypes.c_int(0)
     launch(
         "gu_per_sample", device,
@@ -65,7 +77,7 @@ def per_sample_cuda(prio, noise, size, beta, n: int, alpha: float):
         _scalar("beta", beta, torch.float32, device),
         float(alpha), cap, n,
         score.data_ptr(), partial.data_ptr(), idx.data_ptr(), w.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), ctypes.addressof(launched),
+        scratch.data_ptr(), ctypes.addressof(launched),
     )
     LAUNCHES["per_sample"] += launched.value
     return idx, w, score

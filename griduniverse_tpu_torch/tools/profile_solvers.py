@@ -31,8 +31,9 @@ import torch
 
 MAX_EPISODE_STEPS = 512
 STEPS = 2_000
-OUR_KERNELS = ("grid_sweeps", "grid_sweep_global", "grid_greedy", "td_fast", "td_batched", "segment_mean",
-               "random_scan_bits", "rollout_actions_bits", "aldous_broder", "mc_returns", "trace_pass")
+OUR_KERNELS = ("grid_sweeps", "grid_sweep_global", "grid_greedy", "td_fast", "td_batched", "segment_count",
+               "segment_scan", "segment_scatter", "segment_sum", "random_scan_bits", "rollout_actions_bits",
+               "aldous_broder", "mc_returns", "trace_pass")
 
 
 def _wall_ms(fn) -> float:

@@ -199,7 +199,7 @@ def test_segment_mean_kernel_matches_plain(dev, b):
     before = kernels.LAUNCHES["segment_mean"]
     got = td.apply_td_updates(q, s, a, delta, 0.1)
     got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
-    assert kernels.LAUNCHES["segment_mean"] == before + 2
+    assert kernels.LAUNCHES["segment_mean"] == before + 2 * 4  # count, scan, scatter, sum
     _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
     _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
     if b == 1:
@@ -417,7 +417,9 @@ def _held_draw(prio, noise, size, n, alpha, beta):
     beta_t = torch.as_tensor(beta, dtype=torch.float32, device=dev)
     before = kernels.LAUNCHES["per_sample"]
     idx, w, score = dqn._per_sample(prio, noise, size_t, n, alpha, beta_t)
-    assert kernels.LAUNCHES["per_sample"] == before + 2
+    # score, four histogram passes, count, compaction, finish; above 16,384
+    # picks the sort is four passes of three launches more
+    assert kernels.LAUNCHES["per_sample"] == before + (8 if n <= 16_384 else 20)
     ref_score, pa = dqn.per_scores_reference(prio, noise, size_t, alpha)
     finite = torch.isfinite(ref_score)
     assert torch.equal(finite, torch.isfinite(score))
@@ -503,7 +505,7 @@ def test_dqn_on_cuda_is_chunk_invariant(dev, extra):
     full = dqn.dqn_run(sem, level, ts0, cfg, 24)
     per = bool(extra.get("prioritized"))
     assert kernels.LAUNCHES["replay"] == 24 * (3 if per else 2)
-    assert kernels.LAUNCHES["per_sample"] == (48 if per else 0)
+    assert kernels.LAUNCHES["per_sample"] == (24 * 8 if per else 0)
     resumed = dqn.dqn_run(sem, level, dqn.dqn_run(sem, level, ts0, cfg, 12), cfg, 12)
     for name in full.params:
         assert torch.equal(full.params[name], resumed.params[name]), name
@@ -524,7 +526,7 @@ def test_mc_and_td_lambda_run_on_cuda(dev):
     before = kernels.LAUNCHES["segment_mean"]
     res = algos.mc_prediction(sem, level, 3)  # the default 256 episodes of 100 steps: 25,600 samples in K10
     ref = algos.mc_prediction(cpu_sem, cpu_level, 3)
-    assert kernels.LAUNCHES["segment_mean"] == before + 1
+    assert kernels.LAUNCHES["segment_mean"] == before + 4
     assert torch.equal(res.counts.cpu(), ref.counts)
     assert torch.equal(res.value.cpu().view(torch.int32), ref.value.view(torch.int32))
     ctl = algos.mc_control(sem, level, 6, num_rounds=5, batch_size=64, max_steps=30)
@@ -552,7 +554,55 @@ def test_segment_mean_kernel_matches_plain_over_several_tiles(dev, b):
     before = kernels.LAUNCHES["segment_mean"]
     got = td.apply_td_updates(q, s, a, delta, 0.1)
     got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
-    assert kernels.LAUNCHES["segment_mean"] == before + 2
+    assert kernels.LAUNCHES["segment_mean"] == before + 2 * 4  # count, scan, scatter, sum
+    _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
+    _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
+
+
+def _skewed_batch(dev, b, n_states, num_actions, kind, seed):
+    """(q, s, a, delta, mask) of K10 with `kind`'s skew: every env in one
+    cell, 90 % in one cell, every env masked off, or spread over Q."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((n_states, num_actions), generator=gen, device=dev)
+    s = torch.randint(0, n_states, (b,), generator=gen, device=dev, dtype=torch.int32)
+    a = torch.randint(0, num_actions, (b,), generator=gen, device=dev, dtype=torch.int32)
+    delta = torch.randn((b,), generator=gen, device=dev)
+    mask = torch.rand((b,), generator=gen, device=dev) < 0.5
+    if kind == "one cell":
+        s.fill_(n_states // 2)
+        a.fill_(num_actions - 1)
+    elif kind == "hot cell":
+        hot = torch.rand((b,), generator=gen, device=dev) < 0.9
+        s[hot], a[hot] = n_states // 3, 0
+    elif kind == "all masked":
+        mask.zero_()
+    return q, s, a, delta, mask
+
+
+@pytest.mark.parametrize("kind", ["one cell", "hot cell", "all masked", "spread"])
+@pytest.mark.parametrize("b,n_states", [(65_536, 256), (65_536, 4225), (30_000, 10_000)])
+def test_segment_mean_kernel_matches_plain_on_skewed_batches(dev, b, n_states, kind):
+    """Many chunks of envs; S·A = 1,024, 16,900, and 40,000, whose counters
+    are above shared memory and live in the global array."""
+    q, s, a, delta, mask = _skewed_batch(dev, b, n_states, 4, kind, b + n_states)
+    before = kernels.LAUNCHES["segment_mean"]
+    got = td.apply_td_updates(q, s, a, delta, 0.1)
+    got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
+    assert kernels.LAUNCHES["segment_mean"] == before + 2 * 4
+    _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
+    _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
+    if kind == "all masked":
+        assert torch.equal(_bits(got_m), _bits(q + 0.0))
+
+
+@pytest.mark.parametrize("b", [1, 4096, 65_536])
+def test_segment_mean_kernel_matches_plain_on_one_segment(dev, b):
+    """S·A = 1: every env in the one cell."""
+    q, s, a, delta, mask = _skewed_batch(dev, b, 1, 1, "one cell", b)
+    before = kernels.LAUNCHES["segment_mean"]
+    got = td.apply_td_updates(q, s, a, delta, 0.1)
+    got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
+    assert kernels.LAUNCHES["segment_mean"] == before + 2 * 4
     _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
     _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
 
@@ -609,6 +659,29 @@ def test_per_sample_kernel_matches_plain_above_one_block_of_picks(dev, cap, size
         assert bool((w[size:] == 1.0).all())
     again, w2 = _held_draw(prio, noise, size, n, 0.6, 0.4)
     assert torch.equal(idx, again) and torch.equal(w, w2)
+
+
+@pytest.mark.parametrize("kind", ["random", "all equal", "size < n"])
+@pytest.mark.parametrize("n", [1, 16_384, 16_385, 131_072])
+def test_per_sample_kernel_matches_plain_at_the_sort_limits(dev, n, kind):
+    """One pick, the most one block sorts, one more (multi-block passes),
+    and the whole ring of 131,072; every score equal, and `size < n`."""
+    cap = 131_072
+    gen = torch.Generator(device=dev).manual_seed(n + len(kind))
+    prio = torch.rand((cap,), generator=gen, device=dev) * 4 + 1e-3
+    prio[torch.randint(0, cap, (cap // 16,), generator=gen, device=dev)] = 0.0
+    noise = a2c.draw_gumbel(gen, (cap,), dev)
+    size = cap if n == cap else cap // 2
+    if kind == "all equal":
+        prio, noise = torch.ones_like(prio), torch.zeros_like(noise)
+    elif kind == "size < n":
+        size = n // 2
+    idx, w = _held_draw(prio, noise, size, n, 0.6, 0.4)
+    if kind == "all equal":
+        assert idx.tolist() == list(range(n)) and bool((w == 1.0).all())
+    if size < n:  # the -inf slots come out by lowest index and take the fallback at weight 1
+        assert bool((w[size:] == 1.0).all())
+    assert bool((idx >= 0).all()) and bool((idx < max(size, 1)).all())
 
 
 @pytest.mark.parametrize("cap,n", [(131_072, 1025), (131_072, 4096), (8192, 20_000)])

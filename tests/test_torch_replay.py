@@ -177,6 +177,48 @@ def test_size_smaller_than_n_falls_back_by_lowest_index():
     assert tidx[size:].tolist() == (h % size).tolist()
 
 
+@pytest.mark.parametrize("kind", ["random", "all equal", "size < n"])
+@pytest.mark.parametrize("n", [1, 256, 4096, 8192])
+def test_prioritized_sample_matches_jax_at_the_sort_limits(monkeypatch, rng, n, kind):
+    """One pick, 256, 4,096 and the whole ring of 8,192. The priorities are
+    1 or 0, so every score of a slot with priority 1 is its Gumbel draw
+    exactly, whatever the rounding, and the picks must equal the
+    reference's, score for score. Where the reference leaves equal scores
+    in an order of its own (equal draws, every score equal, the -inf slots
+    past `size`), the port takes them by lowest index, and the weights
+    must agree."""
+    cap = 8192
+    prio = np.ones(cap, np.float32)
+    prio[rng.integers(0, cap, 64)] = 0.0  # scores far below the rest, still with mass
+    size = cap if n == cap else cap // 2 + 37
+    if kind == "all equal":
+        prio[:] = 1.0
+        monkeypatch.setattr(jax.random, "gumbel", lambda key, shape: jnp.zeros(shape, jnp.float32))
+    elif kind == "size < n":
+        size = n // 2
+    key = jax.random.PRNGKey(n)
+    jidx, jw = jdqn.prioritized_sample(jnp.asarray(prio), key, jnp.asarray(size), n, 0.6, jnp.float32(0.4))
+    jidx, jw = np.asarray(jidx), np.asarray(jw)
+    noise = jax_gumbel(key, cap)
+    tidx, tw = tdqn.prioritized_sample(_t(prio), noise, size, n, 0.6, 0.4)
+    assert tidx.shape == (n,) and tw.shape == (n,)
+    np.testing.assert_allclose(tw.numpy(), jw, rtol=1e-6)
+    if kind == "all equal":
+        assert tidx.tolist() == list(range(n)) and (tw == 1.0).all()
+        return
+    valid = min(size, n)
+    score = tdqn.per_scores_reference(_t(prio), noise, torch.tensor(size), 0.6)[0].numpy()
+    got, want = tidx.numpy()[:valid], jidx[:valid]
+    np.testing.assert_array_equal(score[got], score[want])  # the same scores in the same order
+    np.testing.assert_array_equal(np.sort(got), np.sort(want))  # the same slots
+    tied = score[got][1:] == score[got][:-1]
+    assert (got[1:][tied] > got[:-1][tied]).all()  # equal scores by lowest index
+    if size < n:  # the -inf slots by lowest index, each replaced by the hash at weight 1
+        h = (np.arange(size, n, dtype=np.uint64) * 2654435761 + np.arange(size, n, dtype=np.uint64)) % 2**32
+        assert tidx[size:].tolist() == (h % max(size, 1)).tolist()
+        assert (tw[size:] == 1.0).all() and (jw[size:] == 1.0).all()
+
+
 def test_sampling_frequency_tracks_priority():
     """8 slots, one slot 20x the priority of the rest, alpha=1 (the
     reference's test of the same name)."""

@@ -51,10 +51,31 @@ def _collision_batch(rng, b, num_states=16):
     return q, s, a, delta
 
 
-@pytest.mark.parametrize("b", [1, 32, 256])
+def _td_batch(rng, b):
+    """(q, s, a, delta, mask) for `test_apply_td_updates_bitexact`: a batch
+    of `b` envs with heavy collisions, or one of K10's hard cases by name."""
+    if b == "sa-1":  # one state, one action: every env in the one cell
+        n = 300
+        return (rng.normal(size=(1, 1)).astype(np.float32), np.zeros(n, np.int32), np.zeros(n, np.int32),
+                (rng.normal(size=n) * 5).astype(np.float32), rng.random(n) < 0.5)
+    n = {"one-cell": 512, "hot-cell-4096": 4096, "all-masked": 256}.get(b, b)
+    q, s, a, delta = _collision_batch(rng, n)
+    mask = rng.random(n) < 0.5
+    if b == "one-cell":
+        s[:], a[:] = 2, 1
+    elif b == "hot-cell-4096":  # 90 % of the envs in one cell, the rest spread over Q
+        s, a = rng.integers(0, 16, size=n).astype(np.int32), rng.integers(0, 4, size=n).astype(np.int32)
+        hot = rng.random(n) < 0.9
+        s[hot], a[hot] = 1, 3
+    elif b == "all-masked":
+        mask[:] = False
+    return q, s, a, delta, mask
+
+
+@pytest.mark.parametrize("b", [1, 32, 256, "one-cell", "hot-cell-4096", "sa-1", "all-masked"])
 def test_apply_td_updates_bitexact(b, rng):
-    q, s, a, delta = _collision_batch(rng, b)
-    mask = rng.random(b) < 0.5
+    q, s, a, delta, mask = _td_batch(rng, b)
+    n = len(s)
     tq, ts, tacts, tdelta = (torch.as_tensor(x) for x in (q, s, a, delta))
     want = ja.apply_td_updates(jnp.asarray(q), jnp.asarray(s), jnp.asarray(a), jnp.asarray(delta), 0.3)
     got = ta.apply_td_updates(tq, ts, tacts, tdelta, 0.3)
@@ -64,12 +85,14 @@ def test_apply_td_updates_bitexact(b, rng):
     )
     got_m = ttd.apply_td_updates_masked(tq, ts, tacts, tdelta, 0.3, torch.as_tensor(mask))
     np.testing.assert_array_equal(_bits(got_m.numpy()), _bits(want_m))
-    none = ttd.apply_td_updates_masked(tq, ts, tacts, tdelta, 0.3, torch.zeros(b, dtype=torch.bool))
+    none = ttd.apply_td_updates_masked(tq, ts, tacts, tdelta, 0.3, torch.zeros(n, dtype=torch.bool))
     assert torch.equal(none, tq)
     if b == 1:  # the sequential rule q[s, a] + α·δ, exactly
         ref = q.copy()
         ref[s[0], a[0]] = ref[s[0], a[0]] + np.float32(0.3) * delta[0]
         np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref))
+    if b == "all-masked":
+        np.testing.assert_array_equal(_bits(got_m.numpy()), _bits(q))
 
 
 def test_td_errors_match_jax(rng):
