@@ -741,6 +741,7 @@ def learner_phases(gt, dev, gen, bound, smi):
     counted, its outputs against the plain versions, and the times. Returns
     (launches, max abs errors, times) by kernel name."""
     from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.kernels import embed_rows as k9a
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.levels import maze as M
     from griduniverse_tpu_torch.models import a2c, networks, ppo
@@ -812,6 +813,24 @@ def learner_phases(gt, dev, gen, bound, smi):
     print("K9a S=256, 4225; E=16, 64; float32, bfloat16; N=8192: forward bit-exact vs plain, backward bit-exact "
           "vs the plain fixed-order backward and within 1e-5 of autograd's (max abs err "
           f"{errs['embed_rows']!r})")
+    # the backward at the shared tier's largest table and one row above it (the global tier)
+    limits = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        s_lim = 1
+        while k9a.uses_shared_tier(s_lim + 1, 16, cdt):
+            s_lim += 1
+        limits[str(cdt)] = s_lim
+        for s in (256, s_lim, s_lim + 1):
+            for n in (1, 511, 513, 262_144):
+                obs = torch.randint(0, 9, (n,), generator=gen, device=dev, dtype=torch.int32)  # heavy collisions
+                obs[::5] = torch.randint(0, s, (len(obs[::5]),), generator=gen, device=dev, dtype=torch.int32)
+                obs[-1] = s - 1
+                g = torch.randn((n, 16), generator=gen, device=dev).to(cdt)
+                hold("embed_rows", f"K9a backward S={s} N={n} {cdt} shared tier {k9a.uses_shared_tier(s, 16, cdt)}",
+                     (k9a.embed_rows_backward_cuda(g, obs, s),),
+                     (networks.embed_rows_backward_reference(g, obs, s),), ("dtable",))
+    print(f"K9a backward E=16, S=256, the shared tier's largest table {limits} and one row above it (the global "
+          "tier); N=1, 511, 513, 262,144; float32, bfloat16: bit-exact vs the plain fixed-order backward")
 
     for nl in (1, 512):
         for ch in (16, 32):
@@ -1110,12 +1129,17 @@ def learner_phases(gt, dev, gen, bound, smi):
         _rel_err(f"K9a timed {tag} backward vs F.embedding", grad, lgrad, 5e-2)
         fixed_ms, fixed = _cuda_ms(lambda: networks.embed_rows_backward_reference(g, obs, s_n), 1, warm=False)
         hold("embed_rows", f"K9a timed {tag} backward", (grad,), (fixed,), ("dtable",))
+        # the backward alone: the wrapper, and the library's kernel behind F.embedding's backward
+        alone_ms, alone = _cuda_ms(lambda: k9a.embed_rows_backward_cuda(g, obs, s_n), 50)
+        lalone_ms, _ = _cuda_ms(lambda: torch.ops.aten.embedding_backward(g, obs, s_n, -1, False, False), 50)
+        hold("embed_rows", f"K9a timed {tag} backward alone", (alone,), (fixed,), ("dtable",))
         fb = bound(n * 4 + s_n * e_n * 4 + n * e_n * 2, INSTR_K9A_FWD * n * e_n)
         bb = bound(n * 4 + s_n * e_n * 4 + n * e_n * 2, INSTR_K9A_BWD * n * e_n)
         print(f"K9a timed {tag} N={n} S={s_n} E={e_n} bfloat16: forward {f_ms!r} ms (plain {pf_ms!r}, F.embedding "
               f"{lf_ms!r}, bound {fb['bound_ms']!r} by {fb['bound_by']}), backward {b_ms!r} ms (autograd of plain "
               f"{pb_ms!r}, of F.embedding {lb_ms!r}, plain fixed-order {fixed_ms!r}, bound {bb['bound_ms']!r} by "
-              f"{bb['bound_by']}); forward bit-exact, backward bit-exact vs the plain fixed-order backward ({smi})")
+              f"{bb['bound_by']}); the backward alone {alone_ms!r} ms, aten.embedding_backward alone {lalone_ms!r} "
+              f"ms; forward bit-exact, backward bit-exact vs the plain fixed-order backward ({smi})")
         if tag == "minibatch":
             both = bound(2 * (n * 4 + s_n * e_n * 4 + n * e_n * 2), (INSTR_K9A_FWD + INSTR_K9A_BWD) * n * e_n)
             times["embed_rows"] = dict(ms=f_ms + b_ms, plain_ms=pf_ms + pb_ms, library_ms=lf_ms + lb_ms,
@@ -1398,6 +1422,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     Returns (launches, max abs errors, times) by kernel name."""
     from griduniverse_tpu_torch import kernels, models
     from griduniverse_tpu_torch.core import semantics as S
+    from griduniverse_tpu_torch.kernels import replay as k8
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.models import a2c, dqn, networks
     from griduniverse_tpu_torch.ops import bitplane as bp
@@ -1456,6 +1481,25 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
               (abs_err[-1] + 1e-3).reshape(1))
         print(f"K8b cap={cap} B={b} n={n}: write at both ends with the priority fill, gather and refresh with "
               "equal indices bit-exact vs plain")
+        # the refresh at its one-block limit (a hash table in shared memory) and one row above (two launches)
+        for n_r in (k8.MAX_HASH_REFRESH, k8.MAX_HASH_REFRESH + 1):
+            for span in (64, cap64):  # at most 64 slots, each repeated; and slots across the whole ring
+                prio_g = torch.rand((cap64,), generator=gen, device=dev)
+                prio_r = prio_g.clone()
+                idx = torch.randint(0, span, (n_r,), generator=gen, device=dev, dtype=torch.int32)
+                idx[n_r // 2:] = idx[: n_r - n_r // 2].clone()
+                abs_err = torch.rand((n_r,), generator=gen, device=dev) * 5
+                before = kernels.LAUNCHES["replay"]
+                pm_g = dqn.prio_refresh(prio_g, idx, abs_err, 1e-3, p_max)
+                _require(kernels.LAUNCHES["replay"] - before == k8.refresh_launches(n_r),
+                         f"K8b refresh n={n_r}: {kernels.LAUNCHES['replay'] - before} launches")
+                pm_r = dqn.prio_refresh_reference(prio_r, idx, abs_err, 1e-3, p_max)
+                errs["replay"] = max(errs["replay"], _same_fields(
+                    f"K8b refresh n={n_r} over {span} slots", (prio_g, pm_g.reshape(1)), (prio_r, pm_r.reshape(1)),
+                    ("prio", "p_max")))
+        print(f"K8b refresh capacity {cap64}, n={k8.MAX_HASH_REFRESH} (one launch) and {k8.MAX_HASH_REFRESH + 1} "
+              "(two), half the rows repeating a slot, over 64 slots and over the whole ring: prio and p_max "
+              "bit-exact vs plain")
 
         prio = torch.rand((cap,), generator=gen, device=dev) * 4 + 1e-3
         prio[torch.randint(0, cap, (cap // 16,), generator=gen, device=dev)] = 0.0
@@ -1508,7 +1552,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         "dqn walls16 uniform": (walls16, models.DQNConfig(**base), 300),
         "dqn walls16 per": (walls16, models.DQNConfig(**base, prioritized=True), 300),
         # above the 1,024 picks of one block: K8a's picks in dynamic shared
-        # memory, K8b's refresh in two launches over a per-slot scratch
+        # memory, K8b's refresh in one block over a hash table
         "dqn walls16 per n4096": (walls16, models.DQNConfig(**base, prioritized=True, batch_size_train=4096), 60),
         "dqn mazes64k grid": (lv64, models.DQNConfig(**base, obs="grid", conv_channels=(32,), hidden=(64,)), 100),
     }
@@ -1518,8 +1562,8 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         torch.cuda.reset_peak_memory_stats()
         # a step: the acting forward, three forwards and one backward of the loss
         net_kernel, per_step = ("agent_stamp", 1 + 3 + 3) if cfg.obs == "grid" else ("embed_rows", 1 + 3 + 2)
-        # a step: write and gather, with PER the refresh (two launches above 1,024 rows)
-        refresh = 0 if not cfg.prioritized else (1 if cfg.batch_size_train <= 1024 else 2)
+        # a step: write and gather, with PER the refresh (two launches above 8,192 rows)
+        refresh = k8.refresh_launches(cfg.batch_size_train) if cfg.prioritized else 0
         expected = {net_kernel: steps * per_step, "replay": steps * (2 + refresh),
                     "per_sample": steps * K8A_LAUNCHES if cfg.prioritized else 0, "dqn_act": steps * 2}
         torch.cuda.synchronize()
@@ -1734,7 +1778,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
 
     lib_ms, _ = _cuda_ms(library_rows, 20)
     t8b = bound(n * (4 + 2 * 17) + n * 12, (INSTR_K8B_GATHER + INSTR_K8B_REFRESH) * n)
-    print(f"time replay gather + refresh at n={n}, capacity {cap}: kernel {g_ms!r} + {r_ms!r} ms (the refresh two launches), "
+    print(f"time replay gather + refresh at n={n}, capacity {cap}: kernel {g_ms!r} + {r_ms!r} ms (the refresh one launch), "
           f"plain {pg_ms!r} + {pr_ms!r} ms, bound {t8b['bound_ms']!r} ms by {t8b['bound_by']}, "
           f"library (index_select x5 + index_put_ + max) {lib_ms!r} ms ({smi})")
 

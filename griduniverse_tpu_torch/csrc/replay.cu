@@ -62,17 +62,26 @@
 // indices the highest minibatch position wins (what a sequential scatter
 // gives), and folds their maximum into `p_max`. Up to kMaxPicks = 1,024 rows
 // the refresh is one block, each row scanning the later rows for its slot.
-// Above that it is two launches over the rows: the first takes each slot's
-// highest position by an integer atomicMax into a per-slot scratch (-1 where
-// untouched, filled by the wrapper) and copies the old `p_max` out; the
+// Up to kMaxHashRows = 8,192 rows it is one launch of a thread block
+// cluster (eight blocks of 1,024 threads, a row a thread) over a hash table
+// of at least 2n entries spread over the blocks' shared memory and reached
+// through distributed shared memory: a row claims its slot's entry with
+// atomicCAS on the key and raises the entry's owner to its position with
+// atomicMax; after a cluster barrier each block writes the winners of its
+// own entries. The highest position wins however the table fills. Above
+// that it is two launches over the rows: the first takes each slot's
+// highest position by an integer atomicMax into a per-slot scratch (-1
+// where untouched, filled by the wrapper) and copies the old `p_max` out; the
 // second lets only that winner write, and folds each block's maximum into
 // `p_max` by a compare-and-swap loop. A maximum is the same in any order, so
-// both forms give the plain version's bits. Bound: bytes, 17 a transition;
-// all three are launches in truth.
+// every form gives the plain version's bits. The gather writes its five
+// fields into one buffer the wrapper cuts into views. Bound: bytes, 17 a
+// transition; all three are launches in truth.
 //
 // `size`, `at`, `beta` and `p_max` are read from device memory, so the
 // trainer's loop never reads a value on the host.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -87,7 +96,10 @@ constexpr int kSortThreads = 512;  // the finish block, and the multi-block sort
 constexpr int kSortWarps = kSortThreads / 32;
 constexpr int kSortChunk = 4096;  // picks a block of the multi-block sort takes
 constexpr int kMaxSharedPicks = 16384;  // picks whose keys and permutations fit shared memory
-constexpr int kMaxPicks = 1024;  // rows of a one-block refresh
+constexpr int kMaxPicks = 1024;  // rows of a one-block refresh that scans the later rows
+constexpr int kHashThreads = 1024;
+constexpr int kClusterBlocks = 8;  // a thread block cluster: one row a thread
+constexpr int kMaxHashRows = kClusterBlocks * kHashThreads;  // rows of a one-launch refresh
 // The selection's scratch (32-bit words): four 256-bin histograms, then the
 // state (the mass; after each byte, the prefix and the count still needed),
 // then the blocks' counts above and at the key, then the picks' keys and
@@ -638,7 +650,7 @@ prio_refresh_kernel(float* __restrict__ prio, const int* __restrict__ idx,
   if (tid == 0) *p_max_out = fmaxf(*p_max_in, red[0]);
 }
 
-// The refresh above kMaxPicks rows, first launch: each slot's highest row
+// The refresh above kMaxHashRows rows, first launch: each slot's highest row
 // into `owner` (all -1 on entry), and the old p_max copied out.
 __global__ void refresh_claim_kernel(const int* __restrict__ idx, int n, int cap,
                                      int* __restrict__ owner,
@@ -686,6 +698,69 @@ refresh_write_kernel(float* __restrict__ prio, const int* __restrict__ idx,
     __syncthreads();
   }
   if (tid == 0) atomic_fmax(p_max_out, red[0]);
+}
+
+// The refresh of kMaxPicks < n <= kMaxHashRows rows in one launch: one
+// cluster of kClusterBlocks blocks, a row a thread, over a hash table of
+// 2^log2_entries entries spread over the blocks' shared memory (block b
+// holds entries b·E/8 .. (b+1)·E/8 − 1), which each block reaches through
+// distributed shared memory. An entry is a key (the slot, -1 where empty)
+// and an owner (the highest row of the slot). Linear probing from a
+// multiplicative hash; the table holds at least 2n entries, so a probe
+// ends. After the claims each block writes the winners of its own entries,
+// so no block reads another's memory after the second cluster barrier and
+// none waits for a third; the blocks' maxima go into `p_max` by a
+// compare-and-swap loop. The loads of the rows and the scattered writes
+// are spread over the cluster's SMs.
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(kHashThreads)
+prio_refresh_hash_kernel(float* __restrict__ prio, const int* __restrict__ idx,
+                         const float* __restrict__ abs_err, float eps, int n, int cap,
+                         int log2_entries, const float* __restrict__ p_max_in,
+                         float* __restrict__ p_max_out) {
+  namespace cg = cooperative_groups;
+  extern __shared__ int table[];
+  __shared__ float red[kHashThreads / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int log2_local = log2_entries - 3;  // kClusterBlocks = 8 blocks
+  const int local_entries = 1 << log2_local;
+  int* const keys = table;
+  int* const owner = table + local_entries;
+  const int tid = threadIdx.x;
+  const int i = rank * kHashThreads + tid;
+  const int slot = i < n ? idx[i] : -1;
+  float fresh = i < n ? abs_err[i] + eps : -INFINITY;
+  for (int k = tid; k < local_entries; k += kHashThreads) {
+    keys[k] = -1;
+    owner[k] = -1;
+  }
+  if (rank == 0 && tid == 0) *p_max_out = *p_max_in;
+  cluster.sync();  // every block's entries are empty, and the old p_max is out
+  const bool valid = slot >= 0 && slot < cap;
+  uint32_t h = (static_cast<uint32_t>(slot) * 2654435761u) >> (32 - log2_entries);
+  while (valid) {
+    const unsigned block = h >> log2_local;
+    const int k = static_cast<int>(h & (local_entries - 1));
+    const int seen = atomicCAS(cluster.map_shared_rank(keys, block) + k, -1, slot);
+    if (seen == -1 || seen == slot) {
+      atomicMax(cluster.map_shared_rank(owner, block) + k, i);
+      break;
+    }
+    h = (h + 1) & ((1u << log2_entries) - 1);
+  }
+  cluster.sync();  // every claim is in; from here each block reads only its own entries
+  for (int k = tid; k < local_entries; k += kHashThreads) {
+    if (keys[k] >= 0) prio[keys[k]] = abs_err[owner[k]] + eps;  // the slot's highest row
+  }
+  float top = fresh;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) top = fmaxf(top, __shfl_xor_sync(kFull, top, o));
+  if ((tid & 31) == 0) red[tid >> 5] = top;
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kHashThreads / 32; ++w) top = fmaxf(top, red[w]);
+    atomic_fmax(p_max_out, top);  // block 0 wrote the old p_max before the first sync
+  }
 }
 
 }  // namespace
@@ -784,24 +859,26 @@ extern "C" int gu_replay_write(void* obs, void* action, void* reward, void* next
   return static_cast<int>(cudaGetLastError());
 }
 
+// `out`: obs, action, reward and next_obs (n 4-byte words each), then done
+// (n bytes).
 extern "C" int gu_replay_gather(const void* obs, const void* action, const void* reward,
                                 const void* next_obs, const void* done, const void* idx,
-                                int n, int cap, void* o_obs, void* o_action,
-                                void* o_reward, void* o_next_obs, void* o_done,
-                                void* stream) {
+                                int n, int cap, void* out, void* stream) {
   constexpr int threads = 256;
+  auto* const words = static_cast<int*>(out);
   replay_gather_kernel<<<(n + threads - 1) / threads, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(obs), static_cast<const int*>(action),
       static_cast<const float*>(reward), static_cast<const int*>(next_obs),
-      static_cast<const uint8_t*>(done), static_cast<const int*>(idx), n, cap,
-      static_cast<int*>(o_obs), static_cast<int*>(o_action), static_cast<float*>(o_reward),
-      static_cast<int*>(o_next_obs), static_cast<uint8_t*>(o_done));
+      static_cast<const uint8_t*>(done), static_cast<const int*>(idx), n, cap, words,
+      words + n, reinterpret_cast<float*>(words + 2 * static_cast<size_t>(n)),
+      words + 3 * static_cast<size_t>(n),
+      reinterpret_cast<uint8_t*>(words + 4 * static_cast<size_t>(n)));
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch up to kMaxPicks rows, two above (`owner`: cap ints, all -1;
-// unused, may be null, up to kMaxPicks); `*launched` counts them.
+// One launch up to kMaxHashRows rows, two above (`owner`: cap ints, all -1;
+// unused, may be null, up to kMaxHashRows); `*launched` counts them.
 extern "C" int gu_prio_refresh(void* prio, const void* idx, const void* abs_err, float eps,
                                int n, int cap, const void* p_max_in, void* p_max_out,
                                void* owner, int* launched, void* stream) {
@@ -811,6 +888,19 @@ extern "C" int gu_prio_refresh(void* prio, const void* idx, const void* abs_err,
     prio_refresh_kernel<<<1, kMaxPicks, 0, st>>>(
         static_cast<float*>(prio), static_cast<const int*>(idx),
         static_cast<const float*>(abs_err), eps, n, cap,
+        static_cast<const float*>(p_max_in), static_cast<float*>(p_max_out));
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err == 0) *launched = 1;
+    return err;
+  }
+  if (n <= kMaxHashRows) {
+    int log2_entries = 1;
+    while ((1 << log2_entries) < 2 * n) ++log2_entries;
+    // two ints an entry, an eighth of the entries a block: 16 KB at the limit
+    const size_t bytes = 2 * sizeof(int) << (log2_entries - 3);
+    prio_refresh_hash_kernel<<<kClusterBlocks, kHashThreads, bytes, st>>>(
+        static_cast<float*>(prio), static_cast<const int*>(idx),
+        static_cast<const float*>(abs_err), eps, n, cap, log2_entries,
         static_cast<const float*>(p_max_in), static_cast<float*>(p_max_out));
     const int err = static_cast<int>(cudaGetLastError());
     if (err == 0) *launched = 1;

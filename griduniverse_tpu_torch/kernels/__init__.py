@@ -37,7 +37,7 @@ eight kernels up to 16,384 picks (scores, four histogram passes, count,
 compaction, sort and weights) and twenty above (the sort in twelve
 multi-block passes), and a `segment_mean` call four (count, scan,
 scatter, sum); the ring's write and gather are one each,
-and the refresh one up to 1,024 rows and two above, all under `replay`. A
+and the refresh one up to 8,192 rows and two above, all under `replay`. A
 trace step is two kernels (the pass over the trace, then the chunks' sums
 and the table), and so is a DQN act-and-step (the pass over the envs, then
 the fold of the statistics). K4 counts one launch a call up to 16,384

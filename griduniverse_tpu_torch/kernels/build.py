@@ -73,14 +73,16 @@ _SIGNATURES = {
     # words, n_words, per_env, h, w, batch; logits; state and reached in (5), out (5)
     "gu_greedy_step": _SEM + [_P, _I, _I, _I, _I, _I] + [_P] * 11 + [_P],
     "gu_embed_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "gu_embed_rows_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # grad, obs, partial, dtable; N, chunk, chunks, S, E, dtype, shared bytes
+    "gu_embed_rows_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gu_agent_stamp": [_P] * 5 + [_I] * 6 + [_P],
     "gu_agent_stamp_backward": [_P] * 7 + [_I] * 8 + [_P],
     # prio, noise, size, beta; alpha, cap, n; score, partial, idx, w, scratch; launched
     "gu_per_sample": [_P] * 4 + [_F, _I, _I] + [_P] * 6 + [_P],
     # ring (5), prio; batch (5); at, p_max; B, cap
     "gu_replay_write": [_P] * 13 + [_I, _I, _P],
-    "gu_replay_gather": [_P] * 6 + [_I, _I] + [_P] * 5 + [_P],
+    # ring (5), idx; n, cap; the five outputs in one buffer (4n words, then n bytes)
+    "gu_replay_gather": [_P] * 6 + [_I, _I, _P] + [_P],
     # prio, idx, abs_err; eps, n, cap; p_max in, out; owner; launched
     "gu_prio_refresh": [_P] * 3 + [_F, _I, _I, _P, _P, _P, _P, _P],
     "gu_backtracker_mazes": [_I, _I, _I, _I, _P, _P, _P],
@@ -186,11 +188,18 @@ def load() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call the C entry point `name` on `device`'s current stream (the
-    stream is appended to `args`); raise if the launch was refused."""
+    stream is appended to `args`); raise if the launch was refused. The
+    launch goes to `device`: where it is not the current device, it is
+    made current for the call. The stream's handle is read without
+    building the Python stream object that `torch.cuda.current_stream`
+    returns, to keep the host's share of a launch short."""
     lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, name)(*args, stream)
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        code = getattr(lib, name)(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(device):
+            code = getattr(lib, name)(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if code != 0:
         msg = getattr(lib, _ERROR_STRING)(code).decode()
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {code} ({msg})")

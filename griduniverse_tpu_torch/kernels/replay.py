@@ -14,9 +14,12 @@ import torch
 from . import LAUNCHES
 from .build import check_int, check_tensor, launch
 
-# rows of a refresh in one block; a larger refresh is two launches over a
-# per-slot scratch
-MAX_ONE_BLOCK_REFRESH = 1024
+# rows of a refresh in one launch: up to 1,024 one block that scans the
+# later rows for each row's slot, above that a cluster of eight blocks of
+# 1,024 threads, a row a thread, over a hash table of at least 2n entries
+# spread over the blocks' shared memory (8 bytes an entry, 16 KB a block at
+# this limit); a larger refresh is two launches over a per-slot scratch
+MAX_HASH_REFRESH = 8192
 # picks of a draw that one block sorts in shared memory; a larger draw is
 # sorted by multi-block passes over the scratch
 MAX_SHARED_PICKS = 16_384
@@ -35,6 +38,12 @@ def _scalar(name: str, x, dtype: torch.dtype, device) -> int:
 
 def _ring(buf, cap: int, device) -> list[int]:
     return [check_tensor(f"buf.{f}", getattr(buf, f), dt, (cap,), device) for f, dt in _FIELDS]
+
+
+def refresh_launches(n: int) -> int:
+    """Kernels a refresh of n rows launches: one up to `MAX_HASH_REFRESH`,
+    two above."""
+    return 1 if n <= MAX_HASH_REFRESH else 2
 
 
 def per_sample_scratch_words(cap: int, n: int) -> int:
@@ -107,27 +116,28 @@ def replay_write_cuda(buf, prio, at, batch, p_max) -> None:
 
 def replay_gather_cuda(buf, idx):
     """Launch K8b's gather: the five fields of the ring at `idx` (n,) int32.
-    Returns the five (n,) tensors."""
+    Returns the five (n,) tensors, views of one buffer: the four 4-byte
+    fields, then `done`."""
     device = buf.obs.device
     if device.type != "cuda":
         raise ValueError(f"replay_gather_cuda takes CUDA tensors, got {device}")
     cap = check_int("capacity", int(buf.obs.shape[0]), low=1)
     n = check_int("n", int(idx.shape[0]) if idx.dim() == 1 else 0, low=1)
-    out = [torch.empty((n,), dtype=dt, device=device) for _, dt in _FIELDS]
+    out = torch.empty((4 * n + -(-n // 4),), dtype=torch.int32, device=device)
     launch(
         "gu_replay_gather", device, *_ring(buf, cap, device),
-        check_tensor("idx", idx, torch.int32, (n,), device), n, cap,
-        *[x.data_ptr() for x in out],
+        check_tensor("idx", idx, torch.int32, (n,), device), n, cap, out.data_ptr(),
     )
     LAUNCHES["replay"] += 1
-    return tuple(out)
+    obs, action, reward, next_obs, done = out.split((n, n, n, n, out.shape[0] - 4 * n))
+    return obs, action, reward.view(torch.float32), next_obs, done.view(torch.bool)[:n]
 
 
 def prio_refresh_cuda(prio, idx, abs_err, eps: float, p_max):
     """Launch K8b's refresh: `prio[idx[i]] = abs_err[i] + eps` IN PLACE, of
     equal indices the highest i wins. Returns the new () `p_max`, the larger
     of the old one and the largest refreshed priority. One kernel up to
-    `MAX_ONE_BLOCK_REFRESH` rows, two above; `LAUNCHES` counts them."""
+    `MAX_HASH_REFRESH` rows, two above; `LAUNCHES` counts them."""
     device = prio.device
     if device.type != "cuda":
         raise ValueError(f"prio_refresh_cuda takes CUDA tensors, got {device}")
@@ -135,7 +145,7 @@ def prio_refresh_cuda(prio, idx, abs_err, eps: float, p_max):
     n = check_int("n", int(idx.shape[0]) if idx.dim() == 1 else 0, low=1)
     out = torch.empty((), dtype=torch.float32, device=device)
     owner = None
-    if n > MAX_ONE_BLOCK_REFRESH:  # each slot's winning row, -1 where untouched
+    if refresh_launches(n) == 2:  # each slot's winning row, -1 where untouched
         owner = torch.full((cap,), -1, dtype=torch.int32, device=device)
     launched = ctypes.c_int(0)
     launch(

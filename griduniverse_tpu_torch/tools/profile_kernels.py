@@ -1,25 +1,42 @@
-"""Where the time of a K10 call and of a K8a draw goes, on one CUDA card.
+"""Where the time of four kernels' calls goes, on one CUDA card.
 
-    python -m griduniverse_tpu_torch.tools.profile_kernels
+    python -m griduniverse_tpu_torch.tools.profile_kernels [k10] [k8a] [k9a] [k8b]
 
-From the root of a checkout, on a machine with a Hopper card and nvcc. It
-prints the card's name and power limit (`nvidia-smi`), then for K10
-(`apply_td_updates`: 4,096 and 65,536 envs over S·A = 1,024, 102,400
-samples of which about 5 % are under the mask over S·A = 81, and 65,536
-envs with 90 % in one cell) and K8a (`prioritized_sample`'s draw from a
-full ring of 131,072 at 256, 4,096, 16,384 and 16,385 picks), one line
-each:
+From the root of a checkout, on a machine with a Hopper card and nvcc. The
+arguments pick the kernels (all four by default). It prints the card's name
+and power limit (`nvidia-smi`), then takes these calls:
+
+- K10 (`apply_td_updates`): 4,096 and 65,536 envs over S·A = 1,024, 102,400
+  samples of which about 5 % are under the mask over S·A = 81, and 65,536
+  envs with 90 % in one cell;
+- K8a (`prioritized_sample`'s draw) from a full ring of 131,072 at 256,
+  4,096, 16,384 and 16,385 picks;
+- K9a's backward (`embed_rows_backward_cuda`, S=256, E=16, a bfloat16
+  gradient) at N = 65,536, 262,144 and 1,048,576 (a rollout step, a PPO
+  minibatch, an A2C update), beside `F.embedding`'s backward
+  (`aten.embedding_backward`) on the same inputs;
+- K8b's gather (`replay_gather`) and refresh (`prio_refresh`) on a full
+  ring of 131,072 at n = 256, 4,096, 8,192 and 8,193 rows (the refresh's
+  one-block limits), half the rows repeating a slot, beside the library's
+  `index_select` ×5 and `index_put_` + max.
+
+For each it prints four readings:
 
 - the time of a call as `chip_smoke.py` times it: CUDA events around 30
   calls, the wrapper's checks and allocations included;
 - the time of a call in a CUDA graph of ten calls, replayed ten times:
   the device's time without the host's enqueue;
+- the host's time of a call: the host clock around 200 calls with no
+  synchronize inside, the least of five rounds (what a call costs the
+  host where the card keeps up);
 - 20 calls under `torch.profiler`: the device time of each kernel by name.
 """
 
 from __future__ import annotations
 
 import subprocess
+import sys
+import time
 
 import torch
 
@@ -62,11 +79,30 @@ def _graph_ms(fn, calls: int = 10, replays: int = 10) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
-def main() -> None:
+def _host_us(fn, calls: int = 200, rounds: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - start) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def main(argv: list[str] | None = None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: torch.cuda.is_available() is False; this runs only on a GPU")
     from griduniverse_tpu_torch.algos import td
+    from griduniverse_tpu_torch.kernels import embed_rows as k9a
     from griduniverse_tpu_torch.models import a2c, dqn
+
+    picked = set(sys.argv[1:] if argv is None else argv) or {"k10", "k8a", "k9a", "k8b"}
+    unknown = picked - {"k10", "k8a", "k9a", "k8b"}
+    if unknown:
+        raise SystemExit(f"profile_kernels: unknown kernels {sorted(unknown)}; pick from k10, k8a, k9a, k8b")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
@@ -94,16 +130,69 @@ def main() -> None:
     def k8a_draw(n):
         return lambda: dqn.prioritized_sample(prio, noise, size, n, 0.6, beta)
 
-    calls = {
-        "K10 B=4,096, S*A=1,024": k10_call(4096, 256, 4),
-        "K10 B=65,536, S*A=1,024": k10_call(65_536, 256, 4),
-        "K10 102,400 samples, 5.3 % under the mask, S*A=81": k10_call(102_400, 81, 1, mask_share=0.053),
-        "K10 B=65,536, S*A=1,024, 90 % in one cell": k10_call(65_536, 256, 4, hot=True),
-        **{f"K8a capacity {CAP}, n={n}": k8a_draw(n) for n in (256, 4096, 16_384, 16_385)},
-    }
+    def k9a_backward(n, library=False):
+        obs = torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.int32)
+        g = torch.randn((n, 16), generator=gen, device=dev).to(torch.bfloat16)
+        if library:  # timed here, used nowhere in the port
+            return lambda: torch.ops.aten.embedding_backward(g, obs, 256, -1, False, False)
+        return lambda: k9a.embed_rows_backward_cuda(g, obs, 256)
+
+    ring = dqn.ReplayBuffer(
+        torch.randint(0, 256, (CAP,), generator=gen, device=dev, dtype=torch.int32),
+        torch.randint(0, 4, (CAP,), generator=gen, device=dev, dtype=torch.int32),
+        torch.randn((CAP,), generator=gen, device=dev),
+        torch.randint(0, 256, (CAP,), generator=gen, device=dev, dtype=torch.int32),
+        torch.rand((CAP,), generator=gen, device=dev) < 0.3)
+    ring_prio, p_max = prio.clone(), torch.tensor(5.0, device=dev)
+
+    def k8b_rows(n):
+        idx = torch.randint(0, CAP, (n,), generator=gen, device=dev, dtype=torch.int32)
+        idx[n // 2:] = idx[: n - n // 2].clone()  # equal slots: the highest row wins
+        return idx, torch.rand((n,), generator=gen, device=dev) * 4
+
+    def k8b_gather(idx, library=False):
+        if library:  # timed here, used nowhere in the port
+            rows = idx.long()
+            return lambda: [torch.index_select(full, 0, rows) for full in ring]
+        return lambda: dqn.replay_gather(ring, idx)
+
+    def k8b_refresh(idx, abs_err, library=False):
+        if library:  # timed here, used nowhere in the port
+            rows = idx.long()
+
+            def refresh():
+                fresh = abs_err + 1e-3
+                ring_prio.index_put_((rows,), fresh)
+                return torch.maximum(p_max, fresh.max())
+
+            return refresh
+        return lambda: dqn.prio_refresh(ring_prio, idx, abs_err, 1e-3, p_max)
+
+    calls = {}
+    if "k10" in picked:
+        calls.update({
+            "K10 B=4,096, S*A=1,024": k10_call(4096, 256, 4),
+            "K10 B=65,536, S*A=1,024": k10_call(65_536, 256, 4),
+            "K10 102,400 samples, 5.3 % under the mask, S*A=81": k10_call(102_400, 81, 1, mask_share=0.053),
+            "K10 B=65,536, S*A=1,024, 90 % in one cell": k10_call(65_536, 256, 4, hot=True),
+        })
+    if "k8a" in picked:
+        calls.update({f"K8a capacity {CAP}, n={n}": k8a_draw(n) for n in (256, 4096, 16_384, 16_385)})
+    if "k9a" in picked:
+        for n in (65_536, 262_144, 1_048_576):
+            calls[f"K9a backward N={n}, S=256, E=16, bfloat16"] = k9a_backward(n)
+            calls[f"F.embedding backward N={n}, S=256, E=16, bfloat16"] = k9a_backward(n, library=True)
+    if "k8b" in picked:
+        for n in (256, 4096, 8192, 8193):
+            idx, abs_err = k8b_rows(n)
+            calls[f"K8b gather capacity {CAP}, n={n}"] = k8b_gather(idx)
+            calls[f"index_select x5 capacity {CAP}, n={n}"] = k8b_gather(idx, library=True)
+            calls[f"K8b refresh capacity {CAP}, n={n}"] = k8b_refresh(idx, abs_err)
+            calls[f"index_put_ + max capacity {CAP}, n={n}"] = k8b_refresh(idx, abs_err, library=True)
     for name, fn in calls.items():
         ms = _events_ms(fn)
-        print(f"{name}: {ms!r} ms a call as timed, {_graph_ms(fn)!r} ms a call in a CUDA graph ({smi})")
+        print(f"{name}: {ms!r} ms a call as timed, {_graph_ms(fn)!r} ms a call in a CUDA graph, "
+              f"{_host_us(fn)!r} us of host time a call ({smi})")
 
         def twenty(fn=fn):
             for _ in range(20):

@@ -15,6 +15,8 @@ import torch
 import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch import kernels
 from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast, td_lambda
+from griduniverse_tpu_torch.kernels import embed_rows as embed_kernels
+from griduniverse_tpu_torch.kernels import replay as replay_kernels
 from griduniverse_tpu_torch.levels import builders
 from griduniverse_tpu_torch.models import a2c, dqn, networks, ppo
 from griduniverse_tpu_torch.levels import maze as M
@@ -312,6 +314,35 @@ def test_embed_rows_kernel_matches_plain(dev, s, e, cdt):
     torch.testing.assert_close(grad, auto, rtol=1e-4, atol=1e-4)
 
 
+def _shared_tier_limit(e, cdt):
+    """The most rows S of a (S, e) table whose backward takes the shared tier."""
+    s = 1
+    while embed_kernels.uses_shared_tier(s + 1, e, cdt):
+        s += 1
+    return s
+
+
+@pytest.mark.parametrize("above", [False, True])
+@pytest.mark.parametrize("n", [1, 511, 513, 5000])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_embed_rows_backward_kernel_matches_plain_at_the_shared_limit(dev, above, n, cdt):
+    """The backward at the shared tier's largest table and one row above it
+    (the global tier): a chunk, less, one more, and several with a partial
+    last one, heavy collisions; bit-equal to the fixed-order plain backward."""
+    e = 16
+    s = _shared_tier_limit(e, cdt) + above
+    assert embed_kernels.uses_shared_tier(s, e, cdt) is not above
+    gen = torch.Generator(device=dev).manual_seed(n)
+    obs = torch.randint(0, 9, (n,), generator=gen, device=dev, dtype=torch.int32)  # heavy collisions
+    obs[::5] = torch.randint(0, s, (len(obs[::5]),), generator=gen, device=dev, dtype=torch.int32)
+    obs[-1] = s - 1  # the last row
+    g = torch.randn((n, e), generator=gen, device=dev).to(cdt)
+    before = kernels.LAUNCHES["embed_rows"]
+    got = embed_kernels.embed_rows_backward_cuda(g, obs, s)
+    assert kernels.LAUNCHES["embed_rows"] == before + 2
+    _assert_same((got,), (networks.embed_rows_backward_reference(g, obs, s),))
+
+
 @pytest.mark.parametrize("nl,ch", [(1, 16), (512, 32)])
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 def test_agent_stamp_kernel_matches_plain(dev, nl, ch, cdt):
@@ -379,7 +410,7 @@ def _ring(dev, gen, cap):
     )
 
 
-@pytest.mark.parametrize("cap,b,n", [(64, 16, 8), (4096, 1024, 256), (131_072, 65_536, 256)])
+@pytest.mark.parametrize("cap,b,n", [(64, 16, 8), (4096, 1024, 256), (131_072, 65_536, 256), (131_072, 65_536, 4096)])
 def test_replay_ring_kernels_match_plain(dev, cap, b, n):
     gen = torch.Generator(device=dev).manual_seed(5)
     got, ref = _ring(dev, gen, cap), None
@@ -397,7 +428,10 @@ def test_replay_ring_kernels_match_plain(dev, cap, b, n):
         _assert_same((*got, prio_g), (*ref, prio_r))
     idx = torch.randint(0, cap, (n,), generator=gen, device=dev, dtype=torch.int32)
     idx[n // 2:] = idx[: n - n // 2]  # equal indices: the highest position wins
-    _assert_same(dqn.replay_gather(got, idx), dqn.replay_gather_reference(ref, idx))
+    mb = dqn.replay_gather(got, idx)
+    for x, full in zip(mb, got):  # five (n,) tensors, each of its field's type
+        assert x.shape == (n,) and x.dtype == full.dtype and x.is_contiguous()
+    _assert_same(mb, dqn.replay_gather_reference(ref, idx))
     abs_err = torch.rand((n,), generator=gen, device=dev) * 5
     pm_g = dqn.prio_refresh(prio_g, idx, abs_err, 1e-3, p_max)
     pm_r = dqn.prio_refresh_reference(prio_r, idx, abs_err, 1e-3, p_max)
@@ -684,7 +718,8 @@ def test_per_sample_kernel_matches_plain_at_the_sort_limits(dev, n, kind):
     assert bool((idx >= 0).all()) and bool((idx < max(size, 1)).all())
 
 
-@pytest.mark.parametrize("cap,n", [(131_072, 1025), (131_072, 4096), (8192, 20_000)])
+@pytest.mark.parametrize("cap,n", [(131_072, 1025), (131_072, 4096), (8192, 20_000), (131_072, 8192),
+                                   (131_072, 8193), (64, 8192), (64, 8193)])
 def test_prio_refresh_kernel_matches_plain_above_one_block(dev, cap, n):
     gen = torch.Generator(device=dev).manual_seed(n)
     prio_g = torch.rand((cap,), generator=gen, device=dev)
@@ -695,7 +730,8 @@ def test_prio_refresh_kernel_matches_plain_above_one_block(dev, cap, n):
     p_max = torch.tensor(3.5, device=dev)
     before = kernels.LAUNCHES["replay"]
     pm_g = dqn.prio_refresh(prio_g, idx, abs_err, 1e-3, p_max)
-    assert kernels.LAUNCHES["replay"] == before + 2
+    # one launch over a hash table in shared memory up to the limit, two above
+    assert kernels.LAUNCHES["replay"] == before + (1 if n <= replay_kernels.MAX_HASH_REFRESH else 2)
     pm_r = dqn.prio_refresh_reference(prio_r, idx, abs_err, 1e-3, p_max)
     _assert_same((prio_g, pm_g), (prio_r, pm_r))
     assert torch.equal(prio_g[idx[-1].long()], abs_err[-1] + 1e-3)

@@ -27,6 +27,7 @@ from griduniverse_tpu.models import networks as jn
 from griduniverse_tpu.models import ppo as jppo
 from griduniverse_tpu.models.optim import make_lr as j_make_lr
 from griduniverse_tpu.ops import bitplane as jbp
+from griduniverse_tpu_torch.kernels import embed_rows as k9a
 from griduniverse_tpu_torch.models import a2c as ta2c
 from griduniverse_tpu_torch.models import networks as tn
 from griduniverse_tpu_torch.models import optim as topt
@@ -291,6 +292,46 @@ def test_embed_rows_plain_forward_and_fixed_order_backward(s, e, n, cdt, rng):
     np.testing.assert_allclose(auto.numpy(), exact, rtol=1e-5, atol=1e-5)
     # the fixed order is a function of the inputs alone
     assert torch.equal(fixed, tn.embed_rows_backward_reference(g, _t(obs), s))
+
+
+@pytest.mark.parametrize("cdt,s_max", [(torch.bfloat16, 911), (torch.float32, 655)])
+def test_embed_rows_backward_shared_tier_limit(cdt, s_max):
+    """The backward's shared tier takes the trainers' table (S=256, E=16)
+    and its largest table at E=16 (a partial table with a spare row, 512
+    indices and 512 gradient rows within three blocks an SM); one row more,
+    and S=4,225, E=64, take the global tier."""
+    assert k9a.uses_shared_tier(256, 16, cdt)
+    assert k9a.shared_tier_bytes(s_max, 16, cdt) <= k9a.SHARED_TIER_MAX_BYTES
+    assert k9a.uses_shared_tier(s_max, 16, cdt) and not k9a.uses_shared_tier(s_max + 1, 16, cdt)
+    assert not k9a.uses_shared_tier(4225, 64, cdt)
+    assert 3 * (k9a.SHARED_TIER_MAX_BYTES + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("s,e", [(256, 16), (4225, 64)])
+def test_embed_rows_fixed_order_backward_matches_jax_autograd(s, e, rng):
+    """The plain fixed-order backward against JAX's autograd of the
+    reference's own lookup (`ActorCritic` in float32, its policy head the
+    identity, so its logits are the looked-up rows: the hi/lo one-hot at
+    S=256, the plain one-hot at 4,225) at N = 1,537, three whole chunks and
+    a partial fourth. Both sum the same float32 terms in other orders:
+    rtol 1e-5."""
+    n = 1537
+    obs = rng.integers(0, 9, size=n).astype(np.int32)  # heavy collisions
+    obs[::5] = rng.integers(0, s, size=len(obs[::5]))
+    table = rng.normal(size=(s, e)).astype(np.float32)
+    g = rng.normal(size=(n, e)).astype(np.float32)
+    jnet = jn.ActorCritic(num_states=s, num_actions=e, hidden=(), embed_dim=e, compute_dtype="float32")
+    params = jnet.init(jax.random.PRNGKey(0), jnp.asarray(obs))["params"]
+    head = {"kernel": jnp.eye(e, dtype=jnp.float32), "bias": jnp.zeros(e, jnp.float32)}
+
+    def lookup(tab):
+        return jnet.apply({"params": {**params, "embed": tab, "policy_head": head}}, jnp.asarray(obs))[0]
+
+    rows, vjp = jax.vjp(lookup, jnp.asarray(table))
+    np.testing.assert_array_equal(np.asarray(rows), table[obs])
+    (want,) = vjp(jnp.asarray(g))
+    fixed = tn.embed_rows_backward_reference(_t(g), _t(obs), s)
+    np.testing.assert_allclose(fixed.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("nl,t", [(1, 9), (6, 4)])

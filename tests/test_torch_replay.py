@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from griduniverse_tpu.models import dqn as jdqn
+from griduniverse_tpu_torch.kernels import replay as k8
 from griduniverse_tpu_torch.models import dqn as tdqn
 
 torch.set_num_threads(1)
@@ -97,8 +98,8 @@ def test_write_with_priority_fill_matches_jax(rng, at):
     np.testing.assert_array_equal(tprio.numpy(), np.asarray(jprio))
 
 
-def test_gather_matches_jax(rng):
-    cap, n = 64, 40
+@pytest.mark.parametrize("cap,n", [(64, 40), (8192, 4096)])
+def test_gather_matches_jax(rng, cap, n):
     fields = [rng.integers(0, 50, cap).astype(np.int32), rng.integers(0, 4, cap).astype(np.int32),
               rng.normal(size=cap).astype(np.float32), rng.integers(0, 50, cap).astype(np.int32),
               rng.random(cap) < 0.3]
@@ -106,17 +107,17 @@ def test_gather_matches_jax(rng):
     want = jax.tree.map(lambda x: x[jnp.asarray(idx)], jdqn.ReplayBuffer(*map(jnp.asarray, fields)))
     got = tdqn.replay_gather(tdqn.ReplayBuffer(*map(_t, fields)), _t(idx))
     for tf, jf in zip(got, want):
-        assert tf.dtype == _t(np.asarray(jf)).dtype
+        assert tf.dtype == _t(np.asarray(jf)).dtype and tf.shape == (n,)
         np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
 
 
-def test_refresh_with_equal_indices_matches_jax(rng):
+@pytest.mark.parametrize("cap,n,span", [(32, 24, 6), (4096, 1500, 300)])
+def test_refresh_with_equal_indices_matches_jax(rng, cap, n, span):
     """`prio.at[idx].set(new)` with equal indices: XLA's CPU scatter applies
     the rows in order, so the highest position wins; the port fixes that
-    winner."""
-    cap, n = 32, 24
+    winner. The second shape is above the one-block scan of 1,024 rows."""
     prio = rng.random(cap).astype(np.float32)
-    idx = rng.integers(0, 6, n).astype(np.int32)  # heavy collisions
+    idx = rng.integers(0, span, n).astype(np.int32)  # heavy collisions
     idx[-1] = idx[0]
     abs_err = rng.random(n).astype(np.float32) * 3
     new_p = jnp.asarray(abs_err) + 1e-3
@@ -129,6 +130,16 @@ def test_refresh_with_equal_indices_matches_jax(rng):
     last = {int(s): i for i, s in enumerate(idx)}  # the highest position of each slot
     for slot, i in last.items():
         assert tprio[slot] == torch.tensor(abs_err[i]) + 1e-3
+
+
+@pytest.mark.parametrize("n,launches", [(1, 1), (1024, 1), (1025, 1), (8192, 1), (8193, 2), (131_072, 2)])
+def test_refresh_launches_one_kernel_up_to_the_hash_table_limit(n, launches):
+    """On the card a refresh of up to 8,192 rows is one launch (up to 1,024
+    rows one block scanning the later rows, above that a cluster of eight
+    blocks of 1,024 threads, a row a thread, over a hash table of 2n
+    entries); above it, two launches."""
+    assert k8.refresh_launches(n) == launches
+    assert k8.MAX_HASH_REFRESH == 8 * 1024
 
 
 # ---------------------------------------------------------------------------
