@@ -137,7 +137,7 @@ INSTR_K7B_ENV = 600
 INSTR_K9A_FWD = 4       # one output element of the embedding gather
 INSTR_K9A_BWD = 6       # one (sample, column): a load, a convert and two adds, over both levels
 INSTR_K9B_FWD = 8       # one output element of the stamp pass
-INSTR_K9B_BWD = 12      # one element of the backward, read by both of its passes
+INSTR_K9B_BWD = 12      # one element of the backward: two loads, two converts, the mask, the adds
 # K8a, K8b, K11 and the probes, from the same listings
 INSTR_K8A_SCORE = 131   # per_score_kernel has no loop: one slot's score, mass and share of the block sum (counted before block 0 zeroed the select's histograms; the other blocks skip that with a compare and a branch)
 # An exact top-n needs each score keyed and compared once. The select as written reads
@@ -741,10 +741,13 @@ def learner_phases(gt, dev, gen, bound, smi):
     counted, its outputs against the plain versions, and the times. Returns
     (launches, max abs errors, times) by kernel name."""
     from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.kernels import agent_stamp as k9b
     from griduniverse_tpu_torch.kernels import embed_rows as k9a
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.levels import maze as M
     from griduniverse_tpu_torch.models import a2c, networks, ppo
+    from griduniverse_tpu_torch.tools.profile_learners import _profile
+    from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
     from griduniverse_tpu_torch.ops import bitplane as bp
 
     errs = {"gae": 0.0, "act_step": 0.0, "embed_rows": 0.0, "agent_stamp": 0.0}
@@ -832,32 +835,37 @@ def learner_phases(gt, dev, gen, bound, smi):
     print(f"K9a backward E=16, S=256, the shared tier's largest table {limits} and one row above it (the global "
           "tier); N=1, 511, 513, 262,144; float32, bfloat16: bit-exact vs the plain fixed-order backward")
 
-    for nl in (1, 512):
-        for ch in (16, 32):
-            for cdt in (torch.float32, torch.bfloat16):
-                h = w = 9
-                n = nl * 4
-                y_tiles = torch.randn((nl, h, w, ch), generator=gen, device=dev).to(cdt).requires_grad_(True)
-                k = torch.randn((3, 3, ch), generator=gen, device=dev, requires_grad=True)
-                bias = torch.randn((ch,), generator=gen, device=dev, requires_grad=True)
-                obs = torch.randint(0, h * w, (n,), generator=gen, device=dev, dtype=torch.int32)
-                cot = torch.randn((n, h, w, ch), generator=gen, device=dev).to(cdt)
-                out = networks.agent_stamp(y_tiles, k, bias, obs)
-                ref = networks.agent_stamp_reference(y_tiles, k, bias, obs)
-                hold("agent_stamp", f"K9b forward Nl={nl} ch={ch} {cdt}", (out,), (ref,), ("out",))
-                grads = torch.autograd.grad(out, (y_tiles, k, bias), cot)
-                again = torch.autograd.grad(networks.agent_stamp(y_tiles, k, bias, obs), (y_tiles, k, bias), cot)
-                _same_fields(f"K9b backward twice Nl={nl} ch={ch} {cdt}", grads, again, ("dy_tiles", "dk", "dbias"))
-                fixed = networks.agent_stamp_backward_reference(cot, out.detach(), obs, nl)
-                hold("agent_stamp", f"K9b backward Nl={nl} ch={ch} {cdt}", grads, fixed, ("dy_tiles", "dk", "dbias"))
-                auto = torch.autograd.grad(ref, (y_tiles, k, bias), cot)
-                # autograd adds in another order, and rounds all three gradients to the compute dtype
-                tol = 1e-2 if cdt == torch.bfloat16 else 1e-5
-                for name, a, b in zip(("dy_tiles", "dk", "dbias"), grads, auto):
-                    err = _rel_err(f"K9b {name} Nl={nl} ch={ch} {cdt}", a, b, tol)
-                    if cdt == torch.float32:  # bfloat16 gradients are held to their scale only
-                        errs["agent_stamp"] = max(errs["agent_stamp"], err)
-    print("K9b Nl=1, 512; T=4; ch0=16, 32; float32, bfloat16: forward bit-exact vs plain, the three gradients "
+    # (Nl, T, H, W, C): a shared level, many levels, a level split over four
+    # ranges, Nl = N, C = 12 with two ranges, levels above one tile of
+    # cells, 33x33, and a C no vector divides
+    stamp_shapes = ((1, 4, 9, 9, 16), (512, 4, 9, 9, 32), (1, 200, 9, 9, 8), (256, 1, 9, 9, 32),
+                    (3, 70, 5, 6, 12), (3, 4, 17, 17, 8), (2, 5, 33, 33, 32), (2, 3, 5, 6, 3))
+    for nl, t, h, w, ch in stamp_shapes:
+        for cdt in (torch.float32, torch.bfloat16):
+            n = nl * t
+            y_tiles = torch.randn((nl, h, w, ch), generator=gen, device=dev).to(cdt).requires_grad_(True)
+            k = torch.randn((3, 3, ch), generator=gen, device=dev, requires_grad=True)
+            bias = torch.randn((ch,), generator=gen, device=dev, requires_grad=True)
+            obs = torch.randint(0, h * w, (n,), generator=gen, device=dev, dtype=torch.int32)
+            cot = torch.randn((n, h, w, ch), generator=gen, device=dev).to(cdt)
+            out = networks.agent_stamp(y_tiles, k, bias, obs)
+            ref = networks.agent_stamp_reference(y_tiles, k, bias, obs)
+            hold("agent_stamp", f"K9b forward Nl={nl} T={t} {h}x{w} ch={ch} {cdt}", (out,), (ref,), ("out",))
+            grads = torch.autograd.grad(out, (y_tiles, k, bias), cot)
+            again = torch.autograd.grad(networks.agent_stamp(y_tiles, k, bias, obs), (y_tiles, k, bias), cot)
+            _same_fields(f"K9b backward twice Nl={nl} T={t} {h}x{w} ch={ch} {cdt}", grads, again,
+                         ("dy_tiles", "dk", "dbias"))
+            fixed = networks.agent_stamp_backward_reference(cot, out.detach(), obs, nl)
+            hold("agent_stamp", f"K9b backward Nl={nl} T={t} {h}x{w} ch={ch} {cdt}", grads, fixed,
+                 ("dy_tiles", "dk", "dbias"))
+            auto = torch.autograd.grad(ref, (y_tiles, k, bias), cot)
+            # autograd adds in another order, and rounds all three gradients to the compute dtype
+            tol = 1e-2 if cdt == torch.bfloat16 else 1e-5
+            for name, a, b in zip(("dy_tiles", "dk", "dbias"), grads, auto):
+                err = _rel_err(f"K9b {name} Nl={nl} T={t} {h}x{w} ch={ch} {cdt}", a, b, tol)
+                if cdt == torch.float32:  # bfloat16 gradients are held to their scale only
+                    errs["agent_stamp"] = max(errs["agent_stamp"], err)
+    print(f"K9b (Nl, T, H, W, C) in {stamp_shapes}; float32, bfloat16: forward bit-exact vs plain, the three gradients "
           "bit-exact vs the plain fixed-order backward, the same bits on two runs, and within 1e-5 (bfloat16: 1e-2) "
           f"of their scale of autograd's through the plain version (float32 max abs err {errs['agent_stamp']!r})")
 
@@ -872,7 +880,7 @@ def learner_phases(gt, dev, gen, bound, smi):
     }
     api = {"ppo": (models.ppo_train, models.ppo_init, models.ppo_run),
            "a2c": (models.a2c_train, models.a2c_init, models.a2c_run)}
-    backward_launches = {"embed_rows": 2, "agent_stamp": 3}  # a forward is one launch
+    backward_launches = {"embed_rows": 2, "agent_stamp": k9b.backward_launches()}  # a forward is one launch
     path_launches = {}
 
     def counted(name, fn, expected):
@@ -923,6 +931,21 @@ def learner_phases(gt, dev, gen, bound, smi):
         print(f"{name} main: {updates - 1}+1 updates from a saved state equal {updates} unbroken bit for bit "
               "(parameters, Adam moments and count, env state, statistics); two runs give the same bits")
         runs[name] = (level, cfg, before_last, end)
+        if name == "ppo mazes64k":  # the device-bound path: its rate, and K9b's share of its device time
+            ts0 = init(sem, level, 5, cfg, n64)
+
+            def call(level=level, cfg=cfg, ts0=ts0, updates=updates, run=run):
+                return run(sem, level, ts0, cfg, updates)
+
+            walls = sorted(_wall_ms(call) for _ in range(3))
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+                torch.zeros(1, device=dev).sum().item()  # the profiler's own start-up
+            prof = _profile(f"{name} {updates} updates", call, walls[1], smi, top=6)
+            _require(prof is not None, f"the profiler recorded no device time for {name}")
+            stamp_us = sum(us for kname, (us, _) in prof[3].items() if "agent_stamp" in kname)
+            print(f"{name} rate: {walls!r} ms a call of {updates} updates, {[steps / m * 1e3 for m in walls]!r} env "
+                  f"steps/s; device busy {prof[0]!r} us, idle share {100 * prof[2]:.2f} %, K9b {stamp_us!r} us "
+                  f"({100 * stamp_us / prof[0]:.2f} % of busy) ({smi})")
 
     level, cfg, _, end = runs["ppo mazes64k"]
     greedy_steps = 60
@@ -1422,6 +1445,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     Returns (launches, max abs errors, times) by kernel name."""
     from griduniverse_tpu_torch import kernels, models
     from griduniverse_tpu_torch.core import semantics as S
+    from griduniverse_tpu_torch.kernels import agent_stamp as stamp_kernels
     from griduniverse_tpu_torch.kernels import replay as k8
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.models import a2c, dqn, networks
@@ -1561,7 +1585,8 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         models.dqn_train(sem, level, 1, cfg, 2, n64)  # first call: library handles, allocator
         torch.cuda.reset_peak_memory_stats()
         # a step: the acting forward, three forwards and one backward of the loss
-        net_kernel, per_step = ("agent_stamp", 1 + 3 + 3) if cfg.obs == "grid" else ("embed_rows", 1 + 3 + 2)
+        net_kernel, per_step = (("agent_stamp", 1 + 3 + stamp_kernels.backward_launches()) if cfg.obs == "grid"
+                                else ("embed_rows", 1 + 3 + 2))
         # a step: write and gather, with PER the refresh (two launches above 8,192 rows)
         refresh = k8.refresh_launches(cfg.batch_size_train) if cfg.prioritized else 0
         expected = {net_kernel: steps * per_step, "replay": steps * (2 + refresh),

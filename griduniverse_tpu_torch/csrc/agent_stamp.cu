@@ -11,31 +11,61 @@
 // (or to a one-channel conv), then adds the tile response and the bias and
 // applies the ReLU as separate passes.
 //
-// Forward, one block per sample n and one thread per few elements (y, x, c)
-// of it, NHWC:
-//   v = (k[ay−y+1, ax−x+1, c] or 0) + y_tiles[level(n), y, x, c]
-//   out = cdt(relu(v + bias[c]))
-// where (ay, ax) is the agent's cell of sample n, the stamp term is present
-// where |ay−y| ≤ 1 and |ax−x| ≤ 1 (a cross-correlation with SAME padding),
-// level(n) = n mod Nl (samples are (T, Nl) row-major; Nl = 1 for a shared
-// level), and k and bias are the float32 parameters rounded to cdt first,
-// as the reference casts them. The sums are float32; only the output is
+// The function, NHWC, sample n = t·Nl + l on level l (samples are (T, Nl)
+// row-major; Nl = 1 for a shared level):
+//   out[n, y, x, c] = cdt(relu((k[ay−y+1, ax−x+1, c] or 0) + y_tiles[l, y, x, c]
+//                              + bias[c]))
+// where (ay, ax) is the agent's cell of sample n and the stamp term is
+// present where |ay−y| ≤ 1 and |ax−x| ≤ 1 (a cross-correlation with SAME
+// padding); k and bias are the float32 parameters rounded to cdt first, as
+// the reference casts them. The sums are float32; only the output is
 // rounded. The one-hot image and the stamp table are never materialised.
 //
-// Backward, with the ReLU mask from the saved output (gm = g where out > 0):
-//   dy_tiles[l, y, x, c] = Σ_t gm[t·Nl + l, y, x, c], one thread per
-//     element, t ascending;
-//   dk[i, j, c] = Σ_n gm[n, ay−i+1, ax−j+1, c] and dbias[c] = Σ_{n,y,x} gm:
-//     the samples are cut into chunks; thread (chunk, c) adds its chunk's
-//     samples in sample order (within a sample in (y, x) raster order) into
-//     ten registers, then thread (q, c) adds the chunks' partial sums in
-//     chunk order.
-// The order of every float sum is fixed by the shapes, and there are no
-// atomics, so two runs give the same bits. All sums are float32.
+// Layout of the work. Sample n's plane starts at element n·H·W·C, so the
+// planes of the samples t·Nl + l, l = 0..Nl−1, are one run of Nl·H·W "global
+// cells" gc = l·H·W + (y·W + x), and element (t, gc, c) lies at
+// (t·Nl·H·W + gc)·C + c for every t. A thread owns one global cell and V
+// channels, V·sizeof(cdt) ≤ 16 bytes (the wrapper's `vector_width`: 8 for
+// bfloat16, 4 for float32 where C allows), and walks t; its level and cell
+// are divided out once.
 //
-// Bound on the card: bytes. The forward writes N·H·W·ch0 elements and reads
+// Forward: one block of 256 threads a run of (cell, channel group) slots
+// and a range of at most `t_range` samples a level. A thread loads its
+// slice of y_tiles[l] once, keeps relu(0 + y + bias) as its answer for
+// every sample whose agent is not next to its cell, and for each t reads
+// obs[t·Nl + l] (one address a warp, mostly), adds the stamp where the
+// agent is within one cell, and stores 16 bytes. k is staged in shared
+// memory, rounded once a block.
+//
+// Backward, with gm = grad where out > 0 and 0 elsewhere, all sums float32,
+// in two launches and in this order, a function of the shapes alone (the
+// wrapper's `plan`; `agent_stamp_backward_reference` repeats it add by
+// add):
+//   1. A unit is (range r of `t_range` samples a level, tile k of `cells`
+//      consecutive global cells), u = r·tiles + k. Block β takes units
+//      [β·upb, (β+1)·upb) in order, with upb = ceil(units / max_blocks).
+//      Thread (row ρ, channel c) of a block takes global cell k·cells + ρ
+//      of each unit (none past the last cell). For each unit it adds, t
+//      ascending over the range, from 0.0: D += gm (the unit's dy_tiles
+//      term), and A[i·3 + j] += gm where its cell is (ay−i+1, ax−j+1) of
+//      the sample's agent. After the unit, B += D. A and B live in the
+//      thread's own slots of shared memory, from 0.0 at the block's start.
+//      D goes out as dy_tiles[l, y, x, c] (rounded to cdt) where the level
+//      has one range, else as a float partial of range r.
+//   2. The block then adds its rows' ten sums (A[0..8], B) by a tree in
+//      shared memory: for s = cells/2, ..., 1, row ρ < s takes
+//      v[ρ] + v[ρ + s]. Row 0 is the block's partial.
+//   3. The second launch: dk[i, j, c] and dbias[c] are Σ_{ρ<32} (Σ_{m}
+//      P[m·32 + ρ]) over the blocks' partials P, each sum from 0.0 and
+//      ascending, 32 warps loading at once; where a level has several
+//      ranges, dy_tiles = cdt(Σ_r partial_r), r ascending, from 0.0.
+// No two threads write one address and there are no atomics, so two runs
+// give the same bits. grad and out are read once, 16 bytes a load.
+//
+// Bound on the card: bytes. The forward writes N·H·W·C elements and reads
 // a T-th of that; the backward reads the gradient and the saved output
-// twice (once for dy_tiles, once for dk and dbias).
+// once and writes dy_tiles. The blocks' partials are at most 2,048 rows of
+// 10·C floats (2.6 MB at C = 32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,8 +74,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSums = 10;  // nine stamp positions and the bias
+constexpr int kForwardThreads = 256;
+constexpr int kSums = 10;      // nine stamp positions and the bias
+constexpr int kSumLanes = 32;  // rows of blocks' partials summed at once in launch 2
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -61,165 +92,334 @@ __device__ __forceinline__ float rounded<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// One block per sample: the agent's cell is read once a block, threadIdx.x
-// walks the channels and threadIdx.y the cells, so no thread divides a flat
-// 64-bit index and a warp writes neighbouring channels of one cell.
-template <typename T>
-__global__ void agent_stamp_kernel(const T* __restrict__ y_tiles, const float* __restrict__ k_agent,
-                                   const float* __restrict__ bias, const int* __restrict__ obs,
-                                   T* __restrict__ out, int num_levels, int h, int w, int ch) {
-  const int n = blockIdx.x;
-  const int hw = h * w;
-  const int o = obs[n];
-  const int ay = o / w, ax = o - ay * w;
-  const T* tiles = y_tiles + static_cast<size_t>(n % num_levels) * hw * ch;
-  T* dst = out + static_cast<size_t>(n) * hw * ch;
-  for (int p = threadIdx.y; p < hw; p += blockDim.y) {
-    const int y = p / w, x = p - y * w;
-    const int di = ay - y + 1, dj = ax - x + 1;
-    const bool hit = di >= 0 && di < 3 && dj >= 0 && dj < 3;
-    for (int c = threadIdx.x; c < ch; c += blockDim.x) {
-      const float k = hit ? rounded<T>(k_agent[(di * 3 + dj) * ch + c]) : 0.0f;
-      const float v = (k + to_float(tiles[p * ch + c])) + rounded<T>(bias[c]);
-      store(dst + p * ch + c, v > 0.0f ? v : 0.0f);
-    }
+// V elements of T moved as one access of V·sizeof(T) bytes.
+template <int Bytes>
+struct RawOf;
+template <>
+struct RawOf<16> { using type = uint4; };
+template <>
+struct RawOf<8> { using type = uint2; };
+template <>
+struct RawOf<4> { using type = unsigned int; };
+template <>
+struct RawOf<2> { using type = unsigned short; };
+
+template <typename T, int V>
+struct Pack {
+  using Raw = typename RawOf<sizeof(T) * V>::type;
+  Raw raw;
+  __device__ __forceinline__ float get(int j) const { return to_float(reinterpret_cast<const T*>(&raw)[j]); }
+  __device__ __forceinline__ void set(int j, float x) { store(reinterpret_cast<T*>(&raw) + j, x); }
+  __device__ __forceinline__ static Pack load(const T* p) {
+    Pack a;
+    a.raw = *reinterpret_cast<const Raw*>(p);
+    return a;
   }
+  __device__ __forceinline__ void put(T* p) const { *reinterpret_cast<Raw*>(p) = raw; }
+};
+
+// floor(o / w) for |o| < 2^22 without an integer divide: a float quotient
+// is off by at most one, which the remainder corrects.
+__device__ __forceinline__ int floor_div(int o, int w, float inv_w) {
+  int q = __float2int_rz(__int2float_rn(o) * inv_w);
+  const int r = o - q * w;
+  return q + (r >= w) - (r < 0);
 }
 
-// dy_tiles: thread i = (l, y, x, c) sums its element over the T samples of
-// level l, t ascending.
-template <typename T>
-__global__ void agent_stamp_dtiles_kernel(const T* __restrict__ grad, const T* __restrict__ out,
-                                          T* __restrict__ dy_tiles, long long level_elems,
-                                          int samples_per_level) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= level_elems) return;
-  float acc = 0.0f;
-  for (int t = 0; t < samples_per_level; ++t) {
-    const long long o = static_cast<long long>(t) * level_elems + i;
-    acc = acc + (to_float(out[o]) > 0.0f ? to_float(grad[o]) : 0.0f);
-  }
-  store(dy_tiles + i, acc);
-}
-
-// Level 1 of dk and dbias: thread (j, c) walks chunk j's samples in order.
-template <typename T>
-__global__ void agent_stamp_partial_kernel(const T* __restrict__ grad, const T* __restrict__ out,
-                                           const int* __restrict__ obs,
-                                           float* __restrict__ partial, int num_samples, int chunk,
-                                           int num_chunks, int h, int w, int ch) {
-  const long long id = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long j = id / ch;
-  if (j >= num_chunks) return;
-  const int c = static_cast<int>(id - j * ch);
+template <typename T, int V>
+__global__ void __launch_bounds__(kForwardThreads)
+agent_stamp_kernel(const T* __restrict__ y_tiles, const float* __restrict__ k_agent,
+                   const float* __restrict__ bias, const int* __restrict__ obs,
+                   T* __restrict__ out, long long slots, int slot_blocks, int num_levels,
+                   int samples_per_level, int t_range, int h, int w, float inv_w, int ch) {
+  extern __shared__ float k_s[];  // 9·ch, rounded to cdt
+  for (int i = threadIdx.x; i < 9 * ch; i += blockDim.x) k_s[i] = rounded<T>(k_agent[i]);
+  __syncthreads();
+  const int r = blockIdx.x / slot_blocks;
+  const long long i = static_cast<long long>(blockIdx.x - r * slot_blocks) * blockDim.x + threadIdx.x;
+  if (i >= slots) return;
+  const int groups = ch / V;
   const int hw = h * w;
-  float sums[kSums];
+  const long long gc = i / groups;
+  const int c0 = static_cast<int>(i - gc * groups) * V;
+  const int l = static_cast<int>(gc / hw);
+  const int p = static_cast<int>(gc - static_cast<long long>(l) * hw);
+  const int y = p / w, x = p - y * w;
+  const Pack<T, V> tile = Pack<T, V>::load(y_tiles + gc * ch + c0);
+  float yt[V], b[V];
+  Pack<T, V> plain;
 #pragma unroll
-  for (int q = 0; q < kSums; ++q) sums[q] = 0.0f;
-  const long long first = j * chunk;
-  for (int s = 0; s < chunk; ++s) {
-    const long long n = first + s;
-    if (n >= num_samples) break;
-    const long long base = n * hw * ch + c;
-    for (int p = 0; p < hw; ++p) {
-      const long long o = base + static_cast<long long>(p) * ch;
-      sums[9] = sums[9] + (to_float(out[o]) > 0.0f ? to_float(grad[o]) : 0.0f);
-    }
-    const int a = obs[n];
-    const int ay = a / w, ax = a - ay * w;
+  for (int j = 0; j < V; ++j) {
+    yt[j] = tile.get(j);
+    b[j] = rounded<T>(bias[c0 + j]);
+    const float v = (0.0f + yt[j]) + b[j];
+    plain.set(j, v > 0.0f ? v : 0.0f);
+  }
+  const long long plane = static_cast<long long>(num_levels) * hw * ch;  // elements of one t
+  const int t0 = r * t_range;
+  const int t1 = min(t0 + t_range, samples_per_level);
+  T* dst = out + gc * ch + c0;
+#pragma unroll 4
+  for (int t = t0; t < t1; ++t) {
+    const int o = obs[static_cast<long long>(t) * num_levels + l];
+    const int ay = floor_div(o, w, inv_w);
+    const int di = ay - y + 1, dj = (o - ay * w) - x + 1;
+    Pack<T, V> res = plain;
+    if (static_cast<unsigned>(di) < 3u && static_cast<unsigned>(dj) < 3u) {
+      const float* kq = k_s + (di * 3 + dj) * ch + c0;
 #pragma unroll
-    for (int di = 0; di < 3; ++di) {
-#pragma unroll
-      for (int dj = 0; dj < 3; ++dj) {
-        const int y = ay - di + 1, x = ax - dj + 1;
-        if (y >= 0 && y < h && x >= 0 && x < w) {
-          const long long o = base + static_cast<long long>(y * w + x) * ch;
-          sums[di * 3 + dj] =
-              sums[di * 3 + dj] + (to_float(out[o]) > 0.0f ? to_float(grad[o]) : 0.0f);
-        }
+      for (int j = 0; j < V; ++j) {
+        const float v = (kq[j] + yt[j]) + b[j];
+        res.set(j, v > 0.0f ? v : 0.0f);
       }
     }
+    res.put(dst + t * plane);
   }
+}
+
+// Launch 1 of the backward: the units of a block, then the block's tree.
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+agent_stamp_units_kernel(const T* __restrict__ grad, const T* __restrict__ out,
+                         const int* __restrict__ obs, T* __restrict__ dy_tiles,
+                         float* __restrict__ dy_partial, float* __restrict__ block_partial,
+                         int num_levels, int samples_per_level, int h, int w, float inv_w, int ch,
+                         int cells, int tiles, int ranges, int t_range, int units,
+                         int units_per_block) {
+  extern __shared__ float sums[];  // [kSums][cells][ch]: A[0..8] and B of each thread
+  const int groups = ch / V;
+  const int row = threadIdx.x / groups;
+  const int c0 = (static_cast<int>(threadIdx.x) - row * groups) * V;
+  const int hw = h * w;
+  const int row_stride = cells * ch;  // floats between one sum's rows of consecutive q
+  float* mine = sums + row * ch + c0;
 #pragma unroll
-  for (int q = 0; q < kSums; ++q) partial[(static_cast<size_t>(j) * kSums + q) * ch + c] = sums[q];
-}
+  for (int q = 0; q < kSums; ++q)
+#pragma unroll
+    for (int j = 0; j < V; ++j) mine[q * row_stride + j] = 0.0f;
 
-// Level 2: thread k = (q, c) adds the chunks' partial sums in chunk order;
-// q < 9 is dk[q, c], q = 9 is dbias[c].
-__global__ void agent_stamp_reduce_kernel(const float* __restrict__ partial,
-                                          float* __restrict__ dk, float* __restrict__ dbias,
-                                          int num_chunks, int ch) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_out = kSums * ch;
-  if (k >= n_out) return;
-  float acc = 0.0f;
-  for (int j = 0; j < num_chunks; ++j) acc = acc + partial[static_cast<size_t>(j) * n_out + k];
-  if (k < 9 * ch) {
-    dk[k] = acc;
-  } else {
-    dbias[k - 9 * ch] = acc;
+  const long long cells_all = static_cast<long long>(num_levels) * hw;
+  const long long plane = cells_all * ch;
+  const int u0 = blockIdx.x * units_per_block;
+  const int u1 = min(u0 + units_per_block, units);
+  for (int u = u0; u < u1; ++u) {
+    const int r = u / tiles;
+    const long long gc = static_cast<long long>(u - r * tiles) * cells + row;
+    if (gc >= cells_all) continue;
+    const int l = static_cast<int>(gc / hw);
+    const int p = static_cast<int>(gc - static_cast<long long>(l) * hw);
+    const int y = p / w, x = p - y * w;
+    const int t0 = r * t_range;
+    const int t1 = min(t0 + t_range, samples_per_level);
+    const T* g_at = grad + gc * ch + c0;
+    const T* o_at = out + gc * ch + c0;
+    float d[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) d[j] = 0.0f;
+#pragma unroll 4
+    for (int t = t0; t < t1; ++t) {
+      const long long e = static_cast<long long>(t) * plane;
+      const Pack<T, V> gv = Pack<T, V>::load(g_at + e);
+      const Pack<T, V> ov = Pack<T, V>::load(o_at + e);
+      const int o = obs[static_cast<long long>(t) * num_levels + l];
+      const int ay = floor_div(o, w, inv_w);
+      const int di = ay - y + 1, dj = (o - ay * w) - x + 1;
+      float gm[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        gm[j] = ov.get(j) > 0.0f ? gv.get(j) : 0.0f;
+        d[j] = d[j] + gm[j];
+      }
+      if (static_cast<unsigned>(di) < 3u && static_cast<unsigned>(dj) < 3u) {
+        float* a = mine + (di * 3 + dj) * row_stride;
+#pragma unroll
+        for (int j = 0; j < V; ++j) a[j] = a[j] + gm[j];
+      }
+    }
+    if (ranges == 1) {
+      Pack<T, V> res;
+#pragma unroll
+      for (int j = 0; j < V; ++j) res.set(j, d[j]);
+      res.put(dy_tiles + gc * ch + c0);
+    } else {
+      float* dst = dy_partial + static_cast<long long>(r) * plane + gc * ch + c0;
+#pragma unroll
+      for (int j = 0; j < V; ++j) dst[j] = d[j];
+    }
+    float* bsum = mine + 9 * row_stride;
+#pragma unroll
+    for (int j = 0; j < V; ++j) bsum[j] = bsum[j] + d[j];
+  }
+  __syncthreads();
+  for (int s = cells / 2; s > 0; s >>= 1) {
+    const int span = s * ch;  // the rows ρ < s of one sum
+    for (int i = threadIdx.x; i < kSums * span; i += blockDim.x) {
+      const int q = i / span;
+      float* v = sums + q * row_stride + (i - q * span);
+      v[0] = v[0] + v[span];
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < kSums * ch; i += blockDim.x) {
+    const int q = i / ch;
+    block_partial[static_cast<long long>(blockIdx.x) * kSums * ch + i] = sums[q * row_stride + (i - q * ch)];
   }
 }
 
+// Launch 2 of the backward. Blocks [0, sum_blocks): 32 columns of the
+// blocks' partials each; warp ρ adds rows ρ, ρ + 32, ... in order, then
+// warp 0 adds the 32 warps' sums in order. Blocks past them (where a level
+// has several ranges): dy_tiles, an element a thread, ranges in order.
 template <typename T>
+__global__ void __launch_bounds__(1024)
+agent_stamp_finish_kernel(const float* __restrict__ block_partial, int blocks, int ch,
+                          float* __restrict__ dk, float* __restrict__ dbias, int sum_blocks,
+                          const float* __restrict__ dy_partial, T* __restrict__ dy_tiles,
+                          long long dy_elems, int ranges) {
+  const int cols = kSums * ch;
+  if (static_cast<int>(blockIdx.x) < sum_blocks) {
+    __shared__ float lanes[kSumLanes][33];
+    const int lane = threadIdx.x & 31, rho = threadIdx.x >> 5;
+    const int col = blockIdx.x * 32 + lane;
+    float acc = 0.0f;
+    if (col < cols) {
+#pragma unroll 8
+      for (int m = rho; m < blocks; m += kSumLanes) acc = acc + block_partial[static_cast<long long>(m) * cols + col];
+    }
+    lanes[rho][lane] = acc;
+    __syncthreads();
+    if (rho == 0 && col < cols) {
+      float total = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kSumLanes; ++k) total = total + lanes[k][lane];
+      if (col < 9 * ch) {
+        dk[col] = total;
+      } else {
+        dbias[col - 9 * ch] = total;
+      }
+    }
+    return;
+  }
+  const long long e = static_cast<long long>(blockIdx.x - sum_blocks) * blockDim.x + threadIdx.x;
+  if (e >= dy_elems) return;
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int r = 0; r < ranges; ++r) acc = acc + dy_partial[static_cast<long long>(r) * dy_elems + e];
+  store(dy_tiles + e, acc);
+}
+
+template <typename T, int V>
 int forward(const void* y_tiles, const void* k_agent, const void* bias, const void* obs, void* out,
-            int num_samples, int num_levels, int h, int w, int ch, cudaStream_t s) {
-  const int bx = ch < 32 ? ch : 32;
-  const dim3 block(bx, kThreads / bx);
-  agent_stamp_kernel<T><<<num_samples, block, 0, s>>>(
+            int num_levels, int samples_per_level, int t_range, int h, int w, int ch,
+            cudaStream_t s) {
+  const long long slots = static_cast<long long>(num_levels) * h * w * (ch / V);
+  const long long slot_blocks = (slots + kForwardThreads - 1) / kForwardThreads;
+  const long long ranges = (samples_per_level + t_range - 1) / t_range;
+  agent_stamp_kernel<T, V><<<static_cast<unsigned>(slot_blocks * ranges), kForwardThreads,
+                             9 * ch * sizeof(float), s>>>(
       static_cast<const T*>(y_tiles), static_cast<const float*>(k_agent),
-      static_cast<const float*>(bias), static_cast<const int*>(obs), static_cast<T*>(out),
-      num_levels, h, w, ch);
+      static_cast<const float*>(bias), static_cast<const int*>(obs), static_cast<T*>(out), slots,
+      static_cast<int>(slot_blocks), num_levels, samples_per_level, t_range, h, w, 1.0f / w, ch);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int backward(const void* grad, const void* out, const void* obs, void* dy_tiles, void* partial,
-             void* dk, void* dbias, int num_samples, int num_levels, int chunk, int num_chunks,
-             int h, int w, int ch, cudaStream_t s) {
-  const long long level_elems = static_cast<long long>(num_levels) * h * w * ch;
-  agent_stamp_dtiles_kernel<T>
-      <<<static_cast<unsigned>((level_elems + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-          static_cast<const T*>(grad), static_cast<const T*>(out), static_cast<T*>(dy_tiles),
-          level_elems, num_samples / num_levels);
-  cudaError_t err = cudaGetLastError();
+template <typename T, int V>
+int backward(const void* grad, const void* out, const void* obs, void* dy_tiles, void* dy_partial,
+             void* block_partial, void* dk, void* dbias, int num_levels, int samples_per_level,
+             int h, int w, int ch, int cells, int tiles, int ranges, int t_range, int units,
+             int units_per_block, int blocks, cudaStream_t s) {
+  const int shared = kSums * cells * ch * static_cast<int>(sizeof(float));
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        agent_stamp_units_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  agent_stamp_units_kernel<T, V><<<blocks, cells * (ch / V), shared, s>>>(
+      static_cast<const T*>(grad), static_cast<const T*>(out), static_cast<const int*>(obs),
+      static_cast<T*>(dy_tiles), static_cast<float*>(dy_partial),
+      static_cast<float*>(block_partial), num_levels, samples_per_level, h, w, 1.0f / w, ch,
+      cells, tiles, ranges, t_range, units, units_per_block);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long threads = static_cast<long long>(num_chunks) * ch;
-  agent_stamp_partial_kernel<T>
-      <<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-          static_cast<const T*>(grad), static_cast<const T*>(out), static_cast<const int*>(obs),
-          static_cast<float*>(partial), num_samples, chunk, num_chunks, h, w, ch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  agent_stamp_reduce_kernel<<<(kSums * ch + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dk), static_cast<float*>(dbias),
-      num_chunks, ch);
+  const int sum_blocks = (kSums * ch + 31) / 32;
+  const long long dy_elems = static_cast<long long>(num_levels) * h * w * ch;
+  const long long dy_blocks = ranges > 1 ? (dy_elems + 1023) / 1024 : 0;
+  agent_stamp_finish_kernel<T><<<static_cast<unsigned>(sum_blocks + dy_blocks), 1024, 0, s>>>(
+      static_cast<const float*>(block_partial), blocks, ch, static_cast<float*>(dk),
+      static_cast<float*>(dbias), sum_blocks, static_cast<const float*>(dy_partial),
+      static_cast<T*>(dy_tiles), dy_elems, ranges);
   return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kBadWidth = static_cast<int>(cudaErrorInvalidValue);
+
+template <typename T>
+int forward_v(int vec, const void* y_tiles, const void* k_agent, const void* bias, const void* obs,
+              void* out, int num_levels, int samples_per_level, int t_range, int h, int w, int ch,
+              cudaStream_t s) {
+#define GU_STAMP_FORWARD(VEC)                                                                   \
+  forward<T, VEC>(y_tiles, k_agent, bias, obs, out, num_levels, samples_per_level, t_range, h, w, \
+                  ch, s)
+  switch (vec) {
+    case 1: return GU_STAMP_FORWARD(1);
+    case 2: return GU_STAMP_FORWARD(2);
+    case 4: return GU_STAMP_FORWARD(4);
+    // eight channels only in bfloat16 (16 bytes); float32 stops at four
+    case 8: return sizeof(T) == 2 ? GU_STAMP_FORWARD(16 / sizeof(T)) : kBadWidth;
+    default: return kBadWidth;
+  }
+#undef GU_STAMP_FORWARD
+}
+
+template <typename T>
+int backward_v(int vec, const void* grad, const void* out, const void* obs, void* dy_tiles,
+               void* dy_partial, void* block_partial, void* dk, void* dbias, int num_levels,
+               int samples_per_level, int h, int w, int ch, int cells, int tiles, int ranges,
+               int t_range, int units, int units_per_block, int blocks, cudaStream_t s) {
+#define GU_STAMP_BACKWARD(VEC)                                                                   \
+  backward<T, VEC>(grad, out, obs, dy_tiles, dy_partial, block_partial, dk, dbias, num_levels,  \
+                   samples_per_level, h, w, ch, cells, tiles, ranges, t_range, units,           \
+                   units_per_block, blocks, s)
+  switch (vec) {
+    case 1: return GU_STAMP_BACKWARD(1);
+    case 2: return GU_STAMP_BACKWARD(2);
+    case 4: return GU_STAMP_BACKWARD(4);
+    case 8: return sizeof(T) == 2 ? GU_STAMP_BACKWARD(16 / sizeof(T)) : kBadWidth;
+    default: return kBadWidth;
+  }
+#undef GU_STAMP_BACKWARD
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (of y_tiles, out, grad and dy_tiles).
+// dtype: 0 float32, 1 bfloat16 (of y_tiles and out); vec: channels a thread
+// (16 bytes of them where C allows).
 extern "C" int gu_agent_stamp(const void* y_tiles, const void* k_agent, const void* bias,
-                              const void* obs, void* out, int num_samples, int num_levels, int h,
-                              int w, int ch, int dtype, void* stream) {
+                              const void* obs, void* out, int num_levels, int samples_per_level,
+                              int t_range, int h, int w, int ch, int vec, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? forward<float>(y_tiles, k_agent, bias, obs, out, num_samples, num_levels, h, w, ch, s)
-             : forward<__nv_bfloat16>(y_tiles, k_agent, bias, obs, out, num_samples, num_levels,
-                                      h, w, ch, s);
+  return dtype == 0 ? forward_v<float>(vec, y_tiles, k_agent, bias, obs, out, num_levels,
+                                       samples_per_level, t_range, h, w, ch, s)
+                    : forward_v<__nv_bfloat16>(vec, y_tiles, k_agent, bias, obs, out, num_levels,
+                                               samples_per_level, t_range, h, w, ch, s);
 }
 
-// Launches three kernels: dy_tiles, the partial sums of dk and dbias, and
-// their sum.
+// Launches two kernels: the units with each block's tree, then the sum of
+// the blocks' partials (and of dy_tiles' ranges where there are several).
 extern "C" int gu_agent_stamp_backward(const void* grad, const void* out, const void* obs,
-                                       void* dy_tiles, void* partial, void* dk, void* dbias,
-                                       int num_samples, int num_levels, int chunk, int num_chunks,
-                                       int h, int w, int ch, int dtype, void* stream) {
+                                       void* dy_tiles, void* dy_partial, void* block_partial,
+                                       void* dk, void* dbias, int num_levels,
+                                       int samples_per_level, int h, int w, int ch, int cells,
+                                       int tiles, int ranges, int t_range, int units,
+                                       int units_per_block, int blocks, int vec, int dtype,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? backward<float>(grad, out, obs, dy_tiles, partial, dk, dbias, num_samples,
-                                      num_levels, chunk, num_chunks, h, w, ch, s)
-                    : backward<__nv_bfloat16>(grad, out, obs, dy_tiles, partial, dk, dbias,
-                                              num_samples, num_levels, chunk, num_chunks, h, w,
-                                              ch, s);
+  return dtype == 0
+             ? backward_v<float>(vec, grad, out, obs, dy_tiles, dy_partial, block_partial, dk,
+                                 dbias, num_levels, samples_per_level, h, w, ch, cells, tiles,
+                                 ranges, t_range, units, units_per_block, blocks, s)
+             : backward_v<__nv_bfloat16>(vec, grad, out, obs, dy_tiles, dy_partial,
+                                         block_partial, dk, dbias, num_levels, samples_per_level,
+                                         h, w, ch, cells, tiles, ranges, t_range, units,
+                                         units_per_block, blocks, s);
 }

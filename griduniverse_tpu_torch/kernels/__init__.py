@@ -31,8 +31,8 @@ CUDA tensors launch the kernel, or raise. There is no fallback.
 one for each kernel it launched, right after the call that launched them
 succeeded, and nowhere else. K5's wrapper launches one kernel a step and one
 more to apply the last aggregate, so a scan of T steps counts T + 1; the
-backward of `embed_rows` launches two kernels and that of `agent_stamp`
-three, and each counts under its kernel's name. A `per_sample` draw is
+backward of `embed_rows` launches two kernels and so does that of
+`agent_stamp`, and each counts under its kernel's name. A `per_sample` draw is
 eight kernels up to 16,384 picks (scores, four histogram passes, count,
 compaction, sort and weights) and twenty above (the sort in twelve
 multi-block passes), and a `segment_mean` call four (count, scan,

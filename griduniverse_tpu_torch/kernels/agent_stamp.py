@@ -1,10 +1,13 @@
 """Wrappers of K9b (`csrc/agent_stamp.cu`): check, allocate, launch.
 
-The plain PyTorch version is `models.networks.agent_stamp_reference`
-(gradients by autograd).
+The plain PyTorch versions are `models.networks.agent_stamp_reference`
+(gradients by autograd) and `models.networks.agent_stamp_backward_reference`
+(the backward's own order of adds, which `plan` fixes).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -12,9 +15,59 @@ from . import LAUNCHES
 from .build import check_int, check_tensor, launch
 from .embed_rows import dtype_code
 
-# Samples per chunk of the first level of the dk and dbias sums; it fixes the
-# order of the float adds.
-CHUNK = 64
+# The order of the backward's float adds depends on these four, so they are
+# part of the function, not tuning knobs: changing one changes the bits of
+# every trained parameter.
+T_RANGE = 64        # samples a level that one unit walks (dy_tiles' first level)
+MAX_BLOCKS = 2048   # blocks of the first launch at most; units are dealt out in runs
+SUM_LANES = 32      # the second launch adds the blocks' partials in 32 interleaved rows
+MAX_THREADS = 256   # a block of the backward's first launch: `cells` rows of C / V threads
+
+
+class Plan(NamedTuple):
+    """How the work of one call is cut: `vec` channels a thread, `cells`
+    global cells a unit, `tiles` units a range, `ranges` of `T_RANGE`
+    samples a level, `units` in all, `upb` units a block, `blocks`."""
+    vec: int
+    cells: int
+    tiles: int
+    ranges: int
+    units: int
+    upb: int
+    blocks: int
+
+
+def backward_launches() -> int:
+    """Kernels one backward launches (and adds to `LAUNCHES`): the units with
+    each block's tree, then the sum of the blocks' partials."""
+    return 2
+
+
+def vector_width(ch: int, dtype: torch.dtype) -> int:
+    """Channels a thread takes: the most, up to 16 bytes, that divide C."""
+    vec = 16 // dtype.itemsize
+    while ch % vec:
+        vec //= 2
+    return vec
+
+
+def plan(n: int, nl: int, h: int, w: int, ch: int, dtype: torch.dtype) -> Plan:
+    """The cut of a call of N samples over Nl levels of H×W cells and C
+    channels. Every quantity is a function of the shapes alone."""
+    vec = vector_width(ch, dtype)
+    groups = ch // vec
+    if groups > MAX_THREADS:
+        raise ValueError(f"C={ch} in {dtype}: {groups} threads a cell, at most {MAX_THREADS}")
+    if h * w >= 1 << 22:
+        raise ValueError(f"{h}x{w} cells: K9b takes fewer than 2^22 a level")
+    cells = 1
+    while cells < 32 and cells * 2 * groups <= MAX_THREADS:
+        cells *= 2
+    tiles = -(-nl * h * w // cells)
+    ranges = -(-(n // nl) // T_RANGE)
+    units = check_int("units", ranges * tiles, low=1)
+    upb = -(-units // MAX_BLOCKS)
+    return Plan(vec, cells, tiles, ranges, units, upb, -(-units // upb))
 
 
 def _dims(y_tiles, obs):
@@ -25,6 +78,8 @@ def _dims(y_tiles, obs):
     n = check_int("N", obs.shape[0], low=1)
     if n % nl:
         raise ValueError(f"{n} samples are not a whole number of passes over {nl} levels")
+    if ch > 1024:  # the forward stages k (9·C floats) in 48 KB of shared memory
+        raise ValueError(f"C={ch}: K9b takes at most 1,024 channels")
     return n, nl, h, w, ch
 
 
@@ -34,6 +89,8 @@ def agent_stamp_cuda(y_tiles, k_agent, bias, obs):
     if device.type != "cuda":
         raise ValueError(f"agent_stamp_cuda takes CUDA tensors, got {device}")
     n, nl, h, w, ch = _dims(y_tiles, obs)
+    p = plan(n, nl, h, w, ch, y_tiles.dtype)
+    check_int("forward blocks", -(-nl * h * w * (ch // p.vec) // 256) * p.ranges)
     out = torch.empty((n, h, w, ch), dtype=y_tiles.dtype, device=device)
     launch(
         "gu_agent_stamp", device,
@@ -41,14 +98,14 @@ def agent_stamp_cuda(y_tiles, k_agent, bias, obs):
         check_tensor("k_agent", k_agent, torch.float32, (3, 3, ch), device),
         check_tensor("bias", bias, torch.float32, (ch,), device),
         check_tensor("obs", obs, torch.int32, (n,), device),
-        out.data_ptr(), n, nl, h, w, ch, dtype_code(y_tiles.dtype),
+        out.data_ptr(), nl, n // nl, T_RANGE, h, w, ch, p.vec, dtype_code(y_tiles.dtype),
     )
     LAUNCHES["agent_stamp"] += 1
     return out
 
 
 def agent_stamp_backward_cuda(grad, out, obs, num_levels: int):
-    """Launch K9b's backward (three kernels). Returns (dy_tiles in the
+    """Launch K9b's backward (two kernels). Returns (dy_tiles in the
     compute dtype, dk_agent (3, 3, C) float32, dbias (C,) float32)."""
     device = grad.device
     if device.type != "cuda":
@@ -59,9 +116,11 @@ def agent_stamp_backward_cuda(grad, out, obs, num_levels: int):
     nl = check_int("Nl", num_levels, low=1)
     if n % nl:
         raise ValueError(f"{n} samples are not a whole number of passes over {nl} levels")
-    num_chunks = -(-n // CHUNK)
+    p = plan(n, nl, h, w, ch, grad.dtype)
     dy_tiles = torch.empty((nl, h, w, ch), dtype=grad.dtype, device=device)
-    partial = torch.empty((num_chunks, 10, ch), dtype=torch.float32, device=device)
+    # dy_tiles' float partials, one a range, where a level has several ranges
+    dy_partial = torch.empty((p.ranges, nl, h, w, ch) if p.ranges > 1 else (0,), dtype=torch.float32, device=device)
+    block_partial = torch.empty((p.blocks, 10, ch), dtype=torch.float32, device=device)
     dk = torch.empty((3, 3, ch), dtype=torch.float32, device=device)
     dbias = torch.empty((ch,), dtype=torch.float32, device=device)
     launch(
@@ -69,8 +128,9 @@ def agent_stamp_backward_cuda(grad, out, obs, num_levels: int):
         check_tensor("grad", grad, grad.dtype, (n, h, w, ch), device),
         check_tensor("out", out, grad.dtype, (n, h, w, ch), device),
         check_tensor("obs", obs, torch.int32, (n,), device),
-        dy_tiles.data_ptr(), partial.data_ptr(), dk.data_ptr(), dbias.data_ptr(),
-        n, nl, CHUNK, num_chunks, h, w, ch, dtype_code(grad.dtype),
+        dy_tiles.data_ptr(), dy_partial.data_ptr(), block_partial.data_ptr(), dk.data_ptr(), dbias.data_ptr(),
+        nl, n // nl, h, w, ch, p.cells, p.tiles, p.ranges, T_RANGE, p.units, p.upb, p.blocks, p.vec,
+        dtype_code(grad.dtype),
     )
-    LAUNCHES["agent_stamp"] += 3
+    LAUNCHES["agent_stamp"] += backward_launches()
     return dy_tiles, dk, dbias

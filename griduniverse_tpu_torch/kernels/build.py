@@ -75,8 +75,11 @@ _SIGNATURES = {
     "gu_embed_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # grad, obs, partial, dtable; N, chunk, chunks, S, E, dtype, shared bytes
     "gu_embed_rows_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "gu_agent_stamp": [_P] * 5 + [_I] * 6 + [_P],
-    "gu_agent_stamp_backward": [_P] * 7 + [_I] * 8 + [_P],
+    # y_tiles, k, bias, obs, out; Nl, T, t_range, H, W, C, vec, dtype
+    "gu_agent_stamp": [_P] * 5 + [_I] * 8 + [_P],
+    # grad, out, obs, dy_tiles, dy partials, block partials, dk, dbias; Nl, T, H, W, C,
+    # cells, tiles, ranges, t_range, units, units a block, blocks, vec, dtype
+    "gu_agent_stamp_backward": [_P] * 8 + [_I] * 14 + [_P],
     # prio, noise, size, beta; alpha, cap, n; score, partial, idx, w, scratch; launched
     "gu_per_sample": [_P] * 4 + [_F, _I, _I] + [_P] * 6 + [_P],
     # ring (5), prio; batch (5); at, p_max; B, cap

@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
-from ..kernels.agent_stamp import CHUNK as STAMP_CHUNK
+from ..kernels import agent_stamp as stamp_kernels
 from ..kernels.agent_stamp import agent_stamp_backward_cuda, agent_stamp_cuda
 from ..kernels.embed_rows import CHUNK as EMBED_CHUNK
 from ..kernels.embed_rows import embed_rows_backward_cuda, embed_rows_cuda
@@ -170,53 +170,81 @@ def agent_stamp_reference(y_tiles, k_agent, bias, obs):
 
 def agent_stamp_backward_reference(grad, out, obs, num_levels: int):
     """Plain PyTorch version of K9b's backward, in the kernel's own order of
-    float adds. With gm = `grad` where the saved output `out` is positive
-    and 0 elsewhere, all sums float32:
+    float adds (`csrc/agent_stamp.cu`'s header; the cut is
+    `kernels.agent_stamp.plan`'s). With gm = `grad` where the saved output
+    `out` is positive and 0 elsewhere, all sums float32:
 
-      * dy_tiles[l] adds gm of the samples of level l (n = t·Nl + l) in t
-        order, and is rounded to the compute dtype once;
-      * dbias and the nine entries of dk are summed per chunk of
-        `STAMP_CHUNK` consecutive samples, sample after sample (dbias walks
-        a sample's cells in raster order; dk[i, j] takes the one cell
-        (ay−i+1, ax−j+1) of a sample, where it lies inside the image), and
-        the chunks' sums are then added in chunk order.
+      * a unit is a range of `T_RANGE` samples a level and a tile of
+        `cells` consecutive cells of the (Nl·H·W) levels' cells; block β
+        takes a run of `upb` units in order, its thread (row ρ, channel c)
+        the tile's cell ρ. For each unit the thread adds gm over the range,
+        t ascending, into D (dy_tiles' term, written out per range) and
+        into A[i·3 + j] where its cell is (ay−i+1, ax−j+1) of the sample's
+        agent; then B += D. A and B start at 0.0 for the block;
+      * a block's rows are added by a tree (row ρ < s takes row ρ + s, for
+        s = cells/2, ..., 1), and the blocks' partials P as
+        Σ_ρ (Σ_m P[m·SUM_LANES + ρ]), ρ < SUM_LANES, each sum from 0.0;
+      * dy_tiles is D where a level has one range, else the ranges' D added
+        in order from 0.0; it is rounded to the compute dtype once.
 
     Returns (dy_tiles (Nl, H, W, C) in the compute dtype, dk (3, 3, C) and
-    dbias (C,) float32). It is slow: one small add per term of a chunk."""
+    dbias (C,) float32). It is slow: a few small operations per sample of a
+    unit."""
     n, h, w, ch = grad.shape
+    nl, hw = num_levels, h * w
+    t_len, n_cells = n // num_levels, num_levels * h * w
     dev = grad.device
-    dy = torch.zeros((num_levels, h, w, ch), dtype=torch.float32, device=dev)
-    g_t, out_t = grad.reshape(-1, num_levels, h, w, ch), out.reshape(-1, num_levels, h, w, ch)
-    for t in range(n // num_levels):
-        dy = dy + torch.where(out_t[t] > 0, g_t[t].float(), 0.0)
-
-    num_chunks = -(-n // STAMP_CHUNK)
-    pad = num_chunks * STAMP_CHUNK - n  # padding samples have grad 0 and add +0.0, which changes no bit
-
-    def chunked(x):
-        flat = x.reshape(n, -1)
-        flat = F.pad(flat, (0, 0, 0, pad)) if pad else flat
-        return flat.reshape(num_chunks, STAMP_CHUNK, *x.shape[1:])
-
-    g_c, out_c = chunked(grad.reshape(n, h * w, ch)), chunked(out.reshape(n, h * w, ch))
-    cell = chunked(obs.long()[:, None])[..., 0]  # (chunks, CHUNK)
-    ay, ax = torch.div(cell, w, rounding_mode="floor"), cell % w
-    rows = torch.arange(num_chunks, device=dev)
-    sums = torch.zeros((10, num_chunks, ch), dtype=torch.float32, device=dev)
-    for s in range(STAMP_CHUNK):
-        gm = torch.where(out_c[:, s] > 0, g_c[:, s].float(), 0.0)  # (chunks, H·W, C)
-        for p in range(h * w):
-            sums[9] = sums[9] + gm[:, p]
-        for i in range(3):
-            for j in range(3):
-                y, x = ay[:, s] - i + 1, ax[:, s] - j + 1
-                inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
-                picked = gm[rows, (y.clamp(0, h - 1) * w + x.clamp(0, w - 1))]
-                sums[i * 3 + j] = sums[i * 3 + j] + torch.where(inside[:, None], picked, 0.0)
-    total = torch.zeros((10, ch), dtype=torch.float32, device=dev)
-    for c in range(num_chunks):
-        total = total + sums[:, c]
-    return dy.to(grad.dtype), total[:9].reshape(3, 3, ch), total[9]
+    p = stamp_kernels.plan(n, nl, h, w, ch, grad.dtype)
+    t_range = stamp_kernels.T_RANGE
+    gm = torch.where(out > 0, grad.float(), 0.0).reshape(t_len, n_cells, ch)
+    cell = obs.long().reshape(t_len, nl)
+    ay_all = torch.div(cell, w, rounding_mode="floor")
+    ax_all = cell - ay_all * w
+    blocks, rows = torch.arange(p.blocks, device=dev), torch.arange(p.cells, device=dev)
+    # each thread's ten sums, A[0..8] and B: (blocks, cells, 10, C). An add of
+    # 0.0 where the kernel adds nothing changes no bit: no sum is ever -0.0.
+    acc = torch.zeros((p.blocks, p.cells, 10, ch), dtype=torch.float32, device=dev)
+    dy = torch.zeros((p.ranges, n_cells, ch), dtype=torch.float32, device=dev)
+    for m in range(p.upb):
+        u = blocks * p.upb + m
+        r, k = torch.div(u, p.tiles, rounding_mode="floor"), u % p.tiles
+        gc = k[:, None] * p.cells + rows  # (blocks, cells)
+        active = (u < p.units)[:, None] & (gc < n_cells)
+        gc = gc.clamp(max=n_cells - 1)
+        lvl, cy, cx = torch.div(gc, hw, rounding_mode="floor"), torch.div(gc % hw, w, rounding_mode="floor"), gc % w
+        d = torch.zeros((p.blocks, p.cells, ch), dtype=torch.float32, device=dev)
+        for s in range(min(t_range, t_len)):
+            t = r * t_range + s
+            live = active & (t < t_len)[:, None]
+            tc = t.clamp(max=t_len - 1)[:, None]
+            g = torch.where(live[..., None], gm[tc, gc], 0.0)
+            d = d + g
+            di, dj = ay_all[tc, lvl] - cy + 1, ax_all[tc, lvl] - cx + 1
+            hit = live & (di >= 0) & (di < 3) & (dj >= 0) & (dj < 3)
+            q = (di.clamp(0, 2) * 3 + dj.clamp(0, 2))[..., None, None].expand(-1, -1, 1, ch)
+            acc.scatter_(2, q, acc.gather(2, q) + torch.where(hit[..., None, None], g[:, :, None], 0.0))
+        dy[r[:, None].expand_as(gc)[active], gc[active]] = d[active]
+        acc[:, :, 9] = acc[:, :, 9] + d
+    s = p.cells // 2
+    while s:
+        acc = acc[:, :s] + acc[:, s:2 * s]
+        s //= 2
+    lanes = stamp_kernels.SUM_LANES
+    part = F.pad(acc[:, 0].reshape(p.blocks, -1), (0, 0, 0, -p.blocks % lanes)).reshape(-1, lanes, 10 * ch)
+    inner = torch.zeros((lanes, 10 * ch), dtype=torch.float32, device=dev)
+    for m in range(part.shape[0]):
+        inner = inner + part[m]
+    total = torch.zeros((10 * ch,), dtype=torch.float32, device=dev)
+    for rho in range(lanes):
+        total = total + inner[rho]
+    if p.ranges > 1:
+        dy_sum = torch.zeros((n_cells, ch), dtype=torch.float32, device=dev)
+        for r in range(p.ranges):
+            dy_sum = dy_sum + dy[r]
+    else:
+        dy_sum = dy[0]
+    total = total.reshape(10, ch)
+    return dy_sum.to(grad.dtype).reshape(nl, h, w, ch), total[:9].reshape(3, 3, ch), total[9]
 
 
 class _AgentStamp(torch.autograd.Function):

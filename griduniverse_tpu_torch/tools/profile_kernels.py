@@ -1,9 +1,9 @@
-"""Where the time of four kernels' calls goes, on one CUDA card.
+"""Where the time of five kernels' calls goes, on one CUDA card.
 
-    python -m griduniverse_tpu_torch.tools.profile_kernels [k10] [k8a] [k9a] [k8b]
+    python -m griduniverse_tpu_torch.tools.profile_kernels [k10] [k8a] [k9a] [k8b] [k9b]
 
 From the root of a checkout, on a machine with a Hopper card and nvcc. The
-arguments pick the kernels (all four by default). It prints the card's name
+arguments pick the kernels (all five by default). It prints the card's name
 and power limit (`nvidia-smi`), then takes these calls:
 
 - K10 (`apply_td_updates`): 4,096 and 65,536 envs over S·A = 1,024, 102,400
@@ -18,7 +18,15 @@ and power limit (`nvidia-smi`), then takes these calls:
 - K8b's gather (`replay_gather`) and refresh (`prio_refresh`) on a full
   ring of 131,072 at n = 256, 4,096, 8,192 and 8,193 rows (the refresh's
   one-block limits), half the rows repeating a slot, beside the library's
-  `index_select` ×5 and `index_put_` + max.
+  `index_select` ×5 and `index_put_` + max;
+- K9b's forward (`agent_stamp_cuda`) and backward
+  (`agent_stamp_backward_cuda`) on 9×9 levels, C = 32, bfloat16, at
+  N = 262,144 over Nl = 16,384 levels (a PPO minibatch over per-env mazes),
+  N = Nl = 65,536 (a rollout step), N = Nl = 256 (DQN's minibatch) and
+  N = 65,536 over Nl = 1 (a shared level), beside the library's way to the
+  same function: `F.one_hot` of the agent's cell through `F.conv2d`, the
+  add of the tile response and the bias and `relu`, forward alone and
+  forward with autograd's backward.
 
 For each it prints four readings:
 
@@ -96,13 +104,15 @@ def main(argv: list[str] | None = None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: torch.cuda.is_available() is False; this runs only on a GPU")
     from griduniverse_tpu_torch.algos import td
+    from griduniverse_tpu_torch.kernels import agent_stamp as k9b
     from griduniverse_tpu_torch.kernels import embed_rows as k9a
     from griduniverse_tpu_torch.models import a2c, dqn
 
-    picked = set(sys.argv[1:] if argv is None else argv) or {"k10", "k8a", "k9a", "k8b"}
-    unknown = picked - {"k10", "k8a", "k9a", "k8b"}
+    known = {"k10", "k8a", "k9a", "k8b", "k9b"}
+    picked = set(sys.argv[1:] if argv is None else argv) or known
+    unknown = picked - known
     if unknown:
-        raise SystemExit(f"profile_kernels: unknown kernels {sorted(unknown)}; pick from k10, k8a, k9a, k8b")
+        raise SystemExit(f"profile_kernels: unknown kernels {sorted(unknown)}; pick from {', '.join(sorted(known))}")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
@@ -168,6 +178,39 @@ def main(argv: list[str] | None = None) -> None:
             return refresh
         return lambda: dqn.prio_refresh(ring_prio, idx, abs_err, 1e-3, p_max)
 
+    def k9b_calls(n, nl, h=9, w=9, ch=32, cdt=torch.bfloat16):
+        """K9b's forward and backward and the library's conv + add + ReLU
+        (forward, and forward with autograd's backward) on one shape."""
+        y = torch.randn((nl, h, w, ch), generator=gen, device=dev).to(cdt)
+        k = torch.randn((3, 3, ch), generator=gen, device=dev)
+        b = torch.randn((ch,), generator=gen, device=dev)
+        obs = torch.randint(0, h * w, (n,), generator=gen, device=dev, dtype=torch.int32)
+        cot = torch.randn((n, h, w, ch), generator=gen, device=dev).to(cdt)
+        out = k9b.agent_stamp_cuda(y, k, b, obs)
+        k_lib = k.permute(2, 0, 1)[:, None].contiguous().requires_grad_(True)  # (C, 1, 3, 3)
+        b_lib = b.clone().requires_grad_(True)
+        y_lib = y.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+        cot_lib = cot.permute(0, 3, 1, 2)
+
+        def library():  # timed here, used nowhere in the port
+            plane = torch.nn.functional.one_hot(obs.long(), h * w).to(cdt).reshape(n, 1, h, w)
+            y_agent = torch.nn.functional.conv2d(plane, k_lib.to(cdt), padding=1)
+            y_sum = y_agent.reshape(n // nl, nl, ch, h, w) + y_lib
+            return torch.relu(y_sum + b_lib.to(cdt)[:, None, None]).reshape(n, ch, h, w)
+
+        def library_forward():
+            with torch.no_grad():
+                return library()
+
+        tag = f"N={n} Nl={nl} {h}x{w} C={ch} {str(cdt).split('.')[-1]}"
+        return {
+            f"K9b forward {tag}": lambda: k9b.agent_stamp_cuda(y, k, b, obs),
+            f"K9b backward {tag}": lambda: k9b.agent_stamp_backward_cuda(cot, out, obs, nl),
+            f"library one_hot + conv2d + add + relu {tag}": library_forward,
+            f"library forward + autograd backward {tag}":
+                lambda: torch.autograd.grad(library(), (y_lib, k_lib, b_lib), cot_lib),
+        }
+
     calls = {}
     if "k10" in picked:
         calls.update({
@@ -189,6 +232,9 @@ def main(argv: list[str] | None = None) -> None:
             calls[f"index_select x5 capacity {CAP}, n={n}"] = k8b_gather(idx, library=True)
             calls[f"K8b refresh capacity {CAP}, n={n}"] = k8b_refresh(idx, abs_err)
             calls[f"index_put_ + max capacity {CAP}, n={n}"] = k8b_refresh(idx, abs_err, library=True)
+    if "k9b" in picked:
+        for n, nl in ((262_144, 16_384), (65_536, 65_536), (256, 256), (65_536, 1)):
+            calls.update(k9b_calls(n, nl))
     for name, fn in calls.items():
         ms = _events_ms(fn)
         print(f"{name}: {ms!r} ms a call as timed, {_graph_ms(fn)!r} ms a call in a CUDA graph, "

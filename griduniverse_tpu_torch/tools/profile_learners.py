@@ -1,9 +1,10 @@
 """Rates of the neural trainers on one CUDA card, and where their time goes.
 
-    python -m griduniverse_tpu_torch.tools.profile_learners
+    python -m griduniverse_tpu_torch.tools.profile_learners [NAME ...]
 
-From the root of a checkout, on a machine with a Hopper card and nvcc. It
-prints, one line each:
+From the root of a checkout, on a machine with a Hopper card and nvcc. The
+arguments pick cases whose names start with them (e.g. `"ppo mazes64k"`; all
+six by default). It prints, one line each:
 
 - the card's name and power limit (`nvidia-smi`);
 - for each trainer at its full width (65,536 envs, `max_episode_steps=512`),
@@ -44,7 +45,8 @@ OUR_KERNELS = ("gae_kernel", "nstep_returns", "act_step", "greedy_step", "embed_
 
 def _profile(name: str, fn, wall_ms: float, smi: str, top: int = 12):
     """One call of `fn` under the profiler, printed; returns (busy us,
-    device events, idle share), or None if no device time was recorded."""
+    device events, idle share, {kernel name: (us, count)}), or None if no
+    device time was recorded."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -68,10 +70,10 @@ def _profile(name: str, fn, wall_ms: float, smi: str, top: int = 12):
           f"({100 * ours / busy:.2f} % of busy), {events} device events ({smi})")
     for n, (us, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {us:12.1f} us  {count:7d} x  {n[:100]}")
-    return busy, events, 1 - busy / wall_us
+    return busy, events, 1 - busy / wall_us, {n: tuple(v) for n, v in per_kernel.items()}
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_learners: torch.cuda.is_available() is False; this runs only on a GPU")
     import griduniverse_tpu_torch as gt
@@ -121,6 +123,8 @@ def main() -> None:
         ts0 = models.dqn_run(sem, level, models.dqn_init(sem, level, 5, cfg, NUM_ENVS), cfg, 4)
         cases.append((f"{name} B={NUM_ENVS} capacity={cfg.buffer_capacity} steps={steps}", steps * NUM_ENVS,
                       lambda level=level, ts0=ts0, cfg=cfg, steps=steps: models.dqn_run(sem, level, ts0, cfg, steps)))
+    picked = sys.argv[1:] if argv is None else argv
+    cases = [c for c in cases if not picked or any(c[0].startswith(p) for p in picked)]
     wall_of = {}
     for name, work, fn in cases:
         fn()  # warm-up

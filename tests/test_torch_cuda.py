@@ -15,6 +15,7 @@ import torch
 import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch import kernels
 from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast, td_lambda
+from griduniverse_tpu_torch.kernels import agent_stamp as stamp_kernels
 from griduniverse_tpu_torch.kernels import embed_rows as embed_kernels
 from griduniverse_tpu_torch.kernels import replay as replay_kernels
 from griduniverse_tpu_torch.levels import builders
@@ -343,11 +344,19 @@ def test_embed_rows_backward_kernel_matches_plain_at_the_shared_limit(dev, above
     _assert_same((got,), (networks.embed_rows_backward_reference(g, obs, s),))
 
 
-@pytest.mark.parametrize("nl,ch", [(1, 16), (512, 32)])
+@pytest.mark.parametrize("nl,t,h,w,ch", [
+    (1, 4, 9, 9, 16), (512, 4, 9, 9, 32),
+    (1, 200, 9, 9, 8),      # Nl = 1, the level's samples split over four ranges
+    (256, 1, 9, 9, 32),     # Nl = N: a rollout step, DQN's minibatch
+    (3, 70, 5, 6, 12),      # two ranges, C = 12 (four channels a thread in bfloat16)
+    (3, 4, 17, 17, 8),      # a level above one tile of cells
+    (2, 5, 33, 33, 32),     # 33x33
+    (2, 3, 5, 6, 3),        # a thread a channel
+    (4096, 16, 9, 9, 32),   # several units a block
+])
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
-def test_agent_stamp_kernel_matches_plain(dev, nl, ch, cdt):
-    gen = torch.Generator(device=dev).manual_seed(nl)
-    h, w, t = 9, 9, 4
+def test_agent_stamp_kernel_matches_plain(dev, nl, t, h, w, ch, cdt):
+    gen = torch.Generator(device=dev).manual_seed(nl * t)
     n = nl * t
     y_tiles = torch.randn((nl, h, w, ch), generator=gen, device=dev).to(cdt).requires_grad_(True)
     k = torch.randn((3, 3, ch), generator=gen, device=dev, requires_grad=True)
@@ -360,7 +369,7 @@ def test_agent_stamp_kernel_matches_plain(dev, nl, ch, cdt):
     ref = networks.agent_stamp_reference(y_tiles, k, bias, obs)
     assert torch.equal(out, ref)
     grads = torch.autograd.grad(out, (y_tiles, k, bias), cot)
-    assert kernels.LAUNCHES["agent_stamp"] == before + 4
+    assert kernels.LAUNCHES["agent_stamp"] == before + 1 + stamp_kernels.backward_launches()
     again = torch.autograd.grad(networks.agent_stamp(y_tiles, k, bias, obs), (y_tiles, k, bias), cot)
     for a, b in zip(grads, again):  # the same bits on every run
         assert torch.equal(a, b)

@@ -27,6 +27,7 @@ from griduniverse_tpu.models import networks as jn
 from griduniverse_tpu.models import ppo as jppo
 from griduniverse_tpu.models.optim import make_lr as j_make_lr
 from griduniverse_tpu.ops import bitplane as jbp
+from griduniverse_tpu_torch.kernels import agent_stamp as k9b
 from griduniverse_tpu_torch.kernels import embed_rows as k9a
 from griduniverse_tpu_torch.models import a2c as ta2c
 from griduniverse_tpu_torch.models import networks as tn
@@ -366,14 +367,9 @@ def test_agent_stamp_plain_matches_jax_conv_with_gradients(nl, t, rng):
     np.testing.assert_allclose(got16.float().numpy(), np.asarray(want), atol=5e-2, rtol=2e-2)
 
 
-@pytest.mark.parametrize("nl,t", [(1, 150), (6, 4), (70, 3)])
-@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
-def test_agent_stamp_fixed_order_backward(nl, t, cdt, rng):
-    """The add-by-add version of K9b's backward against a float64 numpy sum
-    over the masked gradient (rtol 1e-5, atol 1e-4; dy_tiles in bfloat16 is
-    rounded once, rtol 1e-2) and against autograd through the plain forward
-    in float32; one chunk, several chunks and a ragged last chunk."""
-    h, w, ch = 5, 6, 8
+def _stamp_case(rng, nl, t, h, w, ch, cdt):
+    """K9b's inputs and saved output for (Nl, T, H, W, C), the agents of
+    the first samples in the four corners."""
     n = nl * t
     y_tiles = _t(rng.normal(size=(nl, h, w, ch)).astype(np.float32)).to(cdt).requires_grad_(True)
     k = _t(rng.normal(size=(3, 3, ch)).astype(np.float32)).requires_grad_(True)
@@ -382,9 +378,17 @@ def test_agent_stamp_fixed_order_backward(nl, t, cdt, rng):
     obs[:4] = [0, w - 1, (h - 1) * w, h * w - 1][: min(4, n)]  # the corners
     cot = _t(rng.normal(size=(n, h, w, ch)).astype(np.float32)).to(cdt)
     out = tn.agent_stamp(y_tiles, k, bias, _t(obs))
+    return y_tiles, k, bias, obs, cot, out
+
+
+def _hold_stamp_backward(y_tiles, k, bias, obs, cot, out, nl, cdt):
+    """The fixed-order backward against a float64 numpy sum over the masked
+    gradient (rtol 1e-5, atol 1e-4; dy_tiles in bfloat16 is rounded once,
+    rtol 1e-2) and against autograd through the plain forward in float32;
+    two calls give the same bits."""
+    n, h, w, ch = cot.shape
     dy, dk, dbias = tn.agent_stamp_backward_reference(cot, out.detach(), _t(obs), nl)
     assert dy.dtype == cdt and dk.dtype == dbias.dtype == torch.float32
-
     gm = np.where(out.detach().float().numpy() > 0, cot.float().numpy(), 0.0).astype(np.float64)
     want_dk = np.zeros((3, 3, ch))
     for s, cell in enumerate(obs):
@@ -397,7 +401,7 @@ def test_agent_stamp_fixed_order_backward(nl, t, cdt, rng):
     np.testing.assert_allclose(dk.numpy(), want_dk, rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(dbias.numpy(), gm.sum(axis=(0, 1, 2)), rtol=1e-5, atol=1e-4)
     dy_tol = dict(rtol=1e-5, atol=1e-4) if cdt == torch.float32 else dict(rtol=1e-2, atol=1e-2)
-    np.testing.assert_allclose(dy.float().numpy(), gm.reshape(t, nl, h, w, ch).sum(axis=0), **dy_tol)
+    np.testing.assert_allclose(dy.float().numpy(), gm.reshape(n // nl, nl, h, w, ch).sum(axis=0), **dy_tol)
     if cdt == torch.float32:
         auto = torch.autograd.grad(out, (y_tiles, k, bias), cot)
         for name, a, b in zip(("dy_tiles", "dk_agent", "dbias"), (dy, dk, dbias), auto):
@@ -405,6 +409,124 @@ def test_agent_stamp_fixed_order_backward(nl, t, cdt, rng):
     # the fixed order is a function of the inputs alone
     again = tn.agent_stamp_backward_reference(cot, out.detach(), _t(obs), nl)
     assert all(torch.equal(a, b) for a, b in zip((dy, dk, dbias), again))
+    return dy, dk, dbias
+
+
+@pytest.mark.parametrize("nl,t", [(1, 150), (6, 4), (70, 3)])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_agent_stamp_fixed_order_backward(nl, t, cdt, rng):
+    """The add-by-add version of K9b's backward against float64 sums and
+    autograd: a level split into several ranges (Nl=1), one range over
+    several tiles, and many levels a tile."""
+    _hold_stamp_backward(*_stamp_case(rng, nl, t, 5, 6, 8, cdt), nl, cdt)
+
+
+@pytest.mark.parametrize("nl,t,h,w,ch", [
+    (1, 200, 9, 9, 8),     # Nl = 1: four ranges of T_RANGE, dy_tiles summed over them
+    (2, 70, 5, 6, 12),     # two ranges, the last one short, over two levels
+    (40, 1, 9, 9, 16),     # Nl = N: a rollout step or DQN's minibatch
+    (9, 4, 9, 9, 32),      # the trunk's width at the minibatch's T / 4
+    (3, 4, 17, 17, 8),     # a level above one tile of cells
+    (2, 3, 5, 6, 3),       # a C no vector divides: a thread a channel
+])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_agent_stamp_backward_edge_shapes(nl, t, h, w, ch, cdt, rng):
+    _hold_stamp_backward(*_stamp_case(rng, nl, t, h, w, ch, cdt), nl, cdt)
+
+
+def _literal_walk(grad, out, obs, nl):
+    """K9b's backward as `csrc/agent_stamp.cu` states it, thread by thread
+    and add by add in float32, from `plan`'s cut: an independent statement
+    of the order that the vectorised plain backward must repeat."""
+    n, h, w, ch = grad.shape
+    p = k9b.plan(n, nl, h, w, ch, grad.dtype)
+    t_len, hw, n_cells = n // nl, h * w, nl * h * w
+    g, o = grad.float().numpy().reshape(t_len, n_cells, ch), out.float().numpy().reshape(t_len, n_cells, ch)
+    gm = np.where(o > 0, g, np.float32(0)).astype(np.float32)
+    dy = np.zeros((p.ranges, n_cells, ch), np.float32)
+    part = np.zeros((p.blocks, 10, ch), np.float32)
+    for b in range(p.blocks):
+        sums = np.zeros((10, p.cells, ch), np.float32)
+        for row in range(p.cells):
+            for u in range(b * p.upb, min(b * p.upb + p.upb, p.units)):
+                r, k = divmod(u, p.tiles)
+                gc = k * p.cells + row
+                if gc >= n_cells:
+                    continue
+                lvl, cy, cx = gc // hw, (gc % hw) // w, gc % w
+                d = np.zeros(ch, np.float32)
+                for t in range(r * k9b.T_RANGE, min(r * k9b.T_RANGE + k9b.T_RANGE, t_len)):
+                    d = d + gm[t, gc]
+                    ay, ax = divmod(int(obs[t * nl + lvl]), w)
+                    di, dj = ay - cy + 1, ax - cx + 1
+                    if 0 <= di < 3 and 0 <= dj < 3:
+                        sums[di * 3 + dj, row] = sums[di * 3 + dj, row] + gm[t, gc]
+                dy[r, gc] = d
+                sums[9, row] = sums[9, row] + d
+        s = p.cells // 2
+        while s:
+            sums[:, :s] = sums[:, :s] + sums[:, s:2 * s]
+            s //= 2
+        part[b] = sums[:, 0]
+    total = np.zeros((10, ch), np.float32)
+    for rho in range(k9b.SUM_LANES):
+        lane = np.zeros((10, ch), np.float32)
+        for m in range(rho, p.blocks, k9b.SUM_LANES):
+            lane = lane + part[m]
+        total = total + lane
+    dy_sum = dy[0]
+    if p.ranges > 1:
+        dy_sum = np.zeros((n_cells, ch), np.float32)
+        for r in range(p.ranges):
+            dy_sum = dy_sum + dy[r]
+    return dy_sum.reshape(nl, h, w, ch), total[:9].reshape(3, 3, ch), total[9]
+
+
+def _same_stamp_grads(got, want, cdt):
+    dy, dk, dbias = got
+    assert torch.equal(dy, torch.from_numpy(want[0]).to(cdt))
+    np.testing.assert_array_equal(dk.numpy().view(np.int32), want[1].view(np.int32))
+    np.testing.assert_array_equal(dbias.numpy().view(np.int32), want[2].view(np.int32))
+
+
+# (Nl, T, H, W, C, cdt, the constants changed from the wrapper's): a range
+# split, runs of several units a block (a small MAX_BLOCKS), narrower tiles
+# (a small MAX_THREADS) and a thread a channel
+@pytest.mark.parametrize("nl,t,h,w,ch,cdt,consts", [
+    (1, 150, 5, 6, 8, torch.float32, {}),
+    (3, 70, 5, 6, 12, torch.bfloat16, {"MAX_BLOCKS": 4}),
+    (6, 4, 5, 6, 8, torch.float32, {"MAX_BLOCKS": 3, "MAX_THREADS": 32}),
+    (2, 5, 17, 17, 8, torch.bfloat16, {"MAX_BLOCKS": 5, "T_RANGE": 2}),
+    (5, 2, 3, 3, 3, torch.float32, {"MAX_BLOCKS": 2, "SUM_LANES": 4}),
+])
+def test_agent_stamp_backward_order_matches_a_literal_walk(nl, t, h, w, ch, cdt, consts, rng, monkeypatch):
+    """The vectorised plain backward equals the kernel's order walked thread
+    by thread, bit for bit, also where the cut's constants differ."""
+    for name, value in consts.items():
+        monkeypatch.setattr(k9b, name, value)
+    _, _, _, obs, cot, out = _stamp_case(rng, nl, t, h, w, ch, cdt)
+    got = tn.agent_stamp_backward_reference(cot, out.detach(), _t(obs), nl)
+    _same_stamp_grads(got, _literal_walk(cot, out.detach(), obs, nl), cdt)
+
+
+@pytest.mark.parametrize("name,value,changed", [
+    ("T_RANGE", 16, "dy_tiles"),    # a range is dy_tiles' first level, and dbias adds the ranges
+    ("MAX_BLOCKS", 8, "dk"),        # fewer blocks, longer runs of units each
+    ("MAX_THREADS", 64, "dk"),      # a tile of 16 cells, not 32
+    ("SUM_LANES", 4, "dk"),         # the second launch's interleave
+])
+def test_agent_stamp_backward_order_follows_the_wrappers_constants(name, value, changed, rng, monkeypatch):
+    """The plain backward reads its cut from `kernels.agent_stamp`: where one
+    of the constants the wrapper launches with changes, the bits change
+    (and the sums stay the same function)."""
+    nl, t, ch, cdt = 4, 80, 32, torch.float32
+    y_tiles, k, bias, obs, cot, out = _stamp_case(rng, nl, t, 9, 9, ch, cdt)
+    base = tn.agent_stamp_backward_reference(cot, out.detach(), _t(obs), nl)
+    monkeypatch.setattr(k9b, name, value)
+    moved = _hold_stamp_backward(y_tiles, k, bias, obs, cot, out, nl, cdt)
+    names = ("dy_tiles", "dk", "dbias")
+    assert not torch.equal(moved[names.index(changed)], base[names.index(changed)])
+    assert not torch.equal(moved[2], base[2])  # dbias adds every term of every order
 
 
 # ---------------------------------------------------------------------------
