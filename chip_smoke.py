@@ -116,7 +116,26 @@ INSTR_K1_STEP = 85      # the scan loop is 170 instructions for two unrolled ste
 INSTR_K2_STEP = 94      # the replay loop is 188 instructions for two unrolled steps
 INSTR_K3_STEP = 54      # the seeded walk loop
 INSTR_K3_TILE = 17      # one tile of the grid written out (69 for four)
-INSTR_K4_CELL = 129     # one cell's backup of a VI sweep; the block's maximum is not counted
+# one cell's VI sweep in the packed kernel (`grid_sweeps_packed_kernel<4, false>`:
+# between two barriers 26 instructions on odd sweeps and 31 on even ones, of
+# them four loads, multiplies, adds and maxima, the store, |ΔV| and its
+# maximum)
+INSTR_K4_CELL = 29
+# the global tier's one-cell backup (`cell_backup`, which decodes the packed
+# word every sweep), counted in the one-maze-a-block kernel that shared it
+INSTR_K4_GLOBAL_CELL = 129
+
+
+def k4_function_ops(actions: int) -> int:
+    """K4's own operations a cell and sweep, as K9a and K9b count: per
+    action a load of the V it continues from (a slot that holds 0.0 where
+    the move ends the episode, so nothing is selected), a multiply and an
+    add; a max for each action after the first; then |ΔV|, its maximum and
+    the store. 18 for a VI sweep of 4 actions, 6 for an evaluation sweep
+    (one action). The bounds in the record rest on this count."""
+    return 3 * actions + (actions - 1) + 3
+
+
 # K5's per-env path is 308; 76 of them load and store the env state, which
 # only a scan cut into one launch a step needs, so they are not counted
 INSTR_K5_STEP = 232
@@ -276,8 +295,9 @@ def solver_phases(gt, dev, gen, bound, smi):
         pref = dp_batched.policy_iteration_batched_grid_reference(sem, lv)
         _require(pgot[2] == pref[2], f"K4 PI {cells}: iters {pgot[2]} != plain {pref[2]}")
         hold("dp_grid", f"K4 PI {cells}", pgot[:2], pref[:2], ("V", "policy"))
-        print(f"K4 cells={cells} N=256: VI {got[2]} sweeps (convergence at sweep {mid} of a launch of "
-              f"{dp_batched.SWEEPS_PER_LAUNCH}), PI {pgot[2]} policy iterations: V, policy, iters bit-exact vs plain")
+        print(f"K4 cells={cells} N=256 {dp_grid.packing(lv.num_states)}: VI {got[2]} sweeps (convergence at "
+              f"sweep {mid} of a launch of {dp_batched.SWEEPS_PER_LAUNCH}), PI {pgot[2]} policy iterations: V, "
+              "policy, iters bit-exact vs plain")
     _require(inside_a_launch, "no K4 shape converged inside a launch")
 
     # K4's global-memory tier, above 16,384 states a maze: two sidewinder mazes
@@ -621,13 +641,33 @@ def solver_phases(gt, dev, gen, bound, smi):
             v = v_new
         return v, torch.stack(maxima)
 
+    pk = dp_grid.packing(81)
+    _require(pk.mazes == 3 and pk.cells == 1, f"K4 9x9: packing {pk}, not three mazes a block")
     ms4, got = _cuda_ms(lambda: grid_sweeps_cuda(sem, grids, v0, None, 0.99, k), 10)
     plain4, ref = _cuda_ms(plain_sweeps, 2)
     hold("dp_grid", "K4 timed sweeps", got, ref, ("V", "sweep maxima"))
     times["dp_grid"] = dict(
         ms=ms4, plain_ms=plain4, shape=f"{k} VI sweeps, {n64} mazes 9x9", library_ms=None,
         # grids and V in, V out; per sweep one backup of every cell
-        **bound(n64 * 81 * 4 * 3, k * n64 * 81 * INSTR_K4_CELL))
+        **bound(n64 * 81 * 4 * 3, k * n64 * 81 * k4_function_ops(4)))
+    sass4 = bound(n64 * 81 * 4 * 3, k * n64 * 81 * INSTR_K4_CELL)
+    print(f"K4 {k} VI sweeps, {n64} mazes 9x9, {pk}: kernel {ms4!r} ms; bound {times['dp_grid']['bound_ms']!r} ms "
+          f"by the function's {k4_function_ops(4)} operations a cell and sweep, {sass4['bound_ms']!r} ms by the "
+          f"kernel's {INSTR_K4_CELL} SASS instructions ({smi})")
+    # the other two solver shapes: 33x33 (a table of decoded actions, five
+    # cells a thread) and PI's evaluation sweeps over 4,096 9x9 mazes
+    for tag, g4, pol4 in (("VI sweeps, 8192 mazes 33x33", lv33.grid.contiguous(), None),
+                          ("evaluation sweeps, 4096 mazes 9x9", lv_pi.grid,
+                           torch.randint(0, 4, (n_pi, 81), generator=gen, device=dev, dtype=torch.int32))):
+        n4, s4 = g4.shape[0], g4.shape[1] * g4.shape[2]
+        v04 = torch.zeros((n4, s4), dtype=torch.float32, device=dev)
+        ms_t, got = _cuda_ms(lambda: grid_sweeps_cuda(sem, g4, v04, pol4, 0.99, k), 10)
+        plain_t, ref = _cuda_ms(lambda: plain_sweeps_of(dp_batched._grid_backup(sem, g4, 0.99), v04, pol4, k), 2)
+        hold("dp_grid", f"K4 timed {tag}", got, ref, ("V", "sweep maxima"))
+        # grids and V in (and the policy), V out
+        t4 = bound(n4 * s4 * 4 * (3 if pol4 is None else 4), k * n4 * s4 * k4_function_ops(4 if pol4 is None else 1))
+        print(f"time dp_grid at {k} {tag} ({dp_grid.packing(s4)}): kernel {ms_t!r} ms, plain {plain_t!r} ms, "
+              f"bound {t4['bound_ms']!r} ms by {t4['bound_by']}, library None ms; bit-exact vs plain ({smi})")
     s_big = lv_big.num_states
     v0_big = torch.zeros((N_BIG, s_big), dtype=torch.float32, device=dev)
     g_big = lv_big.grid.contiguous()
@@ -635,7 +675,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     ms4g, got = _cuda_ms(lambda: grid_sweeps_cuda(sem, g_big, v0_big, None, 0.99, k), 10)
     plain4g, ref = _cuda_ms(lambda: plain_sweeps_of(backup_big, v0_big, None, k), 2)
     hold("dp_grid", "K4 global tier timed sweeps", got, ref, ("V", "sweep maxima"))
-    t4g = bound(N_BIG * s_big * 4 * 3, k * N_BIG * s_big * INSTR_K4_CELL)
+    t4g = bound(N_BIG * s_big * 4 * 3, k * N_BIG * s_big * INSTR_K4_GLOBAL_CELL)
     print(f"time dp_grid global tier at {k} VI sweeps, {N_BIG} mazes 161x129 ({k} launches): kernel {ms4g!r} ms "
           f"({ms4g / k!r} ms a sweep), plain {plain4g!r} ms, bound {t4g['bound_ms']!r} ms by {t4g['bound_by']}, "
           f"library None ms; bit-exact vs plain ({smi})")
@@ -2119,6 +2159,78 @@ def mc_lambda_phases(gt, dev, bound, smi):
     return launches, errs, times
 
 
+def ceiling_phases(gt, dev, bound, smi):
+    """Phase 23: K9b above 256 threads a cell, where its backward cuts the
+    channels into slices (C = 257 and 1,032 in both dtypes, and C = 514 over
+    a shared level; above 1,024 channels the forward stages k a slice at a
+    time), and K12 at 16,776,961 envs, above 65,535 chunks of 256. Each call
+    goes through the public entry (autograd for K9b) and is held against
+    its plain version bit for bit (K12 in three launches: two of its first
+    kernel, 65,535 chunks and one), and timed beside its bound by bytes.
+    Returns the max abs errors by kernel."""
+    from griduniverse_tpu_torch import kernels
+    from griduniverse_tpu_torch.algos import td_lambda
+    from griduniverse_tpu_torch.kernels import agent_stamp as k9b
+    from griduniverse_tpu_torch.kernels import trace_pass as trace_kernels
+    from griduniverse_tpu_torch.models import networks
+
+    errs = {"agent_stamp": 0.0, "trace_pass": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(23)
+    h = w = 9
+    for ch, nl, t in ((257, 64, 16), (1032, 64, 16), (514, 1, 100)):
+        for cdt in (torch.float32, torch.bfloat16):
+            n = nl * t
+            y = torch.randn((nl, h, w, ch), generator=gen, device=dev).to(cdt).requires_grad_(True)
+            k = torch.randn((3, 3, ch), generator=gen, device=dev, requires_grad=True)
+            b = torch.randn((ch,), generator=gen, device=dev, requires_grad=True)
+            obs = torch.randint(0, h * w, (n,), generator=gen, device=dev, dtype=torch.int32)
+            cot = torch.randn((n, h, w, ch), generator=gen, device=dev).to(cdt)
+            p = k9b.plan(n, nl, h, w, ch, cdt)
+            before = kernels.LAUNCHES["agent_stamp"]
+            out = networks.agent_stamp(y, k, b, obs)
+            grads = torch.autograd.grad(out, (y, k, b), cot)
+            _require(kernels.LAUNCHES["agent_stamp"] - before == 1 + k9b.backward_launches(),
+                     f"K9b C={ch}: {kernels.LAUNCHES['agent_stamp'] - before} launches")
+            tag = f"K9b C={ch} Nl={nl} T={t} {str(cdt).split('.')[-1]}"
+            err = _same_fields(f"{tag} forward", (out,), (networks.agent_stamp_reference(y, k, b, obs),), ("out",))
+            err = max(err, _same_fields(f"{tag} backward", grads,
+                                        networks.agent_stamp_backward_reference(cot, out.detach(), obs, nl),
+                                        ("dy_tiles", "dk", "dbias")))
+            errs["agent_stamp"] = max(errs["agent_stamp"], err)
+            out = out.detach()
+            fwd_ms, _ = _cuda_ms(lambda: k9b.agent_stamp_cuda(y.detach(), k.detach(), b.detach(), obs), 10)
+            bwd_ms, _ = _cuda_ms(lambda: k9b.agent_stamp_backward_cuda(cot, out, obs, nl), 10)
+            size = out.element_size()
+            # forward: the tile responses in, the output out; backward: the
+            # gradient and the output in, dy_tiles out
+            fwd = bound((n + nl) * h * w * ch * size, INSTR_K9B_FWD * n * h * w * ch)
+            bwd = bound((2 * n + nl) * h * w * ch * size, INSTR_K9B_BWD * n * h * w * ch)
+            print(f"{tag}: {p.slices} slices of {p.width} channels in the backward, "
+                  f"{-(-ch // k9b.FORWARD_SLICE)} in the forward; forward and backward bit-exact vs plain; "
+                  f"forward {fwd_ms!r} ms (bound {fwd['bound_ms']!r} by {fwd['bound_by']}), backward {bwd_ms!r} ms "
+                  f"(bound {bwd['bound_ms']!r} by {bwd['bound_by']}) ({smi})")
+    b, cells = 16_776_961, (1, 2)
+    e = torch.rand((b, *cells), generator=gen, device=dev) * (torch.rand((b, *cells), generator=gen, device=dev) < 0.3)
+    s = torch.zeros((b,), dtype=torch.int32, device=dev)
+    a = torch.randint(0, 2, (b,), generator=gen, device=dev, dtype=torch.int32)
+    delta = torch.randn((b,), generator=gen, device=dev)
+    cut = torch.rand((b,), generator=gen, device=dev) < 0.2
+    table = torch.randn(cells, generator=gen, device=dev)
+    e_plain = e.clone()
+    args = (s, a, delta, cut, 0.9, 0.8, 1e-4, 0.3, "accumulating")
+    before = kernels.LAUNCHES["trace_pass"]
+    got = td_lambda.trace_pass(table, e, *args)
+    _require(kernels.LAUNCHES["trace_pass"] - before == trace_kernels.launches(b) == 3,
+             "K12 above 65,535 chunks: not two launches of the first kernel and the update")
+    want = td_lambda.trace_pass_reference(table, e_plain, *args)
+    errs["trace_pass"] = _same_fields(f"K12 B={b}", (got, e), (want, e_plain), ("table", "trace"))
+    ms12, _ = _cuda_ms(lambda: td_lambda.trace_pass(table, e, *args), 10)
+    t12 = bound(2 * e.numel() * 4, INSTR_K12_ELEM * e.numel())  # the trace read and written once
+    print(f"K12 B={b} ({-(-b // 256)} chunks of 256 envs), a 1x2 table: table and trace bit-exact vs plain; "
+          f"{ms12!r} ms a step, bound {t12['bound_ms']!r} ms by {t12['bound_by']} ({smi})")
+    return errs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this runs only on a GPU")
@@ -2409,6 +2521,10 @@ def main() -> None:
     errs.update(trace_errs)
     times.update(trace_times)
     elapsed("phase 21")
+    # -- phase 23: K9b and K12 above their old ceilings --------------------------
+    for name, err in ceiling_phases(gt, dev, bound, smi).items():
+        errs[name] = max(errs[name], err)
+    elapsed("phase 23")
     for name, t in times.items():
         print(f"time {name} at {t['shape']}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
               f"bound {t['bound_ms']!r} ms by {t['bound_by']}, library {t['library_ms']!r} ms, "

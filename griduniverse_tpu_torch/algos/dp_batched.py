@@ -10,9 +10,10 @@ PyTorch counterpart of `griduniverse_tpu/algos/dp_batched.py`.
   * Grid form (`value_iteration_batched_grid`,
     `policy_iteration_batched_grid`): solves straight from the (N, H, W)
     tile codes. On CUDA this is kernel K4 (`csrc/dp_grid.cu`): up to
-    16,384 cells a maze, one block per maze, V in shared memory, several
-    Jacobi sweeps per launch; above that, one thread per cell from global
-    memory, one launch per sweep. On the CPU it is the plain version beside
+    16,384 cells a maze, V in shared memory and up to 16 Jacobi sweeps a
+    launch, several small mazes a block or several cells a thread
+    (`kernels.dp_grid.packing`); above that, one thread per cell from
+    global memory, one launch per sweep. On the CPU it is the plain version beside
     it (`*_reference`).
 
 All solvers stop on the GLOBAL max |ΔV| over every maze and return V after

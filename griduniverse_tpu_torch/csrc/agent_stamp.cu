@@ -35,14 +35,21 @@
 // every sample whose agent is not next to its cell, and for each t reads
 // obs[t·Nl + l] (one address a warp, mostly), adds the stamp where the
 // agent is within one cell, and stores 16 bytes. k is staged in shared
-// memory, rounded once a block.
+// memory, rounded once a block. Above kForwardSlice channels the channels
+// are cut into slices of that many (the last one shorter), the slice on the
+// grid beside the range and the slots, and a block stages only its slice
+// of k (36 KB at most).
 //
 // Backward, with gm = grad where out > 0 and 0 elsewhere, all sums float32,
 // in two launches and in this order, a function of the shapes alone (the
 // wrapper's `plan`; `agent_stamp_backward_reference` repeats it add by
 // add):
 //   1. A unit is (range r of `t_range` samples a level, tile k of `cells`
-//      consecutive global cells), u = r·tiles + k. Block β takes units
+//      consecutive global cells), u = r·tiles + k. Where C / V is above the
+//      block's 256 threads, the channels are cut into `slices` of `width`
+//      (the last one shorter; `plan` picks them), each its own `blocks`
+//      blocks, and `cells` is counted on a slice; the sums of one channel
+//      keep the order below. Block β (of a slice) takes units
 //      [β·upb, (β+1)·upb) in order, with upb = ceil(units / max_blocks).
 //      Thread (row ρ, channel c) of a block takes global cell k·cells + ρ
 //      of each unit (none past the last cell). For each unit it adds, t
@@ -75,6 +82,7 @@
 namespace {
 
 constexpr int kForwardThreads = 256;
+constexpr int kForwardSlice = 1024;  // channels of k a forward block stages at most; `FORWARD_SLICE`
 constexpr int kSums = 10;      // nine stamp positions and the bias
 constexpr int kSumLanes = 32;  // rows of blocks' partials summed at once in launch 2
 
@@ -130,18 +138,27 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kForwardThreads)
 agent_stamp_kernel(const T* __restrict__ y_tiles, const float* __restrict__ k_agent,
                    const float* __restrict__ bias, const int* __restrict__ obs,
-                   T* __restrict__ out, long long slots, int slot_blocks, int num_levels,
+                   T* __restrict__ out, int slot_blocks, int ranges, int num_levels,
                    int samples_per_level, int t_range, int h, int w, float inv_w, int ch) {
-  extern __shared__ float k_s[];  // 9·ch, rounded to cdt
-  for (int i = threadIdx.x; i < 9 * ch; i += blockDim.x) k_s[i] = rounded<T>(k_agent[i]);
+  extern __shared__ float k_s[];  // 9·cw: the block's slice of k, rounded to cdt
+  const int rs = blockIdx.x / slot_blocks;  // slice · ranges + range
+  const int slice = rs / ranges;
+  const int r = rs - slice * ranges;
+  const int c_lo = slice * kForwardSlice;
+  const int cw = min(kForwardSlice, ch - c_lo);
+  for (int i = threadIdx.x; i < 9 * cw; i += blockDim.x) {
+    const int q = i / cw;
+    k_s[i] = rounded<T>(k_agent[q * ch + c_lo + (i - q * cw)]);
+  }
   __syncthreads();
-  const int r = blockIdx.x / slot_blocks;
-  const long long i = static_cast<long long>(blockIdx.x - r * slot_blocks) * blockDim.x + threadIdx.x;
-  if (i >= slots) return;
-  const int groups = ch / V;
+  const int groups = cw / V;
   const int hw = h * w;
+  const long long slots = static_cast<long long>(num_levels) * hw * groups;
+  const long long i = static_cast<long long>(blockIdx.x - rs * slot_blocks) * blockDim.x + threadIdx.x;
+  if (i >= slots) return;
   const long long gc = i / groups;
-  const int c0 = static_cast<int>(i - gc * groups) * V;
+  const int c_in = static_cast<int>(i - gc * groups) * V;  // in the slice
+  const int c0 = c_lo + c_in;
   const int l = static_cast<int>(gc / hw);
   const int p = static_cast<int>(gc - static_cast<long long>(l) * hw);
   const int y = p / w, x = p - y * w;
@@ -166,7 +183,7 @@ agent_stamp_kernel(const T* __restrict__ y_tiles, const float* __restrict__ k_ag
     const int di = ay - y + 1, dj = (o - ay * w) - x + 1;
     Pack<T, V> res = plain;
     if (static_cast<unsigned>(di) < 3u && static_cast<unsigned>(dj) < 3u) {
-      const float* kq = k_s + (di * 3 + dj) * ch + c0;
+      const float* kq = k_s + (di * 3 + dj) * cw + c_in;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float v = (kq[j] + yt[j]) + b[j];
@@ -185,14 +202,20 @@ agent_stamp_units_kernel(const T* __restrict__ grad, const T* __restrict__ out,
                          float* __restrict__ dy_partial, float* __restrict__ block_partial,
                          int num_levels, int samples_per_level, int h, int w, float inv_w, int ch,
                          int cells, int tiles, int ranges, int t_range, int units,
-                         int units_per_block) {
-  extern __shared__ float sums[];  // [kSums][cells][ch]: A[0..8] and B of each thread
-  const int groups = ch / V;
+                         int units_per_block, int blocks, int width) {
+  extern __shared__ float sums[];  // [kSums][cells][width]: A[0..8] and B of each thread
+  const int slice = blockIdx.x / blocks;  // the channels [c_lo, c_lo + cw)
+  const int beta = blockIdx.x - slice * blocks;
+  const int c_lo = slice * width;
+  const int cw = min(width, ch - c_lo);
+  const int groups = width / V;
   const int row = threadIdx.x / groups;
-  const int c0 = (static_cast<int>(threadIdx.x) - row * groups) * V;
+  const int c_in = (static_cast<int>(threadIdx.x) - row * groups) * V;  // in the slice
+  const int c0 = c_lo + c_in;
+  const bool live = c_in < cw;  // the last slice may be narrower than the block
   const int hw = h * w;
-  const int row_stride = cells * ch;  // floats between one sum's rows of consecutive q
-  float* mine = sums + row * ch + c0;
+  const int row_stride = cells * width;  // floats between one sum's rows of consecutive q
+  float* mine = sums + row * width + c_in;
 #pragma unroll
   for (int q = 0; q < kSums; ++q)
 #pragma unroll
@@ -200,12 +223,12 @@ agent_stamp_units_kernel(const T* __restrict__ grad, const T* __restrict__ out,
 
   const long long cells_all = static_cast<long long>(num_levels) * hw;
   const long long plane = cells_all * ch;
-  const int u0 = blockIdx.x * units_per_block;
+  const int u0 = beta * units_per_block;
   const int u1 = min(u0 + units_per_block, units);
   for (int u = u0; u < u1; ++u) {
     const int r = u / tiles;
     const long long gc = static_cast<long long>(u - r * tiles) * cells + row;
-    if (gc >= cells_all) continue;
+    if (gc >= cells_all || !live) continue;
     const int l = static_cast<int>(gc / hw);
     const int p = static_cast<int>(gc - static_cast<long long>(l) * hw);
     const int y = p / w, x = p - y * w;
@@ -252,7 +275,7 @@ agent_stamp_units_kernel(const T* __restrict__ grad, const T* __restrict__ out,
   }
   __syncthreads();
   for (int s = cells / 2; s > 0; s >>= 1) {
-    const int span = s * ch;  // the rows ρ < s of one sum
+    const int span = s * width;  // the rows ρ < s of one sum
     for (int i = threadIdx.x; i < kSums * span; i += blockDim.x) {
       const int q = i / span;
       float* v = sums + q * row_stride + (i - q * span);
@@ -260,9 +283,10 @@ agent_stamp_units_kernel(const T* __restrict__ grad, const T* __restrict__ out,
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < kSums * ch; i += blockDim.x) {
-    const int q = i / ch;
-    block_partial[static_cast<long long>(blockIdx.x) * kSums * ch + i] = sums[q * row_stride + (i - q * ch)];
+  for (int i = threadIdx.x; i < kSums * cw; i += blockDim.x) {
+    const int q = i / cw;
+    const int j = i - q * cw;
+    block_partial[(static_cast<long long>(beta) * kSums + q) * ch + c_lo + j] = sums[q * row_stride + j];
   }
 }
 
@@ -312,14 +336,17 @@ template <typename T, int V>
 int forward(const void* y_tiles, const void* k_agent, const void* bias, const void* obs, void* out,
             int num_levels, int samples_per_level, int t_range, int h, int w, int ch,
             cudaStream_t s) {
-  const long long slots = static_cast<long long>(num_levels) * h * w * (ch / V);
+  const int width = ch < kForwardSlice ? ch : kForwardSlice;  // the widest slice
+  const long long slices = (ch + kForwardSlice - 1) / kForwardSlice;
+  const long long slots = static_cast<long long>(num_levels) * h * w * (width / V);
   const long long slot_blocks = (slots + kForwardThreads - 1) / kForwardThreads;
   const long long ranges = (samples_per_level + t_range - 1) / t_range;
-  agent_stamp_kernel<T, V><<<static_cast<unsigned>(slot_blocks * ranges), kForwardThreads,
-                             9 * ch * sizeof(float), s>>>(
+  agent_stamp_kernel<T, V><<<static_cast<unsigned>(slot_blocks * ranges * slices), kForwardThreads,
+                             9 * width * sizeof(float), s>>>(
       static_cast<const T*>(y_tiles), static_cast<const float*>(k_agent),
-      static_cast<const float*>(bias), static_cast<const int*>(obs), static_cast<T*>(out), slots,
-      static_cast<int>(slot_blocks), num_levels, samples_per_level, t_range, h, w, 1.0f / w, ch);
+      static_cast<const float*>(bias), static_cast<const int*>(obs), static_cast<T*>(out),
+      static_cast<int>(slot_blocks), static_cast<int>(ranges), num_levels, samples_per_level,
+      t_range, h, w, 1.0f / w, ch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -327,18 +354,18 @@ template <typename T, int V>
 int backward(const void* grad, const void* out, const void* obs, void* dy_tiles, void* dy_partial,
              void* block_partial, void* dk, void* dbias, int num_levels, int samples_per_level,
              int h, int w, int ch, int cells, int tiles, int ranges, int t_range, int units,
-             int units_per_block, int blocks, cudaStream_t s) {
-  const int shared = kSums * cells * ch * static_cast<int>(sizeof(float));
+             int units_per_block, int blocks, int slices, int width, cudaStream_t s) {
+  const int shared = kSums * cells * width * static_cast<int>(sizeof(float));
   if (shared > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         agent_stamp_units_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  agent_stamp_units_kernel<T, V><<<blocks, cells * (ch / V), shared, s>>>(
+  agent_stamp_units_kernel<T, V><<<blocks * slices, cells * (width / V), shared, s>>>(
       static_cast<const T*>(grad), static_cast<const T*>(out), static_cast<const int*>(obs),
       static_cast<T*>(dy_tiles), static_cast<float*>(dy_partial),
       static_cast<float*>(block_partial), num_levels, samples_per_level, h, w, 1.0f / w, ch,
-      cells, tiles, ranges, t_range, units, units_per_block);
+      cells, tiles, ranges, t_range, units, units_per_block, blocks, width);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int sum_blocks = (kSums * ch + 31) / 32;
@@ -375,11 +402,12 @@ template <typename T>
 int backward_v(int vec, const void* grad, const void* out, const void* obs, void* dy_tiles,
                void* dy_partial, void* block_partial, void* dk, void* dbias, int num_levels,
                int samples_per_level, int h, int w, int ch, int cells, int tiles, int ranges,
-               int t_range, int units, int units_per_block, int blocks, cudaStream_t s) {
+               int t_range, int units, int units_per_block, int blocks, int slices, int width,
+               cudaStream_t s) {
 #define GU_STAMP_BACKWARD(VEC)                                                                   \
   backward<T, VEC>(grad, out, obs, dy_tiles, dy_partial, block_partial, dk, dbias, num_levels,  \
                    samples_per_level, h, w, ch, cells, tiles, ranges, t_range, units,           \
-                   units_per_block, blocks, s)
+                   units_per_block, blocks, slices, width, s)
   switch (vec) {
     case 1: return GU_STAMP_BACKWARD(1);
     case 2: return GU_STAMP_BACKWARD(2);
@@ -411,15 +439,15 @@ extern "C" int gu_agent_stamp_backward(const void* grad, const void* out, const 
                                        void* dk, void* dbias, int num_levels,
                                        int samples_per_level, int h, int w, int ch, int cells,
                                        int tiles, int ranges, int t_range, int units,
-                                       int units_per_block, int blocks, int vec, int dtype,
-                                       void* stream) {
+                                       int units_per_block, int blocks, int slices, int width,
+                                       int vec, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
              ? backward_v<float>(vec, grad, out, obs, dy_tiles, dy_partial, block_partial, dk,
                                  dbias, num_levels, samples_per_level, h, w, ch, cells, tiles,
-                                 ranges, t_range, units, units_per_block, blocks, s)
+                                 ranges, t_range, units, units_per_block, blocks, slices, width, s)
              : backward_v<__nv_bfloat16>(vec, grad, out, obs, dy_tiles, dy_partial,
                                          block_partial, dk, dbias, num_levels, samples_per_level,
                                          h, w, ch, cells, tiles, ranges, t_range, units,
-                                         units_per_block, blocks, s);
+                                         units_per_block, blocks, slices, width, s);
 }

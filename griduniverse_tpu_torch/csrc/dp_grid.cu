@@ -11,19 +11,48 @@
 //
 // Bound on the card: operations. A sweep reads and writes nothing but
 // shared memory, so a solve moves each grid once in and V and the policy
-// once out, and spends sweeps·N·S·A multiply-add-compare steps in between.
+// once out, and spends between them, a cell and sweep, a load, a multiply
+// and an add an action, a max for each action after the first, |ΔV|, its
+// maximum and the store: 18 operations at 4 actions (6 for an evaluation
+// sweep). 16 VI sweeps over 65,536 9×9 mazes are thus at least 0.0457 ms on
+// an H100 SXM (3.345e13 lane operations a second), against the 0.019 ms
+// their bytes take; `chip_smoke.py` computes the bound from its own run
+// and `PERF.md` §6 holds it beside the kernel's time.
 //
-// Design: one block per maze. The block derives, once per launch, a packed
-// word per cell (per action: blocked bit and the tile code after the move;
-// the cell's terminal bit; the policy's action) and keeps it with two V
-// buffers in dynamic shared memory (12 bytes a cell). A launch runs
-// `num_sweeps` Jacobi sweeps: every V_new[s] reads the old buffer, then the
-// buffers swap, as the reference's `v_new = f(v)`. The stopping rule is
-// global (max |ΔV| over ALL mazes), so each sweep's block maximum goes to
-// `sweep_max[k]` by atomicMax on the float's bits, which is exact and
-// order-free for non-negative floats; the host reads the launch's maxima
-// once and decides. The file is built with -fmad=false: `rew + γ·cont` is
-// two roundings, as in the plain version, so V agrees bit for bit.
+// The shared-memory tier, up to 16,384 cells a maze. The wrapper's
+// `packing` cuts the work: a maze of S ≤ 256 cells shares a block of 256
+// threads with ⌊256 / S⌋ − 1 others (three 9×9 mazes a block), one thread
+// a cell; a larger maze takes a block of its own, a thread ⌈S / 256⌉ cells
+// (and its 13 bytes a cell fit at 16,384 cells). A block walks groups
+// of mazes (blockIdx.x, then every gridDim.x-th), the grid being as many
+// blocks as fit the card at once: one block a group instead took 1.7× as
+// long at 65,536 9×9 mazes (`tools/k4_ablation.py`), as each block's
+// reduction of its sweep maxima then runs once a group. For each group it
+// derives, once, what a sweep needs of each (cell, action):
+//   * one cell a thread: in registers, the index into the block's V of the
+//     value the action continues from (a slot that always holds 0.0 where
+//     the move ends the episode or the cell is terminal) and the reward (0
+//     for a terminal cell), so an action is a load, a multiply, an add and
+//     a max;
+//   * several cells a thread, where it fits (the packing's `table`): the
+//     same index and reward in shared memory, 6 bytes an action and cell;
+//   * beyond (up to 16,384 cells): a 4-bit code an action in a word a cell
+//     in shared memory (the kind of move, stay, move, cut or terminal, and
+//     the reward's tile code; for PI the policy's action and its
+//     neighbour): 13 bytes a cell.
+// Then it runs `num_sweeps` Jacobi sweeps between two V buffers with one
+// barrier a sweep: every V_new reads the old buffer, as the reference's
+// `v_new = f(v)`. rew + γ·cont rounds twice (the file is built with
+// -fmad=false), and cont is selected, never multiplied by 0, so V agrees
+// bit for bit with the plain version.
+//
+// The stopping rule is global (max |ΔV| over ALL mazes). Each thread keeps
+// its sweeps' maxima in registers; a block reduces them once, writes its
+// row of a scratch, and the last block to finish (a ticket) takes the
+// maximum of the rows into `maxima`, and sets the ticket back to 0. The
+// maximum is exact in any order, so the maxima keep their bits; nothing is
+// accumulated across launches, so nothing is zeroed before one. The greedy
+// step reduces its `changed` flag the same way.
 //
 // Above 16,384 cells a maze no longer fits one block's shared memory, and
 // a second, global-memory tier takes over: one thread per cell of all N
@@ -39,14 +68,19 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+#include <mutex>
 
 #include "step.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kTermBit = 24;    // info bit: the cell itself is terminal
+constexpr int kMaxThreads = 256;  // a block of the global tier
+constexpr int kBlockMax = 256;    // a block of the shared tier at most
+constexpr int kMinBlocks = 4;     // blocks an SM the shared tier's kernels are built for
+constexpr int kMaxSweeps = 16;    // sweeps a shared-tier launch; `kernels.dp_grid.SWEEPS_A_LAUNCH`
+constexpr int kTermBit = 24;      // info bit: the cell itself is terminal
 constexpr int kPolicyShift = 25;  // info bits 25..27: the policy's action
 
 extern __shared__ unsigned char smem_raw[];
@@ -62,6 +96,469 @@ struct GridArgs {
   int w;
   const int* policy;  // (N, S) or null
 };
+
+// ---------------------------------------------------------------------------
+// The shared-memory tier
+// ---------------------------------------------------------------------------
+
+// What a backup of a cell takes from one action: kStay (blocked: V of the
+// cell), kMove (V of the neighbour), kCut (the move ends the episode: 0),
+// kTerminal (the cell itself is terminal: Q is 0).
+enum : int { kStay = 0, kMove = 1, kCut = 2, kTerminal = 3 };
+
+struct Action {
+  int kind;
+  int next;  // the cell whose V the action continues from (kStay, kMove)
+  int code;  // the tile code after the move: the reward's index
+};
+
+// Action `a` of cell s = (row, col), tile code `code`, of the maze whose
+// tile codes are `codes`; bit for bit the reference's blocked / done /
+// terminal masks.
+__device__ __forceinline__ Action decode_action(const gu::Tables& tab, const uint8_t* codes, int h,
+                                                int w, int s, int row, int col, int code, int a) {
+  const int nrow = row + tab.drow[a];
+  const int ncol = col + tab.dcol[a];
+  const bool in_bounds = nrow >= 0 && nrow < h && ncol >= 0 && ncol < w;
+  const int cand = min(max(nrow, 0), h - 1) * w + min(max(ncol, 0), w - 1);
+  const int cand_code = codes[cand];
+  const bool blocked = !in_bounds || !((tab.passable >> cand_code) & 1);
+  Action act;
+  act.code = blocked ? code : cand_code;
+  act.next = blocked ? s : cand;
+  // blocked, the tile stays the cell's own: it ends the episode only where
+  // the cell is terminal, which the first test takes
+  act.kind = ((tab.terminal >> code) & 1)        ? kTerminal
+             : blocked                           ? kStay
+             : ((tab.terminal >> cand_code) & 1) ? kCut
+                                                 : kMove;
+  return act;
+}
+
+// The maxima of the block's threads, one a sweep, into red[k][warp].
+__device__ __forceinline__ void warp_rows(const float (&m)[kMaxSweeps], float (*red)[32]) {
+#pragma unroll
+  for (int k = 0; k < kMaxSweeps; ++k) {
+    float x = m[k];
+    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    if ((threadIdx.x & 31) == 0) red[k][threadIdx.x >> 5] = x;
+  }
+}
+
+__device__ __forceinline__ float row_max(const float* row, int n) {
+  float x = 0.0f;
+  for (int i = 0; i < n; ++i) x = fmaxf(x, row[i]);
+  return x;
+}
+
+// The end of a sweeps launch: the block's maximum of each sweep goes to its
+// row of `partial` (kMaxSweeps floats), and the last block to take a ticket
+// writes the rows' maxima to `maxima` and sets the ticket back to 0.
+__device__ void finish_sweep_maxima(const float (&mk)[kMaxSweeps], float (*red)[32], bool& last,
+                                    float* __restrict__ partial, float* __restrict__ maxima,
+                                    int num_sweeps, unsigned int* __restrict__ ticket) {
+  const int warps = blockDim.x >> 5;
+  warp_rows(mk, red);
+  __syncthreads();
+  if (threadIdx.x < kMaxSweeps) {
+    partial[static_cast<size_t>(blockIdx.x) * kMaxSweeps + threadIdx.x] = row_max(red[threadIdx.x], warps);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float m[kMaxSweeps];
+#pragma unroll
+  for (int k = 0; k < kMaxSweeps; ++k) m[k] = 0.0f;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += blockDim.x) {
+    const float4* row = reinterpret_cast<const float4*>(partial + static_cast<size_t>(b) * kMaxSweeps);
+#pragma unroll
+    for (int q = 0; q < kMaxSweeps / 4; ++q) {
+      const float4 x = __ldcg(row + q);
+      m[4 * q] = fmaxf(m[4 * q], x.x);
+      m[4 * q + 1] = fmaxf(m[4 * q + 1], x.y);
+      m[4 * q + 2] = fmaxf(m[4 * q + 2], x.z);
+      m[4 * q + 3] = fmaxf(m[4 * q + 3], x.w);
+    }
+  }
+  warp_rows(m, red);
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < num_sweeps) maxima[threadIdx.x] = row_max(red[threadIdx.x], warps);
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// The end of a greedy launch: `changed` is 1 where a thread of any block
+// found a cell whose action differs from the given policy, else 0.
+__device__ void finish_changed(bool differs, bool& last, int* __restrict__ partial,
+                               int* __restrict__ changed, unsigned int* __restrict__ ticket) {
+  const int any = __syncthreads_or(differs);
+  if (threadIdx.x == 0) partial[blockIdx.x] = any;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int x = 0;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += blockDim.x) x |= __ldcg(partial + b);
+  const int all = __syncthreads_or(x);
+  if (threadIdx.x == 0) {
+    *changed = all != 0;
+    *ticket = 0u;
+  }
+}
+
+// One cell a thread (the wrapper's packing for S ≤ 256): a group is
+// `mazes` consecutive mazes, thread t its cell t. V and the codes live in
+// dynamic shared memory, each V buffer with a slot `span` that holds 0.0.
+template <int kA, bool kEval>
+__global__ void __launch_bounds__(kBlockMax, kMinBlocks)
+grid_sweeps_packed_kernel(GridArgs g, int n, int mazes, int cells, const float* __restrict__ v_in,
+                          float* __restrict__ v_out, float gamma, int num_sweeps,
+                          float* __restrict__ partial, float* __restrict__ maxima,
+                          unsigned int* __restrict__ ticket) {
+  // the actions a cell keeps: all of them (VI) or the policy's (PI evaluation)
+  constexpr int kN = kEval ? 1 : (kA > 0 ? kA : gu::kMaxActions);
+  __shared__ gu::Tables tab;
+  __shared__ float red[kMaxSweeps][32];
+  __shared__ bool last;
+  const int s_dim = g.h * g.w;
+  const int span = mazes * s_dim;
+  float* const v0 = reinterpret_cast<float*>(smem_raw);
+  float* const v1 = v0 + span + 1;
+  uint8_t* const codes = reinterpret_cast<uint8_t*>(v1 + span + 1);
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  if (threadIdx.x == 0) {
+    v0[span] = 0.0f;
+    v1[span] = 0.0f;
+  }
+  const int num_actions = kA > 0 ? kA : g.num_actions;
+  const int t = threadIdx.x;
+  const int j = t / s_dim;  // the thread's maze in the group
+  const int s = t - j * s_dim;
+  const int row = s / g.w;
+  const int col = s - row * g.w;
+  const int base = j * s_dim;  // that maze's first cell in the block's buffers
+  float mk[kMaxSweeps];
+#pragma unroll
+  for (int k = 0; k < kMaxSweeps; ++k) mk[k] = 0.0f;
+
+  const int groups = (n + mazes - 1) / mazes;
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const bool active = t < span && static_cast<long long>(grp) * mazes + j < n;
+    const size_t at = static_cast<size_t>(grp) * span + t;
+    int code = 0, chosen = 0;
+    float v_own = 0.0f;
+    if (active) {
+      code = g.grids[at] & 3;
+      v_own = v_in[at];
+      if (kEval) chosen = g.policy[at];
+      codes[t] = static_cast<uint8_t>(code);
+      v0[t] = v_own;
+    }
+    __syncthreads();  // the group's codes and V (and, the first time, the tables)
+    int next[kN];
+    float rew[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      next[i] = span;
+      rew[i] = 0.0f;
+      if (active && (kEval || kA > 0 || i < num_actions)) {
+        const int a = kEval ? gu::clamp_action(chosen, num_actions) : i;
+        const Action act = decode_action(tab, codes + base, g.h, g.w, s, row, col, code, a);
+        if (act.kind == kStay || act.kind == kMove) next[i] = base + act.next;
+        if (act.kind != kTerminal) rew[i] = tab.reward[act.code];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxSweeps; ++k) {
+      if (k < num_sweeps) {
+        // sweep k reads what sweep k − 1 wrote: known at each unrolled k,
+        // so the buffers' addresses are fixed and nothing is swapped
+        const float* const v_old = (k & 1) ? v1 : v0;
+        float* const v_new = (k & 1) ? v0 : v1;
+        if (active) {
+          float best = rew[0] + gamma * v_old[next[0]];
+#pragma unroll
+          for (int i = 1; i < kN; ++i) {
+            if (kA > 0 || i < num_actions) best = fmaxf(best, rew[i] + gamma * v_old[next[i]]);
+          }
+          v_new[t] = best;
+          mk[k] = fmaxf(mk[k], fabsf(best - v_own));
+          v_own = best;
+        }
+        __syncthreads();  // the sweep's V_new complete; the old buffer free
+      }
+    }
+    if (active) v_out[at] = v_own;
+  }
+  finish_sweep_maxima(mk, red, last, partial, maxima, num_sweeps, ticket);
+}
+
+// Several cells a thread, one maze a group, where the decoded actions fit
+// (the wrapper's packing says `table`): for each (action i, cell s) the
+// cell its V comes from, `next[i·S + s]` (S, the 0.0 slot, where the move
+// ends the episode or the cell is terminal), and the reward `rew[i·S + s]`
+// (0 for a terminal cell), so an action is three shared loads, a
+// multiply, an add and a max, as in the packed kernel. Thread t takes
+// cells t + c·blockDim.x, c < `cells`.
+template <int kA, bool kEval>
+__global__ void __launch_bounds__(kBlockMax, kMinBlocks)
+grid_sweeps_table_kernel(GridArgs g, int n, int mazes, int cells, const float* __restrict__ v_in,
+                         float* __restrict__ v_out, float gamma, int num_sweeps,
+                         float* __restrict__ partial, float* __restrict__ maxima,
+                         unsigned int* __restrict__ ticket) {
+  constexpr int kN = kEval ? 1 : (kA > 0 ? kA : gu::kMaxActions);
+  __shared__ gu::Tables tab;
+  __shared__ float red[kMaxSweeps][32];
+  __shared__ bool last;
+  const int s_dim = g.h * g.w;
+  const int num_actions = kA > 0 ? kA : g.num_actions;
+  const int decoded = kEval ? 1 : num_actions;  // actions a cell keeps
+  float* const v0 = reinterpret_cast<float*>(smem_raw);
+  float* const v1 = v0 + s_dim + 1;
+  float* const rew = v1 + s_dim + 1;
+  uint16_t* const next = reinterpret_cast<uint16_t*>(rew + decoded * s_dim);
+  uint8_t* const codes = reinterpret_cast<uint8_t*>(next + decoded * s_dim);
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  if (threadIdx.x == 0) {
+    v0[s_dim] = 0.0f;
+    v1[s_dim] = 0.0f;
+  }
+  const int t = threadIdx.x;
+  float mk[kMaxSweeps];
+#pragma unroll
+  for (int k = 0; k < kMaxSweeps; ++k) mk[k] = 0.0f;
+
+  for (int m = blockIdx.x; m < n; m += gridDim.x) {
+    const size_t base = static_cast<size_t>(m) * s_dim;
+    for (int c = 0; c < cells; ++c) {
+      const int s = t + c * blockDim.x;
+      if (s < s_dim) {
+        codes[s] = static_cast<uint8_t>(g.grids[base + s] & 3);
+        v0[s] = v_in[base + s];
+      }
+    }
+    __syncthreads();  // the maze's codes and V (and, the first time, the tables)
+    for (int c = 0; c < cells; ++c) {  // a thread reads only its own cells' entries
+      const int s = t + c * blockDim.x;
+      if (s >= s_dim) break;
+      const int row = s / g.w;
+      const int col = s - row * g.w;
+      const int code = codes[s];
+      for (int i = 0; i < decoded; ++i) {
+        const int a = kEval ? gu::clamp_action(g.policy[base + s], num_actions) : i;
+        const Action act = decode_action(tab, codes, g.h, g.w, s, row, col, code, a);
+        next[i * s_dim + s] = static_cast<uint16_t>(act.kind <= kMove ? act.next : s_dim);
+        rew[i * s_dim + s] = act.kind == kTerminal ? 0.0f : tab.reward[act.code];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxSweeps; ++k) {
+      if (k < num_sweeps) {
+        // sweep k reads what sweep k − 1 wrote: known at each unrolled k,
+        // so the buffers' addresses are fixed and nothing is swapped
+        const float* const v_old = (k & 1) ? v1 : v0;
+        float* const v_new = (k & 1) ? v0 : v1;
+        for (int c = 0; c < cells; ++c) {
+          const int s = t + c * blockDim.x;
+          if (s >= s_dim) break;
+          float best = rew[s] + gamma * v_old[next[s]];
+#pragma unroll
+          for (int i = 1; i < kN; ++i) {
+            if (kA > 0 || i < num_actions) {
+              best = fmaxf(best, rew[i * s_dim + s] + gamma * v_old[next[i * s_dim + s]]);
+            }
+          }
+          v_new[s] = best;
+          mk[k] = fmaxf(mk[k], fabsf(best - v_old[s]));
+        }
+        __syncthreads();  // the sweep's V_new complete; the old buffer free
+      }
+    }
+    for (int c = 0; c < cells; ++c) {
+      const int s = t + c * blockDim.x;
+      if (s < s_dim) v_out[base + s] = ((num_sweeps & 1) ? v1 : v0)[s];
+    }
+  }
+  finish_sweep_maxima(mk, red, last, partial, maxima, num_sweeps, ticket);
+}
+
+// Several cells a thread, one maze a group (`mazes` = 1), where the table
+// does not fit: thread t takes
+// cells t + c·blockDim.x, c < `cells`. Each cell's actions are one word in
+// shared memory: 4 bits an action, (kind << 2) | tile code, the reward
+// looked up in `rtab`; for PI evaluation the policy's action alone, with
+// the cell its V comes from above bit 4.
+template <int kA, bool kEval>
+__global__ void __launch_bounds__(kBlockMax, kMinBlocks)
+grid_sweeps_words_kernel(GridArgs g, int n, int mazes, int cells, const float* __restrict__ v_in,
+                         float* __restrict__ v_out, float gamma, int num_sweeps,
+                         float* __restrict__ partial, float* __restrict__ maxima,
+                         unsigned int* __restrict__ ticket) {
+  constexpr int kN = kA > 0 ? kA : gu::kMaxActions;
+  __shared__ gu::Tables tab;
+  __shared__ float red[kMaxSweeps][32];
+  __shared__ float rtab[16];  // the reward of a 4-bit action code; 0 for kTerminal
+  __shared__ bool last;
+  const int s_dim = g.h * g.w;
+  float* const v0 = reinterpret_cast<float*>(smem_raw);
+  float* const v1 = v0 + s_dim;
+  uint32_t* const words = reinterpret_cast<uint32_t*>(v1 + s_dim);
+  uint8_t* const codes = reinterpret_cast<uint8_t*>(words + s_dim);
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 16; ++i) rtab[i] = (i >> 2) == kTerminal ? 0.0f : tab.reward[i & 3];
+  }
+  __syncthreads();
+  const int num_actions = kA > 0 ? kA : g.num_actions;
+  const int t = threadIdx.x;
+  int off[kN];  // the neighbour's offset of each action
+#pragma unroll
+  for (int i = 0; i < kN; ++i) off[i] = i < num_actions ? tab.drow[i] * g.w + tab.dcol[i] : 0;
+  float mk[kMaxSweeps];
+#pragma unroll
+  for (int k = 0; k < kMaxSweeps; ++k) mk[k] = 0.0f;
+
+  for (int m = blockIdx.x; m < n; m += gridDim.x) {
+    const size_t base = static_cast<size_t>(m) * s_dim;
+    for (int c = 0; c < cells; ++c) {
+      const int s = t + c * blockDim.x;
+      if (s < s_dim) {
+        codes[s] = static_cast<uint8_t>(g.grids[base + s] & 3);
+        v0[s] = v_in[base + s];
+      }
+    }
+    __syncthreads();  // the maze's codes and V
+    for (int c = 0; c < cells; ++c) {  // a thread reads only its own cells' words
+      const int s = t + c * blockDim.x;
+      if (s >= s_dim) break;
+      const int row = s / g.w;
+      const int col = s - row * g.w;
+      const int code = codes[s];
+      uint32_t word = 0;
+      if (kEval) {
+        const Action act = decode_action(tab, codes, g.h, g.w, s, row, col, code,
+                                         gu::clamp_action(g.policy[base + s], num_actions));
+        word = static_cast<uint32_t>((act.kind << 2) | act.code) | (static_cast<uint32_t>(act.next) << 4);
+      } else {
+        for (int a = 0; a < num_actions; ++a) {
+          const Action act = decode_action(tab, codes, g.h, g.w, s, row, col, code, a);
+          word |= static_cast<uint32_t>((act.kind << 2) | act.code) << (4 * a);
+        }
+      }
+      words[s] = word;
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxSweeps; ++k) {
+      if (k < num_sweeps) {
+        // sweep k reads what sweep k − 1 wrote: known at each unrolled k,
+        // so the buffers' addresses are fixed and nothing is swapped
+        const float* const v_old = (k & 1) ? v1 : v0;
+        float* const v_new = (k & 1) ? v0 : v1;
+        for (int c = 0; c < cells; ++c) {
+          const int s = t + c * blockDim.x;
+          if (s >= s_dim) break;
+          const uint32_t word = words[s];
+          float best;
+          if (kEval) {
+            const uint32_t nib = word & 15u;
+            const float cont = (nib >> 2) >= kCut ? 0.0f : v_old[word >> 4];
+            best = rtab[nib] + gamma * cont;
+          } else {
+#pragma unroll
+            for (int i = 0; i < kN; ++i) {
+              if (kA > 0 || i < num_actions) {
+                const uint32_t nib = (word >> (4 * i)) & 15u;
+                const uint32_t kind = nib >> 2;
+                const float v = v_old[kind == kMove ? s + off[i] : s];
+                const float q = rtab[nib] + gamma * (kind >= kCut ? 0.0f : v);
+                best = i == 0 ? q : fmaxf(best, q);
+              }
+            }
+          }
+          v_new[s] = best;
+          mk[k] = fmaxf(mk[k], fabsf(best - v_old[s]));
+        }
+        __syncthreads();  // the sweep's V_new complete; the old buffer free
+      }
+    }
+    for (int c = 0; c < cells; ++c) {
+      const int s = t + c * blockDim.x;
+      if (s < s_dim) v_out[base + s] = ((num_sweeps & 1) ? v1 : v0)[s];
+    }
+  }
+  finish_sweep_maxima(mk, red, last, partial, maxima, num_sweeps, ticket);
+}
+
+// The improvement step of the shared tier, on the same packing: policy_out
+// is argmax_a Q(s, a) under V (ties to the lowest action; 0 for a terminal
+// cell, whose row is all 0). Cell lc = t + c·blockDim.x of a group's `span`
+// cells; codes and V in shared memory.
+template <int kA>
+__global__ void __launch_bounds__(kBlockMax, kMinBlocks)
+grid_greedy_shared_kernel(GridArgs g, int n, int mazes, int cells, const float* __restrict__ v_in,
+                          float gamma, int* __restrict__ policy_out, int* __restrict__ partial,
+                          int* __restrict__ changed, unsigned int* __restrict__ ticket) {
+  __shared__ gu::Tables tab;
+  __shared__ bool last;
+  const int s_dim = g.h * g.w;
+  const int span = mazes * s_dim;
+  float* const v = reinterpret_cast<float*>(smem_raw);
+  uint8_t* const codes = reinterpret_cast<uint8_t*>(v + span);
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  const int num_actions = kA > 0 ? kA : g.num_actions;
+  const int t = threadIdx.x;
+  bool differs = false;
+  const int groups = (n + mazes - 1) / mazes;
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const size_t first = static_cast<size_t>(grp) * span;
+    const int live = static_cast<int>(min(static_cast<long long>(span),
+                                          (static_cast<long long>(n) - static_cast<long long>(grp) * mazes) * s_dim));
+    for (int c = 0; c < cells; ++c) {
+      const int lc = t + c * blockDim.x;
+      if (lc < live) {
+        codes[lc] = static_cast<uint8_t>(g.grids[first + lc] & 3);
+        v[lc] = v_in[first + lc];
+      }
+    }
+    __syncthreads();  // the group's codes and V (and, the first time, the tables)
+    for (int c = 0; c < cells; ++c) {
+      const int lc = t + c * blockDim.x;
+      if (lc >= live) break;
+      const int j = lc / s_dim;
+      const int s = lc - j * s_dim;
+      const int row = s / g.w;
+      const int col = s - row * g.w;
+      const int base = j * s_dim;
+      const int code = codes[lc];
+      int best = 0;
+      float best_q = 0.0f;
+#pragma unroll
+      for (int a = 0; a < (kA > 0 ? kA : gu::kMaxActions); ++a) {
+        if (kA > 0 || a < num_actions) {
+          const Action act = decode_action(tab, codes + base, g.h, g.w, s, row, col, code, a);
+          const float cont = act.kind <= kMove ? v[base + act.next] : 0.0f;
+          const float q = (act.kind == kTerminal ? 0.0f : tab.reward[act.code]) + gamma * cont;
+          if (a == 0 || q > best_q) {
+            best_q = q;
+            best = a;
+          }
+        }
+      }
+      policy_out[first + lc] = best;
+      if (g.policy != nullptr) differs |= best != g.policy[first + lc];
+    }
+    __syncthreads();  // the group's codes and V read before the next group's
+  }
+  finish_changed(differs, last, partial, changed, ticket);
+}
+
+// ---------------------------------------------------------------------------
+// The global-memory tier
+// ---------------------------------------------------------------------------
 
 // The packed word of cell `s` of the maze whose tile codes are `codes`
 // (the low two bits of each entry) and whose policy row is `policy` (or
@@ -89,21 +586,6 @@ __device__ uint32_t cell_word(const GridArgs& g, const gu::Tables& tab, const Co
     word |= static_cast<uint32_t>(a) << kPolicyShift;
   }
   return word;
-}
-
-// Fills `info[s]` for the block's maze; `codes` is scratch of S bytes.
-__device__ void build_info(const GridArgs& g, const gu::Tables& tab, uint32_t* info,
-                           uint8_t* codes) {
-  const int s_dim = g.h * g.w;
-  const size_t base = static_cast<size_t>(blockIdx.x) * s_dim;
-  for (int s = threadIdx.x; s < s_dim; s += blockDim.x) {
-    codes[s] = static_cast<uint8_t>(g.grids[base + s] & 3);
-  }
-  __syncthreads();
-  const int* policy = g.policy != nullptr ? g.policy + base : nullptr;
-  for (int s = threadIdx.x; s < s_dim; s += blockDim.x) {
-    info[s] = cell_word(g, tab, codes, policy, s);
-  }
 }
 
 // Q(s, a) of the backup, from the packed word and the old V.
@@ -153,71 +635,6 @@ __device__ float block_max(float x, float* red) {
     for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   }
   return x;  // valid in thread 0
-}
-
-// `num_sweeps` Jacobi sweeps from v_in to v_out. With a policy the sweep
-// takes that action's value (PI evaluation), else the maximum (VI).
-__global__ void grid_sweeps_kernel(GridArgs g, const float* __restrict__ v_in,
-                                   float* __restrict__ v_out, float gamma, int num_sweeps,
-                                   unsigned int* __restrict__ sweep_max) {
-  __shared__ gu::Tables tab;
-  __shared__ float red[32];
-  const int s_dim = g.h * g.w;
-  float* v_old = reinterpret_cast<float*>(smem_raw);
-  float* v_new = v_old + s_dim;
-  uint32_t* info = reinterpret_cast<uint32_t*>(v_new + s_dim);
-  uint8_t* codes = reinterpret_cast<uint8_t*>(info + s_dim);
-  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
-  __syncthreads();
-  build_info(g, tab, info, codes);
-  const size_t base = static_cast<size_t>(blockIdx.x) * s_dim;
-  for (int s = threadIdx.x; s < s_dim; s += blockDim.x) v_old[s] = v_in[base + s];
-  __syncthreads();
-
-  const bool evaluate = g.policy != nullptr;
-  for (int k = 0; k < num_sweeps; ++k) {
-    float local = 0.0f;
-    for (int s = threadIdx.x; s < s_dim; s += blockDim.x) {
-      const float v = cell_backup(tab, info[s], s, g.w, v_old, gamma, evaluate);
-      v_new[s] = v;
-      local = fmaxf(local, fabsf(v - v_old[s]));
-    }
-    const float m = block_max(local, red);
-    if (threadIdx.x == 0) atomicMax(&sweep_max[k], __float_as_uint(m));
-    __syncthreads();  // v_new complete, red free again
-    float* tmp = v_old;
-    v_old = v_new;
-    v_new = tmp;
-  }
-  for (int s = threadIdx.x; s < s_dim; s += blockDim.x) v_out[base + s] = v_old[s];
-}
-
-// policy_out[s] = argmax_a Q(s, a) under v (ties to the lowest action;
-// terminal rows are all 0, so 0). With a policy in `g`, `changed` is set
-// to 1 if any cell of any maze differs from it.
-__global__ void grid_greedy_kernel(GridArgs g, const float* __restrict__ v_in, float gamma,
-                                   int* __restrict__ policy_out, int* __restrict__ changed) {
-  __shared__ gu::Tables tab;
-  const int s_dim = g.h * g.w;
-  float* v = reinterpret_cast<float*>(smem_raw);
-  uint32_t* info = reinterpret_cast<uint32_t*>(v + 2 * s_dim);
-  uint8_t* codes = reinterpret_cast<uint8_t*>(info + s_dim);
-  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
-  __syncthreads();
-  build_info(g, tab, info, codes);
-  const size_t base = static_cast<size_t>(blockIdx.x) * s_dim;
-  for (int s = threadIdx.x; s < s_dim; s += blockDim.x) v[s] = v_in[base + s];
-  __syncthreads();
-
-  bool differs = false;
-  for (int s = threadIdx.x; s < s_dim; s += blockDim.x) {
-    const int best = cell_greedy(tab, info[s], s, g.w, v, gamma);
-    policy_out[base + s] = best;
-    if (g.policy != nullptr) differs |= best != g.policy[base + s];
-  }
-  if (g.policy != nullptr && __syncthreads_or(differs) && threadIdx.x == 0) {
-    atomicOr(changed, 1);
-  }
 }
 
 // The global-memory tier: one sweep over every cell of the N mazes, one
@@ -291,56 +708,129 @@ GridArgs grid_args(const void* passable, const void* terminal, const void* rewar
                   static_cast<const int*>(policy)};
 }
 
-// two V buffers, the packed words and the codes; rounded up to 16 bytes
-size_t grid_smem_bytes(int s_dim) {
-  return (static_cast<size_t>(s_dim) * 13 + 15) & ~static_cast<size_t>(15);
+// How many blocks of `fn` at `threads` and `bytes` of dynamic shared memory
+// the card holds at once (blocks an SM × SMs). Found once a (kernel,
+// device, threads, bytes) and kept; the kernel's dynamic shared-memory
+// limit is raised once too, to the most it was asked for.
+struct Resident {
+  const void* fn;
+  int device;
+  int threads;
+  size_t bytes;
+  int blocks;
+};
+std::mutex resident_mu;
+Resident resident_seen[64];
+int resident_count = 0;
+
+cudaError_t resident_blocks(const void* fn, int threads, size_t bytes, int* blocks) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(resident_mu);
+  size_t raised = 0;  // this kernel's limit on this device, as set so far
+  for (int i = 0; i < resident_count; ++i) {
+    const Resident& r = resident_seen[i];
+    if (r.fn != fn || r.device != device) continue;
+    if (r.threads == threads && r.bytes == bytes) {
+      *blocks = r.blocks;
+      return cudaSuccess;
+    }
+    raised = r.bytes > raised ? r.bytes : raised;
+  }
+  if (bytes > 48 * 1024 && bytes > raised) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = per_sm * sms;
+  // the limit raised stays raised, so an entry may be dropped when the table is full
+  resident_seen[resident_count < 64 ? resident_count++ : 0] = Resident{fn, device, threads, bytes, *blocks};
+  return cudaSuccess;
 }
 
-// whole warps, no more than the maze has cells
-int grid_threads(int s_dim) {
-  const int warps = (s_dim + 31) / 32;
-  return warps * 32 < kMaxThreads ? warps * 32 : kMaxThreads;
+size_t round16(size_t bytes) { return (bytes + 15) & ~static_cast<size_t>(15); }
+
+using SweepsKernel = void (*)(GridArgs, int, int, int, const float*, float*, float, int, float*,
+                              float*, unsigned int*);
+
+enum : int { kPacked = 0, kTable = 1, kWords = 2 };  // the packing's way to keep the actions
+
+template <int kA>
+SweepsKernel sweeps_kernel(int tier, bool evaluate) {
+  if (tier == kPacked) return evaluate ? grid_sweeps_packed_kernel<kA, true> : grid_sweeps_packed_kernel<kA, false>;
+  if (tier == kTable) return evaluate ? grid_sweeps_table_kernel<kA, true> : grid_sweeps_table_kernel<kA, false>;
+  return evaluate ? grid_sweeps_words_kernel<kA, true> : grid_sweeps_words_kernel<kA, false>;
 }
 
 }  // namespace
 
-// `sweep_max` (num_sweeps floats, as bits) is zeroed here, on the stream.
-extern "C" int gu_grid_sweeps(const void* passable, const void* terminal,
-                              const void* reward, const void* deltas, int num_actions,
-                              const void* grids, int n, int h, int w, const void* policy,
-                              const void* v_in, void* v_out, float gamma, int num_sweeps,
-                              void* sweep_max, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t bytes = grid_smem_bytes(h * w);
-  cudaError_t err = cudaFuncSetAttribute(
-      grid_sweeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+// The shared tier: `num_sweeps` (≤ kMaxSweeps) sweeps in one launch, with
+// the wrapper's packing (`mazes` a group, `threads` a block, `cells` a
+// thread, `table` where several cells a thread keep decoded actions). `partial` holds `partial_rows` rows of kMaxSweeps floats (the
+// blocks' maxima; the grid takes no more blocks than that); `ticket` is one
+// unsigned int that is 0 before the launch and after it.
+extern "C" int gu_grid_sweeps(const void* passable, const void* terminal, const void* reward,
+                              const void* deltas, int num_actions, const void* grids, int n, int h,
+                              int w, const void* policy, const void* v_in, void* v_out, float gamma,
+                              int num_sweeps, int mazes, int threads, int cells, int table,
+                              void* partial, int partial_rows, void* maxima, void* ticket,
+                              void* stream) {
+  if (num_sweeps < 1 || num_sweeps > kMaxSweeps || threads > kBlockMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t s_dim = static_cast<size_t>(h) * w;
+  const int tier = cells == 1 ? kPacked : table ? kTable : kWords;
+  const size_t span = static_cast<size_t>(mazes) * s_dim;
+  const size_t decoded = policy != nullptr ? 1 : num_actions;
+  // two V buffers (each with its 0.0 slot) and the codes; and for the
+  // table, a float and a uint16 an action and cell; for the words, a word
+  // a cell (and no 0.0 slot)
+  const size_t bytes = round16(tier == kPacked ? 2 * (span + 1) * sizeof(float) + span
+                               : tier == kTable ? 2 * (s_dim + 1) * sizeof(float) + decoded * s_dim * 6 + s_dim
+                                                : s_dim * 13);
+  const SweepsKernel fn = num_actions == 4 ? sweeps_kernel<4>(tier, policy != nullptr)
+                                           : sweeps_kernel<0>(tier, policy != nullptr);
+  int blocks = 0;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(fn), threads, bytes, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(sweep_max, 0, sizeof(unsigned int) * num_sweeps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  grid_sweeps_kernel<<<n, grid_threads(h * w), bytes, st>>>(
-      grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy),
-      static_cast<const float*>(v_in), static_cast<float*>(v_out), gamma, num_sweeps,
-      static_cast<unsigned int*>(sweep_max));
+  const int groups = (n + mazes - 1) / mazes;
+  blocks = std::min(std::min(blocks, groups), partial_rows);
+  fn<<<blocks, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy), n, mazes,
+      cells, static_cast<const float*>(v_in), static_cast<float*>(v_out), gamma, num_sweeps,
+      static_cast<float*>(partial), static_cast<float*>(maxima), static_cast<unsigned int*>(ticket));
   return static_cast<int>(cudaGetLastError());
 }
 
-// `changed` (one int) is zeroed here, on the stream.
-extern "C" int gu_grid_greedy(const void* passable, const void* terminal,
-                              const void* reward, const void* deltas, int num_actions,
-                              const void* grids, int n, int h, int w, const void* policy,
-                              const void* v_in, float gamma, void* policy_out, void* changed,
-                              void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t bytes = grid_smem_bytes(h * w);
-  cudaError_t err = cudaFuncSetAttribute(
-      grid_greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+// The shared tier's improvement step, on the same packing; `partial` holds
+// `partial_rows` ints, `ticket` as in `gu_grid_sweeps`. `changed` (one int)
+// is written: 1 if the greedy policy differs anywhere from `policy`, else 0.
+extern "C" int gu_grid_greedy(const void* passable, const void* terminal, const void* reward,
+                              const void* deltas, int num_actions, const void* grids, int n, int h,
+                              int w, const void* policy, const void* v_in, float gamma,
+                              void* policy_out, void* changed, int mazes, int threads, int cells,
+                              void* partial, int partial_rows, void* ticket, void* stream) {
+  if (threads > kBlockMax) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t span = static_cast<size_t>(mazes) * h * w;
+  const size_t bytes = round16(span * (sizeof(float) + 1));
+  using GreedyKernel = void (*)(GridArgs, int, int, int, const float*, float, int*, int*, int*,
+                                unsigned int*);
+  const GreedyKernel fn = num_actions == 4 ? grid_greedy_shared_kernel<4> : grid_greedy_shared_kernel<0>;
+  int blocks = 0;
+  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(fn), threads, bytes, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(changed, 0, sizeof(int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  grid_greedy_kernel<<<n, grid_threads(h * w), bytes, st>>>(
-      grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy),
-      static_cast<const float*>(v_in), gamma, static_cast<int*>(policy_out),
-      static_cast<int*>(changed));
+  const int groups = (n + mazes - 1) / mazes;
+  blocks = std::min(std::min(blocks, groups), partial_rows);
+  fn<<<blocks, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy), n, mazes,
+      cells, static_cast<const float*>(v_in), gamma, static_cast<int*>(policy_out),
+      static_cast<int*>(partial), static_cast<int*>(changed), static_cast<unsigned int*>(ticket));
   return static_cast<int>(cudaGetLastError());
 }
 

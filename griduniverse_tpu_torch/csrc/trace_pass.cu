@@ -24,7 +24,9 @@
 // × 4 actions); the per-env inputs and the table are noise beside it.
 //
 // Design. The first launch has one thread for each (chunk of kChunk envs,
-// cell): adjacent threads take adjacent cells, so every row read and write
+// cell), the chunks on the grid's y dimension; above its 65,535 blocks the
+// chunks are launched in groups of that many, one launch a group (a batch
+// above 16,776,960 envs). Adjacent threads take adjacent cells, so every row read and write
 // is coalesced, and the block stages its chunk's per-env inputs in shared
 // memory. The thread walks its chunk's envs in index order, eight loads in
 // flight at a time, and writes one partial num and cnt for its chunk. The
@@ -45,16 +47,18 @@ namespace {
 constexpr int kChunk = 256;  // envs a thread walks; `kernels.trace_pass.CHUNK`
 constexpr int kThreads = 256;
 constexpr int kInFlight = 8;  // trace loads a thread issues before it uses them
+constexpr int kMaxChunks = 65535;  // chunks a launch of the first kernel takes (the grid's y)
 
 __global__ void __launch_bounds__(kThreads)
 trace_pass_kernel(float* __restrict__ e, const int* __restrict__ s, const int* __restrict__ a,
                   const float* __restrict__ delta, const uint8_t* __restrict__ cut,
                   float gamma_lam, float cutoff, int replacing, int num_actions, int batch,
-                  int n_cells, float* __restrict__ part_num, int* __restrict__ part_cnt) {
+                  int n_cells, int chunk0, float* __restrict__ part_num,
+                  int* __restrict__ part_cnt) {
   __shared__ int s_hot[kChunk];
   __shared__ float s_delta[kChunk];
   __shared__ uint8_t s_cut[kChunk];
-  const int chunk = blockIdx.y;
+  const int chunk = chunk0 + blockIdx.y;
   const int b0 = chunk * kChunk;
   const int len = batch - b0 < kChunk ? batch - b0 : kChunk;
   for (int i = threadIdx.x; i < len; i += blockDim.x) {
@@ -113,7 +117,8 @@ trace_apply_kernel(const float* __restrict__ table_in, float* __restrict__ table
 // One trace step: `e` (batch, n_cells) is updated in place, `table_out`
 // receives the new table. `a` is null for prediction (the cell is s alone).
 // `part_num`, `part_cnt`: scratch of ⌈batch / kChunk⌉ · n_cells each.
-// `*launched` counts the kernels launched (two).
+// `*launched` counts the kernels launched: two, and one more for every
+// further group of kMaxChunks chunks.
 extern "C" int gu_trace_pass(void* e, const void* s, const void* a, const void* delta,
                              const void* cut, const void* table_in, void* table_out,
                              float gamma_lam, float cutoff, float alpha, int replacing,
@@ -122,20 +127,23 @@ extern "C" int gu_trace_pass(void* e, const void* s, const void* a, const void* 
   auto st = static_cast<cudaStream_t>(stream);
   *launched = 0;
   const int n_chunks = (batch + kChunk - 1) / kChunk;
-  const dim3 grid((n_cells + kThreads - 1) / kThreads, n_chunks);
-  trace_pass_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<float*>(e), static_cast<const int*>(s), static_cast<const int*>(a),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(cut), gamma_lam, cutoff,
-      replacing, num_actions, batch, n_cells, static_cast<float*>(part_num),
-      static_cast<int*>(part_cnt));
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  *launched = 1;
+  for (int chunk0 = 0; chunk0 < n_chunks; chunk0 += kMaxChunks) {
+    const int chunks = n_chunks - chunk0 < kMaxChunks ? n_chunks - chunk0 : kMaxChunks;
+    const dim3 grid((n_cells + kThreads - 1) / kThreads, chunks);
+    trace_pass_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<float*>(e), static_cast<const int*>(s), static_cast<const int*>(a),
+        static_cast<const float*>(delta), static_cast<const uint8_t*>(cut), gamma_lam, cutoff,
+        replacing, num_actions, batch, n_cells, chunk0, static_cast<float*>(part_num),
+        static_cast<int*>(part_cnt));
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    *launched += 1;
+  }
   trace_apply_kernel<<<(n_cells + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       static_cast<const float*>(table_in), static_cast<float*>(table_out),
       static_cast<const float*>(part_num), static_cast<const int*>(part_cnt), n_chunks, n_cells,
       alpha);
-  err = static_cast<int>(cudaGetLastError());
-  if (err == 0) *launched = 2;
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) *launched += 1;
   return err;
 }

@@ -21,13 +21,18 @@ from .embed_rows import dtype_code
 T_RANGE = 64        # samples a level that one unit walks (dy_tiles' first level)
 MAX_BLOCKS = 2048   # blocks of the first launch at most; units are dealt out in runs
 SUM_LANES = 32      # the second launch adds the blocks' partials in 32 interleaved rows
-MAX_THREADS = 256   # a block of the backward's first launch: `cells` rows of C / V threads
+MAX_THREADS = 256   # a block of the backward's first launch: `cells` rows of width / V threads
+# The forward stages k a slice of at most this many channels a block (36 KB);
+# its bits do not depend on it.
+FORWARD_SLICE = 1024
 
 
 class Plan(NamedTuple):
     """How the work of one call is cut: `vec` channels a thread, `cells`
     global cells a unit, `tiles` units a range, `ranges` of `T_RANGE`
-    samples a level, `units` in all, `upb` units a block, `blocks`."""
+    samples a level, `units` in all, `upb` units a block, `blocks` a
+    slice; the channels in `slices` of `width` (the last one shorter), one
+    slice of all C where C / vec ≤ MAX_THREADS."""
     vec: int
     cells: int
     tiles: int
@@ -35,6 +40,8 @@ class Plan(NamedTuple):
     units: int
     upb: int
     blocks: int
+    slices: int
+    width: int
 
 
 def backward_launches() -> int:
@@ -53,21 +60,26 @@ def vector_width(ch: int, dtype: torch.dtype) -> int:
 
 def plan(n: int, nl: int, h: int, w: int, ch: int, dtype: torch.dtype) -> Plan:
     """The cut of a call of N samples over Nl levels of H×W cells and C
-    channels. Every quantity is a function of the shapes alone."""
+    channels. Every quantity is a function of the shapes alone. Above
+    MAX_THREADS threads a cell (C / vec), the channels are cut into the
+    fewest slices of at most MAX_THREADS threads, as even as whole threads
+    allow."""
     vec = vector_width(ch, dtype)
     groups = ch // vec
-    if groups > MAX_THREADS:
-        raise ValueError(f"C={ch} in {dtype}: {groups} threads a cell, at most {MAX_THREADS}")
+    per = -(-groups // -(-groups // MAX_THREADS))  # threads a cell of a slice
+    slices = -(-groups // per)
     if h * w >= 1 << 22:
         raise ValueError(f"{h}x{w} cells: K9b takes fewer than 2^22 a level")
     cells = 1
-    while cells < 32 and cells * 2 * groups <= MAX_THREADS:
+    while cells < 32 and cells * 2 * per <= MAX_THREADS:
         cells *= 2
     tiles = -(-nl * h * w // cells)
     ranges = -(-(n // nl) // T_RANGE)
     units = check_int("units", ranges * tiles, low=1)
     upb = -(-units // MAX_BLOCKS)
-    return Plan(vec, cells, tiles, ranges, units, upb, -(-units // upb))
+    blocks = -(-units // upb)
+    check_int("blocks of the backward's first launch", blocks * slices)
+    return Plan(vec, cells, tiles, ranges, units, upb, blocks, slices, per * vec)
 
 
 def _dims(y_tiles, obs):
@@ -78,8 +90,6 @@ def _dims(y_tiles, obs):
     n = check_int("N", obs.shape[0], low=1)
     if n % nl:
         raise ValueError(f"{n} samples are not a whole number of passes over {nl} levels")
-    if ch > 1024:  # the forward stages k (9·C floats) in 48 KB of shared memory
-        raise ValueError(f"C={ch}: K9b takes at most 1,024 channels")
     return n, nl, h, w, ch
 
 
@@ -90,7 +100,8 @@ def agent_stamp_cuda(y_tiles, k_agent, bias, obs):
         raise ValueError(f"agent_stamp_cuda takes CUDA tensors, got {device}")
     n, nl, h, w, ch = _dims(y_tiles, obs)
     p = plan(n, nl, h, w, ch, y_tiles.dtype)
-    check_int("forward blocks", -(-nl * h * w * (ch // p.vec) // 256) * p.ranges)
+    width = min(ch, FORWARD_SLICE)
+    check_int("forward blocks", -(-nl * h * w * (width // p.vec) // 256) * p.ranges * -(-ch // FORWARD_SLICE))
     out = torch.empty((n, h, w, ch), dtype=y_tiles.dtype, device=device)
     launch(
         "gu_agent_stamp", device,
@@ -129,7 +140,8 @@ def agent_stamp_backward_cuda(grad, out, obs, num_levels: int):
         check_tensor("out", out, grad.dtype, (n, h, w, ch), device),
         check_tensor("obs", obs, torch.int32, (n,), device),
         dy_tiles.data_ptr(), dy_partial.data_ptr(), block_partial.data_ptr(), dk.data_ptr(), dbias.data_ptr(),
-        nl, n // nl, h, w, ch, p.cells, p.tiles, p.ranges, T_RANGE, p.units, p.upb, p.blocks, p.vec,
+        nl, n // nl, h, w, ch, p.cells, p.tiles, p.ranges, T_RANGE, p.units, p.upb, p.blocks,
+        p.slices, p.width, p.vec,
         dtype_code(grad.dtype),
     )
     LAUNCHES["agent_stamp"] += backward_launches()

@@ -53,8 +53,12 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P],
     "gu_aldous_broder_mazes": [_I, _I, _I, _I, _P, _I, _P, _P, _P],
-    "gu_grid_sweeps": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _P, _P],
-    "gu_grid_greedy": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P],
+    # grids, n, h, w, policy; v in, out; gamma, sweeps; mazes, threads, cells a
+    # thread, table; partial, its rows; maxima, ticket
+    "gu_grid_sweeps": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    # grids, n, h, w, policy; v; gamma; policy out, changed; mazes, threads,
+    # cells a thread; partial, its rows; ticket
+    "gu_grid_greedy": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P],
     # grids, n, h, w, policy; v in, out, tmp, info; gamma, sweeps; maxima
     "gu_grid_sweeps_global": _SEM + [_P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _I, _P, _P],
     "gu_grid_greedy_global": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P],
@@ -78,8 +82,8 @@ _SIGNATURES = {
     # y_tiles, k, bias, obs, out; Nl, T, t_range, H, W, C, vec, dtype
     "gu_agent_stamp": [_P] * 5 + [_I] * 8 + [_P],
     # grad, out, obs, dy_tiles, dy partials, block partials, dk, dbias; Nl, T, H, W, C,
-    # cells, tiles, ranges, t_range, units, units a block, blocks, vec, dtype
-    "gu_agent_stamp_backward": [_P] * 8 + [_I] * 14 + [_P],
+    # cells, tiles, ranges, t_range, units, units a block, blocks, slices, width, vec, dtype
+    "gu_agent_stamp_backward": [_P] * 8 + [_I] * 16 + [_P],
     # prio, noise, size, beta; alpha, cap, n; score, partial, idx, w, scratch; launched
     "gu_per_sample": [_P] * 4 + [_F, _I, _I] + [_P] * 6 + [_P],
     # ring (5), prio; batch (5); at, p_max; B, cap

@@ -5,14 +5,19 @@ The plain PyTorch versions are
 `algos.dp_batched.policy_iteration_batched_grid_reference`; the loops that
 decide when to stop live in `algos.dp_batched` too.
 
-Two tiers. Up to `MAX_STATES` cells a maze, one block per maze keeps the
-maze in shared memory and runs all of a call's sweeps in one launch. Above
-it, one thread per cell works from global memory and each sweep is a launch
-of its own; the packed words and the second V buffer live in a scratch
-allocated here. The only limit left is N·S < 2^31 cells in all.
+Two tiers. Up to `MAX_STATES` cells a maze, the shared-memory tier keeps a
+group of mazes in a block's shared memory and runs up to
+`SWEEPS_A_LAUNCH` sweeps in one launch; `packing` says how many mazes a
+block takes and how many cells a thread. Above it, one thread per cell
+works from global memory and each sweep is a launch of its own; the packed
+words and the second V buffer live in a scratch allocated here. The only
+limit left is N·S < 2^31 cells in all.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -23,12 +28,76 @@ from .rollout import semantics_args
 # the shared-memory tier's limit: 13 bytes a cell, within the 227 KB a
 # block can use
 MAX_STATES = 16_384
+SWEEPS_A_LAUNCH = 16    # sweeps one launch of the shared tier takes (`kMaxSweeps`)
+BLOCK_THREADS = 256     # a block of the shared tier at most (`kBlockMax`)
+PARTIAL_ROWS = 4_096    # the blocks' rows of maxima the scratch holds (the grid's cap)
+# the most dynamic shared memory a block of decoded actions (`Packing.table`)
+# may take: three such blocks fit an SM's 228 KB. Above it the word a cell
+# (13 bytes) keeps more blocks on an SM, and was the faster on the card
+# (`PERF.md` §6: 65×65 mazes with a table of 139 KB, one block an SM)
+TABLE_BYTES = 72 * 1024
+
+
+class Packing(NamedTuple):
+    """The shared tier's cut: `mazes` a block, `threads` a block, `cells`
+    a thread. With one cell a thread its actions are decoded into
+    registers; with several, into a table in shared memory where `table`
+    (6 bytes an action and cell), else into a word a cell."""
+    mazes: int
+    threads: int
+    cells: int
+    table: bool
+
+
+def _warps(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def table_bytes(num_states: int, num_actions: int) -> int:
+    """Shared memory of a block that keeps a maze's decoded actions: two V
+    buffers with their 0.0 slot, a float and a uint16 an action and cell,
+    and the tile codes."""
+    return 8 * (num_states + 1) + 6 * num_actions * num_states + num_states
+
+
+@lru_cache(maxsize=64)
+def packing(num_states: int, num_actions: int = 4) -> Packing:
+    """How the shared tier cuts mazes of `num_states` cells: up to 256
+    cells, ⌊256 / S⌋ mazes a block of whole warps, one thread a cell; above,
+    a maze a block of at most 256 threads with ⌈S / 256⌉ cells each, with
+    a table of decoded actions where `table_bytes` ≤ TABLE_BYTES."""
+    s = check_int("states a maze", num_states, low=1)
+    if s > MAX_STATES:
+        raise ValueError(f"{s} states: the shared tier takes at most {MAX_STATES}")
+    if s <= BLOCK_THREADS:
+        mazes = BLOCK_THREADS // s
+        return Packing(mazes, _warps(mazes * s), 1, False)
+    cells = -(-s // BLOCK_THREADS)
+    return Packing(1, _warps(-(-s // cells)), cells, table_bytes(s, num_actions) <= TABLE_BYTES)
 
 
 def uses_shared_tier(num_states: int) -> bool:
     """True if a maze of `num_states` cells runs in the shared-memory tier
-    (one launch a call), False for the global-memory tier (one a sweep)."""
+    (up to SWEEPS_A_LAUNCH sweeps a launch), False for the global-memory
+    tier (one a sweep)."""
     return num_states <= MAX_STATES
+
+
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch_ptrs(device: torch.device) -> tuple[int, int]:
+    """The shared tier's scratch for `device`'s current stream, made once:
+    the blocks' rows of maxima or flags (PARTIAL_ROWS × SWEEPS_A_LAUNCH
+    words, written before they are read in every launch) and the ticket, a
+    word that is 0 between launches (the last block of a launch sets it
+    back). Launches on one stream run in order, so they can share it."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.zeros(PARTIAL_ROWS * SWEEPS_A_LAUNCH + 1, dtype=torch.int32, device=device)
+    return buf.data_ptr(), buf.data_ptr() + 4 * PARTIAL_ROWS * SWEEPS_A_LAUNCH
 
 
 def _grid_args(sem, grids, policy, device):
@@ -46,12 +115,14 @@ def _grid_args(sem, grids, policy, device):
     return args, n, h * w
 
 
-def grid_sweeps_cuda(sem, grids, v, policy, gamma: float, num_sweeps: int):
+def grid_sweeps_cuda(sem, grids, v, policy, gamma: float, num_sweeps: int, table: bool | None = None):
     """Launch `num_sweeps` sweeps of K4 from V `v` (N, S) float32: VI sweeps,
     or evaluation sweeps of `policy` (N, S) int32 where one is given.
     Returns (V after the sweeps, (num_sweeps,) float32 global max |ΔV| of
-    each sweep). One launch in the shared-memory tier, `num_sweeps` in the
-    global-memory tier."""
+    each sweep). One launch per SWEEPS_A_LAUNCH sweeps in the shared-memory
+    tier, `num_sweeps` in the global-memory tier. `table`, where given,
+    overrides `packing`'s choice of the table of decoded actions for mazes
+    of several cells a thread (the same bits either way; for measuring)."""
     device = grids.device
     if device.type != "cuda":
         raise ValueError(f"grid_sweeps_cuda takes CUDA tensors, got {device}")
@@ -61,9 +132,19 @@ def grid_sweeps_cuda(sem, grids, v, policy, gamma: float, num_sweeps: int):
     v_out = torch.empty((n, s), dtype=torch.float32, device=device)
     maxima = torch.empty(num_sweeps, dtype=torch.float32, device=device)
     if uses_shared_tier(s):
-        launch("gu_grid_sweeps", device, *args, v_in, v_out.data_ptr(), float(gamma), num_sweeps,
-               maxima.data_ptr())
-        LAUNCHES["dp_grid"] += 1
+        pk = packing(s, args[4])
+        if table is not None and pk.cells > 1:
+            pk = pk._replace(table=table)
+        partial, ticket = _scratch_ptrs(device)
+        src = v_in
+        for done in range(0, num_sweeps, SWEEPS_A_LAUNCH):  # the solvers ask for at most one launch
+            k = min(SWEEPS_A_LAUNCH, num_sweeps - done)
+            dst = v_out if done + k == num_sweeps else torch.empty((n, s), dtype=torch.float32, device=device)
+            launch("gu_grid_sweeps", device, *args, src, dst.data_ptr(), float(gamma), k,
+                   pk.mazes, pk.threads, pk.cells, int(pk.table), partial, PARTIAL_ROWS,
+                   maxima.data_ptr() + 4 * done, ticket)
+            LAUNCHES["dp_grid"] += 1
+            src = dst.data_ptr()
     else:
         v_tmp = torch.empty((n, s), dtype=torch.float32, device=device)
         info = torch.empty((n, s), dtype=torch.int32, device=device)
@@ -83,10 +164,14 @@ def grid_greedy_cuda(sem, grids, v, gamma: float, policy):
     args, n, s = _grid_args(sem, grids, policy, device)
     policy_out = torch.empty((n, s), dtype=torch.int32, device=device)
     changed = torch.empty(1, dtype=torch.int32, device=device)
-    launch(
-        "gu_grid_greedy" if uses_shared_tier(s) else "gu_grid_greedy_global", device, *args,
-        check_tensor("v", v, torch.float32, (n, s), device), float(gamma),
-        policy_out.data_ptr(), changed.data_ptr(),
-    )
+    v_ptr = check_tensor("v", v, torch.float32, (n, s), device)
+    if uses_shared_tier(s):
+        pk = packing(s, args[4])
+        partial, ticket = _scratch_ptrs(device)
+        launch("gu_grid_greedy", device, *args, v_ptr, float(gamma), policy_out.data_ptr(),
+               changed.data_ptr(), pk.mazes, pk.threads, pk.cells, partial, PARTIAL_ROWS, ticket)
+    else:
+        launch("gu_grid_greedy_global", device, *args, v_ptr, float(gamma), policy_out.data_ptr(),
+               changed.data_ptr())
     LAUNCHES["dp_grid"] += 1
     return policy_out, changed

@@ -16,11 +16,19 @@ from .build import check_int, check_tensor, launch
 # constant of the algorithm (`kChunk` in the source), so changing it changes
 # the bits of every table the pass updates.
 CHUNK = 256
+MAX_CHUNKS = 65_535  # chunks one launch of the first kernel takes (`kMaxChunks`)
+
+
+def launches(batch: int) -> int:
+    """Kernels one trace step launches at `batch` envs: a first-kernel
+    launch for every MAX_CHUNKS chunks, and the table's update."""
+    return -(-(-(-batch // CHUNK)) // MAX_CHUNKS) + 1
 
 
 def trace_pass_cuda(table, e, s, a, delta, cut, gamma_lam: float, cutoff: float, alpha: float,
                     replacing: bool):
-    """Launch K12 (two kernels, both counted): one step of the trace `e`
+    """Launch K12 (two kernels, both counted, and one more launch of the
+    first for every further 65,535 chunks of CHUNK envs): one step of the trace `e`
     (B, S, A) for control, with actions `a`, or (B, S) for prediction, with
     `a` None; `e` is updated IN PLACE. Returns the new `table` (S, A) or
     (S,). `s`, `a` int32, `delta` float32 and `cut` bool are (B,)."""
@@ -28,8 +36,6 @@ def trace_pass_cuda(table, e, s, a, delta, cut, gamma_lam: float, cutoff: float,
     if device.type != "cuda":
         raise ValueError(f"trace_pass_cuda takes CUDA tensors, got {device}")
     b = check_int("batch", int(e.shape[0]), low=1)
-    if -(-b // CHUNK) > 65_535:
-        raise ValueError(f"batch {b}: the kernel's grid takes at most {65_535 * CHUNK} envs")
     n_cells = check_int("cells", table.numel(), low=1)
     num_actions = 1 if a is None else int(table.shape[-1])
     part = -(-b // CHUNK) * n_cells

@@ -1,9 +1,9 @@
 """Where the time of five kernels' calls goes, on one CUDA card.
 
-    python -m griduniverse_tpu_torch.tools.profile_kernels [k10] [k8a] [k9a] [k8b] [k9b]
+    python -m griduniverse_tpu_torch.tools.profile_kernels [k10] [k8a] [k9a] [k8b] [k9b] [tileconv]
 
 From the root of a checkout, on a machine with a Hopper card and nvcc. The
-arguments pick the kernels (all five by default). It prints the card's name
+arguments pick the kernels (all six by default). It prints the card's name
 and power limit (`nvidia-smi`), then takes these calls:
 
 - K10 (`apply_td_updates`): 4,096 and 65,536 envs over S·A = 1,024, 102,400
@@ -26,7 +26,15 @@ and power limit (`nvidia-smi`), then takes these calls:
   N = 65,536 over Nl = 1 (a shared level), beside the library's way to the
   same function: `F.one_hot` of the agent's cell through `F.conv2d`, the
   add of the tile response and the bias and `relu`, forward alone and
-  forward with autograd's backward.
+  forward with autograd's backward;
+- the conv trunk's library conv of the one-hot tile planes
+  (`models/networks.py` `_trunk`: `F.conv2d` of (Nl, 4, 9, 9) bfloat16
+  planes by the (32, 4, 3, 3) tile kernel under `exact_kernels()`) at
+  Nl = 16,384 (a PPO minibatch over per-env mazes) and 65,536 (a rollout
+  step), forward alone and forward with autograd's backward to the kernel,
+  with its bound: the larger of the bytes (planes in, output out; with the
+  backward, the output's gradient in and the planes again) over 3.35 TB/s
+  and the multiply-adds over the card's bfloat16 tensor rate, 989 TFLOP/s.
 
 For each it prints four readings:
 
@@ -108,7 +116,7 @@ def main(argv: list[str] | None = None) -> None:
     from griduniverse_tpu_torch.kernels import embed_rows as k9a
     from griduniverse_tpu_torch.models import a2c, dqn
 
-    known = {"k10", "k8a", "k9a", "k8b", "k9b"}
+    known = {"k10", "k8a", "k9a", "k8b", "k9b", "tileconv"}
     picked = set(sys.argv[1:] if argv is None else argv) or known
     unknown = picked - known
     if unknown:
@@ -211,7 +219,36 @@ def main(argv: list[str] | None = None) -> None:
                 lambda: torch.autograd.grad(library(), (y_lib, k_lib, b_lib), cot_lib),
         }
 
+    def tile_conv(nl, backward=False, ch=32, c=4):
+        """The trunk's conv of the tile planes (NHWC in memory, as `_trunk`
+        passes them) and its bound in ms."""
+        from griduniverse_tpu_torch.models.networks import exact_kernels
+
+        codes = torch.randint(0, c, (nl, 9, 9), generator=gen, device=dev)
+        tiles = torch.nn.functional.one_hot(codes, c).to(torch.bfloat16)  # (Nl, 9, 9, 4)
+        kernel = torch.randn((ch, c, 3, 3), generator=gen, device=dev, requires_grad=backward)
+        cot = torch.randn((nl, ch, 9, 9), generator=gen, device=dev).to(torch.bfloat16)
+        elems_in, elems_out = nl * 81 * c, nl * 81 * ch
+        n_bytes = 2 * (elems_in + elems_out) + (2 * (elems_out + elems_in) if backward else 0)
+        flops = 2 * elems_out * c * 9 * (2 if backward else 1)
+        bound = max(n_bytes / 3.35e12, flops / 989e12) * 1e3
+
+        def call():
+            with exact_kernels():
+                y = torch.nn.functional.conv2d(tiles.permute(0, 3, 1, 2), kernel.to(torch.bfloat16), padding=1)
+                if backward:
+                    return torch.autograd.grad(y, kernel, cot)
+                return y
+
+        return call, bound
+
     calls = {}
+    bounds = {}
+    if "tileconv" in picked:
+        for nl in (16_384, 65_536):
+            for backward in (False, True):
+                name = f"library tile conv Nl={nl} 9x9 4 codes to 32 channels bfloat16{' + backward' if backward else ''}"
+                calls[name], bounds[name] = tile_conv(nl, backward)
     if "k10" in picked:
         calls.update({
             "K10 B=4,096, S*A=1,024": k10_call(4096, 256, 4),
@@ -237,8 +274,9 @@ def main(argv: list[str] | None = None) -> None:
             calls.update(k9b_calls(n, nl))
     for name, fn in calls.items():
         ms = _events_ms(fn)
+        bound = f", bound {bounds[name]!r} ms" if name in bounds else ""
         print(f"{name}: {ms!r} ms a call as timed, {_graph_ms(fn)!r} ms a call in a CUDA graph, "
-              f"{_host_us(fn)!r} us of host time a call ({smi})")
+              f"{_host_us(fn)!r} us of host time a call{bound} ({smi})")
 
         def twenty(fn=fn):
             for _ in range(20):

@@ -1,0 +1,246 @@
+"""K4's, K9b's and K12's times on one CUDA card, beside another tree's.
+
+    python -m griduniverse_tpu_torch.tools.profile_turns [--against DIR] [--tiers]
+
+From the root of a checkout, on a machine with a Hopper card and nvcc. It
+prints the card's name and power limit (`nvidia-smi`), then, for this tree
+(and with `--against DIR` for the tree at DIR too, in turns: DIR, this
+tree, this tree, DIR, each in a process of its own that imports that
+tree's package and builds its kernels):
+
+- K4's call (`grid_sweeps_cuda`) of 16 VI sweeps over 65,536 9×9 and 8,192
+  33×33 Aldous–Broder mazes from V = 0, of 16 evaluation sweeps of a random
+  policy over 4,096 and 65,536 9×9 mazes, and its greedy step
+  (`grid_greedy_cuda`) over the 65,536: CUDA events around 30 calls after
+  a warm-up, the wrapper's checks and allocations included, and the
+  host's time of a call (the least of five rounds of 100 calls with no
+  synchronize inside);
+- the solves on the host clock around a synchronize, three calls each:
+  `value_iteration_batched_grid` over the 65,536 9×9 and the 8,192 33×33
+  mazes (at most 400 sweeps), `policy_iteration_batched_grid` over the
+  first 4,096 9×9 mazes, with the rate in mazes/s;
+- one VI solve over the 9×9 mazes and one PI solve under `torch.profiler`:
+  the device time by kernel and the idle share (1 − busy / the median wall);
+- K12 (`td_lambda.trace_pass`) on a trace of 65,536 envs × 256 states × 4
+  actions, and K9b's forward and backward (`agent_stamp_cuda`,
+  `agent_stamp_backward_cuda`) at a PPO minibatch over per-env 9×9 mazes
+  (N = 262,144 samples over Nl = 16,384 levels, C = 32, bfloat16), timed as
+  K4's calls are.
+
+With `--tiers` it times this tree's 16-sweep launch (VI and evaluation)
+with and without the table of decoded actions (`packing`'s `table`, the
+other way the word a cell; `grid_sweeps_cuda`'s `table`) over 16,384
+17×17, 8,192 33×33, 2,048 65×65 and 1,024 81×81 mazes, both ways bit for
+bit the same: the measurement behind `kernels.dp_grid.TABLE_BYTES`.
+`tools/k4_ablation.py` times the pieces of K4's design one by one.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+SWEEPS = 16
+
+
+def _events_ms(fn, reps: int = 30) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _host_us(fn, calls: int = 100, rounds: int = 5) -> float:
+    """The host's time of a call: the least over rounds of `calls` calls
+    with no synchronize inside."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - start) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def _wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+
+
+def _mazes(gt, dev, seed, cells, n):
+    from griduniverse_tpu_torch.levels import maze as M
+
+    grids, start = M.generate_mazes_device(seed, cells, n, "aldous_broder", device=dev)
+    return gt.Level(grid=grids.contiguous(), start_idx=start.expand(n).contiguous())
+
+
+def _profiled(name, fn, wall_ms, smi):
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_kernel: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            slot = per_kernel.setdefault(e.name, [0.0, 0])
+            slot[0] += e.time_range.elapsed_us()
+            slot[1] += 1
+    busy = sum(v[0] for v in per_kernel.values())
+    print(f"{name}: device busy {busy / 1e3!r} ms, idle {1 - busy / (wall_ms * 1e3)!r} of the median wall "
+          f"{wall_ms!r} ms ({smi})")
+    for k, (us, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
+
+
+def measure(tag: str) -> None:
+    """The readings of the module's docstring for the package on sys.path."""
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch import algos
+    from griduniverse_tpu_torch.kernels.dp_grid import grid_greedy_cuda, grid_sweeps_cuda
+
+    smi = _smi()
+    dev = torch.device("cuda", 0)
+    sem = gt.make_semantics(device=dev)
+    lv9 = _mazes(gt, dev, 2026, (4, 4), 65_536)
+    lv33 = _mazes(gt, dev, 2027, (16, 16), 8_192)
+    lv_pi = gt.Level(grid=lv9.grid[:4096].contiguous(), start_idx=lv9.start_idx[:4096].contiguous())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, lv, evaluate in (("16 VI sweeps, 65,536 mazes 9x9", lv9, False),
+                               ("16 VI sweeps, 8,192 mazes 33x33", lv33, False),
+                               ("16 evaluation sweeps, 4,096 mazes 9x9", lv_pi, True),
+                               ("16 evaluation sweeps, 65,536 mazes 9x9", lv9, True)):
+        n, h, w = lv.grid.shape
+        v0 = torch.zeros((n, h * w), device=dev)
+        pol = torch.randint(0, 4, (n, h * w), generator=gen, device=dev, dtype=torch.int32) if evaluate else None
+        def call(lv=lv, v0=v0, pol=pol):
+            return grid_sweeps_cuda(sem, lv.grid, v0, pol, 0.99, SWEEPS)
+
+        print(f"[{tag}] K4 {name}: {_events_ms(call)!r} ms a call, {_host_us(call)!r} us of host time ({smi})")
+    v0 = torch.zeros((65_536, 81), device=dev)
+    pol = torch.randint(0, 4, (65_536, 81), generator=gen, device=dev, dtype=torch.int32)
+    def greedy():
+        return grid_greedy_cuda(sem, lv9.grid, v0, 0.99, pol)
+
+    print(f"[{tag}] K4 greedy step, 65,536 mazes 9x9: {_events_ms(greedy)!r} ms a call, "
+          f"{_host_us(greedy)!r} us of host time ({smi})")
+
+    solves = {
+        "VI 65,536 mazes 9x9": lambda: algos.value_iteration_batched_grid(sem, lv9),
+        "VI 8,192 mazes 33x33": lambda: algos.value_iteration_batched_grid(sem, lv33, max_iters=400),
+        "PI 4,096 mazes 9x9": lambda: algos.policy_iteration_batched_grid(sem, lv_pi),
+    }
+    for name, fn in solves.items():
+        out = fn()
+        walls = [_wall_ms(fn) for _ in range(3)]
+        n = int(name.split()[1].replace(",", ""))
+        rates = [n / ms * 1e3 for ms in walls]
+        print(f"[{tag}] solve {name} ({out[2]} iterations): {walls!r} ms, {rates!r} mazes/s ({smi})")
+        if name != "VI 8,192 mazes 33x33":
+            _profiled(f"[{tag}] solve {name} profiled", fn, sorted(walls)[1], smi)
+    other_kernels(tag, dev, gen, smi)
+
+
+def other_kernels(tag, dev, gen, smi) -> None:
+    """K12 and K9b at their main-path shapes, as K4's calls are timed."""
+    from griduniverse_tpu_torch.algos import td_lambda
+    from griduniverse_tpu_torch.kernels import agent_stamp as k9b
+
+    b, s, a = 65_536, 256, 4
+    e = torch.rand((b, s, a), generator=gen, device=dev) * (torch.rand((b, s, a), generator=gen, device=dev) < 0.3)
+    table = torch.randn((s, a), generator=gen, device=dev)
+    step = (torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32),
+            torch.randint(0, a, (b,), generator=gen, device=dev, dtype=torch.int32),
+            torch.randn((b,), generator=gen, device=dev), torch.rand((b,), generator=gen, device=dev) < 0.01,
+            0.99, 0.9, 1e-4, 0.1, "accumulating")
+
+    def k12():
+        return td_lambda.trace_pass(table, e, *step)
+
+    n, nl, ch = 262_144, 16_384, 32
+    y = torch.randn((nl, 9, 9, ch), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((3, 3, ch), generator=gen, device=dev)
+    bias = torch.randn((ch,), generator=gen, device=dev)
+    obs = torch.randint(0, 81, (n,), generator=gen, device=dev, dtype=torch.int32)
+    cot = torch.randn((n, 9, 9, ch), generator=gen, device=dev).to(torch.bfloat16)
+    out = k9b.agent_stamp_cuda(y, k, bias, obs)
+    calls = {
+        f"K12 trace pass, trace ({b}, {s * a})": k12,
+        f"K9b forward, N={n} Nl={nl} 9x9 C={ch} bfloat16": lambda: k9b.agent_stamp_cuda(y, k, bias, obs),
+        f"K9b backward, N={n} Nl={nl} 9x9 C={ch} bfloat16": lambda: k9b.agent_stamp_backward_cuda(cot, out, obs, nl),
+    }
+    for name, fn in calls.items():
+        print(f"[{tag}] {name}: {_events_ms(fn)!r} ms a call, {_host_us(fn)!r} us of host time ({smi})")
+
+
+def tiers() -> None:
+    """K4's table of decoded actions against the word a cell, both forced."""
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch.kernels import dp_grid
+
+    smi = _smi()
+    dev = torch.device("cuda", 0)
+    sem = gt.make_semantics(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for cells, n in (((8, 8), 16_384), ((16, 16), 8_192), ((32, 32), 2_048), ((40, 40), 1_024)):
+        lv = _mazes(gt, dev, 5, cells, n)
+        s = lv.grid.shape[1] * lv.grid.shape[2]
+        v0 = torch.zeros((n, s), device=dev)
+        pol = torch.randint(0, 4, (n, s), generator=gen, device=dev, dtype=torch.int32)
+        outs = []
+        for table in (True, False):
+            def sweeps(pol=None, table=table):
+                return dp_grid.grid_sweeps_cuda(sem, lv.grid, v0, pol, 0.99, SWEEPS, table=table)
+
+            outs.append(sweeps())
+            vi, ev = _events_ms(sweeps), _events_ms(lambda: sweeps(pol))
+            print(f"[tiers] K4 {n} mazes {lv.grid.shape[1]}x{lv.grid.shape[2]}, table={table} "
+                  f"({dp_grid.table_bytes(s, 4)} bytes a table; chosen: {dp_grid.packing(s).table}): 16 VI sweeps "
+                  f"{vi!r} ms, 16 evaluation sweeps {ev!r} ms ({smi})")
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(*outs)):
+            raise SystemExit("profile_turns --tiers: the two ways differ")
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_turns: torch.cuda.is_available() is False; this runs only on a GPU")
+    if args[:1] == ["--measure"]:  # one turn, in a process of its own
+        measure(args[1])
+        return
+    against = Path(args[args.index("--against") + 1]).resolve() if "--against" in args else None
+    print(_smi())
+    here = Path(__file__).resolve().parents[2]
+    turns = [here] if against is None else [against, here, here, against]
+    for root in turns:
+        tag = "this tree" if root == here else str(root)
+        # this file, run as a script, imports the package of the tree it is pointed at
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", tag],
+                       check=True, cwd=root, env=dict(os.environ, PYTHONPATH=str(root)))
+    if "--tiers" in args:
+        tiers()
+
+
+if __name__ == "__main__":
+    main()

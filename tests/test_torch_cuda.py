@@ -18,6 +18,7 @@ from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast, td
 from griduniverse_tpu_torch.kernels import agent_stamp as stamp_kernels
 from griduniverse_tpu_torch.kernels import embed_rows as embed_kernels
 from griduniverse_tpu_torch.kernels import replay as replay_kernels
+from griduniverse_tpu_torch.kernels import trace_pass as trace_kernels
 from griduniverse_tpu_torch.levels import builders
 from griduniverse_tpu_torch.models import a2c, dqn, networks, ppo
 from griduniverse_tpu_torch.levels import maze as M
@@ -111,7 +112,10 @@ def _maze_levels(dev, cells, n, seed=5):
     return T.Level(grid=grids, start_idx=start.expand(n).contiguous())
 
 
-@pytest.mark.parametrize("cells,n", [((4, 4), 256), ((8, 8), 64), ((1, 1), 3)])
+@pytest.mark.parametrize("cells,n", [((4, 4), 256), ((8, 8), 64), ((1, 1), 3),
+                                     # three 9x9 mazes a block: the last block partial or full
+                                     ((4, 4), 1), ((4, 4), 2), ((4, 4), 3), ((4, 4), 4), ((4, 4), 257),
+                                     ((16, 16), 33)])  # 33x33: several cells a thread
 def test_grid_vi_and_pi_kernel_match_plain(dev, cells, n):
     sem = T.make_semantics(device=dev)
     levels = _maze_levels(dev, cells, n)
@@ -131,6 +135,58 @@ def test_grid_vi_and_pi_kernel_match_plain(dev, cells, n):
     ref = dp_batched.policy_iteration_batched_grid_reference(sem, levels, gamma=0.95)
     assert got[2] == ref[2]
     _assert_same(got[:2], ref[:2])
+
+
+def _plain_sweeps(sem, grids, v, policy, k):
+    backup = dp_batched._grid_backup(sem, grids, 0.99)
+    maxima = []
+    for _ in range(k):
+        q = backup(v)
+        new = q.max(dim=-1).values if policy is None else q.gather(2, policy.long()[:, :, None])[:, :, 0]
+        maxima.append((new - v).abs().max())
+        v = new
+    return v, torch.stack(maxima)
+
+
+@pytest.mark.parametrize("cells,n,lava,actions", [
+    ((4, 4), 257, 0.1, 4),     # registers, three mazes a block
+    ((4, 4), 100, 0.1, 8),     # eight actions
+    ((8, 8), 65, 0.1, 4),      # a table of decoded actions, two cells a thread
+    ((16, 16), 9, 0.1, 5),     # five actions, a table
+    ((32, 32), 3, 0.05, 4),    # a word a cell, 17 cells a thread
+    ((63, 63), 2, 0.0, 4),     # 16,129 cells, 64 a thread
+])
+def test_grid_sweeps_kernel_maxima_and_changed_match_plain(dev, cells, n, lava, actions):
+    """Each packing of K4's shared tier against the plain sweeps from a
+    random V, with lava: V and every sweep's maximum over 1, 5, 16 and 20
+    sweeps (two launches), evaluation sweeps of a policy with out-of-range
+    actions, the greedy step and its `changed` flag."""
+    from griduniverse_tpu_torch.core.semantics import SemanticsConfig
+    from griduniverse_tpu_torch.kernels import dp_grid
+
+    deltas = ((-1, 0), (0, 1), (1, 0), (0, -1), (-1, -1), (-1, 1), (1, 1), (1, -1))
+    if actions == 5:
+        deltas = deltas[:4] + ((0, 0),)
+    sem = T.make_semantics(SemanticsConfig(action_deltas=deltas[:actions]), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    grids, _ = M.generate_mazes_device(n, cells, n, "aldous_broder", device=dev)
+    grids = torch.where((grids == 0) & (torch.rand(grids.shape, generator=gen, device=dev) < lava),
+                        torch.full_like(grids, 2), grids).contiguous()
+    s = grids.shape[1] * grids.shape[2]
+    v0 = torch.rand((n, s), generator=gen, device=dev) * 3
+    for k in (1, 5, 16, 20):
+        before = kernels.LAUNCHES["dp_grid"]
+        got = dp_grid.grid_sweeps_cuda(sem, grids, v0, None, 0.99, k)
+        assert kernels.LAUNCHES["dp_grid"] - before == -(-k // dp_grid.SWEEPS_A_LAUNCH)
+        _assert_same(got, _plain_sweeps(sem, grids, v0, None, k))
+    policy = torch.randint(-2, actions + 2, (n, s), generator=gen, device=dev, dtype=torch.int32)
+    clamped = torch.where(policy < 0, policy + actions, policy).clamp(0, actions - 1)  # as XLA's gather
+    _assert_same(dp_grid.grid_sweeps_cuda(sem, grids, v0, policy, 0.99, 7), _plain_sweeps(sem, grids, v0, clamped, 7))
+    want = dp_batched.first_argmax(dp_batched._grid_backup(sem, grids, 0.99)(v0)).to(torch.int32)
+    greedy, changed = dp_grid.grid_greedy_cuda(sem, grids, v0, 0.99, clamped)
+    assert torch.equal(greedy, want) and int(changed) == int(bool((want != clamped).any()))
+    assert int(dp_grid.grid_greedy_cuda(sem, grids, v0, 0.99, want)[1]) == 0
+    assert int(dp_grid.grid_greedy_cuda(sem, grids, v0, 0.99, None)[1]) == 0
 
 
 def _fast_fields(ts):
@@ -353,6 +409,10 @@ def test_embed_rows_backward_kernel_matches_plain_at_the_shared_limit(dev, above
     (2, 5, 33, 33, 32),     # 33x33
     (2, 3, 5, 6, 3),        # a thread a channel
     (4096, 16, 9, 9, 32),   # several units a block
+    # above 256 threads a cell the channels are cut into slices
+    (4, 8, 9, 9, 257),      # two slices of a channel a thread
+    (1, 100, 9, 9, 514),    # two slices, two ranges of a shared level
+    (4, 8, 9, 9, 1032),     # above the forward's 1,024 channels a block; two slices in float32
 ])
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 def test_agent_stamp_kernel_matches_plain(dev, nl, t, h, w, ch, cdt):
@@ -746,7 +806,8 @@ def test_prio_refresh_kernel_matches_plain_above_one_block(dev, cap, n):
     assert torch.equal(prio_g[idx[-1].long()], abs_err[-1] + 1e-3)
 
 
-@pytest.mark.parametrize("b,s,a", [(1, 16, 4), (300, 16, 4), (4096, 256, 4), (513, 81, None)])
+@pytest.mark.parametrize("b,s,a", [(1, 16, 4), (300, 16, 4), (4096, 256, 4), (513, 81, None),
+                                   (16_776_961, 1, 2)])  # above 65,535 chunks of 256 envs
 @pytest.mark.parametrize("kind", ["accumulating", "replacing"])
 def test_trace_pass_kernel_matches_plain(dev, b, s, a, kind):
     gen = torch.Generator(device=dev).manual_seed(b)
@@ -762,7 +823,7 @@ def test_trace_pass_kernel_matches_plain(dev, b, s, a, kind):
     args = (states, actions, delta, cut, 0.9, 0.8, 1e-4, 0.3, kind)
     before = kernels.LAUNCHES["trace_pass"]
     got = td_lambda.trace_pass(table, e_g, *args)
-    assert kernels.LAUNCHES["trace_pass"] == before + 2
+    assert kernels.LAUNCHES["trace_pass"] == before + trace_kernels.launches(b) == before + 2 + (b > 65_535 * 256)
     _assert_same((got, e_g), (td_lambda.trace_pass_reference(table, e_r, *args), e_r))
 
 

@@ -282,3 +282,44 @@ def test_sweep_loop_stops_inside_and_on_launch_boundaries(monkeypatch):
             want = tdb.value_iteration_batched_grid_reference(TSEM, tl, max_iters=cap)
             assert iters == want[2] and torch.equal(v, want[0])
     assert iters_ref > 5 and torch.equal(v_ref, tdb._sweep_until_cuda(TSEM, tl.grid, None, 0.99, 1e-6, 10_000)[0])
+
+
+# K4's packing: (S, A) -> (mazes a block, threads a block, cells a thread,
+# table of decoded actions). Three 9x9 mazes a block of 256 threads (243 lanes
+# busy), a maze a block above 256 cells, the table up to 72 KB of shared memory.
+@pytest.mark.parametrize("s,a,want", [
+    (1, 4, (256, 256, 1, False)),
+    (9, 4, (28, 256, 1, False)),        # 3x3 mazes
+    (81, 4, (3, 256, 1, False)),        # 9x9
+    (81, 8, (3, 256, 1, False)),
+    (100, 4, (2, 224, 1, False)),       # whole warps: 200 cells on 7 warps
+    (256, 4, (1, 256, 1, False)),
+    (257, 4, (1, 160, 2, True)),
+    (1089, 4, (1, 224, 5, True)),       # 33x33: 1,120 slots for 1,089 cells
+    (1089, 8, (1, 224, 5, True)),       # its table at 8 actions, 62 KB
+    (4225, 4, (1, 256, 17, False)),     # 65x65: a table would take 139 KB
+    (16_384, 4, (1, 256, 64, False)),   # the shared tier's limit: 13 bytes a cell
+])
+def test_k4_packing(s, a, want):
+    from griduniverse_tpu_torch.kernels import dp_grid
+
+    pk = dp_grid.packing(s, a)
+    assert tuple(pk) == want
+    assert pk.threads % 32 == 0 and pk.threads <= dp_grid.BLOCK_THREADS
+    assert pk.mazes * s <= pk.threads * pk.cells          # a thread for every cell
+    assert pk.mazes == 1 or pk.cells == 1                 # several mazes a block, or several cells a thread
+    assert (pk.cells - 1) * pk.threads < s                # no thread has a pass with no cell at all
+    assert pk.table == (pk.cells > 1 and dp_grid.table_bytes(s, a) <= dp_grid.TABLE_BYTES)
+    assert 13 * s <= 227 * 1024                           # the word a cell fits a block
+    # N mazes make ceil(N / mazes) groups; the last one holds the rest
+    for n in (1, 2, 3, 4, 257):
+        groups = -(-n // pk.mazes)
+        assert 0 < n - (groups - 1) * pk.mazes <= pk.mazes
+
+
+def test_k4_packing_refuses_the_global_tier():
+    from griduniverse_tpu_torch.kernels import dp_grid
+
+    assert dp_grid.uses_shared_tier(dp_grid.MAX_STATES) and not dp_grid.uses_shared_tier(dp_grid.MAX_STATES + 1)
+    with pytest.raises(ValueError, match="shared tier"):
+        dp_grid.packing(dp_grid.MAX_STATES + 1)

@@ -337,7 +337,18 @@ def test_embed_rows_fixed_order_backward_matches_jax_autograd(s, e, rng):
 
 @pytest.mark.parametrize("nl,t", [(1, 9), (6, 4)])
 def test_agent_stamp_plain_matches_jax_conv_with_gradients(nl, t, rng):
-    h, w, ch = 5, 6, 8
+    _stamp_matches_jax_conv(nl, t, 8, rng)
+
+
+@pytest.mark.parametrize("ch", [257, 514])
+def test_agent_stamp_plain_matches_jax_conv_above_the_channel_limit(ch, rng):
+    """C / vector width above MAX_THREADS, where the kernel cuts the
+    channels into slices: the plain version is the same function."""
+    _stamp_matches_jax_conv(3, 2, ch, rng)
+
+
+def _stamp_matches_jax_conv(nl, t, ch, rng):
+    h, w = 5, 6
     n = nl * t
     y_tiles = rng.normal(size=(nl, h, w, ch)).astype(np.float32)
     k = rng.normal(size=(3, 3, ch)).astype(np.float32)
@@ -498,6 +509,8 @@ def _same_stamp_grads(got, want, cdt):
     (6, 4, 5, 6, 8, torch.float32, {"MAX_BLOCKS": 3, "MAX_THREADS": 32}),
     (2, 5, 17, 17, 8, torch.bfloat16, {"MAX_BLOCKS": 5, "T_RANGE": 2}),
     (5, 2, 3, 3, 3, torch.float32, {"MAX_BLOCKS": 2, "SUM_LANES": 4}),
+    (3, 70, 5, 6, 9, torch.float32, {"MAX_THREADS": 4, "MAX_BLOCKS": 7}),   # three slices of 3 channels
+    (2, 5, 5, 6, 10, torch.bfloat16, {"MAX_THREADS": 2}),                  # slices of 4, 4 and 2 channels
 ])
 def test_agent_stamp_backward_order_matches_a_literal_walk(nl, t, h, w, ch, cdt, consts, rng, monkeypatch):
     """The vectorised plain backward equals the kernel's order walked thread
@@ -507,6 +520,63 @@ def test_agent_stamp_backward_order_matches_a_literal_walk(nl, t, h, w, ch, cdt,
     _, _, _, obs, cot, out = _stamp_case(rng, nl, t, h, w, ch, cdt)
     got = tn.agent_stamp_backward_reference(cot, out.detach(), _t(obs), nl)
     _same_stamp_grads(got, _literal_walk(cot, out.detach(), obs, nl), cdt)
+
+
+# `plan` at the shapes the tier below MAX_THREADS threads a cell took before
+# the channel slices: (N, Nl, H, W, C, dtype) -> (vec, cells, tiles, ranges,
+# units, upb, blocks), as the code before the slices computed them; one slice
+# of all C channels
+@pytest.mark.parametrize("n,nl,h,w,ch,cdt,want", [
+    (262_144, 16_384, 9, 9, 32, torch.bfloat16, (8, 32, 41_472, 1, 41_472, 21, 1975)),  # a PPO minibatch
+    (65_536, 65_536, 9, 9, 32, torch.bfloat16, (8, 32, 165_888, 1, 165_888, 81, 2048)),  # a rollout step
+    (256, 256, 9, 9, 32, torch.float32, (4, 32, 648, 1, 648, 1, 648)),          # DQN's minibatch
+    (65_536, 1, 9, 9, 32, torch.bfloat16, (8, 32, 3, 1024, 3072, 2, 1536)),      # a shared level
+    (200, 1, 9, 9, 8, torch.float32, (4, 32, 3, 4, 12, 1, 12)),
+    (140, 2, 5, 6, 12, torch.bfloat16, (4, 32, 2, 2, 4, 1, 4)),
+    (12, 3, 17, 17, 8, torch.float32, (4, 32, 28, 1, 28, 1, 28)),
+    (6, 2, 5, 6, 3, torch.bfloat16, (1, 32, 2, 1, 2, 1, 2)),
+    (10, 2, 33, 33, 32, torch.float32, (4, 32, 69, 1, 69, 1, 69)),
+    (65_536, 4096, 9, 9, 32, torch.float32, (4, 32, 10_368, 1, 10_368, 6, 1728)),
+    (64, 16, 9, 9, 256, torch.float32, (4, 4, 324, 1, 324, 1, 324)),
+    (64, 16, 9, 9, 255, torch.float32, (1, 1, 1296, 1, 1296, 1, 1296)),          # 255 threads a cell
+    (64, 16, 9, 9, 512, torch.float32, (4, 2, 648, 1, 648, 1, 648)),
+    (64, 16, 9, 9, 1024, torch.bfloat16, (8, 2, 648, 1, 648, 1, 648)),
+    (64, 16, 9, 9, 2048, torch.bfloat16, (8, 1, 1296, 1, 1296, 1, 1296)),        # 256 threads a cell
+])
+def test_agent_stamp_plan_is_unchanged_below_the_channel_limit(n, nl, h, w, ch, cdt, want):
+    p = k9b.plan(n, nl, h, w, ch, cdt)
+    assert tuple(p)[:7] == want
+    assert (p.slices, p.width) == (1, ch)
+
+
+@pytest.mark.parametrize("ch", [257, 514, 1031, 1032, 2048, 65_537])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_agent_stamp_plan_slices_channels_above_the_limit(ch, cdt):
+    """Above MAX_THREADS threads a cell the channels are cut into the fewest
+    slices of whole threads, each within MAX_THREADS, the last one no wider
+    than the others; a block's rows of cells fit MAX_THREADS."""
+    p = k9b.plan(64, 16, 9, 9, ch, cdt)
+    threads = ch // p.vec
+    assert p.vec == k9b.vector_width(ch, cdt) and p.width % p.vec == 0
+    assert p.width // p.vec <= k9b.MAX_THREADS and p.cells * (p.width // p.vec) <= k9b.MAX_THREADS
+    assert (p.slices - 1) * p.width < ch <= p.slices * p.width
+    assert p.slices == -(-threads // k9b.MAX_THREADS)
+    assert (p.slices > 1) == (threads > k9b.MAX_THREADS)
+    # the tiles and blocks are those of a slice's width, the same for every slice
+    assert p.tiles == -(-16 * 81 // p.cells) and p.units == p.tiles and p.blocks == p.units
+
+
+@pytest.mark.parametrize("ch", [257, 514])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_agent_stamp_backward_above_the_channel_limit(ch, cdt, rng):
+    """The fixed-order backward where the kernel cuts the channels into
+    slices: float64 sums and autograd as `_hold_stamp_backward` holds them,
+    and the order walked thread by thread."""
+    nl, t = 2, 70  # two ranges of T_RANGE over two levels
+    case = _stamp_case(rng, nl, t, 5, 6, ch, cdt)
+    assert k9b.plan(nl * t, nl, 5, 6, ch, cdt).slices == 2
+    got = _hold_stamp_backward(*case, nl, cdt)
+    _same_stamp_grads(got, _literal_walk(case[4], case[5].detach(), case[3], nl), cdt)
 
 
 @pytest.mark.parametrize("name,value,changed", [
