@@ -136,10 +136,17 @@ def k4_function_ops(actions: int) -> int:
     return 3 * actions + (actions - 1) + 3
 
 
-# K5's per-env path is 308; 76 of them load and store the env state, which
-# only a scan cut into one launch a step needs, so they are not counted
+# K5, the function's own operations at four actions, as K4, K9a and K9b are
+# counted: an env's step is 232 (the per-env path of the earlier kernel of
+# one launch a step, whose loops over actions ran to A = 4, less the 76 that
+# loaded and stored the env state), and a Q entry's update a step is the
+# mean and the add (an estimate). The scan kernel's own extras, its loops
+# over actions unrolled to 8 with guards, the warp's combine of the adds,
+# the flush, the block's copy of Q and the test that skips an entry no env
+# added to, are the design's cost, not the function's: the bound is 0.91 ms
+# for 2,000 steps of 65,536 envs at walls16 on the H100
 INSTR_K5_STEP = 232
-INSTR_K5_ENTRY = 10     # one Q entry's update a step (the mean and the add), an estimate
+INSTR_K5_ENTRY = 10
 INSTR_K6_STEP = 324     # the float32 Q-learning path with native draws
 INSTR_K10_ENV = 4       # key and α·δ of one env, an estimate
 K10_LAUNCHES = 4        # kernels a K10 call launches: count, scan, scatter, sum
@@ -171,10 +178,12 @@ INSTR_K11_TILE = 10     # the wall fill: 40 instructions for four unrolled tiles
 INSTR_P1 = 23           # gather_1d_kernel, one element
 INSTR_P2 = 48           # take_along_axis1_kernel, one element
 INSTR_K12_ELEM = 12     # one trace element: load, decay, flush, bump test, multiply, add, count, store (an estimate)
-# K7c and K13 (estimates, not SASS counts): an env's act and step is K7b's path
-# without its log-softmax; a sample of K13 is a load, a multiply, an add, a store
-# and its first-visit test against a hash of the ids seen
-INSTR_K7C_ENV = 400
+# K7c (`dqn_act_step_kernel<true>`, the 16-byte row load): an env's act, step
+# and stores, from the staging barrier to the end of the env's branch,
+# before the block's tree of ended returns. K13 (an estimate, not a SASS count): a sample is a load, a
+# multiply, an add, a store and its first-visit test against a hash of the
+# ids seen
+INSTR_K7C_ENV = 213
 INSTR_K13_SAMPLE = 12
 # K4 above 16,384 states a maze, at full width: the mazes, and PI's cap
 N_BIG, PI_BIG_ITERS = 64, 10
@@ -347,7 +356,9 @@ def solver_phases(gt, dev, gen, bound, smi):
     kw5 = dict(alpha=0.1, gamma=0.99, epsilon=0.1, max_episode_steps=MAX_EPISODE_STEPS)
     for algo in td_fast.ALGOS:
         ts = td_fast.fast_td_init(sem, bl_walls, 3, 4096)
+        before = kernels.LAUNCHES["td_scan_fast"]
         got = td_fast.td_scan_fast(sem, bl_walls, ts, 500, algo=algo, **kw5)
+        _require(kernels.LAUNCHES["td_scan_fast"] == before + 1, f"K5 {algo}: not one launch a scan")
         ref = td_fast.td_scan_fast_reference(sem, bl_walls, ts, 500, algo=algo, **kw5)
         hold("td_scan_fast", f"K5 {algo}", _fast_fields(got), _fast_fields(ref), _FAST_FIELDS)
         again = td_fast.td_scan_fast(sem, bl_walls, ts, 500, algo=algo, **kw5)
@@ -355,7 +366,8 @@ def solver_phases(gt, dev, gen, bound, smi):
             sem, bl_walls, td_fast.td_scan_fast(sem, bl_walls, ts, 200, algo=algo, **kw5), 300, algo=algo, **kw5)
         _same_fields(f"K5 {algo} second run", _fast_fields(again), _fast_fields(got), _FAST_FIELDS)
         _same_fields(f"K5 {algo} chunked", _fast_fields(chunked), _fast_fields(got), _FAST_FIELDS)
-        print(f"K5 {algo} B=4096 T=500: bit-exact vs plain; a second run and a 200+300 chunked run give the same bits")
+        print(f"K5 {algo} B=4096 T=500: one launch, bit-exact vs plain; a second run and a 200+300 chunked run give "
+              "the same bits")
 
     n6, t6 = 1024, 500
     lv6 = mazes(22, (4, 4), n6)
@@ -462,7 +474,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     _require(float(mean2) > float(r1.mean_return), f"K5 main: return did not rise ({float(r1.mean_return)} -> {float(mean2)})")
     print(f"K5 main: chunked 1000+1000 equals the unbroken run bit for bit; mean return {float(r1.mean_return)!r} -> {float(mean2)!r}")
 
-    # above the 8,192 Q entries of the staged step kernel: one 65x65 backtracker
+    # above the 8,192 Q entries of the staged form: one 65x65 backtracker
     # maze (32x32 cells, made by K11) shared by 65,536 envs, 16,900 entries
     g65, start65 = M.generate_mazes_device(2028, (32, 32), 1)
     bl65 = bp.pack_level(gt.Level(grid=g65[0].contiguous(), start_idx=start65))
@@ -524,6 +536,8 @@ def solver_phases(gt, dev, gen, bound, smi):
     launches = {name: kernels.LAUNCHES[name] for name in errs}
     print(f"launches on the solver main path: {launches}")
     _require(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    # one launch a scan: the unbroken run, its two chunks and the 65x65 run
+    _require(launches["td_scan_fast"] == 4, f"K5: {launches['td_scan_fast']} launches on the main path, expected 4")
 
     # -- phase 9: the main path's outputs against the plain versions, timed ----
     lap("phase 8")
@@ -1436,12 +1450,12 @@ def resume_through_disk(gt, dev, smi, runs, walls16):
         kernels.reset_launches()
         resumed = models.dqn_run(sem, level, restored, cfg, 60)
         torch.cuda.synchronize()
-        _require(kernels.LAUNCHES["dqn_act"] == 120, f"{name} resumed: {kernels.LAUNCHES['dqn_act']} K7c launches")
+        _require(kernels.LAUNCHES["dqn_act"] == 60, f"{name} resumed: {kernels.LAUNCHES['dqn_act']} K7c launches")
         _same_dqn_state(f"{name} resumed through disk", resumed, at120)
         _require(resumed.seed == at120.seed and int(resumed.t) == 120, f"{name} resumed: seed or step counter")
         print(f"{name}: 60 steps, an async save, a restore into a fresh template and 60 more steps equal 120 unbroken "
               "bit for bit (parameters, target, Adam, env state, the whole ring, priorities, statistics; K7c "
-              "launched 120 times in the resumed run)")
+              "launched 60 times in the resumed run)")
     cfg = models.PPOConfig(max_episode_steps=MAX_EPISODE_STEPS)
     ts0 = models.ppo_init(sem, walls16, 5, cfg, n64)
     two = models.ppo_run(sem, walls16, ts0, cfg, 2)
@@ -1630,7 +1644,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         # a step: write and gather, with PER the refresh (two launches above 8,192 rows)
         refresh = k8.refresh_launches(cfg.batch_size_train) if cfg.prioritized else 0
         expected = {net_kernel: steps * per_step, "replay": steps * (2 + refresh),
-                    "per_sample": steps * K8A_LAUNCHES if cfg.prioritized else 0, "dqn_act": steps * 2}
+                    "per_sample": steps * K8A_LAUNCHES if cfg.prioritized else 0, "dqn_act": steps}
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -1671,8 +1685,11 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     _require(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
 
     # -- phase 19: steps 60..119 of each main path against the plain rule ------
+    def plain_act(*args, plan=None):
+        return dqn.dqn_act_step_reference(*args)
+
     plain_ring = dict(replay_write_cuda=dqn.replay_write_reference, replay_gather_cuda=dqn.replay_gather_reference,
-                      prio_refresh_cuda=dqn.prio_refresh_reference, dqn_act_step=dqn.dqn_act_step_reference)
+                      prio_refresh_cuda=dqn.prio_refresh_reference, dqn_act_step=plain_act)
     kept = {}
     for name, (level, cfg, at60, at120) in runs.items():
         learner = dqn.dqn_learner(sem, level, cfg, n64)
@@ -1856,12 +1873,13 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     rand_a = torch.randint(0, num_actions, (n64,), generator=gen, device=dev, dtype=torch.int32)
     args = (sem, learner.bl, at120.env_state, q, explore, rand_a, at120.run_ret, at120.episodes, at120.ret_sum,
             cfg.max_episode_steps)
-    ms, got = _cuda_ms(lambda: dqn.dqn_act_step(*args), 50)
+    # as `dqn_update` calls it: through the learner's plan, built once a run
+    ms, got = _cuda_ms(lambda: dqn.dqn_act_step(*args, plan=learner.act_plan), 50)
     plain_ms, ref = _cuda_ms(lambda: dqn.dqn_act_step_reference(*args), 10)
     errs["dqn_act"] = max(errs["dqn_act"], _same_fields(
         "K7c timed", (*_fast_state(got[0]), *got[1:]), (*_fast_state(ref[0]), *ref[1:]), _K7C_FIELDS))
     times["dqn_act"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=None, shape=f"walls16 B={n64}, A={num_actions} (two kernels)",
+        ms=ms, plain_ms=plain_ms, library_ms=None, shape=f"walls16 B={n64}, A={num_actions} (one launch)",
         # per env: q, the two draws (5 bytes), the state (12) and the running return (4) read;
         # the new state (13), the transition (13) and the running return (4) written
         **bound(n64 * (4 * num_actions + 5 + 12 + 4 + 13 + 13 + 4), INSTR_K7C_ENV * n64))
@@ -1881,7 +1899,7 @@ def dqn_step_events(dev, smi, sem, level, cfg, state, steps: int = 20) -> None:
     from griduniverse_tpu_torch.tools.profile_learners import _profile
     from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
 
-    def before_k7c(sem, bl, st, q, explore, rand_a, run_ret, episodes, ret_sum, max_episode_steps=None):
+    def before_k7c(sem, bl, st, q, explore, rand_a, run_ret, episodes, ret_sum, max_episode_steps=None, plan=None):
         actions = torch.where(explore, rand_a.to(torch.int32), torch.argmax(q, dim=-1).to(torch.int32))
         st, (next_obs, reward, done) = step_bits(sem, bl, st, actions, True, max_episode_steps)
         run_ret, episodes, ret_sum = a2c.fold_episode_stats(run_ret, episodes, ret_sum, reward[None], done[None])

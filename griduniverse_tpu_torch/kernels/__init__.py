@@ -29,19 +29,17 @@ CUDA tensors launch the kernel, or raise. There is no fallback.
 
 `LAUNCHES[name]` counts the kernel launches of each entry: a wrapper adds
 one for each kernel it launched, right after the call that launched them
-succeeded, and nowhere else. K5's wrapper launches one kernel a step and one
-more to apply the last aggregate, so a scan of T steps counts T + 1; the
-backward of `embed_rows` launches two kernels and so does that of
-`agent_stamp`, and each counts under its kernel's name. A `per_sample` draw is
-eight kernels up to 16,384 picks (scores, four histogram passes, count,
-compaction, sort and weights) and twenty above (the sort in twelve
-multi-block passes), and a `segment_mean` call four (count, scan,
-scatter, sum); the ring's write and gather are one each,
-and the refresh one up to 8,192 rows and two above, all under `replay`. A
-trace step is two kernels (the pass over the trace, then the chunks' sums
-and the table), and so is a DQN act-and-step (the pass over the envs, then
-the fold of the statistics). K4 counts one launch a call up to 16,384
-cells a maze and one a sweep above.
+succeeded, and nowhere else. K5 is one cooperative launch a scan of any
+length, and counts 1; the backward of `embed_rows` launches two kernels and
+so does that of `agent_stamp`, and each counts under its kernel's name. A
+`per_sample` draw is eight kernels up to 16,384 picks (scores, four
+histogram passes, count, compaction, sort and weights) and twenty above
+(the sort in twelve multi-block passes), and a `segment_mean` call four
+(count, scan, scatter, sum); the ring's write and gather are one each, and
+the refresh one up to 8,192 rows and two above, all under `replay`. A trace
+step is two kernels (the pass over the trace, then the chunks' sums and the
+table); a DQN act-and-step is one (its last block folds the statistics). K4
+counts one launch a call up to 16,384 cells a maze and one a sweep above.
 """
 
 from __future__ import annotations

@@ -62,8 +62,12 @@ _SIGNATURES = {
     # grids, n, h, w, policy; v in, out, tmp, info; gamma, sweeps; maxima
     "gu_grid_sweeps_global": _SEM + [_P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _I, _P, _P],
     "gu_grid_greedy_global": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _P],
-    "gu_td_scan_fast": _SEM + _LEVEL + [_I, _I, _I, _I, _F, _F, _F, _F, _I]
-                       + [_P] * 13 + [_P],
+    # batch, steps, max_episode_steps, expected_sarsa; alpha, gamma, eps, 1 - eps;
+    # eps16; blocks, envs a thread in registers, envs a thread; q in, out; state
+    # in (7), out (7); q_buf, acc, cnt
+    "gu_td_scan_fast": _SEM + _LEVEL + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I]
+                       + [_P] * 19 + [_P],
+    "gu_td_scan_fast_resident": [_I, _I, _P, _P],
     "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I]
                      + [_P] * 4 + [_P] * 9 + [_P],
     # q in, out, s, a, delta, mask; alpha; batch, A, S·A, chunk; counts, vals,
@@ -98,10 +102,9 @@ _SIGNATURES = {
     # e, s, a, delta, cut, table in, out; γλ, cutoff, α; replacing, A, B, cells;
     # partial num, cnt; launched
     "gu_trace_pass": [_P] * 7 + [_F, _F, _F] + [_I] * 4 + [_P] * 3 + [_P],
-    # batch, max_episode_steps; q, explore, rand_a, state in (3), run_ret, episodes,
-    # ret_sum; state out (4), action, next_obs, reward, done, run_ret, episodes,
-    # ret_sum; chunk sums and counts
-    "gu_dqn_act_step": _SEM + _LEVEL + [_I, _I] + [_P] * 9 + [_P] * 11 + [_P] * 2 + [_P],
+    # the plan (host memory); q, explore, rand_a, state in (3), run_ret, episodes,
+    # ret_sum; the outputs' buffer
+    "gu_dqn_act_step": [_P] + [_P] * 9 + [_P] + [_P],
     # rewards, ids, valid; T, B; gamma; returns, first-visit mask
     "gu_mc_returns": [_P] * 3 + [_I, _I, _F, _P, _P, _P],
 }

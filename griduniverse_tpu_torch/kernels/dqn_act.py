@@ -1,9 +1,12 @@
-"""Wrapper of K7c (`csrc/dqn_act.cu`): check, allocate, launch.
+"""Wrapper of K7c (`csrc/dqn_act.cu`): a host plan built once a run, then
+one check, one allocation and one launch a call.
 
 The plain PyTorch version is `models.dqn.dqn_act_step_reference`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -13,47 +16,149 @@ from .rollout import level_args, max_steps_arg, semantics_args
 
 CHUNK = 256  # envs a block: the first level of the fixed-order sum of ended returns
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
-def dqn_act_step_cuda(
-    passable, terminal, reward, deltas,
-    code_words, start_idx, start_code, height, width,
-    agent_idx, agent_code, t, q, explore, rand_a, run_ret, episodes, ret_sum,
-    max_episode_steps: int | None,
-):
-    """Launch K7c (two kernels: the act-and-step pass, then the fold of the
-    statistics). Returns the new (agent_idx, agent_code, t, done), the
-    step's (action int32, next_obs int32, reward float32, done bool), each
-    (B,), and the new (run_ret (B,), episodes () int64, ret_sum () float32)."""
-    device = q.device
-    if device.type != "cuda":
-        raise ValueError(f"dqn_act_step_cuda takes CUDA tensors, got {device}")
-    b = int(agent_idx.shape[0]) if agent_idx.dim() == 1 else 0
-    args = semantics_args(passable, terminal, reward, deltas, device)
-    a = args[-1]
-    args += level_args(code_words, start_idx, start_code, height, width, b, device)
-    args += [b, max_steps_arg(max_episode_steps)]
-    args += [
-        check_tensor("q", q, torch.float32, (b, a), device),
-        check_tensor("explore", explore, torch.bool, (b,), device),
-        check_tensor("rand_a", rand_a, torch.int32, (b,), device),
-        check_tensor("agent_idx", agent_idx, torch.int32, (b,), device),
-        check_tensor("agent_code", agent_code, torch.int32, (b,), device),
-        check_tensor("t", t, torch.int32, (b,), device),
-        check_tensor("run_ret", run_ret, torch.float32, (b,), device),
-        check_tensor("episodes", episodes, torch.int64, (), device),
-        check_tensor("ret_sum", ret_sum, torch.float32, (), device),
+# the outputs in the order K7c returns them (and `csrc/dqn_act.cu` `Outputs`)
+OUTPUTS = ("agent_idx", "agent_code", "t", "state_done", "action", "next_obs", "reward", "done",
+           "run_ret", "episodes", "ret_sum")
+
+
+class _PlanArgs(ctypes.Structure):
+    """`ActPlan` of `csrc/dqn_act.cu`, field for field."""
+
+    _fields_ = [
+        ("passable", _P), ("terminal", _P), ("reward", _P), ("deltas", _P), ("num_actions", _I),
+        ("words", _P), ("n_words", _I), ("per_env", _I), ("start_idx", _P), ("start_code", _P),
+        ("h", _I), ("w", _I), ("batch", _I), ("max_episode_steps", _I),
+        ("chunk_sum", _P), ("chunk_count", _P), ("ticket", _P),
+        ("out_offset", ctypes.c_longlong * len(OUTPUTS)),
     ]
-    i32 = dict(dtype=torch.int32, device=device)
-    f32 = dict(dtype=torch.float32, device=device)
-    flag = dict(dtype=torch.bool, device=device)
-    outs = [
-        torch.empty(b, **i32), torch.empty(b, **i32), torch.empty(b, **i32), torch.empty(b, **flag),
-        torch.empty(b, **i32), torch.empty(b, **i32), torch.empty(b, **f32), torch.empty(b, **flag),
-        torch.empty(b, **f32), torch.empty((), dtype=torch.int64, device=device), torch.empty((), **f32),
-    ]
-    chunks = -(-b // CHUNK)
-    scratch = (torch.empty(chunks, **f32), torch.empty(chunks, **i32))
-    launch("gu_dqn_act_step", device, *args, *[o.data_ptr() for o in outs],
-           *[x.data_ptr() for x in scratch])
-    LAUNCHES["dqn_act"] += 2
-    return tuple(outs)
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def output_offsets(b: int) -> tuple[dict[str, tuple[int, torch.dtype, tuple[int, ...]]], int]:
+    """({name: (byte offset, dtype, shape)}, bytes in all) of the buffer
+    that holds K7c's eleven outputs for `b` envs, each at a 16-byte
+    boundary: the five int32 and two float32 rows, the two bool rows, then
+    episodes and ret_sum. The only statement of the layout: the plan hands
+    the offsets to the kernel."""
+    words, flags = _round16(4 * b), _round16(b)
+    tail = 7 * words + 2 * flags
+    at = {
+        "agent_idx": (0, torch.int32, (b,)), "agent_code": (words, torch.int32, (b,)),
+        "t": (2 * words, torch.int32, (b,)), "action": (3 * words, torch.int32, (b,)),
+        "next_obs": (4 * words, torch.int32, (b,)), "reward": (5 * words, torch.float32, (b,)),
+        "run_ret": (6 * words, torch.float32, (b,)), "state_done": (7 * words, torch.bool, (b,)),
+        "done": (7 * words + flags, torch.bool, (b,)), "episodes": (tail, torch.int64, ()),
+        "ret_sum": (tail + 16, torch.float32, ()),
+    }
+    return at, tail + 32
+
+
+def _carve_spec(b: int):
+    """Per output, in the order of `OUTPUTS`: (dtype, shape, stride, offset
+    in elements of that dtype)."""
+    at, _ = output_offsets(b)
+    spec = []
+    for name in OUTPUTS:
+        offset, dtype, shape = at[name]
+        spec.append((dtype, shape, (1,) * len(shape), offset // dtype.itemsize))
+    return spec
+
+
+def _carved(buf: torch.Tensor, spec) -> tuple[torch.Tensor, ...]:
+    # one view of the buffer a dtype, then a strided view an output
+    by_dtype = {torch.int32: buf}
+    for dtype in (torch.float32, torch.bool, torch.int64):
+        by_dtype[dtype] = buf.view(dtype)
+    return tuple(by_dtype[dtype].as_strided(shape, stride, offset) for dtype, shape, stride, offset in spec)
+
+
+def carve(buf: torch.Tensor, b: int) -> tuple[torch.Tensor, ...]:
+    """K7c's eleven outputs as views of `buf`, an int32 tensor of
+    `output_offsets(b)[1]` bytes whose data is 16-byte aligned, in the order
+    of `OUTPUTS`."""
+    return _carved(buf, _carve_spec(b))
+
+
+class DqnActPlan:
+    """K7c for one run: the semantics and the level checked once, the C
+    plan that holds them, and the scratch of the statistics' fold (a
+    partial sum and count a chunk of `CHUNK` envs, and the ticket of the
+    last block), built once a run (`models.dqn.dqn_learner`).
+
+    The scratch is stream-ordered: every call reuses it, so the calls of a
+    plan must follow one another on one stream, the stream current on the
+    plan's device when it was built. A call from another stream raises.
+
+    A call (`plan(state, q, explore, rand_a, run_ret, episodes, ret_sum)`)
+    checks the step's tensors at once, allocates one buffer that holds all
+    eleven outputs (`carve`; fresh on every call, as the caller keeps them),
+    and launches once. It raises on a tensor of another device, dtype or
+    shape (the batch) than the plan's, and `check_level` on another level."""
+
+    def __init__(self, sem, bl, batch: int, max_episode_steps: int | None):
+        device = sem.deltas.device
+        args = semantics_args(sem.passable, sem.terminal, sem.reward, sem.deltas, device)
+        args += level_args(bl.code_words, bl.start_idx, bl.start_code, bl.height, bl.width, batch, device)
+        self.sem, self.bl, self.batch, self.device = sem, bl, batch, device
+        self.max_episode_steps = max_episode_steps
+        self.num_actions = args[4]
+        chunks = -(-batch // CHUNK)
+        # chunk_sum (float32), chunk_count (int32), the ticket: only the ticket needs its zero
+        self._scratch = torch.zeros(2 * chunks + 1, dtype=torch.int32, device=device)
+        base = self._scratch.data_ptr()
+        at, total = output_offsets(batch)
+        offsets = (ctypes.c_longlong * len(OUTPUTS))(*[at[name][0] for name in OUTPUTS])
+        self._args = _PlanArgs(*args, batch, max_steps_arg(max_episode_steps),
+                               base, base + 4 * chunks, base + 8 * chunks, offsets)
+        self._words = total // 4
+        self._spec = _carve_spec(batch)
+        b, a = batch, self.num_actions
+        # (dtype, shape, device, contiguous) of q, explore, rand_a, agent_idx,
+        # agent_code, t, run_ret, episodes, ret_sum
+        self._expected = [(dtype, torch.Size(shape), device, True) for dtype, shape in (
+            (torch.float32, (b, a)), (torch.bool, (b,)), (torch.int32, (b,)), (torch.int32, (b,)),
+            (torch.int32, (b,)), (torch.int32, (b,)), (torch.float32, (b,)), (torch.int64, ()),
+            (torch.float32, ()))]
+        self._stream = torch._C._cuda_getCurrentRawStream(device.index) if device.type == "cuda" else None
+
+    def check_level(self, sem, bl, max_episode_steps) -> None:
+        """Raise unless (sem, bl, max_episode_steps) are those the plan was built for."""
+        if sem is not self.sem or bl is not self.bl or max_episode_steps != self.max_episode_steps:
+            raise ValueError("this DqnActPlan was built for another semantics, level or time limit")
+
+    def check(self, tensors) -> None:
+        """One check of the step's nine tensors (q, explore, rand_a,
+        agent_idx, agent_code, t, run_ret, episodes, ret_sum) against the
+        plan; on a mismatch, the tensor at fault is named."""
+        try:
+            if [(x.dtype, x.shape, x.device, x.is_contiguous()) for x in tensors] == self._expected:
+                return
+        except AttributeError:
+            pass
+        names = ("q", "explore", "rand_a", "agent_idx", "agent_code", "t", "run_ret", "episodes", "ret_sum")
+        for name, x, (dtype, shape, device, _) in zip(names, tensors, self._expected):
+            check_tensor(name, x, dtype, shape, device)
+        raise ValueError("K7c's step tensors do not match the plan")
+
+    def __call__(self, state, q, explore, rand_a, run_ret, episodes, ret_sum):
+        """One act-and-step (see the class docstring). Returns the new
+        (agent_idx, agent_code, t, done), the step's (action, next_obs,
+        reward, done) and the new (run_ret, episodes, ret_sum)."""
+        tensors = (q, explore, rand_a, state.agent_idx, state.agent_code, state.t, run_ret, episodes, ret_sum)
+        self.check(tensors)
+        if self._stream is None:
+            raise ValueError(f"K7c takes CUDA tensors, got {self.device}")
+        if torch._C._cuda_getCurrentRawStream(self.device.index) != self._stream:
+            raise RuntimeError("a DqnActPlan is stream-ordered: it was called from another stream than "
+                               "the one it was built on")
+        buf = torch.empty(self._words, dtype=torch.int32, device=self.device)
+        launch("gu_dqn_act_step", self.device, ctypes.addressof(self._args), *[x.data_ptr() for x in tensors],
+               buf.data_ptr())
+        LAUNCHES["dqn_act"] += 1
+        return _carved(buf, self._spec)
+

@@ -51,7 +51,7 @@ from torch.func import functional_call
 from .. import kernels
 from ..core.semantics import Semantics
 from ..core.types import Level
-from ..kernels.dqn_act import CHUNK, dqn_act_step_cuda
+from ..kernels.dqn_act import CHUNK, DqnActPlan
 from ..kernels.replay import (
     per_sample_cuda,
     prio_refresh_cuda,
@@ -62,7 +62,6 @@ from ..ops.bitplane import (
     _U32,
     BitLevel,
     FastState,
-    _sem_level_args,
     pack_level,
     reset_bits,
     step_bits,
@@ -380,20 +379,25 @@ def dqn_act_step_reference(sem, bl, state: FastState, q, explore, rand_a, run_re
 
 
 def dqn_act_step(sem: Semantics, bl: BitLevel, state: FastState, q, explore, rand_a, run_ret,
-                 episodes, ret_sum, max_episode_steps: int | None = None):
+                 episodes, ret_sum, max_episode_steps: int | None = None,
+                 plan: DqnActPlan | None = None):
     """One DQN act-and-step for B envs from the Q-values `q` (B, A) (cast to
     float32 once: the cast keeps order and ties) and the step's draws, with
     the episode statistics (K7c on CUDA): see `dqn_act_step_reference`; the
-    kernel equals it bit for bit in every output."""
+    kernel equals it bit for bit in every output. `plan`: K7c's host plan
+    for (sem, bl, B, max_episode_steps), built once a run (`dqn_learner`);
+    without one a CUDA call builds its own."""
     q = q.float()
-    if not kernels.on_cuda(q, explore, rand_a, state.agent_idx, run_ret, bl.code_words, sem.deltas):
-        return dqn_act_step_reference(sem, bl, state, q, explore, rand_a, run_ret, episodes, ret_sum,
-                                      max_episode_steps)
-    idx, code, t, sdone, action, next_obs, reward, done, run_ret, episodes, ret_sum = dqn_act_step_cuda(
-        *_sem_level_args(sem, bl), state.agent_idx, state.agent_code, state.t, q.contiguous(),
-        explore.contiguous(), rand_a.to(torch.int32).contiguous(), run_ret.contiguous(),
-        episodes.reshape(()), ret_sum.reshape(()), max_episode_steps,
-    )
+    rand_a = rand_a.to(torch.int32)
+    if plan is None:
+        if not kernels.on_cuda(q, explore, rand_a, state.agent_idx, run_ret, bl.code_words, sem.deltas):
+            return dqn_act_step_reference(sem, bl, state, q, explore, rand_a, run_ret, episodes, ret_sum,
+                                          max_episode_steps)
+        plan = DqnActPlan(sem, bl, q.shape[0], max_episode_steps)
+    else:
+        plan.check_level(sem, bl, max_episode_steps)
+    idx, code, t, sdone, action, next_obs, reward, done, run_ret, episodes, ret_sum = plan(
+        state, q, explore, rand_a, run_ret, episodes, ret_sum)
     return FastState(idx, code, t, sdone), action, next_obs, reward, done, run_ret, episodes, ret_sum
 
 
@@ -466,6 +470,7 @@ class DQNLearner(NamedTuple):
     tiles: torch.Tensor | None   # per-env tile planes of a needs-tiles net
     rate: Callable               # Adam count → learning rate
     batch_env: int               # B, the envs stepped (and transitions written) a step
+    act_plan: DqnActPlan | None  # K7c's host plan on the card; None on the CPU
 
 
 def dqn_learner(sem: Semantics, level: Level, cfg: DQNConfig, batch_env: int) -> DQNLearner:
@@ -479,7 +484,9 @@ def dqn_learner(sem: Semantics, level: Level, cfg: DQNConfig, batch_env: int) ->
             f"({batch_env}) so circular writes never wrap mid-batch"
         )
     net = make_q_network(level, sem.num_actions, cfg)
-    return DQNLearner(pack_level(level), net, _tiles_for(net, level), _dqn_rate(cfg), batch_env)
+    bl = pack_level(level)
+    plan = DqnActPlan(sem, bl, batch_env, cfg.max_episode_steps) if level.device.type == "cuda" else None
+    return DQNLearner(bl, net, _tiles_for(net, level), _dqn_rate(cfg), batch_env, plan)
 
 
 @dataclasses.dataclass
@@ -585,7 +592,7 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
     statistics (K7c), write the transitions, sample, one clipped Adam step,
     move the target, refresh the priorities. `buf` and `prio` are written IN
     PLACE. `dqn_run` is a loop over this, inside `exact_kernels()`."""
-    bl, net, tiles, rate, batch_env = learner
+    bl, net, tiles, rate, batch_env, act_plan = learner
     explore, rand_a, sample = draws
     n = cfg.batch_size_train
 
@@ -593,7 +600,7 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
     with torch.no_grad():
         q, _ = _net_apply(net, params, obs, tiles)
     env_state, actions, next_obs, reward, done, *stats = dqn_act_step(
-        sem, bl, env_state, q, explore, rand_a, *stats, cfg.max_episode_steps)
+        sem, bl, env_state, q, explore, rand_a, *stats, cfg.max_episode_steps, plan=act_plan)
 
     # fresh transitions enter at the running max priority, so each is
     # sampled at least once with high probability

@@ -39,7 +39,7 @@ NUM_ENVS = 65_536
 OUR_KERNELS = ("gae_kernel", "nstep_returns", "act_step", "greedy_step", "embed_rows", "agent_stamp",
                "aldous_broder", "backtracker", "per_score", "per_hist", "per_count", "per_compact",
                "per_finish", "pick_sort", "replay_write", "replay_gather", "prio_refresh", "refresh_claim",
-               "refresh_write", "dqn_act_step", "dqn_fold_stats", "segment_count", "segment_scan",
+               "refresh_write", "dqn_act_step", "segment_count", "segment_scan",
                "segment_scatter", "segment_sum", "mc_returns", "trace_pass")
 
 

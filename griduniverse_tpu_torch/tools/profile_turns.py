@@ -1,6 +1,6 @@
-"""K4's, K9b's and K12's times on one CUDA card, beside another tree's.
+"""K4's, K5's, K7c's, K9b's and K12's times on one CUDA card, beside another tree's.
 
-    python -m griduniverse_tpu_torch.tools.profile_turns [--against DIR] [--tiers]
+    python -m griduniverse_tpu_torch.tools.profile_turns [--against DIR] [--tiers] [PART ...]
 
 From the root of a checkout, on a machine with a Hopper card and nvcc. It
 prints the card's name and power limit (`nvidia-smi`), then, for this tree
@@ -25,7 +25,22 @@ tree's package and builds its kernels):
   actions, and K9b's forward and backward (`agent_stamp_cuda`,
   `agent_stamp_backward_cuda`) at a PPO minibatch over per-env 9×9 mazes
   (N = 262,144 samples over Nl = 16,384 levels, C = 32, bfloat16), timed as
-  K4's calls are.
+  K4's calls are;
+- K5 (`td_scan_fast`) as a 2,000-step Q-learning scan at walls16 with
+  B = 65,536 and as a 300-step scan at one 65×65 backtracker maze (16,900 Q
+  entries, its global-memory tier) with B = 65,536 (CUDA events around 3
+  scans after a warm-up), and one `compile_q_learning_fast` run of the
+  first under `torch.profiler`, with its idle share;
+- K7c (`dqn_act_step` at walls16, B = 65,536, A = 4, through the learner's
+  host plan where the tree has one) as timed over 200 calls and as the
+  host's µs a call, and 20 DQN steps (`dqn_run`, uniform replay, a ring of
+  131,072) under `torch.profiler`: device events a step and the idle share.
+
+PART picks parts by name, all by default: `k4` (the K4 calls and solves),
+`k5`, `k7c`, `k9b` (K12 and K9b). With `--graph`, this tree's K5 scan is
+also captured in a CUDA graph, replayed and held bit for bit against an
+eager scan (or the capture's error is printed): whether a cooperative
+launch can be captured on the card's CUDA.
 
 With `--tiers` it times this tree's 16-sweep launch (VI and evaluation)
 with and without the table of decoded actions (`packing`'s `table`, the
@@ -114,19 +129,34 @@ def _profiled(name, fn, wall_ms, smi):
         print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
 
 
-def measure(tag: str) -> None:
+PARTS = ("k4", "k5", "k7c", "k9b")
+
+
+def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
     """The readings of the module's docstring for the package on sys.path."""
+    smi = _smi()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if "k4" in parts:
+        k4_calls(tag, dev, gen, smi)
+    if "k9b" in parts:
+        other_kernels(tag, dev, gen, smi)
+    if "k5" in parts:
+        k5_scans(tag, dev, smi, graph)
+    if "k7c" in parts:
+        k7c_calls(tag, dev, smi)
+
+
+def k4_calls(tag, dev, gen, smi) -> None:
+    """K4's calls and the solves."""
     import griduniverse_tpu_torch as gt
     from griduniverse_tpu_torch import algos
     from griduniverse_tpu_torch.kernels.dp_grid import grid_greedy_cuda, grid_sweeps_cuda
 
-    smi = _smi()
-    dev = torch.device("cuda", 0)
     sem = gt.make_semantics(device=dev)
     lv9 = _mazes(gt, dev, 2026, (4, 4), 65_536)
     lv33 = _mazes(gt, dev, 2027, (16, 16), 8_192)
     lv_pi = gt.Level(grid=lv9.grid[:4096].contiguous(), start_idx=lv9.start_idx[:4096].contiguous())
-    gen = torch.Generator(device=dev).manual_seed(0)
     for name, lv, evaluate in (("16 VI sweeps, 65,536 mazes 9x9", lv9, False),
                                ("16 VI sweeps, 8,192 mazes 33x33", lv33, False),
                                ("16 evaluation sweeps, 4,096 mazes 9x9", lv_pi, True),
@@ -159,7 +189,92 @@ def measure(tag: str) -> None:
         print(f"[{tag}] solve {name} ({out[2]} iterations): {walls!r} ms, {rates!r} mazes/s ({smi})")
         if name != "VI 8,192 mazes 33x33":
             _profiled(f"[{tag}] solve {name} profiled", fn, sorted(walls)[1], smi)
-    other_kernels(tag, dev, gen, smi)
+
+
+def k5_scans(tag, dev, smi, graph: bool) -> None:
+    """K5's scans, the idle share of a `compile_q_learning_fast` run, and
+    with `graph` the scan captured in a CUDA graph."""
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch import algos
+    from griduniverse_tpu_torch.algos import td_fast
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.levels import maze as M
+    from griduniverse_tpu_torch.ops import bitplane as bp
+
+    sem = gt.make_semantics(device=dev)
+    kw = dict(alpha=0.1, gamma=0.99, epsilon=0.1, algo="q_learning", max_episode_steps=512)
+    walls = bp.pack_level(builders.walls_and_goal_16x16(device=dev))
+    g65, start65 = M.generate_mazes_device(2028, (32, 32), 1, device=dev)
+    maze65 = bp.pack_level(gt.Level(grid=g65[0].contiguous(), start_idx=start65))
+    b = 65_536
+    for name, bl, steps in (("walls16", walls, 2_000), ("one 65x65 maze", maze65, 300)):
+        ts = td_fast.fast_td_init(sem, bl, 7, b)
+
+        def scan(bl=bl, ts=ts, steps=steps):
+            return td_fast.td_scan_fast(sem, bl, ts, steps, **kw)
+
+        print(f"[{tag}] K5 {steps}-step scan, {name}, B={b}: {_events_ms(scan, reps=3)!r} ms a scan ({smi})")
+    run = algos.compile_q_learning_fast(sem, walls, b, 2_000, alpha=0.1, gamma=0.99, epsilon=0.1,
+                                        max_episode_steps=512)
+    walls_ms = sorted(_wall_ms(lambda: run(7)) for _ in range(3))
+    print(f"[{tag}] compile_q_learning_fast walls16 B={b} T=2000: {walls_ms!r} ms on the host clock ({smi})")
+    _profiled(f"[{tag}] compile_q_learning_fast walls16 profiled", lambda: run(7), walls_ms[1], smi)
+    if graph:
+        ts = td_fast.fast_td_init(sem, walls, 7, b)
+        want = td_fast.td_scan_fast(sem, walls, ts, 200, **kw)
+        try:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                got = td_fast.td_scan_fast(sem, walls, ts, 200, **kw)
+            g.replay()
+            torch.cuda.synchronize()
+            same = all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                                   y.view(torch.int32) if y.dtype == torch.float32 else y)
+                       for x, y in ((got.q, want.q), (got.rs, want.rs), (got.ret_sum_env, want.ret_sum_env)))
+            print(f"[{tag}] K5 in a CUDA graph (torch {torch.__version__}, CUDA {torch.version.cuda}): captured "
+                  f"and replayed; bit-exact against the eager scan: {same} ({smi})")
+        except Exception as exc:  # the answer is the error itself
+            print(f"[{tag}] K5 in a CUDA graph (torch {torch.__version__}, CUDA {torch.version.cuda}): the capture "
+                  f"failed: {type(exc).__name__}: {exc} ({smi})")
+
+
+def k7c_calls(tag, dev, smi) -> None:
+    """K7c's call as timed and on the host, and a DQN step's device events
+    and idle share."""
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch import models
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.models import a2c, dqn, networks
+    from griduniverse_tpu_torch.tools.profile_learners import _profile
+
+    sem = gt.make_semantics(device=dev)
+    level = builders.walls_and_goal_16x16(device=dev)
+    b = 65_536
+    cfg = models.DQNConfig(buffer_capacity=2 * b, max_episode_steps=512)
+    ts = models.dqn_run(sem, level, models.dqn_init(sem, level, 5, cfg, b), cfg, 4)
+    learner = dqn.dqn_learner(sem, level, cfg, b)
+    plan = getattr(learner, "act_plan", None)
+    with torch.no_grad(), networks.exact_kernels():
+        q, _ = a2c._net_apply(learner.net, ts.params, ts.env_state.agent_idx, learner.tiles)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    explore = torch.rand(b, generator=gen, device=dev) < 0.05
+    rand_a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+    args = (sem, learner.bl, ts.env_state, q, explore, rand_a, ts.run_ret, ts.episodes, ts.ret_sum, 512)
+
+    def call():
+        return dqn.dqn_act_step(*args) if plan is None else dqn.dqn_act_step(*args, plan=plan)
+
+    print(f"[{tag}] K7c walls16 B={b} A=4 ({'a plan a run' if plan is not None else 'no plan'}): "
+          f"{_events_ms(call, reps=200)!r} ms a call as timed, {_host_us(call)!r} us of host time ({smi})")
+
+    def steps():
+        return models.dqn_run(sem, level, ts, cfg, 20)
+
+    walls_ms = sorted(_wall_ms(steps) for _ in range(3))
+    prof = _profile(f"[{tag}] dqn walls16 uniform B={b} 20 steps", steps, walls_ms[1], smi, top=4)
+    if prof is not None:
+        print(f"[{tag}] DQN step: {walls_ms[1] / 20!r} ms a step on the host clock ({walls_ms!r} ms a call of 20), "
+              f"{prof[1] / 20!r} device events a step, idle share {100 * prof[2]:.2f} % ({smi})")
 
 
 def other_kernels(tag, dev, gen, smi) -> None:
@@ -226,17 +341,20 @@ def main(argv: list[str] | None = None) -> None:
     args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("profile_turns: torch.cuda.is_available() is False; this runs only on a GPU")
+    parts = [a for a in args if a in PARTS] or list(PARTS)
     if args[:1] == ["--measure"]:  # one turn, in a process of its own
-        measure(args[1])
+        measure(args[1], parts, "--graph" in args)
         return
     against = Path(args[args.index("--against") + 1]).resolve() if "--against" in args else None
     print(_smi())
     here = Path(__file__).resolve().parents[2]
     turns = [here] if against is None else [against, here, here, against]
-    for root in turns:
+    for i, root in enumerate(turns):
         tag = "this tree" if root == here else str(root)
+        # the graph's question, once, in this tree's first turn
+        graph = ["--graph"] if "--graph" in args and root == here and here not in turns[:i] else []
         # this file, run as a script, imports the package of the tree it is pointed at
-        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", tag],
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", tag, *parts, *graph],
                        check=True, cwd=root, env=dict(os.environ, PYTHONPATH=str(root)))
     if "--tiers" in args:
         tiers()

@@ -16,8 +16,10 @@ import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch import kernels
 from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast, td_lambda
 from griduniverse_tpu_torch.kernels import agent_stamp as stamp_kernels
+from griduniverse_tpu_torch.kernels import dqn_act as dqn_act_kernels
 from griduniverse_tpu_torch.kernels import embed_rows as embed_kernels
 from griduniverse_tpu_torch.kernels import replay as replay_kernels
+from griduniverse_tpu_torch.kernels import td_fast as td_fast_kernels
 from griduniverse_tpu_torch.kernels import trace_pass as trace_kernels
 from griduniverse_tpu_torch.levels import builders
 from griduniverse_tpu_torch.models import a2c, dqn, networks, ppo
@@ -202,14 +204,61 @@ def test_td_scan_fast_kernel_matches_plain(dev, algo):
         kw = dict(alpha=0.2, gamma=0.99, epsilon=0.2, algo=algo, max_episode_steps=64)
         before = kernels.LAUNCHES["td_scan_fast"]
         got = td_fast.td_scan_fast(sem, bl, ts, 300, **kw)
-        # one step kernel a step, and the kernel that applies the last aggregate
-        assert kernels.LAUNCHES["td_scan_fast"] == before + 300 + 1
+        # one cooperative launch a scan
+        assert kernels.LAUNCHES["td_scan_fast"] == before + 1
         ref = td_fast.td_scan_fast_reference(sem, bl, ts, 300, **kw)
         _assert_same(_fast_fields(got), _fast_fields(ref))
         # chunked equals unbroken, and a second run repeats the bits
         half = td_fast.td_scan_fast(sem, bl, td_fast.td_scan_fast(sem, bl, ts, 100, **kw), 200, **kw)
         _assert_same(_fast_fields(half), _fast_fields(got))
         _assert_same(_fast_fields(td_fast.td_scan_fast(sem, bl, ts, 300, **kw)), _fast_fields(got))
+
+
+def _maze_bits(dev, cells, n, seed=4):
+    grids, start = M.generate_mazes_device(seed, cells, n, "binary_tree", device=dev)
+    return bp.pack_level(T.Level(grid=grids, start_idx=start.expand(n).contiguous()))
+
+
+@pytest.mark.parametrize("case", ["777", "777 expected_sarsa", "777 per-env mazes", "two envs a thread",
+                                  "three envs a thread", "global tier 300,000"])
+def test_td_scan_fast_kernel_matches_plain_at_other_batches(dev, case):
+    """Odd batches, per-env levels, more envs than the card holds threads
+    (two and three envs a thread of the form that keeps their state in
+    global memory), and the global-memory tier: one launch a scan, the
+    plain version's bits, chunked equal to unbroken, and two runs the
+    same."""
+    sem = T.make_semantics(device=dev)
+    algo = "expected_sarsa" if "expected" in case else "q_learning"
+    bl = _levels(dev)["walls16"]
+    steps, b = 120, 777
+    n_entries = bl.num_states * sem.num_actions
+    threads = td_fast_kernels.THREADS * td_fast_kernels._resident(dev, n_entries, 1)[1]  # a block an SM
+    if "per-env" in case:
+        bl = _maze_bits(dev, (4, 4), b)
+    elif case == "two envs a thread":
+        b, steps = td_fast_kernels._resident(dev, n_entries, 1)[0] * threads + 1_001, 60
+    elif case == "three envs a thread":
+        b, steps = 2 * td_fast_kernels._resident(dev, n_entries, 0)[0] * threads + 1_001, 30
+    elif case == "global tier 300,000":
+        bl, b, steps = _one_maze(dev, (32, 32), 6), 300_000, 40
+    n_entries = bl.num_states * sem.num_actions
+    plan = td_fast_kernels.grid_plan(b, td_fast_kernels._resident(dev, n_entries, 1)[1],
+                                     lambda ept: td_fast_kernels._resident(dev, n_entries, ept)[0])
+    want_walks = {"two envs a thread": 2, "three envs a thread": 3}.get(case)
+    if want_walks is not None:
+        assert plan.ept == 0 and plan.walks == want_walks
+    elif b == 300_000:
+        assert plan.walks > 1
+    ts = td_fast.fast_td_init(sem, bl, 3, None if bl.batched else b)
+    kw = dict(alpha=0.2, gamma=0.99, epsilon=0.2, algo=algo, max_episode_steps=16)
+    before = kernels.LAUNCHES["td_scan_fast"]
+    got = td_fast.td_scan_fast(sem, bl, ts, steps, **kw)
+    assert kernels.LAUNCHES["td_scan_fast"] == before + 1
+    _assert_same(_fast_fields(got), _fast_fields(td_fast.td_scan_fast_reference(sem, bl, ts, steps, **kw)))
+    half = td_fast.td_scan_fast(sem, bl, td_fast.td_scan_fast(sem, bl, ts, steps // 3, **kw), steps - steps // 3, **kw)
+    _assert_same(_fast_fields(half), _fast_fields(got))
+    _assert_same(_fast_fields(td_fast.td_scan_fast(sem, bl, ts, steps, **kw)), _fast_fields(got))
+    assert int(got.n_eps_env.sum()) > 0
 
 
 def _batched_fields(res):
@@ -726,7 +775,7 @@ def test_td_scan_fast_kernel_matches_plain_above_shared_memory(dev, algo):
     kw = dict(alpha=0.2, gamma=0.99, epsilon=0.2, algo=algo, max_episode_steps=64)
     before = kernels.LAUNCHES["td_scan_fast"]
     got = td_fast.td_scan_fast(sem, bl, ts, 200, **kw)
-    assert kernels.LAUNCHES["td_scan_fast"] == before + 200 + 1
+    assert kernels.LAUNCHES["td_scan_fast"] == before + 1
     _assert_same(_fast_fields(got), _fast_fields(td_fast.td_scan_fast_reference(sem, bl, ts, 200, **kw)))
     half = td_fast.td_scan_fast(sem, bl, td_fast.td_scan_fast(sem, bl, ts, 80, **kw), 120, **kw)
     _assert_same(_fast_fields(half), _fast_fields(got))
@@ -895,12 +944,15 @@ def test_grid_kernels_match_plain_above_shared_memory(dev):
     _assert_same(got[:2], ref[:2])
 
 
-@pytest.mark.parametrize("shape", ["walls16", "mazes", "odd_batch"])
+@pytest.mark.parametrize("shape", ["walls16", "mazes", "odd_batch", "wide", "wider"])
 def test_dqn_act_step_kernel_matches_plain(dev, shape):
+    """40 calls through one host plan, so that every call after the first
+    finds the ticket its last block set back to 0."""
     sem = T.make_semantics(device=dev)
     levels = _levels(dev)
     bl = levels["mazes"] if shape == "mazes" else levels["walls16"]
-    b = 1024 if shape != "odd_batch" else 777
+    b = {"odd_batch": 777, "wide": 65_536, "wider": 131_073}.get(shape, 1024)
+    plan = dqn_act_kernels.DqnActPlan(sem, bl, b, 10)
     gen = torch.Generator(device=dev).manual_seed(3)
     st = bp.reset_bits(bl, None if bl.batched else b)
     stats = (torch.zeros(b, device=dev), torch.zeros((), dtype=torch.int64, device=dev), torch.zeros((), device=dev))
@@ -910,8 +962,8 @@ def test_dqn_act_step_kernel_matches_plain(dev, shape):
         explore = torch.rand(b, generator=gen, device=dev) < 0.3
         rand_a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
         before = kernels.LAUNCHES["dqn_act"]
-        st, *out, r1, r2, r3 = dqn.dqn_act_step(sem, bl, st, q, explore, rand_a, *stats, 10)
-        assert kernels.LAUNCHES["dqn_act"] == before + 2
+        st, *out, r1, r2, r3 = dqn.dqn_act_step(sem, bl, st, q, explore, rand_a, *stats, 10, plan=plan)
+        assert kernels.LAUNCHES["dqn_act"] == before + 1
         stats = (r1, r2, r3)
         ref_st, *ref_out, s1, s2, s3 = dqn.dqn_act_step_reference(sem, bl, ref_st, q, explore, rand_a, *ref_stats, 10)
         ref_stats = (s1, s2, s3)
@@ -956,7 +1008,7 @@ def test_dqn_resume_through_disk_on_cuda(dev, tmp_path):
     assert step == 12 and restored.seed == 3 and restored.buf.obs.device.type == "cuda"
     before = kernels.LAUNCHES["dqn_act"]
     resumed = dqn.dqn_run(sem, level, restored, cfg, 12)
-    assert kernels.LAUNCHES["dqn_act"] == before + 24
+    assert kernels.LAUNCHES["dqn_act"] == before + 12
     got, want = flatten(resumed), flatten(full)
     assert list(got) == list(want)
     for key, x in want.items():

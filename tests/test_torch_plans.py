@@ -1,0 +1,186 @@
+"""The host side of K5's and K7c's one-launch designs, on the CPU.
+
+  * K5 (`kernels.td_fast`): `grid_plan` puts every env on exactly one
+    (thread, walk) of a grid that the card holds at once, an env a thread
+    where that grid fits, for odd batches and small and large cards.
+  * K7c (`kernels.dqn_act`): `carve` cuts one buffer into the eleven
+    outputs as disjoint, 16-byte-aligned views of the plain version's dtypes
+    and shapes; `DqnActPlan` raises on a step tensor of another shape, dtype
+    or device and on another level; and a literal walk of the kernel's one
+    launch (a tree in each block, then the last block's walk of the blocks'
+    sums in tiles) gives `ended_return_sum_reference`'s bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import griduniverse_tpu_torch as T
+from griduniverse_tpu_torch.kernels import dqn_act
+from griduniverse_tpu_torch.kernels import td_fast as k5
+from griduniverse_tpu_torch.levels import builders
+from griduniverse_tpu_torch.models import dqn
+from griduniverse_tpu_torch.ops import bitplane as bp
+
+CPU = torch.device("cpu")
+
+# blocks an SM holds at once, by envs a thread (0: the form with the state in global memory)
+H100_LIKE = {1: 2, 0: 2}  # as the H100 80GB HBM3 reports them for a 16x16 level
+TIGHT = {1: 1, 0: 3}
+
+
+@pytest.mark.parametrize("batch", [1, 511, 777, 65_535, 65_536, 135_169, 300_001, 540_673, 1_000_003])
+@pytest.mark.parametrize("sms,resident", [(132, H100_LIKE), (3, TIGHT)])
+def test_k5_grid_plan_covers_every_env_once(batch, sms, resident):
+    plan = k5.grid_plan(batch, sms, resident.__getitem__)
+    # a grid barrier must never wait on a block the card cannot hold
+    assert 1 <= plan.blocks <= resident[plan.ept] * sms
+    envs = k5.thread_envs(plan, batch)
+    assert envs.shape == (plan.blocks * k5.THREADS, plan.walks)
+    seen = envs[envs >= 0]
+    assert seen.numel() == batch and torch.equal(seen.sort().values, torch.arange(batch))
+    if plan.ept:
+        assert plan.ept == plan.walks == 1 and plan.blocks == -(-batch // k5.THREADS)
+    else:
+        # an env a thread would not fit the card
+        assert -(-batch // k5.THREADS) > resident[1] * sms
+        assert plan.blocks == resident[0] * sms and (plan.walks - 1) * plan.blocks * k5.THREADS < batch
+
+
+def test_k5_grid_plan_refuses_a_kernel_that_fits_no_sm():
+    with pytest.raises(RuntimeError):
+        k5.grid_plan(10**7, 132, lambda ept: 0)
+
+
+@pytest.mark.parametrize("b", [1, 5, 16, 777, 65_536, 131_073])
+def test_k7c_carve_gives_disjoint_aligned_views(b):
+    at, total = dqn_act.output_offsets(b)
+    buf = torch.empty(total // 4, dtype=torch.int32)
+    outs = dqn_act.carve(buf, b)
+    assert len(outs) == len(dqn_act.OUTPUTS) == 11
+    spans = []
+    for name, x in zip(dqn_act.OUTPUTS, outs):
+        offset, dtype, shape = at[name]
+        assert x.dtype == dtype and tuple(x.shape) == shape and x.is_contiguous(), name
+        start = x.data_ptr() - buf.data_ptr()
+        assert start == offset and start % 16 == 0, name
+        spans.append((start, start + x.numel() * x.element_size()))
+    spans.sort()
+    assert spans[0][0] >= 0 and spans[-1][1] <= total
+    assert all(end <= nxt for (_, end), (nxt, _) in zip(spans, spans[1:]))
+    # writing each view leaves the others as they were
+    for x in outs:
+        x.zero_()
+    for i, x in enumerate(outs):
+        x.fill_(1)
+        assert all(bool((y == 0).all()) for j, y in enumerate(outs) if j != i)
+        x.zero_()
+
+
+def test_k7c_carve_matches_the_plain_outputs():
+    """The views have the dtypes and shapes of `dqn_act_step_reference`'s
+    outputs, in the order the kernel's wrapper returns them."""
+    sem = T.make_semantics(device=CPU)
+    bl = bp.pack_level(builders.lava_level(device=CPU))
+    b = 37
+    st = bp.reset_bits(bl, b)
+    new_st, *ref = dqn.dqn_act_step_reference(
+        sem, bl, st, torch.zeros(b, 4), torch.zeros(b, dtype=torch.bool), torch.zeros(b, dtype=torch.int32),
+        torch.zeros(b), torch.zeros((), dtype=torch.int64), torch.zeros(()), 9)
+    ref = [new_st.agent_idx, new_st.agent_code, new_st.t, new_st.done, *ref]
+    outs = dqn_act.carve(torch.empty(dqn_act.output_offsets(b)[1] // 4, dtype=torch.int32), b)
+    assert [(x.dtype, x.shape) for x in outs] == [(x.dtype, x.shape) for x in ref]
+
+
+def _step_tensors(b, a=4):
+    st = bp.FastState(torch.zeros(b, dtype=torch.int32), torch.zeros(b, dtype=torch.int32),
+                      torch.zeros(b, dtype=torch.int32), torch.zeros(b, dtype=torch.bool))
+    return dict(q=torch.zeros(b, a), explore=torch.zeros(b, dtype=torch.bool),
+                rand_a=torch.zeros(b, dtype=torch.int32), agent_idx=st.agent_idx, agent_code=st.agent_code,
+                t=st.t, run_ret=torch.zeros(b), episodes=torch.zeros((), dtype=torch.int64),
+                ret_sum=torch.zeros(()))
+
+
+_FAULTS = {
+    "q of another batch": ("q", lambda x: torch.zeros(x.shape[0] + 1, 4)),
+    "q of another width": ("q", lambda x: torch.zeros(x.shape[0], 5)),
+    "q in float64": ("q", lambda x: x.double()),
+    "rand_a in int64": ("rand_a", lambda x: x.long()),
+    "explore as uint8": ("explore", lambda x: x.to(torch.uint8)),
+    "t of another batch": ("t", lambda x: x[:-1]),
+    "run_ret not contiguous": ("run_ret", lambda x: torch.zeros(2 * x.shape[0])[::2]),
+    "episodes of shape (1,)": ("episodes", lambda x: x.reshape(1)),
+    "ret_sum on another device": ("ret_sum", lambda x: torch.zeros((), device="meta")),
+    "agent_idx not a tensor": ("agent_idx", lambda x: x.tolist()),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_FAULTS))
+def test_k7c_plan_raises_on_a_wrong_step_tensor(fault):
+    sem = T.make_semantics(device=CPU)
+    bl = bp.pack_level(builders.walls_and_goal_16x16(device=CPU))
+    b = 77
+    plan = dqn_act.DqnActPlan(sem, bl, b, 16)
+    good = _step_tensors(b)
+    plan.check(tuple(good.values()))  # the plan's own shapes pass
+    name, spoil = _FAULTS[fault]
+    bad = dict(good, **{name: spoil(good[name])})
+    with pytest.raises((ValueError, TypeError), match=name):
+        plan.check(tuple(bad.values()))
+
+
+def test_k7c_plan_raises_on_another_level_and_off_the_card():
+    sem = T.make_semantics(device=CPU)
+    bl = bp.pack_level(builders.walls_and_goal_16x16(device=CPU))
+    other = bp.pack_level(builders.lava_level(device=CPU))
+    plan = dqn_act.DqnActPlan(sem, bl, 8, 16)
+    plan.check_level(sem, bl, 16)
+    for args in ((sem, other, 16), (sem, bl, 17), (T.make_semantics(device=CPU), bl, 16)):
+        with pytest.raises(ValueError, match="another"):
+            plan.check_level(*args)
+    with pytest.raises(ValueError):  # the level's own checks run once, when the plan is built
+        dqn_act.DqnActPlan(sem, bl, 0, 16)
+    t = _step_tensors(8)
+    st = bp.FastState(t["agent_idx"], t["agent_code"], t["t"], torch.zeros(8, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        plan(st, t["q"], t["explore"], t["rand_a"], t["run_ret"], t["episodes"], t["ret_sum"])
+    # the learner builds a plan only for a level on the card
+    learner = dqn.dqn_learner(sem, builders.walls_and_goal_16x16(device=CPU),
+                              dqn.DQNConfig(buffer_capacity=64, max_episode_steps=16), 8)
+    assert learner.act_plan is None
+
+
+def _one_launch_walk(ended: np.ndarray) -> np.float32:
+    """K7c's one launch, literally: each block of CHUNK envs sums its envs
+    by a tree in shared memory (envs past B add 0); the last block stages
+    the blocks' sums a tile of CHUNK at a time and its thread 0 adds them
+    in index order, from 0."""
+    chunk = dqn_act.CHUNK
+    blocks = -(-ended.shape[0] // chunk)
+    partial = np.zeros(blocks, np.float32)
+    for blk in range(blocks):
+        red = np.zeros(chunk, np.float32)
+        part = ended[blk * chunk:(blk + 1) * chunk]
+        red[: part.shape[0]] = part
+        half = chunk // 2
+        while half:
+            for i in range(half):
+                red[i] = np.float32(red[i] + red[i + half])
+            half //= 2
+        partial[blk] = red[0]
+    total = np.float32(0.0)
+    for base in range(0, blocks, chunk):
+        tile = partial[base:base + chunk].copy()
+        for i in range(tile.shape[0]):
+            total = np.float32(total + tile[i])
+    return total
+
+
+@pytest.mark.parametrize("b", [1, 255, 256, 257, 4_097, 65_793])
+def test_k7c_one_launch_fold_matches_the_plain_sum(b):
+    rng = np.random.default_rng(b)
+    ended = np.where(rng.random(b) < 0.3, rng.normal(size=b) * 50, 0.0).astype(np.float32)
+    got = dqn.ended_return_sum_reference(torch.as_tensor(ended))
+    assert np.float32(got.item()).view(np.int32) == _one_launch_walk(ended).view(np.int32)

@@ -281,9 +281,12 @@ def test_k4_tier_dispatch():
         dp_grid.grid_sweeps_cuda(TSEM, grids, torch.zeros((2, s)), None, 0.99, 4)
     with pytest.raises(ValueError, match="CUDA"):
         dp_grid.grid_greedy_cuda(TSEM, grids, torch.zeros((2, s)), 0.99, None)
+    bl = tbp.pack_level(tb.walls_and_goal_16x16(device=CPU))
+    st = tbp.reset_bits(bl, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        dqn_act.dqn_act_step_cuda(*([None] * 9), torch.zeros(2, dtype=torch.int32), None, None,
-                                  torch.zeros((2, 4)), None, None, None, None, None, None)
+        dqn_act.DqnActPlan(TSEM, bl, 2, None)(st, torch.zeros((2, 4)), torch.zeros(2, dtype=torch.bool),
+                                              torch.zeros(2, dtype=torch.int32), torch.zeros(2),
+                                              torch.zeros((), dtype=torch.int64), torch.zeros(()))
     with pytest.raises(ValueError, match="CUDA"):
         mc_returns.mc_returns_cuda(torch.zeros((3, 2)), 0.99)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
