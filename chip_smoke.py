@@ -17,12 +17,13 @@ size and checks what comes out:
     global-memory tier over 64 sidewinder mazes of 161×129 (20,769 states
     each); walls16 → K5
     shared-Q learning, and K5 on one 65×65 backtracker maze (16,900 Q
-    entries); mazes → K6 per-maze Q-learning; walls16 → `q_learning` on the
-    generic step with K10, at up to 65,536 envs;
+    entries); mazes → K6 per-maze Q-learning (tables in shared memory at
+    9×9, in device memory at 33×33); walls16 → `q_learning` on the generic
+    step with K10, at up to 65,536 envs;
   * the training path: `ppo_train` on walls16 (K7a, K7b, K9a) and on 65,536
     per-env mazes with the conv trunk (K7a, K7b, K9b), `a2c_train` on walls16
     (K7a's return scan, K7b, K9a), and `greedy_success_rate` (K7b's greedy
-    form), 65,536 envs each;
+    form), 65,536 envs each; K7b through the host plan each run builds;
   * the maze and probe path: K11 backtracker mazes through
     `generate_mazes_device` (up to 63×63 cells) → pack → K1; the gather
     probe tool (P1, P2);
@@ -147,7 +148,21 @@ def k4_function_ops(actions: int) -> int:
 # for 2,000 steps of 65,536 envs at walls16 on the H100
 INSTR_K5_STEP = 232
 INSTR_K5_ENTRY = 10
-INSTR_K6_STEP = 324     # the float32 Q-learning path with native draws
+# K6, the function's own operations a step at four actions (Q-learning,
+# native draws), counted one by one: the auto-reset env step 41 (two delta
+# loads and adds, four bound tests, four clamps, the candidate index, six to
+# read its tile code, the passable test, the blocked test, four selects of
+# the new position, the reward load, the terminal test, the time limit's
+# three, five selects of the reset, the four episode accumulators), the
+# three rows 15 (addresses and twelve loads), the ε-greedy draw 21 (xorshift
+# 6, coin 2, explore action 3, argmax 9, the select), the target and update
+# 14 (max 3, Q[s, a] by selects 3, the done select, γ·v, + r, − q, α·δ, + q,
+# the store and its address), the loop 3: 94. The shipped loop is 131 SASS
+# instructions a step in float32 (136 in bfloat16), the kernel of one thread
+# a maze over tables in device memory took 324 (a bound of 1.2694 ms); a
+# count made as K5's 232 an env step was, 240, is more than the shipped
+# kernel issues and so no bound
+INSTR_K6_STEP = 94
 INSTR_K10_ENV = 4       # key and α·δ of one env, an estimate
 K10_LAUNCHES = 4        # kernels a K10 call launches: count, scan, scatter, sum
 # The learners' kernels. K7a and K7b are one thread per env, counted as K1 is.
@@ -262,6 +277,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast
     from griduniverse_tpu_torch.core.step import step_autoreset
     from griduniverse_tpu_torch.kernels import dp_grid
+    from griduniverse_tpu_torch.kernels import td_batched as td_batched_kernels
     from griduniverse_tpu_torch.kernels.dp_grid import grid_greedy_cuda, grid_sweeps_cuda
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.levels import maze as M
@@ -602,6 +618,23 @@ def solver_phases(gt, dev, gen, bound, smi):
               f"({n64 * steps / ms6 * 1e3!r} transitions/s), plain {plain6!r} ms, bound {t6['bound_ms']!r} ms by {t6['bound_by']} ({smi})")
         if dtype == "float32":
             times["td_batched"] = t6
+    layout = td_batched_kernels.plan(lv64.num_states, sem.num_actions, "float32", n64,
+                                     sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"K6 main layout (float32): {layout}")
+
+    # K6 where no 32 tables fit a block: every maze on device memory (8,192 33x33
+    # mazes; a time limit of 64 steps, so that episodes end and reset in the run)
+    steps33, kw33 = 400, dict(max_episode_steps=64)
+    layout33 = td_batched_kernels.plan(lv33.num_states, sem.num_actions, "float32", n33)
+    _require(layout33.tier == "global", f"K6 33x33: {layout33}")
+    ms33, got = _cuda_ms(lambda: algos.q_learning_batched(sem, lv33, 9, steps33, **kw33), 2)
+    plain33, ref = _cuda_ms(lambda: td_batched.q_learning_batched_reference(sem, lv33, 9, steps33, **kw33), 1, warm=False)
+    hold("td_batched", "K6 33x33", _batched_fields(got), _batched_fields(ref), _BATCHED_FIELDS)
+    _require(int(got.episodes) > 0, "K6 33x33: no episode ended")
+    # the tables once each way, the packed levels (2 bits a tile), the state both ways
+    t33 = bound(2 * got.q.numel() * 4 + lv33.grid.numel() // 4 + n33 * 2 * 8 * 4, INSTR_K6_STEP * n33 * steps33)
+    print(f"K6 33x33 (the global tier, {layout33}): the {steps33}-step run at N={n33} bit-exact vs plain; kernel "
+          f"{ms33!r} ms, plain {plain33!r} ms, bound {t33['bound_ms']!r} ms by {t33['bound_by']} ({smi})")
 
     lap("phase 9, the K4, K5 and K6 holds")
     # K10 at full width: the main path's `td_run` redone one step at a time,
@@ -795,6 +828,7 @@ def learner_phases(gt, dev, gen, bound, smi):
     counted, its outputs against the plain versions, and the times. Returns
     (launches, max abs errors, times) by kernel name."""
     from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.kernels import act_step as act_kernels
     from griduniverse_tpu_torch.kernels import agent_stamp as k9b
     from griduniverse_tpu_torch.kernels import embed_rows as k9a
     from griduniverse_tpu_torch.levels import builders
@@ -802,6 +836,7 @@ def learner_phases(gt, dev, gen, bound, smi):
     from griduniverse_tpu_torch.models import a2c, networks, ppo
     from griduniverse_tpu_torch.tools.profile_learners import _profile
     from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+    from griduniverse_tpu_torch.tools.profile_turns import _plan_graph_ms
     from griduniverse_tpu_torch.ops import bitplane as bp
 
     errs = {"gae": 0.0, "act_step": 0.0, "embed_rows": 0.0, "agent_stamp": 0.0}
@@ -1031,10 +1066,11 @@ def learner_phases(gt, dev, gen, bound, smi):
                 noise, draws = ppo.update_draws(dev, before_last.seed, before_last.update, cfg, n64, num_actions)
                 upd = ppo.ppo_update(sem, learner, cfg, params, before_last.opt_state, before_last.env_state, noise, draws)
             else:
-                learner = a2c.a2c_learner(sem, level, cfg)
+                learner = a2c.a2c_learner(sem, level, cfg, n64)
                 noise = a2c.update_noise(dev, before_last.seed, before_last.update, cfg, n64, num_actions)
                 upd = a2c.a2c_update(sem, learner, cfg, params, before_last.opt_state, before_last.env_state, noise)
-        bl, net, tiles, _ = learner
+        bl, net, tiles, _, act_plan = learner
+        _require(act_plan is not None, f"{name}: the learner built no K7b plan on the card")
         stand_in = type(end)(**{**vars(end), "params": upd.params, "opt_state": upd.opt_state,
                                 "env_state": upd.env_state, "last_loss": upd.loss})
         _same_train_state(f"{name} the last update redone", stand_in, end)
@@ -1137,7 +1173,7 @@ def learner_phases(gt, dev, gen, bound, smi):
 
     # the greedy path once more: every step of it against the plain version
     level, cfg, _, end = runs["ppo mazes64k"]
-    bl, net, tiles, _ = ppo.ppo_learner(sem, level, cfg, n64)
+    bl, net, tiles, _, _ = ppo.ppo_learner(sem, level, cfg, n64)
     st = bp.reset_bits(bl, None)
     reached = torch.zeros(n64, dtype=torch.bool, device=dev)
     with torch.no_grad(), networks.exact_kernels():
@@ -1164,17 +1200,33 @@ def learner_phases(gt, dev, gen, bound, smi):
     ms_r, _ = _cuda_ms(lambda: a2c.nstep_returns(traj.reward, traj.done, bootstrap, 0.99), 50)
     print(f"K7a timed: GAE {ms!r} ms, n-step returns {ms_r!r} ms at T={t_len} B={n64} ({smi})")
 
+    # K7b as the rollout calls it: a step through a plan built once, on the
+    # main path's last step of each shape
     for name in ("ppo walls16", "ppo mazes64k"):
         bl, st, logits, g_t, max_ep = kept[f"act {name}"]
-        ms, got = _cuda_ms(lambda: a2c.act_step(sem, bl, st, logits, g_t, max_ep), 50)
-        plain_ms, ref = _cuda_ms(lambda: a2c.act_step_reference(sem, bl, st, logits, g_t, max_ep), 3)
+
+        def make_plan(bl=bl, st=st, g_t=g_t, max_ep=max_ep):
+            plan = act_kernels.ActStepPlan(sem, bl, n64, 1, max_ep)
+            plan.begin(st, g_t[None])
+            return plan
+
+        logits = logits.contiguous()
+        plan = make_plan()
+        new_st = plan.step(0, logits)
+        obs, action, logp, reward, done = (row[0] for row in plan.rows)
+        got = (new_st, action, logp, obs, reward, done)
+        ref = a2c.act_step_reference(sem, bl, st, logits, g_t, max_ep)
         _same_fields(f"K7b timed {name}", _act_fields(got), _act_fields(ref), _ACT_FIELDS)
-        errs["act_step"] = max(errs["act_step"], _logp_err(f"K7b timed {name}", got[2], ref[2]))
+        errs["act_step"] = max(errs["act_step"], _logp_err(f"K7b timed {name}", logp, ref[2]))
+        ms, _ = _cuda_ms(lambda: plan.step(0, logits), 200)
+        graph_ms = _plan_graph_ms(make_plan, lambda p, logits=logits: p.step(0, logits))
+        plain_ms, _ = _cuda_ms(lambda: a2c.act_step_reference(sem, bl, st, logits, g_t, max_ep), 3)
         level_bytes = bl.code_words.shape[-1] * 4 if bl.batched else 0
         # logits and noise (2·A floats), state in (12 bytes) and out (13), five outputs (17), a per-env level's words
         t7b = dict(ms=ms, plain_ms=plain_ms, shape=f"{name.split()[1]} B={n64} A={num_actions}", library_ms=None,
                    **bound(n64 * (8 * num_actions + 42 + level_bytes), INSTR_K7B_ENV * n64))
-        print(f"K7b timed {name}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {t7b['bound_ms']!r} ms by {t7b['bound_by']} ({smi})")
+        print(f"K7b timed {name}, a step through the run's plan: kernel {ms!r} ms as timed, {graph_ms!r} ms in a "
+              f"CUDA graph, plain {plain_ms!r} ms, bound {t7b['bound_ms']!r} ms by {t7b['bound_by']} ({smi})")
         if name == "ppo walls16":
             times["act_step"] = t7b
 

@@ -4,8 +4,10 @@ PyTorch counterpart of `griduniverse_tpu/algos/td_batched.py`. Env n lives
 in maze n and learns its own table, so one call trains N independent
 tabular agents: no experience mixes, and the update is the sequential rule
 `Q[n, s, a] += α·δ` with no aggregation. On CUDA the whole run is kernel K6
-(`csrc/td_batched.cu`): one thread per maze, T steps inside one launch. On
-the CPU it is the plain version `q_learning_batched_reference`. The
+(`csrc/td_batched.cu`): one thread per maze, T steps inside one launch, as
+many tables a block as fit held in shared memory for the whole run
+(`kernels.td_batched.plan`). On the CPU it is the plain version
+`q_learning_batched_reference`. The
 reference's select-tree row lookup is not carried over: a lookup is an
 index.
 

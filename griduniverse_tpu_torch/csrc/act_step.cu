@@ -10,14 +10,21 @@
 // env entered a positively rewarded terminal". The JAX versions are XLA
 // fusions inside a `lax.scan`, with one-hot sums in place of gathers.
 //
-// Bound on the card: bytes, and at these sizes the launch. Per env it reads
-// 2·A floats and 12 bytes of state and writes 29 bytes; the step itself is
-// `gu::step_autoreset` of step.cuh, a short chain of integer operations on
-// tables in shared memory.
+// Bound on the card: bytes, and at these sizes the launch and the host's
+// work around it. Per env it reads 2·A floats and 12 bytes of state and
+// writes 30 bytes; the step itself is `gu::step_autoreset` of step.cuh, a
+// short chain of integer operations on tables in shared memory.
 //
-// Design: one thread per env. The semantics tables, and a shared level's
-// packed words, are staged in shared memory as K1 does. The argmax takes
-// the first maximum, as `jnp.argmax` and `torch.argmax` do. `logp` is
+// Design: one launch a rollout step behind a host plan (`kernels/act_step.py`
+// `ActStepPlan`), built once a run. The plan holds, in one C struct, the
+// checked semantics and level, the rollout's noise, the (T, B) rows of the
+// trajectory and two slots of env state; a step reads its state from a slot
+// (or the caller's tensors) and writes the other slot and row t of the
+// trajectory in place, so a step allocates nothing and makes no view. One
+// thread per env; the semantics tables, and a shared level's packed words,
+// are staged in shared memory as K1 does. At A = 4 a row of logits and one
+// of noise are one 16-byte load each. The argmax takes the first maximum,
+// as `jnp.argmax` and `torch.argmax` do. `logp` is
 // `logits[a] − max − log Σ exp(logits − max)` in float32 through `expf` and
 // `logf`; it is the one output that need not equal the plain version to the
 // last bit (the library's exp, log and sum order differ). Everything else
@@ -32,140 +39,177 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kStateFields = 5;  // a slot: agent_idx, agent_code, t, done, reached
 
-__global__ void act_step_kernel(
-    const uint8_t* __restrict__ passable, const uint8_t* __restrict__ terminal,
-    const float* __restrict__ reward, const int* __restrict__ deltas, int num_actions,
-    const uint32_t* __restrict__ words, int n_words, int per_env,
-    const int* __restrict__ start_idx, const int* __restrict__ start_code, int h, int w,
-    int batch, int max_episode_steps, const float* __restrict__ logits,
-    const float* __restrict__ gumbel, const int* __restrict__ idx_in,
-    const int* __restrict__ code_in, const int* __restrict__ t_in, int* __restrict__ idx_out,
-    int* __restrict__ code_out, int* __restrict__ t_out, uint8_t* __restrict__ state_done_out,
-    int* __restrict__ action_out, float* __restrict__ logp_out, int* __restrict__ obs_out,
-    float* __restrict__ reward_out, uint8_t* __restrict__ done_out) {
-  __shared__ gu::Tables tab;
-  __shared__ uint32_t s_words[gu::kMaxWords];
-  gu::load_tables(tab, passable, terminal, reward, deltas, num_actions);
-  if (!per_env) {
-    for (int i = threadIdx.x; i < n_words; i += blockDim.x) s_words[i] = words[i];
+// `kernels/act_step.py` `_PlanArgs`, field for field
+struct ActPlan {
+  const uint8_t* passable;
+  const uint8_t* terminal;
+  const float* reward;
+  const int* deltas;
+  int num_actions;
+  const uint32_t* words;
+  int n_words;
+  int per_env;
+  const int* start_idx;
+  const int* start_code;
+  int h;
+  int w;
+  int batch;
+  int max_episode_steps;
+  const float* gumbel;  // (T, B, A): the rollout's noise
+  int* obs;             // the trajectory's (T, B) rows
+  int* action;
+  float* logp;
+  float* reward_row;
+  uint8_t* done;
+  void* slot[2][kStateFields];
+};
+
+struct StateIn {
+  const int* idx;
+  const int* code;
+  const int* t;
+  const uint8_t* done;
+  const uint8_t* reached;
+};
+
+// The plan's semantics tables, and a shared level's words, into shared memory.
+__device__ __forceinline__ void stage(const ActPlan& p, gu::Tables& tab, uint32_t* s_words) {
+  gu::load_tables(tab, p.passable, p.terminal, p.reward, p.deltas, p.num_actions);
+  if (!p.per_env) {
+    for (int i = threadIdx.x; i < p.n_words; i += blockDim.x) s_words[i] = p.words[i];
   }
   __syncthreads();
+}
+
+// The env's row of `x` (B, A) into `row`: one 16-byte load at kVec4.
+template <bool kVec4>
+__device__ __forceinline__ void load_logits(const float* x, int b, int na, float* row) {
+  if constexpr (kVec4) {
+    const float4 v = reinterpret_cast<const float4*>(x)[b];
+    row[0] = v.x;
+    row[1] = v.y;
+    row[2] = v.z;
+    row[3] = v.w;
+  } else {
+    for (int k = 0; k < na; ++k) row[k] = x[static_cast<size_t>(b) * na + k];
+  }
+}
+
+template <bool kVec4>
+__global__ void act_step_kernel(ActPlan p, int step, const float* __restrict__ logits,
+                                StateIn in, int out) {
+  __shared__ gu::Tables tab;
+  __shared__ uint32_t s_words[gu::kMaxWords];
+  stage(p, tab, s_words);
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const uint32_t* lw = per_env ? words + static_cast<size_t>(b) * n_words : s_words;
-  const int s_idx = per_env ? start_idx[b] : start_idx[0];
-  const int s_code = per_env ? start_code[b] : start_code[0];
+  if (b >= p.batch) return;
+  const int na = kVec4 ? 4 : p.num_actions;
+  const uint32_t* lw = p.per_env ? p.words + static_cast<size_t>(b) * p.n_words : s_words;
+  const int s_idx = p.per_env ? p.start_idx[b] : p.start_idx[0];
+  const int s_code = p.per_env ? p.start_code[b] : p.start_code[0];
 
   float row[gu::kMaxActions];
   float noisy[gu::kMaxActions];
-  const size_t base = static_cast<size_t>(b) * num_actions;
-  for (int a = 0; a < num_actions; ++a) {
-    row[a] = logits[base + a];
-    noisy[a] = row[a] + gumbel[base + a];
-  }
-  const int a = gu::first_argmax(noisy, num_actions);
+  load_logits<kVec4>(logits, b, na, row);
+  load_logits<kVec4>(p.gumbel + static_cast<size_t>(step) * p.batch * na, b, na, noisy);
+  for (int k = 0; k < na; ++k) noisy[k] = row[k] + noisy[k];
+  const int a = gu::first_argmax(noisy, na);
   float m = row[0];
-  for (int k = 1; k < num_actions; ++k) m = fmaxf(m, row[k]);
+  for (int k = 1; k < na; ++k) m = fmaxf(m, row[k]);
   float sum = 0.0f;
-  for (int k = 0; k < num_actions; ++k) sum += expf(row[k] - m);
+  for (int k = 0; k < na; ++k) sum += expf(row[k] - m);
   const float logp = row[a] - m - logf(sum);
 
-  int idx = idx_in[b], code = code_in[b], t = t_in[b];
-  obs_out[b] = idx;  // the observation the action was taken from
+  int idx = in.idx[b], code = in.code[b], t = in.t[b];
+  const size_t o = static_cast<size_t>(step) * p.batch + b;
+  p.obs[o] = idx;  // the observation the action was taken from
   gu::Episode unused{0.0f, 0.0f, 0, 0};
-  const gu::Transition tr = gu::step_autoreset(tab, lw, h, w, s_idx, s_code, max_episode_steps, a,
-                                               idx, code, t, unused);
-  idx_out[b] = idx;
-  code_out[b] = code;
-  t_out[b] = t;
-  state_done_out[b] = 0;
-  action_out[b] = a;
-  logp_out[b] = logp;
-  reward_out[b] = tr.reward;
-  done_out[b] = tr.done;
+  const gu::Transition tr = gu::step_autoreset(tab, lw, p.h, p.w, s_idx, s_code,
+                                               p.max_episode_steps, a, idx, code, t, unused);
+  static_cast<int*>(p.slot[out][0])[b] = idx;
+  static_cast<int*>(p.slot[out][1])[b] = code;
+  static_cast<int*>(p.slot[out][2])[b] = t;
+  static_cast<uint8_t*>(p.slot[out][3])[b] = 0;
+  p.action[o] = a;
+  p.logp[o] = logp;
+  p.reward_row[o] = tr.reward;
+  p.done[o] = tr.done;
 }
 
-__global__ void greedy_step_kernel(
-    const uint8_t* __restrict__ passable, const uint8_t* __restrict__ terminal,
-    const float* __restrict__ reward, const int* __restrict__ deltas, int num_actions,
-    const uint32_t* __restrict__ words, int n_words, int per_env, int h, int w, int batch,
-    const float* __restrict__ logits, const int* __restrict__ idx_in,
-    const int* __restrict__ code_in, const int* __restrict__ t_in,
-    const uint8_t* __restrict__ done_in, const uint8_t* __restrict__ reached_in,
-    int* __restrict__ idx_out, int* __restrict__ code_out, int* __restrict__ t_out,
-    uint8_t* __restrict__ done_out, uint8_t* __restrict__ reached_out) {
+template <bool kVec4>
+__global__ void greedy_step_kernel(ActPlan p, const float* __restrict__ logits, StateIn in,
+                                   int out) {
   __shared__ gu::Tables tab;
   __shared__ uint32_t s_words[gu::kMaxWords];
-  gu::load_tables(tab, passable, terminal, reward, deltas, num_actions);
-  if (!per_env) {
-    for (int i = threadIdx.x; i < n_words; i += blockDim.x) s_words[i] = words[i];
-  }
-  __syncthreads();
+  stage(p, tab, s_words);
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const uint32_t* lw = per_env ? words + static_cast<size_t>(b) * n_words : s_words;
-  const int a = gu::first_argmax(logits + static_cast<size_t>(b) * num_actions, num_actions);
+  if (b >= p.batch) return;
+  const int na = kVec4 ? 4 : p.num_actions;
+  const uint32_t* lw = p.per_env ? p.words + static_cast<size_t>(b) * p.n_words : s_words;
+  float row[gu::kMaxActions];
+  load_logits<kVec4>(logits, b, na, row);
+  const int a = gu::first_argmax(row, na);
 
-  int idx = idx_in[b], code = code_in[b], t = t_in[b];
-  bool done = done_in[b] != 0;
-  bool reached = reached_in[b] != 0;
+  int idx = in.idx[b], code = in.code[b], t = in.t[b];
+  bool done = in.done[b] != 0;
+  bool reached = in.reached[b] != 0;
   if (!done) {  // frozen after termination
-    const gu::Move m = gu::move_bits(tab, lw, h, w, idx, code, a);
+    const gu::Move m = gu::move_bits(tab, lw, p.h, p.w, idx, code, a);
     idx = m.idx;
     code = m.code;
     t += 1;
     done = m.done;
     reached = reached || (m.done && m.reward > 0.0f);
   }
-  idx_out[b] = idx;
-  code_out[b] = code;
-  t_out[b] = t;
-  done_out[b] = done;
-  reached_out[b] = reached;
+  static_cast<int*>(p.slot[out][0])[b] = idx;
+  static_cast<int*>(p.slot[out][1])[b] = code;
+  static_cast<int*>(p.slot[out][2])[b] = t;
+  static_cast<uint8_t*>(p.slot[out][3])[b] = done;
+  static_cast<uint8_t*>(p.slot[out][4])[b] = reached;
 }
+
+bool aligned16(const void* x) { return (reinterpret_cast<uintptr_t>(x) & 15) == 0; }
 
 }  // namespace
 
-extern "C" int gu_act_step(
-    const void* passable, const void* terminal, const void* reward, const void* deltas,
-    int num_actions, const void* words, int n_words, int per_env, const void* start_idx,
-    const void* start_code, int h, int w, int batch, int max_episode_steps, const void* logits,
-    const void* gumbel, const void* idx_in, const void* code_in, const void* t_in, void* idx_out,
-    void* code_out, void* t_out, void* state_done_out, void* action_out, void* logp_out,
-    void* obs_out, void* reward_out, void* done_out, void* stream) {
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  act_step_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(passable), static_cast<const uint8_t*>(terminal),
-      static_cast<const float*>(reward), static_cast<const int*>(deltas), num_actions,
-      static_cast<const uint32_t*>(words), n_words, per_env, static_cast<const int*>(start_idx),
-      static_cast<const int*>(start_code), h, w, batch, max_episode_steps,
-      static_cast<const float*>(logits), static_cast<const float*>(gumbel),
-      static_cast<const int*>(idx_in), static_cast<const int*>(code_in),
-      static_cast<const int*>(t_in), static_cast<int*>(idx_out), static_cast<int*>(code_out),
-      static_cast<int*>(t_out), static_cast<uint8_t*>(state_done_out),
-      static_cast<int*>(action_out), static_cast<float*>(logp_out), static_cast<int*>(obs_out),
-      static_cast<float*>(reward_out), static_cast<uint8_t*>(done_out));
+// Rollout step `step` of the plan (host memory): logits (B, A), the state
+// in (idx, code, t), written to the plan's slot `out` and row `step`.
+extern "C" int gu_act_step(const void* plan, int step, const void* logits, const void* idx_in,
+                           const void* code_in, const void* t_in, int out, void* stream) {
+  const ActPlan& p = *static_cast<const ActPlan*>(plan);
+  const StateIn in{static_cast<const int*>(idx_in), static_cast<const int*>(code_in),
+                   static_cast<const int*>(t_in), nullptr, nullptr};
+  const int blocks = (p.batch + kThreads - 1) / kThreads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lg = static_cast<const float*>(logits);
+  if (p.num_actions == 4 && aligned16(lg) && aligned16(p.gumbel)) {
+    act_step_kernel<true><<<blocks, kThreads, 0, st>>>(p, step, lg, in, out);
+  } else {
+    act_step_kernel<false><<<blocks, kThreads, 0, st>>>(p, step, lg, in, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gu_greedy_step(
-    const void* passable, const void* terminal, const void* reward, const void* deltas,
-    int num_actions, const void* words, int n_words, int per_env, int h, int w, int batch,
-    const void* logits, const void* idx_in, const void* code_in, const void* t_in,
-    const void* done_in, const void* reached_in, void* idx_out, void* code_out, void* t_out,
-    void* done_out, void* reached_out, void* stream) {
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  greedy_step_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(passable), static_cast<const uint8_t*>(terminal),
-      static_cast<const float*>(reward), static_cast<const int*>(deltas), num_actions,
-      static_cast<const uint32_t*>(words), n_words, per_env, h, w, batch,
-      static_cast<const float*>(logits), static_cast<const int*>(idx_in),
-      static_cast<const int*>(code_in), static_cast<const int*>(t_in),
-      static_cast<const uint8_t*>(done_in), static_cast<const uint8_t*>(reached_in),
-      static_cast<int*>(idx_out), static_cast<int*>(code_out), static_cast<int*>(t_out),
-      static_cast<uint8_t*>(done_out), static_cast<uint8_t*>(reached_out));
+// One greedy step of the plan: logits (B, A), the state and flags in,
+// written to the plan's slot `out`.
+extern "C" int gu_greedy_step(const void* plan, const void* logits, const void* idx_in,
+                              const void* code_in, const void* t_in, const void* done_in,
+                              const void* reached_in, int out, void* stream) {
+  const ActPlan& p = *static_cast<const ActPlan*>(plan);
+  const StateIn in{static_cast<const int*>(idx_in), static_cast<const int*>(code_in),
+                   static_cast<const int*>(t_in), static_cast<const uint8_t*>(done_in),
+                   static_cast<const uint8_t*>(reached_in)};
+  const int blocks = (p.batch + kThreads - 1) / kThreads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lg = static_cast<const float*>(logits);
+  if (p.num_actions == 4 && aligned16(lg)) {
+    greedy_step_kernel<true><<<blocks, kThreads, 0, st>>>(p, lg, in, out);
+  } else {
+    greedy_step_kernel<false><<<blocks, kThreads, 0, st>>>(p, lg, in, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // step.cuh — the device step of the bit-packed engine, shared by the
-// rollout kernels K1 and K2 (rollout.cu) and the TD kernels K5
-// (td_fast.cu) and K6 (td_batched.cu).
+// rollout kernels K1 and K2 (rollout.cu), the TD kernels K5 (td_fast.cu)
+// and K6 (td_batched.cu), and the act-and-step kernels K7b (act_step.cu)
+// and K7c (dqn_act.cu).
 //
 // Replaces: griduniverse_tpu/ops/bitplane.py `move_bits` (160) with its
 // callees `tile_code` (140) and `_per_code` (154). The JAX version looks a
@@ -54,7 +55,10 @@ __device__ inline void load_tables(Tables& s, const uint8_t* passable,
   s.num_actions = num_actions;
 }
 
-__device__ __forceinline__ int tile_code(const uint32_t* words, int idx) {
+// `words` is anything indexed like an array of the packed words: a pointer,
+// or a strided column of them (K6's levels in shared memory).
+template <typename Words>
+__device__ __forceinline__ int tile_code(const Words& words, int idx) {
   return static_cast<int>((words[idx >> 4] >> ((idx & 15) * 2)) & 3u);
 }
 
@@ -65,31 +69,58 @@ __device__ __forceinline__ int clamp_action(int a, int n) {
   return a < 0 ? 0 : (a >= n ? n - 1 : a);
 }
 
+// Where an agent stands: its index, the tile code there, and its row and
+// column (idx = row * w + col).
+struct Pos {
+  int idx;
+  int code;
+  int row;
+  int col;
+};
+
 struct Move {
   int idx;
   int code;
   float reward;
   bool done;
+  int row;
+  int col;
 };
 
-// (idx, code at idx, action) -> (new idx, new code, reward, terminal),
-// bit-exactly the JAX `move_bits`.
-__device__ __forceinline__ Move move_bits(const Tables& s, const uint32_t* words,
-                                          int h, int w, int idx, int code, int a) {
-  const int row = idx / w;
-  const int col = idx - row * w;
-  const int nrow = row + s.drow[a];
-  const int ncol = col + s.dcol[a];
+// (position, action) -> (new position, reward, terminal), bit-exactly the
+// JAX `move_bits`. The row and column come with the position, so a caller
+// that carries them never divides by the width.
+template <typename Words>
+__device__ __forceinline__ Move move_from(const Tables& s, const Words& words, int h, int w,
+                                          const Pos& p, int a) {
+  const int nrow = p.row + s.drow[a];
+  const int ncol = p.col + s.dcol[a];
   const bool in_bounds = nrow >= 0 && nrow < h && ncol >= 0 && ncol < w;
-  const int cand = min(max(nrow, 0), h - 1) * w + min(max(ncol, 0), w - 1);
+  const int crow = min(max(nrow, 0), h - 1);
+  const int ccol = min(max(ncol, 0), w - 1);
+  const int cand = crow * w + ccol;
   const int cand_code = tile_code(words, cand);
   const bool blocked = !in_bounds || !((s.passable >> cand_code) & 1);
   Move m;
-  m.idx = blocked ? idx : cand;
-  m.code = blocked ? code : cand_code;
+  m.idx = blocked ? p.idx : cand;
+  m.code = blocked ? p.code : cand_code;
+  m.row = blocked ? p.row : crow;
+  m.col = blocked ? p.col : ccol;
   m.reward = s.reward[m.code];
   m.done = (s.terminal >> m.code) & 1;
   return m;
+}
+
+__device__ __forceinline__ Pos at_index(int idx, int code, int w) {
+  const int row = idx / w;
+  return Pos{idx, code, row, idx - row * w};
+}
+
+// (idx, code at idx, action) -> the move, the row and column computed here.
+template <typename Words>
+__device__ __forceinline__ Move move_bits(const Tables& s, const Words& words, int h, int w,
+                                          int idx, int code, int a) {
+  return move_from(s, words, h, w, at_index(idx, code, w), a);
 }
 
 // What one auto-reset step hands back beside the new env state: the
@@ -111,15 +142,15 @@ struct Episode {
 };
 
 // One auto-reset step with the optional time limit (`max_episode_steps`
-// < 0: none). Updates (idx, code, t) in place, reset to the level start
+// < 0: none). Updates the position `p` and `t` in place, reset to `start`
 // when the episode ended, else advanced, and folds the step into `ep`.
 // Everything that happens when an episode ends sits in one branch; a
 // caller that reads none of `ep` pays nothing for it.
-__device__ __forceinline__ Transition step_autoreset(
-    const Tables& s, const uint32_t* words, int h, int w, int start_idx,
-    int start_code, int max_episode_steps, int a, int& idx, int& code, int& t,
-    Episode& ep) {
-  const Move m = move_bits(s, words, h, w, idx, code, a);
+template <typename Words>
+__device__ __forceinline__ Transition step_autoreset_from(
+    const Tables& s, const Words& words, int h, int w, const Pos& start,
+    int max_episode_steps, int a, Pos& p, int& t, Episode& ep) {
+  const Move m = move_from(s, words, h, w, p, a);
   const bool done = m.done || (max_episode_steps >= 0 && t + 1 >= max_episode_steps);
   ep.run_ret += m.reward;
   if (done) {
@@ -127,15 +158,28 @@ __device__ __forceinline__ Transition step_autoreset(
     ep.ret_sum += ep.run_ret;
     ep.len_sum += t + 1;
     ep.run_ret = 0.0f;
-    idx = start_idx;
-    code = start_code;
+    p = start;
     t = 0;
   } else {
-    idx = m.idx;
-    code = m.code;
+    p = Pos{m.idx, m.code, m.row, m.col};
     t += 1;
   }
   return Transition{m.idx, m.reward, done};
+}
+
+// The same step on (idx, code), the row and column computed here; the
+// start's are never read.
+template <typename Words>
+__device__ __forceinline__ Transition step_autoreset(
+    const Tables& s, const Words& words, int h, int w, int start_idx,
+    int start_code, int max_episode_steps, int a, int& idx, int& code, int& t,
+    Episode& ep) {
+  Pos p = at_index(idx, code, w);
+  const Transition tr = step_autoreset_from(s, words, h, w, Pos{start_idx, start_code, 0, 0},
+                                            max_episode_steps, a, p, t, ep);
+  idx = p.idx;
+  code = p.code;
+  return tr;
 }
 
 // One xorshift32 round; the new state is also the random word.

@@ -9,38 +9,68 @@
 // JAX version looks rows up with a select tree and updates with a one-hot
 // outer product over the whole table; here both are one indexed access.
 //
-// Bound on the card: bytes, by latency. A thread's three row reads and one
-// write per step land at data-dependent rows of its own table (1.3 KB in
-// float32 at 9x9), and all tables together outgrow the L2 cache at 65,536
-// mazes, so a step is a chain of dependent L2 or device-memory accesses.
+// Bound on the card: latency. A maze's steps form a chain (the next action
+// needs the row of the next state, and the next state needs the action),
+// and a maze is one thread, so a step costs the latency of its chain of
+// dependent operations and accesses. The function's own operations are 94
+// a step (`chip_smoke.py`'s INSTR_K6_STEP), 0.37 ms of issue for 2,000
+// steps of 65,536 mazes on the H100; the tables once each way are 0.05 ms
+// of bytes. Cutting costs out of the kernel of one thread a maze over
+// tables in device memory (`experiments/k6_k7b_ablation.py`) showed that
+// its chain was mostly arithmetic, not loads: rows made from a constant
+// took 18–36 % off, and with no memory on the chain at all it still took
+// 4 ms.
 //
-// Design: one thread per maze, the whole T loop inside one launch, no
-// traffic between threads. Env state, carried action, xorshift lane and
-// episode accumulators stay in registers. Actions come from the maze's
-// xorshift32 lane (one round a draw) or from injected (T, N) tensors.
-// Tables are float32 or bfloat16. In bfloat16 the rows are read exactly
-// into float32 and values round to bfloat16 where the reference's do: the
-// expectation target (mean, both products, their sum), α·δ and the updated
-// entry; γ·target and δ are float32. The wrapper hands γ, 1−ε and ε already
-// rounded to bfloat16 in that mode. Built with -fmad=false, so kernel and
-// plain version round alike.
+// Design:
+//  * A short chain. Each thread carries its agent's row and column beside
+//    its index, so no step divides by the width. The rows it reads stay in
+//    registers (A is a template parameter, 4 or up to 8; an entry is picked
+//    by selects, never by a dynamic index into a local array), the argmax
+//    and the target are unrolled, and the algorithm and the draws' source
+//    are template parameters: the loop has no branch on either, and the
+//    injected draws are loaded a step ahead.
+//  * Tables in shared memory. In the shared tier a block holds M mazes, a
+//    thread each (M a multiple of 32, from `kernels/td_batched.py` `plan`,
+//    in whole warps a scheduler), and every one keeps its table and packed
+//    level in dynamic shared memory for the whole scan, entry-major and
+//    maze-minor (entry e of the block's maze m at e·M + m), so the 32 lanes
+//    of a warp, each at a row of its own, read words of 32 distinct banks
+//    (in bfloat16, two lanes share a word). Each warp stages its 32 mazes
+//    in and out itself (`stage_in`, `stage_out`): it moves 32 consecutive
+//    entries of one maze at a time (a coalesced access of device memory)
+//    and transposes the 32 × 32 tile in registers, so that each lane then
+//    writes or reads a column of its own maze (32 distinct banks). Where 32
+//    tables do not fit a block (the global tier: 33x33 and up), every maze
+//    reads its rows from device memory. Every maze runs the same
+//    arithmetic, so the tiers give the same bits.
+//
+// Actions come from the maze's xorshift32 lane (one round a draw) or from
+// injected (T, N) tensors. Tables are float32 or bfloat16. In bfloat16 the
+// rows are read exactly into float32 and values round to bfloat16 where the
+// reference's do: the expectation target (mean, both products, their sum),
+// α·δ and the updated entry; γ·target and δ are float32. The wrapper hands
+// γ, 1−ε and ε already rounded to bfloat16 in that mode. Built with
+// -fmad=false, so kernel and plain version round alike.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "step.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 512;  // `kernels/td_batched.py` MAX_THREADS
 enum Algo { kQLearning = 0, kSarsa = 1, kExpectedSarsa = 2 };
 
-__device__ __forceinline__ float load_q(const float* p) { return *p; }
-__device__ __forceinline__ float load_q(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_q(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_q(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+extern __shared__ __align__(16) unsigned char smem_raw[];
+
+__device__ __forceinline__ float load_q(const float& x) { return x; }
+__device__ __forceinline__ float load_q(const __nv_bfloat16& x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_q(float& x, float v) { x = v; }
+__device__ __forceinline__ void store_q(__nv_bfloat16& x, float v) { x = __float2bfloat16_rn(v); }
 
 // Rounding to the table's type and back: the identity for float32.
 template <typename QT>
@@ -51,6 +81,15 @@ template <>
 __device__ __forceinline__ float as_stored<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+
+// Element i of one maze's array: p[i * stride] in a block's shared memory
+// (its column), p[i] in device memory (its row).
+template <typename T, bool kStrided>
+struct Column {
+  T* p;
+  int stride;
+  __device__ __forceinline__ T& operator[](int i) const { return kStrided ? p[i * stride] : p[i]; }
+};
 
 struct TdBatchedArgs {
   const uint8_t* passable;
@@ -67,14 +106,14 @@ struct TdBatchedArgs {
   int n;
   int num_steps;
   int max_episode_steps;
-  int algo;
   float alpha;
   float gamma;
   float epsilon;
   float one_minus_epsilon;
   uint32_t eps16;
   int draw_first;
-  const uint8_t* explore;   // (T, N) or null: draw from the lanes
+  int shared;               // the shared tier: every maze of a block in shared memory
+  const uint8_t* explore;   // (T, N), the injected draws
   const int* rand_a;        // (T, N)
   const uint8_t* explore0;  // (N,)
   const int* rand_a0;       // (N,)
@@ -89,35 +128,55 @@ struct TdBatchedArgs {
   float* ret_sum;
 };
 
-template <typename QT>
-__device__ __forceinline__ void load_row(const QT* q, int s, int na, float* row) {
-  for (int k = 0; k < na; ++k) row[k] = load_q(q + s * na + k);
+// The row Q[s] into registers; entries past `na` are 0 and never read.
+template <int kA, typename Table>
+__device__ __forceinline__ void load_row(const Table& q, int s, int na, float (&row)[kA]) {
+#pragma unroll
+  for (int k = 0; k < kA; ++k) row[k] = k < na ? load_q(q[s * na + k]) : 0.0f;
 }
 
-template <typename QT>
-__global__ void td_batched_kernel(TdBatchedArgs g, QT* __restrict__ q_all) {
-  __shared__ gu::Tables tab;
-  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
-  __syncthreads();
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= g.n) return;
+// row[a] by selects, so the row stays in registers
+template <int kA>
+__device__ __forceinline__ float pick(const float (&row)[kA], int a) {
+  float v = row[0];
+#pragma unroll
+  for (int k = 1; k < kA; ++k) v = a == k ? row[k] : v;
+  return v;
+}
 
-  const int na = g.num_actions;
-  const uint32_t* lw = g.words + static_cast<size_t>(n) * g.n_words;
-  const int s_idx = g.start_idx[n], s_code = g.start_code[n];
-  QT* q = q_all + static_cast<size_t>(n) * g.h * g.w * na;
-  const bool injected = g.explore != nullptr;
+// The first index of the maximum, as gu::first_argmax
+template <int kA>
+__device__ __forceinline__ int argmax(const float (&row)[kA], int na) {
+  int best = 0;
+  float top = row[0];
+#pragma unroll
+  for (int k = 1; k < kA; ++k) {
+    if (k < na && row[k] > top) {
+      best = k;
+      top = row[k];
+    }
+  }
+  return best;
+}
 
-  int idx = g.idx[n], code = g.code[n], t = g.t[n], a = g.a[n];
+// One maze's whole scan, on its table `q` and packed level `lw` wherever
+// they live.
+template <typename QT, int kA, int kAlgo, bool kInjected, typename Table, typename Words>
+__device__ __forceinline__ void run_maze(const TdBatchedArgs& g, const gu::Tables& tab, int n,
+                                         const Table& q, const Words& lw) {
+  const int na = kA == 4 ? 4 : g.num_actions;
+  const gu::Pos start = gu::at_index(g.start_idx[n], g.start_code[n], g.w);
+  gu::Pos p = gu::at_index(g.idx[n], g.code[n], g.w);
+  int t = g.t[n], a = g.a[n];
   uint32_t rs = g.rs[n];
   gu::Episode ep{g.run_ret[n], g.ret_sum[n], g.n_eps[n], 0};
-  float row_s[gu::kMaxActions], row_s2[gu::kMaxActions], row_n[gu::kMaxActions];
+  float row_s[kA], row_s2[kA], row_n[kA];
 
   // ε-greedy on `row` from the lane, or from an injected (explore, rand_a)
-  auto draw = [&](const float* row, bool inj_explore, int inj_rand) {
+  auto draw = [&](const float (&row)[kA], bool inj_explore, int inj_rand) {
     bool explore;
     int ra;
-    if (injected) {
+    if constexpr (kInjected) {
       explore = inj_explore;
       ra = min(max(inj_rand, 0), na - 1);
     } else {
@@ -125,36 +184,50 @@ __global__ void td_batched_kernel(TdBatchedArgs g, QT* __restrict__ q_all) {
       explore = gu::explore_coin(rs, g.eps16);
       ra = gu::explore_action(rs, na);
     }
-    return explore ? ra : gu::first_argmax(row, na);
+    return explore ? ra : argmax(row, na);
   };
 
   if (g.draw_first) {
-    load_row(q, idx, na, row_n);
-    a = draw(row_n, injected && g.explore0[n] != 0, injected ? g.rand_a0[n] : 0);
+    load_row(q, p.idx, na, row_n);
+    a = draw(row_n, kInjected && g.explore0[n] != 0, kInjected ? g.rand_a0[n] : 0);
+  }
+  bool next_explore = false;  // the injected draws of the coming step, loaded a step ahead
+  int next_rand = 0;
+  if (kInjected && g.num_steps > 0) {
+    next_explore = g.explore[n] != 0;
+    next_rand = g.rand_a[n];
   }
 
   for (int step = 0; step < g.num_steps; ++step) {
-    const int s = idx;
-    const gu::Transition tr = gu::step_autoreset(tab, lw, g.h, g.w, s_idx, s_code,
-                                                 g.max_episode_steps, a, idx, code, t, ep);
+    const bool inj_explore = next_explore;
+    const int inj_rand = next_rand;
+    if (kInjected && step + 1 < g.num_steps) {
+      const size_t o = static_cast<size_t>(step + 1) * g.n + n;
+      next_explore = g.explore[o] != 0;
+      next_rand = g.rand_a[o];
+    }
+    const int s = p.idx;
     load_row(q, s, na, row_s);
+    const gu::Transition tr =
+        gu::step_autoreset_from(tab, lw, g.h, g.w, start, g.max_episode_steps, a, p, t, ep);
     load_row(q, tr.obs, na, row_s2);
-    load_row(q, idx, na, row_n);  // the post-reset state, before the update
-    const float q_sa = row_s[a];
-    const size_t o = static_cast<size_t>(step) * g.n + n;
-    const int a_next =
-        draw(row_n, injected && g.explore[o] != 0, injected ? g.rand_a[o] : 0);
+    load_row(q, p.idx, na, row_n);  // the post-reset state, before the update
+    const float q_sa = pick(row_s, a);
+    const int a_next = draw(row_n, inj_explore, inj_rand);
 
     float boot;
-    if (g.algo == kSarsa) {
-      boot = row_s2[a_next];
+    if constexpr (kAlgo == kSarsa) {
+      boot = pick(row_s2, a_next);
     } else {
       float greedy = row_s2[0], total = row_s2[0];
-      for (int k = 1; k < na; ++k) {
-        greedy = fmaxf(greedy, row_s2[k]);
-        total = total + row_s2[k];
+#pragma unroll
+      for (int k = 1; k < kA; ++k) {
+        if (k < na) {
+          greedy = fmaxf(greedy, row_s2[k]);
+          total = total + row_s2[k];
+        }
       }
-      if (g.algo == kQLearning) {
+      if constexpr (kAlgo == kQLearning) {
         boot = greedy;
       } else {
         const float mean = as_stored<QT>(total / static_cast<float>(na));
@@ -163,12 +236,12 @@ __global__ void td_batched_kernel(TdBatchedArgs g, QT* __restrict__ q_all) {
       }
     }
     const float delta = tr.reward + g.gamma * (tr.done ? 0.0f : boot) - q_sa;
-    store_q(q + s * na + a, q_sa + as_stored<QT>(g.alpha * delta));
+    store_q(q[s * na + a], q_sa + as_stored<QT>(g.alpha * delta));
     a = a_next;
   }
 
-  g.idx[n] = idx;
-  g.code[n] = code;
+  g.idx[n] = p.idx;
+  g.code[n] = p.code;
   g.t[n] = t;
   g.a[n] = a;
   g.rs[n] = rs;
@@ -177,19 +250,171 @@ __global__ void td_batched_kernel(TdBatchedArgs g, QT* __restrict__ q_all) {
   g.ret_sum[n] = ep.ret_sum;
 }
 
+// The 32 × 32 tile r[i] of the 32 lanes of a warp, transposed in
+// registers: what lane l held in r[i], lane i holds in r[l]. Five rounds
+// of 16 exchanges; every register index is a constant of the build.
+__device__ __forceinline__ void transpose32(uint32_t (&r)[32], int lane) {
+#pragma unroll
+  for (int b = 16; b >= 1; b >>= 1) {
+    const bool upper = (lane & b) != 0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i & b) continue;
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, upper ? r[i] : r[i | b], b);
+      if (upper) {
+        r[i] = got;
+      } else {
+        r[i | b] = got;
+      }
+    }
+  }
+}
+
+// One warp's mazes (the first `mazes` of its 32; maze i's `n` items at
+// dev[i·n .. i·n + n) in device memory) into their columns of shared
+// memory (item e of maze i at col[e·stride + i]). A round reads 32
+// consecutive items of each maze (32 coalesced accesses, all in flight),
+// transposes the tile, and each lane writes its own maze's 32 items (a
+// warp's stores in 32 distinct banks). U is the item's bits (uint32_t, or
+// uint16_t for bfloat16).
+template <typename U>
+__device__ __forceinline__ void stage_in(const U* __restrict__ dev, U* col, int n, int stride,
+                                         int mazes, int lane) {
+  for (int e0 = 0; e0 < n; e0 += 32) {
+    uint32_t r[32];
+    const bool item = e0 + lane < n;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) r[i] = i < mazes && item ? dev[i * n + e0 + lane] : 0u;
+    transpose32(r, lane);
+    if (lane < mazes) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        if (e0 + j < n) col[(e0 + j) * stride + lane] = static_cast<U>(r[j]);
+      }
+    }
+  }
+}
+
+// The reverse of `stage_in`: each lane reads its own maze's 32 items of a
+// round from its column, the warp transposes the tile and writes 32
+// consecutive items of each maze to device memory.
+template <typename U>
+__device__ __forceinline__ void stage_out(const U* col, U* __restrict__ dev, int n, int stride,
+                                          int mazes, int lane) {
+  for (int e0 = 0; e0 < n; e0 += 32) {
+    uint32_t r[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) r[j] = lane < mazes && e0 + j < n ? col[(e0 + j) * stride + lane] : 0u;
+    transpose32(r, lane);
+    if (e0 + lane < n) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i < mazes) dev[i * n + e0 + lane] = static_cast<U>(r[i]);
+      }
+    }
+  }
+}
+
+template <typename QT>
+using Bits = typename std::conditional<sizeof(QT) == 2, uint16_t, uint32_t>::type;
+
+// A thread a maze. In the shared tier each warp stages its mazes' tables
+// and levels into their columns of shared memory, runs them there and
+// stages the tables back; no warp reads another's columns, so the block
+// meets at one barrier only, after the semantics tables. In the global
+// tier each thread runs its maze on device memory.
+template <typename QT, int kA, int kAlgo, bool kInjected>
+__global__ void __launch_bounds__(kMaxThreads) td_batched_kernel(TdBatchedArgs g,
+                                                                 QT* __restrict__ q_all) {
+  __shared__ gu::Tables tab;
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  __syncthreads();
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_entries = g.h * g.w * g.num_actions;
+  if (!g.shared) {
+    if (n >= g.n) return;
+    run_maze<QT, kA, kAlgo, kInjected>(
+        g, tab, n, Column<QT, false>{q_all + static_cast<size_t>(n) * n_entries, 1},
+        Column<const uint32_t, false>{g.words + static_cast<size_t>(n) * g.n_words, 1});
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp0 = threadIdx.x - lane, stride = blockDim.x;
+  const int first = n - lane;                 // the warp's first maze
+  const int mazes = min(32, g.n - first);     // the warp's mazes
+  if (mazes <= 0) return;                     // the whole warp: none
+  const size_t q_bytes = (static_cast<size_t>(stride) * n_entries * sizeof(QT) + 15) & ~size_t{15};
+  Bits<QT>* q_col = reinterpret_cast<Bits<QT>*>(smem_raw) + warp0;
+  uint32_t* w_col = reinterpret_cast<uint32_t*>(smem_raw + q_bytes) + warp0;
+  Bits<QT>* q_dev = reinterpret_cast<Bits<QT>*>(q_all) + static_cast<size_t>(first) * n_entries;
+  stage_in(q_dev, q_col, n_entries, stride, mazes, lane);
+  stage_in(g.words + static_cast<size_t>(first) * g.n_words, w_col, g.n_words, stride, mazes, lane);
+  __syncwarp();
+  if (lane < mazes) {
+    run_maze<QT, kA, kAlgo, kInjected>(g, tab, n,
+                                       Column<QT, true>{reinterpret_cast<QT*>(q_col) + lane, stride},
+                                       Column<uint32_t, true>{w_col + lane, stride});
+  }
+  __syncwarp();
+  stage_out(q_col, q_dev, n_entries, stride, mazes, lane);
+}
+
+template <typename QT, int kA, int kAlgo, bool kInjected>
+cudaError_t launch(const TdBatchedArgs& g, QT* q, int threads, int blocks, int shared_bytes,
+                   cudaStream_t st) {
+  const auto kernel = td_batched_kernel<QT, kA, kAlgo, kInjected>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, threads, shared_bytes, st>>>(g, q);
+  return cudaGetLastError();
+}
+
+template <typename QT, int kA>
+cudaError_t launch_algo(const TdBatchedArgs& g, QT* q, int algo, bool injected, int threads,
+                        int blocks, int shared_bytes, cudaStream_t st) {
+#define GU_K6_LAUNCH(ALGO)                                                                  \
+  return injected ? launch<QT, kA, ALGO, true>(g, q, threads, blocks, shared_bytes, st)    \
+                  : launch<QT, kA, ALGO, false>(g, q, threads, blocks, shared_bytes, st)
+  if (algo == kSarsa) GU_K6_LAUNCH(kSarsa);
+  if (algo == kExpectedSarsa) GU_K6_LAUNCH(kExpectedSarsa);
+  GU_K6_LAUNCH(kQLearning);
+#undef GU_K6_LAUNCH
+}
+
+template <typename QT>
+cudaError_t launch_actions(const TdBatchedArgs& g, QT* q, int algo, bool injected, int threads,
+                           int blocks, int shared_bytes, cudaStream_t st) {
+  if (g.num_actions == 4) {
+    return launch_algo<QT, 4>(g, q, algo, injected, threads, blocks, shared_bytes, st);
+  }
+  return launch_algo<QT, gu::kMaxActions>(g, q, algo, injected, threads, blocks, shared_bytes,
+                                          st);
+}
+
 }  // namespace
 
 // `q` (N, S, A), float32 or bfloat16 (`bf16` != 0), and the per-maze state
-// are updated in place.
+// are updated in place. The plan (`kernels/td_batched.py` `plan`): `blocks`
+// blocks of `threads` mazes, every maze of a block in its `shared_bytes` of
+// dynamic shared memory (0: the global tier, every maze in device memory).
 extern "C" int gu_td_batched(
     const void* passable, const void* terminal, const void* reward, const void* deltas,
     int num_actions, const void* words, int n_words, int per_env, const void* start_idx,
     const void* start_code, int h, int w, int n, int num_steps, int max_episode_steps,
     int algo, int bf16, float alpha, float gamma, float epsilon, float one_minus_epsilon,
-    int eps16, int draw_first, const void* explore, const void* rand_a,
-    const void* explore0, const void* rand_a0, void* q, void* idx, void* code, void* t,
-    void* a, void* rs, void* run_ret, void* n_eps, void* ret_sum, void* stream) {
-  if (!per_env) return static_cast<int>(cudaErrorInvalidValue);
+    int eps16, int draw_first, int threads, int blocks, int shared_bytes,
+    const void* explore, const void* rand_a, const void* explore0, const void* rand_a0, void* q,
+    void* idx, void* code, void* t, void* a, void* rs, void* run_ret, void* n_eps, void* ret_sum,
+    void* stream) {
+  const int shared = shared_bytes > 0;
+  const size_t q_bytes =
+      (static_cast<size_t>(threads) * h * w * num_actions * (bf16 ? 2 : 4) + 15) & ~size_t{15};
+  const size_t need = q_bytes + static_cast<size_t>(threads) * n_words * 4;
+  if (!per_env || threads < 1 || threads > kMaxThreads || shared_bytes < 0 ||
+      (shared && (threads % 32 != 0 || static_cast<size_t>(shared_bytes) < need)) ||
+      static_cast<long long>(blocks) * threads < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   TdBatchedArgs g{static_cast<const uint8_t*>(passable),
                   static_cast<const uint8_t*>(terminal),
                   static_cast<const float*>(reward),
@@ -204,13 +429,13 @@ extern "C" int gu_td_batched(
                   n,
                   num_steps,
                   max_episode_steps,
-                  algo,
                   alpha,
                   gamma,
                   epsilon,
                   one_minus_epsilon,
                   static_cast<uint32_t>(eps16),
                   draw_first,
+                  shared,
                   static_cast<const uint8_t*>(explore),
                   static_cast<const int*>(rand_a),
                   static_cast<const uint8_t*>(explore0),
@@ -223,13 +448,12 @@ extern "C" int gu_td_batched(
                   static_cast<float*>(run_ret),
                   static_cast<int*>(n_eps),
                   static_cast<float*>(ret_sum)};
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const bool injected = explore != nullptr;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    td_batched_kernel<__nv_bfloat16>
-        <<<blocks, kThreads, 0, st>>>(g, static_cast<__nv_bfloat16*>(q));
-  } else {
-    td_batched_kernel<float><<<blocks, kThreads, 0, st>>>(g, static_cast<float*>(q));
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      bf16 ? launch_actions(g, static_cast<__nv_bfloat16*>(q), algo, injected, threads, blocks,
+                            shared_bytes, st)
+           : launch_actions(g, static_cast<float*>(q), algo, injected, threads, blocks,
+                            shared_bytes, st);
+  return static_cast<int>(e);
 }

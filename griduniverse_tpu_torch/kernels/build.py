@@ -68,18 +68,19 @@ _SIGNATURES = {
     "gu_td_scan_fast": _SEM + _LEVEL + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I]
                        + [_P] * 19 + [_P],
     "gu_td_scan_fast_resident": [_I, _I, _P, _P],
-    "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I]
+    # n, steps, max_episode_steps, algo, bf16; alpha, gamma, eps, 1 - eps; eps16,
+    # draw_first; threads, blocks, shared bytes; draws (4), q, state (8)
+    "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I] + [_I] * 3
                      + [_P] * 4 + [_P] * 9 + [_P],
     # q in, out, s, a, delta, mask; alpha; batch, A, S·A, chunk; counts, vals,
     # look-back words; launched
     "gu_segment_mean": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 4 + [_P],
     "gu_gae": [_P] * 6 + [_I, _I, _F, _F, _P],
     "gu_nstep_returns": [_P] * 4 + [_I, _I, _F, _P],
-    # batch, max_episode_steps; logits, gumbel; state in (3); state out (4);
-    # action, logp, obs, reward, done
-    "gu_act_step": _SEM + _LEVEL + [_I, _I] + [_P] * 14 + [_P],
-    # words, n_words, per_env, h, w, batch; logits; state and reached in (5), out (5)
-    "gu_greedy_step": _SEM + [_P, _I, _I, _I, _I, _I] + [_P] * 11 + [_P],
+    # the plan (host memory), step; logits; state in (3); the slot to write
+    "gu_act_step": [_P, _I, _P] + [_P] * 3 + [_I, _P],
+    # the plan; logits; state and reached in (5); the slot to write
+    "gu_greedy_step": [_P, _P] + [_P] * 5 + [_I, _P],
     "gu_embed_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # grad, obs, partial, dtable; N, chunk, chunks, S, E, dtype, shared bytes
     "gu_embed_rows_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -7,9 +7,10 @@ forward and backward pass over the (T, B) batch, and one clipped Adam step.
 
 The reference is one jitted scan; here the update loop is a Python loop on
 the host that enqueues the policy forward and one fused kernel a rollout
-step (K7b, `act_step`: sample, log-prob, env step), the return scan (K7a)
-and the network's passes (K9a or K9b inside the network). Nothing in the
-loop reads a device value on the host.
+step (K7b, `act_step`: sample, log-prob, env step, behind a plan built once
+a run that writes the trajectory in place), the return scan (K7a) and the
+network's passes (K9a or K9b inside the network). Nothing in the loop reads
+a device value on the host.
 
 Randomness is counter-based, as in the reference: a train state holds an
 integer seed, and update `u` draws its Gumbel noise (T, B, A), all of it
@@ -36,9 +37,9 @@ from torch.func import functional_call
 from .. import kernels
 from ..core.semantics import Semantics
 from ..core.types import Level
-from ..kernels.act_step import act_step_cuda, greedy_step_cuda
+from ..kernels.act_step import ActStepPlan
 from ..kernels.gae import nstep_returns_cuda
-from ..ops.bitplane import BitLevel, FastState, _sem_level_args, pack_level, reset_bits, step_bits
+from ..ops.bitplane import BitLevel, FastState, pack_level, reset_bits, step_bits
 from .networks import ActorCritic, BatchedConvActorCritic, ConvActorCritic, exact_kernels
 from .optim import AdamState, Params, adam_init, adam_update, clip_by_global_norm, make_lr
 
@@ -174,16 +175,18 @@ def act_step_reference(sem, bl, state: FastState, logits, gumbel, max_episode_st
 def act_step(sem: Semantics, bl: BitLevel, state: FastState, logits, gumbel,
              max_episode_steps: int | None = None):
     """One rollout step for B envs from the policy's (B, A) float32 logits
-    and pre-drawn Gumbel noise (K7b on CUDA): see `act_step_reference`. The
-    kernel's `logp` goes through `expf`/`logf` and agrees with the plain
-    version to 2 ulp; everything else is equal exactly."""
+    and pre-drawn Gumbel noise (K7b on CUDA, through a plan of one step
+    built for the call): see `act_step_reference`. The kernel's `logp` goes
+    through `expf`/`logf` and agrees with the plain version to 2 ulp;
+    everything else is equal exactly. A rollout steps through one plan
+    (`rollout`)."""
     if not kernels.on_cuda(logits, gumbel, state.agent_idx, bl.code_words, sem.deltas):
         return act_step_reference(sem, bl, state, logits, gumbel, max_episode_steps)
-    idx, code, t, sdone, action, logp, obs, reward, done = act_step_cuda(
-        *_sem_level_args(sem, bl), state.agent_idx, state.agent_code, state.t,
-        logits.contiguous(), gumbel.contiguous(), max_episode_steps,
-    )
-    return FastState(idx, code, t, sdone), action, logp, obs, reward, done
+    plan = ActStepPlan(sem, bl, logits.shape[0], 1, max_episode_steps)
+    plan.begin(state, gumbel.contiguous()[None])
+    new_state = plan.step(0, logits.contiguous())
+    obs, action, logp, reward, done = (row[0] for row in plan.rows)
+    return new_state, action, logp, obs, reward, done
 
 
 def greedy_step_reference(sem, bl, state: FastState, reached, logits):
@@ -196,16 +199,19 @@ def greedy_step_reference(sem, bl, state: FastState, reached, logits):
     return state, reached | (done & (reward > 0))
 
 
-def greedy_step(sem: Semantics, bl: BitLevel, state: FastState, reached, logits):
+def greedy_step(sem: Semantics, bl: BitLevel, state: FastState, reached, logits,
+                plan: ActStepPlan | None = None):
     """One greedy evaluation step for B envs (K7b's greedy form on CUDA).
-    Returns (new state, updated `reached`)."""
-    if not kernels.on_cuda(logits, reached, state.agent_idx, bl.code_words, sem.deltas):
-        return greedy_step_reference(sem, bl, state, reached, logits)
-    idx, code, t, done, reached = greedy_step_cuda(
-        *_sem_level_args(sem, bl), state.agent_idx, state.agent_code, state.t, state.done,
-        reached, logits.contiguous(),
-    )
-    return FastState(idx, code, t, done), reached
+    Returns (new state, updated `reached`). `plan`: K7b's host plan for
+    (sem, bl, B), built once an evaluation (`models.evaluation`); without
+    one a CUDA call builds its own, and what it returns is its own."""
+    if plan is None:
+        if not kernels.on_cuda(logits, reached, state.agent_idx, bl.code_words, sem.deltas):
+            return greedy_step_reference(sem, bl, state, reached, logits)
+        plan = ActStepPlan(sem, bl, logits.shape[0], 0, None)
+    else:
+        plan.check_level(sem, bl, None)
+    return plan.greedy(state, reached, logits.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -272,19 +278,39 @@ class Trajectory:
     done: torch.Tensor     # bool
 
 
-def rollout(sem, bl, net, params, tiles, env_state: FastState, gumbel, max_episode_steps):
+def rollout(sem, bl, net, params, tiles, env_state: FastState, gumbel, max_episode_steps,
+            plan: ActStepPlan | None = None):
     """T policy steps of B auto-reset envs from pre-drawn (T, B, A) noise:
-    a policy forward and one `act_step` a step. Returns (env state after the
-    rollout, Trajectory, V of that state as the bootstrap). No gradients."""
-    rows = []
+    a policy forward and one act-and-step a step. Returns (env state after
+    the rollout, Trajectory, V of that state as the bootstrap). No
+    gradients. On the card a step is one K7b launch through `plan`
+    (`Learner.act_plan`; given none, one is built for the call) that
+    writes its row of the trajectory in place, and the trajectory and the
+    state are views of the plan's buffer, valid until its next rollout. On
+    the CPU, the plain step a step and the rows stacked. The values are
+    stacked either way."""
+    if plan is None and kernels.on_cuda(env_state.agent_idx, bl.code_words, sem.deltas, gumbel):
+        plan = ActStepPlan(sem, bl, gumbel.shape[1], gumbel.shape[0], max_episode_steps)
     with torch.no_grad():
-        for g_t in gumbel:
-            logits, value = _net_apply(net, params, env_state.agent_idx, tiles)
-            env_state, action, logp, obs, reward, done = act_step(
-                sem, bl, env_state, logits, g_t, max_episode_steps)
-            rows.append((obs, action, logp, value, reward, done))
+        if plan is None:
+            rows = []
+            for g_t in gumbel:
+                logits, value = _net_apply(net, params, env_state.agent_idx, tiles)
+                env_state, action, logp, obs, reward, done = act_step_reference(
+                    sem, bl, env_state, logits, g_t, max_episode_steps)
+                rows.append((obs, action, logp, value, reward, done))
+            traj = Trajectory(*(torch.stack(field) for field in zip(*rows)))
+        else:
+            plan.check_level(sem, bl, max_episode_steps)
+            plan.begin(env_state, gumbel)
+            values = []
+            for t in range(gumbel.shape[0]):
+                logits, value = _net_apply(net, params, env_state.agent_idx, tiles)
+                env_state = plan.step(t, logits.contiguous())
+                values.append(value)
+            obs, action, logp, reward, done = plan.rows
+            traj = Trajectory(obs, action, logp, torch.stack(values), reward, done)
         _, bootstrap = _net_apply(net, params, env_state.agent_idx, tiles)
-    traj = Trajectory(*(torch.stack(field) for field in zip(*rows)))
     return env_state, traj, bootstrap
 
 
@@ -394,18 +420,31 @@ class Learner(NamedTuple):
     net: torch.nn.Module
     tiles: torch.Tensor | None   # per-env tile planes of a needs-tiles net
     rate: Callable               # Adam count → learning rate
+    act_plan: ActStepPlan | None  # K7b's host plan on the card; None on the CPU
 
 
-def a2c_learner(sem: Semantics, level: Level, cfg: A2CConfig) -> Learner:
+def act_plan_for(sem: Semantics, level: Level, bl: BitLevel, cfg, batch: int) -> ActStepPlan | None:
+    """K7b's plan for a run of `batch` envs on a level on the card; None on the CPU."""
+    if level.device.type != "cuda":
+        return None
+    return ActStepPlan(sem, bl, batch, cfg.rollout_len, cfg.max_episode_steps)
+
+
+def a2c_learner(sem: Semantics, level: Level, cfg: A2CConfig, batch: int) -> Learner:
+    """What every update of a run of `batch` envs shares."""
     net = make_network(level, sem.num_actions, cfg)
-    return Learner(pack_level(level), net, _tiles_for(net, level), _a2c_rate(cfg))
+    bl = pack_level(level)
+    return Learner(bl, net, _tiles_for(net, level), _a2c_rate(cfg), act_plan_for(sem, level, bl, cfg, batch))
 
 
 @dataclasses.dataclass
 class A2CUpdate:
     """What one update gives: the learner's new tensors, and what it made
     on the way, so that a check can hold the kernels' own inputs and outputs
-    against the plain versions."""
+    against the plain versions. On the card `env_state` and `traj`'s obs,
+    action, logp, reward and done are views of the learner's K7b plan
+    (`rollout`): valid until the learner's next rollout, which writes them
+    again; clone them to keep them past it."""
 
     params: Params
     opt_state: AdamState
@@ -420,10 +459,12 @@ def a2c_update(sem: Semantics, learner: Learner, cfg: A2CConfig, params: Params,
                opt_state: AdamState, env_state: FastState, noise) -> A2CUpdate:
     """One A2C update from `noise` (T, B, A): the rollout, the n-step
     returns, one pass over the (T, B) batch and one clipped Adam step.
-    `a2c_run` is a loop over this, inside `exact_kernels()`."""
-    bl, net, tiles, rate = learner
+    `a2c_run` is a loop over this, inside `exact_kernels()`. The update's
+    `env_state` and trajectory rows are valid until the learner's next
+    rollout (`A2CUpdate`)."""
+    bl, net, tiles, rate, act_plan = learner
     env_state, traj, bootstrap = rollout(
-        sem, bl, net, params, tiles, env_state, noise, cfg.max_episode_steps)
+        sem, bl, net, params, tiles, env_state, noise, cfg.max_episode_steps, act_plan)
     returns = nstep_returns(traj.reward, traj.done, bootstrap, cfg.gamma)
     live = leaves(params)
     loss = a2c_loss(net, live, tiles, traj, returns, cfg)
@@ -444,8 +485,8 @@ def a2c_run(sem: Semantics, level: Level, ts: A2CTrainState, cfg: A2CConfig = A2
     """Advance training by `num_updates`; chunk-invariant, bit for bit.
     `gumbel` (num_updates, T, B, A) replaces the state's own noise."""
     dev = level.device
-    learner = a2c_learner(sem, level, cfg)
     b = ts.run_ret.shape[0]
+    learner = a2c_learner(sem, level, cfg, b)
     params, opt_state, env_state = ts.params, ts.opt_state, ts.env_state
     run_ret, episodes, ret_sum, loss = ts.run_ret, ts.episodes, ts.ret_sum, ts.last_loss
     with exact_kernels():

@@ -5,8 +5,9 @@ env's greedy policy in lockstep on the bit-packed step in freeze-on-done
 mode and report which envs reached the goal. Works over the three network
 families (tile planes are derived for a needs-tiles net), as policy networks
 or as Q-networks (`models.dqn`: the logits are the Q-values, so the greedy
-action is the same argmax), and over shared or batched levels. A network policy's step is K7b's greedy form
-(`models.a2c.greedy_step`); a tabular policy's action lookup is one
+action is the same argmax), and over shared or batched levels. A network
+policy's step is K7b's greedy form (`models.a2c.greedy_step`), through one
+plan an evaluation; a tabular policy's action lookup is one
 `torch.gather` (the reference's select tree is the TPU's).
 """
 
@@ -16,6 +17,7 @@ import torch
 
 from ..core.semantics import Semantics
 from ..core.types import Level
+from ..kernels.act_step import ActStepPlan
 from ..ops.bitplane import pack_level, reset_bits, step_bits
 from .a2c import _net_apply, _tiles_for, greedy_step
 from .networks import exact_kernels
@@ -42,10 +44,12 @@ def greedy_reached(sem: Semantics, net, params, levels: Level, max_steps: int = 
     tiles = _tiles_for(net, levels if tiles_levels is None else tiles_levels)
     st = reset_bits(bl, None if bl.batched else 1)
     reached = torch.zeros(st.agent_idx.shape, dtype=torch.bool, device=bl.device)
+    # K7b's plan on the card: every step reads one of its two slots and writes the other
+    plan = ActStepPlan(sem, bl, st.agent_idx.shape[0], 0, None) if bl.device.type == "cuda" else None
     with torch.no_grad(), exact_kernels():
         for _ in range(max_steps):
             logits, _ = _net_apply(net, params, st.agent_idx, tiles)
-            st, reached = greedy_step(sem, bl, st, reached, logits)
+            st, reached = greedy_step(sem, bl, st, reached, logits, plan)
     return reached
 
 

@@ -6,7 +6,8 @@ sharded trainers come with `parallel/`). It shares A2C's machinery
 counter-based randomness.
 
   update = T-step rollout of B auto-reset envs, log-prob and value recorded
-           (a policy forward and one K7b launch a step)
+           (a policy forward and one K7b launch a step, writing the
+           trajectory in place through a plan built once a run)
          → GAE(λ) advantages by one reverse scan (K7a)
          → E epochs × M minibatches of clipped-surrogate SGD
 
@@ -35,6 +36,7 @@ from .a2c import (
     _init_fields,
     _net_apply,
     _tiles_for,
+    act_plan_for,
     draw_gumbel,
     fold_episode_stats,
     grads_of,
@@ -263,7 +265,10 @@ def update_draws(device, seed: int, update: int, cfg: PPOConfig, batch: int, num
 class PPOUpdate:
     """What one update gives: the learner's new tensors, and what it made
     on the way, so that a check can hold the kernels' own inputs and outputs
-    against the plain versions."""
+    against the plain versions. On the card `env_state` and `traj`'s obs,
+    action, logp, reward and done are views of the learner's K7b plan
+    (`a2c.rollout`): valid until the learner's next rollout, which writes
+    them again; clone them to keep them past it."""
 
     params: Params
     opt_state: AdamState
@@ -282,7 +287,8 @@ def ppo_learner(sem: Semantics, level: Level, cfg: PPOConfig, batch: int) -> Lea
     net = make_network(level, sem.num_actions, cfg)
     tiles = _tiles_for(net, level)
     _check(cfg, batch, tiles)
-    return Learner(pack_level(level), net, tiles, _rate(cfg))
+    bl = pack_level(level)
+    return Learner(bl, net, tiles, _rate(cfg), act_plan_for(sem, level, bl, cfg, batch))
 
 
 def ppo_update(sem: Semantics, learner: Learner, cfg: PPOConfig, params: Params,
@@ -290,11 +296,12 @@ def ppo_update(sem: Semantics, learner: Learner, cfg: PPOConfig, params: Params,
     """One PPO update from `noise` (T, B, A) and one shuffle draw per epoch
     (`update_draws`): the rollout, GAE, and E epochs × M minibatches of
     clipped-surrogate SGD. `ppo_run` is a loop over this, inside
-    `exact_kernels()`."""
-    bl, net, tiles, rate = learner
+    `exact_kernels()`. The update's `env_state` and trajectory rows are
+    valid until the learner's next rollout (`PPOUpdate`)."""
+    bl, net, tiles, rate, act_plan = learner
     b = env_state.agent_idx.shape[0]
     env_state, traj, bootstrap = rollout(
-        sem, bl, net, params, tiles, env_state, noise, cfg.max_episode_steps)
+        sem, bl, net, params, tiles, env_state, noise, cfg.max_episode_steps, act_plan)
     gae_adv, targets = gae_advantages(traj, bootstrap, cfg.gamma, cfg.gae_lambda)
     adv = gae_adv
     if cfg.normalize_adv:

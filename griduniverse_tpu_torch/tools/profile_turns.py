@@ -1,4 +1,4 @@
-"""K4's, K5's, K7c's, K9b's and K12's times on one CUDA card, beside another tree's.
+"""K4's, K5's, K6's, K7b's, K7c's, K9b's and K12's times on one CUDA card, beside another tree's.
 
     python -m griduniverse_tpu_torch.tools.profile_turns [--against DIR] [--tiers] [PART ...]
 
@@ -36,8 +36,22 @@ tree's package and builds its kernels):
   host's µs a call, and 20 DQN steps (`dqn_run`, uniform replay, a ring of
   131,072) under `torch.profiler`: device events a step and the idle share.
 
+- K6 (`q_learning_batched`) as a 2,000-step Q-learning run over 65,536 9×9
+  Aldous–Broder mazes in float32 and in bfloat16, and as a 200-step run over
+  8,192 33×33 mazes (the tier of tables in device memory), CUDA events
+  around 2 runs after a warm-up; beside each, a call of no steps (the
+  call's fixed cost: the set-up, the tables' copies in and out, the first
+  draw), and at 9×9 one such call under `torch.profiler` (the device time
+  by kernel: K6's own against the wrapper's set-up, and the idle share);
+- K7b at walls16 with B = 65,536 and A = 4 (through a host plan where the
+  tree has one, `kernels.act_step.ActStepPlan`; else `a2c.act_step`) as timed
+  over 200 calls, as the host's µs a call and as a call in a CUDA graph of
+  ten (the plan built on the capture's stream), and three `ppo_run` calls
+  of 3 updates at walls16, B = 65,536, on the host clock, one of them under
+  `torch.profiler` (device events an update, the idle share).
+
 PART picks parts by name, all by default: `k4` (the K4 calls and solves),
-`k5`, `k7c`, `k9b` (K12 and K9b). With `--graph`, this tree's K5 scan is
+`k5`, `k6`, `k7b`, `k7c`, `k9b` (K12 and K9b). With `--graph`, this tree's K5 scan is
 also captured in a CUDA graph, replayed and held bit for bit against an
 eager scan (or the capture's error is printed): whether a cooperative
 launch can be captured on the card's CUDA.
@@ -129,7 +143,7 @@ def _profiled(name, fn, wall_ms, smi):
         print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
 
 
-PARTS = ("k4", "k5", "k7c", "k9b")
+PARTS = ("k4", "k5", "k6", "k7b", "k7c", "k9b")
 
 
 def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
@@ -143,6 +157,10 @@ def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
         other_kernels(tag, dev, gen, smi)
     if "k5" in parts:
         k5_scans(tag, dev, smi, graph)
+    if "k6" in parts:
+        k6_runs(tag, dev, smi)
+    if "k7b" in parts:
+        k7b_calls(tag, dev, smi)
     if "k7c" in parts:
         k7c_calls(tag, dev, smi)
 
@@ -236,6 +254,108 @@ def k5_scans(tag, dev, smi, graph: bool) -> None:
         except Exception as exc:  # the answer is the error itself
             print(f"[{tag}] K5 in a CUDA graph (torch {torch.__version__}, CUDA {torch.version.cuda}): the capture "
                   f"failed: {type(exc).__name__}: {exc} ({smi})")
+
+
+def k6_runs(tag, dev, smi) -> None:
+    """K6's runs over per-env mazes, both dtypes, and the device-memory tier."""
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch import algos
+
+    sem = gt.make_semantics(device=dev)
+    for cells, n, steps, dtypes in (((4, 4), 65_536, 2_000, ("float32", "bfloat16")),
+                                    ((16, 16), 8_192, 200, ("float32",))):
+        lv = _mazes(gt, dev, 2026, cells, n)
+        h, w = lv.grid.shape[1:]
+        for dtype in dtypes:
+            for t in (steps, 0):
+                def run(lv=lv, t=t, dtype=dtype):
+                    return algos.q_learning_batched(sem, lv, 9, t, dtype=dtype, max_episode_steps=512)
+
+                ms = _events_ms(run, reps=2)
+                rate = f", {n * t / ms * 1e3!r} transitions/s" if t else ""
+                print(f"[{tag}] K6 {t}-step run, {n} mazes {h}x{w} {dtype}: {ms!r} ms a run{rate} ({smi})")
+            if n == 65_536:
+                walls_ms = sorted(_wall_ms(run) for _ in range(3))
+                _profiled(f"[{tag}] K6 0-step run, {n} mazes {h}x{w} {dtype}, profiled", run, walls_ms[1], smi)
+
+
+def _plan_graph_ms(make_plan, call, calls: int = 10, replays: int = 10) -> float:
+    """A call's time in a CUDA graph of `calls`, the plan built on the
+    capture's stream (a plan is stream-ordered)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        plan = make_plan()
+        for _ in range(3):
+            call(plan)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            call(plan)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def k7b_calls(tag, dev, smi) -> None:
+    """K7b's call as timed, on the host and in a graph, and PPO's updates."""
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.models import a2c
+    from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+    from griduniverse_tpu_torch.tools.profile_learners import _profile
+
+    sem = gt.make_semantics(device=dev)
+    level = builders.walls_and_goal_16x16(device=dev)
+    bl = bp.pack_level(level)
+    b = 65_536
+    gen = torch.Generator(device=dev).manual_seed(1)
+    st = bp.reset_bits(bl, b)
+    logits = 2 * torch.randn((b, 4), generator=gen, device=dev)
+    noise = a2c.draw_gumbel(gen, (1, b, 4), dev)
+    Plan = getattr(getattr(kernels, "act_step", None), "ActStepPlan", None)
+    if Plan is None:  # a tree of one wrapper call a step
+        def call():
+            return a2c.act_step(sem, bl, st, logits, noise[0], 64)
+
+        graph_ms = _graph_ms(call)
+        how = "a2c.act_step a call"
+    else:
+        def make_plan():
+            plan = Plan(sem, bl, b, 1, 64)
+            plan.begin(st, noise)
+            return plan
+
+        plan = make_plan()
+
+        def call():
+            return plan.step(0, logits)
+
+        graph_ms = _plan_graph_ms(make_plan, lambda p: p.step(0, logits))
+        how = "a plan a run"
+    print(f"[{tag}] K7b walls16 B={b} A=4 ({how}): {_events_ms(call, reps=200)!r} ms a call as timed, "
+          f"{_host_us(call)!r} us of host time, {graph_ms!r} ms a call in a CUDA graph ({smi})")
+
+    cfg = models.PPOConfig(max_episode_steps=512)
+    ts = models.ppo_init(sem, level, 5, cfg, b)
+    models.ppo_run(sem, level, ts, cfg, 1)  # library handles, allocator
+
+    def updates():
+        return models.ppo_run(sem, level, ts, cfg, 3)
+
+    walls_ms = sorted(_wall_ms(updates) for _ in range(3))
+    prof = _profile(f"[{tag}] ppo walls16 B={b} 3 updates", updates, walls_ms[1], smi, top=4)
+    if prof is not None:
+        print(f"[{tag}] PPO walls16 update: {walls_ms[1] / 3!r} ms an update on the host clock ({walls_ms!r} ms a "
+              f"call of 3), {prof[1] / 3!r} device events an update, idle share {100 * prof[2]:.2f} % ({smi})")
 
 
 def k7c_calls(tag, dev, smi) -> None:

@@ -15,10 +15,12 @@ import torch
 import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch import kernels
 from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast, td_lambda
+from griduniverse_tpu_torch.kernels import act_step as act_kernels
 from griduniverse_tpu_torch.kernels import agent_stamp as stamp_kernels
 from griduniverse_tpu_torch.kernels import dqn_act as dqn_act_kernels
 from griduniverse_tpu_torch.kernels import embed_rows as embed_kernels
 from griduniverse_tpu_torch.kernels import replay as replay_kernels
+from griduniverse_tpu_torch.kernels import td_batched as td_batched_kernels
 from griduniverse_tpu_torch.kernels import td_fast as td_fast_kernels
 from griduniverse_tpu_torch.kernels import trace_pass as trace_kernels
 from griduniverse_tpu_torch.levels import builders
@@ -294,6 +296,51 @@ def test_td_batched_kernel_matches_plain(dev, algo, dtype):
     _assert_same(_batched_fields(h2), _batched_fields(full))
 
 
+# K6's layouts: (maze cells, N, whether the global tier is forced, the tier)
+_K6_LAYOUTS = {
+    "shared N=1": ((4, 4), 1, False, "shared"),
+    "shared N=31": ((4, 4), 31, False, "shared"),
+    "shared N=161": ((4, 4), 161, False, "shared"),
+    "shared N=4097": ((4, 4), 4097, False, "shared"),
+    "global, forced": ((4, 4), 777, True, "global"),
+    "global 33x33": ((16, 16), 257, False, "global"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("algo", td_batched.ALGOS)
+@pytest.mark.parametrize("case", sorted(_K6_LAYOUTS))
+def test_td_batched_kernel_matches_plain_in_each_layout(dev, monkeypatch, case, algo, dtype):
+    """Native and injected draws against the plain version, and 60 + 60
+    steps against 120, in each of K6's tiers (the global tier forced at
+    9x9 by patching `plan`)."""
+    cells, n, forced, tier = _K6_LAYOUTS[case]
+    if forced:
+        monkeypatch.setattr(td_batched_kernels, "plan", lambda *_, **__: td_batched_kernels.global_plan(n))
+    sem = T.make_semantics(device=dev)
+    levels = _maze_levels(dev, cells, n, seed=n)
+    assert td_batched_kernels.plan(levels.num_states, sem.num_actions, dtype, n).tier == tier
+    steps = 120
+    kw = dict(alpha=0.2, epsilon=0.2, algo=algo, max_episode_steps=40, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    draws = (
+        torch.rand((steps, n), generator=gen, device=dev) < 0.2,
+        torch.randint(0, 4, (steps, n), generator=gen, device=dev, dtype=torch.int32),
+        torch.rand((n,), generator=gen, device=dev) < 0.2,
+        torch.randint(0, 4, (n,), generator=gen, device=dev, dtype=torch.int32),
+    )
+    for d in (None, draws):
+        before = kernels.LAUNCHES["td_batched"]
+        got = td_batched.q_learning_batched(sem, levels, 7, steps, draws=d, **kw)
+        assert kernels.LAUNCHES["td_batched"] == before + 1
+        ref = td_batched.q_learning_batched_reference(sem, levels, 7, steps, draws=d, **kw)
+        _assert_same(_batched_fields(got), _batched_fields(ref))
+    h1 = td_batched.q_learning_batched(sem, levels, 7, 60, **kw)
+    h2 = td_batched.q_learning_batched(sem, levels, 7, 60, state0=h1.state, **kw)
+    _assert_same(_batched_fields(h2), _batched_fields(td_batched.q_learning_batched(sem, levels, 7, steps, **kw)))
+    assert int(got.episodes) > 0
+
+
 @pytest.mark.parametrize("b", [1, 32, 4096])
 def test_segment_mean_kernel_matches_plain(dev, b):
     gen = torch.Generator(device=dev).manual_seed(b)
@@ -511,6 +558,158 @@ def test_ppo_and_a2c_on_cuda_are_chunk_invariant(dev):
     for name in full.params:
         assert torch.equal(full.params[name], half.params[name])
     assert int(full.opt_state.count) == 4 and float(full.last_loss) == float(half.last_loss)
+
+
+def _act_plan_case(dev, level_name, b):
+    sem = T.make_semantics(device=dev)
+    levels = _levels(dev)
+    bl = levels[level_name]
+    if bl.batched:  # per-env mazes: as many as envs
+        grids, start = M.generate_mazes_device(9, (4, 4), b, "binary_tree", device=dev)
+        bl = bp.pack_level(T.Level(grid=grids, start_idx=start.expand(b).contiguous()))
+    return sem, bl, bp.reset_bits(bl, None if bl.batched else b)
+
+
+@pytest.mark.parametrize("case", ["walls16", "mazes", "odd batch", "unaligned logits"])
+def test_act_step_plan_rollout_matches_plain_step_by_step(dev, case):
+    """Two rollouts of T = 8 through one plan (the second from the state the
+    first left in the plan's slot) and a greedy loop through another,
+    against the plain versions chained step by step: one launch a step, the
+    rows written in place, every output equal but logp (2 ulp)."""
+    b = 777 if case == "odd batch" else 1024
+    sem, bl, st = _act_plan_case(dev, "mazes" if case == "mazes" else "walls16", b)
+    t_len, max_ep = 8, 12
+    plan = act_kernels.ActStepPlan(sem, bl, b, t_len, max_ep)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ref_st = st
+    for _ in range(2):
+        gumbel = a2c.draw_gumbel(gen, (t_len, b, 4), dev)
+        plan.begin(st, gumbel)
+        refs = []
+        for t in range(t_len):
+            logits = 2 * torch.randn((b, 4), generator=gen, device=dev)
+            if case == "unaligned logits":  # the kernel's scalar loads
+                logits = torch.cat([torch.zeros(1, device=dev), logits.reshape(-1)])[1:].view(b, 4)
+            before = kernels.LAUNCHES["act_step"]
+            st = plan.step(t, logits)
+            assert kernels.LAUNCHES["act_step"] == before + 1
+            ref_st, *ref = a2c.act_step_reference(sem, bl, ref_st, logits, gumbel[t], max_ep)
+            refs.append(ref)
+            for f in ("agent_idx", "agent_code", "t", "done"):
+                assert torch.equal(getattr(st, f), getattr(ref_st, f)), f
+        obs, action, logp, reward, done = plan.rows
+        for t, (r_action, r_logp, r_obs, r_reward, r_done) in enumerate(refs):
+            _assert_same((action[t], obs[t], reward[t], done[t]), (r_action, r_obs, r_reward, r_done))
+            assert logp_within_2ulp(logp[t], r_logp)
+    assert int(done.sum()) > 0
+    greedy = act_kernels.ActStepPlan(sem, bl, b, 0, None)
+    gst = ref_gst = bp.reset_bits(bl, None if bl.batched else b)
+    reached = ref_reached = torch.zeros(b, dtype=torch.bool, device=dev)
+    for _ in range(30):
+        logits = torch.randn((b, 4), generator=gen, device=dev)
+        gst, reached = a2c.greedy_step(sem, bl, gst, reached, logits, greedy)
+        ref_gst, ref_reached = a2c.greedy_step_reference(sem, bl, ref_gst, ref_reached, logits)
+        assert torch.equal(reached, ref_reached)
+        for f in ("agent_idx", "agent_code", "t", "done"):
+            assert torch.equal(getattr(gst, f), getattr(ref_gst, f)), f
+
+
+def test_act_step_plan_allocates_nothing_a_step(dev):
+    sem, bl, st = _act_plan_case(dev, "walls16", 4096)
+    plan = act_kernels.ActStepPlan(sem, bl, 4096, 16, 64)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    gumbel = a2c.draw_gumbel(gen, (16, 4096, 4), dev)
+    logits = torch.randn((4096, 4), generator=gen, device=dev)
+    reached = torch.zeros(4096, dtype=torch.bool, device=dev)
+    plan.begin(st, gumbel)
+    st = plan.step(0, logits)
+    gst, reached = plan.greedy(st, reached, logits)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    for t in range(1, 16):
+        st = plan.step(t, logits)
+        gst, reached = plan.greedy(gst, reached, logits)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    for key in ("allocation.all.allocated", "allocated_bytes.all.allocated", "segment.all.allocated"):
+        assert after[key] == before[key], key
+
+
+def test_act_step_plan_raises_on_another_stream(dev):
+    sem, bl, st = _act_plan_case(dev, "walls16", 256)
+    plan = act_kernels.ActStepPlan(sem, bl, 256, 4, None)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    logits = torch.randn((256, 4), generator=gen, device=dev)
+    plan.begin(st, a2c.draw_gumbel(gen, (4, 256, 4), dev))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="stream"):
+            plan.step(0, logits)
+        with pytest.raises(RuntimeError, match="stream"):
+            plan.greedy(st, torch.zeros(256, dtype=torch.bool, device=dev), logits)
+        # a plan built on that stream takes calls there
+        other = act_kernels.ActStepPlan(sem, bl, 256, 4, None)
+        other.begin(st, a2c.draw_gumbel(gen, (4, 256, 4), dev))
+        other.step(0, logits)
+    torch.cuda.current_stream().wait_stream(side)
+    plan.step(0, logits)
+
+
+@pytest.mark.parametrize("algo", ["a2c", "ppo"])
+def test_update_trajectory_is_valid_until_the_learners_next_rollout(dev, algo):
+    """An update's trajectory rows and env state are views of the learner's
+    K7b plan: the next update through the learner writes them again with
+    its own rollout, while the stacked values and the bootstrap stay, and
+    clones keep the first rollout. A rollout given no plan builds one and
+    gives the same trajectory, one launch a step."""
+    sem = T.make_semantics(device=dev)
+    level = builders.lava_level(device=dev)
+    b = 64
+    kw = dict(rollout_len=4, max_episode_steps=16, hidden=(32,), embed_dim=16)
+    cfg = a2c.A2CConfig(**kw) if algo == "a2c" else ppo.PPOConfig(num_epochs=1, num_minibatches=2, **kw)
+    ts = a2c.a2c_init(sem, level, 3, cfg, b) if algo == "a2c" else ppo.ppo_init(sem, level, 3, cfg, b)
+
+    def update(learner, params, opt_state, env_state, u):
+        if algo == "a2c":
+            return a2c.a2c_update(sem, learner, cfg, params, opt_state, env_state,
+                                  a2c.update_noise(dev, 3, u, cfg, b, sem.num_actions))
+        noise, draws = ppo.update_draws(dev, 3, u, cfg, b, sem.num_actions)
+        return ppo.ppo_update(sem, learner, cfg, params, opt_state, env_state, noise, draws)
+
+    learner = a2c.a2c_learner(sem, level, cfg, b) if algo == "a2c" else ppo.ppo_learner(sem, level, cfg, b)
+    rows = ("obs", "action", "logp", "reward", "done")
+    first = update(learner, ts.params, ts.opt_state, ts.env_state, 0)
+    kept = {f: getattr(first.traj, f).clone() for f in rows + ("value",)}
+    fields = ("agent_idx", "agent_code", "t", "done")
+    kept_state = {f: getattr(first.env_state, f).clone() for f in fields}
+    kept_boot = first.bootstrap.clone()
+    second = update(learner, first.params, first.opt_state, first.env_state, 1)
+    for f in rows:  # the same storage, now the second rollout's rows
+        assert getattr(first.traj, f).data_ptr() == getattr(second.traj, f).data_ptr()
+        assert torch.equal(getattr(first.traj, f), getattr(second.traj, f)), f
+    assert any(not torch.equal(getattr(first.traj, f), kept[f]) for f in rows)
+    # T = 4 steps ping-pong back to the slot the first rollout ended in
+    assert first.env_state.agent_idx.data_ptr() == second.env_state.agent_idx.data_ptr()
+    assert any(not torch.equal(getattr(first.env_state, f), kept_state[f]) for f in fields)
+    assert torch.equal(first.traj.value, kept["value"]) and torch.equal(first.bootstrap, kept_boot)
+    # the clones are the first rollout: a fresh learner repeats it
+    again = update(a2c.a2c_learner(sem, level, cfg, b) if algo == "a2c" else ppo.ppo_learner(sem, level, cfg, b),
+                   ts.params, ts.opt_state, ts.env_state, 0)
+    for f in rows + ("value",):
+        assert torch.equal(_bits(getattr(again.traj, f)), _bits(kept[f])), f
+    for f in fields:
+        assert torch.equal(getattr(again.env_state, f), kept_state[f]), f
+    # a rollout given no plan builds its own, one launch a step
+    bl, net, tiles = learner.bl, learner.net, learner.tiles
+    noise = a2c.update_noise(dev, 3, 0, cfg, b, sem.num_actions)
+    before = kernels.LAUNCHES["act_step"]
+    end, traj, boot = a2c.rollout(sem, bl, net, ts.params, tiles, ts.env_state, noise, cfg.max_episode_steps)
+    assert kernels.LAUNCHES["act_step"] == before + cfg.rollout_len
+    ref_end, ref_traj, ref_boot = a2c.rollout(sem, bl, net, ts.params, tiles, ts.env_state, noise,
+                                              cfg.max_episode_steps, learner.act_plan)
+    for f in rows + ("value",):
+        assert torch.equal(_bits(getattr(traj, f)), _bits(getattr(ref_traj, f))), f
+    assert torch.equal(boot, ref_boot) and torch.equal(end.agent_idx, ref_end.agent_idx)
 
 
 # ---------------------------------------------------------------------------

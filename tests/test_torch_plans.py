@@ -1,4 +1,4 @@
-"""The host side of K5's and K7c's one-launch designs, on the CPU.
+"""The host side of K5's, K6's, K7b's and K7c's designs, on the CPU.
 
   * K5 (`kernels.td_fast`): `grid_plan` puts every env on exactly one
     (thread, walk) of a grid that the card holds at once, an env a thread
@@ -9,6 +9,12 @@
     or device and on another level; and a literal walk of the kernel's one
     launch (a tree in each block, then the last block's walk of the blocks'
     sums in tiles) gives `ended_return_sum_reference`'s bits.
+  * K6 (`kernels.td_batched`): `plan` picks the tier, the mazes a block in
+    shared memory and their bytes, and puts every maze on exactly one thread.
+  * K7b (`kernels.act_step`): `carve` cuts one buffer into the trajectory's
+    (T, B) rows and two slots of env state as disjoint, 16-byte-aligned views
+    of the plain version's dtypes; `ActStepPlan` raises on another level,
+    on wrong tensors and off the card, and reads one of its own slots in place.
 """
 
 from __future__ import annotations
@@ -18,10 +24,12 @@ import pytest
 import torch
 
 import griduniverse_tpu_torch as T
+from griduniverse_tpu_torch.kernels import act_step as k7b
 from griduniverse_tpu_torch.kernels import dqn_act
+from griduniverse_tpu_torch.kernels import td_batched as k6
 from griduniverse_tpu_torch.kernels import td_fast as k5
 from griduniverse_tpu_torch.levels import builders
-from griduniverse_tpu_torch.models import dqn
+from griduniverse_tpu_torch.models import a2c, dqn
 from griduniverse_tpu_torch.ops import bitplane as bp
 
 CPU = torch.device("cpu")
@@ -184,3 +192,147 @@ def test_k7c_one_launch_fold_matches_the_plain_sum(b):
     ended = np.where(rng.random(b) < 0.3, rng.normal(size=b) * 50, 0.0).astype(np.float32)
     got = dqn.ended_return_sum_reference(torch.as_tensor(ended))
     assert np.float32(got.item()).view(np.int32) == _one_launch_walk(ended).view(np.int32)
+
+
+# K6: (states, dtype) -> (tier, mazes a block, all in shared memory, their bytes) at N = 65,536
+_K6_TIERS = {
+    # 64 tables a block, two blocks an SM: one warp a scheduler, four waves (160 fit an SM: four waves too)
+    "9x9 float32": (81, "float32", "shared", 64, 64 * 1296 + 64 * 4 * 6),
+    # 128 a block, two an SM: two warps a scheduler, two waves (320 fit an SM: two waves of three)
+    "9x9 bfloat16": (81, "bfloat16", "shared", 128, 128 * 648 + 128 * 4 * 6),
+    "33x33 float32": (1089, "float32", "global", 0, 0),
+    "33x33 bfloat16": (1089, "bfloat16", "global", 0, 0),
+    "161x129 float32": (161 * 129, "float32", "global", 0, 0),
+    "161x129 bfloat16": (161 * 129, "bfloat16", "global", 0, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K6_TIERS))
+def test_k6_plan_picks_the_tier(case):
+    states, dtype, tier, mazes, nbytes = _K6_TIERS[case]
+    p = k6.plan(states, 4, dtype, 65_536)
+    assert (p.tier, p.shared_bytes) == (tier, nbytes)
+    itemsize = 4 if dtype == "float32" else 2
+    if tier == "shared":
+        assert (p.threads, p.blocks) == (mazes, 65_536 // mazes)
+        # the most that fit a block: 160 float32 tables, 320 bfloat16
+        most = 160 if dtype == "float32" else 320
+        assert k6.shared_bytes(most + 32, states, 4, itemsize) > k6.SHARED_BYTES >= k6.shared_bytes(most, states, 4, itemsize)
+    else:
+        assert p == k6.global_plan(65_536)
+        assert (p.threads, p.blocks) == (k6.GLOBAL_THREADS, 65_536 // k6.GLOBAL_THREADS)
+        # not even 32 tables fit a block
+        assert k6.shared_bytes(32, states, 4, itemsize) > k6.SHARED_BYTES
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 32, 161, 4_097, 65_536, 100_003])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# the H100 SXM's 132 SMs (the default), its PCIe form's 114, a card of 66 and of 1
+@pytest.mark.parametrize("options", [{}, {"sms": 1}, {"tier": "global"}, {"sms": 114}, {"sms": 66}], ids=str)
+def test_k6_plan_covers_every_maze_once(n, dtype, options):
+    p = k6.global_plan(n) if options.get("tier") == "global" else k6.plan(81, 4, dtype, n, **options)
+    assert p.tier == options.get("tier", "shared")
+    # the maze each thread runs (maze b·threads + i in thread i of block b), -1 for none
+    slots = torch.arange(p.blocks * p.threads).reshape(p.blocks, p.threads)
+    slots = torch.where(slots < n, slots, -1)
+    assert slots.shape == (p.blocks, p.threads)
+    seen = slots[slots >= 0]
+    assert seen.numel() == n and torch.equal(seen.sort().values, torch.arange(n))
+    assert (p.blocks - 1) * p.threads < n  # no block without a maze
+    assert 32 <= p.threads <= k6.MAX_THREADS and p.threads % 32 == 0  # whole warps
+    itemsize = 4 if dtype == "float32" else 2
+    if p.tier == "shared":  # every maze of a block in shared memory
+        assert p.shared_bytes == k6.shared_bytes(p.threads, 81, 4, itemsize) <= k6.SHARED_BYTES
+    else:
+        assert p.shared_bytes == 0
+
+
+@pytest.mark.parametrize("t,b", [(1, 1), (16, 5), (16, 777), (16, 65_536), (0, 4_096), (7, 130)])
+def test_k7b_carve_gives_disjoint_aligned_views(t, b):
+    pieces, total = k7b.layout(t, b)
+    buf = torch.empty(total // 4, dtype=torch.int32)
+    views = k7b.carve(buf, t, b)
+    assert len(views) == len(k7b.ROWS) + 2 * len(k7b.SLOT) == len(pieces)
+    spans = []
+    for x, (offset, dtype, shape) in zip(views, pieces):
+        assert x.dtype == dtype and tuple(x.shape) == shape and x.is_contiguous()
+        if x.numel():  # an empty row (t = 0, the greedy form's plan) has no data
+            start = x.data_ptr() - buf.data_ptr()
+            assert start == offset and start % 16 == 0
+            spans.append((start, start + x.numel() * x.element_size()))
+    spans.sort()
+    assert spans[0][0] >= 0 and spans[-1][1] <= total
+    assert all(end <= nxt for (_, end), (nxt, _) in zip(spans, spans[1:]))
+    for x in views:
+        x.zero_()
+    for i, x in enumerate(views):
+        x.fill_(1)
+        assert all(bool((y == 0).all()) for j, y in enumerate(views) if j != i)
+        x.zero_()
+
+
+def test_k7b_rows_match_the_plain_outputs():
+    """The rows have the dtypes of `act_step_reference`'s outputs stacked
+    over T, and a slot those of its state."""
+    sem = T.make_semantics(device=CPU)
+    bl = bp.pack_level(builders.lava_level(device=CPU))
+    b, t_len = 37, 3
+    st = bp.reset_bits(bl, b)
+    new_st, action, logp, obs, reward, done = a2c.act_step_reference(sem, bl, st, torch.zeros(b, 4),
+                                                                      torch.zeros(b, 4), 9)
+    plan = k7b.ActStepPlan(sem, bl, b, t_len, 9)
+    want = [(x.dtype, (t_len, b)) for x in (obs, action, logp, reward, done)]
+    assert [(x.dtype, tuple(x.shape)) for x in plan.rows] == want
+    fields = ("agent_idx", "agent_code", "t", "done")
+    for k in (0, 1):
+        assert [(getattr(plan.states[k], f).dtype, getattr(plan.states[k], f).shape) for f in fields] == \
+            [(getattr(new_st, f).dtype, getattr(new_st, f).shape) for f in fields]
+        assert plan.reached[k].dtype == torch.bool and plan.reached[k].shape == (b,)
+
+
+def test_k7b_plan_raises_on_another_level_and_off_the_card():
+    sem = T.make_semantics(device=CPU)
+    bl = bp.pack_level(builders.walls_and_goal_16x16(device=CPU))
+    b = 8
+    plan = k7b.ActStepPlan(sem, bl, b, 4, 16)
+    plan.check_level(sem, bl, 16)
+    for args in ((sem, bp.pack_level(builders.lava_level(device=CPU)), 16), (sem, bl, 17),
+                 (T.make_semantics(device=CPU), bl, 16)):
+        with pytest.raises(ValueError, match="another"):
+            plan.check_level(*args)
+    with pytest.raises(ValueError):  # the level's own checks run once, when the plan is built
+        k7b.ActStepPlan(sem, bl, 0, 4, 16)
+    st = bp.reset_bits(bl, b)
+    for gumbel in (torch.zeros(3, b, 4), torch.zeros(4, b, 4).double(), torch.zeros(4, b, 5)):
+        with pytest.raises(ValueError, match="gumbel"):
+            plan.begin(st, gumbel)
+    with pytest.raises(ValueError, match="agent_idx"):
+        plan.begin(bp.FastState(st.agent_idx[:-1], st.agent_code, st.t, st.done), torch.zeros(4, b, 4))
+    plan.begin(st, torch.zeros(4, b, 4))
+    for logits in (torch.zeros(b, 5), torch.zeros(b, 4).double(), torch.zeros(2 * b, 4)[::2], [0.0] * b):
+        with pytest.raises((ValueError, TypeError), match="logits"):
+            plan.step(0, logits)
+    with pytest.raises(ValueError, match="CUDA"):
+        plan.step(0, torch.zeros(b, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        plan.greedy(st, torch.zeros(b, dtype=torch.bool), torch.zeros(b, 4))
+    # the learners build a plan only for a level on the card
+    learner = a2c.a2c_learner(sem, builders.walls_and_goal_16x16(device=CPU), a2c.A2CConfig(), b)
+    assert learner.act_plan is None
+
+
+def test_k7b_plan_reads_its_own_slot_in_place():
+    """A state the plan returned is read from its slot and the other slot
+    written; the caller's state is checked and slot 0 written."""
+    sem = T.make_semantics(device=CPU)
+    bl = bp.pack_level(builders.walls_and_goal_16x16(device=CPU))
+    plan = k7b.ActStepPlan(sem, bl, 8, 4, None)
+    st = bp.reset_bits(bl, 8)
+    ptrs, out = plan._source(st)
+    assert out == 0 and ptrs == (st.agent_idx.data_ptr(), st.agent_code.data_ptr(), st.t.data_ptr())
+    for k in (0, 1):
+        slot = [getattr(plan.states[k], f).data_ptr() for f in ("agent_idx", "agent_code", "t", "done")]
+        ptrs, out = plan._source(plan.states[k])
+        assert out == 1 - k and ptrs == tuple(slot[:3])
+        ptrs, out = plan._source(plan.states[k], plan.reached[k])
+        assert out == 1 - k and ptrs == (*slot, plan.reached[k].data_ptr())
