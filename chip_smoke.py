@@ -166,16 +166,20 @@ INSTR_K6_STEP = 94
 INSTR_K10_ENV = 4       # key and α·δ of one env, an estimate
 K10_LAUNCHES = 4        # kernels a K10 call launches: count, scan, scatter, sum
 # The learners' kernels. K7a and K7b are one thread per env, counted as K1 is.
-# K9a and K9b are elementwise passes and sums: their counts are the
-# function's own operations on an element (load, convert, add, compare,
-# select, store), not the index arithmetic of the kernels as written (the
-# listings show 155 instructions a thread in K9a's forward).
+# K9a's forward, K9a's backward and K9b are elementwise passes and sums:
+# their counts are the function's own operations on an element (load,
+# convert, add, compare, select, store), not the index arithmetic of the
+# kernels as written. The forward's SASS path is 58 instructions a thread of
+# 16 bytes of output (8 bfloat16, `embed_rows_kernel<__nv_bfloat16, 8>`: the
+# index loaded once, two 16-byte loads, four packed conversions, one 16-byte
+# store), 7.25 an element, against 155 an element when a thread took one
+# element; the function's own is a load, a convert and a store an element.
 INSTR_K7A_STEP = 35     # the GAE loop is 131 instructions for four unrolled steps, 37 for a single one
 # act_step is 1,065 instructions with no loop over time; less the table
 # staging (124) and the untaken sides of the loops over actions, an env's
 # path is about 600 (good to 30 %)
 INSTR_K7B_ENV = 600
-INSTR_K9A_FWD = 4       # one output element of the embedding gather
+INSTR_K9A_FWD = 3       # one element of the forward: a load, a convert and a store
 INSTR_K9A_BWD = 6       # one (sample, column): a load, a convert and two adds, over both levels
 INSTR_K9B_FWD = 8       # one output element of the stamp pass
 INSTR_K9B_BWD = 12      # one element of the backward: two loads, two converts, the mask, the adds
@@ -195,11 +199,20 @@ INSTR_P2 = 48           # take_along_axis1_kernel, one element
 INSTR_K12_ELEM = 12     # one trace element: load, decay, flush, bump test, multiply, add, count, store (an estimate)
 # K7c (`dqn_act_step_kernel<true>`, the 16-byte row load): an env's act, step
 # and stores, from the staging barrier to the end of the env's branch,
-# before the block's tree of ended returns. K13 (an estimate, not a SASS count): a sample is a load, a
-# multiply, an add, a store and its first-visit test against a hash of the
-# ids seen
+# before the block's tree of ended returns. K13 is held to the function's own
+# operations: a sample's return is a load, a multiply, an add and a store,
+# and the first-visit test an id compare and a valid test for each earlier
+# step up to the first valid one with the same id, a count that depends on
+# the data (`k13_compares` counts it on the call's own ids). The kernel's
+# SASS path (`mc_returns_kernel`, a group's tile staged in shared memory) is
+# 100 a sample: its staging (33, the loop unrolled four times in 133), its
+# step of the returns' chain (6, 50 for eight), its first-visit test outside
+# the scan of earlier steps (41) and the store of its return through shared
+# memory (20); and 10 an earlier step the scan reads (82 for eight). That is
+# the design's cost, not part of the bound.
 INSTR_K7C_ENV = 213
-INSTR_K13_SAMPLE = 12
+INSTR_K13_SAMPLE = 4
+INSTR_K13_COMPARE = 2
 # K4 above 16,384 states a maze, at full width: the mazes, and PI's cap
 N_BIG, PI_BIG_ITERS = 64, 10
 HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
@@ -836,6 +849,7 @@ def learner_phases(gt, dev, gen, bound, smi):
     from griduniverse_tpu_torch.models import a2c, networks, ppo
     from griduniverse_tpu_torch.tools.profile_learners import _profile
     from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
     from griduniverse_tpu_torch.tools.profile_turns import _plan_graph_ms
     from griduniverse_tpu_torch.ops import bitplane as bp
 
@@ -1262,10 +1276,15 @@ def learner_phases(gt, dev, gen, bound, smi):
         alone_ms, alone = _cuda_ms(lambda: k9a.embed_rows_backward_cuda(g, obs, s_n), 50)
         lalone_ms, _ = _cuda_ms(lambda: torch.ops.aten.embedding_backward(g, obs, s_n, -1, False, False), 50)
         hold("embed_rows", f"K9a timed {tag} backward alone", (alone,), (fixed,), ("dtable",))
+        # the forward alone in a CUDA graph of ten (the device's time), and the library's two launches
+        w = table.detach()
+        fg_ms = _graph_ms(lambda: k9a.embed_rows_cuda(w, obs, cdt))
+        lg_ms = _graph_ms(lambda: torch.nn.functional.embedding(obs, w.to(cdt)))
         fb = bound(n * 4 + s_n * e_n * 4 + n * e_n * 2, INSTR_K9A_FWD * n * e_n)
         bb = bound(n * 4 + s_n * e_n * 4 + n * e_n * 2, INSTR_K9A_BWD * n * e_n)
-        print(f"K9a timed {tag} N={n} S={s_n} E={e_n} bfloat16: forward {f_ms!r} ms (plain {pf_ms!r}, F.embedding "
-              f"{lf_ms!r}, bound {fb['bound_ms']!r} by {fb['bound_by']}), backward {b_ms!r} ms (autograd of plain "
+        print(f"K9a timed {tag} N={n} S={s_n} E={e_n} bfloat16: forward {f_ms!r} ms (in a CUDA graph {fg_ms!r}; plain "
+              f"{pf_ms!r}, F.embedding {lf_ms!r}, in a graph {lg_ms!r}, bound {fb['bound_ms']!r} by "
+              f"{fb['bound_by']}), backward {b_ms!r} ms (autograd of plain "
               f"{pb_ms!r}, of F.embedding {lb_ms!r}, plain fixed-order {fixed_ms!r}, bound {bb['bound_ms']!r} by "
               f"{bb['bound_by']}); the backward alone {alone_ms!r} ms, aten.embedding_backward alone {lalone_ms!r} "
               f"ms; forward bit-exact, backward bit-exact vs the plain fixed-order backward ({smi})")
@@ -1976,6 +1995,16 @@ def dqn_step_events(dev, smi, sem, level, cfg, state, steps: int = 20) -> None:
               f"{walls!r} ms), {prof[1] / steps!r} device events a step, device idle share {100 * prof[2]:.2f} % ({smi})")
 
 
+def k13_compares(ids, valid) -> int:
+    """The earlier steps that K13's first-visit scan reads on these (T, B)
+    ids: for each valid step, those up to its first valid earlier step with
+    the same id, else all its earlier steps."""
+    steps = torch.arange(ids.shape[0], device=ids.device)
+    hit = (ids[:, None, :] == ids[None, :, :]) & valid[None, :, :] & (steps[None, :, None] < steps[:, None, None])
+    scanned = torch.where(hit.any(1), hit.int().argmax(1) + 1, steps[:, None])
+    return int(scanned[valid].sum())
+
+
 def mc_lambda_phases(gt, dev, bound, smi):
     """Phase 21: the Monte-Carlo and TD(λ) entry points on the card.
     `mc_prediction` with its defaults and five rounds of `mc_control` put
@@ -1989,8 +2018,9 @@ def mc_lambda_phases(gt, dev, bound, smi):
     100-104 are redone by the plain version on the step's own inputs and
     must give the same table and trace bits, and two runs the same bits.
     K13 (the returns and the first-visit mask, one launch a round) is held
-    at small shapes and on every round's own samples, and the mc calls are
-    timed with it and with its plain versions.
+    at small shapes and on every round's own samples, timed as a call and
+    in a CUDA graph of ten, and the mc calls are timed with it and with its
+    plain versions.
     Returns (launches, max abs errors, times) of K12 and K13."""
     from griduniverse_tpu_torch import algos, kernels
     from griduniverse_tpu_torch.algos import mc, td, td_lambda
@@ -2022,7 +2052,8 @@ def mc_lambda_phases(gt, dev, bound, smi):
     gen = torch.Generator(device=dev).manual_seed(13)
     errs = {"trace_pass": 0.0, "mc_returns": 0.0}
     for t13, b13, n_ids, kind in ((1, 300, 4, "random"), (100, 256, 81, "random"), (100, 1024, 324, "random"),
-                                  (100, 256, 81, "all valid"), (100, 256, 81, "none valid"), (37, 64, 1, "one id")):
+                                  (100, 256, 81, "all valid"), (100, 256, 81, "none valid"), (37, 64, 1, "one id"),
+                                  (257, 4097, 300, "random"), (6000, 3, 900, "random")):
         lengths = torch.randint(0, t13 + 1, (b13,), generator=gen, device=dev)
         valid = torch.arange(t13, device=dev)[:, None] < lengths[None]
         if kind != "random":
@@ -2033,8 +2064,8 @@ def mc_lambda_phases(gt, dev, bound, smi):
         errs["mc_returns"] = max(errs["mc_returns"], _same_fields(
             f"K13 T={t13} B={b13} {kind}", got, plain_returns(rewards, 0.99, ids, valid), ("returns", "first-visit mask")))
         _same(f"K13 T={t13} B={b13} {kind}, returns alone", mc.mc_returns(rewards, 0.99)[0], got[0])
-    print("K13 T=1, 37 and 100, B=64 to 1,024, random, all and no steps valid, repeated ids: returns and first-visit "
-          "mask bit-exact vs plain")
+    print("K13 T=1, 37, 100, 257 and 6,000 (two tiles of a block), B=3 to 4,097, random, all and no steps valid, "
+          "repeated ids: returns and first-visit mask bit-exact vs plain")
 
     rounds, wide = 5, 1024
     torch.cuda.synchronize()
@@ -2084,17 +2115,23 @@ def mc_lambda_phases(gt, dev, bound, smi):
     print(f"K10 at mc's shapes: all {2 + rounds} calls bit-exact vs plain (max abs err {err!r}); "
           f"mc_prediction visited {visited} states ({smi})")
 
-    # K13's time at a round of mc_control (the record's shape) and at 1,024 episodes
+    # K13's time at a round of mc_control (the record's shape) and at 1,024 episodes, as
+    # timed and in a CUDA graph of ten
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
     times = {}
     for tag, (args, _) in (("a round of mc_control", returns_calls[-2]), (f"mc_prediction at {wide} episodes", returns_calls[-1])):
         t13, b13 = args[0].shape
         ms, _ = _cuda_ms(lambda: mc.mc_returns(*args), 50)
+        graph_ms = _graph_ms(lambda: mc.mc_returns(*args))
         plain_ms, _ = _cuda_ms(lambda: plain_returns(*args), 5)
+        compares = k13_compares(args[2], args[3])
         # rewards, ids and valid flags read once, returns and mask written once
         t13b = dict(ms=ms, plain_ms=plain_ms, library_ms=None, shape=f"{tag}, T={t13}, B={b13}",
-                    **bound(t13 * b13 * 14, INSTR_K13_SAMPLE * t13 * b13))
-        print(f"time mc_returns at {t13b['shape']}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {t13b['bound_ms']!r} ms "
-              f"by {t13b['bound_by']}, library None ms ({smi})")
+                    **bound(t13 * b13 * 14, INSTR_K13_SAMPLE * t13 * b13 + INSTR_K13_COMPARE * compares))
+        print(f"time mc_returns at {t13b['shape']}: kernel {ms!r} ms, in a CUDA graph {graph_ms!r} ms, plain "
+              f"{plain_ms!r} ms, bound {t13b['bound_ms']!r} ms by {t13b['bound_by']} ({compares} earlier steps "
+              f"scanned), library None ms ({smi})")
         if "mc_control" in tag:
             times["mc_returns"] = t13b
 

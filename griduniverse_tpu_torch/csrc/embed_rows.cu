@@ -8,8 +8,17 @@
 // exact rows, so the function is `table.astype(cdt)[obs]`; on this card a
 // row lookup is one indexed load.
 //
-// Forward: out[n, :] = cdt(table[obs[n], :]), one thread per output element.
-// An index outside [0, S) gives a zero row, as a one-hot of it would.
+// Forward: out[n, :] = cdt(table[obs[n], :]). A thread owns one sample's
+// slice of VEC consecutive output elements, 16 bytes where E and the
+// alignment of `table` and `out` allow it (8 bfloat16 or 4 float32; else the
+// most of 4, 2, 1 that they allow, `forward_vec`). It reads the sample's
+// index once, the float32 slice of its row with 16-byte read-only loads
+// (the table stays in L1 and L2 at the trainers' S=256, E=16), converts
+// with round-to-nearest-even as `.to(torch.bfloat16)` does, and writes its
+// slice with one store. A block is (slices a row) × (samples), so the sample
+// and the slice come from the block's two thread indices with no divide;
+// offsets into `out` are 64-bit. An index outside [0, S) gives a zero row,
+// as a one-hot of it would.
 //
 // Backward: dtable[s, :] = Σ_{n: obs[n] = s} g[n, :] in float32. A resumed
 // training run must repeat an unbroken one bit for bit, so the sum may not
@@ -44,7 +53,9 @@
 // a backward in either tier.
 //
 // Bound on the card: bytes. The forward moves 4 bytes of index and E
-// elements per sample; the backward reads them back. The partial tables
+// elements per sample (a thread an element, as it was written before, took
+// 155 instructions an element and was bound by their issue at 7.4× its
+// bytes at N = 1,048,576); the backward reads them back. The partial tables
 // (N / chunk × S × E floats, 8 MB at a PPO minibatch) are written once and
 // read once, from L2 at the shapes of the trainers. The global tier chains
 // `chunk` read-modify-writes a thread through L2; the shared tier's chain
@@ -55,27 +66,118 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kForwardThreads = 256;  // a block of the forward: (slices a row) × samples
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <typename T>
-__global__ void embed_rows_kernel(const float* __restrict__ table, const int* __restrict__ obs,
-                                  T* __restrict__ out, long long total, int num_states,
-                                  int embed_dim) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long n = i / embed_dim;
-  const int e = static_cast<int>(i - n * embed_dim);
-  const int s = obs[n];
-  const bool ok = s >= 0 && s < num_states;
-  store(out + i, ok ? table[static_cast<size_t>(s) * embed_dim + e] : 0.0f);
+// VEC consecutive floats of a row: 16-byte read-only loads from VEC = 4 up
+template <int VEC>
+__device__ __forceinline__ void load_slice(const float* __restrict__ p, float (&v)[VEC]) {
+  if constexpr (VEC >= 4) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p) + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else if constexpr (VEC == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// one store of VEC elements
+template <int VEC>
+__device__ __forceinline__ void store_slice(float* __restrict__ p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_slice(__nv_bfloat16* __restrict__ p, const float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    *p = __float2bfloat16_rn(v[0]);
+  } else {
+    unsigned w[VEC / 2];  // pairs of bfloat16 bits, element 2q in the low half
+#pragma unroll
+    for (int q = 0; q < VEC / 2; ++q) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+      memcpy(&w[q], &h, sizeof(unsigned));
+    }
+    if constexpr (VEC == 8) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (VEC == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<unsigned*>(p) = w[0];
+    }
+  }
+}
+
+// Thread (x, y) of block k: sample k * blockDim.y + y, slices x, x + blockDim.x, ...
+// of its row, each VEC elements.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kForwardThreads)
+embed_rows_kernel(const float* __restrict__ table, const int* __restrict__ obs, T* __restrict__ out,
+                  int num_samples, int num_states, int slices) {
+  const long long n = static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
+  if (n >= num_samples) return;
+  const int s = __ldg(obs + n);
+  const bool ok = static_cast<unsigned>(s) < static_cast<unsigned>(num_states);
+  const int embed_dim = slices * VEC;
+  const float* row = table + static_cast<size_t>(ok ? s : 0) * embed_dim;
+  T* dst = out + static_cast<size_t>(n) * embed_dim;
+  for (int k = threadIdx.x; k < slices; k += blockDim.x) {
+    float v[VEC];
+    if (ok) {
+      load_slice<VEC>(row + k * VEC, v);
+    } else {
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) v[q] = 0.0f;
+    }
+    store_slice<VEC>(dst + k * VEC, v);
+  }
+}
+
+// The forward's elements a thread: the most of 16 bytes of output (8
+// bfloat16, 4 float32), halved until E and the alignment of `table` (16
+// bytes for a 16-byte load, else VEC floats) and `out` (VEC elements) allow it.
+inline int forward_vec(int embed_dim, int elem, const void* table, const void* out) {
+  int vec = 16 / elem;
+  const auto t = reinterpret_cast<uintptr_t>(table), o = reinterpret_cast<uintptr_t>(out);
+  while (vec > 1 && (embed_dim % vec != 0 || t % (vec * 4 < 16 ? vec * 4 : 16) != 0 || o % (vec * elem) != 0)) {
+    vec /= 2;
+  }
+  return vec;
+}
+
+template <typename T, int VEC>
+int launch_forward(const void* table, const void* obs, void* out, int num_samples, int num_states,
+                   int embed_dim, cudaStream_t s) {
+  const int slices = embed_dim / VEC;
+  const int x = slices < kForwardThreads ? slices : kForwardThreads;
+  const int y = kForwardThreads / x;
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(num_samples) + y - 1) / y);
+  embed_rows_kernel<T, VEC><<<blocks, dim3(x, y), 0, s>>>(
+      static_cast<const float*>(table), static_cast<const int*>(obs), static_cast<T*>(out),
+      num_samples, num_states, slices);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Level 1, global tier: thread (j, e) adds chunk j's samples to
@@ -289,21 +391,27 @@ int launch_chunks(const void* grad, const void* obs, void* partial, int num_samp
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (of `out`, and of `grad` in the backward).
+// The wrapper checks the tensors; N, S and E must be at least 1.
 extern "C" int gu_embed_rows(const void* table, const void* obs, void* out, int num_samples,
                              int num_states, int embed_dim, int dtype, void* stream) {
-  const long long total = static_cast<long long>(num_samples) * embed_dim;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    embed_rows_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(table), static_cast<const int*>(obs), static_cast<float*>(out),
-        total, num_states, embed_dim);
-  } else {
-    embed_rows_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(table), static_cast<const int*>(obs),
-        static_cast<__nv_bfloat16*>(out), total, num_states, embed_dim);
+  if (num_samples < 1 || num_states < 1 || embed_dim < 1 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = num_samples, ns = num_states, e = embed_dim;
+  if (dtype == 0) {
+    switch (forward_vec(e, 4, table, out)) {
+      case 4: return launch_forward<float, 4>(table, obs, out, n, ns, e, s);
+      case 2: return launch_forward<float, 2>(table, obs, out, n, ns, e, s);
+      default: return launch_forward<float, 1>(table, obs, out, n, ns, e, s);
+    }
+  }
+  switch (forward_vec(e, 2, table, out)) {
+    case 8: return launch_forward<__nv_bfloat16, 8>(table, obs, out, n, ns, e, s);
+    case 4: return launch_forward<__nv_bfloat16, 4>(table, obs, out, n, ns, e, s);
+    case 2: return launch_forward<__nv_bfloat16, 2>(table, obs, out, n, ns, e, s);
+    default: return launch_forward<__nv_bfloat16, 1>(table, obs, out, n, ns, e, s);
+  }
 }
 
 // Launches two kernels: the partial tables, then their sum. `shared_bytes`

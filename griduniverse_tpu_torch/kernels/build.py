@@ -106,8 +106,8 @@ _SIGNATURES = {
     # the plan (host memory); q, explore, rand_a, state in (3), run_ret, episodes,
     # ret_sum; the outputs' buffer
     "gu_dqn_act_step": [_P] + [_P] * 9 + [_P] + [_P],
-    # rewards, ids, valid; T, B; gamma; returns, first-visit mask
-    "gu_mc_returns": [_P] * 3 + [_I, _I, _F, _P, _P, _P],
+    # rewards, ids, valid; T, B; gamma; returns, first-visit mask; log2 of the group, tile
+    "gu_mc_returns": [_P] * 3 + [_I, _I, _F, _P, _P, _I, _I, _P],
 }
 _ERROR_STRING = "gu_error_string"  # const char* (int): cudaGetErrorString
 

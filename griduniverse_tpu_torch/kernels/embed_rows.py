@@ -45,7 +45,8 @@ def uses_shared_tier(num_states: int, embed_dim: int, dtype: torch.dtype) -> boo
 
 def embed_rows_cuda(table, obs, dtype: torch.dtype):
     """Launch K9a's forward: `table.to(dtype)[obs]`, table (S, E) float32,
-    obs (N,) int32 → (N, E) `dtype`."""
+    obs (N,) int32 → (N, E) `dtype`. The C entry point picks the vector
+    width from E and the pointers' alignment."""
     device = table.device
     if device.type != "cuda":
         raise ValueError(f"embed_rows_cuda takes CUDA tensors, got {device}")

@@ -136,6 +136,8 @@ def embed_rows(table, obs, dtype: torch.dtype):
     bits."""
     if not kernels.on_cuda(table, obs):
         return embed_rows_reference(table, obs, dtype)
+    if not (table.requires_grad and torch.is_grad_enabled()):  # no graph to record: the kernel alone
+        return embed_rows_cuda(table, obs, dtype)
     return _EmbedRows.apply(table, obs, dtype)
 
 

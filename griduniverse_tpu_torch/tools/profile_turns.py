@@ -1,4 +1,4 @@
-"""K4's, K5's, K6's, K7b's, K7c's, K9b's and K12's times on one CUDA card, beside another tree's.
+"""K4's, K5's, K6's, K7b's, K7c's, K9a's, K9b's, K12's and K13's times on one CUDA card, beside another tree's.
 
     python -m griduniverse_tpu_torch.tools.profile_turns [--against DIR] [--tiers] [PART ...]
 
@@ -50,8 +50,21 @@ tree's package and builds its kernels):
   of 3 updates at walls16, B = 65,536, on the host clock, one of them under
   `torch.profiler` (device events an update, the idle share).
 
+- K9a's forward (`embed_rows_cuda`, S = 256, E = 16) in bfloat16 at
+  N = 65,536, 262,144 and 1,048,576 (a rollout step, a PPO minibatch, an
+  A2C update) and in float32 at 262,144: a call as timed (30 calls), in a
+  CUDA graph of ten, and the host's µs a call, of the wrapper and of the
+  layer (`networks.embed_rows` under `torch.no_grad`, as a rollout calls
+  it); beside it `F.embedding(obs, table.to(cdt))`, the library's way to
+  the same function (the table's cast and the lookup: two launches), as
+  timed and in a graph; bit for bit the same rows;
+- K13 (`mc_returns_cuda`) at T = 100 over B = 256 and 1,024 episodes (a
+  round of `mc_control`, `mc_prediction` at 1,024), the returns alone and
+  with the first-visit mask: as timed, in a CUDA graph of ten, the host's
+  µs (`experiments/k13_groups.py` times each group of episodes a block).
+
 PART picks parts by name, all by default: `k4` (the K4 calls and solves),
-`k5`, `k6`, `k7b`, `k7c`, `k9b` (K12 and K9b). With `--graph`, this tree's K5 scan is
+`k5`, `k6`, `k7b`, `k7c`, `k9a`, `k9b` (K12 and K9b), `k13`. With `--graph`, this tree's K5 scan is
 also captured in a CUDA graph, replayed and held bit for bit against an
 eager scan (or the capture's error is printed): whether a cooperative
 launch can be captured on the card's CUDA.
@@ -143,7 +156,7 @@ def _profiled(name, fn, wall_ms, smi):
         print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
 
 
-PARTS = ("k4", "k5", "k6", "k7b", "k7c", "k9b")
+PARTS = ("k4", "k5", "k6", "k7b", "k7c", "k9a", "k9b", "k13")
 
 
 def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
@@ -163,6 +176,10 @@ def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
         k7b_calls(tag, dev, smi)
     if "k7c" in parts:
         k7c_calls(tag, dev, smi)
+    if "k9a" in parts:
+        k9a_calls(tag, dev, smi)
+    if "k13" in parts:
+        k13_calls(tag, dev, smi)
 
 
 def k4_calls(tag, dev, gen, smi) -> None:
@@ -395,6 +412,61 @@ def k7c_calls(tag, dev, smi) -> None:
     if prof is not None:
         print(f"[{tag}] DQN step: {walls_ms[1] / 20!r} ms a step on the host clock ({walls_ms!r} ms a call of 20), "
               f"{prof[1] / 20!r} device events a step, idle share {100 * prof[2]:.2f} % ({smi})")
+
+
+def k9a_calls(tag, dev, smi) -> None:
+    """K9a's forward as timed, in a graph and on the host, beside the library's lookup."""
+    import torch.nn.functional as F
+
+    from griduniverse_tpu_torch.kernels import embed_rows as k9a
+    from griduniverse_tpu_torch.models import networks
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    s, e = 256, 16
+    table = torch.randn((s, e), generator=gen, device=dev, requires_grad=True)
+    for n, cdt in ((65_536, torch.bfloat16), (262_144, torch.bfloat16), (1_048_576, torch.bfloat16),
+                   (262_144, torch.float32)):
+        obs = torch.randint(0, s, (n,), generator=gen, device=dev, dtype=torch.int32)
+        w = table.detach()
+
+        def kernel(obs=obs, cdt=cdt):
+            return k9a.embed_rows_cuda(w, obs, cdt)
+
+        def layer(obs=obs, cdt=cdt):
+            with torch.no_grad():
+                return networks.embed_rows(table, obs, cdt)
+
+        def library(obs=obs, cdt=cdt):
+            return F.embedding(obs, w.to(cdt))
+
+        if not torch.equal(kernel(), library()):
+            raise SystemExit(f"profile_turns k9a: the kernel and F.embedding differ at N={n} {cdt}")
+        # the bytes: indices in, rows out, the table once
+        bound_ms = (n * 4 + s * e * 4 + n * e * cdt.itemsize) / 3.35e12 * 1e3
+        print(f"[{tag}] K9a forward N={n} S={s} E={e} {str(cdt)[6:]}: {_events_ms(kernel)!r} ms a call as timed, "
+              f"{_graph_ms(kernel)!r} ms in a CUDA graph, {_host_us(kernel)!r} us of host time (the layer under "
+              f"no_grad {_host_us(layer)!r} us); F.embedding(obs, table.to(cdt)) {_events_ms(library)!r} ms as "
+              f"timed, {_graph_ms(library)!r} ms in a graph; bound {bound_ms!r} ms by bytes ({smi})")
+
+
+def k13_calls(tag, dev, smi) -> None:
+    """K13 as timed, in a graph and on the host, with and without the mask."""
+    from griduniverse_tpu_torch.kernels import mc_returns as k13
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    t = 100
+    for b, n_ids in ((256, 81), (1024, 324)):
+        valid = torch.arange(t, device=dev)[:, None] < torch.randint(0, t + 1, (b,), generator=gen, device=dev)[None]
+        rewards = torch.where(valid, torch.randn((t, b), generator=gen, device=dev), 0.0)
+        ids = torch.randint(0, n_ids, (t, b), generator=gen, device=dev, dtype=torch.int32)
+        for what, args in (("returns alone", ()), ("returns and mask", (ids, valid))):
+            def call(args=args):
+                return k13.mc_returns_cuda(rewards, 0.99, *args)
+
+            print(f"[{tag}] K13 T={t} B={b} {what}: {_events_ms(call)!r} ms a call as timed, {_graph_ms(call)!r} ms "
+                  f"in a CUDA graph, {_host_us(call)!r} us of host time ({smi})")
 
 
 def other_kernels(tag, dev, gen, smi) -> None:

@@ -447,12 +447,18 @@ def test_act_step_and_greedy_step_kernels_match_plain(dev, max_ep):
                 assert torch.equal(getattr(gst, f), getattr(ref_gst, f))
 
 
-@pytest.mark.parametrize("s,e", [(256, 16), (4225, 64)])
+@pytest.mark.parametrize("n,offset", [(5000, 0), (1, 0), (1001, 0), (5000, 2)])
+@pytest.mark.parametrize("s,e", [(256, 16), (4225, 64), (40, 1), (40, 3), (40, 12), (40, 65)])
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
-def test_embed_rows_kernel_matches_plain(dev, s, e, cdt):
-    gen = torch.Generator(device=dev).manual_seed(s)
-    n = 5000
-    table = torch.randn((s, e), generator=gen, device=dev, requires_grad=True)
+def test_embed_rows_kernel_matches_plain(dev, s, e, cdt, n, offset):
+    """Forward and backward at the trainers' and the tests' shapes, at widths
+    E that allow 16, 8, 4 or 2 bytes a thread, on a table that starts
+    `offset` floats into its storage (8 bytes: the 16-byte path falls
+    back), one sample and counts that are no multiple of a block."""
+    gen = torch.Generator(device=dev).manual_seed(s * e + n + offset)
+    base = torch.randn((s * e + offset,), generator=gen, device=dev)
+    table = base[offset:].view(s, e).requires_grad_(True)
+    assert table.data_ptr() % 16 == 4 * offset % 16
     obs = torch.randint(0, 9, (n,), generator=gen, device=dev, dtype=torch.int32)  # heavy collisions
     obs[::5] = torch.randint(0, s, (len(obs[::5]),), generator=gen, device=dev, dtype=torch.int32)
     before = kernels.LAUNCHES["embed_rows"]
@@ -465,6 +471,13 @@ def test_embed_rows_kernel_matches_plain(dev, s, e, cdt):
     _assert_same((grad,), (networks.embed_rows_backward_reference(g, obs, s),))
     (auto,) = torch.autograd.grad(networks.embed_rows_reference(table, obs, cdt), table, g)
     torch.testing.assert_close(grad, auto, rtol=1e-4, atol=1e-4)
+    # an index outside [0, S) gives a zero row (the plain version takes none)
+    wild = obs.clone()
+    wild[::3] = torch.tensor([-1, s, -(1 << 31), s + 7, (1 << 31) - 1], device=dev, dtype=torch.int32).repeat(n)[
+        :len(wild[::3])]
+    ok = (wild >= 0) & (wild < s)
+    want = torch.where(ok[:, None], table.detach()[wild.clamp(0, s - 1).long()], 0.0).to(cdt)
+    assert torch.equal(embed_kernels.embed_rows_cuda(table.detach(), wild, cdt), want)
 
 
 def _shared_tier_limit(e, cdt):
@@ -1174,14 +1187,21 @@ def test_dqn_act_step_kernel_matches_plain(dev, shape):
     assert int(stats[1]) > 0
 
 
-@pytest.mark.parametrize("t,b,num_ids", [(1, 5, 4), (7, 300, 3), (100, 256, 81), (100, 1024, 324)])
+@pytest.mark.parametrize("t,b,num_ids", [
+    (1, 5, 4), (7, 300, 3), (100, 256, 81), (100, 1024, 324), (31, 1, 5), (33, 33, 40), (31, 4097, 81),
+    (257, 33, 81), (257, 4097, 300), (1000, 1, 50), (1000, 33, 700), (6000, 3, 900)])
 def test_mc_returns_kernel_matches_plain(dev, t, b, num_ids):
+    """T on either side of a warp, across several tiles of rows of the
+    staged group and above one tile of the block's shared memory (6,000);
+    B of one episode, one past a group and one past 4,096; episode 0's ids
+    all equal."""
     from griduniverse_tpu_torch.algos import mc
 
     gen = torch.Generator(device=dev).manual_seed(t * b)
     valid = torch.arange(t, device=dev)[:, None] < torch.randint(0, t + 1, (b,), generator=gen, device=dev)[None]
     rewards = torch.where(valid, torch.randn((t, b), generator=gen, device=dev), 0.0)
     ids = torch.randint(0, num_ids, (t, b), generator=gen, device=dev, dtype=torch.int32)
+    ids[:, 0] = 7
     before = kernels.LAUNCHES["mc_returns"]
     g, mask = mc.mc_returns(rewards, 0.99, ids, valid)
     only, none = mc.mc_returns(rewards, 0.99)
@@ -1190,6 +1210,32 @@ def test_mc_returns_kernel_matches_plain(dev, t, b, num_ids):
     for edge in (torch.ones_like(valid), torch.zeros_like(valid)):
         _assert_same(mc.mc_returns(rewards, 0.99, torch.zeros_like(ids), edge)[1:],
                      (mc.first_visit_mask(torch.zeros_like(ids), edge),))
+
+
+@pytest.mark.parametrize("t,b,group,tiles", [(100, 256, 2, 1), (100, 1024, 4, 1), (170, 2048, 8, 1),
+                                             (100, 4096, 16, 1), (170, 8192, 32, 1), (3000, 5, 1, 1),
+                                             (6000, 2, 1, 2)])
+def test_mc_returns_kernel_gives_the_same_bits_at_every_group(dev, t, b, group, tiles):
+    """Every group of episodes a block that `kernels.mc_returns.plan` picks,
+    reached through the shapes it picks it at, gives the plain version's
+    bits: 2 to 32 episodes a block in one tile of T rows (T = 170 is the
+    most for 32), one episode a block in one tile and, above 5,461 steps, in
+    two (the first tile's steps from device memory); ids over the whole
+    int32 range."""
+    from griduniverse_tpu_torch.algos import mc
+    from griduniverse_tpu_torch.kernels import mc_returns as k13
+
+    p = k13.plan(t, b)
+    assert p.group == group and -(-t // p.tile) == tiles
+    gen = torch.Generator(device=dev).manual_seed(group * tiles)
+    valid = torch.rand((t, b), generator=gen, device=dev) < 0.8
+    rewards = torch.randn((t, b), generator=gen, device=dev)
+    ids = torch.randint(-(1 << 31), (1 << 31) - 1, (8,), generator=gen, device=dev, dtype=torch.int32)[
+        torch.randint(0, 8, (t, b), generator=gen, device=dev)]
+    before = kernels.LAUNCHES["mc_returns"]
+    got = mc.mc_returns(rewards, 0.99, ids, valid)
+    assert kernels.LAUNCHES["mc_returns"] == before + 1
+    _assert_same(got, (mc.discounted_returns(rewards, 0.99), mc.first_visit_mask(ids, valid)))
 
 
 def test_dqn_resume_through_disk_on_cuda(dev, tmp_path):

@@ -15,6 +15,14 @@
     (T, B) rows and two slots of env state as disjoint, 16-byte-aligned views
     of the plain version's dtypes; `ActStepPlan` raises on another level,
     on wrong tensors and off the card, and reads one of its own slots in place.
+  * K13 (`kernels.mc_returns`): `plan` puts every episode in exactly one
+    block, keeps a block's staged tile within its shared memory and stages
+    whole episodes up to T = 5,461 steps (above, one episode a block in
+    tiles of 5,461 rows); it picks the measured groups at the trainers'
+    shapes; a literal walk of the kernel's cut
+    (blocks, tiles from the last, the returns carried across tiles, the
+    first-visit test against the staged rows and then the earlier tiles)
+    writes every sample once and gives the plain versions' bits.
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ import torch
 
 import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch.kernels import act_step as k7b
+from griduniverse_tpu_torch.algos import mc
 from griduniverse_tpu_torch.kernels import dqn_act
+from griduniverse_tpu_torch.kernels import mc_returns as k13
 from griduniverse_tpu_torch.kernels import td_batched as k6
 from griduniverse_tpu_torch.kernels import td_fast as k5
 from griduniverse_tpu_torch.levels import builders
@@ -336,3 +346,97 @@ def test_k7b_plan_reads_its_own_slot_in_place():
         assert out == 1 - k and ptrs == tuple(slot[:3])
         ptrs, out = plan._source(plan.states[k], plan.reached[k])
         assert out == 1 - k and ptrs == (*slot, plan.reached[k].data_ptr())
+
+
+@pytest.mark.parametrize("t", [1, 31, 33, 100, 257, 1_000, 4_096, 5_461, 5_462, 20_000])
+@pytest.mark.parametrize("b", [1, 33, 256, 1_024, 4_097, 65_536])
+def test_k13_plan_covers_every_episode_once(t, b):
+    p = k13.plan(t, b)
+    # block k takes episodes k·group .. k·group + group − 1 below B
+    starts = np.arange(p.blocks) * p.group
+    episodes = np.concatenate([np.arange(s0, min(s0 + p.group, b)) for s0 in starts])
+    assert np.array_equal(episodes, np.arange(b))
+    assert (p.blocks - 1) * p.group < b  # no block without an episode
+    assert 1 <= p.group <= k13.MAX_GROUP and p.group & (p.group - 1) == 0
+    # the tiles cover the steps once, and a block's tile fits its shared memory
+    assert 1 <= p.tile <= t and (-(-t // p.tile) - 1) * p.tile < t
+    assert p.shared == k13.BYTES_PER_CELL * p.tile * p.group <= k13.SHARED_BYTES
+    if t <= 4_096:  # whole episodes: the first-visit test reads no device memory
+        assert p.tile == t
+    if b >= k13.MAX_GROUP * k13.TARGET_BLOCKS and t * k13.MAX_GROUP * k13.BYTES_PER_CELL <= k13.SHARED_BYTES:
+        assert p.group == k13.MAX_GROUP  # wide calls stage 128 bytes of rewards a row
+
+
+# (T, B): the groups the plan picks at the trainers' shapes (the measured optimum)
+_K13_GROUPS = {(100, 256): 2, (100, 1_024): 4, (100, 4_096): 16, (100, 65_536): 32, (1_000, 4_097): 4,
+               (4_096, 8): 1, (170, 2_048): 8, (170, 8_192): 32, (171, 8_192): 16, (2_730, 9): 2, (2_731, 9): 1}
+
+
+@pytest.mark.parametrize("shape", sorted(_K13_GROUPS))
+def test_k13_plan_picks_the_group(shape):
+    p = k13.plan(*shape)
+    assert p.group == _K13_GROUPS[shape]
+    assert p.blocks == -(-shape[1] // p.group)
+
+
+@pytest.mark.parametrize("t", [5_462, 6_000, 10_922, 10_923, 20_000])
+def test_k13_plan_cuts_long_episodes_into_tiles(t):
+    """Above 5,461 steps not even one episode fits a block's shared memory:
+    one episode a block, its steps in tiles of 5,461 rows from the first."""
+    p = k13.plan(t, 3)
+    assert p.group == 1 and p.blocks == 3
+    assert p.tile == k13.SHARED_BYTES // k13.BYTES_PER_CELL == 5_461
+    assert -(-t // p.tile) == (2 if t <= 10_922 else 3 if t <= 16_383 else 4)
+
+
+def _k13_walk(p, rewards, gamma, ids, valid):
+    """`csrc/mc_returns.cu` walked literally on numpy arrays: block by block,
+    each block's tiles from the last; the staged tile's returns from its last
+    row up with G carried across tiles (float32, the multiply and the add
+    rounded apart); each valid step tested against the staged earlier rows
+    and then the earlier tiles' rows in device memory. Returns (returns,
+    mask, writes of each sample)."""
+    t, b = rewards.shape
+    returns = np.zeros((t, b), np.float32)
+    mask = np.zeros((t, b), bool)
+    writes = np.zeros((t, b), np.int64)
+    gamma = np.float32(gamma)
+    for block in range(p.blocks):
+        b0 = block * p.group
+        cols = slice(b0, min(b0 + p.group, b))
+        g = np.zeros(cols.stop - b0, np.float32)
+        for j in reversed(range(-(-t // p.tile))):
+            t0 = j * p.tile
+            rows = slice(t0, min(t0 + p.tile, t))
+            r_s, id_s, v_s = rewards[rows, cols].copy(), ids[rows, cols], valid[rows, cols]
+            for r in reversed(range(r_s.shape[0])):
+                g = r_s[r] + gamma * g
+                r_s[r] = g
+            for r in range(r_s.shape[0]):
+                for c in range(r_s.shape[1]):
+                    first = bool(v_s[r, c])
+                    if first:
+                        first = not np.any(v_s[:r, c] & (id_s[:r, c] == id_s[r, c]))
+                    if first and t0:
+                        first = not np.any(valid[:t0, b0 + c] & (ids[:t0, b0 + c] == id_s[r, c]))
+                    mask[t0 + r, b0 + c] = first
+            returns[rows, cols] = r_s
+            writes[rows, cols] += 1
+    return returns, mask, writes
+
+
+@pytest.mark.parametrize("t,b", [(1, 1), (7, 5), (33, 33), (100, 19), (100, 256), (100, 1_024), (3_000, 2),
+                                 (6_000, 2)])
+def test_k13_literal_walk_matches_the_plain_versions(t, b):
+    rng = np.random.default_rng(t * 1000 + b)
+    valid = np.arange(t)[:, None] < rng.integers(0, t + 1, b)[None]
+    rewards = np.where(valid, rng.standard_normal((t, b)), 0.0).astype(np.float32)
+    ids = rng.integers(0, max(2, t // 3), (t, b)).astype(np.int32)
+    ids[:, 0] = 5  # one episode of one id
+    p = k13.plan(t, b)
+    got, got_mask, writes = _k13_walk(p, rewards, 0.99, ids, valid)
+    assert (writes == 1).all()
+    want = mc.discounted_returns(torch.from_numpy(rewards), 0.99).numpy()
+    want_mask = mc.first_visit_mask(torch.from_numpy(ids), torch.from_numpy(valid)).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.array_equal(got_mask, want_mask)
