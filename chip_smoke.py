@@ -46,7 +46,8 @@ main paths' own outputs are held bit for bit against the plain versions on
 the same inputs. Every phase raises on failure. The last two lines are a
 JSON record of the kernels (launches on the main paths, error against the
 plain version, kernel / plain / library times and the least time the card
-could take) and `{"ok": true, "device": {...}}`.
+could take; K3 and K11 once for each shape they are timed at) and
+`{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX: the reference's per-env golden mazes are read from
 `tests/golden/torch/`.
@@ -115,8 +116,6 @@ _STATE_FIELDS = ("agent_idx", "agent_code", "t", "done")
 # warp issues both sides of a branch its lanes split on, so both count).
 INSTR_K1_STEP = 85      # the scan loop is 170 instructions for two unrolled steps
 INSTR_K2_STEP = 94      # the replay loop is 188 instructions for two unrolled steps
-INSTR_K3_STEP = 54      # the seeded walk loop
-INSTR_K3_TILE = 17      # one tile of the grid written out (69 for four)
 # one cell's VI sweep in the packed kernel (`grid_sweeps_packed_kernel<4, false>`:
 # between two barriers 26 instructions on odd sweeps and 31 on even ones, of
 # them four loads, multiplies, adds and maxima, the store, |ΔV| and its
@@ -183,7 +182,7 @@ INSTR_K9A_FWD = 3       # one element of the forward: a load, a convert and a st
 INSTR_K9A_BWD = 6       # one (sample, column): a load, a convert and two adds, over both levels
 INSTR_K9B_FWD = 8       # one output element of the stamp pass
 INSTR_K9B_BWD = 12      # one element of the backward: two loads, two converts, the mask, the adds
-# K8a, K8b, K11 and the probes, from the same listings
+# K8a, K8b and the probes, from the same listings
 INSTR_K8A_SCORE = 131   # per_score_kernel has no loop: one slot's score, mass and share of the block sum (counted before block 0 zeroed the select's histograms; the other blocks skip that with a compare and a branch)
 # An exact top-n needs each score keyed and compared once. The select as written reads
 # every score six times (four histogram passes, a count, a compaction) and sorts the
@@ -192,8 +191,6 @@ INSTR_K8A_PICK = 2
 INSTR_K8B_WRITE = 75    # replay_write_kernel, one transition
 INSTR_K8B_GATHER = 49   # replay_gather_kernel, one row
 INSTR_K8B_REFRESH = 119 # prio_refresh_kernel, one row, without its scan of the later rows
-INSTR_K11_ITER = 172    # the backtracker's iteration loop (both sides of its branches)
-INSTR_K11_TILE = 10     # the wall fill: 40 instructions for four unrolled tiles
 INSTR_P1 = 23           # gather_1d_kernel, one element
 INSTR_P2 = 48           # take_along_axis1_kernel, one element
 INSTR_K12_ELEM = 12     # one trace element: load, decay, flush, bump test, multiply, add, count, store (an estimate)
@@ -218,6 +215,32 @@ N_BIG, PI_BIG_ITERS = 64, 10
 HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
 
 
+def k11_function_ops(cells) -> int:
+    """K11's own operations for one maze, as K4's and K13's are counted:
+    each of its 2S - 1 iterations is a xorshift round (6: three shifts,
+    three xors), the order's pick (3: a multiply, a shift, the table's
+    read) and four neighbour tests (8: a bound compare and a visited test
+    each); each of the S - 1 pushes marks the target and moves (2), each of
+    the S pops moves to the stack's new top (1). The grids are bytes,
+    counted apart. The SASS path of the earlier kernel was 172 an
+    iteration (and 10 a tile of its wall fill)."""
+    s = cells[0] * cells[1]
+    return (2 * s - 1) * 17 + (s - 1) * 2 + s
+
+
+def k3_function_ops(steps: int, marked: int, injected: bool) -> int:
+    """K3's own operations over a call: a walk step is the draw (7: a
+    xorshift round and the top two bits) or the read of the injected
+    direction (1), the move (3: the bound compare, the row or column add,
+    the cell's index) and the first-entry test (2: the read and the
+    compare); each cell marked, by a first entry or by the safety net,
+    takes the mark and the count (2). `steps` are the steps the call's own
+    walks took up to cover (or the cap). The grids are bytes, counted
+    apart. The SASS path of the earlier kernel was 54 a seeded step (and 17
+    a tile of its grid)."""
+    return steps * ((1 if injected else 7) + 5) + marked * 2
+
+
 def _make_bound():
     """bound(bytes, thread_instructions) -> the least time the card could
     take for that work: the larger of the bytes over the memory rate and
@@ -236,6 +259,7 @@ def _make_bound():
         by_ops = thread_instr / issue_rate * 1e3
         return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
+    bound.clock_hz = mhz * 1e6  # the SM clock the issue rate assumes
     return bound
 
 
@@ -1403,7 +1427,7 @@ def maze_probe_phases(gt, dev, bound, smi):
     n64, n33, n127 = 65_536, 8_192, 1_024
     g64, start64 = M.generate_mazes_device(2026, (4, 4), n64)       # the default algorithm: the backtracker
     g33, _ = M.generate_mazes_device(2027, (16, 16), n33)
-    # above the 256 cells of a maze's local arrays: the scratch-buffer form
+    # the 65x65 grid of the shared-Q run above 8,192 entries, and the largest maze the port packs
     g65, _ = M.generate_mazes_device(2029, (32, 32), n64)
     g127, _ = M.generate_mazes_device(2030, (63, 63), n127)
     shapes = (("9x9", g64, (4, 4), 2026), ("33x33", g33, (16, 16), 2027),
@@ -1433,6 +1457,7 @@ def maze_probe_phases(gt, dev, bound, smi):
     print("gather probe: 1-D vector gather OK, 2-D take_along_axis OK (zero and seeded indices, and the step lookup)")
 
     # the main path's grids against the plain version, and the times
+    times["backtracker_mazes"] = []
     for tag, grids, cells, seed in shapes:
         b, s = grids.shape[0], cells[0] * cells[1]
         ms, got = _cuda_ms(lambda: M.generate_mazes_device(seed, cells, b)[0], 5 if s <= 256 else 2)
@@ -1442,11 +1467,11 @@ def maze_probe_phases(gt, dev, bound, smi):
         tiles = grids.shape[1] * grids.shape[2]
         # the grids written once; 2S - 1 iterations a maze, whatever the draws
         t11 = dict(ms=ms, plain_ms=plain_ms, shape=f"cells={cells} B={b}", library_ms=None,
-                   **bound(b * tiles * 4, b * (INSTR_K11_ITER * (2 * s - 1) + INSTR_K11_TILE * tiles)))
+                   **bound(b * tiles * 4, b * k11_function_ops(cells)))
         print(f"K11 main {tag}: grids bit-exact vs plain; kernel {ms!r} ms ({b / ms * 1e3!r} mazes/s), plain {plain_ms!r} ms, "
-              f"bound {t11['bound_ms']!r} ms by {t11['bound_by']} ({smi})")
-        if tag == "9x9":
-            times["backtracker_mazes"] = t11
+              f"bound {t11['bound_ms']!r} ms by {t11['bound_by']}; {ms * 1e-3 * bound.clock_hz / (2 * s - 1)!r} cycles "
+              f"an iteration at {bound.clock_hz / 1e6!r} MHz, the grids' writing included ({smi})")
+        times["backtracker_mazes"].append(t11)
         del got, ref
 
     states, envs = gather_probe.STEP_LOOKUP
@@ -2497,9 +2522,8 @@ def main() -> None:
     _require(bool(np.all(np.abs(counts - b2 / 4) < 5 * sigma)), f"K3 2x2: not uniform {counts}")
     print(f"K3 seeded 2x2 spanning-tree counts {counts.tolist()} (expect {b2 // 4} ± {5 * sigma:.0f})")
 
-    # above the 256 cells of a maze's local arrays: 32x32 cells from injected
-    # directions, a walk capped short of covering every maze (the safety net
-    # carves the rest)
+    # 32x32 cells from injected directions (the 65x65 grid), a walk capped
+    # short of covering every maze (the safety net carves the rest)
     cells32, b32, iters32 = (32, 32), 256, 5_000
     dirs32 = torch.randint(0, 4, (iters32, b32), generator=gen, device=dev, dtype=torch.int8)
     g32 = M._aldous_broder_mazes(cells32, b32, iters32, directions=dirs32)
@@ -2582,18 +2606,22 @@ def main() -> None:
         lambda: M.aldous_broder_mazes_reference((4, 4), b64, seed=5, device=dev, count_steps=True), 1)
     errs["aldous_broder_mazes"] = max(errs["aldous_broder_mazes"], _same("K3 timed (4, 4)", got, ref))
     # the grids written once; the walk steps these seeds needed to cover their mazes
-    times["aldous_broder_mazes"] = dict(
+    times["aldous_broder_mazes"] = [dict(
         ms=ms, plain_ms=plain_ms, shape=f"seeded cells=(4, 4) B={b64}", library_ms=None,
-        **bound(b64 * 81 * 4, INSTR_K3_STEP * int(walk_steps.sum()) + INSTR_K3_TILE * b64 * 81))
+        **bound(b64 * 81 * 4, k3_function_ops(int(walk_steps.sum()), b64 * 15, injected=False)))]
     print(f"K3 timed: mean walk steps to cover {float(walk_steps.double().mean())!r}")
     ms, got = _cuda_ms(lambda: M._aldous_broder_mazes(cells32, b32, iters32, directions=dirs32), 5)
     _same("K3 timed injected (32, 32)", got, g32)
-    t3 = dict(ms=ms, plain_ms=plain32_ms, library_ms=None,
+    t3 = dict(ms=ms, plain_ms=plain32_ms, shape=f"injected cells={cells32} B={b32} max_iters={iters32}", library_ms=None,
               # the directions each walk read and the grids written once; the steps the walks took
               **bound(int(walk32.sum()) + b32 * 65 * 65 * 4,
-                      INSTR_K3_STEP * int(walk32.sum()) + INSTR_K3_TILE * b32 * 65 * 65))
-    print(f"time aldous_broder_mazes at injected cells={cells32} B={b32} max_iters={iters32} (scratch tier): kernel {ms!r} ms, "
-          f"plain {plain32_ms!r} ms, bound {t3['bound_ms']!r} ms by {t3['bound_by']}, library None ms ({smi})")
+                      k3_function_ops(int(walk32.sum()), b32 * 1023, injected=True)))
+    times["aldous_broder_mazes"].append(t3)
+    # one warp an SM: the call is the longest walk's chain, then its warp's grids
+    print(f"time aldous_broder_mazes at injected cells={cells32} B={b32} max_iters={iters32}: kernel {ms!r} ms, "
+          f"plain {plain32_ms!r} ms, bound {t3['bound_ms']!r} ms by {t3['bound_by']}, library None ms; "
+          f"{ms * 1e-3 * bound.clock_hz / int(walk32.max())!r} cycles a step of the longest walk "
+          f"({int(walk32.max())} steps) at {bound.clock_hz / 1e6!r} MHz, the grids' writing included ({smi})")
 
     # -- phases 7-10: the tabular solvers (K4, K5, K6, K10) --------------------
     elapsed("phases 1-6")
@@ -2632,7 +2660,9 @@ def main() -> None:
     for name, err in ceiling_phases(gt, dev, bound, smi).items():
         errs[name] = max(errs[name], err)
     elapsed("phase 23")
-    for name, t in times.items():
+    # a kernel timed at several shapes (K3, K11) has a record for each
+    shaped = [(name, t) for name, ts in times.items() for t in (ts if isinstance(ts, list) else [ts])]
+    for name, t in shaped:
         print(f"time {name} at {t['shape']}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
               f"bound {t['bound_ms']!r} ms by {t['bound_by']}, library {t['library_ms']!r} ms, "
               f"max abs err vs plain {errs[name]!r} ({smi})")
@@ -2660,13 +2690,14 @@ def main() -> None:
         "mc_returns": (csrc + "mc_returns.cu", "griduniverse_tpu/algos/mc.py:59"),
     }
     _require(set(sources) == set(kernels.LAUNCHES), "the record does not list every kernel")
+    _require(set(sources) == {name for name, _ in shaped}, "a kernel has no time")
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+        {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
-         "library_ms": times[name]["library_ms"]}
-        for name, (src, replaces) in sources.items()
+         "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+         "library_ms": t["library_ms"], "shape": t["shape"]}
+        for name, t in shaped
     ]}
     print(smi)
     print(json.dumps(record))

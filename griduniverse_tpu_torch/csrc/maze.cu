@@ -12,127 +12,183 @@
 // Bound on the card: the walk's length. The JAX version walks all mazes in
 // lockstep until the LAST one is covered, so its cost is the batch's
 // slowest cover time times B·S lane work; that tail is the bound the TPU
-// hit. Here each thread stops at its own maze's cover time, and a step is
-// a few integer ops and one byte of local memory.
+// hit. Here each thread stops at its own maze's cover time, and a step is a
+// few integer operations and one word of shared memory; the chain of a
+// step is that word's load, its test and its store.
 //
-// Design: one thread per maze; the first-entry edges (one byte per cell)
-// live in the thread's local memory up to kMaxLocalCells = 256 cells. A
-// larger maze (up to the 63×63 cells whose grid fits 16,384 packed states)
-// keeps them in a scratch buffer of S·B bytes that the wrapper allocates,
-// cell-major (edge i of maze b at i·B + b) so that the threads of a warp
-// touch neighbouring bytes, as in local memory: a local array of 3,969
-// bytes would reserve that much for every thread the card can hold (about
-// 1 GB), whatever B is, while the buffer grows with B and goes back to
-// PyTorch's allocator after the call. Two modes share the walk:
+// Design (`maze_tree.cuh`): one thread per maze, the first-entry edges the
+// nibble tree in shared memory (a thread's own column), the position
+// carried as (row, column) so no step divides, a step without a branch (the
+// bound test is two unsigned compares, the mark a predicated store), and
+// the grids written once, coalesced, by the block. The walk checks for
+// cover every 16 steps: after cover it enters no new cell, so the extra
+// steps change nothing. Two modes share the walk:
 //   * injected: the direction of step t for maze b is dirs[t, b] (int8),
-//     so the reference's draws can be replayed. After cover the walk
-//     enters no new cell, so stopping early gives the same grid as the
-//     reference's lockstep loop.
+//     so the reference's draws can be replayed. Each thread loads its next
+//     16 directions into registers while it walks the current 16, so no
+//     step waits on device memory, and it never reads a row at or past
+//     `max_iters`. A direction outside 0..3 leaves the walk where it is, as
+//     in the reference.
 //   * seeded: a per-maze xorshift32 stream seeded with fmix32(b·φ + seed);
 //     the direction is its top two bits.
-// Each thread writes its own maze row by row at the end.
+// `kernels/maze.py` `plan` picks the walking warps a block and its shared
+// memory.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "maze_tree.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxLocalCells = 256;
-constexpr uint8_t kUnvisited = 0xFF;
-constexpr uint8_t kRoot = 4;
-constexpr int kEmpty = 0, kWall = 1, kGoal = 3;
+using namespace maze_tree;
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
+constexpr int kBlockSteps = 16;
+constexpr int kStay = 4;  // a direction that moves nowhere (any value above 3)
+
+// A walk's steps, pipelined: each step is first prepared (the move and the
+// load of the new cell's word), then finished (the first-entry test and the
+// mark) after the next step has been prepared, so that no load waits for
+// the store before it. The store that a prepared load may have missed is
+// the one finished just before it, and `finish` forwards it in registers.
+struct Walk {
+  int r = 0, c = 0, n_visited = 1;
+  int at = 0, sh = 0;   // the prepared step's cell: word offset in the column, shift
+  uint32_t raw = 0, mask = 0;  // its word as loaded, its mark as an xor
+  int at_prev = -1;      // the last finished step's stored word (-1: none)
+  uint32_t stored = 0;
+
+  // Direction d: N 0, E 1, S 2, W 3. Any other value, or a move off the
+  // grid, stays on the current cell, which is visited.
+  __device__ __forceinline__ void prepare(unsigned d, int ch, int cw, const uint32_t* col, int stride,
+                                          int row_stride) {
+    const bool odd = d & 1u;  // odd moves along the row, by 2 − d; even ones across, by d − 1
+    const int nr = r + (odd ? 0 : static_cast<int>(d) - 1), nc = c + (odd ? 2 - static_cast<int>(d) : 0);
+    const bool ok = (d < 4u) & (static_cast<unsigned>(nr) < static_cast<unsigned>(ch)) &
+                    (static_cast<unsigned>(nc) < static_cast<unsigned>(cw));
+    r = ok ? nr : r;
+    c = ok ? nc : c;
+    at = r * row_stride + (c >> 3) * stride;
+    sh = (c & 7) * 4;
+    raw = col[at];
+    mask = (kUnvisited ^ (d ^ 2u)) << sh;  // the way back; a stay never marks
+  }
+
+  // The prepared step's test and mark; `next` is prepared before this runs.
+  __device__ __forceinline__ void finish(int at_step, int sh_step, uint32_t raw_step, uint32_t mask_step,
+                                         uint32_t* col) {
+    const uint32_t word = at_step == at_prev ? stored : raw_step;
+    const bool fresh = nibble_at(word, sh_step) == kUnvisited;
+    if (fresh) col[at_step] = word ^ mask_step;
+    n_visited += fresh;
+    at_prev = fresh ? at_step : -1;
+    stored = word ^ mask_step;
+  }
+
+  // Prepare the step in direction d_next, then finish the one prepared before it.
+  __device__ __forceinline__ void step(unsigned d_next, int ch, int cw, uint32_t* col, int stride,
+                                       int row_stride) {
+    const int at_step = at, sh_step = sh;
+    const uint32_t raw_step = raw, mask_step = mask;
+    prepare(d_next, ch, cw, col, stride, row_stride);
+    finish(at_step, sh_step, raw_step, mask_step, col);
+  }
+};
+
+// Directions t0 .. t0 + 15 of maze b, zero-extended bytes as loaded (kStay
+// at and past max_iters); nothing waits on them until the walk reaches them.
+__device__ __forceinline__ void load_block(unsigned (&dst)[kBlockSteps], const uint8_t* __restrict__ dirs,
+                                           int t0, int max_iters, int batch, int b) {
+  const uint8_t* row = dirs + static_cast<size_t>(t0) * batch + b;
+  const int left = max_iters - t0;
+#pragma unroll
+  for (int k = 0; k < kBlockSteps; ++k, row += batch) {
+    dst[k] = kStay;
+    if (k < left) dst[k] = *row;
+  }
 }
 
-template <bool kScratch>
-__global__ void aldous_broder_kernel(int ch, int cw, int batch, int max_iters,
-                                     const int8_t* __restrict__ dirs,
-                                     uint32_t seed, int* __restrict__ grids,
-                                     uint8_t* __restrict__ scratch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
+// Block: kThreads threads, of which the first M = mazes_a_block (a multiple
+// of 32) walk a maze each, their trees in dynamic shared memory (M·ch·⌈cw/8⌉
+// words, word-major); then all write the block's grids.
+template <bool kInjected>
+__global__ void __launch_bounds__(kThreads) aldous_broder_kernel(int ch, int cw, int batch, int max_iters,
+                                                                 const uint8_t* __restrict__ dirs, uint32_t seed,
+                                                                 int mazes_a_block, int* __restrict__ grids) {
+  extern __shared__ uint32_t trees[];
+  const int stride = mazes_a_block, slot = threadIdx.x;
+  const int base = blockIdx.x * stride;  // the block's first maze
+  const int b = base + slot;
   const int s = ch * cw;
+  uint32_t* col = trees + slot;
+  const int wpr = row_words(cw), row_stride = wpr * stride;
 
-  // first-entry edge of each cell, seen from the entered cell: 0=N 1=E 2=S 3=W
-  uint8_t own[kScratch ? 1 : kMaxLocalCells];
-  uint8_t* const base = kScratch ? scratch + b : own;
-  const size_t stride = kScratch ? static_cast<size_t>(batch) : 1;
-  auto par = [&](int i) -> uint8_t& { return base[i * stride]; };
-  for (int i = 0; i < s; ++i) par(i) = kUnvisited;
-  par(0) = kRoot;  // the walk starts at cell (0, 0)
-
-  uint32_t x = fmix32(static_cast<uint32_t>(b) * 0x9E3779B9u + seed) | 1u;
-  int p = 0, n_visited = 1;
-  for (int t = 0; t < max_iters && n_visited < s; ++t) {
-    int d;
-    if (dirs != nullptr) {
-      d = dirs[static_cast<size_t>(t) * batch + b];
+  if (slot < stride && b < batch) {
+    tree_init(col, stride, ch, cw);  // the walk starts at cell (0, 0), the root
+    Walk walk;
+    if (kInjected) {
+      unsigned now[kBlockSteps], next[kBlockSteps];
+      load_block(now, dirs, 0, max_iters, batch, b);
+      load_block(next, dirs, kBlockSteps, max_iters, batch, b);
+      walk.prepare(now[0], ch, cw, col, stride, row_stride);
+      for (int t0 = 0; t0 < max_iters && walk.n_visited < s; t0 += kBlockSteps) {
+#pragma unroll
+        for (int k = 0; k < kBlockSteps; ++k)  // finishes step t0 + k
+          walk.step(k + 1 < kBlockSteps ? now[k + 1] : next[0], ch, cw, col, stride, row_stride);
+#pragma unroll
+        for (int k = 0; k < kBlockSteps; ++k) now[k] = next[k];
+        load_block(next, dirs, t0 + 2 * kBlockSteps, max_iters, batch, b);
+      }
     } else {
-      x ^= x << 13;
-      x ^= x >> 17;
-      x ^= x << 5;
-      d = static_cast<int>(x >> 30);
-    }
-    const int r = p / cw, c = p - (p / cw) * cw;
-    const int nr = r + (d == 0 ? -1 : (d == 2 ? 1 : 0));
-    const int nc = c + (d == 1 ? 1 : (d == 3 ? -1 : 0));
-    if (nr >= 0 && nr < ch && nc >= 0 && nc < cw) {  // off-grid moves stay
-      p = nr * cw + nc;
-      if (par(p) == kUnvisited) {
-        par(p) = static_cast<uint8_t>((d + 2) & 3);
-        ++n_visited;
+      uint32_t x = xorshift(stream_init(b, seed));
+      walk.prepare(max_iters > 0 ? x >> 30 : kStay, ch, cw, col, stride, row_stride);
+      for (int t0 = 0; t0 < max_iters && walk.n_visited < s; t0 += kBlockSteps) {
+#pragma unroll
+        for (int k = 0; k < kBlockSteps; ++k) {  // finishes step t0 + k
+          x = xorshift(x);
+          walk.step(t0 + k + 1 < max_iters ? x >> 30 : kStay, ch, cw, col, stride, row_stride);
+        }
       }
     }
+    // safety net: an unreached cell carves north (west on row 0)
+    if (walk.n_visited < s) {
+      for (int rr = 0; rr < ch; ++rr) {
+        for (int j = 0; j < wpr; ++j) {
+          uint32_t* at = col + rr * row_stride + j * stride;
+          uint32_t word = *at;
+          for (int k = 0; k < 8 && 8 * j + k < cw; ++k) {
+            if (nibble_at(word, 4 * k) == kUnvisited) word ^= (kUnvisited ^ (rr > 0 ? 0u : 3u)) << (4 * k);
+          }
+          *at = word;
+        }
+      }
+    }
+    tree_to_walls(col, stride, ch, cw);
   }
-  // safety net: an unreached cell carves north (west on row 0)
-  for (int i = 0; i < s; ++i) {
-    if (par(i) == kUnvisited) par(i) = i >= cw ? 0 : 3;
-  }
-
+  __syncthreads();
+  const int nm = min(stride, batch - base);
   const int h = 2 * ch + 1, w = 2 * cw + 1;
-  int* g = grids + static_cast<size_t>(b) * h * w;
-  for (int gr = 0; gr < h; ++gr) {
-    for (int gc = 0; gc < w; ++gc) {
-      int v = kWall;
-      if ((gr & 1) && (gc & 1)) {
-        v = kEmpty;  // a cell
-      } else if (!(gr & 1) && (gc & 1) && gr > 0 && gr < h - 1) {
-        // north wall of cell (r, c): open iff (r, c) entered from the north
-        // or (r-1, c) entered from the south
-        const int cell = (gr / 2) * cw + gc / 2;
-        if (par(cell) == 0 || par(cell - cw) == 2) v = kEmpty;
-      } else if ((gr & 1) && !(gc & 1) && gc > 0 && gc < w - 1) {
-        // west wall of cell (r, c): open iff (r, c) entered from the west
-        // or (r, c-1) entered from the east
-        const int cell = (gr / 2) * cw + gc / 2;
-        if (par(cell) == 3 || par(cell - 1) == 1) v = kEmpty;
-      }
-      g[gr * w + gc] = v;
-    }
-  }
-  g[(h - 2) * w + (w - 2)] = kGoal;
+  write_grids(trees, stride, nm, ch, cw, grids + static_cast<size_t>(base) * h * w, slot);
 }
 
 }  // namespace
 
-// `scratch`: S·B bytes when S > 256 cells, else unused (may be null).
+// `dirs`: (≥ max_iters, batch) int8, or null for the seeded walk.
+// `mazes_a_block`: 32, 64 or 128, the block's walking threads; `shared`: its
+// bytes of trees, mazes_a_block · ch · ⌈cw/8⌉ · 4 (`kernels/maze.py` `plan`).
 extern "C" int gu_aldous_broder_mazes(int ch, int cw, int batch, int max_iters,
-                                      const void* dirs, int seed, void* grids, void* scratch,
-                                      void* stream) {
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  auto* kernel = ch * cw > kMaxLocalCells ? aldous_broder_kernel<true>
-                                          : aldous_broder_kernel<false>;
-  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      ch, cw, batch, max_iters, static_cast<const int8_t*>(dirs),
-      static_cast<uint32_t>(seed), static_cast<int*>(grids), static_cast<uint8_t*>(scratch));
+                                      const void* dirs, int seed, void* grids, int mazes_a_block,
+                                      int shared, void* stream) {
+  auto* kernel = dirs != nullptr ? aldous_broder_kernel<true> : aldous_broder_kernel<false>;
+  if (shared > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (batch + mazes_a_block - 1) / mazes_a_block;
+  kernel<<<blocks, kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+      ch, cw, batch, max_iters, static_cast<const uint8_t*>(dirs), static_cast<uint32_t>(seed), mazes_a_block,
+      static_cast<int*>(grids));
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,7 +29,7 @@ SOURCES = (
     "replay.cu", "backtracker.cu", "gather_probe.cu", "trace_pass.cu",
     "dqn_act.cu", "mc_returns.cu",
 )
-HEADERS = ("step.cuh",)
+HEADERS = ("step.cuh", "maze_tree.cuh")
 # No --use_fast_math, and -fmad=false: every kernel is held bit for bit
 # against a plain PyTorch version that rounds a multiply and an add
 # separately, so `a + b*c` must not contract into one fused multiply-add.
@@ -52,7 +52,8 @@ _SIGNATURES = {
     "gu_rollout_actions_bits": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P],
-    "gu_aldous_broder_mazes": [_I, _I, _I, _I, _P, _I, _P, _P, _P],
+    # ch, cw, batch, max_iters; dirs; seed; grids; mazes a block, shared bytes
+    "gu_aldous_broder_mazes": [_I, _I, _I, _I, _P, _I, _P, _I, _I, _P],
     # grids, n, h, w, policy; v in, out; gamma, sweeps; mazes, threads, cells a
     # thread, table; partial, its rows; maxima, ticket
     "gu_grid_sweeps": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
@@ -97,7 +98,8 @@ _SIGNATURES = {
     "gu_replay_gather": [_P] * 6 + [_I, _I, _P] + [_P],
     # prio, idx, abs_err; eps, n, cap; p_max in, out; owner; launched
     "gu_prio_refresh": [_P] * 3 + [_F, _I, _I, _P, _P, _P, _P, _P],
-    "gu_backtracker_mazes": [_I, _I, _I, _I, _P, _P, _P],
+    # ch, cw, batch, seed; grids; mazes a block, shared bytes
+    "gu_backtracker_mazes": [_I, _I, _I, _I, _P, _I, _I, _P],
     "gu_gather_1d": [_P, _I, _P, _I, _P, _P],
     "gu_take_along_axis1": [_P, _I, _P, _I, _I, _P, _P],
     # e, s, a, delta, cut, table in, out; γλ, cutoff, α; replacing, A, B, cells;

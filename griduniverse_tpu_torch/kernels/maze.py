@@ -1,11 +1,16 @@
-"""Wrappers of K3 (`csrc/maze.cu`) and K11 (`csrc/backtracker.cu`): check,
-allocate, launch.
+"""Wrappers of K3 (`csrc/maze.cu`) and K11 (`csrc/backtracker.cu`): plan,
+check, allocate, launch.
 
-The plain PyTorch versions are `levels.maze.aldous_broder_mazes_reference`
-and `levels.maze.backtracker_mazes_reference`.
+Both kernels keep each maze's spanning tree in shared memory, four bits a
+cell, word-major over a block's mazes (`csrc/maze_tree.cuh`), and each
+block writes its grids once, coalesced. `plan` cuts a call into blocks. The
+plain PyTorch versions are `levels.maze.aldous_broder_mazes_reference` and
+`levels.maze.backtracker_mazes_reference`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -13,9 +18,41 @@ from ..ops.bitplane import MAX_PACKED_STATES
 from . import LAUNCHES
 from .build import check_int, check_tensor, launch
 
-# Mazes up to this many cells keep their per-maze arrays in local memory;
-# larger ones take a scratch buffer (`csrc/maze.cu`, `csrc/backtracker.cu`).
-MAX_LOCAL_CELLS = 256
+WARP = 32
+THREADS = 128                # a block: its walking warps, then all four write its grids
+MAX_WARPS = THREADS // WARP  # walking warps a block at most
+TARGET_BLOCKS = 132          # a block for each of the H100's SMs before a block walks more warps
+SHARED_LIMIT = 227 * 1024    # the H100's opt-in shared memory a block
+
+
+class Plan(NamedTuple):
+    """A call's cut: `warps` walking warps a block (a maze a thread, 32·warps
+    mazes a block) in `blocks` blocks of THREADS threads, `shared` bytes of
+    trees a block."""
+    warps: int
+    blocks: int
+    shared: int
+
+
+def tree_words(cells) -> int:
+    """32-bit words of one maze's tree: four bits a cell, ⌈cw/8⌉ words a row."""
+    ch, cw = cells
+    return ch * -(-cw // 8)
+
+
+def plan(cells, batch: int) -> Plan:
+    """The most walking warps a block, up to MAX_WARPS and halving, that
+    still give TARGET_BLOCKS blocks and whose trees fit SHARED_LIMIT; one
+    where none does. One warp's trees are 32 · ch · ⌈cw/8⌉ words (63 KB at
+    63×63 cells), so every maze the port packs fits. A function of the
+    shapes alone; any plan gives the same bits."""
+    batch = check_int("batch_size", batch, low=1)
+    per_warp = WARP * 4 * tree_words(cells)
+    warps_needed = -(-batch // WARP)
+    warps = MAX_WARPS
+    while warps > 1 and (warps * per_warp > SHARED_LIMIT or -(-warps_needed // warps) < TARGET_BLOCKS):
+        warps //= 2
+    return Plan(warps, -(-warps_needed // warps), warps * per_warp)
 
 
 def _check_cells(cells) -> tuple[int, int]:
@@ -26,6 +63,11 @@ def _check_cells(cells) -> tuple[int, int]:
             f"cells {cells}: the grid (2ch+1)(2cw+1) must hold 1..{MAX_PACKED_STATES} states"
         )
     return ch, cw
+
+
+def _c_seed(seed: int) -> int:
+    seed = int(seed) & 0xFFFFFFFF
+    return seed - (1 << 32) if seed >= (1 << 31) else seed  # C int, same bits
 
 
 def aldous_broder_mazes_cuda(
@@ -55,18 +97,14 @@ def aldous_broder_mazes_cuda(
         dirs_ptr = check_tensor(
             "directions", directions, torch.int8, (rows, batch_size), device
         )
-    seed = int(seed) & 0xFFFFFFFF
-    seed = seed - (1 << 32) if seed >= (1 << 31) else seed  # C int, same bits
+    p = plan((ch, cw), batch_size)
     grids = torch.empty(
         (batch_size, 2 * ch + 1, 2 * cw + 1), dtype=torch.int32, device=device
     )
-    scratch = None
-    if ch * cw > MAX_LOCAL_CELLS:  # one byte a cell and maze
-        scratch = torch.empty(ch * cw * batch_size, dtype=torch.uint8, device=device)
     launch(
         "gu_aldous_broder_mazes", device,
-        ch, cw, batch_size, max_iters, dirs_ptr, seed, grids.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
+        ch, cw, batch_size, max_iters, dirs_ptr, _c_seed(seed), grids.data_ptr(),
+        WARP * p.warps, p.shared,
     )
     LAUNCHES["aldous_broder_mazes"] += 1
     return grids
@@ -83,20 +121,13 @@ def backtracker_mazes_cuda(
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"backtracker_mazes_cuda takes a CUDA device, got {device}")
-    seed = int(seed) & 0xFFFFFFFF
-    seed = seed - (1 << 32) if seed >= (1 << 31) else seed  # C int, same bits
+    p = plan((ch, cw), batch_size)
     grids = torch.empty(
         (batch_size, 2 * ch + 1, 2 * cw + 1), dtype=torch.int32, device=device
     )
-    scratch = None
-    if ch * cw > MAX_LOCAL_CELLS:  # ⌈S/32⌉ visited words and S two-byte ids a maze
-        n_words = (ch * cw + 31) // 32
-        scratch = torch.empty(
-            (n_words * 4 + ch * cw * 2) * batch_size, dtype=torch.uint8, device=device
-        )
     launch(
-        "gu_backtracker_mazes", device, ch, cw, batch_size, seed, grids.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
+        "gu_backtracker_mazes", device, ch, cw, batch_size, _c_seed(seed), grids.data_ptr(),
+        WARP * p.warps, p.shared,
     )
     LAUNCHES["backtracker_mazes"] += 1
     return grids

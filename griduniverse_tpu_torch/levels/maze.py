@@ -13,8 +13,9 @@ Counterpart of `griduniverse_tpu/levels/maze.py`.
     directions (the reference's draws) or by per-maze xorshift32 streams.
   * `_backtracker_mazes`, the reference's default, is kernel K11
     (`csrc/backtracker.cu`) on CUDA and `backtracker_mazes_reference` on the
-    CPU: the iterative backtracker with an explicit stack, one xorshift32
-    round an iteration.
+    CPU: the iterative backtracker, one xorshift32 round an iteration (the
+    plain version keeps an explicit stack; K11 a tree of each cell's way to
+    its parent, which the stack always follows).
 
 Maze layout (all paths): `cells = (ch, cw)` maps to a (2ch+1, 2cw+1) grid;
 odd (row, col) are cells, even rows/cols are wall lines with passages

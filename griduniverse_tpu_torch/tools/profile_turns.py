@@ -1,4 +1,4 @@
-"""K4's, K5's, K6's, K7b's, K7c's, K9a's, K9b's, K12's and K13's times on one CUDA card, beside another tree's.
+"""K3's, K4's, K5's, K6's, K7b's, K7c's, K9a's, K9b's, K11's, K12's and K13's times on one CUDA card, beside another tree's.
 
     python -m griduniverse_tpu_torch.tools.profile_turns [--against DIR] [--tiers] [PART ...]
 
@@ -63,8 +63,20 @@ tree's package and builds its kernels):
   with the first-visit mask: as timed, in a CUDA graph of ten, the host's
   µs (`experiments/k13_groups.py` times each group of episodes a block).
 
-PART picks parts by name, all by default: `k4` (the K4 calls and solves),
-`k5`, `k6`, `k7b`, `k7c`, `k9a`, `k9b` (K12 and K9b), `k13`. With `--graph`, this tree's K5 scan is
+- K11 (`_backtracker_mazes`, what `generate_mazes_device` calls) at the maze path's four
+  shapes: 65,536 mazes of 4×4 cells, 8,192 of 16×16, 65,536 of 32×32 and
+  1,024 of 63×63; K3 (`_aldous_broder_mazes`) seeded over 65,536 mazes of
+  4×4 cells and injected over 256 of 32×32 for 5,000 steps: a call as timed
+  (CUDA events around calls after a warm-up), the two 4×4 shapes and K11's
+  16×16 also in a CUDA graph of ten, with the cycles an iteration or step
+  at the widest shape (the call's time over its longest chain) and a hash
+  of each call's grids, which every turn must print alike; and on the host
+  clock (median of three), phase 16's four `generate_mazes_device` calls of
+  `chip_smoke.py` (`k11`) and the PPO-over-mazes set-up, 65,536 4×4
+  Aldous–Broder mazes generated and packed (`k3`).
+
+PART picks parts by name, all by default: `k3`, `k4` (the K4 calls and
+solves), `k5`, `k6`, `k7b`, `k7c`, `k9a`, `k9b` (K12 and K9b), `k11`, `k13`. With `--graph`, this tree's K5 scan is
 also captured in a CUDA graph, replayed and held bit for bit against an
 eager scan (or the capture's error is printed): whether a cooperative
 launch can be captured on the card's CUDA.
@@ -156,7 +168,7 @@ def _profiled(name, fn, wall_ms, smi):
         print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
 
 
-PARTS = ("k4", "k5", "k6", "k7b", "k7c", "k9a", "k9b", "k13")
+PARTS = ("k3", "k4", "k5", "k6", "k7b", "k7c", "k9a", "k9b", "k11", "k13")
 
 
 def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
@@ -180,6 +192,69 @@ def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
         k9a_calls(tag, dev, smi)
     if "k13" in parts:
         k13_calls(tag, dev, smi)
+    if "k3" in parts or "k11" in parts:
+        maze_calls(tag, dev, smi, parts)
+
+
+def _max_sm_hz() -> float:
+    return 1e6 * float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                      check=True, capture_output=True, text=True).stdout.split()[0])
+
+
+def maze_calls(tag, dev, smi, parts) -> None:
+    """K11 at the maze path's four shapes and K3 at its two, as timed and
+    (the small shapes) in a CUDA graph; the grids' hash, alike in every turn."""
+    import hashlib
+
+    from griduniverse_tpu_torch.levels import maze as M
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    hz = _max_sm_hz()
+    calls = []
+    if "k11" in parts:
+        for cells, b, seed in (((4, 4), 65_536, 2026), ((16, 16), 8_192, 2027), ((32, 32), 65_536, 2029),
+                               ((63, 63), 1_024, 2030)):
+            s = cells[0] * cells[1]
+            calls.append((f"K11 cells={cells} B={b}", 2 * s - 1, s <= 256,
+                          lambda cells=cells, b=b, seed=seed: M._backtracker_mazes(cells, b, seed=seed, device=dev)))
+    if "k3" in parts:
+        calls.append(("K3 seeded cells=(4, 4) B=65536", None, True,
+                      lambda: M._aldous_broder_mazes((4, 4), 65_536, seed=5, device=dev)))
+        gen = torch.Generator(device=dev).manual_seed(32)
+        dirs = torch.randint(0, 4, (5_000, 256), generator=gen, device=dev, dtype=torch.int8)
+        _, steps = M.aldous_broder_mazes_reference((32, 32), 256, 5_000, directions=dirs, count_steps=True)
+        calls.append(("K3 injected cells=(32, 32) B=256 max_iters=5000", int(steps.max()), False,
+                      lambda: M._aldous_broder_mazes((32, 32), 256, 5_000, directions=dirs)))
+    # end to end on the host clock, the median of three: phase 16's four
+    # generate_mazes_device calls, and the PPO-over-mazes set-up (65,536 4x4
+    # Aldous-Broder mazes, packed)
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch.ops import bitplane as bp
+
+    def phase16():
+        for seed, cells, b in ((2026, (4, 4), 65_536), (2027, (16, 16), 8_192), (2029, (32, 32), 65_536),
+                               (2030, (63, 63), 1_024)):
+            M.generate_mazes_device(seed, cells, b, device=dev)
+
+    def ppo_mazes_setup():
+        grids, start = M.generate_mazes_device(2026, (4, 4), 65_536, "aldous_broder", device=dev)
+        bp.pack_level(gt.Level(grid=grids, start_idx=start.expand(65_536).contiguous()))
+
+    for name, fn, part in (("phase 16's maze path (four generate_mazes_device calls)", phase16, "k11"),
+                           ("the PPO-over-mazes set-up (65,536 4x4 mazes, packed)", ppo_mazes_setup, "k3")):
+        if part in parts:
+            fn()
+            walls = sorted(_wall_ms(fn) for _ in range(3))
+            print(f"[{tag}] {name}: {walls[1]!r} ms on the host clock (of {walls!r}) ({smi})")
+    for name, chain, graph, fn in calls:
+        digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+        ms = _events_ms(fn, 10)
+        line = f"[{tag}] {name}: {ms!r} ms a call as timed"
+        if graph:
+            line += f", {_graph_ms(fn)!r} ms in a CUDA graph"
+        if chain is not None:
+            line += f", {ms * 1e-3 * hz / chain!r} cycles a link of its {chain}-long chain at {hz / 1e6!r} MHz"
+        print(f"{line}; grids {digest} ({smi})")
 
 
 def k4_calls(tag, dev, gen, smi) -> None:

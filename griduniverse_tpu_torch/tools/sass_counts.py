@@ -14,9 +14,11 @@ of one pass. With OUT_DIR it also writes each kernel's listing there, one
 file a kernel, each instruction on a line with its index.
 
 These counts stand behind the `INSTR_*` constants from which `chip_smoke.py`
-reckons each kernel's `bound_ms`: the step loops of K1–K7, the passes of
-K8a (`per_score_kernel`; the histogram, compaction and sort loops of
-`per_select_kernel`) and the iteration loop of K11 (`backtracker_kernel`).
+reckons each kernel's `bound_ms`: the step loops of K1, K2 and K5–K7 and the
+passes of K8a (`per_score_kernel`; the histogram, compaction and sort loops
+of `per_select_kernel`). K3's and K11's bounds rest on their functions' own
+operations (`chip_smoke.k3_function_ops`, `k11_function_ops`); their loops
+here show what the walks issue.
 """
 
 from __future__ import annotations

@@ -1010,6 +1010,52 @@ def test_maze_kernels_match_plain_above_local_memory(dev, cells, b):
     assert all(M.check_perfect_maze(g, cells) for g in ab[:8].cpu().numpy())
 
 
+def _covering_directions(cells, b, gen, dev):
+    """(T, B) int8 directions that cover every maze well before T: a random
+    prefix of up to 2S steps, then west and north to the corner, then a
+    boustrophedon over the rows, then random steps. Returns (dirs, the step
+    by which every walk has covered its maze)."""
+    ch, cw = cells
+    sweep = [3] * (cw - 1) + [0] * (ch - 1)
+    for r in range(ch):
+        sweep += [1 if r % 2 == 0 else 3] * (cw - 1) + ([2] if r < ch - 1 else [])
+    prefix = 2 * ch * cw
+    covered = prefix + len(sweep)
+    dirs = torch.randint(0, 4, (covered + 500, b), generator=gen, device=dev, dtype=torch.int8)
+    starts = torch.randint(0, prefix + 1, (b,), generator=gen, device=dev)
+    rows = torch.arange(len(sweep), device=dev)[:, None] + starts[None, :]
+    dirs.scatter_(0, rows, torch.tensor(sweep, dtype=torch.int8, device=dev)[:, None].expand(-1, b).contiguous())
+    return dirs, covered
+
+
+@pytest.mark.parametrize("b", [1, 33, 4097])
+@pytest.mark.parametrize("cells", [(1, 1), (1, 63), (63, 1), (32, 32), (63, 63)])
+def test_maze_kernels_match_plain_at_the_edges(dev, cells, b):
+    """The nibble trees and the warp's writer at the lattice's edges and its
+    largest shape, with whole, partial (33 = 32 + 1) and single warps; K3
+    injected short of cover (the safety net carves the rest) and past it
+    (directions that sweep every cell, then more steps: each walk stops at
+    its own cover), and seeded short of cover."""
+    before = dict(kernels.LAUNCHES)
+    got = M._backtracker_mazes(cells, b, seed=5, device=dev)
+    assert torch.equal(got, M.backtracker_mazes_reference(cells, b, seed=5, device=dev))
+    assert kernels.LAUNCHES["backtracker_mazes"] == before["backtracker_mazes"] + 1
+    s = cells[0] * cells[1]
+    gen = torch.Generator(device=dev).manual_seed(s + b)
+    short = 2 * s + 3
+    dirs = torch.randint(0, 4, (short, b), generator=gen, device=dev, dtype=torch.int8)
+    ab = M._aldous_broder_mazes(cells, b, short, directions=dirs)
+    assert torch.equal(ab, M.aldous_broder_mazes_reference(cells, b, short, directions=dirs))
+    dirs, covered = _covering_directions(cells, b, gen, dev)
+    full = M._aldous_broder_mazes(cells, b, covered + 500, directions=dirs)
+    ref, steps = M.aldous_broder_mazes_reference(cells, b, covered + 500, directions=dirs, count_steps=True)
+    assert torch.equal(full, ref) and bool((steps <= covered).all())  # every walk covered its maze
+    seeded = M._aldous_broder_mazes(cells, b, short, seed=9, device=dev)
+    assert torch.equal(seeded, M.aldous_broder_mazes_reference(cells, b, short, seed=9, device=dev))
+    assert kernels.LAUNCHES["aldous_broder_mazes"] == before["aldous_broder_mazes"] + 3
+    assert all(M.check_perfect_maze(g, cells) for g in torch.cat([got[:4], ab[:4], full[:4], seeded[:4]]).cpu().numpy())
+
+
 @pytest.mark.parametrize("cap,size,n", [(131_072, 131_072, 4096), (8192, 3000, 4096), (65_536, 50_000, 20_000)])
 def test_per_sample_kernel_matches_plain_above_one_block_of_picks(dev, cap, size, n):
     """n > 1,024 picks; above 16,384 the picks' keys live in global scratch."""

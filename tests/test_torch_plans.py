@@ -1,4 +1,4 @@
-"""The host side of K5's, K6's, K7b's and K7c's designs, on the CPU.
+"""The host side of K3's, K5's, K6's, K7b's, K7c's, K11's and K13's designs, on the CPU.
 
   * K5 (`kernels.td_fast`): `grid_plan` puts every env on exactly one
     (thread, walk) of a grid that the card holds at once, an env a thread
@@ -23,6 +23,11 @@
     (blocks, tiles from the last, the returns carried across tiles, the
     first-visit test against the staged rows and then the earlier tiles)
     writes every sample once and gives the plain versions' bits.
+  * K3 and K11 (`kernels.maze`): `plan` puts every maze on exactly one
+    thread of a block of whole warps, never asks for more than the H100's
+    227 KB of opt-in shared memory at any maze up to 63×63 cells, and cuts
+    the main paths' shapes as measured (`tests/test_torch_maze.py` walks the
+    kernels literally).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch.kernels import act_step as k7b
 from griduniverse_tpu_torch.algos import mc
 from griduniverse_tpu_torch.kernels import dqn_act
+from griduniverse_tpu_torch.kernels import maze as km
 from griduniverse_tpu_torch.kernels import mc_returns as k13
 from griduniverse_tpu_torch.kernels import td_batched as k6
 from griduniverse_tpu_torch.kernels import td_fast as k5
@@ -440,3 +446,40 @@ def test_k13_literal_walk_matches_the_plain_versions(t, b):
     want_mask = mc.first_visit_mask(torch.from_numpy(ids), torch.from_numpy(valid)).numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
     assert np.array_equal(got_mask, want_mask)
+
+
+@pytest.mark.parametrize("batch", [1, 31, 33, 1_024, 4_097, 65_536])
+def test_maze_plan_covers_every_maze_once_and_fits(batch):
+    """Every maze shape the port packs, up to 63x63 cells: walking thread t
+    of block k is maze k·32·warps + t below B."""
+    for ch in range(1, 64):
+        for cw in range(1, 64):
+            p = km.plan((ch, cw), batch)
+            per_block = 32 * p.warps
+            assert p.warps in (1, 2, 4)
+            assert p.shared == per_block * 4 * ch * -(-cw // 8) <= km.SHARED_LIMIT == 232_448
+            assert (p.blocks - 1) * per_block < batch <= p.blocks * per_block  # no block without a maze
+            if p.warps > 1:  # more warps a block only while the blocks still fill the card
+                assert p.blocks >= km.TARGET_BLOCKS
+    for cells in ((1, 1), (4, 4), (32, 32), (63, 63)):
+        p = km.plan(cells, batch)
+        per_block = 32 * p.warps
+        b = (np.arange(p.blocks)[:, None] * per_block + np.arange(per_block)[None, :]).ravel()
+        assert np.array_equal(b[b < batch], np.arange(batch))
+
+
+# (cells, B): the warps a block the plan gives the main paths' shapes
+_MAZE_PLANS = {((4, 4), 65_536): 4, ((16, 16), 8_192): 1, ((32, 32), 65_536): 4, ((63, 63), 1_024): 1,
+               ((32, 32), 256): 1, ((63, 63), 65_536): 2, ((2, 2), 4_096): 1, ((6, 6), 512): 1}
+
+
+@pytest.mark.parametrize("shape", sorted(_MAZE_PLANS))
+def test_maze_plan_picks_the_warps(shape):
+    p = km.plan(*shape)
+    assert p.warps == _MAZE_PLANS[shape]
+    assert p.blocks == -(-shape[1] // (32 * p.warps))
+
+
+def test_maze_plan_refuses_a_bad_batch():
+    with pytest.raises(ValueError):
+        km.plan((4, 4), 0)
