@@ -38,7 +38,12 @@ size and checks what comes out:
     each;
   * resume through disk: `dqn_run` (uniform and prioritized, K7c) and
     `ppo_run` at 65,536 envs saved by an async `CheckpointManager`,
-    restored into a fresh state and run on, against the unbroken runs.
+    restored into a fresh state and run on, against the unbroken runs;
+  * the ceilings closed since: K11 and K3 on mazes above 63×63 cells
+    (fewer mazes a block, and one a block with its tree in device memory),
+    and every step kernel (K1, K2, K4, K5, K6, K7b, K7c) at nine actions
+    (K2 at 25 too), each through its public entry; and K2's times at its
+    four shapes, as timed and in a CUDA graph of ten.
 
 Each main path is driven with the launch counts set to 0 just before it and
 read just after, and every count must be the one the path's shape gives. The
@@ -115,7 +120,7 @@ _STATE_FIELDS = ("agent_idx", "agent_code", "t", "done")
 # that `python -m griduniverse_tpu_torch.tools.sass_counts DIR` writes (a
 # warp issues both sides of a branch its lanes split on, so both count).
 INSTR_K1_STEP = 85      # the scan loop is 170 instructions for two unrolled steps
-INSTR_K2_STEP = 94      # the replay loop is 188 instructions for two unrolled steps
+INSTR_K2_STEP = 67      # the replay loop is 1,064 instructions a block of 16 steps, their actions' loads included
 # one cell's VI sweep in the packed kernel (`grid_sweeps_packed_kernel<4, false>`:
 # between two barriers 26 instructions on odd sweeps and 31 on even ones, of
 # them four loads, multiplies, adds and maxima, the store, |ΔV| and its
@@ -2363,6 +2368,183 @@ def ceiling_phases(gt, dev, bound, smi):
     return errs
 
 
+# nine actions: the eight king moves and a stay; 25: every move of at most
+# two rows and two columns
+KING_AND_STAY = ((-1, 0), (0, 1), (1, 0), (0, -1), (-1, -1), (-1, 1), (1, 1), (1, -1), (0, 0))
+FIVE_BY_FIVE = tuple((dr, dc) for dr in range(-2, 3) for dc in range(-2, 3))
+# phase 24's shapes: (cells, B) of the mazes held against the plain versions,
+# of those only timed, and K2's batches (walls16, per-env mazes, walls16 wide)
+HELD_MAZES = (((100, 100), 4),)
+TIMED_MAZES = (((300, 300), 8), ((700, 700), 2))
+K2_BATCHES = (4096, 4096, 65_536)
+
+
+def repair_phases(gt, dev, bound, smi, bl_walls):
+    """Phase 24: mazes above 63×63 cells, more than eight actions, and K2's shapes.
+
+    (a) K11 through `generate_mazes_device` and K3 (injected and seeded,
+    capped at 5,000 steps, short of cover) on mazes above 63×63 cells:
+    100×100 × 4 (32 mazes a block), and 20×70 × 3 in the device-memory tier
+    (forced by lowering `plan`'s shared limit), each against its plain
+    version; K11 at 300×300 × 8 (four mazes a block) and 700×700 × 2 (the
+    device tier unforced: one tree does not fit a block) timed, the first
+    300×300 maze checked perfect and every maze's open tiles counted (the
+    plain walk of 980,000 iterations is out of reach). (b) Every step kernel at nine actions through its
+    public entry, and K2 at 25, against the plain versions. (a) and (b) are
+    one path, driven with the launch counts set to 0 just before it and read
+    just after: every kernel of it must have launched. (c) K2 at its four
+    shapes as timed and in a CUDA graph of ten. Returns the max abs errors
+    by kernel."""
+    from griduniverse_tpu_torch import kernels
+    from griduniverse_tpu_torch.algos import dp_batched, td_batched, td_fast
+    from griduniverse_tpu_torch.core import semantics as S
+    from griduniverse_tpu_torch.core.semantics import SemanticsConfig
+    from griduniverse_tpu_torch.kernels import maze as km
+    from griduniverse_tpu_torch.levels import maze as M
+    from griduniverse_tpu_torch.models import a2c, dqn
+    from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    names = ("backtracker_mazes", "aldous_broder_mazes", "random_scan_bits", "rollout_actions_bits", "dp_grid",
+             "td_scan_fast", "td_batched", "act_step", "dqn_act")
+    errs = dict.fromkeys(names, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+
+    # (a) mazes above 63x63 cells
+    def held_mazes(tag, cells, b):
+        got, _ = M.generate_mazes_device(24, cells, b, "backtracker")
+        ref = M.backtracker_mazes_reference(cells, b, seed=24, device=dev)
+        errs["backtracker_mazes"] = max(errs["backtracker_mazes"], _same(f"K11 {tag}", got, ref))
+        cap = min(2 * cells[0] * cells[1] + 3, 5_000)
+        dirs = torch.randint(0, 4, (cap, b), generator=gen, device=dev, dtype=torch.int8)
+        ab = M._aldous_broder_mazes(cells, b, cap, directions=dirs)
+        ref = M.aldous_broder_mazes_reference(cells, b, cap, directions=dirs)
+        errs["aldous_broder_mazes"] = max(errs["aldous_broder_mazes"], _same(f"K3 injected {tag}", ab, ref))
+        seeded = M._aldous_broder_mazes(cells, b, cap, seed=24, device=dev)
+        ref = M.aldous_broder_mazes_reference(cells, b, cap, seed=24, device=dev)
+        errs["aldous_broder_mazes"] = max(errs["aldous_broder_mazes"], _same(f"K3 seeded {tag}", seeded, ref))
+        _require(all(M.check_perfect_maze(g, cells) for g in torch.cat([got[:2], ab[:2], seeded[:2]]).cpu().numpy()),
+                 f"{tag}: a maze is not perfect")
+        print(f"K11, K3 injected and seeded (capped at {cap} steps) {tag}, plan {km.plan(cells, b)}: bit-exact vs plain")
+
+    for cells, b in HELD_MAZES:
+        held_mazes(f"cells={cells} B={b}", cells, b)
+    with mock.patch.object(km, "SHARED_LIMIT", 256 + km.STATIC_SHARED):
+        held_mazes("cells=(20, 70) B=3 in the device tier (forced)", (20, 70), 3)
+    for cells, b in TIMED_MAZES:
+        p = km.plan(cells, b)
+        ms, got = _cuda_ms(lambda: M.generate_mazes_device(25, cells, b, "backtracker")[0], 2)
+        iters = 2 * cells[0] * cells[1] - 1
+        _require(bool(((got != S.WALL).sum(dim=(1, 2)) == iters).all()), f"K11 {cells}: a maze has the wrong open tiles")
+        if cells[0] * cells[1] <= 100_000:
+            _require(M.check_perfect_maze(got[0], cells), f"K11 {cells}: not perfect")
+        print(f"K11 cells={cells} B={b}, plan {p}: {ms!r} ms a call as timed, {ms * 1e-3 * bound.clock_hz / iters!r} "
+              f"cycles an iteration at {bound.clock_hz / 1e6!r} MHz; every maze has {iters} open tiles ({smi})")
+        del got
+
+    # (b) nine actions (and 25 for K2) through each public entry
+    sem9 = gt.make_semantics(SemanticsConfig(action_deltas=KING_AND_STAY))
+    sem25 = gt.make_semantics(SemanticsConfig(action_deltas=FIVE_BY_FIVE))
+    b = 1024
+    st = bp.reset_bits(bl_walls, b)
+    for sem_a in (sem9, sem25):
+        a = sem_a.num_actions
+        actions = torch.randint(-1, a + 1, (200, b), generator=gen, device=dev, dtype=torch.int32)
+        for mode in ((False, None), (True, None), (True, 64)):
+            got = bp.rollout_actions_bits(sem_a, bl_walls, st, actions, *mode)
+            ref = bp.rollout_actions_bits_reference(sem_a, bl_walls, st, actions, *mode)
+            for f in _STATE_FIELDS:
+                _same(f"K2 A={a} {mode} {f}", getattr(got[0], f), getattr(ref[0], f))
+            for k, (x, y) in enumerate(zip(got[1], ref[1])):
+                errs["rollout_actions_bits"] = max(errs["rollout_actions_bits"], _same(f"K2 A={a} {mode} out{k}", x, y))
+    rs = bp.xorshift_init(24, (b,), device=dev)
+    errs["random_scan_bits"] = _same_scan("K1 A=9", bp.random_scan_bits(sem9, bl_walls, st, rs, None, 300, 64),
+                                          bp.random_scan_bits_reference(sem9, bl_walls, st, rs, 300, 64))
+    grids, start = M.generate_mazes_device(24, (4, 4), 256, "aldous_broder")
+    levels = gt.Level(grid=grids, start_idx=start.expand(256).contiguous())
+    got = dp_batched.value_iteration_batched_grid(sem9, levels)
+    ref = dp_batched.value_iteration_batched_grid_reference(sem9, levels)
+    _require(got[2] == ref[2], f"K4 A=9: {got[2]} sweeps against {ref[2]}")
+    errs["dp_grid"] = _same_fields("K4 VI A=9", got[:2], ref[:2], ("v", "policy"))
+    ts = td_fast.fast_td_init(sem9, bl_walls, 24, b)
+    kw = dict(alpha=0.2, gamma=0.99, epsilon=0.2, algo="expected_sarsa", max_episode_steps=64)
+    errs["td_scan_fast"] = _same_fields("K5 A=9", _fast_fields(td_fast.td_scan_fast(sem9, bl_walls, ts, 100, **kw)),
+                                        _fast_fields(td_fast.td_scan_fast_reference(sem9, bl_walls, ts, 100, **kw)),
+                                        _FAST_FIELDS)
+    grids, start = M.generate_mazes_device(25, (3, 3), 256, "aldous_broder")
+    levels = gt.Level(grid=grids, start_idx=start.expand(256).contiguous())
+    kw = dict(alpha=0.2, epsilon=0.2, algo="sarsa", max_episode_steps=40)
+    errs["td_batched"] = _same_fields(
+        "K6 A=9", _batched_fields(td_batched.q_learning_batched(sem9, levels, 7, 100, **kw)),
+        _batched_fields(td_batched.q_learning_batched_reference(sem9, levels, 7, 100, **kw)), _BATCHED_FIELDS)
+    got_st = ref_st = st
+    for t in range(8):
+        logits = 2 * torch.randn((b, 9), generator=gen, device=dev)
+        gumbel = a2c.draw_gumbel(gen, (b, 9), dev)
+        got_st, action, logp, obs, reward, done = a2c.act_step(sem9, bl_walls, got_st, logits, gumbel, 64)
+        ref_st, r_action, r_logp, r_obs, r_reward, r_done = a2c.act_step_reference(sem9, bl_walls, ref_st, logits,
+                                                                                   gumbel, 64)
+        err = _same_fields(f"K7b A=9 step {t}", (action, obs, reward, done, got_st.agent_idx, got_st.t),
+                           (r_action, r_obs, r_reward, r_done, ref_st.agent_idx, ref_st.t),
+                           ("action", "obs", "reward", "done", "agent_idx", "t"))
+        errs["act_step"] = max(errs["act_step"], err, _logp_err(f"K7b A=9 step {t}", logp, r_logp))
+    dst = ref_dst = st
+    stats = ref_stats = (torch.zeros(b, device=dev), torch.zeros((), dtype=torch.int64, device=dev),
+                         torch.zeros((), device=dev))
+    for t in range(10):
+        q = torch.randint(-2, 3, (b, 9), generator=gen, device=dev).float() * 0.5
+        explore = torch.rand(b, generator=gen, device=dev) < 0.3
+        rand_a = torch.randint(0, 9, (b,), generator=gen, device=dev, dtype=torch.int32)
+        dst, *out, r1, r2, r3 = dqn.dqn_act_step(sem9, bl_walls, dst, q, explore, rand_a, *stats, 64)
+        stats = (r1, r2, r3)
+        ref_dst, *ref_out, s1, s2, s3 = dqn.dqn_act_step_reference(sem9, bl_walls, ref_dst, q, explore, rand_a,
+                                                                   *ref_stats, 64)
+        ref_stats = (s1, s2, s3)
+        err = _same_fields(f"K7c A=9 step {t}", (*out, *stats, dst.agent_idx),
+                           (*ref_out, *ref_stats, ref_dst.agent_idx), [f"out{k}" for k in range(len(out) + 4)])
+        errs["dqn_act"] = max(errs["dqn_act"], err)
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in names}
+    print(f"phase 24 launches (mazes above 63x63, nine actions): {launches}")
+    _require(all(launches.values()), f"phase 24: a kernel of the path never launched: {launches}")
+    print("K1, K2 (and at 25 actions), K4, K5, K6, K7b (logp within 2 ulp), K7c at nine actions: bit-exact vs plain")
+
+    # (c) K2's new design at its four shapes
+    b_walls, b_mazes, b_wide = K2_BATCHES
+    mazes4k = bp.pack_level(_aldous_level(gt, M, dev, 11, b_mazes))
+    golden = ROOT / "tests" / "golden"
+    cfg4 = np.load(golden / "torch" / "cfg4_mazes_grids.npz")
+    shapes = ((f"walls16 B={b_walls} T=512", bl_walls, b_walls, None),
+              (f"{b_mazes} per-env 4x4 mazes T=512", mazes4k, b_mazes, None),
+              (f"walls16 B={b_wide} T=512", bl_walls, b_wide, None),
+              ("golden cfg4_mazes B=4", bp.pack_level(gt.make_level(cfg4["grids"], cfg4["start_idx"], device=dev)), 4,
+               torch.as_tensor(np.load(golden / "cfg4_mazes.npz")["actions"], device=dev)))
+    sem4 = gt.make_semantics()
+    for name, bl, b, actions in shapes:
+        if actions is None:
+            actions = torch.randint(0, 4, (512, b), generator=gen, device=dev, dtype=torch.int32)
+        st = bp.reset_bits(bl, None if bl.batched else b)
+
+        def call(bl=bl, st=st, actions=actions):
+            return bp.rollout_actions_bits(sem4, bl, st, actions, True, 64)
+
+        ms, _ = _cuda_ms(call, 30)
+        graph_ms = _graph_ms(call)
+        n_steps = actions.shape[0]
+        t2 = bound(b * n_steps * 13 + b * 8 * 4, 0)
+        print(f"K2 {name}: {ms!r} ms a call as timed, {graph_ms!r} ms in a CUDA graph of ten; bound "
+              f"{t2['bound_ms']!r} ms by bytes; {graph_ms * 1e-3 * bound.clock_hz / n_steps!r} cycles a step at "
+              f"{bound.clock_hz / 1e6!r} MHz in the graph ({smi})")
+    return errs
+
+
+def _aldous_level(gt, M, dev, seed, b, cells=(4, 4)):
+    grids, start = M.generate_mazes_device(seed, cells, b, "aldous_broder", device=dev)
+    return gt.Level(grid=grids, start_idx=start.expand(b).contiguous())
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this runs only on a GPU")
@@ -2660,6 +2842,10 @@ def main() -> None:
     for name, err in ceiling_phases(gt, dev, bound, smi).items():
         errs[name] = max(errs[name], err)
     elapsed("phase 23")
+    # -- phase 24: mazes above 63x63 cells, nine actions, K2's shapes -------------
+    for name, err in repair_phases(gt, dev, bound, smi, bl_walls).items():
+        errs[name] = max(errs[name], err)
+    elapsed("phase 24")
     # a kernel timed at several shapes (K3, K11) has a record for each
     shaped = [(name, t) for name, ts in times.items() for t in (ts if isinstance(ts, list) else [ts])]
     for name, t in shaped:

@@ -6,8 +6,9 @@ redesign, kept to reproduce its readings; it is not part of the package.
 
 From the root of a checkout, on a machine with a Hopper card and nvcc. For
 the sources in `griduniverse_tpu_torch/csrc/` and for those in each DIR (a
-directory with its own `maze.cu`, `backtracker.cu` and `maze_tree.cuh`, such
-as an earlier version of the same design), it builds `maze.cu` and
+directory with its own `maze.cu`, `backtracker.cu` and `maze_tree.cuh` of the
+same C interface: the device tier's scratch argument and K3's 64-bit cap),
+it builds `maze.cu` and
 `backtracker.cu` with the package's flags four ways, one shared library each,
 by text edits at exact lines of those files:
 
@@ -80,12 +81,12 @@ EDITS = (
     ("    tree_to_walls(col, stride, ch, cw);\n  }\n  __syncthreads();\n",
      "    gu_c1 = clock64();\n    if (!GU_CUT_WRITE) tree_to_walls(col, stride, ch, cw);\n  }\n  __syncthreads();\n"
      "  const long long gu_c2 = clock64();\n"),
-    ("  write_grids(trees, stride, nm, ch, cw, grids + static_cast<size_t>(base) * h * w, slot);\n}\n",
-     "  if (!GU_CUT_WRITE) write_grids(trees, stride, nm, ch, cw, grids + static_cast<size_t>(base) * h * w, slot);\n"
+    ("  write_grids<Index>(trees, stride, nm, ch, cw, grids + first, static_cast<int>(-first & 3), slot);\n}\n",
+     "  if (!GU_CUT_WRITE) write_grids<Index>(trees, stride, nm, ch, cw, grids + first, static_cast<int>(-first & 3), slot);\n"
      "  GU_RECORD\n}\n"),
 )
-WALK_LOOPS = (("for (int it = 0; it < 2 * ch * cw - 1; ++it)",
-               "for (int it = 0; it < (GU_CUT_WALK ? 0 : 2 * ch * cw - 1); ++it)"),
+WALK_LOOPS = (("for (Index it = 0; it < 2 * static_cast<Index>(ch) * cw - 1; ++it)",
+               "for (Index it = 0; it < (GU_CUT_WALK ? 0 : 2 * static_cast<Index>(ch) * cw - 1); ++it)"),
               ("t0 < max_iters && walk.n_visited < s;", "t0 < (GU_CUT_WALK ? 0 : max_iters) && walk.n_visited < s;"))
 
 
@@ -174,10 +175,10 @@ def main(argv: list[str] | None = None) -> None:
 
                     def call(fn=fn, grids=grids):
                         if k3 is None:
-                            code = fn(ch, cw, b, 7, grids.data_ptr(), 32 * p.warps, p.shared, stream)
+                            code = fn(ch, cw, b, 7, grids.data_ptr(), p.mazes, p.shared, None, stream)
                         else:
                             ptr = None if k3[1] is None else k3[1].data_ptr()
-                            code = fn(ch, cw, b, k3[0], ptr, 5, grids.data_ptr(), 32 * p.warps, p.shared, stream)
+                            code = fn(ch, cw, b, k3[0], ptr, 5, grids.data_ptr(), p.mazes, p.shared, None, stream)
                         if code:
                             raise SystemExit(f"maze_ablation: launch failed with CUDA error {code}")
 

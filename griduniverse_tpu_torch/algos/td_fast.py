@@ -124,12 +124,14 @@ def _epsilon_greedy_bits(q_rows: torch.Tensor, bits: torch.Tensor, epsilon: floa
 
 
 def row_mean(rows: torch.Tensor) -> torch.Tensor:
-    """Mean over the last (action) axis, summed in index order, so that the
-    kernels can repeat it bit for bit."""
+    """Mean over the last (action) axis, summed in index order and divided
+    by A, so that the kernels can repeat it bit for bit. A is divided as a
+    tensor: PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal, which rounds differently where 1/A is inexact (A = 9, 25)."""
     total = rows[..., 0]
     for a in range(1, rows.shape[-1]):
         total = total + rows[..., a]
-    return total / rows.shape[-1]
+    return total / torch.full((), float(rows.shape[-1]), dtype=total.dtype, device=total.device)
 
 
 def shared_q_update(q, s, a, delta, alpha: float):

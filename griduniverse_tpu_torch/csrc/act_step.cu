@@ -29,10 +29,15 @@
 // `logf`; it is the one output that need not equal the plain version to the
 // last bit (the library's exp, log and sum order differ). Everything else
 // (action, new state, obs, reward, done) equals the plain version exactly.
+// Above eight actions (kForm = kWide) the rows stay in device memory and
+// the loops keep none: a running first argmax of logits + noise, the
+// maximum, then Σ exp in index order, the same operations in the same
+// order as the row in registers.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "step.cuh"
 
@@ -74,8 +79,16 @@ struct StateIn {
   const uint8_t* reached;
 };
 
+// A kernel's form: a row of four in one 16-byte load, up to eight in
+// registers, or any number read where used (gu::WideTables).
+enum Form : int { kVec4 = 0, kRow = 1, kWide = 2 };
+
+template <int kForm>
+using TablesOf = typename std::conditional<kForm == kWide, gu::WideTables, gu::Tables>::type;
+
 // The plan's semantics tables, and a shared level's words, into shared memory.
-__device__ __forceinline__ void stage(const ActPlan& p, gu::Tables& tab, uint32_t* s_words) {
+template <typename Tab>
+__device__ __forceinline__ void stage(const ActPlan& p, Tab& tab, uint32_t* s_words) {
   gu::load_tables(tab, p.passable, p.terminal, p.reward, p.deltas, p.num_actions);
   if (!p.per_env) {
     for (int i = threadIdx.x; i < p.n_words; i += blockDim.x) s_words[i] = p.words[i];
@@ -83,10 +96,10 @@ __device__ __forceinline__ void stage(const ActPlan& p, gu::Tables& tab, uint32_
   __syncthreads();
 }
 
-// The env's row of `x` (B, A) into `row`: one 16-byte load at kVec4.
-template <bool kVec4>
+// The env's row of `x` (B, A) into `row`: one 16-byte load where kFour.
+template <bool kFour>
 __device__ __forceinline__ void load_logits(const float* x, int b, int na, float* row) {
-  if constexpr (kVec4) {
+  if constexpr (kFour) {
     const float4 v = reinterpret_cast<const float4*>(x)[b];
     row[0] = v.x;
     row[1] = v.y;
@@ -97,31 +110,62 @@ __device__ __forceinline__ void load_logits(const float* x, int b, int na, float
   }
 }
 
-template <bool kVec4>
+// (the sampled action, its log-probability) from the env's logits and
+// noise rows, read where used (the wide form): the first maximum of
+// logits + noise, then logits[a] − max − log Σ exp(logits − max), in the
+// order of the row in registers.
+__device__ __forceinline__ int sample_wide(const float* lg, const float* g, int na, float& logp) {
+  int a = 0;
+  float top = lg[0] + g[0];
+  float m = lg[0];
+  for (int k = 1; k < na; ++k) {
+    const float x = lg[k];
+    const float noisy = x + g[k];
+    if (noisy > top) {
+      top = noisy;
+      a = k;
+    }
+    m = fmaxf(m, x);
+  }
+  float sum = 0.0f;
+  for (int k = 0; k < na; ++k) sum += expf(lg[k] - m);
+  logp = lg[a] - m - logf(sum);
+  return a;
+}
+
+template <int kForm>
 __global__ void act_step_kernel(ActPlan p, int step, const float* __restrict__ logits,
                                 StateIn in, int out) {
-  __shared__ gu::Tables tab;
+  constexpr bool kV4 = kForm == kVec4;
+  __shared__ TablesOf<kForm> tab;
   __shared__ uint32_t s_words[gu::kMaxWords];
   stage(p, tab, s_words);
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= p.batch) return;
-  const int na = kVec4 ? 4 : p.num_actions;
+  const int na = kV4 ? 4 : p.num_actions;
   const uint32_t* lw = p.per_env ? p.words + static_cast<size_t>(b) * p.n_words : s_words;
   const int s_idx = p.per_env ? p.start_idx[b] : p.start_idx[0];
   const int s_code = p.per_env ? p.start_code[b] : p.start_code[0];
 
-  float row[gu::kMaxActions];
-  float noisy[gu::kMaxActions];
-  load_logits<kVec4>(logits, b, na, row);
-  load_logits<kVec4>(p.gumbel + static_cast<size_t>(step) * p.batch * na, b, na, noisy);
-  for (int k = 0; k < na; ++k) noisy[k] = row[k] + noisy[k];
-  const int a = gu::first_argmax(noisy, na);
-  float m = row[0];
-  for (int k = 1; k < na; ++k) m = fmaxf(m, row[k]);
-  float sum = 0.0f;
-  for (int k = 0; k < na; ++k) sum += expf(row[k] - m);
-  const float logp = row[a] - m - logf(sum);
+  int a;
+  float logp;
+  if constexpr (kForm == kWide) {
+    const size_t row0 = static_cast<size_t>(b) * na;
+    a = sample_wide(logits + row0, p.gumbel + static_cast<size_t>(step) * p.batch * na + row0, na, logp);
+  } else {
+    float row[gu::kMaxActions];
+    float noisy[gu::kMaxActions];
+    load_logits<kV4>(logits, b, na, row);
+    load_logits<kV4>(p.gumbel + static_cast<size_t>(step) * p.batch * na, b, na, noisy);
+    for (int k = 0; k < na; ++k) noisy[k] = row[k] + noisy[k];
+    a = gu::first_argmax(noisy, na);
+    float m = row[0];
+    for (int k = 1; k < na; ++k) m = fmaxf(m, row[k]);
+    float sum = 0.0f;
+    for (int k = 0; k < na; ++k) sum += expf(row[k] - m);
+    logp = row[a] - m - logf(sum);
+  }
 
   int idx = in.idx[b], code = in.code[b], t = in.t[b];
   const size_t o = static_cast<size_t>(step) * p.batch + b;
@@ -139,20 +183,26 @@ __global__ void act_step_kernel(ActPlan p, int step, const float* __restrict__ l
   p.done[o] = tr.done;
 }
 
-template <bool kVec4>
+template <int kForm>
 __global__ void greedy_step_kernel(ActPlan p, const float* __restrict__ logits, StateIn in,
                                    int out) {
-  __shared__ gu::Tables tab;
+  constexpr bool kV4 = kForm == kVec4;
+  __shared__ TablesOf<kForm> tab;
   __shared__ uint32_t s_words[gu::kMaxWords];
   stage(p, tab, s_words);
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= p.batch) return;
-  const int na = kVec4 ? 4 : p.num_actions;
+  const int na = kV4 ? 4 : p.num_actions;
   const uint32_t* lw = p.per_env ? p.words + static_cast<size_t>(b) * p.n_words : s_words;
-  float row[gu::kMaxActions];
-  load_logits<kVec4>(logits, b, na, row);
-  const int a = gu::first_argmax(row, na);
+  int a;
+  if constexpr (kForm == kWide) {
+    a = gu::first_argmax(logits + static_cast<size_t>(b) * na, na);
+  } else {
+    float row[gu::kMaxActions];
+    load_logits<kV4>(logits, b, na, row);
+    a = gu::first_argmax(row, na);
+  }
 
   int idx = in.idx[b], code = in.code[b], t = in.t[b];
   bool done = in.done[b] != 0;
@@ -187,9 +237,11 @@ extern "C" int gu_act_step(const void* plan, int step, const void* logits, const
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lg = static_cast<const float*>(logits);
   if (p.num_actions == 4 && aligned16(lg) && aligned16(p.gumbel)) {
-    act_step_kernel<true><<<blocks, kThreads, 0, st>>>(p, step, lg, in, out);
+    act_step_kernel<kVec4><<<blocks, kThreads, 0, st>>>(p, step, lg, in, out);
+  } else if (p.num_actions > gu::kMaxActions) {
+    act_step_kernel<kWide><<<blocks, kThreads, 0, st>>>(p, step, lg, in, out);
   } else {
-    act_step_kernel<false><<<blocks, kThreads, 0, st>>>(p, step, lg, in, out);
+    act_step_kernel<kRow><<<blocks, kThreads, 0, st>>>(p, step, lg, in, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -207,9 +259,11 @@ extern "C" int gu_greedy_step(const void* plan, const void* logits, const void* 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lg = static_cast<const float*>(logits);
   if (p.num_actions == 4 && aligned16(lg)) {
-    greedy_step_kernel<true><<<blocks, kThreads, 0, st>>>(p, lg, in, out);
+    greedy_step_kernel<kVec4><<<blocks, kThreads, 0, st>>>(p, lg, in, out);
+  } else if (p.num_actions > gu::kMaxActions) {
+    greedy_step_kernel<kWide><<<blocks, kThreads, 0, st>>>(p, lg, in, out);
   } else {
-    greedy_step_kernel<false><<<blocks, kThreads, 0, st>>>(p, lg, in, out);
+    greedy_step_kernel<kRow><<<blocks, kThreads, 0, st>>>(p, lg, in, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,8 +37,9 @@
 //    iteration ahead (the order depends on the draw alone). Push and pop
 //    are selects of offsets and one predicated store.
 //  * The grids written once, coalesced, by the block (`write_grids`).
-// `kernels/maze.py` `plan` picks the walking warps a block and its shared
-// memory.
+// `kernels/maze.py` `plan` picks the mazes a block (128 down to 1) and its
+// shared memory, or the device-memory tier (kGlobal: one maze a block, its
+// tree in a scratch the wrapper allocates) where one tree does not fit.
 // Random numbers: the maze's xorshift32 stream, seeded as K3's is with
 // fmix32(b·φ + seed) | 1, one round an iteration; the neighbour order is
 // permutation number ((x >> 16)·24) >> 16 of (N, E, S, W) in lexicographic
@@ -47,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "maze_tree.cuh"
 
@@ -89,27 +91,32 @@ static_assert((kPick.word[0] & 7) == 4 && ((kPick.word[0] >> 12) & 7) == 2 && ((
               "the pick table");
 __constant__ PickTable kPickDevice = kPick;
 
-// Block: kThreads threads, of which the first M = mazes_a_block (a multiple
-// of 32) walk a maze each, their trees in dynamic shared memory (M·ch·⌈cw/8⌉
-// words, word-major); then all write the block's grids.
+// Block: kThreads threads, of which the first M = mazes_a_block (a power of
+// two) walk a maze each, their trees in dynamic shared memory (M·ch·⌈cw/8⌉
+// words, word-major), or with kGlobal (M = 1) in the block's part of
+// `scratch`; then all write the block's grids.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads) backtracker_kernel(int ch, int cw, int batch, uint32_t seed,
-                                                               int mazes_a_block, int* __restrict__ grids) {
-  extern __shared__ uint32_t trees[];
+                                                               int mazes_a_block, int* __restrict__ grids,
+                                                               uint32_t* scratch) {
+  using Index = typename std::conditional<kGlobal, long long, int>::type;
+  extern __shared__ uint32_t smem_trees[];
   __shared__ uint64_t pick[24];
   const int stride = mazes_a_block, slot = threadIdx.x;
   const int base = blockIdx.x * stride;  // the block's first maze
   const int b = base + slot;
+  const int wpr = row_words(cw), row_stride = wpr * stride;
+  uint32_t* const trees = kGlobal ? scratch + static_cast<size_t>(blockIdx.x) * ch * row_stride : smem_trees;
   if (slot < 24) pick[slot] = kPickDevice.word[slot];
   __syncthreads();
   uint32_t* col = trees + slot;
-  const int wpr = row_words(cw), row_stride = wpr * stride;
 
   if (slot < stride && b < batch) {
     tree_init(col, stride, ch, cw);
     uint32_t x = xorshift(stream_init(b, seed));
     uint64_t table = pick[((x >> 16) * 24u) >> 16];  // read an iteration ahead of its use
     int r = 0, c = 0;
-    for (int it = 0; it < 2 * ch * cw - 1; ++it) {
+    for (Index it = 0; it < 2 * static_cast<Index>(ch) * cw - 1; ++it) {
       const uint64_t order = table;
       x = xorshift(x);
       table = pick[((x >> 16) * 24u) >> 16];
@@ -143,23 +150,26 @@ __global__ void __launch_bounds__(kThreads) backtracker_kernel(int ch, int cw, i
   }
   __syncthreads();
   const int nm = min(stride, batch - base);
-  const int h = 2 * ch + 1, w = 2 * cw + 1;
-  write_grids(trees, stride, nm, ch, cw, grids + static_cast<size_t>(base) * h * w, slot);
+  const size_t first = static_cast<size_t>(base) * (2 * ch + 1) * (2 * cw + 1);
+  write_grids<Index>(trees, stride, nm, ch, cw, grids + first, static_cast<int>(-first & 3), slot);
 }
 
 }  // namespace
 
-// `mazes_a_block`: 32, 64 or 128, the block's walking threads; `shared`: its
-// bytes of trees, mazes_a_block · ch · ⌈cw/8⌉ · 4 (`kernels/maze.py` `plan`).
+// `mazes_a_block`: 128, 64, ..., 1, the block's walking threads; `shared`:
+// its bytes of trees, mazes_a_block · ch · ⌈cw/8⌉ · 4 (`kernels/maze.py`
+// `plan`); or, with `scratch` (batch · ch · ⌈cw/8⌉ words), the trees in
+// device memory, one maze a block.
 extern "C" int gu_backtracker_mazes(int ch, int cw, int batch, int seed, void* grids,
-                                    int mazes_a_block, int shared, void* stream) {
+                                    int mazes_a_block, int shared, void* scratch, void* stream) {
+  auto* kernel = scratch != nullptr ? backtracker_kernel<true> : backtracker_kernel<false>;
   if (shared > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        backtracker_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (batch + mazes_a_block - 1) / mazes_a_block;
-  backtracker_kernel<<<blocks, kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
-      ch, cw, batch, static_cast<uint32_t>(seed), mazes_a_block, static_cast<int*>(grids));
+  kernel<<<blocks, kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
+      ch, cw, batch, static_cast<uint32_t>(seed), mazes_a_block, static_cast<int*>(grids),
+      static_cast<uint32_t*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }

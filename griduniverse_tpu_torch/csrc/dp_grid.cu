@@ -65,12 +65,20 @@
 // the sweep maxima and the policy are the same bits as in the shared tier
 // and in the plain version. This tier is bound by bytes: a sweep reads V
 // and the words and writes V, 12 bytes a cell, from and to L2.
+//
+// Above eight actions (kA = −1 in the shared tier, Tab = gu::WideTables in
+// the global one) no action is kept decoded in registers or packed into a
+// word: each sweep decodes every action from the tile codes where it uses
+// it (one maze's table of decoded actions, where the packing keeps one,
+// takes any A). The maximum runs over the actions in index order and each
+// Q rounds as above, so the bits are the same.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 #include "step.cuh"
 
@@ -112,13 +120,19 @@ struct Action {
   int code;  // the tile code after the move: the reward's index
 };
 
+// The shared tier's table for kA actions (4, up to 8 as 0, any as −1).
+template <int kA>
+using TablesOf = typename std::conditional<(kA < 0), gu::WideTables, gu::Tables>::type;
+
 // Action `a` of cell s = (row, col), tile code `code`, of the maze whose
 // tile codes are `codes`; bit for bit the reference's blocked / done /
 // terminal masks.
-__device__ __forceinline__ Action decode_action(const gu::Tables& tab, const uint8_t* codes, int h,
+template <typename Tab>
+__device__ __forceinline__ Action decode_action(const Tab& tab, const uint8_t* codes, int h,
                                                 int w, int s, int row, int col, int code, int a) {
-  const int nrow = row + tab.drow[a];
-  const int ncol = col + tab.dcol[a];
+  const int2 d = gu::delta(tab, a);
+  const int nrow = row + d.x;
+  const int ncol = col + d.y;
   const bool in_bounds = nrow >= 0 && nrow < h && ncol >= 0 && ncol < w;
   const int cand = min(max(nrow, 0), h - 1) * w + min(max(ncol, 0), w - 1);
   const int cand_code = codes[cand];
@@ -219,9 +233,11 @@ grid_sweeps_packed_kernel(GridArgs g, int n, int mazes, int cells, const float* 
                           float* __restrict__ v_out, float gamma, int num_sweeps,
                           float* __restrict__ partial, float* __restrict__ maxima,
                           unsigned int* __restrict__ ticket) {
-  // the actions a cell keeps: all of them (VI) or the policy's (PI evaluation)
-  constexpr int kN = kEval ? 1 : (kA > 0 ? kA : gu::kMaxActions);
-  __shared__ gu::Tables tab;
+  // the actions a cell keeps: all of them (VI) or the policy's (PI
+  // evaluation); none in the wide form's VI, which decodes them each sweep
+  constexpr bool kDecode = kA < 0 && !kEval;
+  constexpr int kN = kEval || kDecode ? 1 : (kA > 0 ? kA : gu::kMaxActions);
+  __shared__ TablesOf<kA> tab;
   __shared__ float red[kMaxSweeps][32];
   __shared__ bool last;
   const int s_dim = g.h * g.w;
@@ -265,7 +281,7 @@ grid_sweeps_packed_kernel(GridArgs g, int n, int mazes, int cells, const float* 
     for (int i = 0; i < kN; ++i) {
       next[i] = span;
       rew[i] = 0.0f;
-      if (active && (kEval || kA > 0 || i < num_actions)) {
+      if (!kDecode && active && (kEval || kA > 0 || i < num_actions)) {
         const int a = kEval ? gu::clamp_action(chosen, num_actions) : i;
         const Action act = decode_action(tab, codes + base, g.h, g.w, s, row, col, code, a);
         if (act.kind == kStay || act.kind == kMove) next[i] = base + act.next;
@@ -280,10 +296,20 @@ grid_sweeps_packed_kernel(GridArgs g, int n, int mazes, int cells, const float* 
         const float* const v_old = (k & 1) ? v1 : v0;
         float* const v_new = (k & 1) ? v0 : v1;
         if (active) {
-          float best = rew[0] + gamma * v_old[next[0]];
+          float best;
+          if constexpr (kDecode) {
+            for (int a = 0; a < num_actions; ++a) {
+              const Action act = decode_action(tab, codes + base, g.h, g.w, s, row, col, code, a);
+              const float r = act.kind == kTerminal ? 0.0f : tab.reward[act.code];
+              const float q = r + gamma * v_old[act.kind <= kMove ? base + act.next : span];
+              best = a == 0 ? q : fmaxf(best, q);
+            }
+          } else {
+            best = rew[0] + gamma * v_old[next[0]];
 #pragma unroll
-          for (int i = 1; i < kN; ++i) {
-            if (kA > 0 || i < num_actions) best = fmaxf(best, rew[i] + gamma * v_old[next[i]]);
+            for (int i = 1; i < kN; ++i) {
+              if (kA > 0 || i < num_actions) best = fmaxf(best, rew[i] + gamma * v_old[next[i]]);
+            }
           }
           v_new[t] = best;
           mk[k] = fmaxf(mk[k], fabsf(best - v_own));
@@ -311,7 +337,7 @@ grid_sweeps_table_kernel(GridArgs g, int n, int mazes, int cells, const float* _
                          float* __restrict__ partial, float* __restrict__ maxima,
                          unsigned int* __restrict__ ticket) {
   constexpr int kN = kEval ? 1 : (kA > 0 ? kA : gu::kMaxActions);
-  __shared__ gu::Tables tab;
+  __shared__ TablesOf<kA> tab;
   __shared__ float red[kMaxSweeps][32];
   __shared__ bool last;
   const int s_dim = g.h * g.w;
@@ -366,10 +392,16 @@ grid_sweeps_table_kernel(GridArgs g, int n, int mazes, int cells, const float* _
           const int s = t + c * blockDim.x;
           if (s >= s_dim) break;
           float best = rew[s] + gamma * v_old[next[s]];
-#pragma unroll
-          for (int i = 1; i < kN; ++i) {
-            if (kA > 0 || i < num_actions) {
+          if constexpr (kA < 0 && !kEval) {  // any number of actions, in index order
+            for (int i = 1; i < num_actions; ++i) {
               best = fmaxf(best, rew[i * s_dim + s] + gamma * v_old[next[i * s_dim + s]]);
+            }
+          } else {
+#pragma unroll
+            for (int i = 1; i < kN; ++i) {
+              if (kA > 0 || i < num_actions) {
+                best = fmaxf(best, rew[i * s_dim + s] + gamma * v_old[next[i * s_dim + s]]);
+              }
             }
           }
           v_new[s] = best;
@@ -398,8 +430,10 @@ grid_sweeps_words_kernel(GridArgs g, int n, int mazes, int cells, const float* _
                          float* __restrict__ v_out, float gamma, int num_sweeps,
                          float* __restrict__ partial, float* __restrict__ maxima,
                          unsigned int* __restrict__ ticket) {
-  constexpr int kN = kA > 0 ? kA : gu::kMaxActions;
-  __shared__ gu::Tables tab;
+  // the wide form's VI keeps no word: it decodes each action from the codes each sweep
+  constexpr bool kDecode = kA < 0 && !kEval;
+  constexpr int kN = kA > 0 ? kA : (kA == 0 ? gu::kMaxActions : 1);
+  __shared__ TablesOf<kA> tab;
   __shared__ float red[kMaxSweeps][32];
   __shared__ float rtab[16];  // the reward of a 4-bit action code; 0 for kTerminal
   __shared__ bool last;
@@ -417,7 +451,10 @@ grid_sweeps_words_kernel(GridArgs g, int n, int mazes, int cells, const float* _
   const int t = threadIdx.x;
   int off[kN];  // the neighbour's offset of each action
 #pragma unroll
-  for (int i = 0; i < kN; ++i) off[i] = i < num_actions ? tab.drow[i] * g.w + tab.dcol[i] : 0;
+  for (int i = 0; i < kN; ++i) {
+    const int2 d = kDecode || i >= num_actions ? make_int2(0, 0) : gu::delta(tab, i);
+    off[i] = d.x * g.w + d.y;
+  }
   float mk[kMaxSweeps];
 #pragma unroll
   for (int k = 0; k < kMaxSweeps; ++k) mk[k] = 0.0f;
@@ -443,7 +480,7 @@ grid_sweeps_words_kernel(GridArgs g, int n, int mazes, int cells, const float* _
         const Action act = decode_action(tab, codes, g.h, g.w, s, row, col, code,
                                          gu::clamp_action(g.policy[base + s], num_actions));
         word = static_cast<uint32_t>((act.kind << 2) | act.code) | (static_cast<uint32_t>(act.next) << 4);
-      } else {
+      } else if (!kDecode) {
         for (int a = 0; a < num_actions; ++a) {
           const Action act = decode_action(tab, codes, g.h, g.w, s, row, col, code, a);
           word |= static_cast<uint32_t>((act.kind << 2) | act.code) << (4 * a);
@@ -463,7 +500,17 @@ grid_sweeps_words_kernel(GridArgs g, int n, int mazes, int cells, const float* _
           if (s >= s_dim) break;
           const uint32_t word = words[s];
           float best;
-          if (kEval) {
+          if constexpr (kDecode) {
+            const int row = s / g.w;
+            const int col = s - row * g.w;
+            const int code = codes[s];
+            for (int a = 0; a < num_actions; ++a) {
+              const Action act = decode_action(tab, codes, g.h, g.w, s, row, col, code, a);
+              const float r = act.kind == kTerminal ? 0.0f : tab.reward[act.code];
+              const float q = r + gamma * (act.kind <= kMove ? v_old[act.next] : 0.0f);
+              best = a == 0 ? q : fmaxf(best, q);
+            }
+          } else if (kEval) {
             const uint32_t nib = word & 15u;
             const float cont = (nib >> 2) >= kCut ? 0.0f : v_old[word >> 4];
             best = rtab[nib] + gamma * cont;
@@ -502,7 +549,7 @@ __global__ void __launch_bounds__(kBlockMax, kMinBlocks)
 grid_greedy_shared_kernel(GridArgs g, int n, int mazes, int cells, const float* __restrict__ v_in,
                           float gamma, int* __restrict__ policy_out, int* __restrict__ partial,
                           int* __restrict__ changed, unsigned int* __restrict__ ticket) {
-  __shared__ gu::Tables tab;
+  __shared__ TablesOf<kA> tab;
   __shared__ bool last;
   const int s_dim = g.h * g.w;
   const int span = mazes * s_dim;
@@ -537,7 +584,7 @@ grid_greedy_shared_kernel(GridArgs g, int n, int mazes, int cells, const float* 
       int best = 0;
       float best_q = 0.0f;
 #pragma unroll
-      for (int a = 0; a < (kA > 0 ? kA : gu::kMaxActions); ++a) {
+      for (int a = 0; a < (kA > 0 ? kA : (kA == 0 ? gu::kMaxActions : num_actions)); ++a) {
         if (kA > 0 || a < num_actions) {
           const Action act = decode_action(tab, codes + base, g.h, g.w, s, row, col, code, a);
           const float cont = act.kind <= kMove ? v[base + act.next] : 0.0f;
@@ -626,6 +673,55 @@ __device__ __forceinline__ int cell_greedy(const gu::Tables& tab, uint32_t word,
   return best;
 }
 
+// The wide form (any number of actions): Q(s, a) decoded from the tile
+// codes where it is used, the same arithmetic as `q_value` on its word.
+__device__ __forceinline__ float q_decoded(const GridArgs& g, const gu::WideTables& tab, const int* codes,
+                                           int s, int row, int col, int code, int a, const float* v,
+                                           float gamma) {
+  const int2 d = gu::delta(tab, a);
+  const int nrow = row + d.x;
+  const int ncol = col + d.y;
+  const bool in_bounds = nrow >= 0 && nrow < g.h && ncol >= 0 && ncol < g.w;
+  const int cand = min(max(nrow, 0), g.h - 1) * g.w + min(max(ncol, 0), g.w - 1);
+  const int cand_code = codes[cand] & 3;
+  const bool blocked = !in_bounds || !((tab.passable >> cand_code) & 1);
+  const int new_code = blocked ? code : cand_code;
+  const float cont = ((tab.terminal >> new_code) & 1) ? 0.0f : v[blocked ? s : cand];
+  return tab.reward[new_code] + gamma * cont;
+}
+
+// `cell_backup` (policy: the maze's row, or null for VI) and `cell_greedy`
+// of the wide form.
+__device__ __forceinline__ float cell_backup_decoded(const GridArgs& g, const gu::WideTables& tab,
+                                                     const int* codes, const int* policy, int s,
+                                                     const float* v, float gamma) {
+  const int row = s / g.w, col = s - (s / g.w) * g.w, code = codes[s] & 3;
+  if ((tab.terminal >> code) & 1) return 0.0f;
+  if (policy != nullptr) {
+    return q_decoded(g, tab, codes, s, row, col, code, gu::clamp_action(policy[s], tab.num_actions), v, gamma);
+  }
+  float best = q_decoded(g, tab, codes, s, row, col, code, 0, v, gamma);
+  for (int a = 1; a < tab.num_actions; ++a) best = fmaxf(best, q_decoded(g, tab, codes, s, row, col, code, a, v, gamma));
+  return best;
+}
+
+__device__ __forceinline__ int cell_greedy_decoded(const GridArgs& g, const gu::WideTables& tab,
+                                                   const int* codes, int s, const float* v, float gamma) {
+  const int row = s / g.w, col = s - (s / g.w) * g.w, code = codes[s] & 3;
+  int best = 0;
+  if (!((tab.terminal >> code) & 1)) {
+    float best_q = q_decoded(g, tab, codes, s, row, col, code, 0, v, gamma);
+    for (int a = 1; a < tab.num_actions; ++a) {
+      const float q = q_decoded(g, tab, codes, s, row, col, code, a, v, gamma);
+      if (q > best_q) {
+        best_q = q;
+        best = a;
+      }
+    }
+  }
+  return best;
+}
+
 __device__ float block_max(float x, float* red) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
@@ -639,12 +735,14 @@ __device__ float block_max(float x, float* red) {
 
 // The global-memory tier: one sweep over every cell of the N mazes, one
 // thread a cell. With `build` the thread derives its cell's word and stores
-// it in `info`; later sweeps of the call read it back.
+// it in `info`; later sweeps of the call read it back. The wide form (Tab =
+// gu::WideTables) keeps no word and decodes from the tile codes each sweep.
+template <typename Tab>
 __global__ void grid_sweep_global_kernel(GridArgs g, int n, const float* __restrict__ v_old,
                                          float* __restrict__ v_new, uint32_t* __restrict__ info,
                                          int build, float gamma,
                                          unsigned int* __restrict__ sweep_max) {
-  __shared__ gu::Tables tab;
+  __shared__ Tab tab;
   __shared__ float red[32];
   gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
   __syncthreads();
@@ -655,14 +753,20 @@ __global__ void grid_sweep_global_kernel(GridArgs g, int n, const float* __restr
     const int m = i / s_dim;
     const int s = i - m * s_dim;
     const size_t base = static_cast<size_t>(m) * s_dim;
-    uint32_t word;
-    if (build) {
-      word = cell_word(g, tab, g.grids + base, g.policy != nullptr ? g.policy + base : nullptr, s);
-      info[i] = word;
+    float v;
+    if constexpr (Tab::kWide) {
+      v = cell_backup_decoded(g, tab, g.grids + base, g.policy != nullptr ? g.policy + base : nullptr, s,
+                              v_old + base, gamma);
     } else {
-      word = info[i];
+      uint32_t word;
+      if (build) {
+        word = cell_word(g, tab, g.grids + base, g.policy != nullptr ? g.policy + base : nullptr, s);
+        info[i] = word;
+      } else {
+        word = info[i];
+      }
+      v = cell_backup(tab, word, s, g.w, v_old + base, gamma, g.policy != nullptr);
     }
-    const float v = cell_backup(tab, word, s, g.w, v_old + base, gamma, g.policy != nullptr);
     v_new[i] = v;
     local = fabsf(v - v_old[i]);
   }
@@ -671,10 +775,11 @@ __global__ void grid_sweep_global_kernel(GridArgs g, int n, const float* __restr
 }
 
 // The global-memory tier of the improvement step, one thread a cell.
+template <typename Tab>
 __global__ void grid_greedy_global_kernel(GridArgs g, int n, const float* __restrict__ v,
                                           float gamma, int* __restrict__ policy_out,
                                           int* __restrict__ changed) {
-  __shared__ gu::Tables tab;
+  __shared__ Tab tab;
   gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
   __syncthreads();
   const int s_dim = g.h * g.w;
@@ -684,8 +789,13 @@ __global__ void grid_greedy_global_kernel(GridArgs g, int n, const float* __rest
     const int m = i / s_dim;
     const int s = i - m * s_dim;
     const size_t base = static_cast<size_t>(m) * s_dim;
-    const uint32_t word = cell_word(g, tab, g.grids + base, static_cast<const int*>(nullptr), s);
-    const int best = cell_greedy(tab, word, s, g.w, v + base, gamma);
+    int best;
+    if constexpr (Tab::kWide) {
+      best = cell_greedy_decoded(g, tab, g.grids + base, s, v + base, gamma);
+    } else {
+      const uint32_t word = cell_word(g, tab, g.grids + base, static_cast<const int*>(nullptr), s);
+      best = cell_greedy(tab, word, s, g.w, v + base, gamma);
+    }
     policy_out[i] = best;
     if (g.policy != nullptr) differs = best != g.policy[i];
   }
@@ -794,8 +904,9 @@ extern "C" int gu_grid_sweeps(const void* passable, const void* terminal, const 
   const size_t bytes = round16(tier == kPacked ? 2 * (span + 1) * sizeof(float) + span
                                : tier == kTable ? 2 * (s_dim + 1) * sizeof(float) + decoded * s_dim * 6 + s_dim
                                                 : s_dim * 13);
-  const SweepsKernel fn = num_actions == 4 ? sweeps_kernel<4>(tier, policy != nullptr)
-                                           : sweeps_kernel<0>(tier, policy != nullptr);
+  const SweepsKernel fn = num_actions == 4               ? sweeps_kernel<4>(tier, policy != nullptr)
+                          : num_actions > gu::kMaxActions ? sweeps_kernel<-1>(tier, policy != nullptr)
+                                                          : sweeps_kernel<0>(tier, policy != nullptr);
   int blocks = 0;
   cudaError_t err = resident_blocks(reinterpret_cast<const void*>(fn), threads, bytes, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -821,7 +932,9 @@ extern "C" int gu_grid_greedy(const void* passable, const void* terminal, const 
   const size_t bytes = round16(span * (sizeof(float) + 1));
   using GreedyKernel = void (*)(GridArgs, int, int, int, const float*, float, int*, int*, int*,
                                 unsigned int*);
-  const GreedyKernel fn = num_actions == 4 ? grid_greedy_shared_kernel<4> : grid_greedy_shared_kernel<0>;
+  const GreedyKernel fn = num_actions == 4               ? grid_greedy_shared_kernel<4>
+                          : num_actions > gu::kMaxActions ? grid_greedy_shared_kernel<-1>
+                                                          : grid_greedy_shared_kernel<0>;
   int blocks = 0;
   cudaError_t err = resident_blocks(reinterpret_cast<const void*>(fn), threads, bytes, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -851,9 +964,10 @@ extern "C" int gu_grid_sweeps_global(const void* passable, const void* terminal,
   const float* src = static_cast<const float*>(v_in);
   for (int k = 0; k < num_sweeps; ++k) {
     float* dst = static_cast<float*>((num_sweeps - 1 - k) % 2 == 0 ? v_out : v_tmp);
-    grid_sweep_global_kernel<<<blocks, kMaxThreads, 0, st>>>(
-        g, n, src, dst, static_cast<uint32_t*>(info), k == 0, gamma,
-        static_cast<unsigned int*>(sweep_max) + k);
+    auto* kernel = num_actions > gu::kMaxActions ? grid_sweep_global_kernel<gu::WideTables>
+                                                 : grid_sweep_global_kernel<gu::Tables>;
+    kernel<<<blocks, kMaxThreads, 0, st>>>(g, n, src, dst, static_cast<uint32_t*>(info), k == 0, gamma,
+                                           static_cast<unsigned int*>(sweep_max) + k);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = dst;
@@ -871,7 +985,9 @@ extern "C" int gu_grid_greedy_global(const void* passable, const void* terminal,
   cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = static_cast<int>((static_cast<long long>(n) * h * w + kMaxThreads - 1) / kMaxThreads);
-  grid_greedy_global_kernel<<<blocks, kMaxThreads, 0, st>>>(
+  auto* kernel = num_actions > gu::kMaxActions ? grid_greedy_global_kernel<gu::WideTables>
+                                               : grid_greedy_global_kernel<gu::Tables>;
+  kernel<<<blocks, kMaxThreads, 0, st>>>(
       grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy), n,
       static_cast<const float*>(v_in), gamma, static_cast<int*>(policy_out),
       static_cast<int*>(changed));

@@ -99,14 +99,16 @@ __device__ __forceinline__ Outputs carve(unsigned char* out, const ActPlan& p) {
                  reinterpret_cast<float*>(out + at[10])};
 }
 
-template <bool kVec4>
+// Tab: gu::Tables up to eight actions, gu::WideTables above (the deltas
+// read from device memory); the row of q is read where used either way.
+template <bool kVec4, typename Tab>
 __global__ void __launch_bounds__(kChunk) dqn_act_step_kernel(
     ActPlan p, const float* __restrict__ q, const uint8_t* __restrict__ explore,
     const int* __restrict__ rand_a, const int* __restrict__ idx_in, const int* __restrict__ code_in,
     const int* __restrict__ t_in, const float* __restrict__ run_ret_in,
     const long long* __restrict__ episodes_in, const float* __restrict__ ret_sum_in,
     unsigned char* __restrict__ out) {
-  __shared__ gu::Tables tab;
+  __shared__ Tab tab;
   __shared__ uint32_t s_words[gu::kMaxWords];
   __shared__ float red[kChunk];
   __shared__ int cnt[kChunk];
@@ -218,7 +220,9 @@ extern "C" int gu_dqn_act_step(const void* plan, const void* q, const void* expl
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (p.batch + kChunk - 1) / kChunk;
   const bool vec4 = p.num_actions == 4 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
-  auto* kernel = vec4 ? dqn_act_step_kernel<true> : dqn_act_step_kernel<false>;
+  auto* kernel = vec4 ? dqn_act_step_kernel<true, gu::Tables>
+                 : p.num_actions > gu::kMaxActions ? dqn_act_step_kernel<false, gu::WideTables>
+                                                   : dqn_act_step_kernel<false, gu::Tables>;
   kernel<<<blocks, kChunk, 0, st>>>(
       p, static_cast<const float*>(q), static_cast<const uint8_t*>(explore),
       static_cast<const int*>(rand_a), static_cast<const int*>(idx_in),

@@ -31,12 +31,16 @@
 //     in the reference.
 //   * seeded: a per-maze xorshift32 stream seeded with fmix32(b·φ + seed);
 //     the direction is its top two bits.
-// `kernels/maze.py` `plan` picks the walking warps a block and its shared
-// memory.
+// `kernels/maze.py` `plan` picks the mazes a block (128 down to 1) and its
+// shared memory, or the device-memory tier (kGlobal: one maze a block, its
+// tree in a scratch the wrapper allocates) where one tree does not fit.
+// `max_iters` is 64-bit: the reference's default, 64·S·⌈log2 S⌉², passes
+// 2^31 above about 340×340 cells.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "maze_tree.cuh"
 
@@ -52,8 +56,10 @@ constexpr int kStay = 4;  // a direction that moves nowhere (any value above 3)
 // mark) after the next step has been prepared, so that no load waits for
 // the store before it. The store that a prepared load may have missed is
 // the one finished just before it, and `finish` forwards it in registers.
+template <typename Index>
 struct Walk {
-  int r = 0, c = 0, n_visited = 1;
+  int r = 0, c = 0;
+  Index n_visited = 1;
   int at = 0, sh = 0;   // the prepared step's cell: word offset in the column, shift
   uint32_t raw = 0, mask = 0;  // its word as loaded, its mark as an xor
   int at_prev = -1;      // the last finished step's stored word (-1: none)
@@ -99,9 +105,9 @@ struct Walk {
 // Directions t0 .. t0 + 15 of maze b, zero-extended bytes as loaded (kStay
 // at and past max_iters); nothing waits on them until the walk reaches them.
 __device__ __forceinline__ void load_block(unsigned (&dst)[kBlockSteps], const uint8_t* __restrict__ dirs,
-                                           int t0, int max_iters, int batch, int b) {
+                                           long long t0, long long max_iters, int batch, int b) {
   const uint8_t* row = dirs + static_cast<size_t>(t0) * batch + b;
-  const int left = max_iters - t0;
+  const long long left = max_iters - t0;
 #pragma unroll
   for (int k = 0; k < kBlockSteps; ++k, row += batch) {
     dst[k] = kStay;
@@ -109,30 +115,34 @@ __device__ __forceinline__ void load_block(unsigned (&dst)[kBlockSteps], const u
   }
 }
 
-// Block: kThreads threads, of which the first M = mazes_a_block (a multiple
-// of 32) walk a maze each, their trees in dynamic shared memory (M·ch·⌈cw/8⌉
-// words, word-major); then all write the block's grids.
-template <bool kInjected>
-__global__ void __launch_bounds__(kThreads) aldous_broder_kernel(int ch, int cw, int batch, int max_iters,
+// Block: kThreads threads, of which the first M = mazes_a_block (a power of
+// two) walk a maze each, their trees in dynamic shared memory (M·ch·⌈cw/8⌉
+// words, word-major), or with kGlobal (M = 1) in the block's part of
+// `scratch`; then all write the block's grids.
+template <bool kInjected, bool kGlobal>
+__global__ void __launch_bounds__(kThreads) aldous_broder_kernel(int ch, int cw, int batch, long long max_iters,
                                                                  const uint8_t* __restrict__ dirs, uint32_t seed,
-                                                                 int mazes_a_block, int* __restrict__ grids) {
-  extern __shared__ uint32_t trees[];
+                                                                 int mazes_a_block, int* __restrict__ grids,
+                                                                 uint32_t* scratch) {
+  using Index = typename std::conditional<kGlobal, long long, int>::type;
+  extern __shared__ uint32_t smem_trees[];
   const int stride = mazes_a_block, slot = threadIdx.x;
   const int base = blockIdx.x * stride;  // the block's first maze
   const int b = base + slot;
-  const int s = ch * cw;
-  uint32_t* col = trees + slot;
+  const Index s = static_cast<Index>(ch) * cw;
   const int wpr = row_words(cw), row_stride = wpr * stride;
+  uint32_t* const trees = kGlobal ? scratch + static_cast<size_t>(blockIdx.x) * ch * row_stride : smem_trees;
+  uint32_t* col = trees + slot;
 
   if (slot < stride && b < batch) {
     tree_init(col, stride, ch, cw);  // the walk starts at cell (0, 0), the root
-    Walk walk;
+    Walk<Index> walk;
     if (kInjected) {
       unsigned now[kBlockSteps], next[kBlockSteps];
       load_block(now, dirs, 0, max_iters, batch, b);
       load_block(next, dirs, kBlockSteps, max_iters, batch, b);
       walk.prepare(now[0], ch, cw, col, stride, row_stride);
-      for (int t0 = 0; t0 < max_iters && walk.n_visited < s; t0 += kBlockSteps) {
+      for (long long t0 = 0; t0 < max_iters && walk.n_visited < s; t0 += kBlockSteps) {
 #pragma unroll
         for (int k = 0; k < kBlockSteps; ++k)  // finishes step t0 + k
           walk.step(k + 1 < kBlockSteps ? now[k + 1] : next[0], ch, cw, col, stride, row_stride);
@@ -143,11 +153,13 @@ __global__ void __launch_bounds__(kThreads) aldous_broder_kernel(int ch, int cw,
     } else {
       uint32_t x = xorshift(stream_init(b, seed));
       walk.prepare(max_iters > 0 ? x >> 30 : kStay, ch, cw, col, stride, row_stride);
-      for (int t0 = 0; t0 < max_iters && walk.n_visited < s; t0 += kBlockSteps) {
+      for (long long t0 = 0; t0 < max_iters && walk.n_visited < s; t0 += kBlockSteps) {
+        // steps of this block below the cap, plus one (at most kBlockSteps + 1)
+        const int left = static_cast<int>(min(max_iters - t0, static_cast<long long>(kBlockSteps + 1)));
 #pragma unroll
         for (int k = 0; k < kBlockSteps; ++k) {  // finishes step t0 + k
           x = xorshift(x);
-          walk.step(t0 + k + 1 < max_iters ? x >> 30 : kStay, ch, cw, col, stride, row_stride);
+          walk.step(k + 1 < left ? x >> 30 : kStay, ch, cw, col, stride, row_stride);
         }
       }
     }
@@ -168,19 +180,24 @@ __global__ void __launch_bounds__(kThreads) aldous_broder_kernel(int ch, int cw,
   }
   __syncthreads();
   const int nm = min(stride, batch - base);
-  const int h = 2 * ch + 1, w = 2 * cw + 1;
-  write_grids(trees, stride, nm, ch, cw, grids + static_cast<size_t>(base) * h * w, slot);
+  const size_t first = static_cast<size_t>(base) * (2 * ch + 1) * (2 * cw + 1);
+  write_grids<Index>(trees, stride, nm, ch, cw, grids + first, static_cast<int>(-first & 3), slot);
 }
 
 }  // namespace
 
 // `dirs`: (≥ max_iters, batch) int8, or null for the seeded walk.
-// `mazes_a_block`: 32, 64 or 128, the block's walking threads; `shared`: its
-// bytes of trees, mazes_a_block · ch · ⌈cw/8⌉ · 4 (`kernels/maze.py` `plan`).
-extern "C" int gu_aldous_broder_mazes(int ch, int cw, int batch, int max_iters,
+// `mazes_a_block`: 128, 64, ..., 1, the block's walking threads; `shared`:
+// its bytes of trees, mazes_a_block · ch · ⌈cw/8⌉ · 4 (`kernels/maze.py`
+// `plan`); or, with `scratch` (batch · ch · ⌈cw/8⌉ words), the trees in
+// device memory, one maze a block.
+extern "C" int gu_aldous_broder_mazes(int ch, int cw, int batch, long long max_iters,
                                       const void* dirs, int seed, void* grids, int mazes_a_block,
-                                      int shared, void* stream) {
-  auto* kernel = dirs != nullptr ? aldous_broder_kernel<true> : aldous_broder_kernel<false>;
+                                      int shared, void* scratch, void* stream) {
+  auto* kernel = scratch != nullptr ? (dirs != nullptr ? aldous_broder_kernel<true, true>
+                                                       : aldous_broder_kernel<false, true>)
+                                    : (dirs != nullptr ? aldous_broder_kernel<true, false>
+                                                       : aldous_broder_kernel<false, false>);
   if (shared > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
@@ -189,6 +206,6 @@ extern "C" int gu_aldous_broder_mazes(int ch, int cw, int batch, int max_iters,
   const int blocks = (batch + mazes_a_block - 1) / mazes_a_block;
   kernel<<<blocks, kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
       ch, cw, batch, max_iters, static_cast<const uint8_t*>(dirs), static_cast<uint32_t>(seed), mazes_a_block,
-      static_cast<int*>(grids));
+      static_cast<int*>(grids), static_cast<uint32_t*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,10 @@
 // its own column, and the 32 lanes of a warp sit in 32 distinct banks
 // whatever words they ask for: no bank conflicts, no atomics. A 63×63-cell
 // maze takes 504 words (2,016 bytes), so one warp's 32 mazes take 63 KB of
-// the block's opt-in shared memory.
+// the block's opt-in shared memory. Where 32 trees do not fit, a block walks
+// fewer mazes (M = 16, 8, ..., 1 lanes of its first warp; a power of two, so
+// the lanes' words still lie in distinct banks), and where not even one
+// does, the trees lie in a device-memory scratch in the same layout (M = 1).
 //
 // The carve rule (both generators): the wall between two neighbouring cells
 // is open iff one of them was entered through it, i.e. iff the cell's nibble
@@ -23,12 +26,14 @@
 //
 // The writer. After the walks (a barrier) the block's M mazes are finished,
 // and their grids are M·h·w int32 that lie next to each other in the
-// output, starting at a multiple of 128·h·w bytes. All kThreads threads of
-// the block, the walkers and, where the block has fewer than four walking
-// warps, warps that only write, write that region once, front to back, with
-// 16-byte stores: thread t takes the 16 bytes at 16·(t + kThreads·k), so a
-// warp's store covers 512 consecutive bytes. The last 1–3 int32 of a region
-// are written plainly. No tile is written twice and there is no wall fill.
+// output. All kThreads threads of the block, the walkers and, where the
+// block has fewer than four walking warps, warps that only write, write that
+// region once, front to back, with 16-byte stores: thread t takes the 16
+// bytes at 16·(t + kThreads·k) past the region's first 16-byte boundary, so
+// a warp's store covers 512 consecutive bytes. Where M is a multiple of 4
+// the region starts on one (h·w is odd, so only then); otherwise its first
+// 1–3 int32 (the lead) are written plainly, as are its last 1–3. No tile is
+// written twice and there is no wall fill.
 // Before it, each walker turns its own tree into two bits a cell in place
 // (`tree_to_walls`): word j of a row holds the north walls of the row's
 // cells 16j .. 16j + 15 in its low half and their west walls in its high
@@ -161,21 +166,38 @@ __device__ __forceinline__ int one_tile(const uint32_t* walls, int stride, int m
   return wall_mask(wall_window(walls, stride, m, gr, gc >> 1, ch, cw), gr & 1, gc & 1) & 1u ? kWall : kEmpty;
 }
 
+// Int32 f of the region, by its maze, row and column.
+template <typename Index>
+__device__ __forceinline__ int tile_at(const uint32_t* walls, int stride, Index f, Index hw, int ch, int cw) {
+  const int w = 2 * cw + 1;
+  const int m = static_cast<int>(f / hw);
+  const Index rt = f - m * hw;
+  const int gr = static_cast<int>(rt / w);
+  return one_tile(walls, stride, m, gr, static_cast<int>(rt - static_cast<Index>(gr) * w), ch, cw);
+}
+
 // The block writes the grids of its nm mazes (walls' words in columns
-// walls[k·stride + m], m < nm) into `out` (16-byte aligned, nm·h·w int32).
+// walls[k·stride + m], m < nm) into `out` (nm·h·w int32, 4-byte aligned;
+// the first `lead` < 4 of them lie before a 16-byte boundary). Index is
+// int, or long long where one maze's grid may pass 2^31 tiles.
+template <typename Index>
 __device__ __forceinline__ void write_grids(const uint32_t* walls, int stride, int nm, int ch, int cw,
-                                            int* __restrict__ out, int t) {
-  const int h = 2 * ch + 1, w = 2 * cw + 1, hw = h * w;
-  const int n_ints = nm * hw;  // at most 128 · 16,383
-  const int n4 = n_ints >> 2;
-  int4* out4 = reinterpret_cast<int4*>(out);
-  // thread t starts at int 4t and moves 4·kThreads ints a store: (m, gr, gc) carried
-  int m = (4 * t) / hw;
-  int gr = (4 * t - m * hw) / w;
-  int gc = 4 * t - m * hw - gr * w;
+                                            int* __restrict__ out, int lead, int t) {
+  const int h = 2 * ch + 1, w = 2 * cw + 1;
+  const Index hw = static_cast<Index>(h) * w;
+  const Index n_ints = nm * hw;
+  const int head = n_ints < lead ? static_cast<int>(n_ints) : lead;
+  const Index n4 = (n_ints - head) >> 2;
+  int4* out4 = reinterpret_cast<int4*>(out + head);
+  // thread t starts at int head + 4t and moves 4·kThreads ints a store: (m, gr, gc) carried
+  const Index i0 = head + 4 * t;
+  int m = static_cast<int>(i0 / hw);
+  const Index r0 = i0 - m * hw;
+  int gr = static_cast<int>(r0 / w);
+  int gc = static_cast<int>(r0 - static_cast<Index>(gr) * w);
   const int rows = 4 * kThreads / w, step_c = 4 * kThreads - rows * w;
   const int step_r = rows % h, step_m = rows / h;
-  for (int q = t; q < n4; q += kThreads) {
+  for (Index q = t; q < n4; q += kThreads) {
     int v[4];
     if (cw > 1) {  // w ≥ 5: the four tiles lie in this row and at most the next
       const int k = w - gc;  // tiles left in this row
@@ -216,11 +238,9 @@ __device__ __forceinline__ void write_grids(const uint32_t* walls, int stride, i
       ++m;
     }
   }
-  const int f = 4 * n4 + t;  // the region's last 1–3 int32
-  if (f < n_ints) {
-    const int mt = f / hw, rt = f - mt * hw;
-    out[f] = one_tile(walls, stride, mt, rt / w, rt - (rt / w) * w, ch, cw);
-  }
+  if (t < head) out[t] = tile_at(walls, stride, static_cast<Index>(t), hw, ch, cw);  // the lead
+  const Index f = head + 4 * n4 + t;  // the region's last 1–3 int32
+  if (f < n_ints) out[f] = tile_at(walls, stride, f, hw, ch, cw);
 }
 
 }  // namespace maze_tree

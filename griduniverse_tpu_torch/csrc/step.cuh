@@ -14,6 +14,13 @@
 // is latency bound. The tables sit in shared memory and the packed level
 // in shared memory (shared level) or in L1/L2 (per-env levels, 4 bytes per
 // 16 tiles), so the step touches no device memory in steady state.
+//
+// Any number of actions. Up to kMaxActions the deltas sit in `Tables`, in
+// shared memory, and the kernels keep rows of Q or logits in registers.
+// Above it every kernel has a wide instantiation on `WideTables`: the
+// (A, 2) deltas stay in device memory (read through L1, 8 bytes an
+// action), and its loops over actions keep no row: a running first argmax
+// or maximum, and sums in index order, so both give the same bits.
 
 #pragma once
 
@@ -27,6 +34,7 @@ constexpr int kMaxWords = 1024;  // MAX_PACKED_STATES / 16
 
 // Semantics tables, loaded once per block into shared memory.
 struct Tables {
+  static constexpr bool kWide = false;
   float reward[kNumCodes];
   int drow[kMaxActions];
   int dcol[kMaxActions];
@@ -35,11 +43,23 @@ struct Tables {
   int num_actions;
 };
 
-// Thread 0 fills `s`; the caller runs __syncthreads() afterwards.
-__device__ inline void load_tables(Tables& s, const uint8_t* passable,
-                                   const uint8_t* terminal, const float* reward,
-                                   const int* deltas, int num_actions) {
-  if (threadIdx.x != 0) return;
+// The same for any number of actions: the deltas stay in device memory.
+struct WideTables {
+  static constexpr bool kWide = true;
+  float reward[kNumCodes];
+  const int2* deltas;  // (A, 2) int32: row and column of each action
+  int passable;
+  int terminal;
+  int num_actions;
+};
+
+// Action a's (row, column) delta.
+__device__ __forceinline__ int2 delta(const Tables& s, int a) { return make_int2(s.drow[a], s.dcol[a]); }
+__device__ __forceinline__ int2 delta(const WideTables& s, int a) { return __ldg(s.deltas + a); }
+
+template <typename Tab>
+__device__ inline void load_codes(Tab& s, const uint8_t* passable, const uint8_t* terminal,
+                                  const float* reward, int num_actions) {
   int p = 0, t = 0;
   for (int c = 0; c < kNumCodes; ++c) {
     p |= (passable[c] != 0) << c;
@@ -48,11 +68,28 @@ __device__ inline void load_tables(Tables& s, const uint8_t* passable,
   }
   s.passable = p;
   s.terminal = t;
+  s.num_actions = num_actions;
+}
+
+// Thread 0 fills `s`; the caller runs __syncthreads() afterwards.
+__device__ inline void load_tables(Tables& s, const uint8_t* passable,
+                                   const uint8_t* terminal, const float* reward,
+                                   const int* deltas, int num_actions) {
+  if (threadIdx.x != 0) return;
+  load_codes(s, passable, terminal, reward, num_actions);
   for (int a = 0; a < num_actions; ++a) {
     s.drow[a] = deltas[2 * a];
     s.dcol[a] = deltas[2 * a + 1];
   }
-  s.num_actions = num_actions;
+}
+
+// `deltas` must be 8-byte aligned (a tensor's storage is).
+__device__ inline void load_tables(WideTables& s, const uint8_t* passable,
+                                   const uint8_t* terminal, const float* reward,
+                                   const int* deltas, int num_actions) {
+  if (threadIdx.x != 0) return;
+  load_codes(s, passable, terminal, reward, num_actions);
+  s.deltas = reinterpret_cast<const int2*>(deltas);
 }
 
 // `words` is anything indexed like an array of the packed words: a pointer,
@@ -87,14 +124,14 @@ struct Move {
   int col;
 };
 
-// (position, action) -> (new position, reward, terminal), bit-exactly the
-// JAX `move_bits`. The row and column come with the position, so a caller
-// that carries them never divides by the width.
-template <typename Words>
-__device__ __forceinline__ Move move_from(const Tables& s, const Words& words, int h, int w,
-                                          const Pos& p, int a) {
-  const int nrow = p.row + s.drow[a];
-  const int ncol = p.col + s.dcol[a];
+// (position, (row, column) delta) -> (new position, reward, terminal),
+// bit-exactly the JAX `move_bits`. The row and column come with the
+// position, so a caller that carries them never divides by the width.
+template <typename Tab, typename Words>
+__device__ __forceinline__ Move move_by(const Tab& s, const Words& words, int h, int w,
+                                        const Pos& p, int drow, int dcol) {
+  const int nrow = p.row + drow;
+  const int ncol = p.col + dcol;
   const bool in_bounds = nrow >= 0 && nrow < h && ncol >= 0 && ncol < w;
   const int crow = min(max(nrow, 0), h - 1);
   const int ccol = min(max(ncol, 0), w - 1);
@@ -111,14 +148,22 @@ __device__ __forceinline__ Move move_from(const Tables& s, const Words& words, i
   return m;
 }
 
+// The same for action a.
+template <typename Tab, typename Words>
+__device__ __forceinline__ Move move_from(const Tab& s, const Words& words, int h, int w,
+                                          const Pos& p, int a) {
+  const int2 d = delta(s, a);
+  return move_by(s, words, h, w, p, d.x, d.y);
+}
+
 __device__ __forceinline__ Pos at_index(int idx, int code, int w) {
   const int row = idx / w;
   return Pos{idx, code, row, idx - row * w};
 }
 
 // (idx, code at idx, action) -> the move, the row and column computed here.
-template <typename Words>
-__device__ __forceinline__ Move move_bits(const Tables& s, const Words& words, int h, int w,
+template <typename Tab, typename Words>
+__device__ __forceinline__ Move move_bits(const Tab& s, const Words& words, int h, int w,
                                           int idx, int code, int a) {
   return move_from(s, words, h, w, at_index(idx, code, w), a);
 }
@@ -141,16 +186,10 @@ struct Episode {
   int len_sum;
 };
 
-// One auto-reset step with the optional time limit (`max_episode_steps`
-// < 0: none). Updates the position `p` and `t` in place, reset to `start`
-// when the episode ended, else advanced, and folds the step into `ep`.
-// Everything that happens when an episode ends sits in one branch; a
-// caller that reads none of `ep` pays nothing for it.
-template <typename Words>
-__device__ __forceinline__ Transition step_autoreset_from(
-    const Tables& s, const Words& words, int h, int w, const Pos& start,
-    int max_episode_steps, int a, Pos& p, int& t, Episode& ep) {
-  const Move m = move_from(s, words, h, w, p, a);
+// The auto-reset step of `step_autoreset_from` after its move `m`.
+__device__ __forceinline__ Transition finish_autoreset(const Move& m, const Pos& start,
+                                                      int max_episode_steps, Pos& p, int& t,
+                                                      Episode& ep) {
   const bool done = m.done || (max_episode_steps >= 0 && t + 1 >= max_episode_steps);
   ep.run_ret += m.reward;
   if (done) {
@@ -167,11 +206,23 @@ __device__ __forceinline__ Transition step_autoreset_from(
   return Transition{m.idx, m.reward, done};
 }
 
+// One auto-reset step with the optional time limit (`max_episode_steps`
+// < 0: none). Updates the position `p` and `t` in place, reset to `start`
+// when the episode ended, else advanced, and folds the step into `ep`.
+// Everything that happens when an episode ends sits in one branch; a
+// caller that reads none of `ep` pays nothing for it.
+template <typename Tab, typename Words>
+__device__ __forceinline__ Transition step_autoreset_from(
+    const Tab& s, const Words& words, int h, int w, const Pos& start,
+    int max_episode_steps, int a, Pos& p, int& t, Episode& ep) {
+  return finish_autoreset(move_from(s, words, h, w, p, a), start, max_episode_steps, p, t, ep);
+}
+
 // The same step on (idx, code), the row and column computed here; the
 // start's are never read.
-template <typename Words>
+template <typename Tab, typename Words>
 __device__ __forceinline__ Transition step_autoreset(
-    const Tables& s, const Words& words, int h, int w, int start_idx,
+    const Tab& s, const Words& words, int h, int w, int start_idx,
     int start_code, int max_episode_steps, int a, int& idx, int& code, int& t,
     Episode& ep) {
   Pos p = at_index(idx, code, w);

@@ -25,7 +25,9 @@
 //  * A short chain. Each thread carries its agent's row and column beside
 //    its index, so no step divides by the width. The rows it reads stay in
 //    registers (A is a template parameter, 4 or up to 8; an entry is picked
-//    by selects, never by a dynamic index into a local array), the argmax
+//    by selects, never by a dynamic index into a local array; above 8 the
+//    wide form, kA = 0, reads each entry from the table where it is used,
+//    with the same first argmax, maximum and sum in index order), the argmax
 //    and the target are unrolled, and the algorithm and the draws' source
 //    are template parameters: the loop has no branch on either, and the
 //    injected draws are loaded a step ahead.
@@ -159,21 +161,44 @@ __device__ __forceinline__ int argmax(const float (&row)[kA], int na) {
   return best;
 }
 
+// The table for kA actions: gu::Tables, or with kA = 0 (any A) gu::WideTables.
+template <int kA>
+using TablesOf = typename std::conditional<kA == 0, gu::WideTables, gu::Tables>::type;
+
 // One maze's whole scan, on its table `q` and packed level `lw` wherever
 // they live.
 template <typename QT, int kA, int kAlgo, bool kInjected, typename Table, typename Words>
-__device__ __forceinline__ void run_maze(const TdBatchedArgs& g, const gu::Tables& tab, int n,
+__device__ __forceinline__ void run_maze(const TdBatchedArgs& g, const TablesOf<kA>& tab, int n,
                                          const Table& q, const Words& lw) {
+  constexpr int kR = kA > 0 ? kA : 1;  // a row's registers (none used at kA = 0)
   const int na = kA == 4 ? 4 : g.num_actions;
   const gu::Pos start = gu::at_index(g.start_idx[n], g.start_code[n], g.w);
   gu::Pos p = gu::at_index(g.idx[n], g.code[n], g.w);
   int t = g.t[n], a = g.a[n];
   uint32_t rs = g.rs[n];
   gu::Episode ep{g.run_ret[n], g.ret_sum[n], g.n_eps[n], 0};
-  float row_s[kA], row_s2[kA], row_n[kA];
+  float row_s[kR], row_s2[kR], row_n[kR];
 
-  // ε-greedy on `row` from the lane, or from an injected (explore, rand_a)
-  auto draw = [&](const float (&row)[kA], bool inj_explore, int inj_rand) {
+  // the first argmax of Q[s]: of its row in registers, or read from the table
+  auto greedy_of = [&](const float (&row)[kR], int s) {
+    if constexpr (kA > 0) {
+      return argmax(row, na);
+    } else {
+      int best = 0;
+      float top = load_q(q[s * na]);
+      for (int k = 1; k < na; ++k) {
+        const float x = load_q(q[s * na + k]);
+        if (x > top) {
+          best = k;
+          top = x;
+        }
+      }
+      return best;
+    }
+  };
+
+  // ε-greedy on the row of state s from the lane, or from an injected (explore, rand_a)
+  auto draw = [&](const float (&row)[kR], int s, bool inj_explore, int inj_rand) {
     bool explore;
     int ra;
     if constexpr (kInjected) {
@@ -184,12 +209,12 @@ __device__ __forceinline__ void run_maze(const TdBatchedArgs& g, const gu::Table
       explore = gu::explore_coin(rs, g.eps16);
       ra = gu::explore_action(rs, na);
     }
-    return explore ? ra : argmax(row, na);
+    return explore ? ra : greedy_of(row, s);
   };
 
   if (g.draw_first) {
-    load_row(q, p.idx, na, row_n);
-    a = draw(row_n, kInjected && g.explore0[n] != 0, kInjected ? g.rand_a0[n] : 0);
+    if constexpr (kA > 0) load_row(q, p.idx, na, row_n);
+    a = draw(row_n, p.idx, kInjected && g.explore0[n] != 0, kInjected ? g.rand_a0[n] : 0);
   }
   bool next_explore = false;  // the injected draws of the coming step, loaded a step ahead
   int next_rand = 0;
@@ -207,24 +232,39 @@ __device__ __forceinline__ void run_maze(const TdBatchedArgs& g, const gu::Table
       next_rand = g.rand_a[o];
     }
     const int s = p.idx;
-    load_row(q, s, na, row_s);
+    if constexpr (kA > 0) load_row(q, s, na, row_s);
+    const float q_sa_wide = kA > 0 ? 0.0f : load_q(q[s * na + a]);
     const gu::Transition tr =
         gu::step_autoreset_from(tab, lw, g.h, g.w, start, g.max_episode_steps, a, p, t, ep);
-    load_row(q, tr.obs, na, row_s2);
-    load_row(q, p.idx, na, row_n);  // the post-reset state, before the update
-    const float q_sa = pick(row_s, a);
-    const int a_next = draw(row_n, inj_explore, inj_rand);
+    if constexpr (kA > 0) {
+      load_row(q, tr.obs, na, row_s2);
+      load_row(q, p.idx, na, row_n);  // the post-reset state, before the update
+    }
+    const float q_sa = kA > 0 ? pick(row_s, a) : q_sa_wide;
+    const int a_next = draw(row_n, p.idx, inj_explore, inj_rand);
 
     float boot;
     if constexpr (kAlgo == kSarsa) {
-      boot = pick(row_s2, a_next);
+      boot = kA > 0 ? pick(row_s2, a_next) : load_q(q[tr.obs * na + a_next]);
     } else {
-      float greedy = row_s2[0], total = row_s2[0];
+      float greedy, total;
+      if constexpr (kA > 0) {
+        greedy = row_s2[0];
+        total = row_s2[0];
 #pragma unroll
-      for (int k = 1; k < kA; ++k) {
-        if (k < na) {
-          greedy = fmaxf(greedy, row_s2[k]);
-          total = total + row_s2[k];
+        for (int k = 1; k < kA; ++k) {
+          if (k < na) {
+            greedy = fmaxf(greedy, row_s2[k]);
+            total = total + row_s2[k];
+          }
+        }
+      } else {
+        greedy = load_q(q[tr.obs * na]);
+        total = greedy;
+        for (int k = 1; k < na; ++k) {
+          const float x = load_q(q[tr.obs * na + k]);
+          greedy = fmaxf(greedy, x);
+          total = total + x;
         }
       }
       if constexpr (kAlgo == kQLearning) {
@@ -326,7 +366,7 @@ using Bits = typename std::conditional<sizeof(QT) == 2, uint16_t, uint32_t>::typ
 template <typename QT, int kA, int kAlgo, bool kInjected>
 __global__ void __launch_bounds__(kMaxThreads) td_batched_kernel(TdBatchedArgs g,
                                                                  QT* __restrict__ q_all) {
-  __shared__ gu::Tables tab;
+  __shared__ TablesOf<kA> tab;
   gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
   __syncthreads();
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -386,6 +426,9 @@ cudaError_t launch_actions(const TdBatchedArgs& g, QT* q, int algo, bool injecte
                            int blocks, int shared_bytes, cudaStream_t st) {
   if (g.num_actions == 4) {
     return launch_algo<QT, 4>(g, q, algo, injected, threads, blocks, shared_bytes, st);
+  }
+  if (g.num_actions > gu::kMaxActions) {  // the wide form: no rows in registers
+    return launch_algo<QT, 0>(g, q, algo, injected, threads, blocks, shared_bytes, st);
   }
   return launch_algo<QT, gu::kMaxActions>(g, q, algo, injected, threads, blocks, shared_bytes,
                                           st);

@@ -182,8 +182,10 @@ __device__ __forceinline__ float rebuilt(int apply_prev, const float* q_prev,
 
 // One env's step against Q_t (`s_q`, or rebuilt from q_prev and step t-1's
 // aggregate); returns the cell (s, a) it adds to and its fixed-point α·δ.
-template <bool kStaged>
-__device__ __forceinline__ int env_step(const TdFastArgs& g, const gu::Tables& tab,
+// Above kMaxActions (Tab = WideTables) the loops over actions run to A and
+// keep no row: the same first argmax, maximum and sum in index order.
+template <bool kStaged, typename Tab>
+__device__ __forceinline__ int env_step(const TdFastArgs& g, const Tab& tab,
                                         const uint32_t* s_words, const float* s_q, int apply_prev,
                                         const float* q_prev, const long long* acc_prev,
                                         const int* cnt_prev, int b, Env& e, long long& inc) {
@@ -193,6 +195,41 @@ __device__ __forceinline__ int env_step(const TdFastArgs& g, const gu::Tables& t
   const int na = g.num_actions;
   e.rs = gu::xorshift32(e.rs);
   const uint32_t bits = e.rs;
+  auto q_at = [&](int i) {
+    return kStaged ? s_q[i] : rebuilt(apply_prev, q_prev, acc_prev, cnt_prev, i);
+  };
+  if constexpr (Tab::kWide) {
+    int greedy = 0;
+    float best = q_at(e.idx * na);
+    for (int k = 1; k < na; ++k) {
+      const float x = q_at(e.idx * na + k);
+      if (x > best) {
+        best = x;
+        greedy = k;
+      }
+    }
+    const int a = gu::explore_coin(bits, g.eps16) ? gu::explore_action(bits, na) : greedy;
+    const int cell = e.idx * na + a;
+    const float q_sa = q_at(cell);
+    gu::Episode ep{e.run_ret, e.ret_sum, e.n_eps, 0};
+    const gu::Transition tr = gu::step_autoreset(tab, lw, g.h, g.w, s_idx, s_code,
+                                                 g.max_episode_steps, a, e.idx, e.code, e.t, ep);
+    float v = q_at(tr.obs * na), total = v;
+    for (int k = 1; k < na; ++k) {
+      const float x = q_at(tr.obs * na + k);
+      v = fmaxf(v, x);
+      total = total + x;
+    }
+    if (g.expected_sarsa) {
+      v = g.one_minus_epsilon * v + g.epsilon * (total / static_cast<float>(na));
+    }
+    const float delta = tr.reward + g.gamma * (tr.done ? 0.0f : v) - q_sa;
+    inc = __double2ll_rn(static_cast<double>(g.alpha * delta) * kFixedOne);
+    e.run_ret = ep.run_ret;
+    e.ret_sum = ep.ret_sum;
+    e.n_eps = ep.n_eps;
+    return cell;
+  }
 
   // the loops over actions run to kMaxActions, unrolled, so that the rows
   // stay in registers
@@ -280,11 +317,11 @@ __device__ __forceinline__ void add_combined(int cell, long long inc, long long*
 // The whole scan. kStaged: Q in every block's shared memory (at most
 // kMaxStagedEntries entries), else in global memory. kEpt: 1, a thread's
 // one env in registers; 0: `walks` envs a thread, their state in the output
-// arrays.
-template <bool kStaged, int kEpt>
+// arrays. Tab: gu::Tables up to kMaxActions actions, gu::WideTables above.
+template <bool kStaged, int kEpt, typename Tab>
 __global__ void __launch_bounds__(kThreads, kEpt == 1 ? 2 : 1) td_fast_scan_kernel(TdFastArgs g) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ gu::Tables tab;
+  __shared__ Tab tab;
   __shared__ uint32_t s_words[gu::kMaxWords];
   __shared__ long long s_warp[kThreads];
   const int n = g.h * g.w * g.num_actions;
@@ -428,25 +465,30 @@ __global__ void __launch_bounds__(kThreads, kEpt == 1 ? 2 : 1) td_fast_scan_kern
   }
 }
 
-// The kernel of (staged, ept), or nullptr for an ept it does not take.
-void* scan_kernel(bool staged, int ept) {
+template <typename Tab>
+void* scan_kernel_of(bool staged, int ept) {
   switch (ept) {
-    case 0: return staged ? reinterpret_cast<void*>(td_fast_scan_kernel<true, 0>)
-                          : reinterpret_cast<void*>(td_fast_scan_kernel<false, 0>);
-    case 1: return staged ? reinterpret_cast<void*>(td_fast_scan_kernel<true, 1>)
-                          : reinterpret_cast<void*>(td_fast_scan_kernel<false, 1>);
+    case 0: return staged ? reinterpret_cast<void*>(td_fast_scan_kernel<true, 0, Tab>)
+                          : reinterpret_cast<void*>(td_fast_scan_kernel<false, 0, Tab>);
+    case 1: return staged ? reinterpret_cast<void*>(td_fast_scan_kernel<true, 1, Tab>)
+                          : reinterpret_cast<void*>(td_fast_scan_kernel<false, 1, Tab>);
     default: return nullptr;
   }
+}
+
+// The kernel of (staged, ept, wide), or nullptr for an ept it does not take.
+void* scan_kernel(bool staged, int ept, bool wide) {
+  return wide ? scan_kernel_of<gu::WideTables>(staged, ept) : scan_kernel_of<gu::Tables>(staged, ept);
 }
 
 size_t scan_smem(int n_entries) {
   return n_entries <= kMaxStagedEntries ? static_cast<size_t>(n_entries) * 16 : 0;
 }
 
-// Blocks of the (n_entries, ept) kernel an SM holds at once; an error where
-// the device has no cooperative launch.
-cudaError_t resident_blocks(int n_entries, int ept, int* blocks_per_sm, int* sms) {
-  void* kernel = scan_kernel(n_entries <= kMaxStagedEntries, ept);
+// Blocks of the (n_entries, ept, wide) kernel an SM holds at once; an error
+// where the device has no cooperative launch.
+cudaError_t resident_blocks(int n_entries, int ept, bool wide, int* blocks_per_sm, int* sms) {
+  void* kernel = scan_kernel(n_entries <= kMaxStagedEntries, ept, wide);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   int dev = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -468,12 +510,13 @@ cudaError_t resident_blocks(int n_entries, int ept, int* blocks_per_sm, int* sms
 }  // namespace
 
 // out[0] = blocks of K5's scan kernel for `ept` envs a thread (0: its form
-// that keeps them in global memory) an SM holds at once, out[1] = the SMs.
-// Fails where the device has no cooperative launch.
-extern "C" int gu_td_scan_fast_resident(int n_entries, int ept, void* out, void* stream) {
+// that keeps them in global memory) and `num_actions` actions an SM holds
+// at once, out[1] = the SMs. Fails where the device has no cooperative
+// launch.
+extern "C" int gu_td_scan_fast_resident(int n_entries, int ept, int num_actions, void* out, void* stream) {
   (void)stream;
   int* o = static_cast<int*>(out);
-  return static_cast<int>(resident_blocks(n_entries, ept, o, o + 1));
+  return static_cast<int>(resident_blocks(n_entries, ept, num_actions > gu::kMaxActions, o, o + 1));
 }
 
 // One cooperative launch of `blocks` blocks of 512 threads, each thread
@@ -495,8 +538,9 @@ extern "C" int gu_td_scan_fast(
     void* t, void* rs, void* run_ret, void* n_eps, void* ret_sum, void* q_buf, void* acc,
     void* cnt, void* stream) {
   const int n_entries = h * w * num_actions;
+  const bool wide = num_actions > gu::kMaxActions;
   int per_sm = 0, sms = 0;
-  cudaError_t err = resident_blocks(n_entries, ept, &per_sm, &sms);
+  cudaError_t err = resident_blocks(n_entries, ept, wide, &per_sm, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks < 1 || blocks > per_sm * sms) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   TdFastArgs g{static_cast<const uint8_t*>(passable),
@@ -542,6 +586,6 @@ extern "C" int gu_td_scan_fast(
                static_cast<int*>(cnt)};
   void* args[] = {&g};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      scan_kernel(n_entries <= kMaxStagedEntries, ept), dim3(blocks), dim3(kThreads), args,
+      scan_kernel(n_entries <= kMaxStagedEntries, ept, wide), dim3(blocks), dim3(kThreads), args,
       scan_smem(n_entries), static_cast<cudaStream_t>(stream)));
 }

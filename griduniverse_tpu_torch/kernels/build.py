@@ -52,8 +52,9 @@ _SIGNATURES = {
     "gu_rollout_actions_bits": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P],
-    # ch, cw, batch, max_iters; dirs; seed; grids; mazes a block, shared bytes
-    "gu_aldous_broder_mazes": [_I, _I, _I, _I, _P, _I, _P, _I, _I, _P],
+    # ch, cw, batch, max_iters (64-bit); dirs; seed; grids; mazes a block, shared
+    # bytes, the device tier's scratch (or null)
+    "gu_aldous_broder_mazes": [_I, _I, _I, ctypes.c_longlong, _P, _I, _P, _I, _I, _P, _P],
     # grids, n, h, w, policy; v in, out; gamma, sweeps; mazes, threads, cells a
     # thread, table; partial, its rows; maxima, ticket
     "gu_grid_sweeps": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
@@ -68,7 +69,8 @@ _SIGNATURES = {
     # in (7), out (7); q_buf, acc, cnt
     "gu_td_scan_fast": _SEM + _LEVEL + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I]
                        + [_P] * 19 + [_P],
-    "gu_td_scan_fast_resident": [_I, _I, _P, _P],
+    # S·A, envs a thread, A; out (2 ints)
+    "gu_td_scan_fast_resident": [_I, _I, _I, _P, _P],
     # n, steps, max_episode_steps, algo, bf16; alpha, gamma, eps, 1 - eps; eps16,
     # draw_first; threads, blocks, shared bytes; draws (4), q, state (8)
     "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I] + [_I] * 3
@@ -98,8 +100,9 @@ _SIGNATURES = {
     "gu_replay_gather": [_P] * 6 + [_I, _I, _P] + [_P],
     # prio, idx, abs_err; eps, n, cap; p_max in, out; owner; launched
     "gu_prio_refresh": [_P] * 3 + [_F, _I, _I, _P, _P, _P, _P, _P],
-    # ch, cw, batch, seed; grids; mazes a block, shared bytes
-    "gu_backtracker_mazes": [_I, _I, _I, _I, _P, _I, _I, _P],
+    # ch, cw, batch, seed; grids; mazes a block, shared bytes, the device tier's
+    # scratch (or null)
+    "gu_backtracker_mazes": [_I, _I, _I, _I, _P, _I, _I, _P, _P],
     "gu_gather_1d": [_P, _I, _P, _I, _P, _P],
     "gu_take_along_axis1": [_P, _I, _P, _I, _I, _P, _P],
     # e, s, a, delta, cut, table in, out; γλ, cutoff, α; replacing, A, B, cells;

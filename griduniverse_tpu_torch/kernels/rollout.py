@@ -11,14 +11,18 @@ import torch
 from . import LAUNCHES
 from .build import check_int, check_tensor, launch
 
-MAX_ACTIONS = 8
+NARROW_ACTIONS = 8  # up to this many the kernels keep rows in registers; above, their wide form
 MAX_WORDS = 1024
 
 
 def semantics_args(passable, terminal, reward, deltas, device):
-    a = int(deltas.shape[0])
-    if not 1 <= a <= MAX_ACTIONS:
-        raise ValueError(f"the kernels take 1..{MAX_ACTIONS} actions, got {a}")
+    """The semantics' C arguments. Any number of actions: above
+    NARROW_ACTIONS each kernel reads the deltas, 8 bytes an action, from
+    device memory (so they must be 8-byte aligned, as a tensor's own
+    storage is)."""
+    a = check_int("number of actions", int(deltas.shape[0]), low=1)
+    if a > NARROW_ACTIONS and deltas.data_ptr() % 8 != 0:
+        raise ValueError("deltas must start on an 8-byte boundary (a tensor's own storage does)")
     return [
         check_tensor("passable", passable, torch.bool, (4,), device),
         check_tensor("terminal", terminal, torch.bool, (4,), device),

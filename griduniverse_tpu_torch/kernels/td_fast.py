@@ -13,7 +13,7 @@ import torch
 
 from . import LAUNCHES
 from .build import check_int, check_tensor, launch
-from .rollout import level_args, max_steps_arg, semantics_args
+from .rollout import NARROW_ACTIONS, level_args, max_steps_arg, semantics_args
 
 THREADS = 512      # a block of the scan kernel
 MAX_STAGED_ENTRIES = 8192  # S·A up to which every block holds Q in shared memory
@@ -54,16 +54,18 @@ def thread_envs(plan: GridPlan, batch: int) -> torch.Tensor:
     return torch.where(envs < batch, envs, -1)
 
 
-_resident_cache: dict[tuple[int, int, int], tuple[int, int]] = {}
+_resident_cache: dict[tuple[int, int, int, bool], tuple[int, int]] = {}
 
 
-def _resident(device: torch.device, n_entries: int, ept: int) -> tuple[int, int]:
-    """(blocks an SM holds at once, SMs) of the kernel for (n_entries, ept)
-    on `device`; raises where the device has no cooperative launch."""
-    key = (device.index if device.index is not None else torch.cuda.current_device(), n_entries, ept)
+def _resident(device: torch.device, n_entries: int, ept: int, num_actions: int = 4) -> tuple[int, int]:
+    """(blocks an SM holds at once, SMs) of the kernel for (n_entries, ept,
+    num_actions: up to NARROW_ACTIONS, or the wide form above) on `device`;
+    raises where the device has no cooperative launch."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, n_entries, ept, num_actions > NARROW_ACTIONS)
     if key not in _resident_cache:
         out = (ctypes.c_int * 2)()
-        launch("gu_td_scan_fast_resident", device, n_entries, ept, ctypes.addressof(out))
+        launch("gu_td_scan_fast_resident", device, n_entries, ept, num_actions, ctypes.addressof(out))
         _resident_cache[key] = (out[0], out[1])
     return _resident_cache[key]
 
@@ -99,8 +101,9 @@ def td_scan_fast_cuda(
     in_ptrs = [check_tensor(name, x, dtype, (b,), device) for name, x, dtype in state_in]
     if num_steps == 0:
         return (q.clone(), *[x.clone() for _, x, _ in state_in])
-    plan = grid_plan(b, _resident(device, n_entries, 1)[1],
-                     lambda ept: _resident(device, n_entries, ept)[0])
+    na = sem.num_actions
+    plan = grid_plan(b, _resident(device, n_entries, 1, na)[1],
+                     lambda ept: _resident(device, n_entries, ept, na)[0])
     q_out = torch.empty_like(q)
     state = [torch.empty_like(x) for _, x, _ in state_in]
     staged = n_entries <= MAX_STAGED_ENTRIES

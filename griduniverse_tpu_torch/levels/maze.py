@@ -385,11 +385,12 @@ def backtracker_mazes_reference(
         target = cell.gather(1, first)[:, 0]
         at = (2 * r + 1) * w + 2 * c + 1
         step = d_row[d] * w + d_col[d]
-        keep = rows[push]
-        grid[keep, (at + step)[push]] = empty
-        grid[keep, (at + 2 * step)[push]] = empty
-        visited[keep, target[push]] = True
-        stack[keep, sp[push]] = target[push]
+        # a pop writes what is already there (the current cell is carved,
+        # visited and on top of the stack), so no step waits on a mask's count
+        grid[rows, torch.where(push, at + step, at)] = empty
+        grid[rows, torch.where(push, at + 2 * step, at)] = empty
+        visited[rows, torch.where(push, target, cur)] = True
+        stack[rows, torch.where(push, sp, sp - 1)] = torch.where(push, target, cur)
         sp = torch.where(push, sp + 1, sp - 1)
     grid[:, (h - 2) * w + (w - 2)] = S.GOAL
     return grid.reshape(b, h, w)

@@ -160,13 +160,18 @@ def _net_init(net, seed: int) -> Params:
 def act_step_reference(sem, bl, state: FastState, logits, gumbel, max_episode_steps=None):
     """Plain PyTorch version of K7b: `a = argmax(logits + gumbel)` (first
     maximum), `logp = logits[a] − max − log Σ exp(logits − max)` in float32,
-    and one auto-reset `step_bits` with the optional time limit. Returns
-    (new state, action int32, logp, obs int32, reward, done), each (B,);
-    `obs` is the state the action was taken from."""
+    the sum taken in index order as the kernel takes it (a library sum's
+    order moves the log by more than 2 ulp at 25 actions), and one
+    auto-reset `step_bits` with the optional time limit. Returns (new
+    state, action int32, logp, obs int32, reward, done), each (B,); `obs`
+    is the state the action was taken from."""
     a = torch.argmax(logits + gumbel, dim=-1)
     shifted = logits - logits.max(dim=-1, keepdim=True).values
-    logp_all = shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
-    logp = logp_all.gather(-1, a[:, None])[:, 0]
+    exps = torch.exp(shifted)
+    total = exps[:, 0]
+    for k in range(1, exps.shape[-1]):
+        total = total + exps[:, k]
+    logp = shifted.gather(-1, a[:, None])[:, 0] - torch.log(total)
     action = a.to(torch.int32)
     new_state, (_, reward, done) = step_bits(sem, bl, state, action, True, max_episode_steps)
     return new_state, action, logp, state.agent_idx, reward, done

@@ -1,9 +1,9 @@
-"""Where the time of five kernels' calls goes, on one CUDA card.
+"""Where the time of seven kernels' calls goes, on one CUDA card.
 
-    python -m griduniverse_tpu_torch.tools.profile_kernels [k10] [k8a] [k9a] [k8b] [k9b] [tileconv]
+    python -m griduniverse_tpu_torch.tools.profile_kernels [k10] [k8a] [k9a] [k8b] [k8bw] [k9b] [tileconv] [probes]
 
 From the root of a checkout, on a machine with a Hopper card and nvcc. The
-arguments pick the kernels (all six by default). It prints the card's name
+arguments pick the kernels (all eight parts by default). It prints the card's name
 and power limit (`nvidia-smi`), then takes these calls:
 
 - K10 (`apply_td_updates`): 4,096 and 65,536 envs over S·A = 1,024, 102,400
@@ -19,6 +19,13 @@ and power limit (`nvidia-smi`), then takes these calls:
   ring of 131,072 at n = 256, 4,096, 8,192 and 8,193 rows (the refresh's
   one-block limits), half the rows repeating a slot, beside the library's
   `index_select` ×5 and `index_put_` + max;
+- K8b's ring write (`buffer_write`, with the priorities) of B = 65,536
+  transitions into a ring of 131,072 (`k8bw`), beside the library's
+  `index_copy_` ×5 and `index_fill_` into the same slots;
+- the gather probes P1 (`gather_1d`: a 65×65 level's 4,225 tile codes at
+  65,536 indices) and P2 (`take_along_axis1`: (8, 256) at (8, 256)
+  indices) (`probes`), beside their library calls `table[idx]` and
+  `torch.take_along_dim`;
 - K9b's forward (`agent_stamp_cuda`) and backward
   (`agent_stamp_backward_cuda`) on 9×9 levels, C = 32, bfloat16, at
   N = 262,144 over Nl = 16,384 levels (a PPO minibatch over per-env mazes),
@@ -116,7 +123,7 @@ def main(argv: list[str] | None = None) -> None:
     from griduniverse_tpu_torch.kernels import embed_rows as k9a
     from griduniverse_tpu_torch.models import a2c, dqn
 
-    known = {"k10", "k8a", "k9a", "k8b", "k9b", "tileconv"}
+    known = {"k10", "k8a", "k9a", "k8b", "k8bw", "k9b", "tileconv", "probes"}
     picked = set(sys.argv[1:] if argv is None else argv) or known
     unknown = picked - known
     if unknown:
@@ -269,6 +276,32 @@ def main(argv: list[str] | None = None) -> None:
             calls[f"index_select x5 capacity {CAP}, n={n}"] = k8b_gather(idx, library=True)
             calls[f"K8b refresh capacity {CAP}, n={n}"] = k8b_refresh(idx, abs_err)
             calls[f"index_put_ + max capacity {CAP}, n={n}"] = k8b_refresh(idx, abs_err, library=True)
+    if "k8bw" in picked:
+        b = 65_536
+        batch = dqn.ReplayBuffer(*(x[:b].clone() for x in ring))
+        at, w_max = torch.tensor(b, device=dev), torch.tensor(5.0, device=dev)
+        slots = torch.arange(b, 2 * b, device=dev)
+
+        def library_write():  # timed here, used nowhere in the port
+            for full, part in zip(ring, batch):
+                full.index_copy_(0, slots, part)
+            ring_prio.index_fill_(0, slots, 5.0)
+
+        calls[f"K8b write B={b}, capacity {CAP}"] = lambda: dqn.buffer_write(ring, at, batch, ring_prio, w_max)
+        calls[f"index_copy_ x5 + index_fill_ B={b}, capacity {CAP}"] = library_write
+    if "probes" in picked:
+        from . import gather_probe
+
+        states, envs = gather_probe.STEP_LOOKUP
+        codes = torch.randint(0, 4, (states,), generator=gen, device=dev, dtype=torch.int32)
+        pos = torch.randint(0, states, (envs,), generator=gen, device=dev, dtype=torch.int32)
+        table = torch.randint(0, 1000, (8, 256), generator=gen, device=dev, dtype=torch.int32)
+        idx = torch.randint(0, 256, (8, 256), generator=gen, device=dev, dtype=torch.int32)
+        rows = idx.long()
+        calls[f"P1 gather_1d table ({states},), {envs} indices"] = lambda: gather_probe.gather_1d(codes, pos)
+        calls[f"table[idx] table ({states},), {envs} indices"] = lambda: codes[pos]  # P1's library call
+        calls["P2 take_along_axis1 (8, 256)"] = lambda: gather_probe.take_along_axis1(table, idx)
+        calls["torch.take_along_dim (8, 256)"] = lambda: torch.take_along_dim(table, rows, dim=1)  # P2's
     if "k9b" in picked:
         for n, nl in ((262_144, 16_384), (65_536, 65_536), (256, 256), (65_536, 1)):
             calls.update(k9b_calls(n, nl))

@@ -1,4 +1,4 @@
-"""K3's, K4's, K5's, K6's, K7b's, K7c's, K9a's, K9b's, K11's, K12's and K13's times on one CUDA card, beside another tree's.
+"""K1's, K2's, K3's, K4's, K5's, K6's, K7b's, K7c's, K9a's, K9b's, K11's, K12's and K13's times on one CUDA card, beside another tree's.
 
     python -m griduniverse_tpu_torch.tools.profile_turns [--against DIR] [--tiers] [PART ...]
 
@@ -75,7 +75,16 @@ tree's package and builds its kernels):
   `chip_smoke.py` (`k11`) and the PPO-over-mazes set-up, 65,536 4×4
   Aldous–Broder mazes generated and packed (`k3`).
 
-PART picks parts by name, all by default: `k3`, `k4` (the K4 calls and
+- K2 (`rollout_actions_bits`, auto-reset, max_episode_steps 64) at walls16
+  with B = 4,096 and T = 512, over 4,096 per-env 4×4 Aldous–Broder mazes
+  with T = 512, at walls16 with B = 65,536 and T = 512, and as the golden
+  replay over four 4×4 mazes (`tests/golden/cfg4_mazes.npz`): a call as
+  timed (CUDA events around 30 calls after a warm-up) and in a CUDA graph
+  of ten, with a hash of the call's outputs, which every turn must print
+  alike; and K1 (`random_scan_bits`) at walls16, B = 65,536, T = 1,000, as
+  timed (`experiments/k2_cycles.py` reads K2's cycles a step).
+
+PART picks parts by name, all by default: `k2` (K2 and K1), `k3`, `k4` (the K4 calls and
 solves), `k5`, `k6`, `k7b`, `k7c`, `k9a`, `k9b` (K12 and K9b), `k11`, `k13`. With `--graph`, this tree's K5 scan is
 also captured in a CUDA graph, replayed and held bit for bit against an
 eager scan (or the capture's error is printed): whether a cooperative
@@ -168,7 +177,7 @@ def _profiled(name, fn, wall_ms, smi):
         print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
 
 
-PARTS = ("k3", "k4", "k5", "k6", "k7b", "k7c", "k9a", "k9b", "k11", "k13")
+PARTS = ("k2", "k3", "k4", "k5", "k6", "k7b", "k7c", "k9a", "k9b", "k11", "k13")
 
 
 def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
@@ -176,6 +185,8 @@ def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
     smi = _smi()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if "k2" in parts:
+        k2_calls(tag, dev, smi)
     if "k4" in parts:
         k4_calls(tag, dev, gen, smi)
     if "k9b" in parts:
@@ -393,6 +404,52 @@ def _plan_graph_ms(make_plan, call, calls: int = 10, replays: int = 10) -> float
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def _hash(tensors) -> int:
+    """A checksum of a call's outputs, to show that every turn computed the same."""
+    return sum(int((t.view(torch.int32) if t.dtype == torch.float32 else t.int()).long().sum()) * (k + 1)
+               for k, t in enumerate(tensors))
+
+
+def k2_calls(tag, dev, smi) -> None:
+    """K2 at its four shapes as timed and in a CUDA graph of ten; K1 as timed."""
+    import numpy as np
+
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    sem = gt.make_semantics(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    walls = bp.pack_level(builders.walls_and_goal_16x16(device=dev))
+    golden = Path.cwd() / "tests" / "golden"
+    cfg4 = np.load(golden / "torch" / "cfg4_mazes_grids.npz")
+    shapes = (("walls16 B=4096 T=512", walls, 4096, None),
+              ("4096 per-env 4x4 mazes T=512", bp.pack_level(_mazes(gt, dev, 11, (4, 4), 4096)), 4096, None),
+              ("walls16 B=65536 T=512", walls, 65_536, None),
+              ("golden cfg4_mazes B=4", bp.pack_level(gt.make_level(cfg4["grids"], cfg4["start_idx"], device=dev)), 4,
+               torch.as_tensor(np.load(golden / "cfg4_mazes.npz")["actions"], device=dev)))
+    for name, bl, b, actions in shapes:
+        if actions is None:
+            actions = torch.randint(0, 4, (512, b), generator=gen, device=dev, dtype=torch.int32)
+        st = bp.reset_bits(bl, None if bl.batched else b)
+
+        def call(bl=bl, st=st, actions=actions):
+            return bp.rollout_actions_bits(sem, bl, st, actions, True, 64)
+
+        state, outs = call()
+        print(f"[{tag}] K2 {name}: {_events_ms(call)!r} ms a call as timed, {_graph_ms(call)!r} ms in a CUDA graph "
+              f"of ten; outputs' hash {_hash((*outs, state.agent_idx, state.t))} ({smi})")
+    st = bp.reset_bits(walls, 65_536)
+    rs = bp.xorshift_init(3, (65_536,), device=dev)
+
+    def scan():
+        return bp.random_scan_bits(sem, walls, st, rs, None, 1000, 64)
+
+    print(f"[{tag}] K1 walls16 B=65536 T=1000: {_events_ms(scan, 10)!r} ms a call as timed; outputs' hash "
+          f"{_hash(scan()[1:])} ({smi})")
 
 
 def k7b_calls(tag, dev, smi) -> None:

@@ -139,15 +139,34 @@ def test_one_a2c_update_matches_jax(obs):
 def test_rollout_matches_jax_rollout_step_by_step(rng):
     """The trajectory itself: actions, obs, reward, done exactly; logp and
     value to float32 tolerance."""
-    batch, t = 48, 10
+    _rollout_step_by_step(rng, JSEM, TSEM)
+
+
+# 9: the eight king moves and a stay; 25: every move of at most two rows and two columns
+ACTION_SETS = {
+    9: ((-1, 0), (0, 1), (1, 0), (0, -1), (-1, -1), (-1, 1), (1, 1), (1, -1), (0, 0)),
+    25: tuple((dr, dc) for dr in range(-2, 3) for dc in range(-2, 3)),
+}
+
+
+@pytest.mark.parametrize("a", [9, 25])
+def test_rollout_matches_jax_rollout_step_by_step_at_more_actions(a, rng):
+    """K7b's plain version at A above 8: the Gumbel-max draw and log-prob
+    over A logits and the step by A deltas."""
+    _rollout_step_by_step(rng, J.make_semantics(J.SemanticsConfig(action_deltas=ACTION_SETS[a])),
+                          T.make_semantics(T.SemanticsConfig(action_deltas=ACTION_SETS[a]), device=CPU))
+
+
+def _rollout_step_by_step(rng, jsem, tsem):
+    batch, t, na = 48, 10, tsem.num_actions
     jlevel = jb.lava_level()
     tlevel = convert.to_level(jlevel, device=CPU)
     cfg = tm.PPOConfig(hidden=(32,), embed_dim=8, compute_dtype="float32")
-    jnet = ja2c.make_network(jlevel, 4, jm.PPOConfig(hidden=(32,), embed_dim=8, compute_dtype="float32"))
-    tnet = tm.make_network(tlevel, 4, cfg)
+    jnet = ja2c.make_network(jlevel, na, jm.PPOConfig(hidden=(32,), embed_dim=8, compute_dtype="float32"))
+    tnet = tm.make_network(tlevel, na, cfg)
     jparams = ja2c._net_init(jnet, jax.random.PRNGKey(2))
     tparams = convert.to_network_state(tree_np(jparams), tnet)
-    gumbel = rng.gumbel(size=(t, batch, 4)).astype(np.float32)
+    gumbel = rng.gumbel(size=(t, batch, na)).astype(np.float32)
     jbl, tbl = jbp.pack_level(jlevel), tbp.pack_level(tlevel)
     jst = jbp.reset_bits(jbl, batch)
     rows = []
@@ -156,10 +175,10 @@ def test_rollout_matches_jax_rollout_step_by_step(rng):
         a = jnp.argmax(logits + g, axis=-1).astype(jnp.int32)
         logp = jnp.take_along_axis(jax.nn.log_softmax(logits), a[:, None], axis=-1)[:, 0]
         obs = jst.agent_idx
-        jst, (_, reward, done) = jbp.step_bits(JSEM, jbl, jst, a, True, 7)
+        jst, (_, reward, done) = jbp.step_bits(jsem, jbl, jst, a, True, 7)
         rows.append((obs, a, logp, value, reward, done))
     want = [np.stack([np.asarray(r[k]) for r in rows]) for k in range(6)]
-    tst, traj, bootstrap = ta2c.rollout(TSEM, tbl, tnet, tparams, None, tbp.reset_bits(tbl, batch), _t(gumbel), 7)
+    tst, traj, bootstrap = ta2c.rollout(tsem, tbl, tnet, tparams, None, tbp.reset_bits(tbl, batch), _t(gumbel), 7)
     got = dataclasses.astuple(traj)
     for k in (0, 1, 4, 5):
         np.testing.assert_array_equal(got[k].numpy(), want[k])

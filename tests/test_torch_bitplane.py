@@ -266,3 +266,77 @@ def test_compile_rollout_random_ignores_unroll_and_refuses_threefry():
 def test_pack_level_rejects_huge_grids():
     with pytest.raises(ValueError):
         tbp.pack_level(T.make_level(np.zeros((200, 200), np.int32), 0, device=CPU))
+
+
+# ---------------------------------------------------------------------------
+# More than four actions: 9 (the eight king moves and a stay) and 25 (every
+# move of at most two rows and two columns). The reference takes any
+# `action_deltas`; the port's plain versions of K1 and K2 must follow it.
+# ---------------------------------------------------------------------------
+
+ACTION_SETS = {
+    9: ((-1, 0), (0, 1), (1, 0), (0, -1), (-1, -1), (-1, 1), (1, 1), (1, -1), (0, 0)),
+    25: tuple((dr, dc) for dr in range(-2, 3) for dc in range(-2, 3)),
+}
+
+
+def sem_pair(a):
+    deltas = ACTION_SETS[a]
+    return (J.make_semantics(J.SemanticsConfig(action_deltas=deltas)),
+            T.make_semantics(T.SemanticsConfig(action_deltas=deltas), device=CPU))
+
+
+@pytest.mark.parametrize("a", [9, 25])
+@pytest.mark.parametrize("level,auto_reset,max_ep", [("walls16", False, None), ("walls16", True, None),
+                                                      ("walls16", True, 64), ("mazes", True, 64),
+                                                      ("mazes", False, None)])
+def test_rollout_matches_jax_at_more_actions(a, level, auto_reset, max_ep, rng):
+    """K2's plain version against `rollout_actions_bits` of the JAX engine,
+    actions drawn over 0..A−1 and a few outside it (clamped as XLA's
+    gather), on a shared level and on per-env mazes, in the three modes."""
+    jsem, tsem = sem_pair(a)
+    b = 64
+    if level == "walls16":
+        jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU)
+    else:
+        jl, tl = maze_pair(6, b)
+    jbl, tbl = jbp.pack_level(jl), tbp.pack_level(tl)
+    actions = rng.integers(-1, a + 1, size=(100, b)).astype(np.int32)
+    jst = jbp.reset_bits(jbl, None if jbl.batched else b)
+    jfinal, jout = jax.jit(jbp.rollout_actions_bits, static_argnames=("auto_reset", "max_episode_steps"))(
+        jsem, jbl, jst, jnp.asarray(actions), auto_reset=auto_reset, max_episode_steps=max_ep
+    )
+    tst = tbp.reset_bits(tbl, None if tbl.batched else b)
+    tfinal, tout = tbp.rollout_actions_bits_reference(tsem, tbl, tst, tt(actions), auto_reset, max_ep)
+    for x, y in zip(jout, tout):
+        assert_bits_equal(x, y)
+    for f in ("agent_idx", "agent_code", "t", "done"):
+        assert_bits_equal(getattr(jfinal, f), getattr(tfinal, f))
+    # the public function takes the plain version for CPU tensors
+    _, pub = tbp.rollout_actions_bits(tsem, tbl, tst, tt(actions), auto_reset, max_ep)
+    assert all(torch.equal(x, y) for x, y in zip(pub, tout))
+
+
+@pytest.mark.parametrize("a", [9, 25])
+@pytest.mark.parametrize("level", ["walls16", "mazes"])
+def test_random_scan_bits_reference_matches_jax_at_more_actions(a, level):
+    """K1's plain version against the reference's xorshift scan at A > 4:
+    the action is (x >> 9) mod A."""
+    jsem, tsem = sem_pair(a)
+    b, steps, max_ep = 128, 300, 60
+    if level == "walls16":
+        jl, tl = jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU)
+    else:
+        jl, tl = maze_pair(10, b)
+    jbl, tbl = jbp.pack_level(jl), tbp.pack_level(tl)
+    jst = jbp.reset_bits(jbl, None if jbl.batched else b)
+    ref = jax.jit(
+        lambda s, r: jbp.random_scan_bits(jsem, jbl, s, r, None, steps, max_ep, "xorshift")
+    )(jst, jbp.xorshift_init(jnp.uint32(11), (b,)))
+    tst = tbp.reset_bits(tbl, None if tbl.batched else b)
+    got = tbp.random_scan_bits_reference(tsem, tbl, tst, tbp.xorshift_init(11, (b,), device=CPU), steps, max_ep)
+    for f in ("agent_idx", "agent_code", "t", "done"):
+        assert_bits_equal(getattr(ref[0], f), getattr(got[0], f))
+    for x, y in zip(ref[1:], got[1:]):
+        assert_bits_equal(x, y)
+    assert int(got[1].sum()) > 0

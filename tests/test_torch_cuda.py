@@ -107,8 +107,8 @@ def test_wrappers_raise_on_bad_input(dev):
         bp.random_scan_bits(sem, bl, st, bp.xorshift_init(0, (8,), device=dev).long(), None, 5, None)
     with pytest.raises(ValueError):
         bp.rollout_actions_bits(sem, bl, st, torch.zeros((5, 8), dtype=torch.int32), True)
-    with pytest.raises(ValueError):  # a 129x129 grid is more than the 16,384 packed states
-        M._aldous_broder_mazes((64, 64), 4, 10, device=dev)
+    with pytest.raises(ValueError):  # a maze needs a cell each way
+        M._aldous_broder_mazes((0, 4), 4, 10, device=dev)
 
 
 def _maze_levels(dev, cells, n, seed=5):
@@ -839,8 +839,8 @@ def test_backtracker_kernel_matches_plain(dev, cells, b):
     assert all(M.check_perfect_maze(g, cells) for g in got[:64].cpu().numpy())
     other, _ = M.generate_mazes_device(12, cells, b, "backtracker", device=dev)
     assert cells == (1, 1) or not torch.equal(got, other)
-    with pytest.raises(ValueError, match="cells"):  # a 129x129 grid is more than 16,384 packed states
-        M.generate_mazes_device(0, (64, 64), 4, "backtracker", device=dev)
+    with pytest.raises(ValueError, match="cells"):  # a maze needs a cell each way
+        M.generate_mazes_device(0, (4, 0), 4, "backtracker", device=dev)
 
 
 def test_gather_probe_kernels_match_plain(dev):
@@ -1054,6 +1054,49 @@ def test_maze_kernels_match_plain_at_the_edges(dev, cells, b):
     assert torch.equal(seeded, M.aldous_broder_mazes_reference(cells, b, short, seed=9, device=dev))
     assert kernels.LAUNCHES["aldous_broder_mazes"] == before["aldous_broder_mazes"] + 3
     assert all(M.check_perfect_maze(g, cells) for g in torch.cat([got[:4], ab[:4], full[:4], seeded[:4]]).cpu().numpy())
+
+
+# (cells, B, whether the device tier is forced): mazes above 63x63 cells,
+# which `plan` cuts into blocks of 32 mazes up to 100x100 at these B, of 8
+# at 200x200 and of one at 58,048x1 (the most words one block's shared
+# memory holds), or, with SHARED_LIMIT lowered, into the device tier
+_ABOVE_63 = [((64, 64), 33, False), ((64, 1), 33, False), ((100, 100), 4, False), ((200, 200), 2, False),
+             ((58_048, 1), 2, False), ((64, 64), 5, True), ((33, 70), 3, True)]
+
+
+@pytest.mark.parametrize("cells,b,device_tier", _ABOVE_63)
+def test_maze_kernels_match_plain_above_63x63(dev, cells, b, device_tier, monkeypatch):
+    """K11 through `generate_mazes_device` and K3 in both modes against the
+    plain versions; K3's walks capped (at most 20,000 steps, short of cover
+    at the large shapes: the safety net carves the rest) so that the plain
+    walk stays within seconds, and past cover where the lattice is small."""
+    from griduniverse_tpu_torch.kernels import maze as km
+
+    if device_tier:
+        monkeypatch.setattr(km, "SHARED_LIMIT", 1024)
+    p = km.plan(cells, b)
+    assert (p.scratch > 0) == device_tier
+    before = dict(kernels.LAUNCHES)
+    got, _ = M.generate_mazes_device(7, cells, b, "backtracker", device=dev)
+    assert torch.equal(got, M.backtracker_mazes_reference(cells, b, seed=7, device=dev))
+    s = cells[0] * cells[1]
+    cap = min(2 * s + 3, 20_000)
+    gen = torch.Generator(device=dev).manual_seed(s + b)
+    dirs = torch.randint(0, 4, (cap, b), generator=gen, device=dev, dtype=torch.int8)
+    ab = M._aldous_broder_mazes(cells, b, cap, directions=dirs)
+    assert torch.equal(ab, M.aldous_broder_mazes_reference(cells, b, cap, directions=dirs))
+    seeded = M._aldous_broder_mazes(cells, b, cap, seed=9, device=dev)
+    assert torch.equal(seeded, M.aldous_broder_mazes_reference(cells, b, cap, seed=9, device=dev))
+    launched = 3
+    if s <= 4_096:  # past cover: every walk stops at its own
+        dirs, covered = _covering_directions(cells, b, gen, dev)
+        full = M._aldous_broder_mazes(cells, b, covered + 500, directions=dirs)
+        ref, steps = M.aldous_broder_mazes_reference(cells, b, covered + 500, directions=dirs, count_steps=True)
+        assert torch.equal(full, ref) and bool((steps <= covered).all())
+        launched += 1
+    assert kernels.LAUNCHES["backtracker_mazes"] == before["backtracker_mazes"] + 1
+    assert kernels.LAUNCHES["aldous_broder_mazes"] == before["aldous_broder_mazes"] + launched - 1
+    assert all(M.check_perfect_maze(g, cells) for g in torch.cat([got[:2], ab[:2], seeded[:2]]).cpu().numpy())
 
 
 @pytest.mark.parametrize("cap,size,n", [(131_072, 131_072, 4096), (8192, 3000, 4096), (65_536, 50_000, 20_000)])
@@ -1307,3 +1350,241 @@ def test_dqn_resume_through_disk_on_cuda(dev, tmp_path):
             _assert_same((got[key],), (x,))
         else:
             assert got[key] == x, key
+
+
+# ---------------------------------------------------------------------------
+# Any number of actions: the wide forms of K1, K2, K4, K5, K6, K7b and K7c
+# ---------------------------------------------------------------------------
+
+# 9: the eight king moves and a stay; 25: every move of at most two rows
+# and two columns (jumps over a tile included)
+_ACTION_SETS = {
+    9: ((-1, 0), (0, 1), (1, 0), (0, -1), (-1, -1), (-1, 1), (1, 1), (1, -1), (0, 0)),
+    25: tuple((dr, dc) for dr in range(-2, 3) for dc in range(-2, 3)),
+}
+
+
+def _sem_of(dev, a):
+    from griduniverse_tpu_torch.core.semantics import SemanticsConfig
+
+    return T.make_semantics(SemanticsConfig(action_deltas=_ACTION_SETS[a]), device=dev)
+
+
+@pytest.mark.parametrize("a", [9, 25])
+def test_rollout_kernels_match_plain_at_many_actions(dev, a):
+    """K2 in its three modes and K1, on a shared level and per-env mazes,
+    with actions outside 0..A−1 (clamped as XLA's gather)."""
+    sem = _sem_of(dev, a)
+    gen = torch.Generator(device=dev).manual_seed(a)
+    for bl in _levels(dev).values():
+        st = bp.reset_bits(bl, None if bl.batched else 1024)
+        actions = torch.randint(-2, a + 2, (200, 1024), generator=gen, device=dev, dtype=torch.int32)
+        for mode in ((False, None), (True, None), (True, 32)):
+            before = kernels.LAUNCHES["rollout_actions_bits"]
+            got_state, got = bp.rollout_actions_bits(sem, bl, st, actions, *mode)
+            assert kernels.LAUNCHES["rollout_actions_bits"] == before + 1
+            ref_state, ref = bp.rollout_actions_bits_reference(sem, bl, st, actions, *mode)
+            _assert_same(got, ref)
+            for f in ("agent_idx", "agent_code", "t", "done"):
+                assert torch.equal(getattr(got_state, f), getattr(ref_state, f))
+        rs = bp.xorshift_init(9, (1024,), device=dev)
+        before = kernels.LAUNCHES["random_scan_bits"]
+        got = bp.random_scan_bits(sem, bl, st, rs, None, 300, 40)
+        assert kernels.LAUNCHES["random_scan_bits"] == before + 1
+        ref = bp.random_scan_bits_reference(sem, bl, st, rs, 300, 40)
+        _assert_same(got[1:], ref[1:])
+
+
+@pytest.mark.parametrize("a", [9, 25])
+@pytest.mark.parametrize("cells,n,lava", [((4, 4), 257, 0.1), ((8, 8), 65, 0.1), ((16, 16), 9, 0.1),
+                                          ((32, 32), 3, 0.05)])
+def test_grid_sweeps_kernel_matches_plain_at_many_actions(dev, a, cells, n, lava):
+    """K4's shared tier in each packing (registers at 4x4; at 8x8 and 16x16
+    a table of decoded actions or, where it does not fit, the wide form's
+    decode of every action each sweep; 32x32 the decode) against the plain
+    sweeps: V and the maxima, evaluation sweeps of a policy, the greedy
+    step and `changed`."""
+    from griduniverse_tpu_torch.kernels import dp_grid
+
+    sem = _sem_of(dev, a)
+    gen = torch.Generator(device=dev).manual_seed(n * a)
+    grids, _ = M.generate_mazes_device(n, cells, n, "aldous_broder", device=dev)
+    grids = torch.where((grids == 0) & (torch.rand(grids.shape, generator=gen, device=dev) < lava),
+                        torch.full_like(grids, 2), grids).contiguous()
+    s = grids.shape[1] * grids.shape[2]
+    v0 = torch.rand((n, s), generator=gen, device=dev) * 3
+    for k in (1, 16, 20):
+        _assert_same(dp_grid.grid_sweeps_cuda(sem, grids, v0, None, 0.99, k), _plain_sweeps(sem, grids, v0, None, k))
+    policy = torch.randint(-2, a + 2, (n, s), generator=gen, device=dev, dtype=torch.int32)
+    clamped = torch.where(policy < 0, policy + a, policy).clamp(0, a - 1)
+    _assert_same(dp_grid.grid_sweeps_cuda(sem, grids, v0, policy, 0.99, 7), _plain_sweeps(sem, grids, v0, clamped, 7))
+    want = dp_batched.first_argmax(dp_batched._grid_backup(sem, grids, 0.99)(v0)).to(torch.int32)
+    greedy, changed = dp_grid.grid_greedy_cuda(sem, grids, v0, 0.99, clamped)
+    assert torch.equal(greedy, want) and int(changed) == int(bool((want != clamped).any()))
+
+
+@pytest.mark.parametrize("a", [9, 25])
+def test_grid_kernels_match_plain_at_many_actions(dev, a):
+    """K4's VI and PI solves over 4x4 mazes, and its global-memory tier
+    (two sidewinder mazes of 65x64 cells) sweep by sweep, at A above 8."""
+    from griduniverse_tpu_torch.kernels import dp_grid
+
+    sem = _sem_of(dev, a)
+    levels = _maze_levels(dev, (4, 4), 100)
+    got = dp_batched.value_iteration_batched_grid(sem, levels)
+    ref = dp_batched.value_iteration_batched_grid_reference(sem, levels)
+    assert got[2] == ref[2]
+    _assert_same(got[:2], ref[:2])
+    got = dp_batched.policy_iteration_batched_grid(sem, levels, gamma=0.95)
+    ref = dp_batched.policy_iteration_batched_grid_reference(sem, levels, gamma=0.95)
+    assert got[2] == ref[2]
+    _assert_same(got[:2], ref[:2])
+    grids, _ = M.generate_mazes_device(11, (65, 64), 2, "sidewinder", device=dev)
+    s = grids.shape[1] * grids.shape[2]
+    assert not dp_grid.uses_shared_tier(s)
+    gen = torch.Generator(device=dev).manual_seed(a)
+    v0 = torch.rand((2, s), generator=gen, device=dev)
+    _assert_same(dp_grid.grid_sweeps_cuda(sem, grids, v0, None, 0.99, 3), _plain_sweeps(sem, grids, v0, None, 3))
+    policy = torch.randint(0, a, (2, s), generator=gen, device=dev, dtype=torch.int32)
+    _assert_same(dp_grid.grid_sweeps_cuda(sem, grids, v0, policy, 0.99, 2), _plain_sweeps(sem, grids, v0, policy, 2))
+    want = dp_batched.first_argmax(dp_batched._grid_backup(sem, grids, 0.99)(v0)).to(torch.int32)
+    greedy, changed = dp_grid.grid_greedy_cuda(sem, grids, v0, 0.99, policy)
+    assert torch.equal(greedy, want) and int(changed) == int(bool((want != policy).any()))
+
+
+@pytest.mark.parametrize("a", [9, 25])
+@pytest.mark.parametrize("algo", td_fast.ALGOS)
+def test_td_scan_fast_kernel_matches_plain_at_many_actions(dev, a, algo):
+    """K5 on walls16 and per-env mazes (Q in shared memory) and on a 32x32
+    maze (Q in global memory), one launch a scan, chunked equal to unbroken."""
+    sem = _sem_of(dev, a)
+    cases = list(_levels(dev).values()) + [_one_maze(dev, (32, 32), 6)]
+    for bl in cases:
+        ts = td_fast.fast_td_init(sem, bl, 3, None if bl.batched else 1024)
+        kw = dict(alpha=0.2, gamma=0.99, epsilon=0.2, algo=algo, max_episode_steps=64)
+        before = kernels.LAUNCHES["td_scan_fast"]
+        got = td_fast.td_scan_fast(sem, bl, ts, 150, **kw)
+        assert kernels.LAUNCHES["td_scan_fast"] == before + 1
+        _assert_same(_fast_fields(got), _fast_fields(td_fast.td_scan_fast_reference(sem, bl, ts, 150, **kw)))
+        half = td_fast.td_scan_fast(sem, bl, td_fast.td_scan_fast(sem, bl, ts, 50, **kw), 100, **kw)
+        _assert_same(_fast_fields(half), _fast_fields(got))
+
+
+@pytest.mark.parametrize("a", [9, 25])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("algo", td_batched.ALGOS)
+@pytest.mark.parametrize("cells,n,tier", [((3, 3), 257, "shared"), ((16, 16), 33, "global")])
+def test_td_batched_kernel_matches_plain_at_many_actions(dev, a, algo, dtype, cells, n, tier):
+    sem = _sem_of(dev, a)
+    levels = _maze_levels(dev, cells, n, seed=n)
+    assert td_batched_kernels.plan(levels.num_states, a, dtype, n).tier == tier
+    steps = 120
+    kw = dict(alpha=0.2, epsilon=0.2, algo=algo, max_episode_steps=40, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(n + a)
+    draws = (
+        torch.rand((steps, n), generator=gen, device=dev) < 0.2,
+        torch.randint(0, a, (steps, n), generator=gen, device=dev, dtype=torch.int32),
+        torch.rand((n,), generator=gen, device=dev) < 0.2,
+        torch.randint(0, a, (n,), generator=gen, device=dev, dtype=torch.int32),
+    )
+    for d in (None, draws):
+        before = kernels.LAUNCHES["td_batched"]
+        got = td_batched.q_learning_batched(sem, levels, 7, steps, draws=d, **kw)
+        assert kernels.LAUNCHES["td_batched"] == before + 1
+        ref = td_batched.q_learning_batched_reference(sem, levels, 7, steps, draws=d, **kw)
+        _assert_same(_batched_fields(got), _batched_fields(ref))
+
+
+@pytest.mark.parametrize("a", [9, 25])
+@pytest.mark.parametrize("level_name", ["walls16", "mazes"])
+def test_act_step_kernels_match_plain_at_many_actions(dev, a, level_name):
+    """K7b's sampled step (two rollouts of T = 8 through one plan) and its
+    greedy step at A above 8, every output equal but logp (2 ulp)."""
+    b, t_len, max_ep = 777, 8, 12
+    _, bl, st = _act_plan_case(dev, level_name, b)
+    sem = _sem_of(dev, a)
+    plan = act_kernels.ActStepPlan(sem, bl, b, t_len, max_ep)
+    gen = torch.Generator(device=dev).manual_seed(a)
+    ref_st = st
+    for _ in range(2):
+        gumbel = a2c.draw_gumbel(gen, (t_len, b, a), dev)
+        plan.begin(st, gumbel)
+        refs = []
+        for t in range(t_len):
+            logits = 2 * torch.randn((b, a), generator=gen, device=dev)
+            st = plan.step(t, logits)
+            ref_st, *ref = a2c.act_step_reference(sem, bl, ref_st, logits, gumbel[t], max_ep)
+            refs.append(ref)
+            for f in ("agent_idx", "agent_code", "t", "done"):
+                assert torch.equal(getattr(st, f), getattr(ref_st, f)), f
+        obs, action, logp, reward, done = plan.rows
+        for t, (r_action, r_logp, r_obs, r_reward, r_done) in enumerate(refs):
+            _assert_same((action[t], obs[t], reward[t], done[t]), (r_action, r_obs, r_reward, r_done))
+            assert logp_within_2ulp(logp[t], r_logp)
+    greedy = act_kernels.ActStepPlan(sem, bl, b, 0, None)
+    gst = ref_gst = bp.reset_bits(bl, None if bl.batched else b)
+    reached = ref_reached = torch.zeros(b, dtype=torch.bool, device=dev)
+    for _ in range(20):
+        logits = torch.randn((b, a), generator=gen, device=dev)
+        gst, reached = a2c.greedy_step(sem, bl, gst, reached, logits, greedy)
+        ref_gst, ref_reached = a2c.greedy_step_reference(sem, bl, ref_gst, ref_reached, logits)
+        assert torch.equal(reached, ref_reached)
+        for f in ("agent_idx", "agent_code", "t", "done"):
+            assert torch.equal(getattr(gst, f), getattr(ref_gst, f)), f
+
+
+@pytest.mark.parametrize("a", [9, 25])
+def test_dqn_act_step_kernel_matches_plain_at_many_actions(dev, a):
+    sem = _sem_of(dev, a)
+    bl, b = _levels(dev)["walls16"], 1024
+    plan = dqn_act_kernels.DqnActPlan(sem, bl, b, 10)
+    gen = torch.Generator(device=dev).manual_seed(a)
+    st = ref_st = bp.reset_bits(bl, b)
+    stats = ref_stats = (torch.zeros(b, device=dev), torch.zeros((), dtype=torch.int64, device=dev),
+                         torch.zeros((), device=dev))
+    for _ in range(30):
+        q = torch.randint(-2, 3, (b, a), generator=gen, device=dev).float() * 0.5  # ties
+        explore = torch.rand(b, generator=gen, device=dev) < 0.3
+        rand_a = torch.randint(0, a, (b,), generator=gen, device=dev, dtype=torch.int32)
+        before = kernels.LAUNCHES["dqn_act"]
+        st, *out, r1, r2, r3 = dqn.dqn_act_step(sem, bl, st, q, explore, rand_a, *stats, 10, plan=plan)
+        assert kernels.LAUNCHES["dqn_act"] == before + 1
+        stats = (r1, r2, r3)
+        ref_st, *ref_out, s1, s2, s3 = dqn.dqn_act_step_reference(sem, bl, ref_st, q, explore, rand_a, *ref_stats, 10)
+        ref_stats = (s1, s2, s3)
+        _assert_same(out, ref_out)
+        _assert_same((stats[0], stats[2]), (ref_stats[0], ref_stats[2]))
+        assert int(stats[1]) == int(ref_stats[1])
+        for f in ("agent_idx", "agent_code", "t", "done"):
+            assert torch.equal(getattr(st, f), getattr(ref_st, f)), f
+
+
+@pytest.mark.parametrize("a", [4, 9, 25])
+@pytest.mark.parametrize("form", ["shared level", "staged levels", "device levels"])
+def test_rollout_actions_kernel_matches_plain_in_each_level_form(dev, a, form):
+    """K2 a warp a block: a shared level in shared memory, a warp's 32
+    per-env 4x4 mazes staged in shared memory, and per-env 40x40 mazes
+    (411 words a level, above the staged bytes) read from device memory;
+    a batch that is not a whole number of warps and T that is not a whole
+    number of blocks of staged actions, in the three modes."""
+    sem = T.make_semantics(device=dev) if a == 4 else _sem_of(dev, a)
+    b = 777 if form != "device levels" else 45
+    if form == "shared level":
+        bl = _levels(dev)["walls16"]
+    else:
+        grids, start = M.generate_mazes_device(3, (4, 4) if form == "staged levels" else (40, 40), b,
+                                               "binary_tree", device=dev)
+        bl = bp.pack_level(T.Level(grid=grids, start_idx=start.expand(b).contiguous()))
+    gen = torch.Generator(device=dev).manual_seed(a)
+    st = bp.reset_bits(bl, None if bl.batched else b)
+    for t_len in (37, 16, 0):
+        actions = torch.randint(-1, a + 1, (t_len, b), generator=gen, device=dev, dtype=torch.int32)
+        for mode in ((False, None), (True, None), (True, 5)):
+            got_state, got = bp.rollout_actions_bits(sem, bl, st, actions, *mode)
+            ref_state, ref = bp.rollout_actions_bits_reference(sem, bl, st, actions, *mode)
+            _assert_same(got, ref)
+            for f in ("agent_idx", "agent_code", "t", "done"):
+                assert torch.equal(getattr(got_state, f), getattr(ref_state, f))
+            if not mode[0]:
+                frozen = got_state
+        st = frozen  # the next T from the frozen mode's state: its done envs stay frozen

@@ -106,21 +106,44 @@ def test_dqn_steps_match_jax(prioritized, target_update, obs, double):
     """Ten single steps, each from the state the last one left: the ring
     wraps after four, learning starts at the third, a hard update falls on
     every third."""
-    batch = 32
+    _dqn_steps_match_jax(prioritized, target_update, obs, double, JSEM, TSEM)
+
+
+# 9: the eight king moves and a stay; 25: every move of at most two rows and two columns
+ACTION_SETS = {
+    9: ((-1, 0), (0, 1), (1, 0), (0, -1), (-1, -1), (-1, 1), (1, 1), (1, -1), (0, 0)),
+    25: tuple((dr, dc) for dr in range(-2, 3) for dc in range(-2, 3)),
+}
+
+
+@pytest.mark.parametrize("a", [9, 25])
+@pytest.mark.parametrize("prioritized,target_update,obs,double", [(False, "polyak", "index", True),
+                                                                  (True, "hard", "grid", False)])
+def test_dqn_steps_match_jax_at_more_actions(prioritized, target_update, obs, double, a):
+    """K7c's plain version at A above 8: the greedy action over A Q-values,
+    the explore draw over A, the step by A deltas; 14 steps, past the time
+    limit of 12, since a walk of so many moves may not reach the goal in 10."""
+    _dqn_steps_match_jax(prioritized, target_update, obs, double,
+                         J.make_semantics(J.SemanticsConfig(action_deltas=ACTION_SETS[a])),
+                         T.make_semantics(T.SemanticsConfig(action_deltas=ACTION_SETS[a]), device=CPU), steps=14)
+
+
+def _dqn_steps_match_jax(prioritized, target_update, obs, double, jsem, tsem, steps=10):
+    batch, na = 32, tsem.num_actions
     jlevel = jb.make_level_from_indices((2, 6), start_idx=0, goals=[5])
     tlevel = convert.to_level(jlevel, device=CPU)
     kw = dict(STEP_KW, prioritized=prioritized, target_update=target_update, obs=obs, double=double)
     jcfg, tcfg = jm.DQNConfig(**kw), tm.DQNConfig(**kw)
-    jts = jm.dqn_init(JSEM, jlevel, jax.random.PRNGKey(7), jcfg, batch)
-    tnet = tm.make_q_network(tlevel, 4, tcfg)
+    jts = jm.dqn_init(jsem, jlevel, jax.random.PRNGKey(7), jcfg, batch)
+    tnet = tm.make_q_network(tlevel, na, tcfg)
     tts = convert.to_dqn_train_state(tree_np(jts), tnet)
     assert tts.prio.shape == ((128,) if prioritized else (0,))
-    for t in range(10):
-        draws = tuple(d[None] for d in jax_step_draws(jts.key, t, jcfg, batch))
+    for t in range(steps):
+        draws = tuple(d[None] for d in jax_step_draws(jts.key, t, jcfg, batch, na))
         before = np.asarray(jts.prio)
-        jts = jm.dqn_run(JSEM, jlevel, jts, jcfg, 1)
+        jts = jm.dqn_run(jsem, jlevel, jts, jcfg, 1)
         t_before = tts.prio.clone()
-        tts = tm.dqn_run(TSEM, tlevel, tts, tcfg, 1, draws=draws)
+        tts = tm.dqn_run(tsem, tlevel, tts, tcfg, 1, draws=draws)
         assert_matches_jax(tts, jts, tnet)
         if prioritized:  # the minibatch's slots: those whose priority the step wrote
             np.testing.assert_array_equal((tts.prio != t_before).numpy(), np.asarray(jts.prio) != before)

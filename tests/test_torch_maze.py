@@ -209,7 +209,8 @@ def test_unknown_algorithm_raises():
 # steps with its safety net; the trees turned into wall bits in place, row
 # by row; the block's 128 threads' 16-byte stores front to back over its
 # grids, each from the windows of the (at most two) rows its tiles lie in,
-# the region's tail written plainly. Every maze is one thread and every
+# the region's lead (before its first 16-byte boundary, where M is not a
+# multiple of 4) and tail written plainly. Every maze is one thread and every
 # thread of the writer one numpy element, so each step below is what one
 # thread does.
 # ---------------------------------------------------------------------------
@@ -236,11 +237,11 @@ class _SharedTrees:
     """The blocks' dynamic shared memory: word k of maze b at
     block·(n·M) + k·M + slot, n = ch·⌈cw/8⌉ words a maze."""
 
-    def __init__(self, cells, batch, warps):
+    def __init__(self, cells, batch, mazes):
         self.ch, self.cw = cells
         self.wpr = -(-self.cw // 8)
         self.n = self.ch * self.wpr
-        self.m = 32 * warps
+        self.m = mazes
         self.blocks = -(-batch // self.m)
         self.mem = np.full(self.blocks * self.n * self.m, 0xDEADBEEF, np.uint32)  # never read before written
         b = np.arange(batch)
@@ -409,13 +410,16 @@ def _write_grids(sh: _SharedTrees, cells, batch):
     writes = np.zeros(batch * hw, np.int64)
     base = np.arange(sh.blocks) * sh.m                 # each block's first maze
     nm = np.minimum(sh.m, batch - base)
-    assert ((base * hw * 4) % 16 == 0).all()          # each region starts 16-byte aligned
-    n4 = (nm * hw) >> 2
+    lead = np.minimum((-(base * hw)) & 3, nm * hw)     # int32 before the region's first 16-byte boundary
+    assert (((base * hw + lead) * 4) % 16 == 0).all()
+    assert sh.m % 4 != 0 or (lead == 0).all()
+    n4 = (nm * hw - lead) >> 2
     t = np.arange(_THREADS)[None, :]
     word0 = (np.arange(sh.blocks) * sh.n * sh.m)[:, None]
-    m = np.broadcast_to((4 * t) // hw, (sh.blocks, _THREADS)).copy()
-    gr = (4 * t - m * hw) // w
-    gc = 4 * t - m * hw - gr * w
+    i0 = lead[:, None] + 4 * t
+    m = i0 // hw
+    gr = (i0 - m * hw) // w
+    gc = i0 - m * hw - gr * w
     rows = 4 * _THREADS // w
     step_c, step_r, step_m = 4 * _THREADS - rows * w, rows % h, rows // h
 
@@ -467,7 +471,7 @@ def _write_grids(sh: _SharedTrees, cells, batch):
                 wrap = rr == h
                 rr, mm = np.where(wrap, 0, rr), mm + wrap
         for e in range(4):
-            at_out = (base[:, None] * hw + 4 * q + e)[live]
+            at_out = (base[:, None] * hw + lead[:, None] + 4 * q + e)[live]
             out[at_out] = v[e][live]
             writes[at_out] += 1
         gc = gc + step_c
@@ -476,19 +480,22 @@ def _write_grids(sh: _SharedTrees, cells, batch):
         m = m + step_m
         carry = gr >= h
         gr, m = np.where(carry, gr - h, gr), m + carry
-    f = 4 * n4[:, None] + t  # the tail of a region, plainly
-    tail = f < (nm * hw)[:, None]
-    mt = f // hw
-    rt = f - mt * hw
-    at_out = (base[:, None] * hw + f)[tail]
-    out[at_out] = one_tile(mt, rt // w, rt % w, tail)[tail]
-    writes[at_out] += 1
+    # the lead (thread t < lead writes int32 t) and the tail (the last 1-3 int32), plainly
+    lead_f = np.broadcast_to(t, (sh.blocks, _THREADS))
+    tail_f = lead[:, None] + 4 * n4[:, None] + t
+    for f, plain in ((lead_f, t < lead[:, None]), (tail_f, tail_f < (nm * hw)[:, None])):
+        mt = f // hw
+        rt = f - mt * hw
+        at_out = (base[:, None] * hw + f)[plain]
+        out[at_out] = one_tile(mt, rt // w, rt % w, plain)[plain]
+        writes[at_out] += 1
     return out.reshape(batch, h, w), writes
 
 
-def _literal_mazes(cells, batch, algorithm, warps=None, **kw):
-    warps = km.plan(cells, batch).warps if warps is None else warps
-    sh = _SharedTrees(cells, batch, warps)
+def _literal_mazes(cells, batch, algorithm, warps=None, mazes=None, **kw):
+    if mazes is None:
+        mazes = km.plan(cells, batch).mazes if warps is None else 32 * warps
+    sh = _SharedTrees(cells, batch, mazes)
     if algorithm == "backtracker":
         _k11_walk(sh, cells, batch, kw["seed"])
     else:
@@ -501,6 +508,25 @@ def _literal_mazes(cells, batch, algorithm, warps=None, **kw):
 
 _LITERAL_SHAPES = [((1, 1), 40, None), ((2, 2), 33, None), ((3, 7), 70, 4), ((1, 63), 40, None),
                    ((63, 1), 40, None), ((17, 16), 33, None), ((17, 16), 200, 4), ((4, 4), 300, 2)]
+
+
+# (cells, B, mazes a block): fewer than a warp's 32 mazes, as `plan` takes
+# above about 120x120 cells; with 1 or 2 a block's region starts off a
+# 16-byte boundary and its lead is written plainly
+_FEW_MAZES = [((3, 7), 9, 1), ((2, 2), 7, 2), ((1, 1), 5, 1), ((5, 3), 13, 8), ((17, 16), 20, 16), ((1, 9), 6, 2)]
+
+
+@pytest.mark.parametrize("cells,b,mazes", _FEW_MAZES)
+@pytest.mark.parametrize("algorithm", ["backtracker", "aldous_broder"])
+def test_literal_walks_with_few_mazes_a_block_match_the_plain_versions(cells, b, mazes, algorithm):
+    if algorithm == "backtracker":
+        got = _literal_mazes(cells, b, algorithm, mazes=mazes, seed=13)
+        want = tm.backtracker_mazes_reference(cells, b, seed=13, device=CPU)
+    else:
+        max_iters = 2 * cells[0] * cells[1] + 3  # short of cover for most: the safety net carves the rest
+        got = _literal_mazes(cells, b, algorithm, mazes=mazes, max_iters=max_iters, seed=13)
+        want = tm.aldous_broder_mazes_reference(cells, b, max_iters, seed=13, device=CPU)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("cells,b,warps", _LITERAL_SHAPES)

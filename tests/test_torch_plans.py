@@ -480,6 +480,47 @@ def test_maze_plan_picks_the_warps(shape):
     assert p.blocks == -(-shape[1] // (32 * p.warps))
 
 
+# (cells, B): mazes above 63x63 cells. 32 trees fit a block up to ch·⌈cw/8⌉
+# = 1,814 words (about 120x120 cells), one up to 58,048 (680x680 square,
+# or 58,048 rows of one cell, the most words a one-maze block holds beside
+# the kernels' static shared memory); above, the trees live in device memory.
+_BIG_MAZES = [((64, 64), 33), ((64, 1), 33), ((100, 100), 4), ((121, 121), 70), ((200, 200), 2),
+              ((680, 680), 3), ((58_048, 1), 2), ((681, 681), 2), ((64, 64), 65_536), ((120, 120), 10_000)]
+
+
+@pytest.mark.parametrize("cells,batch", _BIG_MAZES)
+def test_maze_plan_above_63_covers_every_maze_once_or_names_the_device_tier(cells, batch):
+    p = km.plan(cells, batch)
+    words = km.tree_words(cells)
+    room = km.SHARED_LIMIT - km.STATIC_SHARED
+    if 4 * words > room:  # not even one tree fits: the device tier, a maze a block
+        assert (p.mazes, p.blocks, p.shared, p.scratch) == (1, batch, 0, batch * words)
+        return
+    assert p.scratch == 0
+    assert p.mazes in (1, 2, 4, 8, 16, 32, 64, 128)
+    assert p.shared == p.mazes * 4 * words <= room == 232_448 - 256
+    assert 2 * p.shared > room or p.mazes >= 32  # below a warp, only where twice as many do not fit
+    assert (p.blocks - 1) * p.mazes < batch <= p.blocks * p.mazes
+    b = (np.arange(p.blocks)[:, None] * p.mazes + np.arange(p.mazes)[None, :]).ravel()
+    assert np.array_equal(b[b < batch], np.arange(batch))
+    assert p.warps == -(-p.mazes // 32)
+
+
+@pytest.mark.parametrize("cells,mazes", [((64, 64), 64), ((121, 121), 16), ((200, 200), 8), ((680, 680), 1),
+                                         ((58_048, 1), 1), ((58_049, 1), 0), ((681, 681), 0)])
+def test_maze_plan_mazes_a_block_above_63(cells, mazes):
+    """0: the device tier."""
+    p = km.plan(cells, 1 << 20)
+    assert (p.mazes if p.scratch == 0 else 0) == mazes
+
+
+def test_maze_plan_device_tier_follows_the_shared_limit(monkeypatch):
+    monkeypatch.setattr(km, "SHARED_LIMIT", 1024 + km.STATIC_SHARED)
+    p = km.plan((64, 64), 5)  # 2,048 bytes a tree
+    assert (p.mazes, p.blocks, p.shared, p.scratch) == (1, 5, 0, 5 * 512)
+    assert km.plan((16, 16), 5).mazes == 8  # 128 bytes a tree: 8 fit, a warp's 32 do not
+
+
 def test_maze_plan_refuses_a_bad_batch():
     with pytest.raises(ValueError):
         km.plan((4, 4), 0)

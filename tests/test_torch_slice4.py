@@ -14,6 +14,7 @@ parameter set gives the same per-env mask.
 
 from __future__ import annotations
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -145,7 +146,7 @@ def test_every_kernel_has_a_source_an_entry_point_and_a_count():
 def test_signatures_match_the_c_parameter_lists():
     """Each entry point's argtypes has one entry per C parameter."""
     sources = "".join((build.CSRC_DIR / s).read_text() for s in build.SOURCES)
-    kinds = {"int": build._I, "float": build._F}
+    kinds = {"int": build._I, "float": build._F, "long": ctypes.c_longlong}  # "long long"
     for entry in build._SIGNATURES:
         params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', sources).group(1).split(",")
         want = [build._P if "*" in p else kinds[p.split()[0]] for p in params]

@@ -182,3 +182,35 @@ def test_rejects_shared_level_unknown_algo_and_bad_draws():
     with pytest.raises(ValueError, match="draws"):
         ta.q_learning_batched(TSEM, tl, 0, num_steps=6, draws=(e, r, e[0], r[0]))
     assert hasattr(jtb, "_q_rows") and not hasattr(ttb, "_SELECT_TREE_MAX_STATES")
+
+
+# 9: the eight king moves and a stay; 25: every move of at most two rows and two columns
+ACTION_SETS = {
+    9: ((-1, 0), (0, 1), (1, 0), (0, -1), (-1, -1), (-1, 1), (1, 1), (1, -1), (0, 0)),
+    25: tuple((dr, dc) for dr in range(-2, 3) for dc in range(-2, 3)),
+}
+
+
+@pytest.mark.parametrize("a", [9, 25])
+@pytest.mark.parametrize("algo", ["q_learning", "sarsa", "expected_sarsa"])
+def test_float32_matches_jax_with_injected_draws_at_more_actions(algo, a):
+    """K6's plain version at A above 8 with the reference's draws over A
+    actions, to the same tolerances as at four. XLA's CPU backend fuses
+    r + γ·v into one multiply-add; with nine or 25 actions several actions
+    of a cell share a value exactly (moves into a wall and the stay), so a
+    one-ulp difference between such twins flips a greedy tie sooner than at
+    four (after about 140 steps here): the run is 100 steps."""
+    jsem = J.make_semantics(J.SemanticsConfig(action_deltas=ACTION_SETS[a]))
+    tsem = T.make_semantics(T.SemanticsConfig(action_deltas=ACTION_SETS[a]), device=CPU)
+    n, steps, eps = 24, 100, 0.2
+    jl, tl = ab_mazes(3, n, (3, 3))
+    kw = dict(alpha=0.2, gamma=0.95, epsilon=eps, algo=algo, max_episode_steps=40)
+    key = jax.random.PRNGKey(a)
+    jres = ja.q_learning_batched(jsem, jl, key, num_steps=steps, **kw)
+    tres = ta.q_learning_batched(tsem, tl, 0, num_steps=steps, draws=jax_draws(key, n, steps, eps, num_actions=a), **kw)
+    np.testing.assert_allclose(tres.q.numpy(), np.asarray(jres.q), rtol=1e-6, atol=1e-6)
+    for f in ("agent_idx", "agent_code", "t"):
+        np.testing.assert_array_equal(getattr(tres.state.env_state, f).numpy(), np.asarray(getattr(jres.state.env_state, f)))
+    np.testing.assert_array_equal(tres.state.a.numpy(), np.asarray(jres.state.a))
+    assert int(tres.episodes) == int(jres.episodes) > 0
+    np.testing.assert_allclose(float(tres.mean_return), float(jres.mean_return), rtol=1e-6)

@@ -34,14 +34,14 @@ JSEM = J.make_semantics()
 TSEM = T.make_semantics(device=CPU)
 
 
-def _random_train_state(rng, jbl, b, max_ep):
+def _random_train_state(rng, jbl, b, max_ep, jsem=JSEM):
     """A reference FastTDTrainState mid-run, made with numpy: agents on
     random open tiles, Q in multiples of 1/8 (exact in bfloat16)."""
     codes = np.asarray(jb.walls_and_goal_16x16().grid).reshape(-1)
     open_idx = np.flatnonzero(codes == 0)
     idx = rng.choice(open_idx, size=b).astype(np.int32)
-    q = (rng.integers(-64, 65, size=(codes.size, 4)) / 8.0).astype(np.float32)
-    ts = jtf.fast_td_init(JSEM, jbl, jnp.uint32(11), b, q0=jnp.asarray(q))
+    q = (rng.integers(-64, 65, size=(codes.size, jsem.num_actions)) / 8.0).astype(np.float32)
+    ts = jtf.fast_td_init(jsem, jbl, jnp.uint32(11), b, q0=jnp.asarray(q))
     state = jbp.FastState(
         agent_idx=jnp.asarray(idx),
         agent_code=jnp.asarray(codes[idx].astype(np.int32)),
@@ -69,16 +69,36 @@ def _assert_discrete_state_equal(jts, tts):
 
 @pytest.mark.parametrize("algo", ["q_learning", "expected_sarsa"])
 def test_one_step_matches_jax(algo, rng):
+    _one_step_matches_jax(algo, rng, JSEM, TSEM)
+
+
+# 9: the eight king moves and a stay; 25: every move of at most two rows and two columns
+ACTION_SETS = {
+    9: ((-1, 0), (0, 1), (1, 0), (0, -1), (-1, -1), (-1, 1), (1, 1), (1, -1), (0, 0)),
+    25: tuple((dr, dc) for dr in range(-2, 3) for dc in range(-2, 3)),
+}
+
+
+@pytest.mark.parametrize("a", [9, 25])
+@pytest.mark.parametrize("algo", ["q_learning", "expected_sarsa"])
+def test_one_step_matches_jax_at_more_actions(algo, a, rng):
+    """K5's plain version at A above 8: the ε-greedy draw over A actions,
+    the row's maximum and expectation over A."""
+    _one_step_matches_jax(algo, rng, J.make_semantics(J.SemanticsConfig(action_deltas=ACTION_SETS[a])),
+                          T.make_semantics(T.SemanticsConfig(action_deltas=ACTION_SETS[a]), device=CPU))
+
+
+def _one_step_matches_jax(algo, rng, jsem, tsem):
     b, max_ep, alpha, gamma, eps = 512, 40, 0.25, 0.9, 0.3
     jbl = jbp.pack_level(jb.walls_and_goal_16x16())
     tbl = tbp.pack_level(tb.walls_and_goal_16x16(device=CPU))
-    jts = _random_train_state(rng, jbl, b, max_ep)
+    jts = _random_train_state(rng, jbl, b, max_ep, jsem)
     tts = convert.to_fast_td_state(jts, device=CPU)
     _assert_discrete_state_equal(jts, tts)
     np.testing.assert_array_equal(np.asarray(jts.q), tts.q.numpy())
 
-    jnew = jtf.compile_fast_td_run(JSEM, jbl, 1, alpha, gamma, eps, algo, max_ep)(jts)
-    tnew = ttf.td_scan_fast(TSEM, tbl, tts, 1, alpha, gamma, eps, algo, max_ep)
+    jnew = jtf.compile_fast_td_run(jsem, jbl, 1, alpha, gamma, eps, algo, max_ep)(jts)
+    tnew = ttf.td_scan_fast(tsem, tbl, tts, 1, alpha, gamma, eps, algo, max_ep)
     # actions, s2, r and done all show in these: the env state after the
     # step, the running returns and the episode counts
     _assert_discrete_state_equal(jnew, tnew)
