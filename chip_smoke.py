@@ -179,6 +179,7 @@ K10_LAUNCHES = 4        # kernels a K10 call launches: count, scan, scatter, sum
 # store), 7.25 an element, against 155 an element when a thread took one
 # element; the function's own is a load, a convert and a store an element.
 INSTR_K7A_STEP = 35     # the GAE loop is 131 instructions for four unrolled steps, 37 for a single one
+INSTR_K7A_NSTEP = 8     # one (t, env) of the n-step scan: two loads, the done select, multiply, add, store (an estimate)
 # act_step is 1,065 instructions with no loop over time; less the table
 # staging (124) and the untaken sides of the loops over actions, an env's
 # path is about 600 (good to 30 %)
@@ -873,6 +874,7 @@ def learner_phases(gt, dev, gen, bound, smi):
     from griduniverse_tpu_torch.kernels import act_step as act_kernels
     from griduniverse_tpu_torch.kernels import agent_stamp as k9b
     from griduniverse_tpu_torch.kernels import embed_rows as k9a
+    from griduniverse_tpu_torch.kernels import gae as gae_kernels
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.levels import maze as M
     from griduniverse_tpu_torch.models import a2c, networks, ppo
@@ -903,12 +905,20 @@ def learner_phases(gt, dev, gen, bound, smi):
         return a2c.Trajectory(None, None, None, value, reward, done), torch.randn((b,), generator=gen, device=dev)
 
     # -- phase 11: each learner kernel against its plain version, small shapes --
-    traj, boot = rollout_arrays(12, 4096)
-    hold("gae", "K7a gae", ppo.gae_advantages(traj, boot, 0.99, 0.95),
-         ppo.gae_advantages_reference(traj, boot, 0.99, 0.95), ("adv", "targets"))
-    hold("gae", "K7a n-step returns", (a2c.nstep_returns(traj.reward, traj.done, boot, 0.99),),
-         (a2c.nstep_returns_reference(traj.reward, traj.done, boot, 0.99),), ("returns",))
-    print("K7a T=12 B=4096, a quarter of done set: advantages, targets and n-step returns bit-exact vs plain")
+    # K7a's register tier (T <= 16) and group tier, 4, 2 and 1 envs a thread, and done
+    # bytes that start off a 4-byte boundary (the scalar path)
+    for t7, b7 in ((12, 4096), (1, 4095), (16, 4098), (33, 4098), (128, 4097)):
+        traj, boot = rollout_arrays(t7, b7)
+        shifted = torch.zeros(t7 * b7 + 1, dtype=torch.bool, device=dev)
+        shifted[1:] = traj.done.reshape(-1)
+        for tag, done in (("", traj.done), (", done off 4 bytes", shifted[1:].view(t7, b7))):
+            traj = a2c.Trajectory(None, None, None, traj.value, traj.reward, done)
+            hold("gae", f"K7a gae T={t7} B={b7}{tag}", ppo.gae_advantages(traj, boot, 0.99, 0.95),
+                 ppo.gae_advantages_reference(traj, boot, 0.99, 0.95), ("adv", "targets"))
+            hold("gae", f"K7a n-step returns T={t7} B={b7}{tag}", (a2c.nstep_returns(traj.reward, done, boot, 0.99),),
+                 (a2c.nstep_returns_reference(traj.reward, done, boot, 0.99),), ("returns",))
+    print("K7a T=1, 12, 16, 33, 128, B=4,095 to 4,098 (4, 2 and 1 envs a thread), done bytes aligned and off 4 "
+          "bytes, a quarter of done set: advantages, targets and n-step returns bit-exact vs plain")
 
     for lname, bl in (("walls16", bp.pack_level(walls16)), ("mazes4k", bp.pack_level(mazes(11, (4, 4), 4096)))):
         st = bp.reset_bits(bl, None if bl.batched else 4096)
@@ -1234,14 +1244,35 @@ def learner_phases(gt, dev, gen, bound, smi):
     # -- phase 14: times at the main path's shapes ------------------------------
     traj, bootstrap, mb, _, _, params = kept["ppo walls16"]
     t_len = traj.value.shape[0]
-    ms, got = _cuda_ms(lambda: ppo.gae_advantages(traj, bootstrap, 0.99, 0.95), 50)
+    k7a_plan = gae_kernels.plan(t_len, n64, (traj.value.data_ptr(), traj.reward.data_ptr(), bootstrap.data_ptr()),
+                                traj.done.data_ptr())
+
+    def gae_call():
+        return ppo.gae_advantages(traj, bootstrap, 0.99, 0.95)
+
+    def nstep_call():
+        return (a2c.nstep_returns(traj.reward, traj.done, bootstrap, 0.99),)
+
+    ms, got = _cuda_ms(gae_call, 50)
+    graph_ms = _graph_ms(gae_call)
     plain_ms, ref = _cuda_ms(lambda: ppo.gae_advantages_reference(traj, bootstrap, 0.99, 0.95), 3)
     hold("gae", "K7a timed", got, ref, ("adv", "targets"))
-    times["gae"] = dict(ms=ms, plain_ms=plain_ms, shape=f"GAE T={t_len} B={n64}", library_ms=None,
-                        # value, reward (4 bytes) and done (1) in, adv and targets out, per (t, env); the bootstrap
-                        **bound(t_len * n64 * 17 + n64 * 4, INSTR_K7A_STEP * t_len * n64))
-    ms_r, _ = _cuda_ms(lambda: a2c.nstep_returns(traj.reward, traj.done, bootstrap, 0.99), 50)
-    print(f"K7a timed: GAE {ms!r} ms, n-step returns {ms_r!r} ms at T={t_len} B={n64} ({smi})")
+    ms_r, got = _cuda_ms(nstep_call, 50)
+    graph_ms_r = _graph_ms(nstep_call)
+    plain_ms_r, ref = _cuda_ms(lambda: (a2c.nstep_returns_reference(traj.reward, traj.done, bootstrap, 0.99),), 3)
+    hold("gae", "K7a n-step returns timed", got, ref, ("returns",))
+    times["gae"] = [
+        dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, shape=f"GAE T={t_len} B={n64}", library_ms=None,
+             # value, reward (4 bytes) and done (1) in, adv and targets out, per (t, env); the bootstrap
+             **bound(t_len * n64 * 17 + n64 * 4, INSTR_K7A_STEP * t_len * n64)),
+        dict(ms=ms_r, graph_ms=graph_ms_r, plain_ms=plain_ms_r, shape=f"n-step returns T={t_len} B={n64}",
+             library_ms=None,
+             # reward (4 bytes) and done (1) in, the return out, per (t, env); the bootstrap
+             **bound(t_len * n64 * 9 + n64 * 4, INSTR_K7A_NSTEP * t_len * n64))]
+    print(f"K7a at the main path's rollout, T={t_len} B={n64} ({k7a_plan.width} envs a thread, the {k7a_plan.tier} "
+          f"tier): GAE {ms!r} ms as timed, {graph_ms!r} ms in a CUDA graph of ten (bound {times['gae'][0]['bound_ms']!r} "
+          f"ms); n-step returns {ms_r!r} ms as timed, {graph_ms_r!r} ms in a graph (bound {times['gae'][1]['bound_ms']!r} "
+          f"ms) ({smi})")
 
     # K7b as the rollout calls it: a step through a plan built once, on the
     # main path's last step of each shape
@@ -2044,9 +2075,11 @@ def mc_lambda_phases(gt, dev, bound, smi):
     samples, and K10 is timed at both shapes.
     `sarsa_lambda`, `watkins_q_lambda` (walls16, 65,536 envs x 200 steps, a
     (65,536, 256, 4) trace) and `td_lambda_prediction` (65,536 envs, a
-    (65,536, 256) trace) go through K12, two launches a step; steps 0-4 and
-    100-104 are redone by the plain version on the step's own inputs and
-    must give the same table and trace bits, and two runs the same bits.
+    (65,536, 256) trace) go through K12, one launch a step through the
+    plan each run builds; steps 0-4 and 100-104 are redone by the plain
+    version on the step's own inputs and must give the same table and trace
+    bits, and two runs the same bits. K12 is timed at the three traces, a
+    step through a plan as timed and in a CUDA graph of ten.
     K13 (the returns and the first-visit mask, one launch a round) is held
     at small shapes and on every round's own samples, timed as a call and
     in a CUDA graph of ten, and the mc calls are timed with it and with its
@@ -2054,7 +2087,9 @@ def mc_lambda_phases(gt, dev, bound, smi):
     Returns (launches, max abs errors, times) of K12 and K13."""
     from griduniverse_tpu_torch import algos, kernels
     from griduniverse_tpu_torch.algos import mc, td, td_lambda
+    from griduniverse_tpu_torch.kernels import trace_pass as trace_kernels
     from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.tools.profile_turns import _plan_graph_ms
 
     sem = gt.make_semantics()
     lava = builders.lava_level()
@@ -2210,13 +2245,13 @@ def mc_lambda_phases(gt, dev, bound, smi):
         copies of the step's own inputs, and keeps one step's inputs."""
         count = [0]
 
-        def checked(table, e, *args):
+        def checked(table, e, *args, plan=None):
             i = count[0]
             count[0] += 1
             if i not in held:
-                return real_pass(table, e, *args)
+                return real_pass(table, e, *args, plan=plan)
             table0, e_in = table.clone(), e.clone()
-            out = real_pass(table, e, *args)
+            out = real_pass(table, e, *args, plan=plan)
             e0 = e_in.clone()
             ref = td_lambda.trace_pass_reference(table0, e0, *args)
             errs["trace_pass"] = max(errs["trace_pass"], _same_fields(
@@ -2238,7 +2273,8 @@ def mc_lambda_phases(gt, dev, bound, smi):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         got = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        _require(got == {"trace_pass": 2 * steps}, f"{name}: launches {got}, expected {2 * steps} of K12 and no other kernel")
+        _require(trace_kernels.launches(b) == 1 and got == {"trace_pass": steps},
+                 f"{name}: launches {got}, expected {steps} of K12 (one a step) and no other kernel")
         launches["trace_pass"] += got["trace_pass"]
         with mock.patch.object(td_lambda, "trace_pass", holding(name)):
             second = run(b)
@@ -2265,21 +2301,31 @@ def mc_lambda_phases(gt, dev, bound, smi):
         e.copy_(torch.where(cut.reshape(shape), 0.0, x))
         return table + alpha * num / cnt.clamp(min=1.0)
 
+    times["trace_pass"] = []
     for name in runs:
         table, e, args = kept[name]
         n_cells = table.numel()
         e_kernel, e_plain, e_dense = e.clone(), e.clone(), e.clone()  # each timed call decays its copy once more
-        ms, _ = _cuda_ms(lambda: real_pass(table, e_kernel, *args), 20)
+
+        def make_plan(table=table, args=args):
+            return trace_kernels.TracePassPlan(table, b, args[1] is not None)
+
+        def call(plan, table=table, e_kernel=e_kernel, args=args):
+            return real_pass(table, e_kernel, *args, plan=plan)
+
+        plan = make_plan()
+        ms, _ = _cuda_ms(lambda: call(plan), 20)
+        graph_ms = _plan_graph_ms(make_plan, call)
         plain_ms, _ = _cuda_ms(lambda: td_lambda.trace_pass_reference(table, e_plain, *args), 3)
         dense_ms, _ = _cuda_ms(lambda: dense_step(table, e_dense, *args), 5)
-        t12 = dict(ms=ms, plain_ms=plain_ms, library_ms=None, shape=f"{name}, trace ({b}, {n_cells})",
+        t12 = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, library_ms=None, shape=f"{name}, trace ({b}, {n_cells})",
                    # the trace read and written once; s, a, δ, cut in; the table in and out
                    **bound(2 * b * n_cells * 4 + b * 13 + 2 * n_cells * 4, INSTR_K12_ELEM * b * n_cells))
-        print(f"time trace_pass at {t12['shape']}: kernel {ms!r} ms a step, plain {plain_ms!r} ms, bound {t12['bound_ms']!r} ms "
-              f"by {t12['bound_by']}, library None ms; the dense passes that ran before K12 {dense_ms!r} ms ({smi})")
-        if name == "sarsa_lambda":
-            times["trace_pass"] = t12
-        del e_kernel, e_plain, e_dense
+        print(f"time trace_pass at {t12['shape']}: kernel {ms!r} ms a step through a plan, {graph_ms!r} ms in a CUDA "
+              f"graph of ten, plain {plain_ms!r} ms, bound {t12['bound_ms']!r} ms by {t12['bound_by']}, library None ms; "
+              f"the dense passes that ran before K12 {dense_ms!r} ms ({smi})")
+        times["trace_pass"].append(t12)
+        del e_kernel, e_plain, e_dense, plan
     kept.clear()
 
     # the 4,096-env run of earlier work, now through K12, on the host clock
@@ -2302,8 +2348,8 @@ def ceiling_phases(gt, dev, bound, smi):
     a shared level; above 1,024 channels the forward stages k a slice at a
     time), and K12 at 16,776,961 envs, above 65,535 chunks of 256. Each call
     goes through the public entry (autograd for K9b) and is held against
-    its plain version bit for bit (K12 in three launches: two of its first
-    kernel, 65,535 chunks and one), and timed beside its bound by bytes.
+    its plain version bit for bit (K12 in one launch of 65,536 blocks), and
+    timed beside its bound by bytes.
     Returns the max abs errors by kernel."""
     from griduniverse_tpu_torch import kernels
     from griduniverse_tpu_torch.algos import td_lambda
@@ -2357,8 +2403,8 @@ def ceiling_phases(gt, dev, bound, smi):
     args = (s, a, delta, cut, 0.9, 0.8, 1e-4, 0.3, "accumulating")
     before = kernels.LAUNCHES["trace_pass"]
     got = td_lambda.trace_pass(table, e, *args)
-    _require(kernels.LAUNCHES["trace_pass"] - before == trace_kernels.launches(b) == 3,
-             "K12 above 65,535 chunks: not two launches of the first kernel and the update")
+    _require(kernels.LAUNCHES["trace_pass"] - before == trace_kernels.launches(b) == 1,
+             "K12 above 65,535 chunks: not one launch")
     want = td_lambda.trace_pass_reference(table, e_plain, *args)
     errs["trace_pass"] = _same_fields(f"K12 B={b}", (got, e), (want, e_plain), ("table", "trace"))
     ms12, _ = _cuda_ms(lambda: td_lambda.trace_pass(table, e, *args), 10)
@@ -2882,7 +2928,7 @@ def main() -> None:
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-         "library_ms": t["library_ms"], "shape": t["shape"]}
+         "library_ms": t["library_ms"], "shape": t["shape"], **({"graph_ms": t["graph_ms"]} if "graph_ms" in t else {})}
         for name, t in shaped
     ]}
     print(smi)

@@ -19,7 +19,8 @@ PyTorch counterpart of `griduniverse_tpu/algos/td_lambda.py`.
   * Episode boundaries zero the finished env's whole trace (auto-reset);
     Watkins Q(λ) also zeroes it when the env's next action is exploratory.
   * A step's decay, flush, bump, mean and cut are one pass over the trace,
-    `trace_pass`: kernel K12 on CUDA, which reads and writes each trace
+    `trace_pass`: kernel K12 on CUDA, one launch a step through a
+    `TracePassPlan` the loop builds once, which reads and writes each trace
     element once, and `trace_pass_reference` on the CPU. The trace is
     updated in place; it is the loop's own.
 
@@ -40,7 +41,7 @@ import torch
 
 from .. import kernels
 from ..core.step import step_autoreset
-from ..kernels.trace_pass import CHUNK, trace_pass_cuda
+from ..kernels.trace_pass import CHUNK, TracePassPlan, trace_pass_cuda
 from ..ops.bitplane import to_uint32_values, xorshift_init, xorshift_next
 from ..ops.rollout import reset_batch
 from .dp import first_argmax
@@ -120,16 +121,18 @@ def trace_pass_reference(table, e, s, a, delta, cut, gamma: float, lam: float, c
 
 
 def trace_pass(table, e, s, a, delta, cut, gamma: float, lam: float, cutoff: float,
-               alpha: float, kind: str):
+               alpha: float, kind: str, plan: TracePassPlan | None = None):
     """One step of the eligibility traces, `trace_pass_reference`'s
-    function: K12 on CUDA tensors, the plain version on CPU tensors. `e` is
-    updated IN PLACE; returns the new table."""
+    function: K12 on CUDA tensors, through `plan` (a `TracePassPlan` built
+    once a run for this table's shape and batch; without one, a plan built
+    for the call), the plain version on CPU tensors. `e` is updated IN
+    PLACE; returns the new table."""
     if not kernels.on_cuda(table, e):
         return trace_pass_reference(table, e, s, a, delta, cut, gamma, lam, cutoff, alpha, kind)
     return trace_pass_cuda(
         table, e, s.to(torch.int32), None if a is None else a.to(torch.int32),
         delta.to(torch.float32), cut.to(torch.bool), gamma * lam, cutoff, alpha,
-        kind == "replacing",
+        kind == "replacing", plan,
     )
 
 
@@ -149,6 +152,7 @@ def _td_lambda_control(sem, level, key, algo, num_steps, batch_size, alpha, gamm
     draw, rs = _next_draw(rs, None if draws is None else (draws[2], draws[3]))
     a = epsilon_greedy(q[state.agent_idx.long()], draw, epsilon)
     e = torch.zeros((b, num_states, num_actions), dtype=torch.float32, device=dev)
+    plan = TracePassPlan(q, b, True) if kernels.on_cuda(q) else None
     run_ret = torch.zeros(b, dtype=torch.float32, device=dev)
     n_eps = torch.zeros((), dtype=torch.int64, device=dev)
     ret_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -171,7 +175,7 @@ def _td_lambda_control(sem, level, key, algo, num_steps, batch_size, alpha, gamm
         cut = d | (a_next != greedy2) if algo == "watkins" else d
 
         # the trace pass: decay, then bump this step's (s, a); the mean; the cut
-        q = trace_pass(q, e, s, a, delta, cut, gamma, lam, trace_cutoff, alpha, trace)
+        q = trace_pass(q, e, s, a, delta, cut, gamma, lam, trace_cutoff, alpha, trace, plan=plan)
         run_ret, n_eps, ret_sum = _fold_stats(run_ret, n_eps, ret_sum, r, d)
         a = a_next
     return TDResult(q=q, episodes=n_eps, mean_return=ret_sum / n_eps.clamp(min=1))
@@ -222,6 +226,7 @@ def td_lambda_prediction(
     b = state.agent_idx.shape[0]
     rs = xorshift_init(key, (b,), device=dev)
     e = torch.zeros((b, num_states), dtype=torch.float32, device=dev)
+    plan = TracePassPlan(v, b, False) if kernels.on_cuda(v) else None
     n_eps = torch.zeros((), dtype=torch.int64, device=dev)
     cdf = policy.to(torch.float32).cumsum(dim=-1)
     cdf = cdf / cdf[:, -1:].clamp(min=1e-30)
@@ -240,6 +245,6 @@ def td_lambda_prediction(
         s2, r, d = out.obs, out.reward, out.done
 
         delta = r + gamma * torch.where(d, 0.0, v[s2.long()]) - v[s.long()]
-        v = trace_pass(v, e, s, None, delta, d, gamma, lam, trace_cutoff, alpha, trace)
+        v = trace_pass(v, e, s, None, delta, d, gamma, lam, trace_cutoff, alpha, trace, plan=plan)
         n_eps = n_eps + d.sum()
     return TDLambdaPredictionResult(v=v, episodes=n_eps)

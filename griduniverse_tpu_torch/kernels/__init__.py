@@ -37,7 +37,7 @@ histogram passes, count, compaction, sort and weights) and twenty above
 (the sort in twelve multi-block passes), and a `segment_mean` call four
 (count, scan, scatter, sum); the ring's write and gather are one each, and
 the refresh one up to 8,192 rows and two above, all under `replay`. A trace
-step is two kernels (the pass over the trace, then the chunks' sums and the
+step is one (each tile's last block adds the chunks' sums and writes the
 table); a DQN act-and-step is one (its last block folds the statistics). K4
 counts one launch a call up to 16,384 cells a maze and one a sweep above.
 """

@@ -78,8 +78,10 @@ _SIGNATURES = {
     # q in, out, s, a, delta, mask; alpha; batch, A, S·A, chunk; counts, vals,
     # look-back words; launched
     "gu_segment_mean": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 4 + [_P],
-    "gu_gae": [_P] * 6 + [_I, _I, _F, _F, _P],
-    "gu_nstep_returns": [_P] * 4 + [_I, _I, _F, _P],
+    # value, reward, done, bootstrap, adv, targets; T, B; gamma, γλ; envs a thread
+    "gu_gae": [_P] * 6 + [_I, _I, _F, _F, _I, _P],
+    # reward, done, bootstrap, returns; T, B; gamma; envs a thread
+    "gu_nstep_returns": [_P] * 4 + [_I, _I, _F, _I, _P],
     # the plan (host memory), step; logits; state in (3); the slot to write
     "gu_act_step": [_P, _I, _P] + [_P] * 3 + [_I, _P],
     # the plan; logits; state and reached in (5); the slot to write
@@ -105,9 +107,9 @@ _SIGNATURES = {
     "gu_backtracker_mazes": [_I, _I, _I, _I, _P, _I, _I, _P, _P],
     "gu_gather_1d": [_P, _I, _P, _I, _P, _P],
     "gu_take_along_axis1": [_P, _I, _P, _I, _I, _P, _P],
-    # e, s, a, delta, cut, table in, out; γλ, cutoff, α; replacing, A, B, cells;
-    # partial num, cnt; launched
-    "gu_trace_pass": [_P] * 7 + [_F, _F, _F] + [_I] * 4 + [_P] * 3 + [_P],
+    # e, s, a, delta, cut, table in, out; γλ, cutoff, α; replacing, A, B, cells,
+    # appliers a tile; the plan's partial sums, cell counts and tickets
+    "gu_trace_pass": [_P] * 7 + [_F, _F, _F] + [_I] * 5 + [_P] * 3 + [_P],
     # the plan (host memory); q, explore, rand_a, state in (3), run_ret, episodes,
     # ret_sum; the outputs' buffer
     "gu_dqn_act_step": [_P] + [_P] * 9 + [_P] + [_P],

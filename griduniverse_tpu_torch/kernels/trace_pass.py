@@ -1,11 +1,10 @@
-"""Wrapper of K12 (`csrc/trace_pass.cu`): check, allocate, launch.
+"""Wrapper of K12 (`csrc/trace_pass.cu`): a plan built once a run, then one
+launch a step.
 
 The plain PyTorch version is `algos.td_lambda.trace_pass_reference`.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -16,44 +15,130 @@ from .build import check_int, check_tensor, launch
 # constant of the algorithm (`kChunk` in the source), so changing it changes
 # the bits of every table the pass updates.
 CHUNK = 256
-MAX_CHUNKS = 65_535  # chunks one launch of the first kernel takes (`kMaxChunks`)
+TILE = 128  # cells a block, a thread a cell (`kTile`)
+# an applier's four warps each add a quarter of the chunks in two groups of
+# 32 at a time: the partial sums are padded with zero rows to a multiple of
+# 256 chunks (`kApplyChunks`)
+APPLY_CHUNKS = 256
+MAX_BLOCKS = (1 << 31) - 1  # the grid's x dimension: tiles × chunks blocks
 
 
 def launches(batch: int) -> int:
-    """Kernels one trace step launches at `batch` envs: a first-kernel
-    launch for every MAX_CHUNKS chunks, and the table's update."""
-    return -(-(-(-batch // CHUNK)) // MAX_CHUNKS) + 1
+    """Kernels one trace step launches at `batch` envs: one, at any batch."""
+    check_int("batch", batch, low=1)
+    return 1
+
+
+def scratch_words(batch: int, n_cells: int) -> dict[str, int]:
+    """The 4-byte words of a plan's scratch: a partial sum for each (chunk
+    of CHUNK envs, cell), the chunks padded with zero rows to a multiple of
+    APPLY_CHUNKS, a live count a cell, and a ticket and a count of finished
+    appliers a tile of TILE cells. The padding, counts and tickets start at
+    0, and every step leaves them 0."""
+    chunks, tiles = -(-batch // CHUNK), -(-n_cells // TILE)
+    if chunks * tiles > MAX_BLOCKS:
+        raise ValueError(f"a trace of {batch} envs x {n_cells} cells takes more than {MAX_BLOCKS} blocks")
+    return {"partial": -(-chunks // APPLY_CHUNKS) * APPLY_CHUNKS * n_cells, "count": n_cells, "tickets": 2 * tiles}
+
+
+def appliers(n_cells: int, sms: int) -> int:
+    """Blocks a tile that add its partial sums: the tile's last 4, 2 or 1
+    tickets, each a quarter, half or all of its cells. Every applier but the
+    very last waits for the tile's other blocks, so the appliers of all
+    tiles together are kept to two blocks an SM: the kernel holds at least
+    four an SM (`__launch_bounds__`), so the blocks they wait for always
+    find room."""
+    tiles = -(-n_cells // TILE)
+    return next((r for r in (4, 2) if r * tiles <= 2 * sms), 1)
+
+
+class TracePassPlan:
+    """K12 for one run: the shapes checked once and the scratch of the
+    cross-chunk sum (`scratch_words`), zeroed once, built once a run by
+    `algos.td_lambda`'s loops (`trace_pass(..., plan=)`).
+
+    The scratch is stream-ordered: every step reuses it, so the calls of a
+    plan must follow one another on one stream, the stream current on the
+    plan's device when it was built (a CUDA graph's capture stream, for a
+    captured step). A call from another stream raises.
+
+    A call (`plan(table, e, s, a, delta, cut, gamma_lam, cutoff, alpha,
+    replacing)`) checks the step's tensors at once against the plan,
+    allocates the new table and launches once: the trace `e` (B, S, A) for
+    control, with actions `a`, or (B, S) for prediction, with `a` None, is
+    updated IN PLACE. `s`, `a` int32, `delta` float32 and `cut` bool are
+    (B,)."""
+
+    def __init__(self, table, batch: int, with_actions: bool):
+        self.device = table.device
+        self.batch = check_int("batch", batch, low=1)
+        self.table_shape = tuple(table.shape)
+        if table.dim() != (2 if with_actions else 1):
+            raise ValueError(f"a {'control' if with_actions else 'prediction'} table cannot have shape "
+                             f"{self.table_shape}")
+        self.n_cells = check_int("cells", table.numel(), low=1)
+        self.num_actions = int(table.shape[-1]) if with_actions else 1
+        self.words = scratch_words(self.batch, self.n_cells)
+        sms = torch.cuda.get_device_properties(self.device).multi_processor_count if self.device.type == "cuda" else 1
+        self.appliers = appliers(self.n_cells, sms)
+        self._scratch = torch.zeros(sum(self.words.values()), dtype=torch.int32, device=self.device)
+        base = self._scratch.data_ptr()
+        self._scratch_ptrs = (base, base + 4 * self.words["partial"],
+                              base + 4 * (self.words["partial"] + self.words["count"]))
+        b, dev = self.batch, self.device
+        # (dtype, shape, device, contiguous) of table, e, s, a, delta, cut
+        self._expected = [(dtype, torch.Size(shape), dev, True) for dtype, shape in (
+            (torch.float32, self.table_shape), (torch.float32, (b, *self.table_shape)), (torch.int32, (b,)),
+            (torch.int32, (b,)), (torch.float32, (b,)), (torch.bool, (b,)))]
+        if not with_actions:
+            self._expected[3] = None
+        self._stream = torch._C._cuda_getCurrentRawStream(dev.index) if dev.type == "cuda" else None
+
+    def check(self, tensors) -> None:
+        """One check of the step's tensors (table, e, s, a, delta, cut)
+        against the plan; on a mismatch, the tensor at fault is named."""
+        try:
+            if [None if x is None else (x.dtype, x.shape, x.device, x.is_contiguous())
+                    for x in tensors] == self._expected:
+                return
+        except AttributeError:
+            pass
+        for name, x, want in zip(("table", "e", "s", "a", "delta", "cut"), tensors, self._expected):
+            if want is None:
+                if x is not None:
+                    raise ValueError("a prediction plan takes no actions")
+                continue
+            if x is None:
+                raise ValueError(f"{name} is None")
+            check_tensor(name, x, want[0], want[1], want[2])
+        raise ValueError("K12's step tensors do not match the plan")
+
+    def __call__(self, table, e, s, a, delta, cut, gamma_lam: float, cutoff: float, alpha: float,
+                 replacing: bool):
+        """One trace step (see the class docstring): one launch. Returns the new table."""
+        self.check((table, e, s, a, delta, cut))
+        if self._stream is None:
+            raise ValueError(f"K12 takes CUDA tensors, got {self.device}")
+        if torch._C._cuda_getCurrentRawStream(self.device.index) != self._stream:
+            raise RuntimeError("a TracePassPlan is stream-ordered: it was called from another stream than "
+                               "the one it was built on")
+        table_out = torch.empty(self.table_shape, dtype=torch.float32, device=self.device)
+        launch("gu_trace_pass", self.device, e.data_ptr(), s.data_ptr(), None if a is None else a.data_ptr(),
+               delta.data_ptr(), cut.data_ptr(), table.data_ptr(), table_out.data_ptr(), float(gamma_lam),
+               float(cutoff), float(alpha), int(bool(replacing)), self.num_actions, self.batch, self.n_cells,
+               self.appliers, *self._scratch_ptrs)
+        LAUNCHES["trace_pass"] += 1
+        return table_out
 
 
 def trace_pass_cuda(table, e, s, a, delta, cut, gamma_lam: float, cutoff: float, alpha: float,
-                    replacing: bool):
-    """Launch K12 (two kernels, both counted, and one more launch of the
-    first for every further 65,535 chunks of CHUNK envs): one step of the trace `e`
-    (B, S, A) for control, with actions `a`, or (B, S) for prediction, with
-    `a` None; `e` is updated IN PLACE. Returns the new `table` (S, A) or
-    (S,). `s`, `a` int32, `delta` float32 and `cut` bool are (B,)."""
+                    replacing: bool, plan: TracePassPlan | None = None):
+    """Launch K12 once through `plan` (a loop builds its plan once; without
+    one, a plan built for the call): one step of the trace `e`, updated IN
+    PLACE. Returns the new table."""
     device = table.device
     if device.type != "cuda":
         raise ValueError(f"trace_pass_cuda takes CUDA tensors, got {device}")
-    b = check_int("batch", int(e.shape[0]), low=1)
-    n_cells = check_int("cells", table.numel(), low=1)
-    num_actions = 1 if a is None else int(table.shape[-1])
-    part = -(-b // CHUNK) * n_cells
-    part_num = torch.empty((part,), dtype=torch.float32, device=device)
-    part_cnt = torch.empty((part,), dtype=torch.int32, device=device)
-    table_out = torch.empty_like(table)
-    launched = ctypes.c_int(0)
-    launch(
-        "gu_trace_pass", device,
-        check_tensor("e", e, torch.float32, (b, *table.shape), device),
-        check_tensor("s", s, torch.int32, (b,), device),
-        None if a is None else check_tensor("a", a, torch.int32, (b,), device),
-        check_tensor("delta", delta, torch.float32, (b,), device),
-        check_tensor("cut", cut, torch.bool, (b,), device),
-        check_tensor("table", table, torch.float32, tuple(table.shape), device),
-        table_out.data_ptr(), float(gamma_lam), float(cutoff), float(alpha), int(bool(replacing)),
-        num_actions, b, n_cells, part_num.data_ptr(), part_cnt.data_ptr(),
-        ctypes.addressof(launched),
-    )
-    LAUNCHES["trace_pass"] += launched.value
-    return table_out
+    if plan is None:
+        plan = TracePassPlan(table, int(e.shape[0]), a is not None)
+    return plan(table, e, s, a, delta, cut, gamma_lam, cutoff, alpha, replacing)

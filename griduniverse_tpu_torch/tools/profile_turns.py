@@ -1,4 +1,4 @@
-"""K1's, K2's, K3's, K4's, K5's, K6's, K7b's, K7c's, K9a's, K9b's, K11's, K12's and K13's times on one CUDA card, beside another tree's.
+"""K1's, K2's, K3's, K4's, K5's, K6's, K7a's, K7b's, K7c's, K9a's, K9b's, K11's, K12's and K13's times on one CUDA card, beside another tree's.
 
     python -m griduniverse_tpu_torch.tools.profile_turns [--against DIR] [--tiers] [PART ...]
 
@@ -21,8 +21,7 @@ tree's package and builds its kernels):
   first 4,096 9×9 mazes, with the rate in mazes/s;
 - one VI solve over the 9×9 mazes and one PI solve under `torch.profiler`:
   the device time by kernel and the idle share (1 − busy / the median wall);
-- K12 (`td_lambda.trace_pass`) on a trace of 65,536 envs × 256 states × 4
-  actions, and K9b's forward and backward (`agent_stamp_cuda`,
+- K9b's forward and backward (`agent_stamp_cuda`,
   `agent_stamp_backward_cuda`) at a PPO minibatch over per-env 9×9 mazes
   (N = 262,144 samples over Nl = 16,384 levels, C = 32, bfloat16), timed as
   K4's calls are;
@@ -63,6 +62,18 @@ tree's package and builds its kernels):
   with the first-visit mask: as timed, in a CUDA graph of ten, the host's
   µs (`experiments/k13_groups.py` times each group of episodes a block).
 
+- K12 (`td_lambda.trace_pass`, through a `TracePassPlan` built once where
+  the tree has one) on the control trace (65,536 envs × 256 states × 4
+  actions, SARSA(λ)'s and Watkins Q(λ)'s) and the prediction trace
+  (65,536 × 256 states, `td_lambda_prediction`'s): a step as timed, the
+  host's µs, a step in a CUDA graph of ten, the device time by kernel
+  (`torch.profiler`), and the hash of one step from the same trace, which
+  every turn must print alike;
+- K7a (`gae_cuda`, `nstep_returns_cuda`) at T = 16 and 128 over
+  B = 65,536 envs (`ppo_64k`'s and `a2c_64k`'s rollout, and a long one):
+  a call as timed, in a CUDA graph of ten and on the host, with the hash
+  of the call's outputs, which every turn must print alike.
+
 - K11 (`_backtracker_mazes`, what `generate_mazes_device` calls) at the maze path's four
   shapes: 65,536 mazes of 4×4 cells, 8,192 of 16×16, 65,536 of 32×32 and
   1,024 of 63×63; K3 (`_aldous_broder_mazes`) seeded over 65,536 mazes of
@@ -85,7 +96,7 @@ tree's package and builds its kernels):
   timed (`experiments/k2_cycles.py` reads K2's cycles a step).
 
 PART picks parts by name, all by default: `k2` (K2 and K1), `k3`, `k4` (the K4 calls and
-solves), `k5`, `k6`, `k7b`, `k7c`, `k9a`, `k9b` (K12 and K9b), `k11`, `k13`. With `--graph`, this tree's K5 scan is
+solves), `k5`, `k6`, `k7a`, `k7b`, `k7c`, `k9a`, `k9b`, `k11`, `k12`, `k13`. With `--graph`, this tree's K5 scan is
 also captured in a CUDA graph, replayed and held bit for bit against an
 eager scan (or the capture's error is printed): whether a cooperative
 launch can be captured on the card's CUDA.
@@ -177,7 +188,7 @@ def _profiled(name, fn, wall_ms, smi):
         print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
 
 
-PARTS = ("k2", "k3", "k4", "k5", "k6", "k7b", "k7c", "k9a", "k9b", "k11", "k13")
+PARTS = ("k2", "k3", "k4", "k5", "k6", "k7a", "k7b", "k7c", "k9a", "k9b", "k11", "k12", "k13")
 
 
 def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
@@ -189,8 +200,12 @@ def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
         k2_calls(tag, dev, smi)
     if "k4" in parts:
         k4_calls(tag, dev, gen, smi)
+    if "k12" in parts:
+        k12_calls(tag, dev, smi)
+    if "k7a" in parts:
+        k7a_calls(tag, dev, smi)
     if "k9b" in parts:
-        other_kernels(tag, dev, gen, smi)
+        k9b_calls(tag, dev, gen, smi)
     if "k5" in parts:
         k5_scans(tag, dev, smi, graph)
     if "k6" in parts:
@@ -601,21 +616,94 @@ def k13_calls(tag, dev, smi) -> None:
                   f"in a CUDA graph, {_host_us(call)!r} us of host time ({smi})")
 
 
-def other_kernels(tag, dev, gen, smi) -> None:
-    """K12 and K9b at their main-path shapes, as K4's calls are timed."""
+def _by_kernel(fn, calls: int = 10) -> dict:
+    """Device time (ms) and launches a call, by kernel name, from `torch.profiler`."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            slot = per.setdefault(e.name, [0.0, 0])
+            slot[0] += e.time_range.elapsed_us()
+            slot[1] += 1
+    return {k: (us / calls / 1e3, n / calls) for k, (us, n) in per.items()}
+
+
+def k12_calls(tag, dev, smi) -> None:
+    """K12 at the control and the prediction trace: one step's hash, a step
+    as timed, on the host and in a CUDA graph of ten, and the device time by
+    kernel. Through a plan built once where the tree has one."""
     from griduniverse_tpu_torch.algos import td_lambda
+    from griduniverse_tpu_torch.kernels import trace_pass as k12
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b = 65_536
+    Plan = getattr(k12, "TracePassPlan", None)
+    for s, a in ((256, 4), (256, None)):
+        shape = (b, s) if a is None else (b, s, a)
+        e0 = torch.rand(shape, generator=gen, device=dev) * (torch.rand(shape, generator=gen, device=dev) < 0.3)
+        table = torch.randn(shape[1:], generator=gen, device=dev)
+        step = (torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32),
+                None if a is None else torch.randint(0, a, (b,), generator=gen, device=dev, dtype=torch.int32),
+                torch.randn((b,), generator=gen, device=dev), torch.rand((b,), generator=gen, device=dev) < 0.01,
+                0.99, 0.9, 1e-4, 0.1, "accumulating")
+        e = e0.clone()
+        if Plan is None:  # a tree of two kernels a step and no plan
+            def call(e=e, table=table, step=step):
+                return td_lambda.trace_pass(table, e, *step)
+
+            graph_ms = _graph_ms(call)
+            how = "no plan"
+        else:
+            def call_with(plan, e=e, table=table, step=step):
+                return td_lambda.trace_pass(table, e, *step, plan=plan)
+
+            def make_plan(table=table, a=a):
+                return Plan(table, b, a is not None)
+
+            plan = make_plan()
+
+            def call(call_with=call_with, plan=plan):
+                return call_with(plan)
+
+            graph_ms = _plan_graph_ms(make_plan, call_with)
+            how = "a plan a run"
+        first = e0.clone()
+        out = (td_lambda.trace_pass(table, first, *step) if Plan is None
+               else td_lambda.trace_pass(table, first, *step, plan=make_plan()))
+        name = f"K12 trace ({b}, {table.numel()}) {'prediction' if a is None else 'control'} ({how})"
+        print(f"[{tag}] {name}: {_events_ms(call)!r} ms a step as timed, {_host_us(call)!r} us of host time, "
+              f"{graph_ms!r} ms a step in a CUDA graph of ten; one step's hash {_hash((out, first))} ({smi})")
+        for kname, (ms, n) in sorted(_by_kernel(call).items(), key=lambda kv: -kv[1][0]):
+            print(f"    {ms!r} ms in {n!r} launches a step: {kname[:110]}")
+
+
+def k7a_calls(tag, dev, smi) -> None:
+    """K7a's GAE and n-step-return scans as timed, in a graph and on the host."""
+    from griduniverse_tpu_torch.kernels import gae as k7a
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for t, b in ((16, 65_536), (128, 65_536)):
+        value = torch.randn((t, b), generator=gen, device=dev)
+        reward = torch.randn((t, b), generator=gen, device=dev)
+        done = torch.rand((t, b), generator=gen, device=dev) < 0.05
+        boot = torch.randn((b,), generator=gen, device=dev)
+        calls = {"GAE": lambda: k7a.gae_cuda(value, reward, done, boot, 0.99, 0.95),
+                 "n-step returns": lambda: (k7a.nstep_returns_cuda(reward, done, boot, 0.99),)}
+        for name, fn in calls.items():
+            print(f"[{tag}] K7a {name} T={t} B={b}: {_events_ms(fn)!r} ms a call as timed, {_graph_ms(fn)!r} ms in "
+                  f"a CUDA graph of ten, {_host_us(fn)!r} us of host time; outputs' hash {_hash(fn())} ({smi})")
+
+
+def k9b_calls(tag, dev, gen, smi) -> None:
+    """K9b at a PPO minibatch, as K4's calls are timed."""
     from griduniverse_tpu_torch.kernels import agent_stamp as k9b
-
-    b, s, a = 65_536, 256, 4
-    e = torch.rand((b, s, a), generator=gen, device=dev) * (torch.rand((b, s, a), generator=gen, device=dev) < 0.3)
-    table = torch.randn((s, a), generator=gen, device=dev)
-    step = (torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32),
-            torch.randint(0, a, (b,), generator=gen, device=dev, dtype=torch.int32),
-            torch.randn((b,), generator=gen, device=dev), torch.rand((b,), generator=gen, device=dev) < 0.01,
-            0.99, 0.9, 1e-4, 0.1, "accumulating")
-
-    def k12():
-        return td_lambda.trace_pass(table, e, *step)
 
     n, nl, ch = 262_144, 16_384, 32
     y = torch.randn((nl, 9, 9, ch), generator=gen, device=dev).to(torch.bfloat16)
@@ -625,7 +713,6 @@ def other_kernels(tag, dev, gen, smi) -> None:
     cot = torch.randn((n, 9, 9, ch), generator=gen, device=dev).to(torch.bfloat16)
     out = k9b.agent_stamp_cuda(y, k, bias, obs)
     calls = {
-        f"K12 trace pass, trace ({b}, {s * a})": k12,
         f"K9b forward, N={n} Nl={nl} 9x9 C={ch} bfloat16": lambda: k9b.agent_stamp_cuda(y, k, bias, obs),
         f"K9b backward, N={n} Nl={nl} 9x9 C={ch} bfloat16": lambda: k9b.agent_stamp_backward_cuda(cot, out, obs, nl),
     }

@@ -398,20 +398,30 @@ def test_solver_wrappers_raise_on_bad_input(dev):
 # ---------------------------------------------------------------------------
 
 
-def test_gae_and_nstep_kernels_match_plain(dev):
-    gen = torch.Generator(device=dev).manual_seed(7)
-    t, b = 12, 4096
+@pytest.mark.parametrize("t", [1, 12, 16, 33, 128])
+@pytest.mark.parametrize("b", [1, 4095, 4096, 4098, 65_536, 65_537])
+def test_gae_and_nstep_kernels_match_plain(dev, t, b):
+    """K7a at both tiers and every width, and with the done bytes a view
+    that starts off a 4-byte boundary (the scalar path)."""
+    from griduniverse_tpu_torch.kernels import gae as k7a
+
+    gen = torch.Generator(device=dev).manual_seed(t * b)
     value = torch.randn((t, b), generator=gen, device=dev)
     reward = torch.randn((t, b), generator=gen, device=dev)
     done = torch.rand((t, b), generator=gen, device=dev) < 0.25
     bootstrap = torch.randn((b,), generator=gen, device=dev)
-    traj = a2c.Trajectory(None, None, None, value, reward, done)
-    before = kernels.LAUNCHES["gae"]
-    got = ppo.gae_advantages(traj, bootstrap, 0.99, 0.95)
-    ret = a2c.nstep_returns(reward, done, bootstrap, 0.99)
-    assert kernels.LAUNCHES["gae"] == before + 2
-    _assert_same(got, ppo.gae_advantages_reference(traj, bootstrap, 0.99, 0.95))
-    _assert_same((ret,), (a2c.nstep_returns_reference(reward, done, bootstrap, 0.99),))
+    shifted = torch.zeros(t * b + 1, dtype=torch.bool, device=dev)
+    shifted[1:] = done.reshape(-1)
+    off = shifted[1:].view(t, b)
+    assert off.data_ptr() % 4 != 0 and k7a.plan(t, b, (), off.data_ptr()).width == 1
+    for d in (done, off):
+        traj = a2c.Trajectory(None, None, None, value, reward, d)
+        before = kernels.LAUNCHES["gae"]
+        got = ppo.gae_advantages(traj, bootstrap, 0.99, 0.95)
+        ret = a2c.nstep_returns(reward, d, bootstrap, 0.99)
+        assert kernels.LAUNCHES["gae"] == before + 2
+        _assert_same(got, ppo.gae_advantages_reference(traj, bootstrap, 0.99, 0.95))
+        _assert_same((ret,), (a2c.nstep_returns_reference(reward, d, bootstrap, 0.99),))
     with pytest.raises(ValueError):
         ppo.gae_advantages(a2c.Trajectory(None, None, None, value, reward, done.int()), bootstrap, 0.99, 0.95)
 
@@ -1157,7 +1167,8 @@ def test_prio_refresh_kernel_matches_plain_above_one_block(dev, cap, n):
 
 
 @pytest.mark.parametrize("b,s,a", [(1, 16, 4), (300, 16, 4), (4096, 256, 4), (513, 81, None),
-                                   (16_776_961, 1, 2)])  # above 65,535 chunks of 256 envs
+                                   (16_776_961, 1, 2),  # above 65,535 chunks of 256 envs
+                                   (65_536, 256, None), (65_536, 256, 4)])  # the TD(λ) runs' traces
 @pytest.mark.parametrize("kind", ["accumulating", "replacing"])
 def test_trace_pass_kernel_matches_plain(dev, b, s, a, kind):
     gen = torch.Generator(device=dev).manual_seed(b)
@@ -1173,8 +1184,61 @@ def test_trace_pass_kernel_matches_plain(dev, b, s, a, kind):
     args = (states, actions, delta, cut, 0.9, 0.8, 1e-4, 0.3, kind)
     before = kernels.LAUNCHES["trace_pass"]
     got = td_lambda.trace_pass(table, e_g, *args)
-    assert kernels.LAUNCHES["trace_pass"] == before + trace_kernels.launches(b) == before + 2 + (b > 65_535 * 256)
+    assert kernels.LAUNCHES["trace_pass"] == before + trace_kernels.launches(b) == before + 1
     _assert_same((got, e_g), (td_lambda.trace_pass_reference(table, e_r, *args), e_r))
+
+
+def _trace_step_inputs(dev, gen, b, s, a):
+    states = torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32)
+    actions = None if a is None else torch.randint(0, a, (b,), generator=gen, device=dev, dtype=torch.int32)
+    return (states, actions, torch.randn((b,), generator=gen, device=dev),
+            torch.rand((b,), generator=gen, device=dev) < 0.1)
+
+
+@pytest.mark.parametrize("b,s,a", [(4096, 256, 4), (65_536, 256, None), (1000, 81, None)])
+def test_trace_pass_plan_chains_steps_bit_for_bit(dev, b, s, a):
+    """Five steps through one plan equal five plain steps: each launch
+    leaves the counts and tickets at 0 for the next."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shape = (b, s) if a is None else (b, s, a)
+    e_g = torch.zeros(shape, device=dev)
+    e_r = e_g.clone()
+    t_g = t_r = torch.randn(shape[1:], generator=gen, device=dev)
+    plan = trace_kernels.TracePassPlan(t_g, b, a is not None)
+    before = kernels.LAUNCHES["trace_pass"]
+    for _ in range(5):
+        step = _trace_step_inputs(dev, gen, b, s, a) + (0.9, 0.8, 1e-4, 0.3, "replacing")
+        t_g = td_lambda.trace_pass(t_g, e_g, *step, plan=plan)
+        t_r = td_lambda.trace_pass_reference(t_r, e_r, *step)
+        _assert_same((t_g, e_g), (t_r, e_r))
+    assert kernels.LAUNCHES["trace_pass"] == before + 5
+    assert not plan._scratch[plan.words["partial"]:].any()
+
+
+def test_trace_pass_step_replays_in_a_cuda_graph(dev):
+    """One step captured in a CUDA graph (the plan built on the capture's
+    stream) and replayed three times equals three plain steps."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s, a = 4096, 256, 4
+    e = torch.rand((b, s, a), generator=gen, device=dev) * (torch.rand((b, s, a), generator=gen, device=dev) < 0.3)
+    e_r = e.clone()
+    table = torch.randn((s, a), generator=gen, device=dev)
+    step = _trace_step_inputs(dev, gen, b, s, a) + (0.9, 0.8, 1e-4, 0.3, "accumulating")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        plan = trace_kernels.TracePassPlan(table, b, True)
+        warm = e.clone()
+        td_lambda.trace_pass(table, warm, *step, plan=plan)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = td_lambda.trace_pass(table, e, *step, plan=plan)
+    for _ in range(3):  # the captured step reads the same table and decays the same trace again
+        graph.replay()
+        want = td_lambda.trace_pass_reference(table, e_r, *step)
+        torch.cuda.synchronize()
+        _assert_same((out, e), (want, e_r))
 
 
 def test_td_lambda_on_cuda_equals_the_cpu_run(dev):
@@ -1187,7 +1251,7 @@ def test_td_lambda_on_cuda_equals_the_cpu_run(dev):
     for fn in (algos.sarsa_lambda, algos.watkins_q_lambda):
         before = kernels.LAUNCHES["trace_pass"]
         got = fn(sem, level, 5, **kw)
-        assert kernels.LAUNCHES["trace_pass"] == before + 2 * 40
+        assert kernels.LAUNCHES["trace_pass"] == before + 40
         want = fn(cpu_sem, cpu_level, 5, **kw)
         assert torch.equal(got.q.cpu().view(torch.int32), want.q.view(torch.int32))
         assert int(got.episodes) == int(want.episodes)

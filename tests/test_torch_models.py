@@ -64,7 +64,12 @@ def _rollout_arrays(seed, t, b):
     return value, reward, done, bootstrap
 
 
-@pytest.mark.parametrize("seed,t,b", [(0, 12, 5), (1, 16, 257), (2, 1, 3)])
+# T at the register tier (1), just above it (33) and in groups (128); B of one env, and odd
+# either side of 4,096, where K7a takes one env a thread
+K7A_TB = [(t, b) for t in (1, 33, 128) for b in (1, 4095, 4097)]
+
+
+@pytest.mark.parametrize("seed,t,b", [(0, 12, 5), (1, 16, 257), (2, 1, 3)] + [(10 + i, t, b) for i, (t, b) in enumerate(K7A_TB)])
 def test_gae_matches_jax_and_numpy(seed, t, b):
     value, reward, done, bootstrap = _rollout_arrays(seed, t, b)
     gamma, lam = 0.97, 0.9
@@ -87,7 +92,7 @@ def test_gae_matches_jax_and_numpy(seed, t, b):
     assert adv.dtype == torch.float32 and adv.shape == (t, b)
 
 
-@pytest.mark.parametrize("seed,t,b", [(3, 12, 5), (4, 16, 257)])
+@pytest.mark.parametrize("seed,t,b", [(3, 12, 5), (4, 16, 257)] + [(20 + i, t, b) for i, (t, b) in enumerate(K7A_TB)])
 def test_nstep_returns_match_jax_scan_and_numpy(seed, t, b):
     _, reward, done, bootstrap = _rollout_arrays(seed, t, b)
     gamma = 0.95
@@ -105,6 +110,32 @@ def test_nstep_returns_match_jax_scan_and_numpy(seed, t, b):
         exp[k] = g
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("t,b,width,tier", [
+    (1, 65_536, 4, "registers"), (16, 65_536, 4, "registers"), (17, 65_536, 4, "groups"), (128, 4096, 4, "groups"),
+    (16, 4098, 2, "registers"), (33, 4098, 2, "groups"), (1, 1, 1, "registers"), (33, 4095, 1, "groups"),
+    (128, 4097, 1, "groups"), (16, 65_537, 1, "registers")])
+def test_k7a_plan_tiers_and_widths(t, b, width, tier):
+    """K7a's plan as a function of (T, B) with aligned pointers: envs a
+    thread (16-byte accesses where B % 4 == 0, 8-byte where B % 2 == 0, else
+    the scalar path), the register tier up to T = 16, groups of 8 above."""
+    from griduniverse_tpu_torch.kernels import gae as k7a
+
+    got = k7a.plan(t, b)
+    assert got == (width, tier, k7a.THREADS, -(-(b // width) // k7a.THREADS))
+    assert (t <= k7a.REGISTER_T) == (tier == "registers") and k7a.GROUP == 8
+
+
+@pytest.mark.parametrize("floats,done,width", [((256, 512), 256, 4), ((256, 520), 256, 2), ((256, 512), 258, 2),
+                                               ((256, 512), 257, 1), ((260, 512), 256, 1), ((), 1, 1)])
+def test_k7a_plan_takes_the_scalar_edge_off_alignment(floats, done, width):
+    """A pointer off its width's alignment (a float pointer off 16 or 8 bytes,
+    the done bytes off 4 or 2, as a view into a larger buffer gives) narrows
+    the plan to what every pointer allows."""
+    from griduniverse_tpu_torch.kernels import gae as k7a
+
+    assert k7a.plan(16, 65_536, floats, done).width == width
 
 
 # ---------------------------------------------------------------------------

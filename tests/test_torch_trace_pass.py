@@ -23,6 +23,7 @@ import torch
 
 from griduniverse_tpu.algos import td_lambda as jtl
 from griduniverse_tpu_torch.algos import td_lambda as ttl
+from griduniverse_tpu_torch.kernels import trace_pass as k12
 from griduniverse_tpu_torch.kernels.trace_pass import CHUNK
 
 torch.set_num_threads(1)
@@ -137,6 +138,45 @@ def test_trace_pass_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         trace_pass_cuda(torch.zeros((3, 2)), torch.zeros((4, 3, 2)), i32, i32, torch.zeros(4),
                         torch.zeros(4, dtype=torch.bool), GAMMA * LAM, CUTOFF, ALPHA, False)
+
+
+@pytest.mark.parametrize("b,shape", [(1, (16, 4)), (300, (16, 4)), (65_536, (256, 4)), (65_536, (256,)),
+                                     (16_776_961, (1, 2))])
+def test_trace_pass_plan_scratch_and_one_launch(b, shape):
+    """K12 is one launch a step at any batch; a plan's scratch is a partial
+    sum a (chunk, cell), a count a cell and a ticket a tile, zeroed once."""
+    cells = int(np.prod(shape))
+    assert k12.launches(b) == 1
+    words = k12.scratch_words(b, cells)
+    chunks = -(-b // CHUNK)
+    assert words == {"partial": -(-chunks // 256) * 256 * cells, "count": cells, "tickets": 2 * -(-cells // k12.TILE)}
+    plan = k12.TracePassPlan(torch.zeros(shape), b, len(shape) == 2)
+    assert plan.words == words and plan.num_actions == (shape[-1] if len(shape) == 2 else 1)
+    assert plan._scratch.numel() == sum(words.values()) and not plan._scratch.any()
+
+
+@pytest.mark.parametrize("cells,sms,want", [(256, 132, 4), (1024, 132, 4), (128 * 66, 132, 4), (128 * 67, 132, 2),
+                                           (128 * 132, 132, 2), (128 * 133, 132, 1), (2, 1, 2), (129, 1, 1)])
+def test_trace_pass_appliers_keep_to_two_blocks_an_sm(cells, sms, want):
+    """Four blocks a tile add its sums while the tiles' appliers together
+    stay within two blocks an SM; then two, then one (which never waits)."""
+    assert k12.appliers(cells, sms) == want
+    assert want == 1 or want * -(-cells // k12.TILE) <= 2 * sms
+
+
+def test_trace_pass_plan_checks_the_step_against_its_shapes():
+    plan = k12.TracePassPlan(torch.zeros((16, 4)), 300, True)
+    i32 = torch.zeros(300, dtype=torch.int32)
+    step = (torch.zeros((16, 4)), torch.zeros((300, 16, 4)), i32, i32, torch.zeros(300),
+            torch.zeros(300, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):  # the shapes pass; the CPU does not
+        plan(*step, GAMMA * LAM, CUTOFF, ALPHA, False)
+    with pytest.raises(ValueError, match="e has shape"):
+        plan(step[0], torch.zeros((301, 16, 4)), *step[2:], GAMMA * LAM, CUTOFF, ALPHA, False)
+    with pytest.raises(ValueError, match="a is None"):
+        plan(*step[:3], None, *step[4:], GAMMA * LAM, CUTOFF, ALPHA, False)
+    with pytest.raises(ValueError, match="prediction table"):
+        k12.TracePassPlan(torch.zeros((16, 4)), 300, False)
 
 
 # ---------------------------------------------------------------------------
