@@ -43,7 +43,12 @@ size and checks what comes out:
     (fewer mazes a block, and one a block with its tree in device memory),
     and every step kernel (K1, K2, K4, K5, K6, K7b, K7c) at nine actions
     (K2 at 25 too), each through its public entry; and K2's times at its
-    four shapes, as timed and in a CUDA graph of ten.
+    four shapes, as timed and in a CUDA graph of ten;
+  * the compat API: `VectorGridEnv` (a K2 launch a step) over walls16 and
+    over per-env mazes at 65,536 envs, and `GridUniverseEnv(backend="torch")`
+    (a K2 launch a step) in random walks, each held bit for bit against its
+    CPU twin; and K1's threefry action stream through `rollout_random_bits`
+    and `compile_rollout_random`, against its plain version and in chunks.
 
 Each main path is driven with the launch counts set to 0 just before it and
 read just after, and every count must be the one the path's shape gives. The
@@ -51,7 +56,8 @@ main paths' own outputs are held bit for bit against the plain versions on
 the same inputs. Every phase raises on failure. The last two lines are a
 JSON record of the kernels (launches on the main paths, error against the
 plain version, kernel / plain / library times and the least time the card
-could take; K3 and K11 once for each shape they are timed at) and
+could take; K3 and K11 once for each shape they are timed at, K1 for each
+action stream, K2 also at the compat step's T = 1) and
 `{"ok": true, "device": {...}}`.
 
 It imports nothing of JAX: the reference's per-env golden mazes are read from
@@ -120,6 +126,21 @@ _STATE_FIELDS = ("agent_idx", "agent_code", "t", "done")
 # that `python -m griduniverse_tpu_torch.tools.sass_counts DIR` writes (a
 # warp issues both sides of a branch its lanes split on, so both count).
 INSTR_K1_STEP = 85      # the scan loop is 170 instructions for two unrolled steps
+XORSHIFT_ROUND = 6      # three shifts and three xors
+# Threefry-2x32-20's own operations a block: 20 rounds of an add, a rotate
+# (one funnel shift) and a xor, and six key injections of two adds each
+# (the round count folded into the key word, the same for every block).
+# K1's threefry loop as built is 176 SASS instructions a step, 71 of them
+# the cipher, taken every other step: 105 + 71 / 2 = 140.5 (its step is not
+# unrolled and reloads the divide's reciprocals; that is the design's cost)
+THREEFRY_BLOCK = 20 * 3 + 6 * 2
+
+
+def k1_threefry_function_ops(envs: int, steps: int) -> float:
+    """K1's threefry form, its own operations over a call: each step is the
+    xorshift form's (`INSTR_K1_STEP`) with its xorshift round taken out,
+    and one Threefry block feeds two steps. 115 a step."""
+    return envs * steps * (INSTR_K1_STEP - XORSHIFT_ROUND + THREEFRY_BLOCK / 2)
 INSTR_K2_STEP = 67      # the replay loop is 1,064 instructions a block of 16 steps, their actions' loads included
 # one cell's VI sweep in the packed kernel (`grid_sweeps_packed_kernel<4, false>`:
 # between two barriers 26 instructions on odd sweeps and 31 on even ones, of
@@ -2586,6 +2607,177 @@ def repair_phases(gt, dev, bound, smi, bl_walls):
     return errs
 
 
+# phase 25's shapes: the vector env's batch and steps, and the single env's walk
+COMPAT_ENVS = 65_536
+COMPAT_STEPS = 1_000
+COMPAT_TIMED_STEPS = 200  # the vector env's steps timed alone after the held run
+WALK_STEPS = 2_000
+
+
+def compat_phases(gt, dev, bound, smi, bl_walls):
+    """Phase 25: the compat API (on K2) and K1's threefry stream at full width.
+
+    Driven with the launch counts set to 0 just before and read just after:
+    (a) `VectorGridEnv` over walls16 at 65,536 envs and over 65,536 per-env
+    K3 9×9 mazes, 1,000 steps with max_episode_steps 512, actions from a
+    seeded `torch.Generator`, every step's four arrays bit for bit equal to
+    the same class run on the CPU with the same actions; both flag kinds
+    seen; then 200 steps timed alone. (b) `GridUniverseEnv(backend="torch")` on example 01's 6×6 level
+    and on a 33×33 random maze: a 2,000-step random walk (reset on done)
+    bit for bit equal to `backend="numpy"`. (c) `rollout_random_bits(
+    rng="threefry")` and `compile_rollout_random(rng="threefry")` at walls16,
+    B=65,536, T=1,000. K2 must have launched exactly once a step of (a) and
+    (b), K1 once a call of (c). Then K1's threefry form against its plain
+    version (final state and per-env accumulators), two chunks of 500
+    against one run of 1,000, and its time as timed and in a CUDA graph of
+    ten beside the xorshift form's; and K2 at T = 1 (the compat step) at
+    B = 1 and 65,536: as timed, in a graph, on the host. Returns the max
+    abs errors and the timed records, each with its own launches and error."""
+    from griduniverse_tpu_torch import kernels
+    from griduniverse_tpu_torch.compat import GridUniverseEnv, VectorGridEnv
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.levels import maze as M
+    from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms, _host_us
+
+    sem = gt.make_semantics(device=dev)
+    b, steps, mes = COMPAT_ENVS, COMPAT_STEPS, MAX_EPISODE_STEPS
+    mazes = _aldous_level(gt, M, dev, 25, b)
+    errs = {"random_scan_bits": 0.0, "rollout_actions_bits": 0.0}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+
+    # (a) the vector env, held step by step against its CPU run
+    gen = torch.Generator().manual_seed(25)
+    for name, level, kw in (("walls16", builders.walls_and_goal_16x16(device=dev), dict(num_envs=b)),
+                            ("mazes", mazes, {})):
+        card = VectorGridEnv(level, max_episode_steps=mes, device=dev, **kw)
+        host = VectorGridEnv(level.to("cpu"), max_episode_steps=mes, device="cpu", **kw)
+        _require(np.array_equal(card.reset(), host.reset()), f"VectorGridEnv {name}: reset differs")
+        flags = np.zeros(2, np.int64)
+        for t in range(steps):
+            actions = torch.randint(0, 4, (b,), generator=gen, dtype=torch.int32).numpy()
+            got = card.step(actions)
+            for k, (x, y) in enumerate(zip(got, host.step(actions))):
+                if x.dtype == np.float32:
+                    x, y = x.view(np.int32), y.view(np.int32)
+                _require(x.dtype == y.dtype and np.array_equal(x, y), f"VectorGridEnv {name} step {t}: array {k} differs")
+            flags += (int(got[2].sum()), int(got[3].sum()))
+        _require(flags.all(), f"VectorGridEnv {name}: terminated and truncated not both seen {flags}")
+        # timed apart from the CPU twin, whose threads share the host
+        timed = torch.randint(0, 4, (COMPAT_TIMED_STEPS, b), generator=gen, dtype=torch.int32).numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for actions in timed:
+            card.step(actions)
+        us = (time.perf_counter() - t0) / len(timed) * 1e6
+        print(f"VectorGridEnv {name} B={b}: {steps} steps bit-exact vs its CPU run; terminated {flags[0]}, "
+              f"truncated {flags[1]}; then {len(timed)} steps alone: {b / us * 1e6!r} env steps/s, "
+              f"{us!r} host µs a step (the four arrays copied back included) ({smi})")
+
+    # (b) the single env, torch backend against the numpy backend
+    for name, form in (("example01 6x6", dict(grid_shape=(6, 6), walls=[7, 8, 13], lava=[21], goal_states=[35])),
+                       ("maze 33x33", dict(random_maze=True, grid_shape=(33, 33), max_steps=400))):
+        card = GridUniverseEnv(backend="torch", device=dev, seed=25, **form)
+        host = GridUniverseEnv(backend="numpy", seed=25, **form)
+        _require(card.reset() == host.reset(), f"GridUniverseEnv {name}: reset differs")
+        episodes, wall = 0, 0.0
+        for t in range(WALK_STEPS):
+            a = card.action_space.sample()
+            _require(a == host.action_space.sample(), f"GridUniverseEnv {name}: samples differ")
+            t0 = time.perf_counter()
+            got = card.step(a)
+            wall += time.perf_counter() - t0  # the oracle's host step is outside the window
+            _require(got == host.step(a), f"GridUniverseEnv {name} step {t}: {got} differs")
+            if got[2]:
+                episodes += 1
+                _require(card.reset() == host.reset(), f"GridUniverseEnv {name}: reset differs")
+        _require(card.current_state == host.current_state and card.render("ansi") == host.render("ansi"),
+                 f"GridUniverseEnv {name}: final state differs")
+        print(f"GridUniverseEnv(backend='torch') {name}: {WALK_STEPS} steps bit-exact vs backend='numpy', "
+              f"{episodes} episodes; {wall / WALK_STEPS * 1e6!r} host µs a step ({smi})")
+
+    # (c) the threefry rollouts
+    _, stats = bp.rollout_random_bits(sem, bl_walls, 25, b, steps, mes, rng="threefry")
+    fn = bp.compile_rollout_random(sem, bl_walls, b, steps, mes, rng="threefry")
+    _, stats_c = fn(25)
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in ("random_scan_bits", "rollout_actions_bits")}
+    print(f"phase 25 launches (vector env, single env, threefry rollouts): {launches}")
+    want = {"random_scan_bits": 2, "rollout_actions_bits": 2 * (steps + COMPAT_TIMED_STEPS) + 2 * WALK_STEPS}
+    _require(launches == want, f"phase 25: launches {launches}, expected {want}")
+    for k in stats:
+        _same(f"K1 threefry compile_rollout_random {k}", stats_c[k], stats[k])
+    eps, length = int(stats["episodes"]), float(stats["mean_length"])
+    _require(eps > 0 and 1.0 <= length <= mes, f"K1 threefry: implausible stats {stats}")
+
+    # K1's threefry form against its plain version, in chunks, and timed
+    st = bp.reset_bits(bl_walls, b)
+    keys = bp.threefry_keys(25)
+    got = bp.random_scan_bits(sem, bl_walls, st, None, keys, steps, mes, "threefry")
+    t0 = time.perf_counter()
+    ref = bp.random_scan_bits_reference(sem, bl_walls, st, None, steps, mes, "threefry", keys)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs["random_scan_bits"] = _same_scan("K1 threefry", got, ref)
+    _same("K1 threefry episodes vs rollout_random_bits", got[1].sum(), stats["episodes"])
+    half = steps // 2
+    first = bp.random_scan_bits(sem, bl_walls, st, None, keys, half, mes, "threefry")
+    second = bp.random_scan_bits(sem, bl_walls, first[0], None, bp.threefry_keys(25, step=half), steps - half, mes,
+                                 "threefry")
+    for f in _STATE_FIELDS:
+        _same(f"K1 threefry chunks {f}", getattr(second[0], f), getattr(got[0], f))
+    for k, name in ((1, "n_eps"), (3, "len_sum")):
+        _same(f"K1 threefry chunks {name}", first[k] + second[k], got[k])
+    print(f"K1 threefry walls16 B={b} T={steps}: final state and per-env accumulators bit-exact vs plain; "
+          f"two chunks of {half} equal one run; episodes {eps}, mean_length {length!r}")
+    rs = bp.xorshift_init(25, (b,), device=dev)
+
+    def threefry():
+        return bp.random_scan_bits(sem, bl_walls, st, None, keys, steps, mes, "threefry")
+
+    def xorshift():
+        return bp.random_scan_bits(sem, bl_walls, st, rs, None, steps, mes)
+
+    ms, _ = _cuda_ms(threefry, 5)
+    xs_ms, _ = _cuda_ms(xorshift, 5)
+    graph_ms, xs_graph_ms = _graph_ms(threefry), _graph_ms(xorshift)
+    t1 = dict(ms=ms, plain_ms=plain_ms, graph_ms=graph_ms, shape=f"threefry walls16 B={b} T={steps} max_ep={mes}",
+              library_ms=None, launches=launches["random_scan_bits"], max_abs_err=errs["random_scan_bits"],
+              # state in (3 words) and state + accumulators out (7 words) per env
+              **bound(b * 10 * 4, k1_threefry_function_ops(b, steps)))
+    print(f"K1 walls16 B={b} T={steps}: threefry {ms!r} ms as timed, {graph_ms!r} ms in a CUDA graph of ten; "
+          f"xorshift {xs_ms!r} ms as timed, {xs_graph_ms!r} in a graph; threefry / xorshift in the graph "
+          f"{graph_ms / xs_graph_ms!r}; bound {t1['bound_ms']!r} ms by {t1['bound_by']} ({smi})")
+
+    # K2 at T = 1, the compat step's shape
+    times = {"random_scan_bits": [t1], "rollout_actions_bits": []}
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for n in (1, b):
+        st = bp.reset_bits(bl_walls, n)
+        actions = torch.randint(0, 4, (1, n), generator=gen, device=dev, dtype=torch.int32)
+
+        def call(st=st, actions=actions):
+            return bp.rollout_actions_bits(sem, bl_walls, st, actions, True, mes)
+
+        ms, got = _cuda_ms(call, 50)
+        plain_ms, ref = _cuda_ms(lambda: bp.rollout_actions_bits_reference(sem, bl_walls, st, actions, True, mes), 5)
+        err = max(_same(f"K2 T=1 B={n} out{k}", x, y) for k, (x, y) in enumerate(zip(got[1], ref[1])))
+        for f in _STATE_FIELDS:
+            _same(f"K2 T=1 B={n} {f}", getattr(got[0], f), getattr(ref[0], f))
+        errs["rollout_actions_bits"] = max(errs["rollout_actions_bits"], err)
+        graph_ms, host_us = _graph_ms(call), _host_us(call)
+        t2 = dict(ms=ms, plain_ms=plain_ms, graph_ms=graph_ms, host_us=host_us,
+                  shape=f"T=1 (the compat step) walls16 B={n} auto-reset max_ep={mes}", library_ms=None,
+                  launches=launches["rollout_actions_bits"], max_abs_err=err,
+                  **bound(n * 13 + n * 8 * 4, INSTR_K2_STEP * n))
+        times["rollout_actions_bits"].append(t2)
+        print(f"K2 at T=1 B={n}: {ms!r} ms a call as timed, {graph_ms * 1e3!r} device µs in a CUDA graph of ten, "
+              f"{host_us!r} host µs a call (the wrapper's checks and seven allocations); bound {t2['bound_ms']!r} "
+              f"ms by {t2['bound_by']} ({smi})")
+    return errs, times
+
+
 def _aldous_level(gt, M, dev, seed, b, cells=(4, 4)):
     grids, start = M.generate_mazes_device(seed, cells, b, "aldous_broder", device=dev)
     return gt.Level(grid=grids, start_idx=start.expand(b).contiguous())
@@ -2892,12 +3084,20 @@ def main() -> None:
     for name, err in repair_phases(gt, dev, bound, smi, bl_walls).items():
         errs[name] = max(errs[name], err)
     elapsed("phase 24")
-    # a kernel timed at several shapes (K3, K11) has a record for each
+    # -- phase 25: the compat API (K2) and K1's threefry stream ---------------------
+    compat_errs, compat_times = compat_phases(gt, dev, bound, smi, bl_walls)
+    for name, err in compat_errs.items():
+        errs[name] = max(errs[name], err)
+    for name, ts in compat_times.items():
+        times[name] = [times[name], *ts]
+    elapsed("phase 25")
+    # a kernel timed at several shapes or in several forms (K1, K2, K3, K11) has
+    # a record for each; one of another path carries its own launches and error
     shaped = [(name, t) for name, ts in times.items() for t in (ts if isinstance(ts, list) else [ts])]
     for name, t in shaped:
         print(f"time {name} at {t['shape']}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
               f"bound {t['bound_ms']!r} ms by {t['bound_by']}, library {t['library_ms']!r} ms, "
-              f"max abs err vs plain {errs[name]!r} ({smi})")
+              f"max abs err vs plain {t.get('max_abs_err', errs[name])!r} ({smi})")
 
     csrc = "griduniverse_tpu_torch/csrc/"
     sources = {
@@ -2925,10 +3125,11 @@ def main() -> None:
     _require(set(sources) == {name for name, _ in shaped}, "a kernel has no time")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
-         "launches": launches[name], "max_abs_err": errs[name],
+         "launches": t.get("launches", launches[name]), "max_abs_err": t.get("max_abs_err", errs[name]),
          "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-         "library_ms": t["library_ms"], "shape": t["shape"], **({"graph_ms": t["graph_ms"]} if "graph_ms" in t else {})}
+         "library_ms": t["library_ms"], "shape": t["shape"],
+         **{k: t[k] for k in ("graph_ms", "host_us") if k in t}}
         for name, t in shaped
     ]}
     print(smi)

@@ -9,7 +9,8 @@ Subpackages:
   core      — semantics tables, containers, batched step/reset, model table
   levels    — text-level I/O, builders, maze generation (K3 Aldous–Broder,
               K11 the recursive backtracker)
-  ops       — generic rollouts and the bit-packed engine (K1, K2)
+  ops       — generic rollouts and the bit-packed engine (K1 with its
+              xorshift and threefry action streams, K2)
   algos     — tabular solvers: DP over one or N mazes (K4), shared-Q TD
               (K5), per-maze TD (K6), the generic TD learners and
               Monte-Carlo prediction and control (`mc`) over the segment
@@ -18,11 +19,19 @@ Subpackages:
   models    — neural learners on one device: networks (K9a, K9b),
               optimizer, A2C and PPO (K7a, K7b), DQN with its replay ring
               and prioritized draw (K8a, K8b), greedy evaluation
+  compat    — the reference GridUniverse's API: the Gym-style
+              `GridUniverseEnv` (a K2 launch a step, or the NumPy oracle),
+              its gymnasium adapter (`GridUniverseTorch-v0`) and the
+              NumPy-facing `VectorGridEnv` (a K2 launch a step), with
+              `Discrete` spaces and headless rendering
   kernels   — build, binding and launch counts of the CUDA kernels
-  utils     — conversion of the reference's objects into the port's
+  utils     — device choice, conversion of the reference's objects into the
+              port's, checkpoints, metrics, the NumPy oracle (`oracle`) and
+              the tracing and timing helpers (`profiling`)
   tools     — command-line tools for the card (profile_rollout,
-              profile_solvers, profile_learners, sass_counts, and
-              gather_probe, the gather probes P1, P2)
+              profile_solvers, profile_learners, profile_kernels (the
+              compat envs' steps too), sass_counts, and gather_probe, the
+              gather probes P1, P2)
 """
 
 from .core.model import ModelTable, build_model_table

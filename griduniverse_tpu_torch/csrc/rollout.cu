@@ -2,7 +2,8 @@
 //
 // K1 replaces griduniverse_tpu/ops/bitplane.py `random_scan_bits` (334):
 // T random-action auto-reset steps per env, actions drawn from a per-env
-// xorshift32 stream, with per-env episode accumulators. K2 replaces
+// xorshift32 stream or from the threefry stream (below), with per-env
+// episode accumulators. K2 replaces
 // `rollout_actions_bits` (278), which replays pre-drawn (T, B) actions in
 // the freeze-on-done or the auto-reset mode of `step_bits` (230).
 //
@@ -20,6 +21,12 @@
 // adds keep the JAX order (`run_ret += reward`, then `ret_sum += run_ret` on
 // done), and the file must be built without --use_fast_math, so the
 // accumulators equal the plain version's bit for bit.
+//
+// K1's threefry stream (`ops/bitplane.py` module docstring): the action of
+// global step g of env lane l is word g & 1 of Threefry-2x32-20's block of
+// the counter (g >> 1, l) under the key (key0, key1). A thread enciphers
+// one block every other step and keeps its second word for the next. The
+// stream is a template parameter, so the xorshift loop is what it was.
 //
 // K2's design, for Hopper. Its path in the port is the golden replays and
 // rollouts of a few thousand envs, where a launch of 256-thread blocks ran
@@ -62,7 +69,44 @@ constexpr int kStageBytes = 48 * 1024;  // the most bytes of a warp's per-env le
 // staged in shared memory, or each env's level read from device memory.
 enum LevelForm : int { kSharedLevel = 0, kStagedLevels = 1, kDeviceLevels = 2 };
 
-template <typename Tab>
+// K1's action streams (`kernels/rollout.py` STREAM_*).
+enum ActionStream : int { kXorshift = 0, kThreefry = 1 };
+
+// Four Threefry-2x32 rounds: each adds, rotates left and xors.
+__device__ __forceinline__ void threefry_rounds(uint32_t& x0, uint32_t& x1, int r0, int r1, int r2, int r3) {
+  const int r[4] = {r0, r1, r2, r3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x0 += x1;
+    x1 = __funnelshift_l(x1, x1, r[i]) ^ x0;
+  }
+}
+
+// Threefry-2x32 with 20 rounds (Salmon et al., SC'11; Random123's
+// threefry2x32_20): five groups of four rounds, the key injected after each.
+__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0;
+  x1 += k1;
+  threefry_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k1;
+  x1 += k2 + 1u;
+  threefry_rounds(x0, x1, 17, 29, 16, 24);
+  x0 += k2;
+  x1 += k0 + 2u;
+  threefry_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k0;
+  x1 += k1 + 3u;
+  threefry_rounds(x0, x1, 17, 29, 16, 24);
+  x0 += k1;
+  x1 += k2 + 4u;
+  threefry_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k2;
+  x1 += k0 + 5u;
+  return make_uint2(x0, x1);
+}
+
+template <typename Tab, int kStream>
 __global__ void random_scan_bits_kernel(
     const uint8_t* __restrict__ passable, const uint8_t* __restrict__ terminal,
     const float* __restrict__ reward, const int* __restrict__ deltas,
@@ -71,7 +115,8 @@ __global__ void random_scan_bits_kernel(
     const int* __restrict__ start_code, int h, int w, int batch, int num_steps,
     int max_episode_steps, const int* __restrict__ idx_in,
     const int* __restrict__ code_in, const int* __restrict__ t_in,
-    const uint32_t* __restrict__ rs_in, int* __restrict__ idx_out,
+    const uint32_t* __restrict__ rs_in, uint32_t key0, uint32_t key1,
+    uint32_t first_step, uint32_t lane_offset, int* __restrict__ idx_out,
     int* __restrict__ code_out, int* __restrict__ t_out,
     uint8_t* __restrict__ done_out, int* __restrict__ n_eps_out,
     float* __restrict__ ret_sum_out, int* __restrict__ len_sum_out) {
@@ -91,11 +136,26 @@ __global__ void random_scan_bits_kernel(
   const unsigned na = static_cast<unsigned>(num_actions);
 
   int idx = idx_in[b], code = code_in[b], t = t_in[b];
-  uint32_t rs = rs_in[b];
+  uint32_t rs = 0, odd_word = 0;  // the xorshift state; the threefry block's second word
+  if constexpr (kStream == kXorshift) rs = rs_in[b];
+  const uint32_t lane = lane_offset + static_cast<uint32_t>(b);
   gu::Episode ep{0.0f, 0.0f, 0, 0};
   for (int step = 0; step < num_steps; ++step) {
-    rs = gu::xorshift32(rs);
-    const int a = static_cast<int>((rs >> 9) % na);  // top bits are the strongest
+    uint32_t bits;
+    if constexpr (kStream == kXorshift) {
+      rs = gu::xorshift32(rs);
+      bits = rs;
+    } else {
+      const uint32_t g = first_step + static_cast<uint32_t>(step);
+      if ((g & 1u) == 0u || step == 0) {
+        const uint2 block = threefry2x32(key0, key1, g >> 1, lane);
+        odd_word = block.y;
+        bits = (g & 1u) ? block.y : block.x;
+      } else {
+        bits = odd_word;
+      }
+    }
+    const int a = static_cast<int>((bits >> 9) % na);  // top bits are the strongest
     gu::step_autoreset(tab, lw, h, w, s_idx, s_code, max_episode_steps, a, idx, code, t, ep);
   }
   idx_out[b] = idx;
@@ -238,12 +298,16 @@ extern "C" int gu_random_scan_bits(
     const void* deltas, int num_actions, const void* words, int n_words,
     int per_env, const void* start_idx, const void* start_code, int h, int w,
     int batch, int num_steps, int max_episode_steps, const void* idx_in,
-    const void* code_in, const void* t_in, const void* rs_in, void* idx_out,
-    void* code_out, void* t_out, void* done_out, void* n_eps, void* ret_sum,
-    void* len_sum, void* stream) {
+    const void* code_in, const void* t_in, const void* rs_in, int rng, int key0,
+    int key1, int first_step, int lane_offset, void* idx_out, void* code_out,
+    void* t_out, void* done_out, void* n_eps, void* ret_sum, void* len_sum,
+    void* stream) {
   const int blocks = (batch + kThreads - 1) / kThreads;
-  auto* kernel = num_actions > gu::kMaxActions ? random_scan_bits_kernel<gu::WideTables>
-                                               : random_scan_bits_kernel<gu::Tables>;
+  const bool wide = num_actions > gu::kMaxActions;
+  auto* kernel = rng == kThreefry ? (wide ? random_scan_bits_kernel<gu::WideTables, kThreefry>
+                                          : random_scan_bits_kernel<gu::Tables, kThreefry>)
+                                  : (wide ? random_scan_bits_kernel<gu::WideTables, kXorshift>
+                                          : random_scan_bits_kernel<gu::Tables, kXorshift>);
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(passable), static_cast<const uint8_t*>(terminal),
       static_cast<const float*>(reward), static_cast<const int*>(deltas), num_actions,
@@ -251,7 +315,8 @@ extern "C" int gu_random_scan_bits(
       static_cast<const int*>(start_idx), static_cast<const int*>(start_code), h, w,
       batch, num_steps, max_episode_steps, static_cast<const int*>(idx_in),
       static_cast<const int*>(code_in), static_cast<const int*>(t_in),
-      static_cast<const uint32_t*>(rs_in), static_cast<int*>(idx_out),
+      static_cast<const uint32_t*>(rs_in), static_cast<uint32_t>(key0), static_cast<uint32_t>(key1),
+      static_cast<uint32_t>(first_step), static_cast<uint32_t>(lane_offset), static_cast<int*>(idx_out),
       static_cast<int*>(code_out), static_cast<int*>(t_out),
       static_cast<uint8_t*>(done_out), static_cast<int*>(n_eps),
       static_cast<float*>(ret_sum), static_cast<int*>(len_sum));

@@ -12,6 +12,7 @@ from . import LAUNCHES
 from .build import check_int, check_tensor, launch
 
 NARROW_ACTIONS = 8  # up to this many the kernels keep rows in registers; above, their wide form
+STREAM_XORSHIFT, STREAM_THREEFRY = 0, 1  # K1's action streams (`csrc/rollout.cu` `ActionStream`)
 MAX_WORDS = 1024
 
 
@@ -58,14 +59,22 @@ def max_steps_arg(max_episode_steps) -> int:
     return check_int("max_episode_steps", max_episode_steps)
 
 
+def _signed32(x: int) -> int:
+    """A uint32 word as the C int with its bits."""
+    x = int(x) & 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
 def random_scan_bits_cuda(
     passable, terminal, reward, deltas,
     code_words, start_idx, start_code, height, width,
     agent_idx, agent_code, t, rs,
-    num_steps: int, max_episode_steps: int | None,
+    num_steps: int, max_episode_steps: int | None, keys=None,
 ):
-    """Launch K1. Returns the final (agent_idx, agent_code, t, done) and
-    the per-env (n_eps int32, ret_sum float32, len_sum int32)."""
+    """Launch K1. Without `keys` it draws from the xorshift32 states `rs`;
+    with `keys` (an `ops.bitplane.ThreefryKeys`) from the threefry stream,
+    and `rs` is not read. Returns the final (agent_idx, agent_code, t,
+    done) and the per-env (n_eps int32, ret_sum float32, len_sum int32)."""
     device = code_words.device
     if device.type != "cuda":
         raise ValueError(f"random_scan_bits_cuda takes CUDA tensors, got {device}")
@@ -77,8 +86,13 @@ def random_scan_bits_cuda(
         check_tensor("agent_idx", agent_idx, torch.int32, (b,), device),
         check_tensor("agent_code", agent_code, torch.int32, (b,), device),
         check_tensor("t", t, torch.int32, (b,), device),
-        check_tensor("rs", rs, torch.int32, (b,), device),
     ]
+    if keys is None:
+        args += [check_tensor("rs", rs, torch.int32, (b,), device), STREAM_XORSHIFT, 0, 0, 0, 0]
+    else:
+        # the step and the offset below 2^31 keep every global step and lane below 2^32
+        args += [None, STREAM_THREEFRY, *map(_signed32, keys.key), check_int("threefry step", keys.step),
+                 check_int("lane offset", keys.offset)]
     outs = [torch.empty(b, dtype=torch.int32, device=device) for _ in range(3)]
     outs.append(torch.empty(b, dtype=torch.bool, device=device))
     n_eps = torch.empty(b, dtype=torch.int32, device=device)

@@ -16,6 +16,20 @@ Two functions have a hand-written CUDA kernel (`csrc/rollout.cu`):
 Each picks its path by device: CPU tensors take the plain version beside
 it (`*_reference`), CUDA tensors launch the kernel, or raise.
 
+K1 draws its actions from one of two streams (`rng=`):
+  * "xorshift" — a per-env xorshift32 state (`xorshift_init`), the
+    reference's stream bit for bit;
+  * "threefry" — Threefry-2x32 with 20 rounds (Salmon et al., SC'11; the
+    cipher under `jax.random`), keyed by `ThreefryKeys`. The block of env
+    lane l at pair index p enciphers the counter (p, l) under the key
+    (0, seed), the pair `PRNGKey(seed)` holds, and gives the words of two
+    consecutive steps: global step g draws word g & 1 of the block at
+    p = g >> 1. l is the env's global lane (its index plus the lane offset,
+    as `xorshift_init`'s `offset`), so chunked and sharded scans draw what
+    one unbroken scan draws. JAX's `split` / `randint` draws are not
+    reproduced: a test that holds the port against them injects them.
+A word becomes an action as `(word >> 9) % A` in both streams.
+
 Semantics are identical to core.step; out-of-range actions are clamped as
 in core.step (the reference's select tree reads only their low bits).
 """
@@ -313,12 +327,80 @@ def xorshift_next(s: torch.Tensor):
     return s, s
 
 
-def _check_rng(rng: str, keys=None):
-    if rng != "xorshift" or keys is not None:
-        raise ValueError(
-            f"rng={rng!r}: the port draws actions only from the xorshift32 "
-            "stream; threefry keys are not ported (see ROADMAP.md, queue 1)"
-        )
+# Threefry-2x32's rotations (two sets of four rounds, alternating) and the
+# parity word of its key schedule.
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+@dataclasses.dataclass(frozen=True)
+class ThreefryKeys:
+    """Where a threefry scan draws: the cipher key (two uint32 words), the
+    global step of the scan's first draw and the env lane offset."""
+
+    key: tuple[int, int]
+    step: int = 0
+    offset: int = 0
+
+
+def threefry_keys(seed, step: int = 0, offset: int = 0) -> ThreefryKeys:
+    """The stream of `PRNGKey(seed)`'s key (0, seed mod 2^32) from global
+    `step`, for envs numbered from `offset`. The seed is taken modulo 2^32,
+    as the reference's `PRNGKey(jnp.asarray(seed, jnp.uint32))` and JAX's
+    default 32-bit `PRNGKey(seed)` take it: seeds 11 and 2^32 + 11 draw
+    the same stream, and seed -1 is (0, 2^32 - 1)."""
+    return ThreefryKeys((0, int(seed) & _U32), int(step), int(offset))
+
+
+def _rotl32(x, r: int):
+    return ((x << r) & _U32) | (x >> (32 - r))
+
+
+def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
+    """Threefry-2x32, 20 rounds, on int64 values in [0, 2^32): the block of
+    counter (x0, x1) under `key` (two ints), as two int64 tensors."""
+    k0, k1 = (int(k) & _U32 for k in key)
+    ks = (k0, k1, k0 ^ k1 ^ _THREEFRY_PARITY)
+    x0 = (x0 + ks[0]) & _U32
+    x1 = (x1 + ks[1]) & _U32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _U32
+    return x0, x1
+
+
+def _threefry_words(keys: ThreefryKeys, batch: int, num_steps: int, device):
+    """The threefry stream's words, one (B,) int64 tensor a step."""
+    lanes = (torch.arange(batch, dtype=torch.int64, device=device) + keys.offset) & _U32
+    odd = None
+    for s in range(num_steps):
+        g = keys.step + s
+        if g % 2 == 0 or s == 0:
+            even, odd = threefry2x32(keys.key, torch.full_like(lanes, (g >> 1) & _U32), lanes)
+            yield odd if g % 2 else even
+        else:
+            yield odd
+
+
+RNGS = ("xorshift", "threefry")
+
+
+def _check_rng_name(rng: str):
+    if rng not in RNGS:
+        raise ValueError(f"rng={rng!r}: expected one of {RNGS}")
+
+
+def _check_rng(rng: str, keys):
+    """The xorshift stream takes no keys, the threefry stream its
+    `ThreefryKeys`."""
+    _check_rng_name(rng)
+    if rng == "threefry" and not isinstance(keys, ThreefryKeys):
+        raise ValueError(f"rng='threefry' takes ThreefryKeys as keys, got {type(keys).__name__}")
+    if rng == "xorshift" and keys is not None:
+        raise ValueError("rng='xorshift' draws from rs and takes no keys")
 
 
 def random_scan_bits(
@@ -334,18 +416,22 @@ def random_scan_bits(
 ):
     """The fused random-action auto-reset scan (K1 on CUDA), returning the
     final state and the PER-ENV accumulators (n_eps int32, folded ret_sum
-    float32, folded len_sum int32). `keys` must be None and `rng`
-    "xorshift"; `unroll` is accepted and ignored."""
+    float32, folded len_sum int32). `rng="xorshift"` draws from the
+    per-env states `rs` and takes `keys=None`; `rng="threefry"` draws from
+    the `ThreefryKeys` `keys` and ignores `rs`. `unroll` is accepted and
+    ignored."""
     del unroll
     _check_rng(rng, keys)
-    if not kernels.on_cuda(rs, state.agent_idx, bl.code_words, sem.deltas):
+    rs = rs if rng == "xorshift" else None
+    tensors = [x for x in (rs, state.agent_idx, bl.code_words, sem.deltas) if x is not None]
+    if not kernels.on_cuda(*tensors):
         return random_scan_bits_reference(
-            sem, bl, state, rs, num_steps, max_episode_steps
+            sem, bl, state, rs, num_steps, max_episode_steps, rng, keys
         )
     idx, code, t, done, n_eps, ret_sum, len_sum = random_scan_bits_cuda(
         *_sem_level_args(sem, bl),
         state.agent_idx, state.agent_code, state.t, rs,
-        num_steps, max_episode_steps,
+        num_steps, max_episode_steps, keys,
     )
     return FastState(idx, code, t, done), n_eps, ret_sum, len_sum
 
@@ -354,24 +440,36 @@ def random_scan_bits_reference(
     sem: Semantics,
     bl: BitLevel,
     state: FastState,
-    rs: torch.Tensor,
+    rs: torch.Tensor | None,
     num_steps: int,
     max_episode_steps: int | None,
+    rng: str = "xorshift",
+    keys: ThreefryKeys | None = None,
+    actions: torch.Tensor | None = None,
 ):
     """Plain PyTorch version of K1: a Python loop of `step_bits`, the
-    xorshift32 stream on int64 masked to 32 bits, and the reference's order
-    of float adds."""
+    xorshift32 or threefry stream on int64 masked to 32 bits, and the
+    reference's order of float adds. Given (T, B) `actions`, it steps
+    those instead of drawing (`rng`, `keys` and `rs` unread)."""
     num_actions = sem.num_actions
-    s = to_uint32_values(rs)
+    if actions is not None:
+        if tuple(actions.shape) != (num_steps, state.agent_idx.shape[0]):
+            raise ValueError(f"actions must be (num_steps, B), got {tuple(actions.shape)}")
+        draws = iter(actions)
+    else:
+        _check_rng(rng, keys)
+        if rng == "threefry":
+            words = _threefry_words(keys, state.agent_idx.shape[0], num_steps, bl.device)
+        else:
+            words = _xorshift_words(to_uint32_values(rs), num_steps)
+        draws = ((w >> 9) % num_actions for w in words)  # top bits are the strongest
     zf = torch.zeros(state.agent_idx.shape, dtype=torch.float32, device=bl.device)
     zi = torch.zeros(state.agent_idx.shape, dtype=torch.int32, device=bl.device)
     run_ret, ret_sum, n_eps, len_sum = zf, zf, zi, zi
-    for _ in range(num_steps):
-        s = _xorshift_step(s)
-        actions = (s >> 9) % num_actions  # top bits are the strongest
+    for a in draws:
         ep_len = state.t + 1
         state, (_, reward, done) = step_bits(
-            sem, bl, state, actions, True, max_episode_steps
+            sem, bl, state, a, True, max_episode_steps
         )
         run_ret = run_ret + reward
         n_eps = n_eps + done.to(torch.int32)
@@ -379,6 +477,13 @@ def random_scan_bits_reference(
         len_sum = len_sum + torch.where(done, ep_len, zi)
         run_ret = torch.where(done, zf, run_ret)
     return state, n_eps, ret_sum, len_sum
+
+
+def _xorshift_words(s: torch.Tensor, num_steps: int):
+    """The xorshift32 stream's words, one (B,) int64 tensor a step."""
+    for _ in range(num_steps):
+        s = _xorshift_step(s)
+        yield s
 
 
 def rollout_random_bits(
@@ -391,12 +496,17 @@ def rollout_random_bits(
     rng: str = "xorshift",
 ):
     """Fused random-action auto-reset rollout with on-device episode stats.
-    Returns (final FastState, stats dict of 0-d tensors)."""
-    _check_rng(rng)
+    `rng` — "xorshift" (`xorshift_init(seed)`) or "threefry"
+    (`threefry_keys(seed)`). Returns (final FastState, stats dict of 0-d
+    tensors)."""
+    _check_rng_name(rng)
     state = reset_bits(bl, None if bl.batched else batch_size)
-    rs = xorshift_init(seed, state.agent_idx.shape, device=bl.device)
+    if rng == "threefry":
+        rs, keys = None, threefry_keys(seed)
+    else:
+        rs, keys = xorshift_init(seed, state.agent_idx.shape, device=bl.device), None
     state, n_eps, ret_sum, len_sum = random_scan_bits(
-        sem, bl, state, rs, None, num_steps, max_episode_steps, rng
+        sem, bl, state, rs, keys, num_steps, max_episode_steps, rng
     )
     # cross-env sums in int64: the reference's int32 sum of len_sum wraps
     # once B·T passes 2^31
@@ -422,7 +532,7 @@ def compile_rollout_random(
     """Factory of `fn(seed) -> (state, stats)` over fixed tables and level.
     `unroll` is a TPU scheduling knob, accepted and ignored."""
     del unroll
-    _check_rng(rng)
+    _check_rng_name(rng)
 
     def fn(seed):
         return rollout_random_bits(

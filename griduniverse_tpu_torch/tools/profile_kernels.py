@@ -1,9 +1,9 @@
-"""Where the time of seven kernels' calls goes, on one CUDA card.
+"""Where the time of seven kernels' calls and of the compat envs' steps goes, on one CUDA card.
 
-    python -m griduniverse_tpu_torch.tools.profile_kernels [k10] [k8a] [k9a] [k8b] [k8bw] [k9b] [tileconv] [probes]
+    python -m griduniverse_tpu_torch.tools.profile_kernels [k10] [k8a] [k9a] [k8b] [k8bw] [k9b] [tileconv] [probes] [compat]
 
 From the root of a checkout, on a machine with a Hopper card and nvcc. The
-arguments pick the kernels (all eight parts by default). It prints the card's name
+arguments pick the parts (all nine by default). It prints the card's name
 and power limit (`nvidia-smi`), then takes these calls:
 
 - K10 (`apply_td_updates`): 4,096 and 65,536 envs over S·A = 1,024, 102,400
@@ -43,7 +43,16 @@ and power limit (`nvidia-smi`), then takes these calls:
   backward, the output's gradient in and the planes again) over 3.35 TB/s
   and the multiply-adds over the card's bfloat16 tensor rate, 989 TFLOP/s.
 
-For each it prints four readings:
+- the compat envs' steps (`compat`): `VectorGridEnv` (a K2 launch a step,
+  auto-reset, max_episode_steps 512) over walls16 at B = 4,096 and 65,536
+  and over 65,536 per-env 9×9 mazes, and `GridUniverseEnv` on example 01's
+  6×6 level with `backend="torch"` (a K2 launch a step) and
+  `backend="numpy"` (the host oracle). A step ends on the host, so these
+  print only the host's time a step (as below) and, for the card's steps,
+  50 steps under `torch.profiler`: the host's self time by operation and
+  the device's time by kernel.
+
+For each of the kernels' calls it prints four readings:
 
 - the time of a call as `chip_smoke.py` times it: CUDA events around 30
   calls, the wrapper's checks and allocations included;
@@ -115,6 +124,63 @@ def _host_us(fn, calls: int = 200, rounds: int = 5) -> float:
     return best
 
 
+def _compat(dev, smi: str, steps: int = 50, top: int = 8) -> None:
+    """The compat part: each env's host µs a step and, on the card, where
+    `steps` steps spend the host's and the device's time."""
+    import itertools
+
+    import numpy as np
+
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch.compat import GridUniverseEnv, VectorGridEnv
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.levels import maze as M
+
+    rng = np.random.default_rng(0)
+    walls16 = builders.walls_and_goal_16x16(device=dev)
+    grids, start = M.generate_mazes_device(3, (4, 4), 65_536, "aldous_broder", device=dev)
+    mazes = gt.Level(grid=grids, start_idx=start.expand(65_536).contiguous())
+    envs = {}
+    for name, level, b in (("walls16", walls16, 4096), ("walls16", walls16, 65_536), ("mazes 9x9", mazes, 65_536)):
+        venv = VectorGridEnv(level, num_envs=b, max_episode_steps=512, device=dev)
+        actions = itertools.cycle(rng.integers(0, 4, (64, b)).astype(np.int32))
+        envs[f"VectorGridEnv {name} B={b}"] = (b, lambda venv=venv, actions=actions: venv.step(next(actions)))
+    for backend in ("torch", "numpy"):
+        env = GridUniverseEnv(grid_shape=(6, 6), walls=[7, 8, 13], lava=[21], goal_states=[35], seed=0,
+                              backend=backend, device=dev if backend == "torch" else None)
+        actions = itertools.cycle(rng.integers(0, 4, 64).tolist())
+
+        def step(env=env, actions=actions):
+            if env.step(next(actions))[2]:
+                env.reset()
+
+        envs[f"GridUniverseEnv(backend={backend!r}) 6x6"] = (1, step)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, (b, step) in envs.items():
+        us = _host_us(step)
+        print(f"{name}: {us!r} host µs a step, {b / us * 1e6!r} env steps/s ({smi})")
+        if "numpy" in name:
+            continue
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                step()
+        rows = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                      key=lambda e: -e.self_cpu_time_total)
+        print(f"  host self time by operation, {steps} steps")
+        for e in rows[:top]:
+            print(f"    {e.self_cpu_time_total / steps:9.1f} us a step  {e.count // steps:3d} x  {e.key[:80]}")
+        kernels: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                slot = kernels.setdefault(e.name, [0.0, 0])
+                slot[0] += e.time_range.elapsed_us()
+                slot[1] += 1
+        busy, events = sum(us for us, _ in kernels.values()), sum(c for _, c in kernels.values())
+        print(f"  device busy {busy / steps!r} us a step, {events // steps} device events a step")
+        for n, (kus, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+            print(f"    {kus / steps:9.2f} us a step  {count // steps:3d} x  {n[:80]}")
+
+
 def main(argv: list[str] | None = None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: torch.cuda.is_available() is False; this runs only on a GPU")
@@ -123,7 +189,7 @@ def main(argv: list[str] | None = None) -> None:
     from griduniverse_tpu_torch.kernels import embed_rows as k9a
     from griduniverse_tpu_torch.models import a2c, dqn
 
-    known = {"k10", "k8a", "k9a", "k8b", "k8bw", "k9b", "tileconv", "probes"}
+    known = {"k10", "k8a", "k9a", "k8b", "k8bw", "k9b", "tileconv", "probes", "compat"}
     picked = set(sys.argv[1:] if argv is None else argv) or known
     unknown = picked - known
     if unknown:
@@ -305,6 +371,8 @@ def main(argv: list[str] | None = None) -> None:
     if "k9b" in picked:
         for n, nl in ((262_144, 16_384), (65_536, 65_536), (256, 256), (65_536, 1)):
             calls.update(k9b_calls(n, nl))
+    if "compat" in picked:
+        _compat(dev, smi)
     for name, fn in calls.items():
         ms = _events_ms(fn)
         bound = f", bound {bounds[name]!r} ms" if name in bounds else ""

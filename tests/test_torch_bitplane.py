@@ -250,17 +250,154 @@ def test_rollout_random_bits_stats_match_jax(max_ep):
         np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-6)
 
 
-def test_compile_rollout_random_ignores_unroll_and_refuses_threefry():
+def test_compile_rollout_random_ignores_unroll_and_takes_threefry():
     bl = tbp.pack_level(tb.walls_and_goal_16x16(device=CPU))
-    results = [tbp.compile_rollout_random(TSEM, bl, 64, 333, 100, unroll=u)(5) for u in (1, 16)]
-    for (s0, st0), (s1, st1) in zip(results, results[1:]):
-        assert torch.equal(s0.agent_idx, s1.agent_idx)
-        for k in st0:
-            assert torch.equal(st0[k], st1[k])
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tbp.compile_rollout_random(TSEM, bl, 64, 10, rng="threefry")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tbp.rollout_random_bits(TSEM, bl, 0, 4, 10, rng="threefry")
+    for rng in ("xorshift", "threefry"):
+        results = [tbp.compile_rollout_random(TSEM, bl, 64, 333, 100, rng, unroll=u)(5) for u in (1, 16)]
+        direct = tbp.rollout_random_bits(TSEM, bl, 5, 64, 333, 100, rng=rng)
+        for (s0, st0), (s1, st1) in zip(results, [*results[1:], direct]):
+            assert torch.equal(s0.agent_idx, s1.agent_idx)
+            for k in st0:
+                assert torch.equal(st0[k], st1[k])
+    xs = tbp.rollout_random_bits(TSEM, bl, 5, 64, 333, 100)[0]
+    assert not torch.equal(results[0][0].agent_idx, xs.agent_idx)  # two streams
+    with pytest.raises(ValueError, match="rng"):
+        tbp.compile_rollout_random(TSEM, bl, 64, 10, rng="philox")
+    with pytest.raises(ValueError, match="rng"):
+        tbp.rollout_random_bits(TSEM, bl, 0, 4, 10, rng="philox")
+
+
+# ---------------------------------------------------------------------------
+# The threefry action stream: Threefry-2x32-20 blocks of (step pair, lane)
+# under the key (0, seed).
+# ---------------------------------------------------------------------------
+
+# Random123's known-answer vectors of threefry2x32_20: key, counter, block.
+THREEFRY_KAT = (
+    ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF), (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0)),
+)
+
+
+def test_threefry_block_matches_known_answers_and_jax(rng):
+    from jax._src.prng import threefry_2x32
+
+    for key, (c0, c1), want in THREEFRY_KAT:
+        got = tbp.threefry2x32(key, torch.tensor([c0]), torch.tensor([c1]))
+        assert (int(got[0]), int(got[1])) == want
+    for _ in range(8):
+        key = rng.integers(0, 2**32, size=2, dtype=np.uint64).astype(np.uint32)
+        count = rng.integers(0, 2**32, size=(2, 64), dtype=np.uint64).astype(np.uint32)
+        ref = np.asarray(threefry_2x32(jnp.asarray(key), jnp.asarray(count.reshape(-1)))).reshape(2, 64)
+        x0, x1 = tbp.threefry2x32(tuple(int(k) for k in key), *(torch.as_tensor(c.astype(np.int64)) for c in count))
+        np.testing.assert_array_equal(ref[0], x0.numpy().astype(np.uint32))
+        np.testing.assert_array_equal(ref[1], x1.numpy().astype(np.uint32))
+
+
+def test_threefry_stream_layout():
+    """Step g of lane l is word g & 1 of the block of (g >> 1, l) under
+    (0, seed); actions are its bits 9 and up, modulo A."""
+    keys = tbp.threefry_keys(2**32 + 11, step=5, offset=40)
+    assert keys.key == (0, 11)
+    words = list(tbp._threefry_words(keys, 3, 4, CPU))
+    lanes = torch.arange(40, 43)
+    for s, w in enumerate(words):
+        g = 5 + s
+        block = tbp.threefry2x32((0, 11), torch.full_like(lanes, g >> 1), lanes)
+        assert torch.equal(w, block[g & 1])
+
+
+@pytest.mark.parametrize("seed", [0, 11, 2**31, 2**32 - 1, 2**32 + 11, -1, -5, -2**31 - 1])
+def test_threefry_keys_are_jax_prng_keys(seed):
+    """The key is what JAX's default `PRNGKey(seed)` holds: (0, seed mod
+    2^32), for seeds outside [0, 2^32) too."""
+    assert tbp.threefry_keys(seed).key == tuple(int(k) for k in np.asarray(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("level,max_ep", [("walls16", None), ("walls16", 100), ("lava", 100)])
+def test_threefry_scan_with_injected_jax_draws_matches_jax_stats(level, max_ep):
+    """The reference's threefry draws, built as its scan body builds them and
+    injected into the port's plain scan, give its `rollout_random_bits(
+    rng="threefry")` statistics."""
+    b, steps, seed = 256, 500, 7
+    jl, tl = (jb.lava_level(), tb.lava_level(device=CPU)) if level == "lava" else (
+        jb.walls_and_goal_16x16(), tb.walls_and_goal_16x16(device=CPU))
+    jbl, tbl = jbp.pack_level(jl), tbp.pack_level(tl)
+    _, ref = jbp.rollout_random_bits(JSEM, jbl, jnp.uint32(seed), b, steps, max_episode_steps=max_ep,
+                                     rng="threefry")
+    keys = jax.random.split(jax.random.PRNGKey(jnp.asarray(seed, jnp.uint32)), steps)
+    draws = jax.vmap(lambda k: jax.random.randint(k, (b,), 0, 4, jnp.int32))(keys)
+    st = tbp.reset_bits(tbl, b)
+    _, n_eps, ret_sum, len_sum = tbp.random_scan_bits_reference(TSEM, tbl, st, None, steps, max_ep,
+                                                                actions=tt(draws))
+    n = n_eps.sum()
+    assert int(n) == int(ref["episodes"]) > 0
+    np.testing.assert_allclose(float(ret_sum.sum() / n), float(ref["mean_return"]), rtol=1e-6)
+    np.testing.assert_allclose(float(len_sum.sum() / n), float(ref["mean_length"]), rtol=1e-6)
+    with pytest.raises(ValueError, match="actions"):
+        tbp.random_scan_bits_reference(TSEM, tbl, st, None, steps - 1, max_ep, actions=tt(draws))
+
+
+def test_threefry_rollout_stats():
+    """The aggregate checks the reference's own tests make of both streams."""
+    bl = tbp.pack_level(tb.walls_and_goal_16x16(device=CPU))
+    for rng_kind in ("xorshift", "threefry"):
+        _, stats = tbp.rollout_random_bits(TSEM, bl, 7, 256, 500, max_episode_steps=200, rng=rng_kind)
+        assert int(stats["episodes"]) > 0
+        assert 1.0 <= float(stats["mean_length"]) <= 200.0
+        assert float(stats["mean_return"]) < 0.0
+    _, stats = tbp.rollout_random_bits(TSEM, tbp.pack_level(tb.lava_level(device=CPU)), 7, 256, 500,
+                                       max_episode_steps=200, rng="threefry")
+    _, ref = jbp.rollout_random_bits(JSEM, jbp.pack_level(jb.lava_level()), jnp.uint32(7), 256, 500,
+                                     max_episode_steps=200, rng="threefry")
+    # a different stream of the same law: the lava level's episodes agree to a few percent
+    np.testing.assert_allclose(float(stats["mean_length"]), float(ref["mean_length"]), rtol=0.1)
+    np.testing.assert_allclose(float(stats["episodes"]), float(ref["episodes"]), rtol=0.1)
+
+
+@pytest.mark.parametrize("split", [250, 251])
+@pytest.mark.parametrize("level", ["walls16", "mazes"])
+def test_threefry_two_chunks_equal_one_run(split, level):
+    b, steps, max_ep = 64, 500, 30
+    tl = tb.walls_and_goal_16x16(device=CPU) if level == "walls16" else maze_pair(4, b)[1]
+    bl = tbp.pack_level(tl)
+    st = tbp.reset_bits(bl, None if bl.batched else b)
+    one = tbp.random_scan_bits(TSEM, bl, st, None, tbp.threefry_keys(9), steps, max_ep, "threefry")
+    first = tbp.random_scan_bits(TSEM, bl, st, None, tbp.threefry_keys(9), split, max_ep, "threefry")
+    second = tbp.random_scan_bits(TSEM, bl, first[0], None, tbp.threefry_keys(9, step=split), steps - split,
+                                  max_ep, "threefry")
+    for f in ("agent_idx", "agent_code", "t", "done"):
+        assert torch.equal(getattr(one[0], f), getattr(second[0], f))
+    assert torch.equal(one[1], first[1] + second[1])
+    assert torch.equal(one[3], first[3] + second[3])
+    assert int(one[1].sum()) > 0
+
+
+def test_threefry_lane_offsets_split_the_batch():
+    bl = tbp.pack_level(tb.lava_level(device=CPU))
+    whole = tbp.random_scan_bits(TSEM, bl, tbp.reset_bits(bl, 96), None, tbp.threefry_keys(3), 300, 40, "threefry")
+    halves = [tbp.random_scan_bits(TSEM, bl, tbp.reset_bits(bl, n), None, tbp.threefry_keys(3, offset=o), 300, 40,
+                                   "threefry") for o, n in ((0, 40), (40, 56))]
+    for k in range(1, 4):
+        assert torch.equal(whole[k], torch.cat([h[k] for h in halves]))
+    assert torch.equal(whole[0].agent_idx, torch.cat([h[0].agent_idx for h in halves]))
+
+
+def test_random_scan_bits_checks_its_stream():
+    bl = tbp.pack_level(tb.lava_level(device=CPU))
+    st = tbp.reset_bits(bl, 4)
+    rs = tbp.xorshift_init(0, (4,), device=CPU)
+    with pytest.raises(ValueError, match="ThreefryKeys"):
+        tbp.random_scan_bits(TSEM, bl, st, rs, None, 10, None, "threefry")
+    with pytest.raises(ValueError, match="no keys"):
+        tbp.random_scan_bits(TSEM, bl, st, rs, tbp.threefry_keys(0), 10, None, "xorshift")
+    with pytest.raises(ValueError, match="rng"):
+        tbp.random_scan_bits(TSEM, bl, st, rs, None, 10, None, "philox")
+    # rs is not read under threefry
+    got = tbp.random_scan_bits(TSEM, bl, st, rs, tbp.threefry_keys(0), 10, None, "threefry")
+    ref = tbp.random_scan_bits(TSEM, bl, st, None, tbp.threefry_keys(0), 10, None, "threefry")
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], ref[1:]))
 
 
 def test_pack_level_rejects_huge_grids():

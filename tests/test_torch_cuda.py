@@ -1652,3 +1652,139 @@ def test_rollout_actions_kernel_matches_plain_in_each_level_form(dev, a, form):
             if not mode[0]:
                 frozen = got_state
         st = frozen  # the next T from the frozen mode's state: its done envs stay frozen
+
+
+# ---------------------------------------------------------------------------
+# K1's threefry stream, K2 at T = 1 (the compat step), the compat envs
+# ---------------------------------------------------------------------------
+
+
+def _same_state(got, ref):
+    for f in ("agent_idx", "agent_code", "t", "done"):
+        assert torch.equal(getattr(got, f), getattr(ref, f))
+
+
+@pytest.mark.parametrize("max_ep", [None, 40])
+@pytest.mark.parametrize("a", [4, 9])
+@pytest.mark.parametrize("b", [1, 33, 65_537])
+def test_random_scan_threefry_kernel_matches_plain(dev, b, a, max_ep):
+    """K1's threefry instantiation, narrow (4 actions) and wide (9), on a
+    shared level and on per-env mazes, from an odd first step and a lane
+    offset, against the plain cipher scan bit for bit."""
+    sem = T.make_semantics(device=dev) if a == 4 else _sem_of(dev, a)
+    walls = _levels(dev)["walls16"]
+    grids, start = M.generate_mazes_device(6, (3, 3), b, "binary_tree", device=dev)
+    mazes = bp.pack_level(T.Level(grid=grids, start_idx=start.expand(b).contiguous()))
+    for bl in (walls, mazes):
+        st = bp.reset_bits(bl, None if bl.batched else b)
+        keys = bp.ThreefryKeys((0x9E3779B9, 2**32 - 3), step=7, offset=1_000)
+        before = kernels.LAUNCHES["random_scan_bits"]
+        got = bp.random_scan_bits(sem, bl, st, None, keys, 150, max_ep, "threefry")
+        assert kernels.LAUNCHES["random_scan_bits"] == before + 1
+        ref = bp.random_scan_bits_reference(sem, bl, st, None, 150, max_ep, "threefry", keys)
+        _assert_same(got[1:], ref[1:])
+        _same_state(got[0], ref[0])
+        assert int(got[1].sum()) > 0 or max_ep is None
+
+
+def test_random_scan_threefry_kernel_chunks_and_lanes(dev):
+    """Two chunks of the kernel equal one run; two half batches with their
+    lane offsets equal the whole; rollout_random_bits is one launch."""
+    sem = T.make_semantics(device=dev)
+    bl = _levels(dev)["walls16"]
+    st = bp.reset_bits(bl, 4096)
+    one = bp.random_scan_bits(sem, bl, st, None, bp.threefry_keys(5), 1000, 64, "threefry")
+    first = bp.random_scan_bits(sem, bl, st, None, bp.threefry_keys(5), 333, 64, "threefry")
+    second = bp.random_scan_bits(sem, bl, first[0], None, bp.threefry_keys(5, step=333), 667, 64, "threefry")
+    _same_state(one[0], second[0])
+    _assert_same((one[1], one[3]), (first[1] + second[1], first[3] + second[3]))
+    halves = [bp.random_scan_bits(sem, bl, bp.reset_bits(bl, n), None, bp.threefry_keys(5, offset=o), 1000, 64,
+                                  "threefry") for o, n in ((0, 1000), (1000, 3096))]
+    for k in range(1, 4):
+        _assert_same((one[k],), (torch.cat([h[k] for h in halves]),))
+    before = kernels.LAUNCHES["random_scan_bits"]
+    _, stats = bp.compile_rollout_random(sem, bl, 4096, 1000, 64, rng="threefry")(5)
+    assert kernels.LAUNCHES["random_scan_bits"] == before + 1
+    assert int(stats["episodes"]) == int(one[1].sum())
+
+
+@pytest.mark.parametrize("mode", [(False, None), (True, None), (True, 20)])
+@pytest.mark.parametrize("b", [1, 33, 4096])
+def test_rollout_actions_kernel_at_one_step_a_call(dev, b, mode):
+    """K2 at T = 1, the compat envs' step: a partial block of staged
+    actions on every call and, at B = 1 and 33, a partial warp; 60 calls in
+    a row on a shared level and on per-env mazes against the plain version."""
+    sem = T.make_semantics(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(b)
+    grids, start = M.generate_mazes_device(8, (2, 2), b, "aldous_broder", device=dev)
+    mazes = bp.pack_level(T.Level(grid=grids, start_idx=start.expand(b).contiguous()))
+    for bl in (_levels(dev)["walls16"], mazes):
+        got_st = ref_st = bp.reset_bits(bl, None if bl.batched else b)
+        for t in range(60):
+            actions = torch.randint(0, 4, (1, b), generator=gen, device=dev, dtype=torch.int32)
+            before = kernels.LAUNCHES["rollout_actions_bits"]
+            got_st, got = bp.rollout_actions_bits(sem, bl, got_st, actions, *mode)
+            assert kernels.LAUNCHES["rollout_actions_bits"] == before + 1
+            ref_st, ref = bp.rollout_actions_bits_reference(sem, bl, ref_st, actions, *mode)
+            _assert_same(got, ref)
+            _same_state(got_st, ref_st)
+
+
+@pytest.mark.parametrize("shape", ["walls16", "mazes"])
+def test_vector_env_on_the_card_equals_its_cpu_run(dev, shape):
+    import numpy as np
+
+    from griduniverse_tpu_torch.compat import VectorGridEnv
+
+    b = 2048
+    if shape == "walls16":
+        level, kw = builders.walls_and_goal_16x16(device=dev), dict(num_envs=b)
+    else:
+        grids, start = M.generate_mazes_device(2, (3, 3), b, "aldous_broder", device=dev)
+        level, kw = T.Level(grid=grids, start_idx=start.expand(b).contiguous()), {}
+    card = VectorGridEnv(level, max_episode_steps=64, device=dev, **kw)
+    host = VectorGridEnv(level.to("cpu"), max_episode_steps=64, device="cpu", **kw)
+    assert card._bl.device.type == "cuda"
+    np.testing.assert_array_equal(card.reset(), host.reset())
+    rng = np.random.default_rng(0)
+    before = kernels.LAUNCHES["rollout_actions_bits"]
+    flags = np.zeros(2, np.int64)
+    for t in range(200):
+        a = rng.integers(0, 4, b)
+        got, want = card.step(a), host.step(a)
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x.view(np.int32) if x.dtype == np.float32 else x,
+                                          y.view(np.int32) if y.dtype == np.float32 else y)
+        flags += (got[2].sum(), got[3].sum())
+    assert kernels.LAUNCHES["rollout_actions_bits"] == before + 200
+    assert flags[1] > 0 and (shape == "walls16" or flags[0] > 0)
+
+
+@pytest.mark.parametrize("form", [dict(grid_shape=(6, 6), walls=[7, 8, 13], lava=[21], goal_states=[35], seed=0),
+                                  dict(random_maze=True, grid_shape=(33, 33), seed=2, max_steps=300)])
+def test_gym_env_torch_backend_on_the_card_equals_numpy(dev, form):
+    from griduniverse_tpu_torch.compat import GridUniverseEnv
+
+    card = GridUniverseEnv(backend="torch", device=dev, **form)
+    host = GridUniverseEnv(backend="numpy", **form)
+    assert card.level.device.type == "cuda"
+    before = kernels.LAUNCHES["rollout_actions_bits"]
+    assert card.reset() == host.reset()
+    for t in range(500):
+        a = card.action_space.sample()
+        assert a == host.action_space.sample()
+        got = card.step(a)
+        assert got == host.step(a), t
+        if got[2]:
+            assert card.reset() == host.reset()
+    assert (card.current_state, card.done) == (host.current_state, host.done)
+    assert kernels.LAUNCHES["rollout_actions_bits"] == before + 500
+
+
+def test_fence_synchronizes_the_card(dev):
+    from griduniverse_tpu_torch.utils import profiling
+
+    x = torch.ones(1 << 20, device=dev)
+    assert profiling.fence({"x": x})["x"] is x
+    dt, out = profiling.time_fn(lambda: x * 2, repeats=3)
+    assert dt > 0 and out.device.type == "cuda"
