@@ -35,7 +35,8 @@ size and checks what comes out:
     prioritized replay (K7c, K8a, K8b, K9a; the prioritized draw also at
     4,096 picks) and on 65,536 per-env backtracker mazes with the conv
     Q-network (K7c, K8b, K9b), 65,536 envs and a ring of 131,072 transitions
-    each;
+    each; K7c in its store form, which writes each step's transitions and
+    priority into the ring (K8b gathers and refreshes);
   * resume through disk: `dqn_run` (uniform and prioritized, K7c) and
     `ppo_run` at 65,536 envs saved by an async `CheckpointManager`,
     restored into a fresh state and run on, against the unbroken runs;
@@ -235,6 +236,10 @@ INSTR_K12_ELEM = 12     # one trace element: load, decay, flush, bump test, mult
 # memory (20); and 10 an earlier step the scan reads (82 for eight). That is
 # the design's cost, not part of the bound.
 INSTR_K7C_ENV = 213
+# K7c's store form (`dqn_act_step_kernel<true, gu::Tables, true>`): the same
+# path and the 38 instructions that its ring's loads, guard and six stores add
+# (893 against 855 instructions in all)
+INSTR_K7C_STORE_ENV = 251
 INSTR_K13_SAMPLE = 4
 INSTR_K13_COMPARE = 2
 # K4 above 16,384 states a maze, at full width: the mazes, and PI's cap
@@ -1654,9 +1659,11 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     from griduniverse_tpu_torch.core import semantics as S
     from griduniverse_tpu_torch.kernels import agent_stamp as stamp_kernels
     from griduniverse_tpu_torch.kernels import replay as k8
+    from griduniverse_tpu_torch.kernels.dqn_act import DqnActPlan
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.models import a2c, dqn, networks
     from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.tools.profile_turns import _plan_graph_ms
 
     errs = {"per_sample": 0.0, "replay": 0.0, "dqn_act": 0.0}
     times = {}
@@ -1760,12 +1767,21 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         bl = bp.pack_level(level)
         st = bp.reset_bits(bl, None if bl.batched else b7)
         stats = (torch.zeros(b7, device=dev), torch.zeros((), dtype=torch.int64, device=dev), torch.zeros((), device=dev))
-        for _ in range(48):
+        store_buf, store_prio = ring(2 * b7), torch.rand((2 * b7,), generator=gen, device=dev)
+        ref_buf, ref_prio = dqn.ReplayBuffer(*(x.clone() for x in store_buf)), store_prio.clone()
+        for i in range(48):
             q = torch.randint(-2, 3, (b7, num_actions), generator=gen, device=dev).float() * 0.5
             explore = torch.rand(b7, generator=gen, device=dev) < 0.5
             rand_a = torch.randint(0, num_actions, (b7,), generator=gen, device=dev, dtype=torch.int32)
-            got = dqn.dqn_act_step(sem, bl, st, q, explore, rand_a, *stats, 16)
-            ref = dqn.dqn_act_step_reference(sem, bl, st, q, explore, rand_a, *stats, 16)
+            if i % 2:  # the store form, into either half of a ring with priorities
+                at_t, p_max = torch.tensor(b7 * (i // 2 % 2), device=dev), torch.rand((), generator=gen, device=dev)
+                got = dqn.dqn_act_step(sem, bl, st, q, explore, rand_a, *stats, 16, ring=(store_buf, store_prio, at_t, p_max))
+                ref = dqn.dqn_act_store_reference(sem, bl, st, q, explore, rand_a, *stats, (ref_buf, ref_prio, at_t, p_max), 16)
+                errs["dqn_act"] = max(errs["dqn_act"], _same_fields(f"K7c store form {lname} ring", (*store_buf, store_prio),
+                                                                    (*ref_buf, ref_prio), (*store_buf._fields, "prio")))
+            else:
+                got = dqn.dqn_act_step(sem, bl, st, q, explore, rand_a, *stats, 16)
+                ref = dqn.dqn_act_step_reference(sem, bl, st, q, explore, rand_a, *stats, 16)
             errs["dqn_act"] = max(errs["dqn_act"], _same_fields(
                 f"K7c {lname}", (*_fast_state(got[0]), *got[1:]), (*_fast_state(ref[0]), *ref[1:]), _K7C_FIELDS))
             done, code = got[4], bp.tile_code(bl, got[2])
@@ -1774,7 +1790,8 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
             ends["truncation"] += int((done & ~sem.terminal[code.long()]).sum())
             st, stats = got[0], got[5:]
     _require(all(v > 0 for v in ends.values()), f"K7c small shapes: an episode edge never happened: {ends}")
-    print(f"K7c B={b7}, walls16, lava, a corridor and per-env mazes, 48 steps each, q with ties: every output bit-exact vs plain; "
+    print(f"K7c B={b7}, walls16, lava, a corridor and per-env mazes, 48 steps each, q with ties, every other step the store "
+          f"form into a ring of {2 * b7} with priorities: every output, the ring and the priorities bit-exact vs plain; "
           f"episodes ended {ends}")
 
     # -- phase 18: the DQN main paths at full width, each counted --------------
@@ -1794,9 +1811,10 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         # a step: the acting forward, three forwards and one backward of the loss
         net_kernel, per_step = (("agent_stamp", 1 + 3 + stamp_kernels.backward_launches()) if cfg.obs == "grid"
                                 else ("embed_rows", 1 + 3 + 2))
-        # a step: write and gather, with PER the refresh (two launches above 8,192 rows)
+        # a step: K7c's store form (the act, the step, the statistics and the ring write), then
+        # K8b's gather, with PER the refresh (two launches above 8,192 rows)
         refresh = k8.refresh_launches(cfg.batch_size_train) if cfg.prioritized else 0
-        expected = {net_kernel: steps * per_step, "replay": steps * (2 + refresh),
+        expected = {net_kernel: steps * per_step, "replay": steps * (1 + refresh),
                     "per_sample": steps * K8A_LAUNCHES if cfg.prioritized else 0, "dqn_act": steps}
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -1838,11 +1856,11 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     _require(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
 
     # -- phase 19: steps 60..119 of each main path against the plain rule ------
-    def plain_act(*args, plan=None):
-        return dqn.dqn_act_step_reference(*args)
+    def plain_act(*args, plan=None, ring=None):
+        return dqn.dqn_act_store_reference(*args[:9], ring, *args[9:])
 
-    plain_ring = dict(replay_write_cuda=dqn.replay_write_reference, replay_gather_cuda=dqn.replay_gather_reference,
-                      prio_refresh_cuda=dqn.prio_refresh_reference, dqn_act_step=plain_act)
+    plain_ring = dict(replay_gather_cuda=dqn.replay_gather_reference, prio_refresh_cuda=dqn.prio_refresh_reference,
+                      dqn_act_step=plain_act)
     kept = {}
     for name, (level, cfg, at60, at120) in runs.items():
         learner = dqn.dqn_learner(sem, level, cfg, n64)
@@ -1855,6 +1873,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
             buf = dqn.ReplayBuffer(*(x.clone() for x in at60.buf))
             prio, p_max = at60.prio.clone(), at60.p_max
             stats = (at60.run_ret, at60.episodes, at60.ret_sum)
+            learner.act_plan.bind_ring(buf, prio if cfg.prioritized else None)  # as `dqn_run` binds its ring
             patched = mock.patch.multiple(dqn, **patches) if patches else contextlib.nullcontext()
             with networks.exact_kernels(), patched:
                 for i in range(60):
@@ -1876,7 +1895,8 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
 
         def hold_step(tag, cfg, before, pre, upd, sc, draws, buf, prio):
             """Every K7c and K8 launch of one step against its plain version
-            on the step's own inputs."""
+            on the step's own inputs: K7c's store form's outputs, then the
+            ring it wrote, the draw, the gather and the refresh."""
             params, env_state, stats = pre
             with torch.no_grad():
                 q, _ = a2c._net_apply(learner.net, params, env_state.agent_idx, learner.tiles)
@@ -1904,14 +1924,14 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
 
         _same_dqn_state(f"{name}: steps 60..119 redone with the kernels", redo({}), at120)
         msg = (f"{name} main, steps 60..119 redone by the trainer's step function end in the main path's state; at every "
-               "step K7c's outputs (state, transition, statistics), the ring after the write and the refresh, the "
-               "minibatch and p_max bit-exact vs plain")
+               "step K7c's store form's outputs (state, transition, statistics), the ring after its write and the "
+               "refresh, the minibatch and p_max bit-exact vs plain")
         if cfg.prioritized:
             msg += (f", K8a's scores within {K8A_SCORE_ULPS} ulp, its selection bit-exact on its own scores, its weights "
                     f"within {K8A_WEIGHT_RTOL}")
         else:  # no float of K7c or K8 differs from plain here, so the whole run must repeat with the plain versions
             _same_dqn_state(f"{name}: steps 60..119 redone with the plain ring and act-step", redo(plain_ring), at120)
-            msg += "; redone with the plain ring and act-step they end in the same state bit for bit"
+            msg += "; redone with the plain ring and act-and-store they end in the same state bit for bit"
         print(msg)
 
     # -- phase 22: resume through disk ------------------------------------------
@@ -1987,7 +2007,8 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     lib_ms, _ = _cuda_ms(library_ring, 20)
     times["replay"] = dict(
         ms=w_ms + g_ms + r_ms, plain_ms=pw_ms + pg_ms + pr_ms, library_ms=lib_ms,
-        shape=f"write B={n64} + gather n={n} + refresh n={n}, capacity {cap}",
+        # the write is the public `buffer_write`'s; the trainer's is K7c's store form
+        shape=f"write B={n64} (buffer_write) + gather n={n} + refresh n={n}, capacity {cap}",
         # a transition is 17 bytes read and written, its priority 4; the gather reads an index and moves 17 bytes; the refresh 12
         **bound(n64 * (2 * 17 + 4) + n * (4 + 2 * 17) + n * 12,
                 INSTR_K8B_WRITE * n64 + (INSTR_K8B_GATHER + INSTR_K8B_REFRESH) * n))
@@ -2017,8 +2038,9 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
           f"plain {pg_ms!r} + {pr_ms!r} ms, bound {t8b['bound_ms']!r} ms by {t8b['bound_by']}, "
           f"library (index_select x5 + index_put_ + max) {lib_ms!r} ms ({smi})")
 
-    # K7c at the main path's shape: walls16, 65,536 envs, from the state after 120 steps
-    level, cfg, _, at120 = runs["dqn walls16 uniform"]
+    # K7c at the main path's shape: walls16, 65,536 envs, A = 4, from the PER run's state after 120
+    # steps: its store form (the trainer's act-and-store) against K7c followed by K8b's write
+    level, cfg, _, at120 = runs["dqn walls16 per"]
     learner = dqn.dqn_learner(sem, level, cfg, n64)
     with torch.no_grad(), networks.exact_kernels():
         q, _ = a2c._net_apply(learner.net, at120.params, at120.env_state.agent_idx, learner.tiles)
@@ -2026,37 +2048,91 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     rand_a = torch.randint(0, num_actions, (n64,), generator=gen, device=dev, dtype=torch.int32)
     args = (sem, learner.bl, at120.env_state, q, explore, rand_a, at120.run_ret, at120.episodes, at120.ret_sum,
             cfg.max_episode_steps)
-    # as `dqn_update` calls it: through the learner's plan, built once a run
-    ms, got = _cuda_ms(lambda: dqn.dqn_act_step(*args, plan=learner.act_plan), 50)
-    plain_ms, ref = _cuda_ms(lambda: dqn.dqn_act_step_reference(*args), 10)
-    errs["dqn_act"] = max(errs["dqn_act"], _same_fields(
-        "K7c timed", (*_fast_state(got[0]), *got[1:]), (*_fast_state(ref[0]), *ref[1:]), _K7C_FIELDS))
-    times["dqn_act"] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=None, shape=f"walls16 B={n64}, A={num_actions} (one launch)",
-        # per env: q, the two draws (5 bytes), the state (12) and the running return (4) read;
-        # the new state (13), the transition (13) and the running return (4) written
-        **bound(n64 * (4 * num_actions + 5 + 12 + 4 + 13 + 13 + 4), INSTR_K7C_ENV * n64))
+    at_t, p_max = dqn.step_scalars(cfg, at120.t, 1, n64).at[0], at120.p_max
 
-    dqn_step_events(dev, smi, sem, level, cfg, at120)
+    def ring_for(plan):
+        buf, prio = dqn.ReplayBuffer(*(x.clone() for x in at120.buf)), at120.prio.clone()
+        plan.bind_ring(buf, prio)
+        return buf, prio
+
+    def store(plan, ring):  # as `dqn_update` calls it: through the run's plan, its ring bound once
+        return dqn.dqn_act_step(*args, plan=plan, ring=(*ring, at_t, p_max))
+
+    def act_then_write(plan, ring):  # the act-and-store before the store form: K7c, then K8b's write
+        out = dqn.dqn_act_step(*args, plan=plan)
+        dqn.buffer_write(ring[0], at_t, dqn.ReplayBuffer(args[2].agent_idx, out[1], out[3], out[2], out[4]), ring[1], p_max)
+        return out
+
+    ring_k = ring_for(learner.act_plan)
+    ms, got = _cuda_ms(lambda: store(learner.act_plan, ring_k), 50)
+    pair_ms, pair = _cuda_ms(lambda: act_then_write(learner.act_plan, ring_k), 50)
+    k7c_ms, _ = _cuda_ms(lambda: dqn.dqn_act_step(*args, plan=learner.act_plan), 50)
+    ref_ring = (dqn.ReplayBuffer(*(x.clone() for x in at120.buf)), at120.prio.clone())
+    plain_ms, ref = _cuda_ms(lambda: dqn.dqn_act_store_reference(*args[:9], (*ref_ring, at_t, p_max), args[9]), 10)
+    for tag, out in (("K7c's store form timed", got), ("K7c + K8b's write timed", pair)):
+        errs["dqn_act"] = max(errs["dqn_act"], _same_fields(
+            tag, (*_fast_state(out[0]), *out[1:]), (*_fast_state(ref[0]), *ref[1:]), _K7C_FIELDS))
+    _same_fields("K7c's store form timed: the ring", (*ring_k[0], ring_k[1]), (*ref_ring[0], ref_ring[1]),
+                 (*ring_k[0]._fields, "prio"))
+
+    def new_plan():  # a plan is stream-ordered: a captured call's is built on the capture's stream
+        return DqnActPlan(sem, learner.bl, n64, cfg.max_episode_steps)
+
+    def graph(call):
+        def make():
+            plan = new_plan()
+            return plan, ring_for(plan)
+        return _plan_graph_ms(make, lambda pr: call(*pr))
+
+    g_store, g_pair = graph(store), graph(act_then_write)
+    g_k7c = _plan_graph_ms(new_plan, lambda pl: dqn.dqn_act_step(*args, plan=pl))
+    g_store2 = graph(store)
+    times["dqn_act"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None, graph_ms=g_store,
+        shape=f"walls16 B={n64}, A={num_actions}, its store form into a ring of {cap64} with priorities (one launch)",
+        # per env: q, the two draws (5 bytes), the state (12) and the running return (4) read; the new state
+        # (13), the transition (13) and the running return (4) written; the ring's 17 bytes and the priority
+        **bound(n64 * (4 * num_actions + 5 + 12 + 4 + 13 + 13 + 4 + 17 + 4), INSTR_K7C_STORE_ENV * n64))
+    print(f"time K7c's store form walls16 B={n64} A={num_actions}, ring {cap64} with priorities: as timed {ms!r} ms, "
+          f"in a CUDA graph of ten {g_store!r}, {g_store2!r} ms; K7c + K8b's write as timed {pair_ms!r} ms, in a graph "
+          f"{g_pair!r} ms; K7c alone as timed {k7c_ms!r} ms, in a graph {g_k7c!r} ms; plain {plain_ms!r} ms; bound "
+          f"{times['dqn_act']['bound_ms']!r} ms by {times['dqn_act']['bound_by']}; every output and the ring bit-exact "
+          f"vs plain ({smi})")
+
+    for name in ("dqn walls16 uniform", "dqn walls16 per"):
+        level, cfg, _, at120 = runs[name]
+        dqn_step_events(dev, smi, sem, level, cfg, at120)
     return launches, errs, times
 
 
 def dqn_step_events(dev, smi, sem, level, cfg, state, steps: int = 20) -> None:
-    """A DQN step's device events, host time and the card's idle share, with
-    K7c and with the act, step and statistics as the port ran them before
-    K7c (argmax, `where`, `step_bits`, then `fold_episode_stats`), from the
-    same state, in turns: K7c, before, before, K7c."""
+    """A DQN step's device events, host time and the card's idle share, from
+    the same state, in turns: with K7c's store form (the trainer's path);
+    with K7c followed by K8b's write (the path before the store form); and
+    with the act, step, statistics and write as the port ran them before K7c
+    (argmax, `where`, `step_bits`, `fold_episode_stats`, `buffer_write`)."""
     from griduniverse_tpu_torch import models
     from griduniverse_tpu_torch.models import a2c, dqn
     from griduniverse_tpu_torch.ops.bitplane import step_bits
     from griduniverse_tpu_torch.tools.profile_learners import _profile
     from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
 
-    def before_k7c(sem, bl, st, q, explore, rand_a, run_ret, episodes, ret_sum, max_episode_steps=None, plan=None):
+    k7c = dqn.dqn_act_step
+
+    def write(st, out, ring):
+        buf, prio, at, p_max = ring
+        dqn.buffer_write(buf, at, dqn.ReplayBuffer(st.agent_idx, out[1], out[3], out[2], out[4]), prio, p_max)
+        return out
+
+    def before_k7c(sem, bl, st, q, explore, rand_a, run_ret, episodes, ret_sum, max_episode_steps=None, plan=None,
+                   ring=None):
         actions = torch.where(explore, rand_a.to(torch.int32), torch.argmax(q, dim=-1).to(torch.int32))
-        st, (next_obs, reward, done) = step_bits(sem, bl, st, actions, True, max_episode_steps)
+        new_st, (next_obs, reward, done) = step_bits(sem, bl, st, actions, True, max_episode_steps)
         run_ret, episodes, ret_sum = a2c.fold_episode_stats(run_ret, episodes, ret_sum, reward[None], done[None])
-        return st, actions, next_obs, reward, done, run_ret, episodes, ret_sum
+        return write(st, (new_st, actions, next_obs, reward, done, run_ret, episodes, ret_sum), ring)
+
+    def k7c_then_write(*args, plan=None, ring=None):
+        return write(args[2], k7c(*args, plan=plan), ring)
 
     def call():
         return models.dqn_run(sem, level, state, cfg, steps)
@@ -2064,10 +2140,13 @@ def dqn_step_events(dev, smi, sem, level, cfg, state, steps: int = 20) -> None:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
         torch.zeros(1, device=dev).sum().item()  # the profiler's own start-up
     b = state.run_ret.shape[0]
-    for tag, patch in (("with K7c", contextlib.nullcontext()),
+    store, pair = "with K7c's store form", "with K7c, then K8b's write"
+    for tag, patch in ((store, contextlib.nullcontext()),
+                       (pair, mock.patch.object(dqn, "dqn_act_step", k7c_then_write)),
                        ("as before K7c", mock.patch.object(dqn, "dqn_act_step", before_k7c)),
                        ("as before K7c, again", mock.patch.object(dqn, "dqn_act_step", before_k7c)),
-                       ("with K7c, again", contextlib.nullcontext())):
+                       (pair + ", again", mock.patch.object(dqn, "dqn_act_step", k7c_then_write)),
+                       (store + ", again", contextlib.nullcontext())):
         with patch:
             call()
             walls = sorted(_wall_ms(call) for _ in range(3))

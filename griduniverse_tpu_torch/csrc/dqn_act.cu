@@ -20,6 +20,19 @@
 // once, allocates one buffer that holds all eleven outputs and launches
 // once.
 //
+// The store form (`kStore`, `gu_dqn_act_store`) also replaces the
+// reference's ring write of the same body (360-364, `buffer_write`) and its
+// priority fill (368): the step's transition goes from registers straight
+// into slot `*at + b` of the ring's five fields, and `*p_max` into that slot
+// of the priorities where there are any. Before it, K8b's write
+// (`csrc/replay.cu` `replay_write_kernel`) read the transition back from
+// this kernel's outputs in a launch of its own. `at` and `p_max` are read on
+// the card, from the run's tensors. The stores are one a field a thread,
+// warp-contiguous, with the default cache policy: the same step's gather
+// reads random rows of the ring, which stays in L2. `at` is a multiple of B
+// but not always of 4, so no store is wider than its field. Per env it
+// writes 17 bytes more, 21 with the priorities.
+//
 // Design: one thread per env, as K7b's `act_step_kernel`: the semantics
 // tables and a shared level's packed words are staged in shared memory, the
 // step is `gu::step_autoreset` of step.cuh. A row of q is one 16-byte load
@@ -74,6 +87,19 @@ struct ActPlan {
   long long out_offset[kOutputs];
 };
 
+// The ring a store form writes, checked once a run by the plan
+// (`kernels/dqn_act.py` `DqnActPlan.bind_ring`, `_RingArgs` field for field):
+// the five fields of `cap` slots, and the priorities, or null (uniform replay).
+struct Ring {
+  int* obs;
+  int* action;
+  float* reward;
+  int* next_obs;
+  uint8_t* done;
+  float* prio;
+  long long cap;
+};
+
 // The outputs in one buffer, in the order of `kernels/dqn_act.py` `OUTPUTS`.
 struct Outputs {
   int* idx;
@@ -101,13 +127,16 @@ __device__ __forceinline__ Outputs carve(unsigned char* out, const ActPlan& p) {
 
 // Tab: gu::Tables up to eight actions, gu::WideTables above (the deltas
 // read from device memory); the row of q is read where used either way.
-template <bool kVec4, typename Tab>
+// kStore: the store form; the ring's parameters come last, so the form
+// without the store reads its own at the same offsets as before.
+template <bool kVec4, typename Tab, bool kStore>
 __global__ void __launch_bounds__(kChunk) dqn_act_step_kernel(
     ActPlan p, const float* __restrict__ q, const uint8_t* __restrict__ explore,
     const int* __restrict__ rand_a, const int* __restrict__ idx_in, const int* __restrict__ code_in,
     const int* __restrict__ t_in, const float* __restrict__ run_ret_in,
     const long long* __restrict__ episodes_in, const float* __restrict__ ret_sum_in,
-    unsigned char* __restrict__ out) {
+    unsigned char* __restrict__ out, Ring ring, const long long* __restrict__ at,
+    const float* __restrict__ p_max) {
   __shared__ Tab tab;
   __shared__ uint32_t s_words[gu::kMaxWords];
   __shared__ float red[kChunk];
@@ -137,6 +166,13 @@ __global__ void __launch_bounds__(kChunk) dqn_act_step_kernel(
     }
     const int a = explore[b] ? rand_a[b] : greedy;
     int idx = idx_in[b], code = code_in[b], t = t_in[b];
+    [[maybe_unused]] const int obs = idx;
+    [[maybe_unused]] long long slot = 0;
+    [[maybe_unused]] float fill = 0.0f;
+    if constexpr (kStore) {  // loaded here, so that the step hides their latency
+      slot = *at + b;
+      if (ring.prio != nullptr) fill = *p_max;
+    }
     gu::Episode unused{0.0f, 0.0f, 0, 0};
     const gu::Transition tr = gu::step_autoreset(tab, lw, p.h, p.w, s_idx, s_code,
                                                  p.max_episode_steps,
@@ -156,6 +192,16 @@ __global__ void __launch_bounds__(kChunk) dqn_act_step_kernel(
     o.reward[b] = tr.reward;
     o.done[b] = tr.done;
     o.run_ret[b] = tr.done ? 0.0f : run_ret;
+    if constexpr (kStore) {
+      if (slot >= 0 && slot < ring.cap) {  // the ring's invariant keeps a store inside
+        ring.obs[slot] = obs;
+        ring.action[slot] = a;
+        ring.reward[slot] = tr.reward;
+        ring.next_obs[slot] = tr.obs;
+        ring.done[slot] = tr.done;
+        if (ring.prio != nullptr) ring.prio[slot] = fill;
+      }
+    }
   }
   red[threadIdx.x] = ended;
   cnt[threadIdx.x] = ended_count;
@@ -206,6 +252,26 @@ __global__ void __launch_bounds__(kChunk) dqn_act_step_kernel(
   }
 }
 
+template <bool kStore>
+int launch_act(const ActPlan& p, const Ring& ring, const void* q, const void* explore,
+               const void* rand_a, const void* idx_in, const void* code_in, const void* t_in,
+               const void* run_ret_in, const void* episodes_in, const void* ret_sum_in,
+               const void* at, const void* p_max, void* out, cudaStream_t st) {
+  const int blocks = (p.batch + kChunk - 1) / kChunk;
+  const bool vec4 = p.num_actions == 4 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  auto* kernel = vec4 ? dqn_act_step_kernel<true, gu::Tables, kStore>
+                 : p.num_actions > gu::kMaxActions ? dqn_act_step_kernel<false, gu::WideTables, kStore>
+                                                   : dqn_act_step_kernel<false, gu::Tables, kStore>;
+  kernel<<<blocks, kChunk, 0, st>>>(
+      p, static_cast<const float*>(q), static_cast<const uint8_t*>(explore),
+      static_cast<const int*>(rand_a), static_cast<const int*>(idx_in),
+      static_cast<const int*>(code_in), static_cast<const int*>(t_in),
+      static_cast<const float*>(run_ret_in), static_cast<const long long*>(episodes_in),
+      static_cast<const float*>(ret_sum_in), static_cast<unsigned char*>(out), ring,
+      static_cast<const long long*>(at), static_cast<const float*>(p_max));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One launch: the act-and-step pass, whose last block folds the statistics.
@@ -216,18 +282,21 @@ extern "C" int gu_dqn_act_step(const void* plan, const void* q, const void* expl
                                const void* rand_a, const void* idx_in, const void* code_in,
                                const void* t_in, const void* run_ret_in, const void* episodes_in,
                                const void* ret_sum_in, void* out, void* stream) {
-  const ActPlan& p = *static_cast<const ActPlan*>(plan);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (p.batch + kChunk - 1) / kChunk;
-  const bool vec4 = p.num_actions == 4 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
-  auto* kernel = vec4 ? dqn_act_step_kernel<true, gu::Tables>
-                 : p.num_actions > gu::kMaxActions ? dqn_act_step_kernel<false, gu::WideTables>
-                                                   : dqn_act_step_kernel<false, gu::Tables>;
-  kernel<<<blocks, kChunk, 0, st>>>(
-      p, static_cast<const float*>(q), static_cast<const uint8_t*>(explore),
-      static_cast<const int*>(rand_a), static_cast<const int*>(idx_in),
-      static_cast<const int*>(code_in), static_cast<const int*>(t_in),
-      static_cast<const float*>(run_ret_in), static_cast<const long long*>(episodes_in),
-      static_cast<const float*>(ret_sum_in), static_cast<unsigned char*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_act<false>(*static_cast<const ActPlan*>(plan), Ring{}, q, explore, rand_a, idx_in,
+                           code_in, t_in, run_ret_in, episodes_in, ret_sum_in, nullptr, nullptr,
+                           out, static_cast<cudaStream_t>(stream));
+}
+
+// The store form, one launch as well: the same, and the step's transitions
+// into slots `*at`.. of the ring, with `*p_max` into those of its
+// priorities where `ring` has them. `ring` is host memory holding a `Ring`;
+// `at` a device int64, `p_max` a device float (not read without priorities).
+extern "C" int gu_dqn_act_store(const void* plan, const void* ring, const void* q,
+                                const void* explore, const void* rand_a, const void* idx_in,
+                                const void* code_in, const void* t_in, const void* run_ret_in,
+                                const void* episodes_in, const void* ret_sum_in, const void* at,
+                                const void* p_max, void* out, void* stream) {
+  return launch_act<true>(*static_cast<const ActPlan*>(plan), *static_cast<const Ring*>(ring), q,
+                          explore, rand_a, idx_in, code_in, t_in, run_ret_in, episodes_in,
+                          ret_sum_in, at, p_max, out, static_cast<cudaStream_t>(stream));
 }

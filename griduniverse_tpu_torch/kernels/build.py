@@ -114,6 +114,8 @@ _SIGNATURES = {
     # the plan (host memory); q, explore, rand_a, state in (3), run_ret, episodes,
     # ret_sum; the outputs' buffer
     "gu_dqn_act_step": [_P] + [_P] * 9 + [_P] + [_P],
+    # the plan and the ring (host memory); the same nine; at, p_max; the outputs' buffer
+    "gu_dqn_act_store": [_P, _P] + [_P] * 9 + [_P, _P] + [_P] + [_P],
     # rewards, ids, valid; T, B; gamma; returns, first-visit mask; log2 of the group, tile
     "gu_mc_returns": [_P] * 3 + [_I, _I, _F, _P, _P, _I, _I, _P],
 }

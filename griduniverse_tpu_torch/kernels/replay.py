@@ -26,7 +26,8 @@ MAX_SHARED_PICKS = 16_384
 SEL_SLICE = 1024    # slots a block of K8a's select passes takes
 SORT_CHUNK = 4096   # picks a block of K8a's multi-block sort takes
 
-_FIELDS = (
+# the ring's fields, in the order of `models.dqn.ReplayBuffer`
+RING_FIELDS = (
     ("obs", torch.int32), ("action", torch.int32), ("reward", torch.float32),
     ("next_obs", torch.int32), ("done", torch.bool),
 )
@@ -36,8 +37,10 @@ def _scalar(name: str, x, dtype: torch.dtype, device) -> int:
     return check_tensor(name, x, dtype, (), device)
 
 
-def _ring(buf, cap: int, device) -> list[int]:
-    return [check_tensor(f"buf.{f}", getattr(buf, f), dt, (cap,), device) for f, dt in _FIELDS]
+def ring_pointers(buf, cap: int, device) -> list[int]:
+    """The five fields' data pointers of the ring `buf`; raises unless each
+    is a contiguous (cap,) tensor of its dtype on `device`."""
+    return [check_tensor(f"buf.{f}", getattr(buf, f), dt, (cap,), device) for f, dt in RING_FIELDS]
 
 
 def refresh_launches(n: int) -> int:
@@ -103,9 +106,9 @@ def replay_write_cuda(buf, prio, at, batch, p_max) -> None:
     b = check_int("batch", int(batch.obs.shape[0]) if batch.obs.dim() == 1 else 0, low=1)
     if b > cap:
         raise ValueError(f"a write of {b} transitions does not fit a ring of {cap}")
-    src = [check_tensor(f"batch.{f}", getattr(batch, f), dt, (b,), device) for f, dt in _FIELDS]
+    src = [check_tensor(f"batch.{f}", getattr(batch, f), dt, (b,), device) for f, dt in RING_FIELDS]
     launch(
-        "gu_replay_write", device, *_ring(buf, cap, device),
+        "gu_replay_write", device, *ring_pointers(buf, cap, device),
         None if prio is None else check_tensor("prio", prio, torch.float32, (cap,), device),
         *src, _scalar("at", at, torch.int64, device),
         None if prio is None else _scalar("p_max", p_max, torch.float32, device),
@@ -125,7 +128,7 @@ def replay_gather_cuda(buf, idx):
     n = check_int("n", int(idx.shape[0]) if idx.dim() == 1 else 0, low=1)
     out = torch.empty((4 * n + -(-n // 4),), dtype=torch.int32, device=device)
     launch(
-        "gu_replay_gather", device, *_ring(buf, cap, device),
+        "gu_replay_gather", device, *ring_pointers(buf, cap, device),
         check_tensor("idx", idx, torch.int32, (n,), device), n, cap, out.data_ptr(),
     )
     LAUNCHES["replay"] += 1

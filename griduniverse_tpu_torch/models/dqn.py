@@ -9,8 +9,10 @@ clipped Adam step on the (double-)DQN loss and moves the target network
 
   * The buffer is fixed-size tensors on the device. A step's B transitions
     go to slots `(t·B) mod capacity`; `capacity % B == 0` keeps a write from
-    wrapping. The write (with the priority fill), the minibatch gather and
-    the priority refresh are kernel K8b (`csrc/replay.cu`), one launch each.
+    wrapping. The trainer's write (with the priority fill) is part of K7c's
+    launch (its store form, below). The minibatch gather and the priority
+    refresh are kernel K8b (`csrc/replay.cu`), one launch each; K8b's own
+    write stays as the kernel of the public `buffer_write`.
   * Prioritized replay has no sum-tree: Gumbel-top-k, the n best of
     `α·log p + Gumbel`, is an exact draw of n distinct slots with inclusion
     ∝ p^α. K8a takes the n best exactly (the reference's TPU primitive has
@@ -31,10 +33,12 @@ indices (n,) or Gumbel noise (capacity,) from a generator seeded from (seed,
 t) alone, so two runs of N steps equal one of 2N bit for bit. `dqn_run` also
 takes the draws as `draws=`, which is how the tests feed it `jax.random`'s.
 
-The ε-greedy act, the env step and the episode statistics of a step are
-kernel K7c (`csrc/dqn_act.cu`, two launches). The kernels' plain PyTorch
-versions are here (`dqn_act_step_reference`, `per_scores_reference`,
-`per_select_reference`, `replay_write_reference`, `replay_gather_reference`,
+The ε-greedy act, the env step, the episode statistics and the ring write
+of a step are kernel K7c (`csrc/dqn_act.cu`, one launch: its store form,
+through the run's `DqnActPlan` with the run's ring bound once). The
+kernels' plain PyTorch versions are here (`dqn_act_step_reference`,
+`dqn_act_store_reference`, `per_scores_reference`, `per_select_reference`,
+`replay_write_reference`, `replay_gather_reference`,
 `prio_refresh_reference`); CPU tensors take them, CUDA tensors launch the
 kernels, or raise.
 """
@@ -378,26 +382,52 @@ def dqn_act_step_reference(sem, bl, state: FastState, q, explore, rand_a, run_re
     return new_state, actions, next_obs, reward, done, run_ret, episodes, ret_sum
 
 
+def dqn_act_store_reference(sem, bl, state: FastState, q, explore, rand_a, run_ret, episodes, ret_sum,
+                            ring, max_episode_steps=None):
+    """Plain PyTorch version of K7c's store form: `dqn_act_step_reference`,
+    then `replay_write_reference` of the step's transitions (obs =
+    `state.agent_idx`) into `ring` = (buf, prio or None, at, p_max), IN
+    PLACE. Returns what `dqn_act_step_reference` returns."""
+    out = dqn_act_step_reference(sem, bl, state, q, explore, rand_a, run_ret, episodes, ret_sum,
+                                 max_episode_steps)
+    buf, prio, at, p_max = ring
+    _, action, next_obs, reward, done = out[:5]
+    replay_write_reference(buf, prio, at, ReplayBuffer(state.agent_idx, action, reward, next_obs, done), p_max)
+    return out
+
+
 def dqn_act_step(sem: Semantics, bl: BitLevel, state: FastState, q, explore, rand_a, run_ret,
                  episodes, ret_sum, max_episode_steps: int | None = None,
-                 plan: DqnActPlan | None = None):
+                 plan: DqnActPlan | None = None, ring=None):
     """One DQN act-and-step for B envs from the Q-values `q` (B, A) (cast to
     float32 once: the cast keeps order and ties) and the step's draws, with
     the episode statistics (K7c on CUDA): see `dqn_act_step_reference`; the
     kernel equals it bit for bit in every output. `plan`: K7c's host plan
     for (sem, bl, B, max_episode_steps), built once a run (`dqn_learner`);
-    without one a CUDA call builds its own."""
+    without one a CUDA call builds its own.
+
+    `ring` = (buf, prio or None, at, p_max): the store form, which also
+    writes the step's B transitions into slots `at`..`at + B − 1` of the
+    replay ring `buf` IN PLACE, and `p_max` into those slots of `prio`
+    (`dqn_act_store_reference`; `at` a () int64 and `p_max` a () float32
+    device tensor on CUDA). A given plan must hold that ring
+    (`DqnActPlan.bind_ring`, once a run), else the call raises."""
     q = q.float()
     rand_a = rand_a.to(torch.int32)
     if plan is None:
         if not kernels.on_cuda(q, explore, rand_a, state.agent_idx, run_ret, bl.code_words, sem.deltas):
-            return dqn_act_step_reference(sem, bl, state, q, explore, rand_a, run_ret, episodes, ret_sum,
-                                          max_episode_steps)
+            if ring is None:
+                return dqn_act_step_reference(sem, bl, state, q, explore, rand_a, run_ret, episodes, ret_sum,
+                                              max_episode_steps)
+            return dqn_act_store_reference(sem, bl, state, q, explore, rand_a, run_ret, episodes, ret_sum,
+                                           ring, max_episode_steps)
         plan = DqnActPlan(sem, bl, q.shape[0], max_episode_steps)
+        if ring is not None:
+            plan.bind_ring(ring[0], ring[1])
     else:
         plan.check_level(sem, bl, max_episode_steps)
     idx, code, t, sdone, action, next_obs, reward, done, run_ret, episodes, ret_sum = plan(
-        state, q, explore, rand_a, run_ret, episodes, ret_sum)
+        state, q, explore, rand_a, run_ret, episodes, ret_sum, ring)
     return FastState(idx, code, t, sdone), action, next_obs, reward, done, run_ret, episodes, ret_sum
 
 
@@ -470,7 +500,7 @@ class DQNLearner(NamedTuple):
     tiles: torch.Tensor | None   # per-env tile planes of a needs-tiles net
     rate: Callable               # Adam count → learning rate
     batch_env: int               # B, the envs stepped (and transitions written) a step
-    act_plan: DqnActPlan | None  # K7c's host plan on the card; None on the CPU
+    act_plan: DqnActPlan | None  # K7c's host plan on the card (its ring bound by `dqn_run`); None on the CPU
 
 
 def dqn_learner(sem: Semantics, level: Level, cfg: DQNConfig, batch_env: int) -> DQNLearner:
@@ -588,10 +618,12 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
                buf: ReplayBuffer, prio, p_max, sc: StepScalars, draws, stats) -> DQNUpdate:
     """One DQN step from its scalars `sc` (`step_scalars(...)[i]`), its
     `draws` (`step_draws`) and the episode statistics `stats` (run_ret,
-    episodes, ret_sum): act ε-greedily, step the envs and fold the
-    statistics (K7c), write the transitions, sample, one clipped Adam step,
-    move the target, refresh the priorities. `buf` and `prio` are written IN
-    PLACE. `dqn_run` is a loop over this, inside `exact_kernels()`."""
+    episodes, ret_sum): act ε-greedily, step the envs, fold the statistics
+    and write the transitions (K7c's store form), sample, one clipped Adam
+    step, move the target, refresh the priorities. `buf` and `prio` are
+    written IN PLACE; on the card they must be the ring bound to
+    `learner.act_plan` (`DqnActPlan.bind_ring`). `dqn_run` is a loop over
+    this, inside `exact_kernels()`."""
     bl, net, tiles, rate, batch_env, act_plan = learner
     explore, rand_a, sample = draws
     n = cfg.batch_size_train
@@ -599,13 +631,13 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
     obs = env_state.agent_idx
     with torch.no_grad():
         q, _ = _net_apply(net, params, obs, tiles)
+    # the act also stores the B transitions at slots sc.at..; fresh
+    # transitions enter at the running max priority, so each is sampled at
+    # least once with high probability
+    ring = (buf, prio if cfg.prioritized else None, sc.at, p_max)
     env_state, actions, next_obs, reward, done, *stats = dqn_act_step(
-        sem, bl, env_state, q, explore, rand_a, *stats, cfg.max_episode_steps, plan=act_plan)
-
-    # fresh transitions enter at the running max priority, so each is
-    # sampled at least once with high probability
+        sem, bl, env_state, q, explore, rand_a, *stats, cfg.max_episode_steps, plan=act_plan, ring=ring)
     batch = ReplayBuffer(obs, actions, reward, next_obs, done)
-    buffer_write(buf, sc.at, batch, prio if cfg.prioritized else None, p_max)
 
     score = None
     if cfg.prioritized:
@@ -647,6 +679,8 @@ def dqn_run(sem: Semantics, level: Level, ts: DQNTrainState, cfg: DQNConfig = DQ
     params, target_params, opt_state, env_state = ts.params, ts.target_params, ts.opt_state, ts.env_state
     buf = ReplayBuffer(*(x.clone() for x in ts.buf))
     prio, p_max = ts.prio.clone(), ts.p_max
+    if learner.act_plan is not None:  # the run's ring, checked once, for K7c's store form
+        learner.act_plan.bind_ring(buf, prio if cfg.prioritized else None)
     stats, loss = (ts.run_ret, ts.episodes, ts.ret_sum), ts.last_loss
     with exact_kernels():
         for i in range(num_steps):

@@ -31,9 +31,13 @@ tree's package and builds its kernels):
   scans after a warm-up), and one `compile_q_learning_fast` run of the
   first under `torch.profiler`, with its idle share;
 - K7c (`dqn_act_step` at walls16, B = 65,536, A = 4, through the learner's
-  host plan where the tree has one) as timed over 200 calls and as the
-  host's µs a call, and 20 DQN steps (`dqn_run`, uniform replay, a ring of
-  131,072) under `torch.profiler`: device events a step and the idle share.
+  host plan) and a step's act-and-store (K7c's store form where the tree
+  has it, else K7c followed by `buffer_write`), uniform and prioritized
+  into a ring of 131,072: as timed over 200 calls, as the host's µs a
+  call and in a CUDA graph of ten, with a hash of the ring and the
+  transition, which every turn must print alike; and 20 DQN steps
+  (`dqn_run`) under `torch.profiler`: device events a step and the idle
+  share.
 
 - K6 (`q_learning_batched`) as a 2,000-step Q-learning run over 65,536 9×9
   Aldous–Broder mazes in float32 and in bfloat16, and as a 200-step run over
@@ -523,10 +527,14 @@ def k7b_calls(tag, dev, smi) -> None:
 
 
 def k7c_calls(tag, dev, smi) -> None:
-    """K7c's call as timed and on the host, and a DQN step's device events
-    and idle share."""
+    """K7c, and a DQN step's act-and-store, as timed, on the host and in a
+    CUDA graph of ten; a DQN step's device events and idle share. Where the
+    tree has K7c's store form, the act-and-store is that one launch; else
+    K7c followed by `buffer_write` (K8b's write), as that tree's trainer
+    runs it."""
     import griduniverse_tpu_torch as gt
     from griduniverse_tpu_torch import models
+    from griduniverse_tpu_torch.kernels.dqn_act import DqnActPlan
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.models import a2c, dqn, networks
     from griduniverse_tpu_torch.tools.profile_learners import _profile
@@ -534,31 +542,71 @@ def k7c_calls(tag, dev, smi) -> None:
     sem = gt.make_semantics(device=dev)
     level = builders.walls_and_goal_16x16(device=dev)
     b = 65_536
-    cfg = models.DQNConfig(buffer_capacity=2 * b, max_episode_steps=512)
-    ts = models.dqn_run(sem, level, models.dqn_init(sem, level, 5, cfg, b), cfg, 4)
-    learner = dqn.dqn_learner(sem, level, cfg, b)
-    plan = getattr(learner, "act_plan", None)
-    with torch.no_grad(), networks.exact_kernels():
-        q, _ = a2c._net_apply(learner.net, ts.params, ts.env_state.agent_idx, learner.tiles)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    explore = torch.rand(b, generator=gen, device=dev) < 0.05
-    rand_a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
-    args = (sem, learner.bl, ts.env_state, q, explore, rand_a, ts.run_ret, ts.episodes, ts.ret_sum, 512)
+    store = hasattr(DqnActPlan, "bind_ring")
+    for per in (False, True):
+        cfg = models.DQNConfig(buffer_capacity=2 * b, max_episode_steps=512, prioritized=per)
+        ts = models.dqn_run(sem, level, models.dqn_init(sem, level, 5, cfg, b), cfg, 4)
+        learner = dqn.dqn_learner(sem, level, cfg, b)
+        plan = learner.act_plan
+        with torch.no_grad(), networks.exact_kernels():
+            q, _ = a2c._net_apply(learner.net, ts.params, ts.env_state.agent_idx, learner.tiles)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        explore = torch.rand(b, generator=gen, device=dev) < 0.05
+        rand_a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+        args = (sem, learner.bl, ts.env_state, q, explore, rand_a, ts.run_ret, ts.episodes, ts.ret_sum, 512)
+        at = torch.tensor(b, dtype=torch.int64, device=dev)  # the ring's second half, as step 5 writes it
+        p_max = ts.p_max
+        kind = f"walls16 B={b} A=4, ring {2 * b} {'PER' if per else 'uniform'}"
 
-    def call():
-        return dqn.dqn_act_step(*args) if plan is None else dqn.dqn_act_step(*args, plan=plan)
+        def ring_of(plan):
+            buf = dqn.ReplayBuffer(*(x.clone() for x in ts.buf))
+            prio = ts.prio.clone() if per else None
+            if store:
+                plan.bind_ring(buf, prio)
+            return buf, prio
 
-    print(f"[{tag}] K7c walls16 B={b} A=4 ({'a plan a run' if plan is not None else 'no plan'}): "
-          f"{_events_ms(call, reps=200)!r} ms a call as timed, {_host_us(call)!r} us of host time ({smi})")
+        def act(plan):
+            return dqn.dqn_act_step(*args, plan=plan)
 
-    def steps():
-        return models.dqn_run(sem, level, ts, cfg, 20)
+        def act_and_store(plan, ring):
+            buf, prio = ring
+            if store:
+                return dqn.dqn_act_step(*args, plan=plan, ring=(buf, prio, at, p_max))
+            out = dqn.dqn_act_step(*args, plan=plan)
+            dqn.buffer_write(buf, at, dqn.ReplayBuffer(ts.env_state.agent_idx, out[1], out[3], out[2], out[4]),
+                             prio, p_max)
+            return out
 
-    walls_ms = sorted(_wall_ms(steps) for _ in range(3))
-    prof = _profile(f"[{tag}] dqn walls16 uniform B={b} 20 steps", steps, walls_ms[1], smi, top=4)
-    if prof is not None:
-        print(f"[{tag}] DQN step: {walls_ms[1] / 20!r} ms a step on the host clock ({walls_ms!r} ms a call of 20), "
-              f"{prof[1] / 20!r} device events a step, idle share {100 * prof[2]:.2f} % ({smi})")
+        ring = ring_of(plan)
+        out = act_and_store(plan, ring)
+        torch.cuda.synchronize()
+        digest = _hash([*ring[0], *([ring[1]] if per else []), *out[1:5]])
+
+        def new_plan():  # on the capture's stream: a plan is stream-ordered
+            return DqnActPlan(sem, learner.bl, b, 512)
+
+        def make_plan():
+            fresh = new_plan()
+            return fresh, ring_of(fresh)
+
+        graph_pair = _plan_graph_ms(make_plan, lambda pr: act_and_store(*pr))
+        graph_act = _plan_graph_ms(new_plan, act)
+        what = "K7c's store form" if store else "K7c + buffer_write"
+        print(f"[{tag}] act-and-store ({what}) {kind}: {_events_ms(lambda: act_and_store(plan, ring), reps=200)!r} "
+              f"ms a call as timed, {_host_us(lambda: act_and_store(plan, ring))!r} us of host time, "
+              f"{graph_pair!r} ms a call in a CUDA graph of ten; hash of the ring and the transition {digest} ({smi})")
+        print(f"[{tag}] K7c alone {kind}: {_events_ms(lambda: act(plan), reps=200)!r} ms a call as timed, "
+              f"{_host_us(lambda: act(plan))!r} us of host time, {graph_act!r} ms a call in a CUDA graph of ten "
+              f"({smi})")
+
+        def steps():
+            return models.dqn_run(sem, level, ts, cfg, 20)
+
+        walls_ms = sorted(_wall_ms(steps) for _ in range(3))
+        prof = _profile(f"[{tag}] dqn {kind} 20 steps", steps, walls_ms[1], smi, top=4)
+        if prof is not None:
+            print(f"[{tag}] DQN step {kind}: {walls_ms[1] / 20!r} ms a step on the host clock ({walls_ms!r} ms a "
+                  f"call of 20), {prof[1] / 20!r} device events a step, idle share {100 * prof[2]:.2f} % ({smi})")
 
 
 def k9a_calls(tag, dev, smi) -> None:

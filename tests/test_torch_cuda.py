@@ -878,7 +878,9 @@ def test_dqn_on_cuda_is_chunk_invariant(dev, extra):
     kernels.reset_launches()
     full = dqn.dqn_run(sem, level, ts0, cfg, 24)
     per = bool(extra.get("prioritized"))
-    assert kernels.LAUNCHES["replay"] == 24 * (3 if per else 2)
+    # a step: K7c's store form (act, step, statistics, the ring write), the gather, with PER the refresh
+    assert kernels.LAUNCHES["dqn_act"] == 24
+    assert kernels.LAUNCHES["replay"] == 24 * (2 if per else 1)
     assert kernels.LAUNCHES["per_sample"] == (24 * 8 if per else 0)
     resumed = dqn.dqn_run(sem, level, dqn.dqn_run(sem, level, ts0, cfg, 12), cfg, 12)
     for name in full.params:
@@ -1340,6 +1342,107 @@ def test_dqn_act_step_kernel_matches_plain(dev, shape):
     assert int(stats[1]) > 0
 
 
+# q: a 16-byte aligned (B, 4) row (the vec4 load), the same off a 16-byte
+# boundary (the scalar loads), and the wide form at 9 and 25 actions
+_STORE_FORMS = {"vec4": 4, "unaligned q": 4, "nine": 9, "twenty-five": 25}
+
+
+def _store_steps(dev, sem, bl, b, a, cap, at, prioritized, steps, unaligned=False, seed=0):
+    """`steps` calls of K7c's store form through one plan with the ring
+    bound once, each against `dqn_act_store_reference` on a copy of the
+    ring: all eleven outputs, the ring and the priorities bit for bit.
+    `at` is a view into a (steps,) int64 tensor, as the trainer's; p_max
+    changes every step."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    plan = dqn_act_kernels.DqnActPlan(sem, bl, b, 10)
+    buf = _ring(dev, gen, cap)
+    prio = torch.rand((cap,), generator=gen, device=dev) if prioritized else None
+    ref_buf = dqn.ReplayBuffer(*(x.clone() for x in buf))
+    ref_prio = None if prio is None else prio.clone()
+    plan.bind_ring(buf, prio)
+    ats = torch.full((steps,), at, dtype=torch.int64, device=dev)
+    st = ref_st = bp.reset_bits(bl, None if bl.batched else b)
+    stats = ref_stats = (torch.zeros(b, device=dev), torch.zeros((), dtype=torch.int64, device=dev),
+                         torch.zeros((), device=dev))
+    for i in range(steps):
+        q = torch.randint(-2, 3, (b, a), generator=gen, device=dev).float() * 0.5  # ties
+        if unaligned:
+            q = torch.cat([torch.zeros(1, device=dev), q.reshape(-1)])[1:].view(b, a)
+            assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+        explore = torch.rand(b, generator=gen, device=dev) < 0.3
+        rand_a = torch.randint(0, a, (b,), generator=gen, device=dev, dtype=torch.int32)
+        p_max = torch.rand((), generator=gen, device=dev) * 4
+        before = dict(kernels.LAUNCHES)
+        st, *out = dqn.dqn_act_step(sem, bl, st, q, explore, rand_a, *stats, 10, plan=plan,
+                                    ring=(buf, prio, ats[i], p_max))
+        assert kernels.LAUNCHES["dqn_act"] == before["dqn_act"] + 1
+        assert kernels.LAUNCHES["replay"] == before["replay"]
+        ref_st, *ref_out = dqn.dqn_act_store_reference(sem, bl, ref_st, q, explore, rand_a, *ref_stats,
+                                                       (ref_buf, ref_prio, ats[i], p_max), 10)
+        for f in ("agent_idx", "agent_code", "t", "done"):
+            assert torch.equal(getattr(st, f), getattr(ref_st, f)), f
+        _assert_same(out, ref_out)
+        _assert_same(buf, ref_buf)
+        if prioritized:
+            _assert_same((prio,), (ref_prio,))
+        stats, ref_stats = tuple(out[4:]), tuple(ref_out[4:])
+    return buf, prio
+
+
+@pytest.mark.parametrize("prioritized", [True, False])
+@pytest.mark.parametrize("at_end", [False, True])
+@pytest.mark.parametrize("form", sorted(_STORE_FORMS))
+@pytest.mark.parametrize("b", [1, 33, 65_536])
+def test_dqn_act_store_form_matches_plain(dev, b, form, at_end, prioritized):
+    a = _STORE_FORMS[form]
+    sem = T.make_semantics(device=dev) if a == 4 else _sem_of(dev, a)
+    bl = _levels(dev)["walls16"]
+    cap = 2 * b if b == 65_536 else 4 * b
+    at = cap - b if at_end else 0
+    buf, _ = _store_steps(dev, sem, bl, b, a, cap, at, prioritized, 10, unaligned=form == "unaligned q", seed=b + a)
+    if b > 1:  # the tenth step meets the time limit: the last store holds ended episodes
+        assert bool(buf.done[at:at + b].any())
+
+
+def test_dqn_act_store_form_matches_plain_over_per_env_mazes(dev):
+    sem = T.make_semantics(device=dev)
+    bl = _levels(dev)["mazes"]
+    _store_steps(dev, sem, bl, 1024, 4, 4096, 3072, True, 24, seed=9)
+
+
+def test_dqn_act_store_form_raises_on_another_ring(dev):
+    sem = T.make_semantics(device=dev)
+    bl = _levels(dev)["walls16"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    plan = dqn_act_kernels.DqnActPlan(sem, bl, 64, 10)
+    buf, prio = _ring(dev, gen, 256), torch.zeros(256, device=dev)
+    st = bp.reset_bits(bl, 64)
+    step = (st, torch.zeros(64, 4, device=dev), torch.zeros(64, dtype=torch.bool, device=dev),
+            torch.zeros(64, dtype=torch.int32, device=dev), torch.zeros(64, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev), torch.zeros((), device=dev))
+    at, p_max = torch.zeros((), dtype=torch.int64, device=dev), torch.ones((), device=dev)
+    with pytest.raises(ValueError, match="no ring"):
+        plan(*step, ring=(buf, prio, at, p_max))
+    for bad in ((dqn.ReplayBuffer(*(x[:200] for x in buf)), None),           # 64 does not divide 200
+                (buf._replace(reward=buf.reward.double()), None),            # another dtype
+                (buf._replace(obs=buf.obs.cpu()), None),                     # another device
+                (buf, prio[:128])):                                          # prio of another size
+        with pytest.raises(ValueError):
+            plan.bind_ring(*bad)
+    plan.bind_ring(buf, prio)
+    other = _ring(dev, gen, 256)
+    copy = [x.clone() for x in other]
+    with pytest.raises(ValueError, match="other tensors"):  # another run's ring: raised, never written
+        plan(*step, ring=(other, prio, at, p_max))
+    torch.cuda.synchronize()
+    _assert_same(other, copy)
+    with pytest.raises(ValueError, match="at"):
+        plan(*step, ring=(buf, prio, at.cpu(), p_max))
+    before = kernels.LAUNCHES["dqn_act"]
+    plan(*step, ring=(buf, prio, at, p_max))
+    assert kernels.LAUNCHES["dqn_act"] == before + 1
+
+
 @pytest.mark.parametrize("t,b,num_ids", [
     (1, 5, 4), (7, 300, 3), (100, 256, 81), (100, 1024, 324), (31, 1, 5), (33, 33, 40), (31, 4097, 81),
     (257, 33, 81), (257, 4097, 300), (1000, 1, 50), (1000, 33, 700), (6000, 3, 900)])
@@ -1391,22 +1494,25 @@ def test_mc_returns_kernel_gives_the_same_bits_at_every_group(dev, t, b, group, 
     _assert_same(got, (mc.discounted_returns(rewards, 0.99), mc.first_visit_mask(ids, valid)))
 
 
-def test_dqn_resume_through_disk_on_cuda(dev, tmp_path):
+@pytest.mark.parametrize("prioritized", [True, False])
+def test_dqn_resume_through_disk_on_cuda(dev, tmp_path, prioritized):
     from griduniverse_tpu_torch.utils.checkpoint import CheckpointManager, flatten
 
     sem = T.make_semantics(device=dev)
     level = builders.walls_and_goal_16x16(device=dev)
     cfg = dqn.DQNConfig(buffer_capacity=4096, batch_size_train=128, max_episode_steps=64, hidden=(32,),
-                        prioritized=True)
+                        prioritized=prioritized)
     ts0 = dqn.dqn_init(sem, level, 3, cfg, 1024)
     full = dqn.dqn_run(sem, level, ts0, cfg, 24)
     with CheckpointManager(tmp_path / "dqn", async_=True) as mgr:
         mgr.save(12, dqn.dqn_run(sem, level, ts0, cfg, 12))
         step, restored = mgr.restore_latest(dqn.dqn_init(sem, level, 0, cfg, 1024))
     assert step == 12 and restored.seed == 3 and restored.buf.obs.device.type == "cuda"
-    before = kernels.LAUNCHES["dqn_act"]
+    kernels.reset_launches()
     resumed = dqn.dqn_run(sem, level, restored, cfg, 12)
-    assert kernels.LAUNCHES["dqn_act"] == before + 12
+    # the restored ring is written by K7c's store form: no launch of K8b's write
+    assert kernels.LAUNCHES["dqn_act"] == 12
+    assert kernels.LAUNCHES["replay"] == 12 * (2 if prioritized else 1)
     got, want = flatten(resumed), flatten(full)
     assert list(got) == list(want)
     for key, x in want.items():

@@ -1,6 +1,12 @@
 """Port parity: the DQN trainer of griduniverse_tpu_torch.models on the CPU
 against the JAX trainer.
 
+K7c's store form (`dqn_act_step(..., ring=...)`: the act, the step, the
+statistics and the ring write of one step) is held bit for bit against its
+plain composition (`dqn_act_step_reference`, then `replay_write_reference`)
+and exactly against the reference's act, `step_bits`, `buffer_write` and
+priority fill.
+
 Whole steps are compared from the same converted train state with
 `jax.random`'s own draws injected (explore coins, random actions, minibatch
 indices or Gumbel noise), in float32: the env state, the replay buffer, the
@@ -26,9 +32,12 @@ import griduniverse_tpu_torch as T
 from griduniverse_tpu import models as jm
 from griduniverse_tpu.levels import builders as jb
 from griduniverse_tpu.levels import maze as jmz
+from griduniverse_tpu.models import dqn as jdqn
+from griduniverse_tpu.ops import bitplane as jbp
 from griduniverse_tpu_torch import models as tm
 from griduniverse_tpu_torch.levels import builders as tb
 from griduniverse_tpu_torch.models import dqn as tdqn
+from griduniverse_tpu_torch.ops import bitplane as tbp
 from griduniverse_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -168,6 +177,90 @@ def test_dqn_per_env_mazes_match_jax():
         jts = jm.dqn_run(JSEM, jlevels, jts, jcfg, 1)
         tts = tm.dqn_run(TSEM, tlevels, tts, tcfg, 1, draws=draws)
         assert_matches_jax(tts, jts, tnet)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _fields_of(st):
+    return st.agent_idx, st.agent_code, st.t, st.done
+
+
+def _store_levels(form):
+    """(JAX level, B): walls16 shared by 33 envs, or 33 per-env 9×9 mazes."""
+    if form == "shared":
+        return jb.walls_and_goal_16x16(), 33
+    grids, start = jmz.generate_mazes_device(jax.random.PRNGKey(4), (4, 4), 33, "binary_tree")
+    return J.Level(grid=grids, start_idx=jnp.broadcast_to(start, (33,))), 33
+
+
+@pytest.mark.parametrize("at_end", [False, True])
+@pytest.mark.parametrize("a", [4, 9])
+@pytest.mark.parametrize("form", ["shared", "mazes"])
+@pytest.mark.parametrize("prioritized", [False, True])
+def test_dqn_act_store_form_equals_the_act_then_the_write(prioritized, form, a, at_end):
+    """Six steps of the store form (K7c's plain path on the CPU) into a ring
+    of four batches at `at` = 0 or cap − B, against `dqn_act_step_reference`
+    followed by `replay_write_reference` bit for bit (the ring, the
+    priorities and every output), and against the reference's act,
+    `step_bits`, `buffer_write` and priority fill (the ring and priorities
+    exactly; `ret_sum` to rtol 1e-6, summed in another order)."""
+    jsem = J.make_semantics(J.SemanticsConfig(action_deltas=ACTION_SETS[a])) if a != 4 else JSEM
+    tsem = T.make_semantics(T.SemanticsConfig(action_deltas=ACTION_SETS[a]), device=CPU) if a != 4 else TSEM
+    jlevel, b = _store_levels(form)
+    cap = 4 * b
+    at = cap - b if at_end else 0
+    jbl = jbp.pack_level(jlevel)
+    tbl = convert.to_bit_level(jbl, device=CPU)
+    jst = jbp.reset_bits(jbl, None if jbl.batched else b)
+    st = ref_st = convert.to_fast_state(jst, device=CPU)
+    rng = np.random.default_rng(a + 2 * b + at)
+    ring0 = [rng.integers(0, 81, cap).astype(np.int32), rng.integers(0, a, cap).astype(np.int32),
+             rng.normal(size=cap).astype(np.float32), rng.integers(0, 81, cap).astype(np.int32), rng.random(cap) < 0.3]
+    buf, ref_buf = (tdqn.ReplayBuffer(*(torch.as_tensor(x.copy()) for x in ring0)) for _ in range(2))
+    jbuf = jdqn.ReplayBuffer(*map(jnp.asarray, ring0))
+    prio0 = rng.random(cap).astype(np.float32)
+    prio, ref_prio = (torch.as_tensor(prio0.copy()) for _ in range(2)) if prioritized else (None, None)
+    jprio = jnp.asarray(prio0)
+    p_max = torch.tensor(2.5)
+    at_t = torch.tensor(at, dtype=torch.int64)
+    stats = ref_stats = (torch.zeros(b), torch.zeros((), dtype=torch.int64), torch.zeros(()))
+    j_ret_sum = jnp.float32(0.0)
+    for _ in range(6):
+        q = (rng.integers(-2, 3, (b, a)) * 0.5).astype(np.float32)  # ties
+        explore = rng.random(b) < 0.3
+        rand_a = rng.integers(0, a, b).astype(np.int32)
+        args = (torch.as_tensor(q), torch.as_tensor(explore), torch.as_tensor(rand_a))
+        out = tdqn.dqn_act_step(tsem, tbl, st, *args, *stats, 5, ring=(buf, prio, at_t, p_max))
+        ref = tdqn.dqn_act_step_reference(tsem, tbl, ref_st, *args, *ref_stats, 5)
+        tdqn.replay_write_reference(ref_buf, ref_prio, at_t, tdqn.ReplayBuffer(ref_st.agent_idx, ref[1], ref[3],
+                                                                               ref[2], ref[4]), p_max)
+        for x, y in zip((*_fields_of(out[0]), *out[1:]), (*_fields_of(ref[0]), *ref[1:])):
+            assert x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+        for x, y in zip((*buf, *([prio] if prioritized else [])), (*ref_buf, *([ref_prio] if prioritized else []))):
+            assert torch.equal(_bits(x), _bits(y))
+        # the reference's lines: act, step, store, priority fill
+        obs = jst.agent_idx
+        greedy = jnp.argmax(jnp.asarray(q), axis=-1).astype(jnp.int32)
+        actions = jnp.where(jnp.asarray(explore), jnp.asarray(rand_a), greedy)
+        jst, (next_obs, reward, done) = jbp.step_bits(jsem, jbl, jst, actions, True, 5)
+        jbuf = jdqn.buffer_write(jbuf, jnp.int32(at), jdqn.ReplayBuffer(obs, actions, reward, next_obs, done))
+        jprio = jax.lax.dynamic_update_slice_in_dim(jprio, jnp.full((b,), 2.5, jnp.float32), at, 0)
+        j_ret_sum = j_ret_sum + jnp.sum(jnp.where(done, jnp.asarray(stats[0].numpy()) + reward, 0.0))
+        for name, x, y in zip(tdqn.ReplayBuffer._fields, buf, jbuf):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y), name)
+        if prioritized:
+            np.testing.assert_array_equal(prio.numpy(), np.asarray(jprio))
+        for f in ("agent_idx", "agent_code", "t", "done"):
+            np.testing.assert_array_equal(getattr(out[0], f).numpy(), np.asarray(getattr(jst, f)), f)
+        st, stats = out[0], tuple(out[5:])
+        ref_st, ref_stats = ref[0], tuple(ref[5:])
+        np.testing.assert_allclose(float(stats[2]), float(j_ret_sum), rtol=1e-6)
+    untouched = torch.ones(cap, dtype=torch.bool)
+    untouched[at:at + b] = False
+    assert torch.equal(buf.obs[untouched], torch.as_tensor(ring0[0])[untouched])
+    assert int(stats[1]) > 0  # the time limit of 5 ends every episode at least once
 
 
 def test_step_scalars_match_the_reference_schedules():

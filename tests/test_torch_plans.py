@@ -6,7 +6,10 @@
   * K7c (`kernels.dqn_act`): `carve` cuts one buffer into the eleven
     outputs as disjoint, 16-byte-aligned views of the plain version's dtypes
     and shapes; `DqnActPlan` raises on a step tensor of another shape, dtype
-    or device and on another level; and a literal walk of the kernel's one
+    or device and on another level; `bind_ring` raises on a ring that B does
+    not divide, a field or `prio` of another dtype, device or size, and a
+    store-form call on a ring other than the bound one, or on none; and a
+    literal walk of the kernel's one
     launch (a tree in each block, then the last block's walk of the blocks'
     sums in tiles) gives `ended_return_sum_reference`'s bits.
   * K6 (`kernels.td_batched`): `plan` picks the tier, the mazes a block in
@@ -174,6 +177,69 @@ def test_k7c_plan_raises_on_another_level_and_off_the_card():
     learner = dqn.dqn_learner(sem, builders.walls_and_goal_16x16(device=CPU),
                               dqn.DQNConfig(buffer_capacity=64, max_episode_steps=16), 8)
     assert learner.act_plan is None
+
+
+def _ring(cap, prio=True):
+    buf = dqn.ReplayBuffer(torch.zeros(cap, dtype=torch.int32), torch.zeros(cap, dtype=torch.int32),
+                           torch.zeros(cap), torch.zeros(cap, dtype=torch.int32), torch.zeros(cap, dtype=torch.bool))
+    return buf, (torch.zeros(cap) if prio else None)
+
+
+_RING_FAULTS = {
+    "a capacity that B does not divide": ("capacity", lambda buf, prio: (dqn.ReplayBuffer(*(x[:60] for x in buf)),
+                                                                          prio[:60])),
+    "reward in float64": ("buf.reward", lambda buf, prio: (buf._replace(reward=buf.reward.double()), prio)),
+    "done as uint8": ("buf.done", lambda buf, prio: (buf._replace(done=buf.done.to(torch.uint8)), prio)),
+    "obs on another device": ("buf.obs", lambda buf, prio: (buf._replace(obs=torch.zeros(64, dtype=torch.int32,
+                                                                                          device="meta")), prio)),
+    "next_obs of another size": ("buf.next_obs", lambda buf, prio: (buf._replace(next_obs=buf.next_obs[:56]), prio)),
+    "prio of the wrong size": ("prio", lambda buf, prio: (buf, prio[:56])),
+    "prio in float64": ("prio", lambda buf, prio: (buf, prio.double())),
+    "prio on another device": ("prio", lambda buf, prio: (buf, torch.zeros(64, device="meta"))),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(_RING_FAULTS))
+def test_k7c_plan_raises_on_a_wrong_ring(fault):
+    sem = T.make_semantics(device=CPU)
+    plan = dqn_act.DqnActPlan(sem, bp.pack_level(builders.walls_and_goal_16x16(device=CPU)), 8, 16)
+    buf, prio = _ring(64)
+    plan.bind_ring(buf, prio)  # the plan's own shapes pass, with priorities and without
+    plan.bind_ring(buf, None)
+    name, spoil = _RING_FAULTS[fault]
+    with pytest.raises((ValueError, TypeError), match=name):
+        plan.bind_ring(*spoil(buf, prio))
+
+
+def test_k7c_store_form_raises_on_a_ring_it_was_not_bound_to():
+    sem = T.make_semantics(device=CPU)
+    bl = bp.pack_level(builders.walls_and_goal_16x16(device=CPU))
+    plan = dqn_act.DqnActPlan(sem, bl, 8, 16)
+    t = _step_tensors(8)
+    st = bp.FastState(t["agent_idx"], t["agent_code"], t["t"], torch.zeros(8, dtype=torch.bool))
+    step = (st, t["q"], t["explore"], t["rand_a"], t["run_ret"], t["episodes"], t["ret_sum"])
+    buf, prio = _ring(64)
+    at, p_max = torch.zeros((), dtype=torch.int64), torch.ones(())
+    with pytest.raises(ValueError, match="no ring"):  # never a write through another path
+        plan(*step, ring=(buf, prio, at, p_max))
+    plan.bind_ring(buf, prio)
+    other, other_prio = _ring(64)
+    for ring in ((other, prio), (buf, other_prio), (buf._replace(done=other.done), prio), (buf, None)):
+        with pytest.raises(ValueError, match="other tensors"):
+            plan(*step, ring=(*ring, at, p_max))
+    for bad in ((torch.zeros((), dtype=torch.int32), p_max), (at, torch.ones(1)), (at.reshape(1), p_max)):
+        with pytest.raises(ValueError, match="at|p_max"):
+            plan(*step, ring=(buf, prio, *bad))
+    with pytest.raises(ValueError, match="CUDA"):  # the bound ring and the step's tensors pass
+        plan(*step, ring=(buf, prio, at, p_max))
+    plan.bind_ring(buf, None)  # without priorities p_max is not read
+    with pytest.raises(ValueError, match="CUDA"):
+        plan(*step, ring=(buf, None, at, None))
+    assert not buf.obs.any() and not prio.any()
+    # the public entry: on the CPU the plain composition; a plan it is given must hold the ring
+    with pytest.raises(ValueError, match="other tensors"):
+        dqn.dqn_act_step(sem, bl, st, t["q"], t["explore"], t["rand_a"], t["run_ret"], t["episodes"],
+                         t["ret_sum"], 16, plan=plan, ring=(other, None, at, p_max))
 
 
 def _one_launch_walk(ended: np.ndarray) -> np.float32:
