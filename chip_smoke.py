@@ -351,6 +351,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     from griduniverse_tpu_torch.levels import builders
     from griduniverse_tpu_torch.levels import maze as M
     from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
 
     errs = {"dp_grid": 0.0, "td_scan_fast": 0.0, "td_batched": 0.0, "segment_mean": 0.0}
     times = {}
@@ -585,7 +586,6 @@ def solver_phases(gt, dev, gen, bound, smi):
               f"mean return {float(h1.mean_return)!r} -> {float(mean2)!r} ({smi})")
 
     late = 50  # the last steps of the run are a chunk of their own, so that phase 9 can redo them
-    # at 32 envs phase 9 holds every step, so that run is 1,000 steps long
     td_steps = {32: 1_000, 4096: steps}
     for b, n_steps in td_steps.items():
         ts0 = td.td_init(sem, walls16, 11, b)
@@ -709,10 +709,10 @@ def solver_phases(gt, dev, gen, bound, smi):
     # K10 at full width: the main path's `td_run` redone one step at a time,
     # every step's new Q held against the plain update rule on that step's own
     # (q, s, a, δ). The plain rule needs one pass per env of the fullest cell
-    # (thousands while all envs share the start state). So at B=32 all 1,000
-    # steps are held; at B=4096 the first 20, where every env collides, and
-    # the main run's last 50, where the envs are spread over the level; at
-    # B=65,536 the first 3 and the last 5.
+    # (thousands while all envs share the start state). So at B=32 the first
+    # 300 and the last 50 of 1,000 steps are held; at B=4096 the first 8,
+    # where every env collides, and the main run's last 50, where the envs
+    # are spread over the level; at B=65,536 the first and the last 5.
     def held_steps(tag, ts, n_steps):
         for _ in range(n_steps):
             s, a = ts.env_state.agent_idx, ts.action
@@ -723,23 +723,24 @@ def solver_phases(gt, dev, gen, bound, smi):
             hold("segment_mean", tag, (ts.q,), (ref_q,), ("q",))
         return ts
 
-    ts0, _, end = outs["td_32"]
-    redone = held_steps("K10 main td_run B=32", ts0, td_steps[32])
+    ts0, before_late, end = outs["td_32"]
+    held_steps("K10 main td_run B=32 first steps", ts0, 300)
+    redone = held_steps("K10 main td_run B=32 last steps", before_late, late)
     _same_fields("K10 main td_run B=32 redone", _td_fields(redone), _td_fields(end), _TD_FIELDS)
-    print(f"K10 main: td_run B=32, each of the {td_steps[32]} steps' Q bit-exact vs the plain update rule; "
-          "the run redone step by step equals the main path's")
+    print(f"K10 main: td_run B=32, the first 300 and the last {late} of {td_steps[32]} steps' Q bit-exact vs the "
+          "plain update rule; the last steps redone equal the main path's")
     ts0, before_late, end = outs["td_4096"]
-    held_steps("K10 main td_run B=4096 first steps", ts0, 20)
+    held_steps("K10 main td_run B=4096 first steps", ts0, 8)
     redone = held_steps("K10 main td_run B=4096 last steps", before_late, late)
     _same_fields("K10 main td_run B=4096 redone", _td_fields(redone), _td_fields(end), _TD_FIELDS)
     cells = int(torch.unique(end.env_state.agent_idx).numel())
-    print(f"K10 main: td_run B=4096, the first 20 and the last {late} of {steps} steps bit-exact vs the "
+    print(f"K10 main: td_run B=4096, the first 8 and the last {late} of {steps} steps bit-exact vs the "
           f"plain update rule (the envs end on {cells} distinct cells); the last steps redone equal the main path's")
     ts0, before_late, end = outs["td_wide"]
-    held_steps(f"K10 main td_run B={b_wide} first steps", ts0, 3)
+    held_steps(f"K10 main td_run B={b_wide} first step", ts0, 1)
     redone = held_steps(f"K10 main td_run B={b_wide} last steps", before_late, late_wide)
     _same_fields(f"K10 main td_run B={b_wide} redone", _td_fields(redone), _td_fields(end), _TD_FIELDS)
-    print(f"K10 main: td_run B={b_wide} (64 chunks of envs), the first 3 and the last {late_wide} of "
+    print(f"K10 main: td_run B={b_wide} (64 chunks of envs), the first and the last {late_wide} of "
           f"{steps_wide} steps bit-exact vs the plain update rule; the last steps redone equal the main path's")
 
     # -- phase 10: K4 and K10 times at the main path's shapes ------------------
@@ -811,7 +812,11 @@ def solver_phases(gt, dev, gen, bound, smi):
             s[in_cell], a[in_cell] = 17, 2
         delta = torch.randn((b,), generator=gen, device=dev)
         ms10, got = _cuda_ms(lambda: td.apply_td_updates(q, s, a, delta, 0.1), 50)
-        plain10, ref = _cuda_ms(lambda: td.apply_td_updates_reference(q, s, a, delta, 0.1), 1 if hot else 3, warm=not hot)
+        # one plain call serves K10 and its sums form: K10's plain version
+        # is the sums form's, then the apply
+        plain10, ref_sums = _cuda_ms(lambda: td.segment_sums_reference(s, a, delta, 0.1, 256, 4),
+                                     1 if hot else 3, warm=not hot)
+        ref = td.apply_segment_sums(q, *ref_sums)
         lib10, lib = _cuda_ms(lambda: _segment_mean_library(q, s, a, delta, 0.1, None), 50)
         hold("segment_mean", f"K10 timed B={b} hot={hot}", (got,), (ref,), ("q",))
         _require(bool(torch.allclose(got, lib, rtol=1e-5, atol=1e-6)), "K10: the library yardstick computes another function")
@@ -822,9 +827,30 @@ def solver_phases(gt, dev, gen, bound, smi):
             **bound(b * 12 + 2 * n_seg * 4, INSTR_K10_ENV * b + 2 * n_seg))
         if b == 4096:
             times["segment_mean"] = t10
-        else:
-            print(f"time segment_mean at {t10['shape']}: kernel {ms10!r} ms, plain {plain10!r} ms, bound {t10['bound_ms']!r} ms "
-                  f"by {t10['bound_by']}, library {lib10!r} ms; bit-exact vs plain ({smi})")
+            continue
+        print(f"time segment_mean at {t10['shape']}: kernel {ms10!r} ms, plain {plain10!r} ms, bound {t10['bound_ms']!r} ms "
+              f"by {t10['bound_by']}, library {lib10!r} ms; bit-exact vs plain ({smi})")
+        # K10's sums form on the same inputs (the sharded learner's scalable mode)
+        before = kernels.LAUNCHES["segment_sums"]
+        ms_s, got_s = _cuda_ms(lambda: td.segment_sums(s, a, delta, 0.1, 256, 4), 50)
+        _require(kernels.LAUNCHES["segment_sums"] == before + 51 * K10_LAUNCHES,
+                 "K10's sums form: not four launches a call")
+        graph_s = _graph_ms(lambda: td.segment_sums(s, a, delta, 0.1, 256, 4))
+        lib_s, lib = _cuda_ms(lambda: _segment_sums_library(s, a, delta, 0.1, n_seg), 50)
+        err = _same_fields(f"K10 sums form timed B={b} hot={hot}", got_s, ref_sums, ("sums", "counts"))
+        _same(f"K10 sums form + apply B={b} hot={hot}", td.apply_segment_sums(q, *got_s), got)
+        _require(bool(torch.allclose(got_s[0], lib[0], rtol=1e-4, atol=1e-5)) and bool(torch.equal(got_s[1], lib[1])),
+                 "K10's sums form: the library yardstick computes another function")
+        errs["segment_sums"] = max(errs.get("segment_sums", 0.0), err)
+        t_s = dict(
+            ms=ms_s, graph_ms=graph_s, plain_ms=plain10, shape=f"B={b}, S*A={n_seg}, {cells}", library_ms=lib_s,
+            # s, a, delta in; the sums and the counts out
+            **bound(b * 12 + 2 * n_seg * 4, INSTR_K10_ENV * b + n_seg))
+        print(f"time segment_sums at {t_s['shape']}: kernel {ms_s!r} ms, in a CUDA graph of ten {graph_s!r} ms, "
+              f"plain {plain10!r} ms, bound {t_s['bound_ms']!r} ms by {t_s['bound_by']}, library {lib_s!r} ms; "
+              f"bit-exact vs plain, and with the apply equal to K10 ({smi})")
+        if not hot:
+            times["segment_sums"] = t_s
     return launches, errs, times
 
 
@@ -839,6 +865,14 @@ def _segment_mean_library(q, s, a, delta, alpha, mask):
     upd = torch.zeros(n_seg, device=q.device).index_add_(0, flat, inc)
     cnt = torch.zeros(n_seg, device=q.device).index_add_(0, flat, ones)
     return q + (upd / cnt.clamp(min=1.0)).reshape(q.shape)
+
+
+def _segment_sums_library(s, a, delta, alpha, n_seg):
+    """K10's sums form by PyTorch's scatter (`index_add_` of α·δ, `bincount`
+    of the keys): timed as a yardstick, used nowhere in the port."""
+    flat = s.long() * 4 + a.long()
+    sums = torch.zeros(n_seg, device=delta.device).index_add_(0, flat, alpha * delta)
+    return sums, torch.bincount(flat, minlength=n_seg).to(torch.int32)
 
 
 def _rel_err(name: str, a, b, tol: float) -> float:
@@ -2857,6 +2891,467 @@ def compat_phases(gt, dev, bound, smi, bl_walls):
     return errs, times
 
 
+# -- phase 26: the sharded runs (`parallel/`) -----------------------------------
+
+SHARD_B = 65_536
+# steps of each sharded path: over NCCL in a world of one (a), and over Gloo
+# with two ranks sharing the card (b), where every step's collective goes
+# through the host
+SHARD_STEPS = {
+    "nccl": dict(roll=1_000, fast=2_000, fast65=300, batched=2_000, td=200),
+    "gloo": dict(roll=200, fast=200, fast65=60, batched=200, td=20),
+}
+SHARD_KW5 = dict(alpha=0.1, gamma=0.99, epsilon=0.1, algo="q_learning", max_episode_steps=MAX_EPISODE_STEPS)
+GLOO_RANKS, GLOO_TIMEOUT_S = 2, 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _shard_levels(gt, dev) -> dict:
+    """The sharded paths' inputs, built alike in every process: walls16,
+    one 65x65 backtracker maze (16,900 Q entries), 65,536 and 4,096 9x9 and
+    8,192 33x33 Aldous-Broder mazes."""
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.levels import maze as M
+    from griduniverse_tpu_torch.ops import bitplane as bp
+
+    walls16 = builders.walls_and_goal_16x16(device=dev)
+    g65, s65 = M.generate_mazes_device(6, (32, 32), 1, device=dev)
+    return dict(
+        sem=gt.make_semantics(device=dev), walls16=walls16, bl_walls=bp.pack_level(walls16),
+        bl65=bp.pack_level(gt.Level(grid=g65[0].contiguous(), start_idx=s65)),
+        vi64=_aldous_level(gt, M, dev, 2026, SHARD_B), vi33=_aldous_level(gt, M, dev, 33, 8_192, (16, 16)),
+        pi4k=_aldous_level(gt, M, dev, 44, 4_096), q64=_aldous_level(gt, M, dev, 2027, SHARD_B),
+    )
+
+
+def _sharded_calls(m, L, st) -> dict:
+    """Every sharded entry of the slice on mesh `m` at the step counts `st`,
+    each a call of no arguments through the entry a user calls (and, for
+    the shared-Q learner, the scan it runs, to read the env state)."""
+    from griduniverse_tpu_torch import parallel
+    from griduniverse_tpu_torch.algos import td_fast
+    from griduniverse_tpu_torch.parallel import bitplane as pbit
+    from griduniverse_tpu_torch.parallel import mesh as pm
+
+    sem, b = L["sem"], SHARD_B
+    kw = dict(SHARD_KW5)
+    algo = kw.pop("algo")
+
+    def fast_state(bl, steps):
+        ts = pbit.fast_td_init_sharded(m, sem, bl, 3, b)
+        return td_fast.td_scan_fast_sharded(sem, pbit.local_bitlevel(m, bl, b), ts, steps, kw["alpha"], kw["gamma"],
+                                            kw["epsilon"], algo, kw["max_episode_steps"],
+                                            lambda x: pm.all_reduce_sum(m, x))
+
+    return {
+        "rollout": lambda: parallel.compile_rollout_random_sharded(
+            m, sem, L["bl_walls"], b, st["roll"], MAX_EPISODE_STEPS)(7),
+        "fast": lambda: parallel.compile_q_learning_fast_sharded(m, sem, L["bl_walls"], b, st["fast"], **SHARD_KW5)(3),
+        "fast_state": lambda: fast_state(L["bl_walls"], st["fast"]),
+        "fast65": lambda: parallel.compile_q_learning_fast_sharded(m, sem, L["bl65"], b, st["fast65"], **SHARD_KW5)(3),
+        "fast65_state": lambda: fast_state(L["bl65"], st["fast65"]),
+        "vi64": lambda: parallel.value_iteration_batched_grid_sharded(m, sem, L["vi64"]),
+        "vi33": lambda: parallel.value_iteration_batched_grid_sharded(m, sem, L["vi33"]),
+        "pi4k": lambda: parallel.policy_iteration_batched_grid_sharded(m, sem, L["pi4k"]),
+        "batched": lambda: parallel.q_learning_batched_sharded(
+            m, sem, L["q64"], 5, st["batched"], max_episode_steps=MAX_EPISODE_STEPS),
+        "td_parity": lambda: parallel.q_learning_sharded(m, sem, L["walls16"], 11, st["td"], b, parity=True),
+        "td_scalable": lambda: parallel.q_learning_sharded(m, sem, L["walls16"], 11, st["td"], b),
+    }
+
+
+def _unsharded_calls(gt, L, st) -> dict:
+    """The unsharded port's calls that `_sharded_calls`' entries equal."""
+    from griduniverse_tpu_torch import algos
+    from griduniverse_tpu_torch.algos import td_batched, td_fast
+    from griduniverse_tpu_torch.ops import bitplane as bp
+
+    sem, b = L["sem"], SHARD_B
+    kw = dict(SHARD_KW5)
+    algo = kw.pop("algo")
+
+    def fast_state(bl, steps):
+        return td_fast.td_scan_fast(sem, bl, td_fast.fast_td_init(sem, bl, 3, b), steps, kw["alpha"], kw["gamma"],
+                                    kw["epsilon"], algo, kw["max_episode_steps"])
+
+    return {
+        "rollout": lambda: bp.compile_rollout_random(sem, L["bl_walls"], b, st["roll"], MAX_EPISODE_STEPS)(7),
+        "fast": lambda: algos.compile_q_learning_fast(sem, L["bl_walls"], b, st["fast"], **SHARD_KW5)(3),
+        "fast_state": lambda: fast_state(L["bl_walls"], st["fast"]),
+        "fast65": lambda: algos.compile_q_learning_fast(sem, L["bl65"], b, st["fast65"], **SHARD_KW5)(3),
+        "fast65_state": lambda: fast_state(L["bl65"], st["fast65"]),
+        "vi64": lambda: algos.value_iteration_batched_grid(sem, L["vi64"]),
+        "vi33": lambda: algos.value_iteration_batched_grid(sem, L["vi33"]),
+        "pi4k": lambda: algos.policy_iteration_batched_grid(sem, L["pi4k"]),
+        "batched": lambda: td_batched.q_learning_batched(sem, L["q64"], 5, st["batched"],
+                                                         max_episode_steps=MAX_EPISODE_STEPS),
+        "td_parity": lambda: algos.q_learning(sem, L["walls16"], 11, st["td"], b),
+        "td_scalable": lambda: algos.q_learning(sem, L["walls16"], 11, st["td"], b),
+    }
+
+
+def _digest(x) -> str:
+    """A tensor's dtype, shape and bytes, hashed: two digests are equal iff
+    the tensors are, bit for bit."""
+    import hashlib
+
+    x = x.detach().contiguous().cpu()
+    body = x.view(torch.int32) if x.dtype == torch.float32 else x
+    return f"{x.dtype} {tuple(x.shape)} " + hashlib.sha256(body.numpy().tobytes()).hexdigest()
+
+
+_ROW_FIELDS = {"rollout": ("agent_idx", "agent_code", "t", "done"),
+               "fast_state": ("agent_idx", "agent_code", "t", "rs", "run_ret", "n_eps_env", "ret_sum_env"),
+               "batched": ("agent_idx", "agent_code", "t", "a", "rs", "run_ret", "n_eps_env", "ret_sum_env")}
+_ROW_FIELDS["fast65_state"] = _ROW_FIELDS["fast_state"]
+
+
+def _shard_views(name, out):
+    """(the entry's replicated values, the entry's env rows by field) of an
+    output of `_sharded_calls` or `_unsharded_calls`, for the one named."""
+    if name == "rollout":
+        state, stats = out
+        return ({k: stats[k] for k in ("episodes", "mean_length")},
+                {f: getattr(state, f) for f in _ROW_FIELDS[name]})
+    if name in ("fast_state", "fast65_state"):
+        st = out.env_state
+        rows = dict(agent_idx=st.agent_idx, agent_code=st.agent_code, t=st.t, rs=out.rs, run_ret=out.run_ret,
+                    n_eps_env=out.n_eps_env, ret_sum_env=out.ret_sum_env)
+        return {"q": out.q}, rows
+    if name in ("fast", "fast65", "td_parity", "td_scalable"):
+        return {"q": out.q, "episodes": out.episodes}, {}
+    if name == "batched":
+        st = out.state
+        rows = dict(agent_idx=st.env_state.agent_idx, agent_code=st.env_state.agent_code, t=st.env_state.t,
+                    a=st.a, rs=st.rs, run_ret=st.run_ret, n_eps_env=st.n_eps_env, ret_sum_env=st.ret_sum_env)
+        return {"q": out.q, "episodes": out.episodes}, rows
+    v, policy, iters = out
+    return {"v": v, "policy": policy, "iters": torch.tensor(iters)}, {}
+
+
+def _shard_digests(outs) -> dict:
+    """Every entry's replicated values as digests and its env rows on the
+    host: what a rank hands back to be held against the unsharded run."""
+    record = {}
+    for name, out in outs.items():
+        rep, rows = _shard_views(name, out)
+        record[name] = ({k: _digest(v) for k, v in rep.items()},
+                        {k: v.detach().cpu().clone() for k, v in rows.items()})
+    return record
+
+
+def _gloo_cuda_probe(dev) -> dict:
+    """Which collectives Gloo takes on CUDA tensors as they are: each one
+    tried once on a CUDA tensor, its error kept where it refuses (where one
+    did, `parallel/mesh.py` would have to stage it through the host)."""
+    import torch.distributed as dist
+
+    tries = {
+        "all_reduce": lambda x: dist.all_reduce(x),
+        "all_gather": lambda x: dist.all_gather([torch.empty_like(x) for _ in range(dist.get_world_size())], x),
+    }
+    found = {}
+    for name, op in tries.items():
+        x = torch.ones(4, dtype=torch.int64, device=dev)
+        try:
+            op(x)
+            torch.cuda.synchronize()
+            found[name] = "takes CUDA tensors"
+        except (RuntimeError, ValueError) as err:  # the probe's finding, not a fallback
+            found[name] = f"refuses CUDA tensors ({type(err).__name__}: {str(err).splitlines()[0][:160]})"
+    return found
+
+
+def _gloo_rank(rank: int, port: int, out_dir: str, device: str = "cuda:0") -> None:
+    """Phase 26 (b), one rank: Gloo over two processes sharing card 0, every
+    sharded entry at the Gloo step counts, the digests saved for the parent.
+    (`device="cpu"` rehearses it without a card.)"""
+    sys.path.insert(0, str(ROOT))
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch import kernels, parallel
+    from griduniverse_tpu_torch.parallel import distributed
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    info = distributed.initialize("gloo", f"tcp://127.0.0.1:{port}", GLOO_RANKS, rank, device=dev, timeout_s=300)
+    try:
+        name = torch.cuda.get_device_name(dev) if on_card else "the CPU"
+        print(f"phase 26 (b) rank {info['rank']}: backend {info['backend']}, world size {info['world_size']}, "
+              f"device {info['device']} ({name})", flush=True)
+        probe = _gloo_cuda_probe(dev) if on_card else {}
+        m = parallel.make_env_mesh(GLOO_RANKS, device=dev)
+        L = _shard_levels(gt, dev)
+        if on_card:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = {name: call() for name, call in _sharded_calls(m, L, SHARD_STEPS["gloo"]).items()}
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        torch.save({"info": {**info, "device": str(info["device"])}, "probe": probe, "launches": launches,
+                    "seconds": seconds, "record": _shard_digests(outs)}, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def _hold_shards(tag: str, ranks: list, want: dict) -> None:
+    """Each rank's digests of the replicated values equal the unsharded
+    run's (so they are the same bits on every rank), and the ranks' env rows
+    in rank order equal its rows."""
+    for name, (rep, rows) in want.items():
+        for rank, got in enumerate(ranks):
+            for k, d in rep.items():
+                _require(got[name][0][k] == d, f"{tag} {name} {k}: rank {rank} differs from the unsharded run")
+        for k, whole in rows.items():
+            joined = torch.cat([got[name][1][k] for got in ranks])
+            _same(f"{tag} {name} {k}", joined, whole.cpu())
+
+
+def _collectives(fn):
+    """(fn's output, the collectives it issued), counted at torch.distributed."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather": 0}
+    real = {name: getattr(dist, name) for name in counts}
+
+    def counted(name):
+        def call(*args, **kw):
+            counts[name] += 1
+            return real[name](*args, **kw)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in counts:
+            stack.enter_context(mock.patch.object(dist, name, counted(name)))
+        out = fn()
+    return out, counts
+
+
+def _nccl_phases(gt, dev, smi, L, info, lap):
+    """Phase 26 (a) and (d) in a world of one over NCCL (the group already
+    initialised): every entry held bit for bit against the unsharded port,
+    its launches counted; then each against its unsharded call. Returns
+    ({entry: {turn: (ms, launches, collectives, idle share)}}, the path's
+    launches)."""
+    from griduniverse_tpu_torch import kernels, parallel
+    from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+
+    full = SHARD_STEPS["nccl"]
+    m = parallel.make_env_mesh(1, device=dev)
+    print(f"phase 26 (a): backend {m.backend}, world size {m.size}, device {info['device']} ({smi})")
+    calls = _sharded_calls(m, L, full)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = {name: call() for name, call in calls.items()}
+    torch.cuda.synchronize()
+    path = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"launches on the sharded main path (NCCL, world of one): {path}")
+    want_steps = 2 * (full["fast"] + 1) + 2 * (full["fast65"] + 1)
+    _require(path.get("td_step_sharded") == want_steps,
+             f"K5's sharded form: {path.get('td_step_sharded')} launches, expected {want_steps}")
+    _require(path.get("segment_sums") == K10_LAUNCHES * full["td"] and path.get("segment_mean") == K10_LAUNCHES * full["td"],
+             f"K10 and its sums form: {path.get('segment_mean')}, {path.get('segment_sums')} launches")
+    for name in ("random_scan_bits", "dp_grid", "td_batched"):
+        _require(path.get(name, 0) > 0, f"{name} was not launched on the sharded path")
+    unsharded = _unsharded_calls(gt, L, full)
+    want = {name: _shard_views(name, unsharded[name]()) for name in outs}
+    for name, out in outs.items():
+        rep, rows = _shard_views(name, out)
+        for k, v in rep.items():
+            _same(f"sharded (a) {name} {k}", v.reshape(-1), want[name][0][k].reshape(-1))
+        for k, v in rows.items():
+            _same(f"sharded (a) {name} {k}", v, want[name][1][k])
+        _require(name not in ("rollout", "fast", "batched", "td_parity", "td_scalable") or int(rep["episodes"]) > 0,
+                 f"sharded (a) {name}: no episode ended")
+    print("phase 26 (a): every sharded entry over NCCL in a world of one equals the unsharded port bit for bit: "
+          f"the rollout (B={SHARD_B}, T={full['roll']}: per-env state, episodes, mean length), the shared-Q learner "
+          f"(walls16 B={SHARD_B} T={full['fast']}, and the 65x65 maze T={full['fast65']}: Q, env state, lanes, counters "
+          f"against the cooperative K5), VI over 65,536 9x9 and 8,192 33x33 mazes and PI over 4,096 (V, policy, "
+          f"iterations), the per-maze learner (65,536 x {full['batched']}: tables, state), and q_learning_sharded "
+          f"(B={SHARD_B}, T={full['td']}) in parity and scalable modes against td_run ({smi})")
+
+    lap("phase 26 (a)")
+    # -- (d) each sharded entry against its unsharded call --------------------
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev).sum().item()  # the profiler's own start-up
+    steps_of = {"rollout": full["roll"], "fast": full["fast"], "fast65": full["fast65"], "batched": full["batched"],
+                "td_parity": full["td"], "td_scalable": full["td"]}
+    timed = {}
+    # in turns, each entry warm from (a): one call on the host clock with its
+    # launches and collectives counted, then one under the profiler
+    for name in ("rollout", "fast", "fast65", "vi64", "vi33", "pi4k", "batched", "td_parity", "td_scalable"):
+        row = {}
+        for tag, fn in (("unsharded", unsharded[name]), ("sharded", calls[name])):
+            kernels.reset_launches()
+            wall, coll = _collectives(lambda: _wall_ms(fn))
+            launched = sum(kernels.LAUNCHES.values())
+            idle, events = _idle_share(fn, wall)
+            row[tag] = (wall, launched, coll, idle)
+            steps = steps_of.get(name)
+            per_step = "" if steps is None else (f", {sum(coll.values()) / steps!r} collectives a step "
+                                                 f"({launched / steps!r} launches a step)")
+            share = "not measured (the profiler recorded no device time)" if idle is None else f"{100 * idle:.2f} %"
+            print(f"phase 26 (d) {name} {tag}: {wall!r} ms a call on the host clock, {launched} kernel launches, "
+                  f"collectives {coll}{per_step}, {events} device events, device idle share {share} ({smi})")
+        timed[name] = row
+    lap("phase 26 (d)")
+    return timed, path
+
+
+def _idle_share(fn, wall_ms: float):
+    """(1 - the device's busy time / `wall_ms`, device events) of one call
+    of `fn` under the profiler (device activity only), or (None, 0) where
+    it recorded no device time."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(spans)
+    return (1 - busy / (wall_ms * 1e3) if busy else None), len(spans)
+
+
+def sharded_phases(gt, dev, bound, smi):
+    """Phase 26: the sharded paths of `parallel/`. (a) A world of one over
+    NCCL on the card at full width, its launches counted, every entry held
+    bit for bit against the unsharded port; (b) two ranks sharing the card
+    over Gloo (spawned processes), held the same way at fewer steps; (c)
+    K5's sharded form against its plain version and timed; (d) each sharded
+    entry's time, launches, collectives and idle share against its
+    unsharded call. Returns (launches, max abs errors, times) by kernel."""
+    import torch.multiprocessing as tmp
+
+    from griduniverse_tpu_torch.algos import td_fast
+    from griduniverse_tpu_torch.kernels import td_fast as k5
+    from griduniverse_tpu_torch.parallel import distributed
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"{what}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
+    L = _shard_levels(gt, dev)
+    sem = L["sem"]
+    full = SHARD_STEPS["nccl"]
+
+    # -- (a) NCCL, a world of one -------------------------------------------------
+    info = distributed.initialize("nccl", f"tcp://127.0.0.1:{_free_port()}", 1, 0, device=dev, timeout_s=300)
+    try:
+        timed, path = _nccl_phases(gt, dev, smi, L, info, lap)
+    finally:
+        distributed.shutdown()
+    # -- (b) Gloo, two ranks sharing the card ---------------------------------------
+    torch.cuda.empty_cache()
+    gloo = SHARD_STEPS["gloo"]
+    with_dir = ROOT / "build" / "smoke_gloo"
+    with_dir.mkdir(parents=True, exist_ok=True)
+    ctx = tmp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, port, str(with_dir))) for r in range(GLOO_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + GLOO_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    late = [p for p in procs if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join(10)
+    codes = [p.exitcode for p in procs]
+    _require(not late and codes == [0] * GLOO_RANKS, f"phase 26 (b): exit codes {codes}, {len(late)} killed")
+    ranks = [torch.load(with_dir / f"rank{r}.pt", weights_only=False) for r in range(GLOO_RANKS)]
+    for f in with_dir.iterdir():
+        f.unlink()
+    with_dir.rmdir()
+    print(f"phase 26 (b): {GLOO_RANKS} ranks over Gloo on one card in {time.perf_counter() - t0:.1f} s "
+          f"(their sharded runs {[round(r['seconds'], 3) for r in ranks]} s); Gloo on CUDA tensors: {ranks[0]['probe']}")
+    for r in ranks:
+        print(f"phase 26 (b) rank {r['info']['rank']}: backend {r['info']['backend']}, world size "
+              f"{r['info']['world_size']}, device {r['info']['device']}; launches {r['launches']}")
+        _require(r["launches"].get("td_step_sharded") == 2 * (gloo["fast"] + 1) + 2 * (gloo["fast65"] + 1)
+                 and r["launches"].get("segment_sums") == K10_LAUNCHES * gloo["td"],
+                 f"phase 26 (b) rank {r['info']['rank']}: launches {r['launches']}")
+    unsharded_gloo = _unsharded_calls(gt, L, gloo)
+    want_gloo = {}
+    for name in ranks[0]["record"]:
+        rep, rows = _shard_views(name, unsharded_gloo[name]())
+        if name == "td_scalable":  # two ranks add their sums in rank order: not td_run's order
+            rep = {}
+        want_gloo[name] = ({k: _digest(v) for k, v in rep.items()}, rows)
+    _hold_shards("phase 26 (b)", [r["record"] for r in ranks], want_gloo)
+    scal = [r["record"]["td_scalable"][0] for r in ranks]
+    _require(all(s == scal[0] for s in scal), "phase 26 (b) td_scalable: Q differs between the ranks")
+    print(f"phase 26 (b): every sharded entry over Gloo with {GLOO_RANKS} ranks on one card, gathered in rank order, "
+          f"equals the unsharded port bit for bit (rollout T={gloo['roll']}, shared-Q T={gloo['fast']} and "
+          f"{gloo['fast65']} at 65x65, VI, PI, per-maze T={gloo['batched']}, q_learning_sharded parity T={gloo['td']}); "
+          f"the scalable mode's Q is the same bits on both ranks ({smi})")
+    lap("phase 26 (b)")
+
+    # -- (c) K5's sharded form against its plain version, and timed ------------------
+    errs = {"td_step_sharded": 0.0}
+    kw = dict(SHARD_KW5)
+    algo = kw.pop("algo")
+
+    def identity(agg):
+        return agg
+
+    for tag, bl, b, steps in (("walls16", L["bl_walls"], 33, 200), ("walls16", L["bl_walls"], SHARD_B, 200),
+                              ("65x65 (global tier)", L["bl65"], SHARD_B, 100)):
+        ts = td_fast.fast_td_init(sem, bl, 9, b)
+        got = td_fast.td_scan_fast_sharded(sem, bl, ts, steps, kw["alpha"], kw["gamma"], kw["epsilon"], algo,
+                                           kw["max_episode_steps"], identity)
+        ref = td_fast.td_scan_fast_sharded_reference(sem, bl, ts, steps, kw["alpha"], kw["gamma"], kw["epsilon"],
+                                                     algo, kw["max_episode_steps"], identity)
+        errs["td_step_sharded"] = max(errs["td_step_sharded"],
+                                      _same_fields(f"K5 sharded {tag} B={b}", _fast_fields(got), _fast_fields(ref),
+                                                   _FAST_FIELDS))
+        print(f"K5's sharded form {tag} B={b} T={steps}: Q, env state, lanes, counters bit-exact vs plain")
+    ts = td_fast.fast_td_init(sem, L["bl_walls"], 9, SHARD_B)
+    n = ts.q.numel()
+    q_prev, q_cur = ts.q.clone(), torch.empty_like(ts.q)
+    aggs = torch.zeros((3, 2, n), dtype=torch.int64, device=dev)
+    state = [x.clone() for x in (ts.env_state.agent_idx, ts.env_state.agent_code, ts.env_state.t, ts.rs,
+                                 ts.run_ret, ts.n_eps_env, ts.ret_sum_env)]
+
+    def one_step():
+        k5.td_step_sharded_cuda(sem, L["bl_walls"], q_prev, q_cur, aggs[0], aggs[1], aggs[2], state,
+                                kw["alpha"], kw["gamma"], kw["epsilon"], 0, kw["max_episode_steps"])
+
+    ms, _ = _cuda_ms(one_step, 200)
+    graph_ms = _graph_ms(one_step)
+    plain_ms, _ = _cuda_ms(lambda: td_fast.td_step_sharded_reference(
+        sem, L["bl_walls"], q_prev, aggs[0], ts, kw["alpha"], kw["gamma"], kw["epsilon"], algo,
+        kw["max_episode_steps"]), 5)
+    # the function's operations (K5's count) and the aggregate's 2·S·A·8 bytes each way
+    t5 = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, library_ms=None,
+              shape=f"walls16 B={SHARD_B}, one step (a launch)",
+              **bound(2 * 2 * n * 8, INSTR_K5_STEP * SHARD_B + INSTR_K5_ENTRY * n))
+    print(f"time td_step_sharded at {t5['shape']}: kernel {ms!r} ms as timed, {graph_ms!r} ms in a CUDA graph of ten, "
+          f"plain {plain_ms!r} ms, bound {t5['bound_ms']!r} ms by {t5['bound_by']}, library None ms ({smi})")
+    lap("phase 26 (c)")
+    for name, row in timed.items():
+        u, s_ = row["unsharded"], row["sharded"]
+        shares = " / ".join("not measured" if t[3] is None else f"{100 * t[3]:.2f} %" for t in (s_, u))
+        print(f"phase 26 (d) {name}: sharded {s_[0]!r} ms / unsharded {u[0]!r} ms a call ({s_[0] / u[0]!r}x), "
+              f"launches {s_[1]} / {u[1]}, collectives {s_[2]}, idle share {shares} ({smi})")
+    launches = {"td_step_sharded": path["td_step_sharded"], "segment_sums": path["segment_sums"]}
+    return launches, errs, {"td_step_sharded": t5}
+
+
 def _aldous_level(gt, M, dev, seed, b, cells=(4, 4)):
     grids, start = M.generate_mazes_device(seed, cells, b, "aldous_broder", device=dev)
     return gt.Level(grid=grids, start_idx=start.expand(b).contiguous())
@@ -3170,6 +3665,12 @@ def main() -> None:
     for name, ts in compat_times.items():
         times[name] = [times[name], *ts]
     elapsed("phase 25")
+    # -- phase 26: the sharded runs (NCCL a world of one, Gloo two ranks a card) ----
+    shard_launches, shard_errs, shard_times = sharded_phases(gt, dev, bound, smi)
+    launches.update(shard_launches)
+    errs.update(shard_errs)
+    times.update(shard_times)
+    elapsed("phase 26")
     # a kernel timed at several shapes or in several forms (K1, K2, K3, K11) has
     # a record for each; one of another path carries its own launches and error
     shaped = [(name, t) for name, ts in times.items() for t in (ts if isinstance(ts, list) else [ts])]
@@ -3199,6 +3700,8 @@ def main() -> None:
         "trace_pass": (csrc + "trace_pass.cu", "griduniverse_tpu/algos/td_lambda.py:41"),
         "dqn_act": (csrc + "dqn_act.cu", "griduniverse_tpu/models/dqn.py:347"),
         "mc_returns": (csrc + "mc_returns.cu", "griduniverse_tpu/algos/mc.py:59"),
+        "td_step_sharded": (csrc + "td_fast.cu", "griduniverse_tpu/algos/td_fast.py:323"),
+        "segment_sums": (csrc + "segment_mean.cu", "griduniverse_tpu/parallel/learner.py:179"),
     }
     _require(set(sources) == set(kernels.LAUNCHES), "the record does not list every kernel")
     _require(set(sources) == {name for name, _ in shaped}, "a kernel has no time")

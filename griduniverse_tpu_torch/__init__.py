@@ -19,6 +19,10 @@ Subpackages:
   models    — neural learners on one device: networks (K9a, K9b),
               optimizer, A2C and PPO (K7a, K7b), DQN with its replay ring
               and prioritized draw (K8a, K8b), greedy evaluation
+  parallel  — sharded runs on `torch.distributed`, one rank a shard:
+              the mesh and its collectives, the runtime, sharded rollouts
+              (K1), solvers (K4 under one global stop) and tabular
+              Q-learners (K5's sharded form, K10 or its sums form, K6)
   compat    — the reference GridUniverse's API: the Gym-style
               `GridUniverseEnv` (a K2 launch a step, or the NumPy oracle),
               its gymnasium adapter (`GridUniverseTorch-v0`) and the

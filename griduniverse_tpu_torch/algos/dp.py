@@ -46,13 +46,15 @@ def action_values(model: ModelTable, v: torch.Tensor, gamma: float) -> torch.Ten
     return torch.where(model.terminal[:, None], 0.0, q)
 
 
-def sweep_until(backup, v0: torch.Tensor, theta: float, max_iters: int):
+def sweep_until(backup, v0: torch.Tensor, theta: float, max_iters: int, reduce_max=None):
     """v ← backup(v) until max|Δv| over the whole tensor < theta, or
-    `max_iters` sweeps. Returns (v, sweeps)."""
+    `max_iters` sweeps. `reduce_max` (a sharded solver's all-reduce of the
+    0-d maximum over its ranks) makes the test global. Returns (v, sweeps)."""
     v, iters = v0, 0
     while iters < max_iters:
         v_new = backup(v)
-        delta = float((v_new - v).abs().max())
+        delta = (v_new - v).abs().max()
+        delta = float(delta if reduce_max is None else reduce_max(delta))
         v, iters = v_new, iters + 1
         if below(delta, theta):
             break

@@ -243,16 +243,20 @@ def policy_iteration_batched_grid_reference(
     return _howard(evaluate, improve, _zeros(levels.grid, torch.int32), v0, max_policy_iters)
 
 
-def _sweep_until_cuda(sem, grids, policy, gamma, theta, max_iters):
+def _sweep_until_cuda(sem, grids, policy, gamma, theta, max_iters, reduce_max=None):
     """`dp.sweep_until` through K4: launches of up to SWEEPS_PER_LAUNCH
     sweeps; the host reads each launch's per-sweep global maxima once.
     Where sweep j < the launch's count is the first under theta, V after
     exactly j+1 sweeps comes from rerunning that count on the launch's
-    input."""
+    input. `reduce_max` (a sharded solver's all-reduce over its ranks) takes
+    the launch's (k,) maxima to their maxima over every rank first, so that
+    every rank stops at the same sweep."""
     v, iters = _zeros(grids, torch.float32), 0
     while iters < max_iters:
         k = min(SWEEPS_PER_LAUNCH, max_iters - iters)
         v_out, maxima = grid_sweeps_cuda(sem, grids, v, policy, gamma, k)
+        if reduce_max is not None:
+            maxima = reduce_max(maxima)
         hit = [j for j, m in enumerate(maxima.tolist()) if below(m, theta)]
         if hit:
             if hit[0] + 1 < k:

@@ -33,7 +33,7 @@ from .. import kernels
 from ..core.semantics import Semantics
 from ..core.step import step_autoreset
 from ..core.types import EnvState, Level
-from ..kernels.segment_mean import segment_mean_cuda
+from ..kernels.segment_mean import segment_mean_cuda, segment_sums_cuda
 from ..ops.bitplane import xorshift_init, xorshift_next
 from ..ops.rollout import reset_batch
 from .dp import first_argmax
@@ -79,31 +79,55 @@ def td_error_expected_sarsa(q, s, a, r, s2, done, gamma, epsilon):
     return target - _q_at(q, s, a)
 
 
-def apply_td_updates_reference(q, s, a, delta, alpha, mask=None):
-    """Plain PyTorch version of K10: per (s, a), the float sum of α·δ over
-    the envs at that cell IN INCREASING ENV INDEX, the count, and
-    `q + sum / max(count, 1)`. It adds the first member of every segment,
-    then the second, and so on; each pass has unique indices, so the order
-    of every segment's adds is env order."""
-    num_states, num_actions = q.shape
+def segment_sums_reference(s, a, delta, alpha, num_states: int, num_actions: int, mask=None):
+    """Plain PyTorch version of K10's sums form: per (s, a), the float32 sum
+    of α·δ over the envs at that cell IN INCREASING ENV INDEX, and the count
+    (int32), each (S·A,). It adds the first member of every segment, then
+    the second, and so on; each pass has unique indices, so the order of
+    every segment's adds is env order."""
     flat = s.long() * num_actions + a.long()
     inc = alpha * delta
     if mask is not None:
         flat, inc = flat[mask], inc[mask]
-    upd = torch.zeros(num_states * num_actions, dtype=q.dtype, device=q.device)
-    cnt = torch.zeros_like(upd)
+    upd = torch.zeros(num_states * num_actions, dtype=torch.float32, device=delta.device)
+    cnt = torch.zeros(num_states * num_actions, dtype=torch.int32, device=delta.device)
     if flat.numel():
         order = torch.argsort(flat, stable=True)
         keys, inc = flat[order], inc[order]
-        pos = torch.arange(keys.numel(), device=q.device)
+        pos = torch.arange(keys.numel(), device=delta.device)
         first = torch.ones_like(keys, dtype=torch.bool)
         first[1:] = keys[1:] != keys[:-1]
         rank = pos - torch.where(first, pos, 0).cummax(dim=0).values
         for k in range(int(rank.max()) + 1):
             sel = rank == k
             upd[keys[sel]] = upd[keys[sel]] + inc[sel]
-            cnt[keys[sel]] = cnt[keys[sel]] + 1.0
-    return q + (upd / cnt.clamp(min=1.0)).reshape(num_states, num_actions)
+            cnt[keys[sel]] = cnt[keys[sel]] + 1
+    return upd, cnt
+
+
+def segment_sums(s, a, delta, alpha, num_states: int, num_actions: int, mask=None):
+    """K10's sums form on CUDA (`segment_sums_reference` on the CPU): the
+    env-order float sums of α·δ and the counts of every (s, a), for a
+    sharded learner to sum over its ranks before `apply_segment_sums`."""
+    if not kernels.on_cuda(s, a, delta, *(() if mask is None else (mask,))):
+        return segment_sums_reference(s, a, delta, alpha, num_states, num_actions, mask)
+    return segment_sums_cuda(s, a, delta, alpha, num_states, num_actions, mask)
+
+
+def apply_segment_sums(q, sums, counts):
+    """`q + sums / max(counts, 1)`, the mean's apply after the sums (each
+    (S·A,); counts of any integer type) are summed over the ranks."""
+    mean = sums / counts.clamp(min=1).to(torch.float32)
+    return q + mean.reshape(q.shape)
+
+
+def apply_td_updates_reference(q, s, a, delta, alpha, mask=None):
+    """Plain PyTorch version of K10: per (s, a), the float sum of α·δ over
+    the envs at that cell in increasing env index (`segment_sums_reference`),
+    the count, and `q + sum / max(count, 1)`."""
+    num_states, num_actions = q.shape
+    upd, cnt = segment_sums_reference(s, a, delta, alpha, num_states, num_actions, mask)
+    return apply_segment_sums(q, upd, cnt)
 
 
 def apply_td_updates(q, s, a, delta, alpha):

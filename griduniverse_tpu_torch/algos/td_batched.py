@@ -155,9 +155,9 @@ def _check(levels: Level, algo: str) -> None:
         raise ValueError(f"unknown algo: {algo!r}")
 
 
-def _init_state(sem, bl, key, q0, dtype) -> BatchedTDState:
-    """Fresh tables, envs at their starts, seeded lanes; the first action
-    `a` is still to be drawn."""
+def _init_state(sem, bl, key, q0, dtype, lane_offset=0) -> BatchedTDState:
+    """Fresh tables, envs at their starts, seeded lanes (numbered from
+    `lane_offset`); the first action `a` is still to be drawn."""
     dev = bl.device
     n = int(bl.code_words.shape[0])
     if q0 is None:
@@ -165,7 +165,7 @@ def _init_state(sem, bl, key, q0, dtype) -> BatchedTDState:
     else:
         q = q0.clone()
     env0 = reset_bits(bl, None)
-    rs = xorshift_init(key, (n,), device=dev)
+    rs = xorshift_init(key, (n,), lane_offset, device=dev)
     zf = torch.zeros(n, dtype=torch.float32, device=dev)
     zi = torch.zeros(n, dtype=torch.int32, device=dev)
     return BatchedTDState(
@@ -211,12 +211,13 @@ def q_learning_batched_reference(
     state0: BatchedTDState | None = None,
     dtype: str = "float32",
     draws=None,
+    lane_offset: int = 0,
 ) -> BatchedTDResult:
     """Plain PyTorch version of K6: a Python loop over steps with
     `torch.gather` / `scatter` on the (N, S, A) tables."""
     _check(levels, algo)
     bl = pack_level(levels)
-    st = state0 if state0 is not None else _init_state(sem, bl, key, q0, dtype)
+    st = state0 if state0 is not None else _init_state(sem, bl, key, q0, dtype, lane_offset)
     explore, rand_a, explore0, rand_a0 = _check_draws(draws, num_steps, st.a.shape[0])
     q, state, a, rs = st.q.clone(), st.env_state, st.a, st.rs
     if state0 is None:
@@ -258,6 +259,7 @@ def q_learning_batched(
     state0: BatchedTDState | None = None,
     dtype: str = "float32",
     draws=None,
+    lane_offset: int = 0,
 ) -> BatchedTDResult:
     """Train one ε-greedy TD agent PER MAZE for `num_steps` steps (K6 on
     CUDA).
@@ -272,16 +274,19 @@ def q_learning_batched(
     dtype — storage type of the tables, "float32" or "bfloat16" (module
     docstring); ignored when `q0` or `state0` supply tables.
     draws — optional injected (explore, rand_a, explore0, rand_a0).
+    lane_offset — the global number of maze 0's xorshift lane: a shard of
+    a sharded run passes its first maze's index and draws that maze's
+    stream of the unsharded run.
     Returns per-maze Q (N, S, A), pooled episode stats, and the resume
     carry in `.state`."""
     _check(levels, algo)
     if not kernels.on_cuda(levels.grid, sem.deltas):
         return q_learning_batched_reference(
             sem, levels, key, num_steps, alpha, gamma, epsilon, algo,
-            max_episode_steps, q0, state0, dtype, draws,
+            max_episode_steps, q0, state0, dtype, draws, lane_offset,
         )
     bl = pack_level(levels)
-    st = state0 if state0 is not None else _init_state(sem, bl, key, q0, dtype)
+    st = state0 if state0 is not None else _init_state(sem, bl, key, q0, dtype, lane_offset)
     q, idx, code, t, a, rs, run_ret, n_eps_env, ret_sum_env = td_batched_cuda(
         sem, bl, st.q, st.env_state, st.a, st.rs, st.run_ret, st.n_eps_env,
         st.ret_sum_env, _check_draws(draws, num_steps, st.a.shape[0]),

@@ -43,6 +43,13 @@
 // only in 4, in env order, so the bits are those of the plain version. A hot
 // cell is still one chain of dependent adds: no order-keeping design avoids
 // it. Built with -fmad=false; α·δ is one rounding and the sum adds only.
+//
+// The sums form (`gu_segment_sums`) is the same four launches with the
+// last one stopped before the divide: it writes each segment's env-order
+// float sum and its count, for the sharded learner to sum over the ranks
+// (griduniverse_tpu/parallel/learner.py:179-185, the `segment_sum`s before
+// the `psum`) and then add the mean. Followed by that apply in a world of
+// one, it gives K10's bits.
 
 #include <cuda_runtime.h>
 
@@ -203,10 +210,13 @@ segment_scatter_kernel(const int* __restrict__ s, const int* __restrict__ a,
 // values at a time into its stage in shared memory, and lane 0 adds them
 // from there, four to a load, while the next 128 are on their way: the
 // chain of dependent adds sets the pace.
+// kSums: write the sum to q_out and the count to counts_out (the sums
+// form), else q_in + sum / max(count, 1) to q_out.
+template <bool kSums>
 __global__ void __launch_bounds__(kThreads)
 segment_sum_kernel(const float* __restrict__ q_in, float* __restrict__ q_out,
-                   const int* __restrict__ offsets, const float* __restrict__ vals, int n_seg,
-                   int n_chunks, int advanced) {
+                   int* __restrict__ counts_out, const int* __restrict__ offsets,
+                   const float* __restrict__ vals, int n_seg, int n_chunks, int advanced) {
   __shared__ float4 stage[kWarps][kSumRows * 8];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int k = blockIdx.x * kWarps + warp;
@@ -251,18 +261,26 @@ segment_sum_kernel(const float* __restrict__ q_in, float* __restrict__ q_out,
     for (int r = 0; r < kSumRows; ++r) v[r] = next[r];
   }
   const int count = end - begin;
-  if (lane == 0) q_out[k] = q_in[k] + sum / static_cast<float>(count > 1 ? count : 1);
+  if (lane == 0) {
+    if (kSums) {
+      q_out[k] = sum;
+      counts_out[k] = count;
+    } else {
+      q_out[k] = q_in[k] + sum / static_cast<float>(count > 1 ? count : 1);
+    }
+  }
 }
 
 }  // namespace
 
-// The four kernels of one update; `*launched` counts those launched.
-// `counts`: n_seg · ceil(batch / chunk) + 2 ints; `vals`: batch floats;
-// `status`: one 8-byte word per scan tile of 4,096 counters.
-extern "C" int gu_segment_mean(const void* q_in, void* q_out, const void* s, const void* a,
-                               const void* delta, const void* mask, float alpha, int batch,
-                               int num_actions, int n_seg, int chunk, void* counts, void* vals,
-                               void* status, int* launched, void* stream) {
+namespace {
+
+// The four kernels; the last writes Q (`counts_out` null) or, in the sums
+// form, the sums to `q_out` and the counts to `counts_out`.
+int segment_launches(const void* q_in, void* q_out, int* counts_out, const void* s, const void* a,
+                     const void* delta, const void* mask, float alpha, int batch, int num_actions,
+                     int n_seg, int chunk, void* counts, void* vals, void* status, int* launched,
+                     void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   *launched = 0;
   const int n_chunks = (batch + chunk - 1) / chunk;
@@ -301,10 +319,36 @@ extern "C" int gu_segment_mean(const void* q_in, void* q_out, const void* s, con
   if (err != 0) return err;
   *launched = 3;
   const int sum_blocks = (n_seg + kWarps - 1) / kWarps;
-  segment_sum_kernel<<<sum_blocks, kThreads, 0, st>>>(
-      static_cast<const float*>(q_in), static_cast<float*>(q_out), cnt,
-      static_cast<const float*>(vals), n_seg, n_chunks, in_shared ? 0 : 1);
+  auto* sum = counts_out != nullptr ? segment_sum_kernel<true> : segment_sum_kernel<false>;
+  sum<<<sum_blocks, kThreads, 0, st>>>(static_cast<const float*>(q_in),
+                                       static_cast<float*>(q_out), counts_out, cnt,
+                                       static_cast<const float*>(vals), n_seg, n_chunks,
+                                       in_shared ? 0 : 1);
   err = static_cast<int>(cudaGetLastError());
   if (err == 0) *launched = 4;
   return err;
+}
+
+}  // namespace
+
+// The four kernels of one update; `*launched` counts those launched.
+// `counts`: n_seg · ceil(batch / chunk) + 2 ints; `vals`: batch floats;
+// `status`: one 8-byte word per scan tile of 4,096 counters.
+extern "C" int gu_segment_mean(const void* q_in, void* q_out, const void* s, const void* a,
+                               const void* delta, const void* mask, float alpha, int batch,
+                               int num_actions, int n_seg, int chunk, void* counts, void* vals,
+                               void* status, int* launched, void* stream) {
+  return segment_launches(q_in, q_out, nullptr, s, a, delta, mask, alpha, batch, num_actions,
+                          n_seg, chunk, counts, vals, status, launched, stream);
+}
+
+// The sums form: the same four kernels, the last writing each segment's
+// env-order float sum of α·δ to `sums` and its count to `seg_counts`
+// (n_seg each) instead of Q. The scratch is `gu_segment_mean`'s.
+extern "C" int gu_segment_sums(void* sums, void* seg_counts, const void* s, const void* a,
+                               const void* delta, const void* mask, float alpha, int batch,
+                               int num_actions, int n_seg, int chunk, void* counts, void* vals,
+                               void* status, int* launched, void* stream) {
+  return segment_launches(nullptr, sums, static_cast<int*>(seg_counts), s, a, delta, mask, alpha,
+                          batch, num_actions, n_seg, chunk, counts, vals, status, launched, stream);
 }

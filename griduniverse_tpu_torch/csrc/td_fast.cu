@@ -67,6 +67,31 @@
 // chunked run equals the unbroken run. The file is built with -fmad=false,
 // so `r + γ·v − q` and `α·δ` round as the plain version's separate
 // multiply and add.
+//
+// The sharded form (`td_fast_step_kernel`). Replaces the same function with
+// its `psum_axes` (griduniverse_tpu/algos/td_fast.py:323-327), called by
+// griduniverse_tpu/parallel/bitplane.py:224: each rank steps its envs and
+// the step's aggregate is summed over the ranks before Q moves. A
+// collective cannot sit inside the scan's cooperative launch, so this form
+// is one ordinary launch a step, with the envs' state in device memory
+// between launches and the all-reduce between them:
+//  1. The launch of step t starts from Q_{t-1} (`q_prev`) and the SUMMED
+//     aggregate of step t-1 (`agg_prev`: sums, then counts, 64-bit; null at
+//     step 0) and takes Q_t = Q_{t-1} + sum·2^-32 / max(count, 1), the
+//     integer function of the scan: each block stages Q_t in shared memory
+//     (up to kMaxStagedEntries entries; above, every entry an env reads is
+//     rebuilt from global memory), and the grid writes Q_t for the next
+//     launch (`q_cur`) and clears the aggregate of step t+1 (`agg_clear`,
+//     last read by the launch of step t-1).
+//  2. Each thread acts and steps one env against Q_t and adds its
+//     fixed-point α·δ and a count to the step's aggregate (`agg_cur`, in
+//     shared memory first where Q is staged, then flushed with atomics).
+//  3. The wrapper all-reduces `agg_cur` (integer sums: exact in any order,
+//     on any backend and at any world size), and the next launch applies it.
+//  4. A last launch with `act` = 0 writes Q_T alone.
+// Q after T steps is the same integer function of the same integers as the
+// scan's, so the sharded run equals the unsharded K5 bit for bit on every
+// rank. Bound: latency again, now a launch and a collective a step.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -165,8 +190,10 @@ __device__ __forceinline__ void store_env(const TdFastArgs& g, int b, const Env&
   g.ret_sum[b] = e.ret_sum;
 }
 
-// q + sum·2^-32 / max(count, 1), the mean in float64, rounded once.
-__device__ __forceinline__ float apply_mean(float q, long long sum, int count) {
+// q + sum·2^-32 / max(count, 1), the mean in float64, rounded once. The
+// count is an int (the scan's) or a 64-bit integer (the sharded step's).
+template <typename Cnt>
+__device__ __forceinline__ float apply_mean(float q, long long sum, Cnt count) {
   const double mean = __ll2double_rn(sum) * (1.0 / kFixedOne) /
                       static_cast<double>(count > 1 ? count : 1);
   return q + static_cast<float>(mean);
@@ -174,8 +201,9 @@ __device__ __forceinline__ float apply_mean(float q, long long sum, int count) {
 
 // Q_t[i] of the global-memory form: q_prev[i], plus the mean of step t-1's
 // aggregate if `apply_prev`. Read past L1: other blocks wrote these this scan.
+template <typename Cnt>
 __device__ __forceinline__ float rebuilt(int apply_prev, const float* q_prev,
-                                         const long long* acc_prev, const int* cnt_prev, int i) {
+                                         const long long* acc_prev, const Cnt* cnt_prev, int i) {
   const float q = __ldcg(q_prev + i);
   return apply_prev ? apply_mean(q, __ldcg(acc_prev + i), __ldcg(cnt_prev + i)) : q;
 }
@@ -184,11 +212,11 @@ __device__ __forceinline__ float rebuilt(int apply_prev, const float* q_prev,
 // aggregate); returns the cell (s, a) it adds to and its fixed-point α·δ.
 // Above kMaxActions (Tab = WideTables) the loops over actions run to A and
 // keep no row: the same first argmax, maximum and sum in index order.
-template <bool kStaged, typename Tab>
+template <bool kStaged, typename Tab, typename Cnt>
 __device__ __forceinline__ int env_step(const TdFastArgs& g, const Tab& tab,
                                         const uint32_t* s_words, const float* s_q, int apply_prev,
                                         const float* q_prev, const long long* acc_prev,
-                                        const int* cnt_prev, int b, Env& e, long long& inc) {
+                                        const Cnt* cnt_prev, int b, Env& e, long long& inc) {
   const uint32_t* lw = g.per_env ? g.words + static_cast<size_t>(b) * g.n_words : s_words;
   const int s_idx = g.per_env ? g.start_idx[b] : g.start_idx[0];
   const int s_code = g.per_env ? g.start_code[b] : g.start_code[0];
@@ -289,13 +317,15 @@ __device__ __forceinline__ int env_step(const TdFastArgs& g, const Tab& tab,
 // Adds `inc` and a count of one at `cell` (< 0: nothing), the lanes of the
 // warp with the same cell combined first: the lowest of them adds their
 // sum (integer, so in any order the same) and their number. Every lane of
-// the warp calls it. `w_inc` is the warp's 32 slots of shared memory.
+// the warp calls it. `w_inc` is the warp's 32 slots of shared memory. The
+// counts are ints (the scan's) or 64-bit (the sharded step's aggregate).
+template <typename Cnt>
 __device__ __forceinline__ void add_combined(int cell, long long inc, long long* w_inc,
-                                             unsigned long long* acc, int* cnt) {
+                                             unsigned long long* acc, Cnt* cnt) {
   if constexpr (GU_K5_CUT == 3) {
     if (cell >= 0) {
       atomicAdd(acc + cell, static_cast<unsigned long long>(inc));
-      atomicAdd(cnt + cell, 1);
+      atomicAdd(cnt + cell, static_cast<Cnt>(1));
     }
     return;
   }
@@ -309,7 +339,7 @@ __device__ __forceinline__ void add_combined(int cell, long long inc, long long*
       sum += static_cast<unsigned long long>(w_inc[__ffs(rest) - 1]);
     }
     atomicAdd(acc + cell, sum);
-    atomicAdd(cnt + cell, __popc(peers));
+    atomicAdd(cnt + cell, static_cast<Cnt>(__popc(peers)));
   }
   __syncwarp();
 }
@@ -588,4 +618,150 @@ extern "C" int gu_td_scan_fast(
   return static_cast<int>(cudaLaunchCooperativeKernel(
       scan_kernel(n_entries <= kMaxStagedEntries, ept, wide), dim3(blocks), dim3(kThreads), args,
       scan_smem(n_entries), static_cast<cudaStream_t>(stream)));
+}
+
+namespace {
+
+// The sharded form's arguments: the scan's (q_in is Q_{t-1}, q_out Q_t; the
+// state arrays idx..ret_sum are read and written in place) and the three
+// aggregates of 2·n 64-bit words each.
+struct TdStepArgs {
+  TdFastArgs g;
+  const long long* agg_prev;  // step t-1's summed aggregate, or null at step 0
+  long long* agg_cur;         // step t's, added to (cleared by the launch before)
+  long long* agg_clear;       // step t+1's, cleared here (or null)
+  int act;                    // 0: only Q_t is written
+};
+
+// One step of the sharded form (see the note at the top). One env a thread.
+template <bool kStaged, typename Tab>
+__global__ void __launch_bounds__(kThreads) td_fast_step_kernel(TdStepArgs sa) {
+  const TdFastArgs& g = sa.g;
+  __shared__ Tab tab;
+  __shared__ uint32_t s_words[gu::kMaxWords];
+  __shared__ long long s_warp[kThreads];
+  const int n = g.h * g.w * g.num_actions;
+  const int gtid = blockIdx.x * kThreads + threadIdx.x;
+  const int gstride = gridDim.x * kThreads;
+  const int apply_prev = sa.agg_prev != nullptr;
+  const long long* acc_prev = sa.agg_prev;
+  const long long* cnt_prev = apply_prev ? sa.agg_prev + n : nullptr;
+  for (int i = gtid; i < n; i += gstride) {
+    g.q_out[i] = rebuilt(apply_prev, g.q_in, acc_prev, cnt_prev, i);
+    if (sa.agg_clear != nullptr) {
+      sa.agg_clear[i] = 0ll;
+      sa.agg_clear[n + i] = 0ll;
+    }
+  }
+  if (!sa.act) return;
+  unsigned long long* s_acc = reinterpret_cast<unsigned long long*>(smem_raw);
+  float* s_q = reinterpret_cast<float*>(s_acc + n);
+  int* s_cnt = reinterpret_cast<int*>(s_q + n);
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  if (!g.per_env) {
+    for (int i = threadIdx.x; i < g.n_words; i += kThreads) s_words[i] = g.words[i];
+  }
+  if (kStaged) {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      s_q[i] = rebuilt(apply_prev, g.q_in, acc_prev, cnt_prev, i);
+      s_acc[i] = 0ull;
+      s_cnt[i] = 0;
+    }
+  }
+  __syncthreads();
+  int cell = -1;
+  long long inc = 0;
+  if (gtid < g.batch) {
+    Env e = load_env(g, gtid, false);
+    cell = env_step<kStaged>(g, tab, s_words, s_q, apply_prev, g.q_in, acc_prev, cnt_prev, gtid,
+                             e, inc);
+    store_env(g, gtid, e);
+  }
+  long long* const w_inc = s_warp + (threadIdx.x & ~31);
+  unsigned long long* const acc_cur = reinterpret_cast<unsigned long long*>(sa.agg_cur);
+  if (kStaged) {
+    add_combined(cell, inc, w_inc, s_acc, s_cnt);
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int c = s_cnt[i];
+      if (c != 0) {
+        atomicAdd(acc_cur + i, s_acc[i]);
+        atomicAdd(acc_cur + n + i, static_cast<unsigned long long>(c));
+      }
+    }
+  } else {
+    add_combined(cell, inc, w_inc, acc_cur, acc_cur + n);
+  }
+}
+
+template <typename Tab>
+void* step_kernel_of(bool staged) {
+  return staged ? reinterpret_cast<void*>(td_fast_step_kernel<true, Tab>)
+                : reinterpret_cast<void*>(td_fast_step_kernel<false, Tab>);
+}
+
+}  // namespace
+
+// One launch of K5's sharded form: step t of this rank's `batch` envs
+// (`act` = 1; blocks of 512 threads, an env a thread), or (`act` = 0) only
+// Q_t written. q_prev is read, q_cur written (S·A floats each, distinct);
+// agg_prev (null at step 0), agg_cur and agg_clear (null or distinct) are
+// 2·S·A int64 each: sums, then counts; agg_cur must be clear (the launch
+// before clears it as its agg_clear, or the caller). The state arrays
+// (idx, code, t, rs, run_ret, n_eps, ret_sum) are stepped in place.
+extern "C" int gu_td_step_sharded(
+    const void* passable, const void* terminal, const void* reward, const void* deltas,
+    int num_actions, const void* words, int n_words, int per_env, const void* start_idx,
+    const void* start_code, int h, int w, int batch, int max_episode_steps, int expected_sarsa,
+    float alpha, float gamma, float epsilon, float one_minus_epsilon, int eps16, int act,
+    int blocks, const void* q_prev, void* q_cur, const void* agg_prev, void* agg_cur,
+    void* agg_clear, void* idx, void* code, void* t, void* rs, void* run_ret, void* n_eps,
+    void* ret_sum, void* stream) {
+  const int n_entries = h * w * num_actions;
+  const bool staged = n_entries <= kMaxStagedEntries;
+  void* kernel = num_actions > gu::kMaxActions ? step_kernel_of<gu::WideTables>(staged)
+                                               : step_kernel_of<gu::Tables>(staged);
+  const size_t smem = act ? scan_smem(n_entries) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  TdFastArgs g{};
+  g.passable = static_cast<const uint8_t*>(passable);
+  g.terminal = static_cast<const uint8_t*>(terminal);
+  g.reward = static_cast<const float*>(reward);
+  g.deltas = static_cast<const int*>(deltas);
+  g.num_actions = num_actions;
+  g.words = static_cast<const uint32_t*>(words);
+  g.n_words = n_words;
+  g.per_env = per_env;
+  g.start_idx = static_cast<const int*>(start_idx);
+  g.start_code = static_cast<const int*>(start_code);
+  g.h = h;
+  g.w = w;
+  g.batch = batch;
+  g.num_steps = 1;
+  g.max_episode_steps = max_episode_steps;
+  g.expected_sarsa = expected_sarsa;
+  g.alpha = alpha;
+  g.gamma = gamma;
+  g.epsilon = epsilon;
+  g.one_minus_epsilon = one_minus_epsilon;
+  g.eps16 = static_cast<uint32_t>(eps16);
+  g.walks = 1;
+  g.q_in = static_cast<const float*>(q_prev);
+  g.q_out = static_cast<float*>(q_cur);
+  g.idx = static_cast<int*>(idx);
+  g.code = static_cast<int*>(code);
+  g.t = static_cast<int*>(t);
+  g.rs = static_cast<uint32_t*>(rs);
+  g.run_ret = static_cast<float*>(run_ret);
+  g.n_eps = static_cast<int*>(n_eps);
+  g.ret_sum = static_cast<float*>(ret_sum);
+  TdStepArgs sa{g, static_cast<const long long*>(agg_prev), static_cast<long long*>(agg_cur),
+                static_cast<long long*>(agg_clear), act};
+  void* args[] = {&sa};
+  return static_cast<int>(cudaLaunchKernel(kernel, dim3(blocks), dim3(kThreads), args, smem,
+                                           static_cast<cudaStream_t>(stream)));
 }

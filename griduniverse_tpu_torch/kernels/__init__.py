@@ -40,6 +40,13 @@ the refresh one up to 8,192 rows and two above, all under `replay`. A trace
 step is one (each tile's last block adds the chunks' sums and writes the
 table); a DQN act-and-step is one (its last block folds the statistics). K4
 counts one launch a call up to 16,384 cells a maze and one a sweep above.
+
+Two forms serve the sharded runs (`parallel/`): `td_step_sharded`, K5's
+sharded form in `csrc/td_fast.cu`, one ordinary launch a step with the
+all-reduce of the step's aggregate between launches, and one more that
+writes the final Q (T + 1 a scan of T steps); and `segment_sums`, K10's
+sums form in `csrc/segment_mean.cu`, the same four kernels stopped before
+the divide (four a call).
 """
 
 from __future__ import annotations
@@ -66,6 +73,8 @@ LAUNCHES: dict[str, int] = {
     "trace_pass": 0,
     "dqn_act": 0,
     "mc_returns": 0,
+    "td_step_sharded": 0,
+    "segment_sums": 0,
 }
 
 

@@ -72,6 +72,10 @@ _SIGNATURES = {
                        + [_P] * 19 + [_P],
     # S·A, envs a thread, A; out (2 ints)
     "gu_td_scan_fast_resident": [_I, _I, _I, _P, _P],
+    # batch, max_episode_steps, expected_sarsa; alpha, gamma, eps, 1 - eps;
+    # eps16, act, blocks; q prev, cur; aggregates prev, cur, clear; state (7)
+    "gu_td_step_sharded": _SEM + _LEVEL + [_I, _I, _I, _F, _F, _F, _F, _I, _I, _I]
+                          + [_P] * 5 + [_P] * 7 + [_P],
     # n, steps, max_episode_steps, algo, bf16; alpha, gamma, eps, 1 - eps; eps16,
     # draw_first; threads, blocks, shared bytes; draws (4), q, state (8)
     "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I] + [_I] * 3
@@ -79,6 +83,8 @@ _SIGNATURES = {
     # q in, out, s, a, delta, mask; alpha; batch, A, S·A, chunk; counts, vals,
     # look-back words; launched
     "gu_segment_mean": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 4 + [_P],
+    # sums, counts out, s, a, delta, mask; the rest as gu_segment_mean
+    "gu_segment_sums": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 4 + [_P],
     # value, reward, done, bootstrap, adv, targets; T, B; gamma, γλ; envs a thread
     "gu_gae": [_P] * 6 + [_I, _I, _F, _F, _I, _P],
     # reward, done, bootstrap, returns; T, B; gamma; envs a thread

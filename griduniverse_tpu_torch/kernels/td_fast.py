@@ -1,6 +1,7 @@
-"""Wrapper of K5 (`csrc/td_fast.cu`): check, plan the grid, allocate, launch.
+"""Wrappers of K5 (`csrc/td_fast.cu`): check, plan the grid, allocate, launch.
 
-The plain PyTorch version is `algos.td_fast.td_scan_fast_reference`.
+The scan's plain PyTorch version is `algos.td_fast.td_scan_fast_reference`;
+its sharded form's (one launch a step) is `algos.td_fast.td_step_sharded_reference`.
 """
 
 from __future__ import annotations
@@ -121,3 +122,63 @@ def td_scan_fast_cuda(
     LAUNCHES["td_scan_fast"] += 1
     return (q_out, *state)
 
+
+
+# -- the sharded form: one launch a step -------------------------------------
+STATE_FIELDS = ("agent_idx", "agent_code", "t", "rs", "run_ret", "n_eps_env", "ret_sum_env")
+_STATE_DTYPES = (torch.int32,) * 4 + (torch.float32, torch.int32, torch.float32)
+
+
+def step_blocks(batch: int, n_entries: int, act: bool) -> int:
+    """Blocks of `THREADS` of a sharded-form launch: an env a thread where
+    it steps (`act`), else enough to write the table's `n_entries` once."""
+    return max(1, -(-(batch if act else n_entries) // THREADS))
+
+
+def step_slots(step: int) -> tuple[int | None, int, int]:
+    """The aggregate rows (of three) that the launch of `step` reads (the
+    summed aggregate of step - 1, None at step 0), adds to and clears: each
+    row is added to at step t, summed over the ranks, read at t + 1 and
+    cleared at t + 2, ready for t + 3."""
+    return (None if step == 0 else (step - 1) % 3), step % 3, (step + 1) % 3
+
+
+def td_step_sharded_cuda(
+    sem, bl, q_prev, q_cur, agg_prev, agg_cur, agg_clear, state,
+    alpha: float, gamma: float, epsilon: float, expected_sarsa: int,
+    max_episode_steps: int | None, act: bool = True,
+) -> None:
+    """One launch of K5's sharded form (`LAUNCHES["td_step_sharded"]` + 1):
+    Q_t = q_prev + the mean of the summed aggregate `agg_prev` (None at step
+    0) written to `q_cur`; with `act`, this rank's envs stepped against Q_t
+    (`state`, the seven (B,) tensors of `STATE_FIELDS`, in place) and their
+    fixed-point increments and counts added to `agg_cur`; `agg_clear` (or
+    None) cleared. Each aggregate is (2, S·A) int64, sums then counts, and
+    `agg_cur` must be clear."""
+    device = q_prev.device
+    if device.type != "cuda":
+        raise ValueError(f"td_step_sharded_cuda takes CUDA tensors, got {device}")
+    b = int(state[3].shape[0]) if state[3].dim() == 1 else 0
+    n_entries = bl.num_states * sem.num_actions
+    args = semantics_args(sem.passable, sem.terminal, sem.reward, sem.deltas, device)
+    args += level_args(
+        bl.code_words, bl.start_idx, bl.start_code, bl.height, bl.width, b, device
+    )
+    table = (bl.num_states, sem.num_actions)
+    agg = (2, n_entries)
+    ptrs = [
+        check_tensor("q_prev", q_prev, torch.float32, table, device),
+        check_tensor("q_cur", q_cur, torch.float32, table, device),
+        None if agg_prev is None else check_tensor("agg_prev", agg_prev, torch.int64, agg, device),
+        check_tensor("agg_cur", agg_cur, torch.int64, agg, device),
+        None if agg_clear is None else check_tensor("agg_clear", agg_clear, torch.int64, agg, device),
+    ]
+    ptrs += [check_tensor(name, x, dtype, (b,), device)
+             for name, x, dtype in zip(STATE_FIELDS, state, _STATE_DTYPES)]
+    launch(
+        "gu_td_step_sharded", device, *args,
+        b, max_steps_arg(max_episode_steps), int(expected_sarsa),
+        float(alpha), float(gamma), float(epsilon), 1.0 - float(epsilon),
+        int(float(epsilon) * 65536.0), int(act), step_blocks(b, n_entries, act), *ptrs,
+    )
+    LAUNCHES["td_step_sharded"] += 1

@@ -143,6 +143,28 @@ def episode_stats(
     running return/length and folds them into (count, return sum, length
     sum) on each done. Returns (final state, stats dict of 0-d tensors)."""
     actions = _draw_actions(sem, state, num_steps, generator, actions)
+    state, n_eps, ret_sum, len_sum = episode_sums(
+        sem, level, state, actions, auto_reset, max_episode_steps
+    )
+    denom = n_eps.clamp(min=1)
+    return state, {
+        "episodes": n_eps,
+        "mean_return": ret_sum / denom,
+        "mean_length": len_sum / denom,
+    }
+
+
+def episode_sums(
+    sem: Semantics,
+    level: Level,
+    state: EnvState,
+    actions: torch.Tensor,
+    auto_reset: bool = True,
+    max_episode_steps: int | None = None,
+):
+    """The rollout of `episode_stats` on (T, B) `actions`, its statistics as
+    sums: (final state, episodes int64, return sum float32, length sum
+    int64), each 0-d."""
     step_fn = _pick_step(auto_reset, max_episode_steps)
     dev = state.agent_idx.device
     run_ret = torch.zeros(state.agent_idx.shape, dtype=torch.float32, device=dev)
@@ -160,9 +182,4 @@ def episode_stats(
         len_sum = len_sum + torch.where(d, run_len, 0).sum()
         run_ret = torch.where(d, 0.0, run_ret)
         run_len = torch.where(d, 0, run_len)
-    denom = n_eps.clamp(min=1)
-    return state, {
-        "episodes": n_eps,
-        "mean_return": ret_sum / denom,
-        "mean_length": len_sum / denom,
-    }
+    return state, n_eps, ret_sum, len_sum

@@ -40,7 +40,9 @@ OUR_KERNELS = ("gae_kernel", "nstep_returns", "act_step", "greedy_step", "embed_
                "aldous_broder", "backtracker", "per_score", "per_hist", "per_count", "per_compact",
                "per_finish", "pick_sort", "replay_write", "replay_gather", "prio_refresh", "refresh_claim",
                "refresh_write", "dqn_act_step", "segment_count", "segment_scan",
-               "segment_scatter", "segment_sum", "mc_returns", "trace_pass")
+               "segment_scatter", "segment_sum", "mc_returns", "trace_pass", "random_scan_bits",
+               "rollout_actions_bits", "grid_sweep", "grid_greedy", "td_fast_scan", "td_fast_step",
+               "td_batched")
 
 
 def _profile(name: str, fn, wall_ms: float, smi: str, top: int = 12):

@@ -1894,3 +1894,87 @@ def test_fence_synchronizes_the_card(dev):
     assert profiling.fence({"x": x})["x"] is x
     dt, out = profiling.time_fn(lambda: x * 2, repeats=3)
     assert dt > 0 and out.device.type == "cuda"
+
+
+def _identity_reduce(agg):
+    """A world of one's all-reduce of the sharded form's aggregate."""
+    return agg
+
+
+@pytest.mark.parametrize("b", [1, 33, 65_536])
+@pytest.mark.parametrize("a", [4, 9])
+@pytest.mark.parametrize("tier", ["staged", "global"])
+def test_td_step_sharded_kernel_matches_plain(dev, b, a, tier):
+    """K5's sharded form in a world of one: T + 1 launches, the plain
+    version's bits (Q, env state, lanes, accumulators), the cooperative K5's
+    bits, and chunked equal to unbroken; Q staged in shared memory (walls16)
+    or in global memory (a 65x65 maze)."""
+    sem = T.make_semantics(device=dev) if a == 4 else _sem_of(dev, a)
+    bl = _levels(dev)["walls16"] if tier == "staged" else _one_maze(dev, (32, 32), 6)
+    staged = bl.num_states * a <= td_fast_kernels.MAX_STAGED_ENTRIES
+    assert staged == (tier == "staged")
+    steps = 60 if b == 65_536 else 150
+    for algo in td_fast.ALGOS:
+        kw = dict(alpha=0.2, gamma=0.99, epsilon=0.2, algo=algo, max_episode_steps=64)
+        ts = td_fast.fast_td_init(sem, bl, 3, b)
+        before = kernels.LAUNCHES["td_step_sharded"]
+        got = td_fast.td_scan_fast_sharded(sem, bl, ts, steps, **kw, all_reduce_sum=_identity_reduce)
+        assert kernels.LAUNCHES["td_step_sharded"] == before + steps + 1
+        ref = td_fast.td_scan_fast_sharded_reference(sem, bl, ts, steps, **kw, all_reduce_sum=_identity_reduce)
+        _assert_same(_fast_fields(got), _fast_fields(ref))
+        _assert_same(_fast_fields(got), _fast_fields(td_fast.td_scan_fast(sem, bl, ts, steps, **kw)))
+        half = td_fast.td_scan_fast_sharded(sem, bl, ts, steps // 3, **kw, all_reduce_sum=_identity_reduce)
+        rest = td_fast.td_scan_fast_sharded(sem, bl, half, steps - steps // 3, **kw,
+                                            all_reduce_sum=_identity_reduce)
+        _assert_same(_fast_fields(rest), _fast_fields(got))
+
+
+def test_td_step_sharded_kernel_one_step_matches_plain(dev):
+    """One launch against `td_step_sharded_reference` from a random Q and a
+    random summed aggregate: Q_t written, the envs stepped in place, the
+    step's aggregate added, the next one cleared."""
+    sem = T.make_semantics(device=dev)
+    bl = _levels(dev)["mazes"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ts = td_fast.fast_td_init(sem, bl, 5, None)
+    n = ts.q.numel()
+    q_prev = torch.randn(ts.q.shape, generator=gen, device=dev)
+    agg_prev = torch.stack([torch.randint(-2**40, 2**40, (n,), generator=gen, device=dev),
+                            torch.randint(0, 5, (n,), generator=gen, device=dev)])
+    kw = dict(alpha=0.2, gamma=0.99, epsilon=0.2, max_episode_steps=64)
+    ref_ts, ref_agg = td_fast.td_step_sharded_reference(sem, bl, q_prev, agg_prev, ts, algo="q_learning", **kw)
+    state = [x.clone() for x in (ts.env_state.agent_idx, ts.env_state.agent_code, ts.env_state.t, ts.rs,
+                                 ts.run_ret, ts.n_eps_env, ts.ret_sum_env)]
+    q_cur = torch.empty_like(q_prev)
+    agg_cur = torch.zeros((2, n), dtype=torch.int64, device=dev)
+    agg_clear = torch.ones((2, n), dtype=torch.int64, device=dev)
+    td_fast_kernels.td_step_sharded_cuda(sem, bl, q_prev, q_cur, agg_prev, agg_cur, agg_clear, state,
+                                         expected_sarsa=0, **kw)
+    _assert_same((q_cur, agg_cur, *state), (ref_ts.q, ref_agg, ref_ts.env_state.agent_idx,
+                                           ref_ts.env_state.agent_code, ref_ts.env_state.t, ref_ts.rs,
+                                           ref_ts.run_ret, ref_ts.n_eps_env, ref_ts.ret_sum_env))
+    assert not bool(agg_clear.any())
+
+
+@pytest.mark.parametrize("b", [1, 4096, 65_536])
+@pytest.mark.parametrize("hot", [False, True])
+def test_segment_sums_kernel_matches_plain(dev, b, hot):
+    """K10's sums form: the env-order float sums and the counts of the plain
+    version, masked and not, four launches each; followed by the apply, K10's
+    bits."""
+    gen = torch.Generator(device=dev).manual_seed(b)
+    q = torch.randn((256, 4), generator=gen, device=dev)
+    s = torch.randint(0, 256, (b,), generator=gen, device=dev, dtype=torch.int32)
+    a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+    if hot:  # most envs in one cell
+        in_cell = torch.rand((b,), generator=gen, device=dev) < 0.9
+        s[in_cell], a[in_cell] = 17, 2
+    delta = torch.randn((b,), generator=gen, device=dev)
+    mask = torch.rand((b,), generator=gen, device=dev) < 0.5
+    before = kernels.LAUNCHES["segment_sums"]
+    got = td.segment_sums(s, a, delta, 0.1, 256, 4)
+    got_m = td.segment_sums(s, a, delta, 0.1, 256, 4, mask)
+    assert kernels.LAUNCHES["segment_sums"] == before + 2 * 4
+    _assert_same(got, td.segment_sums_reference(s, a, delta, 0.1, 256, 4))
+    _assert_same(got_m, td.segment_sums_reference(s, a, delta, 0.1, 256, 4, mask))
+    _assert_same((td.apply_segment_sums(q, *got),), (td.apply_td_updates(q, s, a, delta, 0.1),))

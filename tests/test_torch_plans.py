@@ -590,3 +590,30 @@ def test_maze_plan_device_tier_follows_the_shared_limit(monkeypatch):
 def test_maze_plan_refuses_a_bad_batch():
     with pytest.raises(ValueError):
         km.plan((4, 4), 0)
+
+
+@pytest.mark.parametrize("batch,n_entries", [(1, 1_024), (33, 1_024), (512, 16_900), (65_536, 1_024),
+                                             (65_536, 16_900), (1_000_003, 2_304)])
+def test_k5_sharded_form_launches_cover_every_env_and_entry(batch, n_entries):
+    """K5's sharded form: a step launch has a thread for every env (and at
+    least one block to write Q_t over its grid-stride loop); the last
+    launch, which only writes Q_T, has a thread for every entry."""
+    blocks = k5.step_blocks(batch, n_entries, act=True)
+    assert (blocks - 1) * k5.THREADS < batch <= blocks * k5.THREADS
+    final = k5.step_blocks(batch, n_entries, act=False)
+    assert (final - 1) * k5.THREADS < n_entries <= final * k5.THREADS
+
+
+def test_k5_sharded_form_rotates_three_aggregates():
+    """Each step's aggregate is added at step t, summed over the ranks, read
+    at t + 1 and cleared at t + 2, before step t + 3 adds to it again: no
+    launch reads, adds to and clears the same row, and the row a launch adds
+    to was cleared by the launch before (the first two start clear)."""
+    slots = [k5.step_slots(t) for t in range(12)]
+    assert slots[0][0] is None
+    for t, (prev, cur, clear) in enumerate(slots):
+        assert len({cur, clear} | ({prev} - {None})) == (2 if prev is None else 3)
+        if t >= 2:
+            assert slots[t - 1][2] == cur
+        if t >= 1:
+            assert prev == slots[t - 1][1]

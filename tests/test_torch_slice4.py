@@ -130,8 +130,9 @@ def test_gather_probe_on_the_cpu():
 
 
 def test_every_kernel_has_a_source_an_entry_point_and_a_count():
-    """Nineteen kernels; on the CPU nothing is launched."""
-    assert len(kernels.LAUNCHES) == 19
+    """Nineteen kernels and the two sharded forms (K5's and K10's); on the
+    CPU nothing is launched."""
+    assert len(kernels.LAUNCHES) == 21
     for name in ("per_sample", "replay", "backtracker_mazes", "gather_1d", "take_along_axis1", "trace_pass",
                  "dqn_act", "mc_returns"):
         assert name in kernels.LAUNCHES
