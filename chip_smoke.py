@@ -14,8 +14,9 @@ size and checks what comes out:
   * the env path: level → pack → K1/K2 rollouts; K3 mazes → pack → K1, and
     K3 on 32×32-cell mazes from injected directions;
   * the solver path: K3 mazes → K4 value/policy iteration, and K4's
-    global-memory tier over 64 sidewinder mazes of 161×129 (20,769 states
-    each); walls16 → K5
+    cluster tier over 64 sidewinder mazes of 161×129 (20,769 states each,
+    two blocks a maze; its global tier held on the same mazes and on a
+    2,401×129 maze that no cluster holds); walls16 → K5
     shared-Q learning, and K5 on one 65×65 backtracker maze (16,900 Q
     entries); mazes → K6 per-maze Q-learning (tables in shared memory at
     9×9, in device memory at 33×33); walls16 → `q_learning` on the generic
@@ -148,9 +149,6 @@ INSTR_K2_STEP = 67      # the replay loop is 1,064 instructions a block of 16 st
 # them four loads, multiplies, adds and maxima, the store, |ΔV| and its
 # maximum)
 INSTR_K4_CELL = 29
-# the global tier's one-cell backup (`cell_backup`, which decodes the packed
-# word every sweep), counted in the one-maze-a-block kernel that shared it
-INSTR_K4_GLOBAL_CELL = 129
 
 
 def k4_function_ops(actions: int) -> int:
@@ -344,6 +342,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     and power limit) goes beside every time printed."""
     from griduniverse_tpu_torch import algos, kernels
     from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast
+    from griduniverse_tpu_torch.core.semantics import SemanticsConfig
     from griduniverse_tpu_torch.core.step import step_autoreset
     from griduniverse_tpu_torch.kernels import dp_grid
     from griduniverse_tpu_torch.kernels import td_batched as td_batched_kernels
@@ -395,14 +394,13 @@ def solver_phases(gt, dev, gen, bound, smi):
               "policy, iters bit-exact vs plain")
     _require(inside_a_launch, "no K4 shape converged inside a launch")
 
-    # K4's global-memory tier, above 16,384 states a maze: two sidewinder mazes
-    # of 65x64 cells (131x129, 16,899 states), one launch a sweep
-    g17, st17 = M.generate_mazes_device(31, (65, 64), 2, "sidewinder")
-    lv17 = gt.Level(grid=g17, start_idx=st17.expand(2).contiguous())
-    s17 = lv17.num_states
-    _require(s17 > dp_grid.MAX_STATES and not dp_grid.uses_shared_tier(s17), "K4: the small global-tier shape is not above the limit")
-    backup17 = dp_batched._grid_backup(sem, g17, 0.99)
-
+    # K4 above 16,384 states a maze: the cluster tier (one maze a cluster of
+    # bands, up to 16 sweeps a launch), held against the plain sweeps and
+    # against the global tier forced on the same mazes: two sidewinder mazes of
+    # 65x64 cells (131x129, 16,899 states, one block), two of 80x64 (161x129,
+    # two bands of 81 and 80 rows: a height no count of blocks divides), the
+    # latter at nine actions, and one maze too large for a cluster (2,401x129,
+    # 17 bands would be needed) in the global tier
     def plain_sweeps_of(backup, v, policy, k):
         maxima = []
         for _ in range(k):
@@ -412,32 +410,67 @@ def solver_phases(gt, dev, gen, bound, smi):
             v = v_new
         return v, torch.stack(maxima)
 
+    sem9 = gt.make_semantics(SemanticsConfig(action_deltas=KING_AND_STAY))
+    for tag, cells, n_m, sem_k in (("131x129", (65, 64), 2, sem), ("161x129", (80, 64), 2, sem),
+                                   ("161x129 nine actions", (80, 64), 2, sem9)):
+        g_k, _ = M.generate_mazes_device(31, cells, n_m, "sidewinder")
+        h_k, w_k = g_k.shape[1:]
+        cp = dp_grid.cluster_plan(h_k, w_k)
+        _require(dp_grid.grid_tier(h_k, w_k) == "cluster" and cp.blocks == (1 if h_k == 131 else 2),
+                 f"K4 {tag}: tier {dp_grid.grid_tier(h_k, w_k)}, {cp}")
+        backup_k = dp_batched._grid_backup(sem_k, g_k, 0.99)
+        v0_k = torch.zeros((n_m, h_k * w_k), device=dev)
+        before = kernels.LAUNCHES["dp_grid"]
+        got_k = grid_sweeps_cuda(sem_k, g_k, v0_k, None, 0.99, 19)
+        _require(kernels.LAUNCHES["dp_grid"] == before + 2, "K4 cluster tier: not one launch a 16 sweeps")
+        hold("dp_grid", f"K4 cluster tier {tag} 19 VI sweeps", got_k, plain_sweeps_of(backup_k, v0_k, None, 19),
+             ("V", "sweep maxima"))
+        hold("dp_grid", f"K4 cluster tier {tag} 19 VI sweeps vs the global tier", got_k,
+             grid_sweeps_cuda(sem_k, g_k, v0_k, None, 0.99, 19, tier="global"), ("V", "sweep maxima"))
+        pol_k = torch.randint(0, sem_k.num_actions, (n_m, h_k * w_k), generator=gen, device=dev, dtype=torch.int32)
+        got_e = grid_sweeps_cuda(sem_k, g_k, got_k[0], pol_k, 0.99, 5)
+        hold("dp_grid", f"K4 cluster tier {tag} 5 evaluation sweeps", got_e,
+             plain_sweeps_of(backup_k, got_k[0], pol_k, 5), ("V", "sweep maxima"))
+        hold("dp_grid", f"K4 cluster tier {tag} 5 evaluation sweeps vs the global tier", got_e,
+             grid_sweeps_cuda(sem_k, g_k, got_k[0], pol_k, 0.99, 5, tier="global"), ("V", "sweep maxima"))
+        print(f"K4 cluster tier N={n_m} {tag} ({cp}): 19 VI sweeps in 2 launches and 5 evaluation sweeps (V and "
+              "every sweep's maximum) bit-exact vs plain and vs the global tier")
+    g_huge = torch.zeros((1, 2_401, 129), dtype=torch.int32, device=dev)
+    g_huge[0, 2_400, 128] = 3  # a goal in the far corner
+    g_huge[0, 1:2_400:2, 1:128] = 1  # walls on every other row, each row open at its ends
+    _require(dp_grid.grid_tier(2_401, 129) == "global", "K4: the 2,401x129 maze is not in the global tier")
+    v_huge = torch.zeros((1, 2_401 * 129), device=dev)
     before = kernels.LAUNCHES["dp_grid"]
-    v17, max17 = grid_sweeps_cuda(sem, g17, torch.zeros((2, s17), device=dev), None, 0.99, 9)
-    _require(kernels.LAUNCHES["dp_grid"] == before + 9, "K4 global tier: not one launch a sweep")
-    hold("dp_grid", "K4 global tier 9 VI sweeps", (v17, max17),
-         plain_sweeps_of(backup17, torch.zeros((2, s17), device=dev), None, 9), ("V", "sweep maxima"))
+    got_huge = grid_sweeps_cuda(sem, g_huge, v_huge, None, 0.99, 4)
+    _require(kernels.LAUNCHES["dp_grid"] == before + 4, "K4 global tier: not one launch a sweep")
+    hold("dp_grid", "K4 global tier 2401x129 4 VI sweeps", got_huge,
+         plain_sweeps_of(dp_batched._grid_backup(sem, g_huge, 0.99), v_huge, None, 4), ("V", "sweep maxima"))
+    print("K4 global tier N=1 2401x129 (more blocks than a cluster holds): 4 VI sweeps, one launch a sweep, "
+          "bit-exact vs plain")
+    # the solvers through their public entries at 131x129: VI, PI, the greedy step
+    g17, st17 = M.generate_mazes_device(31, (65, 64), 2, "sidewinder")
+    lv17 = gt.Level(grid=g17, start_idx=st17.expand(2).contiguous())
+    s17 = lv17.num_states
+    backup17 = dp_batched._grid_backup(sem, g17, 0.99)
+    v17, _ = grid_sweeps_cuda(sem, g17, torch.zeros((2, s17), device=dev), None, 0.99, 9)
     pol17 = torch.randint(0, 4, (2, s17), generator=gen, device=dev, dtype=torch.int32)
-    hold("dp_grid", "K4 global tier 5 evaluation sweeps", grid_sweeps_cuda(sem, g17, v17, pol17, 0.99, 5),
-         plain_sweeps_of(backup17, v17, pol17, 5), ("V", "sweep maxima"))
     greedy17, changed17 = grid_greedy_cuda(sem, g17, v17, 0.99, pol17)
     want17 = dp_batched.first_argmax(backup17(v17))
-    hold("dp_grid", "K4 global tier greedy", (greedy17, changed17),
+    hold("dp_grid", "K4 greedy step 131x129", (greedy17, changed17),
          (want17, (want17 != pol17).any().to(torch.int32).reshape(1)), ("policy", "changed"))
     _require(int(changed17) == 1 and int(grid_greedy_cuda(sem, g17, v17, 0.99, want17)[1]) == 0,
-             "K4 global tier: the `changed` flag")
+             "K4 above 16,384 states: the `changed` flag")
     got = algos.value_iteration_batched_grid(sem, lv17)
     ref = dp_batched.value_iteration_batched_grid_reference(sem, lv17)
-    _require(got[2] == ref[2], f"K4 global VI: iters {got[2]} != plain {ref[2]}")
-    hold("dp_grid", "K4 global VI", got[:2], ref[:2], ("V", "policy"))
+    _require(got[2] == ref[2], f"K4 VI 131x129: iters {got[2]} != plain {ref[2]}")
+    hold("dp_grid", "K4 VI 131x129", got[:2], ref[:2], ("V", "policy"))
     kw_pi = dict(max_eval_iters=300, max_policy_iters=3)
     pgot = algos.policy_iteration_batched_grid(sem, lv17, **kw_pi)
     pref = dp_batched.policy_iteration_batched_grid_reference(sem, lv17, **kw_pi)
-    _require(pgot[2] == pref[2], f"K4 global PI: iters {pgot[2]} != plain {pref[2]}")
-    hold("dp_grid", "K4 global PI", pgot[:2], pref[:2], ("V", "policy"))
-    print(f"K4 global tier N=2 131x129 ({s17} states): 9 VI and 5 evaluation sweeps (V and every sweep's maximum), "
-          f"the greedy step and its `changed` flag, VI ({got[2]} sweeps) and PI capped at 3 policy iterations: "
-          "bit-exact vs plain")
+    _require(pgot[2] == pref[2], f"K4 PI 131x129: iters {pgot[2]} != plain {pref[2]}")
+    hold("dp_grid", "K4 PI 131x129", pgot[:2], pref[:2], ("V", "policy"))
+    print(f"K4 N=2 131x129 ({s17} states): the greedy step and its `changed` flag, VI ({got[2]} sweeps) and PI "
+          "capped at 3 policy iterations: bit-exact vs plain")
 
     kw5 = dict(alpha=0.1, gamma=0.99, epsilon=0.1, max_episode_steps=MAX_EPISODE_STEPS)
     for algo in td_fast.ALGOS:
@@ -522,27 +555,33 @@ def solver_phases(gt, dev, gen, bound, smi):
     _require(2 <= outs["pi"][2] < 100, f"PI: implausible iters {outs['pi'][2]}")
     check_policies("PI 9x9", lv_pi, outs["pi"][1])
     print(f"K4 main PI N={n_pi} 9x9: {outs['pi'][2]} policy iterations, {ms!r} ms, {n_pi / ms * 1e3!r} mazes/s ({smi})")
-    # above 16,384 states a maze, K4's global tier: 64 sidewinder mazes of 80x64
-    # cells (161x129, 20,769 states; sidewinder takes at most 64 cell columns).
-    # VI runs to convergence; PI to a cap of PI_BIG_ITERS policy iterations, as
-    # these mazes need more than the reference's 100 to settle
+    # above 16,384 states a maze, K4's cluster tier: 64 sidewinder mazes of 80x64
+    # cells (161x129, 20,769 states, two blocks a maze; sidewinder takes at most
+    # 64 cell columns). VI runs to convergence; PI to a cap of PI_BIG_ITERS
+    # policy iterations, as these mazes need more than the reference's 100 to settle
     k = dp_batched.SWEEPS_PER_LAUNCH
     g_big, st_big = M.generate_mazes_device(2029, (80, 64), N_BIG, "sidewinder")
     lv_big = gt.Level(grid=g_big, start_idx=st_big.expand(N_BIG).contiguous())
+    _require(dp_grid.grid_tier(161, 129) == "cluster", "K4 161x129: not the cluster tier")
     before = kernels.LAUNCHES["dp_grid"]
     ms, outs["vi_big"] = timed(lambda: algos.value_iteration_batched_grid(sem, lv_big))
     it = outs["vi_big"][2]
     # launches of 16 sweeps until the one where it converged, that many sweeps rerun, and the greedy step
-    expect = k * -(-it // k) + it % k + 1
+    expect = -(-it // k) + (1 if it % k else 0) + 1
     _require(kernels.LAUNCHES["dp_grid"] - before == expect,
-             f"K4 global VI: {kernels.LAUNCHES['dp_grid'] - before} launches, expected {expect}")
+             f"K4 cluster VI: {kernels.LAUNCHES['dp_grid'] - before} launches, expected {expect}")
     _require(100 < it < 10_000, f"VI 161x129: implausible iters {it}")
     check_policies("VI 161x129", lv_big, outs["vi_big"][1], N_BIG, max_steps=it + 1)
-    print(f"K4 main VI N={N_BIG} 161x129 ({lv_big.num_states} states, global tier): {it} sweeps in {expect} launches, "
-          f"{ms!r} ms, {N_BIG / ms * 1e3!r} mazes/s; every greedy policy reaches its goal ({smi})")
+    print(f"K4 main VI N={N_BIG} 161x129 ({lv_big.num_states} states, cluster tier, "
+          f"{dp_grid.cluster_plan(161, 129)}): {it} sweeps in {expect} launches, {ms!r} ms, "
+          f"{N_BIG / ms * 1e3!r} mazes/s; every greedy policy reaches its goal ({smi})")
+    before_pi = kernels.LAUNCHES["dp_grid"]
     ms, outs["pi_big"] = timed(lambda: algos.policy_iteration_batched_grid(sem, lv_big, max_policy_iters=PI_BIG_ITERS))
     _require(outs["pi_big"][2] == PI_BIG_ITERS, f"PI 161x129: {outs['pi_big'][2]} policy iterations")
-    print(f"K4 main PI N={N_BIG} 161x129 (global tier): {PI_BIG_ITERS} policy iterations (the cap), {ms!r} ms ({smi})")
+    # the cluster tier's launches on the path: VI's and PI's sweeps, not their greedy steps (one a policy iteration)
+    cluster_launches = expect - 1 + kernels.LAUNCHES["dp_grid"] - before_pi - PI_BIG_ITERS
+    print(f"K4 main PI N={N_BIG} 161x129 (cluster tier): {PI_BIG_ITERS} policy iterations (the cap), "
+          f"{kernels.LAUNCHES['dp_grid'] - before_pi} launches, {ms!r} ms ({smi})")
 
     ms, outs["fast"] = timed(lambda: algos.compile_q_learning_fast(sem, bl_walls, n64, steps, **kw5)(7))
     res = outs["fast"]
@@ -645,7 +684,7 @@ def solver_phases(gt, dev, gen, bound, smi):
         sem, lv_big, max_policy_iters=PI_BIG_ITERS))
     _require(ref[2] == outs["pi_big"][2], "K4 main PI 161x129: iters differ from plain")
     hold("dp_grid", "K4 main PI 161x129", outs["pi_big"][:2], ref[:2], ("V", "policy"))
-    print(f"K4 main 161x129 (global tier): VI and PI's V, policy and iters bit-exact vs plain (plain VI {plain_ms!r} ms, "
+    print(f"K4 main 161x129 (cluster tier): VI and PI's V, policy and iters bit-exact vs plain (plain VI {plain_ms!r} ms, "
           f"PI {plain_pi_ms!r} ms) ({smi})")
 
     ts = algos.fast_td_init(sem, bl_walls, 7, n64)
@@ -785,17 +824,30 @@ def solver_phases(gt, dev, gen, bound, smi):
         t4 = bound(n4 * s4 * 4 * (3 if pol4 is None else 4), k * n4 * s4 * k4_function_ops(4 if pol4 is None else 1))
         print(f"time dp_grid at {k} {tag} ({dp_grid.packing(s4)}): kernel {ms_t!r} ms, plain {plain_t!r} ms, "
               f"bound {t4['bound_ms']!r} ms by {t4['bound_by']}, library None ms; bit-exact vs plain ({smi})")
+    # K4's cluster tier at the main path's 64 x 161x129: 16 VI sweeps as timed and
+    # in a CUDA graph, beside the global tier forced on the same mazes
     s_big = lv_big.num_states
     v0_big = torch.zeros((N_BIG, s_big), dtype=torch.float32, device=dev)
     g_big = lv_big.grid.contiguous()
     backup_big = dp_batched._grid_backup(sem, g_big, 0.99)
-    ms4g, got = _cuda_ms(lambda: grid_sweeps_cuda(sem, g_big, v0_big, None, 0.99, k), 10)
-    plain4g, ref = _cuda_ms(lambda: plain_sweeps_of(backup_big, v0_big, None, k), 2)
-    hold("dp_grid", "K4 global tier timed sweeps", got, ref, ("V", "sweep maxima"))
-    t4g = bound(N_BIG * s_big * 4 * 3, k * N_BIG * s_big * INSTR_K4_GLOBAL_CELL)
-    print(f"time dp_grid global tier at {k} VI sweeps, {N_BIG} mazes 161x129 ({k} launches): kernel {ms4g!r} ms "
-          f"({ms4g / k!r} ms a sweep), plain {plain4g!r} ms, bound {t4g['bound_ms']!r} ms by {t4g['bound_by']}, "
-          f"library None ms; bit-exact vs plain ({smi})")
+    ms4c, got = _cuda_ms(lambda: grid_sweeps_cuda(sem, g_big, v0_big, None, 0.99, k), 10)
+    graph4c = _graph_ms(lambda: grid_sweeps_cuda(sem, g_big, v0_big, None, 0.99, k))
+    plain4c, ref = _cuda_ms(lambda: plain_sweeps_of(backup_big, v0_big, None, k), 2)
+    err4c = _same_fields("K4 cluster tier timed sweeps", got, ref, ("V", "sweep maxima"))
+    errs["dp_grid"] = max(errs["dp_grid"], err4c)
+    ms4g, got_g = _cuda_ms(lambda: grid_sweeps_cuda(sem, g_big, v0_big, None, 0.99, k, tier="global"), 10)
+    graph4g = _graph_ms(lambda: grid_sweeps_cuda(sem, g_big, v0_big, None, 0.99, k, tier="global"))
+    _same_fields("K4 global tier timed sweeps vs the cluster tier", got_g, got, ("V", "sweep maxima"))
+    # grids and V in, V out; per sweep one backup of every cell (the function's 18 operations)
+    t4c = dict(ms=ms4c, graph_ms=graph4c, plain_ms=plain4c, library_ms=None, launches=cluster_launches,
+               max_abs_err=err4c, shape=f"{k} VI sweeps, {N_BIG} mazes 161x129, cluster tier "
+                                       f"({dp_grid.cluster_plan(161, 129).blocks} blocks a maze)",
+               **bound(N_BIG * s_big * 4 * 3, k * N_BIG * s_big * k4_function_ops(4)))
+    times["dp_grid"] = [times["dp_grid"], t4c]
+    print(f"time dp_grid cluster tier at {k} VI sweeps, {N_BIG} mazes 161x129 (one launch): kernel {ms4c!r} ms as "
+          f"timed, {graph4c!r} ms in a CUDA graph of ten; the global tier forced ({k} launches) {ms4g!r} ms as "
+          f"timed, {graph4g!r} ms in a graph; plain {plain4c!r} ms, bound {t4c['bound_ms']!r} ms by "
+          f"{t4c['bound_by']}, library None ms; bit-exact vs plain and vs the global tier ({smi})")
     for tag, lv, key in (("9x9", lv64, "vi64"), ("33x33", lv33, "vi33")):
         cap = 400 if tag == "33x33" else 10_000
         ms, _ = _cuda_ms(lambda: algos.value_iteration_batched_grid(sem, lv, max_iters=cap), 3)
@@ -2809,6 +2861,27 @@ def compat_phases(gt, dev, bound, smi, bl_walls):
                  f"GridUniverseEnv {name}: final state differs")
         print(f"GridUniverseEnv(backend='torch') {name}: {WALK_STEPS} steps bit-exact vs backend='numpy', "
               f"{episodes} episodes; {wall / WALK_STEPS * 1e6!r} host µs a step ({smi})")
+    # the single env above 16,384 states (a 131x131 maze, 17,161): `core.step` on the card, no K2 launch
+    form = dict(random_maze=True, grid_shape=(131, 131), max_steps=150)
+    card = GridUniverseEnv(backend="torch", device=dev, seed=26, **form)
+    host = GridUniverseEnv(backend="numpy", seed=26, **form)
+    before = kernels.LAUNCHES["rollout_actions_bits"]
+    _require(card.level.device == dev and card.reset() == host.reset(), "GridUniverseEnv 131x131: reset differs")
+    ends, t0 = 0, time.perf_counter()
+    for t in range(500):
+        a = card.action_space.sample()
+        _require(a == host.action_space.sample(), "GridUniverseEnv 131x131: samples differ")
+        got = card.step(a)
+        _require(got == host.step(a), f"GridUniverseEnv 131x131 step {t}: {got} differs")
+        if got[2]:
+            ends += 1
+            _require(card.reset() == host.reset(), "GridUniverseEnv 131x131: reset differs")
+    wall = (time.perf_counter() - t0) / 500
+    _require(ends > 0 and kernels.LAUNCHES["rollout_actions_bits"] == before,
+             f"GridUniverseEnv 131x131: {ends} episode ends, K2 launched {kernels.LAUNCHES['rollout_actions_bits'] - before}")
+    print(f"GridUniverseEnv(backend='torch') maze 131x131 ({card.num_states} states, core.step on the card): 500 "
+          f"steps bit-exact vs backend='numpy', {ends} episode ends, no K2 launch; {wall * 1e6!r} host µs a step, "
+          f"the oracle's included ({smi})")
 
     # (c) the threefry rollouts
     _, stats = bp.rollout_random_bits(sem, bl_walls, 25, b, steps, mes, rng="threefry")
@@ -3232,9 +3305,10 @@ def sharded_phases(gt, dev, bound, smi):
     import torch.multiprocessing as tmp
 
     from griduniverse_tpu_torch.algos import td_fast
+    from griduniverse_tpu_torch.core.semantics import SemanticsConfig
     from griduniverse_tpu_torch.kernels import td_fast as k5
     from griduniverse_tpu_torch.parallel import distributed
-    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+    from griduniverse_tpu_torch.tools.profile_turns import _plan_graph_ms
 
     t_lap = [time.perf_counter()]
 
@@ -3309,39 +3383,70 @@ def sharded_phases(gt, dev, bound, smi):
     def identity(agg):
         return agg
 
-    for tag, bl, b, steps in (("walls16", L["bl_walls"], 33, 200), ("walls16", L["bl_walls"], SHARD_B, 200),
-                              ("65x65 (global tier)", L["bl65"], SHARD_B, 100)):
-        ts = td_fast.fast_td_init(sem, bl, 9, b)
-        got = td_fast.td_scan_fast_sharded(sem, bl, ts, steps, kw["alpha"], kw["gamma"], kw["epsilon"], algo,
+    sem9 = gt.make_semantics(SemanticsConfig(action_deltas=KING_AND_STAY), device=dev)
+    for tag, sem_c, bl, b, steps in (("walls16", sem, L["bl_walls"], 1, 200), ("walls16", sem, L["bl_walls"], 33, 200),
+                                     ("walls16", sem, L["bl_walls"], SHARD_B, 200),
+                                     ("walls16 nine actions", sem9, L["bl_walls"], SHARD_B, 100),
+                                     ("65x65 (global form)", sem, L["bl65"], SHARD_B, 100)):
+        ts = td_fast.fast_td_init(sem_c, bl, 9, b)
+        got = td_fast.td_scan_fast_sharded(sem_c, bl, ts, steps, kw["alpha"], kw["gamma"], kw["epsilon"], algo,
                                            kw["max_episode_steps"], identity)
-        ref = td_fast.td_scan_fast_sharded_reference(sem, bl, ts, steps, kw["alpha"], kw["gamma"], kw["epsilon"],
+        ref = td_fast.td_scan_fast_sharded_reference(sem_c, bl, ts, steps, kw["alpha"], kw["gamma"], kw["epsilon"],
                                                      algo, kw["max_episode_steps"], identity)
         errs["td_step_sharded"] = max(errs["td_step_sharded"],
                                       _same_fields(f"K5 sharded {tag} B={b}", _fast_fields(got), _fast_fields(ref),
                                                    _FAST_FIELDS))
-        print(f"K5's sharded form {tag} B={b} T={steps}: Q, env state, lanes, counters bit-exact vs plain")
+        coop = td_fast.td_scan_fast(sem_c, bl, ts, steps, kw["alpha"], kw["gamma"], kw["epsilon"], algo,
+                                    kw["max_episode_steps"])
+        _same_fields(f"K5 sharded {tag} B={b} vs the cooperative K5", _fast_fields(got), _fast_fields(coop),
+                     _FAST_FIELDS)
+        blocks = k5.step_blocks(b, ts.q.numel(), True)
+        print(f"K5's sharded form {tag} B={b} T={steps} ({blocks} blocks, clusters of {k5.step_cluster(blocks, ts.q.numel())}): "
+              "Q, env state, lanes, counters bit-exact vs plain and vs the cooperative K5")
     ts = td_fast.fast_td_init(sem, L["bl_walls"], 9, SHARD_B)
     n = ts.q.numel()
-    q_prev, q_cur = ts.q.clone(), torch.empty_like(ts.q)
-    aggs = torch.zeros((3, 2, n), dtype=torch.int64, device=dev)
-    state = [x.clone() for x in (ts.env_state.agent_idx, ts.env_state.agent_code, ts.env_state.t, ts.rs,
-                                 ts.run_ret, ts.n_eps_env, ts.ret_sum_env)]
 
-    def one_step():
-        k5.td_step_sharded_cuda(sem, L["bl_walls"], q_prev, q_cur, aggs[0], aggs[1], aggs[2], state,
-                                kw["alpha"], kw["gamma"], kw["epsilon"], 0, kw["max_episode_steps"])
+    def plan_of(cluster=None):
+        state = [x.clone() for x in (ts.env_state.agent_idx, ts.env_state.agent_code, ts.env_state.t, ts.rs,
+                                     ts.run_ret, ts.n_eps_env, ts.ret_sum_env)]
+        return k5.TdStepPlan(sem, L["bl_walls"], ts.q, state, kw["alpha"], kw["gamma"], kw["epsilon"], 0,
+                             kw["max_episode_steps"], cluster=cluster)
 
-    ms, _ = _cuda_ms(one_step, 200)
-    graph_ms = _graph_ms(one_step)
+    # the plan's clusters against one block a cluster (each block rebuilding all
+    # of Q_t and flushing all its counters, as PR 20's kernel did) and against
+    # eight: 50 steps each
+    runs = {}
+    for cluster in (None, 1, 8):
+        plan = plan_of(cluster)
+        for t in range(50):
+            plan.step(t)
+        runs[plan.cluster] = (plan.finish(50), *plan.state)
+    for cluster, run in runs.items():
+        _same_fields(f"K5 sharded clusters of {cluster}", run, runs[1], ("q",) + k5.STATE_FIELDS)
+    print(f"K5's sharded form walls16 B=65,536, 50 steps: clusters of {sorted(runs)} blocks give the same bits")
+    def stepped_plan(cluster=None):
+        plan = plan_of(cluster)
+        for t in range(3):
+            plan.step(t)
+        return plan
+
+    # step 2's launch again and again: the same rows, the same work each time; in
+    # a graph, the plan built on the capture's stream (a plan is stream-ordered)
+    plans = {cluster: stepped_plan(cluster) for cluster in (None, 1)}
+    ms, _ = _cuda_ms(lambda: plans[None].step(2), 200)
+    graph_ms = _plan_graph_ms(stepped_plan, lambda plan: plan.step(2))
+    ms1, _ = _cuda_ms(lambda: plans[1].step(2), 200)
+    graph1 = _plan_graph_ms(lambda: stepped_plan(1), lambda plan: plan.step(2))
     plain_ms, _ = _cuda_ms(lambda: td_fast.td_step_sharded_reference(
-        sem, L["bl_walls"], q_prev, aggs[0], ts, kw["alpha"], kw["gamma"], kw["epsilon"], algo,
+        sem, L["bl_walls"], ts.q, plans[None].aggregates[0], ts, kw["alpha"], kw["gamma"], kw["epsilon"], algo,
         kw["max_episode_steps"]), 5)
     # the function's operations (K5's count) and the aggregate's 2·S·A·8 bytes each way
     t5 = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, library_ms=None,
-              shape=f"walls16 B={SHARD_B}, one step (a launch)",
+              shape=f"walls16 B={SHARD_B}, one step through the plan (clusters of {plans[None].cluster})",
               **bound(2 * 2 * n * 8, INSTR_K5_STEP * SHARD_B + INSTR_K5_ENTRY * n))
-    print(f"time td_step_sharded at {t5['shape']}: kernel {ms!r} ms as timed, {graph_ms!r} ms in a CUDA graph of ten, "
-          f"plain {plain_ms!r} ms, bound {t5['bound_ms']!r} ms by {t5['bound_by']}, library None ms ({smi})")
+    print(f"time td_step_sharded at {t5['shape']}: kernel {ms!r} ms as timed, {graph_ms!r} ms in a CUDA graph of ten; "
+          f"clusters of one {ms1!r} ms as timed, {graph1!r} ms in a graph; plain {plain_ms!r} ms, bound "
+          f"{t5['bound_ms']!r} ms by {t5['bound_by']}, library None ms ({smi})")
     lap("phase 26 (c)")
     for name, row in timed.items():
         u, s_ = row["unsharded"], row["sharded"]

@@ -12,9 +12,11 @@ PyTorch counterpart of `griduniverse_tpu/algos/dp_batched.py`.
     tile codes. On CUDA this is kernel K4 (`csrc/dp_grid.cu`): up to
     16,384 cells a maze, V in shared memory and up to 16 Jacobi sweeps a
     launch, several small mazes a block or several cells a thread
-    (`kernels.dp_grid.packing`); above that, one thread per cell from
-    global memory, one launch per sweep. On the CPU it is the plain version beside
-    it (`*_reference`).
+    (`kernels.dp_grid.packing`); above that, one maze a thread-block
+    cluster of up to 16 blocks, a band of rows a block, up to 16 sweeps a
+    launch (`kernels.dp_grid.cluster_plan`); above 16 blocks a maze, one
+    thread per cell from global memory, one launch per sweep. On the CPU it
+    is the plain version beside it (`*_reference`).
 
 All solvers stop on the GLOBAL max |ΔV| over every maze and return V after
 exactly that many sweeps for every maze, as the reference does. K4 records

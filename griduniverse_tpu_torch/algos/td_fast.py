@@ -39,8 +39,7 @@ import torch
 
 from .. import kernels
 from ..core.semantics import Semantics
-from ..kernels.td_fast import step_slots as td_step_slots
-from ..kernels.td_fast import td_scan_fast_cuda, td_step_sharded_cuda
+from ..kernels.td_fast import TdStepPlan, td_scan_fast_cuda
 from ..ops.bitplane import (
     BitLevel,
     FastState,
@@ -273,8 +272,9 @@ def td_scan_fast_sharded(
     aggregate goes through `all_reduce_sum` (a function that sums a (2, S·A)
     int64 tensor over the ranks in place and returns it) before Q moves, so Q stays
     the same on every rank and equals the unsharded scan's bit for bit. On
-    CUDA one launch of K5's sharded form a step and one to end the scan
-    (`kernels.td_fast.td_step_sharded_cuda`); on the CPU its plain version."""
+    CUDA one launch of K5's sharded form a step and one to end the scan,
+    through a `kernels.td_fast.TdStepPlan` built once for the call; on the
+    CPU its plain version."""
     _check_algo(algo)
     if num_steps == 0:
         return ts
@@ -285,22 +285,10 @@ def td_scan_fast_sharded(
     st = ts.env_state
     state = [x.clone() for x in (st.agent_idx, st.agent_code, st.t, ts.rs, ts.run_ret,
                                  ts.n_eps_env, ts.ret_sum_env)]
-    n_entries = ts.q.numel()
-    qs = [ts.q, torch.empty_like(ts.q), torch.empty_like(ts.q)]
-    aggs = torch.zeros((3, 2, n_entries), dtype=torch.int64, device=ts.q.device)
-    kw = dict(alpha=alpha, gamma=gamma, epsilon=epsilon, expected_sarsa=ALGOS.index(algo),
-              max_episode_steps=max_episode_steps)
+    plan = TdStepPlan(sem, bl, ts.q, state, alpha, gamma, epsilon, ALGOS.index(algo), max_episode_steps)
     for t in range(num_steps):
-        prev, cur, clear = td_step_slots(t)
-        td_step_sharded_cuda(
-            sem, bl, qs[0 if t == 0 else 1 + (t + 1) % 2], qs[1 + t % 2],
-            None if prev is None else aggs[prev], aggs[cur], aggs[clear], state, **kw,
-        )
-        all_reduce_sum(aggs[cur])
-    last = num_steps - 1
-    q_out = torch.empty_like(ts.q)
-    td_step_sharded_cuda(sem, bl, qs[1 + last % 2], q_out, aggs[last % 3], aggs[(last + 1) % 3],
-                         None, state, act=False, **kw)
+        all_reduce_sum(plan.step(t))
+    q_out = plan.finish(num_steps)
     idx, code, t_env, rs, run_ret, n_eps_env, ret_sum_env = state
     return FastTDTrainState(
         q=q_out, env_state=FastState(idx, code, t_env, torch.zeros_like(st.done)),

@@ -9,12 +9,14 @@ constructor forms `grid_shape` / `walls` / `lava` / `goal_states` /
 
 Two interchangeable backends, bit for bit alike:
 
-  * `backend="torch"` (default) — the level is packed once
-    (`ops.bitplane.pack_level`) on `device` (default: the card) and the env
-    holds a B = 1 `FastState`. Each `step` is one launch of K2
-    (`rollout_actions_bits` over a (1, 1) action, freeze after done), which
-    is `core.step`'s semantics, as the reference's `backend="jax"` steps.
-    The bit-packed engine takes levels of at most `MAX_PACKED_STATES`.
+  * `backend="torch"` (default) — steps on `device` (default: the card)
+    with `core.step`'s semantics, as the reference's `backend="jax"` does.
+    At most `MAX_PACKED_STATES` states the level is packed once
+    (`ops.bitplane.pack_level`), the env holds a B = 1 `FastState` and each
+    `step` is one launch of K2 (`rollout_actions_bits` over a (1, 1) action,
+    freeze after done). Above it the env holds a B = 1 `EnvState` and steps
+    the generic gather-based `core.step.step`. The size picks the path once,
+    in the constructor.
   * `backend="numpy"` — the port's NumPy oracle (`utils.oracle`) steps on
     the host, as the reference's default does; nothing touches a device.
 
@@ -36,7 +38,8 @@ from ..core.types import Level, make_level
 from ..levels.builders import build_grid
 from ..levels.maze import generate_maze_numpy
 from ..levels.text import load_level_file, render_text
-from ..ops.bitplane import pack_level, reset_bits, rollout_actions_bits
+from ..core import step as core_step
+from ..ops.bitplane import MAX_PACKED_STATES, pack_level, reset_bits, rollout_actions_bits
 from ..utils.oracle import OracleGridEnv
 from ..utils.platform import resolve_device
 from .spaces import Discrete
@@ -54,8 +57,9 @@ class GridUniverseEnv:
       * `GridUniverseEnv(random_maze=True, grid_shape=(9, 9), seed=0)`
         (grid_shape must be odd-sized for a (2n+1) maze lattice)
 
-    `backend` — "torch" (default: K2 on `device`, the card unless given)
-    or "numpy" (the host oracle; `device` is not used).
+    `backend` — "torch" (default: on `device`, the card unless given; K2
+    up to `MAX_PACKED_STATES` states, `core.step` above) or "numpy" (the
+    host oracle; `device` is not used).
     """
 
     metadata = {"render_modes": ["human", "ansi", "rgb_array"]}
@@ -114,19 +118,26 @@ class GridUniverseEnv:
         self._grid_np = self.level.grid.cpu().numpy()
         self._start_idx = int(self.level.start_idx)
         self._oracle = OracleGridEnv(self._grid_np, self._start_idx, self.config)
+        # the bit-packed engine (K2) up to its limit, the gather-based step above
+        self._packed = backend == "torch" and self.level.num_states <= MAX_PACKED_STATES
         if backend == "torch":
             self._sem = make_semantics(self.config, device=self.device)
-            self._bl = pack_level(self.level)
-            # each action's (1, 1) tensor, made once, so a step uploads nothing
+            # each action's (1, 1) tensor for K2, or (1,) for core.step, made
+            # once, so a step uploads nothing
             a = self.config.num_actions
-            self._actions = torch.arange(a, dtype=torch.int32, device=self.device).reshape(a, 1, 1)
-            self._state = reset_bits(self._bl, 1)
+            shape = (a, 1, 1) if self._packed else (a, 1)
+            self._actions = torch.arange(a, dtype=torch.int32, device=self.device).reshape(shape)
+            self._bl = pack_level(self.level) if self._packed else None
+            self.reset()
 
     # ------------------------------------------------------------------ API
     def reset(self) -> int:
         if self.backend == "numpy":
             return self._oracle.reset()
-        self._state = reset_bits(self._bl, 1)
+        if self._packed:
+            self._state = reset_bits(self._bl, 1)
+        else:
+            self._state = core_step.reset(self.level, 1)
         return self._start_idx
 
     def step(self, action) -> tuple[int, float, bool, dict]:
@@ -137,9 +148,15 @@ class GridUniverseEnv:
         if self.backend == "numpy":
             obs, reward, done, info = self._oracle.step(int(action))
         else:
-            self._state, (obs, reward, done) = rollout_actions_bits(
-                self._sem, self._bl, self._state, self._actions[int(action)]
-            )
+            if self._packed:
+                self._state, (obs, reward, done) = rollout_actions_bits(
+                    self._sem, self._bl, self._state, self._actions[int(action)]
+                )
+            else:
+                self._state, out = core_step.step(
+                    self._sem, self.level, self._state, self._actions[int(action)]
+                )
+                obs, reward, done = out.obs, out.reward, out.done
             obs, reward, done, info = obs.item(), reward.item(), done.item(), {}
         if self.max_steps is not None and not done and self._episode_steps() >= self.max_steps:
             done, info = True, {"TimeLimit.truncated": True}

@@ -54,17 +54,28 @@
 // accumulated across launches, so nothing is zeroed before one. The greedy
 // step reduces its `changed` flag the same way.
 //
-// Above 16,384 cells a maze no longer fits one block's shared memory, and
-// a second, global-memory tier takes over: one thread per cell of all N
-// mazes, the packed words and the second V buffer in a scratch the wrapper
-// allocates (N·S·8 bytes beside V itself; 6.7 MB in all for 64 mazes of
-// 161×161, which stays in the 50 MB L2). Nothing orders blocks within a
-// launch, so a sweep is one launch and the launch boundary is the barrier
-// between Jacobi sweeps; the first sweep of a call derives each cell's word
-// and stores it for the rest. A Jacobi sweep is order-free per cell, so V,
-// the sweep maxima and the policy are the same bits as in the shared tier
-// and in the plain version. This tier is bound by bytes: a sweep reads V
-// and the words and writes V, 12 bytes a cell, from and to L2.
+// Above 16,384 cells a maze no longer fits the shared tier's block, and
+// the cluster tier takes it: one maze a thread-block cluster of k blocks
+// (the wrapper's `cluster_plan`: the least k whose blocks' 227 KB hold a
+// band of ⌈H / k⌉ rows at 12 bytes a cell, two V buffers and a word; k = 1
+// up to about 19,000 cells, k = 2 at 161×129, at most 16, the H100's
+// largest cluster, above 8 with the non-portable size allowed). Each block
+// holds its band's V and words in its own shared memory; a cell on a
+// band's edge reads its neighbour's V_old from the neighbour's block
+// through distributed shared memory, and a cluster barrier separates the
+// sweeps. Up to 16 sweeps a launch, as in the shared tier, with the same
+// row-and-ticket reduction of the sweep maxima: the grids are read once a
+// launch and V written once. A maze that needs more than 16 blocks keeps
+// the global-memory tier: one thread per cell of all N mazes, the packed
+// words and the second V buffer in a scratch the wrapper allocates. Nothing
+// orders blocks within a launch there, so a sweep is one launch and the
+// launch boundary is the barrier between Jacobi sweeps; the first sweep of
+// a call derives each cell's word and stores it for the rest. That tier is
+// bound by bytes: a sweep reads V and the words and writes V, 12 bytes a
+// cell, from and to L2. A Jacobi sweep is order-free per cell, so V, the
+// sweep maxima and the policy are the same bits in every tier and in the
+// plain version. The greedy step above 16,384 cells is the global tier's,
+// one launch a policy iteration, in either case.
 //
 // Above eight actions (kA = −1 in the shared tier, Tab = gu::WideTables in
 // the global one) no action is kept decoded in registers or packed into a
@@ -73,6 +84,7 @@
 // takes any A). The maximum runs over the actions in index order and each
 // Q rounds as above, so the bits are the same.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -84,7 +96,11 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kMaxThreads = 256;  // a block of the global tier
+constexpr int kClusterThreads = 1024;  // a block of the cluster tier (512 took 1.34x as long)
+constexpr int kMaxClusterBlocks = 16;  // the H100's largest cluster (8 is the portable one)
 constexpr int kBlockMax = 256;    // a block of the shared tier at most
 constexpr int kMinBlocks = 4;     // blocks an SM the shared tier's kernels are built for
 constexpr int kMaxSweeps = 16;    // sweeps a shared-tier launch; `kernels.dp_grid.SWEEPS_A_LAUNCH`
@@ -127,15 +143,17 @@ using TablesOf = typename std::conditional<(kA < 0), gu::WideTables, gu::Tables>
 // Action `a` of cell s = (row, col), tile code `code`, of the maze whose
 // tile codes are `codes`; bit for bit the reference's blocked / done /
 // terminal masks.
-template <typename Tab>
-__device__ __forceinline__ Action decode_action(const Tab& tab, const uint8_t* codes, int h,
+// `codes` are the shared tier's bytes or the grid's own int32 tile codes
+// (the cluster tier reads those), each taken to its two low bits.
+template <typename Tab, typename Code>
+__device__ __forceinline__ Action decode_action(const Tab& tab, const Code* codes, int h,
                                                 int w, int s, int row, int col, int code, int a) {
   const int2 d = gu::delta(tab, a);
   const int nrow = row + d.x;
   const int ncol = col + d.y;
   const bool in_bounds = nrow >= 0 && nrow < h && ncol >= 0 && ncol < w;
   const int cand = min(max(nrow, 0), h - 1) * w + min(max(ncol, 0), w - 1);
-  const int cand_code = codes[cand];
+  const int cand_code = static_cast<int>(codes[cand]) & 3;
   const bool blocked = !in_bounds || !((tab.passable >> cand_code) & 1);
   Action act;
   act.code = blocked ? code : cand_code;
@@ -604,6 +622,154 @@ grid_greedy_shared_kernel(GridArgs g, int n, int mazes, int cells, const float* 
 }
 
 // ---------------------------------------------------------------------------
+// The cluster tier
+// ---------------------------------------------------------------------------
+
+// V_old of maze cell `c` in the cluster tier's bands (block b of the
+// cluster holds cells [b·band, (b+1)·band)): from this block's buffer where
+// the cell is its own (cells [first, first + mine)), else from its owner's
+// buffer through distributed shared memory. The old buffer is written by
+// no block during a sweep, so the read needs no other order.
+__device__ __forceinline__ float v_of(const cg::cluster_group& cluster, const float* v_old, int c,
+                                      int first, int mine, int band) {
+  const int l = c - first;
+  if (static_cast<unsigned>(l) < static_cast<unsigned>(mine)) return v_old[l];
+  const int owner = c / band;
+  return *cluster.map_shared_rank(v_old + (c - owner * band), owner);
+}
+
+// One maze a thread-block cluster of `rows`-row bands (the wrapper's
+// `cluster_plan`): block `rank` of the cluster holds rows [rank·rows,
+// (rank+1)·rows) of the maze, its two V buffers and a word a cell (the
+// words kernel's encoding: 4 bits an action, or for PI evaluation the
+// policy's action and its neighbour), 12 bytes a cell of dynamic shared
+// memory. The words are derived once a launch from the grid's tile codes
+// in device memory (a neighbour's code may lie in another band); the wide
+// form's VI keeps no word and decodes each action from those codes each
+// sweep. A cell on a band's edge reads its neighbour's V_old from the
+// neighbour's block through distributed shared memory: a Jacobi sweep
+// writes only the new buffer, so no halo is copied, and `cluster.sync()` is
+// the barrier between sweeps. Thread t takes the band's cells t +
+// c·kClusterThreads, c < `cells`. The grid is a whole number of clusters,
+// each walking mazes (cluster index, then every clusters-th); the sweep
+// maxima go through the shared tier's row-and-ticket reduction.
+template <int kA, bool kEval>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+grid_sweeps_cluster_kernel(GridArgs g, int n, int rows, int cells, const float* __restrict__ v_in,
+                           float* __restrict__ v_out, float gamma, int num_sweeps,
+                           float* __restrict__ partial, float* __restrict__ maxima,
+                           unsigned int* __restrict__ ticket) {
+  constexpr bool kDecode = kA < 0 && !kEval;
+  constexpr int kN = kA > 0 ? kA : (kA == 0 ? gu::kMaxActions : 1);
+  const cg::cluster_group cluster = cg::this_cluster();
+  __shared__ TablesOf<kA> tab;
+  __shared__ float red[kMaxSweeps][32];
+  __shared__ float rtab[16];  // the reward of a 4-bit action code; 0 for kTerminal
+  __shared__ bool last;
+  const int s_dim = g.h * g.w;
+  const int band = rows * g.w;
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  const int first = static_cast<int>(cluster.block_rank()) * band;
+  const int mine = min(band, s_dim - first);
+  float* const v0 = reinterpret_cast<float*>(smem_raw);
+  float* const v1 = v0 + band;
+  uint32_t* const words = reinterpret_cast<uint32_t*>(v1 + band);
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 16; ++i) rtab[i] = (i >> 2) == kTerminal ? 0.0f : tab.reward[i & 3];
+  }
+  __syncthreads();
+  const int num_actions = kA > 0 ? kA : g.num_actions;
+  const int t = threadIdx.x;
+  int off[kN];  // the neighbour's offset of each action
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int2 d = kDecode || kEval || i >= num_actions ? make_int2(0, 0) : gu::delta(tab, i);
+    off[i] = d.x * g.w + d.y;
+  }
+  float mk[kMaxSweeps];
+#pragma unroll
+  for (int k = 0; k < kMaxSweeps; ++k) mk[k] = 0.0f;
+
+  const int clusters = static_cast<int>(gridDim.x) / blocks;
+  for (int m = static_cast<int>(blockIdx.x) / blocks; m < n; m += clusters) {
+    const size_t base = static_cast<size_t>(m) * s_dim;
+    const int* const codes = g.grids + base;
+    for (int c = 0; c < cells; ++c) {  // the band's V and words
+      const int l = t + c * kClusterThreads;
+      if (l >= mine) break;
+      const int s = first + l;
+      v0[l] = v_in[base + s];
+      const int row = s / g.w;
+      const int col = s - row * g.w;
+      const int code = codes[s] & 3;
+      uint32_t word = 0;
+      if (kEval) {
+        const Action act = decode_action(tab, codes, g.h, g.w, s, row, col, code,
+                                         gu::clamp_action(g.policy[base + s], num_actions));
+        word = static_cast<uint32_t>((act.kind << 2) | act.code) | (static_cast<uint32_t>(act.next) << 4);
+      } else if (!kDecode) {
+        for (int a = 0; a < num_actions; ++a) {
+          const Action act = decode_action(tab, codes, g.h, g.w, s, row, col, code, a);
+          word |= static_cast<uint32_t>((act.kind << 2) | act.code) << (4 * a);
+        }
+      }
+      words[l] = word;
+    }
+    cluster.sync();  // every band's V in, and every block of the cluster running
+#pragma unroll
+    for (int k = 0; k < kMaxSweeps; ++k) {
+      if (k < num_sweeps) {
+        const float* const v_old = (k & 1) ? v1 : v0;
+        float* const v_new = (k & 1) ? v0 : v1;
+        for (int c = 0; c < cells; ++c) {
+          const int l = t + c * kClusterThreads;
+          if (l >= mine) break;
+          const int s = first + l;
+          const uint32_t word = words[l];
+          float best;
+          if constexpr (kDecode) {
+            const int row = s / g.w;
+            const int col = s - row * g.w;
+            const int code = codes[s] & 3;
+            for (int a = 0; a < num_actions; ++a) {
+              const Action act = decode_action(tab, codes, g.h, g.w, s, row, col, code, a);
+              const float r = act.kind == kTerminal ? 0.0f : tab.reward[act.code];
+              const float q = r + gamma * (act.kind <= kMove ? v_of(cluster, v_old, act.next, first, mine, band) : 0.0f);
+              best = a == 0 ? q : fmaxf(best, q);
+            }
+          } else if (kEval) {
+            const uint32_t nib = word & 15u;
+            const float cont = (nib >> 2) >= kCut ? 0.0f : v_of(cluster, v_old, static_cast<int>(word >> 4), first, mine, band);
+            best = rtab[nib] + gamma * cont;
+          } else {
+#pragma unroll
+            for (int i = 0; i < kN; ++i) {
+              if (kA > 0 || i < num_actions) {
+                const uint32_t nib = (word >> (4 * i)) & 15u;
+                const uint32_t kind = nib >> 2;
+                const float v = kind == kMove ? v_of(cluster, v_old, s + off[i], first, mine, band) : v_old[l];
+                const float q = rtab[nib] + gamma * (kind >= kCut ? 0.0f : v);
+                best = i == 0 ? q : fmaxf(best, q);
+              }
+            }
+          }
+          v_new[l] = best;
+          mk[k] = fmaxf(mk[k], fabsf(best - v_old[l]));
+        }
+        cluster.sync();  // the sweep's V_new complete in every band; the old buffers free
+      }
+    }
+    for (int c = 0; c < cells; ++c) {
+      const int l = t + c * kClusterThreads;
+      if (l >= mine) break;
+      v_out[base + first + l] = ((num_sweeps & 1) ? v1 : v0)[l];
+    }
+  }
+  finish_sweep_maxima(mk, red, last, partial, maxima, num_sweeps, ticket);
+}
+
+// ---------------------------------------------------------------------------
 // The global-memory tier
 // ---------------------------------------------------------------------------
 
@@ -866,6 +1032,47 @@ cudaError_t resident_blocks(const void* fn, int threads, size_t bytes, int* bloc
 
 size_t round16(size_t bytes) { return (bytes + 15) & ~static_cast<size_t>(15); }
 
+// The cluster tier's kernel `fn` on the current device: its dynamic
+// shared-memory limit raised to `bytes` and, for `nonportable`, clusters
+// above eight blocks allowed, each set once (kept as `resident_seen` keeps
+// the other tiers'), so that a launch that needs nothing new, as a captured
+// one after its warm-up, calls no attribute setter.
+struct ClusterAttrs {
+  const void* fn;
+  int device;
+  size_t bytes;
+  bool nonportable;
+};
+ClusterAttrs cluster_seen[32];
+int cluster_count = 0;
+
+cudaError_t cluster_attributes(const void* fn, size_t bytes, bool nonportable) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(resident_mu);
+  ClusterAttrs* seen = nullptr;
+  for (int i = 0; i < cluster_count; ++i) {
+    if (cluster_seen[i].fn == fn && cluster_seen[i].device == device) seen = &cluster_seen[i];
+  }
+  if (seen == nullptr) {
+    if (cluster_count == 32) return cudaErrorInvalidValue;  // more (kernel, device) pairs than there are
+    seen = &cluster_seen[cluster_count++];
+    *seen = ClusterAttrs{fn, device, 0, false};
+  }
+  if (bytes > seen->bytes) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    seen->bytes = bytes;
+  }
+  if (nonportable && !seen->nonportable) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    seen->nonportable = true;
+  }
+  return cudaSuccess;
+}
+
 using SweepsKernel = void (*)(GridArgs, int, int, int, const float*, float*, float, int, float*,
                               float*, unsigned int*);
 
@@ -944,6 +1151,56 @@ extern "C" int gu_grid_greedy(const void* passable, const void* terminal, const 
       grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy), n, mazes,
       cells, static_cast<const float*>(v_in), gamma, static_cast<int*>(policy_out),
       static_cast<int*>(partial), static_cast<int*>(changed), static_cast<unsigned int*>(ticket));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster tier: `num_sweeps` (≤ kMaxSweeps) sweeps in one launch of
+// clusters of `blocks` blocks of kClusterThreads threads, one maze a
+// cluster, `rows` rows a band and `cells` cells a thread (the wrapper's
+// `cluster_plan`); `partial`, `maxima` and `ticket` as in
+// `gu_grid_sweeps`. The grid takes min(n, partial_rows / blocks) clusters.
+// A launch the card refuses returns its error.
+extern "C" int gu_grid_sweeps_cluster(const void* passable, const void* terminal, const void* reward,
+                                      const void* deltas, int num_actions, const void* grids, int n,
+                                      int h, int w, const void* policy, const void* v_in, void* v_out,
+                                      float gamma, int num_sweeps, int blocks, int rows, int cells,
+                                      void* partial, int partial_rows, void* maxima, void* ticket,
+                                      void* stream) {
+  const long long band = static_cast<long long>(rows) * w;
+  if (num_sweeps < 1 || num_sweeps > kMaxSweeps || blocks < 1 || blocks > kMaxClusterBlocks ||
+      partial_rows < blocks || static_cast<long long>(blocks - 1) * rows >= h ||
+      static_cast<long long>(blocks) * rows < h || band > static_cast<long long>(cells) * kClusterThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using Kernel = void (*)(GridArgs, int, int, int, const float*, float*, float, int, float*, float*,
+                          unsigned int*);
+  const bool eval = policy != nullptr;
+  const Kernel fn = num_actions == 4 ? (eval ? grid_sweeps_cluster_kernel<4, true> : grid_sweeps_cluster_kernel<4, false>)
+                    : num_actions > gu::kMaxActions
+                        ? (eval ? grid_sweeps_cluster_kernel<-1, true> : grid_sweeps_cluster_kernel<-1, false>)
+                        : (eval ? grid_sweeps_cluster_kernel<0, true> : grid_sweeps_cluster_kernel<0, false>);
+  // two V buffers and a word a cell of the band
+  const size_t bytes = round16(static_cast<size_t>(band) * 12);
+  cudaError_t err = cluster_attributes(reinterpret_cast<const void*>(fn), bytes, blocks > 8);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int clusters = std::min(n, partial_rows / blocks);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * blocks);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, grid_args(passable, terminal, reward, deltas, num_actions, grids, h, w, policy),
+                           n, rows, cells, static_cast<const float*>(v_in), static_cast<float*>(v_out), gamma,
+                           num_sweeps, static_cast<float*>(partial), static_cast<float*>(maxima),
+                           static_cast<unsigned int*>(ticket));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -68,30 +68,59 @@
 // so `r + γ·v − q` and `α·δ` round as the plain version's separate
 // multiply and add.
 //
-// The sharded form (`td_fast_step_kernel`). Replaces the same function with
-// its `psum_axes` (griduniverse_tpu/algos/td_fast.py:323-327), called by
+// The sharded form (`td_step_cluster_kernel`, `td_step_global_kernel`).
+// Replaces the same function with its `psum_axes`
+// (griduniverse_tpu/algos/td_fast.py:323-327), called by
 // griduniverse_tpu/parallel/bitplane.py:224: each rank steps its envs and
 // the step's aggregate is summed over the ranks before Q moves. A
 // collective cannot sit inside the scan's cooperative launch, so this form
 // is one ordinary launch a step, with the envs' state in device memory
 // between launches and the all-reduce between them:
-//  1. The launch of step t starts from Q_{t-1} (`q_prev`) and the SUMMED
-//     aggregate of step t-1 (`agg_prev`: sums, then counts, 64-bit; null at
-//     step 0) and takes Q_t = Q_{t-1} + sum·2^-32 / max(count, 1), the
-//     integer function of the scan: each block stages Q_t in shared memory
-//     (up to kMaxStagedEntries entries; above, every entry an env reads is
-//     rebuilt from global memory), and the grid writes Q_t for the next
-//     launch (`q_cur`) and clears the aggregate of step t+1 (`agg_clear`,
-//     last read by the launch of step t-1).
+//  1. The launch of step t starts from Q_{t-1} and the SUMMED aggregate of
+//     step t-1 (sums, then counts, 64-bit; none at step 0) and takes Q_t =
+//     Q_{t-1} + sum·2^-32 / max(count, 1), the integer function of the
+//     scan. It writes Q_t for the next launch and clears the aggregate of
+//     step t+1 (last read by the launch of step t-1).
 //  2. Each thread acts and steps one env against Q_t and adds its
-//     fixed-point α·δ and a count to the step's aggregate (`agg_cur`, in
-//     shared memory first where Q is staged, then flushed with atomics).
-//  3. The wrapper all-reduces `agg_cur` (integer sums: exact in any order,
-//     on any backend and at any world size), and the next launch applies it.
+//     fixed-point α·δ and a count to the step's aggregate.
+//  3. The wrapper all-reduces that aggregate (integer sums: exact in any
+//     order, on any backend and at any world size), and the next launch
+//     applies it.
 //  4. A last launch with `act` = 0 writes Q_T alone.
 // Q after T steps is the same integer function of the same integers as the
 // scan's, so the sharded run equals the unsharded K5 bit for bit on every
-// rank. Bound: latency again, now a launch and a collective a step.
+// rank.
+//
+// The host's share. A plan (`kernels/td_fast.py` `TdStepPlan`) checks the
+// level, the semantics, the state, the Q rows and the aggregates once a
+// scan and packs this file's `TdStepPlan` once; a step is then one C call
+// with the step's index, from which the kernel derives its rows (Q_t in
+// row t % 2, the aggregates in rows t % 3), so the launch's arguments are
+// the plan and that index alone.
+//
+// The device's share, up to kMaxStagedEntries entries: a thread-block
+// cluster of up to eight blocks (the plan's `cluster`, which divides the
+// grid: about one block a 1,024 entries, at least two, and one block at
+// B <= 512 envs). Q_t is a chain of L2 reads and a
+// float64 divide an entry, the same in every block, so each block of a
+// cluster rebuilds only its slice of ⌈S·A / cluster⌉ entries and stores it
+// into every block of the cluster through distributed shared memory; a
+// cluster barrier, and every block holds Q_t whole. Each block owns the
+// counters of its slice: the warp-combined increments go to the owner's
+// shared counters by distributed-shared-memory atomics, a second cluster
+// barrier, and each owner flushes only its slice to the global aggregate.
+// Against one block doing it all, that is `cluster` times fewer rebuilds
+// and global atomics (a hot cell takes two atomics a cluster). On the H100
+// the cluster paid where the table is large (8,100 entries: 10.9 µs a step
+// on clusters of eight against 17.3 on one block); at walls16's 1,024 it
+// costs about what it saves (6.2 µs on two blocks, 6.7 on one, 8.0 on
+// eight), and the single-block kernel this replaced took 5.9. Each env's seven state words are loaded first, so that
+// their latency hides behind the rebuild; the first store into another
+// block waits only for the cluster's blocks to have started (a relaxed
+// arrive at the top, its wait before the stores). Above kMaxStagedEntries
+// entries the global-memory form rebuilds every entry an env reads from
+// Q_{t-1} and the aggregate, and adds straight to the global aggregate.
+// Bound: latency, a launch and a collective a step.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -622,146 +651,238 @@ extern "C" int gu_td_scan_fast(
 
 namespace {
 
-// The sharded form's arguments: the scan's (q_in is Q_{t-1}, q_out Q_t; the
-// state arrays idx..ret_sum are read and written in place) and the three
-// aggregates of 2·n 64-bit words each.
-struct TdStepArgs {
+// The sharded form's plan, packed once a scan in host memory by
+// `kernels/td_fast.py` `TdStepPlan` and passed by value to every launch,
+// whose only other argument is the step's index. g.q_in is Q before step 0
+// and g.q_out the Q the last launch (act = 0) writes; the state arrays
+// g.idx..g.ret_sum are stepped in place. Step t writes Q_t into q[t % 2],
+// adds to agg[t % 3], reads agg[(t + 2) % 3] (step t-1's, summed over the
+// ranks; none at step 0) and clears agg[(t + 1) % 3] (null: nothing to
+// clear). Each aggregate is 2·S·A int64: sums, then counts.
+struct TdStepPlan {
   TdFastArgs g;
-  const long long* agg_prev;  // step t-1's summed aggregate, or null at step 0
-  long long* agg_cur;         // step t's, added to (cleared by the launch before)
-  long long* agg_clear;       // step t+1's, cleared here (or null)
-  int act;                    // 0: only Q_t is written
+  float* q[2];
+  long long* agg[3];
+  int blocks;   // blocks of a step's launch, a multiple of `cluster`
+  int cluster;  // blocks a cluster of the staged form (1..8)
+};
+// `kernels/td_fast.py` mirrors the plan field for field with ctypes
+static_assert(sizeof(TdFastArgs) == 272 && sizeof(TdStepPlan) == 320, "TdStepPlan's layout changed");
+
+// The rows that step `step` reads, writes and clears.
+struct StepRows {
+  const float* q_prev;
+  float* q_cur;
+  const long long* agg_prev;  // null at step 0
+  long long* agg_cur;
+  long long* agg_clear;
 };
 
-// One step of the sharded form (see the note at the top). One env a thread.
-template <bool kStaged, typename Tab>
-__global__ void __launch_bounds__(kThreads) td_fast_step_kernel(TdStepArgs sa) {
-  const TdFastArgs& g = sa.g;
+__device__ __forceinline__ StepRows rows_of(const TdStepPlan& p, int step) {
+  return StepRows{step == 0 ? p.g.q_in : p.q[(step + 1) & 1], p.q[step & 1],
+                  step == 0 ? nullptr : p.agg[(step + 2) % 3], p.agg[step % 3],
+                  p.agg[(step + 1) % 3]};
+}
+
+// The global-memory form (S·A above kMaxStagedEntries), and the last launch
+// of every scan (act = 0: Q written to g.q_out, nothing cleared). One env a
+// thread. The grid's threads share the store of Q_t and the clearing of
+// step t+1's aggregate; every Q entry an env reads is rebuilt from Q_{t-1}
+// and step t-1's aggregate; the warp-combined increments go straight to the
+// step's global aggregate.
+template <typename Tab>
+__global__ void __launch_bounds__(kThreads) td_step_global_kernel(TdStepPlan p, int step, int act) {
+  const TdFastArgs& g = p.g;
   __shared__ Tab tab;
   __shared__ uint32_t s_words[gu::kMaxWords];
   __shared__ long long s_warp[kThreads];
   const int n = g.h * g.w * g.num_actions;
   const int gtid = blockIdx.x * kThreads + threadIdx.x;
   const int gstride = gridDim.x * kThreads;
-  const int apply_prev = sa.agg_prev != nullptr;
-  const long long* acc_prev = sa.agg_prev;
-  const long long* cnt_prev = apply_prev ? sa.agg_prev + n : nullptr;
+  const StepRows r = rows_of(p, step);
+  const int apply_prev = r.agg_prev != nullptr;
+  const long long* cnt_prev = apply_prev ? r.agg_prev + n : nullptr;
+  float* const q_out = act ? r.q_cur : g.q_out;
   for (int i = gtid; i < n; i += gstride) {
-    g.q_out[i] = rebuilt(apply_prev, g.q_in, acc_prev, cnt_prev, i);
-    if (sa.agg_clear != nullptr) {
-      sa.agg_clear[i] = 0ll;
-      sa.agg_clear[n + i] = 0ll;
+    q_out[i] = rebuilt(apply_prev, r.q_prev, r.agg_prev, cnt_prev, i);
+    if (act && r.agg_clear != nullptr) {
+      r.agg_clear[i] = 0ll;
+      r.agg_clear[n + i] = 0ll;
     }
   }
-  if (!sa.act) return;
-  unsigned long long* s_acc = reinterpret_cast<unsigned long long*>(smem_raw);
-  float* s_q = reinterpret_cast<float*>(s_acc + n);
-  int* s_cnt = reinterpret_cast<int*>(s_q + n);
+  if (!act) return;
   gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
   if (!g.per_env) {
     for (int i = threadIdx.x; i < g.n_words; i += kThreads) s_words[i] = g.words[i];
-  }
-  if (kStaged) {
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      s_q[i] = rebuilt(apply_prev, g.q_in, acc_prev, cnt_prev, i);
-      s_acc[i] = 0ull;
-      s_cnt[i] = 0;
-    }
   }
   __syncthreads();
   int cell = -1;
   long long inc = 0;
   if (gtid < g.batch) {
     Env e = load_env(g, gtid, false);
-    cell = env_step<kStaged>(g, tab, s_words, s_q, apply_prev, g.q_in, acc_prev, cnt_prev, gtid,
-                             e, inc);
+    cell = env_step<false>(g, tab, s_words, nullptr, apply_prev, r.q_prev, r.agg_prev, cnt_prev, gtid,
+                           e, inc);
     store_env(g, gtid, e);
   }
-  long long* const w_inc = s_warp + (threadIdx.x & ~31);
-  unsigned long long* const acc_cur = reinterpret_cast<unsigned long long*>(sa.agg_cur);
-  if (kStaged) {
-    add_combined(cell, inc, w_inc, s_acc, s_cnt);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int c = s_cnt[i];
-      if (c != 0) {
-        atomicAdd(acc_cur + i, s_acc[i]);
-        atomicAdd(acc_cur + n + i, static_cast<unsigned long long>(c));
-      }
+  unsigned long long* const acc_cur = reinterpret_cast<unsigned long long*>(r.agg_cur);
+  add_combined(cell, inc, s_warp + (threadIdx.x & ~31), acc_cur, acc_cur + n);
+}
+
+// Adds `inc` and a count of one at `cell` (< 0: nothing) to the counters of
+// the block of the cluster that owns the cell (block `cell / slice`, its
+// entry `cell % slice`), through distributed shared memory: the lanes of
+// the warp with the same cell are combined first, and the lowest of them
+// adds their integer sum and their number. Every lane of the warp calls it.
+__device__ __forceinline__ void add_to_owner(const cg::cluster_group& cluster, int cell, long long inc,
+                                             long long* w_inc, unsigned long long* s_acc, int* s_cnt,
+                                             int slice) {
+  const unsigned peers = __match_any_sync(0xffffffffu, cell);
+  const int lane = threadIdx.x & 31;
+  w_inc[lane] = inc;
+  __syncwarp();
+  if (cell >= 0 && lane == __ffs(peers) - 1) {
+    unsigned long long sum = static_cast<unsigned long long>(inc);
+    for (unsigned rest = peers & (peers - 1); rest != 0; rest &= rest - 1) {
+      sum += static_cast<unsigned long long>(w_inc[__ffs(rest) - 1]);
     }
-  } else {
-    add_combined(cell, inc, w_inc, acc_cur, acc_cur + n);
+    const int owner = cell / slice;
+    const int at = cell - owner * slice;
+    atomicAdd(cluster.map_shared_rank(s_acc + at, owner), sum);
+    atomicAdd(cluster.map_shared_rank(s_cnt + at, owner), __popc(peers));
+  }
+  __syncwarp();
+}
+
+// One step of the staged form (S·A up to kMaxStagedEntries) on thread-block
+// clusters of `cluster` blocks, an env a thread (see the note at the top).
+// Block `rank` of a cluster rebuilds entries [rank·slice, (rank+1)·slice)
+// of Q_t and owns their counters (slice = ⌈S·A / cluster⌉). Dynamic shared
+// memory: the slice's 64-bit sums, Q_t whole, the slice's counts.
+template <typename Tab>
+__global__ void __launch_bounds__(kThreads) td_step_cluster_kernel(TdStepPlan p, int step) {
+  const cg::cluster_group cluster = cg::this_cluster();
+  // this block is running: the others may store into its memory once every
+  // block of the cluster has arrived here (waited for below)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const TdFastArgs& g = p.g;
+  __shared__ Tab tab;
+  __shared__ uint32_t s_words[gu::kMaxWords];
+  __shared__ long long s_warp[kThreads];
+  const int gtid = blockIdx.x * kThreads + threadIdx.x;
+  // the env's state first, so that its loads are in flight during Q's rebuild
+  const bool live = gtid < g.batch;
+  Env e{};
+  if (live) e = load_env(g, gtid, false);
+  const int n = g.h * g.w * g.num_actions;
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int slice = (n + blocks - 1) / blocks;
+  const int lo = rank * slice;
+  const int mine = max(0, min(n, lo + slice) - lo);
+  unsigned long long* const s_acc = reinterpret_cast<unsigned long long*>(smem_raw);
+  float* const s_q = reinterpret_cast<float*>(s_acc + slice);
+  int* const s_cnt = reinterpret_cast<int*>(s_q + n);
+  const StepRows r = rows_of(p, step);
+  const int apply_prev = r.agg_prev != nullptr;
+  const long long* cnt_prev = apply_prev ? r.agg_prev + n : nullptr;
+  gu::load_tables(tab, g.passable, g.terminal, g.reward, g.deltas, g.num_actions);
+  if (!g.per_env) {
+    for (int i = threadIdx.x; i < g.n_words; i += kThreads) s_words[i] = g.words[i];
+  }
+  for (int i = threadIdx.x; i < mine; i += kThreads) {
+    s_acc[i] = 0ull;
+    s_cnt[i] = 0;
+  }
+  if (r.agg_clear != nullptr) {  // step t+1's aggregate, over the whole grid
+    for (int i = gtid; i < 2 * n; i += gridDim.x * kThreads) r.agg_clear[i] = 0ll;
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // the slice of Q_t, rebuilt once in the cluster (the same integer function
+  // as the scan's, rounded once) and stored into every block of it; the
+  // grid's first cluster also writes it for the next launch
+  const bool writer = static_cast<int>(blockIdx.x) < blocks;
+  for (int i = threadIdx.x; i < mine; i += kThreads) {
+    const float q = rebuilt(apply_prev, r.q_prev, r.agg_prev, cnt_prev, lo + i);
+    for (int b = 0; b < blocks; ++b) *cluster.map_shared_rank(s_q + lo + i, b) = q;
+    if (writer) r.q_cur[lo + i] = q;
+  }
+  cluster.sync();  // Q_t whole in every block, every counter clear
+  int cell = -1;
+  long long inc = 0;
+  if (live) {
+    cell = env_step<true>(g, tab, s_words, s_q, apply_prev, r.q_prev, r.agg_prev, cnt_prev, gtid, e,
+                          inc);
+    store_env(g, gtid, e);
+  }
+  add_to_owner(cluster, cell, inc, s_warp + (threadIdx.x & ~31), s_acc, s_cnt, slice);
+  cluster.sync();  // every add is in; from here each block reads only its own memory
+  unsigned long long* const acc_cur = reinterpret_cast<unsigned long long*>(r.agg_cur);
+  for (int i = threadIdx.x; i < mine; i += kThreads) {
+    const int c = s_cnt[i];
+    if (c != 0) {
+      atomicAdd(acc_cur + lo + i, s_acc[i]);
+      atomicAdd(acc_cur + n + lo + i, static_cast<unsigned long long>(c));
+    }
   }
 }
 
+// Dynamic shared memory of the cluster kernel for n entries on clusters of `cluster`.
+size_t cluster_smem(int n, int cluster) {
+  const size_t slice = (static_cast<size_t>(n) + cluster - 1) / cluster;
+  return slice * 12 + static_cast<size_t>(n) * 4;
+}
+
 template <typename Tab>
-void* step_kernel_of(bool staged) {
-  return staged ? reinterpret_cast<void*>(td_fast_step_kernel<true, Tab>)
-                : reinterpret_cast<void*>(td_fast_step_kernel<false, Tab>);
+cudaError_t launch_step(const TdStepPlan& p, int step, int act, cudaStream_t st) {
+  const int n = p.g.h * p.g.w * p.g.num_actions;
+  if (!act || n > kMaxStagedEntries) {
+    const int blocks = act ? p.blocks : (n + kThreads - 1) / kThreads;
+    td_step_global_kernel<Tab><<<blocks, kThreads, 0, st>>>(p, step, act);
+    return cudaGetLastError();
+  }
+  if (p.cluster < 1 || p.cluster > 8 || p.blocks % p.cluster != 0) return cudaErrorInvalidValue;
+  auto* const kernel = td_step_cluster_kernel<Tab>;
+  const size_t smem = cluster_smem(n, p.cluster);
+  // the limit raised once a device to the most any plan needs (a cluster of
+  // one at kMaxStagedEntries), so that no later launch, as a captured one,
+  // calls the setter; raised in every case, as the static shared memory
+  // counts against the default 48 KB too
+  static bool raised[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (!raised[device & 63]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(cluster_smem(kMaxStagedEntries, 1)));
+    if (err != cudaSuccess) return err;
+    raised[device & 63] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, p, step);
 }
 
 }  // namespace
 
-// One launch of K5's sharded form: step t of this rank's `batch` envs
-// (`act` = 1; blocks of 512 threads, an env a thread), or (`act` = 0) only
-// Q_t written. q_prev is read, q_cur written (S·A floats each, distinct);
-// agg_prev (null at step 0), agg_cur and agg_clear (null or distinct) are
-// 2·S·A int64 each: sums, then counts; agg_cur must be clear (the launch
-// before clears it as its agg_clear, or the caller). The state arrays
-// (idx, code, t, rs, run_ret, n_eps, ret_sum) are stepped in place.
-extern "C" int gu_td_step_sharded(
-    const void* passable, const void* terminal, const void* reward, const void* deltas,
-    int num_actions, const void* words, int n_words, int per_env, const void* start_idx,
-    const void* start_code, int h, int w, int batch, int max_episode_steps, int expected_sarsa,
-    float alpha, float gamma, float epsilon, float one_minus_epsilon, int eps16, int act,
-    int blocks, const void* q_prev, void* q_cur, const void* agg_prev, void* agg_cur,
-    void* agg_clear, void* idx, void* code, void* t, void* rs, void* run_ret, void* n_eps,
-    void* ret_sum, void* stream) {
-  const int n_entries = h * w * num_actions;
-  const bool staged = n_entries <= kMaxStagedEntries;
-  void* kernel = num_actions > gu::kMaxActions ? step_kernel_of<gu::WideTables>(staged)
-                                               : step_kernel_of<gu::Tables>(staged);
-  const size_t smem = act ? scan_smem(n_entries) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  TdFastArgs g{};
-  g.passable = static_cast<const uint8_t*>(passable);
-  g.terminal = static_cast<const uint8_t*>(terminal);
-  g.reward = static_cast<const float*>(reward);
-  g.deltas = static_cast<const int*>(deltas);
-  g.num_actions = num_actions;
-  g.words = static_cast<const uint32_t*>(words);
-  g.n_words = n_words;
-  g.per_env = per_env;
-  g.start_idx = static_cast<const int*>(start_idx);
-  g.start_code = static_cast<const int*>(start_code);
-  g.h = h;
-  g.w = w;
-  g.batch = batch;
-  g.num_steps = 1;
-  g.max_episode_steps = max_episode_steps;
-  g.expected_sarsa = expected_sarsa;
-  g.alpha = alpha;
-  g.gamma = gamma;
-  g.epsilon = epsilon;
-  g.one_minus_epsilon = one_minus_epsilon;
-  g.eps16 = static_cast<uint32_t>(eps16);
-  g.walks = 1;
-  g.q_in = static_cast<const float*>(q_prev);
-  g.q_out = static_cast<float*>(q_cur);
-  g.idx = static_cast<int*>(idx);
-  g.code = static_cast<int*>(code);
-  g.t = static_cast<int*>(t);
-  g.rs = static_cast<uint32_t*>(rs);
-  g.run_ret = static_cast<float*>(run_ret);
-  g.n_eps = static_cast<int*>(n_eps);
-  g.ret_sum = static_cast<float*>(ret_sum);
-  TdStepArgs sa{g, static_cast<const long long*>(agg_prev), static_cast<long long*>(agg_cur),
-                static_cast<long long*>(agg_clear), act};
-  void* args[] = {&sa};
-  return static_cast<int>(cudaLaunchKernel(kernel, dim3(blocks), dim3(kThreads), args, smem,
-                                           static_cast<cudaStream_t>(stream)));
+// One launch of K5's sharded form through a plan (`TdStepPlan`, in host
+// memory): step `step` of this rank's envs (`act` = 1: the staged form on
+// clusters of plan.cluster blocks, or the global-memory form above
+// kMaxStagedEntries entries), or (`act` = 0) Q_step, the Q after the last
+// step step - 1, written to g.q_out alone.
+extern "C" int gu_td_step(const void* plan, int step, int act, void* stream) {
+  const TdStepPlan& p = *static_cast<const TdStepPlan*>(plan);
+  if (step < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(p.g.num_actions > gu::kMaxActions ? launch_step<gu::WideTables>(p, step, act, st)
+                                                            : launch_step<gu::Tables>(p, step, act, st));
 }

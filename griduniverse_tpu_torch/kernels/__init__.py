@@ -39,10 +39,14 @@ histogram passes, count, compaction, sort and weights) and twenty above
 the refresh one up to 8,192 rows and two above, all under `replay`. A trace
 step is one (each tile's last block adds the chunks' sums and writes the
 table); a DQN act-and-step is one (its last block folds the statistics). K4
-counts one launch a call up to 16,384 cells a maze and one a sweep above.
+counts one launch a call of up to 16 sweeps, in its shared tier (up to
+16,384 cells a maze) and its cluster tier (above, one maze a thread-block
+cluster), and one a sweep in its global tier (a maze that 16 blocks do not
+hold).
 
 Two forms serve the sharded runs (`parallel/`): `td_step_sharded`, K5's
-sharded form in `csrc/td_fast.cu`, one ordinary launch a step with the
+sharded form in `csrc/td_fast.cu`, one launch a step through a
+`kernels.td_fast.TdStepPlan` (clusters of up to eight blocks) with the
 all-reduce of the step's aggregate between launches, and one more that
 writes the final Q (T + 1 a scan of T steps); and `segment_sums`, K10's
 sums form in `csrc/segment_mean.cu`, the same four kernels stopped before

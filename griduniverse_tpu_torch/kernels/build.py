@@ -59,6 +59,9 @@ _SIGNATURES = {
     # grids, n, h, w, policy; v in, out; gamma, sweeps; mazes, threads, cells a
     # thread, table; partial, its rows; maxima, ticket
     "gu_grid_sweeps": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    # grids, n, h, w, policy; v in, out; gamma, sweeps; blocks a cluster, rows
+    # a band, cells a thread; partial, its rows; maxima, ticket
+    "gu_grid_sweeps_cluster": _SEM + [_P, _I, _I, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     # grids, n, h, w, policy; v; gamma; policy out, changed; mazes, threads,
     # cells a thread; partial, its rows; ticket
     "gu_grid_greedy": _SEM + [_P, _I, _I, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P, _I, _P, _P],
@@ -72,10 +75,8 @@ _SIGNATURES = {
                        + [_P] * 19 + [_P],
     # S·A, envs a thread, A; out (2 ints)
     "gu_td_scan_fast_resident": [_I, _I, _I, _P, _P],
-    # batch, max_episode_steps, expected_sarsa; alpha, gamma, eps, 1 - eps;
-    # eps16, act, blocks; q prev, cur; aggregates prev, cur, clear; state (7)
-    "gu_td_step_sharded": _SEM + _LEVEL + [_I, _I, _I, _F, _F, _F, _F, _I, _I, _I]
-                          + [_P] * 5 + [_P] * 7 + [_P],
+    # the plan (host memory), step, act
+    "gu_td_step": [_P, _I, _I, _P],
     # n, steps, max_episode_steps, algo, bf16; alpha, gamma, eps, 1 - eps; eps16,
     # draw_first; threads, blocks, shared bytes; draws (4), q, state (8)
     "gu_td_batched": _SEM + _LEVEL + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I] + [_I] * 3

@@ -5,13 +5,17 @@ The plain PyTorch versions are
 `algos.dp_batched.policy_iteration_batched_grid_reference`; the loops that
 decide when to stop live in `algos.dp_batched` too.
 
-Two tiers. Up to `MAX_STATES` cells a maze, the shared-memory tier keeps a
-group of mazes in a block's shared memory and runs up to
-`SWEEPS_A_LAUNCH` sweeps in one launch; `packing` says how many mazes a
-block takes and how many cells a thread. Above it, one thread per cell
-works from global memory and each sweep is a launch of its own; the packed
-words and the second V buffer live in a scratch allocated here. The only
-limit left is N·S < 2^31 cells in all.
+Three tiers, picked by the maze's shape (`grid_tier`). Up to `MAX_STATES`
+cells a maze, the shared-memory tier keeps a group of mazes in a block's
+shared memory and runs up to `SWEEPS_A_LAUNCH` sweeps in one launch;
+`packing` says how many mazes a block takes and how many cells a thread.
+Above it, the cluster tier keeps one maze in a thread-block cluster, a band
+of rows a block, and runs up to `SWEEPS_A_LAUNCH` sweeps a launch too;
+`cluster_plan` says how many blocks and rows. A maze too large for
+`MAX_CLUSTER_BLOCKS` blocks takes the global-memory tier: one thread per
+cell from global memory, each sweep a launch of its own, the packed words
+and the second V buffer in a scratch allocated here. The only limit left is
+N·S < 2^31 cells in all.
 """
 
 from __future__ import annotations
@@ -36,6 +40,16 @@ PARTIAL_ROWS = 4_096    # the blocks' rows of maxima the scratch holds (the grid
 # (13 bytes) keeps more blocks on an SM, and was the faster on the card
 # (`PERF.md` §6: 65×65 mazes with a table of 139 KB, one block an SM)
 TABLE_BYTES = 72 * 1024
+# the cluster tier: a block of CLUSTER_THREADS threads holds a band of rows
+# at CLUSTER_CELL_BYTES a cell (two V buffers and a word) in the opt-in
+# shared memory a block can have, BLOCK_SHARED_BYTES, less CLUSTER_STATIC
+# bytes kept for the kernel's static shared memory; a cluster is at most
+# MAX_CLUSTER_BLOCKS blocks (the H100's largest, non-portable above 8)
+CLUSTER_THREADS = 1_024
+CLUSTER_CELL_BYTES = 12
+BLOCK_SHARED_BYTES = 232_448
+CLUSTER_STATIC = 4_096
+MAX_CLUSTER_BLOCKS = 16
 
 
 class Packing(NamedTuple):
@@ -76,10 +90,46 @@ def packing(num_states: int, num_actions: int = 4) -> Packing:
     return Packing(1, _warps(-(-s // cells)), cells, table_bytes(s, num_actions) <= TABLE_BYTES)
 
 
+class ClusterPlan(NamedTuple):
+    """The cluster tier's cut of an H×W maze: a cluster of `blocks` blocks
+    of CLUSTER_THREADS threads, block b holding rows [b·rows, (b+1)·rows)
+    (the last band may hold fewer, none holds none), `cells` cells a thread,
+    `bytes` of dynamic shared memory a block."""
+    blocks: int
+    rows: int
+    cells: int
+    bytes: int
+
+
+@lru_cache(maxsize=64)
+def cluster_plan(height: int, width: int) -> ClusterPlan | None:
+    """The cluster tier's cut of a `height`×`width` maze: the least count of
+    blocks whose bands of ⌈height / blocks⌉ rows fit a block at
+    CLUSTER_CELL_BYTES a cell, or None where more than MAX_CLUSTER_BLOCKS
+    would be needed (the global tier's mazes)."""
+    h, w = check_int("height", height, low=1), check_int("width", width, low=1)
+    budget = BLOCK_SHARED_BYTES - CLUSTER_STATIC
+    for k in range(1, MAX_CLUSTER_BLOCKS + 1):
+        rows = -(-h // k)
+        band = rows * w
+        if band * CLUSTER_CELL_BYTES <= budget:
+            return ClusterPlan(-(-h // rows), rows, -(-band // CLUSTER_THREADS),
+                               -(-band * CLUSTER_CELL_BYTES // 16) * 16)
+    return None
+
+
+def grid_tier(height: int, width: int) -> str:
+    """The tier that sweeps a `height`×`width` maze: "shared" up to
+    MAX_STATES cells, else "cluster" where `cluster_plan` finds a cut, else
+    "global". A choice by shape, made before any launch."""
+    if uses_shared_tier(height * width):
+        return "shared"
+    return "cluster" if cluster_plan(height, width) is not None else "global"
+
+
 def uses_shared_tier(num_states: int) -> bool:
-    """True if a maze of `num_states` cells runs in the shared-memory tier
-    (up to SWEEPS_A_LAUNCH sweeps a launch), False for the global-memory
-    tier (one a sweep)."""
+    """True if a maze of `num_states` cells runs in the shared-memory tier,
+    False for the cluster or the global-memory tier (`grid_tier`)."""
     return num_states <= MAX_STATES
 
 
@@ -115,42 +165,56 @@ def _grid_args(sem, grids, policy, device):
     return args, n, h * w
 
 
-def grid_sweeps_cuda(sem, grids, v, policy, gamma: float, num_sweeps: int, table: bool | None = None):
+def grid_sweeps_cuda(sem, grids, v, policy, gamma: float, num_sweeps: int, table: bool | None = None,
+                     tier: str | None = None):
     """Launch `num_sweeps` sweeps of K4 from V `v` (N, S) float32: VI sweeps,
     or evaluation sweeps of `policy` (N, S) int32 where one is given.
     Returns (V after the sweeps, (num_sweeps,) float32 global max |ΔV| of
     each sweep). One launch per SWEEPS_A_LAUNCH sweeps in the shared-memory
-    tier, `num_sweeps` in the global-memory tier. `table`, where given,
-    overrides `packing`'s choice of the table of decoded actions for mazes
-    of several cells a thread (the same bits either way; for measuring)."""
+    and the cluster tiers, `num_sweeps` in the global-memory tier
+    (`grid_tier`). `table`, where given, overrides `packing`'s choice of the
+    table of decoded actions for mazes of several cells a thread, and
+    `tier` the tier of a maze above MAX_STATES cells ("cluster", where
+    `cluster_plan` has a cut, or "global"): the same bits either way; for
+    measuring and for holding one tier against another."""
     device = grids.device
     if device.type != "cuda":
         raise ValueError(f"grid_sweeps_cuda takes CUDA tensors, got {device}")
     args, n, s = _grid_args(sem, grids, policy, device)
+    h, w = args[7], args[8]
     num_sweeps = check_int("num_sweeps", num_sweeps, low=1)
     v_in = check_tensor("v", v, torch.float32, (n, s), device)
     v_out = torch.empty((n, s), dtype=torch.float32, device=device)
     maxima = torch.empty(num_sweeps, dtype=torch.float32, device=device)
-    if uses_shared_tier(s):
-        pk = packing(s, args[4])
-        if table is not None and pk.cells > 1:
-            pk = pk._replace(table=table)
-        partial, ticket = _scratch_ptrs(device)
-        src = v_in
-        for done in range(0, num_sweeps, SWEEPS_A_LAUNCH):  # the solvers ask for at most one launch
-            k = min(SWEEPS_A_LAUNCH, num_sweeps - done)
-            dst = v_out if done + k == num_sweeps else torch.empty((n, s), dtype=torch.float32, device=device)
-            launch("gu_grid_sweeps", device, *args, src, dst.data_ptr(), float(gamma), k,
-                   pk.mazes, pk.threads, pk.cells, int(pk.table), partial, PARTIAL_ROWS,
-                   maxima.data_ptr() + 4 * done, ticket)
-            LAUNCHES["dp_grid"] += 1
-            src = dst.data_ptr()
-    else:
+    if tier is None:
+        tier = grid_tier(h, w)
+    elif tier not in ("cluster", "global") or grid_tier(h, w) == "shared" or (
+            tier == "cluster" and cluster_plan(h, w) is None):
+        raise ValueError(f"a {h}x{w} maze cannot take the {tier!r} tier")
+    if tier == "global":
         v_tmp = torch.empty((n, s), dtype=torch.float32, device=device)
         info = torch.empty((n, s), dtype=torch.int32, device=device)
         launch("gu_grid_sweeps_global", device, *args, v_in, v_out.data_ptr(), v_tmp.data_ptr(),
                info.data_ptr(), float(gamma), num_sweeps, maxima.data_ptr())
         LAUNCHES["dp_grid"] += num_sweeps
+        return v_out, maxima
+    if tier == "shared":
+        pk = packing(s, args[4])
+        if table is not None and pk.cells > 1:
+            pk = pk._replace(table=table)
+        entry, cut = "gu_grid_sweeps", (pk.mazes, pk.threads, pk.cells, int(pk.table))
+    else:
+        cp = cluster_plan(h, w)
+        entry, cut = "gu_grid_sweeps_cluster", (cp.blocks, cp.rows, cp.cells)
+    partial, ticket = _scratch_ptrs(device)
+    src = v_in
+    for done in range(0, num_sweeps, SWEEPS_A_LAUNCH):  # the solvers ask for at most one launch
+        k = min(SWEEPS_A_LAUNCH, num_sweeps - done)
+        dst = v_out if done + k == num_sweeps else torch.empty((n, s), dtype=torch.float32, device=device)
+        launch(entry, device, *args, src, dst.data_ptr(), float(gamma), k, *cut, partial, PARTIAL_ROWS,
+               maxima.data_ptr() + 4 * done, ticket)
+        LAUNCHES["dp_grid"] += 1
+        src = dst.data_ptr()
     return v_out, maxima
 
 
@@ -165,7 +229,7 @@ def grid_greedy_cuda(sem, grids, v, gamma: float, policy):
     policy_out = torch.empty((n, s), dtype=torch.int32, device=device)
     changed = torch.empty(1, dtype=torch.int32, device=device)
     v_ptr = check_tensor("v", v, torch.float32, (n, s), device)
-    if uses_shared_tier(s):
+    if uses_shared_tier(s):  # above, the greedy step is the global tier's in every case
         pk = packing(s, args[4])
         partial, ticket = _scratch_ptrs(device)
         launch("gu_grid_greedy", device, *args, v_ptr, float(gamma), policy_out.data_ptr(),

@@ -99,8 +99,25 @@ tree's package and builds its kernels):
   alike; and K1 (`random_scan_bits`) at walls16, B = 65,536, T = 1,000, as
   timed (`experiments/k2_cycles.py` reads K2's cycles a step).
 
+- K4 above 16,384 states a maze (`k4c`): `grid_sweeps_cuda` of 16 VI
+  sweeps and of 16 evaluation sweeps of a random policy over 64 sidewinder
+  mazes of 161×129 (the tier the tree picks: the cluster tier here, the
+  global tier in a tree without it): a call as timed (30 calls), in a CUDA
+  graph of ten and on the host, with a hash of V and the maxima, which
+  every turn must print alike; and `value_iteration_batched_grid` over the
+  64 on the host clock (three calls), with the launches of one;
+- K5's sharded form (`k5s`) at walls16 with B = 65,536: one step on the
+  same rows again and again (step 1 of the explicit form: Q_1 from a Q and
+  a summed aggregate, the envs stepped, the step's aggregate added, the
+  next cleared), through a `TdStepPlan` built once where the tree has one,
+  else through `td_step_sharded_cuda`: as timed (200 calls), on the host
+  and in a CUDA graph of ten; and a 2,000-step `td_scan_fast_sharded` with
+  an all-reduce that returns its input (as timed, three scans; the hash of
+  Q and the lanes, which every turn must print alike), one scan profiled
+  (device time by kernel and the idle share).
+
 PART picks parts by name, all by default: `k2` (K2 and K1), `k3`, `k4` (the K4 calls and
-solves), `k5`, `k6`, `k7a`, `k7b`, `k7c`, `k9a`, `k9b`, `k11`, `k12`, `k13`. With `--graph`, this tree's K5 scan is
+solves), `k4c`, `k5`, `k5s`, `k6`, `k7a`, `k7b`, `k7c`, `k9a`, `k9b`, `k11`, `k12`, `k13`. With `--graph`, this tree's K5 scan is
 also captured in a CUDA graph, replayed and held bit for bit against an
 eager scan (or the capture's error is printed): whether a cooperative
 launch can be captured on the card's CUDA.
@@ -192,7 +209,7 @@ def _profiled(name, fn, wall_ms, smi):
         print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
 
 
-PARTS = ("k2", "k3", "k4", "k5", "k6", "k7a", "k7b", "k7c", "k9a", "k9b", "k11", "k12", "k13")
+PARTS = ("k2", "k3", "k4", "k4c", "k5", "k5s", "k6", "k7a", "k7b", "k7c", "k9a", "k9b", "k11", "k12", "k13")
 
 
 def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
@@ -204,6 +221,10 @@ def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
         k2_calls(tag, dev, smi)
     if "k4" in parts:
         k4_calls(tag, dev, gen, smi)
+    if "k4c" in parts:
+        k4_big_calls(tag, dev, gen, smi)
+    if "k5s" in parts:
+        k5_sharded_calls(tag, dev, smi)
     if "k12" in parts:
         k12_calls(tag, dev, smi)
     if "k7a" in parts:
@@ -329,6 +350,94 @@ def k4_calls(tag, dev, gen, smi) -> None:
         print(f"[{tag}] solve {name} ({out[2]} iterations): {walls!r} ms, {rates!r} mazes/s ({smi})")
         if name != "VI 8,192 mazes 33x33":
             _profiled(f"[{tag}] solve {name} profiled", fn, sorted(walls)[1], smi)
+
+
+def k4_big_calls(tag, dev, gen, smi) -> None:
+    """K4 above 16,384 states: 16-sweep calls and a VI solve at 64 x 161x129."""
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch import algos, kernels
+    from griduniverse_tpu_torch.kernels import dp_grid
+    from griduniverse_tpu_torch.levels import maze as M
+
+    sem = gt.make_semantics(device=dev)
+    grids, start = M.generate_mazes_device(2029, (80, 64), 64, "sidewinder", device=dev)
+    n, s = 64, 161 * 129
+    tier = dp_grid.grid_tier(161, 129) if hasattr(dp_grid, "grid_tier") else "global"
+    v0 = torch.zeros((n, s), device=dev)
+    pol = torch.randint(0, 4, (n, s), generator=gen, device=dev, dtype=torch.int32)
+    for name, p in (("16 VI sweeps", None), ("16 evaluation sweeps", pol)):
+        def call(p=p):
+            return dp_grid.grid_sweeps_cuda(sem, grids, v0, p, 0.99, SWEEPS)
+
+        graph = _plan_graph_ms(lambda: None, lambda _: call())
+        print(f"[{tag}] K4 {name}, 64 mazes 161x129 ({tier} tier): {_events_ms(call)!r} ms a call as timed, "
+              f"{graph!r} ms in a CUDA graph of ten, {_host_us(call)!r} us of host time; hash {_hash(call())} ({smi})")
+    lv = gt.Level(grid=grids, start_idx=start.expand(n).contiguous())
+    before = kernels.LAUNCHES["dp_grid"]
+    out = algos.value_iteration_batched_grid(sem, lv)
+    launched = kernels.LAUNCHES["dp_grid"] - before
+    walls = [_wall_ms(lambda: algos.value_iteration_batched_grid(sem, lv)) for _ in range(3)]
+    print(f"[{tag}] solve VI 64 mazes 161x129 ({out[2]} sweeps, {launched} launches): {walls!r} ms, "
+          f"{[n / ms * 1e3 for ms in walls]!r} mazes/s; hash {_hash(out[:2])} ({smi})")
+
+
+def k5_sharded_calls(tag, dev, smi) -> None:
+    """K5's sharded form: one step as timed, on the host and in a graph, and a scan."""
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch.algos import td_fast
+    from griduniverse_tpu_torch.kernels import td_fast as k5
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.ops import bitplane as bp
+
+    sem = gt.make_semantics(device=dev)
+    bl = bp.pack_level(builders.walls_and_goal_16x16(device=dev))
+    b = 65_536
+    ts = td_fast.fast_td_init(sem, bl, 7, b)
+    n = ts.q.numel()
+    kw = dict(alpha=0.1, gamma=0.99, epsilon=0.1, expected_sarsa=0, max_episode_steps=512)
+
+    def rows():
+        """A state, Q_0, Q_1 and three aggregate rows, the summed one random."""
+        state = [x.clone() for x in (ts.env_state.agent_idx, ts.env_state.agent_code, ts.env_state.t, ts.rs,
+                                     ts.run_ret, ts.n_eps_env, ts.ret_sum_env)]
+        g = torch.Generator(device=dev).manual_seed(1)
+        agg = torch.zeros((3, 2, n), dtype=torch.int64, device=dev)
+        agg[0, 0] = torch.randint(-2**36, 2**36, (n,), generator=g, device=dev)
+        agg[0, 1] = torch.randint(0, 64, (n,), generator=g, device=dev)
+        return state, ts.q.clone(), torch.empty_like(ts.q), agg
+
+    if hasattr(k5, "TdStepPlan"):
+        def make():
+            state, q_prev, q_cur, agg = rows()
+            return k5.TdStepPlan(sem, bl, q_prev, state, q_rows=(q_prev, q_cur), aggregates=tuple(agg.unbind(0)),
+                                 q_final=q_cur, **kw)
+
+        def call(plan):
+            plan.step(1)
+        form = f"through a TdStepPlan (clusters of {make().cluster})"
+    else:
+        def make():
+            return rows()
+
+        def call(r):
+            state, q_prev, q_cur, agg = r
+            k5.td_step_sharded_cuda(sem, bl, q_prev, q_cur, agg[0], agg[1], agg[2], state, **kw)
+        form = "through td_step_sharded_cuda"
+    made = make()
+    timed = _events_ms(lambda: call(made), reps=200)
+    host = _host_us(lambda: call(made))
+    graph = _plan_graph_ms(make, call)
+    print(f"[{tag}] K5 sharded step walls16 B={b} {form}: {timed * 1e3!r} us as timed, {host!r} us of host time, "
+          f"{graph * 1e3!r} us in a CUDA graph of ten ({smi})")
+
+    def scan():
+        return td_fast.td_scan_fast_sharded(sem, bl, ts, 2_000, 0.1, 0.99, 0.1, "q_learning", 512, lambda x: x)
+
+    out = scan()
+    print(f"[{tag}] K5 sharded scan walls16 B={b} T=2000: {_events_ms(scan, reps=3)!r} ms a scan as timed; hash "
+          f"{_hash((out.q, out.rs, out.ret_sum_env))} ({smi})")
+    walls = sorted(_wall_ms(scan) for _ in range(3))
+    _profiled(f"[{tag}] K5 sharded scan walls16 profiled", scan, walls[1], smi)
 
 
 def k5_scans(tag, dev, smi, graph: bool) -> None:

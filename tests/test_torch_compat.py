@@ -297,3 +297,94 @@ def test_constructor_without_device_asks_for_cuda():
     else:
         assert env.level.device.type == "cuda"
     assert GridUniverseEnv(grid_shape=(3, 3), backend="numpy").step(1) == (1, -1.0, False, {})
+
+
+# ---------------------------------------------------------------------------
+# Above the bit-packed engine's MAX_PACKED_STATES (16,384): the torch backend
+# steps core.step, as the reference's "jax" backend steps its core.step.
+# ---------------------------------------------------------------------------
+
+LARGE_FORMS = {
+    # 16,384 states: the K2 path's last size
+    "128x128": dict(grid_shape=(128, 128), walls=[2, 130], lava=[257], goal_states=[3, 16_383], seed=2,
+                    max_steps=300),
+    # 16,641 states: the first size above it
+    "129x129": dict(grid_shape=(129, 129), walls=[2, 131], lava=[259], goal_states=[3, 16_640], seed=5,
+                    max_steps=300),
+    # 65x65 cells: 17,161 states, and a time limit that truncates
+    "maze131": dict(random_maze=True, grid_shape=(131, 131), seed=7, max_steps=40),
+}
+
+
+def _walk_against(ref, env, steps, seed, reset_every=None):
+    """`steps` seeded actions through both envs, resetting on done and every
+    `reset_every` steps mid-episode; returns how episodes ended."""
+    rng = np.random.default_rng(seed)
+    assert env.reset() == ref.reset()
+    ends = {"done": 0, "truncated": 0, "reset": 0}
+    for i in range(steps):
+        a = int(rng.integers(0, env.action_space.n))
+        got, want = env.step(a), ref.step(a)
+        assert got == want, f"step {i}: {got} != {want}"
+        assert (env.current_state, env.done) == (ref.current_state, ref.done)
+        if got[2]:
+            ends["truncated" if got[3] else "done"] += 1
+            assert env.reset() == ref.reset()
+        elif reset_every and i % reset_every == reset_every - 1:
+            ends["reset"] += 1
+            assert env.reset() == ref.reset()
+            assert (env.current_state, env.done, env._episode_steps()) == (ref.current_state, False, 0)
+    return ends
+
+
+@pytest.mark.parametrize("form", LARGE_FORMS)
+def test_torch_backend_above_packed_limit_matches_reference(form):
+    """The torch backend on the CPU against the reference's default
+    ("numpy") backend, step for step: obs, reward, done, info (truncation
+    included), the state, and resets mid-episode."""
+    from griduniverse_tpu_torch.ops.bitplane import MAX_PACKED_STATES
+
+    kw = LARGE_FORMS[form]
+    ref, env = JEnv(**kw), make("torch", **kw)
+    assert env.num_states == ref.num_states
+    assert env._packed == (env.num_states <= MAX_PACKED_STATES) == (form == "128x128")
+    np.testing.assert_array_equal(env.level.grid.numpy(), np.asarray(ref.level.grid))
+    ends = _walk_against(ref, env, 1_500, seed=len(form), reset_every=97)
+    assert ends["reset"] > 0 and ends["done"] + ends["truncated"] > 0
+    if form == "maze131":
+        assert ends["truncated"] > 0
+    assert env.render(mode="ansi") == ref.render(mode="ansi")
+
+
+@pytest.mark.parametrize("form", ["129x129", "maze131"])
+def test_torch_backend_above_packed_limit_matches_reference_jax_backend(form):
+    """The same walk against the reference's jitted `core.step` engine."""
+    kw = LARGE_FORMS[form]
+    ref, env = JEnv(backend="jax", **kw), make("torch", **kw)
+    ends = _walk_against(ref, env, 300, seed=3, reset_every=61)
+    assert ends["reset"] > 0
+
+
+def test_torch_backend_picks_its_engine_by_size(monkeypatch):
+    """Up to 16,384 states a step is one K2 call; above, no K2 call and one
+    `core.step` call; the path is fixed in the constructor."""
+    import griduniverse_tpu_torch.compat.gym_env as G
+
+    calls = []
+    real_k2, real_step = G.rollout_actions_bits, G.core_step.step
+    monkeypatch.setattr(G, "rollout_actions_bits", lambda *a: calls.append("k2") or real_k2(*a))
+    monkeypatch.setattr(G.core_step, "step", lambda *a: calls.append("step") or real_step(*a))
+    for shape, want in (((128, 128), "k2"), ((129, 129), "step"), ((1, 16_385), "step")):
+        calls.clear()
+        env = make("torch", grid_shape=shape)
+        for a in (1, 2, 1):
+            env.step(a)
+        assert calls == [want] * 3, shape
+        env.reset()
+        assert env.current_state == 0 and env._episode_steps() == 0 and not env.done
+
+
+def test_numpy_and_torch_backends_agree_above_packed_limit():
+    kw = dict(random_maze=True, grid_shape=(131, 129), seed=11, max_steps=25)
+    ends = _walk_against(make("numpy", **kw), make("torch", **kw), 800, seed=4, reset_every=53)
+    assert ends["truncated"] > 0

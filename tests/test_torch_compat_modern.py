@@ -83,6 +83,27 @@ class TestGymnasiumAdapter:
         assert term and not trunc
         assert int(obs) == 1 and r == 10.0
 
+    def test_above_packed_limit_matches_reference_adapter(self):
+        """129x129 (16,641 states, above the bit-packed engine's limit):
+        the port's adapter steps `core.step` and equals the reference's
+        adapter step for step, terminated and truncated split alike."""
+        from griduniverse_tpu.compat import GridUniverseGymnasiumEnv as JGymEnv
+
+        kw = dict(grid_shape=(129, 129), lava=[258], goal_states=[2, 16_640], max_episode_steps=60)
+        env, ref = GridUniverseGymnasiumEnv(device=CPU, **kw), JGymEnv(**kw)
+        assert not env._env._packed
+        rng = np.random.default_rng(8)
+        assert env.reset(seed=3) == ref.reset(seed=3)
+        ends = set()
+        for i in range(600):
+            a = int(rng.integers(0, 4))
+            got, want = env.step(a), ref.step(a)
+            assert got == want and type(got[0]) is type(want[0]), f"step {i}: {got} != {want}"
+            if got[2] or got[3]:
+                ends.add("terminated" if got[2] else "truncated")
+                assert env.reset() == ref.reset()
+        assert ends == {"terminated", "truncated"}
+
     def test_render_modes(self):
         env = GridUniverseGymnasiumEnv(grid_shape=(4, 4), goal_states=[15], render_mode="rgb_array", device=CPU)
         env.reset(seed=0)

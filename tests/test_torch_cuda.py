@@ -1269,19 +1269,20 @@ def test_td_lambda_on_cuda_equals_the_cpu_run(dev):
 
 
 def test_grid_kernels_match_plain_above_shared_memory(dev):
-    """Two sidewinder mazes of 65x64 cells (16,899 states): one launch a
-    sweep, the sweep maxima, V, the policy and `changed` bit for bit."""
+    """Two sidewinder mazes of 65x64 cells (16,899 states): the cluster
+    tier's one launch for 7 sweeps (a cluster of one block a maze), the
+    sweep maxima, V, the policy and `changed` bit for bit."""
     from griduniverse_tpu_torch.kernels import dp_grid
 
     sem = T.make_semantics(device=dev)
     grids, start = M.generate_mazes_device(11, (65, 64), 2, "sidewinder", device=dev)
     levels = T.Level(grid=grids, start_idx=start.expand(2).contiguous())
     s = levels.num_states
-    assert not dp_grid.uses_shared_tier(s)
+    assert not dp_grid.uses_shared_tier(s) and dp_grid.grid_tier(131, 129) == "cluster"
     v0 = torch.zeros((2, s), device=dev)
     before = kernels.LAUNCHES["dp_grid"]
     v, maxima = dp_grid.grid_sweeps_cuda(sem, grids, v0, None, 0.99, 7)
-    assert kernels.LAUNCHES["dp_grid"] == before + 7
+    assert kernels.LAUNCHES["dp_grid"] == before + 1
     backup = dp_batched._grid_backup(sem, grids, 0.99)
     ref, ref_max = v0, []
     for _ in range(7):
@@ -1620,6 +1621,104 @@ def test_grid_kernels_match_plain_at_many_actions(dev, a):
     want = dp_batched.first_argmax(dp_batched._grid_backup(sem, grids, 0.99)(v0)).to(torch.int32)
     greedy, changed = dp_grid.grid_greedy_cuda(sem, grids, v0, 0.99, policy)
     assert torch.equal(greedy, want) and int(changed) == int(bool((want != policy).any()))
+
+
+def _snake_grid(dev, h, w):
+    """One h x w maze with walls on every other row, each row open at its
+    ends, and the goal in the far corner: a grid of any size, no generator."""
+    g = torch.zeros((1, h, w), dtype=torch.int32, device=dev)
+    g[0, 1:h - 1:2, 1:w - 1] = 1
+    g[0, h - 1, w - 1] = 3
+    return g
+
+
+# K4's cluster tier at one block a maze (131x129), two bands of 81 and 80 rows
+# (161x129: no count of blocks divides the height), three bands (401x129),
+# fourteen (a 2,000x129 maze, a cluster above the portable eight), at four and
+# nine actions; from a random V so that every band edge carries values
+@pytest.mark.parametrize("shape,a", [((131, 129, 2), 4), ((161, 129, 2), 4), ((161, 129, 2), 9),
+                                     ((401, 129, 1), 4), ((2_000, 129, 1), 4), ((131, 129, 2), 25)])
+def test_grid_cluster_tier_matches_plain_and_the_global_tier(dev, shape, a):
+    from griduniverse_tpu_torch.kernels import dp_grid
+
+    h, w, n = shape
+    sem = T.make_semantics(device=dev) if a == 4 else _sem_of(dev, a)
+    if h == 2_000:
+        grids = _snake_grid(dev, h, w)
+    else:
+        grids, _ = M.generate_mazes_device(h, ((h - 1) // 2, (w - 1) // 2), n, "sidewinder", device=dev)
+    cp = dp_grid.cluster_plan(h, w)
+    assert dp_grid.grid_tier(h, w) == "cluster" and cp.blocks == {131: 1, 161: 2, 401: 3, 2_000: 14}[h]
+    gen = torch.Generator(device=dev).manual_seed(h + a)
+    v0 = torch.rand((n, h * w), generator=gen, device=dev) * 10 - 5
+    before = kernels.LAUNCHES["dp_grid"]
+    got = dp_grid.grid_sweeps_cuda(sem, grids, v0, None, 0.99, 19)
+    assert kernels.LAUNCHES["dp_grid"] == before + 2  # 16 sweeps, then 3
+    _assert_same(got, _plain_sweeps(sem, grids, v0, None, 19))
+    _assert_same(got, dp_grid.grid_sweeps_cuda(sem, grids, v0, None, 0.99, 19, tier="global"))
+    policy = torch.randint(-1, a + 1, (n, h * w), generator=gen, device=dev, dtype=torch.int32)
+    clamped = torch.where(policy < 0, policy + a, policy).clamp(0, a - 1)  # as XLA's gather
+    got_e = dp_grid.grid_sweeps_cuda(sem, grids, v0, policy, 0.99, 5)
+    _assert_same(got_e, _plain_sweeps(sem, grids, v0, clamped, 5))
+    _assert_same(got_e, dp_grid.grid_sweeps_cuda(sem, grids, v0, policy, 0.99, 5, tier="global"))
+
+
+def test_grid_global_tier_above_a_cluster(dev):
+    """A maze that 16 blocks do not hold (2,401x129) keeps the global tier:
+    one launch a sweep, the plain version's bits; forcing the cluster tier
+    on it raises."""
+    from griduniverse_tpu_torch.kernels import dp_grid
+
+    sem = T.make_semantics(device=dev)
+    grids = _snake_grid(dev, 2_401, 129)
+    assert dp_grid.grid_tier(2_401, 129) == "global"
+    v0 = torch.zeros((1, 2_401 * 129), device=dev)
+    before = kernels.LAUNCHES["dp_grid"]
+    got = dp_grid.grid_sweeps_cuda(sem, grids, v0, None, 0.99, 5)
+    assert kernels.LAUNCHES["dp_grid"] == before + 5
+    _assert_same(got, _plain_sweeps(sem, grids, v0, None, 5))
+    with pytest.raises(ValueError, match="cluster"):
+        dp_grid.grid_sweeps_cuda(sem, grids, v0, None, 0.99, 5, tier="cluster")
+
+
+@pytest.mark.parametrize("b", [1, 33, 1_536, 65_536])
+@pytest.mark.parametrize("a", [4, 9])
+def test_td_step_plan_cluster_sizes_give_the_same_bits(dev, b, a):
+    """K5's sharded form on clusters of every size that divides its grid (one
+    block a cluster is PR 20's form: each block rebuilding all of Q_t and
+    flushing all its counters) gives the same Q, state and lanes, step by
+    step, and the plain version's."""
+    sem = T.make_semantics(device=dev) if a == 4 else _sem_of(dev, a)
+    bl = _levels(dev)["walls16"]
+    ts = td_fast.fast_td_init(sem, bl, 4, b)
+    blocks = td_fast_kernels.step_blocks(b, ts.q.numel(), True)
+    runs = {}
+    for cluster in [k for k in (1, 2, 3, 4, 8) if blocks % k == 0]:
+        state = [x.clone() for x in (ts.env_state.agent_idx, ts.env_state.agent_code, ts.env_state.t, ts.rs,
+                                     ts.run_ret, ts.n_eps_env, ts.ret_sum_env)]
+        plan = td_fast_kernels.TdStepPlan(sem, bl, ts.q, state, 0.2, 0.99, 0.2, 1, 64, cluster=cluster)
+        for t in range(40):
+            plan.step(t)
+        runs[cluster] = (plan.finish(40), *state)
+    ref = td_fast.td_scan_fast_sharded_reference(sem, bl, ts, 40, 0.2, 0.99, 0.2, "expected_sarsa", 64,
+                                                 _identity_reduce)
+    for got in runs.values():
+        _assert_same(got, _fast_fields(ref))
+
+
+def test_td_step_plan_is_stream_ordered(dev):
+    sem = T.make_semantics(device=dev)
+    bl = _levels(dev)["walls16"]
+    ts = td_fast.fast_td_init(sem, bl, 4, 64)
+    state = [x.clone() for x in (ts.env_state.agent_idx, ts.env_state.agent_code, ts.env_state.t, ts.rs,
+                                 ts.run_ret, ts.n_eps_env, ts.ret_sum_env)]
+    plan = td_fast_kernels.TdStepPlan(sem, bl, ts.q, state, 0.2, 0.99, 0.2, 0, 64)
+    plan.step(0)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="stream"):
+            plan.step(1)
+    with pytest.raises(ValueError, match="q_rows"):
+        td_fast_kernels.TdStepPlan(sem, bl, ts.q, state, 0.2, 0.99, 0.2, 0, 64, q_rows=(ts.q.cpu(), ts.q.clone()))
 
 
 @pytest.mark.parametrize("a", [9, 25])

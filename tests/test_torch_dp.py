@@ -359,3 +359,31 @@ def test_grid_solvers_match_jax_at_more_actions(a, case):
     assert int(jgi) == gi >= 2
     np.testing.assert_allclose(gv.numpy(), np.asarray(jgv), atol=ATOL, rtol=RTOL)
     assert_policy_equal_off_ties(ja.action_values_batched(jm, jgv, 0.99, lookup="gather"), gp.numpy(), jgp, min_clear)
+
+
+# Above 16,384 states a maze (K4's cluster tier on the card; its plain
+# version here): two sidewinder mazes of 65x64 cells (131x129, 16,899
+# states), a few sweeps of VI and of PI's evaluation, against the JAX
+# package's grid solvers on the same grids.
+@pytest.mark.parametrize("solver", ["vi", "pi"])
+def test_grid_solvers_above_16384_states_match_jax(solver):
+    grids, start = tm.generate_mazes_device(17, (65, 64), 2, "sidewinder", device=CPU)
+    g = grids.numpy().copy()
+    assert g.shape[1] * g.shape[2] == 16_899
+    st = np.full((2,), int(start), np.int32)
+    jl, tl = JLevel(grid=jnp.asarray(g), start_idx=jnp.asarray(st)), T.make_level(g, st, device=CPU)
+    if solver == "vi":
+        jv, jp, ji = ja.value_iteration_batched_grid(JSEM, jl, max_iters=24, validate=False)
+        tv, tp, ti = ta.value_iteration_batched_grid(TSEM, tl, max_iters=24)
+        rv, rp, ri = tdb.value_iteration_batched_grid_reference(TSEM, tl, max_iters=24)
+    else:
+        kw = dict(max_eval_iters=12, max_policy_iters=3)
+        jv, jp, ji = ja.policy_iteration_batched_grid(JSEM, jl, validate=False, **kw)
+        tv, tp, ti = ta.policy_iteration_batched_grid(TSEM, tl, **kw)
+        rv, rp, ri = tdb.policy_iteration_batched_grid_reference(TSEM, tl, **kw)
+    assert int(ji) == ti == ri == (24 if solver == "vi" else 3)
+    assert torch.equal(tv, rv) and torch.equal(tp, rp)  # the plain version on the CPU
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL, rtol=RTOL)
+    q = tdb._grid_backup(TSEM, tl.grid, 0.99)(tv)
+    assert_policy_equal_off_ties(q.numpy(), tp.numpy(), np.asarray(jp), min_clear=0.0)
+    assert bool((tv < 0).any()) and bool((tv > 0).any())  # the sweeps moved V both ways

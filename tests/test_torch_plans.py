@@ -2,7 +2,12 @@
 
   * K5 (`kernels.td_fast`): `grid_plan` puts every env on exactly one
     (thread, walk) of a grid that the card holds at once, an env a thread
-    where that grid fits, for odd batches and small and large cards.
+    where that grid fits, for odd batches and small and large cards; the
+    sharded form's cluster divides its grid, and a `TdStepPlan` raises on
+    a wrong tensor, another level and off the card.
+  * K4 (`kernels.dp_grid`): the cluster tier's `cluster_plan` cuts a maze
+    into bands that cover every cell once, each within a block's 227 KB,
+    and `grid_tier` picks the shared, cluster and global tiers by shape.
   * K7c (`kernels.dqn_act`): `carve` cuts one buffer into the eleven
     outputs as disjoint, 16-byte-aligned views of the plain version's dtypes
     and shapes; `DqnActPlan` raises on a step tensor of another shape, dtype
@@ -42,6 +47,7 @@ import torch
 import griduniverse_tpu_torch as T
 from griduniverse_tpu_torch.kernels import act_step as k7b
 from griduniverse_tpu_torch.algos import mc
+from griduniverse_tpu_torch.kernels import dp_grid as k4
 from griduniverse_tpu_torch.kernels import dqn_act
 from griduniverse_tpu_torch.kernels import maze as km
 from griduniverse_tpu_torch.kernels import mc_returns as k13
@@ -617,3 +623,152 @@ def test_k5_sharded_form_rotates_three_aggregates():
             assert slots[t - 1][2] == cur
         if t >= 1:
             assert prev == slots[t - 1][1]
+
+
+# ---------------------------------------------------------------------------
+# K5's sharded form on clusters, and its plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch", [1, 33, 512, 513, 1_536, 5_000, 65_536, 1_000_003])
+@pytest.mark.parametrize("n_entries", [4, 1_024, 2_304, 4_100, 8_100, 8_192])
+def test_k5_sharded_cluster_divides_the_grid(batch, n_entries):
+    """The staged form's cluster: at most eight blocks, dividing the grid of
+    a step's launch, the largest such count up to about a block a 1,024
+    entries and at least two; one block at B <= 512 (B = 1 and 33: a
+    cluster of one); at the main path's 65,536 envs (128 blocks) two at
+    walls16 (1,024 entries) and at nine actions (2,304), eight at 8,100."""
+    blocks = k5.step_blocks(batch, n_entries, act=True)
+    cluster = k5.step_cluster(blocks, n_entries)
+    target = min(k5.MAX_CLUSTER, max(2, -(-n_entries // k5.CLUSTER_ENTRIES)))
+    assert 1 <= cluster <= target and blocks % cluster == 0
+    assert all(blocks % k for k in range(cluster + 1, target + 1) if k <= blocks)  # the largest
+    if batch <= k5.THREADS:
+        assert cluster == 1
+    if batch == 65_536:
+        assert cluster == {4: 2, 1_024: 2, 2_304: 2, 4_100: 4, 8_100: 8, 8_192: 8}[n_entries]
+
+
+def _k5_plan_inputs(b=8):
+    sem = T.make_semantics(device=CPU)
+    bl = bp.pack_level(builders.walls_and_goal_16x16(device=CPU))
+    from griduniverse_tpu_torch.algos import td_fast
+
+    ts = td_fast.fast_td_init(sem, bl, 0, b)
+    st = ts.env_state
+    state = [st.agent_idx, st.agent_code, st.t, ts.rs, ts.run_ret, ts.n_eps_env, ts.ret_sum_env]
+    return sem, bl, ts.q, state
+
+
+def test_k5_step_plan_raises_on_wrong_tensors_another_level_and_off_the_card():
+    sem, bl, q, state = _k5_plan_inputs()
+    kw = dict(alpha=0.1, gamma=0.9, epsilon=0.1, expected_sarsa=0, max_episode_steps=16)
+    plan = k5.TdStepPlan(sem, bl, q, state, **kw)
+    assert (plan.blocks, plan.cluster) == (1, 1)
+    assert [tuple(x.shape) for x in plan.aggregates] == [(2, q.numel())] * 3
+    assert not any(bool(x.any()) for x in plan.aggregates)  # the first two steps add to clear rows
+    plan.check_level(sem, bl, 16)
+    for args in ((sem, bp.pack_level(builders.lava_level(device=CPU)), 16), (sem, bl, 17),
+                 (T.make_semantics(device=CPU), bl, 16)):
+        with pytest.raises(ValueError, match="another"):
+            plan.check_level(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        plan.step(0)
+    with pytest.raises(ValueError, match="CUDA"):
+        plan.finish(0)
+    # every tensor is checked once, when the plan is built
+    for k, name in enumerate(k5.STATE_FIELDS):
+        # `rs` sets the batch, so a short `rs` is found at the first field checked
+        for bad, match in ((state[k].double(), name), (state[k][:-1], "shape"), (state[k].reshape(2, -1), "shape|batch")):
+            with pytest.raises(ValueError, match=match):
+                k5.TdStepPlan(sem, bl, q, [bad if i == k else x for i, x in enumerate(state)], **kw)
+    with pytest.raises(ValueError, match="state"):
+        k5.TdStepPlan(sem, bl, q, state[:-1], **kw)
+    for bad in (q.double(), q[:-1], q.t()):
+        with pytest.raises(ValueError, match="q0"):
+            k5.TdStepPlan(sem, bl, bad, state, **kw)
+    with pytest.raises(ValueError, match="q_rows"):
+        k5.TdStepPlan(sem, bl, q, state, q_rows=(q.clone(), q.double()), **kw)
+    with pytest.raises(ValueError, match="aggregates"):
+        k5.TdStepPlan(sem, bl, q, state, aggregates=(torch.zeros((2, q.numel()), dtype=torch.int32),) * 3, **kw)
+    with pytest.raises(ValueError, match="q_final"):
+        k5.TdStepPlan(sem, bl, q, state, q_final=q[:1], **kw)
+    with pytest.raises(ValueError, match="cluster"):
+        k5.TdStepPlan(sem, bl, q, state, cluster=2, **kw)  # one block: no cluster of two divides it
+    with pytest.raises(ValueError, match="cluster"):
+        k5.TdStepPlan(sem, bl, q, state, cluster=0, **kw)
+
+
+@pytest.mark.parametrize("batch,cluster", [(65_536, None), (65_536, 1), (65_536, 4), (1_536, None)])
+def test_k5_step_plan_packs_the_cluster_and_grid(batch, cluster):
+    """The C plan holds the grid and the cluster the launch takes, and the
+    pointers of the plan's own rows, once."""
+    sem, bl, q, state = _k5_plan_inputs(batch)
+    plan = k5.TdStepPlan(sem, bl, q, state, 0.1, 0.9, 0.1, 0, 16, cluster=cluster)
+    want_cluster = k5.step_cluster(k5.step_blocks(batch, q.numel(), True), q.numel()) if cluster is None else cluster
+    assert (plan._args.blocks, plan._args.cluster) == (plan.blocks, want_cluster)
+    assert plan._args.blocks == -(-batch // k5.THREADS)
+    assert list(plan._args.q) == [x.data_ptr() for x in plan.q_rows]
+    assert list(plan._args.agg) == [x.data_ptr() for x in plan.aggregates]
+    assert list(plan._args.g.state) == [x.data_ptr() for x in state]
+    assert (plan._args.g.q_in, plan._args.g.q_out) == (q.data_ptr(), plan.q_final.data_ptr())
+    assert plan._args.g.batch == batch and plan._args.g.walks == 1
+
+
+def test_k5_step_plan_rows_follow_the_rotation():
+    """The rows the kernel derives from a step's index (`rows_of`: Q_t in row
+    t % 2, the aggregates in rows t % 3) are `step_slots`' rotation: the row
+    a step reads is the one the step before added to, and Q_{t-1} the row
+    the step before wrote."""
+    for t in range(1, 12):
+        prev, cur, clear = k5.step_slots(t)
+        assert prev == (t + 2) % 3 == k5.step_slots(t - 1)[1]
+        assert (cur, clear) == (t % 3, (t + 1) % 3)
+        assert ((t + 1) & 1) == (t - 1) % 2  # Q_{t-1}'s row
+
+
+# ---------------------------------------------------------------------------
+# K4's cluster tier
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,w", [(131, 129), (129, 129), (161, 129), (201, 129), (401, 129), (2_000, 129),
+                                 (100, 200), (127, 130), (2_359, 129), (1, 20_000), (3, 7_000), (400, 401)])
+def test_k4_cluster_plan_covers_every_cell_once_within_a_block(h, w):
+    """Above 16,384 cells the bands of `cluster_plan` partition the maze's
+    rows, no band is empty, each block's cells are each a thread's, and a
+    block's 12 bytes a cell fit the H100's 227 KB with room for the
+    kernel's static shared memory; the count of blocks is the least that
+    fits, at most 16. Where none fits, the global tier."""
+    cp = k4.cluster_plan(h, w)
+    budget = k4.BLOCK_SHARED_BYTES - k4.CLUSTER_STATIC
+    if cp is None:
+        assert k4.grid_tier(h, w) == "global"
+        assert -(-h // k4.MAX_CLUSTER_BLOCKS) * w * k4.CLUSTER_CELL_BYTES > budget
+        return
+    assert k4.grid_tier(h, w) == "cluster" and 1 <= cp.blocks <= k4.MAX_CLUSTER_BLOCKS
+    owner = np.full(h * w, -1)
+    for rank in range(cp.blocks):
+        first, mine = rank * cp.rows * w, min(cp.rows * w, h * w - rank * cp.rows * w)
+        assert mine > 0
+        lanes = np.arange(k4.CLUSTER_THREADS)[:, None] + k4.CLUSTER_THREADS * np.arange(cp.cells)[None, :]
+        cells = first + lanes[lanes < mine]
+        assert (owner[cells] == -1).all()
+        owner[cells] = rank
+    assert (owner >= 0).all()  # every cell once
+    assert cp.rows * w * k4.CLUSTER_CELL_BYTES <= cp.bytes <= budget and cp.bytes % 16 == 0
+    assert (cp.cells - 1) * k4.CLUSTER_THREADS < cp.rows * w <= cp.cells * k4.CLUSTER_THREADS
+    if cp.blocks > 1:  # one block fewer does not fit
+        assert -(-h // (cp.blocks - 1)) * w * k4.CLUSTER_CELL_BYTES > budget
+
+
+def test_k4_grid_tier_by_size():
+    """The shared tier up to 16,384 cells (9x9 to 128x128), the cluster tier
+    above where bands fit (two blocks at the main path's 161x129), the
+    global tier beyond 16 blocks."""
+    assert k4.grid_tier(9, 9) == k4.grid_tier(33, 33) == k4.grid_tier(128, 128) == "shared"
+    assert k4.grid_tier(129, 127) == "shared" and k4.grid_tier(129, 128) == "cluster"
+    assert k4.cluster_plan(161, 129).blocks == 2 and k4.cluster_plan(131, 129).blocks == 1
+    assert k4.grid_tier(2_401, 129) == "global"
+    assert [k4.cluster_plan(2_000, 129).blocks, k4.cluster_plan(401, 129).blocks] == [14, 3]
+    assert k4.SWEEPS_A_LAUNCH == 16
