@@ -52,6 +52,12 @@ size and checks what comes out:
     CPU twin; and K1's threefry action stream through `rollout_random_bits`
     and `compile_rollout_random`, against its plain version and in chunks.
 
+  * the sharded paths: `parallel/`'s rollouts, solvers and Q-learners
+    (phase 26), and the sharded TD(λ) learners (K12's partial-sums form),
+    MC learners and A2C, PPO and DQN trainers (phase 27), over NCCL in a
+    world of one at full width and over Gloo with two ranks on the card,
+    each held against the unsharded port.
+
 Each main path is driven with the launch counts set to 0 just before it and
 read just after, and every count must be the one the path's shape gives. The
 main paths' own outputs are held bit for bit against the plain versions on
@@ -69,6 +75,7 @@ It imports nothing of JAX: the reference's per-env golden mazes are read from
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -3457,6 +3464,431 @@ def sharded_phases(gt, dev, bound, smi):
     return launches, errs, {"td_step_sharded": t5}
 
 
+# -- phase 27: the sharded TD(λ), Monte-Carlo and neural learners ---------------
+
+# steps of each path over NCCL in a world of one (a) and over Gloo with two
+# ranks sharing the card (b): TD(λ) steps, MC rounds, PPO / A2C updates, DQN steps
+LEARNER_STEPS = {
+    "nccl": dict(tdl=200, mc=3, ppo=2, a2c=2, mazes=1, dqn=20),
+    "gloo": dict(tdl=4, mc=1, ppo=1, a2c=1, mazes=1, dqn=4),
+}
+# the entries whose results are the unsharded run's bits at two ranks too
+# (whole chunks of 256 envs a rank, or the parity modes)
+LEARNER_EXACT = ("td_lambda sarsa", "td_lambda watkins", "td_lambda_prediction", "td_lambda_prediction parity",
+                 "mc_control parity", "mc_prediction parity", "mc_prediction wide parity")
+
+
+def _learner_levels(gt, dev) -> dict:
+    """Phase 27's inputs, built alike in every process: walls16 and the
+    lava level, 65,536 4x4 Aldous-Broder mazes, a uniform policy, and the
+    trainers' configurations (phase 12's and phase 18's)."""
+    from griduniverse_tpu_torch import models
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.levels import maze as M
+
+    walls16 = builders.walls_and_goal_16x16(device=dev)
+    base = dict(buffer_capacity=131_072, max_episode_steps=MAX_EPISODE_STEPS)
+    return dict(
+        sem=gt.make_semantics(device=dev), walls16=walls16, lava=builders.lava_level(device=dev),
+        mazes=_aldous_level(gt, M, dev, 2026, SHARD_B), policy=torch.full((walls16.num_states, 4), 0.25, device=dev),
+        trainers={
+            "ppo walls16": ("ppo", "walls16", models.PPOConfig(max_episode_steps=MAX_EPISODE_STEPS), "ppo"),
+            "ppo mazes64k": ("ppo", "mazes", models.PPOConfig(max_episode_steps=MAX_EPISODE_STEPS, obs="grid",
+                                                              conv_channels=(32,), hidden=(64,)), "mazes"),
+            "a2c walls16": ("a2c", "walls16", models.A2CConfig(max_episode_steps=MAX_EPISODE_STEPS), "a2c"),
+            "dqn walls16 uniform": ("dqn", "walls16", models.DQNConfig(**base), "dqn"),
+            "dqn walls16 per": ("dqn", "walls16", models.DQNConfig(**base, prioritized=True), "dqn"),
+        },
+    )
+
+
+def _trainer_api(kind):
+    """(init_sharded, run_sharded, init, run) of a trainer."""
+    from griduniverse_tpu_torch import models
+
+    return {"ppo": (models.ppo_init_sharded, models.ppo_run_sharded, models.ppo_init, models.ppo_run),
+            "a2c": (models.a2c_init_sharded, models.a2c_run_sharded, models.a2c_init, models.a2c_run),
+            "dqn": (models.dqn_init_sharded, models.dqn_run_sharded, models.dqn_init, models.dqn_run)}[kind]
+
+
+def _learner_calls(m, L, st) -> dict:
+    """Every new sharded entry on mesh `m` at the step counts `st`, each a
+    call of no arguments through the entries a user calls."""
+    from griduniverse_tpu_torch import parallel
+
+    sem, b, walls16, lava, policy = L["sem"], SHARD_B, L["walls16"], L["lava"], L["policy"]
+    calls = {
+        "td_lambda sarsa": lambda: parallel.td_lambda_sharded(m, sem, walls16, 5, st["tdl"], b),
+        "td_lambda watkins": lambda: parallel.td_lambda_sharded(m, sem, walls16, 5, st["tdl"], b, algo="watkins"),
+        "td_lambda_prediction": lambda: parallel.td_lambda_prediction_sharded(m, sem, walls16, policy, 5, st["tdl"], b),
+        "td_lambda_prediction parity": lambda: parallel.td_lambda_prediction_sharded(
+            m, sem, walls16, policy, 5, st["tdl"], b, parity=True),
+        "mc_control": lambda: parallel.mc_control_sharded(m, sem, lava, 6, st["mc"]),
+        "mc_control parity": lambda: parallel.mc_control_sharded(m, sem, lava, 6, st["mc"], parity=True),
+        "mc_prediction": lambda: parallel.mc_prediction_sharded(m, sem, lava, 3),
+        "mc_prediction parity": lambda: parallel.mc_prediction_sharded(m, sem, lava, 3, parity=True),
+        "mc_prediction wide parity": lambda: parallel.mc_prediction_sharded(m, sem, lava, 3, batch_size=1024,
+                                                                            parity=True),
+    }
+    for name, (kind, lv, cfg, key) in L["trainers"].items():
+        init, run = _trainer_api(kind)[:2]
+        calls[name] = (lambda init=init, run=run, lv=lv, cfg=cfg, key=key:
+                       run(m, sem, L[lv], init(m, sem, L[lv], 5, cfg, b), cfg, st[key]))
+    return calls
+
+
+def _learner_unsharded(gt, L, st) -> dict:
+    """The unsharded port's calls that `_learner_calls`' entries equal in a
+    world of one: the trainers from the init's state with shard 0's seed
+    (`models.a2c.shard_seed(5, 0)`), so that they draw the rank's noise."""
+    from griduniverse_tpu_torch import algos
+    from griduniverse_tpu_torch.models.a2c import shard_seed
+
+    sem, b, walls16, lava, policy = L["sem"], SHARD_B, L["walls16"], L["lava"], L["policy"]
+    calls = {
+        "td_lambda sarsa": lambda: algos.sarsa_lambda(sem, walls16, 5, st["tdl"], b),
+        "td_lambda watkins": lambda: algos.watkins_q_lambda(sem, walls16, 5, st["tdl"], b),
+        "td_lambda_prediction": lambda: algos.td_lambda_prediction(sem, walls16, policy, 5, st["tdl"], b),
+        "mc_control": lambda: algos.mc_control(sem, lava, 6, st["mc"]),
+        "mc_prediction": lambda: algos.mc_prediction(sem, lava, 3),
+        "mc_prediction wide parity": lambda: algos.mc_prediction(sem, lava, 3, batch_size=1024),
+    }
+    for name in ("td_lambda_prediction", "mc_control", "mc_prediction"):
+        calls[f"{name} parity"] = calls[name]
+    for name, (kind, lv, cfg, key) in L["trainers"].items():
+        init, run = _trainer_api(kind)[2:]
+        calls[name] = (lambda init=init, run=run, lv=lv, cfg=cfg, key=key: run(
+            sem, L[lv], dataclasses.replace(init(sem, L[lv], 5, cfg, b), seed=shard_seed(5, 0)), cfg, st[key]))
+    return calls
+
+
+def _learner_views(name, out):
+    """(the entry's replicated values, its rows or per-shard values by
+    field), each flat, of an output of `_learner_calls` or
+    `_learner_unsharded`."""
+    if name.startswith("td_lambda_prediction"):
+        return {"v": out.v, "episodes": out.episodes}, {}
+    if name.startswith("td_lambda"):
+        return {"q": out.q, "episodes": out.episodes}, {}
+    if name.startswith("mc_control"):
+        return {"q": out.q, "episodes": out.episodes}, {}
+    if name.startswith("mc_prediction"):
+        return {"value": out.value, "counts": out.counts}, {}
+    from griduniverse_tpu_torch.models.a2c import SHARDED_FIELDS
+    from griduniverse_tpu_torch.parallel.mesh import tree_map
+
+    rep, rows = {}, {}
+    for f in dataclasses.fields(out):
+        value = getattr(out, f.name)
+        if not isinstance(value, (torch.Tensor, dict, tuple)) and not dataclasses.is_dataclass(value):
+            continue
+        leaves = {}
+        tree_map(lambda x, path=f.name: leaves.__setitem__(f"{path}.{len(leaves)}", x.reshape(-1)), value)
+        (rows if f.name in SHARDED_FIELDS else rep).update(leaves)
+    return rep, rows
+
+
+def _learner_digests(outs) -> dict:
+    """Every entry's replicated values as digests and its rows on the host."""
+    return {name: ({k: _digest(v) for k, v in rep.items()}, {k: v.detach().cpu().clone() for k, v in rows.items()})
+            for name, (rep, rows) in ((n, _learner_views(n, out)) for n, out in outs.items())}
+
+
+def _a2c_one_update(L, m, gumbel):
+    """One float32 A2C update at walls16 from shard seed 5's parameters: on
+    mesh `m` (sharded) or unsharded where `m` is None, with the noise given."""
+    from griduniverse_tpu_torch import models
+
+    cfg = models.A2CConfig(max_episode_steps=MAX_EPISODE_STEPS, compute_dtype="float32")
+    sem, walls16 = L["sem"], L["walls16"]
+    if m is None:
+        ts = models.a2c_init(sem, walls16, 5, cfg, SHARD_B)
+        return models.a2c_run(sem, walls16, ts, cfg, 1, gumbel=gumbel)
+    ts = models.a2c_init_sharded(m, sem, walls16, 5, cfg, SHARD_B)
+    return models.a2c_run_sharded(m, sem, walls16, ts, cfg, 1, gumbel=gumbel)
+
+
+def _shard_noise(L, rank: int, ranks: int):
+    """Shard `rank`'s noise of update 0 of a float32 A2C run of seed 5."""
+    from griduniverse_tpu_torch import models
+    from griduniverse_tpu_torch.models.a2c import shard_seed, update_noise
+
+    cfg = models.A2CConfig(max_episode_steps=MAX_EPISODE_STEPS, compute_dtype="float32")
+    return update_noise(L["walls16"].device, shard_seed(5, rank), 0, cfg, SHARD_B // ranks, 4)
+
+
+def _gloo_learner_rank(rank: int, port: int, out_dir: str, device: str = "cuda:0") -> None:
+    """Phase 27 (b), one rank: Gloo over two processes sharing card 0, every
+    new sharded entry at the Gloo step counts, the digests and a float32 A2C
+    update saved for the parent. (`device="cpu"` rehearses it without a
+    card.)"""
+    sys.path.insert(0, str(ROOT))
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch import kernels, parallel
+    from griduniverse_tpu_torch.parallel import distributed
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    info = distributed.initialize("gloo", f"tcp://127.0.0.1:{port}", GLOO_RANKS, rank, device=dev, timeout_s=300)
+    try:
+        m = parallel.make_env_mesh(GLOO_RANKS, device=dev)
+        L = _learner_levels(gt, dev)
+        if on_card:
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = {name: call() for name, call in _learner_calls(m, L, LEARNER_STEPS["gloo"]).items()}
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        gumbel = torch.cat([_shard_noise(L, r, GLOO_RANKS) for r in range(GLOO_RANKS)], dim=1)[None]
+        one = _a2c_one_update(L, m, gumbel)
+        torch.save({"info": {**info, "device": str(info["device"])}, "launches": launches, "seconds": seconds,
+                    "record": _learner_digests(outs), "a2c one": {k: v.cpu() for k, v in one.params.items()}},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def _learner_nccl(gt, dev, smi, L, lap):
+    """Phase 27 (a) and (d) in a world of one over NCCL (the group already
+    initialised): every new entry at full width held bit for bit against the
+    unsharded port, its launches counted (a trainer's equal to the unsharded
+    trainer's); then each against its unsharded call. Returns ({entry:
+    {turn: (ms, launches, collectives, idle share)}}, the path's launches)."""
+    from griduniverse_tpu_torch import kernels, parallel
+    from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+
+    full = LEARNER_STEPS["nccl"]
+    m = parallel.make_env_mesh(1, device=dev)
+    print(f"phase 27 (a): backend {m.backend}, world size {m.size} ({smi})")
+    calls, unsharded = _learner_calls(m, L, full), _learner_unsharded(gt, L, full)
+    for name in L["trainers"]:  # first calls: library handles, the allocator
+        calls[name]()
+    torch.cuda.synchronize()
+    path, outs, own = {}, {}, {}
+    for name, call in calls.items():
+        kernels.reset_launches()
+        outs[name] = call()
+        torch.cuda.synchronize()
+        own[name] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for k, v in own[name].items():
+            path[k] = path.get(k, 0) + v
+    print(f"launches on the sharded learners' main path (NCCL, world of one): {path}")
+    # K12's partial-sums form: the pass and the apply, a step of each of the four TD(λ) runs
+    _require(path.get("trace_partials") == 4 * 2 * full["tdl"] and not path.get("trace_pass"),
+             f"K12's partial-sums form: {path.get('trace_partials')} launches, expected {4 * 2 * full['tdl']}")
+    for name in ("mc_returns", "segment_mean", "segment_sums", "act_step", "gae", "embed_rows", "agent_stamp",
+                 "dqn_act", "replay", "per_sample"):
+        _require(path.get(name, 0) > 0, f"{name} was not launched on the sharded learners' path")
+    for name, call in unsharded.items():
+        kernels.reset_launches()
+        want = call()
+        torch.cuda.synchronize()
+        if name in L["trainers"]:
+            theirs = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            _require(own[name] == theirs, f"sharded (a) {name}: launches {own[name]}, the unsharded trainer {theirs}")
+        rep, rows = _learner_views(name, outs[name])
+        want_rep, want_rows = _learner_views(name, want)
+        _require(set(rep) == set(want_rep) and set(rows) == set(want_rows), f"sharded (a) {name}: other fields")
+        for k in rep:
+            _same(f"sharded (a) {name} {k}", rep[k], want_rep[k])
+        for k in rows:
+            _same(f"sharded (a) {name} {k}", rows[k], want_rows[k])
+    for name in ("td_lambda sarsa", "td_lambda watkins"):  # as phase 21: the random policy need not reach the goal
+        _require(int(outs[name].episodes) > 0, f"sharded (a) {name}: no episode ended")
+    for name in L["trainers"]:
+        _require(all(bool(torch.isfinite(p).all()) for p in outs[name].params.values())
+                 and bool(torch.isfinite(outs[name].last_loss)), f"sharded (a) {name}: a non-finite parameter or loss")
+    print(f"phase 27 (a): every new sharded entry over NCCL in a world of one equals the unsharded port bit for bit, "
+          f"with the same launches where it runs the same kernels: td_lambda_sharded (sarsa, watkins) and "
+          f"td_lambda_prediction_sharded (scalable, parity) at walls16, B={SHARD_B}, T={full['tdl']}, traces "
+          f"({SHARD_B}, 1,024) and ({SHARD_B}, 256) against sarsa_lambda / watkins_q_lambda / td_lambda_prediction "
+          f"(Q, V, episodes); mc_control_sharded ({full['mc']} rounds) and mc_prediction_sharded (256 and 1,024 "
+          f"episodes x 100 steps), scalable and parity, at lava; ppo, a2c and dqn (uniform, PER) *_run_sharded at "
+          f"walls16 and PPO over {SHARD_B} mazes, B={SHARD_B}, against the unsharded trainers on shard 0's seed "
+          f"(parameters, Adam, target, env state, statistics, the ring and priorities) ({smi})")
+    lap("phase 27 (a)")
+
+    steps_of = {"td_lambda sarsa": full["tdl"], "td_lambda_prediction": full["tdl"], "mc_control": full["mc"],
+                "ppo walls16": full["ppo"], "a2c walls16": full["a2c"], "dqn walls16 per": full["dqn"]}
+    timed = {}
+    # every new entry once (the trainers on walls16, DQN with PER), each call on the host clock and once profiled
+    for name in ("td_lambda sarsa", "td_lambda_prediction", "mc_control", "mc_prediction", "ppo walls16",
+                 "a2c walls16", "dqn walls16 per"):
+        row = {}
+        for tag, fn in (("unsharded", unsharded[name]), ("sharded", calls[name])):
+            kernels.reset_launches()
+            wall, coll = _collectives(lambda fn=fn: _wall_ms(fn))
+            launched = sum(kernels.LAUNCHES.values())
+            idle, events = _idle_share(fn, wall)
+            row[tag] = (wall, launched, coll, idle)
+            steps = steps_of.get(name)
+            per_step = "" if steps is None else (f", {sum(coll.values()) / steps!r} collectives a step "
+                                                 f"({launched / steps!r} launches a step)")
+            share = "not measured (the profiler recorded no device time)" if idle is None else f"{100 * idle:.2f} %"
+            print(f"phase 27 (d) {name} {tag}: {wall!r} ms a call on the host clock, {launched} kernel launches, "
+                  f"collectives {coll}{per_step}, {events} device events, device idle share {share} ({smi})")
+        timed[name] = row
+    lap("phase 27 (d)")
+    return timed, path
+
+
+def sharded_learner_phases(gt, dev, bound, smi):
+    """Phase 27: the sharded TD(λ) and MC learners of `parallel/learner.py`
+    and the sharded trainers of `models/`. (a) A world of one over NCCL at
+    full width, every entry held bit for bit against the unsharded port
+    (the trainers on shard 0's seed), its launches counted; (b) two ranks
+    sharing the card over Gloo at fewer steps: the TD(λ) runs (whole chunks
+    a rank) and the parity modes against the unsharded port bit for bit,
+    every replicated value the same bits on both ranks, and a float32 A2C
+    update against the unsharded update on the same noise; (c) K12's
+    partial-sums form against its plain version on the control and the
+    prediction trace and against K12's own step, timed in a CUDA graph of
+    ten; (d) each new entry's time, launches, collectives and idle share
+    against its unsharded call. Returns (launches, max abs errors, times)."""
+    import torch.multiprocessing as tmp
+
+    from griduniverse_tpu_torch.algos import td_lambda
+    from griduniverse_tpu_torch.kernels import trace_pass as k12
+    from griduniverse_tpu_torch.parallel import distributed
+    from griduniverse_tpu_torch.tools.profile_turns import _plan_graph_ms
+
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"{what}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
+    L = _learner_levels(gt, dev)
+    # -- (a) and (d): NCCL, a world of one --------------------------------------------
+    distributed.initialize("nccl", f"tcp://127.0.0.1:{_free_port()}", 1, 0, device=dev, timeout_s=300)
+    try:
+        timed, path = _learner_nccl(gt, dev, smi, L, lap)
+    finally:
+        distributed.shutdown()
+    torch.cuda.empty_cache()
+
+    # -- (b) Gloo, two ranks sharing the card ------------------------------------------
+    gloo = LEARNER_STEPS["gloo"]
+    with_dir = ROOT / "build" / "smoke_gloo_learners"
+    with_dir.mkdir(parents=True, exist_ok=True)
+    ctx = tmp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_gloo_learner_rank, args=(r, port, str(with_dir))) for r in range(GLOO_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + GLOO_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    late = [p for p in procs if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join(10)
+    codes = [p.exitcode for p in procs]
+    _require(not late and codes == [0] * GLOO_RANKS, f"phase 27 (b): exit codes {codes}, {len(late)} killed")
+    ranks = [torch.load(with_dir / f"rank{r}.pt", weights_only=False) for r in range(GLOO_RANKS)]
+    for f in with_dir.iterdir():
+        f.unlink()
+    with_dir.rmdir()
+    print(f"phase 27 (b): {GLOO_RANKS} ranks over Gloo on one card in {time.perf_counter() - t0:.1f} s (their "
+          f"sharded runs {[round(r['seconds'], 3) for r in ranks]} s)")
+    for r in ranks:
+        print(f"phase 27 (b) rank {r['info']['rank']}: backend {r['info']['backend']}, world size "
+              f"{r['info']['world_size']}, device {r['info']['device']}; launches {r['launches']}")
+        _require(r["launches"].get("trace_partials") == 4 * 2 * gloo["tdl"],
+                 f"phase 27 (b) rank {r['info']['rank']}: launches {r['launches']}")
+    unsharded = _learner_unsharded(gt, L, gloo)
+    for name in ranks[0]["record"]:
+        for rank, r in enumerate(ranks[1:], 1):
+            _require(r["record"][name][0] == ranks[0]["record"][name][0],
+                     f"phase 27 (b) {name}: rank {rank} holds other bits than rank 0")
+        if name in LEARNER_EXACT:
+            rep, _ = _learner_views(name, unsharded[name]())
+            for k, v in rep.items():
+                _require(ranks[0]["record"][name][0][k] == _digest(v),
+                         f"phase 27 (b) {name} {k}: differs from the unsharded run")
+    gumbel = torch.cat([_shard_noise(L, r, GLOO_RANKS) for r in range(GLOO_RANKS)], dim=1)[None]
+    want = _a2c_one_update(L, None, gumbel)
+    a2c_err = max(_max_err(ranks[0]["a2c one"][k].to(dev), want.params[k]) for k in want.params)
+    _require(a2c_err <= 1e-5, f"phase 27 (b): a float32 A2C update over two ranks is {a2c_err} from the unsharded one")
+    for rank, r in enumerate(ranks[1:], 1):
+        for k, v in r["a2c one"].items():
+            _same(f"phase 27 (b) a2c one {k} rank {rank}", v, ranks[0]["a2c one"][k])
+    print(f"phase 27 (b): over Gloo with {GLOO_RANKS} ranks on one card every replicated value of every new entry is "
+          f"the same bits on both ranks; the TD(λ) runs (B/n = {SHARD_B // GLOO_RANKS}, whole chunks), the prediction "
+          f"in both modes and MC's parity modes equal the unsharded port bit for bit; a float32 A2C update at walls16, "
+          f"B={SHARD_B}, is {a2c_err!r} (max abs) from the unsharded update on the same noise ({smi})")
+    lap("phase 27 (b)")
+
+    # -- (c) K12's partial-sums form against its plain version, and timed --------------
+    gen = torch.Generator(device=dev).manual_seed(27)
+    errs = {"trace_partials": 0.0}
+    records = []
+    for name, shape in (("control", (SHARD_B, 256, 4)), ("prediction", (SHARD_B, 256))):
+        b, n_cells = shape[0], int(np.prod(shape[1:]))
+        e = torch.rand(shape, generator=gen, device=dev) * (torch.rand(shape, generator=gen, device=dev) < 0.3)
+        s = torch.randint(0, 256, (b,), generator=gen, device=dev, dtype=torch.int32)
+        a = None if len(shape) == 2 else torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+        delta = torch.randn((b,), generator=gen, device=dev)
+        cut = torch.rand((b,), generator=gen, device=dev) < 0.1
+        table = torch.randn(shape[1:], generator=gen, device=dev)
+        step = (0.99, 0.9, 1e-4, 0.1, "accumulating")
+        e_k, e_p, e_w = e.clone(), e.clone(), e.clone()
+        plan = k12.TracePartialsPlan(table, b, a is not None, own_rows=True)
+        local, count = plan.partials(e_k, s, a, delta, cut, 0.99 * 0.9, 1e-4, False)
+        part, cnt = td_lambda.trace_partials_reference(e_p, s, a, delta, cut, *step[:3], step[4])
+        errs["trace_partials"] = max(errs["trace_partials"], _same(f"K12 partials {name} partial sums", local, part),
+                                     _same(f"K12 partials {name} counts", count, cnt),
+                                     _same(f"K12 partials {name} trace", e_k, e_p))
+        got = plan.apply(table, 0.1)
+        errs["trace_partials"] = max(errs["trace_partials"], _same(
+            f"K12 partials {name} table", got, td_lambda.apply_partials_reference(table, part, cnt, 0.1)))
+        _same(f"K12 partials {name} against K12's step",
+              got, td_lambda.trace_pass(table, e_w, s, a, delta, cut, *step))
+        _same(f"K12 partials {name} trace against K12's step", e_k, e_w)
+        _require(not plan.count.any(), f"K12 partials {name}: the apply left a count")
+
+        def make_plan(table=table, b=b, a=a):
+            return k12.TracePartialsPlan(table, b, a is not None, own_rows=True)
+
+        def call(pl, table=table, e=e_k, s=s, a=a, delta=delta, cut=cut):
+            pl.partials(e, s, a, delta, cut, 0.99 * 0.9, 1e-4, False)
+            return pl.apply(table, 0.1)
+
+        ms, _ = _cuda_ms(lambda: call(plan), 20)
+        graph_ms = _plan_graph_ms(make_plan, call)
+        plain_ms, _ = _cuda_ms(lambda: td_lambda.apply_partials_reference(
+            table, *td_lambda.trace_partials_reference(e_p, s, a, delta, cut, *step[:3], step[4]), 0.1), 2)
+        chunks = -(-b // k12.CHUNK)
+        flat = e_k.reshape(chunks, k12.CHUNK, n_cells)
+        library_ms, _ = _cuda_ms(lambda: torch.bmm(delta.reshape(chunks, 1, k12.CHUNK), flat), 20)
+        rec = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   shape=f"{name}, trace ({b}, {n_cells}), a step (the pass and the apply) of one rank",
+                   # the trace read and written once; s, a, δ, cut in; the partials written and read; the table
+                   **bound(2 * b * n_cells * 4 + b * 13 + 2 * chunks * n_cells * 4 + 2 * n_cells * 4,
+                           INSTR_K12_ELEM * b * n_cells))
+        print(f"time trace_partials at {rec['shape']}: kernels {ms!r} ms a step as timed, {graph_ms!r} ms in a CUDA "
+              f"graph of ten, plain {plain_ms!r} ms, bound {rec['bound_ms']!r} ms by {rec['bound_by']}, library "
+              f"(the chunked sums by torch.bmm) {library_ms!r} ms ({smi})")
+        records.append(rec)
+        del e, e_k, e_p, e_w, plan
+    print("K12's partial-sums form at 65,536 envs, control (256, 4) and prediction (256): the partial sums, counts, "
+          "trace and table bit-exact vs plain and vs K12's own step; the apply leaves the counts 0")
+    lap("phase 27 (c)")
+    for name, row in timed.items():
+        u, s_ = row["unsharded"], row["sharded"]
+        shares = " / ".join("not measured" if t[3] is None else f"{100 * t[3]:.2f} %" for t in (s_, u))
+        print(f"phase 27 (d) {name}: sharded {s_[0]!r} ms / unsharded {u[0]!r} ms a call ({s_[0] / u[0]!r}x), "
+              f"launches {s_[1]} / {u[1]}, collectives {s_[2]}, idle share {shares} ({smi})")
+    return {"trace_partials": path["trace_partials"]}, errs, {"trace_partials": records}
+
+
 def _aldous_level(gt, M, dev, seed, b, cells=(4, 4)):
     grids, start = M.generate_mazes_device(seed, cells, b, "aldous_broder", device=dev)
     return gt.Level(grid=grids, start_idx=start.expand(b).contiguous())
@@ -3776,6 +4208,12 @@ def main() -> None:
     errs.update(shard_errs)
     times.update(shard_times)
     elapsed("phase 26")
+    # -- phase 27: the sharded TD(λ), MC and neural learners ----------------------------
+    learner_launches, learner_errs, learner_times = sharded_learner_phases(gt, dev, bound, smi)
+    launches.update(learner_launches)
+    errs.update(learner_errs)
+    times.update(learner_times)
+    elapsed("phase 27")
     # a kernel timed at several shapes or in several forms (K1, K2, K3, K11) has
     # a record for each; one of another path carries its own launches and error
     shaped = [(name, t) for name, ts in times.items() for t in (ts if isinstance(ts, list) else [ts])]
@@ -3807,6 +4245,7 @@ def main() -> None:
         "mc_returns": (csrc + "mc_returns.cu", "griduniverse_tpu/algos/mc.py:59"),
         "td_step_sharded": (csrc + "td_fast.cu", "griduniverse_tpu/algos/td_fast.py:323"),
         "segment_sums": (csrc + "segment_mean.cu", "griduniverse_tpu/parallel/learner.py:179"),
+        "trace_partials": (csrc + "trace_pass.cu", "griduniverse_tpu/parallel/learner.py:387"),
     }
     _require(set(sources) == set(kernels.LAUNCHES), "the record does not list every kernel")
     _require(set(sources) == {name for name, _ in shaped}, "a kernel has no time")

@@ -36,16 +36,19 @@ from ..ops.rollout import reset_batch
 from .td import apply_td_updates_masked, epsilon_greedy
 
 
-def _roll_episodes(sem, level, q_or_policy, key, batch_size, max_steps, epsilon, draws=None):
+def _roll_episodes(sem, level, q_or_policy, key, batch_size, max_steps, epsilon, draws=None,
+                   lane_offset: int = 0):
     """Roll B freeze-on-done episodes. Returns time-major (T, B) tensors:
     s (pre-step state), a, r, valid (the step happened before termination),
     and the (B,) `finished` flag: True iff episode b terminated within the
     T-step budget (its observed return is the COMPLETE return).
 
-    q_or_policy: (S, A) Q-table for ε-greedy, or None for uniform random."""
+    q_or_policy: (S, A) Q-table for ε-greedy, or None for uniform random.
+    `lane_offset`: the global index of the first episode's xorshift lane (a
+    shard's first episode)."""
     state = reset_batch(level, batch_size)
     b = state.agent_idx.shape[0]
-    rs = xorshift_init(key, (b,), device=level.device) if draws is None else None
+    rs = xorshift_init(key, (b,), lane_offset, device=level.device) if draws is None else None
     rows = []
     for t in range(max_steps):
         s = state.agent_idx
@@ -111,6 +114,30 @@ def _segment_mean(table, cell, action, increment, alpha, mask):
         increment.reshape(-1).contiguous(), alpha, mask.reshape(-1).contiguous())
 
 
+def mc_round(sem: Semantics, level: Level, table, q_or_policy, key, batch_size: int, max_steps: int,
+             epsilon: float, gamma: float, first_visit: bool, include_unfinished: bool, draws=None,
+             lane_offset: int = 0):
+    """One round of the MC family, shared by `mc_prediction` / `mc_control`
+    and their sharded forms in `parallel.learner`: roll B episodes
+    (`_roll_episodes`), take their returns and (first-visit) mask (K13),
+    and give the (T, B) samples of the update: (cells, actions, increments,
+    mask). For control (`table` the (S, A) Q) the cells are the states, the
+    actions the actions taken and the increments `G − Q(s, a)`; for
+    prediction (`table` None) the actions are 0 and the increments the
+    returns. Returns and mask are per episode, so a shard's samples need
+    nothing of another's."""
+    s, a, r, valid, finished = _roll_episodes(
+        sem, level, q_or_policy, key, batch_size, max_steps, epsilon, draws, lane_offset)
+    if not include_unfinished:
+        valid = valid & finished[None, :]
+    ids = s if table is None else s * sem.num_actions + a
+    g, first = mc_returns(r, gamma, ids, valid) if first_visit else mc_returns(r, gamma)
+    mask = first if first_visit else valid
+    if table is None:
+        return s, torch.zeros_like(s), g, mask
+    return s, a, g - table.reshape(-1)[ids.long()], mask
+
+
 @dataclasses.dataclass
 class MCResult:
     value: torch.Tensor   # (S,) or (S, A)
@@ -139,15 +166,11 @@ def mc_prediction(
     therefore EXCLUDED by default. `include_unfinished=True` restores the
     biased everything-counts estimator."""
     num_states = level.num_states
-    s, _, r, valid, finished = _roll_episodes(
-        sem, level, policy_q, key, batch_size, max_steps, epsilon, draws)
-    if not include_unfinished:
-        valid = valid & finished[None, :]
-    g, first = mc_returns(r, gamma, s, valid) if first_visit else mc_returns(r, gamma)
-    mask = first if first_visit else valid
+    s, zero, g, mask = mc_round(sem, level, None, policy_q, key, batch_size, max_steps, epsilon, gamma,
+                                first_visit, include_unfinished, draws)
     zeros = torch.zeros((num_states, 1), dtype=torch.float32, device=s.device)
     # with a zero table and α = 1 the segment mean IS the mean return
-    v = _segment_mean(zeros, s, torch.zeros_like(s), g, 1.0, mask)[:, 0]
+    v = _segment_mean(zeros, s, zero, g, 1.0, mask)[:, 0]
     n = torch.bincount(s[mask].long(), minlength=num_states).to(torch.float32)
     return MCResult(value=v, counts=n)
 
@@ -184,15 +207,9 @@ def mc_control(
     q = torch.zeros((level.num_states, sem.num_actions), dtype=torch.float32, device=dev)
     b = batch_size
     for rnd in range(num_rounds):
-        s, a, r, valid, finished = _roll_episodes(
-            sem, level, q, int(key) + rnd, batch_size, max_steps, epsilon,
-            None if draws is None else draws[rnd])
+        s, a, delta, mask = mc_round(
+            sem, level, q, q, int(key) + rnd, batch_size, max_steps, epsilon, gamma, first_visit,
+            include_unfinished, None if draws is None else draws[rnd])
         b = s.shape[1]
-        if not include_unfinished:
-            valid = valid & finished[None, :]
-        sa = s * sem.num_actions + a
-        g, first = mc_returns(r, gamma, sa, valid) if first_visit else mc_returns(r, gamma)
-        mask = first if first_visit else valid
-        delta = g - q.reshape(-1)[sa.long()]
         q = _segment_mean(q, s, a, delta, alpha, mask)
     return MCControlResult(q=q, episodes=torch.tensor(num_rounds * b, dtype=torch.int64, device=dev))

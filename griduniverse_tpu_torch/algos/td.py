@@ -217,6 +217,29 @@ def _fold_stats(run_ret, n_eps, ret_sum, r, d):
     return torch.where(d, 0.0, run_ret), n_eps, ret_sum
 
 
+def td_transition(sem: Semantics, level: Level, q, state: EnvState, a, rs, injected, algo: str,
+                  gamma: float, epsilon: float):
+    """One step of the TD family against the table `q`, shared by `td_run`
+    and `parallel.learner.q_learning_sharded` (the reference's `transition`,
+    `parallel/learner.py:161`): the auto-reset env step, the next action
+    drawn from `q` at the post-reset state before any update (classic
+    SARSA ordering; `injected` is the step's (explore, rand_a) pair, or
+    None for a xorshift round of `rs`), and the TD error. Returns (state,
+    a_next, rs, s, r, d, delta)."""
+    s = state.agent_idx
+    state, out = step_autoreset(sem, level, state, a)
+    s2, r, d = out.obs, out.reward, out.done
+    draw, rs = _next_draw(rs, injected)
+    a_next = epsilon_greedy(q[state.agent_idx.long()], draw, epsilon)
+    if algo == "q_learning":
+        delta = td_error_qlearning(q, s, a, r, s2, d, gamma)
+    elif algo == "sarsa":
+        delta = td_error_sarsa(q, s, a, r, s2, a_next, d, gamma)
+    else:
+        delta = td_error_expected_sarsa(q, s, a, r, s2, d, gamma, epsilon)
+    return state, a_next, rs, s, r, d, delta
+
+
 def td_run(
     sem: Semantics,
     level: Level,
@@ -236,19 +259,9 @@ def td_run(
     q, state, a, rs = ts.q, ts.env_state, ts.action, ts.rs
     run_ret, n_eps, ret_sum = ts.run_ret, ts.episodes, ts.ret_sum
     for i in range(num_steps):
-        s = state.agent_idx
-        state, out = step_autoreset(sem, level, state, a)
-        s2, r, d = out.obs, out.reward, out.done
-        # next action from the CURRENT q at the post-reset state, chosen
-        # before the update commits (classic SARSA ordering)
-        draw, rs = _next_draw(rs, None if draws is None else (draws[0][i], draws[1][i]))
-        a_next = epsilon_greedy(q[state.agent_idx.long()], draw, epsilon)
-        if algo == "q_learning":
-            delta = td_error_qlearning(q, s, a, r, s2, d, gamma)
-        elif algo == "sarsa":
-            delta = td_error_sarsa(q, s, a, r, s2, a_next, d, gamma)
-        else:
-            delta = td_error_expected_sarsa(q, s, a, r, s2, d, gamma, epsilon)
+        state, a_next, rs, s, r, d, delta = td_transition(
+            sem, level, q, state, a, rs, None if draws is None else (draws[0][i], draws[1][i]), algo,
+            gamma, epsilon)
         q = apply_td_updates(q, s, a, delta, alpha)
         run_ret, n_eps, ret_sum = _fold_stats(run_ret, n_eps, ret_sum, r, d)
         a = a_next

@@ -18,6 +18,10 @@ PyTorch counterpart of `griduniverse_tpu/algos/td_lambda.py`.
     a run repeats its bits on the card.
   * Episode boundaries zero the finished env's whole trace (auto-reset);
     Watkins Q(λ) also zeroes it when the env's next action is exploratory.
+  * The sharded learners (`parallel.learner`) stop the pass before its
+    mean: K12's partial-sums form (`kernels.trace_pass.TracePartialsPlan`;
+    plain versions `trace_partials_reference`, `apply_partials_reference`)
+    gives each chunk's sums, which the ranks gather in rank order.
   * A step's decay, flush, bump, mean and cut are one pass over the trace,
     `trace_pass`: kernel K12 on CUDA, one launch a step through a
     `TracePassPlan` the loop builds once, which reads and writes each trace
@@ -50,6 +54,12 @@ from .td import TDResult, _fold_stats, _next_draw, epsilon_greedy
 TRACES = ("accumulating", "replacing")
 
 
+def check_trace(trace: str) -> None:
+    """The reference's check of the trace kind."""
+    if trace not in TRACES:
+        raise ValueError(f"unknown trace kind: {trace!r}")
+
+
 def decay_traces(e, gamma: float, lam: float, cutoff: float):
     """γλ decay with flush-to-zero below `cutoff`."""
     e = gamma * lam * e
@@ -66,10 +76,11 @@ def bump_traces(e, s, a, num_states: int, num_actions: int, kind: str):
     return torch.maximum(e, hot)  # replacing: e[s, a] = 1
 
 
-def _live_sums(delta, e):
-    """Per cell of `e` (B, ...): Σ_b δ_b·e_b in K12's order (the envs of each
-    chunk of `CHUNK` in index order from 0.0, then the chunks' sums in
-    order from 0.0) and the count #{b: e_b ≠ 0} as float32."""
+def chunk_partials_reference(delta, e):
+    """Per chunk of `CHUNK` envs of `e` (B, ...) and cell: Σ_b δ_b·e_b over
+    the chunk's envs in index order from 0.0, (⌈B / CHUNK⌉, cells) float32,
+    and the count #{b: e_b ≠ 0} a cell, int32. The plain version of K12's
+    partial-sums form's sums (`kernels.trace_pass.TracePartialsPlan`)."""
     b = e.shape[0]
     prod = delta.reshape(-1, 1) * e.reshape(b, -1)
     n_chunks = -(-b // CHUNK)
@@ -80,11 +91,30 @@ def _live_sums(delta, e):
     part = torch.zeros_like(prod[:, 0])
     for i in range(min(b, CHUNK)):
         part = part + prod[:, i]
+    return part, (e != 0.0).reshape(b, -1).sum(dim=0).to(torch.int32)
+
+
+def apply_partials_reference(table, partial, count, alpha: float):
+    """`table + α · num / max(count, 1)` a cell, `num` the chunks' partial
+    sums (C, cells) added in chunk order from 0.0: K12's apply, and that of
+    its partial-sums form after the ranks' chunks are gathered in rank
+    order."""
+    num = torch.zeros_like(partial[0])
+    for c in range(partial.shape[0]):
+        num = num + partial[c]
+    cnt = count.to(torch.float32)
+    return table + alpha * num.reshape(table.shape) / cnt.reshape(table.shape).clamp(min=1.0)
+
+
+def _live_sums(delta, e):
+    """Per cell of `e` (B, ...): Σ_b δ_b·e_b in K12's order (the envs of each
+    chunk of `CHUNK` in index order from 0.0, then the chunks' sums in
+    order from 0.0) and the count #{b: e_b ≠ 0} as float32."""
+    part, cnt = chunk_partials_reference(delta, e)
     num = torch.zeros_like(part[0])
-    for c in range(n_chunks):
+    for c in range(part.shape[0]):
         num = num + part[c]
-    cnt = (e != 0.0).sum(dim=0).to(torch.float32)
-    return num.reshape(e.shape[1:]), cnt
+    return num.reshape(e.shape[1:]), cnt.to(torch.float32).reshape(e.shape[1:])
 
 
 def _live_mean(table, delta, e, alpha: float):
@@ -111,13 +141,36 @@ def trace_pass_reference(table, e, s, a, delta, cut, gamma: float, lam: float, c
     step's (s, a) or s (`bump_traces`), the live-trace mean into `table`,
     then zero the traces of the envs with `cut` set. `e` is updated IN
     PLACE; returns the new table."""
+    x = _advance_traces(e, s, a, gamma, lam, cutoff, kind)
+    new_table = _live_mean(table, delta, x, alpha)
+    _cut_traces(e, x, cut)
+    return new_table
+
+
+def _advance_traces(e, s, a, gamma: float, lam: float, cutoff: float, kind: str):
+    """The traces `e` after this step's decay, flush and bump (a new tensor)."""
     x = e if a is not None else e.unsqueeze(-1)
     x = decay_traces(x, gamma, lam, cutoff)
     x = bump_traces(x, s, torch.zeros_like(s) if a is None else a, x.shape[1], x.shape[2], kind)
-    x = x.reshape(e.shape)
-    new_table = _live_mean(table, delta, x, alpha)
+    return x.reshape(e.shape)
+
+
+def _cut_traces(e, x, cut) -> None:
+    """`e` ← `x` with the traces of the envs where `cut` is set zeroed."""
     e.copy_(torch.where(cut.reshape((-1,) + (1,) * (e.dim() - 1)), 0.0, x))
-    return new_table
+
+
+def trace_partials_reference(e, s, a, delta, cut, gamma: float, lam: float, cutoff: float, kind: str):
+    """Plain PyTorch version of the pass of K12's partial-sums form: the
+    step of `trace_pass_reference` up to the mean, which it leaves to the
+    caller. Decay, flush and bump `e` (B, S, A) or (B, S); then each chunk
+    of `CHUNK` envs' Σ δ·e a cell and the live counts
+    (`chunk_partials_reference`); then the cut. `e` is updated IN PLACE;
+    returns (partials (⌈B / CHUNK⌉, cells) float32, count (cells,) int32)."""
+    x = _advance_traces(e, s, a, gamma, lam, cutoff, kind)
+    partial, count = chunk_partials_reference(delta, x)
+    _cut_traces(e, x, cut)
+    return partial, count
 
 
 def trace_pass(table, e, s, a, delta, cut, gamma: float, lam: float, cutoff: float,
@@ -136,10 +189,36 @@ def trace_pass(table, e, s, a, delta, cut, gamma: float, lam: float, cutoff: flo
     )
 
 
+def td_lambda_transition(sem, level, q, state, a, rs, injected, algo: str, gamma: float,
+                         epsilon: float):
+    """One step of TD(λ) control against `q` before its trace pass, shared
+    by `sarsa_lambda` / `watkins_q_lambda` and
+    `parallel.learner.td_lambda_sharded`: the auto-reset env step, the next
+    action drawn from `q` before the update (`injected` (explore, rand_a),
+    or None for a xorshift round of `rs`), δ with the SARSA or Watkins
+    target, and the trace cut (the episode's end; Watkins also an
+    exploratory next action), known before the update. Returns (state,
+    a_next, rs, s, r, d, delta, cut)."""
+    s = state.agent_idx
+    state, out = step_autoreset(sem, level, state, a)
+    s2, r, d = out.obs, out.reward, out.done
+    draw, rs = _next_draw(rs, injected)
+    a_next = epsilon_greedy(q[state.agent_idx.long()], draw, epsilon)
+    q2 = q[s2.long()]
+    greedy2 = first_argmax(q2)
+    if algo == "sarsa":
+        boot = q2[torch.arange(q2.shape[0], device=q2.device), a_next.long()]
+    else:  # watkins: off-policy max target
+        boot = q2.max(dim=-1).values
+    delta = r + gamma * torch.where(d, 0.0, boot) - q[s.long(), a.long()]
+    # cut traces: always at episode end; Watkins also on exploration
+    cut = d | (a_next != greedy2) if algo == "watkins" else d
+    return state, a_next, rs, s, r, d, delta, cut
+
+
 def _td_lambda_control(sem, level, key, algo, num_steps, batch_size, alpha, gamma, epsilon, lam,
                        trace, trace_cutoff, q0, draws) -> TDResult:
-    if trace not in TRACES:
-        raise ValueError(f"unknown trace kind: {trace!r}")
+    check_trace(trace)
     dev = level.device
     num_states, num_actions = level.num_states, sem.num_actions
     if q0 is None:
@@ -156,24 +235,10 @@ def _td_lambda_control(sem, level, key, algo, num_steps, batch_size, alpha, gamm
     run_ret = torch.zeros(b, dtype=torch.float32, device=dev)
     n_eps = torch.zeros((), dtype=torch.int64, device=dev)
     ret_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    rows = torch.arange(b, device=dev)
     for i in range(num_steps):
-        s = state.agent_idx
-        state, out = step_autoreset(sem, level, state, a)
-        s2, r, d = out.obs, out.reward, out.done
-
-        draw, rs = _next_draw(rs, None if draws is None else (draws[0][i], draws[1][i]))
-        a_next = epsilon_greedy(q[state.agent_idx.long()], draw, epsilon)
-        q2 = q[s2.long()]
-        greedy2 = first_argmax(q2)
-        if algo == "sarsa":
-            boot = q2[rows, a_next.long()]
-        else:  # watkins: off-policy max target
-            boot = q2.max(dim=-1).values
-        delta = r + gamma * torch.where(d, 0.0, boot) - q[s.long(), a.long()]
-        # cut traces: always at episode end; Watkins also on exploration
-        cut = d | (a_next != greedy2) if algo == "watkins" else d
-
+        state, a_next, rs, s, r, d, delta, cut = td_lambda_transition(
+            sem, level, q, state, a, rs, None if draws is None else (draws[0][i], draws[1][i]), algo,
+            gamma, epsilon)
         # the trace pass: decay, then bump this step's (s, a); the mean; the cut
         q = trace_pass(q, e, s, a, delta, cut, gamma, lam, trace_cutoff, alpha, trace, plan=plan)
         run_ret, n_eps, ret_sum = _fold_stats(run_ret, n_eps, ret_sum, r, d)
@@ -210,6 +275,36 @@ class TDLambdaPredictionResult:
     episodes: torch.Tensor   # () completed episodes
 
 
+def policy_tables(policy: torch.Tensor):
+    """(normalised CDF, log π) of an (S, A) policy: what the prediction's
+    action draws read."""
+    cdf = policy.to(torch.float32).cumsum(dim=-1)
+    cdf = cdf / cdf[:, -1:].clamp(min=1e-30)
+    return cdf, torch.log(policy.to(torch.float32).clamp(min=1e-30))
+
+
+def td_lambda_prediction_transition(sem, level, v, state, rs, injected, cdf, logp, gamma: float):
+    """One step of TD(λ) prediction against `v` before its trace pass,
+    shared by `td_lambda_prediction` and
+    `parallel.learner.td_lambda_prediction_sharded`: the action drawn from
+    the policy (`injected` the step's (B,) actions or (B, A) Gumbel noise,
+    or None for inverse CDF on a xorshift round's top 24 bits), the
+    auto-reset env step and δ. Returns (state, rs, s, r, d, delta)."""
+    s = state.agent_idx
+    if injected is None:
+        rs, bits = xorshift_next(rs)
+        u = (to_uint32_values(bits) >> 8).to(torch.float32) / float(1 << 24)
+        a = (u[:, None] >= cdf[s.long()]).sum(dim=-1).clamp(max=cdf.shape[-1] - 1).to(torch.int32)
+    elif injected.dim() == 2:
+        a = torch.argmax(logp[s.long()] + injected, dim=-1).to(torch.int32)
+    else:
+        a = injected.to(torch.int32)
+    state, out = step_autoreset(sem, level, state, a)
+    s2, r, d = out.obs, out.reward, out.done
+    delta = r + gamma * torch.where(d, 0.0, v[s2.long()]) - v[s.long()]
+    return state, rs, s, r, d, delta
+
+
 def td_lambda_prediction(
     sem, level, policy: torch.Tensor, key, num_steps: int = 10_000, batch_size: int = 32,
     alpha: float = 0.1, gamma: float = 0.99, lam: float = 0.9,
@@ -217,8 +312,7 @@ def td_lambda_prediction(
 ) -> TDLambdaPredictionResult:
     """TD(λ) policy evaluation: learn V^π for a fixed stochastic policy
     (S, A) from on-policy experience, per-env (B, S) traces."""
-    if trace not in TRACES:
-        raise ValueError(f"unknown trace kind: {trace!r}")
+    check_trace(trace)
     dev = level.device
     num_states = level.num_states
     v = torch.zeros((num_states,), dtype=torch.float32, device=dev)
@@ -228,23 +322,10 @@ def td_lambda_prediction(
     e = torch.zeros((b, num_states), dtype=torch.float32, device=dev)
     plan = TracePassPlan(v, b, False) if kernels.on_cuda(v) else None
     n_eps = torch.zeros((), dtype=torch.int64, device=dev)
-    cdf = policy.to(torch.float32).cumsum(dim=-1)
-    cdf = cdf / cdf[:, -1:].clamp(min=1e-30)
-    logp = torch.log(policy.to(torch.float32).clamp(min=1e-30))
+    cdf, logp = policy_tables(policy)
     for i in range(num_steps):
-        s = state.agent_idx
-        if draws is None:
-            rs, bits = xorshift_next(rs)
-            u = (to_uint32_values(bits) >> 8).to(torch.float32) / float(1 << 24)
-            a = (u[:, None] >= cdf[s.long()]).sum(dim=-1).clamp(max=policy.shape[-1] - 1).to(torch.int32)
-        elif draws[i].dim() == 2:
-            a = torch.argmax(logp[s.long()] + draws[i], dim=-1).to(torch.int32)
-        else:
-            a = draws[i].to(torch.int32)
-        state, out = step_autoreset(sem, level, state, a)
-        s2, r, d = out.obs, out.reward, out.done
-
-        delta = r + gamma * torch.where(d, 0.0, v[s2.long()]) - v[s.long()]
+        state, rs, s, r, d, delta = td_lambda_prediction_transition(
+            sem, level, v, state, rs, None if draws is None else draws[i], cdf, logp, gamma)
         v = trace_pass(v, e, s, None, delta, d, gamma, lam, trace_cutoff, alpha, trace, plan=plan)
         n_eps = n_eps + d.sum()
     return TDLambdaPredictionResult(v=v, episodes=n_eps)

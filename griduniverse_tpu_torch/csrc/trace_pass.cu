@@ -62,6 +62,20 @@
 // replay, finds them clean. The scratch (`kernels.trace_pass.TracePassPlan`)
 // is zeroed once a run.
 //
+// The partial-sums form (`gu_trace_partials`, then `gu_trace_apply`) serves
+// the sharded TD(λ) learners (`parallel/learner.py`), whose ranks hold their
+// envs' traces and a replicated table. It replaces the `psum` of Σ_b δ_b·e_b
+// and of the live counts in the reference's `td_lambda_sharded` (387-388)
+// and `td_lambda_prediction_sharded` (876-877). `trace_partials_kernel` is
+// the pass above without its appliers: each (tile, chunk) block writes its
+// chunk's partial sums and adds its live counts, then stops; the cut is
+// applied in the pass, as it is known before the update. The ranks gather
+// the partials in rank order and all-reduce the counts (exact integers);
+// then `trace_apply_kernel`, the appliers' `apply_cells` alone, a block a
+// 32 cells, adds every rank's chunks in order from 0.0 and writes the
+// table. Where every rank's batch is a multiple of kChunk the gathered
+// chunks are the unsharded run's, and the table its bits.
+//
 // kChunk is a constant of the algorithm, not of the card, so the order of
 // the float adds is fixed: within a chunk in env order from 0.0, then the
 // chunks in order from 0.0. `algos.td_lambda.trace_pass_reference` adds in
@@ -211,6 +225,41 @@ __device__ __forceinline__ void apply_cells(int k0, int n_cells, int n_chunks,
   __syncthreads();  // `carry` is read before the next cells' warps write it
 }
 
+// Steps 1-5 for a block's (tile, chunk): the chunk's per-env inputs staged
+// in `s_env`, each thread's cell walked over the chunk's envs, its partial
+// sum written to row `chunk` of `partial` and its live count added to
+// `count`.
+template <bool kReplacing>
+__device__ __forceinline__ void chunk_pass(int2* s_env, float* __restrict__ e, const int* __restrict__ s,
+                                           const int* __restrict__ a, const float* __restrict__ delta,
+                                           const uint8_t* __restrict__ cut, float gamma_lam, float cutoff,
+                                           int num_actions, int batch, int n_cells, int chunk, int tile,
+                                           float* __restrict__ partial, int* __restrict__ count) {
+  const int b0 = chunk * kChunk;
+  const int len = batch - b0 < kChunk ? batch - b0 : kChunk;
+  for (int i = threadIdx.x; i < len; i += kTile) {
+    const int b = b0 + i;
+    const int hot = a == nullptr ? s[b] : s[b] * num_actions + a[b];
+    s_env[i] = make_int2(cut[b] ? hot | kCutBit : hot, __float_as_int(delta[b]));
+  }
+  __syncthreads();
+
+  const int k = tile * kTile + threadIdx.x;
+  const size_t stride = static_cast<size_t>(n_cells);
+  if (k < n_cells) {
+    float* const col = e + static_cast<size_t>(b0) * stride + k;
+    float num = 0.0f;
+    int cnt = 0;
+    if (len == kChunk) {
+      pass<kReplacing, true>(col, stride, len, k, s_env, gamma_lam, cutoff, num, cnt);
+    } else {
+      pass<kReplacing, false>(col, stride, len, k, s_env, gamma_lam, cutoff, num, cnt);
+    }
+    partial[static_cast<size_t>(chunk) * stride + k] = num;
+    if (cnt != 0) atomicAdd(count + k, cnt);
+  }
+}
+
 __device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
   unsigned int v;
   asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
@@ -235,28 +284,9 @@ trace_step_kernel(float* __restrict__ e, const int* __restrict__ s, const int* _
   // at once read and write whole rows
   const int chunk = blockIdx.x / tiles;
   const int tile = blockIdx.x - chunk * tiles;
-  const int b0 = chunk * kChunk;
-  const int len = batch - b0 < kChunk ? batch - b0 : kChunk;
-  for (int i = threadIdx.x; i < len; i += kTile) {
-    const int b = b0 + i;
-    const int hot = a == nullptr ? s[b] : s[b] * num_actions + a[b];
-    s_env[i] = make_int2(cut[b] ? hot | kCutBit : hot, __float_as_int(delta[b]));
-  }
-  __syncthreads();
-
-  const int k = tile * kTile + threadIdx.x;
-  const size_t stride = static_cast<size_t>(n_cells);
-  if (k < n_cells) {
-    float* const col = e + static_cast<size_t>(b0) * stride + k;
-    float num = 0.0f;
-    int cnt = 0;
-    if (len == kChunk) {
-      pass<kReplacing, true>(col, stride, len, k, s_env, gamma_lam, cutoff, num, cnt);
-    } else {
-      pass<kReplacing, false>(col, stride, len, k, s_env, gamma_lam, cutoff, num, cnt);
-    }
-    partial[static_cast<size_t>(chunk) * stride + k] = num;
-    if (cnt != 0) atomicAdd(count + k, cnt);
+  chunk_pass<kReplacing>(s_env, e, s, a, delta, cut, gamma_lam, cutoff, num_actions, batch, n_cells, chunk,
+                         tile, partial, count);
+  if (tile * kTile + static_cast<int>(threadIdx.x) < n_cells) {
     __threadfence();  // this thread's partial and count before the block's ticket
   }
   __syncthreads();
@@ -288,6 +318,30 @@ trace_step_kernel(float* __restrict__ e, const int* __restrict__ s, const int* _
   }
 }
 
+// The partial-sums form's pass: the blocks of `trace_step_kernel` without
+// the tickets and appliers.
+template <bool kReplacing>
+__global__ void __launch_bounds__(kTile, 4)
+trace_partials_kernel(float* __restrict__ e, const int* __restrict__ s, const int* __restrict__ a,
+                      const float* __restrict__ delta, const uint8_t* __restrict__ cut, float gamma_lam,
+                      float cutoff, int num_actions, int batch, int n_cells, int tiles,
+                      float* __restrict__ partial, int* __restrict__ count) {
+  __shared__ int2 s_env[kChunk];
+  const int chunk = blockIdx.x / tiles;
+  chunk_pass<kReplacing>(s_env, e, s, a, delta, cut, gamma_lam, cutoff, num_actions, batch, n_cells, chunk,
+                         blockIdx.x - chunk * tiles, partial, count);
+}
+
+// The partial-sums form's apply: a block of four warps a 32 cells, the
+// chunks' sums added in order by `apply_cells`, which also sets the counts
+// back to 0.
+__global__ void __launch_bounds__(kTile)
+trace_apply_kernel(int n_cells, int n_chunks, const float* __restrict__ partial, int* __restrict__ count,
+                   const float* __restrict__ table_in, float* __restrict__ table_out, float alpha) {
+  __shared__ float s_carry[kWarp];
+  apply_cells(blockIdx.x * kWarp, n_cells, n_chunks, partial, count, table_in, table_out, alpha, s_carry);
+}
+
 }  // namespace
 
 // One trace step, one launch: `e` (batch, n_cells) is updated in place,
@@ -316,5 +370,41 @@ extern "C" int gu_trace_pass(void* e, const void* s, const void* a, const void* 
       static_cast<const float*>(table_in), static_cast<float*>(table_out), gamma_lam, cutoff, alpha,
       num_actions, batch, n_cells, static_cast<int>(tiles), static_cast<int>(n_chunks), appliers,
       static_cast<float*>(partial), static_cast<int*>(count), static_cast<unsigned int*>(tickets));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The partial-sums form's pass, one launch: `e` (batch, n_cells) updated in
+// place (the cut applied), row c of `partial` (⌈batch / kChunk⌉ rows of
+// n_cells floats) receives chunk c's sums and `count` (n_cells ints, 0 on
+// entry) the live counts.
+extern "C" int gu_trace_partials(void* e, const void* s, const void* a, const void* delta, const void* cut,
+                                 float gamma_lam, float cutoff, int replacing, int num_actions, int batch,
+                                 int n_cells, void* partial, void* count, void* stream) {
+  const long long n_chunks = (static_cast<long long>(batch) + kChunk - 1) / kChunk;
+  const long long tiles = (static_cast<long long>(n_cells) + kTile - 1) / kTile;
+  if (batch < 1 || n_cells < 1 || tiles * n_chunks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = replacing ? trace_partials_kernel<true> : trace_partials_kernel<false>;
+  kernel<<<static_cast<unsigned int>(tiles * n_chunks), kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(e), static_cast<const int*>(s), static_cast<const int*>(a),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(cut), gamma_lam, cutoff, num_actions, batch,
+      n_cells, static_cast<int>(tiles), static_cast<float*>(partial), static_cast<int*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The partial-sums form's apply, one launch: `partial` holds the gathered
+// chunks' sums in its first `n_chunks` rows and zeros up to
+// padded_chunks(n_chunks) rows; `count` the all-reduced live counts, set back
+// to 0. `table_out` receives table_in + α·num / max(count, 1).
+extern "C" int gu_trace_apply(const void* partial, void* count, const void* table_in, void* table_out, float alpha,
+                              int n_cells, int n_chunks, void* stream) {
+  if (n_cells < 1 || n_chunks < 1 || padded_chunks(n_chunks) > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned int blocks = static_cast<unsigned int>((n_cells + kWarp - 1) / kWarp);
+  trace_apply_kernel<<<blocks, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      n_cells, n_chunks, static_cast<const float*>(partial), static_cast<int*>(count),
+      static_cast<const float*>(table_in), static_cast<float*>(table_out), alpha);
   return static_cast<int>(cudaGetLastError());
 }

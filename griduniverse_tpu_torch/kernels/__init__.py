@@ -50,7 +50,11 @@ sharded form in `csrc/td_fast.cu`, one launch a step through a
 all-reduce of the step's aggregate between launches, and one more that
 writes the final Q (T + 1 a scan of T steps); and `segment_sums`, K10's
 sums form in `csrc/segment_mean.cu`, the same four kernels stopped before
-the divide (four a call).
+the divide (four a call); and `trace_partials`, K12's partial-sums form in
+`csrc/trace_pass.cu`, two launches a step through a
+`kernels.trace_pass.TracePartialsPlan`: the pass, which stops at each
+chunk's partial sums and the live counts, and, after the ranks have
+gathered the partials and all-reduced the counts, the apply.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ LAUNCHES: dict[str, int] = {
     "mc_returns": 0,
     "td_step_sharded": 0,
     "segment_sums": 0,
+    "trace_partials": 0,
 }
 
 

@@ -118,6 +118,10 @@ _SIGNATURES = {
     # e, s, a, delta, cut, table in, out; γλ, cutoff, α; replacing, A, B, cells,
     # appliers a tile; the plan's partial sums, cell counts and tickets
     "gu_trace_pass": [_P] * 7 + [_F, _F, _F] + [_I] * 5 + [_P] * 3 + [_P],
+    # the partial-sums form: e, s, a, delta, cut; γλ, cutoff; replacing, A, B, cells; partial, count
+    "gu_trace_partials": [_P] * 5 + [_F, _F] + [_I] * 4 + [_P] * 2 + [_P],
+    # partial, count, table in, out; α; cells, chunks
+    "gu_trace_apply": [_P] * 4 + [_F, _I, _I, _P],
     # the plan (host memory); q, explore, rand_a, state in (3), run_ret, episodes,
     # ret_sum; the outputs' buffer
     "gu_dqn_act_step": [_P] + [_P] * 9 + [_P] + [_P],

@@ -1,7 +1,7 @@
-"""Advantage actor-critic (A2C), env-batched, on one device.
+"""Advantage actor-critic (A2C), env-batched, on one device or data-parallel
+over the ranks of a `parallel.mesh.EnvMesh`.
 
-PyTorch counterpart of `griduniverse_tpu/models/a2c.py` (single device; the
-sharded trainers come with `parallel/`). One update is a T-step rollout of B
+PyTorch counterpart of `griduniverse_tpu/models/a2c.py`. One update is a T-step rollout of B
 auto-reset envs on the bit-packed step, the bootstrapped n-step returns, one
 forward and backward pass over the (T, B) batch, and one clipped Adam step.
 
@@ -20,6 +20,30 @@ of 2N updates equals two runs of N from a saved state, bit for bit.
 `jax.random`'s draws: `jax.random.categorical(key, logits)` is
 `argmax(logits + gumbel(key, logits.shape))`.
 
+The sharded trainers (`a2c_init_sharded`, `a2c_run_sharded`,
+`a2c_train_sharded`, and PPO's and DQN's in their modules) run on every
+rank of a process group, one rank a shard (`parallel.mesh`). Their train
+state is the unsharded one laid out as the reference lays it out, each rank
+holding its part: `params`, `opt_state`, `seed`, `update` / `t`,
+`last_loss` (and DQN's target) replicated; `env_state` and `run_ret` (and
+DQN's ring and priorities, `capacity / n` slots a rank) the rank's rows;
+`episodes`, `ret_sum` (and DQN's `p_max`) one element a shard, (1,) on a
+rank, summed only by `*_result`. Each rank runs the unsharded update on its
+rows through its own plans (K7a, K7b, K9a, K9b; for DQN K7c's store form
+into its ring, K8a, K8b); once a minibatch the flat gradients and the loss
+are all-gathered in rank order, added in that order and divided by n
+(`_rank_mean`), so clip, Adam and the target's move run alike and the
+parameters are the same bits on every rank. A world of one without a
+process group takes no collective. Randomness comes from (seed, shard,
+update) — update `u` of shard k draws from `update_generator(device,
+shard_seed(seed, k), u)`, the reference's `fold_in(fold_in(key, shard),
+u)` — so chunked runs repeat; `gumbel=` / `draws=` inject the global draws,
+of which each rank takes its slice. `gather_train_state` brings a rank's
+state to the host whole (its sharded fields through
+`parallel.distributed.fetch_global`), `reshard_stats` adapts such a state
+to another world size, and a `*_run_sharded` given a state of host (numpy)
+leaves takes this rank's part of it.
+
 The kernels' plain PyTorch versions are here (`act_step_reference`,
 `greedy_step_reference`, `nstep_returns_reference`); CPU tensors take them,
 CUDA tensors launch the kernels, or raise.
@@ -30,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
@@ -40,6 +65,9 @@ from ..core.types import Level
 from ..kernels.act_step import ActStepPlan
 from ..kernels.gae import nstep_returns_cuda
 from ..ops.bitplane import BitLevel, FastState, pack_level, reset_bits, step_bits
+from ..parallel.distributed import fetch_global
+from ..parallel.mesh import EnvMesh, all_gather_rows, all_reduce_sum, env_axes, local_batch, shard_rows, tree_map
+from ..parallel.rollout import local_level
 from .networks import ActorCritic, BatchedConvActorCritic, ConvActorCritic, exact_kernels
 from .optim import AdamState, Params, adam_init, adam_update, clip_by_global_norm, make_lr
 
@@ -461,21 +489,23 @@ class A2CUpdate:
 
 
 def a2c_update(sem: Semantics, learner: Learner, cfg: A2CConfig, params: Params,
-               opt_state: AdamState, env_state: FastState, noise) -> A2CUpdate:
+               opt_state: AdamState, env_state: FastState, noise, pmean=None) -> A2CUpdate:
     """One A2C update from `noise` (T, B, A): the rollout, the n-step
     returns, one pass over the (T, B) batch and one clipped Adam step.
     `a2c_run` is a loop over this, inside `exact_kernels()`. The update's
     `env_state` and trajectory rows are valid until the learner's next
-    rollout (`A2CUpdate`)."""
+    rollout (`A2CUpdate`). `pmean` (a sharded run's `_rank_mean`) takes the
+    gradients and the loss to their means over the ranks before the clip."""
     bl, net, tiles, rate, act_plan = learner
     env_state, traj, bootstrap = rollout(
         sem, bl, net, params, tiles, env_state, noise, cfg.max_episode_steps, act_plan)
     returns = nstep_returns(traj.reward, traj.done, bootstrap, cfg.gamma)
     live = leaves(params)
     loss = a2c_loss(net, live, tiles, traj, returns, cfg)
-    grads = clip_by_global_norm(grads_of(loss, live), cfg.max_grad_norm)
+    grads, loss = mean_grads(pmean, grads_of(loss, live), loss.detach())
+    grads = clip_by_global_norm(grads, cfg.max_grad_norm)
     params, opt_state = adam_update(params, grads, opt_state, rate)
-    return A2CUpdate(params, opt_state, env_state, loss.detach(), traj, bootstrap, returns)
+    return A2CUpdate(params, opt_state, env_state, loss, traj, bootstrap, returns)
 
 
 def update_noise(device, seed: int, update: int, cfg, batch: int, num_actions: int):
@@ -492,15 +522,24 @@ def a2c_run(sem: Semantics, level: Level, ts: A2CTrainState, cfg: A2CConfig = A2
     dev = level.device
     b = ts.run_ret.shape[0]
     learner = a2c_learner(sem, level, cfg, b)
+
+    def noise(i):
+        if gumbel is not None:
+            return gumbel[i]
+        return update_noise(dev, ts.seed, ts.update + i, cfg, b, sem.num_actions)
+
+    return _a2c_updates(sem, learner, cfg, ts, num_updates, noise)
+
+
+def _a2c_updates(sem, learner: Learner, cfg: A2CConfig, ts: A2CTrainState, num_updates: int, noise,
+                 pmean=None) -> A2CTrainState:
+    """`num_updates` A2C updates from `ts`, update i's noise `noise(i)`: the
+    loop of `a2c_run` and `a2c_run_sharded`."""
     params, opt_state, env_state = ts.params, ts.opt_state, ts.env_state
     run_ret, episodes, ret_sum, loss = ts.run_ret, ts.episodes, ts.ret_sum, ts.last_loss
     with exact_kernels():
         for i in range(num_updates):
-            if gumbel is not None:
-                noise = gumbel[i]
-            else:
-                noise = update_noise(dev, ts.seed, ts.update + i, cfg, b, sem.num_actions)
-            upd = a2c_update(sem, learner, cfg, params, opt_state, env_state, noise)
+            upd = a2c_update(sem, learner, cfg, params, opt_state, env_state, noise(i), pmean)
             params, opt_state, env_state, loss = upd.params, upd.opt_state, upd.env_state, upd.loss
             run_ret, episodes, ret_sum = fold_episode_stats(
                 run_ret, episodes, ret_sum, upd.traj.reward, upd.traj.done)
@@ -512,11 +551,14 @@ def a2c_run(sem: Semantics, level: Level, ts: A2CTrainState, cfg: A2CConfig = A2
 
 
 def a2c_result(ts: A2CTrainState) -> A2CResult:
-    """Train state → A2CResult."""
+    """Train state → A2CResult. Works for the single-device (scalar stats)
+    and the gathered sharded ((n,) per-shard stats) layouts: the stats are
+    summed here, never inside the resumable state."""
+    episodes = ts.episodes.sum()
     return A2CResult(
         params=ts.params,
-        episodes=ts.episodes,
-        mean_return=ts.ret_sum / ts.episodes.clamp(min=1),
+        episodes=episodes,
+        mean_return=ts.ret_sum.sum() / episodes.clamp(min=1),
         final_loss=ts.last_loss,
     )
 
@@ -527,6 +569,261 @@ def a2c_train(sem: Semantics, level: Level, seed: int, cfg: A2CConfig = A2CConfi
     `a2c_result`."""
     ts = a2c_init(sem, level, seed, cfg, batch_size)
     return a2c_result(a2c_run(sem, level, ts, cfg, num_updates))
+
+
+# ---------------------------------------------------------------------------
+# Sharded training: data parallel over the ranks of an EnvMesh
+# ---------------------------------------------------------------------------
+
+# the train-state fields a rank holds its part of; the others are replicated
+SHARDED_FIELDS = ("env_state", "run_ret", "episodes", "ret_sum", "buf", "prio", "p_max")
+
+
+def _level_specs(bl: BitLevel, batch_size: int, mesh: EnvMesh) -> BitLevel:
+    """The packed level a rank steps, the reference's shard_map in_specs of
+    a BitLevel: a shared level whole; a batched one's per-env leaves its
+    rows, its 0-d leaves whole. Raises where a batched level does not hold
+    `batch_size` levels."""
+    if not bl.batched:
+        return bl
+    if int(bl.code_words.shape[0]) != batch_size:
+        raise ValueError(
+            f"batched BitLevel has {int(bl.code_words.shape[0])} levels; expected batch_size={batch_size}"
+        )
+    rows = shard_rows(mesh, batch_size)
+    start_idx, start_code = (x if x.dim() == 0 else x[rows] for x in (bl.start_idx, bl.start_code))
+    return BitLevel(bl.code_words[rows], start_idx, start_code, bl.height, bl.width)
+
+
+def _sharded_env_specs(mesh: EnvMesh, bl: BitLevel, batch_size: int):
+    """The env-sharded layout every sharded trainer uses: (axes, local_b,
+    rows, the rank's BitLevel). Raises where the mesh does not divide the
+    batch. `rows` also lays out the (n,) per-shard statistics, one element
+    a shard in rank order."""
+    local_b = local_batch(mesh, batch_size)
+    return env_axes(mesh), local_b, shard_rows(mesh, batch_size), _level_specs(bl, batch_size, mesh)
+
+
+def shard_seed(seed: int, shard: int) -> int:
+    """The base seed of shard `shard`'s draws (the reference's
+    `fold_in(key, shard)`): `mix_seed(seed, -2 - shard)`, apart from every
+    update's (≥ 0) and the parameters' (-1)."""
+    return mix_seed(seed, -2 - int(shard))
+
+
+def _rank_mean(mesh: EnvMesh):
+    """None where there is nothing to reduce (a world of one without a
+    process group); else a function taking a list of float32 tensors to
+    their means over the ranks: flattened into one vector, all-gathered,
+    added in rank order and divided by n, the same bits on every rank. Each
+    mean comes back as a tensor of its own: a reduction over a view at an
+    unaligned offset of the vector may add in another order than over a
+    fresh tensor, and a world of one must give the unsharded bits."""
+    if mesh.group is None:
+        return None
+
+    def mean(xs):
+        flat = all_reduce_sum(mesh, torch.cat([x.reshape(-1) for x in xs])) / mesh.size
+        out, at = [], 0
+        for x in xs:
+            out.append(flat[at:at + x.numel()].reshape(x.shape).clone())
+            at += x.numel()
+        return out
+
+    return mean
+
+
+def mean_grads(pmean, grads: Params, *scalars):
+    """(grads, *scalars), each taken to its mean over the ranks by `pmean`
+    in one collective; as they are where `pmean` is None."""
+    if pmean is None:
+        return (grads, *scalars)
+    flat = pmean([*grads.values(), *scalars])
+    return (dict(zip(grads, flat[:len(grads)])), *flat[len(grads):])
+
+
+def _host(x):
+    return x.detach().cpu().numpy()
+
+
+def gather_train_state(mesh: EnvMesh, ts):
+    """A rank's part of a sharded train state (A2C, PPO or DQN) as the whole
+    state on the host, on every rank: the sharded fields gathered in rank
+    order (`parallel.distributed.fetch_global`), the replicated ones as
+    this rank holds them, every tensor a numpy array. What a checkpoint of
+    the global state holds, what `reshard_stats` takes, and what a
+    `*_run_sharded` on another world takes its part of."""
+    out = {}
+    for f in dataclasses.fields(ts):
+        x = getattr(ts, f.name)
+        out[f.name] = fetch_global(mesh, x) if f.name in SHARDED_FIELDS else tree_map(_host, x)
+    return dataclasses.replace(ts, **out)
+
+
+def _local_state(mesh: EnvMesh, ts):
+    """This rank's part of a train state: a state of host (numpy) leaves is
+    the global one (`gather_train_state`, `reshard_stats`), and the rank
+    takes its rows of the sharded fields and the replicated ones whole, on
+    its device; any other state is already a rank's and is kept."""
+    if not isinstance(ts.run_ret, np.ndarray):
+        return ts
+    dev = mesh.device
+
+    def rows(x):
+        n = x.shape[0] // mesh.size
+        return torch.as_tensor(np.array(x[mesh.rank * n:(mesh.rank + 1) * n]), device=dev)
+
+    def whole(x):
+        return torch.as_tensor(np.array(x), device=dev)
+
+    return dataclasses.replace(ts, **{
+        f.name: tree_map(rows if f.name in SHARDED_FIELDS else whole, getattr(ts, f.name), np.ndarray)
+        for f in dataclasses.fields(ts)
+    })
+
+
+def _result_sharded(mesh: EnvMesh, ts, result):
+    """`result` of a rank's sharded state with its per-shard statistics
+    gathered in rank order: the same global result on every rank."""
+    return result(dataclasses.replace(
+        ts, episodes=all_gather_rows(mesh, ts.episodes), ret_sum=all_gather_rows(mesh, ts.ret_sum)))
+
+
+def reshard_stats(ts, mesh: EnvMesh):
+    """Adapt a whole sharded train state (PPO, A2C or DQN; as
+    `gather_train_state` gives it, or restored from its checkpoint) saved
+    on one world size to the world of `mesh`: the elastic resume of the
+    data-parallel trainers (the reference's `models/a2c.py:574-664`).
+
+    Everything global survives untouched: parameters, optimizer moments,
+    the target network, the env batch and the replay ring (global (B,) and
+    (capacity,) arrays, which the new world's ranks take their rows of;
+    B and the capacity must divide by the new size), the seed and the
+    counter. The (n,) per-shard accumulators are rebucketed:
+      * episodes / ret_sum — the totals moved to shard 0, zeros elsewhere:
+        the global totals `*_result` reads are kept exactly;
+      * p_max (DQN with PER) — the global maximum on every new shard.
+    Not bit-exact against staying on the old world: shard k draws from
+    `shard_seed(seed, k)`, so another world draws other streams.
+
+    DQN: the ring must be FULL (`t·B >= capacity`), else this raises — a
+    shard's valid region is derived from t alone, and a partly filled ring
+    would expose never-written slots on the new world. Index observations
+    only (a per-env-level grid network recovers a slot's env as `slot %
+    B_local`, which a new world permutes); and the new write offset
+    overwrites a rotation of the old FIFO order.
+
+    Returns the state with host (numpy) leaves, as the reference does: the
+    next `*_run_sharded` on the new world takes each rank's part of it."""
+    ts = tree_map(_host, ts)
+    n_new = mesh.size
+    batch = int(np.shape(ts.run_ret)[0])
+    if batch % n_new:
+        raise ValueError(
+            f"env batch {batch} not divisible by the new mesh size {n_new}; elastic resume needs every global "
+            f"(B,) leaf to reshard evenly"
+        )
+    if hasattr(ts, "buf"):
+        cap = int(np.shape(ts.buf.obs)[0])
+        if cap % n_new:
+            raise ValueError(f"replay capacity {cap} not divisible by the new mesh size {n_new}")
+        if int(ts.t) * batch < cap:
+            raise ValueError(
+                f"DQN elastic resume requires a FULL replay buffer: t*B = {int(ts.t) * batch} < capacity {cap}. "
+                "A partially-filled buffer's valid region is derived per-shard from t and would cover "
+                "never-written slots on the new mesh (see reshard_stats docstring). Run more steps on the old "
+                "mesh first."
+            )
+    eps = np.zeros((n_new,), np.asarray(ts.episodes).dtype)
+    eps[0] = np.sum(ts.episodes)
+    rets = np.zeros((n_new,), np.asarray(ts.ret_sum).dtype)
+    rets[0] = np.sum(ts.ret_sum)
+    ts = dataclasses.replace(ts, episodes=eps, ret_sum=rets)
+    if hasattr(ts, "p_max"):
+        ts = dataclasses.replace(ts, p_max=np.full((n_new,), np.max(ts.p_max), np.asarray(ts.p_max).dtype))
+    return ts
+
+
+def _sharded_init(mesh: EnvMesh, level: Level, batch_size: int, init):
+    """This rank's part of an initial sharded train state: the unsharded
+    `init(level, batch)` over the rank's B / n envs (its rows of a per-env
+    level) on the mesh's device — the parameters and optimizer are the
+    unsharded init's, the same on every rank — with its statistics (and
+    DQN's `p_max`) made (1,) per-shard values."""
+    level = level.to(mesh.device)
+    _, local_b, _, _ = _sharded_env_specs(mesh, pack_level(level), batch_size)
+    ts = init(local_level(mesh, level, batch_size), local_b)
+    per_shard = {f: getattr(ts, f).reshape(1) for f in ("episodes", "ret_sum", "p_max") if hasattr(ts, f)}
+    return dataclasses.replace(ts, **per_shard)
+
+
+def _warm_started(mesh: EnvMesh, ts, init_params, init_opt_state):
+    """`ts` with saved parameters (and a DQN target that restarts as their
+    copy) and, where given, a saved optimizer state, on the mesh's device."""
+    if init_params is not None:
+        ts.params = {k: v.to(mesh.device) for k, v in init_params.items()}
+        if hasattr(ts, "target_params"):
+            ts.target_params = {k: v.clone() for k, v in ts.params.items()}
+    if init_opt_state is not None:
+        ts.opt_state = tree_map(lambda x: x.to(mesh.device), init_opt_state)
+    return ts
+
+
+def _sharded_run_setup(mesh: EnvMesh, level: Level, ts):
+    """(this rank's state, the level on its device, the global batch, this
+    rank's rows, its level) of a `*_run_sharded` call."""
+    ts = _local_state(mesh, ts)
+    level = level.to(mesh.device)
+    batch = int(ts.run_ret.shape[0]) * mesh.size
+    _, _, rows, _ = _sharded_env_specs(mesh, pack_level(level), batch)
+    return ts, level, batch, rows, local_level(mesh, level, batch)
+
+
+def _rank_noise(x, rows, device):
+    """This rank's columns (axis 1) of an injected (T, B, ...) draw, as a
+    contiguous tensor on `device` (the kernels' plans take no views)."""
+    return x[:, rows].to(device).contiguous()
+
+
+def a2c_init_sharded(mesh: EnvMesh, sem: Semantics, level: Level, seed: int, cfg: A2CConfig = A2CConfig(),
+                     batch_size: int = 256) -> A2CTrainState:
+    """This rank's part of the initial sharded train state (module
+    docstring), on the mesh's device: the unsharded init's parameters and
+    optimizer, replicated; the rank's B / n envs; (1,) per-shard stats."""
+    return _sharded_init(mesh, level, batch_size, lambda lvl, b: a2c_init(sem, lvl, seed, cfg, b))
+
+
+def a2c_run_sharded(mesh: EnvMesh, sem: Semantics, level: Level, ts: A2CTrainState,
+                    cfg: A2CConfig = A2CConfig(), num_updates: int = 500, *, gumbel=None) -> A2CTrainState:
+    """Advance sharded training by `num_updates` on this rank, carrying the
+    whole state: run(2N) equals run(N), a checkpoint, a restore and run(N)
+    bit for bit on a fixed world. Shard k's update u draws from (seed, k,
+    u); `gumbel` (num_updates, T, B, A) injects the global noise, of which
+    the rank takes its columns. A state of host leaves is the global one
+    (`_local_state`)."""
+    ts, level, batch, rows, lvl = _sharded_run_setup(mesh, level, ts)
+    local_b = rows.stop - rows.start
+    learner = a2c_learner(sem, lvl, cfg, local_b)
+    seed = shard_seed(ts.seed, mesh.rank)
+
+    def noise(i):
+        if gumbel is not None:
+            return _rank_noise(gumbel[i], rows, mesh.device)
+        return update_noise(mesh.device, seed, ts.update + i, cfg, local_b, sem.num_actions)
+
+    return _a2c_updates(sem, learner, cfg, ts, num_updates, noise, _rank_mean(mesh))
+
+
+def a2c_train_sharded(mesh: EnvMesh, sem: Semantics, level: Level, seed: int, cfg: A2CConfig = A2CConfig(),
+                      num_updates: int = 500, batch_size: int = 256, init_params=None,
+                      init_opt_state=None) -> A2CResult:
+    """Data-parallel A2C: envs sharded over the ranks, parameters
+    replicated, gradients averaged over the ranks once an update.
+    `a2c_init_sharded`, `a2c_run_sharded` and the result, the same on every
+    rank. `init_params` / `init_opt_state` warm-start from saved parameters
+    (fresh envs; a fresh optimizer unless `init_opt_state` is given)."""
+    ts = _warm_started(mesh, a2c_init_sharded(mesh, sem, level, seed, cfg, batch_size), init_params, init_opt_state)
+    return _result_sharded(mesh, a2c_run_sharded(mesh, sem, level, ts, cfg, num_updates), a2c_result)
 
 
 def greedy_actions(net, params: Params, obs, tiles=None):

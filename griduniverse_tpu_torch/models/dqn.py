@@ -1,7 +1,7 @@
-"""DQN: off-policy value learning with a replay buffer on the device.
+"""DQN: off-policy value learning with a replay buffer on the device, on one
+device or data-parallel over the ranks of a `parallel.mesh.EnvMesh`.
 
-PyTorch counterpart of `griduniverse_tpu/models/dqn.py` (single device; the
-sharded trainers come with `parallel/`). A step acts ε-greedily in B
+PyTorch counterpart of `griduniverse_tpu/models/dqn.py`. A step acts ε-greedily in B
 auto-reset envs on the bit-packed step, writes the B transitions into a
 circular buffer, samples a minibatch (uniformly, or by priority), takes one
 clipped Adam step on the (double-)DQN loss and moves the target network
@@ -41,6 +41,19 @@ kernels' plain PyTorch versions are here (`dqn_act_step_reference`,
 `replay_write_reference`, `replay_gather_reference`,
 `prio_refresh_reference`); CPU tensors take them, CUDA tensors launch the
 kernels, or raise.
+
+The sharded trainers (`dqn_init_sharded`, `dqn_run_sharded`,
+`dqn_train_sharded`) follow `models/a2c.py`'s layout: each rank owns
+`capacity / n` slots of the ring and its priorities (`_dqn_sharded_layout`)
+and learns from its own shard's experience, through its own K7c store
+form, K8a and K8b; its write offset is `(t·B/n) mod (capacity / n)` in
+int64 (the reference's int32 product wraps). `p_max` is a per-shard (1,)
+value. The gradients and the loss are averaged over the ranks each step,
+so the online and target networks are the same bits on every rank. Step t
+of shard k draws from (seed, k, t); `draws=` injects the global (explore
+(T, B), rand_a (T, B), sample), of which each rank takes its columns: of
+the minibatch slots (T, n·n_train) its n_train, of the Gumbel noise (T,
+capacity) its capacity / n.
 """
 
 from __future__ import annotations
@@ -70,10 +83,20 @@ from ..ops.bitplane import (
     reset_bits,
     step_bits,
 )
+from ..parallel.mesh import EnvMesh
 from ..utils.platform import resolve_device
 from .a2c import (
     _net_apply,
     _net_init,
+    _rank_mean,
+    _rank_noise,
+    _result_sharded,
+    _sharded_env_specs,
+    _sharded_init,
+    _sharded_run_setup,
+    _warm_started,
+    mean_grads,
+    shard_seed,
     _tiles_for,
     draw_gumbel,
     grads_of,
@@ -615,7 +638,7 @@ class DQNUpdate:
 
 def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Params,
                target_params: Params, opt_state: AdamState, env_state: FastState,
-               buf: ReplayBuffer, prio, p_max, sc: StepScalars, draws, stats) -> DQNUpdate:
+               buf: ReplayBuffer, prio, p_max, sc: StepScalars, draws, stats, pmean=None) -> DQNUpdate:
     """One DQN step from its scalars `sc` (`step_scalars(...)[i]`), its
     `draws` (`step_draws`) and the episode statistics `stats` (run_ret,
     episodes, ret_sum): act ε-greedily, step the envs, fold the statistics
@@ -623,7 +646,8 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
     step, move the target, refresh the priorities. `buf` and `prio` are
     written IN PLACE; on the card they must be the ring bound to
     `learner.act_plan` (`DqnActPlan.bind_ring`). `dqn_run` is a loop over
-    this, inside `exact_kernels()`."""
+    this, inside `exact_kernels()`. `pmean` (a sharded run's `_rank_mean`)
+    takes the gradients and the loss to their means over the ranks."""
     bl, net, tiles, rate, batch_env, act_plan = learner
     explore, rand_a, sample = draws
     n = cfg.batch_size_train
@@ -651,7 +675,8 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
 
     live = leaves(params)
     loss, abs_err = dqn_loss(net, live, target_params, mb, w, sc.valid, mb_tiles, cfg)
-    grads = clip_by_global_norm(grads_of(loss, live), cfg.max_grad_norm)
+    grads, loss = mean_grads(pmean, grads_of(loss, live), loss.detach())
+    grads = clip_by_global_norm(grads, cfg.max_grad_norm)
     params, opt_state = adam_update(params, grads, opt_state, rate)
     if cfg.target_update == "hard":
         target_params = {k: torch.where(sc.sync, params[k], tp) for k, tp in target_params.items()}
@@ -659,7 +684,7 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
         target_params = {k: tp + cfg.tau * (params[k] - tp) for k, tp in target_params.items()}
     if cfg.prioritized:
         p_max = prio_refresh(prio, idx, abs_err, cfg.per_eps, p_max)
-    return DQNUpdate(params, target_params, opt_state, env_state, p_max, loss.detach(), batch,
+    return DQNUpdate(params, target_params, opt_state, env_state, p_max, loss, batch,
                      idx, w, score, mb, abs_err, tuple(stats))
 
 
@@ -670,43 +695,55 @@ def dqn_run(sem: Semantics, level: Level, ts: DQNTrainState, cfg: DQNConfig = DQ
     int32, sample (T, n) slot indices or (T, capacity) Gumbel noise)
     replaces the state's own draws. The state given is not written: the
     buffer and the priorities are copied once, then updated in place."""
-    dev = level.device
     b = ts.run_ret.shape[0]
     learner = dqn_learner(sem, level, cfg, b)
+    return _dqn_steps(sem, level.device, learner, cfg, ts, num_steps, ts.seed,
+                      None if draws is None else (lambda i: tuple(d[i] for d in draws)))
+
+
+def _dqn_steps(sem, dev, learner: DQNLearner, cfg: DQNConfig, ts: DQNTrainState, num_steps: int, seed: int,
+               draws, pmean=None) -> DQNTrainState:
+    """`num_steps` DQN steps from `ts`, step i's draws from (seed, t0 + i) or
+    `draws(i)`: the loop of `dqn_run` and `dqn_run_sharded` (`cfg` the
+    rank's, its capacity the rank's slots)."""
+    b = learner.batch_env
     # the one host read of a run: the steps' generators are seeded from (seed, t)
     t0 = int(ts.t) if draws is None else 0
     scalars = step_scalars(cfg, ts.t, num_steps, b)
     params, target_params, opt_state, env_state = ts.params, ts.target_params, ts.opt_state, ts.env_state
     buf = ReplayBuffer(*(x.clone() for x in ts.buf))
-    prio, p_max = ts.prio.clone(), ts.p_max
+    prio, p_max = ts.prio.clone(), ts.p_max.reshape(())
     if learner.act_plan is not None:  # the run's ring, checked once, for K7c's store form
         learner.act_plan.bind_ring(buf, prio if cfg.prioritized else None)
-    stats, loss = (ts.run_ret, ts.episodes, ts.ret_sum), ts.last_loss
+    # a sharded state's per-shard statistics are (1,); the step takes them 0-d
+    stats, loss = (ts.run_ret, ts.episodes.reshape(()), ts.ret_sum.reshape(())), ts.last_loss
     with exact_kernels():
         for i in range(num_steps):
             sc = scalars[i]
             if draws is None:
-                step = step_draws(dev, ts.seed, t0 + i, cfg, b, sem.num_actions, sc.eps, sc.size)
+                step = step_draws(dev, seed, t0 + i, cfg, b, sem.num_actions, sc.eps, sc.size)
             else:
-                step = tuple(d[i] for d in draws)
+                step = draws(i)
             upd = dqn_update(sem, learner, cfg, params, target_params, opt_state, env_state,
-                             buf, prio, p_max, sc, step, stats)
+                             buf, prio, p_max, sc, step, stats, pmean)
             params, target_params, opt_state = upd.params, upd.target_params, upd.opt_state
             env_state, p_max, loss, stats = upd.env_state, upd.p_max, upd.loss, upd.stats
     run_ret, episodes, ret_sum = stats
     return dataclasses.replace(
         ts, params=params, target_params=target_params, opt_state=opt_state, env_state=env_state,
-        buf=buf, prio=prio, p_max=p_max, t=ts.t + num_steps, run_ret=run_ret, episodes=episodes,
-        ret_sum=ret_sum, last_loss=loss,
+        buf=buf, prio=prio, p_max=p_max.reshape(ts.p_max.shape), t=ts.t + num_steps, run_ret=run_ret,
+        episodes=episodes.reshape(ts.episodes.shape), ret_sum=ret_sum.reshape(ts.ret_sum.shape), last_loss=loss,
     )
 
 
 def dqn_result(ts: DQNTrainState) -> DQNResult:
-    """Train state → DQNResult."""
+    """Train state → DQNResult; sums the (scalar, or gathered (n,)
+    per-shard) statistics, the only place they are aggregated."""
+    episodes = ts.episodes.sum()
     return DQNResult(
         params=ts.params,
-        episodes=ts.episodes,
-        mean_return=ts.ret_sum / ts.episodes.clamp(min=1),
+        episodes=episodes,
+        mean_return=ts.ret_sum.sum() / episodes.clamp(min=1),
         final_loss=ts.last_loss,
     )
 
@@ -718,6 +755,66 @@ def dqn_train(sem: Semantics, level: Level, seed: int, cfg: DQNConfig = DQNConfi
     `dqn_init`, `dqn_run`, `dqn_result`."""
     ts = dqn_init(sem, level, seed, cfg, batch_size)
     return dqn_result(dqn_run(sem, level, ts, cfg, num_steps))
+
+
+def _dqn_sharded_layout(mesh: EnvMesh, cfg: DQNConfig, bl: BitLevel, batch_size: int):
+    """(axes, local_b, local_cfg, rows, the rank's BitLevel, the rank's ring
+    slots) of the env-sharded DQN layout. `buffer_capacity` is GLOBAL: the
+    (capacity,) ring and priorities shard over the ranks, each owning
+    capacity / n slots of its own experience (`local_cfg`'s capacity)."""
+    axes, local_b, rows, bl_local = _sharded_env_specs(mesh, bl, batch_size)
+    if cfg.buffer_capacity % mesh.size:
+        raise ValueError(f"buffer_capacity {cfg.buffer_capacity} not divisible by mesh size {mesh.size}")
+    cap = cfg.buffer_capacity // mesh.size
+    local_cfg = dataclasses.replace(cfg, buffer_capacity=cap)
+    return axes, local_b, local_cfg, rows, bl_local, slice(mesh.rank * cap, (mesh.rank + 1) * cap)
+
+
+def dqn_init_sharded(mesh: EnvMesh, sem: Semantics, level: Level, seed: int, cfg: DQNConfig = DQNConfig(),
+                     batch_size: int = 64) -> DQNTrainState:
+    """This rank's part of the initial sharded train state, on the mesh's
+    device: the unsharded init's parameters, target and optimizer,
+    replicated; the rank's B / n envs, its capacity / n ring slots and
+    priorities; (1,) per-shard `p_max` and statistics."""
+    _, _, local_cfg, _, _, _ = _dqn_sharded_layout(mesh, cfg, pack_level(level.to(mesh.device)), batch_size)
+    return _sharded_init(mesh, level, batch_size, lambda lvl, b: dqn_init(sem, lvl, seed, local_cfg, b))
+
+
+def dqn_run_sharded(mesh: EnvMesh, sem: Semantics, level: Level, ts: DQNTrainState,
+                    cfg: DQNConfig = DQNConfig(), num_steps: int = 2_000, *, draws=None) -> DQNTrainState:
+    """Advance sharded DQN by `num_steps` on this rank, carrying the whole
+    state (parameters, target, optimizer, the rank's ring and priorities,
+    envs, counter): run(2N) equals run(N), a checkpoint, a restore and
+    run(N) bit for bit on a fixed world. Step t of shard k draws from
+    (seed, k, t); `draws` injects the global draws (module docstring). A
+    state of host leaves is the global one."""
+    ts, level, batch, rows, lvl = _sharded_run_setup(mesh, level, ts)
+    _, local_b, local_cfg, _, _, _ = _dqn_sharded_layout(mesh, cfg, pack_level(level), batch)
+    learner = dqn_learner(sem, lvl, local_cfg, local_b)
+    step = None
+    if draws is not None:
+        explore, rand_a, sample = draws
+
+        def step(i):
+            return (_rank_noise(explore[i][None], rows, mesh.device)[0],
+                    _rank_noise(rand_a[i][None], rows, mesh.device)[0],
+                    sample[i].chunk(mesh.size)[mesh.rank].to(mesh.device))
+
+    return _dqn_steps(sem, mesh.device, learner, local_cfg, ts, num_steps, shard_seed(ts.seed, mesh.rank), step,
+                      _rank_mean(mesh))
+
+
+def dqn_train_sharded(mesh: EnvMesh, sem: Semantics, level: Level, seed: int, cfg: DQNConfig = DQNConfig(),
+                      num_steps: int = 2_000, batch_size: int = 64, init_params=None,
+                      init_opt_state=None) -> DQNResult:
+    """Data-parallel DQN: envs and the replay ring sharded over the ranks
+    (each learns from its own shard's experience), the online and target
+    networks replicated, gradients averaged over the ranks each step.
+    `dqn_init_sharded`, `dqn_run_sharded` and the result, the same on every
+    rank. `init_params` / `init_opt_state` warm-start from saved parameters
+    (the target restarts as their copy; fresh envs and ring)."""
+    ts = _warm_started(mesh, dqn_init_sharded(mesh, sem, level, seed, cfg, batch_size), init_params, init_opt_state)
+    return _result_sharded(mesh, dqn_run_sharded(mesh, sem, level, ts, cfg, num_steps), dqn_result)
 
 
 def greedy_q_actions(net, params: Params, obs, tiles=None) -> torch.Tensor:

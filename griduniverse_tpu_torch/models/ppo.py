@@ -1,7 +1,7 @@
-"""Proximal policy optimization (PPO), env-batched, on one device.
+"""Proximal policy optimization (PPO), env-batched, on one device or
+data-parallel over the ranks of a `parallel.mesh.EnvMesh`.
 
-PyTorch counterpart of `griduniverse_tpu/models/ppo.py` (single device; the
-sharded trainers come with `parallel/`). It shares A2C's machinery
+PyTorch counterpart of `griduniverse_tpu/models/ppo.py`. It shares A2C's machinery
 (models/a2c.py): the bit-packed env step, the three network families, the
 counter-based randomness.
 
@@ -17,6 +17,17 @@ generator seeded from (seed, u) alone, in a fixed order: the rollout's
 Gumbel noise (T, B, A), then one shuffle draw per epoch. So a run of 2N
 updates equals two runs of N from a saved state, bit for bit. `ppo_run`
 also takes the draws as `gumbel=` and `shuffle_draws=` tensors.
+
+The sharded trainers (`ppo_init_sharded`, `ppo_run_sharded`,
+`ppo_train_sharded`) follow `models/a2c.py`'s layout and reductions: a
+rank shuffles and cuts its own rows; the gradients, the loss and the
+approximate KL of every minibatch are averaged over the ranks (so the
+`target_kl` stop is taken in lockstep), and with `normalize_adv` the mean
+and the standard deviation of the advantages too (the mean of the ranks'
+deviations, as the reference's `pmean`). Their injected `shuffle_draws`
+hold every shard's draws: each epoch's draw cut into n equal parts along
+its last axis, shard k's the k-th (a "roll" offset (n,), an "env"
+permutation (B,) of n local permutations, an "element" one (n·T·B/n,)).
 """
 
 from __future__ import annotations
@@ -30,12 +41,19 @@ from ..core.semantics import Semantics
 from ..core.types import Level
 from ..kernels.gae import gae_cuda
 from ..ops.bitplane import FastState, pack_level
+from ..parallel.mesh import EnvMesh
 from .a2c import (
     Learner,
     Trajectory,
     _init_fields,
     _net_apply,
+    _rank_mean,
+    _rank_noise,
+    _result_sharded,
+    _sharded_init,
+    _sharded_run_setup,
     _tiles_for,
+    _warm_started,
     act_plan_for,
     draw_gumbel,
     fold_episode_stats,
@@ -43,7 +61,9 @@ from .a2c import (
     leaves,
     log_probs,
     make_network,
+    mean_grads,
     rollout,
+    shard_seed,
     update_generator,
 )
 from .networks import exact_kernels
@@ -292,12 +312,15 @@ def ppo_learner(sem: Semantics, level: Level, cfg: PPOConfig, batch: int) -> Lea
 
 
 def ppo_update(sem: Semantics, learner: Learner, cfg: PPOConfig, params: Params,
-               opt_state: AdamState, env_state: FastState, noise, draws) -> PPOUpdate:
+               opt_state: AdamState, env_state: FastState, noise, draws, pmean=None) -> PPOUpdate:
     """One PPO update from `noise` (T, B, A) and one shuffle draw per epoch
     (`update_draws`): the rollout, GAE, and E epochs × M minibatches of
     clipped-surrogate SGD. `ppo_run` is a loop over this, inside
     `exact_kernels()`. The update's `env_state` and trajectory rows are
-    valid until the learner's next rollout (`PPOUpdate`)."""
+    valid until the learner's next rollout (`PPOUpdate`). `pmean` (a
+    sharded run's `_rank_mean`) takes the advantages' mean and deviation,
+    and each minibatch's gradients, loss and KL, to their means over the
+    ranks."""
     bl, net, tiles, rate, act_plan = learner
     b = env_state.agent_idx.shape[0]
     env_state, traj, bootstrap = rollout(
@@ -305,7 +328,10 @@ def ppo_update(sem: Semantics, learner: Learner, cfg: PPOConfig, params: Params,
     gae_adv, targets = gae_advantages(traj, bootstrap, cfg.gamma, cfg.gae_lambda)
     adv = gae_adv
     if cfg.normalize_adv:
-        adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        mu, sd = adv.mean(), adv.std(unbiased=False) + 1e-8
+        if pmean is not None:  # the mean of the ranks' deviations, as the reference's pmean
+            mu, sd = pmean([mu, sd])
+        adv = (adv - mu) / sd
     slab = (traj.obs, traj.action, traj.logp, traj.value, adv, targets)
     active = torch.ones((), dtype=torch.bool, device=adv.device)
     first = None
@@ -314,15 +340,15 @@ def ppo_update(sem: Semantics, learner: Learner, cfg: PPOConfig, params: Params,
             first = (mb, mb_tiles) if first is None else first
             live = leaves(params)
             loss, kl = ppo_loss(net, live, mb, mb_tiles, cfg)
-            grads = clip_by_global_norm(grads_of(loss, live), cfg.max_grad_norm)
+            grads, loss, kl = mean_grads(pmean, grads_of(loss, live), loss.detach(), kl.detach())
+            grads = clip_by_global_norm(grads, cfg.max_grad_norm)
             new_params, new_opt_state = adam_update(params, grads, opt_state, rate)
-            loss = loss.detach()
             if cfg.target_kl is None:
                 params, opt_state = new_params, new_opt_state
             else:  # once tripped, the ENTIRE step is frozen
                 params = keep_where(active, new_params, params)
                 opt_state = keep_where(active, new_opt_state, opt_state)
-                active = active & (kl.detach() <= 1.5 * cfg.target_kl)
+                active = active & (kl <= 1.5 * cfg.target_kl)
     return PPOUpdate(params, opt_state, env_state, loss, traj, bootstrap, gae_adv, targets, first)
 
 
@@ -335,15 +361,25 @@ def ppo_run(sem: Semantics, level: Level, ts: PPOTrainState, cfg: PPOConfig = PP
     dev = level.device
     b = ts.run_ret.shape[0]
     learner = ppo_learner(sem, level, cfg, b)
+
+    def draws(i):
+        return update_draws(dev, ts.seed, ts.update + i, cfg, b, sem.num_actions,
+                            gumbel=None if gumbel is None else gumbel[i],
+                            shuffle=None if shuffle_draws is None else shuffle_draws[i])
+
+    return _ppo_updates(sem, learner, cfg, ts, num_updates, draws)
+
+
+def _ppo_updates(sem, learner: Learner, cfg: PPOConfig, ts: PPOTrainState, num_updates: int, draws,
+                 pmean=None) -> PPOTrainState:
+    """`num_updates` PPO updates from `ts`, update i's (noise, shuffle
+    draws) `draws(i)`: the loop of `ppo_run` and `ppo_run_sharded`."""
     params, opt_state, env_state = ts.params, ts.opt_state, ts.env_state
     run_ret, episodes, ret_sum, loss = ts.run_ret, ts.episodes, ts.ret_sum, ts.last_loss
     with exact_kernels():
         for i in range(num_updates):
-            noise, draws = update_draws(
-                dev, ts.seed, ts.update + i, cfg, b, sem.num_actions,
-                gumbel=None if gumbel is None else gumbel[i],
-                shuffle=None if shuffle_draws is None else shuffle_draws[i])
-            upd = ppo_update(sem, learner, cfg, params, opt_state, env_state, noise, draws)
+            noise, shuffle = draws(i)
+            upd = ppo_update(sem, learner, cfg, params, opt_state, env_state, noise, shuffle, pmean)
             params, opt_state, env_state, loss = upd.params, upd.opt_state, upd.env_state, upd.loss
             run_ret, episodes, ret_sum = fold_episode_stats(
                 run_ret, episodes, ret_sum, upd.traj.reward, upd.traj.done)
@@ -355,11 +391,13 @@ def ppo_run(sem: Semantics, level: Level, ts: PPOTrainState, cfg: PPOConfig = PP
 
 
 def ppo_result(ts: PPOTrainState) -> PPOResult:
-    """Train state → PPOResult."""
+    """Train state → PPOResult; sums the (scalar, or gathered (n,)
+    per-shard) statistics, the only place they are aggregated."""
+    episodes = ts.episodes.sum()
     return PPOResult(
         params=ts.params,
-        episodes=ts.episodes,
-        mean_return=ts.ret_sum / ts.episodes.clamp(min=1),
+        episodes=episodes,
+        mean_return=ts.ret_sum.sum() / episodes.clamp(min=1),
         final_loss=ts.last_loss,
     )
 
@@ -370,3 +408,56 @@ def ppo_train(sem: Semantics, level: Level, seed: int, cfg: PPOConfig = PPOConfi
     `ppo_result`."""
     ts = ppo_init(sem, level, seed, cfg, batch_size)
     return ppo_result(ppo_run(sem, level, ts, cfg, num_updates))
+
+
+def ppo_init_sharded(mesh: EnvMesh, sem: Semantics, level: Level, seed: int, cfg: PPOConfig = PPOConfig(),
+                     batch_size: int = 256) -> PPOTrainState:
+    """This rank's part of the initial sharded train state (`models/a2c.py`'s
+    layout), on the mesh's device."""
+    return _sharded_init(mesh, level, batch_size, lambda lvl, b: ppo_init(sem, lvl, seed, cfg, b))
+
+
+def _shard_part(x, mesh: EnvMesh, cfg: PPOConfig):
+    """Shard k's part of an injected shuffle draw: the k-th of n equal parts
+    of its last axis (a () offset for "roll")."""
+    if x is None:
+        return None
+    part = torch.as_tensor(x).chunk(mesh.size, dim=-1)[mesh.rank].to(mesh.device)
+    return part.reshape(()) if cfg.shuffle == "roll" else part
+
+
+def ppo_run_sharded(mesh: EnvMesh, sem: Semantics, level: Level, ts: PPOTrainState,
+                    cfg: PPOConfig = PPOConfig(), num_updates: int = 500, *, gumbel=None,
+                    shuffle_draws=None) -> PPOTrainState:
+    """Advance sharded PPO by `num_updates` on this rank, carrying the whole
+    state: run(2N) equals run(N), a checkpoint, a restore and run(N) bit
+    for bit on a fixed world. Shard k's update u draws from (seed, k, u);
+    `gumbel` (num_updates, T, B, A) and `shuffle_draws` (every shard's,
+    module docstring) inject the global draws. A state of host leaves is
+    the global one."""
+    ts, level, batch, rows, lvl = _sharded_run_setup(mesh, level, ts)
+    local_b = rows.stop - rows.start
+    learner = ppo_learner(sem, lvl, cfg, local_b)
+    seed = shard_seed(ts.seed, mesh.rank)
+
+    def draws(i):
+        shuffle = None
+        if shuffle_draws is not None:
+            shuffle = [_shard_part(shuffle_draws[i][e], mesh, cfg) for e in range(cfg.num_epochs)]
+        return update_draws(mesh.device, seed, ts.update + i, cfg, local_b, sem.num_actions,
+                            gumbel=None if gumbel is None else _rank_noise(gumbel[i], rows, mesh.device),
+                            shuffle=shuffle)
+
+    return _ppo_updates(sem, learner, cfg, ts, num_updates, draws, _rank_mean(mesh))
+
+
+def ppo_train_sharded(mesh: EnvMesh, sem: Semantics, level: Level, seed: int, cfg: PPOConfig = PPOConfig(),
+                      num_updates: int = 500, batch_size: int = 256, init_params=None,
+                      init_opt_state=None) -> PPOResult:
+    """Data-parallel PPO: envs sharded over the ranks, parameters and
+    optimizer replicated, gradients averaged over the ranks each minibatch.
+    `ppo_init_sharded`, `ppo_run_sharded` and the result, the same on every
+    rank. `init_params` / `init_opt_state` warm-start from saved parameters
+    (fresh envs; a fresh optimizer unless `init_opt_state` is given)."""
+    ts = _warm_started(mesh, ppo_init_sharded(mesh, sem, level, seed, cfg, batch_size), init_params, init_opt_state)
+    return _result_sharded(mesh, ppo_run_sharded(mesh, sem, level, ts, cfg, num_updates), ppo_result)

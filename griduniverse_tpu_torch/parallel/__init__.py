@@ -14,9 +14,13 @@ on K1), the sharded solvers (`value_iteration_sharded`,
 forms on the maze axis, the grid forms on K4), the shared-Q learners
 (`compile_q_learning_fast_sharded` on K5's sharded form, `q_learning_sharded`
 on the generic step with K10 or its sums form) and the per-maze learner
-(`q_learning_batched_sharded` on K6). Still to port: the sharded TD(λ) and
-Monte-Carlo learners (`td_lambda_sharded`, `td_lambda_prediction_sharded`,
-`mc_control_sharded`, `mc_prediction_sharded`). The JAX sharding objects
+(`q_learning_batched_sharded` on K6), the sharded TD(λ) learners
+(`td_lambda_sharded`, `td_lambda_prediction_sharded` on K12's partial-sums
+form) and the sharded Monte-Carlo learners (`mc_control_sharded`,
+`mc_prediction_sharded` on K13 and K10 or its sums form). The sharded
+neural trainers are in `models/` (`a2c_run_sharded`, `ppo_run_sharded`,
+`dqn_run_sharded` and their init and train entries), as in the
+reference. The JAX sharding objects
 `env_spec`, `env_sharding` and `replicated_sharding` have no counterpart.
 """
 
@@ -30,7 +34,15 @@ from .dp import (
     value_iteration_batched_sharded,
     value_iteration_sharded,
 )
-from .learner import DistTDResult, q_learning_batched_sharded, q_learning_sharded
+from .learner import (
+    DistTDResult,
+    mc_control_sharded,
+    mc_prediction_sharded,
+    q_learning_batched_sharded,
+    q_learning_sharded,
+    td_lambda_prediction_sharded,
+    td_lambda_sharded,
+)
 from .mesh import (
     ENV_AXIS,
     HOST_AXIS,

@@ -131,21 +131,22 @@ def shard_rows(mesh: EnvMesh, batch_size: int) -> slice:
     return slice(mesh.rank * local, (mesh.rank + 1) * local)
 
 
-def tree_map(fn, tree):
-    """`fn` on every tensor of a tree of dataclasses, (named) tuples, lists
-    and dicts; other leaves (ints, None) are kept."""
-    if isinstance(tree, torch.Tensor):
+def tree_map(fn, tree, leaves=(torch.Tensor,)):
+    """`fn` on every leaf of type `leaves` (tensors) of a tree of
+    dataclasses, (named) tuples, lists and dicts; other leaves (ints, None)
+    are kept."""
+    if isinstance(tree, leaves):
         return fn(tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: tree_map(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)
+            f.name: tree_map(fn, getattr(tree, f.name), leaves) for f in dataclasses.fields(tree)
         })
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, x) for x in tree))
+        return type(tree)(*(tree_map(fn, x, leaves) for x in tree))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, x) for x in tree)
+        return type(tree)(tree_map(fn, x, leaves) for x in tree)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, leaves) for k, v in tree.items()}
     return tree
 
 
@@ -200,3 +201,21 @@ def all_gather_rows(mesh: EnvMesh, x: torch.Tensor) -> torch.Tensor:
     if mesh.group is None:
         return x
     return torch.cat(_gather(mesh, x))
+
+
+def all_gather_rows_into(mesh: EnvMesh, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """`all_gather_rows` written into `out` (the ranks' rows of `x` in rank
+    order; `out` contiguous, of `size` × x's rows). Returns `out`."""
+    if mesh.group is None:
+        return out.copy_(x)
+    dist.all_gather(list(out.chunk(mesh.size)), x.contiguous(), group=mesh.group)
+    return out
+
+
+def all_gather_columns(mesh: EnvMesh, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's columns of a (T, B_local, ...) tensor concatenated in
+    rank order along axis 1: the (T, B, ...) array of which `x` is this
+    rank's shard."""
+    if mesh.group is None:
+        return x
+    return all_gather_rows(mesh, x.transpose(0, 1).contiguous()).transpose(0, 1)

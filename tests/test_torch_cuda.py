@@ -1243,6 +1243,47 @@ def test_trace_pass_step_replays_in_a_cuda_graph(dev):
         _assert_same((out, e), (want, e_r))
 
 
+@pytest.mark.parametrize("b,s,a,ranks", [(1, 16, 4, 1), (300, 16, 4, 1), (4096, 256, 4, 1), (513, 81, None, 1),
+                                         (300, 16, 4, 3), (512, 256, 4, 2), (65_536, 256, None, 1),
+                                         (65_536, 256, 4, 1), (32_768, 256, 4, 2)])
+@pytest.mark.parametrize("kind", ["accumulating", "replacing"])
+def test_trace_partials_kernel_matches_plain(dev, b, s, a, ranks, kind):
+    """K12's partial-sums form: each rank's pass (its partials, counts and
+    cut trace) and the apply over the ranks' gathered chunks equal the plain
+    versions bit for bit; where one rank's batch is a multiple of 256, or
+    there is one rank, the new table is K12's own step's; the apply leaves
+    the counts 0."""
+    gen = torch.Generator(device=dev).manual_seed(b + ranks)
+    shape = (ranks * b, s) if a is None else (ranks * b, s, a)
+    e = torch.rand(shape, generator=gen, device=dev) * 2 * (torch.rand(shape, generator=gen, device=dev) < 0.3)
+    e.reshape(ranks * b, -1)[::5, 1] = 1e-4 / 0.72
+    states, actions, delta, cut = _trace_step_inputs(dev, gen, ranks * b, s, a)
+    table = torch.randn(shape[1:], generator=gen, device=dev)
+    plans = [trace_kernels.TracePartialsPlan(table, b, a is not None, ranks) for _ in range(ranks)]
+    e_g, e_r, e_k = e.clone(), e.clone(), e.clone()
+    parts, counts = [], []
+    before = kernels.LAUNCHES["trace_partials"]
+    for r, plan in enumerate(plans):
+        rows = slice(r * b, (r + 1) * b)
+        local, count = plan.partials(e_g[rows], states[rows], None if a is None else actions[rows], delta[rows],
+                                     cut[rows], 0.9 * 0.8, 1e-4, kind == "replacing")
+        want = td_lambda.trace_partials_reference(e_r[rows], states[rows], None if a is None else actions[rows],
+                                                  delta[rows], cut[rows], 0.9, 0.8, 1e-4, kind)
+        _assert_same((local, count, e_g[rows]), (*want, e_r[rows]))
+        parts.append(local.clone())
+        counts.append(count.clone())
+    total = torch.stack(counts).sum(dim=0).to(torch.int32)
+    plans[0].gathered[: plans[0].total_chunks] = torch.cat(parts)
+    plans[0].count.copy_(total)
+    got = plans[0].apply(table, 0.3)
+    assert kernels.LAUNCHES["trace_partials"] == before + ranks + 1
+    assert not plans[0].count.any()
+    _assert_same((got,), (td_lambda.apply_partials_reference(table, torch.cat(parts), total, 0.3),))
+    if ranks == 1 or b % trace_kernels.CHUNK == 0:
+        whole = td_lambda.trace_pass(table, e_k, states, actions, delta, cut, 0.9, 0.8, 1e-4, 0.3, kind)
+        _assert_same((got, e_g), (whole, e_k))
+
+
 def test_td_lambda_on_cuda_equals_the_cpu_run(dev):
     from griduniverse_tpu_torch import algos
 

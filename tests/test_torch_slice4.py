@@ -130,11 +130,11 @@ def test_gather_probe_on_the_cpu():
 
 
 def test_every_kernel_has_a_source_an_entry_point_and_a_count():
-    """Nineteen kernels and the two sharded forms (K5's and K10's); on the
-    CPU nothing is launched."""
-    assert len(kernels.LAUNCHES) == 21
+    """Nineteen kernels and the three sharded forms (K5's, K10's and K12's);
+    on the CPU nothing is launched."""
+    assert len(kernels.LAUNCHES) == 22
     for name in ("per_sample", "replay", "backtracker_mazes", "gather_1d", "take_along_axis1", "trace_pass",
-                 "dqn_act", "mc_returns"):
+                 "dqn_act", "mc_returns", "trace_partials"):
         assert name in kernels.LAUNCHES
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     sources = "".join((build.CSRC_DIR / s).read_text() for s in build.SOURCES)

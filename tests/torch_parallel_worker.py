@@ -1,17 +1,20 @@
 """Worlds of ranks for the sharded-run tests of the PyTorch port.
 
-Imported by `tests/test_torch_parallel.py` and `tests/test_torch_distributed.py`,
-and run as `python -m tests.torch_parallel_worker MODE ...` by the latter's
-drills. It imports torch and the port, never JAX: every rank is a fresh
+Imported by `tests/test_torch_parallel.py`, `tests/test_torch_distributed.py`,
+`tests/test_torch_parallel_learner.py` and `tests/test_torch_parallel_models.py`,
+and run as `python -m tests.torch_parallel_worker MODE ...` by the drills.
+It imports torch and the port, never JAX: every rank is a fresh
 process (`spawn`, or a subprocess) that joins a Gloo process group on the
 CPU at `tcp://127.0.0.1:<port>` with a timeout of its own, so a hang fails
 instead of waiting out the suite.
 
 `run_world` starts `world` ranks laid out as `hosts` × `world / hosts`
-(1: the 1-D mesh), each running every ported entry once at a small size
-(`run_entries`) on the inputs the test saved, and returns each rank's
-results. `make_inputs` builds the levels both the ranks and the test's
-unsharded runs use.
+(1: the 1-D mesh), each running one set of entries once at a small size on
+the inputs the test saved (`ENTRIES`: the rollouts, solvers and
+Q-learners, the sharded TD(λ) and MC learners, the sharded neural
+trainers, the elastic resume), and returns each rank's results.
+`make_inputs` builds the levels both the ranks and the test's unsharded
+runs use.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from pathlib import Path
 import torch
 
 import griduniverse_tpu_torch as T
-from griduniverse_tpu_torch import algos, parallel
+from griduniverse_tpu_torch import algos, models, parallel
 from griduniverse_tpu_torch.algos import dp_batched, td_fast
 from griduniverse_tpu_torch.levels import builders
 from griduniverse_tpu_torch.levels import maze as tm
@@ -151,8 +154,176 @@ def run_entries(mesh, extra) -> dict:
     return out
 
 
-def rank_main(rank: int, world: int, hosts: int, port: int, out_dir: str) -> None:
-    """One rank of `run_world`: join the group, run every entry, save."""
+# -- the sharded TD(λ) and MC learners (tests/test_torch_parallel_learner.py) ----
+
+LEARNER_LEVEL = dict(shape=(4, 4), start_idx=0, lava=[5], goals=[15])
+T_TDL, B_TDL_SMALL = 30, 24
+TDL_KW = dict(alpha=0.2, gamma=0.99, epsilon=0.2, lam=0.9)
+PRED_KW = dict(alpha=0.2, gamma=0.9, lam=0.8)
+MC_ROUNDS, B_MC = 3, 32
+MC_KW = dict(gamma=0.99, epsilon=0.2, max_steps=30)
+TDL_CASES = (("sarsa", "accumulating"), ("watkins", "accumulating"), ("watkins", "replacing"))
+
+
+def tdl_batch(world: int) -> int:
+    """A batch whose every shard is one chunk of 256 envs."""
+    return 256 * world
+
+
+def learner_level():
+    return builders.make_level_from_indices(**LEARNER_LEVEL, device=CPU)
+
+
+def run_learner_entries(mesh, extra) -> dict:
+    """The sharded TD(λ) and Monte-Carlo learners once each on `mesh`."""
+    sem, lv = T.make_semantics(device=CPU), learner_level()
+    big = tdl_batch(mesh.size)
+    out = {}
+    for algo, trace in TDL_CASES:
+        r = parallel.td_lambda_sharded(mesh, sem, lv, 5, T_TDL, big, algo=algo, trace=trace, **TDL_KW)
+        out[f"tdl {algo} {trace}"] = (r.q, r.episodes, r.mean_return)
+    r = parallel.td_lambda_sharded(mesh, sem, lv, 5, T_TDL, B_TDL_SMALL, algo="watkins", **TDL_KW)
+    out["tdl small"] = (r.q, r.episodes, r.mean_return)
+    r = parallel.td_lambda_sharded(mesh, sem, lv, 0, T_TDL, B_TDL_SMALL, algo="sarsa", draws=extra["tdl_draws"],
+                                   **TDL_KW)
+    out["tdl jax"] = (r.q, r.episodes, r.mean_return)
+    policy = extra["policy"]
+    for name, b, kw in (("pred big", big, {}), ("pred big parity", big, dict(parity=True)),
+                        ("pred small", B_TDL_SMALL, {}), ("pred small parity", B_TDL_SMALL, dict(parity=True)),
+                        ("pred jax", B_TDL_SMALL, dict(parity=True, draws=extra["pred_gumbel"]))):
+        r = parallel.td_lambda_prediction_sharded(mesh, sem, lv, policy, 3, T_TDL, b, **PRED_KW, **kw)
+        out[name] = (r.v, r.episodes)
+    for parity in (False, True):
+        r = parallel.mc_control_sharded(mesh, sem, lv, 7, MC_ROUNDS, alpha=0.1, batch_size=B_MC, parity=parity,
+                                        **MC_KW)
+        out[f"mc control {parity}"] = (r.q, r.episodes)
+        r = parallel.mc_prediction_sharded(mesh, sem, lv, 7, batch_size=B_MC, parity=parity, **MC_KW)
+        out[f"mc prediction {parity}"] = (r.value, r.counts)
+        r = parallel.mc_prediction_sharded(mesh, sem, lv, 7, extra["q0"], batch_size=B_MC, parity=parity,
+                                           first_visit=False, **MC_KW)
+        out[f"mc prediction eps {parity}"] = (r.value, r.counts)
+    r = parallel.mc_control_sharded(mesh, sem, lv, 0, MC_ROUNDS, alpha=0.1, batch_size=B_MC, parity=True,
+                                    draws=extra["mc_control_draws"], **MC_KW)
+    out["mc control jax"] = (r.q, r.episodes)
+    r = parallel.mc_prediction_sharded(mesh, sem, lv, 0, batch_size=B_MC, parity=True,
+                                       draws=extra["mc_prediction_draws"], **MC_KW)
+    out["mc prediction jax"] = (r.value, r.counts)
+    return out
+
+
+# -- the sharded neural trainers (tests/test_torch_parallel_models.py) -----------
+
+B_NN = 16
+NN_CFG = dict(hidden=(16,), embed_dim=8, max_episode_steps=8, compute_dtype="float32")
+PPO_CFG = models.PPOConfig(rollout_len=4, num_epochs=2, num_minibatches=2, **NN_CFG)
+# one minibatch and no advantage normalisation: one update's gradient is the
+# mean of the ranks' means, so a world agrees with the unsharded update
+PPO_ONE_CFG = models.PPOConfig(rollout_len=4, num_epochs=2, num_minibatches=1, normalize_adv=False,
+                               shuffle="none", **NN_CFG)
+A2C_CFG = models.A2CConfig(rollout_len=4, **NN_CFG)
+DQN_CFG = models.DQNConfig(buffer_capacity=64, batch_size_train=8, learn_start=4, **NN_CFG)
+DQN_PER_CFG = models.DQNConfig(buffer_capacity=64, batch_size_train=8, learn_start=4, prioritized=True, **NN_CFG)
+# learning from the first step, a minibatch of 2 a rank out of its 4 envs' first transitions
+DQN_ONE_CFG = models.DQNConfig(buffer_capacity=64, batch_size_train=2, learn_start=0, **NN_CFG)
+NN_UPDATES, NN_STEPS, RESUME_CHUNKS = 2, 12, 2
+
+
+def model_level():
+    return builders.make_level_from_indices((4, 4), start_idx=0, goals=[15], device=CPU)
+
+
+def train_state_leaves(ts) -> dict:
+    """Every tensor of a train state by its path (and the plain scalars)."""
+    from griduniverse_tpu_torch.utils.checkpoint import flatten
+
+    return {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in flatten(ts).items()}
+
+
+def _trainer(kind):
+    """(init, run, cfg of the resume drill) of a sharded trainer."""
+    if kind == "a2c":
+        return models.a2c_init_sharded, models.a2c_run_sharded, A2C_CFG
+    if kind == "ppo":
+        return models.ppo_init_sharded, models.ppo_run_sharded, PPO_CFG
+    return models.dqn_init_sharded, models.dqn_run_sharded, DQN_PER_CFG
+
+
+def run_model_entries(mesh, extra) -> dict:
+    """The sharded trainers on `mesh`: one update against the unsharded one,
+    runs from the reference's parameters on its draws, native runs, and the
+    chunked resume through disk."""
+    from griduniverse_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    sem, lv = T.make_semantics(device=CPU), model_level()
+    out = {}
+    ts = models.a2c_run_sharded(mesh, sem, lv, models.a2c_init_sharded(mesh, sem, lv, 0, A2C_CFG, B_NN), A2C_CFG, 1,
+                                gumbel=extra["one_gumbel"])
+    out["a2c one"] = train_state_leaves(ts)
+    ts = models.ppo_run_sharded(mesh, sem, lv, models.ppo_init_sharded(mesh, sem, lv, 0, PPO_ONE_CFG, B_NN),
+                                PPO_ONE_CFG, 1, gumbel=extra["one_gumbel"])
+    out["ppo one"] = train_state_leaves(ts)
+    ts = models.dqn_run_sharded(mesh, sem, lv, models.dqn_init_sharded(mesh, sem, lv, 0, DQN_ONE_CFG, B_NN),
+                                DQN_ONE_CFG, 1, draws=extra["dqn_one_draws"])
+    out["dqn one"] = train_state_leaves(ts)
+
+    for kind, cfg, kw in (("a2c jax", A2C_CFG, dict(gumbel=extra["a2c_gumbel"])),
+                          ("ppo jax", PPO_CFG, dict(gumbel=extra["ppo_gumbel"], shuffle_draws=extra["ppo_shuffle"]))):
+        init, run = ((models.a2c_init_sharded, models.a2c_run_sharded) if kind.startswith("a2c")
+                     else (models.ppo_init_sharded, models.ppo_run_sharded))
+        ts = init(mesh, sem, lv, 0, cfg, B_NN)
+        ts.params = dict(extra[f"{kind.split()[0]}_params"])
+        out[kind] = train_state_leaves(run(mesh, sem, lv, ts, cfg, NN_UPDATES, **kw))
+    for name, cfg in (("dqn jax", DQN_CFG), ("dqn per jax", DQN_PER_CFG)):
+        ts = models.dqn_init_sharded(mesh, sem, lv, 0, cfg, B_NN)
+        ts.params = dict(extra["dqn_params"])
+        ts.target_params = {k: v.clone() for k, v in ts.params.items()}
+        out[name] = train_state_leaves(models.dqn_run_sharded(mesh, sem, lv, ts, cfg, NN_STEPS,
+                                                              draws=extra[name.replace(" ", "_") + "_draws"]))
+
+    out_dir = Path(extra["dir"])
+    for kind in ("a2c", "ppo", "dqn"):
+        init, run, cfg = _trainer(kind)
+        n = NN_STEPS if kind == "dqn" else NN_UPDATES
+        ts0 = init(mesh, sem, lv, 3, cfg, B_NN)
+        whole = run(mesh, sem, lv, ts0, cfg, 2 * n)
+        path = out_dir / f"{kind}_rank{mesh.rank}"
+        save_checkpoint(path, run(mesh, sem, lv, ts0, cfg, n))
+        resumed = run(mesh, sem, lv, restore_checkpoint(path, init(mesh, sem, lv, 3, cfg, B_NN)), cfg, n)
+        out[f"{kind} resume"] = (train_state_leaves(whole), train_state_leaves(resumed))
+    res = models.ppo_train_sharded(mesh, sem, lv, 5, PPO_CFG, NN_UPDATES, B_NN)
+    out["ppo train"] = (res.params, res.episodes, res.mean_return, res.final_loss)
+    res = models.dqn_train_sharded(mesh, sem, lv, 5, DQN_PER_CFG, NN_STEPS, B_NN)
+    out["dqn train"] = (res.params, res.episodes, res.mean_return, res.final_loss)
+    if mesh.size == 4 and len(mesh.shape) == 1:  # the 4-rank state the elastic world resumes
+        for kind in ("ppo", "dqn"):
+            init, run, cfg = _trainer(kind)
+            ts = run(mesh, sem, lv, init(mesh, sem, lv, 10, cfg, B_NN), cfg, 4 if kind == "ppo" else 8)
+            whole = models.gather_train_state(mesh, ts)
+            if mesh.rank == 0:
+                torch.save(whole, out_dir / f"elastic_{kind}.pt")
+    return out
+
+
+def run_elastic_entries(mesh, extra) -> dict:
+    """The 4-rank PPO and DQN states resumed on this world through
+    `reshard_stats`, and a few more updates."""
+    sem, lv = T.make_semantics(device=CPU), model_level()
+    out = {}
+    for kind in ("ppo", "dqn"):
+        _, run, cfg = _trainer(kind)
+        whole = torch.load(Path(extra["dir"]) / f"elastic_{kind}.pt", weights_only=False)
+        moved = models.reshard_stats(whole, mesh)
+        ts = run(mesh, sem, lv, moved, cfg, 3 if kind == "ppo" else 6)
+        out[kind] = (moved, train_state_leaves(ts), models.gather_train_state(mesh, ts))
+    return out
+
+
+ENTRIES = {"parallel": run_entries, "learner": run_learner_entries, "models": run_model_entries,
+           "elastic": run_elastic_entries}
+
+
+def rank_main(rank: int, world: int, hosts: int, port: int, out_dir: str, entries: str = "parallel") -> None:
+    """One rank of `run_world`: join the group, run the entries, save."""
     torch.set_num_threads(1)
     out = Path(out_dir)
     distributed.initialize("gloo", f"tcp://127.0.0.1:{port}", world, rank, device=CPU,
@@ -162,21 +333,22 @@ def rank_main(rank: int, world: int, hosts: int, port: int, out_dir: str) -> Non
             mesh = parallel.make_host_env_mesh(hosts, world // hosts, device=CPU)
         else:
             mesh = parallel.make_env_mesh(world, device=CPU)
-        result = run_entries(mesh, torch.load(out / "inputs.pt", weights_only=False))
+        result = ENTRIES[entries](mesh, torch.load(out / "inputs.pt", weights_only=False))
         torch.save(result, out / f"rank{rank}.pt")
     finally:
         distributed.shutdown()
 
 
-def run_world(world: int, hosts: int, out_dir: Path, extra: dict) -> list[dict]:
-    """Start `world` spawned ranks on `extra`, wait at most
-    `WORLD_TIMEOUT_S`, and return each rank's results in rank order; raise
-    if a rank failed or did not end in time (the rest are killed)."""
+def run_world(world: int, hosts: int, out_dir: Path, extra: dict, entries: str = "parallel") -> list[dict]:
+    """Start `world` spawned ranks running `ENTRIES[entries]` on `extra`,
+    wait at most `WORLD_TIMEOUT_S`, and return each rank's results in rank
+    order; raise if a rank failed or did not end in time (the rest are
+    killed)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     torch.save(extra, out_dir / "inputs.pt")
     ctx = multiprocessing.get_context("spawn")
     port = free_port()
-    procs = [ctx.Process(target=rank_main, args=(r, world, hosts, port, str(out_dir)))
+    procs = [ctx.Process(target=rank_main, args=(r, world, hosts, port, str(out_dir), entries))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -258,6 +430,36 @@ def _drill_resume(engine, ckpt_dir):
     print("COMPLETED", int(ts.step))
 
 
+SHARDED_DRILL_CHUNKS = 3
+
+
+def _drill_sharded_resume(rank, world, port, ckpt_dir):
+    """PPO, then DQN, over `world` ranks in chunks, each rank checkpointing
+    its own state after every chunk (a barrier after the saves); rank 1
+    SIGKILLs itself after chunk GU_CRASH_AFTER_CHUNK. Each rank saves its
+    final state's leaves."""
+    from griduniverse_tpu_torch.utils.checkpoint import CheckpointManager
+
+    crash_after = int(os.environ.get("GU_CRASH_AFTER_CHUNK", "-1"))
+    distributed.initialize("gloo", f"tcp://127.0.0.1:{port}", world, rank, device=CPU, timeout_s=60)
+    mesh = parallel.make_env_mesh(world, device=CPU)
+    sem, lv = T.make_semantics(device=CPU), model_level()
+    for kind in ("ppo", "dqn"):
+        init, run, cfg = _trainer(kind)
+        n = 1 if kind == "ppo" else NN_STEPS // 2
+        mgr = CheckpointManager(Path(ckpt_dir) / f"{kind}_rank{rank}", max_to_keep=2)
+        start, ts = mgr.restore_latest(init(mesh, sem, lv, 3, cfg, B_NN))
+        for chunk in range(start, SHARDED_DRILL_CHUNKS):
+            ts = run(mesh, sem, lv, ts, cfg, n)
+            mgr.save(chunk + 1, ts)
+            parallel.mesh.all_reduce_sum(mesh, torch.ones(1, dtype=torch.int64))  # every rank has saved
+            if kind == "ppo" and chunk + 1 == crash_after and rank == 1:
+                os.kill(os.getpid(), signal.SIGKILL)  # a hard fault: no cleanup
+        torch.save(train_state_leaves(ts), Path(ckpt_dir) / f"final_{kind}_rank{rank}.pt")
+    distributed.shutdown()
+    print("COMPLETED")
+
+
 def drill_engine(engine):
     """(initial train state, run of one chunk) of a resume drill."""
     sem, level = drill_levels()
@@ -277,4 +479,5 @@ if __name__ == "__main__":
         _drill_resume(sys.argv[2], sys.argv[3])
     else:
         rank, world, port, out = int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
-        {"sharded": _drill_sharded, "peer_loss": _drill_peer_loss}[mode](rank, world, port, out)
+        {"sharded": _drill_sharded, "peer_loss": _drill_peer_loss,
+         "sharded_resume": _drill_sharded_resume}[mode](rank, world, port, out)
