@@ -57,6 +57,12 @@ size and checks what comes out:
     MC learners and A2C, PPO and DQN trainers (phase 27), over NCCL in a
     world of one at full width and over Gloo with two ranks on the card,
     each held against the unsharded port.
+  * the generalization gate (phase 28, `tools/gen_artifact.py`): K3's
+    1,024 training and 256 held-out 7×7 mazes, PPO with the conv trunk over
+    them (K7a, K7b, K9b in float32), the greedy evaluation and its
+    wrong-tiles ablation (K7b's greedy form), and the 11×11 fresh-maze
+    curriculum, cut to 10 updates and 2 chunks × 5; K3's times at 1,024
+    mazes of 3×3, 4×4 and 5×5 cells.
 
 Each main path is driven with the launch counts set to 0 just before it and
 read just after, and every count must be the one the path's shape gives. The
@@ -984,6 +990,134 @@ def _same_train_state(tag: str, a, b) -> None:
     _same_fields(tag, fa, fb, labels)
 
 
+def _apply(net, params, obs, tiles):
+    return torch.func.functional_call(net, params, (obs,) if tiles is None else (obs, tiles))
+
+
+def _hold_last_update(name, sem, level, cfg, before_last, end, batch, tol, errs):
+    """A training run's last update against the plain versions (phases 13
+    and 28). The update is redone by the trainer's own update function on
+    the trainer's own draws and must end in the run's state. Every act_step
+    of it: the plain version, chained from the update's first state on the
+    same logits and noise, against the rows the trainer recorded, and the
+    kernel once more on each step's inputs; then the bootstrap, the plain
+    rollout's last state, and K7a's advantages (PPO) or returns (A2C). The
+    update's first minibatch, forward and backward, with the kernels and with
+    the plain versions: the losses bit-equal, each gradient within `tol` of
+    its scale, and the K9a or K9b backward's own gradients bit for bit
+    against the plain fixed-order backward. Adds each kernel's largest error
+    into `errs`. Returns ((trajectory, bootstrap, first minibatch, its tiles,
+    network, parameters), the last act_step's inputs)."""
+    from griduniverse_tpu_torch.models import a2c, networks, ppo
+
+    def hold(kname, tag, got, ref, fields):
+        errs[kname] = max(errs[kname], _same_fields(tag, got, ref, fields))
+
+    is_ppo = isinstance(cfg, ppo.PPOConfig)
+    params = before_last.params
+    with networks.exact_kernels():
+        if is_ppo:
+            learner = ppo.ppo_learner(sem, level, cfg, batch)
+            noise, draws = ppo.update_draws(level.grid.device, before_last.seed, before_last.update, cfg, batch,
+                                            sem.num_actions)
+            upd = ppo.ppo_update(sem, learner, cfg, params, before_last.opt_state, before_last.env_state, noise, draws)
+        else:
+            learner = a2c.a2c_learner(sem, level, cfg, batch)
+            noise = a2c.update_noise(level.grid.device, before_last.seed, before_last.update, cfg, batch,
+                                     sem.num_actions)
+            upd = a2c.a2c_update(sem, learner, cfg, params, before_last.opt_state, before_last.env_state, noise)
+    bl, net, tiles, _, act_plan = learner
+    _require(act_plan is not None, f"{name}: the learner built no K7b plan on the card")
+    stand_in = type(end)(**{**vars(end), "params": upd.params, "opt_state": upd.opt_state,
+                            "env_state": upd.env_state, "last_loss": upd.loss})
+    _same_train_state(f"{name} the last update redone", stand_in, end)
+    traj = upd.traj
+
+    st = before_last.env_state
+    with torch.no_grad(), networks.exact_kernels():
+        for t, g_t in enumerate(noise):
+            logits, value = _apply(net, params, st.agent_idx, tiles)
+            _same(f"{name} step {t} value", value, traj.value[t])
+            ref = a2c.act_step_reference(sem, bl, st, logits, g_t, cfg.max_episode_steps)
+            hold("act_step", f"K7b main {name} step {t}", (traj.action[t], traj.obs[t], traj.reward[t], traj.done[t]),
+                 (ref[1], ref[3], ref[4], ref[5]), _ACT_FIELDS[:4])
+            errs["act_step"] = max(errs["act_step"], _logp_err(f"K7b main {name} step {t}", traj.logp[t], ref[2]))
+            got = a2c.act_step(sem, bl, st, logits, g_t, cfg.max_episode_steps)
+            hold("act_step", f"K7b main {name} step {t} again", _act_fields(got), _act_fields(ref), _ACT_FIELDS)
+            last_act = (bl, st, logits, g_t, cfg.max_episode_steps)
+            st = ref[0]
+        _, bootstrap = _apply(net, params, st.agent_idx, tiles)
+    _same(f"{name} bootstrap", bootstrap, upd.bootstrap)
+    _same_fields(f"K7b main {name}: the plain rollout's last state", [getattr(st, f) for f in _STATE_FIELDS],
+                 [getattr(upd.env_state, f) for f in _STATE_FIELDS], _STATE_FIELDS)
+    if is_ppo:
+        hold("gae", f"K7a main {name}", (upd.adv, upd.targets),
+             ppo.gae_advantages_reference(traj, upd.bootstrap, cfg.gamma, cfg.gae_lambda), ("adv", "targets"))
+        mb, mb_tiles = upd.first_minibatch
+
+        def loss_of(live):
+            return ppo.ppo_loss(net, live, mb, mb_tiles, cfg)[0]
+    else:
+        hold("gae", f"K7a main {name}", (upd.returns,),
+             (a2c.nstep_returns_reference(traj.reward, traj.done, upd.bootstrap, cfg.gamma),), ("returns",))
+        mb = mb_tiles = None
+
+        def loss_of(live):
+            return a2c.a2c_loss(net, live, tiles, traj, upd.returns, cfg)
+    print(f"{name} main, last update: redone by the trainer's update function it ends in the main path's state; "
+          f"every act_step exact vs plain (logp within 2 ulp), K7a bit-exact vs plain (episode ends: {int(traj.done.sum())})")
+
+    seen_embed, seen_stamp = [], []
+    real_embed, real_stamp = networks.embed_rows, networks.agent_stamp
+
+    def recording_embed(table, obs, dtype):
+        out = real_embed(table, obs, dtype)
+        out.retain_grad()
+        seen_embed.append((obs, out))
+        return out
+
+    def recording_stamp(y_tiles, k_agent, bias, obs):
+        out = real_stamp(y_tiles, k_agent, bias, obs)
+        for x in (y_tiles, k_agent, out):
+            x.retain_grad()
+        seen_stamp.append((y_tiles, k_agent, obs, out))
+        return out
+
+    def loss_and_grads(**patches):
+        live = a2c.leaves(params)
+        with mock.patch.multiple(networks, **patches), networks.exact_kernels():
+            loss = loss_of(live)
+            loss.backward()
+        return loss.detach(), {k: v.grad for k, v in live.items()}
+
+    loss_k, grads_k = loss_and_grads(embed_rows=recording_embed, agent_stamp=recording_stamp)
+    loss_p, grads_p = loss_and_grads(embed_rows=networks.embed_rows_reference,
+                                     agent_stamp=networks.agent_stamp_reference)
+    _same(f"{name} minibatch loss, kernels vs plain", loss_k, loss_p)
+    if not is_ppo:  # A2C's one minibatch is its whole update
+        _same(f"{name} minibatch loss vs the update's", loss_k, upd.loss)
+    worst = 0.0
+    for leaf in grads_k:
+        err = _rel_err(f"{name} minibatch gradient {leaf}", grads_k[leaf], grads_p[leaf], tol)
+        worst = max(worst, err / max(float(grads_p[leaf].abs().max()), 1e-30))
+    if seen_stamp:
+        kname = "agent_stamp"
+        (y_tiles, k_agent, obs, out), = seen_stamp
+        fixed = networks.agent_stamp_backward_reference(out.grad, out.detach(), obs, y_tiles.shape[0])
+        hold(kname, f"K9b main {name} backward", (y_tiles.grad, k_agent.grad, grads_k["conv_0_bias"]),
+             fixed, ("dy_tiles", "dk", "dbias"))
+        del fixed, y_tiles, k_agent, out
+    else:
+        kname = "embed_rows"
+        (obs, out), = seen_embed
+        hold(kname, f"K9a main {name} backward", (grads_k["embed"],),
+             (networks.embed_rows_backward_reference(out.grad, obs, params["embed"].shape[0]),), ("dtable",))
+    print(f"{name} main, one minibatch of {int(obs.shape[0])} samples: loss bit-equal with kernels and with plain "
+          f"versions, every gradient within {tol} of its scale of autograd's (worst {worst!r}); the {kname} "
+          "backward's own gradients bit-exact vs the plain fixed-order backward")
+    return (traj, upd.bootstrap, mb, mb_tiles, net, params), last_act
+
+
 def learner_phases(gt, dev, gen, bound, smi):
     """Phases 11-14: K7a, K7b, K9a and K9b against their plain versions at
     small shapes, the training main path at full width with its launches
@@ -1223,125 +1357,13 @@ def learner_phases(gt, dev, gen, bound, smi):
     _require(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
 
     # -- phase 13: the main paths' last updates against the plain versions -------
-    def apply(net, params, obs, tiles):
-        return torch.func.functional_call(net, params, (obs,) if tiles is None else (obs, tiles))
-
     kept = {}
     for name, (level, cfg, before_last, end) in runs.items():
-        is_ppo = name.startswith("ppo")
-        params = before_last.params
-        # the last update once more, by the trainer's own update function on
-        # the trainer's own draws; it must end where the main path's run ended
-        with networks.exact_kernels():
-            if is_ppo:
-                learner = ppo.ppo_learner(sem, level, cfg, n64)
-                noise, draws = ppo.update_draws(dev, before_last.seed, before_last.update, cfg, n64, num_actions)
-                upd = ppo.ppo_update(sem, learner, cfg, params, before_last.opt_state, before_last.env_state, noise, draws)
-            else:
-                learner = a2c.a2c_learner(sem, level, cfg, n64)
-                noise = a2c.update_noise(dev, before_last.seed, before_last.update, cfg, n64, num_actions)
-                upd = a2c.a2c_update(sem, learner, cfg, params, before_last.opt_state, before_last.env_state, noise)
-        bl, net, tiles, _, act_plan = learner
-        _require(act_plan is not None, f"{name}: the learner built no K7b plan on the card")
-        stand_in = type(end)(**{**vars(end), "params": upd.params, "opt_state": upd.opt_state,
-                                "env_state": upd.env_state, "last_loss": upd.loss})
-        _same_train_state(f"{name} the last update redone", stand_in, end)
-        traj = upd.traj
-
-        # every act_step of that update: the plain version, chained from the
-        # update's first state on the same logits and noise, against the rows
-        # the trainer recorded; and the kernel once more on each step's inputs
-        st = before_last.env_state
-        with torch.no_grad(), networks.exact_kernels():
-            for t, g_t in enumerate(noise):
-                logits, value = apply(net, params, st.agent_idx, tiles)
-                _same(f"{name} step {t} value", value, traj.value[t])
-                ref = a2c.act_step_reference(sem, bl, st, logits, g_t, cfg.max_episode_steps)
-                _same_fields(f"K7b main {name} step {t}", (traj.action[t], traj.obs[t], traj.reward[t], traj.done[t]),
-                             (ref[1], ref[3], ref[4], ref[5]), _ACT_FIELDS[:4])
-                errs["act_step"] = max(errs["act_step"], _logp_err(f"K7b main {name} step {t}", traj.logp[t], ref[2]))
-                got = a2c.act_step(sem, bl, st, logits, g_t, cfg.max_episode_steps)
-                _same_fields(f"K7b main {name} step {t} again", _act_fields(got), _act_fields(ref), _ACT_FIELDS)
-                kept[f"act {name}"] = (bl, st, logits, g_t, cfg.max_episode_steps)
-                st = ref[0]
-            _, bootstrap = apply(net, params, st.agent_idx, tiles)
-        _same(f"{name} bootstrap", bootstrap, upd.bootstrap)
-        _same_fields(f"K7b main {name}: the plain rollout's last state", [getattr(st, f) for f in _STATE_FIELDS],
-                     [getattr(upd.env_state, f) for f in _STATE_FIELDS], _STATE_FIELDS)
-        if is_ppo:
-            hold("gae", f"K7a main {name}", (upd.adv, upd.targets),
-                 ppo.gae_advantages_reference(traj, upd.bootstrap, cfg.gamma, cfg.gae_lambda), ("adv", "targets"))
-            mb, mb_tiles = upd.first_minibatch
-            kept[name] = (traj, upd.bootstrap, mb, mb_tiles, net, params)
-
-            def loss_of(live, mb=mb, mb_tiles=mb_tiles, net=net, cfg=cfg):
-                return ppo.ppo_loss(net, live, mb, mb_tiles, cfg)[0]
-        else:
-            hold("gae", f"K7a main {name}", (upd.returns,),
-                 (a2c.nstep_returns_reference(traj.reward, traj.done, upd.bootstrap, cfg.gamma),), ("returns",))
-            kept[name] = (traj, upd.bootstrap, None, None, net, params)
-
-            def loss_of(live, traj=traj, returns=upd.returns, net=net, tiles=tiles, cfg=cfg):
-                return a2c.a2c_loss(net, live, tiles, traj, returns, cfg)
-        print(f"{name} main, last update: redone by the trainer's update function it ends in the main path's state; "
-              f"every act_step exact vs plain (logp within 2 ulp), K7a bit-exact vs plain (episode ends: {int(traj.done.sum())})")
-
-        # the update's first minibatch, forward and backward: kernels against plain versions
-        seen_embed, seen_stamp = [], []
-        real_embed, real_stamp = networks.embed_rows, networks.agent_stamp
-
-        def recording_embed(table, obs, dtype):
-            out = real_embed(table, obs, dtype)
-            out.retain_grad()
-            seen_embed.append((obs, out))
-            return out
-
-        def recording_stamp(y_tiles, k_agent, bias, obs):
-            out = real_stamp(y_tiles, k_agent, bias, obs)
-            for x in (y_tiles, k_agent, out):
-                x.retain_grad()
-            seen_stamp.append((y_tiles, k_agent, obs, out))
-            return out
-
-        def loss_and_grads(**patches):
-            live = a2c.leaves(params)
-            with mock.patch.multiple(networks, **patches), networks.exact_kernels():
-                loss = loss_of(live)
-                loss.backward()
-            return loss.detach(), {k: v.grad for k, v in live.items()}
-
-        loss_k, grads_k = loss_and_grads(embed_rows=recording_embed, agent_stamp=recording_stamp)
-        loss_p, grads_p = loss_and_grads(embed_rows=networks.embed_rows_reference,
-                                         agent_stamp=networks.agent_stamp_reference)
-        _same(f"{name} minibatch loss, kernels vs plain", loss_k, loss_p)
-        if not is_ppo:  # A2C's one minibatch is its whole update
-            _same(f"{name} minibatch loss vs the update's", loss_k, upd.loss)
-        kname = "agent_stamp" if "mazes" in name else "embed_rows"
         # autograd's plain backward adds in another order (float atomics over
         # up to a million samples); with the conv trunk it also rounds the
         # gradients of the stamp's three inputs to bfloat16
-        tol = 2e-2 if kname == "agent_stamp" else 1e-4
-        worst = 0.0
-        for leaf in grads_k:
-            err = _rel_err(f"{name} minibatch gradient {leaf}", grads_k[leaf], grads_p[leaf], tol)
-            worst = max(worst, err / max(float(grads_p[leaf].abs().max()), 1e-30))
-        # the backward kernel on the main path's own gradient, bit for bit
-        # against the plain version that adds in the kernel's order
-        if kname == "embed_rows":
-            (obs, out), = seen_embed
-            hold("embed_rows", f"K9a main {name} backward", (grads_k["embed"],),
-                 (networks.embed_rows_backward_reference(out.grad, obs, params["embed"].shape[0]),), ("dtable",))
-        else:
-            (y_tiles, k_agent, obs, out), = seen_stamp
-            fixed = networks.agent_stamp_backward_reference(out.grad, out.detach(), obs, y_tiles.shape[0])
-            hold("agent_stamp", f"K9b main {name} backward", (y_tiles.grad, k_agent.grad, grads_k["conv_0_bias"]),
-                 fixed, ("dy_tiles", "dk", "dbias"))
-            del fixed, y_tiles, k_agent, out
-        n_mb = int(obs.shape[0])
-        del seen_embed, seen_stamp, grads_k, grads_p
-        print(f"{name} main, one minibatch of {n_mb} samples: loss bit-equal with kernels and with plain versions, "
-              f"every gradient within {tol} of its scale of autograd's (worst {worst!r}); the {kname} backward's "
-              "own gradients bit-exact vs the plain fixed-order backward")
+        tol = 2e-2 if "mazes" in name else 1e-4
+        kept[name], kept[f"act {name}"] = _hold_last_update(name, sem, level, cfg, before_last, end, n64, tol, errs)
 
     # the greedy path once more: every step of it against the plain version
     level, cfg, _, end = runs["ppo mazes64k"]
@@ -1350,7 +1372,7 @@ def learner_phases(gt, dev, gen, bound, smi):
     reached = torch.zeros(n64, dtype=torch.bool, device=dev)
     with torch.no_grad(), networks.exact_kernels():
         for t in range(greedy_steps):
-            logits, _ = apply(net, end.params, st.agent_idx, tiles)
+            logits, _ = _apply(net, end.params, st.agent_idx, tiles)
             got = a2c.greedy_step(sem, bl, st, reached, logits)
             ref = a2c.greedy_step_reference(sem, bl, st, reached, logits)
             _same_fields(f"K7b greedy main step {t}", (*(getattr(got[0], f) for f in _STATE_FIELDS), got[1]),
@@ -3889,6 +3911,154 @@ def sharded_learner_phases(gt, dev, bound, smi):
     return {"trace_partials": path["trace_partials"]}, errs, {"trace_partials": records}
 
 
+# -- phase 28: the generalization gate's path (`tools/gen_artifact.py`) ----------
+# Full width (the recipe's 1,024 training and 256 held-out mazes, its
+# networks), cut in depth: 10 updates at 7×7, and 2 chunks × 5 updates of
+# the 11×11 curriculum. A CPU rehearsal sets these small.
+GATE_MAZES, GATE_EVAL, GATE_BUDGET = 1024, 256, 60
+GATE_UPDATES, GATE_CHUNKS, GATE_CHUNK_UPDATES = 10, 2, 5
+GATE_K3_CELLS = ((3, 3), (4, 4), (5, 5))
+
+
+def gate_phases(gt, dev, bound, smi):
+    """Phase 28: the generalization gate's path through the tool's own
+    functions. K3's training and held-out mazes (`maze_levels`), PPO with
+    the conv trunk at 7×7 (`ppo_init`, `ppo_run`), the greedy evaluation and
+    its wrong-tiles ablation (`greedy_success_rate`), and the fresh-maze
+    curriculum at 11×11 (`curriculum_train`), counted from 0. Then the
+    mazes, the last update's K7b steps, K7a's advantages, K9b's forward and
+    backward, and every greedy step against the plain versions; the
+    curriculum's carried Adam count and rate; seconds an update, the idle
+    share, and K3's times at 1,024 mazes of 3×3, 4×4 and 5×5 cells.
+    Returns (launches, max abs errors, K3's time records)."""
+    from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.kernels import agent_stamp as k9b
+    from griduniverse_tpu_torch.levels import maze as M
+    from griduniverse_tpu_torch.models import a2c, networks, ppo
+    from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.tools import gen_artifact as G
+    from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+
+    errs = dict.fromkeys(("aldous_broder_mazes", "gae", "act_step", "agent_stamp"), 0.0)
+    sem = gt.make_semantics(device=dev)
+    cfg7 = G.gate_config(G.CONFIGS["7x7_ch32"], GATE_UPDATES)
+    cfg11 = G.gate_config(G.CONFIGS["11x11_curriculum"], GATE_CHUNK_UPDATES)
+    cells7, cells11 = (3, 3), (5, 5)
+    models.ppo_train(sem, G.maze_levels(3, 64, cells7, dev), 0, cfg7, 1, 64)  # library handles, allocator
+
+    # the path, counted from 0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    train_lv = G.maze_levels(G.TRAIN_MAZES_SEED, GATE_MAZES, cells7, dev)
+    eval_lv = G.maze_levels(G.EVAL_MAZES_SEED, GATE_EVAL, cells7, dev)
+    abl_lv = G.rolled_tiles_level(eval_lv)
+    ts0 = models.ppo_init(sem, train_lv, 1, cfg7, GATE_MAZES)
+    before_last = models.ppo_run(sem, train_lv, ts0, cfg7, GATE_UPDATES - 1)
+    end = models.ppo_run(sem, train_lv, before_last, cfg7, 1)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    net = models.make_network(train_lv, sem.num_actions, cfg7)
+    held = models.greedy_success_rate(sem, net, end.params, eval_lv, GATE_BUDGET)
+    abl = models.greedy_success_rate(sem, net, end.params, eval_lv, GATE_BUDGET, tiles_levels=abl_lv)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cur, last_lv = G.curriculum_train(sem, cfg11, 1, GATE_CHUNKS, GATE_CHUNK_UPDATES, GATE_MAZES, cells11, dev)
+    torch.cuda.synchronize()
+    cur_ms = (time.perf_counter() - t1) * 1e3
+    got = {k: kernels.LAUNCHES[k] for k in kernels.LAUNCHES}
+    updates = GATE_UPDATES + GATE_CHUNKS * GATE_CHUNK_UPDATES
+    t_len, sgd = cfg7.rollout_len, cfg7.num_epochs * cfg7.num_minibatches
+    expected = {**dict.fromkeys(got, 0),
+                "aldous_broder_mazes": 2 + GATE_CHUNKS,  # training, held-out, one a chunk
+                "act_step": updates * t_len + 2 * GATE_BUDGET,
+                "gae": updates,
+                # an update: T forwards and the bootstrap's, a forward and a backward an SGD step
+                "agent_stamp": updates * (t_len + 1 + sgd * (1 + k9b.backward_launches())) + 2 * GATE_BUDGET}
+    print(f"phase 28 launches (K3 mazes, PPO at 7x7, greedy and ablation, the 11x11 curriculum): "
+          f"{ {k: n for k, n in got.items() if n} }")
+    _require(got == expected, f"phase 28: launches {got}, expected {expected}")
+    launches = {k: got[k] for k in errs}
+    finite = all(bool(torch.isfinite(p).all()) for ts in (end, cur) for p in ts.params.values())
+    _require(finite and bool(torch.isfinite(end.last_loss)) and bool(torch.isfinite(cur.last_loss)),
+             "phase 28: a non-finite parameter or loss")
+    _require(0.0 <= float(held) <= 1.0 and 0.0 <= float(abl) <= 1.0, "phase 28: a success rate out of range")
+    print(f"phase 28 main: {GATE_MAZES} 7x7 mazes, {GATE_UPDATES} updates in {train_ms!r} ms (first call of the "
+          f"path); held-out {float(held)!r}, ablation {float(abl)!r} on {GATE_EVAL} mazes; 11x11 curriculum "
+          f"{GATE_CHUNKS} x {GATE_CHUNK_UPDATES} updates in {cur_ms!r} ms ({smi})")
+
+    # K3's mazes against its plain version, goal included
+    for tag, lv, seed, cells, n in (("training", train_lv, G.TRAIN_MAZES_SEED, cells7, GATE_MAZES),
+                                    ("held-out", eval_lv, G.EVAL_MAZES_SEED, cells7, GATE_EVAL),
+                                    ("last chunk", last_lv, G.chunk_maze_seed(1, GATE_CHUNKS - 1), cells11, GATE_MAZES)):
+        start = torch.tensor(2 * cells[1] + 2, dtype=torch.int32, device=dev)  # (1, 1) in a row of 2c + 1
+        ref = G.goal_levels(M.aldous_broder_mazes_reference(cells, n, seed=seed, device=dev), start)
+        errs["aldous_broder_mazes"] = max(errs["aldous_broder_mazes"], _same_fields(
+            f"K3 phase 28 {tag}", (lv.grid, lv.start_idx), (ref.grid, ref.start_idx), ("grid", "start")))
+        _require(all(M.check_perfect_maze(g, cells) for g in lv.grid[:64].cpu().numpy()),
+                 f"phase 28 {tag}: a maze is not perfect")
+    print("K3 phase 28: the training, held-out and last chunk's mazes bit-exact vs plain, goal and start included")
+
+    # the curriculum's carried Adam count and its rate
+    per_update = cfg11.num_epochs * cfg11.num_minibatches
+    count = int(cur.opt_state.count)
+    _require(count == GATE_CHUNKS * GATE_CHUNK_UPDATES * per_update and cur.update == GATE_CHUNK_UPDATES,
+             f"phase 28 curriculum: Adam count {count}, update {cur.update}")
+    rate = float(ppo._rate(cfg11)(cur.opt_state.count))
+    want = cfg11.lr * (1 - count / (cfg11.lr_decay_updates * per_update))
+    _require(abs(rate - want) <= 1e-6 * cfg11.lr, f"phase 28 curriculum: rate {rate!r} at count {count}, not {want!r}")
+    print(f"phase 28 curriculum: Adam count {count} carried over {GATE_CHUNKS} chunks; the next rate {rate!r} is the "
+          f"linear schedule's over {cfg11.lr_decay_updates} updates ({want!r})")
+
+    # the last 7x7 update, float32: K7b, K7a and K9b against the plain versions
+    _hold_last_update("phase 28 ppo 7x7", sem, train_lv, cfg7, before_last, end, GATE_MAZES, 1e-4, errs)
+
+    # every greedy step of the evaluation and of the ablation against the plain version
+    for tag, planes, rate_main in (("held-out", eval_lv, held), ("ablation", abl_lv, abl)):
+        ebl = bp.pack_level(eval_lv)
+        etiles = a2c._tiles_for(net, planes)
+        st = bp.reset_bits(ebl, None)
+        reached = torch.zeros(GATE_EVAL, dtype=torch.bool, device=dev)
+        with torch.no_grad(), networks.exact_kernels():
+            for t in range(GATE_BUDGET):
+                logits, _ = _apply(net, end.params, st.agent_idx, etiles)
+                got_g = a2c.greedy_step(sem, ebl, st, reached, logits)
+                ref_g = a2c.greedy_step_reference(sem, ebl, st, reached, logits)
+                errs["act_step"] = max(errs["act_step"], _same_fields(
+                    f"K7b phase 28 greedy {tag} step {t}", (*(getattr(got_g[0], f) for f in _STATE_FIELDS), got_g[1]),
+                    (*(getattr(ref_g[0], f) for f in _STATE_FIELDS), ref_g[1]), (*_STATE_FIELDS, "reached")))
+                st, reached = ref_g
+        _same(f"phase 28 greedy {tag}: the success rate", reached.float().mean(), rate_main)
+    print(f"phase 28 greedy: each of the {GATE_BUDGET} greedy steps on {GATE_EVAL} held-out mazes, with their own and "
+          "with the rolled planes, exact vs plain; both rates equal the path's")
+
+    # seconds an update and the idle share, each config's shape
+    for tag, lv, ts, cfg, n in (("7x7 ch32", train_lv, end, cfg7, 5), ("11x11 ch32x2", last_lv, cur, cfg11, 3)):
+        def call(lv=lv, ts=ts, cfg=cfg, n=n):
+            return models.ppo_run(sem, lv, ts, cfg, n)
+
+        walls = sorted(_wall_ms(call) for _ in range(3))
+        idle, events = _idle_share(call, walls[1])
+        print(f"phase 28 {tag}: {[w / n / 1e3 for w in walls]!r} s an update at B={GATE_MAZES} ({n} updates a "
+              f"call, host clock); idle share {idle!r}, {events / n!r} device events an update ({smi})")
+
+    # K3 at the gate's shapes: 1,024 mazes of 3x3, 4x4 and 5x5 cells
+    k3_times = []
+    for cells in GATE_K3_CELLS:
+        ms, got_g = _cuda_ms(lambda cells=cells: M._aldous_broder_mazes(cells, GATE_MAZES, seed=7, device=dev), 10)
+        plain_ms, (ref_g, walk) = _cuda_ms(lambda cells=cells: M.aldous_broder_mazes_reference(
+            cells, GATE_MAZES, seed=7, device=dev, count_steps=True), 1)
+        errs["aldous_broder_mazes"] = max(errs["aldous_broder_mazes"], _same(f"K3 phase 28 timed {cells}", got_g, ref_g))
+        h, w = 2 * cells[0] + 1, 2 * cells[1] + 1
+        s = cells[0] * cells[1]
+        t3 = dict(ms=ms, plain_ms=plain_ms, shape=f"seeded cells={cells} B={GATE_MAZES}", library_ms=None,
+                  **bound(GATE_MAZES * h * w * 4, k3_function_ops(int(walk.sum()), GATE_MAZES * (s - 1), injected=False)))
+        k3_times.append(t3)
+        print(f"time aldous_broder_mazes at {t3['shape']}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
+              f"{t3['bound_ms']!r} ms by {t3['bound_by']}; the longest walk {int(walk.max())} steps ({smi})")
+    return launches, errs, k3_times
+
+
 def _aldous_level(gt, M, dev, seed, b, cells=(4, 4)):
     grids, start = M.generate_mazes_device(seed, cells, b, "aldous_broder", device=dev)
     return gt.Level(grid=grids, start_idx=start.expand(b).contiguous())
@@ -4214,6 +4384,14 @@ def main() -> None:
     errs.update(learner_errs)
     times.update(learner_times)
     elapsed("phase 27")
+    # -- phase 28: the generalization gate's path (K3, K7a, K7b, K9b) ---------------------
+    gate_launches, gate_errs, gate_times = gate_phases(gt, dev, bound, smi)
+    for name, n in gate_launches.items():
+        launches[name] += n
+    for name, err in gate_errs.items():
+        errs[name] = max(errs[name], err)
+    times["aldous_broder_mazes"].extend(gate_times)
+    elapsed("phase 28")
     # a kernel timed at several shapes or in several forms (K1, K2, K3, K11) has
     # a record for each; one of another path carries its own launches and error
     shaped = [(name, t) for name, ts in times.items() for t in (ts if isinstance(ts, list) else [ts])]

@@ -34,8 +34,10 @@ Subpackages:
               the tracing and timing helpers (`profiling`)
   tools     — command-line tools for the card (profile_rollout,
               profile_solvers, profile_learners, profile_kernels (the
-              compat envs' steps too), sass_counts, and gather_probe, the
-              gather probes P1, P2)
+              compat envs' steps too), sass_counts, gather_probe, the
+              gather probes P1, P2, and gen_artifact, the generalization
+              gate with the fresh-maze curriculum, and its probe
+              fresh_maze_curriculum)
 """
 
 from .core.model import ModelTable, build_model_table
