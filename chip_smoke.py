@@ -140,22 +140,53 @@ _STATE_FIELDS = ("agent_idx", "agent_code", "t", "done")
 # through the kernel built for sm_90a with 4 actions, counted in the listings
 # that `python -m griduniverse_tpu_torch.tools.sass_counts DIR` writes (a
 # warp issues both sides of a branch its lanes split on, so both count).
-INSTR_K1_STEP = 85      # the scan loop is 170 instructions for two unrolled steps
+# K1's SASS path a step (four actions, a shared level): its loop over a
+# block of eight steps with their draws is 380 instructions in the xorshift
+# form and 610 in the threefry form (four cipher blocks), over eight. They
+# are printed beside the bound, which rests on `k1_function_ops`. The loop
+# before the redesign was 85 a step (170 for two unrolled steps, the divides
+# included) and 176 in the threefry form (71 of them the cipher, every
+# other step)
+INSTR_K1_STEP = 380 / 8
+INSTR_K1_THREEFRY_STEP = 610 / 8
 XORSHIFT_ROUND = 6      # three shifts and three xors
 # Threefry-2x32-20's own operations a block: 20 rounds of an add, a rotate
 # (one funnel shift) and a xor, and six key injections of two adds each
-# (the round count folded into the key word, the same for every block).
-# K1's threefry loop as built is 176 SASS instructions a step, 71 of them
-# the cipher, taken every other step: 105 + 71 / 2 = 140.5 (its step is not
-# unrolled and reloads the divide's reciprocals; that is the design's cost)
+# (the round count folded into the key word, the same for every block)
 THREEFRY_BLOCK = 20 * 3 + 6 * 2
 
 
-def k1_threefry_function_ops(envs: int, steps: int) -> float:
+def k1_step_ops(actions: int) -> int:
+    """K1's own operations for one auto-reset step, as K4's are counted:
+    the draw 10 (the xorshift round 6; `bits >> 9` 1; its remainder by A,
+    below 512 actions a multiply-high by ⌈2³²/A⌉, a multiply and a subtract
+    3, above with a 64-bit reciprocal, two multiplies more 5); the move 21
+    (the (row, column) delta 2, the new row and column 2, the bounds test
+    3, the candidate's index 1, its tile code 6: the word's index, the
+    load, the bit offset, the shift and the mask, passable and blocked 3,
+    four selects of the new position 4); the outcome 6 (the reward 1,
+    terminal 2, the time limit's t + 1, compare and or 3: that t + 1 is
+    the step's new t); the step's own 2 (`run_ret +=`, the done branch).
+    The loop over steps is the implementation's, not the function's, and
+    an episode's end, its counters and the reset, is spread over its length:
+    neither is counted. 39 a step at four actions."""
+    draw = XORSHIFT_ROUND + 1 + (3 if actions < 512 else 5)
+    return draw + 21 + 6 + 2
+
+
+def k1_function_ops(envs: int, steps: int, actions: int) -> int:
+    """K1's own operations over a call, `k1_step_ops` a step. The bound of
+    its xorshift form rests on this count."""
+    return envs * steps * k1_step_ops(actions)
+
+
+def k1_threefry_function_ops(envs: int, steps: int, actions: int) -> float:
     """K1's threefry form, its own operations over a call: each step is the
-    xorshift form's (`INSTR_K1_STEP`) with its xorshift round taken out,
-    and one Threefry block feeds two steps. 115 a step."""
-    return envs * steps * (INSTR_K1_STEP - XORSHIFT_ROUND + THREEFRY_BLOCK / 2)
+    xorshift form's with its xorshift round taken out, and one Threefry
+    block feeds two steps. 69 a step at four actions."""
+    return envs * steps * (k1_step_ops(actions) - XORSHIFT_ROUND + THREEFRY_BLOCK / 2)
+
+
 INSTR_K2_STEP = 67      # the replay loop is 1,064 instructions a block of 16 steps, their actions' loads included
 # one cell's VI sweep in the packed kernel (`grid_sweeps_packed_kernel<4, false>`:
 # between two barriers 26 instructions on odd sweeps and 31 on even ones, of
@@ -2960,10 +2991,14 @@ def compat_phases(gt, dev, bound, smi, bl_walls):
     t1 = dict(ms=ms, plain_ms=plain_ms, graph_ms=graph_ms, shape=f"threefry walls16 B={b} T={steps} max_ep={mes}",
               library_ms=None, launches=launches["random_scan_bits"], max_abs_err=errs["random_scan_bits"],
               # state in (3 words) and state + accumulators out (7 words) per env
-              **bound(b * 10 * 4, k1_threefry_function_ops(b, steps)))
+              **bound(b * 10 * 4, k1_threefry_function_ops(b, steps, 4)))
+    sass = bound(b * 10 * 4, INSTR_K1_THREEFRY_STEP * b * steps)
     print(f"K1 walls16 B={b} T={steps}: threefry {ms!r} ms as timed, {graph_ms!r} ms in a CUDA graph of ten; "
           f"xorshift {xs_ms!r} ms as timed, {xs_graph_ms!r} in a graph; threefry / xorshift in the graph "
-          f"{graph_ms / xs_graph_ms!r}; bound {t1['bound_ms']!r} ms by {t1['bound_by']} ({smi})")
+          f"{graph_ms / xs_graph_ms!r}; bound {t1['bound_ms']!r} ms by {t1['bound_by']} (the function's "
+          f"{k1_step_ops(4) - XORSHIFT_ROUND + THREEFRY_BLOCK / 2!r} operations a step), {sass['bound_ms']!r} by the "
+          f"kernel's {INSTR_K1_THREEFRY_STEP} SASS instructions a step; {t1['bound_ms'] / graph_ms!r} of the bound "
+          f"reached in the graph ({smi})")
 
     # K2 at T = 1, the compat step's shape
     times = {"random_scan_bits": [t1], "rollout_actions_bits": []}
@@ -4287,9 +4322,13 @@ def main() -> None:
         print(f"K1 timed {name} B={b} T=1000: per-env state and accumulators bit-exact vs plain")
         if name == "walls16":
             # state in (4 words) and state + accumulators out (7 words) per env
-            times["random_scan_bits"] = dict(
-                ms=ms, plain_ms=plain_ms, shape=f"walls16 B={b} T=1000", library_ms=None,
-                **bound(b * 11 * 4, INSTR_K1_STEP * b * 1000))
+            t1 = dict(ms=ms, plain_ms=plain_ms, shape=f"walls16 B={b} T=1000", library_ms=None,
+                      **bound(b * 11 * 4, k1_function_ops(b, 1000, 4)))
+            sass = bound(b * 11 * 4, INSTR_K1_STEP * b * 1000)
+            print(f"K1 timed walls16 B={b} T=1000: {ms!r} ms, bound {t1['bound_ms']!r} ms by {t1['bound_by']} "
+                  f"(the function's {k1_step_ops(4)} operations a step), {sass['bound_ms']!r} by the kernel's "
+                  f"{INSTR_K1_STEP} SASS instructions a step; {t1['bound_ms'] / ms!r} of the bound reached ({smi})")
+            times["random_scan_bits"] = t1
     st = bp.reset_bits(bl_walls, 4096)
     actions = torch.randint(0, 4, (512, 4096), generator=gen, device=dev, dtype=torch.int32)
     ms, got = _cuda_ms(lambda: bp.rollout_actions_bits(sem, bl_walls, st, actions, True, 64), 10)

@@ -46,10 +46,11 @@ _SEM = [_P, _P, _P, _P, _I]            # passable, terminal, reward, deltas, A
 _LEVEL = [_P, _I, _I, _P, _P, _I, _I]  # words, n_words, per_env, starts, h, w
 # argtypes of every C entry point, in the order of its parameters
 _SIGNATURES = {
-    # ...; state in (3), rs; stream, key (2 words), first step, lane offset; outputs (7)
+    # ...; state in (3), rs; stream, key (2 words), first step, lane offset; the
+    # plan's threads and shared bytes, the draw's form and multiplier; outputs (7)
     "gu_random_scan_bits": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I,
                             _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _P, _P, _P, _P],
+                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "gu_rollout_actions_bits": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P],

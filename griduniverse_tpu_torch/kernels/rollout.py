@@ -1,10 +1,15 @@
-"""Wrappers of K1 and K2 (`csrc/rollout.cu`): check, allocate, launch.
+"""Wrappers of K1 and K2 (`csrc/rollout.cu`): plan, check, allocate, launch.
 
-The plain PyTorch versions are `ops.bitplane.random_scan_bits_reference`
-and `ops.bitplane.rollout_actions_bits_reference`.
+K1's `plan` cuts a scan into blocks and picks where each env's level is
+read from; `draw_form` picks how a draw becomes an action. The plain
+PyTorch versions are `ops.bitplane.random_scan_bits_reference` and
+`ops.bitplane.rollout_actions_bits_reference`.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -14,6 +19,61 @@ from .build import check_int, check_tensor, launch
 NARROW_ACTIONS = 8  # up to this many the kernels keep rows in registers; above, their wide form
 STREAM_XORSHIFT, STREAM_THREEFRY = 0, 1  # K1's action streams (`csrc/rollout.cu` `ActionStream`)
 MAX_WORDS = 1024
+
+# K1's plan (`csrc/rollout.cu` `LevelForm`, `DrawForm`, kK1MaxThreads, kStageBytes)
+LEVEL_SHARED, LEVEL_STAGED, LEVEL_DEVICE = 0, 1, 2
+DRAW_MASK, DRAW_MULHI, DRAW_MODULO = 0, 1, 2
+WARP = 32
+MAX_THREADS = 256         # K1's largest block
+SCHEDULERS = 4            # warp schedulers an SM
+STAGE_BYTES = 48 * 1024   # the most bytes of a block's per-env levels staged, as K2 stages them
+
+
+class ScanPlan(NamedTuple):
+    """K1's launch: `threads` a block in `blocks` blocks; each env's level
+    read in form `level` (a shared level in shared memory, a byte a cell;
+    the block's per-env levels' packed words staged there; or read through
+    L1), `shared` bytes of it a block; the wide tables above NARROW_ACTIONS
+    actions."""
+    threads: int
+    blocks: int
+    level: int
+    shared: int
+    wide: bool
+
+
+@functools.lru_cache(maxsize=256)
+def plan(batch: int, n_words: int, per_env: bool, actions: int, sms: int) -> ScanPlan:
+    """One warp a block while each of the card's `sms` · 4 schedulers gets
+    one warp at most (B ≤ 16,896 on 132 SMs), so that a small batch spreads
+    over the SMs; above, blocks of MAX_THREADS (eight warps), which spread
+    evenly over an SM's four schedulers where one-warp blocks leave some a
+    warp more. A shared level takes a byte a cell and one for the cell off
+    the grid (16·n_words + 4 bytes). The block's per-env levels (4·n_words
+    bytes an env) are staged where they fit STAGE_BYTES, else their packed
+    words are read through L1. A function of the shapes and the card; every
+    plan gives the same bits."""
+    batch = check_int("batch", batch, low=1)
+    threads = WARP if -(-batch // WARP) <= sms * SCHEDULERS else MAX_THREADS
+    level, shared = LEVEL_SHARED, 16 * n_words + 4
+    if per_env:
+        staged = threads * n_words * 4
+        level, shared = (LEVEL_STAGED, staged) if staged <= STAGE_BYTES else (LEVEL_DEVICE, 0)
+    return ScanPlan(threads, -(-batch // threads), level, shared, actions > NARROW_ACTIONS)
+
+
+@functools.lru_cache(maxsize=256)
+def draw_form(actions: int) -> tuple[int, int]:
+    """How K1 takes a draw's `(bits >> 9) % actions`, and the multiplier:
+    a mask for a power of two (one action included); below 512 actions
+    x − A·⌊x·m / 2³²⌋ with m = ⌈2³²/A⌉, exact for x < 2²³ since
+    x·(m·A − 2³²) < 2²³·A ≤ 2³²; above, the remainder itself."""
+    a = check_int("number of actions", actions, low=1)
+    if a & (a - 1) == 0:
+        return DRAW_MASK, 0
+    if a < 512:
+        return DRAW_MULHI, -(-(1 << 32) // a)
+    return DRAW_MODULO, 0
 
 
 def semantics_args(passable, terminal, reward, deltas, device):
@@ -71,17 +131,19 @@ def random_scan_bits_cuda(
     agent_idx, agent_code, t, rs,
     num_steps: int, max_episode_steps: int | None, keys=None,
 ):
-    """Launch K1. Without `keys` it draws from the xorshift32 states `rs`;
-    with `keys` (an `ops.bitplane.ThreefryKeys`) from the threefry stream,
-    and `rs` is not read. Returns the final (agent_idx, agent_code, t,
+    """Launch K1 in `plan`'s blocks. Without `keys` it draws from the
+    xorshift32 states `rs`; with `keys` (an `ops.bitplane.ThreefryKeys`)
+    from the threefry stream, and `rs` is not read. Returns the final (agent_idx, agent_code, t,
     done) and the per-env (n_eps int32, ret_sum float32, len_sum int32)."""
     device = code_words.device
     if device.type != "cuda":
         raise ValueError(f"random_scan_bits_cuda takes CUDA tensors, got {device}")
     b = int(agent_idx.shape[0]) if agent_idx.dim() == 1 else 0
-    args = semantics_args(passable, terminal, reward, deltas, device)
-    args += level_args(code_words, start_idx, start_code, height, width, b, device)
-    args += [b, check_int("num_steps", num_steps), max_steps_arg(max_episode_steps)]
+    sem = semantics_args(passable, terminal, reward, deltas, device)
+    level = level_args(code_words, start_idx, start_code, height, width, b, device)
+    p = plan(b, level[1], bool(level[2]), sem[4], torch.cuda.get_device_properties(device).multi_processor_count)
+    level[2] = p.level  # the per-env flag's place takes the level's form
+    args = sem + level + [b, check_int("num_steps", num_steps), max_steps_arg(max_episode_steps)]
     args += [
         check_tensor("agent_idx", agent_idx, torch.int32, (b,), device),
         check_tensor("agent_code", agent_code, torch.int32, (b,), device),
@@ -93,6 +155,8 @@ def random_scan_bits_cuda(
         # the step and the offset below 2^31 keep every global step and lane below 2^32
         args += [None, STREAM_THREEFRY, *map(_signed32, keys.key), check_int("threefry step", keys.step),
                  check_int("lane offset", keys.offset)]
+    form, magic = draw_form(sem[4])
+    args += [p.threads, p.shared, form, _signed32(magic)]
     outs = [torch.empty(b, dtype=torch.int32, device=device) for _ in range(3)]
     outs.append(torch.empty(b, dtype=torch.bool, device=device))
     n_eps = torch.empty(b, dtype=torch.int32, device=device)

@@ -116,7 +116,17 @@ tree's package and builds its kernels):
   Q and the lanes, which every turn must print alike), one scan profiled
   (device time by kernel and the idle share).
 
-PART picks parts by name, all by default: `k2` (K2 and K1), `k3`, `k4` (the K4 calls and
+- K1 (`random_scan_bits`, `k1`) with max_episode_steps 512 at the rollout
+  shapes of `bench.py`: walls16 with B = 65,536 and T = 1,000 in the
+  xorshift and the threefry stream, lava with B = 16,384, per-env 9×9
+  Aldous–Broder mazes with B = 65,536, per-env 33×33 mazes with B = 16,384
+  (T = 1,000 each), walls16 with B = 4,096 (T = 1,000) and an empty 8×8
+  level with B = 1 and T = 100,000 (`cfg1b`'s chain): a call as timed and
+  in a CUDA graph of ten, the cycles a step of the call in the graph at the
+  SM's clock (its time over T; `experiments/k1_cycles.py` reads the warps'
+  own), and a hash of the call's outputs, which every turn must print alike.
+
+PART picks parts by name, all by default: `k1`, `k2` (K2 and K1), `k3`, `k4` (the K4 calls and
 solves), `k4c`, `k5`, `k5s`, `k6`, `k7a`, `k7b`, `k7c`, `k9a`, `k9b`, `k11`, `k12`, `k13`. With `--graph`, this tree's K5 scan is
 also captured in a CUDA graph, replayed and held bit for bit against an
 eager scan (or the capture's error is printed): whether a cooperative
@@ -209,7 +219,7 @@ def _profiled(name, fn, wall_ms, smi):
         print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
 
 
-PARTS = ("k2", "k3", "k4", "k4c", "k5", "k5s", "k6", "k7a", "k7b", "k7c", "k9a", "k9b", "k11", "k12", "k13")
+PARTS = ("k1", "k2", "k3", "k4", "k4c", "k5", "k5s", "k6", "k7a", "k7b", "k7c", "k9a", "k9b", "k11", "k12", "k13")
 
 
 def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
@@ -217,6 +227,8 @@ def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
     smi = _smi()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if "k1" in parts:
+        k1_calls(tag, dev, smi)
     if "k2" in parts:
         k2_calls(tag, dev, smi)
     if "k4" in parts:
@@ -578,6 +590,59 @@ def k2_calls(tag, dev, smi) -> None:
 
     print(f"[{tag}] K1 walls16 B=65536 T=1000: {_events_ms(scan, 10)!r} ms a call as timed; outputs' hash "
           f"{_hash(scan()[1:])} ({smi})")
+
+
+# K1's shapes: (name, level, B, T, stream)
+K1_SHAPES = (
+    ("walls16 B=65536 T=1000 xorshift", "walls16", 65_536, 1_000, "xorshift"),
+    ("walls16 B=65536 T=1000 threefry", "walls16", 65_536, 1_000, "threefry"),
+    ("lava B=16384 T=1000", "lava", 16_384, 1_000, "xorshift"),
+    ("per-env 9x9 mazes B=65536 T=1000", (4, 4), 65_536, 1_000, "xorshift"),
+    ("per-env 33x33 mazes B=16384 T=1000", (16, 16), 16_384, 1_000, "xorshift"),
+    ("walls16 B=4096 T=1000", "walls16", 4_096, 1_000, "xorshift"),
+    ("empty 8x8 B=1 T=100000", "empty8", 1, 100_000, "xorshift"),
+)
+
+
+def k1_levels(gt, dev) -> dict:
+    """The packed levels of K1_SHAPES, by their names."""
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.ops import bitplane as bp
+
+    levels = {"walls16": bp.pack_level(builders.walls_and_goal_16x16(device=dev)),
+              "lava": bp.pack_level(builders.lava_level(device=dev)),
+              "empty8": bp.pack_level(builders.empty_level(8, 8, goal=True, device=dev))}
+    for _, level, b, _, _ in K1_SHAPES:
+        if isinstance(level, tuple):
+            levels[level] = bp.pack_level(_mazes(gt, dev, 7, level, b))
+    return levels
+
+
+def k1_calls(tag, dev, smi) -> None:
+    """K1 at its shapes as timed and in a CUDA graph of ten, with the cycles
+    a step of the call in the graph."""
+    import griduniverse_tpu_torch as gt
+    from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    sem = gt.make_semantics(device=dev)
+    levels = k1_levels(gt, dev)
+    hz = _max_sm_hz()
+    for name, level, b, steps, rng in K1_SHAPES:
+        bl = levels[level]
+        st = bp.reset_bits(bl, None if bl.batched else b)
+        rs = bp.xorshift_init(3, (b,), device=dev) if rng == "xorshift" else None
+        keys = bp.threefry_keys(3) if rng == "threefry" else None
+
+        def scan(bl=bl, st=st, rs=rs, keys=keys, steps=steps, rng=rng):
+            return bp.random_scan_bits(sem, bl, st, rs, keys, steps, 512, rng)
+
+        out = scan()
+        timed = _events_ms(scan, 3 if steps > 1_000 else 10)
+        graph = _graph_ms(scan, 10, 2 if steps > 1_000 else 10)
+        print(f"[{tag}] K1 {name}: {timed!r} ms a call as timed, {graph!r} ms in a CUDA graph of ten, "
+              f"{graph * 1e-3 * hz / steps!r} cycles a step at {hz / 1e6!r} MHz, {b * steps / (graph * 1e-3)!r} "
+              f"steps/s; outputs' hash {_hash((*out[1:], out[0].agent_idx, out[0].t))} ({smi})")
 
 
 def k7b_calls(tag, dev, smi) -> None:

@@ -71,11 +71,17 @@ def test_rollout_actions_kernel_matches_plain(dev, mode):
             assert torch.equal(getattr(got_state, f), getattr(ref_state, f))
 
 
-def test_random_scan_kernel_matches_plain(dev):
+@pytest.mark.parametrize("b", [1, 33, 1024, 4096, 65_536])
+def test_random_scan_kernel_matches_plain(dev, b):
+    """K1 at batches from one warp-block to the one-wave limit's half, on a
+    shared level and on per-env 4x4 mazes (their warps staged), with a
+    time limit."""
     sem = T.make_semantics(device=dev)
-    for bl in _levels(dev).values():
-        st = bp.reset_bits(bl, None if bl.batched else 1024)
-        rs = bp.xorshift_init(9, (1024,), device=dev)
+    grids, start = M.generate_mazes_device(4, (4, 4), b, "binary_tree", device=dev)
+    mazes = bp.pack_level(T.Level(grid=grids, start_idx=start.expand(b).contiguous()))
+    for bl in (_levels(dev)["walls16"], mazes):
+        st = bp.reset_bits(bl, None if bl.batched else b)
+        rs = bp.xorshift_init(9, (b,), device=dev)
         before = kernels.LAUNCHES["random_scan_bits"]
         got = bp.random_scan_bits(sem, bl, st, rs, None, 700, 100)
         assert kernels.LAUNCHES["random_scan_bits"] == before + 1
@@ -83,6 +89,58 @@ def test_random_scan_kernel_matches_plain(dev):
         _assert_same(got[1:], ref[1:])
         for f in ("agent_idx", "agent_code", "t", "done"):
             assert torch.equal(getattr(got[0], f), getattr(ref[0], f))
+
+
+@pytest.mark.parametrize("tier", ["planned", "device"])
+@pytest.mark.parametrize("a", [4, 9, 25])
+@pytest.mark.parametrize("b", [33, 4096, 65_536])
+def test_random_scan_kernel_matches_plain_over_33x33_mazes(dev, monkeypatch, b, a, tier):
+    """K1 over per-env 33x33 mazes (69 words a level) in both streams and
+    both tiers: as `plan` picks them (staged in shared memory in one-warp
+    blocks, 8,832 bytes; at 65,536 read through L1, since a block of eight
+    warps would stage 70,656 bytes, above STAGE_BYTES), and read through L1
+    (the plan forced); no time limit and one."""
+    from griduniverse_tpu_torch.kernels import rollout as rollout_kernels
+
+    plan = rollout_kernels.plan
+    if tier == "device":
+        monkeypatch.setattr(rollout_kernels, "plan", lambda *args: plan(*args)._replace(
+            level=rollout_kernels.LEVEL_DEVICE, shared=0))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    one_warp_blocks = b <= sms * rollout_kernels.SCHEDULERS * rollout_kernels.WARP
+    assert plan(b, 69, True, a, sms).level == (
+        rollout_kernels.LEVEL_STAGED if one_warp_blocks else rollout_kernels.LEVEL_DEVICE)
+    sem = T.make_semantics(device=dev) if a == 4 else _sem_of(dev, a)
+    grids, start = M.generate_mazes_device(5, (16, 16), b, "aldous_broder", device=dev)
+    bl = bp.pack_level(T.Level(grid=grids, start_idx=start.expand(b).contiguous()))
+    st = bp.reset_bits(bl)
+    for rng, keys, max_ep in (("xorshift", None, None), ("threefry", bp.threefry_keys(3, step=5, offset=7), 90)):
+        rs = bp.xorshift_init(2, (b,), device=dev) if rng == "xorshift" else None
+        got = bp.random_scan_bits(sem, bl, st, rs, keys, 400, max_ep, rng)
+        ref = bp.random_scan_bits_reference(sem, bl, st, rs, 400, max_ep, rng, keys)
+        _assert_same(got[1:], ref[1:])
+        for f in ("agent_idx", "agent_code", "t", "done"):
+            assert torch.equal(getattr(got[0], f), getattr(ref[0], f))
+
+
+@pytest.mark.parametrize("split", [1, 8, 333])
+def test_random_scan_kernel_two_chunks_equal_one_run(dev, split):
+    """K1's xorshift form in two chunks (the second from the first's state
+    and the states drawn on, as `td_run`-style callers chunk a scan) equals
+    one run, mid-episode, across a block of eight draws and its tail."""
+    sem = T.make_semantics(device=dev)
+    bl = _levels(dev)["walls16"]
+    st = bp.reset_bits(bl, 4096)
+    rs = bp.xorshift_init(4, (4096,), device=dev)
+    one = bp.random_scan_bits(sem, bl, st, rs, None, 1000, 64)
+    first = bp.random_scan_bits(sem, bl, st, rs, None, split, 64)
+    rs_mid = rs
+    for _ in range(split):
+        rs_mid = bp.xorshift_next(rs_mid)[0]
+    second = bp.random_scan_bits(sem, bl, first[0], rs_mid, None, 1000 - split, 64)
+    for f in ("agent_idx", "agent_code", "t", "done"):
+        assert torch.equal(getattr(one[0], f), getattr(second[0], f))
+    _assert_same((one[1], one[3]), (first[1] + second[1], first[3] + second[3]))
 
 
 @pytest.mark.parametrize("cells,max_iters", [((4, 4), 3000), ((5, 5), 20), ((16, 16), None)])
@@ -1912,7 +1970,7 @@ def _same_state(got, ref):
 
 @pytest.mark.parametrize("max_ep", [None, 40])
 @pytest.mark.parametrize("a", [4, 9])
-@pytest.mark.parametrize("b", [1, 33, 65_537])
+@pytest.mark.parametrize("b", [1, 33, 4096, 65_536, 65_537])
 def test_random_scan_threefry_kernel_matches_plain(dev, b, a, max_ep):
     """K1's threefry instantiation, narrow (4 actions) and wide (9), on a
     shared level and on per-env mazes, from an odd first step and a lane
@@ -1933,23 +1991,27 @@ def test_random_scan_threefry_kernel_matches_plain(dev, b, a, max_ep):
         assert int(got[1].sum()) > 0 or max_ep is None
 
 
-def test_random_scan_threefry_kernel_chunks_and_lanes(dev):
-    """Two chunks of the kernel equal one run; two half batches with their
-    lane offsets equal the whole; rollout_random_bits is one launch."""
+@pytest.mark.parametrize("b", [1, 33, 4096, 65_536])
+def test_random_scan_threefry_kernel_chunks_and_lanes(dev, b):
+    """Two chunks of the kernel equal one run (the second from an odd
+    step); two parts of the batch with their lane offsets (split inside a
+    warp) equal the whole; rollout_random_bits is one launch."""
     sem = T.make_semantics(device=dev)
     bl = _levels(dev)["walls16"]
-    st = bp.reset_bits(bl, 4096)
+    st = bp.reset_bits(bl, b)
     one = bp.random_scan_bits(sem, bl, st, None, bp.threefry_keys(5), 1000, 64, "threefry")
     first = bp.random_scan_bits(sem, bl, st, None, bp.threefry_keys(5), 333, 64, "threefry")
     second = bp.random_scan_bits(sem, bl, first[0], None, bp.threefry_keys(5, step=333), 667, 64, "threefry")
     _same_state(one[0], second[0])
     _assert_same((one[1], one[3]), (first[1] + second[1], first[3] + second[3]))
+    cut = (1000 * b) // 4096 | 1  # odd: the second part's lanes start inside a warp
+    parts = [(o, n) for o, n in ((0, cut), (cut, b - cut)) if n > 0]
     halves = [bp.random_scan_bits(sem, bl, bp.reset_bits(bl, n), None, bp.threefry_keys(5, offset=o), 1000, 64,
-                                  "threefry") for o, n in ((0, 1000), (1000, 3096))]
+                                  "threefry") for o, n in parts]
     for k in range(1, 4):
         _assert_same((one[k],), (torch.cat([h[k] for h in halves]),))
     before = kernels.LAUNCHES["random_scan_bits"]
-    _, stats = bp.compile_rollout_random(sem, bl, 4096, 1000, 64, rng="threefry")(5)
+    _, stats = bp.compile_rollout_random(sem, bl, b, 1000, 64, rng="threefry")(5)
     assert kernels.LAUNCHES["random_scan_bits"] == before + 1
     assert int(stats["episodes"]) == int(one[1].sum())
 
