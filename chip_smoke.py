@@ -20,7 +20,10 @@ size and checks what comes out:
     shared-Q learning, and K5 on one 65×65 backtracker maze (16,900 Q
     entries); mazes → K6 per-maze Q-learning (tables in shared memory at
     9×9, in device memory at 33×33); walls16 → `q_learning` on the generic
-    step with K10, at up to 65,536 envs;
+    step with K10, at up to 65,536 envs; K10's two tiers (one launch of a
+    thread-block cluster, and the four passes) in both forms at the paths'
+    batches and tables and at every boundary of `plan`, and timed side by
+    side in a CUDA graph;
   * the training path: `ppo_train` on walls16 (K7a, K7b, K9a) and on 65,536
     per-env mazes with the conv trunk (K7a, K7b, K9b), `a2c_train` on walls16
     (K7a's return scan, K7b, K9a), and `greedy_success_rate` (K7b's greedy
@@ -99,6 +102,15 @@ MAX_EPISODE_STEPS = 512
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def k10_launches(batch: int, n_seg: int, dev) -> int:
+    """Kernels a K10 call of `batch` envs over `n_seg` segments launches on
+    `dev`: 1 where `kernels.segment_mean.plan` takes a thread-block cluster,
+    4 (count, scan, scatter, sum) where it takes the passes."""
+    from griduniverse_tpu_torch.kernels import segment_mean
+
+    return segment_mean.call_plan(batch, n_seg, dev).launches
 
 
 def _max_err(a, b) -> float:
@@ -232,7 +244,6 @@ INSTR_K5_ENTRY = 10
 # kernel issues and so no bound
 INSTR_K6_STEP = 94
 INSTR_K10_ENV = 4       # key and α·δ of one env, an estimate
-K10_LAUNCHES = 4        # kernels a K10 call launches: count, scan, scatter, sum
 # The learners' kernels. K7a and K7b are one thread per env, counted as K1 is.
 # K9a's forward, K9a's backward and K9b are elementwise passes and sums:
 # their counts are the function's own operations on an element (load,
@@ -388,7 +399,7 @@ def solver_phases(gt, dev, gen, bound, smi):
     from griduniverse_tpu_torch.algos import dp_batched, td, td_batched, td_fast
     from griduniverse_tpu_torch.core.semantics import SemanticsConfig
     from griduniverse_tpu_torch.core.step import step_autoreset
-    from griduniverse_tpu_torch.kernels import dp_grid
+    from griduniverse_tpu_torch.kernels import dp_grid, segment_mean
     from griduniverse_tpu_torch.kernels import td_batched as td_batched_kernels
     from griduniverse_tpu_torch.kernels.dp_grid import grid_greedy_cuda, grid_sweeps_cuda
     from griduniverse_tpu_torch.levels import builders
@@ -826,6 +837,9 @@ def solver_phases(gt, dev, gen, bound, smi):
     print(f"K10 main: td_run B={b_wide} (64 chunks of envs), the first and the last {late_wide} of "
           f"{steps_wide} steps bit-exact vs the plain update rule; the last steps redone equal the main path's")
 
+    for name, err in k10_tier_holds(dev, smi).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+
     # -- phase 10: K4 and K10 times at the main path's shapes ------------------
     lap("phase 9, the K10 holds")
     k = dp_batched.SWEEPS_PER_LAUNCH
@@ -907,7 +921,10 @@ def solver_phases(gt, dev, gen, bound, smi):
             in_cell = torch.rand((b,), generator=gen, device=dev) < 0.9
             s[in_cell], a[in_cell] = 17, 2
         delta = torch.randn((b,), generator=gen, device=dev)
+        p10 = segment_mean.call_plan(b, n_seg, dev)
         ms10, got = _cuda_ms(lambda: td.apply_td_updates(q, s, a, delta, 0.1), 50)
+        graph10 = _graph_ms(lambda: td.apply_td_updates(q, s, a, delta, 0.1))
+        passes10 = _graph_ms(lambda: segment_mean.segment_mean_cuda(q, s, a, delta, 0.1, None, tier="passes"))
         # one plain call serves K10 and its sums form: K10's plain version
         # is the sums form's, then the apply
         plain10, ref_sums = _cuda_ms(lambda: td.segment_sums_reference(s, a, delta, 0.1, 256, 4),
@@ -915,25 +932,30 @@ def solver_phases(gt, dev, gen, bound, smi):
         ref = td.apply_segment_sums(q, *ref_sums)
         lib10, lib = _cuda_ms(lambda: _segment_mean_library(q, s, a, delta, 0.1, None), 50)
         hold("segment_mean", f"K10 timed B={b} hot={hot}", (got,), (ref,), ("q",))
+        _same(f"K10 passes B={b} hot={hot}", segment_mean.segment_mean_cuda(q, s, a, delta, 0.1, None, tier="passes"), got)
         _require(bool(torch.allclose(got, lib, rtol=1e-5, atol=1e-6)), "K10: the library yardstick computes another function")
         cells = "90 % in one cell" if hot else "uniform cells"
         t10 = dict(
-            ms=ms10, plain_ms=plain10, shape=f"B={b}, S*A={n_seg}, {cells}", library_ms=lib10,
+            ms=ms10, graph_ms=graph10, plain_ms=plain10, shape=f"B={b}, S*A={n_seg}, {cells}", library_ms=lib10,
             # s, a, delta in; Q in and out
             **bound(b * 12 + 2 * n_seg * 4, INSTR_K10_ENV * b + 2 * n_seg))
+        print(f"time segment_mean at {t10['shape']} ({p10.tier}, {p10.blocks} blocks): kernel {ms10!r} ms as timed, "
+              f"{graph10!r} ms in a CUDA graph of ten; the four passes {passes10!r} ms in a graph; plain {plain10!r} ms, "
+              f"bound {t10['bound_ms']!r} ms by {t10['bound_by']}, library {lib10!r} ms; bit-exact vs plain ({smi})")
         if b == 4096:
             times["segment_mean"] = t10
             continue
-        print(f"time segment_mean at {t10['shape']}: kernel {ms10!r} ms, plain {plain10!r} ms, bound {t10['bound_ms']!r} ms "
-              f"by {t10['bound_by']}, library {lib10!r} ms; bit-exact vs plain ({smi})")
         # K10's sums form on the same inputs (the sharded learner's scalable mode)
         before = kernels.LAUNCHES["segment_sums"]
         ms_s, got_s = _cuda_ms(lambda: td.segment_sums(s, a, delta, 0.1, 256, 4), 50)
-        _require(kernels.LAUNCHES["segment_sums"] == before + 51 * K10_LAUNCHES,
-                 "K10's sums form: not four launches a call")
+        _require(kernels.LAUNCHES["segment_sums"] == before + 51 * p10.launches,
+                 f"K10's sums form: not {p10.launches} launches a call")
         graph_s = _graph_ms(lambda: td.segment_sums(s, a, delta, 0.1, 256, 4))
+        passes_s = _graph_ms(lambda: segment_mean.segment_sums_cuda(s, a, delta, 0.1, 256, 4, tier="passes"))
         lib_s, lib = _cuda_ms(lambda: _segment_sums_library(s, a, delta, 0.1, n_seg), 50)
         err = _same_fields(f"K10 sums form timed B={b} hot={hot}", got_s, ref_sums, ("sums", "counts"))
+        _same_fields(f"K10 sums form passes B={b} hot={hot}",
+                     segment_mean.segment_sums_cuda(s, a, delta, 0.1, 256, 4, tier="passes"), got_s, ("sums", "counts"))
         _same(f"K10 sums form + apply B={b} hot={hot}", td.apply_segment_sums(q, *got_s), got)
         _require(bool(torch.allclose(got_s[0], lib[0], rtol=1e-4, atol=1e-5)) and bool(torch.equal(got_s[1], lib[1])),
                  "K10's sums form: the library yardstick computes another function")
@@ -942,12 +964,93 @@ def solver_phases(gt, dev, gen, bound, smi):
             ms=ms_s, graph_ms=graph_s, plain_ms=plain10, shape=f"B={b}, S*A={n_seg}, {cells}", library_ms=lib_s,
             # s, a, delta in; the sums and the counts out
             **bound(b * 12 + 2 * n_seg * 4, INSTR_K10_ENV * b + n_seg))
-        print(f"time segment_sums at {t_s['shape']}: kernel {ms_s!r} ms, in a CUDA graph of ten {graph_s!r} ms, "
-              f"plain {plain10!r} ms, bound {t_s['bound_ms']!r} ms by {t_s['bound_by']}, library {lib_s!r} ms; "
-              f"bit-exact vs plain, and with the apply equal to K10 ({smi})")
+        print(f"time segment_sums at {t_s['shape']} ({p10.tier}, {p10.blocks} blocks): kernel {ms_s!r} ms, in a CUDA "
+              f"graph of ten {graph_s!r} ms; the four passes {passes_s!r} ms in a graph; plain {plain10!r} ms, bound "
+              f"{t_s['bound_ms']!r} ms by {t_s['bound_by']}, library {lib_s!r} ms; bit-exact vs plain, and with the "
+              f"apply equal to K10 ({smi})")
         if not hot:
             times["segment_sums"] = t_s
     return launches, errs, times
+
+
+def k10_tier_holds(dev, smi) -> dict:
+    """K10's two tiers, both forms, bit for bit against the plain versions:
+    B = 1, 32, 4,096, 65,536 and 102,400 over S·A = 81, 324, 1,024 and
+    16,900 (a 65×65 maze), with uniform cells, half the envs masked, and
+    (up to 4,096 envs) 90 % in one cell; then each tier's boundaries at the
+    plan's own shapes: the largest call of a lone block and of each cluster
+    size, the first call of the passes, in the batch (S·A = 1,024) and in
+    S·A (4,096 envs; the largest S·A also at 65,536). Every call launches
+    what `plan` says, and the passes
+    forced on the same inputs give the same bits. Returns the max abs errors
+    of `segment_mean` and `segment_sums`."""
+    from griduniverse_tpu_torch import kernels
+    from griduniverse_tpu_torch.algos import td
+    from griduniverse_tpu_torch.kernels import segment_mean as sm
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    errs = {"segment_mean": 0.0, "segment_sums": 0.0}
+    tiers: dict = {}
+
+    def held(b, n_states, n_actions, kind):
+        n_seg = n_states * n_actions
+        q = torch.randn((n_states, n_actions), generator=gen, device=dev)
+        s = torch.randint(0, n_states, (b,), generator=gen, device=dev, dtype=torch.int32)
+        a = torch.randint(0, n_actions, (b,), generator=gen, device=dev, dtype=torch.int32)
+        if kind == "hot":
+            in_cell = torch.rand((b,), generator=gen, device=dev) < 0.9
+            s[in_cell], a[in_cell] = n_states // 3, 0
+        delta = torch.randn((b,), generator=gen, device=dev)
+        mask = torch.rand((b,), generator=gen, device=dev) < 0.5 if kind == "masked" else None
+        p = sm.call_plan(b, n_seg, dev)
+        tiers.setdefault((p.tier, p.blocks), []).append((b, n_seg))
+        tag = f"K10 {p.tier} ({p.blocks} blocks) B={b} S*A={n_seg} {kind}"
+        before = (kernels.LAUNCHES["segment_mean"], kernels.LAUNCHES["segment_sums"])
+        got = (td.apply_td_updates(q, s, a, delta, 0.1) if mask is None
+               else td.apply_td_updates_masked(q, s, a, delta, 0.1, mask))
+        got_s = td.segment_sums(s, a, delta, 0.1, n_states, n_actions, mask)
+        _require((kernels.LAUNCHES["segment_mean"], kernels.LAUNCHES["segment_sums"])
+                 == (before[0] + p.launches, before[1] + p.launches), f"{tag}: not {p.launches} launches a call")
+        ref_s = td.segment_sums_reference(s, a, delta, 0.1, n_states, n_actions, mask)
+        errs["segment_mean"] = max(errs["segment_mean"], _same(f"{tag} mean", got, td.apply_segment_sums(q, *ref_s)))
+        errs["segment_sums"] = max(errs["segment_sums"], _same_fields(f"{tag} sums", got_s, ref_s, ("sums", "counts")))
+        if p.tier == "cluster":
+            _same(f"{tag} mean vs the passes", sm.segment_mean_cuda(q, s, a, delta, 0.1, mask, tier="passes"), got)
+            _same_fields(f"{tag} sums vs the passes",
+                         sm.segment_sums_cuda(s, a, delta, 0.1, n_states, n_actions, mask, tier="passes"), got_s,
+                         ("sums", "counts"))
+
+    for b in (1, 32, 4096, 65_536, 102_400):
+        for n_states, n_actions in ((81, 1), (81, 4), (256, 4), (4225, 4)):
+            for kind in ("uniform", "masked", "hot") if b <= 4096 else ("uniform", "masked"):
+                held(b, n_states, n_actions, kind)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    most = sm.cluster_blocks(dev)
+
+    def largest(k):  # the largest batch the plan gives a cluster of at most k blocks (S*A = 1,024)
+        lo, hi = 1, 16 * sm.MAX_BLOCK_ENVS + 1
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            p = sm.plan(mid, 1024, sms, most)
+            lo, hi = (mid, hi) if p.tier == "cluster" and p.blocks <= k else (lo, mid - 1)
+        return lo
+
+    sizes = sorted({sm.plan(b, 1024, sms, most).blocks for b in range(1, 16 * sm.MAX_BLOCK_ENVS + 1, 512)} - {0})
+    edges = [largest(k) for k in sizes]
+    first_passes = edges[-1] + 1
+    _require(sm.plan(first_passes, 1024, sms, most).tier == "passes", "K10: no passes above the largest cluster")
+    for b in (*edges, edges[0] + 1, first_passes):
+        held(b, 256, 4, "uniform")
+    widest = sm.MAX_CLUSTER_SEGMENTS
+    for b, n in ((4096, widest), (4096, widest + 1), (65_536, widest)):
+        held(b, n, 1, "uniform")
+    _require(sm.call_plan(4096, widest, dev).blocks == 1 and sm.call_plan(4096, widest + 1, dev).tier == "passes",
+             "K10: the plan's S*A boundary moved")
+    print(f"K10's tiers, both forms, bit-exact vs plain and vs the passes: {sum(map(len, tiers.values()))} calls; "
+          f"by (tier, blocks): {dict(sorted((k, len(v)) for k, v in tiers.items()))}; cluster sizes used "
+          f"{sizes} (the card holds {most}), the largest call of each {edges}, the first of the passes "
+          f"{first_passes} envs; S*A up to {widest} on a cluster, {widest + 1} on the passes ({smi})")
+    return errs
 
 
 def _segment_mean_library(q, s, a, delta, alpha, mask):
@@ -2333,8 +2436,10 @@ def mc_lambda_phases(gt, dev, bound, smi):
     Returns (launches, max abs errors, times) of K12 and K13."""
     from griduniverse_tpu_torch import algos, kernels
     from griduniverse_tpu_torch.algos import mc, td, td_lambda
+    from griduniverse_tpu_torch.kernels import segment_mean
     from griduniverse_tpu_torch.kernels import trace_pass as trace_kernels
     from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
     from griduniverse_tpu_torch.tools.profile_turns import _plan_graph_ms
 
     sem = gt.make_semantics()
@@ -2384,17 +2489,19 @@ def mc_lambda_phases(gt, dev, bound, smi):
     with mock.patch.object(mc, "apply_td_updates_masked", recorded), mock.patch.object(mc, "mc_returns", recorded_returns):
         pred = algos.mc_prediction(sem, lava, 3)
         torch.cuda.synchronize()
-        _require(kernels.LAUNCHES["segment_mean"] == K10_LAUNCHES and kernels.LAUNCHES["mc_returns"] == 1,
+        first = k10_launches(calls[0][0][1].shape[0], calls[0][0][0].numel(), dev)
+        _require(kernels.LAUNCHES["segment_mean"] == first and kernels.LAUNCHES["mc_returns"] == 1,
                  f"mc_prediction: {kernels.LAUNCHES['segment_mean']} K10 and {kernels.LAUNCHES['mc_returns']} K13 "
-                 f"launches, expected {K10_LAUNCHES} (one call) and 1")
+                 f"launches, expected {first} (one call) and 1")
         ctl = algos.mc_control(sem, lava, 6, num_rounds=rounds)
         pred_wide = algos.mc_prediction(sem, lava, 4, batch_size=wide)
     torch.cuda.synchronize()
     got = {k: v for k, v in kernels.LAUNCHES.items() if v}
     print(f"launches of mc_prediction (defaults), {rounds} rounds of mc_control and mc_prediction at {wide} episodes: {got}")
-    _require(got == {"segment_mean": K10_LAUNCHES * (2 + rounds), "mc_returns": 2 + rounds},
-             f"mc: launches {got}, expected one K10 call ({K10_LAUNCHES} launches) and one K13 launch a round "
-             "and no other kernel")
+    want10 = sum(k10_launches(args[1].shape[0], args[0].numel(), dev) for args, _ in calls)
+    _require(len(calls) == 2 + rounds and got == {"segment_mean": want10, "mc_returns": 2 + rounds},
+             f"mc: launches {got}, expected one K10 call ({want10} launches in all, one a call where the plan "
+             "takes a cluster) and one K13 launch a round and no other kernel")
     for i, (args, out) in enumerate(returns_calls):
         errs["mc_returns"] = max(errs["mc_returns"], _same_fields(
             f"K13 mc round {i}", out, plain_returns(*args), ("returns", "first-visit mask")))
@@ -2414,6 +2521,9 @@ def mc_lambda_phases(gt, dev, bound, smi):
     for tag, args in (("a round of mc_control", calls[-2][0]), (f"mc_prediction at {wide} episodes", calls[-1][0])):
         n_samples, n_masked, seg = args[1].shape[0], int(args[5].sum()), args[0].numel()
         ms, got10 = _cuda_ms(lambda: td.apply_td_updates_masked(*args), 50)
+        graph_ms = _graph_ms(lambda: td.apply_td_updates_masked(*args))
+        passes_ms = _graph_ms(lambda: segment_mean.segment_mean_cuda(*args, tier="passes"))
+        p10 = segment_mean.call_plan(n_samples, seg, dev)
         plain_ms, ref10 = _cuda_ms(lambda: td.apply_td_updates_reference(*args), 3)
         lib_ms, lib = _cuda_ms(lambda: _segment_mean_library(*args), 50)
         err = max(err, _same(f"K10 timed at {tag}", got10, ref10))
@@ -2421,8 +2531,10 @@ def mc_lambda_phases(gt, dev, bound, smi):
                  "K10 at mc's shape: the library yardstick computes another function")
         t10 = bound(n_samples * 13 + 2 * seg * 4, INSTR_K10_ENV * n_samples + 2 * seg)
         print(f"time segment_mean at {tag}, {n_samples} samples ({n_masked} under the first-visit mask), "
-              f"S*A={seg}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {t10['bound_ms']!r} ms by {t10['bound_by']}, "
-              f"library (index_add_ twice, divide, add) {lib_ms!r} ms; bit-exact vs plain ({smi})")
+              f"S*A={seg} ({p10.tier}, {p10.blocks} blocks): kernel {ms!r} ms as timed, {graph_ms!r} ms in a CUDA "
+              f"graph of ten; the four passes {passes_ms!r} ms in a graph; plain {plain_ms!r} ms, bound "
+              f"{t10['bound_ms']!r} ms by {t10['bound_by']}, library (index_add_ twice, divide, add) {lib_ms!r} ms; "
+              f"bit-exact vs plain ({smi})")
     print(f"K10 at mc's shapes: all {2 + rounds} calls bit-exact vs plain (max abs err {err!r}); "
           f"mc_prediction visited {visited} states ({smi})")
 
@@ -3297,8 +3409,10 @@ def _nccl_phases(gt, dev, smi, L, info, lap):
     want_steps = 2 * (full["fast"] + 1) + 2 * (full["fast65"] + 1)
     _require(path.get("td_step_sharded") == want_steps,
              f"K5's sharded form: {path.get('td_step_sharded')} launches, expected {want_steps}")
-    _require(path.get("segment_sums") == K10_LAUNCHES * full["td"] and path.get("segment_mean") == K10_LAUNCHES * full["td"],
-             f"K10 and its sums form: {path.get('segment_mean')}, {path.get('segment_sums')} launches")
+    per_call = k10_launches(SHARD_B, 1024, dev)  # the gathered pairs and a world of one's rows, walls16's table
+    _require(path.get("segment_sums") == per_call * full["td"] and path.get("segment_mean") == per_call * full["td"],
+             f"K10 and its sums form: {path.get('segment_mean')}, {path.get('segment_sums')} launches, "
+             f"expected {per_call} a call")
     for name in ("random_scan_bits", "dp_grid", "td_batched"):
         _require(path.get(name, 0) > 0, f"{name} was not launched on the sharded path")
     unsharded = _unsharded_calls(gt, L, full)
@@ -3421,7 +3535,7 @@ def sharded_phases(gt, dev, bound, smi):
         print(f"phase 26 (b) rank {r['info']['rank']}: backend {r['info']['backend']}, world size "
               f"{r['info']['world_size']}, device {r['info']['device']}; launches {r['launches']}")
         _require(r["launches"].get("td_step_sharded") == 2 * (gloo["fast"] + 1) + 2 * (gloo["fast65"] + 1)
-                 and r["launches"].get("segment_sums") == K10_LAUNCHES * gloo["td"],
+                 and r["launches"].get("segment_sums") == k10_launches(SHARD_B // GLOO_RANKS, 1024, dev) * gloo["td"],
                  f"phase 26 (b) rank {r['info']['rank']}: launches {r['launches']}")
     unsharded_gloo = _unsharded_calls(gt, L, gloo)
     want_gloo = {}

@@ -34,8 +34,10 @@ length, and counts 1; the backward of `embed_rows` launches two kernels and
 so does that of `agent_stamp`, and each counts under its kernel's name. A
 `per_sample` draw is eight kernels up to 16,384 picks (scores, four
 histogram passes, count, compaction, sort and weights) and twenty above
-(the sort in twelve multi-block passes), and a `segment_mean` call four
-(count, scan, scatter, sum); the ring's write and gather are one each, and
+(the sort in twelve multi-block passes), and a `segment_mean` call one
+where `kernels.segment_mean.plan` takes a thread-block cluster (up to
+131,072 envs) and four (count, scan, scatter, sum) where it takes the
+passes; the ring's write and gather are one each, and
 the refresh one up to 8,192 rows and two above, all under `replay`. A trace
 step is one (each tile's last block adds the chunks' sums and writes the
 table); a DQN act-and-step is one (its last block folds the statistics). K4
@@ -49,8 +51,8 @@ sharded form in `csrc/td_fast.cu`, one launch a step through a
 `kernels.td_fast.TdStepPlan` (clusters of up to eight blocks) with the
 all-reduce of the step's aggregate between launches, and one more that
 writes the final Q (T + 1 a scan of T steps); and `segment_sums`, K10's
-sums form in `csrc/segment_mean.cu`, the same four kernels stopped before
-the divide (four a call); and `trace_partials`, K12's partial-sums form in
+sums form in `csrc/segment_mean.cu`, the same tiers stopped before the
+divide (one launch or four a call, as the mean form); and `trace_partials`, K12's partial-sums form in
 `csrc/trace_pass.cu`, two launches a step through a
 `kernels.trace_pass.TracePartialsPlan`: the pass, which stops at each
 chunk's partial sums and the live counts, and, after the ranks have

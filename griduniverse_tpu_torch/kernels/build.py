@@ -87,6 +87,13 @@ _SIGNATURES = {
     "gu_segment_mean": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 4 + [_P],
     # sums, counts out, s, a, delta, mask; the rest as gu_segment_mean
     "gu_segment_sums": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 4 + [_P],
+    # q in, out (Q or the sums), counts out (or null), s, a, delta, mask; alpha;
+    # batch, A, S·A, the cluster's blocks; the scratch (or null)
+    "gu_segment_cluster": [_P] * 7 + [_F] + [_I] * 4 + [_P] + [_P],
+    # blocks, shared bytes; out: clusters the card holds at once
+    "gu_segment_cluster_fits": [_I, _I, _P],
+    # S·A; out: a block's shared bytes (64-bit)
+    "gu_segment_cluster_bytes": [_I, _P],
     # value, reward, done, bootstrap, adv, targets; T, B; gamma, γλ; envs a thread
     "gu_gae": [_P] * 6 + [_I, _I, _F, _F, _I, _P],
     # reward, done, bootstrap, returns; T, B; gamma; envs a thread

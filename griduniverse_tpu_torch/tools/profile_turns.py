@@ -1,4 +1,4 @@
-"""K1's, K2's, K3's, K4's, K5's, K6's, K7a's, K7b's, K7c's, K9a's, K9b's, K11's, K12's and K13's times on one CUDA card, beside another tree's.
+"""K1's, K2's, K3's, K4's, K5's, K6's, K7a's, K7b's, K7c's, K9a's, K9b's, K10's, K11's, K12's and K13's times on one CUDA card, beside another tree's.
 
     python -m griduniverse_tpu_torch.tools.profile_turns [--against DIR] [--tiers] [PART ...]
 
@@ -126,8 +126,20 @@ tree's package and builds its kernels):
   SM's clock (its time over T; `experiments/k1_cycles.py` reads the warps'
   own), and a hash of the call's outputs, which every turn must print alike.
 
+- K10 (`k10`) in its mean form (`td.apply_td_updates`, `_masked`) and its
+  sums form (`td.segment_sums`) at the paths' shapes: walls16's 256 × 4
+  table at B = 4,096 and 65,536, with uniform cells and with 90 % of the
+  envs in one cell, without a mask and with half the envs masked; and on
+  the samples of a round of `mc_control` (25,600 at S·A = 324, under its
+  first-visit mask) and of `mc_prediction` at 1,024 episodes (102,400 at
+  S·A = 81), recorded from the runs themselves. Each call in a CUDA graph
+  of ten, as timed (30 calls) and on the host, with the tier the tree's
+  `plan` picks where it has one, and a hash of the outputs, which every
+  turn must print alike (`experiments/k10_phases.py` splits a call into
+  its steps).
+
 PART picks parts by name, all by default: `k1`, `k2` (K2 and K1), `k3`, `k4` (the K4 calls and
-solves), `k4c`, `k5`, `k5s`, `k6`, `k7a`, `k7b`, `k7c`, `k9a`, `k9b`, `k11`, `k12`, `k13`. With `--graph`, this tree's K5 scan is
+solves), `k4c`, `k5`, `k5s`, `k6`, `k7a`, `k7b`, `k7c`, `k9a`, `k9b`, `k10`, `k11`, `k12`, `k13`. With `--graph`, this tree's K5 scan is
 also captured in a CUDA graph, replayed and held bit for bit against an
 eager scan (or the capture's error is printed): whether a cooperative
 launch can be captured on the card's CUDA.
@@ -219,7 +231,8 @@ def _profiled(name, fn, wall_ms, smi):
         print(f"    {us / 1e3!r} ms in {count} launches: {k[:110]}")
 
 
-PARTS = ("k1", "k2", "k3", "k4", "k4c", "k5", "k5s", "k6", "k7a", "k7b", "k7c", "k9a", "k9b", "k11", "k12", "k13")
+PARTS = ("k1", "k2", "k3", "k4", "k4c", "k5", "k5s", "k6", "k7a", "k7b", "k7c", "k9a", "k9b", "k10", "k11", "k12",
+         "k13")
 
 
 def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
@@ -229,6 +242,8 @@ def measure(tag: str, parts=PARTS, graph: bool = False) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     if "k1" in parts:
         k1_calls(tag, dev, smi)
+    if "k10" in parts:
+        k10_calls(tag, dev, smi)
     if "k2" in parts:
         k2_calls(tag, dev, smi)
     if "k4" in parts:
@@ -903,6 +918,69 @@ def k12_calls(tag, dev, smi) -> None:
               f"{graph_ms!r} ms a step in a CUDA graph of ten; one step's hash {_hash((out, first))} ({smi})")
         for kname, (ms, n) in sorted(_by_kernel(call).items(), key=lambda kv: -kv[1][0]):
             print(f"    {ms!r} ms in {n!r} launches a step: {kname[:110]}")
+
+
+def k10_inputs(dev) -> list:
+    """(name, form, args) of the K10 calls `k10_calls` times: walls16's table
+    at 4,096 and 65,536 envs (uniform and hot, unmasked and masked), and the
+    samples `mc_control` and `mc_prediction` hand K10 on lava, recorded from
+    the runs."""
+    import griduniverse_tpu_torch as gt
+    from unittest import mock
+
+    from griduniverse_tpu_torch import algos
+    from griduniverse_tpu_torch.algos import mc
+    from griduniverse_tpu_torch.levels import builders
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    calls = []
+    for b in (4096, 65_536):
+        for hot in (False, True):
+            q = torch.randn((256, 4), generator=gen, device=dev)
+            s = torch.randint(0, 256, (b,), generator=gen, device=dev, dtype=torch.int32)
+            a = torch.randint(0, 4, (b,), generator=gen, device=dev, dtype=torch.int32)
+            if hot:  # 90 % of the envs in one cell
+                in_cell = torch.rand((b,), generator=gen, device=dev) < 0.9
+                s[in_cell], a[in_cell] = 17, 2
+            delta = torch.randn((b,), generator=gen, device=dev)
+            mask = torch.rand((b,), generator=gen, device=dev) < 0.5
+            for m in (None, mask):
+                name = f"B={b} S*A=1024 {'90 % in one cell' if hot else 'uniform'} {'masked' if m is not None else 'unmasked'}"
+                calls.append((name, (q, s, a, delta, 0.1, m)))
+    recorded = []
+    real = mc.apply_td_updates_masked
+
+    def record(*args):
+        recorded.append(args)
+        return real(*args)
+
+    sem, lava = gt.make_semantics(device=dev), builders.lava_level(device=dev)
+    with mock.patch.object(mc, "apply_td_updates_masked", record):
+        algos.mc_control(sem, lava, 6, num_rounds=1)
+        algos.mc_prediction(sem, lava, 4, batch_size=1024)
+    for what, args in zip(("a round of mc_control", "mc_prediction at 1,024 episodes"), recorded):
+        calls.append((f"{what}: {args[1].shape[0]} samples, S*A={args[0].numel()}", tuple(args)))
+    return calls
+
+
+def k10_calls(tag, dev, smi) -> None:
+    """K10's mean and sums forms in a graph, as timed and on the host."""
+    from griduniverse_tpu_torch.algos import td
+    from griduniverse_tpu_torch.kernels import segment_mean as k10
+    from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
+
+    for name, (q, s, a, delta, alpha, mask) in k10_inputs(dev):
+        n_states, n_actions = q.shape
+        forms = {
+            "mean": lambda: (td.apply_td_updates(q, s, a, delta, alpha) if mask is None
+                             else td.apply_td_updates_masked(q, s, a, delta, alpha, mask),),
+            "sums": lambda: td.segment_sums(s, a, delta, alpha, n_states, n_actions, mask),
+        }
+        tier = (k10.call_plan(s.shape[0], q.numel(), dev) if hasattr(k10, "call_plan") else "the four passes")
+        for form, fn in forms.items():
+            print(f"[{tag}] K10 {form} form, {name} ({tier}): {_graph_ms(fn)!r} ms in a CUDA graph of ten, "
+                  f"{_events_ms(fn)!r} ms as timed, {_host_us(fn)!r} us of host time; outputs' hash "
+                  f"{_hash(fn())} ({smi})", flush=True)
 
 
 def k7a_calls(tag, dev, smi) -> None:

@@ -20,6 +20,7 @@ from griduniverse_tpu_torch.kernels import agent_stamp as stamp_kernels
 from griduniverse_tpu_torch.kernels import dqn_act as dqn_act_kernels
 from griduniverse_tpu_torch.kernels import embed_rows as embed_kernels
 from griduniverse_tpu_torch.kernels import replay as replay_kernels
+from griduniverse_tpu_torch.kernels import segment_mean as k10
 from griduniverse_tpu_torch.kernels import td_batched as td_batched_kernels
 from griduniverse_tpu_torch.kernels import td_fast as td_fast_kernels
 from griduniverse_tpu_torch.kernels import trace_pass as trace_kernels
@@ -53,6 +54,11 @@ def _bits(x):
 def _assert_same(got, ref):
     for a, b in zip(got, ref):
         assert torch.equal(_bits(a), _bits(b))
+
+
+def _k10_launches(dev, batch, n_seg):
+    """Kernels a K10 call launches: 1 where the plan takes a cluster, 4 for the passes."""
+    return k10.call_plan(batch, n_seg, dev).launches
 
 
 @pytest.mark.parametrize("mode", [(False, None), (True, None), (True, 32)])
@@ -412,7 +418,7 @@ def test_segment_mean_kernel_matches_plain(dev, b):
     before = kernels.LAUNCHES["segment_mean"]
     got = td.apply_td_updates(q, s, a, delta, 0.1)
     got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
-    assert kernels.LAUNCHES["segment_mean"] == before + 2 * 4  # count, scan, scatter, sum
+    assert kernels.LAUNCHES["segment_mean"] == before + 2 * _k10_launches(dev, b, q.numel())
     _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
     _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
     if b == 1:
@@ -960,7 +966,7 @@ def test_mc_and_td_lambda_run_on_cuda(dev):
     before = kernels.LAUNCHES["segment_mean"]
     res = algos.mc_prediction(sem, level, 3)  # the default 256 episodes of 100 steps: 25,600 samples in K10
     ref = algos.mc_prediction(cpu_sem, cpu_level, 3)
-    assert kernels.LAUNCHES["segment_mean"] == before + 4
+    assert kernels.LAUNCHES["segment_mean"] == before + _k10_launches(dev, 25_600, 16)
     assert torch.equal(res.counts.cpu(), ref.counts)
     assert torch.equal(res.value.cpu().view(torch.int32), ref.value.view(torch.int32))
     ctl = algos.mc_control(sem, level, 6, num_rounds=5, batch_size=64, max_steps=30)
@@ -988,7 +994,7 @@ def test_segment_mean_kernel_matches_plain_over_several_tiles(dev, b):
     before = kernels.LAUNCHES["segment_mean"]
     got = td.apply_td_updates(q, s, a, delta, 0.1)
     got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
-    assert kernels.LAUNCHES["segment_mean"] == before + 2 * 4  # count, scan, scatter, sum
+    assert kernels.LAUNCHES["segment_mean"] == before + 2 * _k10_launches(dev, b, q.numel())
     _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
     _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
 
@@ -1022,7 +1028,7 @@ def test_segment_mean_kernel_matches_plain_on_skewed_batches(dev, b, n_states, k
     before = kernels.LAUNCHES["segment_mean"]
     got = td.apply_td_updates(q, s, a, delta, 0.1)
     got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
-    assert kernels.LAUNCHES["segment_mean"] == before + 2 * 4
+    assert kernels.LAUNCHES["segment_mean"] == before + 2 * _k10_launches(dev, b, q.numel())
     _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
     _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
     if kind == "all masked":
@@ -1036,7 +1042,7 @@ def test_segment_mean_kernel_matches_plain_on_one_segment(dev, b):
     before = kernels.LAUNCHES["segment_mean"]
     got = td.apply_td_updates(q, s, a, delta, 0.1)
     got_m = td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
-    assert kernels.LAUNCHES["segment_mean"] == before + 2 * 4
+    assert kernels.LAUNCHES["segment_mean"] == before + 2 * _k10_launches(dev, b, q.numel())
     _assert_same((got,), (td.apply_td_updates_reference(q, s, a, delta, 0.1),))
     _assert_same((got_m,), (td.apply_td_updates_reference(q, s, a, delta, 0.1, mask),))
 
@@ -2162,8 +2168,8 @@ def test_td_step_sharded_kernel_one_step_matches_plain(dev):
 @pytest.mark.parametrize("hot", [False, True])
 def test_segment_sums_kernel_matches_plain(dev, b, hot):
     """K10's sums form: the env-order float sums and the counts of the plain
-    version, masked and not, four launches each; followed by the apply, K10's
-    bits."""
+    version, masked and not, the plan's launches each; followed by the apply,
+    K10's bits."""
     gen = torch.Generator(device=dev).manual_seed(b)
     q = torch.randn((256, 4), generator=gen, device=dev)
     s = torch.randint(0, 256, (b,), generator=gen, device=dev, dtype=torch.int32)
@@ -2176,7 +2182,97 @@ def test_segment_sums_kernel_matches_plain(dev, b, hot):
     before = kernels.LAUNCHES["segment_sums"]
     got = td.segment_sums(s, a, delta, 0.1, 256, 4)
     got_m = td.segment_sums(s, a, delta, 0.1, 256, 4, mask)
-    assert kernels.LAUNCHES["segment_sums"] == before + 2 * 4
+    assert kernels.LAUNCHES["segment_sums"] == before + 2 * _k10_launches(dev, b, 1024)
     _assert_same(got, td.segment_sums_reference(s, a, delta, 0.1, 256, 4))
     _assert_same(got_m, td.segment_sums_reference(s, a, delta, 0.1, 256, 4, mask))
     _assert_same((td.apply_segment_sums(q, *got),), (td.apply_td_updates(q, s, a, delta, 0.1),))
+
+
+# ---------------------------------------------------------------------------
+# K10's tiers: one launch of a thread-block cluster, and the four passes
+
+
+def _k10_edges(dev):
+    """(batch, S, A) at each boundary of the plan: the largest call of a lone
+    block and of each cluster size, the first call of two blocks and of the
+    passes (S·A = 1,024); the largest S·A a cluster block holds, at 4,096
+    and 65,536 envs, and one more (4,096 envs)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    most = k10.cluster_blocks(dev)
+
+    def largest(k):  # the largest batch the plan gives at most k blocks
+        lo, hi = 1, 16 * k10.MAX_BLOCK_ENVS + 1
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            p = k10.plan(mid, 1024, sms, most)
+            lo, hi = (mid, hi) if p.tier == "cluster" and p.blocks <= k else (lo, mid - 1)
+        return lo
+
+    edges = [(largest(k), 256, 4) for k in range(1, most + 1)]
+    edges += [(edges[0][0] + 1, 256, 4), (edges[-1][0] + 1, 256, 4)]
+    assert k10.plan(edges[-1][0], 1024, sms, most).tier == "passes"
+    widest = k10.MAX_CLUSTER_SEGMENTS
+    edges += [(4096, widest, 1), (4096, widest + 1, 1), (65_536, widest, 1)]
+    return edges
+
+
+def _k10_held(dev, b, n_states, n_actions, kind, seed):
+    """Both forms of K10 on `kind`'s inputs against the plain versions and
+    against the passes forced; the launches the plan gives."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((n_states, n_actions), generator=gen, device=dev)
+    s = torch.randint(0, n_states, (b,), generator=gen, device=dev, dtype=torch.int32)
+    a = torch.randint(0, n_actions, (b,), generator=gen, device=dev, dtype=torch.int32)
+    if kind == "hot":
+        in_cell = torch.rand((b,), generator=gen, device=dev) < 0.9
+        s[in_cell], a[in_cell] = n_states // 3, 0
+    delta = torch.randn((b,), generator=gen, device=dev)
+    mask = torch.rand((b,), generator=gen, device=dev) < 0.5 if kind == "masked" else None
+    launches = _k10_launches(dev, b, n_states * n_actions)
+    before = (kernels.LAUNCHES["segment_mean"], kernels.LAUNCHES["segment_sums"])
+    got = td.apply_td_updates(q, s, a, delta, 0.1) if mask is None else td.apply_td_updates_masked(q, s, a, delta, 0.1, mask)
+    got_s = td.segment_sums(s, a, delta, 0.1, n_states, n_actions, mask)
+    assert (kernels.LAUNCHES["segment_mean"], kernels.LAUNCHES["segment_sums"]) == (before[0] + launches,
+                                                                                    before[1] + launches)
+    ref_s = td.segment_sums_reference(s, a, delta, 0.1, n_states, n_actions, mask)
+    _assert_same(got_s, ref_s)
+    _assert_same((got,), (td.apply_segment_sums(q, *ref_s),))
+    _assert_same((got,), (k10.segment_mean_cuda(q, s, a, delta, 0.1, mask, tier="passes"),))
+    _assert_same(got_s, k10.segment_sums_cuda(s, a, delta, 0.1, n_states, n_actions, mask, tier="passes"))
+
+
+def test_segment_mean_tiers_at_their_boundaries(dev):
+    """Every cluster size the card's plan uses at its largest call, the
+    first calls of two blocks and of the passes, and the S·A boundaries."""
+    for i, (b, n_states, n_actions) in enumerate(_k10_edges(dev)):
+        _k10_held(dev, b, n_states, n_actions, "uniform", i)
+
+
+def _k10_cases():
+    """The paths' batches and tables, S·A up to 2,048 (the cluster's most)
+    and 16,900 (the passes'), uniform and masked; hot cells up to 4,096 envs
+    and at 25,600 and 65,536 over S·A = 324 (the plain version takes one
+    pass a member of the hot cell)."""
+    shapes = [(1, 81, 4), (32, 256, 4), (4096, 81, 1), (4096, 256, 4), (4096, 512, 4), (4096, 4225, 4),
+              (25_600, 81, 4), (65_536, 81, 4), (65_536, 512, 4), (65_536, 4225, 4), (102_400, 81, 1)]
+    cases = [(*shape, kind) for shape in shapes for kind in ("uniform", "masked")]
+    return cases + [(*shape, "hot") for shape in shapes if shape[0] <= 4096 or shape[1:] == (81, 4)]
+
+
+@pytest.mark.parametrize("b,n_states,n_actions,kind", _k10_cases())
+def test_segment_mean_cluster_tier_matches_plain(dev, b, n_states, n_actions, kind):
+    _k10_held(dev, b, n_states, n_actions, kind, b + n_states)
+
+
+def test_segment_cluster_shared_bytes_match_the_plan(dev):
+    """The source's count of a cluster block's shared bytes is the plan's."""
+    import ctypes
+
+    from griduniverse_tpu_torch.kernels import build
+
+    lib = build.load()
+    out = ctypes.c_longlong(0)
+    for n in (1, 81, 324, 1024, 2048, 16_900):
+        assert lib.gu_segment_cluster_bytes(n, ctypes.addressof(out)) == 0
+        assert out.value == k10.cluster_shared_bytes(n)
+    assert 1 <= k10.cluster_blocks(dev) <= k10.MAX_CLUSTER_BLOCKS
