@@ -66,6 +66,16 @@ size and checks what comes out:
     wrong-tiles ablation (K7b's greedy form), and the 11×11 fresh-maze
     curriculum, cut to 10 updates and 2 chunks × 5; K3's times at 1,024
     mazes of 3×3, 4×4 and 5×5 cells.
+  * the captured trainers (phase 29, `utils/capture.py`): `dqn_run`,
+    `ppo_run` and `a2c_run` on the card run one step or update captured in a
+    CUDA graph and replayed; each path (DQN uniform, PER and over 65,536
+    mazes, PPO on walls16 and over the mazes, A2C, the gate's 7×7 PPO) held
+    bit for bit against the eager loop, its plain version, and 60 + 60
+    against 120 captured (2 + 2 against 4 for PPO over the mazes); ms a
+    call each way, the replays' ms a step, the capture's ms and pool, the
+    idle share, and device events and graph launches a step. Phases 12, 18
+    and 28 count the captured calls' launches: a replay's times the replays
+    and the warm-up step.
 
 Each main path is driven with the launch counts set to 0 just before it and
 read just after, and every count must be the one the path's shape gives. The
@@ -1270,6 +1280,7 @@ def learner_phases(gt, dev, gen, bound, smi):
     from griduniverse_tpu_torch.tools.profile_kernels import _graph_ms
     from griduniverse_tpu_torch.tools.profile_turns import _plan_graph_ms
     from griduniverse_tpu_torch.ops import bitplane as bp
+    from griduniverse_tpu_torch.utils import capture
 
     errs = {"gae": 0.0, "act_step": 0.0, "embed_rows": 0.0, "agent_stamp": 0.0}
     times = {}
@@ -1436,9 +1447,14 @@ def learner_phases(gt, dev, gen, bound, smi):
         sgd_steps = cfg.num_epochs * cfg.num_minibatches if name.startswith("ppo") else 1
         net_kernel = "agent_stamp" if cfg.obs == "grid" else "embed_rows"
         # an update: T policy forwards and the bootstrap's, then a forward and a backward an SGD step
-        expected = {"gae": updates, "act_step": updates * t_len,
-                    net_kernel: updates * (t_len + 1 + sgd_steps * (1 + backward_launches[net_kernel]))}
+        # the captured call's replays and its warm-up update
+        ran = updates + capture.WARMUP_STEPS
+        expected = {"gae": ran, "act_step": ran * t_len,
+                    net_kernel: ran * (t_len + 1 + sgd_steps * (1 + backward_launches[net_kernel]))}
+        capture.reset_counts()
         ms, res = counted(name, lambda: train(sem, level, 5, cfg, updates, n64), expected)
+        _require(capture.COUNTS == {"captures": 1, "warmup_steps": capture.WARMUP_STEPS, "replays": updates},
+                 f"{name}: {capture.COUNTS}")
         peak = torch.cuda.max_memory_allocated()
         finite = all(bool(torch.isfinite(p).all()) for p in res.params.values())
         _require(finite and bool(torch.isfinite(res.final_loss)) and bool(torch.isfinite(res.mean_return)),
@@ -1823,6 +1839,7 @@ def resume_through_disk(gt, dev, smi, runs, walls16):
     import shutil
 
     from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.utils import capture
     from griduniverse_tpu_torch.utils.checkpoint import CheckpointManager
 
     root = ROOT / "build" / "smoke_checkpoints"
@@ -1857,12 +1874,14 @@ def resume_through_disk(gt, dev, smi, runs, walls16):
         kernels.reset_launches()
         resumed = models.dqn_run(sem, level, restored, cfg, 60)
         torch.cuda.synchronize()
-        _require(kernels.LAUNCHES["dqn_act"] == 60, f"{name} resumed: {kernels.LAUNCHES['dqn_act']} K7c launches")
+        # the resumed call is captured: 60 replays and its warm-up step
+        ran = 60 + capture.WARMUP_STEPS
+        _require(kernels.LAUNCHES["dqn_act"] == ran, f"{name} resumed: {kernels.LAUNCHES['dqn_act']} K7c launches")
         _same_dqn_state(f"{name} resumed through disk", resumed, at120)
         _require(resumed.seed == at120.seed and int(resumed.t) == 120, f"{name} resumed: seed or step counter")
         print(f"{name}: 60 steps, an async save, a restore into a fresh template and 60 more steps equal 120 unbroken "
-              "bit for bit (parameters, target, Adam, env state, the whole ring, priorities, statistics; K7c "
-              "launched 60 times in the resumed run)")
+              f"bit for bit (parameters, target, Adam, env state, the whole ring, priorities, statistics; K7c "
+              f"launched {ran} times in the resumed run: 60 replays and the warm-up step)")
     cfg = models.PPOConfig(max_episode_steps=MAX_EPISODE_STEPS)
     ts0 = models.ppo_init(sem, walls16, 5, cfg, n64)
     two = models.ppo_run(sem, walls16, ts0, cfg, 2)
@@ -1913,6 +1932,7 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
     from griduniverse_tpu_torch.models import a2c, dqn, networks
     from griduniverse_tpu_torch.ops import bitplane as bp
     from griduniverse_tpu_torch.tools.profile_turns import _plan_graph_ms
+    from griduniverse_tpu_torch.utils import capture
 
     errs = {"per_sample": 0.0, "replay": 0.0, "dqn_act": 0.0}
     times = {}
@@ -2063,10 +2083,12 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         # a step: K7c's store form (the act, the step, the statistics and the ring write), then
         # K8b's gather, with PER the refresh (two launches above 8,192 rows)
         refresh = k8.refresh_launches(cfg.batch_size_train) if cfg.prioritized else 0
-        expected = {net_kernel: steps * per_step, "replay": steps * (1 + refresh),
-                    "per_sample": steps * K8A_LAUNCHES if cfg.prioritized else 0, "dqn_act": steps}
+        ran = steps + capture.WARMUP_STEPS  # the captured call's replays and its warm-up step
+        expected = {net_kernel: ran * per_step, "replay": ran * (1 + refresh),
+                    "per_sample": ran * K8A_LAUNCHES if cfg.prioritized else 0, "dqn_act": ran}
         torch.cuda.synchronize()
         kernels.reset_launches()
+        capture.reset_counts()
         t0 = time.perf_counter()
         res = models.dqn_train(sem, level, 5, cfg, steps, n64)
         torch.cuda.synchronize()
@@ -2075,6 +2097,8 @@ def replay_phases(gt, dev, gen, bound, smi, lv64):
         path_launches[name] = got
         print(f"launches on the main path {name}: {got}")
         _require(got == {k: v for k, v in expected.items() if v}, f"{name}: launches {got}, expected {expected}")
+        _require(capture.COUNTS == {"captures": 1, "warmup_steps": capture.WARMUP_STEPS, "replays": steps},
+                 f"{name}: {capture.COUNTS}")
         peak = torch.cuda.max_memory_allocated()
         finite = all(bool(torch.isfinite(p).all()) for p in res.params.values())
         # a run of 60 steps need not see an episode of walls16 end (the limit is 512)
@@ -2383,8 +2407,8 @@ def dqn_step_events(dev, smi, sem, level, cfg, state, steps: int = 20) -> None:
     def k7c_then_write(*args, plan=None, ring=None):
         return write(args[2], k7c(*args, plan=plan), ring)
 
-    def call():
-        return models.dqn_run(sem, level, state, cfg, steps)
+    def call():  # the eager loop: a step enqueued from the host, as this comparison has always timed it
+        return dqn._dqn_run_eager(sem, level, state, cfg, steps)
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
         torch.zeros(1, device=dev).sum().item()  # the profiler's own start-up
@@ -3832,6 +3856,7 @@ def _learner_nccl(gt, dev, smi, L, lap):
     {turn: (ms, launches, collectives, idle share)}}, the path's launches)."""
     from griduniverse_tpu_torch import kernels, parallel
     from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+    from griduniverse_tpu_torch.utils import capture
 
     full = LEARNER_STEPS["nccl"]
     m = parallel.make_env_mesh(1, device=dev)
@@ -3859,8 +3884,10 @@ def _learner_nccl(gt, dev, smi, L, lap):
         kernels.reset_launches()
         want = call()
         torch.cuda.synchronize()
-        if name in L["trainers"]:
-            theirs = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if name in L["trainers"]:  # the unsharded call is captured: its replays' launches, without its warm-up's
+            a_replay = capture.LAST[f"{L['trainers'][name][0]}_run"].launches
+            theirs = {k: v - capture.WARMUP_STEPS * a_replay.get(k, 0) for k, v in kernels.LAUNCHES.items()}
+            theirs = {k: v for k, v in theirs.items() if v}
             _require(own[name] == theirs, f"sharded (a) {name}: launches {own[name]}, the unsharded trainer {theirs}")
         rep, rows = _learner_views(name, outs[name])
         want_rep, want_rows = _learner_views(name, want)
@@ -4087,6 +4114,7 @@ def gate_phases(gt, dev, bound, smi):
     from griduniverse_tpu_torch.ops import bitplane as bp
     from griduniverse_tpu_torch.tools import gen_artifact as G
     from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+    from griduniverse_tpu_torch.utils import capture
 
     errs = dict.fromkeys(("aldous_broder_mazes", "gae", "act_step", "agent_stamp"), 0.0)
     sem = gt.make_semantics(device=dev)
@@ -4098,6 +4126,7 @@ def gate_phases(gt, dev, bound, smi):
     # the path, counted from 0
     torch.cuda.synchronize()
     kernels.reset_launches()
+    capture.reset_counts()
     t0 = time.perf_counter()
     train_lv = G.maze_levels(G.TRAIN_MAZES_SEED, GATE_MAZES, cells7, dev)
     eval_lv = G.maze_levels(G.EVAL_MAZES_SEED, GATE_EVAL, cells7, dev)
@@ -4116,7 +4145,11 @@ def gate_phases(gt, dev, bound, smi):
     torch.cuda.synchronize()
     cur_ms = (time.perf_counter() - t1) * 1e3
     got = {k: kernels.LAUNCHES[k] for k in kernels.LAUNCHES}
-    updates = GATE_UPDATES + GATE_CHUNKS * GATE_CHUNK_UPDATES
+    # each `ppo_run` call (two at 7x7, one a chunk) is captured: its replays and its warm-up update
+    _require(capture.COUNTS == {"captures": 2 + GATE_CHUNKS, "warmup_steps": (2 + GATE_CHUNKS) * capture.WARMUP_STEPS,
+                                "replays": GATE_UPDATES + GATE_CHUNKS * GATE_CHUNK_UPDATES},
+             f"phase 28: {capture.COUNTS}")
+    updates = capture.COUNTS["replays"] + capture.COUNTS["warmup_steps"]
     t_len, sgd = cfg7.rollout_len, cfg7.num_epochs * cfg7.num_minibatches
     expected = {**dict.fromkeys(got, 0),
                 "aldous_broder_mazes": 2 + GATE_CHUNKS,  # training, held-out, one a chunk
@@ -4211,6 +4244,178 @@ def gate_phases(gt, dev, bound, smi):
 def _aldous_level(gt, M, dev, seed, b, cells=(4, 4)):
     grids, start = M.generate_mazes_device(seed, cells, b, "aldous_broder", device=dev)
     return gt.Level(grid=grids, start_idx=start.expand(b).contiguous())
+
+
+# -- phase 29: the captured trainers (`utils/capture.py`) ------------------------
+# Each path: (trainer, level, config, envs, steps or updates a call, the chunk
+# of its N + N = 2N hold). PPO over mazes is cut to 2 + 2 against 4 updates.
+CAPTURED_TIMED = 3  # host-clock calls each way after a warm one
+
+
+def _all_state_fields(ts):
+    """(tensors, labels) of every tensor field of a train state: the
+    parameters (and DQN's target) and Adam's moments by name, Adam's count,
+    the env state, the ring and the rest."""
+    fields, labels = [], []
+    for f in dataclasses.fields(ts):
+        x = getattr(ts, f.name)
+        if isinstance(x, dict):
+            items = [(k, x[k]) for k in sorted(x)]
+        elif dataclasses.is_dataclass(x):
+            sub = _all_state_fields(x)
+            items = list(zip(sub[1], sub[0]))
+        elif isinstance(x, tuple):
+            items = list(x._asdict().items())
+        elif isinstance(x, torch.Tensor):
+            items = [("", x)]
+        else:
+            continue
+        for k, v in items:
+            fields.append(v)
+            labels.append(f"{f.name} {k}".strip())
+    return fields, labels
+
+
+def _same_whole_state(tag: str, a, b) -> None:
+    fa, labels = _all_state_fields(a)
+    fb, labels_b = _all_state_fields(b)
+    _require(labels == labels_b, f"{tag}: other fields")
+    _same_fields(tag, fa, fb, labels)
+    for f in dataclasses.fields(a):  # the seed, and PPO's and A2C's counter
+        if isinstance(getattr(a, f.name), int):
+            _require(getattr(a, f.name) == getattr(b, f.name), f"{tag}: {f.name} differs")
+
+
+def _call_trace(fn, our_kernels):
+    """One call of `fn` under the profiler (device activity, which brings
+    the CUDA runtime's calls with it): (device busy us, device events,
+    events of the port's own kernels, graph launches the host made)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    graphs = sum(1 for e in prof.events() if e.name == "cudaGraphLaunch")
+    return (sum(e.time_range.elapsed_us() for e in on_card), len(on_card),
+            sum(1 for e in on_card if any(k in e.name for k in our_kernels)), graphs)
+
+
+def captured_phases(gt, dev, smi, lv64) -> dict:
+    """Phase 29: `dqn_run`, `ppo_run` and `a2c_run` on the card, each call one
+    step or update captured in a CUDA graph and replayed, against their
+    plain version, the eager loop (`_*_run_eager`), at full width: DQN
+    uniform and PER on walls16 (65,536 envs, ring 131,072, 100 steps) and
+    over the 65,536 backtracker mazes with the conv trunk (50 steps), PPO on
+    walls16 (3 updates) and over the mazes (2), A2C on walls16 (3), and the
+    gate's path (phase 28's 7×7 ch32 PPO over 1,024 mazes, 10 updates).
+    Each path: every state field bit for bit each way; the launches of the
+    captured call the graph's a replay times the replays and the warm-up
+    step, and the eager call's the same a step; N + N = 2N captured; ms a
+    call (median of three after a warm one) each way, the capture's ms and
+    its pool's bytes, the idle share of a call, and device events, the
+    port's kernels and graph launches a step by `torch.profiler` (a call of
+    two steps less a call of one, so that the set-up cancels). Returns
+    {path: figures}."""
+    from griduniverse_tpu_torch import kernels, models
+    from griduniverse_tpu_torch.levels import builders
+    from griduniverse_tpu_torch.models import a2c, dqn, ppo
+    from griduniverse_tpu_torch.tools import gen_artifact as G
+    from griduniverse_tpu_torch.tools.profile_learners import OUR_KERNELS
+    from griduniverse_tpu_torch.tools.profile_solvers import _wall_ms
+    from griduniverse_tpu_torch.utils import capture
+
+    sem = gt.make_semantics(device=dev)
+    walls16 = builders.walls_and_goal_16x16(device=dev)
+    n64 = 65_536
+    base = dict(buffer_capacity=131_072, max_episode_steps=MAX_EPISODE_STEPS)
+    grid = dict(obs="grid", conv_channels=(32,), hidden=(64,))
+    gate_lv = G.maze_levels(G.TRAIN_MAZES_SEED, GATE_MAZES, (3, 3), dev)
+    paths = {
+        "dqn walls16 uniform": ("dqn", walls16, models.DQNConfig(**base), n64, 100, 60),
+        "dqn walls16 per": ("dqn", walls16, models.DQNConfig(**base, prioritized=True), n64, 100, 60),
+        "dqn mazes64k grid": ("dqn", lv64, models.DQNConfig(**base, **grid), n64, 50, 60),
+        "ppo walls16": ("ppo", walls16, models.PPOConfig(max_episode_steps=MAX_EPISODE_STEPS), n64, 3, 60),
+        "ppo mazes64k": ("ppo", lv64, models.PPOConfig(max_episode_steps=MAX_EPISODE_STEPS, **grid), n64, 2, 2),
+        "a2c walls16": ("a2c", walls16, models.A2CConfig(max_episode_steps=MAX_EPISODE_STEPS), n64, 3, 60),
+        "gate 7x7 ch32": ("ppo", gate_lv, G.gate_config(G.CONFIGS["7x7_ch32"], GATE_UPDATES), GATE_MAZES,
+                          GATE_UPDATES, 60),
+    }
+    api = {"dqn": (models.dqn_init, models.dqn_run, dqn._dqn_run_eager),
+           "ppo": (models.ppo_init, models.ppo_run, ppo._ppo_run_eager),
+           "a2c": (models.a2c_init, models.a2c_run, a2c._a2c_run_eager)}
+    out = {}
+    for name, (kind, level, cfg, b, n, chunk) in paths.items():
+        t_path = time.perf_counter()
+        init, run, eager = api[kind]
+        ts0 = init(sem, level, 5, cfg, b)
+        ways = {"captured": lambda k, ts=ts0: run(sem, level, ts, cfg, k),
+                "eager": lambda k, ts=ts0: eager(sem, level, ts, cfg, k)}
+        # the warm calls, counted and held bit for bit
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        capture.reset_counts()
+        got = ways["captured"](n)
+        torch.cuda.synchronize()
+        counted = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        record = capture.LAST[run.__name__]
+        _require(capture.COUNTS == {"captures": 1, "warmup_steps": capture.WARMUP_STEPS, "replays": n},
+                 f"phase 29 {name}: {capture.COUNTS}")
+        kernels.reset_launches()
+        want = ways["eager"](n)
+        torch.cuda.synchronize()
+        plain = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        _require(plain == {k: v * n for k, v in record.launches.items()}
+                 and counted == {k: v * (n + capture.WARMUP_STEPS) for k, v in record.launches.items()},
+                 f"phase 29 {name}: launches captured {counted}, eager {plain}, a replay {record.launches}")
+        _same_whole_state(f"phase 29 {name} captured vs eager", got, want)
+        finite = all(bool(torch.isfinite(p).all()) for p in got.params.values()) and bool(torch.isfinite(got.last_loss))
+        _require(finite, f"phase 29 {name}: a non-finite parameter or loss")
+        # N + N = 2N captured
+        whole = ways["captured"](2 * chunk)
+        _same_whole_state(f"phase 29 {name} captured {chunk}+{chunk} vs {2 * chunk}",
+                          run(sem, level, ways["captured"](chunk), cfg, chunk), whole)
+        # times: three host-clock calls each way, the capture's ms and pool of each captured one
+        figures = {"launches a replay": record.launches}
+        for way, fn in ways.items():
+            walls, caps, pools, reps = [], [], [], []
+            for _ in range(CAPTURED_TIMED):
+                walls.append(_wall_ms(lambda fn=fn: fn(n)))
+                if way == "captured":
+                    rec = capture.LAST[run.__name__]
+                    caps.append(rec.capture_ms)
+                    pools.append(rec.pool_bytes)
+                    reps.append(rec.replays_ms() / n)
+            med = sorted(walls)[len(walls) // 2]
+            # a step in the steady state: the median of the calls' replays on the card (CUDA events
+            # around them); eagerly, the median call over its steps
+            step_ms = sorted(reps)[len(reps) // 2] if way == "captured" else med / n
+            full = _call_trace(lambda fn=fn: fn(n), OUR_KERNELS)
+            _require(full[0] > 0, f"phase 29 {name} {way}: the profiler recorded no device time")
+            idle = 1 - full[0] / (med * 1e3)
+            # a step's events: a call of two steps less a call of one (the set-up cancels; short
+            # traces, as the profiler drops events from long ones)
+            one, two = (_call_trace(lambda fn=fn, k=k: fn(k), OUR_KERNELS) for k in (1, 2))
+            per = [b - a for a, b in zip(one[1:], two[1:])]
+            figures[way] = dict(ms=walls, median_ms=med, step_ms=step_ms, capture_ms=caps, pool_bytes=pools,
+                                idle=idle, call_events=full[1], events_a_step=per[0], ours_a_step=per[1],
+                                graph_launches_a_step=per[2])
+            cap = f", capture {caps!r} ms, graph pool {pools!r} bytes" if caps else ""
+            how = "the replays by CUDA events" if way == "captured" else "the median call over its steps"
+            print(f"phase 29 {name} {way}: {walls!r} ms a call of {n} (median {med!r}), {step_ms!r} ms a step "
+                  f"({how}){cap}; idle share {100 * idle:.2f} % ({full[1]} device events a call); a step: "
+                  f"{per[0]} device events ({per[1]} of the port's kernels), {per[2]} graph launches ({smi})")
+        cap_f, eag_f = figures["captured"], figures["eager"]
+        _require(cap_f["ours_a_step"] == eag_f["ours_a_step"],
+                 f"phase 29 {name}: the port's kernels a step {cap_f['ours_a_step']} captured, {eag_f['ours_a_step']} eager")
+        _require(cap_f["graph_launches_a_step"] == 1 and eag_f["graph_launches_a_step"] == 0,
+                 f"phase 29 {name}: graph launches a step {cap_f['graph_launches_a_step']} captured, "
+                 f"{eag_f['graph_launches_a_step']} eager")
+        print(f"phase 29 {name}: captured equals eager bit for bit in every state field, {chunk}+{chunk} equals "
+              f"{2 * chunk} captured; one graph launch a step; launches a replay {record.launches}; "
+              f"{eag_f['median_ms'] / cap_f['median_ms']!r}x the eager call's median ({smi}); "
+              f"{time.perf_counter() - t_path:.1f} s")
+        out[name] = figures
+    return out
 
 
 def main() -> None:
@@ -4545,6 +4750,9 @@ def main() -> None:
         errs[name] = max(errs[name], err)
     times["aldous_broder_mazes"].extend(gate_times)
     elapsed("phase 28")
+    # -- phase 29: the captured trainers against the eager loop ------------------
+    captured_phases(gt, dev, smi, lv64)
+    elapsed("phase 29")
     # a kernel timed at several shapes or in several forms (K1, K2, K3, K11) has
     # a record for each; one of another path carries its own launches and error
     shaped = [(name, t) for name, ts in times.items() for t in (ts if isinstance(ts, list) else [ts])]

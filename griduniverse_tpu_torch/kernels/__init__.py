@@ -44,7 +44,10 @@ table); a DQN act-and-step is one (its last block folds the statistics). K4
 counts one launch a call of up to 16 sweeps, in its shared tier (up to
 16,384 cells a maze) and its cluster tier (above, one maze a thread-block
 cluster), and one a sweep in its global tier (a maze that 16 blocks do not
-hold).
+hold). A trainer's step captured in a CUDA graph (`utils/capture.py`)
+launches nothing while it is captured and launches its kernels at each
+replay without running the wrappers: `capture.run` takes back the counts
+the capture added and adds one replay's counts for each replay.
 
 Two forms serve the sharded runs (`parallel/`): `td_step_sharded`, K5's
 sharded form in `csrc/td_fast.cu`, one launch a step through a

@@ -5,12 +5,14 @@ PyTorch counterpart of `griduniverse_tpu/models/a2c.py`. One update is a T-step 
 auto-reset envs on the bit-packed step, the bootstrapped n-step returns, one
 forward and backward pass over the (T, B) batch, and one clipped Adam step.
 
-The reference is one jitted scan; here the update loop is a Python loop on
-the host that enqueues the policy forward and one fused kernel a rollout
-step (K7b, `act_step`: sample, log-prob, env step, behind a plan built once
-a run that writes the trajectory in place), the return scan (K7a) and the
-network's passes (K9a or K9b inside the network). Nothing in the loop reads
-a device value on the host.
+The reference is one jitted scan; here, on the card, `a2c_run` is one
+update captured in a CUDA graph and replayed (`utils/capture.py`): the
+policy forward and one fused kernel a rollout step (K7b, `act_step`:
+sample, log-prob, env step, behind a plan built once a run that writes the
+trajectory in place), the return scan (K7a) and the network's passes (K9a
+or K9b inside the network). Nothing in an update reads a device value on
+the host. The plain version of the captured run, `_a2c_run_eager`, is the
+host loop that enqueues every update; the sharded trainers run that loop.
 
 Randomness is counter-based, as in the reference: a train state holds an
 integer seed, and update `u` draws its Gumbel noise (T, B, A), all of it
@@ -68,6 +70,7 @@ from ..ops.bitplane import BitLevel, FastState, pack_level, reset_bits, step_bit
 from ..parallel.distributed import fetch_global
 from ..parallel.mesh import EnvMesh, all_gather_rows, all_reduce_sum, env_axes, local_batch, shard_rows, tree_map
 from ..parallel.rollout import local_level
+from ..utils import capture
 from .networks import ActorCritic, BatchedConvActorCritic, ConvActorCritic, exact_kernels
 from .optim import AdamState, Params, adam_init, adam_update, clip_by_global_norm, make_lr
 
@@ -492,9 +495,9 @@ def a2c_update(sem: Semantics, learner: Learner, cfg: A2CConfig, params: Params,
                opt_state: AdamState, env_state: FastState, noise, pmean=None) -> A2CUpdate:
     """One A2C update from `noise` (T, B, A): the rollout, the n-step
     returns, one pass over the (T, B) batch and one clipped Adam step.
-    `a2c_run` is a loop over this, inside `exact_kernels()`. The update's
-    `env_state` and trajectory rows are valid until the learner's next
-    rollout (`A2CUpdate`). `pmean` (a sharded run's `_rank_mean`) takes the
+    `a2c_run` captures it, `_a2c_run_eager` loops over it, inside
+    `exact_kernels()`. The update's `env_state` and trajectory rows are
+    valid until the learner's next rollout (`A2CUpdate`). `pmean` (a sharded run's `_rank_mean`) takes the
     gradients and the loss to their means over the ranks before the clip."""
     bl, net, tiles, rate, act_plan = learner
     env_state, traj, bootstrap = rollout(
@@ -518,7 +521,51 @@ def update_noise(device, seed: int, update: int, cfg, batch: int, num_actions: i
 def a2c_run(sem: Semantics, level: Level, ts: A2CTrainState, cfg: A2CConfig = A2CConfig(),
             num_updates: int = 500, *, gumbel=None) -> A2CTrainState:
     """Advance training by `num_updates`; chunk-invariant, bit for bit.
-    `gumbel` (num_updates, T, B, A) replaces the state's own noise."""
+    `gumbel` (num_updates, T, B, A) replaces the state's own noise.
+
+    On the card the run is one update captured in a CUDA graph and replayed
+    `num_updates` times (`utils.capture.run`); on the CPU the same update
+    runs eagerly over the same buffers. The plain version of the captured
+    run is `_a2c_run_eager`."""
+    dev = level.device
+    b = ts.run_ret.shape[0]
+    keys = list(ts.params)
+    state = [x.clone() for x in _state_buffers(ts.params, ts.opt_state, ts.env_state, ts.run_ret, ts.episodes,
+                                               ts.ret_sum, ts.last_loss)]
+
+    def program() -> capture.Program:
+        learner = a2c_learner(sem, level, cfg, b)
+
+        def body(xs, gen, inputs):
+            params, opt_state, env_state, (run_ret, episodes, ret_sum, _) = _state_from(keys, xs)
+            noise = inputs[0] if gen is None else draw_gumbel(gen, (cfg.rollout_len, b, sem.num_actions), dev)
+            upd = a2c_update(sem, learner, cfg, params, opt_state, env_state, noise)
+            stats = fold_episode_stats(run_ret, episodes, ret_sum, upd.traj.reward, upd.traj.done)
+            return _state_buffers(upd.params, upd.opt_state, upd.env_state, *stats, upd.loss)
+
+        if gumbel is not None:
+            return capture.Program(body, inputs=lambda i: [gumbel[i]])
+        return capture.Program(body, seeds=lambda i: mix_seed(ts.seed, ts.update + i))
+
+    return _run_onpolicy("a2c_run", ts, keys, state, program, num_updates)
+
+
+def _run_onpolicy(name: str, ts, keys, state: list, program, num_updates: int):
+    """`capture.run` of an A2C or PPO program over `state`, inside
+    `exact_kernels()`, and the train state it ends in."""
+    with exact_kernels():
+        state = capture.run(name, state, program, num_updates)
+    params, opt_state, env_state, (run_ret, episodes, ret_sum, loss) = _state_from(keys, state)
+    return dataclasses.replace(ts, params=params, opt_state=opt_state, env_state=env_state,
+                               update=ts.update + num_updates, run_ret=run_ret, episodes=episodes,
+                               ret_sum=ret_sum, last_loss=loss)
+
+
+def _a2c_run_eager(sem: Semantics, level: Level, ts: A2CTrainState, cfg: A2CConfig = A2CConfig(),
+                   num_updates: int = 500, *, gumbel=None) -> A2CTrainState:
+    """The plain version of `a2c_run`'s captured run: the same updates
+    enqueued one after another from a host loop (`_a2c_updates_eager`),
+    which a captured run equals bit for bit."""
     dev = level.device
     b = ts.run_ret.shape[0]
     learner = a2c_learner(sem, level, cfg, b)
@@ -528,13 +575,13 @@ def a2c_run(sem: Semantics, level: Level, ts: A2CTrainState, cfg: A2CConfig = A2
             return gumbel[i]
         return update_noise(dev, ts.seed, ts.update + i, cfg, b, sem.num_actions)
 
-    return _a2c_updates(sem, learner, cfg, ts, num_updates, noise)
+    return _a2c_updates_eager(sem, learner, cfg, ts, num_updates, noise)
 
 
-def _a2c_updates(sem, learner: Learner, cfg: A2CConfig, ts: A2CTrainState, num_updates: int, noise,
-                 pmean=None) -> A2CTrainState:
-    """`num_updates` A2C updates from `ts`, update i's noise `noise(i)`: the
-    loop of `a2c_run` and `a2c_run_sharded`."""
+def _a2c_updates_eager(sem, learner: Learner, cfg: A2CConfig, ts: A2CTrainState, num_updates: int, noise,
+                       pmean=None) -> A2CTrainState:
+    """`num_updates` A2C updates from `ts`, update i's noise `noise(i)`,
+    from a host loop: the loop of `_a2c_run_eager` and `a2c_run_sharded`."""
     params, opt_state, env_state = ts.params, ts.opt_state, ts.env_state
     run_ret, episodes, ret_sum, loss = ts.run_ret, ts.episodes, ts.ret_sum, ts.last_loss
     with exact_kernels():
@@ -548,6 +595,23 @@ def _a2c_updates(sem, learner: Learner, cfg: A2CConfig, ts: A2CTrainState, num_u
         update=ts.update + num_updates, run_ret=run_ret, episodes=episodes, ret_sum=ret_sum,
         last_loss=loss,
     )
+
+
+def _state_buffers(params: Params, opt_state: AdamState, env_state: FastState, *rest) -> list:
+    """A train state's tensors as one list, the order `_state_from` reads:
+    the parameters, Adam's count and moments, the env state, then `rest`."""
+    return [*params.values(), opt_state.count, *opt_state.mu.values(), *opt_state.nu.values(),
+            env_state.agent_idx, env_state.agent_code, env_state.t, env_state.done, *rest]
+
+
+def _state_from(keys, xs) -> tuple:
+    """(params, opt_state, env_state, rest) of a `_state_buffers` list whose
+    parameters are keyed by `keys`."""
+    n = len(keys)
+    params = dict(zip(keys, xs[:n]))
+    opt_state = AdamState(count=xs[n], mu=dict(zip(keys, xs[n + 1:2 * n + 1])),
+                          nu=dict(zip(keys, xs[2 * n + 1:3 * n + 1])))
+    return params, opt_state, FastState(*xs[3 * n + 1:3 * n + 5]), list(xs[3 * n + 5:])
 
 
 def a2c_result(ts: A2CTrainState) -> A2CResult:
@@ -811,7 +875,7 @@ def a2c_run_sharded(mesh: EnvMesh, sem: Semantics, level: Level, ts: A2CTrainSta
             return _rank_noise(gumbel[i], rows, mesh.device)
         return update_noise(mesh.device, seed, ts.update + i, cfg, local_b, sem.num_actions)
 
-    return _a2c_updates(sem, learner, cfg, ts, num_updates, noise, _rank_mean(mesh))
+    return _a2c_updates_eager(sem, learner, cfg, ts, num_updates, noise, _rank_mean(mesh))
 
 
 def a2c_train_sharded(mesh: EnvMesh, sem: Semantics, level: Level, seed: int, cfg: A2CConfig = A2CConfig(),

@@ -19,13 +19,17 @@ clipped Adam step on the (double-)DQN loss and moves the target network
     recall ≥ 0.95), equal scores by lowest index. Samples are drawn WITHOUT
     replacement; importance weights keep the with-replacement form
     (N·P(i))^−β, max-normalised over the rows with mass.
-  * The reference is one jitted scan; here the loop is a Python loop on the
-    host that reads no device value: ε, β, the write offset, the buffer's
-    fill, the warm-up gate and the hard-update flag of every step of a run
-    are computed as tensors once (`step_scalars`) and a step takes its views.
+  * The reference is one jitted scan; here, on the card, `dqn_run` is one
+    step captured in a CUDA graph and replayed (`utils/capture.py`): ε, β,
+    the write offset, the buffer's fill, the warm-up gate and the
+    hard-update flag are computed in the graph from the step counter on the
+    card (`step_scalars`), and nothing in a step reads a device value on the
+    host. The plain version of the captured run, `_dqn_run_eager`, is the
+    host loop that enqueues every step (the schedules of a run computed
+    once); the sharded trainers run that loop.
   * The buffer and the priorities are updated IN PLACE inside a run;
-    `dqn_run` copies them once at its start, so the state it was given is
-    not written.
+    `dqn_run` copies the state once at its start into the run's buffers,
+    so the state it was given is not written.
 
 Randomness is counter-based: the train state holds an integer seed, and
 step `t` draws its explore coins (B,), random actions (B,) and its minibatch
@@ -84,6 +88,7 @@ from ..ops.bitplane import (
     step_bits,
 )
 from ..parallel.mesh import EnvMesh
+from ..utils import capture
 from ..utils.platform import resolve_device
 from .a2c import (
     _net_apply,
@@ -103,6 +108,8 @@ from .a2c import (
     leaves,
     make_network,
     mix_seed,
+    _state_buffers,
+    _state_from,
     update_generator,
 )
 from .networks import ActorCritic, BatchedConvActorCritic, ConvActorCritic, exact_kernels
@@ -582,7 +589,11 @@ def step_draws(device, seed: int, t: int, cfg: DQNConfig, batch_env: int, num_ac
     then the minibatch's slot indices (n,) int32 (uniform replay) or the
     Gumbel noise (capacity,) (prioritized). `eps` and `size` are that
     step's () tensors."""
-    gen = update_generator(device, seed, t)
+    return _draws_from(update_generator(device, seed, t), device, cfg, batch_env, num_actions, eps, size)
+
+
+def _draws_from(gen: torch.Generator, device, cfg: DQNConfig, batch_env: int, num_actions: int, eps, size):
+    """`step_draws` from the generator `gen`, seeded for the step."""
     explore = torch.rand((batch_env,), generator=gen, device=device) < eps
     rand_a = torch.randint(0, num_actions, (batch_env,), generator=gen, device=device, dtype=torch.int32)
     if cfg.prioritized:
@@ -645,9 +656,10 @@ def dqn_update(sem: Semantics, learner: DQNLearner, cfg: DQNConfig, params: Para
     and write the transitions (K7c's store form), sample, one clipped Adam
     step, move the target, refresh the priorities. `buf` and `prio` are
     written IN PLACE; on the card they must be the ring bound to
-    `learner.act_plan` (`DqnActPlan.bind_ring`). `dqn_run` is a loop over
-    this, inside `exact_kernels()`. `pmean` (a sharded run's `_rank_mean`)
-    takes the gradients and the loss to their means over the ranks."""
+    `learner.act_plan` (`DqnActPlan.bind_ring`). `dqn_run` captures it,
+    `_dqn_run_eager` loops over it, inside `exact_kernels()`. `pmean` (a
+    sharded run's `_rank_mean`) takes the gradients and the loss to their
+    means over the ranks."""
     bl, net, tiles, rate, batch_env, act_plan = learner
     explore, rand_a, sample = draws
     n = cfg.batch_size_train
@@ -693,19 +705,90 @@ def dqn_run(sem: Semantics, level: Level, ts: DQNTrainState, cfg: DQNConfig = DQ
     """Advance training by `num_steps`. Chunk-invariant: two runs of N/2
     bit-equal one run of N. `draws` = (explore (T, B) bool, rand_a (T, B)
     int32, sample (T, n) slot indices or (T, capacity) Gumbel noise)
-    replaces the state's own draws. The state given is not written: the
-    buffer and the priorities are copied once, then updated in place."""
+    replaces the state's own draws. The state given is not written: it is
+    copied once into the run's buffers, which the steps then update.
+
+    On the card the run is one step captured in a CUDA graph and replayed
+    `num_steps` times (`utils.capture.run`), the counterpart of the
+    reference's one jitted scan; on the CPU the same step runs eagerly over
+    the same buffers. The plain version of the captured run is
+    `_dqn_run_eager`, the loop that enqueues every step."""
+    b = ts.run_ret.shape[0]
+    keys = list(ts.params)
+    dev = level.device
+    # the one host read of a run: the steps' generators are seeded from (seed, t)
+    t0 = int(ts.t) if draws is None else 0
+    state = [x.clone() for x in _dqn_buffers(ts)]
+
+    def program() -> capture.Program:
+        learner = dqn_learner(sem, level, cfg, b)
+
+        def body(xs, gen, inputs):
+            params, target_params, opt_state, env_state, buf, prio, p_max, t, run_ret, episodes, ret_sum, _ = (
+                _dqn_unflat(keys, xs))
+            # the step's schedules from the counter on the card
+            sc = step_scalars(cfg, t, 1, b)[0]
+            step = tuple(inputs) if gen is None else _draws_from(gen, dev, cfg, b, sem.num_actions, sc.eps, sc.size)
+            upd = dqn_update(sem, learner, cfg, params, target_params, opt_state, env_state, buf, prio, p_max,
+                             sc, step, (run_ret, episodes, ret_sum))
+            return _dqn_flat(upd.params, upd.target_params, upd.opt_state, upd.env_state, buf, prio, upd.p_max,
+                             t + 1, *upd.stats, upd.loss)
+
+        def bind(xs):
+            if learner.act_plan is not None:  # the run's ring, checked once, for K7c's store form
+                _, _, _, _, buf, prio, *_ = _dqn_unflat(keys, xs)
+                learner.act_plan.bind_ring(buf, prio if cfg.prioritized else None)
+
+        if draws is not None:
+            return capture.Program(body, inputs=lambda i: [d[i] for d in draws], bind=bind)
+        return capture.Program(body, seeds=lambda i: mix_seed(ts.seed, t0 + i), bind=bind)
+
+    with exact_kernels():
+        state = capture.run("dqn_run", state, program, num_steps)
+    params, target_params, opt_state, env_state, buf, prio, p_max, t, run_ret, episodes, ret_sum, loss = (
+        _dqn_unflat(keys, state))
+    return dataclasses.replace(
+        ts, params=params, target_params=target_params, opt_state=opt_state, env_state=env_state, buf=buf,
+        prio=prio, p_max=p_max, t=t, run_ret=run_ret, episodes=episodes, ret_sum=ret_sum, last_loss=loss)
+
+
+def _dqn_flat(params, target_params, opt_state, env_state, buf, prio, p_max, t, run_ret, episodes, ret_sum,
+              loss) -> list:
+    """A DQN state's tensors as one list: `a2c._state_buffers`' order, then
+    the target, the ring, `prio`, `p_max`, `t`, the statistics and the loss."""
+    return _state_buffers(params, opt_state, env_state, *target_params.values(), *buf, prio, p_max, t,
+                          run_ret, episodes, ret_sum, loss)
+
+
+def _dqn_unflat(keys, xs) -> tuple:
+    """`_dqn_flat`'s arguments from its list, the parameters keyed by `keys`."""
+    params, opt_state, env_state, rest = _state_from(keys, xs)
+    n = len(keys)
+    return (params, dict(zip(keys, rest[:n])), opt_state, env_state, ReplayBuffer(*rest[n:n + 5]),
+            *rest[n + 5:])
+
+
+def _dqn_buffers(ts: DQNTrainState) -> list:
+    return _dqn_flat(ts.params, ts.target_params, ts.opt_state, ts.env_state, ts.buf, ts.prio, ts.p_max, ts.t,
+                     ts.run_ret, ts.episodes, ts.ret_sum, ts.last_loss)
+
+
+def _dqn_run_eager(sem: Semantics, level: Level, ts: DQNTrainState, cfg: DQNConfig = DQNConfig(),
+                   num_steps: int = 2_000, *, draws=None) -> DQNTrainState:
+    """The plain version of `dqn_run`'s captured run: the same steps
+    enqueued one after another from a host loop (`_dqn_steps_eager`),
+    which a captured run equals bit for bit."""
     b = ts.run_ret.shape[0]
     learner = dqn_learner(sem, level, cfg, b)
-    return _dqn_steps(sem, level.device, learner, cfg, ts, num_steps, ts.seed,
-                      None if draws is None else (lambda i: tuple(d[i] for d in draws)))
+    return _dqn_steps_eager(sem, level.device, learner, cfg, ts, num_steps, ts.seed,
+                            None if draws is None else (lambda i: tuple(d[i] for d in draws)))
 
 
-def _dqn_steps(sem, dev, learner: DQNLearner, cfg: DQNConfig, ts: DQNTrainState, num_steps: int, seed: int,
-               draws, pmean=None) -> DQNTrainState:
+def _dqn_steps_eager(sem, dev, learner: DQNLearner, cfg: DQNConfig, ts: DQNTrainState, num_steps: int, seed: int,
+                     draws, pmean=None) -> DQNTrainState:
     """`num_steps` DQN steps from `ts`, step i's draws from (seed, t0 + i) or
-    `draws(i)`: the loop of `dqn_run` and `dqn_run_sharded` (`cfg` the
-    rank's, its capacity the rank's slots)."""
+    `draws(i)`, from a host loop: the loop of `_dqn_run_eager` and
+    `dqn_run_sharded` (`cfg` the rank's, its capacity the rank's slots)."""
     b = learner.batch_env
     # the one host read of a run: the steps' generators are seeded from (seed, t)
     t0 = int(ts.t) if draws is None else 0
@@ -800,8 +883,8 @@ def dqn_run_sharded(mesh: EnvMesh, sem: Semantics, level: Level, ts: DQNTrainSta
                     _rank_noise(rand_a[i][None], rows, mesh.device)[0],
                     sample[i].chunk(mesh.size)[mesh.rank].to(mesh.device))
 
-    return _dqn_steps(sem, mesh.device, learner, local_cfg, ts, num_steps, shard_seed(ts.seed, mesh.rank), step,
-                      _rank_mean(mesh))
+    return _dqn_steps_eager(sem, mesh.device, learner, local_cfg, ts, num_steps, shard_seed(ts.seed, mesh.rank),
+                            step, _rank_mean(mesh))
 
 
 def dqn_train_sharded(mesh: EnvMesh, sem: Semantics, level: Level, seed: int, cfg: DQNConfig = DQNConfig(),

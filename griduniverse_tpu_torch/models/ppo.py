@@ -11,12 +11,15 @@ counter-based randomness.
          → GAE(λ) advantages by one reverse scan (K7a)
          → E epochs × M minibatches of clipped-surrogate SGD
 
-The update loop is a Python loop on the host; nothing in it reads a device
-value on the host, the `target_kl` stop included. Update `u` draws from a
-generator seeded from (seed, u) alone, in a fixed order: the rollout's
-Gumbel noise (T, B, A), then one shuffle draw per epoch. So a run of 2N
-updates equals two runs of N from a saved state, bit for bit. `ppo_run`
-also takes the draws as `gumbel=` and `shuffle_draws=` tensors.
+On the card `ppo_run` is one update captured in a CUDA graph and replayed
+(`utils/capture.py`); nothing in an update reads a device value on the
+host, the `target_kl` stop included. The plain version of the captured
+run, `_ppo_run_eager`, is the host loop that enqueues every update; the
+sharded trainers run that loop. Update `u` draws from a generator seeded
+from (seed, u) alone, in a fixed order: the rollout's Gumbel noise
+(T, B, A), then one shuffle draw per epoch. So a run of 2N updates equals
+two runs of N from a saved state, bit for bit. `ppo_run` also takes the
+draws as `gumbel=` and `shuffle_draws=` tensors.
 
 The sharded trainers (`ppo_init_sharded`, `ppo_run_sharded`,
 `ppo_train_sharded`) follow `models/a2c.py`'s layout and reductions: a
@@ -42,6 +45,7 @@ from ..core.types import Level
 from ..kernels.gae import gae_cuda
 from ..ops.bitplane import FastState, pack_level
 from ..parallel.mesh import EnvMesh
+from ..utils import capture
 from .a2c import (
     Learner,
     Trajectory,
@@ -50,8 +54,11 @@ from .a2c import (
     _rank_mean,
     _rank_noise,
     _result_sharded,
+    _run_onpolicy,
     _sharded_init,
     _sharded_run_setup,
+    _state_buffers,
+    _state_from,
     _tiles_for,
     _warm_started,
     act_plan_for,
@@ -62,6 +69,7 @@ from .a2c import (
     log_probs,
     make_network,
     mean_grads,
+    mix_seed,
     rollout,
     shard_seed,
     update_generator,
@@ -273,7 +281,11 @@ def update_draws(device, seed: int, update: int, cfg: PPOConfig, batch: int, num
     update) alone, in a fixed order: the rollout's (T, B, A) Gumbel noise,
     then one shuffle draw per epoch. An injected `gumbel` or `shuffle` (one
     draw per epoch) takes the place of its draws. Returns (noise, draws)."""
-    gen = update_generator(device, seed, update)
+    return _draws_from(update_generator(device, seed, update), device, cfg, batch, num_actions, gumbel, shuffle)
+
+
+def _draws_from(gen, device, cfg: PPOConfig, batch: int, num_actions: int, gumbel, shuffle):
+    """`update_draws` from the generator `gen`, seeded for the update."""
     if gumbel is None:
         gumbel = draw_gumbel(gen, (cfg.rollout_len, batch, num_actions), device)
     if shuffle is None:
@@ -315,9 +327,9 @@ def ppo_update(sem: Semantics, learner: Learner, cfg: PPOConfig, params: Params,
                opt_state: AdamState, env_state: FastState, noise, draws, pmean=None) -> PPOUpdate:
     """One PPO update from `noise` (T, B, A) and one shuffle draw per epoch
     (`update_draws`): the rollout, GAE, and E epochs × M minibatches of
-    clipped-surrogate SGD. `ppo_run` is a loop over this, inside
-    `exact_kernels()`. The update's `env_state` and trajectory rows are
-    valid until the learner's next rollout (`PPOUpdate`). `pmean` (a
+    clipped-surrogate SGD. `ppo_run` captures it, `_ppo_run_eager` loops
+    over it, inside `exact_kernels()`. The update's `env_state` and
+    trajectory rows are valid until the learner's next rollout (`PPOUpdate`). `pmean` (a
     sharded run's `_rank_mean`) takes the advantages' mean and deviation,
     and each minibatch's gradients, loss and KL, to their means over the
     ranks."""
@@ -357,7 +369,51 @@ def ppo_run(sem: Semantics, level: Level, ts: PPOTrainState, cfg: PPOConfig = PP
     """Advance training by `num_updates`. Chunk-invariant: two runs of N
     equal one run of 2N bit for bit. `gumbel` (num_updates, T, B, A) and
     `shuffle_draws` (num_updates, num_epochs, ...) replace the state's own
-    draws."""
+    draws.
+
+    On the card the run is one update captured in a CUDA graph and replayed
+    `num_updates` times (`utils.capture.run`), the `target_kl` stop inside
+    it; on the CPU the same update runs eagerly over the same buffers. The
+    plain version of the captured run is `_ppo_run_eager`."""
+    dev = level.device
+    b = ts.run_ret.shape[0]
+    keys = list(ts.params)
+    state = [x.clone() for x in _state_buffers(ts.params, ts.opt_state, ts.env_state, ts.run_ret, ts.episodes,
+                                               ts.ret_sum, ts.last_loss)]
+    # injected draws, one list a update: the noise, then one shuffle draw an epoch
+    shuffled = shuffle_draws is not None and cfg.shuffle != "none"
+    injected = None
+    if gumbel is not None or shuffled:
+        def injected(i):
+            return ([gumbel[i]] if gumbel is not None else []) + (
+                [shuffle_draws[i][e] for e in range(cfg.num_epochs)] if shuffled else [])
+
+    def program() -> capture.Program:
+        learner = ppo_learner(sem, level, cfg, b)
+
+        def body(xs, gen, inputs):
+            params, opt_state, env_state, (run_ret, episodes, ret_sum, _) = _state_from(keys, xs)
+            given = list(inputs or ())
+            noise = given.pop(0) if gumbel is not None else None
+            shuffle = given if shuffled else (None if gen is not None else [None] * cfg.num_epochs)
+            noise, shuffle = _draws_from(gen, dev, cfg, b, sem.num_actions, noise, shuffle)
+            upd = ppo_update(sem, learner, cfg, params, opt_state, env_state, noise, shuffle)
+            stats = fold_episode_stats(run_ret, episodes, ret_sum, upd.traj.reward, upd.traj.done)
+            return _state_buffers(upd.params, upd.opt_state, upd.env_state, *stats, upd.loss)
+
+        # a generator a call unless every draw is injected ("none" draws nothing)
+        drawn = gumbel is None or not (shuffled or cfg.shuffle == "none")
+        return capture.Program(body, seeds=(lambda i: mix_seed(ts.seed, ts.update + i)) if drawn else None,
+                               inputs=injected)
+
+    return _run_onpolicy("ppo_run", ts, keys, state, program, num_updates)
+
+
+def _ppo_run_eager(sem: Semantics, level: Level, ts: PPOTrainState, cfg: PPOConfig = PPOConfig(),
+                   num_updates: int = 500, *, gumbel=None, shuffle_draws=None) -> PPOTrainState:
+    """The plain version of `ppo_run`'s captured run: the same updates
+    enqueued one after another from a host loop (`_ppo_updates_eager`),
+    which a captured run equals bit for bit."""
     dev = level.device
     b = ts.run_ret.shape[0]
     learner = ppo_learner(sem, level, cfg, b)
@@ -367,13 +423,14 @@ def ppo_run(sem: Semantics, level: Level, ts: PPOTrainState, cfg: PPOConfig = PP
                             gumbel=None if gumbel is None else gumbel[i],
                             shuffle=None if shuffle_draws is None else shuffle_draws[i])
 
-    return _ppo_updates(sem, learner, cfg, ts, num_updates, draws)
+    return _ppo_updates_eager(sem, learner, cfg, ts, num_updates, draws)
 
 
-def _ppo_updates(sem, learner: Learner, cfg: PPOConfig, ts: PPOTrainState, num_updates: int, draws,
-                 pmean=None) -> PPOTrainState:
+def _ppo_updates_eager(sem, learner: Learner, cfg: PPOConfig, ts: PPOTrainState, num_updates: int, draws,
+                       pmean=None) -> PPOTrainState:
     """`num_updates` PPO updates from `ts`, update i's (noise, shuffle
-    draws) `draws(i)`: the loop of `ppo_run` and `ppo_run_sharded`."""
+    draws) `draws(i)`, from a host loop: the loop of `_ppo_run_eager` and
+    `ppo_run_sharded`."""
     params, opt_state, env_state = ts.params, ts.opt_state, ts.env_state
     run_ret, episodes, ret_sum, loss = ts.run_ret, ts.episodes, ts.ret_sum, ts.last_loss
     with exact_kernels():
@@ -448,7 +505,7 @@ def ppo_run_sharded(mesh: EnvMesh, sem: Semantics, level: Level, ts: PPOTrainSta
                             gumbel=None if gumbel is None else _rank_noise(gumbel[i], rows, mesh.device),
                             shuffle=shuffle)
 
-    return _ppo_updates(sem, learner, cfg, ts, num_updates, draws, _rank_mean(mesh))
+    return _ppo_updates_eager(sem, learner, cfg, ts, num_updates, draws, _rank_mean(mesh))
 
 
 def ppo_train_sharded(mesh: EnvMesh, sem: Semantics, level: Level, seed: int, cfg: PPOConfig = PPOConfig(),

@@ -21,8 +21,11 @@ six by default). It prints, one line each:
   name (the top twelve), the hand-written kernels' share of the busy time, the
   number of device events, and the device's idle share of the call: 1 − busy
   time / the call's median wall time WITHOUT the profiler (the profiler slows
-  the host). The update loop runs on the host, so the idle share is the time
-  the card waits for the next launch.
+  the host). A `*_run` call on the card is one step or update captured in a
+  CUDA graph and replayed (`utils/capture.py`), after one eager warm-up step
+  and the capture, which take most of the idle share at these few steps a
+  call (`tools/profile_capture.py` splits a step's time against the eager
+  loop's; `chip_smoke.py` phase 29 times the replays alone).
 """
 
 from __future__ import annotations

@@ -29,6 +29,7 @@ from griduniverse_tpu_torch.models import a2c, dqn, networks, ppo
 from griduniverse_tpu_torch.levels import maze as M
 from griduniverse_tpu_torch.ops import bitplane as bp
 from griduniverse_tpu_torch.tools import gather_probe
+from griduniverse_tpu_torch.utils import capture
 
 pytestmark = pytest.mark.cuda
 
@@ -942,10 +943,12 @@ def test_dqn_on_cuda_is_chunk_invariant(dev, extra):
     kernels.reset_launches()
     full = dqn.dqn_run(sem, level, ts0, cfg, 24)
     per = bool(extra.get("prioritized"))
-    # a step: K7c's store form (act, step, statistics, the ring write), the gather, with PER the refresh
-    assert kernels.LAUNCHES["dqn_act"] == 24
-    assert kernels.LAUNCHES["replay"] == 24 * (2 if per else 1)
-    assert kernels.LAUNCHES["per_sample"] == (24 * 8 if per else 0)
+    # a step: K7c's store form (act, step, statistics, the ring write), the gather, with PER the refresh;
+    # the captured run's 24 replays and the warm-up's step
+    steps = 24 + capture.WARMUP_STEPS
+    assert kernels.LAUNCHES["dqn_act"] == steps
+    assert kernels.LAUNCHES["replay"] == steps * (2 if per else 1)
+    assert kernels.LAUNCHES["per_sample"] == (steps * 8 if per else 0)
     resumed = dqn.dqn_run(sem, level, dqn.dqn_run(sem, level, ts0, cfg, 12), cfg, 12)
     for name in full.params:
         assert torch.equal(full.params[name], resumed.params[name]), name
@@ -2276,3 +2279,145 @@ def test_segment_cluster_shared_bytes_match_the_plan(dev):
         assert lib.gu_segment_cluster_bytes(n, ctypes.addressof(out)) == 0
         assert out.value == k10.cluster_shared_bytes(n)
     assert 1 <= k10.cluster_blocks(dev) <= k10.MAX_CLUSTER_BLOCKS
+
+
+# -- the captured trainers (`utils/capture.py`) ----------------------------------
+
+
+def _capture_case(dev, name):
+    """(run, eager, init, level, cfg, batch, steps) of a small captured trainer."""
+    sem = T.make_semantics(device=dev)
+    walls = builders.walls_and_goal_16x16(device=dev)
+    grids, start = M.generate_mazes_device(5, (4, 4), 512, "backtracker", device=dev)
+    mazes = T.Level(grid=grids, start_idx=start.expand(512).contiguous())
+    dqn_cfg = dict(buffer_capacity=4096, batch_size_train=128, max_episode_steps=64, hidden=(32,), learn_start=512)
+    cases = {
+        "dqn uniform": (dqn, walls, dqn.DQNConfig(**dqn_cfg), 1024, 12),
+        "dqn per": (dqn, walls, dqn.DQNConfig(**dqn_cfg, prioritized=True), 1024, 12),
+        "dqn mazes grid": (dqn, mazes, dqn.DQNConfig(**{**dqn_cfg, "learn_start": 0}, prioritized=True, obs="grid",
+                                                     conv_channels=(8,)), 512, 6),
+        "ppo target_kl": (ppo, walls, ppo.PPOConfig(rollout_len=4, max_episode_steps=32, hidden=(32,), num_epochs=2,
+                                                    num_minibatches=2, target_kl=0.002), 1024, 4),
+        "ppo mazes grid": (ppo, mazes, ppo.PPOConfig(rollout_len=4, max_episode_steps=32, obs="grid",
+                                                     conv_channels=(8,), hidden=(16,)), 512, 3),
+        "a2c": (a2c, walls, a2c.A2CConfig(rollout_len=4, max_episode_steps=32, hidden=(32,)), 1024, 4),
+    }
+    mod, level, cfg, b, steps = cases[name]
+    kind = mod.__name__.rsplit(".", 1)[1]
+    run, eager = getattr(mod, f"{kind}_run"), getattr(mod, f"_{kind}_run_eager")
+    return sem, run, eager, getattr(mod, f"{kind}_init"), level, cfg, b, steps
+
+
+def _state_tensors(ts) -> dict:
+    """Every tensor of a train state by name, and its ints."""
+    out = {}
+    for f in ts.__dataclass_fields__:
+        x = getattr(ts, f)
+        if isinstance(x, dict):
+            out.update({f"{f}.{k}": v for k, v in x.items()})
+        elif hasattr(x, "__dataclass_fields__"):
+            out.update({f"{f}.{k}": v for k, v in _state_tensors(x).items()})
+        elif isinstance(x, tuple):
+            out.update({f"{f}.{k}": v for k, v in x._asdict().items()})
+        else:
+            out[f] = x
+    return out
+
+
+def _assert_same_state(got, want):
+    a, b = _state_tensors(got), _state_tensors(want)
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], torch.Tensor):
+            assert a[k].device.type == "cuda" and a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+            assert torch.equal(_bits(a[k]), _bits(b[k])), k
+        else:
+            assert a[k] == b[k], k
+
+
+CAPTURE_CASES = ["dqn uniform", "dqn per", "dqn mazes grid", "ppo target_kl", "ppo mazes grid", "a2c"]
+
+
+@pytest.mark.parametrize("name", CAPTURE_CASES)
+def test_captured_run_equals_the_eager_loop(dev, name):
+    """One graph replay a step, the same launches as the eager loop's step,
+    and the same bits in every state field."""
+    sem, run, eager, init, level, cfg, b, steps = _capture_case(dev, name)
+    ts0 = init(sem, level, 3, cfg, b)
+    kernels.reset_launches()
+    capture.reset_counts()
+    got = run(sem, level, ts0, cfg, steps)
+    torch.cuda.synchronize()
+    captured = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert capture.COUNTS == {"captures": 1, "warmup_steps": capture.WARMUP_STEPS, "replays": steps}
+    record = capture.LAST[run.__name__]
+    assert record.replays == steps and record.capture_ms > 0 and record.pool_bytes > 0
+    kernels.reset_launches()
+    want = eager(sem, level, ts0, cfg, steps)
+    torch.cuda.synchronize()
+    plain = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert plain == {k: n * steps for k, n in record.launches.items()}
+    assert captured == {k: n * (steps + capture.WARMUP_STEPS) for k, n in record.launches.items()}
+    _assert_same_state(got, want)
+    _assert_same_state(ts0, init(sem, level, 3, cfg, b))  # the state given is not written
+
+
+@pytest.mark.parametrize("name", ["dqn per", "ppo target_kl", "a2c"])
+def test_captured_runs_are_chunk_invariant(dev, name):
+    sem, run, eager, init, level, cfg, b, steps = _capture_case(dev, name)
+    ts0 = init(sem, level, 3, cfg, b)
+    whole = run(sem, level, ts0, cfg, 2 * steps)
+    _assert_same_state(run(sem, level, run(sem, level, ts0, cfg, steps), cfg, steps), whole)
+    _assert_same_state(eager(sem, level, ts0, cfg, 2 * steps), whole)
+
+
+def test_repeated_captured_calls_give_their_memory_back(dev):
+    """A call releases the last call's graph and the warm-up's cached
+    blocks before it captures, so the card's reserved memory stays flat
+    over calls after the first (it grew by a graph pool a call before)."""
+    sem, run, eager, init, level, cfg, b, steps = _capture_case(dev, "ppo mazes grid")
+    ts0 = init(sem, level, 3, cfg, b)
+    reserved = []
+    for _ in range(5):
+        run(sem, level, ts0, cfg, 1)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+    assert len(set(reserved[1:])) == 1, reserved
+
+
+def test_captured_run_takes_injected_draws(dev):
+    sem, run, eager, init, level, cfg, b, steps = _capture_case(dev, "ppo target_kl")
+    ts0 = init(sem, level, 3, cfg, b)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    gumbel = a2c.draw_gumbel(gen, (steps, cfg.rollout_len, b, sem.num_actions), dev)
+    shuffle = torch.randint(0, b, (steps, cfg.num_epochs), generator=gen, device=dev)
+    got = run(sem, level, ts0, cfg, steps, gumbel=gumbel, shuffle_draws=shuffle)
+    _assert_same_state(got, eager(sem, level, ts0, cfg, steps, gumbel=gumbel, shuffle_draws=shuffle))
+    sem, run, eager, init, level, cfg, b, steps = _capture_case(dev, "dqn per")
+    ts0 = init(sem, level, 3, cfg, b)
+    draws = (torch.rand((steps, b), generator=gen, device=dev) < 0.3,
+             torch.randint(0, 4, (steps, b), generator=gen, device=dev, dtype=torch.int32),
+             a2c.draw_gumbel(gen, (steps, cfg.buffer_capacity), dev))
+    _assert_same_state(run(sem, level, ts0, cfg, steps, draws=draws), eager(sem, level, ts0, cfg, steps, draws=draws))
+
+
+def test_a_failing_capture_raises(dev):
+    """A body that makes a generator, which a capture refuses, raises; so
+    does one that reads a tensor on the host (in its warm-up); a later run
+    captures as usual."""
+    def program(body):
+        return lambda: capture.Program(body, seeds=lambda i: i)
+
+    def new_generator(xs, gen, inputs):
+        return [xs[0] + torch.rand(4, generator=torch.Generator(device=dev).manual_seed(1), device=dev)]
+
+    def host_read(xs, gen, inputs):
+        return [xs[0] + float(xs[0].sum())]
+
+    for body in (new_generator, host_read):
+        with pytest.raises(RuntimeError):
+            capture.run("failing", [torch.zeros(4, device=dev)], program(body), 3)
+    state = capture.run("ok", [torch.zeros(4, device=dev)],
+                        program(lambda xs, gen, inputs: [xs[0] + torch.rand(4, generator=gen, device=dev)]), 3)
+    want = sum(torch.rand(4, generator=torch.Generator(device=dev).manual_seed(i), device=dev) for i in range(3))
+    assert torch.equal(state[0], torch.zeros(4, device=dev) + want)
